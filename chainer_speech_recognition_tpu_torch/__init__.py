@@ -2,11 +2,14 @@
 
 The JAX package beside this one is the reference; module names mirror it
 so each counterpart is easy to find. This package imports ``torch`` and
-never ``jax`` or ``flax``: the JAX-free host modules of the reference
-(``constants``, ``config``, ``vocab``, ``utils/wav``, ``frontend/golden_np``,
-``data/synthetic``) are imported from it, not copied.
+never ``jax``, ``flax`` or anything of the JAX package: it keeps its own
+copies of the reference's JAX-free host modules (``constants``, ``config``,
+``vocab``, ``utils/wav``, ``frontend/golden_np``, ``data/*``,
+``decode/metrics``, ``train/metrics``), held to the originals by
+``tests/test_torch_copies.py``.
 
-Ported so far: the greedy serving path (wav → front-end → conv subsampler
-→ BiGRU stack → logits → greedy decode) behind ``cli/decode.py``, with the
-three hand-written Hopper kernels it runs in ``csrc/`` (see ``_kernels``).
+Ported so far, for the ``bigru`` preset on one card: the greedy serving
+path behind ``cli/decode.py`` and the training path behind ``cli/train.py``
+(stream data mode), on the hand-written Hopper kernels in ``csrc/`` (see
+``_kernels``).
 """

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-All ``.cu`` sources compile with ONE ``nvcc`` call into a shared library
+Each ``.cu`` source compiles with its own ``nvcc -c``, all started
+together, and one more ``nvcc`` links the objects into a shared library
 with a plain C interface, loaded with ``ctypes``; nothing includes
 PyTorch's headers, so the build takes seconds. The build runs at the first
 launch, into ``_build/`` beside this file (git-ignored), keyed by a hash of
@@ -31,7 +32,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,8 +63,17 @@ GRU_FWD = Kernel("csr_gru_fwd",
                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 GREEDY = Kernel("csr_greedy",
                 [_P, _P, _I, _I, _I, _P, _P, _P])
+GRU_FWD_TRAIN = Kernel("csr_gru_fwd_train",
+                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+GRU_BWD = Kernel("csr_gru_bwd",
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+CTC_FWD = Kernel("csr_ctc_fwd",
+                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+CTC_BWD = Kernel("csr_ctc_bwd",
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
-           "greedy": GREEDY}
+           "greedy": GREEDY, "gru_fwd_train": GRU_FWD_TRAIN,
+           "gru_bwd": GRU_BWD, "ctc_fwd": CTC_FWD, "ctc_bwd": CTC_BWD}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -112,15 +122,28 @@ def build() -> str:
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cu = [s for s in _sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for s, o in zip(cu, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = "".join(f"nvcc failed on {os.path.basename(s)} "
+                     f"({p.returncode}):\n{log}\n"
+                     for s, p, log in zip(cu, procs, logs) if p.returncode)
+    link = None if failed else subprocess.run(
+        [_nvcc(), "-shared", "-o", tmp, *objs], capture_output=True,
+        text=True)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    if failed or link.returncode != 0:
+        raise RuntimeError(failed or f"nvcc link failed ({link.returncode})"
+                           f":\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, so)
     build_info.update(path=so, seconds=time.perf_counter() - t0,
-                      cached=False, log=proc.stdout + proc.stderr)
+                      cached=False, log="".join(logs) + link.stdout
+                      + link.stderr)
     return so
 
 
@@ -152,3 +175,10 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_cpu_tensor(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on the CPU (where wrappers take the plain
+    versions)."""
+    if t.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {t.device}")

@@ -6,6 +6,13 @@ back.
 * BiRNN ``rec [ndir, H, G·H]`` is kept as it is (the kernel's layout);
 * module names are the same except ``ConvSubsampler_0`` ↔ ``subsampler``.
 
+The optimizer moments (adam ``mu``/``nu``, sgd ``trace``) mirror the
+parameters, so they map the same way: ``opt_state_to_flax`` and
+``opt_state_from_flax`` convert the port's optimizer state
+(``train/state.py``) to and from ``flax.serialization.to_state_dict`` of
+optax's state, where each moment is a ``{"params": tree}`` like
+``TrainState.params``.
+
 Unknown, missing or mis-shaped keys raise: a silently skipped tensor would
 serve garbage.
 """
@@ -90,3 +97,50 @@ def load_flax_params(model: torch.nn.Module, params: dict) -> None:
             raise ValueError(f"bridge: {k} has shape {tuple(v.shape)} in the "
                              f"checkpoint, {tuple(want[k].shape)} in the model")
     model.load_state_dict(sd, strict=True)
+
+
+_MOMENTS = ("mu", "nu", "trace")
+
+
+def opt_state_to_flax(opt_state: dict) -> dict:
+    """Port optimizer state → optax's state dict layout, numpy leaves:
+    moments become ``{"params": flax tree}``, counts int32 scalars."""
+    out = {}
+    for k, v in opt_state.items():
+        if k in _MOMENTS:
+            out[k] = {"params": state_dict_to_flax(v)}
+        elif isinstance(v, dict):
+            out[k] = opt_state_to_flax(v)
+        else:
+            out[k] = np.asarray(v.detach().cpu().numpy(), np.int32)
+    return out
+
+
+def opt_state_from_flax(tree: dict, like: dict) -> dict:
+    """Inverse of ``opt_state_to_flax``, strict against ``like`` (a port
+    optimizer state of the same optimizer and model): every key, moment
+    name and shape must match. Tensors land on ``like``'s devices."""
+    if set(tree) != set(like):
+        raise KeyError(f"bridge: optimizer state keys {sorted(tree)} do not "
+                       f"match {sorted(like)}")
+    out = {}
+    for k, ref in like.items():
+        v = tree[k]
+        if k in _MOMENTS:
+            sd = flax_to_state_dict(v["params"])
+            if set(sd) != set(ref):
+                raise KeyError(f"bridge: {k} moments mismatch; unknown "
+                               f"{sorted(set(sd) - set(ref))}, missing "
+                               f"{sorted(set(ref) - set(sd))}")
+            for n, t in sd.items():
+                if tuple(t.shape) != tuple(ref[n].shape):
+                    raise ValueError(f"bridge: {k}/{n} has shape "
+                                     f"{tuple(t.shape)}, expected "
+                                     f"{tuple(ref[n].shape)}")
+            out[k] = {n: t.to(ref[n].device) for n, t in sd.items()}
+        elif isinstance(ref, dict):
+            out[k] = opt_state_from_flax(v, ref)
+        else:
+            out[k] = torch.as_tensor(np.asarray(v, np.int32),
+                                     device=ref.device)
+    return out

@@ -1,15 +1,22 @@
-"""Reference checkpoints without JAX (port of the read side of
-``train/checkpoint.py`` and ``cli/evaluate.py::load_model_and_params``).
+"""Checkpoints without JAX (port of ``train/checkpoint.py`` and of
+``cli/evaluate.py::load_model_and_params``'s read side).
 
-A checkpoint directory holds ``step_XXXXXXXX.msgpack`` files written by
-``flax.serialization.to_bytes(TrainState)`` and the frozen ``config.json``.
-The msgpack reader and writer here use only the stdlib and numpy (the
-machine that serves may have neither ``msgpack`` nor ``flax``) and handle
-the subset flax emits: maps, arrays, str, bin, int, float, nil, bool, and
-the extension types 1 (ndarray = msgpack ``(shape, dtype name, C-order
-bytes)``) and 3 (numpy scalar, the same payload). Anything else raises.
-(flax splits leaves over 1 GiB into chunk dicts; no model here has one.)
-Only ``params`` is used.
+A checkpoint directory holds ``step_XXXXXXXX.msgpack`` files in the layout
+of ``flax.serialization.to_bytes(TrainState)`` and the frozen
+``config.json``. The msgpack reader and writer here use only the stdlib and
+numpy (the machine that trains may have neither ``msgpack`` nor ``flax``)
+and handle the subset flax emits: maps, arrays, str, bin, int, float, nil,
+bool, and the extension types 1 (ndarray = msgpack ``(shape, dtype name,
+C-order bytes)``) and 3 (numpy scalar, the same payload). Anything else
+raises. (flax splits leaves over 1 GiB into chunk dicts; no model here has
+one.)
+
+``save_checkpoint`` writes the whole train state — ``params`` as the flax
+tree, ``opt_state`` as ``to_state_dict`` of optax's state, ``step`` and
+``rng`` — so the reference's ``restore_checkpoint`` (and its evaluate and
+decode CLIs) load a port checkpoint, and ``restore_checkpoint`` resumes
+the port from either package's checkpoints. Writes are write-to-temp +
+rename; the last ``keep`` checkpoints are kept.
 """
 
 from __future__ import annotations
@@ -20,7 +27,9 @@ import struct
 
 import numpy as np
 
-from chainer_speech_recognition_tpu.config import Config
+from .bridge import (load_flax_params, opt_state_from_flax, opt_state_to_flax,
+                     state_dict_to_flax)
+from .config import Config
 
 _CKPT_RE = re.compile(r"^step_(\d{8,})\.msgpack$")
 _EXT_NDARRAY = 1
@@ -265,6 +274,12 @@ def load_params(ckpt_dir: str, average_last: int = 1) -> tuple[dict, str]:
     return _average(trees), f"avg[{','.join(names)}]"
 
 
+def _write_atomic(path: str, data: bytes) -> None:
+    with open(path + ".tmp", "wb") as f:
+        f.write(data)
+    os.replace(path + ".tmp", path)
+
+
 def save_params(ckpt_dir: str, params: dict, config: Config,
                 step: int = 0) -> str:
     """Write ``{"params": {"params": params}, "step": step}`` as
@@ -274,12 +289,45 @@ def save_params(ckpt_dir: str, params: dict, config: Config,
     this module, not resume training."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"step_{step:08d}.msgpack")
-    state = {"params": {"params": params},
-             "step": np.asarray(step, np.int32)}
-    for target, data in ((path, msgpack_serialize(state)),
-                         (os.path.join(ckpt_dir, "config.json"),
-                          config.to_json().encode())):
-        with open(target + ".tmp", "wb") as f:
-            f.write(data)
-        os.replace(target + ".tmp", target)
+    _write_atomic(path, msgpack_serialize(
+        {"params": {"params": params}, "step": np.asarray(step, np.int32)}))
+    _write_atomic(os.path.join(ckpt_dir, "config.json"),
+                  config.to_json().encode())
     return path
+
+
+def save_checkpoint(ckpt_dir: str, state, config: Config,
+                    keep: int = 3) -> str:
+    """Write ``state`` (``train/state.TrainState``) as
+    ``step_XXXXXXXX.msgpack``, rewrite ``config.json``, and delete all but
+    the newest ``keep`` checkpoints."""
+    if keep < 1:
+        raise ValueError(f"keep={keep}: must retain at least the checkpoint "
+                         "just written")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tree = {"params": {"params": state_dict_to_flax(state.model.state_dict())},
+            "opt_state": opt_state_to_flax(state.opt_state),
+            "step": np.asarray(state.step, np.int32),
+            "rng": np.asarray(state.rng, np.uint32)}
+    path = os.path.join(ckpt_dir, f"step_{state.step:08d}.msgpack")
+    _write_atomic(path, msgpack_serialize(tree))
+    _write_atomic(os.path.join(ckpt_dir, "config.json"),
+                  config.to_json().encode())
+    for old in list_checkpoints(ckpt_dir)[:-keep]:
+        os.remove(os.path.join(ckpt_dir, old))
+    return path
+
+
+def restore_checkpoint(path: str, state) -> None:
+    """Load a full checkpoint (written by either package) into ``state`` in
+    place: parameters, optimizer state (strict against the state's own
+    layout), step and rng."""
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    if "opt_state" not in tree:
+        raise ValueError(f"{path}: no optimizer state (a params-only "
+                         "serving checkpoint cannot resume training)")
+    load_flax_params(state.model, tree["params"]["params"])
+    state.opt_state = opt_state_from_flax(tree["opt_state"], state.opt_state)
+    state.step = int(tree["step"])
+    state.rng = np.asarray(tree["rng"], np.uint32)

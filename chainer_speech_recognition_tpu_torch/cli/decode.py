@@ -15,21 +15,20 @@ is not ported yet and is refused.
 from __future__ import annotations
 
 import argparse
-import json
 import wave
 
 import numpy as np
 import torch
 
-from chainer_speech_recognition_tpu import constants as C
-from chainer_speech_recognition_tpu.utils.wav import read_wav
-from chainer_speech_recognition_tpu.vocab import Vocab
-
+from .. import constants as C
 from ..bridge import load_flax_params
 from ..checkpoint import load_config, load_params
 from ..decode.greedy import greedy_decode
 from ..frontend import select_frontend
 from ..models.presets import build_model
+from ..utils.wav import read_wav
+from ..vocab import Vocab
+from .common import parse_overrides, resolve_device
 
 # execution-choice knobs: they pick a kernel or dtype and leave the
 # parameter layout alone, so --set may override them (evaluate.py rules)
@@ -59,16 +58,6 @@ def load_model(ckpt_dir: str, average_last: int = 1,
     model = build_model(cfg.model)
     load_flax_params(model, params)
     return cfg, model.to(device).eval(), path
-
-
-def resolve_device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available "
-                         "(pass --device cpu to decode on the CPU)")
-    if dev.type not in ("cuda", "cpu"):
-        raise SystemExit(f"--device {name}: expected cuda or cpu")
-    return dev
 
 
 def main(argv=None):
@@ -112,13 +101,7 @@ def main(argv=None):
         raise SystemExit("--batch must be >= 1")
     device = resolve_device(args.device)
 
-    overrides = {}
-    for kv in args.set:
-        key, _, val = kv.partition("=")
-        try:
-            overrides[key] = json.loads(val)
-        except json.JSONDecodeError:
-            overrides[key] = val
+    overrides = parse_overrides(args.set)
     cfg, model, _ = load_model(args.ckpt_dir, args.average_last, overrides,
                                device)
     vocab = Vocab.load(args.vocab)

@@ -1,7 +1,15 @@
-// Bidirectional GRU recurrence, inference (no residual streams).
+// Bidirectional GRU recurrence: inference, and the training forward that
+// also streams the gate residuals.
 //
-// Replaces ops/rnn_pallas.py::_gru_fwd_kernel in its residual-free form
-// (_fwd_impl(residuals=False), reached through birnn_pallas's primal).
+// Replaces ops/rnn_pallas.py::_gru_fwd_kernel in both forms: residual-free
+// (_fwd_impl(residuals=False), birnn_pallas's primal; entry csr_gru_fwd)
+// and with residuals (_fwd_impl(residuals=True), the custom VJP's forward;
+// entry csr_gru_fwd_train). The training form also writes, per step and
+// row, gates [T, R, 4H] = (r, z, n, hp_n) in the stream dtype, hp_n being
+// the recurrent n pre-activation h W_n; the backward kernel
+// (csrc/gru_bwd.cu) reads them instead of recomputing the gate matmul.
+// Both forms are one template (kGates), so the inference form compiles to
+// the same code as before the training form existed.
 //
 // Same boundary as the TPU kernel: xs [T, R=2B, 3H] in the stream dtype
 // (bf16 under bf16 compute, fp32 under fp32), w [2, H, 3H] already cast to
@@ -52,6 +60,15 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+template <typename S>
+__device__ __forceinline__ S from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // round an fp32 value to the compute dtype S (kept in an fp32 register)
 template <typename S>
 __device__ __forceinline__ float round_to(float v);
@@ -80,12 +97,13 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <typename S>
+template <typename S, bool kGates>
 __global__ void gru_fwd_kernel(const S* __restrict__ xs,
                                const S* __restrict__ w,
                                const float* __restrict__ lo,
                                const float* __restrict__ hi,
-                               float* __restrict__ ys, int T, int B, int H) {
+                               float* __restrict__ ys, S* __restrict__ gates,
+                               int T, int B, int H) {
   extern __shared__ float hs[];  // [2][kRows][H] compute-dtype h
   const int d = blockIdx.y;      // direction
   const int r0 = blockIdx.x * kRows;
@@ -164,8 +182,17 @@ __global__ void gru_fwd_kernel(const S* __restrict__ xs,
       const float n = tanhf(xn[r] + rg * an[r]);
       const float hn = (1.0f - z) * n + z * h[r];
       if (lo_r[r] <= tf && tf < hi_r[r]) h[r] = hn;
-      if (r < nrows)
-        ys[(static_cast<int64_t>(t) * R + d * B + r0 + r) * H + j] = h[r];
+      if (r < nrows) {
+        const int64_t row = static_cast<int64_t>(t) * R + d * B + r0 + r;
+        ys[row * H + j] = h[r];
+        if (kGates) {
+          S* gt = gates + row * 4 * H;
+          gt[j] = from_f32<S>(rg);
+          gt[H + j] = from_f32<S>(z);
+          gt[2 * H + j] = from_f32<S>(n);
+          gt[3 * H + j] = from_f32<S>(an[r]);
+        }
+      }
       hnext[r * H + j] = round_to<S>(h[r]);
     }
     __syncthreads();
@@ -173,14 +200,14 @@ __global__ void gru_fwd_kernel(const S* __restrict__ xs,
   }
 }
 
-template <typename S>
+template <typename S, bool kGates>
 int launch(const void* xs, const void* w, const float* lo, const float* hi,
-           float* ys, int T, int B, int H, cudaStream_t stream) {
+           float* ys, void* gates, int T, int B, int H, cudaStream_t stream) {
   const dim3 grid((B + kRows - 1) / kRows, 2);
   const size_t smem = 2 * kRows * H * sizeof(float);
-  gru_fwd_kernel<S><<<grid, H, smem, stream>>>(
-      static_cast<const S*>(xs), static_cast<const S*>(w), lo, hi, ys, T, B,
-      H);
+  gru_fwd_kernel<S, kGates><<<grid, H, smem, stream>>>(
+      static_cast<const S*>(xs), static_cast<const S*>(w), lo, hi, ys,
+      static_cast<S*>(gates), T, B, H);
   CSR_RETURN_LAUNCH_STATUS();
 }
 
@@ -193,6 +220,18 @@ CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
                         const float* hi, float* ys, int T, int B, int H,
                         int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16>(xs, w, lo, hi, ys, T, B, H, stream);
-  return launch<float>(xs, w, lo, hi, ys, T, B, H, stream);
+    return launch<__nv_bfloat16, false>(xs, w, lo, hi, ys, nullptr, T, B, H,
+                                        stream);
+  return launch<float, false>(xs, w, lo, hi, ys, nullptr, T, B, H, stream);
+}
+
+// As csr_gru_fwd, plus gates [T, 2B, 4H] in the stream dtype (the dtype of
+// xs) out: (r, z, n, hp_n) of every step, live or not.
+CSR_API int csr_gru_fwd_train(const void* xs, const void* w, const float* lo,
+                              const float* hi, float* ys, void* gates, int T,
+                              int B, int H, int bf16, cudaStream_t stream) {
+  if (bf16)
+    return launch<__nv_bfloat16, true>(xs, w, lo, hi, ys, gates, T, B, H,
+                                       stream);
+  return launch<float, true>(xs, w, lo, hi, ys, gates, T, B, H, stream);
 }

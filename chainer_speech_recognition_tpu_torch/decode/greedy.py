@@ -14,9 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from chainer_speech_recognition_tpu.constants import BLANK_ID, PAD_LABEL_ID
-
 from .. import _kernels
+from ..constants import BLANK_ID, PAD_LABEL_ID
 
 
 def best_keep_plain(logits: torch.Tensor, lengths: torch.Tensor):

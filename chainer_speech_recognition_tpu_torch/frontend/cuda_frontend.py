@@ -18,11 +18,9 @@ import functools
 import numpy as np
 import torch
 
-from chainer_speech_recognition_tpu import constants as C
-from chainer_speech_recognition_tpu.frontend.golden_np import (
-    hann_periodic, mel_filterbank)
-
 from .. import _kernels
+from .. import constants as C
+from .golden_np import hann_periodic, mel_filterbank
 from .torch_frontend import batch_features, logmel_from_extended
 
 _NBINS = 1 + C.N_FFT // 2                 # 257

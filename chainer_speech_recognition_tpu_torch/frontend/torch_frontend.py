@@ -19,9 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from chainer_speech_recognition_tpu import constants as C
-from chainer_speech_recognition_tpu.frontend.golden_np import (
-    hann_periodic, mel_filterbank)
+from .. import constants as C
+from .golden_np import hann_periodic, mel_filterbank
 
 __all__ = ["batch_features", "extend_signal", "frame_lengths",
            "logmel_from_extended", "postprocess_logmel"]

@@ -9,16 +9,23 @@ and the streaming call are not ported yet and raise.
 The port's state_dict names mirror the flax tree (``bridge.py`` maps one
 onto the other): ``subsampler.conv{i}`` ≘ ``ConvSubsampler_0/conv{i}``,
 ``birnn{i}.{in_fwd,in_bwd,rec}``, ``proj``, ``output``.
+
+``init_parameters`` draws a fresh model's weights from flax's default
+distributions (``train/state.py::init_state``): ``lecun_normal`` kernels,
+zero biases, ``orthogonal`` recurrent weights. The numbers are torch's,
+not JAX's (the two generators differ); tests that compare the packages
+inject the same weights through ``bridge.py``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
-from chainer_speech_recognition_tpu import constants as C
-from chainer_speech_recognition_tpu.config import ModelConfig
-
+from .. import constants as C
+from ..config import ModelConfig
 from .conv import ConvSubsampler, conv_out_features
 from .rnn import BiRNNLayer, linear, time_mask
 
@@ -83,3 +90,46 @@ class AcousticModel(nn.Module):
 
 def build_model(cfg: ModelConfig) -> AcousticModel:
     return AcousticModel(cfg)
+
+
+# stddev of a standard normal truncated to (-2, 2)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator):
+    """flax ``lecun_normal``: truncated normal on (-2, 2), scaled to
+    variance 1/fan_in."""
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    t.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+
+
+def _orthogonal_(t: torch.Tensor, gen: torch.Generator):
+    """jax ``orthogonal()`` with ``column_axis=-1``: the tensor viewed as a
+    [numel/cols, cols] matrix has orthonormal rows or columns (whichever
+    side is smaller)."""
+    cols = t.shape[-1]
+    rows = t.numel() // cols
+    a = torch.randn(max(rows, cols), min(rows, cols), generator=gen,
+                    dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    if rows < cols:
+        q = q.T
+    t.copy_(q.reshape(t.shape))
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, seed: int) -> None:
+    """Draw every parameter from flax's default initializers, with a
+    ``torch.Generator`` seeded by ``seed`` (``train.seed``)."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in model.named_parameters():
+        if name.endswith(".bias"):
+            p.zero_()
+        elif name.endswith(".rec"):
+            _orthogonal_(p, gen)
+        elif p.dim() in (2, 4):         # Linear [out, in], Conv [out, in, k, k]
+            _lecun_normal_(p, p[0].numel(), gen)
+        else:
+            raise KeyError(f"init_parameters: no rule for {name} "
+                           f"{tuple(p.shape)}")

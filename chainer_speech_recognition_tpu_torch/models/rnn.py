@@ -9,10 +9,15 @@ reversal; both directions run as one ``[T, 2B, 3H]`` recurrence
 (``ops/rnn_cuda.gru_scan``), the backward half is reversed back, and the
 output is masked.
 
-``impl``: "auto" and "pallas" take the kernel's wrapper (the kernel on
-CUDA tensors, its plain version on CPU tensors); "scan" takes the plain
-version on either device. LSTM cells, forward-only stacks and the
-streaming call (``h0_fwd``/``emit_carry_at``) are not ported yet.
+``impl``: "auto" and "pallas" take the kernels' wrappers (the kernels on
+CUDA tensors, their plain versions on CPU tensors): ``BiGRUScan`` (the
+training forward that keeps the gate residuals, and the backward kernel)
+when autograd will differentiate the layer, otherwise the residual-free
+forward, as ``birnn_pallas``'s primal-only call skips the residual
+streams. "scan" takes the plain forward on either device and lets
+autograd differentiate it, as the reference's ``lax.scan`` path does.
+LSTM cells, forward-only stacks and the streaming call
+(``h0_fwd``/``emit_carry_at``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.rnn_cuda import gru_scan, gru_scan_plain, stream_dtype
+from ..ops.rnn_cuda import BiGRUScan, gru_scan, gru_scan_plain, stream_dtype
 
 __all__ = ["BiRNNLayer", "linear", "time_mask"]
 
@@ -75,8 +80,13 @@ class BiRNNLayer(nn.Module):
         lens_f = lengths.to(torch.float32)
         lo = torch.cat([torch.zeros_like(lens_f), T - lens_f])[:, None]
         hi = torch.cat([lens_f, torch.full_like(lens_f, T)])[:, None]
-        scan = gru_scan_plain if self.impl == "scan" else gru_scan
-        ys = scan(xs, self.rec, lo, hi, self.dtype)         # [T, 2B, H]
+        if self.impl == "scan":
+            ys = gru_scan_plain(xs, self.rec, lo, hi, self.dtype)
+        elif torch.is_grad_enabled() and (xs.requires_grad
+                                          or self.rec.requires_grad):
+            ys = BiGRUScan.apply(xs, self.rec, lo, hi, self.dtype)
+        else:
+            ys = gru_scan(xs, self.rec, lo, hi, self.dtype)  # [T, 2B, H]
         fwd = ys[:, :B].transpose(0, 1)                     # [B, T, H]
         bwd = ys.flip(0)[:, B:].transpose(0, 1)
         out = torch.cat([fwd, bwd], dim=-1)

@@ -1,8 +1,7 @@
-"""Bidirectional GRU recurrence kernel (``csrc/gru_fwd.cu``), inference.
+"""Bidirectional GRU recurrence kernels (``csrc/gru_fwd.cu``,
+``csrc/gru_bwd.cu``) and their autograd Function.
 
-Port of ``ops/rnn_pallas.py``'s residual-free GRU forward (what
-``birnn_pallas`` runs when nothing differentiates it), with the same
-layout:
+Port of ``ops/rnn_pallas.py``'s GRU half, with the same layout:
 
   xs    [T, R=2B, 3H] stream dtype — input pre-activations; rows [0, B) are
                          the forward direction (use w[0]), rows [B, 2B) the
@@ -10,15 +9,24 @@ layout:
   w     [2, H, 3H]    fp32 — recurrent weights per direction
   lo/hi [R, 1]        fp32 — step t is live for a row iff lo ≤ t < hi
   ys    [T, R, H]     fp32 — the carries h, frozen outside [lo, hi)
+  gates [T, R, 4H]    stream dtype — (r, z, n, hp_n) per step (training)
 
-The stream dtype is bf16 under bf16 compute and fp32 under fp32 compute
-(``stream_dtype``, as ``rnn_pallas._stream_dt``). The recurrent product
-rounds h and w to the compute dtype and accumulates in fp32; carries and
-gate math are fp32.
+The stream dtype is bf16 under bf16 compute and the compute dtype
+otherwise (``stream_dtype``, as ``rnn_pallas._stream_dt``). The recurrent
+products round their operands to the compute dtype and accumulate in fp32;
+carries and gate math are fp32 (fp64 when the compute dtype is fp64, which
+only the tests use).
 
-``gru_scan`` launches the kernel for CUDA tensors and runs the plain
-version (a Python time loop, the ``lax.scan`` path of ``models/rnn.py`` on
-the kernel's layout) for CPU tensors.
+Three kernels, each with its wrapper (the kernel for CUDA tensors, the
+plain version for CPU tensors):
+
+* ``gru_scan``: the residual-free forward (``birnn_pallas``'s primal);
+* ``gru_scan_train``: the forward that also writes ``gates``;
+* ``gru_bwd``: the reverse-time gradient walk, → (dxs, dhn).
+
+``BiGRUScan`` is ``birnn_pallas``'s custom VJP: ``gru_scan_train`` forward,
+``gru_bwd`` backward, then dW = Σ_t h_prevᵀ·(dr, dz, dhn) as two matmuls
+with compute-dtype operands and fp32 accumulation (``_dw_einsum``).
 """
 
 from __future__ import annotations
@@ -29,59 +37,159 @@ from .. import _kernels
 
 
 def stream_dtype(compute_dtype: torch.dtype) -> torch.dtype:
-    return torch.float32 if compute_dtype == torch.float32 else torch.bfloat16
+    return torch.bfloat16 if compute_dtype == torch.bfloat16 else compute_dtype
+
+
+def _acc_dtype(compute_dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(compute_dtype, torch.float32)
+
+
+def _gru_step(xp, hp, h, H):
+    r = torch.sigmoid(xp[:, :H] + hp[:, :H])
+    z = torch.sigmoid(xp[:, H:2*H] + hp[:, H:2*H])
+    n = torch.tanh(xp[:, 2*H:] + r * hp[:, 2*H:])
+    return r, z, n, (1.0 - z) * n + z * h
+
+
+def _scan(xs, w, lo, hi, compute_dtype, gates: bool):
+    T, R, _ = xs.shape
+    H = w.shape[1]
+    B = R // 2
+    acc = _acc_dtype(compute_dtype)
+    wc = w.to(compute_dtype).to(acc)                        # [2, H, 3H]
+    h = torch.zeros((R, H), dtype=acc, device=xs.device)
+    ys = torch.empty((T, R, H), dtype=acc, device=xs.device)
+    gs = (torch.empty((T, R, 4 * H), dtype=xs.dtype, device=xs.device)
+          if gates else None)
+    for t in range(T):
+        hc = h.to(compute_dtype).to(acc)
+        hp = torch.cat([hc[:B] @ wc[0], hc[B:] @ wc[1]], dim=0)
+        r, z, n, h_new = _gru_step(xs[t].to(acc), hp, h, H)
+        valid = (lo <= t) & (t < hi)                       # [R, 1]
+        h = torch.where(valid, h_new, h)
+        ys[t] = h
+        if gates:
+            gs[t] = torch.cat([r, z, n, hp[:, 2*H:]], dim=1).to(xs.dtype)
+    return ys, gs
 
 
 def gru_scan_plain(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
                    hi: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (any device)."""
-    T, R, _ = xs.shape
-    H = w.shape[1]
-    B = R // 2
-    wc = w.to(compute_dtype).to(torch.float32)             # [2, H, 3H]
-    h = torch.zeros((R, H), dtype=torch.float32, device=xs.device)
-    ys = torch.empty((T, R, H), dtype=torch.float32, device=xs.device)
-    for t in range(T):
-        hc = h.to(compute_dtype).to(torch.float32)
-        hp = torch.cat([hc[:B] @ wc[0], hc[B:] @ wc[1]], dim=0)
-        xp = xs[t].to(torch.float32)
-        r = torch.sigmoid(xp[:, :H] + hp[:, :H])
-        z = torch.sigmoid(xp[:, H:2*H] + hp[:, H:2*H])
-        n = torch.tanh(xp[:, 2*H:] + r * hp[:, 2*H:])
-        h_new = (1.0 - z) * n + z * h
-        valid = (lo <= t) & (t < hi)                       # [R, 1]
-        h = torch.where(valid, h_new, h)
-        ys[t] = h
-    return ys
+    """Plain PyTorch version of the residual-free kernel (any device;
+    autograd can differentiate it)."""
+    return _scan(xs, w, lo, hi, compute_dtype, gates=False)[0]
 
 
-def gru_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
-                  hi: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
-    """Kernel launch (CUDA tensors only; raises on shapes it does not take)."""
-    T, R, G = xs.shape
+def gru_scan_train_plain(xs, w, lo, hi, compute_dtype):
+    """Plain version of the training forward: (ys, gates)."""
+    return _scan(xs, w, lo, hi, compute_dtype, gates=True)
+
+
+def gru_bwd_plain(gates, w, lo, hi, h_prev, g, compute_dtype):
+    """Plain version of the backward kernel: (dxs [T,R,3H], dhn [T,R,H])
+    in the stream dtype, given the incoming gradient ``g`` of ys."""
+    T, R, _ = gates.shape
     H = w.shape[1]
     B = R // 2
+    acc = _acc_dtype(compute_dtype)
+    wc = w.to(compute_dtype).to(acc)
+    dh = torch.zeros((R, H), dtype=acc, device=gates.device)
+    dxs = torch.empty((T, R, 3 * H), dtype=gates.dtype, device=gates.device)
+    dhn = torch.empty((T, R, H), dtype=gates.dtype, device=gates.device)
+    for t in reversed(range(T)):
+        gt = gates[t].to(acc)
+        r, z, n, hn = gt[:, :H], gt[:, H:2*H], gt[:, 2*H:3*H], gt[:, 3*H:]
+        dh_total = g[t].to(acc) + dh
+        dz = dh_total * (h_prev[t].to(acc) - n) * z * (1.0 - z)
+        dn = dh_total * (1.0 - z) * (1.0 - n * n)
+        dr = dn * hn * r * (1.0 - r)
+        dhn_t = dn * r
+        dhp = torch.cat([dr, dz, dhn_t], dim=1).to(compute_dtype).to(acc)
+        dh_prev = dh_total * z + torch.cat(
+            [dhp[:B] @ wc[0].T, dhp[B:] @ wc[1].T], dim=0)
+        valid = (lo <= t) & (t < hi)
+        dxs[t] = torch.where(valid, torch.cat([dr, dz, dn], dim=1),
+                             0.0).to(gates.dtype)
+        dhn[t] = torch.where(valid, dhn_t, 0.0).to(gates.dtype)
+        dh = torch.where(valid, dh_prev, dh_total)
+    return dxs, dhn
+
+
+def _check_sizes(T: int, R: int, H: int, compute_dtype) -> torch.dtype:
+    """Raise unless the kernels take these sizes; → the stream dtype."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"gru kernel: compute dtype {compute_dtype} is not "
                          "supported (float32 or bfloat16)")
-    if R % 2 or B < 1 or T < 1:
+    if R % 2 or R < 2 or T < 1:
         raise ValueError(f"gru kernel: need T >= 1 and an even R >= 2 "
                          f"(got T={T}, R={R})")
     if H % 32 or not 32 <= H <= 512:
         raise ValueError(f"gru kernel: hidden size {H} unsupported (one "
                          "thread per unit: 32 <= H <= 512, H % 32 == 0)")
-    sdt = stream_dtype(compute_dtype)
-    _kernels.check_cuda_tensor("xs", xs, sdt, (T, R, 3 * H))
+    return stream_dtype(compute_dtype)
+
+
+def _check_weights(w, lo, hi, R: int, H: int) -> None:
     _kernels.check_cuda_tensor("w", w, torch.float32, (2, H, 3 * H))
     _kernels.check_cuda_tensor("lo", lo, torch.float32, (R, 1))
     _kernels.check_cuda_tensor("hi", hi, torch.float32, (R, 1))
+
+
+def _check_scan(xs, w, lo, hi, compute_dtype):
+    T, R, _ = xs.shape
+    H = w.shape[1]
+    sdt = _check_sizes(T, R, H, compute_dtype)
+    _kernels.check_cuda_tensor("xs", xs, sdt, (T, R, 3 * H))
+    _check_weights(w, lo, hi, R, H)
+    return T, R // 2, H, sdt
+
+
+def gru_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
+                  hi: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """Residual-free kernel launch (CUDA tensors only; raises on shapes it
+    does not take)."""
+    T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype)
     wk = w.to(compute_dtype).contiguous()
-    ys = torch.empty((T, R, H), dtype=torch.float32, device=xs.device)
+    ys = torch.empty((T, 2 * B, H), dtype=torch.float32, device=xs.device)
     _kernels.GRU_FWD.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         ys.data_ptr(), T, B, H, int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(xs))
     return ys
+
+
+def gru_scan_train_cuda(xs, w, lo, hi, compute_dtype):
+    """Training forward launch: (ys, gates); CUDA tensors only."""
+    T, B, H, sdt = _check_scan(xs, w, lo, hi, compute_dtype)
+    wk = w.to(compute_dtype).contiguous()
+    ys = torch.empty((T, 2 * B, H), dtype=torch.float32, device=xs.device)
+    gates = torch.empty((T, 2 * B, 4 * H), dtype=sdt, device=xs.device)
+    _kernels.GRU_FWD_TRAIN.launch(
+        xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        ys.data_ptr(), gates.data_ptr(), T, B, H,
+        int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
+    return ys, gates
+
+
+def gru_bwd_cuda(gates, w, lo, hi, h_prev, g, compute_dtype):
+    """Backward kernel launch: (dxs, dhn); CUDA tensors only. W is passed
+    transposed per direction ([2, 3H, H]) so the kernel's reads coalesce."""
+    T, R, _ = gates.shape
+    H = w.shape[1]
+    sdt = _check_sizes(T, R, H, compute_dtype)
+    _check_weights(w, lo, hi, R, H)
+    _kernels.check_cuda_tensor("gates", gates, sdt, (T, R, 4 * H))
+    _kernels.check_cuda_tensor("h_prev", h_prev, torch.float32, (T, R, H))
+    _kernels.check_cuda_tensor("g", g, torch.float32, (T, R, H))
+    wt = w.to(compute_dtype).transpose(1, 2).contiguous()
+    dxs = torch.empty((T, R, 3 * H), dtype=sdt, device=gates.device)
+    dhn = torch.empty((T, R, H), dtype=sdt, device=gates.device)
+    _kernels.GRU_BWD.launch(
+        gates.data_ptr(), wt.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        h_prev.data_ptr(), g.data_ptr(), dxs.data_ptr(), dhn.data_ptr(),
+        T, R // 2, H, int(compute_dtype == torch.bfloat16),
+        _kernels.stream_ptr(gates))
+    return dxs, dhn
 
 
 def gru_scan(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
@@ -90,6 +198,67 @@ def gru_scan(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
     kernel on the card, the plain version on the CPU."""
     if xs.is_cuda:
         return gru_scan_cuda(xs, w, lo, hi, compute_dtype)
-    if xs.device.type != "cpu":
-        raise ValueError(f"gru_scan: unsupported device {xs.device}")
+    _kernels.check_cpu_tensor("gru_scan", xs)
     return gru_scan_plain(xs, w, lo, hi, compute_dtype)
+
+
+def gru_scan_train(xs, w, lo, hi, compute_dtype):
+    """(ys, gates): the training-forward kernel on the card, the plain
+    version on the CPU."""
+    if xs.is_cuda:
+        return gru_scan_train_cuda(xs, w, lo, hi, compute_dtype)
+    _kernels.check_cpu_tensor("gru_scan_train", xs)
+    return gru_scan_train_plain(xs, w, lo, hi, compute_dtype)
+
+
+def gru_bwd(gates, w, lo, hi, h_prev, g, compute_dtype):
+    """(dxs, dhn): the backward kernel on the card, the plain version on
+    the CPU."""
+    if gates.is_cuda:
+        return gru_bwd_cuda(gates, w, lo, hi, h_prev.contiguous(),
+                            g.contiguous(), compute_dtype)
+    _kernels.check_cpu_tensor("gru_bwd", gates)
+    return gru_bwd_plain(gates, w, lo, hi, h_prev, g, compute_dtype)
+
+
+def shift_prev(ys: torch.Tensor) -> torch.Tensor:
+    """h_prev stream: [0, ys[0], ..., ys[T-2]]."""
+    return torch.cat([torch.zeros_like(ys[:1]), ys[:-1]], dim=0)
+
+
+def dw_matmul(h_prev, dgate, B: int, compute_dtype):
+    """dW[d] = Σ_t h_prev[t, d-rows]ᵀ · dgate[t, d-rows] → [2, H, G] with
+    compute-dtype operands and fp32 accumulation (``_dw_einsum``): the
+    operands are rounded to the compute dtype and multiplied in fp32, where
+    a product of two bf16 values is exact."""
+    acc = _acc_dtype(compute_dtype)
+    hp = h_prev.to(compute_dtype).to(acc)
+    dg = dgate.to(compute_dtype).to(acc)
+    H, G = hp.shape[-1], dg.shape[-1]
+    return torch.stack([
+        hp[:, :B].reshape(-1, H).T @ dg[:, :B].reshape(-1, G),
+        hp[:, B:].reshape(-1, H).T @ dg[:, B:].reshape(-1, G)])
+
+
+class BiGRUScan(torch.autograd.Function):
+    """``birnn_pallas`` with its custom VJP: ys from (xs, w); gradients
+    for xs (in the stream dtype) and w (fp32)."""
+
+    @staticmethod
+    def forward(ctx, xs, w, lo, hi, compute_dtype):
+        ys, gates = gru_scan_train(xs, w, lo, hi, compute_dtype)
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(w, lo, hi, ys, gates)
+        return ys
+
+    @staticmethod
+    def backward(ctx, gy):
+        w, lo, hi, ys, gates = ctx.saved_tensors
+        cdt = ctx.compute_dtype
+        H = w.shape[1]
+        B = ys.shape[1] // 2
+        h_prev = shift_prev(ys)
+        dxs, dhn = gru_bwd(gates, w, lo, hi, h_prev, gy.to(ys.dtype), cdt)
+        dw = torch.cat([dw_matmul(h_prev, dxs[..., :2 * H], B, cdt),
+                        dw_matmul(h_prev, dhn, B, cdt)], dim=2)
+        return dxs, dw.to(w.dtype), None, None, None

@@ -1,29 +1,44 @@
 """Smoke run of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
-Drives the port's serving path (``chainer_speech_recognition_tpu_torch``)
-at the full width of the ``bigru`` preset with random weights made from a
-seed, and fails (exit code != 0, no result line) if any phase fails:
+Drives the port (``chainer_speech_recognition_tpu_torch``) at the full
+width of the ``bigru`` preset with random weights made from a seed, and
+fails (exit code != 0, no result line) if any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
 2. build: compiles every kernel in ``csrc/`` from the checkout (nvcc);
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the decode path gives it (32 wavs of 10 s), with the stated
-   tolerances, and both timed with CUDA events (warm, median);
+3. decode kernels: each against its plain PyTorch version at the decode
+   path's shapes (32 wavs of 10 s), with the stated tolerances, timed with
+   CUDA events (warm, median) beside the library call that computes the
+   same function (where there is one) and the least time the card could
+   take (bytes over HBM rate or operations over peak, the larger);
 4. inputs: a ``bigru`` checkpoint (config.json + msgpack params written by
    the port's own writer), a 63-symbol vocab and 64 synthetic wavs of
    8-10 s;
 5. decode: the port's decode CLI on the 64 wavs (two chunks of 32) on the
-   card; every kernel must show launches from that run; a second, warm run
-   gives utterances per second and the real-time factor;
+   card; every decode kernel must show launches from that run; a second,
+   warm run gives utterances per second and the real-time factor;
 6. CPU parity: 4 of the wavs through the same checkpoint on the CPU (the
    kernels' plain versions): finite logits of the same shape within the
-   bf16 bar of the card's.
+   bf16 bar of the card's;
+7. training kernels: the GRU training forward and backward and the CTC
+   alpha and beta kernels against their plain versions (every output) at the training
+   path's shapes (24 utterances of 9-10 s in the 1024-frame bucket), timed
+   as in phase 3;
+8. train: a synthetic corpus (192 + 24 utterances of 9-10 s) through the
+   port's train CLI on the card, 16 steps with dev eval and checkpoints
+   every 8; every training kernel must show launches from that run; the
+   last checkpoint decodes through the decode CLI; a second run resumes at
+   step 16 and stops at 20; prints the warm step time, utterances per
+   second, the device's busy share over the profiled steps 10-14 (counted
+   from 0) beside the profiler's overhead, and the peak memory;
+9. train parity: one step from the same weights and batch on the card and
+   on the CPU: loss within rtol 1e-4, per-parameter gradients within the
+   bf16 bar.
 
 The last two lines of stdout are the kernel table and the device line as
-JSON. Only JAX-free host modules of the reference package are imported
-(config, vocab, wav I/O, synthetic audio); the run checks at the end that
-no ``jax``/``flax`` module was loaded.
+JSON. Nothing of JAX or of the JAX package is imported; the run checks at
+the end that no such module was loaded.
 """
 
 from __future__ import annotations
@@ -44,11 +59,20 @@ PRESET = "bigru"
 SEED = 0
 N_WAVS, BATCH = 64, 32
 WAV_SECONDS = (8.0, 10.0)
-CHECK_B, CHECK_SECONDS = 32, 10.0     # kernel-check shapes: one full chunk
+CHECK_B, CHECK_SECONDS = 32, 10.0     # decode kernel checks: one full chunk
 PARITY_WAVS = 4
+TRAIN_UTTS, DEV_UTTS = 192, 24        # 9-10 s: all in the 1024-frame bucket
+TRAIN_SECONDS = (9.0, 10.0)
+TRAIN_B, TRAIN_FRAMES = 24, 1024      # that bucket's batch and frame count
+TRAIN_STEPS, RESUME_STEPS, EVERY = 16, 20, 8
 TOL = {"frontend_logmel": 5e-4,       # tests/test_pallas_frontend.py:34
        "gru_bf16": 3e-2,              # tests/test_rnn_pallas.py:81
        "gru_fp32": 1e-4,
+       "gru_grad_bf16": 5e-2,         # tests/test_rnn_pallas.py:88
+       "ctc_loss_rtol": 1e-5,         # tests/test_ctc_pallas.py:35-42
+       "ctc_alpha_atol": 1e-4,
+       "ctc_grad": 2e-4,
+       "train_loss_rtol": 1e-4,       # ~80x the 1.2e-6 measured on an H100
        "greedy": 0}                   # exact
 MIN_LAUNCHES = {"frontend_logmel": 2, "gru_fwd": 6, "greedy": 2}
 SOURCES = {
@@ -61,7 +85,22 @@ SOURCES = {
     "greedy": (
         "chainer_speech_recognition_tpu_torch/csrc/greedy.cu",
         "chainer_speech_recognition_tpu/decode/greedy_pallas.py:26"),
+    "gru_fwd_train": (
+        "chainer_speech_recognition_tpu_torch/csrc/gru_fwd.cu",
+        "chainer_speech_recognition_tpu/ops/rnn_pallas.py:79"),
+    "gru_bwd": (
+        "chainer_speech_recognition_tpu_torch/csrc/gru_bwd.cu",
+        "chainer_speech_recognition_tpu/ops/rnn_pallas.py:103"),
+    "ctc_fwd": (
+        "chainer_speech_recognition_tpu_torch/csrc/ctc.cu",
+        "chainer_speech_recognition_tpu/ops/ctc_pallas.py:59"),
+    "ctc_bwd": (
+        "chainer_speech_recognition_tpu_torch/csrc/ctc.cu",
+        "chainer_speech_recognition_tpu/ops/ctc_pallas.py:101"),
 }
+# H100 SXM datasheet: HBM bytes/s, dense peak FLOP/s
+HBM_RATE = 3.35e12
+PEAK = {"bf16": 989e12, "fp32": 67e12}
 
 
 class SmokeFailure(Exception):
@@ -91,8 +130,22 @@ def time_ms(fn, warmup: int = 2, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float, kind: str) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak of their type, whichever is larger."""
+    t_bytes = nbytes / HBM_RATE * 1e3
+    t_ops = flops / PEAK[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def synth_signal(rng, seconds: float, vocab_size: int) -> np.ndarray:
-    from chainer_speech_recognition_tpu.data.synthetic import make_utterance
+    from chainer_speech_recognition_tpu_torch.data.synthetic import (
+        make_utterance)
 
     n = int(round(seconds * 10))            # 1600-sample tones: 10 per s
     ids = [int(k) for k in rng.integers(1, vocab_size, n)]
@@ -113,6 +166,48 @@ def random_state_dict(model, rng) -> dict:
             sd[k] = rng.standard_normal(shape) / np.sqrt(fan_in)
         sd[k] = sd[k].astype(np.float32)
     return sd
+
+
+def gru_rows(lens_f, T: int, dev):
+    """(lo, hi) [2B, 1] of a BiGRU layer for subsampled lengths."""
+    import torch
+
+    B = lens_f.shape[0]
+    lo = torch.cat([torch.zeros(B), T - lens_f])[:, None].to(dev)
+    hi = torch.cat([lens_f, torch.full((B,), float(T))])[:, None].to(dev)
+    return lo, hi
+
+
+def library_gru(dev, T: int, B: int, H: int, lens, dtype):
+    """cuDNN's bidirectional GRU over packed sequences (b_hh = 0; gate
+    order r, z, n and r ⊙ (W_hn h) as the port's): the yardstick for the
+    GRU kernels. → (forward ms, training-forward ms, backward ms)."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    gru = torch.nn.GRU(2 * H, H, bidirectional=True).to(dev, dtype)
+    gru.flatten_parameters()
+    with torch.no_grad():
+        gru.bias_hh_l0.zero_()
+        gru.bias_hh_l0_reverse.zero_()
+    x = torch.randn(T, B, 2 * H, device=dev, dtype=dtype)
+    packed = pack_padded_sequence(x, lens.cpu(), enforce_sorted=False)
+    packed_g = packed._replace(data=packed.data.clone().requires_grad_())
+
+    def fwd():
+        with torch.no_grad():
+            gru(packed)
+
+    def fwd_train():
+        gru(packed_g)
+
+    def fwd_bwd():
+        out, _ = gru(packed_g)
+        out.data.sum().backward()
+
+    t_fwd = time_ms(fwd)
+    t_train = time_ms(fwd_train)
+    return t_fwd, t_train, time_ms(fwd_bwd) - t_train
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +246,11 @@ def phase_build() -> None:
 
 
 def phase_kernels(dev, rng) -> dict:
-    """Each kernel vs its plain version at the decode path's shapes."""
+    """Each decode-path kernel vs its plain version at the decode shapes."""
     import torch
 
-    from chainer_speech_recognition_tpu import constants as C
-    from chainer_speech_recognition_tpu.config import preset_config
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
     from chainer_speech_recognition_tpu_torch.decode.greedy import (
         best_keep_cuda, best_keep_plain)
     from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
@@ -190,9 +285,13 @@ def phase_kernels(dev, rng) -> dict:
           f"{tuple(got.shape)}: max abs {err:.3e} (tol {TOL['frontend_logmel']})")
     check(bool(torch.isfinite(got).all()), "frontend_logmel: non-finite")
     check(err <= TOL["frontend_logmel"], "frontend_logmel disagrees")
+    # the kernel's work: a dense fp32 DFT (2·512·514 flops a frame) + mel
+    nb = C.N_FFT // 2 + 1
+    flops = CHECK_B * T * (2 * C.N_FFT * 2 * nb + 2 * nb * C.N_MELS)
     out["frontend_logmel"] = dict(
         max_abs_err=err, ms=time_ms(lambda: fused_logmel_rows_cuda(ext, T)),
-        plain_ms=time_ms(lambda: logmel_from_extended(ext, T)))
+        plain_ms=time_ms(lambda: logmel_from_extended(ext, T)),
+        library_ms=None, **bound(nbytes(ext, got), flops, "fp32"))
 
     # GRU: [T', 2B, 3H] at the subsampled length of 10 s
     Tp = T
@@ -202,13 +301,13 @@ def phase_kernels(dev, rng) -> dict:
     flen = torch.from_numpy(lens // C.HOP_LENGTH + 1)
     for s in mcfg.conv_stride_time:
         flen = conv_out_length(flen, s)
-    lens_f = flen.to(torch.float32)
-    lo = torch.cat([torch.zeros(B), Tp - lens_f])[:, None].to(dev)
-    hi = torch.cat([lens_f, torch.full((B,), float(Tp))])[:, None].to(dev)
+    lo, hi = gru_rows(flen.to(torch.float32), Tp, dev)
     w = torch.from_numpy((rng.standard_normal((2, H, 3 * H))
                           / np.sqrt(H)).astype(np.float32)).to(dev)
     xs32 = torch.from_numpy(rng.standard_normal(
         (Tp, 2 * B, 3 * H)).astype(np.float32)).to(dev)
+    live = 2 * int(flen.sum())               # live (row, step) pairs
+    lib_fwd, _, _ = library_gru(dev, Tp, B, H, flen, torch.bfloat16)
     for tag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         xs = xs32.to(torch.bfloat16) if tag == "bf16" else xs32
         got = gru_scan_cuda(xs, w, lo, hi, cdt)
@@ -220,13 +319,19 @@ def phase_kernels(dev, rng) -> dict:
               f"{err:.3e} (tol {tol})")
         check(bool(torch.isfinite(got).all()), f"gru_fwd {tag}: non-finite")
         check(err <= tol, f"gru_fwd {tag} disagrees")
+        xs_live = live * 3 * H * xs.element_size()
+        w_bytes = w.numel() * xs.element_size()
         timing = dict(
             max_abs_err=err,
             ms=time_ms(lambda: gru_scan_cuda(xs, w, lo, hi, cdt)),
             plain_ms=time_ms(lambda: gru_scan_plain(xs, w, lo, hi, cdt),
-                             warmup=1, reps=3))
+                             warmup=1, reps=3),
+            library_ms=lib_fwd,
+            **bound(xs_live + w_bytes + nbytes(got, lo, hi),
+                    2 * live * H * 3 * H, tag))
         print(f"[kernels] gru_fwd {tag}: {timing['ms']:.3f} ms, plain "
-              f"{timing['plain_ms']:.3f} ms")
+              f"{timing['plain_ms']:.3f} ms, cuDNN GRU (bf16, with input "
+              f"projection) {lib_fwd:.3f} ms")
         if cdt == torch.bfloat16:       # the preset's compute dtype
             out["gru_fwd"] = timing
 
@@ -252,24 +357,197 @@ def phase_kernels(dev, rng) -> dict:
     check(mism == 0, "greedy disagrees with its plain version")
     check(int(kb[1, 2]) == 0 and int(kb[1, 5]) == 0 and int(kb[0, 3]) == 5,
           "greedy: NaN/tie rule broken")
-    out["greedy"] = dict(max_abs_err=float(mism),
-                         ms=time_ms(lambda: best_keep_cuda(lg, gl)),
-                         plain_ms=time_ms(lambda: best_keep_plain(lg, gl)))
-    for name, t in out.items():
-        print(f"[kernels] {name}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}"
-              f" ms, max abs {t['max_abs_err']:.3e}")
+    out["greedy"] = dict(
+        max_abs_err=float(mism), ms=time_ms(lambda: best_keep_cuda(lg, gl)),
+        plain_ms=time_ms(lambda: best_keep_plain(lg, gl)), library_ms=None,
+        **bound(nbytes(lg, gl, kb, kk), lg.numel(), "fp32"))
+    return out
+
+
+def phase_train_kernels(dev, rng) -> dict:
+    """The four training kernels vs their plain versions at the training
+    path's shapes: 24 utterances of 9-10 s padded to the 1024-frame
+    bucket (T' = 256, S = 2·128 + 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.models.conv import (
+        conv_out_length)
+    from chainer_speech_recognition_tpu_torch.ops.ctc import (
+        LOG_ZERO, ctc_alpha_plain, ctc_beta_grad_plain, ctc_inputs)
+    from chainer_speech_recognition_tpu_torch.ops.ctc_cuda import (
+        ctc_bwd_cuda, ctc_fwd_cuda)
+    from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
+        gru_bwd_cuda, gru_bwd_plain, gru_scan_train_cuda,
+        gru_scan_train_plain, shift_prev)
+
+    cfg = preset_config(PRESET)
+    H, V, B = cfg.model.rnn_hidden, cfg.model.vocab_size, TRAIN_B
+    L = cfg.buckets.max_label_len
+    samples = rng.uniform(*TRAIN_SECONDS, B) * C.SAMPLE_RATE
+    flen = torch.from_numpy((samples.astype(np.int64) // C.HOP_LENGTH) + 1)
+    T = TRAIN_FRAMES
+    for s in cfg.model.conv_stride_time:
+        flen = conv_out_length(flen, s)
+        T = -(-T // s)
+    out = {}
+    cdt = torch.bfloat16
+
+    # GRU training forward and backward (bf16 streams, the preset's dtype)
+    lo, hi = gru_rows(flen.to(torch.float32), T, dev)
+    w = torch.from_numpy((rng.standard_normal((2, H, 3 * H))
+                          / np.sqrt(H)).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rng.standard_normal(
+        (T, 2 * B, 3 * H)).astype(np.float32)).to(dev).to(cdt)
+    g = torch.from_numpy(rng.standard_normal(
+        (T, 2 * B, H)).astype(np.float32)).to(dev)
+    ys, gates = gru_scan_train_cuda(xs, w, lo, hi, cdt)
+    ys_p, gates_p = gru_scan_train_plain(xs, w, lo, hi, cdt)
+    torch.cuda.synchronize()
+    err = max(float((ys - ys_p).abs().max()),
+              float((gates.float() - gates_p.float()).abs().max()))
+    print(f"[train-kernels] gru_fwd_train xs {tuple(xs.shape)} -> ys, gates "
+          f"{tuple(gates.shape)}: max abs {err:.3e} (tol {TOL['gru_bf16']})")
+    check(bool(torch.isfinite(ys).all() and torch.isfinite(gates).all()),
+          "gru_fwd_train: non-finite")
+    check(err <= TOL["gru_bf16"], "gru_fwd_train disagrees")
+    h_prev = shift_prev(ys_p)
+    dxs, dhn = gru_bwd_cuda(gates_p, w, lo, hi, h_prev, g, cdt)
+    dxs_p, dhn_p = gru_bwd_plain(gates_p, w, lo, hi, h_prev, g, cdt)
+    torch.cuda.synchronize()
+    gerr = max(float((dxs.float() - dxs_p.float()).abs().max()),
+               float((dhn.float() - dhn_p.float()).abs().max()))
+    print(f"[train-kernels] gru_bwd gates {tuple(gates.shape)} -> dxs "
+          f"{tuple(dxs.shape)}, dhn: max abs {gerr:.3e} "
+          f"(tol {TOL['gru_grad_bf16']})")
+    check(bool(torch.isfinite(dxs.float()).all()), "gru_bwd: non-finite")
+    check(gerr <= TOL["gru_grad_bf16"], "gru_bwd disagrees")
+    live = 2 * int(flen.sum())
+    esz = xs.element_size()
+    _, lib_train, lib_bwd = library_gru(dev, T, B, H, flen, cdt)
+    out["gru_fwd_train"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: gru_scan_train_cuda(xs, w, lo, hi, cdt)),
+        plain_ms=time_ms(lambda: gru_scan_train_plain(xs, w, lo, hi, cdt),
+                         warmup=1, reps=3),
+        library_ms=lib_train,
+        **bound(live * 3 * H * esz + w.numel() * esz + nbytes(ys, gates, lo,
+                                                               hi),
+                2 * live * H * 3 * H, "bf16"))
+    out["gru_bwd"] = dict(
+        max_abs_err=gerr,
+        ms=time_ms(lambda: gru_bwd_cuda(gates_p, w, lo, hi, h_prev, g, cdt)),
+        plain_ms=time_ms(lambda: gru_bwd_plain(gates_p, w, lo, hi, h_prev,
+                                               g, cdt), warmup=1, reps=3),
+        library_ms=lib_bwd,
+        **bound(live * (4 * H * esz + 2 * H * 4) + w.numel() * esz
+                + nbytes(dxs, dhn, lo, hi), 2 * live * 3 * H * H, "bf16"))
+
+    # CTC alpha and beta: 90-100 labels an utterance (10 symbols a second)
+    lab_len = np.minimum((samples / C.SAMPLE_RATE * 10).astype(np.int64), L)
+    labels = np.full((B, L), -1, np.int64)
+    for i, n in enumerate(lab_len):
+        labels[i, :n] = rng.integers(1, V, n)
+    labels[0, 1] = labels[0, 0]                       # a repeat
+    logits = torch.from_numpy(
+        2 * rng.standard_normal((B, T, V)).astype(np.float32)).to(dev)
+    lp_ext, allow2, t_len, lab_len_t = ctc_inputs(
+        logits, flen.to(dev), torch.from_numpy(labels).to(dev),
+        torch.from_numpy(lab_len).to(dev))
+    alphas, loss = ctc_fwd_cuda(lp_ext, allow2, t_len, lab_len_t)
+    alphas_p, loss_p = ctc_alpha_plain(lp_ext, allow2, t_len, lab_len_t)
+    torch.cuda.synchronize()
+    rel = float(((loss - loss_p).abs() / loss_p.abs()).max())
+    # both outputs over all of [B, T', S]: the LOG_ZERO states and frozen
+    # rows exactly, the live alphas at the loss's rtol (the loss is their
+    # logsumexp) plus 1e-4
+    sent = alphas_p <= LOG_ZERO / 2
+    sent_ok = bool(torch.equal(alphas <= LOG_ZERO / 2, sent)
+                   and torch.equal(alphas[sent], alphas_p[sent]))
+    adiff = (alphas - alphas_p).abs()[~sent]
+    aerr = float(adiff.max())
+    alpha_ok = bool((adiff <= TOL["ctc_alpha_atol"] + TOL["ctc_loss_rtol"]
+                     * alphas_p[~sent].abs()).all())
+    print(f"[train-kernels] ctc_fwd lp_ext {tuple(lp_ext.shape)}: loss max "
+          f"rel {rel:.3e} (rtol {TOL['ctc_loss_rtol']}), loss "
+          f"{float(loss.min()):.2f}..{float(loss.max()):.2f}; alphas max abs "
+          f"{aerr:.3e} over {adiff.numel()} live states (atol "
+          f"{TOL['ctc_alpha_atol']} + rtol {TOL['ctc_loss_rtol']}), "
+          f"{int(sent.sum())} LOG_ZERO states equal: {sent_ok}")
+    check(bool(torch.isfinite(loss).all()), "ctc_fwd: non-finite loss")
+    check(rel <= TOL["ctc_loss_rtol"], "ctc_fwd loss disagrees")
+    check(sent_ok and alpha_ok, "ctc_fwd alphas disagree")
+    gl = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(np.float32)).to(dev)
+    grad_p = ctc_beta_grad_plain(lp_ext, allow2, t_len, lab_len_t, alphas_p,
+                                 loss_p, gl)
+    cerr = 0.0
+    # once on the plain alphas (the kernel alone), once on the forward
+    # kernel's own (the training path)
+    for a, l in ((alphas_p, loss_p), (alphas, loss)):
+        grad = ctc_bwd_cuda(lp_ext, allow2, t_len, lab_len_t, a, l, gl)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(grad).all()), "ctc_bwd: non-finite")
+        cerr = max(cerr, float((grad - grad_p).abs().max()))
+    print(f"[train-kernels] ctc_bwd: grad max abs {cerr:.3e} "
+          f"(tol {TOL['ctc_grad']}; on the plain and the kernel's alphas)")
+    check(cerr <= TOL["ctc_grad"], "ctc_bwd disagrees")
+    # the recursions need lp (and alphas) at live frames and valid states
+    S = lp_ext.shape[2]
+    need = int((t_len.long() * (2 * lab_len_t.long() + 1)).sum()) * 4
+    cells = need // 4
+    out["ctc_fwd"] = dict(
+        max_abs_err=max(aerr, float((loss - loss_p).abs().max())),
+        ms=time_ms(lambda: ctc_fwd_cuda(lp_ext, allow2, t_len, lab_len_t)),
+        plain_ms=time_ms(lambda: ctc_alpha_plain(lp_ext, allow2, t_len,
+                                                 lab_len_t), warmup=1,
+                         reps=3),
+        **bound(need + nbytes(allow2, t_len, lab_len_t, alphas, loss),
+                12 * cells, "fp32"))
+    out["ctc_bwd"] = dict(
+        max_abs_err=cerr,
+        ms=time_ms(lambda: ctc_bwd_cuda(lp_ext, allow2, t_len, lab_len_t,
+                                        alphas_p, loss_p, gl)),
+        plain_ms=time_ms(lambda: ctc_beta_grad_plain(
+            lp_ext, allow2, t_len, lab_len_t, alphas_p, loss_p, gl),
+            warmup=1, reps=3),
+        **bound(2 * need + nbytes(allow2, t_len, lab_len_t, loss, gl, grad),
+                16 * cells, "fp32"))
+    # yardstick: PyTorch's CTC (blank 0) on the same log-probabilities
+    lpt = torch.log_softmax(logits, -1).transpose(0, 1).detach()
+    lpt.requires_grad_()
+    tg = torch.from_numpy(np.maximum(labels, 0)).to(dev)
+    il, tl = flen.to(dev), torch.from_numpy(lab_len).to(dev)
+
+    def lib_fwd():
+        F.ctc_loss(lpt, tg, il, tl, blank=0, reduction="none")
+
+    def lib_fwd_bwd():
+        F.ctc_loss(lpt, tg, il, tl, blank=0, reduction="none").sum() \
+            .backward()
+
+    out["ctc_fwd"]["library_ms"] = time_ms(lib_fwd)
+    out["ctc_bwd"]["library_ms"] = time_ms(lib_fwd_bwd) - out["ctc_fwd"][
+        "library_ms"]
+    for name in ("gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd"):
+        t = out[name]
+        print(f"[train-kernels] {name}: {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    print(f"[train-kernels] S = {S}, T' = {T}, B = {B}")
     return out
 
 
 def phase_inputs(root: str, rng) -> tuple[str, str, list[str], float]:
-    from chainer_speech_recognition_tpu import constants as C
-    from chainer_speech_recognition_tpu.config import preset_config
-    from chainer_speech_recognition_tpu.utils.wav import write_wav
-    from chainer_speech_recognition_tpu.vocab import Vocab
+    from chainer_speech_recognition_tpu_torch import constants as C
     from chainer_speech_recognition_tpu_torch.bridge import state_dict_to_flax
     from chainer_speech_recognition_tpu_torch.checkpoint import save_params
+    from chainer_speech_recognition_tpu_torch.config import preset_config
     from chainer_speech_recognition_tpu_torch.models.presets import (
         build_model)
+    from chainer_speech_recognition_tpu_torch.utils.wav import write_wav
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
 
     cfg = preset_config(PRESET)
     V = cfg.model.vocab_size
@@ -333,9 +611,9 @@ def phase_decode(ckpt, vocab, wavs, audio_s) -> dict:
 def phase_parity(ckpt, wavs, dev) -> float:
     import torch
 
-    from chainer_speech_recognition_tpu.utils.wav import read_wav
     from chainer_speech_recognition_tpu_torch.cli.decode import load_model
     from chainer_speech_recognition_tpu_torch.frontend import select_frontend
+    from chainer_speech_recognition_tpu_torch.utils.wav import read_wav
 
     sigs = [read_wav(w) for w in wavs[:PARITY_WAVS]]
     n = max(len(s) for s in sigs)
@@ -363,6 +641,193 @@ def phase_parity(ckpt, wavs, dev) -> float:
     return err
 
 
+def _events(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(l) for l in f]
+
+
+def _busy_share(trace_path: str) -> tuple[float, float, list]:
+    """(device busy share, window ms, top kernels) of a torch.profiler
+    chrome trace: the union of device kernel/copy intervals over the span
+    of all events."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    check(bool(events), f"{trace_path}: empty trace")
+    dev = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    check(bool(dev), "the profiled window shows no device activity")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, -1e30
+    for a, b, _ in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for a, b, name in dev:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return busy / (t1 - t0), (t1 - t0) / 1e3, top
+
+
+def phase_train(root: str, rng) -> tuple[dict, str]:
+    """Train the full-width preset through the CLI on the card: launches,
+    finite metrics, checkpoint decode, resume; → (the training run's
+    launches, the train index path)."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch.checkpoint import (
+        list_checkpoints)
+    from chainer_speech_recognition_tpu_torch.cli import train as train_cli
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.data.synthetic import (
+        write_tone_corpus)
+
+    cfg = preset_config(PRESET)
+    data = os.path.join(root, "corpus")
+    t0 = time.perf_counter()
+    write_tone_corpus(data, rng, {"train": TRAIN_UTTS, "dev": DEV_UTTS},
+                      cfg.model.vocab_size, TRAIN_SECONDS)
+    print(f"[train] corpus of {TRAIN_UTTS} + {DEV_UTTS} utterances of "
+          f"{TRAIN_SECONDS[0]}-{TRAIN_SECONDS[1]} s written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ckpt = os.path.join(root, "train_ckpt")
+    metrics = os.path.join(root, "train.jsonl")
+    prof = os.path.join(root, "prof")
+    sets = ["train.data_mode=stream", "train.log_every=1",
+            f"train.eval_every={EVERY}", f"train.checkpoint_every={EVERY}",
+            "optim.warmup_steps=4"]
+    args = ["--data-dir", data, "--preset", PRESET, "--device", "cuda",
+            "--ckpt-dir", ckpt, "--metrics", metrics]
+
+    _kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(args + ["--profile-dir", prof, "--set", *sets,
+                               f"train.total_steps={TRAIN_STEPS}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ev = _events(metrics)
+    train = [e for e in ev if e["kind"] == "train"]
+    evals = [e for e in ev if e["kind"] == "eval"]
+    print(f"[train] {TRAIN_STEPS} steps in {wall:.3f} s (kernel build, corpus "
+          f"reads and 2 evals included), launches {launches}")
+    for e in train[:: max(len(train) // 4, 1)] + evals:
+        print(f"[train] {json.dumps(e)}")
+    check([e["step"] for e in train] == list(range(1, TRAIN_STEPS + 1)),
+          "train steps missing from the metrics")
+    check(all(np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"])
+              and e["grad_norm"] > 0 for e in train),
+          "non-finite loss or zero grad norm")
+    check([e["step"] for e in evals] == [EVERY, 2 * EVERY], "dev evals")
+    check(all(e["num_utts"] == DEV_UTTS and np.isfinite(e["loss"])
+              for e in evals), "dev eval results")
+    n_eval = len(evals) * (-(-DEV_UTTS // TRAIN_B))   # eval batches run
+    layers = cfg.model.rnn_layers
+    want = {"gru_fwd_train": layers * TRAIN_STEPS,
+            "gru_bwd": layers * TRAIN_STEPS,
+            "ctc_bwd": TRAIN_STEPS,
+            "ctc_fwd": TRAIN_STEPS + n_eval,
+            "frontend_logmel": TRAIN_STEPS + n_eval,
+            "gru_fwd": layers * n_eval,
+            "greedy": n_eval}
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches on "
+              f"the training path, expected {n}")
+    check(list_checkpoints(ckpt)[-1] == f"step_{TRAIN_STEPS:08d}.msgpack",
+          "no final checkpoint")
+
+    # warm step time: host clock between consecutive (synced) step logs,
+    # over steps with no eval, checkpoint or profiler in between
+    t = {e["step"]: e["t"] for e in train}
+    clean = [t[k] - t[k - 1] for k in range(3, EVERY + 1)]
+    step_s = statistics.median(clean)
+    # the profiler's cost: steps wholly inside its window (logged 12-14;
+    # it opens before logged step 11 and closes after 15)
+    prof_s = statistics.median(t[k] - t[k - 1] for k in range(12, 15))
+    busy, window_ms, top = _busy_share(os.path.join(prof, "trace.json"))
+    print(f"[train] warm step {step_s * 1e3:.3f} ms (median of steps 3-"
+          f"{EVERY}), {TRAIN_B / step_s:.3f} utt/s; device busy "
+          f"{busy:.4f} of the {window_ms:.3f} ms profiled window (steps "
+          f"10-14 counted from 0), whose steps take {prof_s * 1e3:.3f} ms "
+          f"(profiler overhead {prof_s / step_s - 1:+.1%}); peak memory "
+          f"{peak:.3f} GiB")
+    for name, us in top:
+        print(f"[train] device time {us / 1e3:9.3f} ms  {name[:90]}")
+
+    # the last checkpoint decodes through the decode CLI
+    dev_wavs = [json.loads(l)["wav"] for l in open(
+        os.path.join(data, "dev_index.jsonl"))][:4]
+    lines, _ = run_decode(["--ckpt-dir", ckpt, "--vocab",
+                           os.path.join(data, "vocab.txt"), "--device",
+                           "cuda", *dev_wavs])
+    check([l.split("\t")[0] for l in lines] == dev_wavs,
+          "decode of the trained checkpoint")
+    print(f"[train] trained checkpoint decodes: {lines[0].split(chr(9))[1][:40]!r}")
+
+    # resume: 16 → 20
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(args + ["--set", *sets,
+                               f"train.total_steps={RESUME_STEPS}"])
+    ev = _events(metrics)[len(ev):]
+    resume = [e for e in ev if e["kind"] == "resume"]
+    steps = [e["step"] for e in ev if e["kind"] == "train"]
+    check(len(resume) == 1 and resume[0]["step"] == TRAIN_STEPS,
+          f"resume event {resume}")
+    check(steps == list(range(TRAIN_STEPS + 1, RESUME_STEPS + 1)),
+          f"resumed steps {steps}")
+    check(list_checkpoints(ckpt)[-1] == f"step_{RESUME_STEPS:08d}.msgpack",
+          "no checkpoint at the resumed run's end")
+    print(f"[train] resumed at step {resume[0]['step']}, stopped at "
+          f"{steps[-1]}")
+    return launches, os.path.join(data, "train_index.jsonl")
+
+
+def phase_train_parity(dev, index: str) -> None:
+    """One step's loss and gradients, card (kernels) vs CPU (plain
+    versions), from the same weights and batch of 2 utterances."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.data.corpus import load_index
+    from chainer_speech_recognition_tpu_torch.data.sampler import BatchLoader
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model, init_parameters)
+    from chainer_speech_recognition_tpu_torch.train.step import forward_loss
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
+
+    cfg = preset_config(PRESET)
+    utts = load_index(index)
+    vocab = Vocab.load(os.path.join(os.path.dirname(index), "vocab.txt"))
+    batch = BatchLoader(utts, vocab, cfg.buckets).load(3, np.arange(2))
+    res = []
+    for d in (dev, torch.device("cpu")):
+        model = build_model(cfg.model)
+        init_parameters(model, SEED)
+        model.to(d)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()
+             if k != "bucket_id"}
+        loss, _, _, _ = forward_loss(model, cfg, b)
+        loss.backward()
+        res.append((float(loss.detach()), {k: p.grad.float().cpu()
+                                  for k, p in model.named_parameters()}))
+    (lc, gc), (lp, gp) = res
+    rel = abs(lc - lp) / abs(lp)
+    worst = max((float((gc[k] - gp[k]).abs().max())
+                 / max(float(gp[k].abs().max()), 1e-12), k) for k in gp)
+    print(f"[train-parity] loss card {lc:.5f} CPU {lp:.5f} (rel {rel:.3e}, "
+          f"tol {TOL['train_loss_rtol']}); worst gradient max abs diff / max "
+          f"abs {worst[0]:.3e} ({worst[1]}, tol {TOL['gru_grad_bf16']})")
+    check(np.isfinite(lc) and rel <= TOL["train_loss_rtol"],
+          "train loss parity")
+    check(worst[0] <= TOL["gru_grad_bf16"], "train gradient parity")
+
+
 def main() -> int:
     try:
         import torch
@@ -372,12 +837,19 @@ def main() -> int:
         phase_build()
         rng = np.random.default_rng(SEED)
         timings = phase_kernels(dev, rng)
+        timings.update(phase_train_kernels(dev, rng))
         with tempfile.TemporaryDirectory() as root:
             ckpt, vocab, wavs, audio_s = phase_inputs(root, rng)
             launches = phase_decode(ckpt, vocab, wavs, audio_s)
             phase_parity(ckpt, wavs, dev)
+            train_launches, index = phase_train(root, rng)
+            phase_train_parity(dev, index)
+        launches.update({k: train_launches[k] for k in (
+            "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         loaded = sorted(k for k in sys.modules
-                        if k.split(".")[0] in ("jax", "jaxlib", "flax"))
+                        if k.split(".")[0] in ("jax", "jaxlib", "flax",
+                                               "optax",
+                                               "chainer_speech_recognition_tpu"))
         check(not loaded, f"JAX modules were imported: {loaded[:5]}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,0 +1,185 @@
+"""The port keeps its own copies of the reference's JAX-free host modules
+(config, constants, vocab, wav I/O, the mel/window helpers, synthetic
+audio, the bucketed sampler and loader, CER scoring); each copy is held to
+the original here, and no module of the port or ``chip_smoke.py`` imports
+the JAX package."""
+
+import dataclasses
+import os
+import re
+
+import numpy as np
+import pytest
+
+from chainer_speech_recognition_tpu import config as jconfig
+from chainer_speech_recognition_tpu import constants as jconst
+from chainer_speech_recognition_tpu.data import buckets as jbuckets
+from chainer_speech_recognition_tpu.data import corpus as jcorpus
+from chainer_speech_recognition_tpu.data import sampler as jsampler
+from chainer_speech_recognition_tpu.data import synthetic as jsynth
+from chainer_speech_recognition_tpu.decode import metrics as jmetrics
+from chainer_speech_recognition_tpu.frontend import golden_np as jgold
+from chainer_speech_recognition_tpu.utils import wav as jwav
+from chainer_speech_recognition_tpu.vocab import Vocab as JVocab
+from chainer_speech_recognition_tpu_torch import config as tconfig
+from chainer_speech_recognition_tpu_torch import constants as tconst
+from chainer_speech_recognition_tpu_torch.data import buckets as tbuckets
+from chainer_speech_recognition_tpu_torch.data import corpus as tcorpus
+from chainer_speech_recognition_tpu_torch.data import sampler as tsampler
+from chainer_speech_recognition_tpu_torch.data import synthetic as tsynth
+from chainer_speech_recognition_tpu_torch.decode import metrics as tmetrics
+from chainer_speech_recognition_tpu_torch.frontend import golden_np as tgold
+from chainer_speech_recognition_tpu_torch.utils import wav as twav
+from chainer_speech_recognition_tpu_torch.vocab import Vocab as TVocab
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PRESETS = ["tiny_conv", "glu_conv", "conformer", "conformer_stream",
+           "bigru", "uni_gru", "bilstm_deep"]
+
+
+@pytest.mark.parametrize("preset", PRESETS + [None])
+def test_config_json_matches(preset):
+    j = jconfig.preset_config(preset) if preset else jconfig.Config()
+    t = tconfig.preset_config(preset) if preset else tconfig.Config()
+    assert t.to_json() == j.to_json()
+    # a config.json frozen by either package reads back in the other
+    assert tconfig.Config.from_json(j.to_json()).to_json() == j.to_json()
+    over = {"model.rnn_hidden": 64, "buckets.boundaries": [32, 64]}
+    assert t.override(over).to_json() == j.override(over).to_json()
+
+
+def test_constants_match():
+    names = [n for n in dir(jconst) if n.isupper()]
+    assert names and all(getattr(tconst, n) == getattr(jconst, n)
+                         for n in names)
+    assert all(tconst.num_frames(n) == jconst.num_frames(n)
+               for n in (0, 1, 159, 160, 16000))
+
+
+@pytest.mark.parametrize("unit", ["char", "mora"])
+def test_vocab_matches(unit, tmp_path):
+    texts = ["きゃりー", "ぱみゅぱみゅ", "abcab", "きょう"]
+    j, t = JVocab.build(texts, unit=unit), TVocab.build(texts, unit=unit)
+    assert t.symbols == j.symbols
+    for s in texts + ["zz"]:
+        assert t.encode(s) == j.encode(s)
+        assert t.decode(t.encode(s)) == j.decode(j.encode(s))
+    t.save(tmp_path / "v.txt")
+    assert JVocab.load(tmp_path / "v.txt").symbols == t.symbols
+    with pytest.raises(ValueError, match="<blank>"):
+        TVocab(["a"])
+
+
+@pytest.mark.parametrize("rate,channels", [(16000, 1), (48000, 2)])
+def test_wav_io_matches(rate, channels, tmp_path):
+    rng = np.random.default_rng(rate)
+    sig = (0.3 * rng.standard_normal(rate // 10 * channels)).astype(
+        np.float32)
+    twav.write_wav(tmp_path / "t.wav", sig, rate, channels)
+    jwav.write_wav(tmp_path / "j.wav", sig, rate, channels)
+    assert (tmp_path / "t.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
+    got = twav.read_wav(str(tmp_path / "t.wav"))
+    np.testing.assert_array_equal(got, jwav.read_wav_py(str(tmp_path / "t.wav")))
+    assert got.dtype == np.float32
+    if rate != 16000:
+        with pytest.raises(ValueError, match="expected 16000"):
+            twav.read_wav(str(tmp_path / "t.wav"), resample=False)
+
+
+def test_mel_and_window_match():
+    np.testing.assert_array_equal(tgold.mel_filterbank(),
+                                  jgold.mel_filterbank())
+    np.testing.assert_array_equal(tgold.hann_periodic(400),
+                                  jgold.hann_periodic(400))
+
+
+@pytest.mark.parametrize("vocab_size", [None, 8, 64])
+def test_synthetic_matches(vocab_size):
+    ids = [1, 5, 3, 7] if vocab_size != 8 else [1, 5, 3]
+    a = jsynth.make_utterance(np.random.default_rng(4), ids, tone_len=320,
+                              vocab_size=vocab_size)
+    b = tsynth.make_utterance(np.random.default_rng(4), ids, tone_len=320,
+                              vocab_size=vocab_size)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+    assert all(tsynth.tone_frequency(k, vocab_size)
+               == jsynth.tone_frequency(k, vocab_size) for k in range(1, 8))
+
+
+def _corpus(tmp_path, n=23):
+    rng = np.random.default_rng(1)
+    utts = []
+    for i in range(n):
+        ids = [int(k) for k in rng.integers(1, 5, rng.integers(1, 6))]
+        sig, _ = tsynth.make_utterance(rng, ids, tone_len=int(
+            rng.integers(400, 1200)))
+        p = str(tmp_path / f"u{i}.wav")
+        twav.write_wav(p, sig)
+        utts.append(tcorpus.Utterance(f"u{i}", p, "".join(
+            "abcd"[k - 1] for k in ids), len(sig)))
+    tcorpus.save_index(str(tmp_path / "index.jsonl"), utts)
+    return utts
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_sampler_and_loader_match(seed, tmp_path):
+    tutts = _corpus(tmp_path)
+    jutts = jcorpus.load_index(str(tmp_path / "index.jsonl"))
+    assert [dataclasses.asdict(u) for u in jutts] == \
+        [dataclasses.asdict(u) for u in tcorpus.load_index(
+            str(tmp_path / "index.jsonl"))]
+    bcfg = {"buckets.boundaries": [40, 70, 100],
+            "buckets.batch_sizes": [4, 3, 2], "buckets.max_label_len": 6}
+    jb = jconfig.Config().override(bcfg).buckets
+    tb = tconfig.Config().override(bcfg).buckets
+    js, ts = (jsampler.BucketSampler(jutts, jb, seed=seed),
+              tsampler.BucketSampler(tutts, tb, seed=seed))
+    assert ts.num_dropped == js.num_dropped
+    for epoch in (0, 1, 5):
+        a, b = js.epoch_batches(epoch), ts.epoch_batches(epoch)
+        assert len(a) == len(b) > 0
+        for x, y in zip(a, b):
+            assert x[0] == y[0] and x[2] == y[2]
+            np.testing.assert_array_equal(x[1], y[1])
+    a, b = js.eval_batches(), ts.eval_batches()
+    assert [(x[0], list(x[1]), x[2]) for x in a] == \
+        [(y[0], list(y[1]), y[2]) for y in b]
+    nf = [u.num_frames for u in tutts]
+    assert tbuckets.padding_waste(nf, tb) == jbuckets.padding_waste(nf, jb)
+    vocab = TVocab(["<blank>", "a", "b", "c", "d"])
+    jl = jsampler.BatchLoader(jutts, JVocab(vocab.symbols), jb)
+    tl = tsampler.BatchLoader(tutts, vocab, tb)
+    for bid, idxs, n_valid in ts.epoch_batches(0)[:4]:
+        x, y = jl.load(bid, idxs, n_valid), tl.load(bid, idxs, n_valid)
+        assert set(x) == set(y)
+        for k in x:
+            np.testing.assert_array_equal(np.asarray(x[k]), np.asarray(y[k]))
+
+
+def test_cer_matches():
+    hyps = ["abcd", "", "xbyd", "aaaa"]
+    refs = ["abd", "ab", "abcd", "a"]
+    j, t = jmetrics.CERAccumulator(), tmetrics.CERAccumulator()
+    j.add_batch(hyps, refs)
+    t.add_batch(hyps, refs)
+    j.add("abc", "abd")
+    t.add("abc", "abd")
+    assert (t.edits, t.ref_len, t.num_utts) == (j.edits, j.ref_len,
+                                                 j.num_utts)
+    assert t.cer == j.cer
+
+
+_JAX_IMPORT = re.compile(
+    r"^\s*(from|import)\s+chainer_speech_recognition_tpu(\.|\s|$)", re.M)
+
+
+def test_port_never_imports_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    pkg = os.path.join(REPO, "chainer_speech_recognition_tpu_torch")
+    for d, _, names in os.walk(pkg):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    bad = [f for f in files if _JAX_IMPORT.search(open(f).read())
+           or re.search(r"^\s*(from|import)\s+(jax|flax|optax)\b",
+                        open(f).read(), re.M)]
+    assert not bad, bad

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions at small,
-ragged shapes (chip_smoke.py checks them at the decode path's shapes).
+ragged shapes (chip_smoke.py checks them at the decode and training
+paths' shapes).
 
 They need a card: marked ``cuda`` and skipped without one. This file
 imports no JAX; on the card's machine run it without the repo's conftest,
@@ -12,16 +13,21 @@ import numpy as np
 import pytest
 import torch
 
-from chainer_speech_recognition_tpu import constants as C
 from chainer_speech_recognition_tpu_torch import _kernels
+from chainer_speech_recognition_tpu_torch import constants as C
 from chainer_speech_recognition_tpu_torch.decode.greedy import (
     best_keep_cuda, best_keep_plain)
 from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
     fused_logmel_rows_cuda)
 from chainer_speech_recognition_tpu_torch.frontend.torch_frontend import (
     _K, extend_signal, logmel_from_extended)
+from chainer_speech_recognition_tpu_torch.ops.ctc import (
+    LOG_ZERO, ctc_alpha_plain, ctc_beta_grad_plain, ctc_inputs)
+from chainer_speech_recognition_tpu_torch.ops.ctc_cuda import (
+    ctc_bwd_cuda, ctc_fwd_cuda)
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
-    gru_scan_cuda, gru_scan_plain)
+    gru_bwd_cuda, gru_bwd_plain, gru_scan_cuda, gru_scan_plain,
+    gru_scan_train_cuda, gru_scan_train_plain, shift_prev)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +86,98 @@ def test_gru_kernel_matches_plain(dev, T, B, H, dtype, tol):
         assert torch.all(got[:, 1] == 0) and torch.all(got[:, B + 1] == 0)
 
 
+@pytest.mark.parametrize("T,B,H", [(1, 1, 32), (7, 3, 64), (33, 2, 256),
+                                   (5, 2, 512)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_gru_train_kernels_match_plain(dev, T, B, H, dtype, tol):
+    """Training forward (ys and the gate stream) and backward (dxs, dhn)
+    against their plain versions, ragged lengths including 0 and T. The
+    backward gets the plain forward's gates, so each kernel is held alone.
+    bf16: the reference's bars, 3e-2 forward and 5e-2 gradient
+    (tests/test_rnn_pallas.py:81,88)."""
+    rng = np.random.default_rng(T * 1000 + H + B)
+    lens = rng.integers(0, T + 1, B).astype(np.float32)
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
+    lens = torch.from_numpy(lens)
+    lo = torch.cat([torch.zeros(B), T - lens])[:, None].to(dev)
+    hi = torch.cat([lens, torch.full((B,), float(T))])[:, None].to(dev)
+    w = torch.from_numpy((rng.standard_normal((2, H, 3 * H))
+                          / np.sqrt(H)).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rng.standard_normal(
+        (T, 2 * B, 3 * H)).astype(np.float32)).to(dev).to(
+            torch.float32 if dtype == torch.float32 else torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal(
+        (T, 2 * B, H)).astype(np.float32)).to(dev)
+    before = (_kernels.GRU_FWD_TRAIN.launches, _kernels.GRU_BWD.launches)
+    ys, gates = gru_scan_train_cuda(xs, w, lo, hi, dtype)
+    ys_p, gates_p = gru_scan_train_plain(xs, w, lo, hi, dtype)
+    assert float((ys - ys_p).abs().max()) <= tol
+    assert float((gates.float() - gates_p.float()).abs().max()) <= tol
+    assert torch.equal(ys, gru_scan_cuda(xs, w, lo, hi, dtype))
+    h_prev = shift_prev(ys_p)
+    dxs, dhn = gru_bwd_cuda(gates_p, w, lo, hi, h_prev, g, dtype)
+    dxs_p, dhn_p = gru_bwd_plain(gates_p, w, lo, hi, h_prev, g, dtype)
+    gtol = tol if dtype == torch.float32 else 5e-2
+    assert float((dxs.float() - dxs_p.float()).abs().max()) <= gtol
+    assert float((dhn.float() - dhn_p.float()).abs().max()) <= gtol
+    assert (_kernels.GRU_FWD_TRAIN.launches, _kernels.GRU_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    if B > 1:       # a length-0 row has no live step: zero gradient
+        assert torch.all(dxs[:, 1] == 0) and torch.all(dhn[:, B + 1] == 0)
+
+
+@pytest.mark.parametrize("B,T,V,L", [(1, 1, 3, 1), (6, 40, 7, 9),
+                                     (4, 70, 30, 300)])
+def test_ctc_kernels_match_plain(dev, B, T, V, L):
+    """Loss, alphas and d lp_ext against the plain α/β recursions: ragged
+    time and label lengths, label length 0, repeated labels, an impossible
+    sample and a length above T; S = 601 takes more states than threads.
+    Bars: loss rtol 1e-5, gradient atol 2e-4, fp32
+    (tests/test_ctc_pallas.py:35-42); alphas at the loss's rtol plus 1e-4,
+    their LOG_ZERO states exactly. The backward runs on the plain alphas
+    and on the forward kernel's own, as training does."""
+    rng = np.random.default_rng(B * 100 + T)
+    logits = torch.from_numpy(
+        2 * rng.standard_normal((B, T, V)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(1, V, (B, L)).astype(np.int32))
+    tl = rng.integers(1, T + 1, B)
+    ll = rng.integers(0, L + 1, B)
+    if B > 1:
+        tl[0], ll[0] = T, min(L, max(T // 3, 1))
+        labels[0, :2] = 2                       # repeat: no skip transition
+        ll[1] = 0
+        tl[2], ll[2] = 2, L                     # impossible
+        tl[3] = T + 5                           # clamped to T
+    g = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(np.float32)).to(dev)
+    lp_ext, allow2, t_len, lab_len = ctc_inputs(
+        logits.to(dev), torch.from_numpy(tl).to(dev), labels.to(dev),
+        torch.from_numpy(ll).to(dev))
+    before = (_kernels.CTC_FWD.launches, _kernels.CTC_BWD.launches)
+    alphas, loss = ctc_fwd_cuda(lp_ext, allow2, t_len, lab_len)
+    alphas_p, loss_p = ctc_alpha_plain(lp_ext, allow2, t_len, lab_len)
+    torch.testing.assert_close(loss, loss_p, rtol=1e-5, atol=0)
+    # alphas over all of [B, T, S]: LOG_ZERO states and frozen rows exactly
+    sent = alphas_p <= LOG_ZERO / 2
+    assert torch.equal(alphas <= LOG_ZERO / 2, sent)
+    assert torch.equal(alphas[sent], alphas_p[sent])
+    torch.testing.assert_close(alphas[~sent], alphas_p[~sent], rtol=1e-5,
+                               atol=1e-4)
+    g = torch.where(loss_p < 5e29, g, 0.0)
+    grad_p = ctc_beta_grad_plain(lp_ext, allow2, t_len, lab_len, alphas_p,
+                                 loss_p, g)
+    # on the plain alphas, then on the forward kernel's own
+    for a, l in ((alphas_p, loss_p), (alphas, loss)):
+        grad = ctc_bwd_cuda(lp_ext, allow2, t_len, lab_len, a, l, g)
+        assert float((grad - grad_p).abs().max()) <= 2e-4
+    assert (_kernels.CTC_FWD.launches, _kernels.CTC_BWD.launches) == (
+        before[0] + 1, before[1] + 2)
+    if B > 1:
+        assert float(loss[2]) >= 1e29 and torch.all(grad[2] == 0)
+
+
 @pytest.mark.parametrize("B,T,V", [(1, 1, 1), (3, 70, 5), (2, 130, 100),
                                    (4, 65, 64)])
 def test_greedy_kernel_matches_plain(dev, B, T, V):
@@ -119,3 +217,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         best_keep_cuda(torch.zeros(1, 2, 3), torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="cannot hold"):
         fused_logmel_rows_cuda(torch.zeros(1, 600, device=dev), 5)
+    with pytest.raises(ValueError, match="int32"):
+        ctc_fwd_cuda(torch.zeros(1, 2, 3, device=dev),
+                     torch.zeros(1, 3, device=dev),
+                     torch.ones(1, device=dev), torch.ones(1, device=dev))
+    with pytest.raises(ValueError, match="hidden size"):
+        gru_bwd_cuda(torch.zeros(3, 4, 4 * 48, device=dev), w, lo, lo,
+                     torch.zeros(3, 4, 48, device=dev),
+                     torch.zeros(3, 4, 48, device=dev), torch.float32)

@@ -1,6 +1,8 @@
-"""The port needs no JAX: in a fresh interpreter where ``jax``/``flax``
-cannot be imported, every module of chainer_speech_recognition_tpu_torch
-imports and the plain decode path runs once end to end."""
+"""The port needs no JAX and nothing of the JAX package: in a fresh
+interpreter where ``jax``/``flax``/``optax`` and
+``chainer_speech_recognition_tpu`` cannot be imported, every module of
+chainer_speech_recognition_tpu_torch imports, the plain decode path runs
+once end to end, and one CPU train step runs through the train loop."""
 
 import os
 import subprocess
@@ -10,7 +12,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys, tempfile, os
-for name in ("jax", "jaxlib", "flax", "optax"):
+for name in ("jax", "jaxlib", "flax", "optax",
+             "chainer_speech_recognition_tpu"):
     sys.modules[name] = None          # any import of them raises ImportError
 
 import numpy as np
@@ -21,15 +24,20 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
 
-from chainer_speech_recognition_tpu.config import preset_config
-from chainer_speech_recognition_tpu.data.synthetic import make_utterance
-from chainer_speech_recognition_tpu.utils.wav import write_wav
-from chainer_speech_recognition_tpu.vocab import Vocab
 from chainer_speech_recognition_tpu_torch.bridge import state_dict_to_flax
-from chainer_speech_recognition_tpu_torch.checkpoint import save_params
+from chainer_speech_recognition_tpu_torch.checkpoint import (
+    latest_checkpoint, save_params)
 from chainer_speech_recognition_tpu_torch.cli import decode
+from chainer_speech_recognition_tpu_torch.config import preset_config
+from chainer_speech_recognition_tpu_torch.data.corpus import (
+    Utterance, save_index)
+from chainer_speech_recognition_tpu_torch.data.synthetic import make_utterance
 from chainer_speech_recognition_tpu_torch.models.presets import build_model
+from chainer_speech_recognition_tpu_torch.train.loop import train
+from chainer_speech_recognition_tpu_torch.utils.wav import write_wav
+from chainer_speech_recognition_tpu_torch.vocab import Vocab
 
+torch.set_num_threads(1)
 cfg = preset_config("bigru").override({
     "model.conv_channels": [4, 4], "model.rnn_hidden": 32,
     "model.rnn_layers": 1, "model.vocab_size": 6})
@@ -38,13 +46,28 @@ sd = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32) * 0.3
       for k, v in build_model(cfg.model).state_dict().items()}
 root = tempfile.mkdtemp()
 save_params(os.path.join(root, "ckpt"), state_dict_to_flax(sd), cfg)
-Vocab(["<blank>", "a", "b", "c", "d", "e"]).save(os.path.join(root, "v.txt"))
+vocab = Vocab(["<blank>", "a", "b", "c", "d", "e"])
+vocab.save(os.path.join(root, "v.txt"))
 wav = os.path.join(root, "u.wav")
 write_wav(wav, make_utterance(rng, [1, 3, 2])[0])
 decode.main(["--ckpt-dir", os.path.join(root, "ckpt"), "--vocab",
              os.path.join(root, "v.txt"), "--device", "cpu", wav])
+
+# one train step (and its checkpoint) on the CPU
+utts = [Utterance("u", wav, "acb", 4800)]
+tcfg = cfg.override({"buckets.boundaries": [64], "buckets.batch_sizes": [1],
+                     "buckets.max_label_len": 8, "train.total_steps": 1,
+                     "train.log_every": 1,
+                     "train.data_mode": "stream", "train.loader_workers": 1,
+                     "train.checkpoint_dir": os.path.join(root, "tckpt")})
+state = train(tcfg, utts, vocab, device="cpu")
+assert state.step == 1, state.step
+assert latest_checkpoint(os.path.join(root, "tckpt")).endswith(
+    "step_00000001.msgpack")
 loaded = [k for k, v in sys.modules.items()
-          if v is not None and k.split(".")[0] in ("jax", "jaxlib", "flax")]
+          if v is not None and k.split(".")[0] in (
+              "jax", "jaxlib", "flax", "optax",
+              "chainer_speech_recognition_tpu")]
 assert not loaded, loaded
 print("MODULES", len(mods))
 """
@@ -58,5 +81,6 @@ def test_port_imports_and_decodes_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     lines = proc.stdout.splitlines()
-    assert lines[-1].startswith("MODULES ") and int(lines[-1].split()[1]) >= 14
-    assert lines[-2].split("\t")[0].endswith("u.wav")      # decode output
+    assert lines[-1].startswith("MODULES ") and int(lines[-1].split()[1]) >= 30
+    assert any(l.split("\t")[0].endswith("u.wav") for l in lines)  # decode
+    assert any(l.startswith("step       1 |") for l in lines)       # train

@@ -1,0 +1,100 @@
+"""The port's train CLI on the CPU, on a tiny synthetic corpus: the JSONL
+events of the reference's loop, checkpoints and resume, the profiler
+window, and the refusals (data modes and corpus formats that are not
+ported, no card for ``--device cuda``, SpecAugment, data parallelism)."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from chainer_speech_recognition_tpu_torch.checkpoint import list_checkpoints
+from chainer_speech_recognition_tpu_torch.cli import train as cli
+from chainer_speech_recognition_tpu_torch.data.synthetic import (
+    write_tone_corpus)
+
+SMALL = ["model.conv_channels=[4,4]", "model.rnn_hidden=32",
+         "model.rnn_layers=1", "buckets.boundaries=[64]",
+         "buckets.batch_sizes=[2]", "buckets.max_label_len=8",
+         "train.loader_workers=1", "optim.warmup_steps=2"]
+
+
+@pytest.fixture(scope="module")
+def data_dir(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("data"))
+    write_tone_corpus(root, np.random.default_rng(3),
+                      {"train": 5, "dev": 3}, 6, (0.3, 0.5))
+    return root
+
+
+def _run(data_dir, tmp_path, *sets, extra=()):
+    metrics = str(tmp_path / "m.jsonl")
+    cli.main(["--data-dir", data_dir, "--preset", "bigru", "--device", "cpu",
+              "--ckpt-dir", str(tmp_path / "ckpt"), "--metrics", metrics,
+              *extra, "--set", *SMALL, *sets])
+    with open(metrics) as f:
+        return [json.loads(l) for l in f]
+
+
+def test_cli_trains_evaluates_checkpoints_and_resumes(data_dir, tmp_path):
+    ev = _run(data_dir, tmp_path, "train.data_mode=stream",
+              "train.total_steps=4", "train.log_every=1",
+              "train.eval_every=2", "train.checkpoint_every=2")
+    kinds = [e["kind"] for e in ev]
+    for k in ("data", "data_mode", "train", "eval", "checkpoint"):
+        assert k in kinds, k
+    train = [e for e in ev if e["kind"] == "train"]
+    assert [e["step"] for e in train] == [1, 2, 3, 4]
+    assert all(np.isfinite(e["loss"]) and e["grad_norm"] > 0
+               and e["valid_frac"] == 1.0 for e in train)
+    assert [e["epoch"] for e in train] == [0, 0, 0, 1]   # 3 batches / epoch
+    evals = [e for e in ev if e["kind"] == "eval"]
+    assert [e["step"] for e in evals] == [2, 4]
+    assert all(e["num_utts"] == 3 and 0 <= e["cer"] for e in evals)
+    assert list_checkpoints(str(tmp_path / "ckpt")) == [
+        "step_00000002.msgpack", "step_00000004.msgpack"]
+    ev = _run(data_dir, tmp_path, "train.data_mode=stream",
+              "train.total_steps=6", "train.log_every=1")
+    resume = [e for e in ev if e["kind"] == "resume"]
+    assert resume[-1]["step"] == 4
+    assert [e["step"] for e in ev if e["kind"] == "train"][-2:] == [5, 6]
+    assert "step_00000006.msgpack" in list_checkpoints(
+        str(tmp_path / "ckpt"))
+
+
+def test_cli_profiles_steps_10_to_14(data_dir, tmp_path):
+    ev = _run(data_dir, tmp_path, "train.data_mode=stream",
+              "train.total_steps=15",
+              extra=["--profile-dir", str(tmp_path / "prof")])
+    prof = [e for e in ev if e["kind"] == "profile"]
+    assert len(prof) == 1 and prof[0]["steps"] == "10-14"
+    with open(prof[0]["trace"]) as f:
+        assert json.load(f)["traceEvents"]
+
+
+@pytest.mark.parametrize("sets,match", [
+    ([], "ROADMAP.md §1 item 8"),                   # auto → device_cache
+    (["train.data_mode=rotating"], "train.data_mode=stream"),
+    (["train.data_mode=stream", "specaugment.enabled=true"], "SpecAugment"),
+    (["train.data_mode=stream", "parallel.num_devices=2"], "parallelism"),
+])
+def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, sets, match):
+    with pytest.raises(NotImplementedError, match=match):
+        _run(data_dir, tmp_path, *sets)
+
+
+def test_cli_refuses_packed_corpus_and_missing_card(data_dir, tmp_path,
+                                                    monkeypatch):
+    packed = tmp_path / "packed"
+    packed.mkdir()
+    for name in ("vocab.txt", "train_index.jsonl"):
+        (packed / name).write_bytes(
+            open(os.path.join(data_dir, name), "rb").read())
+    (packed / "train.pack").write_bytes(b"")
+    with pytest.raises(SystemExit, match="packed corpus"):
+        _run(str(packed), tmp_path, "train.data_mode=stream")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.main(["--data-dir", data_dir, "--device", "cuda"])
