@@ -71,9 +71,17 @@ CTC_FWD = Kernel("csr_ctc_fwd",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 CTC_BWD = Kernel("csr_ctc_bwd",
                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+LSTM_FWD = Kernel("csr_lstm_fwd",
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train",
+                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+LSTM_BWD = Kernel("csr_lstm_bwd",
+                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "greedy": GREEDY, "gru_fwd_train": GRU_FWD_TRAIN,
-           "gru_bwd": GRU_BWD, "ctc_fwd": CTC_FWD, "ctc_bwd": CTC_BWD}
+           "gru_bwd": GRU_BWD, "ctc_fwd": CTC_FWD, "ctc_bwd": CTC_BWD,
+           "lstm_fwd": LSTM_FWD, "lstm_fwd_train": LSTM_FWD_TRAIN,
+           "lstm_bwd": LSTM_BWD}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -51,6 +51,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "rnn_common.cuh"
 
 namespace {
 
@@ -60,19 +61,7 @@ namespace {
 constexpr int kChunkSmallH = 96;
 constexpr int kChunkLargeH = 24;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename S>
-__device__ __forceinline__ S from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+using namespace csr_rnn;
 
 // the per-step inputs of one (row, unit)
 struct StepIn {

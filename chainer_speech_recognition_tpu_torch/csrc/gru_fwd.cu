@@ -49,35 +49,14 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "rnn_common.cuh"
 
 namespace {
 
 constexpr int kRows = 1;   // batch rows per block
 constexpr int kChunk = 8;  // W rows per register batch (H % 32 == 0)
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename S>
-__device__ __forceinline__ S from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// round an fp32 value to the compute dtype S (kept in an fp32 register)
-template <typename S>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
+using namespace csr_rnn;
 
 // W rows k0..k0+kChunk-1 of unit j's three gate columns
 template <typename S>
@@ -91,10 +70,6 @@ __device__ __forceinline__ void load_chunk(const S* __restrict__ wd, int k0,
     wz[u] = wk[H + j];
     wn[u] = wk[2 * H + j];
   }
-}
-
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
 }
 
 template <typename S, bool kGates>

@@ -1,6 +1,7 @@
 """Acoustic model assembly (port of ``models/presets.py``'s full-utterance
-call): conv subsampler → BiGRU stack → optional tanh ``proj`` → fp32
-``output`` projection → logits masked by the subsampled lengths.
+call): conv subsampler → BiGRU or BiLSTM stack → optional tanh
+``proj`` → fp32 ``output`` projection → logits masked by the subsampled
+lengths.
 
 ``forward(feats [B,T,F,3], frame_lengths) → (logits [B,T',V] fp32, lens)``
 with V including the CTC blank at index 0. GLU blocks, attention blocks

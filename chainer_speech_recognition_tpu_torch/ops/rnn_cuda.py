@@ -1,32 +1,41 @@
-"""Bidirectional GRU recurrence kernels (``csrc/gru_fwd.cu``,
-``csrc/gru_bwd.cu``) and their autograd Function.
+"""Bidirectional GRU and LSTM recurrence kernels (``csrc/gru_fwd.cu``,
+``csrc/gru_bwd.cu``, ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``) and their
+autograd Functions.
 
-Port of ``ops/rnn_pallas.py``'s GRU half, with the same layout:
+Port of ``ops/rnn_pallas.py``, with the same layout (G = 3 gates for the
+GRU, 4 for the LSTM):
 
-  xs    [T, R=2B, 3H] stream dtype — input pre-activations; rows [0, B) are
+  xs    [T, R=2B, G·H] stream dtype — input pre-activations; rows [0, B) are
                          the forward direction (use w[0]), rows [B, 2B) the
                          time-reversed backward direction (use w[1])
-  w     [2, H, 3H]    fp32 — recurrent weights per direction
+  w     [2, H, G·H]   fp32 — recurrent weights per direction
   lo/hi [R, 1]        fp32 — step t is live for a row iff lo ≤ t < hi
   ys    [T, R, H]     fp32 — the carries h, frozen outside [lo, hi)
-  gates [T, R, 4H]    stream dtype — (r, z, n, hp_n) per step (training)
+  cs    [T, R, H]     fp32 — the LSTM cell states c, frozen likewise
+                         (training)
+  gates [T, R, 4H]    stream dtype — per step, (r, z, n, hp_n) for the GRU,
+                         (i, f, o, u) for the LSTM (training)
 
 The stream dtype is bf16 under bf16 compute and the compute dtype
 otherwise (``stream_dtype``, as ``rnn_pallas._stream_dt``). The recurrent
 products round their operands to the compute dtype and accumulate in fp32;
 carries and gate math are fp32 (fp64 when the compute dtype is fp64, which
-only the tests use).
+only the tests use). The LSTM's forget gate has the reference's +1 bias.
 
-Three kernels, each with its wrapper (the kernel for CUDA tensors, the
+Six kernels, each with its wrapper (the kernel for CUDA tensors, the
 plain version for CPU tensors):
 
-* ``gru_scan``: the residual-free forward (``birnn_pallas``'s primal);
-* ``gru_scan_train``: the forward that also writes ``gates``;
-* ``gru_bwd``: the reverse-time gradient walk, → (dxs, dhn).
+* ``gru_scan`` / ``lstm_scan``: the residual-free forward
+  (``birnn_pallas``'s primal);
+* ``gru_scan_train`` / ``lstm_scan_train``: the forward that also writes
+  the residuals (``gates``, and ``cs`` for the LSTM);
+* ``gru_bwd`` → (dxs, dhn) and ``lstm_bwd`` → dxs: the reverse-time
+  gradient walk.
 
-``BiGRUScan`` is ``birnn_pallas``'s custom VJP: ``gru_scan_train`` forward,
-``gru_bwd`` backward, then dW = Σ_t h_prevᵀ·(dr, dz, dhn) as two matmuls
-with compute-dtype operands and fp32 accumulation (``_dw_einsum``).
+``BiGRUScan`` and ``BiLSTMScan`` are ``birnn_pallas``'s custom VJP: the
+training forward, the backward kernel, then dW = Σ_t h_prevᵀ·dgate as
+matmuls with compute-dtype operands and fp32 accumulation (``_dw_einsum``;
+for the LSTM the masked dg is dxs itself).
 """
 
 from __future__ import annotations
@@ -115,32 +124,117 @@ def gru_bwd_plain(gates, w, lo, hi, h_prev, g, compute_dtype):
     return dxs, dhn
 
 
-def _check_sizes(T: int, R: int, H: int, compute_dtype) -> torch.dtype:
+def _lstm_gates(xp, hp, H):
+    g = xp + hp
+    i = torch.sigmoid(g[:, :H])
+    f = torch.sigmoid(g[:, H:2*H] + 1.0)            # forget bias +1
+    o = torch.sigmoid(g[:, 2*H:3*H])
+    u = torch.tanh(g[:, 3*H:])
+    return i, f, o, u
+
+
+def _lstm_scan(xs, w, lo, hi, compute_dtype, residuals: bool):
+    T, R, _ = xs.shape
+    H = w.shape[1]
+    B = R // 2
+    acc = _acc_dtype(compute_dtype)
+    wc = w.to(compute_dtype).to(acc)                        # [2, H, 4H]
+    h = torch.zeros((R, H), dtype=acc, device=xs.device)
+    c = torch.zeros_like(h)
+    ys = torch.empty((T, R, H), dtype=acc, device=xs.device)
+    cs = torch.empty_like(ys) if residuals else None
+    gs = (torch.empty((T, R, 4 * H), dtype=xs.dtype, device=xs.device)
+          if residuals else None)
+    for t in range(T):
+        hc = h.to(compute_dtype).to(acc)
+        hp = torch.cat([hc[:B] @ wc[0], hc[B:] @ wc[1]], dim=0)
+        i, f, o, u = _lstm_gates(xs[t].to(acc), hp, H)
+        c_new = f * c + i * u
+        h_new = o * torch.tanh(c_new)
+        valid = (lo <= t) & (t < hi)                       # [R, 1]
+        h = torch.where(valid, h_new, h)
+        c = torch.where(valid, c_new, c)
+        ys[t] = h
+        if residuals:
+            cs[t] = c
+            gs[t] = torch.cat([i, f, o, u], dim=1).to(xs.dtype)
+    return ys, cs, gs
+
+
+def lstm_scan_plain(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of the residual-free LSTM kernel (any device;
+    autograd can differentiate it)."""
+    return _lstm_scan(xs, w, lo, hi, compute_dtype, residuals=False)[0]
+
+
+def lstm_scan_train_plain(xs, w, lo, hi, compute_dtype):
+    """Plain version of the LSTM training forward: (ys, cs, gates)."""
+    return _lstm_scan(xs, w, lo, hi, compute_dtype, residuals=True)
+
+
+def lstm_bwd_plain(gates, w, lo, hi, cs, g, compute_dtype):
+    """Plain version of the LSTM backward kernel: dxs [T,R,4H] in the
+    stream dtype (the masked gate pre-activation gradients), given the
+    incoming gradient ``g`` of ys. The reference's c_prev stream is cs one
+    step back (0 at t = 0), read from cs here as the kernel does."""
+    T, R, _ = gates.shape
+    H = w.shape[1]
+    B = R // 2
+    acc = _acc_dtype(compute_dtype)
+    wc = w.to(compute_dtype).to(acc)
+    dh = torch.zeros((R, H), dtype=acc, device=gates.device)
+    dc = torch.zeros_like(dh)
+    dxs = torch.empty((T, R, 4 * H), dtype=gates.dtype, device=gates.device)
+    for t in reversed(range(T)):
+        gt = gates[t].to(acc)
+        i, f, o, u = gt[:, :H], gt[:, H:2*H], gt[:, 2*H:3*H], gt[:, 3*H:]
+        dh_total = g[t].to(acc) + dh
+        tc = torch.tanh(cs[t].to(acc))
+        do = dh_total * tc * o * (1.0 - o)
+        dct = dc + dh_total * o * (1.0 - tc * tc)
+        c_prev = cs[t - 1].to(acc) if t > 0 else torch.zeros_like(dh)
+        df = dct * c_prev * f * (1.0 - f)
+        di = dct * u * i * (1.0 - i)
+        du = dct * i * (1.0 - u * u)
+        dg = torch.cat([di, df, do, du], dim=1)
+        dgc = dg.to(compute_dtype).to(acc)
+        dh_prev = torch.cat([dgc[:B] @ wc[0].T, dgc[B:] @ wc[1].T], dim=0)
+        valid = (lo <= t) & (t < hi)
+        dxs[t] = torch.where(valid, dg, 0.0).to(gates.dtype)
+        dh = torch.where(valid, dh_prev, dh_total)
+        dc = torch.where(valid, dct * f, dc)
+    return dxs
+
+
+def _check_sizes(T: int, R: int, H: int, compute_dtype,
+                 cell: str = "gru") -> torch.dtype:
     """Raise unless the kernels take these sizes; → the stream dtype."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"gru kernel: compute dtype {compute_dtype} is not "
-                         "supported (float32 or bfloat16)")
+        raise ValueError(f"{cell} kernel: compute dtype {compute_dtype} is "
+                         "not supported (float32 or bfloat16)")
     if R % 2 or R < 2 or T < 1:
-        raise ValueError(f"gru kernel: need T >= 1 and an even R >= 2 "
+        raise ValueError(f"{cell} kernel: need T >= 1 and an even R >= 2 "
                          f"(got T={T}, R={R})")
     if H % 32 or not 32 <= H <= 512:
-        raise ValueError(f"gru kernel: hidden size {H} unsupported (one "
+        raise ValueError(f"{cell} kernel: hidden size {H} unsupported (one "
                          "thread per unit: 32 <= H <= 512, H % 32 == 0)")
     return stream_dtype(compute_dtype)
 
 
-def _check_weights(w, lo, hi, R: int, H: int) -> None:
-    _kernels.check_cuda_tensor("w", w, torch.float32, (2, H, 3 * H))
+def _check_weights(w, lo, hi, R: int, H: int, G: int = 3) -> None:
+    _kernels.check_cuda_tensor("w", w, torch.float32, (2, H, G * H))
     _kernels.check_cuda_tensor("lo", lo, torch.float32, (R, 1))
     _kernels.check_cuda_tensor("hi", hi, torch.float32, (R, 1))
 
 
-def _check_scan(xs, w, lo, hi, compute_dtype):
+def _check_scan(xs, w, lo, hi, compute_dtype, cell: str = "gru"):
     T, R, _ = xs.shape
     H = w.shape[1]
-    sdt = _check_sizes(T, R, H, compute_dtype)
-    _kernels.check_cuda_tensor("xs", xs, sdt, (T, R, 3 * H))
-    _check_weights(w, lo, hi, R, H)
+    G = 3 if cell == "gru" else 4
+    sdt = _check_sizes(T, R, H, compute_dtype, cell)
+    _kernels.check_cuda_tensor("xs", xs, sdt, (T, R, G * H))
+    _check_weights(w, lo, hi, R, H, G)
     return T, R // 2, H, sdt
 
 
@@ -192,6 +286,68 @@ def gru_bwd_cuda(gates, w, lo, hi, h_prev, g, compute_dtype):
     return dxs, dhn
 
 
+def _lstm_fwd_weights(w, compute_dtype):
+    """W [2, H, 4H] → the forward kernel's k-quads [2, H/4, 4H, 4] in the
+    compute dtype: element [d, k4, col, kk] is W[d, 4·k4 + kk, col]."""
+    H = w.shape[1]
+    return w.to(compute_dtype).reshape(2, H // 4, 4, 4 * H).transpose(
+        2, 3).contiguous()
+
+
+def _lstm_bwd_weights(w, compute_dtype):
+    """W [2, H, 4H] → the backward kernel's k-quads of Wᵀ, [2, H, H, 4] in
+    the compute dtype: element [d, k4, j, kk] is W[d, j, 4·k4 + kk]."""
+    H = w.shape[1]
+    return w.to(compute_dtype).reshape(2, H, H, 4).transpose(1, 2) \
+        .contiguous()
+
+
+def lstm_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
+                   hi: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """Residual-free LSTM kernel launch (CUDA tensors only; raises on
+    shapes it does not take)."""
+    T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype, "lstm")
+    wq = _lstm_fwd_weights(w, compute_dtype)
+    ys = torch.empty((T, 2 * B, H), dtype=torch.float32, device=xs.device)
+    _kernels.LSTM_FWD.launch(
+        xs.data_ptr(), wq.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        ys.data_ptr(), T, B, H, int(compute_dtype == torch.bfloat16),
+        _kernels.stream_ptr(xs))
+    return ys
+
+
+def lstm_scan_train_cuda(xs, w, lo, hi, compute_dtype):
+    """LSTM training forward launch: (ys, cs, gates); CUDA tensors only."""
+    T, B, H, sdt = _check_scan(xs, w, lo, hi, compute_dtype, "lstm")
+    wq = _lstm_fwd_weights(w, compute_dtype)
+    ys = torch.empty((T, 2 * B, H), dtype=torch.float32, device=xs.device)
+    cs = torch.empty_like(ys)
+    gates = torch.empty((T, 2 * B, 4 * H), dtype=sdt, device=xs.device)
+    _kernels.LSTM_FWD_TRAIN.launch(
+        xs.data_ptr(), wq.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        ys.data_ptr(), cs.data_ptr(), gates.data_ptr(), T, B, H,
+        int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
+    return ys, cs, gates
+
+
+def lstm_bwd_cuda(gates, w, lo, hi, cs, g, compute_dtype):
+    """LSTM backward kernel launch: dxs; CUDA tensors only."""
+    T, R, _ = gates.shape
+    H = w.shape[1]
+    sdt = _check_sizes(T, R, H, compute_dtype, "lstm")
+    _check_weights(w, lo, hi, R, H, 4)
+    _kernels.check_cuda_tensor("gates", gates, sdt, (T, R, 4 * H))
+    for name, t in (("cs", cs), ("g", g)):
+        _kernels.check_cuda_tensor(name, t, torch.float32, (T, R, H))
+    wtq = _lstm_bwd_weights(w, compute_dtype)
+    dxs = torch.empty((T, R, 4 * H), dtype=sdt, device=gates.device)
+    _kernels.LSTM_BWD.launch(
+        gates.data_ptr(), wtq.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        cs.data_ptr(), g.data_ptr(), dxs.data_ptr(), T, R // 2, H,
+        int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(gates))
+    return dxs
+
+
 def gru_scan(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
              hi: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """``birnn_pallas(xs, w, lo, hi, "gru", dtype)`` for inference: the
@@ -219,6 +375,35 @@ def gru_bwd(gates, w, lo, hi, h_prev, g, compute_dtype):
                             g.contiguous(), compute_dtype)
     _kernels.check_cpu_tensor("gru_bwd", gates)
     return gru_bwd_plain(gates, w, lo, hi, h_prev, g, compute_dtype)
+
+
+def lstm_scan(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
+              hi: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """``birnn_pallas(xs, w, lo, hi, "lstm", dtype)`` for inference: the
+    kernel on the card, the plain version on the CPU."""
+    if xs.is_cuda:
+        return lstm_scan_cuda(xs, w, lo, hi, compute_dtype)
+    _kernels.check_cpu_tensor("lstm_scan", xs)
+    return lstm_scan_plain(xs, w, lo, hi, compute_dtype)
+
+
+def lstm_scan_train(xs, w, lo, hi, compute_dtype):
+    """(ys, cs, gates): the LSTM training-forward kernel on the card, the
+    plain version on the CPU."""
+    if xs.is_cuda:
+        return lstm_scan_train_cuda(xs, w, lo, hi, compute_dtype)
+    _kernels.check_cpu_tensor("lstm_scan_train", xs)
+    return lstm_scan_train_plain(xs, w, lo, hi, compute_dtype)
+
+
+def lstm_bwd(gates, w, lo, hi, cs, g, compute_dtype):
+    """dxs: the LSTM backward kernel on the card, the plain version on the
+    CPU."""
+    if gates.is_cuda:
+        return lstm_bwd_cuda(gates, w, lo, hi, cs.contiguous(),
+                             g.contiguous(), compute_dtype)
+    _kernels.check_cpu_tensor("lstm_bwd", gates)
+    return lstm_bwd_plain(gates, w, lo, hi, cs, g, compute_dtype)
 
 
 def shift_prev(ys: torch.Tensor) -> torch.Tensor:
@@ -261,4 +446,25 @@ class BiGRUScan(torch.autograd.Function):
         dxs, dhn = gru_bwd(gates, w, lo, hi, h_prev, gy.to(ys.dtype), cdt)
         dw = torch.cat([dw_matmul(h_prev, dxs[..., :2 * H], B, cdt),
                         dw_matmul(h_prev, dhn, B, cdt)], dim=2)
+        return dxs, dw.to(w.dtype), None, None, None
+
+
+class BiLSTMScan(torch.autograd.Function):
+    """``birnn_pallas(..., "lstm", ...)`` with its custom VJP: ys from
+    (xs, w); gradients for xs (in the stream dtype) and w (fp32)."""
+
+    @staticmethod
+    def forward(ctx, xs, w, lo, hi, compute_dtype):
+        ys, cs, gates = lstm_scan_train(xs, w, lo, hi, compute_dtype)
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(w, lo, hi, ys, cs, gates)
+        return ys
+
+    @staticmethod
+    def backward(ctx, gy):
+        w, lo, hi, ys, cs, gates = ctx.saved_tensors
+        cdt = ctx.compute_dtype
+        B = ys.shape[1] // 2
+        dxs = lstm_bwd(gates, w, lo, hi, cs, gy.to(ys.dtype), cdt)
+        dw = dw_matmul(shift_prev(ys), dxs, B, cdt)    # dg ≡ dxs (masked)
         return dxs, dw.to(w.dtype), None, None, None

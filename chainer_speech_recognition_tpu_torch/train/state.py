@@ -38,8 +38,8 @@ class TrainState:
     model: torch.nn.Module
     opt_state: dict
     step: int
-    rng: np.ndarray     # uint32[2]: kept for the checkpoint layout; the
-                        # port's training path draws no random numbers
+    rng: np.ndarray     # uint32[2]: with ``step``, seeds the step's
+                        # SpecAugment draws (ops/specaugment.step_generator)
 
 
 def warmup_cosine(cfg: OptimConfig):

@@ -1,6 +1,7 @@
 """The train and eval steps (port of ``train/step.py``, one device):
-front-end → acoustic model → CTC → weighted mean → backward → clip →
-update, on torch tensors already on the model's device.
+front-end → SpecAugment (train step only, when enabled) → acoustic model →
+CTC → weighted mean → backward → clip → update, on torch tensors already
+on the model's device.
 
 Batches are dicts of padded tensors:
   signals        [B, N_max] float32 PCM   (or features [B,T,F,3] +
@@ -20,6 +21,8 @@ from ..config import Config
 from ..frontend import select_frontend
 from ..ops.ctc import LOG_ZERO, ctc_loss_scan
 from ..ops.ctc_cuda import ctc_loss
+from ..ops.specaugment import (apply_specaugment, specaugment_draws,
+                               step_generator)
 from .state import Optimizer, TrainState, global_norm
 
 
@@ -43,11 +46,15 @@ def _features(cfg: Config, batch: dict):
         apply_cmvn=cfg.features.cmvn_arg)
 
 
-def forward_loss(model, cfg: Config, batch: dict):
+def forward_loss(model, cfg: Config, batch: dict, draws=None):
     """Weighted-mean CTC loss: ``sample_weight`` (optional) and samples with
     no valid alignment weigh 0; the normaliser is max(Σ weights, 1).
+    ``draws`` (``ops/specaugment.specaugment_draws`` on the batch's device)
+    mask the features before the model; None leaves them as they are.
     → (loss, (n_valid_real, n_real), logits, out_lens)."""
     feats, flens = _features(cfg, batch)
+    if draws is not None:
+        feats = apply_specaugment(feats, flens, draws, cfg.specaugment)
     logits, olens = model(feats, flens)
     losses = _ctc(cfg)(logits, olens, batch["labels"], batch["label_lengths"])
     valid = losses < -LOG_ZERO / 2
@@ -63,15 +70,25 @@ def forward_loss(model, cfg: Config, batch: dict):
 
 def check_trainable(cfg: Config) -> None:
     """Raise for the training options the port does not run yet."""
-    if cfg.specaugment.enabled:
-        raise NotImplementedError(
-            "specaugment.enabled: SpecAugment is not ported yet (ROADMAP.md, "
-            "module queue: SpecAugment); bigru leaves it disabled")
     if cfg.parallel.num_devices > 1:
         raise NotImplementedError(
             f"parallel.num_devices={cfg.parallel.num_devices}: data "
             "parallelism is not ported yet (ROADMAP.md, module queue: data "
             "parallelism); the port trains on one device")
+
+
+def step_draws(cfg: Config, state: TrainState, batch: dict):
+    """The SpecAugment draws of this step (None when disabled): drawn on the
+    CPU from ``step_generator(state.rng, state.step)``, then copied to the
+    batch's device without waiting for it."""
+    if not cfg.specaugment.enabled:
+        return None
+    labels = batch["labels"]
+    draws = specaugment_draws(step_generator(state.rng, state.step),
+                              labels.shape[0], cfg.specaugment)
+    if labels.is_cuda:
+        draws = draws.pin_memory().to(labels.device, non_blocking=True)
+    return draws
 
 
 def make_train_step(cfg: Config) -> Callable:
@@ -87,7 +104,8 @@ def make_train_step(cfg: Config) -> Callable:
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        loss, (n_valid, n_real), _, _ = forward_loss(model, cfg, batch)
+        loss, (n_valid, n_real), _, _ = forward_loss(
+            model, cfg, batch, step_draws(cfg, state, batch))
         loss.backward()
         grads = {k: p.grad for k, p in params.items()}
         gnorm = global_norm(grads.values())
@@ -107,8 +125,8 @@ def make_train_step(cfg: Config) -> Callable:
 
 def make_eval_step(model, cfg: Config) -> Callable:
     """``eval_step(batch) → (per-utterance CTC loss [B], logits, out_lens)``
-    without autograd: the residual-free GRU kernel, the CTC forward kernel
-    and no backward state."""
+    without autograd and without SpecAugment: the residual-free RNN
+    kernel, the CTC forward kernel and no backward state."""
 
     @torch.no_grad()
     def eval_step(batch: dict):

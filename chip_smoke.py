@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
 Drives the port (``chainer_speech_recognition_tpu_torch``) at the full
-width of the ``bigru`` preset with random weights made from a seed, and
-fails (exit code != 0, no result line) if any phase fails:
+width of the ``bigru`` preset (phases 3-9) and of the ``bilstm_deep``
+preset (phases 10-14), with random weights made from a seed, and fails
+(exit code != 0, no result line) if any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
@@ -34,7 +35,24 @@ fails (exit code != 0, no result line) if any phase fails:
    from 0) beside the profiler's overhead, and the peak memory;
 9. train parity: one step from the same weights and batch on the card and
    on the CPU: loss within rtol 1e-4, per-parameter gradients within the
-   bf16 bar.
+   bf16 bar;
+10. LSTM kernels: the residual-free BiLSTM forward in fp32 and bf16
+    against its plain version at the decode shapes (B = 32, T' = 251),
+    timed as in phase 3 beside cuDNN's LSTM;
+11. LSTM training kernels: the training forward (ys, cs, gates) and the
+    backward (dxs, on the plain forward's residuals and on the kernel's
+    own) against their plain versions at the training shapes (B = 24,
+    T' = 256), timed beside cuDNN's LSTM;
+12. bilstm_deep decode: a checkpoint of random weights through the decode
+    CLI on the 64 wavs (the LSTM forward must show launches), a warm
+    rerun's utterances per second and real-time factor, and 4 wavs' logits
+    card vs CPU;
+13. bilstm_deep train: the corpus of phase 8 through the train CLI with
+    SpecAugment on, 16 steps with dev eval and checkpoints every 8, exact
+    launch counts, the warm step time, utterances per second, busy share
+    and peak memory; the last checkpoint decodes through the decode CLI;
+14. bilstm_deep train parity: one step card vs CPU from the same weights,
+    batch and SpecAugment draws (bars as in phase 9).
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -47,15 +65,18 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
 PRESET = "bigru"
+LSTM_PRESET = "bilstm_deep"
 SEED = 0
 N_WAVS, BATCH = 64, 32
 WAV_SECONDS = (8.0, 10.0)
@@ -74,7 +95,10 @@ TOL = {"frontend_logmel": 5e-4,       # tests/test_pallas_frontend.py:34
        "ctc_grad": 2e-4,
        "train_loss_rtol": 1e-4,       # ~80x the 1.2e-6 measured on an H100
        "greedy": 0}                   # exact
-MIN_LAUNCHES = {"frontend_logmel": 2, "gru_fwd": 6, "greedy": 2}
+# decode CLI, 64 wavs in two chunks: launches of each decode kernel
+MIN_LAUNCHES = {PRESET: {"frontend_logmel": 2, "gru_fwd": 6, "greedy": 2},
+                LSTM_PRESET: {"frontend_logmel": 2, "lstm_fwd": 10,
+                              "greedy": 2}}
 SOURCES = {
     "frontend_logmel": (
         "chainer_speech_recognition_tpu_torch/csrc/frontend_logmel.cu",
@@ -97,6 +121,15 @@ SOURCES = {
     "ctc_bwd": (
         "chainer_speech_recognition_tpu_torch/csrc/ctc.cu",
         "chainer_speech_recognition_tpu/ops/ctc_pallas.py:101"),
+    "lstm_fwd": (
+        "chainer_speech_recognition_tpu_torch/csrc/lstm_fwd.cu",
+        "chainer_speech_recognition_tpu/ops/rnn_pallas.py:150"),
+    "lstm_fwd_train": (
+        "chainer_speech_recognition_tpu_torch/csrc/lstm_fwd.cu",
+        "chainer_speech_recognition_tpu/ops/rnn_pallas.py:150"),
+    "lstm_bwd": (
+        "chainer_speech_recognition_tpu_torch/csrc/lstm_bwd.cu",
+        "chainer_speech_recognition_tpu/ops/rnn_pallas.py:177"),
 }
 # H100 SXM datasheet: HBM bytes/s, dense peak FLOP/s
 HBM_RATE = 3.35e12
@@ -168,8 +201,8 @@ def random_state_dict(model, rng) -> dict:
     return sd
 
 
-def gru_rows(lens_f, T: int, dev):
-    """(lo, hi) [2B, 1] of a BiGRU layer for subsampled lengths."""
+def rnn_rows(lens_f, T: int, dev):
+    """(lo, hi) [2B, 1] of a BiRNN layer for subsampled lengths."""
     import torch
 
     B = lens_f.shape[0]
@@ -178,33 +211,51 @@ def gru_rows(lens_f, T: int, dev):
     return lo, hi
 
 
-def library_gru(dev, T: int, B: int, H: int, lens, dtype):
-    """cuDNN's bidirectional GRU over packed sequences (b_hh = 0; gate
-    order r, z, n and r ⊙ (W_hn h) as the port's): the yardstick for the
-    GRU kernels. → (forward ms, training-forward ms, backward ms)."""
+def library_rnn(cell: str, dev, T: int, B: int, H: int, lens, dtype):
+    """cuDNN's bidirectional GRU or LSTM over packed sequences (b_hh = 0;
+    the GRU's gate order r, z, n and r ⊙ (W_hn h) are the port's, the
+    LSTM has no +1 forget bias): the yardstick for the recurrence kernels,
+    input projection included. → (forward ms, training-forward ms,
+    backward ms)."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
-    gru = torch.nn.GRU(2 * H, H, bidirectional=True).to(dev, dtype)
-    gru.flatten_parameters()
+    cls = {"gru": torch.nn.GRU, "lstm": torch.nn.LSTM}[cell]
+    rnn = cls(2 * H, H, bidirectional=True).to(dev, dtype)
     with torch.no_grad():
-        gru.bias_hh_l0.zero_()
-        gru.bias_hh_l0_reverse.zero_()
+        rnn.bias_hh_l0.zero_()
+        rnn.bias_hh_l0_reverse.zero_()
+    # flatten_parameters() skips the dtypes torch.backends.cudnn.is_acceptable
+    # does not list (bf16), which leaves cuDNN to compact the weights into
+    # one buffer at every call; flatten them once, for bf16 too
+    acceptable = torch.backends.cudnn.is_acceptable
+    torch.backends.cudnn.is_acceptable = lambda t: t.is_cuda
+    try:
+        rnn.flatten_parameters()
+    finally:
+        torch.backends.cudnn.is_acceptable = acceptable
     x = torch.randn(T, B, 2 * H, device=dev, dtype=dtype)
     packed = pack_padded_sequence(x, lens.cpu(), enforce_sorted=False)
     packed_g = packed._replace(data=packed.data.clone().requires_grad_())
 
     def fwd():
         with torch.no_grad():
-            gru(packed)
+            rnn(packed)
 
     def fwd_train():
-        gru(packed_g)
+        rnn(packed_g)
 
     def fwd_bwd():
-        out, _ = gru(packed_g)
+        out, _ = rnn(packed_g)
         out.data.sum().backward()
 
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fwd()
+        fwd_bwd()
+    compacted = [w for w in caught if "contiguous chunk" in str(w.message)]
+    check(not compacted, f"cuDNN {cell} yardstick: weights compacted at "
+          f"every call ({compacted[:1]})")
     t_fwd = time_ms(fwd)
     t_train = time_ms(fwd_train)
     return t_fwd, t_train, time_ms(fwd_bwd) - t_train
@@ -240,9 +291,20 @@ def phase_build() -> None:
     print(f"[build] {os.path.basename(so)} in "
           f"{time.perf_counter() - t0:.3f} s (nvcc {info['seconds']:.3f} s, "
           f"cached={info['cached']})")
+    # one line a kernel instantiation: registers and spill stores (ptxas)
+    entry = None
     for line in info.get("log", "").splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"\d([a-z_]+_kernel)(I\w*?E)?E", m.group(1))
+            entry = k.group(1) + (k.group(2) or "") if k else m.group(1)
+            spill = ""
+        elif entry and "spill stores" in line:
+            spill = line.split(",")[1].strip()
+        elif entry and "Used" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            print(f"[build] {entry}: {regs} registers, {spill}")
+            entry = None
 
 
 def phase_kernels(dev, rng) -> dict:
@@ -256,7 +318,7 @@ def phase_kernels(dev, rng) -> dict:
     from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
         fused_logmel_rows_cuda)
     from chainer_speech_recognition_tpu_torch.frontend.torch_frontend import (
-        _K, extend_signal, logmel_from_extended)
+        _K, _tables, extend_signal, logmel_from_extended)
     from chainer_speech_recognition_tpu_torch.models.conv import (
         conv_out_length)
     from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
@@ -288,10 +350,26 @@ def phase_kernels(dev, rng) -> dict:
     # the kernel's work: a dense fp32 DFT (2·512·514 flops a frame) + mel
     nb = C.N_FFT // 2 + 1
     flops = CHECK_B * T * (2 * C.N_FFT * 2 * nb + 2 * nb * C.N_MELS)
+    # yardstick: cuFFT's rfft of the windowed frames, power, the mel matmul
+    # and the log (the frames are cut and windowed outside the timing)
+    win, mel = _tables(dev)
+    frames = (ext.unfold(1, C.N_FFT, C.HOP_LENGTH)[:, :T] * win).contiguous()
+
+    def library_logmel():
+        spec = torch.fft.rfft(frames, n=C.N_FFT, dim=-1)
+        power = spec.real.square() + spec.imag.square()
+        return torch.log(torch.clamp(power @ mel, min=C.LOG_EPS))
+
+    lib_err = float((library_logmel() - want).abs().max())
     out["frontend_logmel"] = dict(
         max_abs_err=err, ms=time_ms(lambda: fused_logmel_rows_cuda(ext, T)),
         plain_ms=time_ms(lambda: logmel_from_extended(ext, T)),
-        library_ms=None, **bound(nbytes(ext, got), flops, "fp32"))
+        library_ms=time_ms(library_logmel),
+        **bound(nbytes(ext, got), flops, "fp32"))
+    print(f"[kernels] frontend_logmel {out['frontend_logmel']['ms']:.4f} ms, "
+          f"plain {out['frontend_logmel']['plain_ms']:.4f} ms, cuFFT rfft + "
+          f"mel + log on windowed frames {out['frontend_logmel']['library_ms']:.4f}"
+          f" ms (max abs vs plain {lib_err:.3e})")
 
     # GRU: [T', 2B, 3H] at the subsampled length of 10 s
     Tp = T
@@ -301,13 +379,13 @@ def phase_kernels(dev, rng) -> dict:
     flen = torch.from_numpy(lens // C.HOP_LENGTH + 1)
     for s in mcfg.conv_stride_time:
         flen = conv_out_length(flen, s)
-    lo, hi = gru_rows(flen.to(torch.float32), Tp, dev)
+    lo, hi = rnn_rows(flen.to(torch.float32), Tp, dev)
     w = torch.from_numpy((rng.standard_normal((2, H, 3 * H))
                           / np.sqrt(H)).astype(np.float32)).to(dev)
     xs32 = torch.from_numpy(rng.standard_normal(
         (Tp, 2 * B, 3 * H)).astype(np.float32)).to(dev)
     live = 2 * int(flen.sum())               # live (row, step) pairs
-    lib_fwd, _, _ = library_gru(dev, Tp, B, H, flen, torch.bfloat16)
+    lib_fwd, _, _ = library_rnn("gru", dev, Tp, B, H, flen, torch.bfloat16)
     for tag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         xs = xs32.to(torch.bfloat16) if tag == "bf16" else xs32
         got = gru_scan_cuda(xs, w, lo, hi, cdt)
@@ -396,7 +474,7 @@ def phase_train_kernels(dev, rng) -> dict:
     cdt = torch.bfloat16
 
     # GRU training forward and backward (bf16 streams, the preset's dtype)
-    lo, hi = gru_rows(flen.to(torch.float32), T, dev)
+    lo, hi = rnn_rows(flen.to(torch.float32), T, dev)
     w = torch.from_numpy((rng.standard_normal((2, H, 3 * H))
                           / np.sqrt(H)).astype(np.float32)).to(dev)
     xs = torch.from_numpy(rng.standard_normal(
@@ -426,7 +504,7 @@ def phase_train_kernels(dev, rng) -> dict:
     check(gerr <= TOL["gru_grad_bf16"], "gru_bwd disagrees")
     live = 2 * int(flen.sum())
     esz = xs.element_size()
-    _, lib_train, lib_bwd = library_gru(dev, T, B, H, flen, cdt)
+    _, lib_train, lib_bwd = library_rnn("gru", dev, T, B, H, flen, cdt)
     out["gru_fwd_train"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: gru_scan_train_cuda(xs, w, lo, hi, cdt)),
@@ -539,22 +617,184 @@ def phase_train_kernels(dev, rng) -> dict:
     return out
 
 
-def phase_inputs(root: str, rng) -> tuple[str, str, list[str], float]:
+def phase_lstm_kernels(dev, rng) -> dict:
+    """The residual-free BiLSTM kernel vs its plain version at the decode
+    shapes of bilstm_deep: a chunk of 32 wavs of 10 s (the last one 8 s),
+    T' = 251, in fp32 and bf16 (the preset's dtype, whose timing is kept)."""
+    import torch
+
     from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.models.conv import (
+        conv_out_length)
+    from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
+        lstm_scan_cuda, lstm_scan_plain)
+
+    mcfg = preset_config(LSTM_PRESET).model
+    H, B = mcfg.rnn_hidden, CHECK_B
+    n = int(CHECK_SECONDS * C.SAMPLE_RATE)
+    lens = np.full(B, n, np.int64)
+    lens[-1] = int(WAV_SECONDS[0] * C.SAMPLE_RATE)
+    flen = torch.from_numpy(lens // C.HOP_LENGTH + 1)
+    Tp = C.num_frames(n)
+    for s in mcfg.conv_stride_time:
+        flen = conv_out_length(flen, s)
+        Tp = -(-Tp // s)
+    lo, hi = rnn_rows(flen.to(torch.float32), Tp, dev)
+    w = torch.from_numpy((rng.standard_normal((2, H, 4 * H))
+                          / np.sqrt(H)).astype(np.float32)).to(dev)
+    xs32 = torch.from_numpy(rng.standard_normal(
+        (Tp, 2 * B, 4 * H)).astype(np.float32)).to(dev)
+    live = 2 * int(flen.sum())               # live (row, step) pairs
+    lib_fwd, _, _ = library_rnn("lstm", dev, Tp, B, H, flen, torch.bfloat16)
+    out = {}
+    for tag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        xs = xs32.to(torch.bfloat16) if tag == "bf16" else xs32
+        got = lstm_scan_cuda(xs, w, lo, hi, cdt)
+        want = lstm_scan_plain(xs, w, lo, hi, cdt)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = TOL[f"gru_{tag}"]
+        print(f"[lstm-kernels] lstm_fwd {tag} xs {tuple(xs.shape)}: max abs "
+              f"{err:.3e} (tol {tol})")
+        check(bool(torch.isfinite(got).all()), f"lstm_fwd {tag}: non-finite")
+        check(err <= tol, f"lstm_fwd {tag} disagrees")
+        esz = xs.element_size()
+        timing = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: lstm_scan_cuda(xs, w, lo, hi, cdt)),
+            plain_ms=time_ms(lambda: lstm_scan_plain(xs, w, lo, hi, cdt),
+                             warmup=1, reps=3),
+            library_ms=lib_fwd,
+            **bound(live * 4 * H * esz + w.numel() * esz
+                    + nbytes(got, lo, hi), 2 * live * H * 4 * H, tag))
+        print(f"[lstm-kernels] lstm_fwd {tag}: {timing['ms']:.4f} ms, plain "
+              f"{timing['plain_ms']:.4f} ms, cuDNN LSTM (bf16, with input "
+              f"projection) {lib_fwd:.4f} ms, bound {timing['bound_ms']:.5f} "
+              f"ms ({timing['bound_by']})")
+        if cdt == torch.bfloat16:       # the preset's compute dtype
+            out["lstm_fwd"] = timing
+    print(f"[lstm-kernels] T' = {Tp}, B = {B}, H = {H}")
+    return out
+
+
+def phase_lstm_train_kernels(dev, rng) -> dict:
+    """The BiLSTM training forward and backward vs their plain versions at
+    bilstm_deep's training shapes (24 utterances of 9-10 s in the
+    1024-frame bucket, T' = 256, bf16)."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.models.conv import (
+        conv_out_length)
+    from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
+        lstm_bwd_cuda, lstm_bwd_plain, lstm_scan_train_cuda,
+        lstm_scan_train_plain)
+
+    cfg = preset_config(LSTM_PRESET)
+    H, B = cfg.model.rnn_hidden, TRAIN_B
+    samples = rng.uniform(*TRAIN_SECONDS, B) * C.SAMPLE_RATE
+    flen = torch.from_numpy((samples.astype(np.int64) // C.HOP_LENGTH) + 1)
+    T = TRAIN_FRAMES
+    for s in cfg.model.conv_stride_time:
+        flen = conv_out_length(flen, s)
+        T = -(-T // s)
+    cdt = torch.bfloat16
+    lo, hi = rnn_rows(flen.to(torch.float32), T, dev)
+    w = torch.from_numpy((rng.standard_normal((2, H, 4 * H))
+                          / np.sqrt(H)).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rng.standard_normal(
+        (T, 2 * B, 4 * H)).astype(np.float32)).to(dev).to(cdt)
+    g = torch.from_numpy(rng.standard_normal(
+        (T, 2 * B, H)).astype(np.float32)).to(dev)
+    ys, cs, gates = lstm_scan_train_cuda(xs, w, lo, hi, cdt)
+    ys_p, cs_p, gates_p = lstm_scan_train_plain(xs, w, lo, hi, cdt)
+    torch.cuda.synchronize()
+    err = max(float((ys - ys_p).abs().max()), float((cs - cs_p).abs().max()),
+              float((gates.float() - gates_p.float()).abs().max()))
+    print(f"[lstm-train-kernels] lstm_fwd_train xs {tuple(xs.shape)} -> ys, "
+          f"cs, gates {tuple(gates.shape)}: max abs {err:.3e} "
+          f"(tol {TOL['gru_bf16']})")
+    check(bool(torch.isfinite(ys).all() and torch.isfinite(cs).all()
+               and torch.isfinite(gates).all()), "lstm_fwd_train: non-finite")
+    check(err <= TOL["gru_bf16"], "lstm_fwd_train disagrees")
+    args = (gates_p, w, lo, hi, cs_p, g, cdt)
+    dxs_p = lstm_bwd_plain(*args)
+    gerr = 0.0
+    # once on the plain forward's residuals (the kernel alone), once on the
+    # forward kernel's own (the training path)
+    for gt, c in ((gates_p, cs_p), (gates, cs)):
+        dxs = lstm_bwd_cuda(gt, w, lo, hi, c, g, cdt)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(dxs.float()).all()), "lstm_bwd: non-finite")
+        gerr = max(gerr, float((dxs.float() - dxs_p.float()).abs().max()))
+    print(f"[lstm-train-kernels] lstm_bwd gates {tuple(gates.shape)} -> dxs "
+          f"{tuple(dxs.shape)}: max abs {gerr:.3e} (tol "
+          f"{TOL['gru_grad_bf16']}; on the plain and the kernel's residuals)")
+    check(gerr <= TOL["gru_grad_bf16"], "lstm_bwd disagrees")
+
+    live = 2 * int(flen.sum())
+    esz = xs.element_size()
+    w_bytes = w.numel() * esz
+    _, lib_train, lib_bwd = library_rnn("lstm", dev, T, B, H, flen, cdt)
+    out = {
+        "lstm_fwd_train": dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: lstm_scan_train_cuda(xs, w, lo, hi, cdt)),
+            plain_ms=time_ms(lambda: lstm_scan_train_plain(xs, w, lo, hi,
+                                                           cdt),
+                             warmup=1, reps=3),
+            library_ms=lib_train,
+            **bound(live * 4 * H * esz + w_bytes
+                    + nbytes(ys, cs, gates, lo, hi),
+                    2 * live * H * 4 * H, "bf16")),
+        "lstm_bwd": dict(
+            max_abs_err=gerr,
+            ms=time_ms(lambda: lstm_bwd_cuda(*args)),
+            plain_ms=time_ms(lambda: lstm_bwd_plain(*args), warmup=1,
+                             reps=3),
+            library_ms=lib_bwd,
+            # gates, cs (read once: c_{t-1} is the step before's c) and g
+            **bound(live * (4 * H * esz + 2 * H * 4) + w_bytes
+                    + nbytes(dxs, lo, hi), 2 * live * 4 * H * H, "bf16")),
+    }
+    for name in ("lstm_fwd_train", "lstm_bwd"):
+        t = out[name]
+        print(f"[lstm-train-kernels] {name}: {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, cuDNN LSTM {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    print(f"[lstm-train-kernels] T' = {T}, B = {B}, H = {H}")
+    return out
+
+
+def write_checkpoint(root: str, preset: str, rng) -> str:
+    """A params-only checkpoint of ``preset`` with random weights from
+    ``rng``, written by the port's own writer; → its directory."""
     from chainer_speech_recognition_tpu_torch.bridge import state_dict_to_flax
     from chainer_speech_recognition_tpu_torch.checkpoint import save_params
     from chainer_speech_recognition_tpu_torch.config import preset_config
     from chainer_speech_recognition_tpu_torch.models.presets import (
         build_model)
+
+    cfg = preset_config(preset)
+    model = build_model(cfg.model)
+    ckpt = os.path.join(root, f"ckpt_{preset}")
+    path = save_params(ckpt, state_dict_to_flax(
+        random_state_dict(model, rng)), cfg)
+    print(f"[inputs] {preset} checkpoint {os.path.basename(path)} "
+          f"({sum(p.numel() for p in model.parameters())} params)")
+    return ckpt
+
+
+def phase_inputs(root: str, rng) -> tuple[str, str, list[str], float]:
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
     from chainer_speech_recognition_tpu_torch.utils.wav import write_wav
     from chainer_speech_recognition_tpu_torch.vocab import Vocab
 
-    cfg = preset_config(PRESET)
-    V = cfg.model.vocab_size
-    model = build_model(cfg.model)
-    ckpt = os.path.join(root, "ckpt")
-    path = save_params(ckpt, state_dict_to_flax(
-        random_state_dict(model, rng)), cfg)
+    ckpt = write_checkpoint(root, PRESET, rng)
+    V = preset_config(PRESET).model.vocab_size
     vocab = os.path.join(root, "vocab.txt")
     Vocab(["<blank>"] + [chr(0x3042 + i) for i in range(V - 1)]).save(vocab)
     wavs, total = [], 0.0
@@ -563,9 +803,8 @@ def phase_inputs(root: str, rng) -> tuple[str, str, list[str], float]:
         wavs.append(os.path.join(root, f"utt{i:03d}.wav"))
         write_wav(wavs[-1], sig)
         total += len(sig) / C.SAMPLE_RATE
-    print(f"[inputs] {PRESET} checkpoint {os.path.basename(path)} "
-          f"({sum(p.numel() for p in model.parameters())} params), "
-          f"{V - 1}-symbol vocab, {N_WAVS} wavs, {total:.3f} s of audio")
+    print(f"[inputs] {V - 1}-symbol vocab, {N_WAVS} wavs, {total:.3f} s of "
+          f"audio")
     return ckpt, vocab, wavs, total
 
 
@@ -582,33 +821,42 @@ def run_decode(args: list[str]) -> tuple[list[str], float]:
     return buf.getvalue().splitlines(), time.perf_counter() - t0
 
 
-def phase_decode(ckpt, vocab, wavs, audio_s) -> dict:
-    from chainer_speech_recognition_tpu_torch import _kernels
+def phase_decode(ckpt, vocab, wavs, audio_s, preset: str) -> dict:
+    import torch
 
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch.cli.decode import load_model
+
+    tag = "decode" if preset == PRESET else "lstm-decode"
     args = ["--ckpt-dir", ckpt, "--vocab", vocab, "--batch", str(BATCH),
             "--device", "cuda", *wavs]
     _kernels.reset_launches()
     lines, cold = run_decode(args)
     launches = _kernels.launches()
-    print(f"[decode] cold run {cold:.3f} s, launches {launches}")
+    print(f"[{tag}] cold run {cold:.3f} s, launches {launches}")
     check(len(lines) == len(wavs), f"decode printed {len(lines)} lines")
     check([l.split("\t")[0] for l in lines] == wavs,
           "decode output is not in input order")
     check(all(len(l.split("\t")) == 2 for l in lines), "malformed lines")
-    for name, need in MIN_LAUNCHES.items():
+    for name, need in MIN_LAUNCHES[preset].items():
         check(launches[name] >= need, f"{name}: {launches[name]} launches on "
-              f"the decode path, expected >= {need}")
+              f"the {preset} decode path, expected >= {need}")
     for l in lines[:2]:
-        print(f"[decode] {os.path.basename(l.split(chr(9))[0])}: "
+        print(f"[{tag}] {os.path.basename(l.split(chr(9))[0])}: "
               f"{l.split(chr(9))[1][:40]!r}")
     lines2, warm = run_decode(args)
     check(lines2 == lines, "warm decode differs from the cold one")
-    print(f"[decode] warm run {warm:.3f} s: {len(wavs) / warm:.3f} utt/s, "
+    print(f"[{tag}] warm run {warm:.3f} s: {len(wavs) / warm:.3f} utt/s, "
           f"RTF {warm / audio_s:.6f} ({audio_s:.3f} s of audio)")
+    t0 = time.perf_counter()
+    load_model(ckpt, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    print(f"[{tag}] of which the checkpoint load (cli.decode.load_model) "
+          f"takes {time.perf_counter() - t0:.3f} s")
     return launches
 
 
-def phase_parity(ckpt, wavs, dev) -> float:
+def phase_parity(ckpt, wavs, dev, tag: str) -> float:
     import torch
 
     from chainer_speech_recognition_tpu_torch.cli.decode import load_model
@@ -634,7 +882,7 @@ def phase_parity(ckpt, wavs, dev) -> float:
     check(lc.shape == lp.shape and torch.equal(oc, op), "parity: shapes")
     check(bool(torch.isfinite(lc).all()), "parity: non-finite card logits")
     err = float((lc - lp).abs().max())
-    print(f"[parity] logits {tuple(lc.shape)} card vs CPU: max abs "
+    print(f"[{tag}] logits {tuple(lc.shape)} card vs CPU: max abs "
           f"{err:.3e} (tol {TOL['gru_bf16']}), |logits| max "
           f"{float(lp.abs().max()):.3f}")
     check(err <= TOL["gru_bf16"], "card and CPU logits disagree")
@@ -671,10 +919,27 @@ def _busy_share(trace_path: str) -> tuple[float, float, list]:
     return busy / (t1 - t0), (t1 - t0) / 1e3, top
 
 
-def phase_train(root: str, rng) -> tuple[dict, str]:
-    """Train the full-width preset through the CLI on the card: launches,
-    finite metrics, checkpoint decode, resume; → (the training run's
-    launches, the train index path)."""
+def write_corpus(root: str, rng) -> str:
+    """The synthetic training corpus of phases 8 and 13; → its directory."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.data.synthetic import (
+        write_tone_corpus)
+
+    data = os.path.join(root, "corpus")
+    t0 = time.perf_counter()
+    write_tone_corpus(data, rng, {"train": TRAIN_UTTS, "dev": DEV_UTTS},
+                      preset_config(PRESET).model.vocab_size, TRAIN_SECONDS)
+    print(f"[train] corpus of {TRAIN_UTTS} + {DEV_UTTS} utterances of "
+          f"{TRAIN_SECONDS[0]}-{TRAIN_SECONDS[1]} s written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def phase_train(root: str, data: str, preset: str,
+                resume_to: int | None = None) -> tuple[dict, str]:
+    """Train the full-width preset through the CLI on the card: exact
+    launches, finite metrics, checkpoint decode and (``resume_to``) a
+    resumed run; → (the training run's launches, the train index path)."""
     import torch
 
     from chainer_speech_recognition_tpu_torch import _kernels
@@ -682,24 +947,16 @@ def phase_train(root: str, rng) -> tuple[dict, str]:
         list_checkpoints)
     from chainer_speech_recognition_tpu_torch.cli import train as train_cli
     from chainer_speech_recognition_tpu_torch.config import preset_config
-    from chainer_speech_recognition_tpu_torch.data.synthetic import (
-        write_tone_corpus)
 
-    cfg = preset_config(PRESET)
-    data = os.path.join(root, "corpus")
-    t0 = time.perf_counter()
-    write_tone_corpus(data, rng, {"train": TRAIN_UTTS, "dev": DEV_UTTS},
-                      cfg.model.vocab_size, TRAIN_SECONDS)
-    print(f"[train] corpus of {TRAIN_UTTS} + {DEV_UTTS} utterances of "
-          f"{TRAIN_SECONDS[0]}-{TRAIN_SECONDS[1]} s written in "
-          f"{time.perf_counter() - t0:.1f} s")
-    ckpt = os.path.join(root, "train_ckpt")
-    metrics = os.path.join(root, "train.jsonl")
-    prof = os.path.join(root, "prof")
+    tag = "train" if preset == PRESET else "lstm-train"
+    cfg = preset_config(preset)
+    ckpt = os.path.join(root, f"train_ckpt_{preset}")
+    metrics = os.path.join(root, f"train_{preset}.jsonl")
+    prof = os.path.join(root, f"prof_{preset}")
     sets = ["train.data_mode=stream", "train.log_every=1",
             f"train.eval_every={EVERY}", f"train.checkpoint_every={EVERY}",
             "optim.warmup_steps=4"]
-    args = ["--data-dir", data, "--preset", PRESET, "--device", "cuda",
+    args = ["--data-dir", data, "--preset", preset, "--device", "cuda",
             "--ckpt-dir", ckpt, "--metrics", metrics]
 
     _kernels.reset_launches()
@@ -715,10 +972,12 @@ def phase_train(root: str, rng) -> tuple[dict, str]:
     ev = _events(metrics)
     train = [e for e in ev if e["kind"] == "train"]
     evals = [e for e in ev if e["kind"] == "eval"]
-    print(f"[train] {TRAIN_STEPS} steps in {wall:.3f} s (kernel build, corpus "
-          f"reads and 2 evals included), launches {launches}")
+    print(f"[{tag}] {preset} (SpecAugment "
+          f"{'on' if cfg.specaugment.enabled else 'off'}): {TRAIN_STEPS} "
+          f"steps in {wall:.3f} s (kernel build, corpus reads and 2 evals "
+          f"included), launches {launches}")
     for e in train[:: max(len(train) // 4, 1)] + evals:
-        print(f"[train] {json.dumps(e)}")
+        print(f"[{tag}] {json.dumps(e)}")
     check([e["step"] for e in train] == list(range(1, TRAIN_STEPS + 1)),
           "train steps missing from the metrics")
     check(all(np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"])
@@ -729,16 +988,19 @@ def phase_train(root: str, rng) -> tuple[dict, str]:
               for e in evals), "dev eval results")
     n_eval = len(evals) * (-(-DEV_UTTS // TRAIN_B))   # eval batches run
     layers = cfg.model.rnn_layers
-    want = {"gru_fwd_train": layers * TRAIN_STEPS,
-            "gru_bwd": layers * TRAIN_STEPS,
+    cell = cfg.model.rnn_type
+    other = {"gru": "lstm", "lstm": "gru"}[cell]
+    want = {f"{cell}_fwd_train": layers * TRAIN_STEPS,
+            f"{cell}_bwd": layers * TRAIN_STEPS,
+            f"{cell}_fwd": layers * n_eval,
+            f"{other}_fwd_train": 0, f"{other}_bwd": 0, f"{other}_fwd": 0,
             "ctc_bwd": TRAIN_STEPS,
             "ctc_fwd": TRAIN_STEPS + n_eval,
             "frontend_logmel": TRAIN_STEPS + n_eval,
-            "gru_fwd": layers * n_eval,
             "greedy": n_eval}
     for name, n in want.items():
         check(launches[name] == n, f"{name}: {launches[name]} launches on "
-              f"the training path, expected {n}")
+              f"the {preset} training path, expected {n}")
     check(list_checkpoints(ckpt)[-1] == f"step_{TRAIN_STEPS:08d}.msgpack",
           "no final checkpoint")
 
@@ -751,14 +1013,14 @@ def phase_train(root: str, rng) -> tuple[dict, str]:
     # it opens before logged step 11 and closes after 15)
     prof_s = statistics.median(t[k] - t[k - 1] for k in range(12, 15))
     busy, window_ms, top = _busy_share(os.path.join(prof, "trace.json"))
-    print(f"[train] warm step {step_s * 1e3:.3f} ms (median of steps 3-"
+    print(f"[{tag}] warm step {step_s * 1e3:.3f} ms (median of steps 3-"
           f"{EVERY}), {TRAIN_B / step_s:.3f} utt/s; device busy "
           f"{busy:.4f} of the {window_ms:.3f} ms profiled window (steps "
           f"10-14 counted from 0), whose steps take {prof_s * 1e3:.3f} ms "
           f"(profiler overhead {prof_s / step_s - 1:+.1%}); peak memory "
           f"{peak:.3f} GiB")
     for name, us in top:
-        print(f"[train] device time {us / 1e3:9.3f} ms  {name[:90]}")
+        print(f"[{tag}] device time {us / 1e3:9.3f} ms  {name[:90]}")
 
     # the last checkpoint decodes through the decode CLI
     dev_wavs = [json.loads(l)["wav"] for l in open(
@@ -768,29 +1030,31 @@ def phase_train(root: str, rng) -> tuple[dict, str]:
                            "cuda", *dev_wavs])
     check([l.split("\t")[0] for l in lines] == dev_wavs,
           "decode of the trained checkpoint")
-    print(f"[train] trained checkpoint decodes: {lines[0].split(chr(9))[1][:40]!r}")
+    print(f"[{tag}] trained checkpoint decodes: "
+          f"{lines[0].split(chr(9))[1][:40]!r}")
 
-    # resume: 16 → 20
-    with contextlib.redirect_stdout(io.StringIO()):
-        train_cli.main(args + ["--set", *sets,
-                               f"train.total_steps={RESUME_STEPS}"])
-    ev = _events(metrics)[len(ev):]
-    resume = [e for e in ev if e["kind"] == "resume"]
-    steps = [e["step"] for e in ev if e["kind"] == "train"]
-    check(len(resume) == 1 and resume[0]["step"] == TRAIN_STEPS,
-          f"resume event {resume}")
-    check(steps == list(range(TRAIN_STEPS + 1, RESUME_STEPS + 1)),
-          f"resumed steps {steps}")
-    check(list_checkpoints(ckpt)[-1] == f"step_{RESUME_STEPS:08d}.msgpack",
-          "no checkpoint at the resumed run's end")
-    print(f"[train] resumed at step {resume[0]['step']}, stopped at "
-          f"{steps[-1]}")
+    if resume_to is not None:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(args + ["--set", *sets,
+                                   f"train.total_steps={resume_to}"])
+        ev = _events(metrics)[len(ev):]
+        resume = [e for e in ev if e["kind"] == "resume"]
+        steps = [e["step"] for e in ev if e["kind"] == "train"]
+        check(len(resume) == 1 and resume[0]["step"] == TRAIN_STEPS,
+              f"resume event {resume}")
+        check(steps == list(range(TRAIN_STEPS + 1, resume_to + 1)),
+              f"resumed steps {steps}")
+        check(list_checkpoints(ckpt)[-1] == f"step_{resume_to:08d}.msgpack",
+              "no checkpoint at the resumed run's end")
+        print(f"[{tag}] resumed at step {resume[0]['step']}, stopped at "
+              f"{steps[-1]}")
     return launches, os.path.join(data, "train_index.jsonl")
 
 
-def phase_train_parity(dev, index: str) -> None:
+def phase_train_parity(dev, index: str, preset: str) -> None:
     """One step's loss and gradients, card (kernels) vs CPU (plain
-    versions), from the same weights and batch of 2 utterances."""
+    versions), from the same weights, batch of 2 utterances and, where the
+    preset enables it, SpecAugment draws."""
     import torch
 
     from chainer_speech_recognition_tpu_torch.config import preset_config
@@ -798,13 +1062,20 @@ def phase_train_parity(dev, index: str) -> None:
     from chainer_speech_recognition_tpu_torch.data.sampler import BatchLoader
     from chainer_speech_recognition_tpu_torch.models.presets import (
         build_model, init_parameters)
+    from chainer_speech_recognition_tpu_torch.ops.specaugment import (
+        specaugment_draws, step_generator)
     from chainer_speech_recognition_tpu_torch.train.step import forward_loss
     from chainer_speech_recognition_tpu_torch.vocab import Vocab
 
-    cfg = preset_config(PRESET)
+    tag = "train-parity" if preset == PRESET else "lstm-train-parity"
+    cfg = preset_config(preset)
     utts = load_index(index)
     vocab = Vocab.load(os.path.join(os.path.dirname(index), "vocab.txt"))
     batch = BatchLoader(utts, vocab, cfg.buckets).load(3, np.arange(2))
+    draws = None
+    if cfg.specaugment.enabled:
+        draws = specaugment_draws(step_generator(
+            np.asarray([0, SEED], np.uint32), 0), 2, cfg.specaugment)
     res = []
     for d in (dev, torch.device("cpu")):
         model = build_model(cfg.model)
@@ -812,7 +1083,8 @@ def phase_train_parity(dev, index: str) -> None:
         model.to(d)
         b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()
              if k != "bucket_id"}
-        loss, _, _, _ = forward_loss(model, cfg, b)
+        loss, _, _, _ = forward_loss(
+            model, cfg, b, None if draws is None else draws.to(d))
         loss.backward()
         res.append((float(loss.detach()), {k: p.grad.float().cpu()
                                   for k, p in model.named_parameters()}))
@@ -820,12 +1092,14 @@ def phase_train_parity(dev, index: str) -> None:
     rel = abs(lc - lp) / abs(lp)
     worst = max((float((gc[k] - gp[k]).abs().max())
                  / max(float(gp[k].abs().max()), 1e-12), k) for k in gp)
-    print(f"[train-parity] loss card {lc:.5f} CPU {lp:.5f} (rel {rel:.3e}, "
-          f"tol {TOL['train_loss_rtol']}); worst gradient max abs diff / max "
-          f"abs {worst[0]:.3e} ({worst[1]}, tol {TOL['gru_grad_bf16']})")
+    print(f"[{tag}] {preset} (SpecAugment "
+          f"{'on' if draws is not None else 'off'}): loss card {lc:.5f} CPU "
+          f"{lp:.5f} (rel {rel:.3e}, tol {TOL['train_loss_rtol']}); worst "
+          f"gradient max abs diff / max abs {worst[0]:.3e} ({worst[1]}, tol "
+          f"{TOL['gru_grad_bf16']})")
     check(np.isfinite(lc) and rel <= TOL["train_loss_rtol"],
-          "train loss parity")
-    check(worst[0] <= TOL["gru_grad_bf16"], "train gradient parity")
+          f"{preset} train loss parity")
+    check(worst[0] <= TOL["gru_grad_bf16"], f"{preset} train gradient parity")
 
 
 def main() -> int:
@@ -836,16 +1110,32 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         phase_build()
         rng = np.random.default_rng(SEED)
+        # the bilstm_deep phases draw from a stream of their own, so the
+        # bigru phases' inputs stay what they were before those phases
+        lrng = np.random.default_rng(SEED + 1)
         timings = phase_kernels(dev, rng)
         timings.update(phase_train_kernels(dev, rng))
+        timings.update(phase_lstm_kernels(dev, lrng))
+        timings.update(phase_lstm_train_kernels(dev, lrng))
         with tempfile.TemporaryDirectory() as root:
             ckpt, vocab, wavs, audio_s = phase_inputs(root, rng)
-            launches = phase_decode(ckpt, vocab, wavs, audio_s)
-            phase_parity(ckpt, wavs, dev)
-            train_launches, index = phase_train(root, rng)
-            phase_train_parity(dev, index)
+            launches = phase_decode(ckpt, vocab, wavs, audio_s, PRESET)
+            phase_parity(ckpt, wavs, dev, "parity")
+            data = write_corpus(root, rng)
+            train_launches, index = phase_train(root, data, PRESET,
+                                                resume_to=RESUME_STEPS)
+            phase_train_parity(dev, index, PRESET)
+            lckpt = write_checkpoint(root, LSTM_PRESET, lrng)
+            lstm_decode = phase_decode(lckpt, vocab, wavs, audio_s,
+                                       LSTM_PRESET)
+            phase_parity(lckpt, wavs, dev, "lstm-parity")
+            lstm_train, _ = phase_train(root, data, LSTM_PRESET)
+            phase_train_parity(dev, index, LSTM_PRESET)
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
+        launches["lstm_fwd"] = lstm_decode["lstm_fwd"]
+        launches.update({k: lstm_train[k] for k in (
+            "lstm_fwd_train", "lstm_bwd")})
         loaded = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "optax",

@@ -26,8 +26,10 @@ from chainer_speech_recognition_tpu_torch.ops.ctc import (
 from chainer_speech_recognition_tpu_torch.ops.ctc_cuda import (
     ctc_bwd_cuda, ctc_fwd_cuda)
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
-    gru_bwd_cuda, gru_bwd_plain, gru_scan_cuda, gru_scan_plain,
-    gru_scan_train_cuda, gru_scan_train_plain, shift_prev)
+    gru_bwd_cuda, gru_bwd_plain, gru_scan_cuda,
+    gru_scan_plain, gru_scan_train_cuda, gru_scan_train_plain, lstm_bwd_cuda,
+    lstm_bwd_plain, lstm_scan_cuda, lstm_scan_plain, lstm_scan_train_cuda,
+    lstm_scan_train_plain, shift_prev)
 
 pytestmark = pytest.mark.cuda
 
@@ -129,6 +131,61 @@ def test_gru_train_kernels_match_plain(dev, T, B, H, dtype, tol):
         assert torch.all(dxs[:, 1] == 0) and torch.all(dhn[:, B + 1] == 0)
 
 
+def _lstm_inputs(dev, T, B, H, dtype, seed):
+    """Ragged lengths including T and 0; xs in the stream dtype."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, T + 1, B).astype(np.float32)
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
+    lens = torch.from_numpy(lens)
+    lo = torch.cat([torch.zeros(B), T - lens])[:, None].to(dev)
+    hi = torch.cat([lens, torch.full((B,), float(T))])[:, None].to(dev)
+    w = torch.from_numpy((rng.standard_normal((2, H, 4 * H))
+                          / np.sqrt(H)).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rng.standard_normal(
+        (T, 2 * B, 4 * H)).astype(np.float32)).to(dev).to(
+            torch.float32 if dtype == torch.float32 else torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal(
+        (T, 2 * B, H)).astype(np.float32)).to(dev)
+    return xs, w, lo, hi, g
+
+
+@pytest.mark.parametrize("T,B,H", [(1, 1, 32), (7, 3, 64), (40, 5, 96),
+                                   (33, 2, 384), (5, 2, 512)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_lstm_kernels_match_plain(dev, T, B, H, dtype, tol):
+    """Residual-free forward, training forward (ys, cs and the gate stream)
+    and backward (dxs) against their plain versions. The backward runs on
+    the plain forward's residuals (the kernel alone), then on the forward
+    kernel's own (the training path's chain). bf16: the reference's bars,
+    3e-2 forward and 5e-2 gradient (tests/test_rnn_pallas.py:81,88)."""
+    xs, w, lo, hi, g = _lstm_inputs(dev, T, B, H, dtype, T * 1000 + H + B)
+    before = (_kernels.LSTM_FWD.launches, _kernels.LSTM_FWD_TRAIN.launches,
+              _kernels.LSTM_BWD.launches)
+    ys0 = lstm_scan_cuda(xs, w, lo, hi, dtype)
+    assert float((ys0 - lstm_scan_plain(xs, w, lo, hi, dtype)).abs().max()) \
+        <= tol
+    ys, cs, gates = lstm_scan_train_cuda(xs, w, lo, hi, dtype)
+    ys_p, cs_p, gates_p = lstm_scan_train_plain(xs, w, lo, hi, dtype)
+    assert torch.equal(ys, ys0)
+    assert float((ys - ys_p).abs().max()) <= tol
+    assert float((cs - cs_p).abs().max()) <= tol
+    assert float((gates.float() - gates_p.float()).abs().max()) <= tol
+    dxs_p = lstm_bwd_plain(gates_p, w, lo, hi, cs_p, g, dtype)
+    gtol = tol if dtype == torch.float32 else 5e-2
+    for gt, c in ((gates_p, cs_p), (gates, cs)):
+        dxs = lstm_bwd_cuda(gt, w, lo, hi, c, g, dtype)
+        assert float((dxs.float() - dxs_p.float()).abs().max()) <= gtol
+    assert (_kernels.LSTM_FWD.launches, _kernels.LSTM_FWD_TRAIN.launches,
+            _kernels.LSTM_BWD.launches) == (before[0] + 1, before[1] + 1,
+                                            before[2] + 2)
+    if B > 1:       # a length-0 row: h and c stay 0, no gradient
+        assert torch.all(ys[:, 1] == 0) and torch.all(cs[:, B + 1] == 0)
+        assert torch.all(dxs[:, 1] == 0) and torch.all(dxs[:, B + 1] == 0)
+
+
 @pytest.mark.parametrize("B,T,V,L", [(1, 1, 3, 1), (6, 40, 7, 9),
                                      (4, 70, 30, 300)])
 def test_ctc_kernels_match_plain(dev, B, T, V, L):
@@ -225,3 +282,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         gru_bwd_cuda(torch.zeros(3, 4, 4 * 48, device=dev), w, lo, lo,
                      torch.zeros(3, 4, 48, device=dev),
                      torch.zeros(3, 4, 48, device=dev), torch.float32)
+    with pytest.raises(ValueError, match="lstm kernel: hidden size"):
+        lstm_scan_cuda(torch.zeros(3, 4, 4 * 48, device=dev),
+                       torch.zeros(2, 48, 4 * 48, device=dev), lo, lo,
+                       torch.float32)
+    with pytest.raises(ValueError, match=r"expected shape \(2, 32, 128\)"):
+        lstm_scan_train_cuda(torch.zeros(3, 4, 128, device=dev),
+                             torch.zeros(2, 32, 96, device=dev), lo, lo,
+                             torch.float32)

@@ -46,6 +46,7 @@ def _pair(mcfg, seed=0):
     ("bigru", {"model.proj_dim": 16}),
     ("bigru", {"model.conv_kernel": [4, 4]}),    # asymmetric padding
     ("tiny_conv", {}),
+    ("bilstm_deep", {}),                         # BiLSTM, rec [2, H, 4H]
 ])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
                                        ("bfloat16", 3e-2)])
@@ -76,6 +77,18 @@ def test_bridge_round_trip_and_strictness():
     missing = {k: v for k, v in params.items() if k != "proj"}
     with pytest.raises(KeyError, match="missing"):
         load_flax_params(tm, missing)
+
+
+def test_bilstm_deep_bridges_unchanged():
+    """The flax tree of bilstm_deep maps onto the port's state_dict as it
+    is: the recurrent weights keep the kernel's [2, H, 4H] layout."""
+    _, _, params, tm = _pair(_cfg("bilstm_deep", "float32"))
+    sd = flax_to_state_dict(params)
+    assert tuple(sd["birnn1.rec"].shape) == (2, 32, 128)
+    assert tuple(sd["birnn0.in_bwd.weight"].shape) == (128, 80)
+    back = state_dict_to_flax(tm.state_dict())
+    assert np.array_equal(back["birnn1"]["rec"],
+                          np.asarray(params["birnn1"]["rec"]))
 
 
 def test_unported_blocks_raise():

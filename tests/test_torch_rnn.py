@@ -83,8 +83,12 @@ def test_birnn_layer_matches_flax(impl, dtype, tol):
 
 
 def test_birnn_layer_refuses_unported_variants():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BiRNNLayer(8, 32, cell="lstm")
+    """LSTM cells are ported (tests/test_torch_lstm.py): the layer builds
+    with the kernel's [2, H, 4H] recurrent weights. Forward-only stacks and
+    streaming calls still raise, and so does an unknown cell."""
+    assert tuple(BiRNNLayer(8, 32, cell="lstm").rec.shape) == (2, 32, 128)
+    with pytest.raises(ValueError, match="rnn cell"):
+        BiRNNLayer(8, 32, cell="rnn")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BiRNNLayer(8, 32, bidirectional=False)
     layer = BiRNNLayer(8, 32, dtype=torch.float32)

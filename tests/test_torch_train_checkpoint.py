@@ -3,6 +3,7 @@ keep-N and atomic writes, and both directions with the JAX package (its
 ``restore_checkpoint`` loads a port checkpoint, the port resumes from a
 JAX checkpoint, and both decode CLIs read a port-trained checkpoint)."""
 
+import json
 import os
 
 import numpy as np
@@ -186,3 +187,41 @@ def test_both_decode_clis_read_a_port_trained_checkpoint(corpus, tmp_path,
     got = capsys.readouterr().out.splitlines()
     assert got == ref and [l.split("\t")[0] for l in got] == wavs
     assert any(l.split("\t")[1] for l in got)              # not all blank
+
+
+def test_bilstm_deep_train_state_both_ways(corpus, tmp_path):
+    """A cut bilstm_deep (1 BiLSTM layer, H=32) trained by the port with
+    SpecAugment on: the JAX package restores its whole TrainState, writes
+    it back with its own writer, and the port resumes from that file to
+    the same state, bitwise."""
+    root, vocab, utts = corpus
+    cfg = _cfg(str(tmp_path / "ck"), **{
+        "model.preset": "bilstm_deep", "model.rnn_type": "lstm",
+        "specaugment.enabled": True, "train.total_steps": 2})
+    state = train(cfg, utts, vocab, device="cpu")
+    jcfg = preset_config("bilstm_deep").override(OVER)
+    for part in ("model", "specaugment", "optim"):
+        assert json.loads(jcfg.to_json())[part] == \
+            json.loads(cfg.to_json())[part], part
+    jm = build_jax_model(jcfg.model)
+    template = jinit(jm, jcfg.optim, jax.random.key(5),
+                     jnp.zeros((1, 64, 40, 3)), jnp.asarray([64]))
+    js = jck.restore_checkpoint(ck.latest_checkpoint(str(tmp_path / "ck")),
+                                template)
+    assert int(js.step) == state.step == 2
+    sd = flax_to_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                   js.params["params"]))
+    assert tuple(sd["birnn0.rec"].shape) == (2, 32, 128)
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(sd[k], v), k
+    d = str(tmp_path / "jck")
+    jck.save_checkpoint(d, js, jcfg)
+    model = build_model(ck.load_config(d).model)
+    back = init_state(model, cfg.optim, 0)
+    ck.restore_checkpoint(ck.latest_checkpoint(d), back)
+    fa, fb = _flat(state), _flat(back)
+    assert set(fa) == set(fb)
+    for k in fa:
+        assert torch.equal(fa[k], fb[k]), k
+    np.testing.assert_array_equal(back.rng, state.rng)
+    assert back.step == 2

@@ -1,7 +1,8 @@
 """The port's train CLI on the CPU, on a tiny synthetic corpus: the JSONL
 events of the reference's loop, checkpoints and resume, the profiler
-window, and the refusals (data modes and corpus formats that are not
-ported, no card for ``--device cuda``, SpecAugment, data parallelism)."""
+window, a cut ``bilstm_deep`` with SpecAugment on, and the refusals (data
+modes, model blocks and corpus formats that are not ported, no card for
+``--device cuda``, data parallelism)."""
 
 import json
 import os
@@ -10,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from chainer_speech_recognition_tpu_torch.checkpoint import list_checkpoints
+from chainer_speech_recognition_tpu_torch.checkpoint import (
+    list_checkpoints, load_config)
 from chainer_speech_recognition_tpu_torch.cli import train as cli
 from chainer_speech_recognition_tpu_torch.data.synthetic import (
     write_tone_corpus)
@@ -29,9 +31,9 @@ def data_dir(tmp_path_factory):
     return root
 
 
-def _run(data_dir, tmp_path, *sets, extra=()):
+def _run(data_dir, tmp_path, *sets, extra=(), preset="bigru"):
     metrics = str(tmp_path / "m.jsonl")
-    cli.main(["--data-dir", data_dir, "--preset", "bigru", "--device", "cpu",
+    cli.main(["--data-dir", data_dir, "--preset", preset, "--device", "cpu",
               "--ckpt-dir", str(tmp_path / "ckpt"), "--metrics", metrics,
               *extra, "--set", *SMALL, *sets])
     with open(metrics) as f:
@@ -74,10 +76,28 @@ def test_cli_profiles_steps_10_to_14(data_dir, tmp_path):
         assert json.load(f)["traceEvents"]
 
 
+def test_cli_trains_bilstm_deep_with_specaugment(data_dir, tmp_path):
+    """The bilstm_deep preset (cut to 2 layers of H=32 by SMALL's
+    overrides) trains with SpecAugment on, as the preset has it, evaluates
+    and checkpoints; its checkpoint records the LSTM and SpecAugment."""
+    ev = _run(data_dir, tmp_path, "train.data_mode=stream",
+              "model.rnn_layers=2", "train.total_steps=3",
+              "train.log_every=1", "train.eval_every=3",
+              "train.checkpoint_every=3", preset="bilstm_deep")
+    train = [e for e in ev if e["kind"] == "train"]
+    assert [e["step"] for e in train] == [1, 2, 3]
+    assert all(np.isfinite(e["loss"]) and e["grad_norm"] > 0 for e in train)
+    assert [e["step"] for e in ev if e["kind"] == "eval"] == [3]
+    cfg = load_config(str(tmp_path / "ckpt"))
+    assert cfg.model.rnn_type == "lstm" and cfg.specaugment.enabled
+    assert list_checkpoints(str(tmp_path / "ckpt")) == [
+        "step_00000003.msgpack"]
+
+
 @pytest.mark.parametrize("sets,match", [
     ([], "ROADMAP.md §1 item 8"),                   # auto → device_cache
     (["train.data_mode=rotating"], "train.data_mode=stream"),
-    (["train.data_mode=stream", "specaugment.enabled=true"], "SpecAugment"),
+    (["train.data_mode=stream", "model.glu_blocks=2"], "GLU"),
     (["train.data_mode=stream", "parallel.num_devices=2"], "parallelism"),
 ])
 def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, sets, match):

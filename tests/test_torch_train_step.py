@@ -2,8 +2,12 @@
 (bridged from ``init_state``) and batches: a tiny ``bigru`` (conv [4,4],
 H=32, 2 BiGRU layers, V=6) at fp32 compute with ``model.rnn_impl=pallas``
 and ``train.ctc_impl=pallas`` (the Pallas kernels in interpret mode on the
-JAX side, the kernels' plain versions on the port's). Then the optimizer
-chain alone against optax.
+JAX side, the kernels' plain versions on the port's), and the same cut of
+``bilstm_deep`` with SpecAugment off (the two packages draw different
+random numbers; the masking itself is held in test_torch_specaugment.py).
+A SpecAugment step of the port equals a step on features masked
+beforehand with the same draws. Then the optimizer chain alone against
+optax.
 
 The schedule starts at learning rate 0 (``warmup_cosine_decay_schedule``
 with ``init_value=0``), so the first update is zero whatever the
@@ -31,7 +35,11 @@ from chainer_speech_recognition_tpu.train.step import (
 from chainer_speech_recognition_tpu_torch.bridge import (
     flax_to_state_dict, load_flax_params)
 from chainer_speech_recognition_tpu_torch.config import Config
-from chainer_speech_recognition_tpu_torch.models.presets import build_model
+from chainer_speech_recognition_tpu_torch.frontend import select_frontend
+from chainer_speech_recognition_tpu_torch.models.presets import (
+    build_model, init_parameters)
+from chainer_speech_recognition_tpu_torch.ops.specaugment import (
+    apply_specaugment, specaugment_draws, step_generator)
 from chainer_speech_recognition_tpu_torch.train import state as tstate
 from chainer_speech_recognition_tpu_torch.train.step import (
     forward_loss, make_train_step)
@@ -75,9 +83,8 @@ def _torch_batch(b):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-@pytest.fixture(scope="module")
-def pair():
-    cfg = preset_config("bigru").override(OVER)
+def _pair(preset, over):
+    cfg = preset_config(preset).override(over)
     jm = build_jax_model(cfg.model)
     feats, flens = batch_features(jnp.asarray(BATCHES[0]["signals"]),
                                   jnp.asarray(BATCHES[0]["num_samples"]))
@@ -87,6 +94,19 @@ def pair():
     load_flax_params(tm, jax.tree_util.tree_map(
         np.asarray, jstate.params["params"]))
     return cfg, jm, jstate, tcfg, tm
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair("bigru", OVER)
+
+
+LSTM_OVER = {**OVER, "specaugment.enabled": False}
+
+
+@pytest.fixture(scope="module")
+def lstm_pair():
+    return _pair("bilstm_deep", LSTM_OVER)
 
 
 def test_gradients_loss_and_counts_match(pair):
@@ -156,6 +176,84 @@ def test_three_steps_match(pair):
             np.testing.assert_allclose(t.numpy(), wj[name].numpy(),
                                        atol=tol, rtol=1e-3,
                                        err_msg=f"{key}/{name}")
+
+
+def test_bilstm_deep_step_matches_jax(lstm_pair):
+    """The cut bilstm_deep (2 BiLSTM layers, H=32): fp32 gradients of the
+    weighted-mean loss, then two optimizer steps' metrics and parameters
+    (bars as for bigru above)."""
+    cfg, jm, jstate, tcfg, tm = lstm_pair
+    assert tcfg.model.rnn_type == "lstm" and not tcfg.specaugment.enabled
+    b = BATCHES[0]
+    (lj, ((nvj, nrj), _, _)), gj = jax.value_and_grad(
+        lambda p: _forward_loss(jm, cfg, p, {k: jnp.asarray(v)
+                                             for k, v in b.items()},
+                                jax.random.key(0), train=True),
+        has_aux=True)(jstate.params)
+    tm.zero_grad()
+    lt, (nvt, nrt), _, _ = forward_loss(tm, tcfg, _torch_batch(b))
+    lt.backward()
+    assert float(nvt) == float(nvj) and float(nrt) == float(nrj)
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-5)
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                     gj["params"]))
+    assert tuple(want["birnn0.rec"].shape) == (2, 32, 128)
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   atol=2e-5, rtol=1e-3, err_msg=name)
+    mesh = make_mesh(cfg.parallel)
+    jstep = jax_train_step(jm, cfg, mesh)
+    ts = tstate.init_state(tm, tcfg.optim, 0)
+    step = make_train_step(tcfg)
+    js = jstate
+    for b in BATCHES[:2]:
+        js, mj = jstep(js, shard_batch(mesh, b))
+        mt = step(ts, _torch_batch(b))
+        for k in ("loss", "grad_norm", "valid_frac"):
+            np.testing.assert_allclose(float(mt[k]), float(mj[k]),
+                                       rtol=1e-4, err_msg=k)
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                     js.params["params"]))
+    for name, p in tm.named_parameters():
+        d = np.abs(p.detach().numpy() - want[name].numpy())
+        assert d.max() <= 2 * LR * (0 + 1 / 4), (name, d.max())
+
+
+def test_specaugment_step_equals_step_on_premasked_features():
+    """Two train steps with SpecAugment on from signals == two steps with
+    it off on features masked beforehand with the step's own draws
+    (``step_generator(rng, step)``): bitwise, loss, gradient norm and
+    parameters."""
+    cfg = Config.from_json(preset_config("bilstm_deep").override(
+        {**OVER, "optim.warmup_steps": 1}).to_json())
+    assert cfg.specaugment.enabled
+    off = cfg.override({"specaugment.enabled": False})
+    states = []
+    for _ in range(2):
+        m = build_model(cfg.model)
+        init_parameters(m, 3)
+        states.append(tstate.init_state(m, cfg.optim, 3))
+    sa, pre = states
+    step_sa, step_off = make_train_step(cfg), make_train_step(off)
+    for b in BATCHES[1:]:
+        tb = _torch_batch(b)
+        feats, flens = select_frontend(cfg.features)(
+            tb["signals"], tb["num_samples"],
+            apply_cmvn=cfg.features.cmvn_arg)
+        draws = specaugment_draws(step_generator(pre.rng, pre.step),
+                                  feats.shape[0], cfg.specaugment)
+        masked = apply_specaugment(feats, flens, draws, cfg.specaugment)
+        assert not torch.equal(masked, feats)
+        fb = {"features": masked, "frame_lengths": flens,
+              **{k: tb[k] for k in ("labels", "label_lengths")}}
+        if "sample_weight" in tb:
+            fb["sample_weight"] = tb["sample_weight"]
+        ma, mb = step_sa(sa, tb), step_off(pre, fb)
+        assert torch.equal(ma["loss"], mb["loss"])
+        assert torch.equal(ma["grad_norm"], mb["grad_norm"])
+    for (k, va), vb in zip(sa.model.state_dict().items(),
+                           pre.model.state_dict().values()):
+        assert torch.equal(va, vb), k
 
 
 @pytest.mark.parametrize("kind", ["adam", "adamw", "sgd"])
