@@ -60,7 +60,7 @@ class Kernel:
 FRONTEND_LOGMEL = Kernel("csr_frontend_logmel",
                          [_P, _I, _I, _I, _P, _P, _I, _P, _P])
 GRU_FWD = Kernel("csr_gru_fwd",
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 GREEDY = Kernel("csr_greedy",
                 [_P, _P, _I, _I, _I, _P, _P, _P])
 GRU_FWD_TRAIN = Kernel("csr_gru_fwd_train",
@@ -72,16 +72,23 @@ CTC_FWD = Kernel("csr_ctc_fwd",
 CTC_BWD = Kernel("csr_ctc_bwd",
                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 LSTM_FWD = Kernel("csr_lstm_fwd",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train",
                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 LSTM_BWD = Kernel("csr_lstm_bwd",
                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+GRU_FWD_STREAM = Kernel("csr_gru_fwd_stream",
+                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P])
+LSTM_FWD_STREAM = Kernel("csr_lstm_fwd_stream",
+                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P])
 KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "greedy": GREEDY, "gru_fwd_train": GRU_FWD_TRAIN,
            "gru_bwd": GRU_BWD, "ctc_fwd": CTC_FWD, "ctc_bwd": CTC_BWD,
            "lstm_fwd": LSTM_FWD, "lstm_fwd_train": LSTM_FWD_TRAIN,
-           "lstm_bwd": LSTM_BWD}
+           "lstm_bwd": LSTM_BWD, "gru_fwd_stream": GRU_FWD_STREAM,
+           "lstm_fwd_stream": LSTM_FWD_STREAM}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -1,24 +1,33 @@
-// Bidirectional GRU recurrence: inference, and the training forward that
-// also streams the gate residuals.
+// GRU recurrence (bidirectional or forward-only): inference, the training
+// forward that also streams the gate residuals, and the streaming window.
 //
-// Replaces ops/rnn_pallas.py::_gru_fwd_kernel in both forms: residual-free
-// (_fwd_impl(residuals=False), birnn_pallas's primal; entry csr_gru_fwd)
-// and with residuals (_fwd_impl(residuals=True), the custom VJP's forward;
-// entry csr_gru_fwd_train). The training form also writes, per step and
-// row, gates [T, R, 4H] = (r, z, n, hp_n) in the stream dtype, hp_n being
-// the recurrent n pre-activation h W_n; the backward kernel
-// (csrc/gru_bwd.cu) reads them instead of recomputing the gate matmul.
-// Both forms are one template (kGates), so the inference form compiles to
-// the same code as before the training form existed.
+// Replaces ops/rnn_pallas.py::_gru_fwd_kernel in both its forms:
+// residual-free (_fwd_impl(residuals=False), birnn_pallas's primal; entry
+// csr_gru_fwd) and with residuals (_fwd_impl(residuals=True), the custom
+// VJP's forward; entry csr_gru_fwd_train); and
+// ops/rnn_pallas.py::_gru_stream_kernel (birnn_pallas_stream; entry
+// csr_gru_fwd_stream). The training form also writes, per step and row,
+// gates [T, R, 4H] = (r, z, n, hp_n) in the stream dtype, hp_n being the
+// recurrent n pre-activation h W_n; the backward kernel (csrc/gru_bwd.cu)
+// reads them instead of recomputing the gate matmul. The stream form seeds
+// h from h0 [R, H] fp32 instead of 0 and writes carry [R, H] fp32, the h
+// of step emit_t - 1 (h0 when emit_t == 0), so a streaming window carries
+// its forward state across the chunk boundary inside its lookahead. The
+// three forms are one template (kGates, kStream), so the inference form
+// compiles to the same code as before the other forms existed.
 //
-// Same boundary as the TPU kernel: xs [T, R=2B, 3H] in the stream dtype
-// (bf16 under bf16 compute, fp32 under fp32), w [2, H, 3H] already cast to
-// the compute dtype by the wrapper (the TPU kernel casts it in-step, which
-// is the same value), lo/hi [R] fp32 -> ys [T, R, H] fp32. Rows [0, B) use
-// w[0] and rows [B, 2B) use w[1]; row r is live at step t iff
+// Same boundary as the TPU kernel: xs [T, R=ndir*B, 3H] in the stream
+// dtype (bf16 under bf16 compute, fp32 under fp32), w [ndir, H, 3H]
+// already cast to the compute dtype by the wrapper (the TPU kernel casts it
+// in-step, which is the same value), lo/hi [R] fp32 -> ys [T, R, H] fp32.
+// Rows [d*B, (d+1)*B) use w[d]: ndir = 2 for a bidirectional layer, 1 for a
+// forward-only one (the TPU path duplicates the one W instead, which needs
+// an even R; one stream at batch 1 has R = 1). Row r is live at step t iff
 // lo[r] <= t < hi[r], and its h is frozen otherwise. The recurrent product
 // rounds h (and w) to the compute dtype and accumulates in fp32, exactly as
-// _dot2; the carry and the gate math (_gru_gates) stay fp32.
+// _dot2; the carry and the gate math (_gru_gates) stay fp32, and h0 seeds
+// the fp32 register while its compute-dtype rounding seeds the shared copy
+// the first product reads.
 //
 // What bounds it on Hopper: the sequential dependency over T. Each step is
 // a [rows x H] x [H x 3H] product that needs all of W (256*768 bf16 =
@@ -72,19 +81,21 @@ __device__ __forceinline__ void load_chunk(const S* __restrict__ wd, int k0,
   }
 }
 
-template <typename S, bool kGates>
+template <typename S, bool kGates, bool kStream>
 __global__ void gru_fwd_kernel(const S* __restrict__ xs,
                                const S* __restrict__ w,
                                const float* __restrict__ lo,
                                const float* __restrict__ hi,
+                               const float* __restrict__ h0,
                                float* __restrict__ ys, S* __restrict__ gates,
-                               int T, int B, int H) {
+                               float* __restrict__ carry, int T, int B, int H,
+                               int emit_t) {
   extern __shared__ float hs[];  // [2][kRows][H] compute-dtype h
   const int d = blockIdx.y;      // direction
   const int r0 = blockIdx.x * kRows;
   const int nrows = min(kRows, B - r0);
   const int j = threadIdx.x;     // hidden unit
-  const int R = 2 * B;
+  const int R = gridDim.y * B;   // ndir * B
   const int G = 3 * H;
   const S* wd = w + static_cast<int64_t>(d) * H * G;
 
@@ -95,10 +106,15 @@ __global__ void gru_fwd_kernel(const S* __restrict__ xs,
     lo_r[r] = 1.0f;  // rows past B are never live
     hi_r[r] = 0.0f;
     if (r < nrows) {
-      lo_r[r] = lo[d * B + r0 + r];
-      hi_r[r] = hi[d * B + r0 + r];
+      const int64_t row = d * B + r0 + r;
+      lo_r[r] = lo[row];
+      hi_r[r] = hi[row];
+      if (kStream) {
+        h[r] = h0[row * H + j];
+        if (emit_t == 0) carry[row * H + j] = h[r];
+      }
     }
-    hs[r * H + j] = 0.0f;
+    hs[r * H + j] = round_to<S>(h[r]);
   }
   __syncthreads();
 
@@ -167,6 +183,8 @@ __global__ void gru_fwd_kernel(const S* __restrict__ xs,
           gt[2 * H + j] = from_f32<S>(n);
           gt[3 * H + j] = from_f32<S>(an[r]);
         }
+        if (kStream && t == emit_t - 1)
+          carry[(static_cast<int64_t>(d) * B + r0 + r) * H + j] = h[r];
       }
       hnext[r * H + j] = round_to<S>(h[r]);
     }
@@ -175,38 +193,58 @@ __global__ void gru_fwd_kernel(const S* __restrict__ xs,
   }
 }
 
-template <typename S, bool kGates>
+template <typename S, bool kGates, bool kStream>
 int launch(const void* xs, const void* w, const float* lo, const float* hi,
-           float* ys, void* gates, int T, int B, int H, cudaStream_t stream) {
-  const dim3 grid((B + kRows - 1) / kRows, 2);
+           const float* h0, float* ys, void* gates, float* carry, int T,
+           int B, int H, int ndir, int emit_t, cudaStream_t stream) {
+  const dim3 grid((B + kRows - 1) / kRows, ndir);
   const size_t smem = 2 * kRows * H * sizeof(float);
-  gru_fwd_kernel<S, kGates><<<grid, H, smem, stream>>>(
-      static_cast<const S*>(xs), static_cast<const S*>(w), lo, hi, ys,
-      static_cast<S*>(gates), T, B, H);
+  gru_fwd_kernel<S, kGates, kStream><<<grid, H, smem, stream>>>(
+      static_cast<const S*>(xs), static_cast<const S*>(w), lo, hi, h0, ys,
+      static_cast<S*>(gates), carry, T, B, H, emit_t);
   CSR_RETURN_LAUNCH_STATUS();
 }
 
 }  // namespace
 
-// xs [T, 2B, 3H] and w [2, H, 3H] both bf16 (bf16 != 0) or both fp32;
-// lo/hi [2B] fp32; ys [T, 2B, H] fp32. Requires 32 <= H <= 512,
-// H % 32 == 0, T >= 1, B >= 1 (the wrapper checks).
+// xs [T, ndir*B, 3H] and w [ndir, H, 3H] both bf16 (bf16 != 0) or both
+// fp32; lo/hi [ndir*B] fp32; ys [T, ndir*B, H] fp32. Requires
+// 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper
+// checks).
 CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
                         const float* hi, float* ys, int T, int B, int H,
-                        int bf16, cudaStream_t stream) {
+                        int ndir, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, false>(xs, w, lo, hi, ys, nullptr, T, B, H,
-                                        stream);
-  return launch<float, false>(xs, w, lo, hi, ys, nullptr, T, B, H, stream);
+    return launch<__nv_bfloat16, false, false>(
+        xs, w, lo, hi, nullptr, ys, nullptr, nullptr, T, B, H, ndir, 0,
+        stream);
+  return launch<float, false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
+                                     nullptr, T, B, H, ndir, 0, stream);
 }
 
-// As csr_gru_fwd, plus gates [T, 2B, 4H] in the stream dtype (the dtype of
-// xs) out: (r, z, n, hp_n) of every step, live or not.
+// As csr_gru_fwd with ndir = 2, plus gates [T, 2B, 4H] in the stream dtype
+// (the dtype of xs) out: (r, z, n, hp_n) of every step, live or not.
 CSR_API int csr_gru_fwd_train(const void* xs, const void* w, const float* lo,
                               const float* hi, float* ys, void* gates, int T,
                               int B, int H, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, true>(xs, w, lo, hi, ys, gates, T, B, H,
-                                       stream);
-  return launch<float, true>(xs, w, lo, hi, ys, gates, T, B, H, stream);
+    return launch<__nv_bfloat16, true, false>(
+        xs, w, lo, hi, nullptr, ys, gates, nullptr, T, B, H, 2, 0, stream);
+  return launch<float, true, false>(xs, w, lo, hi, nullptr, ys, gates,
+                                    nullptr, T, B, H, 2, 0, stream);
+}
+
+// As csr_gru_fwd, with h seeded from h0 [ndir*B, H] fp32 and carry
+// [ndir*B, H] fp32 out: h after step emit_t - 1, h0 when emit_t == 0.
+// Requires 0 <= emit_t <= T (the wrapper checks).
+CSR_API int csr_gru_fwd_stream(const void* xs, const void* w,
+                               const float* lo, const float* hi,
+                               const float* h0, float* ys, float* carry,
+                               int T, int B, int H, int ndir, int emit_t,
+                               int bf16, cudaStream_t stream) {
+  if (bf16)
+    return launch<__nv_bfloat16, false, true>(
+        xs, w, lo, hi, h0, ys, nullptr, carry, T, B, H, ndir, emit_t, stream);
+  return launch<float, false, true>(xs, w, lo, hi, h0, ys, nullptr, carry, T,
+                                    B, H, ndir, emit_t, stream);
 }

@@ -1,27 +1,35 @@
-// Bidirectional LSTM recurrence: inference, and the training forward that
-// also streams the cell states and the gate activations.
+// LSTM recurrence (bidirectional or forward-only): inference, the training
+// forward that also streams the cell states and the gate activations, and
+// the streaming window.
 //
-// Replaces ops/rnn_pallas.py::_lstm_fwd_kernel in both forms: residual-free
-// (_fwd_impl(residuals=False), birnn_pallas's primal; entry csr_lstm_fwd)
-// and with residuals (_fwd_impl(residuals=True), the custom VJP's forward;
-// entry csr_lstm_fwd_train). The training form also writes cs [T, R, H]
-// fp32 (the cell state c of every step) and gates [T, R, 4H] = (i, f, o, u)
-// in the stream dtype, which the backward kernel (csrc/lstm_bwd.cu) reads
-// instead of recomputing the gate matmul. Both forms are one template
-// (kResiduals).
+// Replaces ops/rnn_pallas.py::_lstm_fwd_kernel in both its forms:
+// residual-free (_fwd_impl(residuals=False), birnn_pallas's primal; entry
+// csr_lstm_fwd) and with residuals (_fwd_impl(residuals=True), the custom
+// VJP's forward; entry csr_lstm_fwd_train); and
+// ops/rnn_pallas.py::_lstm_stream_kernel (birnn_pallas_stream; entry
+// csr_lstm_fwd_stream). The training form also writes cs [T, R, H] fp32
+// (the cell state c of every step) and gates [T, R, 4H] = (i, f, o, u) in
+// the stream dtype, which the backward kernel (csrc/lstm_bwd.cu) reads
+// instead of recomputing the gate matmul. The stream form seeds h and c
+// from h0 [R, 2H] = h||c fp32 instead of 0 and writes carry [R, 2H], the
+// h||c of step emit_t - 1 (h0 when emit_t == 0). The three forms are one
+// template (kResiduals, kStream).
 //
-// Same boundary as the TPU kernel: xs [T, R=2B, 4H] in the stream dtype
-// (bf16 under bf16 compute, fp32 under fp32), lo/hi [R] fp32 -> ys
-// [T, R, H] fp32. Rows [0, B) use direction 0's W and rows [B, 2B)
-// direction 1's; row r is live at step t iff lo[r] <= t < hi[r], and its h
-// and c are frozen otherwise. The gates are
+// Same boundary as the TPU kernel: xs [T, R=ndir*B, 4H] in the stream
+// dtype (bf16 under bf16 compute, fp32 under fp32), lo/hi [R] fp32 -> ys
+// [T, R, H] fp32. Rows [d*B, (d+1)*B) use direction d's W (ndir = 2 for a
+// bidirectional layer, 1 for a forward-only one); row r is live at step t
+// iff lo[r] <= t < hi[r], and its h and c are frozen otherwise. The gates
+// are
 //   g = xs[t] + h W,  i = s(g_i), f = s(g_f + 1), o = s(g_o), u = tanh(g_u)
 //   c = f c + i u,    h = o tanh(c)
 // with the product's operands rounded to the compute dtype and fp32
-// accumulation (_dot2), and the carries and gate math in fp32.
+// accumulation (_dot2), and the carries and gate math in fp32 (the stream
+// form's h0 seeds the fp32 registers, its compute-dtype rounding the shared
+// copy of h that the first product reads).
 //
 // W arrives from the wrapper in the compute dtype as k-quads,
-// wq [2][H/4][4H][4]: wq[d][k4][col][kk] = W[d][4 k4 + kk][col], so thread
+// wq [ndir][H/4][4H][4]: wq[d][k4][col][kk] = W[d][4 k4 + kk][col], so thread
 // j fetches four reduction rows of its gate column with one load.
 //
 // What bounds it on Hopper: the sequential dependency over T. Each step is
@@ -75,28 +83,40 @@ __device__ __forceinline__ void load_x(const S* __restrict__ xs, int64_t row,
   for (int g = 0; g < 4; ++g) x[g] = to_f32(xr[g * H + j]);
 }
 
-template <typename S, int kQ, int kMaxThreads, bool kResiduals>
+template <typename S, int kQ, int kMaxThreads, bool kResiduals, bool kStream>
 __global__ void __launch_bounds__(kMaxThreads)
     lstm_fwd_kernel(const S* __restrict__ xs,
                     const typename Quad<S>::T* __restrict__ wq,
                     const float* __restrict__ lo, const float* __restrict__ hi,
-                    float* __restrict__ ys, float* __restrict__ cs,
-                    S* __restrict__ gates, int T, int B, int H) {
+                    const float* __restrict__ h0, float* __restrict__ ys,
+                    float* __restrict__ cs, S* __restrict__ gates,
+                    float* __restrict__ carry, int T, int B, int H,
+                    int emit_t) {
   using Q = typename Quad<S>::T;
   extern __shared__ float hs[];  // [2][H] compute-dtype h
   const int d = blockIdx.y;      // direction
   const int rr = d * B + blockIdx.x;
   const int j = threadIdx.x;     // hidden unit
-  const int R = 2 * B;
+  const int R = gridDim.y * B;   // ndir * B
   const int nq = H / 4;          // quads per gate column
   const Q* wd = wq + static_cast<int64_t>(d) * nq * 4 * H;
   const float lo_r = lo[rr];
   const float hi_r = hi[rr];
+  // this row's h||c in h0 and carry [R, 2H]
+  const int64_t hc_off = static_cast<int64_t>(rr) * 2 * H;
 
   float h = 0.0f, c = 0.0f;
+  if (kStream) {
+    h = h0[hc_off + j];
+    c = h0[hc_off + H + j];
+    if (emit_t == 0) {
+      carry[hc_off + j] = h;
+      carry[hc_off + H + j] = c;
+    }
+  }
   float x[4];
   load_x(xs, rr, H, j, x);
-  hs[j] = 0.0f;
+  hs[j] = round_to<S>(h);
   __syncthreads();
 
   int cur = 0;
@@ -148,6 +168,10 @@ __global__ void __launch_bounds__(kMaxThreads)
       gt[2 * H + j] = from_f32<S>(og);
       gt[3 * H + j] = from_f32<S>(ug);
     }
+    if (kStream && t == emit_t - 1) {
+      carry[hc_off + j] = h;
+      carry[hc_off + H + j] = c;
+    }
     hs[(cur ^ 1) * H + j] = round_to<S>(h);
     __syncthreads();
     cur ^= 1;
@@ -161,48 +185,71 @@ __global__ void __launch_bounds__(kMaxThreads)
 template <typename S>
 constexpr int kQuads = sizeof(S) == 2 ? 4 : 2;
 
-template <typename S, bool kResiduals>
+template <typename S, bool kResiduals, bool kStream>
 int launch(const void* xs, const void* wq, const float* lo, const float* hi,
-           float* ys, float* cs, void* gates, int T, int B, int H,
-           cudaStream_t stream) {
+           const float* h0, float* ys, float* cs, void* gates, float* carry,
+           int T, int B, int H, int ndir, int emit_t, cudaStream_t stream) {
   using Q = typename Quad<S>::T;
-  const dim3 grid(B, 2);
+  const dim3 grid(B, ndir);
   const size_t smem = 2 * H * sizeof(float);
   if (H <= 384)
-    lstm_fwd_kernel<S, kQuads<S>, 384, kResiduals><<<grid, H, smem, stream>>>(
-        static_cast<const S*>(xs), static_cast<const Q*>(wq), lo, hi, ys, cs,
-        static_cast<S*>(gates), T, B, H);
+    lstm_fwd_kernel<S, kQuads<S>, 384, kResiduals, kStream>
+        <<<grid, H, smem, stream>>>(
+            static_cast<const S*>(xs), static_cast<const Q*>(wq), lo, hi, h0,
+            ys, cs, static_cast<S*>(gates), carry, T, B, H, emit_t);
   else
-    lstm_fwd_kernel<S, kQuads<S>, 512, kResiduals><<<grid, H, smem, stream>>>(
-        static_cast<const S*>(xs), static_cast<const Q*>(wq), lo, hi, ys, cs,
-        static_cast<S*>(gates), T, B, H);
+    lstm_fwd_kernel<S, kQuads<S>, 512, kResiduals, kStream>
+        <<<grid, H, smem, stream>>>(
+            static_cast<const S*>(xs), static_cast<const Q*>(wq), lo, hi, h0,
+            ys, cs, static_cast<S*>(gates), carry, T, B, H, emit_t);
   CSR_RETURN_LAUNCH_STATUS();
 }
 
 }  // namespace
 
-// xs [T, 2B, 4H] and wq [2, H/4, 4H, 4] both bf16 (bf16 != 0) or both
-// fp32; lo/hi [2B] fp32; ys [T, 2B, H] fp32. Requires 32 <= H <= 512,
-// H % 32 == 0, T >= 1, B >= 1 (the wrapper checks).
+// xs [T, ndir*B, 4H] and wq [ndir, H/4, 4H, 4] both bf16 (bf16 != 0) or
+// both fp32; lo/hi [ndir*B] fp32; ys [T, ndir*B, H] fp32. Requires
+// 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper
+// checks).
 CSR_API int csr_lstm_fwd(const void* xs, const void* wq, const float* lo,
                          const float* hi, float* ys, int T, int B, int H,
-                         int bf16, cudaStream_t stream) {
+                         int ndir, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, false>(xs, wq, lo, hi, ys, nullptr, nullptr,
-                                        T, B, H, stream);
-  return launch<float, false>(xs, wq, lo, hi, ys, nullptr, nullptr, T, B, H,
-                              stream);
+    return launch<__nv_bfloat16, false, false>(
+        xs, wq, lo, hi, nullptr, ys, nullptr, nullptr, nullptr, T, B, H, ndir,
+        0, stream);
+  return launch<float, false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
+                                     nullptr, nullptr, T, B, H, ndir, 0,
+                                     stream);
 }
 
-// As csr_lstm_fwd, plus cs [T, 2B, H] fp32 and gates [T, 2B, 4H] in the
-// stream dtype (the dtype of xs) out: c and (i, f, o, u) of every step,
-// live or not.
+// As csr_lstm_fwd with ndir = 2, plus cs [T, 2B, H] fp32 and gates
+// [T, 2B, 4H] in the stream dtype (the dtype of xs) out: c and (i, f, o, u)
+// of every step, live or not.
 CSR_API int csr_lstm_fwd_train(const void* xs, const void* wq,
                                const float* lo, const float* hi, float* ys,
                                float* cs, void* gates, int T, int B, int H,
                                int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, true>(xs, wq, lo, hi, ys, cs, gates, T, B,
-                                       H, stream);
-  return launch<float, true>(xs, wq, lo, hi, ys, cs, gates, T, B, H, stream);
+    return launch<__nv_bfloat16, true, false>(
+        xs, wq, lo, hi, nullptr, ys, cs, gates, nullptr, T, B, H, 2, 0,
+        stream);
+  return launch<float, true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
+                                    nullptr, T, B, H, 2, 0, stream);
+}
+
+// As csr_lstm_fwd, with h||c seeded from h0 [ndir*B, 2H] fp32 and carry
+// [ndir*B, 2H] fp32 out: h||c after step emit_t - 1, h0 when emit_t == 0.
+// Requires 0 <= emit_t <= T (the wrapper checks).
+CSR_API int csr_lstm_fwd_stream(const void* xs, const void* wq,
+                                const float* lo, const float* hi,
+                                const float* h0, float* ys, float* carry,
+                                int T, int B, int H, int ndir, int emit_t,
+                                int bf16, cudaStream_t stream) {
+  if (bf16)
+    return launch<__nv_bfloat16, false, true>(
+        xs, wq, lo, hi, h0, ys, nullptr, nullptr, carry, T, B, H, ndir,
+        emit_t, stream);
+  return launch<float, false, true>(xs, wq, lo, hi, h0, ys, nullptr, nullptr,
+                                    carry, T, B, H, ndir, emit_t, stream);
 }

@@ -101,18 +101,41 @@ def _delta(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return out / denom
 
 
-def cmvn_causal(logmel: torch.Tensor, tmask: torch.Tensor) -> torch.Tensor:
-    """Causal CMVN over a whole utterance (frame t normalized by the
-    running stats of frames 0..t), on the shifted stream x − x[0] as in
-    ``jnp_frontend.cmvn_causal_jnp``. Streaming carries are not ported."""
+def cmvn_causal(logmel: torch.Tensor, tmask: torch.Tensor, carry=None,
+                carry_index: int | None = None):
+    """Causal CMVN (frame t normalized by the running stats of frames
+    0..t), port of ``jnp_frontend.cmvn_causal_jnp`` → (normalized, carry).
+
+    The moments run on the shifted stream x − off, off = the first frame of
+    the stream, so fp32 keeps them at deviation scale. ``carry`` = (cnt
+    [B,1,1], Σx, Σx² [B,1,F], off [B,1,F]) holds the stats of the frames
+    BEFORE this window (a streaming chunk); the returned carry holds the
+    stats through frame ``carry_index`` (exclusive; default: the window's
+    last frame), so a caller whose next window re-reads margin frames
+    passes the margin start."""
     m = tmask[..., None].to(torch.float32)
-    x = (logmel - logmel[:, :1]) * m
-    cnt = torch.clamp(torch.cumsum(m, dim=1), min=1.0)
-    s1 = torch.cumsum(x, dim=1)
-    s2 = torch.cumsum(x * x, dim=1)
+    if carry is None:
+        off = logmel[:, :1]                     # first frame (always valid)
+        c0 = s0 = q0 = 0.0
+    else:
+        c0, s0, q0, off = carry
+    x = (logmel - off) * m
+    cnt_true = torch.cumsum(m, dim=1) + c0       # unfloored, for the carry
+    cnt = torch.clamp(cnt_true, min=1.0)
+    s1 = torch.cumsum(x, dim=1) + s0
+    s2 = torch.cumsum(x * x, dim=1) + q0
     mean = s1 / cnt
     var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
-    return (x - mean) * torch.rsqrt(var + C.CMVN_VAR_EPS) * m
+    out = (x - mean) * torch.rsqrt(var + C.CMVN_VAR_EPS) * m
+    if carry_index == 0:       # stats through frame -1: the input carry
+        z = torch.zeros_like(s1[:, :1])
+        new_carry = (torch.zeros_like(cnt_true[:, :1]) + c0, z + s0, z + q0,
+                     off)
+    else:
+        j = -1 if carry_index is None else carry_index - 1
+        new_carry = (cnt_true[:, j:][:, :1], s1[:, j:][:, :1],
+                     s2[:, j:][:, :1], off)
+    return out, new_carry
 
 
 def postprocess_logmel(logmel: torch.Tensor, lengths: torch.Tensor,
@@ -127,7 +150,7 @@ def postprocess_logmel(logmel: torch.Tensor, lengths: torch.Tensor,
     logmel = logmel * tmask[..., None]
 
     if apply_cmvn == "causal":
-        logmel = cmvn_causal(logmel, tmask)
+        logmel, _ = cmvn_causal(logmel, tmask)
     elif apply_cmvn:
         m = tmask[..., None].to(torch.float32)
         cnt = torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)

@@ -1,11 +1,15 @@
-"""Acoustic model assembly (port of ``models/presets.py``'s full-utterance
-call): conv subsampler → BiGRU or BiLSTM stack → optional tanh
+"""Acoustic model assembly (port of ``models/presets.py``): conv
+subsampler → BiGRU, BiLSTM or forward-only GRU/LSTM stack → optional tanh
 ``proj`` → fp32 ``output`` projection → logits masked by the subsampled
 lengths.
 
 ``forward(feats [B,T,F,3], frame_lengths) → (logits [B,T',V] fp32, lens)``
-with V including the CTC blank at index 0. GLU blocks, attention blocks
-and the streaming call are not ported yet and raise.
+with V including the CTC blank at index 0. The streaming call
+(``rnn_carries``, ``carry_at``, ``drop_left`` → ``(logits, lens,
+new_carries)``) and its helpers (``subsample_factor``,
+``init_stream_carries``, ``reset_stream_rows``, ``conv_receptive_margin``,
+``conv_right_margin``) serve ``decode/streaming.py``. GLU blocks and
+attention blocks are not ported yet and raise.
 
 The port's state_dict names mirror the flax tree (``bridge.py`` maps one
 onto the other): ``subsampler.conv{i}`` ≘ ``ConvSubsampler_0/conv{i}``,
@@ -68,25 +72,98 @@ class AcousticModel(nn.Module):
             self.add_module(f"birnn{i}", BiRNNLayer(
                 dim, cfg.rnn_hidden, cell=cfg.rnn_type, dtype=self.dtype,
                 impl=cfg.rnn_impl, bidirectional=cfg.rnn_bidirectional))
-            dim = 2 * cfg.rnn_hidden
+            dim = (2 if cfg.rnn_bidirectional else 1) * cfg.rnn_hidden
         self.proj = nn.Linear(dim, cfg.proj_dim) if cfg.proj_dim else None
         self.output = nn.Linear(cfg.proj_dim or dim, cfg.vocab_size)
 
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor,
-                rnn_carries=None):
-        if rnn_carries is not None:
-            raise NotImplementedError(
-                "streaming AcousticModel calls are not ported yet "
-                "(ROADMAP.md, module queue: streaming)")
+                rnn_carries=None, carry_at: int | None = None,
+                drop_left: int = 0):
+        """Full-utterance call → (logits, lens). Streaming call
+        (decode/streaming.py): ``rnn_carries`` holds each RNN layer's
+        forward state carried from the previous chunk ([] for conv-only
+        models), ``carry_at`` the chunk length in subsampled frames and
+        ``drop_left`` the subsampled left-margin frames to drop after the
+        conv stack → (logits, lens, new_carries)."""
+        stream = rnn_carries is not None
+        if stream and carry_at is None:
+            raise ValueError("streaming call needs carry_at")
         x, lens = self.subsampler(feats, lengths)
+        if drop_left:
+            x = x[:, drop_left:]
+            lens = torch.clamp(lens - drop_left, min=0)
+        new_carries = []
         for i in range(self.n_rnn):
-            x = getattr(self, f"birnn{i}")(x, lens)
+            layer = getattr(self, f"birnn{i}")
+            if stream:
+                x, h = layer(x, lens, h0_fwd=rnn_carries[i],
+                             emit_carry_at=carry_at)
+                new_carries.append(h)
+            else:
+                x = layer(x, lens)
         if self.proj is not None:
             x = torch.tanh(linear(x, self.proj, self.dtype))
         # fp32 logits: CTC math is fp32
         logits = linear(x, self.output, torch.float32)
         mask = time_mask(logits.shape[1], lens)
-        return logits * mask[:, :, None], lens
+        logits = logits * mask[:, :, None]
+        if stream:
+            return logits, lens, new_carries
+        return logits, lens
+
+    def subsample_factor(self) -> int:
+        f = 1
+        for s in self.cfg.conv_stride_time:
+            f *= s
+        return f
+
+    def init_stream_carries(self, batch: int) -> list:
+        """Zero stream state for a fresh stream: one forward-direction
+        state [batch, H] (GRU) or [batch, 2H] (LSTM h‖c) fp32 per RNN
+        layer, on the model's device; [] for conv-only models."""
+        dim = self.cfg.rnn_hidden * (2 if self.cfg.rnn_type == "lstm" else 1)
+        dev = self.output.weight.device
+        return [torch.zeros((batch, dim), dtype=torch.float32, device=dev)
+                for _ in range(self.n_rnn)]
+
+    def reset_stream_rows(self, carries: list, rows) -> list:
+        """Endpoint reset (decode/streaming.py): the RNN states of ``rows``
+        return to zero (the offline left edge); other streams keep theirs."""
+        out = [h.clone() for h in carries]
+        for h in out:
+            h[rows] = 0.0
+        return out
+
+    def conv_receptive_margin(self) -> int:
+        """Input-frame margin that fully covers the conv stack's one-sided
+        receptive field: window-edge conv outputs farther than this many
+        INPUT frames from the edge equal the full-utterance computation
+        (decode/streaming.py's left-margin floor). The reference also
+        counts GLU blocks, which the port refuses at construction."""
+        cfg = self.cfg
+        kt = cfg.conv_kernel[0]
+        rf, jump = 1, 1                    # receptive field, input stride
+        for st in cfg.conv_stride_time:
+            rf += (kt - 1) * jump
+            jump *= st
+        return (rf - 1) // 2 + 1
+
+    def conv_right_margin(self) -> int:
+        """INPUT frames of real future context past a chunk's emit region
+        that the emitted conv outputs need to equal the full-utterance
+        computation (``stream_geometry``'s ``conv_exact``): with the
+        stack's ((k−1)//2, k//2) padding the last emitted output reaches
+        ``max(0, O − S + 1)`` frames past the emit region, O = Σᵢ
+        (kᵢ//2)·Jᵢ (Jᵢ the input jump at layer i, S the total stride); 0
+        for the plain subsampling stacks (GLU blocks, which would add to
+        it, are refused at construction)."""
+        cfg = self.cfg
+        kt = cfg.conv_kernel[0]
+        off, jump = 0, 1
+        for st in cfg.conv_stride_time:
+            off += (kt // 2) * jump
+            jump *= st
+        return max(0, off - jump + 1)
 
 
 def build_model(cfg: ModelConfig) -> AcousticModel:

@@ -5,16 +5,23 @@ autograd Functions.
 Port of ``ops/rnn_pallas.py``, with the same layout (G = 3 gates for the
 GRU, 4 for the LSTM):
 
-  xs    [T, R=2B, G·H] stream dtype — input pre-activations; rows [0, B) are
-                         the forward direction (use w[0]), rows [B, 2B) the
-                         time-reversed backward direction (use w[1])
-  w     [2, H, G·H]   fp32 — recurrent weights per direction
+  xs    [T, R=ndir·B, G·H] stream dtype — input pre-activations; rows
+                         [d·B, (d+1)·B) use w[d]: for a bidirectional layer
+                         (ndir = 2) rows [0, B) are the forward direction,
+                         rows [B, 2B) the time-reversed backward direction;
+                         a forward-only layer (ndir = 1) has rows [0, B)
+  w     [ndir, H, G·H] fp32 — recurrent weights per direction (ndir is w's
+                         leading extent: 2, or 1 for the forward-only
+                         inference and stream forms; training takes 2)
   lo/hi [R, 1]        fp32 — step t is live for a row iff lo ≤ t < hi
   ys    [T, R, H]     fp32 — the carries h, frozen outside [lo, hi)
   cs    [T, R, H]     fp32 — the LSTM cell states c, frozen likewise
                          (training)
   gates [T, R, 4H]    stream dtype — per step, (r, z, n, hp_n) for the GRU,
                          (i, f, o, u) for the LSTM (training)
+  h0    [R, C]        fp32 — the stream forms' initial carry (C = H for the
+                         GRU, 2H = h‖c for the LSTM)
+  carry [R, C]        fp32 — the stream forms' carry after ``emit_t`` steps
 
 The stream dtype is bf16 under bf16 compute and the compute dtype
 otherwise (``stream_dtype``, as ``rnn_pallas._stream_dt``). The recurrent
@@ -22,11 +29,14 @@ products round their operands to the compute dtype and accumulate in fp32;
 carries and gate math are fp32 (fp64 when the compute dtype is fp64, which
 only the tests use). The LSTM's forget gate has the reference's +1 bias.
 
-Six kernels, each with its wrapper (the kernel for CUDA tensors, the
+Eight kernels, each with its wrapper (the kernel for CUDA tensors, the
 plain version for CPU tensors):
 
 * ``gru_scan`` / ``lstm_scan``: the residual-free forward
   (``birnn_pallas``'s primal);
+* ``gru_scan_stream`` / ``lstm_scan_stream``: the residual-free forward of
+  a streaming window (``birnn_pallas_stream``), seeded from ``h0`` and
+  returning (ys, the carry after ``emit_t`` steps);
 * ``gru_scan_train`` / ``lstm_scan_train``: the forward that also writes
   the residuals (``gates``, and ``cs`` for the LSTM);
 * ``gru_bwd`` → (dxs, dhn) and ``lstm_bwd`` → dxs: the reverse-time
@@ -53,6 +63,14 @@ def _acc_dtype(compute_dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(compute_dtype, torch.float32)
 
 
+def _dot2(x, wc, transpose: bool = False):
+    """Per-direction product (``rnn_pallas._dot2``): rows [d·B, (d+1)·B)
+    of ``x`` times ``wc[d]`` (or its transpose), B = rows / ndir."""
+    B = x.shape[0] // wc.shape[0]
+    return torch.cat([x[d * B:(d + 1) * B] @ (wd.T if transpose else wd)
+                      for d, wd in enumerate(wc)], dim=0)
+
+
 def _gru_step(xp, hp, h, H):
     r = torch.sigmoid(xp[:, :H] + hp[:, :H])
     z = torch.sigmoid(xp[:, H:2*H] + hp[:, H:2*H])
@@ -60,26 +78,30 @@ def _gru_step(xp, hp, h, H):
     return r, z, n, (1.0 - z) * n + z * h
 
 
-def _scan(xs, w, lo, hi, compute_dtype, gates: bool):
+def _scan(xs, w, lo, hi, compute_dtype, gates: bool, h0=None, emit_t=0):
+    """→ (ys, gates or None, the carry after ``emit_t`` steps); h starts
+    from ``h0`` (zeros when None)."""
     T, R, _ = xs.shape
     H = w.shape[1]
-    B = R // 2
     acc = _acc_dtype(compute_dtype)
-    wc = w.to(compute_dtype).to(acc)                        # [2, H, 3H]
-    h = torch.zeros((R, H), dtype=acc, device=xs.device)
+    wc = w.to(compute_dtype).to(acc)                        # [ndir, H, 3H]
+    h = (torch.zeros((R, H), dtype=acc, device=xs.device) if h0 is None
+         else h0.to(acc))
+    carry = h
     ys = torch.empty((T, R, H), dtype=acc, device=xs.device)
     gs = (torch.empty((T, R, 4 * H), dtype=xs.dtype, device=xs.device)
           if gates else None)
     for t in range(T):
-        hc = h.to(compute_dtype).to(acc)
-        hp = torch.cat([hc[:B] @ wc[0], hc[B:] @ wc[1]], dim=0)
+        hp = _dot2(h.to(compute_dtype).to(acc), wc)
         r, z, n, h_new = _gru_step(xs[t].to(acc), hp, h, H)
         valid = (lo <= t) & (t < hi)                       # [R, 1]
         h = torch.where(valid, h_new, h)
         ys[t] = h
+        if t < emit_t:
+            carry = h
         if gates:
             gs[t] = torch.cat([r, z, n, hp[:, 2*H:]], dim=1).to(xs.dtype)
-    return ys, gs
+    return ys, gs, carry
 
 
 def gru_scan_plain(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
@@ -91,7 +113,17 @@ def gru_scan_plain(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
 
 def gru_scan_train_plain(xs, w, lo, hi, compute_dtype):
     """Plain version of the training forward: (ys, gates)."""
-    return _scan(xs, w, lo, hi, compute_dtype, gates=True)
+    return _scan(xs, w, lo, hi, compute_dtype, gates=True)[:2]
+
+
+def gru_scan_stream_plain(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
+    """Plain version of the stream kernel: (ys [T,R,H], carry [R,H]), h
+    seeded from ``h0`` [R, H] fp32; ``carry`` is h after step
+    ``emit_t - 1`` (``h0`` itself when ``emit_t`` is 0), frozen outside
+    each row's [lo, hi) like ys."""
+    _check_emit(emit_t, xs.shape[0])
+    ys, _, carry = _scan(xs, w, lo, hi, compute_dtype, False, h0, emit_t)
+    return ys, carry
 
 
 def gru_bwd_plain(gates, w, lo, hi, h_prev, g, compute_dtype):
@@ -99,7 +131,6 @@ def gru_bwd_plain(gates, w, lo, hi, h_prev, g, compute_dtype):
     in the stream dtype, given the incoming gradient ``g`` of ys."""
     T, R, _ = gates.shape
     H = w.shape[1]
-    B = R // 2
     acc = _acc_dtype(compute_dtype)
     wc = w.to(compute_dtype).to(acc)
     dh = torch.zeros((R, H), dtype=acc, device=gates.device)
@@ -114,8 +145,7 @@ def gru_bwd_plain(gates, w, lo, hi, h_prev, g, compute_dtype):
         dr = dn * hn * r * (1.0 - r)
         dhn_t = dn * r
         dhp = torch.cat([dr, dz, dhn_t], dim=1).to(compute_dtype).to(acc)
-        dh_prev = dh_total * z + torch.cat(
-            [dhp[:B] @ wc[0].T, dhp[B:] @ wc[1].T], dim=0)
+        dh_prev = dh_total * z + _dot2(dhp, wc, transpose=True)
         valid = (lo <= t) & (t < hi)
         dxs[t] = torch.where(valid, torch.cat([dr, dz, dn], dim=1),
                              0.0).to(gates.dtype)
@@ -133,21 +163,27 @@ def _lstm_gates(xp, hp, H):
     return i, f, o, u
 
 
-def _lstm_scan(xs, w, lo, hi, compute_dtype, residuals: bool):
+def _lstm_scan(xs, w, lo, hi, compute_dtype, residuals: bool, h0=None,
+               emit_t=0):
+    """→ (ys, cs, gates, the carry h‖c after ``emit_t`` steps); cs and
+    gates are None without residuals; h‖c starts from ``h0`` (zeros when
+    None)."""
     T, R, _ = xs.shape
     H = w.shape[1]
-    B = R // 2
     acc = _acc_dtype(compute_dtype)
-    wc = w.to(compute_dtype).to(acc)                        # [2, H, 4H]
-    h = torch.zeros((R, H), dtype=acc, device=xs.device)
-    c = torch.zeros_like(h)
+    wc = w.to(compute_dtype).to(acc)                        # [ndir, H, 4H]
+    if h0 is None:
+        h = torch.zeros((R, H), dtype=acc, device=xs.device)
+        c = torch.zeros_like(h)
+    else:
+        h, c = h0.to(acc)[:, :H], h0.to(acc)[:, H:]
+    carry = (h, c)
     ys = torch.empty((T, R, H), dtype=acc, device=xs.device)
     cs = torch.empty_like(ys) if residuals else None
     gs = (torch.empty((T, R, 4 * H), dtype=xs.dtype, device=xs.device)
           if residuals else None)
     for t in range(T):
-        hc = h.to(compute_dtype).to(acc)
-        hp = torch.cat([hc[:B] @ wc[0], hc[B:] @ wc[1]], dim=0)
+        hp = _dot2(h.to(compute_dtype).to(acc), wc)
         i, f, o, u = _lstm_gates(xs[t].to(acc), hp, H)
         c_new = f * c + i * u
         h_new = o * torch.tanh(c_new)
@@ -155,10 +191,12 @@ def _lstm_scan(xs, w, lo, hi, compute_dtype, residuals: bool):
         h = torch.where(valid, h_new, h)
         c = torch.where(valid, c_new, c)
         ys[t] = h
+        if t < emit_t:
+            carry = (h, c)
         if residuals:
             cs[t] = c
             gs[t] = torch.cat([i, f, o, u], dim=1).to(xs.dtype)
-    return ys, cs, gs
+    return ys, cs, gs, torch.cat(carry, dim=1)
 
 
 def lstm_scan_plain(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
@@ -170,7 +208,17 @@ def lstm_scan_plain(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
 
 def lstm_scan_train_plain(xs, w, lo, hi, compute_dtype):
     """Plain version of the LSTM training forward: (ys, cs, gates)."""
-    return _lstm_scan(xs, w, lo, hi, compute_dtype, residuals=True)
+    return _lstm_scan(xs, w, lo, hi, compute_dtype, residuals=True)[:3]
+
+
+def lstm_scan_stream_plain(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
+    """Plain version of the LSTM stream kernel: (ys [T,R,H], carry [R,2H]
+    = h‖c after step ``emit_t - 1``, ``h0`` itself when ``emit_t`` is 0),
+    h‖c seeded from ``h0`` [R, 2H] fp32."""
+    _check_emit(emit_t, xs.shape[0])
+    ys, _, _, carry = _lstm_scan(xs, w, lo, hi, compute_dtype, False, h0,
+                                 emit_t)
+    return ys, carry
 
 
 def lstm_bwd_plain(gates, w, lo, hi, cs, g, compute_dtype):
@@ -180,7 +228,6 @@ def lstm_bwd_plain(gates, w, lo, hi, cs, g, compute_dtype):
     step back (0 at t = 0), read from cs here as the kernel does."""
     T, R, _ = gates.shape
     H = w.shape[1]
-    B = R // 2
     acc = _acc_dtype(compute_dtype)
     wc = w.to(compute_dtype).to(acc)
     dh = torch.zeros((R, H), dtype=acc, device=gates.device)
@@ -199,7 +246,7 @@ def lstm_bwd_plain(gates, w, lo, hi, cs, g, compute_dtype):
         du = dct * i * (1.0 - u * u)
         dg = torch.cat([di, df, do, du], dim=1)
         dgc = dg.to(compute_dtype).to(acc)
-        dh_prev = torch.cat([dgc[:B] @ wc[0].T, dgc[B:] @ wc[1].T], dim=0)
+        dh_prev = _dot2(dgc, wc, transpose=True)
         valid = (lo <= t) & (t < hi)
         dxs[t] = torch.where(valid, dg, 0.0).to(gates.dtype)
         dh = torch.where(valid, dh_prev, dh_total)
@@ -208,48 +255,82 @@ def lstm_bwd_plain(gates, w, lo, hi, cs, g, compute_dtype):
 
 
 def _check_sizes(T: int, R: int, H: int, compute_dtype,
-                 cell: str = "gru") -> torch.dtype:
+                 cell: str = "gru", ndir: int = 2) -> torch.dtype:
     """Raise unless the kernels take these sizes; → the stream dtype."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{cell} kernel: compute dtype {compute_dtype} is "
                          "not supported (float32 or bfloat16)")
-    if R % 2 or R < 2 or T < 1:
-        raise ValueError(f"{cell} kernel: need T >= 1 and an even R >= 2 "
-                         f"(got T={T}, R={R})")
+    if ndir not in (1, 2) or R % ndir or R < ndir or T < 1:
+        raise ValueError(f"{cell} kernel: need T >= 1, ndir 1 or 2 and R a "
+                         f"positive multiple of ndir (got T={T}, R={R}, "
+                         f"ndir={ndir})")
     if H % 32 or not 32 <= H <= 512:
         raise ValueError(f"{cell} kernel: hidden size {H} unsupported (one "
                          "thread per unit: 32 <= H <= 512, H % 32 == 0)")
     return stream_dtype(compute_dtype)
 
 
-def _check_weights(w, lo, hi, R: int, H: int, G: int = 3) -> None:
-    _kernels.check_cuda_tensor("w", w, torch.float32, (2, H, G * H))
+def _check_emit(emit_t: int, T: int) -> None:
+    if not 0 <= emit_t <= T:
+        raise ValueError(f"stream kernel: emit_t={emit_t} outside [0, T={T}]")
+
+
+def _check_weights(w, lo, hi, R: int, H: int, G: int = 3,
+                   ndir: int = 2) -> None:
+    _kernels.check_cuda_tensor("w", w, torch.float32, (ndir, H, G * H))
     _kernels.check_cuda_tensor("lo", lo, torch.float32, (R, 1))
     _kernels.check_cuda_tensor("hi", hi, torch.float32, (R, 1))
 
 
-def _check_scan(xs, w, lo, hi, compute_dtype, cell: str = "gru"):
+def _check_scan(xs, w, lo, hi, compute_dtype, cell: str = "gru",
+                ndir: int = 2):
+    """→ (T, B, H, stream dtype); R = ndir·B."""
     T, R, _ = xs.shape
     H = w.shape[1]
     G = 3 if cell == "gru" else 4
-    sdt = _check_sizes(T, R, H, compute_dtype, cell)
+    sdt = _check_sizes(T, R, H, compute_dtype, cell, ndir)
     _kernels.check_cuda_tensor("xs", xs, sdt, (T, R, G * H))
-    _check_weights(w, lo, hi, R, H, G)
-    return T, R // 2, H, sdt
+    _check_weights(w, lo, hi, R, H, G, ndir)
+    return T, R // ndir, H, sdt
+
+
+def _check_stream(xs, w, lo, hi, h0, compute_dtype, emit_t, cell):
+    """→ (T, B, H, ndir) of a stream launch; h0 is [R, C] fp32."""
+    ndir = w.shape[0]
+    T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype, cell, ndir)
+    C = H if cell == "gru" else 2 * H
+    _kernels.check_cuda_tensor("h0", h0, torch.float32, (ndir * B, C))
+    _check_emit(emit_t, T)
+    return T, B, H, ndir
 
 
 def gru_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
                   hi: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """Residual-free kernel launch (CUDA tensors only; raises on shapes it
-    does not take)."""
-    T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype)
+    does not take); ndir = w.shape[0]."""
+    ndir = w.shape[0]
+    T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype, ndir=ndir)
     wk = w.to(compute_dtype).contiguous()
-    ys = torch.empty((T, 2 * B, H), dtype=torch.float32, device=xs.device)
+    ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     _kernels.GRU_FWD.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), T, B, H, int(compute_dtype == torch.bfloat16),
+        ys.data_ptr(), T, B, H, ndir, int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(xs))
     return ys
+
+
+def gru_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
+    """Stream kernel launch: (ys, carry); CUDA tensors only."""
+    T, B, H, ndir = _check_stream(xs, w, lo, hi, h0, compute_dtype, emit_t,
+                                  "gru")
+    wk = w.to(compute_dtype).contiguous()
+    ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
+    carry = torch.empty_like(h0)
+    _kernels.GRU_FWD_STREAM.launch(
+        xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        h0.data_ptr(), ys.data_ptr(), carry.data_ptr(), T, B, H, ndir,
+        emit_t, int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
+    return ys, carry
 
 
 def gru_scan_train_cuda(xs, w, lo, hi, compute_dtype):
@@ -287,10 +368,10 @@ def gru_bwd_cuda(gates, w, lo, hi, h_prev, g, compute_dtype):
 
 
 def _lstm_fwd_weights(w, compute_dtype):
-    """W [2, H, 4H] → the forward kernel's k-quads [2, H/4, 4H, 4] in the
-    compute dtype: element [d, k4, col, kk] is W[d, 4·k4 + kk, col]."""
-    H = w.shape[1]
-    return w.to(compute_dtype).reshape(2, H // 4, 4, 4 * H).transpose(
+    """W [ndir, H, 4H] → the forward kernel's k-quads [ndir, H/4, 4H, 4] in
+    the compute dtype: element [d, k4, col, kk] is W[d, 4·k4 + kk, col]."""
+    ndir, H = w.shape[:2]
+    return w.to(compute_dtype).reshape(ndir, H // 4, 4, 4 * H).transpose(
         2, 3).contiguous()
 
 
@@ -305,15 +386,30 @@ def _lstm_bwd_weights(w, compute_dtype):
 def lstm_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
                    hi: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """Residual-free LSTM kernel launch (CUDA tensors only; raises on
-    shapes it does not take)."""
-    T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype, "lstm")
+    shapes it does not take); ndir = w.shape[0]."""
+    ndir = w.shape[0]
+    T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype, "lstm", ndir)
     wq = _lstm_fwd_weights(w, compute_dtype)
-    ys = torch.empty((T, 2 * B, H), dtype=torch.float32, device=xs.device)
+    ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     _kernels.LSTM_FWD.launch(
         xs.data_ptr(), wq.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), T, B, H, int(compute_dtype == torch.bfloat16),
+        ys.data_ptr(), T, B, H, ndir, int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(xs))
     return ys
+
+
+def lstm_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
+    """LSTM stream kernel launch: (ys, carry h‖c); CUDA tensors only."""
+    T, B, H, ndir = _check_stream(xs, w, lo, hi, h0, compute_dtype, emit_t,
+                                  "lstm")
+    wq = _lstm_fwd_weights(w, compute_dtype)
+    ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
+    carry = torch.empty_like(h0)
+    _kernels.LSTM_FWD_STREAM.launch(
+        xs.data_ptr(), wq.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        h0.data_ptr(), ys.data_ptr(), carry.data_ptr(), T, B, H, ndir,
+        emit_t, int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
+    return ys, carry
 
 
 def lstm_scan_train_cuda(xs, w, lo, hi, compute_dtype):
@@ -358,6 +454,17 @@ def gru_scan(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
     return gru_scan_plain(xs, w, lo, hi, compute_dtype)
 
 
+def gru_scan_stream(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
+    """``birnn_pallas_stream(xs, w, lo, hi, h0, "gru", dtype, emit_t)``
+    → (ys, carry): the stream kernel on the card, the plain version on the
+    CPU."""
+    if xs.is_cuda:
+        return gru_scan_stream_cuda(xs, w, lo, hi, h0.contiguous(),
+                                    compute_dtype, emit_t)
+    _kernels.check_cpu_tensor("gru_scan_stream", xs)
+    return gru_scan_stream_plain(xs, w, lo, hi, h0, compute_dtype, emit_t)
+
+
 def gru_scan_train(xs, w, lo, hi, compute_dtype):
     """(ys, gates): the training-forward kernel on the card, the plain
     version on the CPU."""
@@ -385,6 +492,17 @@ def lstm_scan(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
         return lstm_scan_cuda(xs, w, lo, hi, compute_dtype)
     _kernels.check_cpu_tensor("lstm_scan", xs)
     return lstm_scan_plain(xs, w, lo, hi, compute_dtype)
+
+
+def lstm_scan_stream(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
+    """``birnn_pallas_stream(xs, w, lo, hi, h0, "lstm", dtype, emit_t)``
+    → (ys, carry h‖c): the stream kernel on the card, the plain version on
+    the CPU."""
+    if xs.is_cuda:
+        return lstm_scan_stream_cuda(xs, w, lo, hi, h0.contiguous(),
+                                     compute_dtype, emit_t)
+    _kernels.check_cpu_tensor("lstm_scan_stream", xs)
+    return lstm_scan_stream_plain(xs, w, lo, hi, h0, compute_dtype, emit_t)
 
 
 def lstm_scan_train(xs, w, lo, hi, compute_dtype):

@@ -1,9 +1,11 @@
 """Smoke run of the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
 Drives the port (``chainer_speech_recognition_tpu_torch``) at the full
-width of the ``bigru`` preset (phases 3-9) and of the ``bilstm_deep``
-preset (phases 10-14), with random weights made from a seed, and fails
-(exit code != 0, no result line) if any phase fails:
+width of the ``bigru`` preset (phases 3-9), of the ``bilstm_deep`` preset
+(phases 10-14) and of both streaming paths, the forward-only ``uni_gru``
+preset and ``bilstm_deep`` with causal CMVN (phases 15-17), with random
+weights made from a seed, and fails (exit code != 0, no result line) if
+any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
@@ -52,7 +54,24 @@ preset (phases 10-14), with random weights made from a seed, and fails
     launch counts, the warm step time, utterances per second, busy share
     and peak memory; the last checkpoint decodes through the decode CLI;
 14. bilstm_deep train parity: one step card vs CPU from the same weights,
-    batch and SpecAugment draws (bars as in phase 9).
+    batch and SpecAugment draws (bars as in phase 9);
+15. stream kernels: the GRU and LSTM stream forms against their plain
+    versions at the stream windows' shapes (B = 32; uni_gru at chunk 64,
+    right 0: T = 16; bilstm_deep at chunk 64, right 16: T = 20), fp32 and
+    bf16, emit_t 0, C/s and T, ragged lengths, nonzero h0, and the R = 1
+    forward-only launch; timed beside the bound and cuDNN with hx = h0;
+    the forward-only gru_fwd at uni_gru's decode shape;
+16. uni_gru streaming: a random-weight checkpoint through the stream CLI
+    (--batch 32 --chunk-frames 64 --right-frames 0 --timing) on the 64
+    wavs with exact launch counts from the stream geometry and the wav
+    lengths, a warm rerun's utt/s, RTF and window latency; the same
+    checkpoint through the decode CLI (the forward-only gru_fwd); the
+    chained window logits of 4 wavs against the offline ones; transcript
+    agreement and CER of the two CLIs (printed); one wav through --raw
+    (batch 1, R = 1);
+17. bilstm_deep streaming (causal CMVN, chunk 64, right 16): the stream
+    CLI with exact launch counts and a warm rerun, and 4 wavs' chained
+    window logits card vs CPU.
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -77,6 +96,12 @@ import numpy as np
 
 PRESET = "bigru"
 LSTM_PRESET = "bilstm_deep"
+UNI_PRESET = "uni_gru"                # the online preset: forward-only GRU
+STREAM_CHUNK = 64                     # --chunk-frames of the stream runs
+STREAM_CALLS = 20                     # back-to-back calls a stream timing
+# stream CLI flags: uni_gru at zero lookahead; bilstm_deep (trained with
+# causal CMVN) at the default lookahead of 16 frames
+STREAM_ARGS = {UNI_PRESET: ["--right-frames", "0"], LSTM_PRESET: []}
 SEED = 0
 N_WAVS, BATCH = 64, 32
 WAV_SECONDS = (8.0, 10.0)
@@ -98,7 +123,14 @@ TOL = {"frontend_logmel": 5e-4,       # tests/test_pallas_frontend.py:34
 # decode CLI, 64 wavs in two chunks: launches of each decode kernel
 MIN_LAUNCHES = {PRESET: {"frontend_logmel": 2, "gru_fwd": 6, "greedy": 2},
                 LSTM_PRESET: {"frontend_logmel": 2, "lstm_fwd": 10,
-                              "greedy": 2}}
+                              "greedy": 2},
+                UNI_PRESET: {"frontend_logmel": 2, "gru_fwd": 8, "greedy": 2},
+                # stream CLI, 64 wavs in two lockstep batches: at least one
+                # window a batch (phase 16 checks the exact counts)
+                f"{UNI_PRESET} stream": {"frontend_logmel": 2,
+                                         "gru_fwd_stream": 8},
+                f"{LSTM_PRESET} stream": {"frontend_logmel": 2,
+                                          "lstm_fwd_stream": 10}}
 SOURCES = {
     "frontend_logmel": (
         "chainer_speech_recognition_tpu_torch/csrc/frontend_logmel.cu",
@@ -130,6 +162,12 @@ SOURCES = {
     "lstm_bwd": (
         "chainer_speech_recognition_tpu_torch/csrc/lstm_bwd.cu",
         "chainer_speech_recognition_tpu/ops/rnn_pallas.py:177"),
+    "gru_fwd_stream": (
+        "chainer_speech_recognition_tpu_torch/csrc/gru_fwd.cu",
+        "chainer_speech_recognition_tpu/ops/rnn_pallas.py:227"),
+    "lstm_fwd_stream": (
+        "chainer_speech_recognition_tpu_torch/csrc/lstm_fwd.cu",
+        "chainer_speech_recognition_tpu/ops/rnn_pallas.py:249"),
 }
 # H100 SXM datasheet: HBM bytes/s, dense peak FLOP/s
 HBM_RATE = 3.35e12
@@ -145,8 +183,12 @@ def check(ok: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def time_ms(fn, warmup: int = 2, reps: int = 7) -> float:
-    """Median device time of ``fn()`` in ms (CUDA events, warm)."""
+def time_ms(fn, warmup: int = 2, reps: int = 7, calls: int = 1) -> float:
+    """Median device time of ``fn()`` in ms (CUDA events, warm). With
+    ``calls`` > 1 each timing spans that many back-to-back calls and is
+    divided by it, so the host's enqueue of one call overlaps the device
+    work of the one before: the time of a short kernel without the
+    wrapper's host time, unless the host is the slower of the two."""
     import torch
 
     for _ in range(warmup):
@@ -156,10 +198,11 @@ def time_ms(fn, warmup: int = 2, reps: int = 7) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
@@ -211,20 +254,18 @@ def rnn_rows(lens_f, T: int, dev):
     return lo, hi
 
 
-def library_rnn(cell: str, dev, T: int, B: int, H: int, lens, dtype):
-    """cuDNN's bidirectional GRU or LSTM over packed sequences (b_hh = 0;
-    the GRU's gate order r, z, n and r ⊙ (W_hn h) are the port's, the
-    LSTM has no +1 forget bias): the yardstick for the recurrence kernels,
-    input projection included. → (forward ms, training-forward ms,
-    backward ms)."""
+def _cudnn(cell: str, dev, in_dim: int, H: int, bidirectional: bool, dtype):
+    """cuDNN's GRU or LSTM with b_hh = 0 (the GRU's gate order r, z, n and
+    r ⊙ (W_hn h) are the port's, the LSTM has no +1 forget bias) and its
+    weights flattened once, bf16 included."""
     import torch
-    from torch.nn.utils.rnn import pack_padded_sequence
 
     cls = {"gru": torch.nn.GRU, "lstm": torch.nn.LSTM}[cell]
-    rnn = cls(2 * H, H, bidirectional=True).to(dev, dtype)
+    rnn = cls(in_dim, H, bidirectional=bidirectional).to(dev, dtype)
     with torch.no_grad():
-        rnn.bias_hh_l0.zero_()
-        rnn.bias_hh_l0_reverse.zero_()
+        for name, p in rnn.named_parameters():
+            if name.startswith("bias_hh"):
+                p.zero_()
     # flatten_parameters() skips the dtypes torch.backends.cudnn.is_acceptable
     # does not list (bf16), which leaves cuDNN to compact the weights into
     # one buffer at every call; flatten them once, for bf16 too
@@ -234,6 +275,27 @@ def library_rnn(cell: str, dev, T: int, B: int, H: int, lens, dtype):
         rnn.flatten_parameters()
     finally:
         torch.backends.cudnn.is_acceptable = acceptable
+    return rnn
+
+
+def _check_no_compaction(cell: str, *fns) -> None:
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for fn in fns:
+            fn()
+    compacted = [w for w in caught if "contiguous chunk" in str(w.message)]
+    check(not compacted, f"cuDNN {cell} yardstick: weights compacted at "
+          f"every call ({compacted[:1]})")
+
+
+def library_rnn(cell: str, dev, T: int, B: int, H: int, lens, dtype):
+    """cuDNN's bidirectional GRU or LSTM over packed sequences (``_cudnn``):
+    the yardstick for the recurrence kernels, input projection included.
+    → (forward ms, training-forward ms, backward ms)."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    rnn = _cudnn(cell, dev, 2 * H, H, True, dtype)
     x = torch.randn(T, B, 2 * H, device=dev, dtype=dtype)
     packed = pack_padded_sequence(x, lens.cpu(), enforce_sorted=False)
     packed_g = packed._replace(data=packed.data.clone().requires_grad_())
@@ -249,16 +311,36 @@ def library_rnn(cell: str, dev, T: int, B: int, H: int, lens, dtype):
         out, _ = rnn(packed_g)
         out.data.sum().backward()
 
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        fwd()
-        fwd_bwd()
-    compacted = [w for w in caught if "contiguous chunk" in str(w.message)]
-    check(not compacted, f"cuDNN {cell} yardstick: weights compacted at "
-          f"every call ({compacted[:1]})")
+    _check_no_compaction(cell, fwd, fwd_bwd)
     t_fwd = time_ms(fwd)
     t_train = time_ms(fwd_train)
     return t_fwd, t_train, time_ms(fwd_bwd) - t_train
+
+
+def library_stream(cell: str, dev, T: int, B: int, H: int, ndir: int, lens,
+                   h0, dtype) -> float:
+    """cuDNN's GRU or LSTM (bidirectional when ndir = 2) over the same
+    window, packed, its initial state hx taken from h0 (the port's rows
+    [d·B, (d+1)·B) are direction d): the same work as a stream launch,
+    input projection included, but not the same function (no carry at
+    emit_t; a length-0 row runs one step). → forward ms."""
+    import torch
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    rnn = _cudnn(cell, dev, ndir * H, H, ndir == 2, dtype)
+    x = torch.randn(T, B, ndir * H, device=dev, dtype=dtype)
+    packed = pack_padded_sequence(x, lens.clamp(min=1).cpu(),
+                                  enforce_sorted=False)
+    h = h0[:, :H].reshape(ndir, B, H).to(dtype).contiguous()
+    hx = h if cell == "gru" else (
+        h, h0[:, H:].reshape(ndir, B, H).to(dtype).contiguous())
+
+    def fwd():
+        with torch.no_grad():
+            rnn(packed, hx)
+
+    _check_no_compaction(cell, fwd)
+    return time_ms(fwd, calls=STREAM_CALLS)
 
 
 # ---------------------------------------------------------------------------
@@ -768,9 +850,156 @@ def phase_lstm_train_kernels(dev, rng) -> dict:
     return out
 
 
-def write_checkpoint(root: str, preset: str, rng) -> str:
-    """A params-only checkpoint of ``preset`` with random weights from
-    ``rng``, written by the port's own writer; → its directory."""
+def stream_shapes(preset: str, right: int) -> tuple[int, int, int, int]:
+    """(T, emit_t, layers, ndir) of one stream window of ``preset`` at
+    chunk STREAM_CHUNK, from ``stream_geometry``: T = (C + R)/s subsampled
+    steps, of which the first emit_t = C/s carry over."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.decode.streaming import (
+        stream_geometry)
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model)
+
+    mcfg = preset_config(preset).model
+    g = stream_geometry(build_model(mcfg), STREAM_CHUNK, right)
+    return ((g["C"] + g["R"]) // g["s"], g["C"] // g["s"], mcfg.rnn_layers,
+            2 if mcfg.rnn_bidirectional else 1)
+
+
+def phase_stream_kernels(dev, rng) -> dict:
+    """The stream kernels vs their plain versions at the streaming paths'
+    window shapes (B = 32): gru_fwd_stream forward-only (uni_gru, chunk 64,
+    right 0: T = 16) and bidirectional (T = 20), lstm_fwd_stream
+    bidirectional (bilstm_deep, chunk 64, right 16: T = 20), each in fp32
+    and bf16 at emit_t 0, C/s and T, with ragged lengths (row 1 ends before
+    C/s, row 2 is empty) and a nonzero h0 on the forward rows; the R = 1
+    launch of one forward-only stream; timed (bf16, emit_t = C/s) beside
+    the bound and cuDNN over the same window with hx = h0. Also the
+    forward-only inference form of gru_fwd at uni_gru's decode shape."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.models.conv import (
+        conv_out_length)
+    from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
+        gru_scan_cuda, gru_scan_plain, gru_scan_stream_cuda,
+        gru_scan_stream_plain, lstm_scan_stream_cuda, lstm_scan_stream_plain)
+
+    fns = {"gru": (3, gru_scan_stream_cuda, gru_scan_stream_plain),
+           "lstm": (4, lstm_scan_stream_cuda, lstm_scan_stream_plain)}
+    out = {}
+    uT, u_emit, _, _ = stream_shapes(UNI_PRESET, 0)
+    bT, b_emit, _, _ = stream_shapes(LSTM_PRESET, 16)
+    uH, gH, lH = (preset_config(p).model.rnn_hidden
+                  for p in (UNI_PRESET, PRESET, LSTM_PRESET))
+    cases = [("gru_fwd_stream", "gru", 1, CHECK_B, uT, u_emit, uH),
+             ("gru_fwd_stream bidirectional", "gru", 2, CHECK_B, bT, b_emit,
+              gH),
+             ("lstm_fwd_stream", "lstm", 2, CHECK_B, bT, b_emit, lH),
+             ("gru_fwd_stream R=1", "gru", 1, 1, uT, u_emit, uH),
+             ("lstm_fwd_stream R=1", "lstm", 1, 1, bT, b_emit, lH)]
+    for tag, cell, ndir, B, T, emit, H in cases:
+        G, kernel, plain = fns[cell]
+        R, Cw = ndir * B, H if cell == "gru" else 2 * H
+        lens = torch.full((B,), float(T))
+        if B > 2:
+            lens[1], lens[2] = emit // 2, 0
+        lo, hi = torch.zeros(B), lens
+        if ndir == 2:
+            lo, hi = torch.cat([lo, T - lens]), torch.cat(
+                [hi, torch.full((B,), float(T))])
+        lo, hi = lo[:, None].to(dev), hi[:, None].to(dev)
+        w = torch.from_numpy((rng.standard_normal((ndir, H, G * H))
+                              / np.sqrt(H)).astype(np.float32)).to(dev)
+        xs32 = torch.from_numpy(rng.standard_normal(
+            (T, R, G * H)).astype(np.float32)).to(dev)
+        h0 = torch.zeros(R, Cw, device=dev)        # backward rows: zeros
+        h0[:B] = torch.from_numpy(
+            0.5 * rng.standard_normal((B, Cw)).astype(np.float32)).to(dev)
+        for dtag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            xs = xs32.to(torch.bfloat16) if dtag == "bf16" else xs32
+            err = 0.0
+            for emit_t in (0, emit, T):
+                ys, carry = kernel(xs, w, lo, hi, h0, cdt, emit_t)
+                ys_p, carry_p = plain(xs, w, lo, hi, h0, cdt, emit_t)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(ys).all()
+                           and torch.isfinite(carry).all()),
+                      f"{tag} {dtag}: non-finite")
+                check(emit_t or torch.equal(carry, h0),
+                      f"{tag}: emit_t = 0 does not carry h0")
+                err = max(err, float((ys - ys_p).abs().max()),
+                          float((carry - carry_p).abs().max()))
+            tol = TOL[f"gru_{dtag}"]
+            print(f"[stream-kernels] {tag} {dtag} xs {tuple(xs.shape)}, "
+                  f"emit_t 0/{emit}/{T}: ys and carry max abs {err:.3e} "
+                  f"(tol {tol})")
+            check(err <= tol, f"{tag} {dtag} disagrees")
+            if tag not in ("gru_fwd_stream", "lstm_fwd_stream") \
+                    or cdt != torch.bfloat16:
+                continue
+            live = int((hi - lo).sum())       # live (row, step) pairs
+            esz = xs.element_size()
+            one = time_ms(lambda: kernel(xs, w, lo, hi, h0, cdt, emit))
+            t = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: kernel(xs, w, lo, hi, h0, cdt, emit),
+                           calls=STREAM_CALLS),
+                plain_ms=time_ms(lambda: plain(xs, w, lo, hi, h0, cdt, emit),
+                                 warmup=1, reps=3),
+                library_ms=library_stream(cell, dev, T, B, H, ndir,
+                                          lens.long(), h0, cdt),
+                **bound(live * G * H * esz + w.numel() * esz
+                        + nbytes(ys, carry, lo, hi, h0),
+                        2 * live * H * G * H, "bf16"))
+            out[tag] = t
+            print(f"[stream-kernels] {tag}: {t['ms']:.4f} ms a call over "
+                  f"{STREAM_CALLS} back to back ({one:.4f} ms for one call, "
+                  f"the wrapper's host time included), plain "
+                  f"{t['plain_ms']:.4f} ms, cuDNN {cell.upper()} (hx = h0, "
+                  f"with input projection, {STREAM_CALLS} back to back) "
+                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+                  f"({t['bound_by']})")
+
+    # gru_fwd's forward-only inference form at uni_gru's decode shape (one
+    # chunk of 32 wavs of 10 s, the last one 8 s): T' = 251, ndir = 1
+    mcfg = preset_config(UNI_PRESET).model
+    H, B = mcfg.rnn_hidden, CHECK_B
+    n = int(CHECK_SECONDS * C.SAMPLE_RATE)
+    flen = torch.full((B,), n // C.HOP_LENGTH + 1)
+    flen[-1] = int(WAV_SECONDS[0] * C.SAMPLE_RATE) // C.HOP_LENGTH + 1
+    Tp = C.num_frames(n)
+    for st in mcfg.conv_stride_time:
+        flen = conv_out_length(flen, st)
+        Tp = -(-Tp // st)
+    lo = torch.zeros(B, 1, device=dev)
+    hi = flen.to(torch.float32)[:, None].to(dev)
+    w = torch.from_numpy((rng.standard_normal((1, H, 3 * H))
+                          / np.sqrt(H)).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rng.standard_normal((Tp, B, 3 * H)).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    got = gru_scan_cuda(xs, w, lo, hi, torch.bfloat16)
+    want = gru_scan_plain(xs, w, lo, hi, torch.bfloat16)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    live = int(flen.sum())
+    t = dict(max_abs_err=err,
+             ms=time_ms(lambda: gru_scan_cuda(xs, w, lo, hi, torch.bfloat16)),
+             **bound(live * 3 * H * 2 + w.numel() * 2 + nbytes(got, lo, hi),
+                     2 * live * H * 3 * H, "bf16"))
+    print(f"[stream-kernels] gru_fwd ndir=1 bf16 xs {tuple(xs.shape)}: max "
+          f"abs {err:.3e} (tol {TOL['gru_bf16']}), {t['ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+    check(err <= TOL["gru_bf16"], "gru_fwd ndir=1 disagrees")
+    return out
+
+
+def write_checkpoint(root: str, preset: str, rng,
+                     overrides: dict | None = None) -> str:
+    """A params-only checkpoint of ``preset`` (with dotted config
+    ``overrides``) with random weights from ``rng``, written by the port's
+    own writer; → its directory."""
     from chainer_speech_recognition_tpu_torch.bridge import state_dict_to_flax
     from chainer_speech_recognition_tpu_torch.checkpoint import save_params
     from chainer_speech_recognition_tpu_torch.config import preset_config
@@ -778,8 +1007,10 @@ def write_checkpoint(root: str, preset: str, rng) -> str:
         build_model)
 
     cfg = preset_config(preset)
+    if overrides:
+        cfg = cfg.override(overrides)
     model = build_model(cfg.model)
-    ckpt = os.path.join(root, f"ckpt_{preset}")
+    ckpt = os.path.join(root, f"ckpt_{preset}{'_stream' if overrides else ''}")
     path = save_params(ckpt, state_dict_to_flax(
         random_state_dict(model, rng)), cfg)
     print(f"[inputs] {preset} checkpoint {os.path.basename(path)} "
@@ -808,26 +1039,36 @@ def phase_inputs(root: str, rng) -> tuple[str, str, list[str], float]:
     return ckpt, vocab, wavs, total
 
 
-def run_decode(args: list[str]) -> tuple[list[str], float]:
+def run_cli(main, args: list[str]) -> tuple[list[str], str, float]:
+    """→ (stdout lines, stderr, wall seconds) of one in-process CLI run,
+    ending after the card is idle."""
     import torch
 
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        main(args)
+    torch.cuda.synchronize()
+    return out.getvalue().splitlines(), err.getvalue(), \
+        time.perf_counter() - t0
+
+
+def run_decode(args: list[str]) -> tuple[list[str], float]:
     from chainer_speech_recognition_tpu_torch.cli import decode
 
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        decode.main(args)
-    torch.cuda.synchronize()
-    return buf.getvalue().splitlines(), time.perf_counter() - t0
+    lines, _, wall = run_cli(decode.main, args)
+    return lines, wall
 
 
-def phase_decode(ckpt, vocab, wavs, audio_s, preset: str) -> dict:
+def phase_decode(ckpt, vocab, wavs, audio_s,
+                 preset: str) -> tuple[dict, list[str]]:
     import torch
 
     from chainer_speech_recognition_tpu_torch import _kernels
     from chainer_speech_recognition_tpu_torch.cli.decode import load_model
 
-    tag = "decode" if preset == PRESET else "lstm-decode"
+    tag = {PRESET: "decode", LSTM_PRESET: "lstm-decode",
+           UNI_PRESET: "uni-decode"}[preset]
     args = ["--ckpt-dir", ckpt, "--vocab", vocab, "--batch", str(BATCH),
             "--device", "cuda", *wavs]
     _kernels.reset_launches()
@@ -853,7 +1094,7 @@ def phase_decode(ckpt, vocab, wavs, audio_s, preset: str) -> dict:
     torch.cuda.synchronize()
     print(f"[{tag}] of which the checkpoint load (cli.decode.load_model) "
           f"takes {time.perf_counter() - t0:.3f} s")
-    return launches
+    return launches, lines
 
 
 def phase_parity(ckpt, wavs, dev, tag: str) -> float:
@@ -887,6 +1128,183 @@ def phase_parity(ckpt, wavs, dev, tag: str) -> float:
           f"{float(lp.abs().max()):.3f}")
     check(err <= TOL["gru_bf16"], "card and CPU logits disagree")
     return err
+
+
+def stream_window_logits(model, cfg, sigs, right: int) -> list:
+    """Stream ``sigs`` in one lockstep batch through ``StreamingRecognizer``
+    (buffered, flushed with their true lengths) and chain each stream's
+    emit-region logits over the windows: → one [T', V] fp32 CPU tensor a
+    stream, read where the recognizer hands them to its greedy collapse."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.decode import streaming
+
+    taken = []
+    collapse = streaming._emit_greedy
+
+    def spy(logits, lens, prev_id, C_s):
+        taken.append((logits[:, :C_s].float().cpu(),
+                      torch.clamp(lens, 0, C_s).cpu()))
+        return collapse(logits, lens, prev_id, C_s)
+
+    ns = np.asarray([len(x) for x in sigs], np.int64)
+    pcm = np.zeros((len(sigs), int(ns.max())), np.float32)
+    for i, x in enumerate(sigs):
+        pcm[i, : len(x)] = x
+    streaming._emit_greedy = spy
+    try:
+        rec = streaming.StreamingRecognizer(
+            model, cfg, batch=len(sigs), chunk_frames=STREAM_CHUNK,
+            right_frames=right)
+        rec.accept(pcm, drain=False)
+        rec.flush(num_samples=ns)
+    finally:
+        streaming._emit_greedy = collapse
+    return [torch.cat([lg[b, : int(n[b])] for lg, n in taken])
+            for b in range(len(sigs))]
+
+
+def phase_stream(root, vocab, wavs, audio_s, preset: str, dev, rng) -> dict:
+    """``preset`` served online through the port's stream CLI on the card:
+    a random-weight checkpoint with causal CMVN, the 64 wavs in lockstep
+    batches of 32 at chunk 64 (``STREAM_ARGS`` sets the lookahead), exact
+    launch counts from ``stream_geometry`` and the wav lengths, a warm
+    rerun's utt/s, RTF and window latency. uni_gru (zero lookahead) also
+    decodes offline through the decode CLI (the forward-only gru_fwd),
+    compares its chained window logits with the offline ones on 4 wavs (the
+    same function), prints how many transcripts agree and their CER, and
+    streams one wav as int16 PCM through --raw (batch 1: R = 1).
+    bilstm_deep compares its chained window logits card vs CPU on 4 wavs.
+    → the cold stream run's launches."""
+    import wave
+
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.cli import stream
+    from chainer_speech_recognition_tpu_torch.cli.decode import load_model
+    from chainer_speech_recognition_tpu_torch.decode.metrics import (
+        CERAccumulator)
+    from chainer_speech_recognition_tpu_torch.frontend import select_frontend
+    from chainer_speech_recognition_tpu_torch.utils.wav import read_wav
+
+    uni = preset == UNI_PRESET
+    tag = "uni-stream" if uni else "lstm-stream"
+    right = 0 if uni else 16
+    ckpt = write_checkpoint(root, preset, rng,
+                            {"features.cmvn_mode": "causal",
+                             "features.cmvn": True})
+    cell = "gru" if uni else "lstm"
+    T, emit, layers, ndir = stream_shapes(preset, right)
+    # exact launches: windows of a lockstep batch = ceil(longest stream's
+    # frames / C); one front-end launch and one stream launch a layer each
+    lens = []
+    for w in wavs:
+        with wave.open(w, "rb") as f:
+            lens.append(f.getnframes())
+    order = sorted(lens)
+    windows = sum(-(-C.num_frames(max(order[i : i + BATCH])) // STREAM_CHUNK)
+                  for i in range(0, len(order), BATCH))
+    want = {k: 0 for k in _kernels.KERNELS}
+    want.update({"frontend_logmel": windows,
+                 f"{cell}_fwd_stream": layers * windows})
+    args = ["--ckpt-dir", ckpt, "--vocab", vocab, "--device", "cuda",
+            "--batch", str(BATCH), "--chunk-frames", str(STREAM_CHUNK),
+            "--timing", *STREAM_ARGS[preset], *wavs]
+    _kernels.reset_launches()
+    lines, err, cold = run_cli(stream.main, args)
+    launches = _kernels.launches()
+    print(f"[{tag}] cold run {cold:.3f} s, {windows} windows (T = {T} steps "
+          f"a window, carry at {emit}, ndir {ndir}), launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(len(lines) == len(wavs), f"stream printed {len(lines)} lines")
+    check([l.split("\t")[0] for l in lines] == wavs,
+          "stream output is not in input order")
+    check(all(len(l.split("\t")) == 2 for l in lines), "malformed lines")
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches on "
+              f"the {preset} stream path, expected {n}")
+    for name, need in MIN_LAUNCHES[f"{preset} stream"].items():
+        check(launches[name] >= need, f"{name}: below {need} launches")
+    lines2, err2, warm = run_cli(stream.main, args)
+    check(lines2 == lines, "warm stream run differs from the cold one")
+    timing = [l for l in err2.splitlines() if "window latency" in l]
+    check(len(timing) == 1, f"no --timing line in {err2!r}")
+    print(f"[{tag}] warm run {warm:.3f} s: {len(wavs) / warm:.3f} utt/s, RTF "
+          f"{warm / audio_s:.6f}; {timing[0]}")
+    for l in lines[:2]:
+        print(f"[{tag}] {os.path.basename(l.split(chr(9))[0])}: "
+              f"{l.split(chr(9))[1][:40]!r}")
+
+    sigs = [read_wav(w) for w in wavs[:PARITY_WAVS]]
+    cfg, model, _ = load_model(ckpt, device=dev)
+    got = stream_window_logits(model, cfg, sigs, right)
+    if uni:
+        # offline decode of the same checkpoint: the ndir = 1 gru_fwd
+        off_launches, off_lines = phase_decode(ckpt, vocab, wavs, audio_s,
+                                               UNI_PRESET)
+        check(off_launches["gru_fwd"] == layers * 2 and
+              off_launches["gru_fwd_stream"] == 0,
+              f"offline uni_gru launches {off_launches}")
+        cer = CERAccumulator()
+        cer.add_batch([l.split("\t")[1] for l in lines],
+                      [l.split("\t")[1] for l in off_lines])
+        same = sum(a == b for a, b in zip(lines, off_lines))
+        print(f"[{tag}] stream vs offline CLI: {same}/{len(lines)} "
+              f"transcripts equal, CER {cer.cer:.6f} (not gated: bf16 "
+              f"near-ties under random weights may flip an argmax)")
+        n = np.asarray([len(x) for x in sigs], np.int32)
+        x = np.zeros((len(sigs), int(n.max())), np.float32)
+        for i, sg in enumerate(sigs):
+            x[i, : len(sg)] = sg
+        with torch.inference_mode():
+            feats, fl = select_frontend(cfg.features)(
+                torch.from_numpy(x).to(dev), torch.from_numpy(n).to(dev),
+                apply_cmvn=cfg.features.cmvn_arg)
+            logits, ol = model(feats, fl)
+        want_l = [logits[b, : int(ol[b])].float().cpu()
+                  for b in range(len(sigs))]
+        what = "offline"
+    else:
+        ccfg, cmodel, _ = load_model(ckpt, device=torch.device("cpu"))
+        want_l = stream_window_logits(cmodel, ccfg, sigs, right)
+        what = "CPU"
+    check([g.shape for g in got] == [w.shape for w in want_l],
+          f"chained window logits {[tuple(g.shape) for g in got]} vs "
+          f"{what} {[tuple(w.shape) for w in want_l]}")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "non-finite stream logits")
+    lerr = max(float((g - w).abs().max()) for g, w in zip(got, want_l))
+    print(f"[{tag}] chained window logits of {len(sigs)} wavs "
+          f"{[tuple(g.shape) for g in got]} card vs {what}: max abs "
+          f"{lerr:.3e} (tol {TOL['gru_bf16']}), |logits| max "
+          f"{max(float(w.abs().max()) for w in want_l):.3f}")
+    check(lerr <= TOL["gru_bf16"], f"{preset} stream logits disagree with "
+          f"the {what} ones")
+
+    if uni:
+        # live mode: one wav as int16 PCM on stdin, eager draining, batch 1
+        pcm = (np.clip(sigs[0], -1, 1) * 32767).astype("<i2")
+        nw = -(-C.num_frames(len(pcm)) // STREAM_CHUNK)
+        stdin = sys.stdin
+        sys.stdin = io.TextIOWrapper(io.BytesIO(pcm.tobytes()))
+        _kernels.reset_launches()
+        try:
+            raw, _, wall = run_cli(stream.main, [
+                "--ckpt-dir", ckpt, "--vocab", vocab, "--device", "cuda",
+                "--chunk-frames", str(STREAM_CHUNK), "--raw",
+                *STREAM_ARGS[preset]])
+        finally:
+            sys.stdin = stdin
+        rl = _kernels.launches()
+        print(f"[{tag}] --raw: {len(pcm)} samples in {wall:.3f} s, {nw} "
+              f"windows at batch 1 (R = 1), launches "
+              f"{ {k: v for k, v in rl.items() if v} }, transcript "
+              f"{raw[-1][:40]!r} (wav mode: {lines[0].split(chr(9))[1][:40]!r})")
+        check(rl["frontend_logmel"] == nw and rl["gru_fwd_stream"]
+              == layers * nw, "--raw launch counts")
+    return launches
 
 
 def _events(path: str) -> list[dict]:
@@ -1113,29 +1531,37 @@ def main() -> int:
         # the bilstm_deep phases draw from a stream of their own, so the
         # bigru phases' inputs stay what they were before those phases
         lrng = np.random.default_rng(SEED + 1)
+        srng = np.random.default_rng(SEED + 2)    # the streaming phases'
         timings = phase_kernels(dev, rng)
         timings.update(phase_train_kernels(dev, rng))
         timings.update(phase_lstm_kernels(dev, lrng))
         timings.update(phase_lstm_train_kernels(dev, lrng))
+        timings.update(phase_stream_kernels(dev, srng))
         with tempfile.TemporaryDirectory() as root:
             ckpt, vocab, wavs, audio_s = phase_inputs(root, rng)
-            launches = phase_decode(ckpt, vocab, wavs, audio_s, PRESET)
+            launches, _ = phase_decode(ckpt, vocab, wavs, audio_s, PRESET)
             phase_parity(ckpt, wavs, dev, "parity")
             data = write_corpus(root, rng)
             train_launches, index = phase_train(root, data, PRESET,
                                                 resume_to=RESUME_STEPS)
             phase_train_parity(dev, index, PRESET)
             lckpt = write_checkpoint(root, LSTM_PRESET, lrng)
-            lstm_decode = phase_decode(lckpt, vocab, wavs, audio_s,
-                                       LSTM_PRESET)
+            lstm_decode, _ = phase_decode(lckpt, vocab, wavs, audio_s,
+                                          LSTM_PRESET)
             phase_parity(lckpt, wavs, dev, "lstm-parity")
             lstm_train, _ = phase_train(root, data, LSTM_PRESET)
             phase_train_parity(dev, index, LSTM_PRESET)
+            uni_stream = phase_stream(root, vocab, wavs, audio_s, UNI_PRESET,
+                                      dev, srng)
+            lstm_stream = phase_stream(root, vocab, wavs, audio_s,
+                                       LSTM_PRESET, dev, srng)
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]
         launches.update({k: lstm_train[k] for k in (
             "lstm_fwd_train", "lstm_bwd")})
+        launches["gru_fwd_stream"] = uni_stream["gru_fwd_stream"]
+        launches["lstm_fwd_stream"] = lstm_stream["lstm_fwd_stream"]
         loaded = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "optax",

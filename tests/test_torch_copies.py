@@ -1,12 +1,14 @@
 """The port keeps its own copies of the reference's JAX-free host modules
 (config, constants, vocab, wav I/O, the mel/window helpers, synthetic
-audio, the bucketed sampler and loader, CER scoring); each copy is held to
-the original here, and no module of the port or ``chip_smoke.py`` imports
-the JAX package."""
+audio, the bucketed sampler and loader, CER scoring) and of the host code
+of the streaming recognizer (window assembly, buffer trimming, the
+lockstep feeder); each copy is held to the original here, and no module of
+the port or ``chip_smoke.py`` imports the JAX package."""
 
 import dataclasses
 import os
 import re
+import types
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from chainer_speech_recognition_tpu.data import corpus as jcorpus
 from chainer_speech_recognition_tpu.data import sampler as jsampler
 from chainer_speech_recognition_tpu.data import synthetic as jsynth
 from chainer_speech_recognition_tpu.decode import metrics as jmetrics
+from chainer_speech_recognition_tpu.decode import streaming as jstream
 from chainer_speech_recognition_tpu.frontend import golden_np as jgold
 from chainer_speech_recognition_tpu.utils import wav as jwav
 from chainer_speech_recognition_tpu.vocab import Vocab as JVocab
@@ -28,6 +31,7 @@ from chainer_speech_recognition_tpu_torch.data import corpus as tcorpus
 from chainer_speech_recognition_tpu_torch.data import sampler as tsampler
 from chainer_speech_recognition_tpu_torch.data import synthetic as tsynth
 from chainer_speech_recognition_tpu_torch.decode import metrics as tmetrics
+from chainer_speech_recognition_tpu_torch.decode import streaming as tstream
 from chainer_speech_recognition_tpu_torch.frontend import golden_np as tgold
 from chainer_speech_recognition_tpu_torch.utils import wav as twav
 from chainer_speech_recognition_tpu_torch.vocab import Vocab as TVocab
@@ -167,6 +171,80 @@ def test_cer_matches():
     assert (t.edits, t.ref_len, t.num_utts) == (j.edits, j.ref_len,
                                                  j.num_utts)
     assert t.cer == j.cer
+
+
+@pytest.mark.parametrize("g0,W_lm,lengths,base", [
+    (0, 24, None, 0),              # first window: start reflection
+    (20, 44, None, 0),             # steady window inside the buffer
+    (40, 44, (9000, 6500), 0),     # flush: both streams end inside it
+    (52, 44, (9000, 1), 0),        # a one-sample stream
+    (60, 44, None, 3200),          # after a trim: absolute offsets
+    (60, 44, (12000, 9000), 3200),
+])
+def test_stream_window_assembly_matches(g0, W_lm, lengths, base):
+    """``StreamingRecognizer._assemble``: the same PCM window, reflections
+    included, from the same buffer state."""
+    rng = np.random.default_rng(g0)
+    n = 12000
+    buf = rng.uniform(-1, 1, (2, n - base)).astype(np.float32)
+    lens = None if lengths is None else np.asarray(lengths)
+    state = dict(batch=2, _buf=buf, _n=n, _base=base)
+    a = tstream.StreamingRecognizer._assemble(
+        types.SimpleNamespace(**state), g0, W_lm, lens)
+    b = jstream.StreamingRecognizer._assemble(
+        types.SimpleNamespace(**state), g0, W_lm, lens)
+    assert a.shape == b.shape == (2, (W_lm + 4) * 160)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("t0,n", [(64, 20000), (2048, 400_000),
+                                  (4096, 700_000)])
+def test_stream_buffer_trim_matches(t0, n):
+    """``_trim`` drops the same PCM from the same buffer."""
+    geo = {"La": 8, "C": 64}
+    fakes = []
+    for cls in (tstream.StreamingRecognizer, jstream.StreamingRecognizer):
+        f = types.SimpleNamespace(geo=geo, _t0=t0, _n=n, _base=0,
+                                  _buf=np.arange(2 * n, dtype=np.float32)
+                                  .reshape(2, n))
+        cls._trim(f)
+        fakes.append(f)
+    assert fakes[0]._base == fakes[1]._base
+    np.testing.assert_array_equal(fakes[0]._buf, fakes[1]._buf)
+
+
+def test_decode_lockstep_matches():
+    """The lockstep feeder: the same batches, padding rows, buffered PCM
+    and flush lengths, and the same reads."""
+    sigs = [np.full(n, i + 1, np.float32) for i, n in
+            enumerate((700, 300, 900, 500, 100))]
+
+    class Rec:
+        batch = 2
+
+        def __init__(self):
+            self.log = []
+
+        def reset(self):
+            self.log.append("reset")
+
+        def accept(self, pcm, drain):
+            self.log.append(("accept", pcm.tolist(), drain))
+
+        def flush(self, num_samples):
+            self.log.append(("flush", list(num_samples)))
+
+        @property
+        def emitted(self):
+            return [[len(self.log)], [0]]
+
+    runs = []
+    for mod in (tstream, jstream):
+        rec, reads = Rec(), []
+        out = list(mod.decode_lockstep(rec, [4, 1, 3, 0, 2],
+                                       lambda i: reads.append(i) or sigs[i]))
+        runs.append((out, rec.log, reads))
+    assert runs[0] == runs[1]
 
 
 _JAX_IMPORT = re.compile(

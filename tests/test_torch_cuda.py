@@ -27,9 +27,11 @@ from chainer_speech_recognition_tpu_torch.ops.ctc_cuda import (
     ctc_bwd_cuda, ctc_fwd_cuda)
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
     gru_bwd_cuda, gru_bwd_plain, gru_scan_cuda,
-    gru_scan_plain, gru_scan_train_cuda, gru_scan_train_plain, lstm_bwd_cuda,
-    lstm_bwd_plain, lstm_scan_cuda, lstm_scan_plain, lstm_scan_train_cuda,
-    lstm_scan_train_plain, shift_prev)
+    gru_scan_plain, gru_scan_stream_cuda, gru_scan_stream_plain,
+    gru_scan_train_cuda, gru_scan_train_plain, lstm_bwd_cuda,
+    lstm_bwd_plain, lstm_scan_cuda, lstm_scan_plain, lstm_scan_stream_cuda,
+    lstm_scan_stream_plain, lstm_scan_train_cuda, lstm_scan_train_plain,
+    shift_prev)
 
 pytestmark = pytest.mark.cuda
 
@@ -186,6 +188,58 @@ def test_lstm_kernels_match_plain(dev, T, B, H, dtype, tol):
         assert torch.all(dxs[:, 1] == 0) and torch.all(dxs[:, B + 1] == 0)
 
 
+_STREAM = {"gru": (3, gru_scan_stream_cuda, gru_scan_stream_plain,
+                   gru_scan_cuda, gru_scan_plain, "GRU_FWD_STREAM"),
+           "lstm": (4, lstm_scan_stream_cuda, lstm_scan_stream_plain,
+                    lstm_scan_cuda, lstm_scan_plain, "LSTM_FWD_STREAM")}
+
+
+@pytest.mark.parametrize("ndir,T,B,H", [(1, 16, 5, 256), (2, 20, 3, 96),
+                                        (1, 9, 1, 384), (2, 1, 1, 32),
+                                        (1, 33, 2, 512)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_stream_kernels_match_plain(dev, cell, ndir, T, B, H, dtype, tol):
+    """The stream forms (h0-seeded, carry after emit_t steps) and the
+    ndir = 1 inference form against their plain versions: emit_t 0, mid
+    and T, ragged lengths (row 1 ends at step 1, before mid), nonzero h0;
+    (1, 9, 1, 384) is the R = 1 launch of one forward-only stream. bf16:
+    the reference's bar (tests/test_rnn_pallas.py:81)."""
+    G, stream_cuda, stream_plain, scan_cuda, scan_plain, kname = _STREAM[cell]
+    rng = np.random.default_rng(T * 1000 + H + B + ndir)
+    lens = rng.integers(0, T + 1, B).astype(np.float32)
+    lens[0] = T
+    if B > 1:
+        lens[1] = min(T, 1)
+    lens = torch.from_numpy(lens)
+    lo, hi = torch.zeros(B), lens
+    if ndir == 2:
+        lo, hi = torch.cat([lo, T - lens]), torch.cat([hi,
+                                                       torch.full((B,), T)])
+    lo, hi = lo[:, None].float().to(dev), hi[:, None].float().to(dev)
+    R, C = ndir * B, H if cell == "gru" else 2 * H
+    w = torch.from_numpy((rng.standard_normal((ndir, H, G * H))
+                          / np.sqrt(H)).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rng.standard_normal(
+        (T, R, G * H)).astype(np.float32)).to(dev).to(
+            torch.float32 if dtype == torch.float32 else torch.bfloat16)
+    h0 = torch.from_numpy((0.5 * rng.standard_normal((R, C))).astype(
+        np.float32)).to(dev)
+    kernel = getattr(_kernels, kname)
+    before = kernel.launches
+    for emit_t in sorted({0, max(T // 2, 1), T}):
+        ys, carry = stream_cuda(xs, w, lo, hi, h0, dtype, emit_t)
+        ys_p, carry_p = stream_plain(xs, w, lo, hi, h0, dtype, emit_t)
+        assert float((ys - ys_p).abs().max()) <= tol
+        assert float((carry - carry_p).abs().max()) <= tol
+        if emit_t == 0:
+            assert torch.equal(carry, h0)
+    assert kernel.launches == before + len({0, max(T // 2, 1), T})
+    got = scan_cuda(xs, w, lo, hi, dtype)
+    assert float((got - scan_plain(xs, w, lo, hi, dtype)).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("B,T,V,L", [(1, 1, 3, 1), (6, 40, 7, 9),
                                      (4, 70, 30, 300)])
 def test_ctc_kernels_match_plain(dev, B, T, V, L):
@@ -286,6 +340,18 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         lstm_scan_cuda(torch.zeros(3, 4, 4 * 48, device=dev),
                        torch.zeros(2, 48, 4 * 48, device=dev), lo, lo,
                        torch.float32)
+    with pytest.raises(ValueError, match="emit_t"):
+        gru_scan_stream_cuda(torch.zeros(3, 4, 96, device=dev),
+                             torch.zeros(2, 32, 96, device=dev), lo, lo,
+                             torch.zeros(4, 32, device=dev), torch.float32, 4)
+    with pytest.raises(ValueError, match="multiple of ndir"):
+        gru_scan_cuda(torch.zeros(3, 3, 96, device=dev),
+                      torch.zeros(2, 32, 96, device=dev), lo[:3], lo[:3],
+                      torch.float32)
+    with pytest.raises(ValueError, match=r"h0: expected shape \(4, 64\)"):
+        lstm_scan_stream_cuda(torch.zeros(3, 4, 128, device=dev),
+                              torch.zeros(2, 32, 128, device=dev), lo, lo,
+                              torch.zeros(4, 32, device=dev), torch.float32, 1)
     with pytest.raises(ValueError, match=r"expected shape \(2, 32, 128\)"):
         lstm_scan_train_cuda(torch.zeros(3, 4, 128, device=dev),
                              torch.zeros(2, 32, 96, device=dev), lo, lo,

@@ -47,6 +47,7 @@ def _pair(mcfg, seed=0):
     ("bigru", {"model.conv_kernel": [4, 4]}),    # asymmetric padding
     ("tiny_conv", {}),
     ("bilstm_deep", {}),                         # BiLSTM, rec [2, H, 4H]
+    ("uni_gru", {}),                             # forward-only, rec [1, H, 3H]
 ])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
                                        ("bfloat16", 3e-2)])
@@ -89,6 +90,19 @@ def test_bilstm_deep_bridges_unchanged():
     back = state_dict_to_flax(tm.state_dict())
     assert np.array_equal(back["birnn1"]["rec"],
                           np.asarray(params["birnn1"]["rec"]))
+
+
+def test_uni_gru_bridges_forward_only():
+    """A forward-only stack maps as it is: in_fwd and rec [1, H, 3H], no
+    in_bwd, and the next layer reads H features, not 2H."""
+    _, _, params, tm = _pair(_cfg("uni_gru", "float32"))
+    sd = flax_to_state_dict(params)
+    assert tuple(sd["birnn1.rec"].shape) == (1, 32, 96)
+    assert tuple(sd["birnn1.in_fwd.weight"].shape) == (96, 32)
+    assert not any("in_bwd" in k for k in sd)
+    back = state_dict_to_flax(tm.state_dict())
+    assert np.array_equal(back["birnn0"]["rec"],
+                          np.asarray(params["birnn0"]["rec"]))
 
 
 def test_unported_blocks_raise():

@@ -2,7 +2,8 @@
 interpreter where ``jax``/``flax``/``optax`` and
 ``chainer_speech_recognition_tpu`` cannot be imported, every module of
 chainer_speech_recognition_tpu_torch imports, the plain decode path runs
-once end to end, and one CPU train step runs through the train loop."""
+once end to end, the stream CLI streams a forward-only model over a few
+windows, and one CPU train step runs through the train loop."""
 
 import os
 import subprocess
@@ -53,6 +54,20 @@ write_wav(wav, make_utterance(rng, [1, 3, 2])[0])
 decode.main(["--ckpt-dir", os.path.join(root, "ckpt"), "--vocab",
              os.path.join(root, "v.txt"), "--device", "cpu", wav])
 
+# the forward-only online preset streams four windows through the CLI
+from chainer_speech_recognition_tpu_torch.cli import stream
+ucfg = preset_config("uni_gru").override({
+    "model.conv_channels": [4, 4], "model.rnn_hidden": 32,
+    "model.rnn_layers": 1, "model.vocab_size": 6})
+usd = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32) * 0.3
+       for k, v in build_model(ucfg.model).state_dict().items()}
+save_params(os.path.join(root, "uckpt"), state_dict_to_flax(usd), ucfg)
+swav = os.path.join(root, "s.wav")
+write_wav(swav, make_utterance(rng, [1, 3, 2, 4, 5])[0])
+stream.main(["--ckpt-dir", os.path.join(root, "uckpt"), "--vocab",
+             os.path.join(root, "v.txt"), "--device", "cpu",
+             "--chunk-frames", "16", "--right-frames", "0", swav])
+
 # one train step (and its checkpoint) on the CPU
 utts = [Utterance("u", wav, "acb", 4800)]
 tcfg = cfg.override({"buckets.boundaries": [64], "buckets.batch_sizes": [1],
@@ -83,4 +98,5 @@ def test_port_imports_and_decodes_without_jax():
     lines = proc.stdout.splitlines()
     assert lines[-1].startswith("MODULES ") and int(lines[-1].split()[1]) >= 30
     assert any(l.split("\t")[0].endswith("u.wav") for l in lines)  # decode
+    assert any(l.split("\t")[0].endswith("s.wav") for l in lines)  # stream
     assert any(l.startswith("step       1 |") for l in lines)       # train

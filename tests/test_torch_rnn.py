@@ -84,15 +84,59 @@ def test_birnn_layer_matches_flax(impl, dtype, tol):
 
 def test_birnn_layer_refuses_unported_variants():
     """LSTM cells are ported (tests/test_torch_lstm.py): the layer builds
-    with the kernel's [2, H, 4H] recurrent weights. Forward-only stacks and
-    streaming calls still raise, and so does an unknown cell."""
+    with the kernel's [2, H, 4H] recurrent weights. A forward-only layer
+    builds with rec [1, H, 3H] and no in_bwd. Under autograd, forward-only
+    layers and streaming calls raise (their training kernels are not
+    ported); so does an unknown cell, and h0_fwd without emit_carry_at."""
     assert tuple(BiRNNLayer(8, 32, cell="lstm").rec.shape) == (2, 32, 128)
     with pytest.raises(ValueError, match="rnn cell"):
         BiRNNLayer(8, 32, cell="rnn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BiRNNLayer(8, 32, bidirectional=False)
-    layer = BiRNNLayer(8, 32, dtype=torch.float32)
+    uni = BiRNNLayer(8, 32, bidirectional=False, dtype=torch.float32)
+    assert tuple(uni.rec.shape) == (1, 32, 96) and not hasattr(uni, "in_bwd")
     x = torch.zeros(2, 5, 8)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        layer(x, torch.tensor([5, 3]), h0_fwd=torch.zeros(2, 32),
-              emit_carry_at=2)
+    lens = torch.tensor([5, 3])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        uni(x, lens)
+    layer = BiRNNLayer(8, 32, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        layer(x, lens, h0_fwd=torch.zeros(2, 32), emit_carry_at=2)
+    with pytest.raises(ValueError, match="together"):
+        layer(x, lens, h0_fwd=torch.zeros(2, 32))
+    with torch.inference_mode():
+        assert uni(x, lens).shape == (2, 5, 32)
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_streaming_layer_call_matches_flax(cell, bidirectional):
+    """The streaming call (h0_fwd, emit_carry_at) against the flax layer's
+    (scan path), fp32 1e-5: the output, and the forward state after
+    emit_carry_at steps, frozen at each row's true end (row 2 ends before
+    it); a forward-only full-utterance call too."""
+    rng = np.random.default_rng(3)
+    B, T, D, H = 4, 9, 10, 32
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    lens = np.asarray([T, 0, 3, 7], np.int32)
+    C = H if cell == "gru" else 2 * H
+    h0 = (0.5 * rng.standard_normal((B, C))).astype(np.float32)
+    jl = JaxBiRNN(hidden=H, cell=cell, dtype=jnp.float32, impl="scan",
+                  bidirectional=bidirectional)
+    p = jl.init(jax.random.key(1), jnp.asarray(x), jnp.asarray(lens))
+    tl = BiRNNLayer(D, H, cell=cell, dtype=torch.float32,
+                    bidirectional=bidirectional)
+    load_flax_params(tl, jax.tree_util.tree_map(np.asarray, p["params"]))
+    for emit in (0, 5, T):
+        yj, hj = jl.apply(p, jnp.asarray(x), jnp.asarray(lens),
+                          h0_fwd=jnp.asarray(h0), emit_carry_at=emit)
+        with torch.inference_mode():
+            yt, ht = tl(torch.from_numpy(x), torch.from_numpy(lens).long(),
+                        h0_fwd=torch.from_numpy(h0), emit_carry_at=emit)
+        np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-5,
+                                   rtol=0)
+        np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-5,
+                                   rtol=0)
+    yj = jl.apply(p, jnp.asarray(x), jnp.asarray(lens))
+    with torch.inference_mode():
+        yt = tl(torch.from_numpy(x), torch.from_numpy(lens).long())
+    assert yt.shape == (B, T, (2 if bidirectional else 1) * H)
+    np.testing.assert_allclose(yt.numpy(), np.asarray(yj), atol=1e-5, rtol=0)
