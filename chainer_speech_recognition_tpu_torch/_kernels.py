@@ -83,12 +83,22 @@ GRU_FWD_STREAM = Kernel("csr_gru_fwd_stream",
 LSTM_FWD_STREAM = Kernel("csr_lstm_fwd_stream",
                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _P])
+FRONTEND_LOGMEL_FRAMES = Kernel("csr_frontend_logmel_frames",
+                                [_P, _I, _I, _P, _P, _I, _P, _P])
+# flash attention: (tensors..., dims, strides) with dims and strides host
+# int arrays (ops/attention_cuda.py), then the bf16 flag and the stream
+FLASH_FWD = Kernel("csr_flash_fwd", [_P] * 8 + [_I, _P])
+FLASH_BWD_DQ = Kernel("csr_flash_bwd_dq", [_P] * 10 + [_I, _P])
+FLASH_BWD_DKV = Kernel("csr_flash_bwd_dkv", [_P] * 11 + [_I, _P])
 KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "greedy": GREEDY, "gru_fwd_train": GRU_FWD_TRAIN,
            "gru_bwd": GRU_BWD, "ctc_fwd": CTC_FWD, "ctc_bwd": CTC_BWD,
            "lstm_fwd": LSTM_FWD, "lstm_fwd_train": LSTM_FWD_TRAIN,
            "lstm_bwd": LSTM_BWD, "gru_fwd_stream": GRU_FWD_STREAM,
-           "lstm_fwd_stream": LSTM_FWD_STREAM}
+           "lstm_fwd_stream": LSTM_FWD_STREAM,
+           "frontend_logmel_frames": FRONTEND_LOGMEL_FRAMES,
+           "flash_fwd": FLASH_FWD, "flash_bwd_dq": FLASH_BWD_DQ,
+           "flash_bwd_dkv": FLASH_BWD_DKV}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -3,6 +3,8 @@ back.
 
 * Dense kernel ``[in, out]`` ↔ Linear weight ``[out, in]``;
 * NHWC Conv kernel ``[kt, kf, in, out]`` ↔ Conv2d weight ``[out, in, kt, kf]``;
+* 1-D depthwise Conv kernel ``[kt, 1, d]`` ↔ Conv1d weight ``[d, 1, kt]``;
+* LayerNorm ``scale`` ↔ ``weight`` (``bias`` as it is);
 * BiRNN ``rec [ndir, H, G·H]`` is kept as it is (the kernel's layout);
 * module names are the same except ``ConvSubsampler_0`` ↔ ``subsampler``.
 
@@ -47,6 +49,10 @@ def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
             name, arr = "weight", arr.T
         elif leaf == "kernel" and arr.ndim == 4:
             name, arr = "weight", arr.transpose(3, 2, 0, 1)
+        elif leaf == "kernel" and arr.ndim == 3:
+            name, arr = "weight", arr.transpose(2, 1, 0)
+        elif leaf == "scale" and arr.ndim == 1:
+            name = "weight"
         elif leaf in ("bias", "rec"):
             name = leaf
         else:
@@ -70,6 +76,10 @@ def state_dict_to_flax(sd: dict) -> dict:
             leaf, arr = "kernel", arr.T
         elif name == "weight" and arr.ndim == 4:
             leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif name == "weight" and arr.ndim == 3:
+            leaf, arr = "kernel", arr.transpose(2, 1, 0)
+        elif name == "weight" and arr.ndim == 1:
+            leaf = "scale"
         elif name in ("bias", "rec"):
             leaf = name
         else:

@@ -1,12 +1,15 @@
 // Fused log-mel front-end: framing -> windowed DFT power -> mel -> log.
 //
 // Replaces frontend/pallas_frontend.py::_kernel_rows + _dft_mel_log (the
-// TPU kernel behind fused_logmel_rows / batch_features_pallas).
+// TPU kernel behind fused_logmel_rows / batch_features_pallas) and, in its
+// framed form, ::_kernel (the TPU kernel behind fused_logmel).
 //
 // Input is the reflect-extended signal [B, ext_len] fp32 (built by
 // frontend/torch_frontend.py::extend_signal); frame t is the 512 samples
 // ext[b, t*160 : t*160 + 512], i.e. hop rows t..t+2 plus 32 samples of row
-// t+3. Output is [B, T, n_mels] fp32 log(max(mel, 1e-10)).
+// t+3. The framed form (csr_frontend_logmel_frames) reads pre-framed,
+// un-windowed input [B, T, 512] fp32 instead and shares everything past
+// the load. Output is [B, T, n_mels] fp32 log(max(mel, 1e-10)).
 //
 // What bounds it on Hopper: arithmetic. The DFT is a dense [512 x 514]
 // product per frame (~0.53 MFLOP/frame, ~17 GFLOP for 32 x 10 s), done
@@ -38,40 +41,60 @@ constexpr int kThreads = ((kBins + 31) / 32) * 32;    // 288: one per bin
 constexpr int kSpan = (kFrames - 1) * kHop + kNfft;   // 2912 samples
 constexpr float kLogEps = 1e-10f;
 
+// kFramed: src is [B, T, 512] frames (a frame's samples are 512 apart in
+// shared memory); otherwise the extended signal [B, src_len] (160 apart).
+template <bool kFramed>
 __global__ void __launch_bounds__(kThreads)
-logmel_kernel(const float* __restrict__ ext, int ext_len, int T,
+logmel_kernel(const float* __restrict__ src, int src_len, int T,
               const float* __restrict__ dft,  // [kNfft][2*kBins] re | im
               const float* __restrict__ mel,  // [kBins][n_mels]
               int n_mels, float* __restrict__ out) {
-  __shared__ float sig[kSpan];
-  __shared__ float power[kFrames][kBins];
+  constexpr int kStride = kFramed ? kNfft : kHop;
+  constexpr int kSig = kFramed ? kFrames * kNfft : kSpan;
+  // the framed form's power spectrum reuses the frames' shared memory
+  // (both together pass the 48 KB of static shared memory)
+  constexpr int kSmem = kFramed ? kSig : kSig + kFrames * kBins;
+  __shared__ float smem[kSmem];
+  float* sig = smem;
+  float(*power)[kBins] =
+      reinterpret_cast<float(*)[kBins]>(kFramed ? smem : smem + kSig);
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * kFrames;
-  const int64_t base = static_cast<int64_t>(t0) * kHop;
-  const float* row = ext + static_cast<int64_t>(b) * ext_len;
-  for (int i = threadIdx.x; i < kSpan; i += kThreads) {
-    const int64_t p = base + i;
-    sig[i] = p < ext_len ? row[p] : 0.0f;
+  if constexpr (kFramed) {
+    const float* fr = src + (static_cast<int64_t>(b) * T + t0) * kNfft;
+    const int n_valid = min(kFrames, T - t0) * kNfft;
+    for (int i = threadIdx.x; i < kSig; i += kThreads)
+      sig[i] = i < n_valid ? fr[i] : 0.0f;
+  } else {
+    const int64_t base = static_cast<int64_t>(t0) * kHop;
+    const float* row = src + static_cast<int64_t>(b) * src_len;
+    for (int i = threadIdx.x; i < kSpan; i += kThreads) {
+      const int64_t p = base + i;
+      sig[i] = p < src_len ? row[p] : 0.0f;
+    }
   }
   __syncthreads();
 
   const int k = threadIdx.x;
-  if (k < kBins) {
-    float re[kFrames], im[kFrames];
+  float re[kFrames], im[kFrames];
 #pragma unroll
-    for (int f = 0; f < kFrames; ++f) re[f] = im[f] = 0.0f;
+  for (int f = 0; f < kFrames; ++f) re[f] = im[f] = 0.0f;
+  if (k < kBins) {
 #pragma unroll 4
     for (int n = 0; n < kNfft; ++n) {
       const float wr = __ldg(dft + n * (2 * kBins) + k);
       const float wi = __ldg(dft + n * (2 * kBins) + kBins + k);
 #pragma unroll
       for (int f = 0; f < kFrames; ++f) {
-        const float x = sig[f * kHop + n];
+        const float x = sig[f * kStride + n];
         re[f] = fmaf(x, wr, re[f]);
         im[f] = fmaf(x, wi, im[f]);
       }
     }
+  }
+  if constexpr (kFramed) __syncthreads();   // sig is read: power may reuse it
+  if (k < kBins) {
 #pragma unroll
     for (int f = 0; f < kFrames; ++f)
       power[f][k] = re[f] * re[f] + im[f] * im[f];
@@ -99,7 +122,18 @@ CSR_API int csr_frontend_logmel(const float* ext, int ext_len, int B, int T,
                                 const float* dft, const float* mel,
                                 int n_mels, float* out, cudaStream_t stream) {
   const dim3 grid((T + kFrames - 1) / kFrames, B);
-  logmel_kernel<<<grid, kThreads, 0, stream>>>(ext, ext_len, T, dft, mel,
-                                               n_mels, out);
+  logmel_kernel<false><<<grid, kThreads, 0, stream>>>(ext, ext_len, T, dft,
+                                                      mel, n_mels, out);
+  CSR_RETURN_LAUNCH_STATUS();
+}
+
+// frames [B, T, 512] fp32 (un-windowed), dft, mel and out as above.
+CSR_API int csr_frontend_logmel_frames(const float* frames, int B, int T,
+                                       const float* dft, const float* mel,
+                                       int n_mels, float* out,
+                                       cudaStream_t stream) {
+  const dim3 grid((T + kFrames - 1) / kFrames, B);
+  logmel_kernel<true><<<grid, kThreads, 0, stream>>>(frames, 0, T, dft, mel,
+                                                     n_mels, out);
   CSR_RETURN_LAUNCH_STATUS();
 }

@@ -8,7 +8,10 @@ spectra to device memory; CMVN and Δ/ΔΔ stay in torch
 
 ``fused_logmel_rows`` launches the kernel for a CUDA tensor and takes the
 plain rfft version (``torch_frontend.logmel_from_extended``) for a CPU
-tensor; it never falls back from one to the other.
+tensor; it never falls back from one to the other. ``fused_logmel`` is the
+framed-input entry point (``pallas_frontend.fused_logmel``: pre-framed
+``[B, T, 512]`` input, the same kernel's framed form, plain version
+``logmel_from_frames``); as in the reference, no CLI calls it.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 from .. import _kernels
 from .. import constants as C
 from .golden_np import hann_periodic, mel_filterbank
-from .torch_frontend import batch_features, logmel_from_extended
+from .torch_frontend import (batch_features, logmel_from_extended,
+                             logmel_from_frames)
 
 _NBINS = 1 + C.N_FFT // 2                 # 257
 
@@ -76,6 +80,33 @@ def fused_logmel_rows(ext: torch.Tensor, T: int) -> torch.Tensor:
     if ext.device.type != "cpu":
         raise ValueError(f"fused_logmel_rows: unsupported device {ext.device}")
     return logmel_from_extended(ext, T)
+
+
+def fused_logmel_cuda(frames: torch.Tensor) -> torch.Tensor:
+    """Kernel launch: frames [B, T, N_FFT] fp32 on the card → [B, T,
+    n_mels]."""
+    B, T, _ = frames.shape
+    _kernels.check_cuda_tensor("frames", frames, torch.float32,
+                               (B, T, C.N_FFT))
+    if B < 1 or T < 1:
+        raise ValueError(f"fused_logmel: empty batch (B={B}, T={T})")
+    dft, mel = _device_tables(frames.device)
+    out = torch.empty((B, T, C.N_MELS), dtype=torch.float32,
+                      device=frames.device)
+    _kernels.FRONTEND_LOGMEL_FRAMES.launch(
+        frames.data_ptr(), B, T, dft.data_ptr(), mel.data_ptr(), C.N_MELS,
+        out.data_ptr(), _kernels.stream_ptr(frames))
+    return out
+
+
+def fused_logmel(frames: torch.Tensor) -> torch.Tensor:
+    """Pre-framed, un-windowed input [B, T, N_FFT] → [B, T, n_mels]
+    log-mel (``pallas_frontend.fused_logmel``): the kernel on the card, its
+    plain rfft version on the CPU."""
+    if frames.is_cuda:
+        return fused_logmel_cuda(frames.contiguous())
+    _kernels.check_cpu_tensor("fused_logmel", frames)
+    return logmel_from_frames(frames)
 
 
 def batch_features_cuda(signals, num_samples, apply_cmvn=True):

@@ -23,7 +23,7 @@ from .. import constants as C
 from .golden_np import hann_periodic, mel_filterbank
 
 __all__ = ["batch_features", "extend_signal", "frame_lengths",
-           "logmel_from_extended", "postprocess_logmel"]
+           "logmel_from_extended", "logmel_from_frames", "postprocess_logmel"]
 
 _PAD = C.N_FFT // 2                      # 256: centered-STFT reflect pad
 _K = C.N_FFT // C.HOP_LENGTH             # full hop rows per frame (3)
@@ -74,9 +74,15 @@ def extend_signal(signals: torch.Tensor, lengths: torch.Tensor,
 def logmel_from_extended(ext: torch.Tensor, t_max: int) -> torch.Tensor:
     """Extended signal [B, rows·HOP] → [B, t_max, n_mels] fp32 log-mel:
     frame (ext[t·HOP : t·HOP + N_FFT]) → window → rfft power → mel → log."""
-    win, mel = _tables(ext.device)
-    frames = ext.unfold(1, C.N_FFT, C.HOP_LENGTH)[:, :t_max] * win
-    spec = torch.fft.rfft(frames, n=C.N_FFT, dim=-1)
+    return logmel_from_frames(ext.unfold(1, C.N_FFT, C.HOP_LENGTH)[:, :t_max])
+
+
+def logmel_from_frames(frames: torch.Tensor) -> torch.Tensor:
+    """Frames [B, T, N_FFT] (un-windowed) → [B, T, n_mels] fp32 log-mel:
+    window → rfft power → mel → log (the plain version of
+    ``cuda_frontend.fused_logmel``)."""
+    win, mel = _tables(frames.device)
+    spec = torch.fft.rfft(frames.to(torch.float32) * win, n=C.N_FFT, dim=-1)
     power = spec.real.square() + spec.imag.square()
     return torch.log(torch.clamp(power @ mel, min=C.LOG_EPS))
 

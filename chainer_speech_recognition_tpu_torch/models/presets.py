@@ -1,25 +1,29 @@
 """Acoustic model assembly (port of ``models/presets.py``): conv
-subsampler → BiGRU, BiLSTM or forward-only GRU/LSTM stack → optional tanh
-``proj`` → fp32 ``output`` projection → logits masked by the subsampled
-lengths.
+subsampler → optional ``attn_in`` projection and Conformer blocks →
+BiGRU, BiLSTM or forward-only GRU/LSTM stack → optional tanh ``proj`` →
+fp32 ``output`` projection → logits masked by the subsampled lengths.
 
 ``forward(feats [B,T,F,3], frame_lengths) → (logits [B,T',V] fp32, lens)``
 with V including the CTC blank at index 0. The streaming call
 (``rnn_carries``, ``carry_at``, ``drop_left`` → ``(logits, lens,
 new_carries)``) and its helpers (``subsample_factor``,
 ``init_stream_carries``, ``reset_stream_rows``, ``conv_receptive_margin``,
-``conv_right_margin``) serve ``decode/streaming.py``. GLU blocks and
-attention blocks are not ported yet and raise.
+``conv_right_margin``) serve ``decode/streaming.py``. GLU blocks raise at
+construction; attention models (``conformer``, ``conformer_stream``) run
+the offline call only: their streaming call and stream carries (KV caches,
+conv tails) are not ported yet and raise, rather than stream without them.
 
 The port's state_dict names mirror the flax tree (``bridge.py`` maps one
 onto the other): ``subsampler.conv{i}`` ≘ ``ConvSubsampler_0/conv{i}``,
+``attn_in``, ``conformer{i}.*`` (``models/attention.py``),
 ``birnn{i}.{in_fwd,in_bwd,rec}``, ``proj``, ``output``.
 
 ``init_parameters`` draws a fresh model's weights from flax's default
-distributions (``train/state.py::init_state``): ``lecun_normal`` kernels,
-zero biases, ``orthogonal`` recurrent weights. The numbers are torch's,
-not JAX's (the two generators differ); tests that compare the packages
-inject the same weights through ``bridge.py``.
+distributions (``train/state.py::init_state``): ``lecun_normal`` kernels
+(dense, conv, depthwise conv), zero biases, unit LayerNorm scales,
+``orthogonal`` recurrent weights. The numbers are torch's, not JAX's (the
+two generators differ); tests that compare the packages inject the same
+weights through ``bridge.py``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from torch import nn
 
 from .. import constants as C
 from ..config import ModelConfig
+from .attention import ConformerBlock
 from .conv import ConvSubsampler, conv_out_features
 from .rnn import BiRNNLayer, linear, time_mask
 
@@ -55,10 +60,10 @@ def exact_fp32_on_cuda() -> None:
 class AcousticModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.glu_blocks or cfg.attn_blocks:
+        if cfg.glu_blocks:
             raise NotImplementedError(
-                "GLU and attention blocks are not ported yet (ROADMAP.md, "
-                "module queue: the GLU conv block and the attention family)")
+                "GLU blocks are not ported yet (ROADMAP.md, module queue: "
+                "the GLU conv block)")
         exact_fp32_on_cuda()
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.compute_dtype)
@@ -67,6 +72,19 @@ class AcousticModel(nn.Module):
             cfg.conv_stride_time, cfg.conv_stride_freq, self.dtype)
         dim = (conv_out_features(C.N_MELS, cfg.conv_stride_freq)
                * cfg.conv_channels[-1])
+        self.n_attn = cfg.attn_blocks
+        if self.n_attn:
+            self.attn_in = (nn.Linear(dim, cfg.attn_dim)
+                            if dim != cfg.attn_dim else None)
+            for i in range(self.n_attn):
+                self.add_module(f"conformer{i}", ConformerBlock(
+                    cfg.attn_dim, heads=cfg.attn_heads,
+                    ff_mult=cfg.attn_ff_mult,
+                    conv_kernel=cfg.attn_conv_kernel, dtype=self.dtype,
+                    chunk=cfg.attn_chunk, left_chunks=cfg.attn_left_chunks,
+                    impl=cfg.attn_impl,
+                    residual_dtype=torch_dtype(cfg.attn_residual_dtype)))
+            dim = cfg.attn_dim
         self.n_rnn = cfg.rnn_layers if cfg.rnn_type != "none" else 0
         for i in range(self.n_rnn):
             self.add_module(f"birnn{i}", BiRNNLayer(
@@ -88,10 +106,17 @@ class AcousticModel(nn.Module):
         stream = rnn_carries is not None
         if stream and carry_at is None:
             raise ValueError("streaming call needs carry_at")
+        if stream and self.n_attn:
+            self._refuse_attention_stream()
         x, lens = self.subsampler(feats, lengths)
         if drop_left:
             x = x[:, drop_left:]
             lens = torch.clamp(lens - drop_left, min=0)
+        if self.n_attn:
+            if self.attn_in is not None:
+                x = linear(x, self.attn_in, self.dtype)
+            for i in range(self.n_attn):
+                x = getattr(self, f"conformer{i}")(x, lens)
         new_carries = []
         for i in range(self.n_rnn):
             layer = getattr(self, f"birnn{i}")
@@ -117,10 +142,20 @@ class AcousticModel(nn.Module):
             f *= s
         return f
 
+    def _refuse_attention_stream(self):
+        raise NotImplementedError(
+            "streaming the attention family (the KV-cache and conv-tail "
+            "carries of conformer_stream) is not ported yet (ROADMAP.md, "
+            "module queue: conformer_stream streaming); decode attention "
+            "models offline (cli/decode.py)")
+
     def init_stream_carries(self, batch: int) -> list:
         """Zero stream state for a fresh stream: one forward-direction
         state [batch, H] (GRU) or [batch, 2H] (LSTM h‖c) fp32 per RNN
-        layer, on the model's device; [] for conv-only models."""
+        layer, on the model's device; [] for conv-only models. Attention
+        models raise (their carries are not ported)."""
+        if self.n_attn:
+            self._refuse_attention_stream()
         dim = self.cfg.rnn_hidden * (2 if self.cfg.rnn_type == "lstm" else 1)
         dev = self.output.weight.device
         return [torch.zeros((batch, dim), dtype=torch.float32, device=dev)
@@ -128,7 +163,10 @@ class AcousticModel(nn.Module):
 
     def reset_stream_rows(self, carries: list, rows) -> list:
         """Endpoint reset (decode/streaming.py): the RNN states of ``rows``
-        return to zero (the offline left edge); other streams keep theirs."""
+        return to zero (the offline left edge); other streams keep theirs.
+        Attention models raise, as in ``init_stream_carries``."""
+        if self.n_attn:
+            self._refuse_attention_stream()
         out = [h.clone() for h in carries]
         for h in out:
             h[rows] = 0.0
@@ -201,12 +239,18 @@ def init_parameters(model: nn.Module, seed: int) -> None:
     """Draw every parameter from flax's default initializers, with a
     ``torch.Generator`` seeded by ``seed`` (``train.seed``)."""
     gen = torch.Generator().manual_seed(seed)
+    ln_scales = {f"{m}.weight" for m, mod in model.named_modules()
+                 if isinstance(mod, nn.LayerNorm)}
     for name, p in model.named_parameters():
         if name.endswith(".bias"):
             p.zero_()
+        elif name in ln_scales:
+            p.fill_(1.0)
         elif name.endswith(".rec"):
             _orthogonal_(p, gen)
-        elif p.dim() in (2, 4):         # Linear [out, in], Conv [out, in, k, k]
+        elif p.dim() in (2, 3, 4):
+            # Linear [out, in], depthwise Conv1d [d, 1, kt] (flax's [kt, 1,
+            # d]: fan_in kt), Conv2d [out, in, kt, kf]
             _lecun_normal_(p, p[0].numel(), gen)
         else:
             raise KeyError(f"init_parameters: no rule for {name} "

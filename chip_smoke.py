@@ -2,10 +2,11 @@
 
 Drives the port (``chainer_speech_recognition_tpu_torch``) at the full
 width of the ``bigru`` preset (phases 3-9), of the ``bilstm_deep`` preset
-(phases 10-14) and of both streaming paths, the forward-only ``uni_gru``
-preset and ``bilstm_deep`` with causal CMVN (phases 15-17), with random
-weights made from a seed, and fails (exit code != 0, no result line) if
-any phase fails:
+(phases 10-14), of both streaming paths, the forward-only ``uni_gru``
+preset and ``bilstm_deep`` with causal CMVN (phases 15-17), and of the
+attention family, ``conformer`` and ``conformer_stream`` offline (phases
+18-21), with random weights made from a seed, and fails (exit code != 0,
+no result line) if any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
@@ -19,8 +20,8 @@ any phase fails:
    the port's own writer), a 63-symbol vocab and 64 synthetic wavs of
    8-10 s;
 5. decode: the port's decode CLI on the 64 wavs (two chunks of 32) on the
-   card; every decode kernel must show launches from that run; a second,
-   warm run gives utterances per second and the real-time factor;
+   card with the exact launches of every kernel; a second, warm run gives
+   utterances per second and the real-time factor;
 6. CPU parity: 4 of the wavs through the same checkpoint on the CPU (the
    kernels' plain versions): finite logits of the same shape within the
    bf16 bar of the card's;
@@ -46,7 +47,7 @@ any phase fails:
     own) against their plain versions at the training shapes (B = 24,
     T' = 256), timed beside cuDNN's LSTM;
 12. bilstm_deep decode: a checkpoint of random weights through the decode
-    CLI on the 64 wavs (the LSTM forward must show launches), a warm
+    CLI on the 64 wavs with exact launch counts, a warm
     rerun's utterances per second and real-time factor, and 4 wavs' logits
     card vs CPU;
 13. bilstm_deep train: the corpus of phase 8 through the train CLI with
@@ -71,7 +72,33 @@ any phase fails:
     (batch 1, R = 1);
 17. bilstm_deep streaming (causal CMVN, chunk 64, right 16): the stream
     CLI with exact launch counts and a warm rerun, and 4 wavs' chained
-    window logits card vs CPU.
+    window logits card vs CPU;
+18. attention kernels: flash forward, dQ and dK/dV against their plain
+    versions in fp32 and bf16 at the long-form decode shape (B = 32,
+    T' = 701, h = 4, dh = 64), the training shape (B = 24, T' = 256) and
+    chunk 16 / left 4 at T' = 701 (key tiles skipped), ragged lengths with
+    1 and T', q/k/v strided as the fused qkv projection gives them; timed
+    (bf16) beside the bound, the plain versions and
+    ``F.scaled_dot_product_attention`` with the same boolean mask, and the
+    port's einsum path at T' = 256 and 701 (the flash/einsum crossover);
+    the framed-input front-end kernel (row 2) at B = 32, T = 1001 beside
+    cuFFT, and one call of its entry point ``cuda_frontend.fused_logmel``;
+19. conformer decode: a random-weight checkpoint through the decode CLI
+    on 32 long-form wavs of 22-28 s under ``auto`` (exactly one flash_fwd
+    launch a block), a warm rerun's utt/s and RTF, 4 wavs' logits card vs
+    CPU at fp32 compute and at bf16 (``phase_parity``); the 64 short
+    wavs under ``auto`` (no flash launch: the reference's T' > 512 gate)
+    and with ``--set model.attn_impl=flash`` (one a block and chunk);
+20. conformer_stream offline decode: the long-form wavs with the
+    chunk-causal mask in the kernel, exact launches, a warm rerun, logits
+    card vs CPU as in phase 19;
+21. conformer training with ``--set model.attn_impl=flash``: the corpus of
+    phase 8 through the train CLI (SpecAugment on), 16 steps, dev eval and
+    checkpoints every 8, exact flash_fwd/dq/dkv launches, warm step time,
+    utt/s, busy share, peak memory; one step card vs CPU from the same
+    weights, batch and SpecAugment draws, at fp32 compute (the bars of
+    phase 9) and at bf16 (loss rtol 4e-4: bf16's own noise over eight
+    blocks reaches the 1e-4 bar).
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -102,6 +129,8 @@ STREAM_CALLS = 20                     # back-to-back calls a stream timing
 # stream CLI flags: uni_gru at zero lookahead; bilstm_deep (trained with
 # causal CMVN) at the default lookahead of 16 frames
 STREAM_ARGS = {UNI_PRESET: ["--right-frames", "0"], LSTM_PRESET: []}
+CONF_PRESET, CONF_STREAM = "conformer", "conformer_stream"
+LONG_WAVS, LONG_SECONDS = 32, (22.0, 28.0)   # long-form: T' 551-701 > 512
 SEED = 0
 N_WAVS, BATCH = 64, 32
 WAV_SECONDS = (8.0, 10.0)
@@ -119,15 +148,35 @@ TOL = {"frontend_logmel": 5e-4,       # tests/test_pallas_frontend.py:34
        "ctc_alpha_atol": 1e-4,
        "ctc_grad": 2e-4,
        "train_loss_rtol": 1e-4,       # ~80x the 1.2e-6 measured on an H100
-       "greedy": 0}                   # exact
-# decode CLI, 64 wavs in two chunks: launches of each decode kernel
-MIN_LAUNCHES = {PRESET: {"frontend_logmel": 2, "gru_fwd": 6, "greedy": 2},
-                LSTM_PRESET: {"frontend_logmel": 2, "lstm_fwd": 10,
-                              "greedy": 2},
-                UNI_PRESET: {"frontend_logmel": 2, "gru_fwd": 8, "greedy": 2},
-                # stream CLI, 64 wavs in two lockstep batches: at least one
-                # window a batch (phase 16 checks the exact counts)
-                f"{UNI_PRESET} stream": {"frontend_logmel": 2,
+       "greedy": 0,                   # exact
+       # flash kernels vs their plain versions, elementwise
+       # |a - b| <= atol + rtol·s as (rtol, atol), s = |b| unless stated:
+       # fp32 at the JAX suite's bars (tests/test_attention_pallas.py:58,
+       # 79); bf16 against the bf16 plain version on the same inputs (the
+       # suite's 5e-2 at :127 holds bf16 to an fp32 oracle): the forward's
+       # out at s = |b| + Σ p·|v| / l (both sides round p and out to half
+       # a bf16 ulp, 2^-8), the gradients (measured equal) one ulp + 1e-3
+       "flash_fp32": (2e-5, 2e-5),
+       "flash_grad_fp32": (3e-4, 3e-4),
+       "flash_bf16": (2 ** -7, 1e-5),
+       "flash_grad_bf16": (2 ** -7, 1e-3),
+       # conformer logits card vs CPU: fp32 at the port's fp32 bar against
+       # flax (3.8e-6 and 1.6e-5 measured on an H100); bf16 card vs CPU at
+       # the larger of gru_bf16 and the CPU's own bf16-vs-fp32 gap, and the
+       # card's bf16 gap to fp32 against the CPU's (1.03x and 0.94x measured)
+       "attn_fp32": 1e-4,
+       "attn_bf16_ratio": 1.25,
+       # conformer step loss in bf16: 3x the 1.34e-4 an H100 gave, the
+       # CPU's own bf16 noise over eight blocks (1.5e-7 at fp32 compute)
+       "attn_loss_bf16_rtol": 4e-4}
+# decode CLI, 64 wavs in two chunks: the launches of each decode kernel
+DECODE_LAUNCHES = {
+    PRESET: {"frontend_logmel": 2, "gru_fwd": 6, "greedy": 2},
+    LSTM_PRESET: {"frontend_logmel": 2, "lstm_fwd": 10, "greedy": 2},
+    UNI_PRESET: {"frontend_logmel": 2, "gru_fwd": 8, "greedy": 2}}
+# stream CLI, 64 wavs in two lockstep batches: at least one window a batch
+# (phase 16 checks the exact counts)
+MIN_LAUNCHES = {f"{UNI_PRESET} stream": {"frontend_logmel": 2,
                                          "gru_fwd_stream": 8},
                 f"{LSTM_PRESET} stream": {"frontend_logmel": 2,
                                           "lstm_fwd_stream": 10}}
@@ -168,7 +217,20 @@ SOURCES = {
     "lstm_fwd_stream": (
         "chainer_speech_recognition_tpu_torch/csrc/lstm_fwd.cu",
         "chainer_speech_recognition_tpu/ops/rnn_pallas.py:249"),
+    "frontend_logmel_frames": (
+        "chainer_speech_recognition_tpu_torch/csrc/frontend_logmel.cu",
+        "chainer_speech_recognition_tpu/frontend/pallas_frontend.py:111"),
+    "flash_fwd": (
+        "chainer_speech_recognition_tpu_torch/csrc/attention_fwd.cu",
+        "chainer_speech_recognition_tpu/ops/attention_pallas.py:126"),
+    "flash_bwd_dq": (
+        "chainer_speech_recognition_tpu_torch/csrc/attention_bwd.cu",
+        "chainer_speech_recognition_tpu/ops/attention_pallas.py:222"),
+    "flash_bwd_dkv": (
+        "chainer_speech_recognition_tpu_torch/csrc/attention_bwd.cu",
+        "chainer_speech_recognition_tpu/ops/attention_pallas.py:254"),
 }
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # H100 SXM datasheet: HBM bytes/s, dense peak FLOP/s
 HBM_RATE = 3.35e12
 PEAK = {"bf16": 989e12, "fp32": 67e12}
@@ -215,6 +277,15 @@ def bound(nbytes: float, flops: float, kind: str) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def excess(got, want, rtol: float, atol: float, scale=None) -> float:
+    """max over the elements of |got − want| / (atol + rtol·scale), in
+    fp32, ``scale`` |want| by default: at most 1 where numpy's
+    ``assert_allclose(rtol, atol)`` holds."""
+    a, b = got.float(), want.float()
+    s = b.abs() if scale is None else scale
+    return float(((a - b).abs() / (atol + rtol * s)).max())
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -236,6 +307,8 @@ def random_state_dict(model, rng) -> dict:
         shape = tuple(v.shape)
         if k.endswith(".bias"):
             sd[k] = 0.1 * rng.standard_normal(shape)
+        elif len(shape) == 1:                 # LayerNorm scale
+            sd[k] = 1.0 + 0.1 * rng.standard_normal(shape)
         else:
             fan_in = shape[-2] if k.endswith(".rec") else int(
                 np.prod(shape[1:]))
@@ -1060,28 +1133,39 @@ def run_decode(args: list[str]) -> tuple[list[str], float]:
     return lines, wall
 
 
-def phase_decode(ckpt, vocab, wavs, audio_s,
-                 preset: str) -> tuple[dict, list[str]]:
+def phase_decode(tag: str, ckpt, vocab, wavs, audio_s, want: dict,
+                 sets: tuple = ()) -> tuple[dict, list[str]]:
+    """The decode CLI (--batch 32, ``--set`` ``sets``) on ``wavs`` with
+    exactly ``want`` launches (every other kernel 0) and the MHSA routing
+    log to match, a warm rerun's utt/s and RTF, and the checkpoint load's
+    time; → (the cold run's launches, its lines)."""
     import torch
 
     from chainer_speech_recognition_tpu_torch import _kernels
     from chainer_speech_recognition_tpu_torch.cli.decode import load_model
+    from chainer_speech_recognition_tpu_torch.ops.attention_cuda import ROUTED
 
-    tag = {PRESET: "decode", LSTM_PRESET: "lstm-decode",
-           UNI_PRESET: "uni-decode"}[preset]
-    args = ["--ckpt-dir", ckpt, "--vocab", vocab, "--batch", str(BATCH),
-            "--device", "cuda", *wavs]
+    args = [*(["--set", *sets] if sets else []), "--ckpt-dir", ckpt,
+            "--vocab", vocab, "--batch", str(BATCH), "--device", "cuda",
+            *wavs]
     _kernels.reset_launches()
+    routed = dict(ROUTED)
     lines, cold = run_decode(args)
     launches = _kernels.launches()
-    print(f"[{tag}] cold run {cold:.3f} s, launches {launches}")
+    calls = {k: ROUTED[k] - routed[k] for k in ROUTED}
+    print(f"[{tag}] cold run {cold:.3f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, MHSA calls {calls}")
     check(len(lines) == len(wavs), f"decode printed {len(lines)} lines")
     check([l.split("\t")[0] for l in lines] == wavs,
           "decode output is not in input order")
     check(all(len(l.split("\t")) == 2 for l in lines), "malformed lines")
-    for name, need in MIN_LAUNCHES[preset].items():
-        check(launches[name] >= need, f"{name}: {launches[name]} launches on "
-              f"the {preset} decode path, expected >= {need}")
+    full = {name: 0 for name in _kernels.KERNELS}
+    full.update(want)
+    for name, n in full.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches on "
+              f"the {tag} path, expected {n}")
+    check(calls["flash"] == want.get("flash_fwd", 0),
+          f"routing log {calls} disagrees with the flash launches")
     for l in lines[:2]:
         print(f"[{tag}] {os.path.basename(l.split(chr(9))[0])}: "
               f"{l.split(chr(9))[1][:40]!r}")
@@ -1097,37 +1181,78 @@ def phase_decode(ckpt, vocab, wavs, audio_s,
     return launches, lines
 
 
-def phase_parity(ckpt, wavs, dev, tag: str) -> float:
+def phase_parity(ckpt, wavs, dev, tag: str) -> None:
+    """Logits and output lengths of 4 wavs card vs CPU, the model built as
+    ``cli.decode.load_model`` builds it. An RNN checkpoint is held at its
+    compute dtype to 3e-2. An attention checkpoint, whose bf16 noise over
+    eight blocks of LayerNorms, softmaxes and residual sums is as large as
+    that bar, runs at fp32 and at bf16 compute on both: fp32 card vs CPU to
+    1e-4 (the port's fp32 bar against flax); bf16 card vs CPU to the larger
+    of 3e-2 and the CPU's own bf16 gap to its fp32 logits; and the card's
+    bf16 logits no farther from the CPU's fp32 ones than
+    ``attn_bf16_ratio`` times the CPU's bf16 logits are."""
     import torch
 
-    from chainer_speech_recognition_tpu_torch.cli.decode import load_model
+    from chainer_speech_recognition_tpu_torch.bridge import load_flax_params
+    from chainer_speech_recognition_tpu_torch.checkpoint import (
+        load_config, load_params)
     from chainer_speech_recognition_tpu_torch.frontend import select_frontend
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model)
     from chainer_speech_recognition_tpu_torch.utils.wav import read_wav
 
+    cfg = load_config(ckpt)
+    params, _ = load_params(ckpt, 1)
+    attention = cfg.model.attn_blocks > 0
+    dtypes = ("float32", "bfloat16") if attention else (
+        cfg.model.compute_dtype,)
     sigs = [read_wav(w) for w in wavs[:PARITY_WAVS]]
-    n = max(len(s) for s in sigs)
-    x = np.zeros((len(sigs), n), np.float32)
+    x = np.zeros((len(sigs), max(len(s) for s in sigs)), np.float32)
     for i, s in enumerate(sigs):
         x[i, : len(s)] = s
     lens = np.asarray([len(s) for s in sigs], np.int32)
-    res = []
-    for d in (dev, torch.device("cpu")):
-        cfg, model, _ = load_model(ckpt, device=d)
-        with torch.inference_mode():
-            feats, fl = select_frontend(cfg.features)(
-                torch.from_numpy(x).to(d), torch.from_numpy(lens).to(d),
-                apply_cmvn=cfg.features.cmvn_arg)
-            logits, ol = model(feats, fl)
-        res.append((logits.float().cpu(), ol.cpu()))
-    (lc, oc), (lp, op) = res
-    check(lc.shape == lp.shape and torch.equal(oc, op), "parity: shapes")
-    check(bool(torch.isfinite(lc).all()), "parity: non-finite card logits")
-    err = float((lc - lp).abs().max())
-    print(f"[{tag}] logits {tuple(lc.shape)} card vs CPU: max abs "
-          f"{err:.3e} (tol {TOL['gru_bf16']}), |logits| max "
-          f"{float(lp.abs().max()):.3f}")
-    check(err <= TOL["gru_bf16"], "card and CPU logits disagree")
-    return err
+    logits, olens = {}, {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        for dt in dtypes:
+            model = build_model(
+                cfg.override({"model.compute_dtype": dt}).model)
+            load_flax_params(model, params)
+            model = model.to(d).eval()
+            with torch.inference_mode():
+                feats, fl = select_frontend(cfg.features)(
+                    torch.from_numpy(x).to(d), torch.from_numpy(lens).to(d),
+                    apply_cmvn=cfg.features.cmvn_arg)
+                lg, ol = model(feats, fl)
+            logits[where, dt], olens[where, dt] = lg.float().cpu(), ol.cpu()
+            check(bool(torch.isfinite(logits[where, dt]).all()),
+                  f"{tag}: non-finite {where} {dt} logits")
+    for dt in dtypes:
+        check(logits["card", dt].shape == logits["cpu", dt].shape
+              and torch.equal(olens["card", dt], olens["cpu", dt]),
+              f"{tag}: {dt} shapes or output lengths differ")
+    gap = lambda a, b: float((logits[a] - logits[b]).abs().max())
+    direct = gap(("card", dtypes[-1]), ("cpu", dtypes[-1]))
+    head = (f"[{tag}] logits {tuple(logits['cpu', dtypes[-1]].shape)}, "
+            f"|logits| max {float(logits['cpu', dtypes[-1]].abs().max()):.3f}")
+    if not attention:
+        print(f"{head}: card vs CPU max abs {direct:.3e} (tol "
+              f"{TOL['gru_bf16']})")
+        check(direct <= TOL["gru_bf16"], "card and CPU logits disagree")
+        return
+    fp32 = gap(("card", "float32"), ("cpu", "float32"))
+    card = gap(("card", "bfloat16"), ("cpu", "float32"))
+    cpu = gap(("cpu", "bfloat16"), ("cpu", "float32"))
+    bar = max(TOL["gru_bf16"], cpu)
+    print(f"{head}: fp32 card vs CPU max abs {fp32:.3e} (tol "
+          f"{TOL['attn_fp32']}); bf16 card vs CPU {direct:.3e} (tol {bar:.3e},"
+          f" the larger of {TOL['gru_bf16']} and the CPU's bf16 gap); bf16 vs"
+          f" the CPU's fp32: card {card:.3e}, CPU {cpu:.3e} (ratio "
+          f"{card / max(cpu, 1e-12):.3f}, tol {TOL['attn_bf16_ratio']})")
+    check(fp32 <= TOL["attn_fp32"], f"{tag}: fp32 card and CPU logits "
+          "disagree")
+    check(direct <= bar, f"{tag}: bf16 card and CPU logits disagree")
+    check(card <= TOL["attn_bf16_ratio"] * cpu, f"{tag}: the card's bf16 "
+          "logits are farther from fp32 than bf16 rounding explains")
 
 
 def stream_window_logits(model, cfg, sigs, right: int) -> list:
@@ -1242,11 +1367,8 @@ def phase_stream(root, vocab, wavs, audio_s, preset: str, dev, rng) -> dict:
     got = stream_window_logits(model, cfg, sigs, right)
     if uni:
         # offline decode of the same checkpoint: the ndir = 1 gru_fwd
-        off_launches, off_lines = phase_decode(ckpt, vocab, wavs, audio_s,
-                                               UNI_PRESET)
-        check(off_launches["gru_fwd"] == layers * 2 and
-              off_launches["gru_fwd_stream"] == 0,
-              f"offline uni_gru launches {off_launches}")
+        _, off_lines = phase_decode("uni-decode", ckpt, vocab, wavs, audio_s,
+                                    DECODE_LAUNCHES[UNI_PRESET])
         cer = CERAccumulator()
         cer.add_batch([l.split("\t")[1] for l in lines],
                       [l.split("\t")[1] for l in off_lines])
@@ -1354,10 +1476,12 @@ def write_corpus(root: str, rng) -> str:
 
 
 def phase_train(root: str, data: str, preset: str,
-                resume_to: int | None = None) -> tuple[dict, str]:
-    """Train the full-width preset through the CLI on the card: exact
-    launches, finite metrics, checkpoint decode and (``resume_to``) a
-    resumed run; → (the training run's launches, the train index path)."""
+                resume_to: int | None = None,
+                extra_sets: tuple = ()) -> tuple[dict, str]:
+    """Train the full-width preset through the CLI on the card (``--set``
+    also takes ``extra_sets``): exact launches, finite metrics, checkpoint
+    decode and (``resume_to``) a resumed run; → (the training run's
+    launches, the train index path)."""
     import torch
 
     from chainer_speech_recognition_tpu_torch import _kernels
@@ -1366,14 +1490,16 @@ def phase_train(root: str, data: str, preset: str,
     from chainer_speech_recognition_tpu_torch.cli import train as train_cli
     from chainer_speech_recognition_tpu_torch.config import preset_config
 
-    tag = "train" if preset == PRESET else "lstm-train"
+    tag = {PRESET: "train", LSTM_PRESET: "lstm-train",
+           CONF_PRESET: "conformer-train"}[preset]
     cfg = preset_config(preset)
     ckpt = os.path.join(root, f"train_ckpt_{preset}")
     metrics = os.path.join(root, f"train_{preset}.jsonl")
     prof = os.path.join(root, f"prof_{preset}")
     sets = ["train.data_mode=stream", "train.log_every=1",
             f"train.eval_every={EVERY}", f"train.checkpoint_every={EVERY}",
-            "optim.warmup_steps=4"]
+            "optim.warmup_steps=4", *extra_sets]
+    cfg = cfg.override(dict(kv.split("=", 1) for kv in extra_sets))
     args = ["--data-dir", data, "--preset", preset, "--device", "cuda",
             "--ckpt-dir", ckpt, "--metrics", metrics]
 
@@ -1407,15 +1533,20 @@ def phase_train(root: str, data: str, preset: str,
     n_eval = len(evals) * (-(-DEV_UTTS // TRAIN_B))   # eval batches run
     layers = cfg.model.rnn_layers
     cell = cfg.model.rnn_type
-    other = {"gru": "lstm", "lstm": "gru"}[cell]
-    want = {f"{cell}_fwd_train": layers * TRAIN_STEPS,
-            f"{cell}_bwd": layers * TRAIN_STEPS,
-            f"{cell}_fwd": layers * n_eval,
-            f"{other}_fwd_train": 0, f"{other}_bwd": 0, f"{other}_fwd": 0,
-            "ctc_bwd": TRAIN_STEPS,
-            "ctc_fwd": TRAIN_STEPS + n_eval,
-            "frontend_logmel": TRAIN_STEPS + n_eval,
-            "greedy": n_eval}
+    want = {name: 0 for name in _kernels.KERNELS}
+    if cell != "none":
+        want.update({f"{cell}_fwd_train": layers * TRAIN_STEPS,
+                     f"{cell}_bwd": layers * TRAIN_STEPS,
+                     f"{cell}_fwd": layers * n_eval})
+    if cfg.model.attn_impl == "flash":      # every block, eval included
+        blocks = cfg.model.attn_blocks
+        want.update({"flash_fwd": blocks * (TRAIN_STEPS + n_eval),
+                     "flash_bwd_dq": blocks * TRAIN_STEPS,
+                     "flash_bwd_dkv": blocks * TRAIN_STEPS})
+    want.update({"ctc_bwd": TRAIN_STEPS,
+                 "ctc_fwd": TRAIN_STEPS + n_eval,
+                 "frontend_logmel": TRAIN_STEPS + n_eval,
+                 "greedy": n_eval})
     for name, n in want.items():
         check(launches[name] == n, f"{name}: {launches[name]} launches on "
               f"the {preset} training path, expected {n}")
@@ -1469,10 +1600,12 @@ def phase_train(root: str, data: str, preset: str,
     return launches, os.path.join(data, "train_index.jsonl")
 
 
-def phase_train_parity(dev, index: str, preset: str) -> None:
+def phase_train_parity(dev, index: str, preset: str,
+                       overrides: dict | None = None) -> None:
     """One step's loss and gradients, card (kernels) vs CPU (plain
     versions), from the same weights, batch of 2 utterances and, where the
-    preset enables it, SpecAugment draws."""
+    preset enables it, SpecAugment draws; ``overrides`` are dotted config
+    overrides of the preset."""
     import torch
 
     from chainer_speech_recognition_tpu_torch.config import preset_config
@@ -1485,8 +1618,9 @@ def phase_train_parity(dev, index: str, preset: str) -> None:
     from chainer_speech_recognition_tpu_torch.train.step import forward_loss
     from chainer_speech_recognition_tpu_torch.vocab import Vocab
 
-    tag = "train-parity" if preset == PRESET else "lstm-train-parity"
-    cfg = preset_config(preset)
+    tag = {PRESET: "train-parity", LSTM_PRESET: "lstm-train-parity",
+           CONF_PRESET: "conformer-train-parity"}[preset]
+    cfg = preset_config(preset).override(overrides or {})
     utts = load_index(index)
     vocab = Vocab.load(os.path.join(os.path.dirname(index), "vocab.txt"))
     batch = BatchLoader(utts, vocab, cfg.buckets).load(3, np.arange(2))
@@ -1494,30 +1628,345 @@ def phase_train_parity(dev, index: str, preset: str) -> None:
     if cfg.specaugment.enabled:
         draws = specaugment_draws(step_generator(
             np.asarray([0, SEED], np.uint32), 0), 2, cfg.specaugment)
-    res = []
-    for d in (dev, torch.device("cpu")):
-        model = build_model(cfg.model)
-        init_parameters(model, SEED)
-        model.to(d)
-        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()
-             if k != "bucket_id"}
-        loss, _, _, _ = forward_loss(
-            model, cfg, b, None if draws is None else draws.to(d))
-        loss.backward()
-        res.append((float(loss.detach()), {k: p.grad.float().cpu()
-                                  for k, p in model.named_parameters()}))
-    (lc, gc), (lp, gp) = res
-    rel = abs(lc - lp) / abs(lp)
-    worst = max((float((gc[k] - gp[k]).abs().max())
-                 / max(float(gp[k].abs().max()), 1e-12), k) for k in gp)
-    print(f"[{tag}] {preset} (SpecAugment "
-          f"{'on' if draws is not None else 'off'}): loss card {lc:.5f} CPU "
-          f"{lp:.5f} (rel {rel:.3e}, tol {TOL['train_loss_rtol']}); worst "
-          f"gradient max abs diff / max abs {worst[0]:.3e} ({worst[1]}, tol "
-          f"{TOL['gru_grad_bf16']})")
-    check(np.isfinite(lc) and rel <= TOL["train_loss_rtol"],
-          f"{preset} train loss parity")
-    check(worst[0] <= TOL["gru_grad_bf16"], f"{preset} train gradient parity")
+    runs = [(cfg, TOL["train_loss_rtol"])]
+    if cfg.model.attn_blocks:
+        # bf16 noise of eight blocks is as large as the loss bar (rel
+        # 1.3e-4 on an H100, 1.5e-7 at fp32): the algorithm is held at fp32
+        # compute to the bars, the working type bf16 to 3x that noise
+        runs = [(cfg.override({"model.compute_dtype": "float32"}),
+                 TOL["train_loss_rtol"]), (cfg, TOL["attn_loss_bf16_rtol"])]
+    for rcfg, loss_rtol in runs:
+        res = []
+        for d in (dev, torch.device("cpu")):
+            model = build_model(rcfg.model)
+            init_parameters(model, SEED)
+            model.to(d)
+            b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()
+                 if k != "bucket_id"}
+            loss, _, _, _ = forward_loss(
+                model, rcfg, b, None if draws is None else draws.to(d))
+            loss.backward()
+            res.append((float(loss.detach()), {
+                k: p.grad.float().cpu() for k, p in model.named_parameters()}))
+        (lc, gc), (lp, gp) = res
+        rel = abs(lc - lp) / abs(lp)
+        worst = max((float((gc[k] - gp[k]).abs().max())
+                     / max(float(gp[k].abs().max()), 1e-12), k) for k in gp)
+        print(f"[{tag}] {preset} {rcfg.model.compute_dtype} (SpecAugment "
+              f"{'on' if draws is not None else 'off'}): loss card {lc:.5f} "
+              f"CPU {lp:.5f} (rel {rel:.3e}, tol {loss_rtol}); worst "
+              f"gradient max abs diff / max abs {worst[0]:.3e} ({worst[1]}, "
+              f"tol {TOL['gru_grad_bf16']})")
+        check(np.isfinite(lc) and rel <= loss_rtol,
+              f"{preset} train loss parity")
+        check(worst[0] <= TOL["gru_grad_bf16"],
+              f"{preset} train gradient parity")
+
+
+def subsampled(num_samples, frames: int, strides) -> tuple:
+    """(subsampled lengths [B] int64 CPU tensor, T') of utterances of
+    ``num_samples`` samples padded to ``frames`` feature frames."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.models.conv import (
+        conv_out_length)
+
+    flen = torch.from_numpy(np.asarray(num_samples, np.int64)
+                            // C.HOP_LENGTH + 1)
+    T = frames
+    for s in strides:
+        flen = conv_out_length(flen, s)
+        T = -(-T // s)
+    return flen, T
+
+
+def flash_bound(B, T, h, dh, pairs, n_read, n_write, n_rows, ops_per_pair):
+    """The least time of one flash kernel (bf16): ``n_read`` + ``n_write``
+    [B, T, h, dh] bf16 tensors, ``n_rows`` [B, h, T] fp32 rows (lse, D)
+    and the lengths, against ``ops_per_pair``·dh operations for each
+    allowed (query, key) pair of every head (the data's own count)."""
+    n = B * T * h * dh * 2
+    return bound((n_read + n_write) * n + n_rows * B * h * T * 4 + B * 4,
+                 ops_per_pair * pairs * dh, "bf16")
+
+
+def phase_attention_kernels(dev, rng) -> dict:
+    """The three flash kernels vs their plain versions (phase 18)."""
+    import torch
+    import torch.nn.functional as F
+
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.models.attention import (
+        einsum_attention)
+    from chainer_speech_recognition_tpu_torch.models.rnn import time_mask
+    from chainer_speech_recognition_tpu_torch.ops import attention_cuda as ac
+
+    mcfg = preset_config(CONF_PRESET).model
+    h, dh = mcfg.attn_heads, mcfg.attn_dim // mcfg.attn_heads
+    strides = mcfg.conv_stride_time
+    # decode: 32 long-form wavs of 22-28 s in one chunk (T' = 701 at 28 s);
+    # training: 24 utterances of 9-10 s in the 1024-frame bucket
+    n_long = int(LONG_SECONDS[1] * C.SAMPLE_RATE)
+    dec_len, T_dec = subsampled(
+        rng.uniform(*LONG_SECONDS, CHECK_B) * C.SAMPLE_RATE,
+        C.num_frames(n_long), strides)
+    tr_len, T_tr = subsampled(
+        rng.uniform(*TRAIN_SECONDS, TRAIN_B) * C.SAMPLE_RATE, TRAIN_FRAMES,
+        strides)
+    for lens, T in ((dec_len, T_dec), (tr_len, T_tr)):
+        lens[0], lens[1] = T, 1                # ragged: lengths T and 1
+    cases = [("decode", CHECK_B, T_dec, dec_len, 0, 0),
+             ("decode chunk 16/4", CHECK_B, T_dec, dec_len,
+              preset_config(CONF_STREAM).model.attn_chunk,
+              preset_config(CONF_STREAM).model.attn_left_chunks),
+             ("train", TRAIN_B, T_tr, tr_len, 0, 0)]
+    out = {}
+    for tag, B, T, lens_cpu, chunk, left in cases:
+        lens = lens_cpu.to(torch.int32).to(dev)
+        d = h * dh
+        f32 = lambda *s: torch.from_numpy(
+            rng.standard_normal(s).astype(np.float32)).to(dev)
+        qkv32, do32 = f32(B, T, 3 * d), f32(B, T, h, dh)
+        ok = ac.allowed_mask(T, lens, chunk, left)            # [B, 1, T, T]
+        pairs = int(ok.expand(B, 1, T, T).sum()) * h
+        for dtag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            qkv, do = qkv32.to(cdt), do32.to(cdt)
+            # strided views of the fused projection, as the model has them
+            q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(B, T, h, dh)
+                       for i in range(3))
+            o, lse = ac.flash_fwd_cuda(q, k, v, lens, chunk, left)
+            o_p, lse_p = ac.flash_fwd_plain(q, k, v, lens, chunk, left)
+            d_rows = (do.float() * o_p.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            args = (q, k, v, lens, do, lse_p, d_rows, chunk, left)
+            dq, (dk, dv) = (ac.flash_bwd_dq_cuda(*args),
+                            ac.flash_bwd_dkv_cuda(*args))
+            dq_p, (dk_p, dv_p) = (ac.flash_bwd_dq_plain(*args),
+                                  ac.flash_bwd_dkv_plain(*args))
+            torch.cuda.synchronize()
+            for name, t in (("out", o), ("lse", lse), ("dq", dq), ("dk", dk),
+                            ("dv", dv)):
+                check(bool(torch.isfinite(t.float()).all()),
+                      f"flash {tag} {dtag}: non-finite {name}")
+            live = lse_p > ac.NEG / 2
+            check(torch.equal(lse[~live], lse_p[~live]),
+                  f"flash {tag} {dtag}: rows with no allowed key")
+            ftol, gtol = TOL[f"flash_{dtag}"], TOL[f"flash_grad_{dtag}"]
+            o_scale = o_p.float().abs()
+            if cdt == torch.bfloat16:         # + Σ p·|v| / l (see TOL)
+                o_scale += ac.flash_fwd_plain(q, k, v.abs(), lens, chunk,
+                                              left)[0].float()
+            # (max abs error, max of |a - b| / (atol + rtol·s)): each
+            # output passes where the second is at most 1
+            err = {n: (float((a.float() - b.float()).abs().max()),
+                       excess(a, b, *tol, s))
+                   for n, a, b, tol, s in (
+                       ("out", o, o_p, ftol, o_scale),
+                       ("lse", lse[live], lse_p[live], TOL["flash_fp32"],
+                        None),
+                       ("dq", dq, dq_p, gtol, None),
+                       ("dk", dk, dk_p, gtol, None),
+                       ("dv", dv, dv_p, gtol, None))}
+            print(f"[attn-kernels] {tag} {dtag} B={B} T'={T} h={h} dh={dh}"
+                  f" ({int((~live).sum())} rows with no allowed key): max abs"
+                  f" (share of the elementwise bar) " + ", ".join(
+                      f"{n} {a:.3e} ({x:.3f})" for n, (a, x) in err.items())
+                  + f"; bars (rtol, atol): out {ftol}"
+                  f"{' of |b| + Σp|v|/l' if cdt == torch.bfloat16 else ''}"
+                  f", lse {TOL['flash_fp32']}, gradients {gtol}")
+            check(err["out"][1] <= 1 and err["lse"][1] <= 1,
+                  f"flash_fwd {tag} {dtag} disagrees")
+            check(max(err[n][1] for n in ("dq", "dk", "dv")) <= 1,
+                  f"flash backward {tag} {dtag} disagrees")
+            ferr = max(err["out"][0], err["lse"][0])
+            gerr = {n: err[n][0] for n in ("dq", "dk", "dv")}
+            if cdt != torch.bfloat16:          # the presets' compute dtype
+                continue
+            t = {}
+            t["flash_fwd"] = dict(
+                max_abs_err=ferr,
+                ms=time_ms(lambda: ac.flash_fwd_cuda(q, k, v, lens, chunk,
+                                                     left)),
+                plain_ms=time_ms(lambda: ac.flash_fwd_plain(
+                    q, k, v, lens, chunk, left), warmup=1, reps=3),
+                **flash_bound(B, T, h, dh, pairs, 3, 1, 1, 4))
+            t["flash_bwd_dq"] = dict(
+                max_abs_err=gerr["dq"],
+                ms=time_ms(lambda: ac.flash_bwd_dq_cuda(*args)),
+                plain_ms=time_ms(lambda: ac.flash_bwd_dq_plain(*args),
+                                 warmup=1, reps=3),
+                **flash_bound(B, T, h, dh, pairs, 4, 1, 2, 6))
+            t["flash_bwd_dkv"] = dict(
+                max_abs_err=max(gerr["dk"], gerr["dv"]),
+                ms=time_ms(lambda: ac.flash_bwd_dkv_cuda(*args)),
+                plain_ms=time_ms(lambda: ac.flash_bwd_dkv_plain(*args),
+                                 warmup=1, reps=3),
+                **flash_bound(B, T, h, dh, pairs, 4, 2, 2, 8))
+            # yardstick: PyTorch's SDPA with the same boolean mask, heads
+            # second; the backward computes dq, dk and dv in one call
+            qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+            leaves = [x.detach().clone().requires_grad_() for x in
+                      (qh, kh, vh)]
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    F.scaled_dot_product_attention(qh, kh, vh, attn_mask=ok)
+
+            def sdpa_train():
+                F.scaled_dot_product_attention(*leaves, attn_mask=ok)
+
+            def sdpa_fwd_bwd():
+                F.scaled_dot_product_attention(
+                    *leaves, attn_mask=ok).backward(doh)
+
+            lib_fwd = time_ms(sdpa_fwd)
+            lib_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_train)
+            t["flash_fwd"]["library_ms"] = lib_fwd
+            t["flash_bwd_dq"]["library_ms"] = lib_bwd
+            t["flash_bwd_dkv"]["library_ms"] = lib_bwd
+            for name in FLASH:
+                r = t[name]
+                both = " (dq, dk, dv together)" if name != "flash_fwd" else ""
+                print(f"[attn-kernels] {tag} {name}: {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} "
+                      f"ms{both}, bound {r['bound_ms']:.5f} ms "
+                      f"({r['bound_by']}), "
+                      f"{pairs} allowed (query, key) pairs")
+            if chunk == 0:
+                # the port's einsum path on the same q, k, v: the card's
+                # flash/einsum crossover (recorded, not acted on)
+                mask = time_mask(T, lens)
+                ein = time_ms(lambda: einsum_attention(q, k, v, mask))
+                print(f"[attn-kernels] {tag} einsum path {ein:.4f} ms vs "
+                      f"flash_fwd {t['flash_fwd']['ms']:.4f} ms at T'={T}")
+            if tag == "decode":
+                out["flash_fwd"] = t["flash_fwd"]
+            elif tag == "train":
+                out["flash_bwd_dq"] = t["flash_bwd_dq"]
+                out["flash_bwd_dkv"] = t["flash_bwd_dkv"]
+    return out
+
+
+def phase_frames_kernel(dev, rng) -> tuple[dict, int]:
+    """The framed-input front-end kernel (row 2) vs its plain version on
+    the frames of 32 wavs of 10 s (the last 8 s), T = 1001, timed beside
+    cuFFT; then one call of its entry point ``fused_logmel`` with the
+    launch counts reset before it. → (timings, launches of that call)."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
+        fused_logmel, fused_logmel_cuda)
+    from chainer_speech_recognition_tpu_torch.frontend.torch_frontend import (
+        _K, _tables, extend_signal, logmel_from_frames)
+
+    V = preset_config(PRESET).model.vocab_size
+    n = int(CHECK_SECONDS * C.SAMPLE_RATE)
+    sigs = np.zeros((CHECK_B, n), np.float32)
+    lens = np.full(CHECK_B, n, np.int32)
+    for i in range(CHECK_B):
+        s = synth_signal(rng, WAV_SECONDS[0] if i == CHECK_B - 1
+                         else CHECK_SECONDS, V)
+        sigs[i, : len(s)] = s
+        lens[i] = len(s)
+    T = C.num_frames(n)
+    ext = extend_signal(torch.from_numpy(sigs).to(dev),
+                        torch.from_numpy(lens).to(dev), T + _K + 1)
+    frames = ext.unfold(1, C.N_FFT, C.HOP_LENGTH)[:, :T].contiguous()
+    got = fused_logmel_cuda(frames)
+    want = logmel_from_frames(frames)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"[frames-kernel] frontend_logmel_frames frames "
+          f"{tuple(frames.shape)} -> {tuple(got.shape)}: max abs {err:.3e} "
+          f"(tol {TOL['frontend_logmel']})")
+    check(bool(torch.isfinite(got).all()), "frontend_logmel_frames: "
+          "non-finite")
+    check(err <= TOL["frontend_logmel"], "frontend_logmel_frames disagrees")
+    win, mel = _tables(dev)
+
+    def library_logmel():
+        spec = torch.fft.rfft(frames * win, n=C.N_FFT, dim=-1)
+        power = spec.real.square() + spec.imag.square()
+        return torch.log(torch.clamp(power @ mel, min=C.LOG_EPS))
+
+    nb = C.N_FFT // 2 + 1
+    t = dict(max_abs_err=err, ms=time_ms(lambda: fused_logmel_cuda(frames)),
+             plain_ms=time_ms(lambda: logmel_from_frames(frames)),
+             library_ms=time_ms(library_logmel),
+             **bound(nbytes(frames, got),
+                     CHECK_B * T * (2 * C.N_FFT * 2 * nb + 2 * nb * C.N_MELS),
+                     "fp32"))
+    print(f"[frames-kernel] {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"cuFFT rfft + mel + log {t['library_ms']:.4f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    _kernels.reset_launches()
+    feats = fused_logmel(frames)
+    torch.cuda.synchronize()
+    launches = _kernels.launches()
+    check(launches["frontend_logmel_frames"] == 1 and sum(
+        launches.values()) == 1, f"fused_logmel launches {launches}")
+    check(torch.equal(feats, got), "fused_logmel differs from the kernel")
+    print(f"[frames-kernel] fused_logmel (the entry point): 1 launch")
+    return t, launches["frontend_logmel_frames"]
+
+
+def write_long_wavs(root: str, rng, V: int) -> tuple[list[str], float]:
+    """32 long-form wavs of 22-28 s (the last one 28 s: T' = 701)."""
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.utils.wav import write_wav
+
+    wavs, total = [], 0.0
+    for i in range(LONG_WAVS):
+        sec = LONG_SECONDS[1] if i == LONG_WAVS - 1 else rng.uniform(
+            *LONG_SECONDS)
+        sig = synth_signal(rng, sec, V)
+        wavs.append(os.path.join(root, f"long{i:03d}.wav"))
+        write_wav(wavs[-1], sig)
+        total += len(sig) / C.SAMPLE_RATE
+    print(f"[inputs] {LONG_WAVS} long-form wavs, {total:.3f} s of audio")
+    return wavs, total
+
+
+def phase_conformer_decode(root, vocab, wavs, audio_s, long_wavs, long_s,
+                           dev, rng) -> dict:
+    """Phase 19: conformer through the decode CLI; → the long-form run's
+    launches."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    blocks = preset_config(CONF_PRESET).model.attn_blocks
+    ckpt = write_checkpoint(root, CONF_PRESET, rng)
+    base = {"frontend_logmel": 1, "greedy": 1}
+    launches, _ = phase_decode("conformer-decode long-form auto", ckpt,
+                               vocab, long_wavs, long_s,
+                               {**base, "flash_fwd": blocks})
+    phase_parity(ckpt, long_wavs, dev, "conformer-parity")
+    chunks = -(-len(wavs) // BATCH)
+    short = {k: chunks * v for k, v in base.items()}
+    phase_decode("conformer-decode short auto", ckpt, vocab, wavs, audio_s,
+                 short)
+    phase_decode("conformer-decode short flash", ckpt, vocab, wavs, audio_s,
+                 {**short, "flash_fwd": chunks * blocks},
+                 sets=("model.attn_impl=flash",))
+    return launches
+
+
+def phase_conformer_stream_decode(root, vocab, long_wavs, long_s, dev,
+                                  rng) -> dict:
+    """Phase 20: conformer_stream offline, the chunk mask in the kernel."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    blocks = preset_config(CONF_STREAM).model.attn_blocks
+    ckpt = write_checkpoint(root, CONF_STREAM, rng)
+    launches, _ = phase_decode(
+        "conformer_stream-decode long-form auto", ckpt, vocab, long_wavs,
+        long_s, {"frontend_logmel": 1, "greedy": 1, "flash_fwd": blocks})
+    phase_parity(ckpt, long_wavs, dev, "conformer_stream-parity")
+    return launches
 
 
 def main() -> int:
@@ -1525,6 +1974,7 @@ def main() -> int:
         import torch
 
         kind, _ = phase_device()
+        from chainer_speech_recognition_tpu_torch.config import preset_config
         dev = torch.device("cuda", 0)
         phase_build()
         rng = np.random.default_rng(SEED)
@@ -1537,17 +1987,23 @@ def main() -> int:
         timings.update(phase_lstm_kernels(dev, lrng))
         timings.update(phase_lstm_train_kernels(dev, lrng))
         timings.update(phase_stream_kernels(dev, srng))
+        # the attention phases draw from a stream of their own
+        crng = np.random.default_rng(SEED + 3)
+        timings.update(phase_attention_kernels(dev, crng))
+        timings["frontend_logmel_frames"], frames_launches = \
+            phase_frames_kernel(dev, crng)
         with tempfile.TemporaryDirectory() as root:
             ckpt, vocab, wavs, audio_s = phase_inputs(root, rng)
-            launches, _ = phase_decode(ckpt, vocab, wavs, audio_s, PRESET)
+            launches, _ = phase_decode("decode", ckpt, vocab, wavs, audio_s,
+                                       DECODE_LAUNCHES[PRESET])
             phase_parity(ckpt, wavs, dev, "parity")
             data = write_corpus(root, rng)
             train_launches, index = phase_train(root, data, PRESET,
                                                 resume_to=RESUME_STEPS)
             phase_train_parity(dev, index, PRESET)
             lckpt = write_checkpoint(root, LSTM_PRESET, lrng)
-            lstm_decode, _ = phase_decode(lckpt, vocab, wavs, audio_s,
-                                          LSTM_PRESET)
+            lstm_decode, _ = phase_decode("lstm-decode", lckpt, vocab, wavs,
+                                          audio_s, DECODE_LAUNCHES[LSTM_PRESET])
             phase_parity(lckpt, wavs, dev, "lstm-parity")
             lstm_train, _ = phase_train(root, data, LSTM_PRESET)
             phase_train_parity(dev, index, LSTM_PRESET)
@@ -1555,6 +2011,17 @@ def main() -> int:
                                       dev, srng)
             lstm_stream = phase_stream(root, vocab, wavs, audio_s,
                                        LSTM_PRESET, dev, srng)
+            long_wavs, long_s = write_long_wavs(
+                root, crng, preset_config(CONF_PRESET).model.vocab_size)
+            conf_decode = phase_conformer_decode(
+                root, vocab, wavs, audio_s, long_wavs, long_s, dev, crng)
+            phase_conformer_stream_decode(root, vocab, long_wavs, long_s,
+                                          dev, crng)
+            conf_train, _ = phase_train(
+                root, data, CONF_PRESET,
+                extra_sets=("model.attn_impl=flash",))
+            phase_train_parity(dev, index, CONF_PRESET,
+                               {"model.attn_impl": "flash"})
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]
@@ -1562,6 +2029,10 @@ def main() -> int:
             "lstm_fwd_train", "lstm_bwd")})
         launches["gru_fwd_stream"] = uni_stream["gru_fwd_stream"]
         launches["lstm_fwd_stream"] = lstm_stream["lstm_fwd_stream"]
+        launches["frontend_logmel_frames"] = frames_launches
+        launches["flash_fwd"] = conf_decode["flash_fwd"]
+        launches["flash_bwd_dq"] = conf_train["flash_bwd_dq"]
+        launches["flash_bwd_dkv"] = conf_train["flash_bwd_dkv"]
         loaded = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "optax",

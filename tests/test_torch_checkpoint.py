@@ -73,6 +73,39 @@ def test_average_last_matches_reference_rule(tmp_path):
         ck.load_params(d, average_last=4)
 
 
+@pytest.mark.parametrize("preset", ["conformer", "conformer_stream"])
+def test_conformer_checkpoint_round_trip(tmp_path, preset):
+    """A reference checkpoint of a cut conformer (LayerNorm ``scale`` and
+    depthwise ``[kt, 1, d]`` leaves) loads into the port's model through
+    the decode CLI's loader, and the port's writer gives back a file that
+    flax restores to the same tree, bitwise."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.bridge import (
+        flax_to_state_dict, state_dict_to_flax)
+    from chainer_speech_recognition_tpu_torch.cli.decode import load_model
+
+    cfg = preset_config(preset).override({
+        "model.conv_channels": [4, 4], "model.attn_blocks": 2,
+        "model.attn_dim": 64, "model.attn_heads": 1,
+        "model.vocab_size": 9})
+    state = init_state(build_model(cfg.model), cfg.optim, jax.random.key(0),
+                       jnp.zeros((1, 16, 40, 3)), jnp.asarray([16]))
+    d = str(tmp_path / "ref")
+    save_checkpoint(d, state, cfg, keep=1)
+    ref = jax.tree.map(np.asarray, state.params["params"])
+    tcfg, model, _ = load_model(d, device=torch.device("cpu"))
+    assert tcfg.model.attn_blocks == 2
+    want = flax_to_state_dict(ref)
+    assert tuple(want["conformer0.conv.dw.weight"].shape) == (64, 1, 15)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, want[k]), k
+    path = ck.save_params(str(tmp_path / "port"),
+                          state_dict_to_flax(model.state_dict()), tcfg)
+    back = flax.serialization.msgpack_restore(open(path, "rb").read())
+    _tree_equal(ref, back["params"]["params"])
+
+
 def test_writer_round_trip(tmp_path):
     rng = np.random.default_rng(0)
     tree = {

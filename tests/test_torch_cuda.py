@@ -18,9 +18,10 @@ from chainer_speech_recognition_tpu_torch import constants as C
 from chainer_speech_recognition_tpu_torch.decode.greedy import (
     best_keep_cuda, best_keep_plain)
 from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
-    fused_logmel_rows_cuda)
+    fused_logmel_cuda, fused_logmel_rows_cuda)
 from chainer_speech_recognition_tpu_torch.frontend.torch_frontend import (
-    _K, extend_signal, logmel_from_extended)
+    _K, extend_signal, logmel_from_extended, logmel_from_frames)
+from chainer_speech_recognition_tpu_torch.ops import attention_cuda as ac
 from chainer_speech_recognition_tpu_torch.ops.ctc import (
     LOG_ZERO, ctc_alpha_plain, ctc_beta_grad_plain, ctc_inputs)
 from chainer_speech_recognition_tpu_torch.ops.ctc_cuda import (
@@ -356,3 +357,125 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         lstm_scan_train_cuda(torch.zeros(3, 4, 128, device=dev),
                              torch.zeros(2, 32, 96, device=dev), lo, lo,
                              torch.float32)
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (2, 17), (3, 101)])
+def test_frames_frontend_kernel_matches_plain(dev, B, T):
+    """The framed form (row 2) on [B, T, 512] frames: one partial tile,
+    one + a bit, several. Bar: 5e-4 max abs."""
+    rng = np.random.default_rng(B * 100 + T)
+    frames = torch.from_numpy(0.3 * rng.standard_normal(
+        (B, T, C.N_FFT)).astype(np.float32)).to(dev)
+    before = _kernels.FRONTEND_LOGMEL_FRAMES.launches
+    got = fused_logmel_cuda(frames)
+    want = logmel_from_frames(frames)
+    assert _kernels.FRONTEND_LOGMEL_FRAMES.launches == before + 1
+    assert got.shape == (B, T, C.N_MELS)
+    assert float((got - want).abs().max()) <= 5e-4
+
+
+def _flash_inputs(dev, B, T, h, dh, dtype, seed, strided):
+    """q, k, v [B, T, h, dh] (with ``strided``, views of one [B, T, 3·h·dh]
+    tensor, as the model's fused qkv gives them), dO, lengths with 1 and T
+    and, for B > 2, 0."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev).to(dtype)
+    if strided:
+        qkv = f(B, T, 3 * h * dh)
+        q, k, v = (qkv[..., i * h * dh:(i + 1) * h * dh].reshape(B, T, h, dh)
+                   for i in range(3))
+    else:
+        q, k, v = f(B, T, h, dh), f(B, T, h, dh), f(B, T, h, dh)
+    lens = rng.integers(1, T + 1, B)
+    lens[0] = T
+    if B > 1:
+        lens[1] = 1
+    if B > 2:
+        lens[2] = 0
+    return q, k, v, f(B, T, h, dh), torch.from_numpy(lens).to(dev).to(
+        torch.int32)
+
+
+@pytest.mark.parametrize("B,T,h,dh,chunk,left", [
+    (1, 1, 1, 64, 0, 0), (3, 70, 2, 64, 0, 0), (4, 200, 2, 64, 16, 2),
+    (2, 130, 3, 64, 0, 0), (3, 300, 2, 64, 16, 4), (2, 65, 1, 64, 8, 1)])
+@pytest.mark.parametrize("dtype,tol,gtol", [
+    (torch.float32, (2e-5, 2e-5), (3e-4, 3e-4)),
+    (torch.bfloat16, (2 ** -7, 1e-5), (2 ** -7, 1e-3))])
+def test_flash_kernels_match_plain(dev, B, T, h, dh, chunk, left, dtype,
+                                   tol, gtol):
+    """Forward (out and lse), dQ and dK/dV against their plain versions on
+    the same inputs, ragged lengths (0, 1, T), strided q/k/v, key tiles
+    skipped by the chunk window; every output finite. Bars (rtol, atol),
+    elementwise |a - b| <= atol + rtol·s, s = |b|: fp32 the JAX suite's
+    (2e-5 forward, 3e-4 gradients). bf16, both sides bf16 on the same
+    inputs: out at s = |b| + Σ p·|v| / l, since each side rounds p (the
+    kernel against its running max, the plain version against the row's)
+    and out to half an ulp (2^-8); gradients one ulp plus 1e-3; lse (fp32
+    in both) at the fp32 forward bar."""
+    q, k, v, do, lens = _flash_inputs(dev, B, T, h, dh, dtype, T + dh,
+                                      strided=B % 2 == 0)
+    before = {n: _kernels.KERNELS[n].launches
+              for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    out, lse = ac.flash_fwd_cuda(q, k, v, lens, chunk, left)
+    out_p, lse_p = ac.flash_fwd_plain(q, k, v, lens, chunk, left)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    rtol, atol = tol
+    scale = out_p.float().abs()
+    if dtype == torch.bfloat16:
+        scale += ac.flash_fwd_plain(q, k, v.abs(), lens, chunk,
+                                    left)[0].float()
+    diff = (out.float() - out_p.float()).abs()
+    assert bool((diff <= atol + rtol * scale).all()), float(
+        (diff / (atol + rtol * scale)).max())
+    live = lse_p > ac.NEG / 2              # rows with an allowed key
+    assert torch.equal(lse[~live], lse_p[~live])
+    torch.testing.assert_close(lse[live], lse_p[live], rtol=2e-5, atol=2e-5)
+    d_rows = (do.float() * out_p.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    args = (q, k, v, lens, do, lse_p, d_rows, chunk, left)
+    dq = ac.flash_bwd_dq_cuda(*args)
+    dk, dv = ac.flash_bwd_dkv_cuda(*args)
+    dq_p = ac.flash_bwd_dq_plain(*args)
+    dk_p, dv_p = ac.flash_bwd_dkv_plain(*args)
+    torch.cuda.synchronize()
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert got.dtype == dtype and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=gtol[0],
+                                   atol=gtol[1])
+    after = {n: _kernels.KERNELS[n].launches for n in before}
+    assert after == {n: c + 1 for n, c in before.items()}
+
+
+def test_flash_mhsa_autograd_on_card(dev):
+    """flash_mhsa under autograd launches the three kernels once each and
+    gives the gradients of the plain version's autograd."""
+    q, k, v, do, lens = _flash_inputs(dev, 3, 90, 2, 64, torch.float32, 5,
+                                      strided=True)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = _kernels.FLASH_BWD_DKV.launches
+    out = ac.flash_mhsa(*leaves, lens, 16, 2)
+    (out * do).sum().backward()
+    assert _kernels.FLASH_BWD_DKV.launches == before + 1
+    ref = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out_p, _ = ac.flash_fwd_plain(*ref, lens, 16, 2)
+    (out_p * do).sum().backward()
+    for a, b in zip(leaves, ref):
+        assert float((a.grad - b.grad).abs().max()) <= 3e-4
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(dev):
+    q = torch.zeros(2, 10, 2, 64, device=dev)
+    lens = torch.full((2,), 10, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head width 96"):
+        z = torch.zeros(2, 10, 2, 96, device=dev)
+        ac.flash_fwd_cuda(z, z, z, lens)
+    with pytest.raises(ValueError, match="head dim must be dense"):
+        ac.flash_fwd_cuda(q, q, q.transpose(2, 3).contiguous()
+                          .transpose(2, 3), lens)
+    with pytest.raises(ValueError, match="int32"):
+        ac.flash_fwd_cuda(q, q, q, lens.long())
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        ac.flash_fwd_cuda(q, q, q.half(), lens)

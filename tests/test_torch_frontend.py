@@ -10,6 +10,7 @@ import torch
 
 import jax.numpy as jnp
 
+from chainer_speech_recognition_tpu import constants as C
 from chainer_speech_recognition_tpu.config import FeatureConfig
 from chainer_speech_recognition_tpu.frontend import golden_np as g
 from chainer_speech_recognition_tpu.frontend.jnp_frontend import (
@@ -92,6 +93,32 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
                         T + _K + 1)
     assert torch.equal(fused_logmel_rows(ext, T),
                        logmel_from_extended(ext, T))
+
+
+@pytest.mark.parametrize("lens", [(8000,), (16000, 9000, 2000)])
+def test_framed_logmel_matches_pallas_interpret(lens):
+    """The framed-input entry point (``fused_logmel``, row 2) on the CPU
+    takes its plain rfft version; against JAX's ``fused_logmel`` in
+    interpret mode on the same frames at the reference test's bar (atol
+    5e-4, rtol 1e-4)."""
+    from chainer_speech_recognition_tpu.frontend.jnp_frontend import (
+        _K as jax_K, extend_signal as jax_extend, frame_signal)
+    from chainer_speech_recognition_tpu.frontend.pallas_frontend import (
+        fused_logmel as jax_fused_logmel)
+    from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
+        fused_logmel)
+    from chainer_speech_recognition_tpu_torch.frontend.torch_frontend import (
+        logmel_from_frames)
+
+    sigs, lens = _signals(lens)
+    T = C.num_frames(sigs.shape[1])
+    frames = np.array(frame_signal(jax_extend(
+        jnp.asarray(sigs), jnp.asarray(lens), T + jax_K + 1), T))
+    want = np.asarray(jax_fused_logmel(jnp.asarray(frames)))
+    got = fused_logmel(torch.from_numpy(frames))
+    assert got.shape == (len(lens), T, C.N_MELS)
+    assert torch.equal(got, logmel_from_frames(torch.from_numpy(frames)))
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=1e-4)
 
 
 def test_select_frontend():

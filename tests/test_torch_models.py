@@ -17,6 +17,8 @@ from chainer_speech_recognition_tpu_torch.models.presets import build_model
 
 SMALL = {"model.conv_channels": [8, 8], "model.rnn_hidden": 32,
          "model.rnn_layers": 2, "model.vocab_size": 12}
+# the attention presets cut to 2 blocks, d = 128, h = 2 (dh = 64)
+ATTN = {"model.attn_blocks": 2, "model.attn_dim": 128, "model.attn_heads": 2}
 
 
 def _cfg(preset, dtype, **extra):
@@ -48,10 +50,17 @@ def _pair(mcfg, seed=0):
     ("tiny_conv", {}),
     ("bilstm_deep", {}),                         # BiLSTM, rec [2, H, 4H]
     ("uni_gru", {}),                             # forward-only, rec [1, H, 3H]
+    ("conformer", ATTN),                         # attn_in + 2 blocks, einsum
+    ("conformer", {**ATTN, "model.attn_impl": "flash"}),
+    ("conformer_stream", ATTN),                  # chunk 16 / left 4, causal
+    ("conformer_stream", {**ATTN, "model.attn_impl": "flash"}),
+    ("conformer", {**ATTN, "model.attn_residual_dtype": "bfloat16"}),
 ])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
                                        ("bfloat16", 3e-2)])
 def test_logits_match_flax(preset, extra, dtype, tol):
+    if extra.get("model.attn_residual_dtype") == "bfloat16":
+        tol = 3e-2                     # a bf16 residual stream: the bf16 bar
     (lj, olj), (lt, olt), _, _ = _pair(_cfg(preset, dtype, **extra))
     assert np.array_equal(olj, olt)
     assert lt.dtype == np.float32 and lt.shape == lj.shape
@@ -106,7 +115,48 @@ def test_uni_gru_bridges_forward_only():
 
 
 def test_unported_blocks_raise():
+    """GLU blocks are not ported; the attention presets build (their
+    streaming call raises, tests/test_torch_attention.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(preset_config("glu_conv").model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(preset_config("conformer").model)
+    for preset in ("conformer", "conformer_stream"):
+        model = build_model(preset_config(preset).model)
+        assert model.n_attn == 8 and model.attn_in is not None
+
+
+def test_conformer_bridges_layer_norm_and_depthwise_leaves():
+    """LayerNorm ``scale`` ↔ ``weight`` and the depthwise kernel [kt, 1, d]
+    ↔ Conv1d [d, 1, kt], both ways, every leaf bitwise; flax's init and
+    the port's init_parameters agree on which leaves are ones, zeros and
+    lecun-normal with fan_in = kt."""
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        init_parameters)
+
+    mcfg = _cfg("conformer", "float32", **ATTN)
+    _, _, params, tm = _pair(mcfg)
+    sd = flax_to_state_dict(params)
+    blk = params["conformer1"]
+    assert tuple(sd["conformer1.conv.dw.weight"].shape) == (128, 1, 15)
+    np.testing.assert_array_equal(
+        sd["conformer1.conv.dw.weight"].numpy(),
+        np.asarray(blk["conv"]["dw"]["kernel"]).transpose(2, 1, 0))
+    np.testing.assert_array_equal(sd["conformer1.ln_out.weight"].numpy(),
+                                  np.asarray(blk["ln_out"]["scale"]))
+    assert "conformer0.ffn1.in.weight" in sd and "attn_in.weight" in sd
+    back = state_dict_to_flax(tm.state_dict())
+    flat = jax.tree_util.tree_leaves_with_path(params)
+    assert len(flat) == len(jax.tree_util.tree_leaves(back))
+    for path, leaf in flat:
+        node = back
+        for k in path:
+            node = node[k.key]
+        assert np.array_equal(node, np.asarray(leaf)), path
+    init_parameters(tm, 0)
+    got = tm.state_dict()
+    for key, t in got.items():
+        ref = sd[key].numpy()
+        if key.endswith(".bias") or np.all(ref == 1.0):
+            assert np.array_equal(t.numpy(), ref), key     # zeros and ones
+        else:
+            fan_in = int(np.prod(t.shape[1:]))
+            assert abs(float(t.std()) * np.sqrt(fan_in) - 1.0) < 0.25, key

@@ -2,8 +2,9 @@
 interpreter where ``jax``/``flax``/``optax`` and
 ``chainer_speech_recognition_tpu`` cannot be imported, every module of
 chainer_speech_recognition_tpu_torch imports, the plain decode path runs
-once end to end, the stream CLI streams a forward-only model over a few
-windows, and one CPU train step runs through the train loop."""
+once end to end (a BiGRU and a cut conformer), the stream CLI streams a
+forward-only model over a few windows, and one CPU train step runs
+through the train loop."""
 
 import os
 import subprocess
@@ -54,6 +55,20 @@ write_wav(wav, make_utterance(rng, [1, 3, 2])[0])
 decode.main(["--ckpt-dir", os.path.join(root, "ckpt"), "--vocab",
              os.path.join(root, "v.txt"), "--device", "cpu", wav])
 
+# a cut conformer (2 blocks, d = 64, h = 1) decodes with attn_impl=flash:
+# the flash kernels' plain versions on the CPU
+ccfg = preset_config("conformer").override({
+    "model.conv_channels": [4, 4], "model.attn_blocks": 2,
+    "model.attn_dim": 64, "model.attn_heads": 1, "model.vocab_size": 6,
+    "model.attn_impl": "flash"})
+csd = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32) * 0.3
+       for k, v in build_model(ccfg.model).state_dict().items()}
+save_params(os.path.join(root, "cckpt"), state_dict_to_flax(csd), ccfg)
+cwav = os.path.join(root, "c.wav")
+write_wav(cwav, make_utterance(rng, [2, 4])[0])
+decode.main(["--ckpt-dir", os.path.join(root, "cckpt"), "--vocab",
+             os.path.join(root, "v.txt"), "--device", "cpu", cwav])
+
 # the forward-only online preset streams four windows through the CLI
 from chainer_speech_recognition_tpu_torch.cli import stream
 ucfg = preset_config("uni_gru").override({
@@ -98,5 +113,6 @@ def test_port_imports_and_decodes_without_jax():
     lines = proc.stdout.splitlines()
     assert lines[-1].startswith("MODULES ") and int(lines[-1].split()[1]) >= 30
     assert any(l.split("\t")[0].endswith("u.wav") for l in lines)  # decode
+    assert any(l.split("\t")[0].endswith("c.wav") for l in lines)  # conformer
     assert any(l.split("\t")[0].endswith("s.wav") for l in lines)  # stream
     assert any(l.startswith("step       1 |") for l in lines)       # train

@@ -219,6 +219,66 @@ def test_bilstm_deep_step_matches_jax(lstm_pair):
         assert d.max() <= 2 * LR * (0 + 1 / 4), (name, d.max())
 
 
+CONF_OVER = {**OVER, "model.attn_blocks": 2, "model.attn_dim": 128,
+             "model.attn_heads": 2, "model.attn_impl": "flash",
+             "specaugment.enabled": False}
+
+
+@pytest.mark.parametrize("preset", ["conformer", "conformer_stream"])
+def test_conformer_step_matches_jax(preset):
+    """A cut conformer (2 blocks, d = 128, h = 2) with ``attn_impl=flash``
+    (the Pallas kernels in interpret mode on the JAX side, the kernels'
+    plain versions through ``FlashAttention`` on the port's): fp32
+    gradients of the weighted-mean loss, then two optimizer steps'
+    metrics, parameters and Adam moments (bars as for bigru above). The
+    port's train step and state need nothing of their own for it."""
+    cfg, jm, jstate, tcfg, tm = _pair(preset, CONF_OVER)
+    assert tcfg.model.rnn_type == "none" and tcfg.model.attn_impl == "flash"
+    b = BATCHES[0]
+    (lj, ((nvj, nrj), _, _)), gj = jax.value_and_grad(
+        lambda p: _forward_loss(jm, cfg, p, {k: jnp.asarray(v)
+                                             for k, v in b.items()},
+                                jax.random.key(0), train=True),
+        has_aux=True)(jstate.params)
+    tm.zero_grad()
+    lt, (nvt, nrt), _, _ = forward_loss(tm, tcfg, _torch_batch(b))
+    lt.backward()
+    assert float(nvt) == float(nvj) and float(nrt) == float(nrj)
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-5)
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                     gj["params"]))
+    assert tuple(want["conformer1.conv.dw.weight"].shape) == (128, 1, 15)
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   atol=2e-5, rtol=1e-3, err_msg=name)
+    mesh = make_mesh(cfg.parallel)
+    jstep = jax_train_step(jm, cfg, mesh)
+    ts = tstate.init_state(tm, tcfg.optim, 0)
+    step = make_train_step(tcfg)
+    js = jstate
+    for b in BATCHES[:2]:
+        js, mj = jstep(js, shard_batch(mesh, b))
+        mt = step(ts, _torch_batch(b))
+        for k in ("loss", "grad_norm", "valid_frac"):
+            np.testing.assert_allclose(float(mt[k]), float(mj[k]),
+                                       rtol=1e-4, err_msg=k)
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                     js.params["params"]))
+    for name, p in tm.named_parameters():
+        d = np.abs(p.detach().numpy() - want[name].numpy())
+        assert d.max() <= 2 * LR * (0 + 1 / 4), (name, d.max())
+    adam_j = js.opt_state[1][0]
+    adam_t = ts.opt_state["1"]["0"]
+    assert int(adam_t["count"]) == int(adam_j.count) == 2
+    for key, tol in (("mu", 1e-5), ("nu", 1e-6)):
+        wj = flax_to_state_dict(jax.tree_util.tree_map(
+            np.asarray, getattr(adam_j, key)["params"]))
+        for name, t in adam_t[key].items():
+            np.testing.assert_allclose(t.numpy(), wj[name].numpy(),
+                                       atol=tol, rtol=1e-3,
+                                       err_msg=f"{key}/{name}")
+
+
 def test_specaugment_step_equals_step_on_premasked_features():
     """Two train steps with SpecAugment on from signals == two steps with
     it off on features masked beforehand with the step's own draws
