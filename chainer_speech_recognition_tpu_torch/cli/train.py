@@ -16,6 +16,8 @@ from __future__ import annotations
 import argparse
 import os
 
+import torch
+
 from ..data.corpus import load_index
 from ..train.loop import train
 from ..vocab import Vocab
@@ -31,6 +33,10 @@ def main(argv=None):
     p.add_argument("--ckpt-dir", default=None, help="override checkpoint dir")
     p.add_argument("--metrics", default=None, help="metrics JSONL path")
     p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="anomaly detection, and a check each step that the "
+                   "loss and every gradient are finite (FloatingPointError "
+                   "naming the step and the tensor)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--profile-dir", default=None,
@@ -51,9 +57,11 @@ def main(argv=None):
     dev_path = os.path.join(args.data_dir, "dev_index.jsonl")
     dev_utts = load_index(dev_path) if os.path.exists(dev_path) else None
 
-    train(cfg, train_utts, vocab, dev_utts=dev_utts,
-          metrics_path=args.metrics, resume=not args.no_resume,
-          profile_dir=args.profile_dir, device=device)
+    with torch.autograd.set_detect_anomaly(args.debug_nans):
+        train(cfg, train_utts, vocab, dev_utts=dev_utts,
+              metrics_path=args.metrics, resume=not args.no_resume,
+              profile_dir=args.profile_dir, device=device,
+              debug_nans=args.debug_nans)
 
 
 if __name__ == "__main__":

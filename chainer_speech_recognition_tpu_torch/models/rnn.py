@@ -12,15 +12,18 @@ half is reversed back, and the output is masked. A forward-only layer
 ``rec [1, H, G·H]`` only, runs a ``[T, B, G·H]`` recurrence (the kernels'
 direction count is ``rec``'s leading extent) and outputs ``[B, T, H]``.
 
-``impl``: "auto" and "pallas" take the kernels' wrappers (the kernels on
-CUDA tensors, their plain versions on CPU tensors): ``BiGRUScan`` /
+``impl``: "pallas" takes the kernels' wrappers (the kernels on CUDA
+tensors, their plain versions on CPU tensors): ``BiGRUScan`` /
 ``BiLSTMScan`` (the training forward that keeps the residuals, and the
 backward kernel) when autograd will differentiate the layer, otherwise the
 residual-free forward, as ``birnn_pallas``'s primal-only call skips the
-residual streams. The kernels take every shape they support (H % 32 == 0,
-H ≤ 512); the reference's TPU tiling rule for "auto" (H % 128 == 0) does
-not apply. "scan" takes the plain forward on either device and lets
-autograd differentiate it, as the reference's ``lax.scan`` path does.
+residual streams; on the card it raises for a hidden size the kernels do
+not take. "auto" takes the wrappers where the kernels take the hidden size
+(``rnn_cuda.kernel_takes``: 32 ≤ H ≤ 512, H % 32 == 0) and the plain scan
+elsewhere, as the reference's "auto" takes its scan wherever its kernel's
+tiling rule (H % 128 == 0) fails. "scan" takes the plain forward on either
+device and lets autograd differentiate it, as the reference's ``lax.scan``
+path does. ``rnn_cuda.ROUTED`` counts the path of each layer call.
 
 The streaming call (``h0_fwd``, ``emit_carry_at``) takes the stream form
 (``gru_scan_stream``/``lstm_scan_stream``; their plain versions under
@@ -37,8 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.rnn_cuda import (BiGRUScan, BiLSTMScan, gru_scan, gru_scan_plain,
-                            gru_scan_stream, gru_scan_stream_plain, lstm_scan,
+from ..ops.rnn_cuda import (ROUTED, BiGRUScan, BiLSTMScan, gru_scan,
+                            gru_scan_plain, gru_scan_stream,
+                            gru_scan_stream_plain, kernel_takes, lstm_scan,
                             lstm_scan_plain, lstm_scan_stream,
                             lstm_scan_stream_plain, stream_dtype)
 
@@ -109,6 +113,9 @@ class BiRNNLayer(nn.Module):
         lo, hi = lo[:, None], hi[:, None]
         _, plain, scan, function, stream_plain, stream_scan = \
             _CELLS[self.cell]
+        use_scan = self.impl == "scan" or (
+            self.impl == "auto" and not kernel_takes(self.hidden))
+        ROUTED["scan" if use_scan else "kernel"] += 1
         if torch.is_grad_enabled() and (xs.requires_grad
                                         or self.rec.requires_grad):
             if stream or not self.bidirectional:
@@ -117,16 +124,16 @@ class BiRNNLayer(nn.Module):
                     "only: their training forward and backward (ndir = 1) "
                     "are not ported yet (ROADMAP.md, module queue: "
                     "forward-only training)")
-            ys = (plain if self.impl == "scan" else function.apply)(
+            ys = (plain if use_scan else function.apply)(
                 xs, self.rec, lo, hi, self.dtype)
         elif stream:
             h0 = h0_fwd.to(torch.float32)                   # [B, C]
             if self.bidirectional:
                 h0 = torch.cat([h0, torch.zeros_like(h0)])
-            ys, carry = (stream_plain if self.impl == "scan" else stream_scan)(
+            ys, carry = (stream_plain if use_scan else stream_scan)(
                 xs, self.rec, lo, hi, h0, self.dtype, emit_carry_at)
         else:
-            ys = (plain if self.impl == "scan" else scan)(
+            ys = (plain if use_scan else scan)(
                 xs, self.rec, lo, hi, self.dtype)          # [T, ndir·B, H]
         out = ys[:, :B].transpose(0, 1)                     # [B, T, H]
         if self.bidirectional:

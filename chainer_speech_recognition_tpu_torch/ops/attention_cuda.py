@@ -184,10 +184,16 @@ def flash_fwd_cuda(q, k, v, lens, chunk: int = 0, left_chunks: int = 0):
     return out, lse
 
 
-def _check_rows(lse, d_rows, q):
+def _check_bwd(lse, d_rows, q, k, v, do):
     B, T, h, _ = q.shape
     _kernels.check_cuda_tensor("lse", lse, torch.float32, (B, h, T))
     _kernels.check_cuda_tensor("d_rows", d_rows, torch.float32, (B, h, T))
+    if q.dtype == torch.bfloat16:     # the tensor-core path's 16-byte copies
+        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+                raise ValueError(
+                    f"{name}: the bf16 backward kernels need 16-byte aligned "
+                    "rows (data pointer and b, t, h strides multiples of 8)")
 
 
 def flash_bwd_dq_cuda(q, k, v, lens, do, lse, d_rows, chunk: int = 0,
@@ -195,7 +201,7 @@ def flash_bwd_dq_cuda(q, k, v, lens, do, lse, d_rows, chunk: int = 0,
     """Kernel launch: → dq [B, T, h, dh] contiguous."""
     dims, strides = _geometry(q, k, v, lens, chunk, left_chunks,
                               ("do", do))
-    _check_rows(lse, d_rows, q)
+    _check_bwd(lse, d_rows, q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _kernels.FLASH_BWD_DQ.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -209,7 +215,7 @@ def flash_bwd_dkv_cuda(q, k, v, lens, do, lse, d_rows, chunk: int = 0,
     """Kernel launch: → (dk, dv) [B, T, h, dh] contiguous."""
     dims, strides = _geometry(q, k, v, lens, chunk, left_chunks,
                               ("do", do))
-    _check_rows(lse, d_rows, q)
+    _check_bwd(lse, d_rows, q, k, v, do)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _kernels.FLASH_BWD_DKV.launch(

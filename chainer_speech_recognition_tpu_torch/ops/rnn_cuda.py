@@ -46,6 +46,10 @@ plain version for CPU tensors):
 training forward, the backward kernel, then dW = Σ_t h_prevᵀ·dgate as
 matmuls with compute-dtype operands and fp32 accumulation (``_dw_einsum``;
 for the LSTM the masked dg is dxs itself).
+
+``kernel_takes(H)`` is the hidden sizes the kernels take and the gate of
+``models/rnn.py``'s ``auto`` routing; ``ROUTED`` counts the path each
+layer call took.
 """
 
 from __future__ import annotations
@@ -53,6 +57,17 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
+
+
+# per-call routing log: models/rnn.py adds one to the path each layer call
+# takes (the kernels' wrappers, or the plain scan)
+ROUTED = {"kernel": 0, "scan": 0}
+
+
+def kernel_takes(H: int) -> bool:
+    """The hidden sizes the kernels take (one thread per unit): 32 ≤ H ≤
+    512 with H % 32 == 0."""
+    return H % 32 == 0 and 32 <= H <= 512
 
 
 def stream_dtype(compute_dtype: torch.dtype) -> torch.dtype:
@@ -264,7 +279,7 @@ def _check_sizes(T: int, R: int, H: int, compute_dtype,
         raise ValueError(f"{cell} kernel: need T >= 1, ndir 1 or 2 and R a "
                          f"positive multiple of ndir (got T={T}, R={R}, "
                          f"ndir={ndir})")
-    if H % 32 or not 32 <= H <= 512:
+    if not kernel_takes(H):
         raise ValueError(f"{cell} kernel: hidden size {H} unsupported (one "
                          "thread per unit: 32 <= H <= 512, H % 32 == 0)")
     return stream_dtype(compute_dtype)

@@ -117,8 +117,10 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
           dev_utts: list[Utterance] | None = None,
           metrics_path: str | None = None, resume: bool = True,
           profile_dir: str | None = None, device: str | torch.device = "cuda",
-          loader: BatchLoader | None = None):
-    """Train ``cfg.model`` on ``train_utts`` → the final TrainState."""
+          loader: BatchLoader | None = None, debug_nans: bool = False):
+    """Train ``cfg.model`` on ``train_utts`` → the final TrainState;
+    ``debug_nans`` checks every step's loss and gradients
+    (``step.backward_finite``)."""
     if cfg.train.keep_checkpoints < 1:
         raise ValueError("train.keep_checkpoints must be >= 1")
     check_trainable(cfg)
@@ -155,7 +157,7 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
     if ckpt:
         restore_checkpoint(ckpt, state)
         log.log("resume", checkpoint=ckpt, step=state.step)
-    train_step = make_train_step(cfg)
+    train_step = make_train_step(cfg, debug_nans)
     eval_step = make_eval_step(model, cfg)
     log.log("data_mode", mode=data_mode)
 

@@ -75,6 +75,13 @@ def check_trainable(cfg: Config) -> None:
             f"parallel.num_devices={cfg.parallel.num_devices}: data "
             "parallelism is not ported yet (ROADMAP.md, module queue: data "
             "parallelism); the port trains on one device")
+    if cfg.train.eval_beam > 0 or cfg.train.eval_lm:
+        raise NotImplementedError(
+            f"train.eval_beam={cfg.train.eval_beam}, "
+            f"train.eval_lm={cfg.train.eval_lm!r}: the periodic eval's beam "
+            "and beam+LM columns need prefix beam search and LM fusion, not "
+            "ported yet (ROADMAP.md, module queue: config 4, prefix beam "
+            "search with n-gram LM fusion); the port's dev eval is greedy")
 
 
 def step_draws(cfg: Config, state: TrainState, batch: dict):
@@ -91,11 +98,33 @@ def step_draws(cfg: Config, state: TrainState, batch: dict):
     return draws
 
 
-def make_train_step(cfg: Config) -> Callable:
+def backward_finite(loss: torch.Tensor, params: dict, step: int) -> None:
+    """``loss.backward()`` for ``--debug-nans`` (the reference's
+    ``jax_debug_nans``): raise ``FloatingPointError`` naming the step and
+    the first non-finite tensor: the loss, a backward function's output
+    (as anomaly detection, on in that mode, reports it) or a parameter's
+    gradient. Each check reads the device, so the step waits for it."""
+    if not bool(torch.isfinite(loss)):
+        raise FloatingPointError(f"step {step}: non-finite loss "
+                                 f"({float(loss)})")
+    try:
+        loss.backward()
+    except RuntimeError as e:
+        if "nan values" not in str(e):
+            raise
+        raise FloatingPointError(f"step {step}: {e}") from e
+    for name, p in params.items():
+        if p.grad is not None and not bool(torch.isfinite(p.grad).all()):
+            raise FloatingPointError(
+                f"step {step}: non-finite gradient of {name}")
+
+
+def make_train_step(cfg: Config, debug_nans: bool = False) -> Callable:
     """→ ``train_step(state, batch) -> metrics``: one optimizer step on
     ``state`` (parameters and moments updated in place, step + 1);
     metrics ``loss``, ``grad_norm`` (before clipping) and ``valid_frac``
-    are 0-d tensors on the device, read only when logged."""
+    are 0-d tensors on the device, read only when logged. ``debug_nans``
+    checks the loss and every gradient (``backward_finite``)."""
     check_trainable(cfg)
     tx = Optimizer(cfg.optim)
 
@@ -106,7 +135,10 @@ def make_train_step(cfg: Config) -> Callable:
             p.grad = None
         loss, (n_valid, n_real), _, _ = forward_loss(
             model, cfg, batch, step_draws(cfg, state, batch))
-        loss.backward()
+        if debug_nans:
+            backward_finite(loss, params, state.step + 1)
+        else:
+            loss.backward()
         grads = {k: p.grad for k, p in params.items()}
         gnorm = global_norm(grads.values())
         with torch.no_grad():

@@ -79,8 +79,11 @@ no result line) if any phase fails:
     chunk 16 / left 4 at T' = 701 (key tiles skipped), ragged lengths with
     1 and T', q/k/v strided as the fused qkv projection gives them; timed
     (bf16) beside the bound, the plain versions and
-    ``F.scaled_dot_product_attention`` with the same boolean mask, and the
-    port's einsum path at T' = 256 and 701 (the flash/einsum crossover);
+    ``F.scaled_dot_product_attention`` with the same boolean mask (the
+    backward pair and SDPA's backward in 9 alternating rounds of CUDA
+    graph replays, device time only: medians, the pair's ratio to SDPA
+    with its spread, each kernel's share of its bound), and the port's
+    einsum path at T' = 256 and 701 (the flash/einsum crossover);
     the framed-input front-end kernel (row 2) at B = 32, T = 1001 beside
     cuFFT, and one call of its entry point ``cuda_frontend.fused_logmel``;
 19. conformer decode: a random-weight checkpoint through the decode CLI
@@ -231,6 +234,7 @@ SOURCES = {
         "chainer_speech_recognition_tpu/ops/attention_pallas.py:254"),
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+GRAPH_CALLS = 10        # calls in one CUDA graph of phase 18's rounds
 # H100 SXM datasheet: HBM bytes/s, dense peak FLOP/s
 HBM_RATE = 3.35e12
 PEAK = {"bf16": 989e12, "fp32": 67e12}
@@ -1681,6 +1685,38 @@ def subsampled(num_samples, frames: int, strides) -> tuple:
     return flen, T
 
 
+def graph_of(fn, calls: int = GRAPH_CALLS):
+    """``calls`` back-to-back calls of ``fn`` captured in one CUDA graph
+    (warmed up on a side stream first, as capture asks) → (the graph's
+    replay, the last captured call's result, which each replay rewrites)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            res = fn()
+    return graph.replay, res
+
+
+def alternating_ms(replays: dict, rounds: int = 9,
+                   calls: int = GRAPH_CALLS) -> dict:
+    """Device time (ms) of one call of each ``graph_of`` graph's function,
+    the graphs replayed in turn ``rounds`` times (CUDA events, warm): no
+    host time enters, and drift between rounds moves all of them alike.
+    → {name: [ms a round]}."""
+    out = {n: [] for n in replays}
+    for _ in range(rounds):
+        for n, replay in replays.items():
+            out[n].append(time_ms(replay, warmup=0, reps=1) / calls)
+    return out
+
+
 def flash_bound(B, T, h, dh, pairs, n_read, n_write, n_rows, ops_per_pair):
     """The least time of one flash kernel (bf16): ``n_read`` + ``n_write``
     [B, T, h, dh] bf16 tensors, ``n_rows`` [B, h, T] fp32 rows (lse, D)
@@ -1792,20 +1828,8 @@ def phase_attention_kernels(dev, rng) -> dict:
                 plain_ms=time_ms(lambda: ac.flash_fwd_plain(
                     q, k, v, lens, chunk, left), warmup=1, reps=3),
                 **flash_bound(B, T, h, dh, pairs, 3, 1, 1, 4))
-            t["flash_bwd_dq"] = dict(
-                max_abs_err=gerr["dq"],
-                ms=time_ms(lambda: ac.flash_bwd_dq_cuda(*args)),
-                plain_ms=time_ms(lambda: ac.flash_bwd_dq_plain(*args),
-                                 warmup=1, reps=3),
-                **flash_bound(B, T, h, dh, pairs, 4, 1, 2, 6))
-            t["flash_bwd_dkv"] = dict(
-                max_abs_err=max(gerr["dk"], gerr["dv"]),
-                ms=time_ms(lambda: ac.flash_bwd_dkv_cuda(*args)),
-                plain_ms=time_ms(lambda: ac.flash_bwd_dkv_plain(*args),
-                                 warmup=1, reps=3),
-                **flash_bound(B, T, h, dh, pairs, 4, 2, 2, 8))
             # yardstick: PyTorch's SDPA with the same boolean mask, heads
-            # second; the backward computes dq, dk and dv in one call
+            # second; its backward computes dq, dk and dv in one call
             qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
             leaves = [x.detach().clone().requires_grad_() for x in
                       (qh, kh, vh)]
@@ -1815,17 +1839,56 @@ def phase_attention_kernels(dev, rng) -> dict:
                     F.scaled_dot_product_attention(qh, kh, vh, attn_mask=ok)
 
             def sdpa_train():
-                F.scaled_dot_product_attention(*leaves, attn_mask=ok)
+                return F.scaled_dot_product_attention(*leaves, attn_mask=ok)
 
-            def sdpa_fwd_bwd():
-                F.scaled_dot_product_attention(
-                    *leaves, attn_mask=ok).backward(doh)
-
-            lib_fwd = time_ms(sdpa_fwd)
-            lib_bwd = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_train)
-            t["flash_fwd"]["library_ms"] = lib_fwd
-            t["flash_bwd_dq"]["library_ms"] = lib_bwd
-            t["flash_bwd_dkv"]["library_ms"] = lib_bwd
+            # the backward pair and SDPA's backward in alternating rounds of
+            # CUDA-graph replays, device time only on both sides; SDPA's
+            # backward is its forward and backward less its training
+            # forward, the two captured alike
+            g_dq, dq_g = graph_of(lambda: ac.flash_bwd_dq_cuda(*args))
+            g_dkv, dkv_g = graph_of(lambda: ac.flash_bwd_dkv_cuda(*args))
+            g_fb, _ = graph_of(lambda: torch.autograd.grad(
+                sdpa_train(), leaves, doh))
+            g_fw, _ = graph_of(sdpa_train)
+            rounds = alternating_ms({
+                "flash_bwd_dq": g_dq, "flash_bwd_dkv": g_dkv,
+                "sdpa_fwd_bwd": g_fb, "sdpa_train": g_fw})
+            check(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                      for a, b in zip((dq_g, *dkv_g), (dq, dk, dv))),
+                  f"flash backward {tag}: a replay differs from the eager "
+                  "call (not deterministic)")
+            rounds["sdpa_bwd"] = [a - b for a, b in zip(
+                rounds["sdpa_fwd_bwd"], rounds["sdpa_train"])]
+            med = {n: statistics.median(r) for n, r in rounds.items()}
+            ratio = [(a + b) / c for a, b, c in zip(
+                rounds["flash_bwd_dq"], rounds["flash_bwd_dkv"],
+                rounds["sdpa_bwd"])]
+            t["flash_bwd_dq"] = dict(
+                max_abs_err=gerr["dq"], ms=med["flash_bwd_dq"],
+                plain_ms=time_ms(lambda: ac.flash_bwd_dq_plain(*args),
+                                 warmup=1, reps=3),
+                **flash_bound(B, T, h, dh, pairs, 4, 1, 2, 6))
+            t["flash_bwd_dkv"] = dict(
+                max_abs_err=max(gerr["dk"], gerr["dv"]),
+                ms=med["flash_bwd_dkv"],
+                plain_ms=time_ms(lambda: ac.flash_bwd_dkv_plain(*args),
+                                 warmup=1, reps=3),
+                **flash_bound(B, T, h, dh, pairs, 4, 2, 2, 8))
+            t["flash_fwd"]["library_ms"] = time_ms(sdpa_fwd)
+            t["flash_bwd_dq"]["library_ms"] = med["sdpa_bwd"]
+            t["flash_bwd_dkv"]["library_ms"] = med["sdpa_bwd"]
+            pair = med["flash_bwd_dq"] + med["flash_bwd_dkv"]
+            print(f"[attn-kernels] {tag} backward, {len(ratio)} alternating "
+                  f"rounds of graph replays (medians): dq "
+                  f"{med['flash_bwd_dq']:.4f} ms "
+                  f"({t['flash_bwd_dq']['bound_ms'] / med['flash_bwd_dq']:.3f}"
+                  f" of its bound), dkv {med['flash_bwd_dkv']:.4f} ms "
+                  f"({t['flash_bwd_dkv']['bound_ms'] / med['flash_bwd_dkv']:.3f}"
+                  f" of its bound), pair {pair:.4f} ms; SDPA backward "
+                  f"{med['sdpa_bwd']:.4f} ms (forward and backward "
+                  f"{med['sdpa_fwd_bwd']:.4f} ms); pair / SDPA "
+                  f"{statistics.median(ratio):.3f} (rounds {min(ratio):.3f}"
+                  f"-{max(ratio):.3f}); replays equal the eager outputs")
             for name in FLASH:
                 r = t[name]
                 both = " (dq, dk, dv together)" if name != "flash_fwd" else ""

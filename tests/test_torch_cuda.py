@@ -399,7 +399,13 @@ def _flash_inputs(dev, B, T, h, dh, dtype, seed, strided):
 
 @pytest.mark.parametrize("B,T,h,dh,chunk,left", [
     (1, 1, 1, 64, 0, 0), (3, 70, 2, 64, 0, 0), (4, 200, 2, 64, 16, 2),
-    (2, 130, 3, 64, 0, 0), (3, 300, 2, 64, 16, 4), (2, 65, 1, 64, 8, 1)])
+    (2, 130, 3, 64, 0, 0), (3, 300, 2, 64, 16, 4), (2, 65, 1, 64, 8, 1)]
+    # the 64-row tile edges, strided (even B) and contiguous (odd B), and
+    # the long-form length, whole and in 16/4 chunks
+    + [(B, T, 2, 64, 0, 0) for T in (63, 64, 65, 127, 128, 129)
+       for B in (2, 3)]
+    + [(2, 701, 4, 64, 0, 0), (3, 701, 2, 64, 0, 0), (2, 701, 2, 64, 16, 4),
+       (3, 701, 2, 64, 16, 4)])
 @pytest.mark.parametrize("dtype,tol,gtol", [
     (torch.float32, (2e-5, 2e-5), (3e-4, 3e-4)),
     (torch.bfloat16, (2 ** -7, 1e-5), (2 ** -7, 1e-3))])
@@ -447,6 +453,35 @@ def test_flash_kernels_match_plain(dev, B, T, h, dh, chunk, left, dtype,
                                    atol=gtol[1])
     after = {n: _kernels.KERNELS[n].launches for n in before}
     assert after == {n: c + 1 for n, c in before.items()}
+
+
+@pytest.mark.parametrize("chunk,left", [(0, 0), (16, 4)])
+def test_flash_bwd_bf16_is_bitwise_repeatable(dev, chunk, left):
+    """Each output tile has one owner block and no atomics: two bf16
+    backward calls on the same inputs give the same bits."""
+    q, k, v, do, lens = _flash_inputs(dev, 4, 701, 4, 64, torch.bfloat16,
+                                      chunk + 1, strided=True)
+    out, lse = ac.flash_fwd_cuda(q, k, v, lens, chunk, left)
+    d_rows = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, lens, do, lse, d_rows, chunk, left)
+    runs = [(ac.flash_bwd_dq_cuda(*args), *ac.flash_bwd_dkv_cuda(*args))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_flash_bwd_bf16_refuses_unaligned_rows(dev):
+    """The bf16 backward copies 16-byte pieces of each row: a t stride
+    that is not a multiple of 8 values is refused, not misread."""
+    B, T, h = 2, 10, 2
+    q = torch.zeros(B, T, h * 64 + 4, device=dev, dtype=torch.bfloat16)[
+        ..., :h * 64].reshape(B, T, h, 64)
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    rows = torch.zeros(B, h, T, device=dev)
+    for launch in (ac.flash_bwd_dq_cuda, ac.flash_bwd_dkv_cuda):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            launch(q, q, q, lens, q, rows, rows)
 
 
 def test_flash_mhsa_autograd_on_card(dev):

@@ -118,3 +118,65 @@ def test_cli_refuses_packed_corpus_and_missing_card(data_dir, tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(["--data-dir", data_dir, "--device", "cuda"])
+
+
+@pytest.mark.parametrize("sets", [["train.eval_beam=4"],
+                                  ["train.eval_lm=lm.arpa"]])
+def test_cli_refuses_beam_eval_columns_before_a_step(data_dir, tmp_path,
+                                                     sets):
+    """The reference's periodic eval adds beam and beam+LM columns; the
+    port has no beam search yet, so it refuses them rather than ignore
+    them, before any step."""
+    with pytest.raises(NotImplementedError, match="config 4"):
+        _run(data_dir, tmp_path, "train.data_mode=stream", *sets)
+    assert not os.path.exists(tmp_path / "ckpt") or not list_checkpoints(
+        str(tmp_path / "ckpt"))
+
+
+def test_cli_debug_nans_trains_and_scopes_anomaly_mode(data_dir, tmp_path):
+    """``--debug-nans`` (the reference's flag) checks each step and turns
+    anomaly detection on for the run only."""
+    ev = _run(data_dir, tmp_path, "train.data_mode=stream",
+              "train.total_steps=2", "train.log_every=1",
+              extra=["--debug-nans"])
+    train = [e for e in ev if e["kind"] == "train"]
+    assert [e["step"] for e in train] == [1, 2]
+    assert all(np.isfinite(e["loss"]) for e in train)
+    assert not torch.is_anomaly_enabled()
+
+
+def test_debug_nans_step_raises_on_a_nan_feature():
+    """One NaN input feature: the debug step raises FloatingPointError
+    naming the step; without the check the step runs on."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.frontend import select_frontend
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model, init_parameters)
+    from chainer_speech_recognition_tpu_torch.train.state import init_state
+    from chainer_speech_recognition_tpu_torch.train.step import (
+        make_train_step)
+
+    cfg = preset_config("bigru").override(
+        {"model.rnn_hidden": 32, "model.rnn_layers": 1,
+         "model.conv_channels": [4, 4]})
+    rng = np.random.default_rng(0)
+    sig = torch.from_numpy(0.3 * rng.standard_normal((2, 8000)).astype(
+        np.float32))
+    feats, flens = select_frontend(cfg.features)(
+        sig, torch.tensor([8000, 6000], dtype=torch.int32),
+        apply_cmvn=cfg.features.cmvn_arg)
+    feats[0, 10, 5, 0] = float("nan")
+    batch = {"features": feats, "frame_lengths": flens,
+             "labels": torch.tensor([[1, 2, 3], [4, 5, 0]], dtype=torch.int32),
+             "label_lengths": torch.tensor([3, 2], dtype=torch.int32)}
+
+    def step(debug_nans: bool):
+        model = build_model(cfg.model)
+        init_parameters(model, 0)
+        state = init_state(model, cfg.optim, 0)
+        with torch.autograd.set_detect_anomaly(debug_nans):
+            return make_train_step(cfg, debug_nans)(state, batch)
+
+    with pytest.raises(FloatingPointError, match="step 1: "):
+        step(True)
+    step(False)
