@@ -184,13 +184,21 @@ def flash_fwd_cuda(q, k, v, lens, chunk: int = 0, left_chunks: int = 0):
     return out, lse
 
 
+def rows_aligned16(t: torch.Tensor) -> bool:
+    """Whether every [..., dh] row of a bf16 ``[B, T, h, dh]`` tensor
+    starts on 16 bytes (data pointer and b, t, h strides multiples of 8
+    values), as the backward kernels' tensor-core path copies them."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0
+                                          for s in t.stride()[:3])
+
+
 def _check_bwd(lse, d_rows, q, k, v, do):
     B, T, h, _ = q.shape
     _kernels.check_cuda_tensor("lse", lse, torch.float32, (B, h, T))
     _kernels.check_cuda_tensor("d_rows", d_rows, torch.float32, (B, h, T))
     if q.dtype == torch.bfloat16:     # the tensor-core path's 16-byte copies
         for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            if not rows_aligned16(t):
                 raise ValueError(
                     f"{name}: the bf16 backward kernels need 16-byte aligned "
                     "rows (data pointer and b, t, h strides multiples of 8)")
@@ -276,6 +284,12 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, lens, out, lse = ctx.saved_tensors
         do = do.to(q.dtype)
+        if q.is_cuda and q.dtype == torch.bfloat16:
+            # the bf16 kernels read 16-byte aligned rows; autograd may hand
+            # over any strides, so a misaligned operand is copied, not refused
+            q, k, v, do = (t if rows_aligned16(t) else
+                           t.clone(memory_format=torch.contiguous_format)
+                           for t in (q, k, v, do))
         # D = rowsum(dO ⊙ O): one elementwise reduce, as in the reference
         d_rows = (do.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()                                   # [B, h, T]

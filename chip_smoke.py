@@ -1685,10 +1685,11 @@ def subsampled(num_samples, frames: int, strides) -> tuple:
     return flen, T
 
 
-def graph_of(fn, calls: int = GRAPH_CALLS):
+def graph_of(fn, calls: int = GRAPH_CALLS, mode: str = "global"):
     """``calls`` back-to-back calls of ``fn`` captured in one CUDA graph
-    (warmed up on a side stream first, as capture asks) → (the graph's
-    replay, the last captured call's result, which each replay rewrites)."""
+    (warmed up on a side stream first, as capture asks; ``mode`` is the
+    capture's error mode) → (the graph's replay, the last captured call's
+    result, which each replay rewrites)."""
     import torch
 
     side = torch.cuda.Stream()
@@ -1698,7 +1699,7 @@ def graph_of(fn, calls: int = GRAPH_CALLS):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode=mode):
         for _ in range(calls):
             res = fn()
     return graph.replay, res

@@ -117,6 +117,18 @@ def test_length_zero_row_is_finite():
         assert torch.isfinite(g).all() and torch.all(g[0] == 0)
 
 
+@pytest.mark.parametrize("extra,offset,aligned", [
+    (0, 0, True), (8, 0, True), (4, 0, False), (0, 4, False), (0, 8, True)])
+def test_rows_aligned16(extra, offset, aligned):
+    """The bf16 backward's row rule: the data pointer and the b, t, h
+    strides of a [B, T, h, 64] view all multiples of 8 values; the fused
+    qkv projection's slices (t stride 3·h·64) keep it."""
+    wide = torch.zeros(2, 5, offset + 3 * 2 * 64 + extra,
+                       dtype=torch.bfloat16)
+    q = wide[..., offset:offset + 2 * 64].reshape(2, 5, 2, 64)
+    assert tc.rows_aligned16(q) == aligned
+
+
 def test_auto_gate():
     """The reference's long-form gate (T' > 512) with the kernels' head
     width in place of the TPU's lane rule."""

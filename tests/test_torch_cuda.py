@@ -501,6 +501,31 @@ def test_flash_mhsa_autograd_on_card(dev):
         assert float((a.grad - b.grad).abs().max()) <= 3e-4
 
 
+def test_flash_mhsa_bf16_autograd_takes_unaligned_rows(dev):
+    """Under autograd the bf16 backward copies operands whose rows are not
+    16-byte aligned instead of refusing them: q, k, v and the incoming
+    gradient views with a t stride of 2·64 + 4 values give the gradients of
+    aligned copies, bit for bit."""
+    B, T, h = 2, 70, 2
+
+    def unaligned(t):                      # [B, T, h, 64] → odd t stride
+        wide = torch.zeros(B, T, h * 64 + 4, device=dev, dtype=t.dtype)
+        wide[..., :h * 64] = t.reshape(B, T, h * 64)
+        return wide[..., :h * 64].reshape(B, T, h, 64)
+
+    q, k, v, do, lens = _flash_inputs(dev, B, T, h, 64, torch.bfloat16, 11,
+                                      strided=False)
+    grads = []
+    for make in (unaligned, lambda t: t.clone()):
+        leaves = [make(t).requires_grad_() for t in (q, k, v)]
+        g = make(do)
+        assert ac.rows_aligned16(g) == (make is not unaligned)
+        out = ac.flash_mhsa(*leaves, lens)
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for a, b in zip(*grads):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 def test_flash_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(2, 10, 2, 64, device=dev)
     lens = torch.full((2,), 10, dtype=torch.int32, device=dev)
