@@ -39,12 +39,16 @@
 // flight while the current one is multiplied. A warp holds the scores of
 // 32 columns at a time, which keeps the registers (dK/dV: two 16 x 64 fp32
 // accumulators) within 168 a thread, three blocks an SM; shared memory is
-// 48-49 KB a block. p is exp2 of one fma; the rounding guard below makes
-// p and ds round to bf16 as the plain version's fp32 arithmetic rounds
-// them. mma.sync rather than wgmma: a warp's 16 rows are the unit of
-// FlashAttention-2's register reuse, wgmma's 64-row warpgroup tiles would
-// need its descriptors and a producer warp; mma.sync issues at a lower
-// rate than wgmma on Hopper, the cost of this simpler design.
+// 48-49 KB a block. p is exp2 of one fma. The tensor cores sum q.k and
+// dO.v in another order than the plain version's fp32 matmul, so a p or ds
+// near a bf16 rounding midpoint may round one ulp the other way: the
+// gradients are held to a bar derived from that rounding (2^-7 |b| plus
+// the sum of one bf16 ulp of each p or ds times its partner operand, plus
+// 1e-3: attention_cuda.bwd_rounding_room). mma.sync rather than wgmma: a
+// warp's 16 rows are the unit of FlashAttention-2's register reuse,
+// wgmma's 64-row warpgroup tiles would need its descriptors and a producer
+// warp; mma.sync issues at a lower rate than wgmma on Hopper, the cost of
+// this simpler design.
 //
 // fp32 (the parity runs only): the first version's FMA path, with fp32
 // tiles in shared memory (attention_common.cuh). TF32 tensor cores would
@@ -55,12 +59,11 @@
 // rows may attend one of its keys (query_range: every query row < T,
 // padded rows included, as the TPU kernel does); a key tile at or past the
 // row's length writes zeros.
-#include "attention_common.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
 using namespace csr_attn;
-using bf16 = __nv_bfloat16;
 
 // ------------------------------------------------------------- fp32 (FMA)
 
@@ -268,233 +271,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------- bf16 (tensor cores)
 
-constexpr int kDh = 64;                   // the head width of this path
-constexpr int kWarps = kTile / 16;        // a warp owns 16 rows of a tile
-constexpr int kThreadsTc = 32 * kWarps;
-constexpr int kTileBytes = kTile * kDh * 2;   // a [64][64] bf16 tile
 constexpr int kRowsBytes = 2 * 2 * kTile * 4;  // lse and D, two stages
-constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// byte offset of 16-byte chunk c (8 values) of row r in a [64][64] bf16
-// tile: the chunk is stored at c ^ (r % 8), so the 8 rows that one phase
-// of ldmatrix reads, or a warp's copies write, fall in distinct banks
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this thread are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// rows [row0, row0 + 64) of one head (base: its row 0, st: the t stride)
-// into a swizzled tile; rows at or past T are zero-filled
-__device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* base,
-                                                int64_t st, int row0, int T) {
-#pragma unroll
-  for (int j = 0; j < kTile * 8 / kThreadsTc; ++j) {
-    const int i = threadIdx.x + j * kThreadsTc, r = i >> 3, c = i & 7;
-    const int t = row0 + r;
-    const bool ok = t < T;
-    cp_async16(dst + swz(r, c), base + (ok ? t * st : 0) + c * 8, ok);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t r[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// Fragment addresses (lane l) of the m16n8k16 operands in a swizzled tile.
-// A: rows r0..r0+15, k-step kk (columns 16kk..16kk+15), row-major.
-__device__ __forceinline__ uint32_t a_frag(uint32_t tile, int r0, int kk,
-                                           int l) {
-  return tile + swz(r0 + (l & 15), 2 * kk + (l >> 4));
-}
-// B of two n-tiles (rows n0..n0+15 of a tile stored [n][k]) at k-step kk:
-// registers {0, 1} hold n-tile n0, {2, 3} n-tile n0 + 8
-__device__ __forceinline__ uint32_t b_frag(uint32_t tile, int n0, int kk,
-                                           int l) {
-  return tile + swz(n0 + (l & 7) + ((l >> 4) << 3), 2 * kk + ((l >> 3) & 1));
-}
-// B of two n-tiles (columns 16nb..16nb+15) of a tile stored [k][n], k rows
-// k0..k0+15, for ldmatrix.trans: registers {0, 1} hold columns 16nb.., {2,
-// 3} columns 16nb+8..
-__device__ __forceinline__ uint32_t bt_frag(uint32_t tile, int k0, int nb,
-                                            int l) {
-  return tile + swz(k0 + (l & 7) + (((l >> 3) & 1) << 3), 2 * nb + (l >> 4));
-}
-
-// c += a . b for one m16n8k16 bf16 product with fp32 accumulators
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The accumulators x[j] of four n-tiles (32 columns) as the A operands of
-// two k-steps over those columns, rounded to bf16: n-tile j is the half
-// j % 2 of k-step j / 2 (the FlashAttention-2 register reuse).
-__device__ __forceinline__ void to_a_frags(const float x[4][4],
-                                           uint32_t a[2][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    a[j >> 1][2 * (j & 1)] = pack_bf16(x[j][0], x[j][1]);
-    a[j >> 1][2 * (j & 1) + 1] = pack_bf16(x[j][2], x[j][3]);
-  }
-}
-
-// p = exp(s * scale - lse), the fast form (the guard below covers its
-// last bits)
+// p = exp(s * scale - lse), the fast form
 __device__ __forceinline__ float prob(float s, float scale, float lse_t) {
   return exp2f(fmaf(s, scale * kLog2e, -lse_t * kLog2e));
-}
-
-// Rounding guard. The tensor cores sum q.k and dO.v in another order than
-// the plain version's fp32 matmul, so s and dp differ from it in the last
-// bits, and a p or ds that lies near a bf16 rounding midpoint can round the
-// other way: one ulp of a large p or ds moves dv, dk or dq by more than the
-// gradient bar (2^-7 |b| + 1e-3). An element is flagged when it is large
-// enough for that (p >= 2^-5, |ds| >= 2^-2: a flip below moves an output
-// by less than 2^-13 |dO| or 2^-13 |q|, under the bar's 1e-3) and lies
-// within kNear fp32 ulps of a midpoint (several times the difference the
-// two sums show at these widths), or ds = p (dp - D) is near a
-// cancellation (|dp - D| < 2); a flagged element is recomputed with the
-// plain version's arithmetic (dot_seq, expf), so its p and ds round as
-// there. A warp with no large p or ds skips the test. Without the guard,
-// the gradients of chip_smoke.py's chunk 16/4 case (short windows, large
-// p) break the bar.
-//
-// The four constants (kPMin, kDsMin, kNear and the |dp - D| < 2 test) were
-// fitted by sweeps, not derived: on an H100, bf16, h = 4, dh = 64, at
-// chip_smoke.py phase 18's three shapes (B = 32, T' = 701, chunk 0 and
-// chunk 16 / left 4; B = 24, T' = 256), on phase 18's own inputs and on
-// numpy generators seeded 3 (all three shapes), 7 and 8 (chunk 16/4) and
-// 9 (chunk 0 at T' = 701). No bound on the tensor
-// cores' summation error backs the 512-ulp window: a bar derived from the
-// rounding itself (one bf16 ulp of each p or ds times its partner operand,
-// summed) is to replace the guard and its constants (ROADMAP.md).
-constexpr float kPMin = 0.03125f;
-constexpr float kDsMin = 0.25f;
-constexpr uint32_t kNear = 0x200;
-
-__device__ __forceinline__ bool near_midpoint(float x) {
-  return ((__float_as_uint(x) + (kNear - 0x8000u)) & 0xffffu) <= 2 * kNear;
-}
-
-// x[idx / 4][idx % 4] = v, with the register index known at compile time
-__device__ __forceinline__ void put(float x[4][4], int idx, float v) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (idx == 4 * j + e) x[j][e] = v;
-}
-
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr));
-  return v;
-}
-
-__device__ __forceinline__ float fma_pair(uint32_t a, uint32_t b, float s) {
-  s = fmaf(__uint_as_float(a << 16), __uint_as_float(b << 16), s);
-  return fmaf(__uint_as_float(a & 0xffff0000u),
-              __uint_as_float(b & 0xffff0000u), s);
-}
-
-// row ra of tile ta . row rb of tile tb as the plain version's fp32 matmul
-// sums it: fmaf over the head dim in order, from 0
-__device__ __forceinline__ float dot_seq(uint32_t ta, int ra, uint32_t tb,
-                                         int rb) {
-  float s = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kDh / 8; ++c) {
-    const uint4 a = lds128(ta + swz(ra, c)), b = lds128(tb + swz(rb, c));
-    s = fma_pair(a.x, b.x, s);
-    s = fma_pair(a.y, b.y, s);
-    s = fma_pair(a.z, b.z, s);
-    s = fma_pair(a.w, b.w, s);
-  }
-  return s;
-}
-
-// The guard over a warp's 4 x 4 elements of p and ds (p is tested only with
-// kCheckP: the dQ kernel rounds ds alone); exact(idx, p, ds) recomputes
-// element idx = 4j + e, which each lane does for one flag at a time.
-template <bool kCheckP, typename Exact>
-__device__ __forceinline__ void guard(float p[4][4], float ds[4][4],
-                                      Exact exact) {
-  bool large = false;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      large |= (kCheckP && p[j][e] >= kPMin) || fabsf(ds[j][e]) >= kDsMin;
-  if (!__any_sync(0xffffffffu, large)) return;
-  uint32_t flags = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float x = p[j][e], y = ds[j][e];
-      if ((kCheckP && x >= kPMin && near_midpoint(x)) ||
-          (fabsf(y) >= kDsMin && (near_midpoint(y) || fabsf(y) < 2.0f * x)))
-        flags |= 1u << (4 * j + e);
-    }
-  while (__any_sync(0xffffffffu, flags)) {
-    const int idx = flags ? __ffs(flags) - 1 : -1;
-    flags &= flags - 1;
-    if (idx >= 0) {
-      float pe, dse;
-      exact(idx, pe, dse);
-      put(p, idx, pe);
-      put(ds, idx, dse);
-    }
-  }
 }
 
 // S (or S^T) and dP (or dP^T) of a warp's 16 rows against 32 columns:
@@ -523,41 +304,6 @@ __device__ __forceinline__ void scores_tc(uint32_t ax, uint32_t ay,
       mma(y[2 * nb], fb, gy[0], gy[1]);
       mma(y[2 * nb + 1], fb, gy[2], gy[3]);
     }
-  }
-}
-
-// acc[0..7] (a warp's 16 rows x 64 head-dim columns) += a . tile rows
-// k0..k0+31, a the A operands of two k-steps
-__device__ __forceinline__ void product_tc(float acc[8][4],
-                                           const uint32_t a[2][4],
-                                           uint32_t tile, int k0, int l) {
-#pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-    for (int nb = 0; nb < kDh / 16; ++nb) {
-      uint32_t f[4];
-      ldsm_x4_t(bt_frag(tile, k0 + 16 * kk, nb, l), f);
-      mma(acc[2 * nb], a[kk], f[0], f[1]);
-      mma(acc[2 * nb + 1], a[kk], f[2], f[3]);
-    }
-}
-
-// a warp's accumulator rows (r, r + 8 with r = lane / 4; columns 8j + 2
-// (lane % 4) + {0, 1}) times `scale` into rows t0, t0 + 8 of a [B, T, h,
-// 64] contiguous bf16 output; rows at or past T are not written
-__device__ __forceinline__ void store_rows(bf16* out, const float acc[8][4],
-                                           float scale, int b, int t0,
-                                           int head, const Dims& d, int l) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = t0 + 8 * i;
-    if (t >= d.T) continue;
-    bf16* o = out + ((static_cast<int64_t>(b) * d.T + t) * d.h + head) * kDh +
-              2 * (l & 3);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
-          acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
   }
 }
 
@@ -646,13 +392,6 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           s[j][e] = ok ? prob(s[j][e], scale, lse_r[i]) : 0.0f;
           dp[j][e] = s[j][e] * (dp[j][e] - dr[i]);
         }
-      guard<false>(s, dp, [&](int idx, float& p, float& ds) {
-        const int i = (idx & 3) >> 1;
-        const int c = c0 + 8 * (idx >> 2) + 2 * (l & 3) + (idx & 1);
-        const int r = 16 * w + (l >> 2) + 8 * i;
-        p = expf(dot_seq(sQ, r, sK, c) * scale - (i ? lse_r[1] : lse_r[0]));
-        ds = p * (dot_seq(sdO, r, sV, c) - (i ? dr[1] : dr[0]));
-      });
       uint32_t da[2][4];
       to_a_frags(dp, da);
       product_tc(acc, da, sK, c0, l);
@@ -757,12 +496,6 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
             s[j][e] = ok ? prob(s[j][e], scale, lse_s[c]) : 0.0f;
             dp[j][e] = s[j][e] * (dp[j][e] - d_s[c]);
           }
-        guard<true>(s, dp, [&](int idx, float& p, float& ds) {
-          const int c = c0 + 8 * (idx >> 2) + 2 * (l & 3) + (idx & 1);
-          const int r = 16 * w + (l >> 2) + 8 * ((idx & 3) >> 1);
-          p = expf(dot_seq(sK, r, sQ, c) * scale - lse_s[c]);
-          ds = p * (dot_seq(sV, r, sdO, c) - d_s[c]);
-        });
         uint32_t pa[2][4], da[2][4];
         to_a_frags(s, pa);
         to_a_frags(dp, da);

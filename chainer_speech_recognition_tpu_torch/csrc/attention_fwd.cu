@@ -7,40 +7,54 @@
 //
 // q, k, v are read as [B, T, h, dh] through their strides (the q/k/v
 // slices of the fused qkv projection need no copy); out is [B, T, h, dh] in
-// the compute dtype S (fp32 or bf16), lse [B, h, T] fp32.
+// the compute dtype (fp32 or bf16), lse [B, h, T] fp32.
 //
-// What bounds it on Hopper: operations. 4*T*T_eff*dh per (row, head)
-// (T_eff the keys inside a row's window) against ~T*dh*10 bytes moved:
-// at T' ~ 700 that is ~100 flops a byte, above the fp32 FMA ridge
-// (67 TFLOP/s / 3.35 TB/s = 20). This first version multiplies in plain
-// fp32 FMA from shared memory (a product of two bf16 values is exact in
-// fp32, so bf16 inputs give the reference's fp32 scores), not on the
-// tensor cores; mma/wgmma with a TMA-fed pipeline is later work.
+// What bounds it on Hopper: operations. 4*T_eff*dh per (row, head) (T_eff
+// the keys inside a row's window) against ~8*dh bytes a row in bf16: at
+// T' ~ 700 some 350 operations a byte, above the bf16 ridge (989 TFLOP/s /
+// 3.35 TB/s = 295).
 //
-// Design: one block per (b*h, 64-query tile), 256 threads. The Q tile is
-// staged in shared memory once; the block walks the 64-key tiles between
-// the bounds that the row's length and the chunk window give (the TPU
-// kernel visits every key block and skips in _skip_block; here no tile
-// outside the window is loaded), masking a partial tile per element at
-// -1e30. Each thread keeps a 4 x 4 block of scores, the running max m and
-// sum l of its 4 rows (shuffle reductions over the 16 lanes of a row) and
-// a 4 x dh/16 block of the output accumulator in fp32 registers; the
-// probabilities go through shared memory rounded to S (the reference
-// rounds them to the compute dtype before the value product) while l sums
-// them unrounded. Masked scores contribute exactly 0, so a row with no
-// allowed key ends with l = 0 and is written as out = 0, lse = -1e30:
-// every row stays finite.
-#include "attention_common.cuh"
+// bf16 (both presets): FlashAttention-2's layout on the tensor cores,
+// mma.sync m16n8k16 with fp32 accumulators (attention_mma.cuh, shared with
+// the backward). One block per (b*h, 64-query tile), four warps; warp w
+// holds the A fragments of its 16 query rows in registers for the whole
+// loop. The block walks the 64-key tiles between the bounds that its rows'
+// length and chunk window give (key_range: the TPU kernel visits every key
+// block and skips in _skip_block; here no tile outside the window is
+// loaded), K and V double-buffered by cp.async into XOR-swizzled bf16 tiles,
+// zero-filled past T. Per tile a warp computes S = Q.K^T (16 x 64, fp32
+// registers), scales it into log2 units, masks the elements outside each
+// row's window (only on tiles some row of the warp does not wholly see),
+// keeps the running max m of each row (shuffles over the row's quad of
+// lanes) and a thread's partial row sums l of the unrounded p, rescales its
+// output accumulators, and rounds p to bf16, as the reference rounds it
+// (attention_pallas.py:153), straight into the A operands of O += P.V (V
+// read through ldmatrix.trans). Masked elements contribute exactly 0, so a
+// row with no allowed key ends with l = 0 and is written as out = 0, lse =
+// -1e30: every row stays finite. 40 KB of shared memory a block.
+//
+// fp32 (the parity runs only): the first version's FMA path. One block per
+// (b*h, 64-query tile), 256 threads; the Q tile is staged in shared memory
+// once and each thread keeps a 4 x 4 block of scores, the running max and
+// sum of its 4 rows (shuffle reductions over the 16 lanes of a row) and a
+// 4 x dh/16 block of the output accumulator in fp32 registers; the
+// probabilities go through shared memory. TF32 tensor cores would keep ~3
+// decimal digits and miss the fp32 bar (2e-5).
+#include <math.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
 using namespace csr_attn;
 
-template <typename S, int DH>
+// ------------------------------------------------------------- fp32 (FMA)
+
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
-                 const S* __restrict__ v, const int* __restrict__ lens,
-                 S* __restrict__ out, float* __restrict__ lse, Dims d,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ lens,
+                 float* __restrict__ out, float* __restrict__ lse, Dims d,
                  Strides sq, Strides sk, Strides sv) {
   constexpr int LD = DH + 1;
   constexpr int NC = DH / 16;           // head-dim columns per thread
@@ -56,7 +70,7 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
 
-  load_tile<S, DH>(Qs, q, sq, b, head, q0, d.T);
+  load_tile<float, DH>(Qs, q, sq, b, head, q0, d.T);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -71,8 +85,8 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
   key_range(q0, len, d, &k_begin, &k_end);
   for (int k0 = (k_begin / kTile) * kTile; k0 < k_end; k0 += kTile) {
     __syncthreads();                    // the previous tile's readers are done
-    load_tile<S, DH>(Ks, k, sk, b, head, k0, d.T);
-    load_tile<S, DH>(Vs, v, sv, b, head, k0, d.T);
+    load_tile<float, DH>(Ks, k, sk, b, head, k0, d.T);
+    load_tile<float, DH>(Vs, v, sv, b, head, k0, d.T);
     __syncthreads();
 
     float s[4][4] = {};
@@ -95,7 +109,7 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
         sum += p;
-        Ps[(4 * ty + i) * kLdP + tx + 16 * j] = round_to<S>(p);
+        Ps[(4 * ty + i) * kLdP + tx + 16 * j] = p;
       }
       l[i] = l[i] * corr + row_sum16(sum);
       m[i] = m_new;
@@ -123,48 +137,208 @@ flash_fwd_kernel(const S* __restrict__ q, const S* __restrict__ k,
     const int t = q0 + 4 * ty + i;
     if (t >= d.T) continue;
     const bool live = l[i] > 0.0f;
-    S* o = out + ((static_cast<int64_t>(b) * d.T + t) * d.h + head) * DH;
+    float* o = out + ((static_cast<int64_t>(b) * d.T + t) * d.h + head) * DH;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      o[tx + 16 * c] = from_f32<S>(live ? acc[i][c] / l[i] : 0.0f);
+      o[tx + 16 * c] = live ? acc[i][c] / l[i] : 0.0f;
     if (tx == 0)
       lse[static_cast<int64_t>(bh) * d.T + t] =
           live ? m[i] + logf(l[i]) : kNeg;
   }
 }
 
-template <typename S, int DH>
+// ------------------------------------------------- bf16 (tensor cores)
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+__global__ void __launch_bounds__(kThreadsTc, 3)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const int* __restrict__ lens,
+                    bf16* __restrict__ out, float* __restrict__ lse, Dims d,
+                    Strides sq, Strides sk, Strides sv) {
+  extern __shared__ __align__(128) unsigned char smem_tc[];
+  // Q, then two stages of (K, V)
+  const uint32_t sQ = smem_addr(smem_tc), sKV = sQ + kTileBytes;
+
+  const int bh = blockIdx.y, b = bh / d.h, head = bh % d.h;
+  const int q0 = blockIdx.x * kTile;
+  const int len = max(0, min(lens[b], d.T));
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  // scores into log2 units: p = 2^(s * scale * log2(e) - m)
+  const float scale2 = kLog2e / sqrtf(static_cast<float>(kDh));
+  const bf16* kb = k + b * sk.b + head * sk.h;
+  const bf16* vb = v + b * sv.b + head * sv.h;
+
+  // this thread's queries t0 + 8i and the keys [s_lo, s_hi) each may attend
+  // (none past T)
+  const int t0 = q0 + 16 * w + (l >> 2);
+  int s_lo[2], s_hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + 8 * i;
+    const bool row = t < d.T;
+    s_lo[i] = 0;
+    s_hi[i] = row ? len : 0;
+    if (row && d.chunk) {
+      const int qc = t / d.chunk;
+      s_lo[i] = max(0, (qc - d.left) * d.chunk);
+      s_hi[i] = min(len, (qc + 1) * d.chunk);
+    }
+  }
+
+  // m: running max (log2 units), lsum: this thread's part of the row sums
+  float m[2] = {kNeg, kNeg}, lsum[2] = {0.0f, 0.0f};
+  float acc[8][4] = {};
+  uint32_t qa[kDh / 16][4];
+  int k_begin, k_end;
+  key_range(q0, len, d, &k_begin, &k_end);
+  const int first = (k_begin / kTile) * kTile;
+  const int n = k_end > first ? (k_end - first + kTile - 1) / kTile : 0;
+  if (n > 0) {
+    load_tile_async(sQ, q + b * sq.b + head * sq.h, sq.t, q0, d.T);
+    load_tile_async(sKV, kb, sk.t, first, d.T);
+    load_tile_async(sKV + kTileBytes, vb, sv.t, first, d.T);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n; ++it) {
+    const int k0 = first + it * kTile;
+    const uint32_t sK = sKV + (it & 1) * 2 * kTileBytes, sV = sK + kTileBytes;
+    if (it + 1 < n) {
+      const uint32_t nK = sKV + ((it + 1) & 1) * 2 * kTileBytes;
+      load_tile_async(nK, kb, sk.t, k0 + kTile, d.T);
+      load_tile_async(nK + kTileBytes, vb, sv.t, k0 + kTile, d.T);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kDh / 16; ++kk)
+        ldsm_x4(a_frag(sQ, 16 * w, kk, l), qa[kk]);
+    }
+
+    // S = Q.K^T: n-tile j holds keys k0 + 8j + 2 (l % 4) + {0, 1}
+    float s[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kDh / 16; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < kTile / 16; ++nb) {
+        uint32_t g[4];
+        ldsm_x4(b_frag(sK, 16 * nb, kk, l), g);
+        mma(s[2 * nb], qa[kk], g[0], g[1]);
+        mma(s[2 * nb + 1], qa[kk], g[2], g[3]);
+      }
+    // the mask only where some row of the warp does not see the whole tile
+    const bool whole = k0 >= max(s_lo[0], s_lo[1]) &&
+                       k0 + kTile <= min(s_hi[0], s_hi[1]);
+    const bool masked = !__all_sync(0xffffffffu, whole);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int key = k0 + 8 * j + 2 * (l & 3) + (e & 1);
+        s[j][e] = masked && (key < s_lo[i] || key >= s_hi[i])
+                      ? -INFINITY
+                      : s[j][e] * scale2;
+        mx[i] = fmaxf(mx[i], s[j][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+      lsum[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        s[j][e] = exp2f(s[j][e] - m[i]);      // masked: 2^-inf = 0
+        lsum[i] += s[j][e];
+        acc[j][e] *= corr[i];
+      }
+    // O += P.V, P rounded to bf16 as the A operands of two k-steps a half
+    uint32_t pa[2][4];
+    to_a_frags(s, pa);
+    product_tc(acc, pa, sV, 0, l);
+    to_a_frags(s + 4, pa);
+    product_tc(acc, pa, sV, 32, l);
+    __syncthreads();                    // the stage is read: it may refill
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 1);
+    lsum[i] += __shfl_xor_sync(0xffffffffu, lsum[i], 2);
+    const int t = t0 + 8 * i;
+    if (t >= d.T) continue;
+    const bool live = lsum[i] > 0.0f;
+    const float den = live ? lsum[i] : 1.0f;   // acc is 0 where l is
+    bf16* o = out + ((static_cast<int64_t>(b) * d.T + t) * d.h + head) * kDh +
+              2 * (l & 3);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
+          acc[j][2 * i] / den, acc[j][2 * i + 1] / den);
+    if ((l & 3) == 0)
+      lse[static_cast<int64_t>(bh) * d.T + t] =
+          live ? m[i] * kLn2 + logf(lsum[i]) : kNeg;
+  }
+}
+
+// the dynamic shared memory above 48 KB, set once a kernel (so a launch
+// is only a launch, and may be captured in a CUDA graph)
+template <typename K>
+int set_smem(K kernel, int bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
 int launch(const void* q, const void* k, const void* v, const int* lens,
            void* out, float* lse, const Dims& d, const int* strides,
-           cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<DH>(3, 1);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<S, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+           bool bf16_path, cudaStream_t stream) {
   const dim3 grid((d.T + kTile - 1) / kTile, d.B * d.h);
-  flash_fwd_kernel<S, DH><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const S*>(q), static_cast<const S*>(k),
-      static_cast<const S*>(v), lens, static_cast<S*>(out), lse, d,
-      strides_at(strides, 0), strides_at(strides, 1),
-      strides_at(strides, 2));
+  const Strides s0 = strides_at(strides, 0), s1 = strides_at(strides, 1),
+                s2 = strides_at(strides, 2);
+  if (bf16_path) {
+    constexpr int bytes = 5 * kTileBytes;
+    flash_fwd_tc_kernel<<<grid, kThreadsTc, bytes, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), lens, static_cast<bf16*>(out), lse, d,
+        s0, s1, s2);
+  } else {
+    constexpr int bytes = smem_bytes<kDh>(3, 1);
+    static const int attr = set_smem(flash_fwd_kernel<kDh>, bytes);
+    if (attr) return attr;
+    flash_fwd_kernel<kDh><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), lens, static_cast<float*>(out), lse, d,
+        s0, s1, s2);
+  }
   CSR_RETURN_LAUNCH_STATUS();
 }
 
 }  // namespace
 
-// q, k, v [B, T, h, dh] (S = bf16 if `bf16` else fp32, strided, head dim
-// dense), lens [B] int32, out [B, T, h, dh] S contiguous, lse [B, h, T]
-// fp32; dims (host) = {B, T, h, dh, chunk, left}, strides (host) = the
-// (b, t, h) element strides of q, k, v. dh is 64 (the presets' width).
+// q, k, v [B, T, h, dh] (bf16 if `use_bf16` else fp32, strided, head dim
+// dense; bf16 rows 16-byte aligned, which the caller checks:
+// ops/attention_cuda.py rows_aligned16), lens [B] int32, out [B, T, h, dh]
+// contiguous in the same dtype, lse [B, h, T] fp32; dims (host) = {B, T, h,
+// dh, chunk, left}, strides (host) = the (b, t, h) element strides of q, k,
+// v. dh is 64 (the presets' width).
 CSR_API int csr_flash_fwd(const void* q, const void* k, const void* v,
                           const int* lens, void* out, float* lse,
-                          const int* dims, const int* strides, int bf16,
+                          const int* dims, const int* strides, int use_bf16,
                           cudaStream_t stream) {
   const Dims d{dims[0], dims[1], dims[2], dims[3], dims[4], dims[5]};
-  if (d.dh != 64) return static_cast<int>(cudaErrorInvalidValue);
-  return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, lens, out, lse, d,
-                                          strides, stream)
-              : launch<float, 64>(q, k, v, lens, out, lse, d, strides,
-                                  stream);
+  if (d.dh != kDh) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, lens, out, lse, d, strides, use_bf16 != 0,
+                stream);
 }

@@ -136,6 +136,72 @@ def flash_bwd_dkv_plain(q, k, v, lens, do, lse, d_rows, chunk: int = 0,
     return (dk * q.shape[-1] ** -0.5).to(k.dtype), dv.to(v.dtype)
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each element of ``x`` (fp32): the spacing of bf16
+    values in x's binade, 2^(⌊log₂|x|⌋ − 7), and the subnormal spacing
+    2⁻¹³³ below 2⁻¹²⁶ and at zero. Built from the exponent bits, so it is
+    exact on any device."""
+    _, e = torch.frexp(x.float())             # |x| = m·2^e, m in [0.5, 1)
+    e = torch.where(x == 0, -133, torch.clamp(e - 8, min=-133)).to(
+        torch.int32)                          # the ulp's exponent
+    normal = (torch.clamp(e, min=-126) + 127) << 23
+    subnormal = torch.ones_like(e) << torch.clamp(e + 149, max=22)
+    return torch.where(e >= -126, normal, subnormal).view(torch.float32)
+
+
+def bwd_rounding_room(q, k, v, lens, do, lse, d_rows, chunk: int = 0,
+                      left_chunks: int = 0):
+    """How far the bf16 backward kernels may legitimately differ from the
+    plain versions by rounding p and ds to bf16 the other way: their
+    products sum q·k and dO·v in another order, so an element near a bf16
+    rounding midpoint may round one ulp apart. → (dq, dk, dv) fp32 [B, T,
+    h, dh] = ((1/√dh)·Σₛ u(dsₜₛ)·|kₛ|, (1/√dh)·Σₜ u(dsₜₛ)·|qₜ|,
+    Σₜ u(pₜₛ)·|dOₜ|) with u = ``bf16_ulp``; a gradient's bar is
+    2⁻⁷·|b| + this + 1e-3."""
+    p, ds = _bwd_terms(q, k, v, lens, do, lse, d_rows, chunk, left_chunks)
+    scale = q.shape[-1] ** -0.5
+    u_ds = bf16_ulp(ds)
+    return (torch.einsum("bhts,bshd->bthd", u_ds, k.float().abs()) * scale,
+            torch.einsum("bhts,bthd->bshd", u_ds, q.float().abs()) * scale,
+            torch.einsum("bhts,bthd->bshd", bf16_ulp(p), do.float().abs()))
+
+
+def bwd_planted_faults(q, k, v, lens, do, lse, d_rows, chunk: int = 0,
+                       left_chunks: int = 0, tile: int = 1) -> dict:
+    """Two faults a backward kernel could have, which the bf16 gradients'
+    bar (``bwd_rounding_room``) must catch, each as what it adds to the
+    plain versions' fp32 (dq, dk, dv) → {name: (ddq, ddk, ddv)}:
+
+    * "p at 3 bits": p rounded to 3 mantissa bits (fp8 e4m3's) in dv and
+      in ds = p ⊙ (dO·vᵀ − D), instead of bf16's 7;
+    * "tile skipped": dq without the keys of 64-row tile ``tile``, dk and
+      dv without its queries, as a loop that misses one tile."""
+    p, ds = _bwd_terms(q, k, v, lens, do, lse, d_rows, chunk, left_chunks)
+    scale = q.shape[-1] ** -0.5
+
+    def grads(p, ds_q, ds_k):
+        return (torch.einsum("bhts,bshd->bthd", ds_q.to(k.dtype).float(),
+                             k.float()) * scale,
+                torch.einsum("bhts,bthd->bshd", ds_k.to(q.dtype).float(),
+                             q.float()) * scale,
+                torch.einsum("bhts,bthd->bshd", p.to(do.dtype).float(),
+                             do.float()))
+
+    base = grads(p, ds, ds)
+    m, e = torch.frexp(p)                     # p = m·2^e, m in [0.5, 1)
+    p3 = torch.ldexp(torch.round(m * 16) / 16, e)
+    dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
+    ds3 = p3 * (dp - d_rows[..., None])
+    rows = slice(64 * tile, 64 * (tile + 1))
+    ds_q, ds_k, p_k = ds.clone(), ds.clone(), p.clone()
+    ds_q[..., rows] = 0
+    ds_k[..., rows, :] = 0
+    p_k[..., rows, :] = 0
+    return {name: tuple(a - b for a, b in zip(g, base))
+            for name, g in (("p at 3 bits", grads(p3, ds3, ds3)),
+                            ("tile skipped", grads(p_k, ds_q, ds_k)))}
+
+
 # ------------------------------------------------------------------ kernels
 
 def _check_qkv(name: str, t: torch.Tensor, dtype, shape) -> None:
@@ -174,6 +240,7 @@ def _geometry(q, k, v, lens, chunk, left_chunks, *extra):
 def flash_fwd_cuda(q, k, v, lens, chunk: int = 0, left_chunks: int = 0):
     """Kernel launch: → (out [B, T, h, dh] contiguous, lse [B, h, T])."""
     dims, strides = _geometry(q, k, v, lens, chunk, left_chunks)
+    _check_aligned("forward", (("q", q), ("k", k), ("v", v)))
     B, T, h, dh = q.shape
     out = torch.empty((B, T, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, h, T), dtype=torch.float32, device=q.device)
@@ -187,21 +254,35 @@ def flash_fwd_cuda(q, k, v, lens, chunk: int = 0, left_chunks: int = 0):
 def rows_aligned16(t: torch.Tensor) -> bool:
     """Whether every [..., dh] row of a bf16 ``[B, T, h, dh]`` tensor
     starts on 16 bytes (data pointer and b, t, h strides multiples of 8
-    values), as the backward kernels' tensor-core path copies them."""
+    values), as the kernels' tensor-core paths copy them."""
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0
                                           for s in t.stride()[:3])
+
+
+def _check_aligned(kernels: str, operands) -> None:
+    """The tensor-core paths' 16-byte copies: bf16 rows must be aligned."""
+    for name, t in operands:
+        if t.dtype == torch.bfloat16 and not rows_aligned16(t):
+            raise ValueError(
+                f"{name}: the bf16 {kernels} kernels need 16-byte aligned "
+                "rows (data pointer and b, t, h strides multiples of 8)")
+
+
+def _aligned(*ts):
+    """The bf16 CUDA operands with rows that are not 16-byte aligned
+    copied (autograd and callers may hand over any strides), the rest as
+    they are."""
+    return tuple(t if not (t.is_cuda and t.dtype == torch.bfloat16)
+                 or rows_aligned16(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in ts)
 
 
 def _check_bwd(lse, d_rows, q, k, v, do):
     B, T, h, _ = q.shape
     _kernels.check_cuda_tensor("lse", lse, torch.float32, (B, h, T))
     _kernels.check_cuda_tensor("d_rows", d_rows, torch.float32, (B, h, T))
-    if q.dtype == torch.bfloat16:     # the tensor-core path's 16-byte copies
-        for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-            if not rows_aligned16(t):
-                raise ValueError(
-                    f"{name}: the bf16 backward kernels need 16-byte aligned "
-                    "rows (data pointer and b, t, h strides multiples of 8)")
+    _check_aligned("backward", (("q", q), ("k", k), ("v", v), ("do", do)))
 
 
 def flash_bwd_dq_cuda(q, k, v, lens, do, lse, d_rows, chunk: int = 0,
@@ -275,6 +356,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, lens, chunk, left_chunks):
+        q, k, v = _aligned(q, k, v)
         out, lse = flash_fwd(q, k, v, lens, chunk, left_chunks)
         ctx.chunk, ctx.left_chunks = chunk, left_chunks
         ctx.save_for_backward(q, k, v, lens, out, lse)
@@ -283,13 +365,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, lens, out, lse = ctx.saved_tensors
-        do = do.to(q.dtype)
-        if q.is_cuda and q.dtype == torch.bfloat16:
-            # the bf16 kernels read 16-byte aligned rows; autograd may hand
-            # over any strides, so a misaligned operand is copied, not refused
-            q, k, v, do = (t if rows_aligned16(t) else
-                           t.clone(memory_format=torch.contiguous_format)
-                           for t in (q, k, v, do))
+        do, = _aligned(do.to(q.dtype))
         # D = rowsum(dO ⊙ O): one elementwise reduce, as in the reference
         d_rows = (do.float() * out.float()).sum(-1).transpose(1, 2) \
             .contiguous()                                   # [B, h, T]

@@ -15,7 +15,11 @@ no result line) if any phase fails:
    path's shapes (32 wavs of 10 s), with the stated tolerances, timed with
    CUDA events (warm, median) beside the library call that computes the
    same function (where there is one) and the least time the card could
-   take (bytes over HBM rate or operations over peak, the larger);
+   take (bytes over HBM rate or operations over peak, the larger); the
+   front-end kernel, its plain version and the cuFFT chain as alternating
+   rounds of CUDA-graph replays (device time only, the replays equal to
+   the eager outputs bitwise; ``frontend_timing``), the eager figures
+   printed beside them;
 4. inputs: a ``bigru`` checkpoint (config.json + msgpack params written by
    the port's own writer), a 63-symbol vocab and 64 synthetic wavs of
    8-10 s;
@@ -77,15 +81,22 @@ no result line) if any phase fails:
     versions in fp32 and bf16 at the long-form decode shape (B = 32,
     T' = 701, h = 4, dh = 64), the training shape (B = 24, T' = 256) and
     chunk 16 / left 4 at T' = 701 (key tiles skipped), ragged lengths with
-    1 and T', q/k/v strided as the fused qkv projection gives them; timed
-    (bf16) beside the bound, the plain versions and
-    ``F.scaled_dot_product_attention`` with the same boolean mask (the
-    backward pair and SDPA's backward in 9 alternating rounds of CUDA
-    graph replays, device time only: medians, the pair's ratio to SDPA
-    with its spread, each kernel's share of its bound), and the port's
+    1 and T', q/k/v strided as the fused qkv projection gives them; the
+    bf16 gradients held to 2^-7·|b| + 1e-3 plus the rounding room of p
+    and ds (``attention_cuda.bwd_rounding_room``), their share of the old
+    bar without it printed beside, and two faults planted in them (p at 3
+    mantissa bits, one 64-row tile skipped:
+    ``attention_cuda.bwd_planted_faults``) must exceed it; timed (bf16)
+    beside the bound, the
+    plain versions and ``F.scaled_dot_product_attention`` with the same
+    boolean mask (the three kernels, SDPA's forward and its backward in 9
+    alternating rounds of CUDA graph replays, device time only: medians,
+    the forward's and the pair's ratios to SDPA with their spread, each
+    kernel's share of its bound; the eager figures beside), and the port's
     einsum path at T' = 256 and 701 (the flash/einsum crossover);
     the framed-input front-end kernel (row 2) at B = 32, T = 1001 beside
-    cuFFT, and one call of its entry point ``cuda_frontend.fused_logmel``;
+    cuFFT (timed as in phase 3), and one call of its entry point
+    ``cuda_frontend.fused_logmel``;
 19. conformer decode: a random-weight checkpoint through the decode CLI
     on 32 long-form wavs of 22-28 s under ``auto`` (exactly one flash_fwd
     launch a block), a warm rerun's utt/s and RTF, 4 wavs' logits card vs
@@ -158,7 +169,9 @@ TOL = {"frontend_logmel": 5e-4,       # tests/test_pallas_frontend.py:34
        # 79); bf16 against the bf16 plain version on the same inputs (the
        # suite's 5e-2 at :127 holds bf16 to an fp32 oracle): the forward's
        # out at s = |b| + Σ p·|v| / l (both sides round p and out to half
-       # a bf16 ulp, 2^-8), the gradients (measured equal) one ulp + 1e-3
+       # a bf16 ulp, 2^-8), the gradients one ulp + 1e-3 plus the rounding
+       # room of p and ds (the tensor cores may round either one bf16 ulp
+       # the other way: attention_cuda.bwd_rounding_room)
        "flash_fp32": (2e-5, 2e-5),
        "flash_grad_fp32": (3e-4, 3e-4),
        "flash_bf16": (2 ** -7, 1e-5),
@@ -281,13 +294,69 @@ def bound(nbytes: float, flops: float, kind: str) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def excess(got, want, rtol: float, atol: float, scale=None) -> float:
-    """max over the elements of |got − want| / (atol + rtol·scale), in
-    fp32, ``scale`` |want| by default: at most 1 where numpy's
-    ``assert_allclose(rtol, atol)`` holds."""
+def frontend_ops(frames: int) -> int:
+    """The fewest operations of the front-end's function on ``frames``
+    frames, counted so the bound is not set high: the window (400
+    products); the 512-point real FFT as a 256-point complex one by
+    split radix (4·N·log₂N − 6·N + 8 real operations, N = 256) and the
+    post-twiddle, whose bins k and 256 − k share their sums and one
+    complex product (14 a pair, the halvings folded into the mel weights,
+    2 for bins 0 and 256); the power (3 a bin); the sparse mel sum (2 a
+    weight of ``fft_tables``) and the log (1 a filter)."""
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
+        fft_tables)
+
+    n, bins = C.N_FFT // 2, C.N_FFT // 2 + 1
+    n_weights = int(fft_tables()[1][-1])
+    fft = 4 * n * int(np.log2(n)) - 6 * n + 8
+    return frames * (C.WIN_LENGTH + fft + 14 * (n // 2 - 1) + 2 + 3 * bins
+                     + 2 * n_weights + C.N_MELS)
+
+
+def frontend_timing(phase, name, err, kernel, plain, library, n_bytes,
+                    frames) -> dict:
+    """The front-end kernel, its plain version and the cuFFT chain timed
+    as alternating rounds of CUDA-graph replays (device time only; each
+    replay must equal its eager output bit for bit), with the eager
+    (``time_ms``) figures printed beside them, and the bound of the FFT
+    design's own work (``n_bytes``, ``frontend_ops``) → the kernel line's
+    timings."""
+    import torch
+
+    fns = {"kernel": kernel, "plain": plain, "cuFFT chain": library}
+    graphs = {n: graph_of(fn, mode="relaxed") for n, fn in fns.items()}
+    rounds = alternating_ms({n: g[0] for n, g in graphs.items()})
+    for n, fn in fns.items():
+        check(torch.equal(graphs[n][1], fn()),
+              f"{name}: the {n}'s replay differs from its eager output")
+    med = {n: statistics.median(r) for n, r in rounds.items()}
+    ratio = [a / b for a, b in zip(rounds["kernel"], rounds["cuFFT chain"])]
+    eager = {n: time_ms(fn) for n, fn in fns.items()}
+    t = dict(max_abs_err=err, ms=med["kernel"], plain_ms=med["plain"],
+             library_ms=med["cuFFT chain"],
+             **bound(n_bytes, frontend_ops(frames), "fp32"))
+    share = t["bound_ms"] / t["ms"]
+    print(f"[{phase}] {name}, {len(ratio)} alternating rounds of graph "
+          f"replays (medians): " + ", ".join(f"{n} {m:.4f} ms" for n, m in
+                                             med.items())
+          + f"; kernel / cuFFT chain {statistics.median(ratio):.3f} (rounds "
+          f"{min(ratio):.3f}-{max(ratio):.3f}); bound {t['bound_ms']:.5f} ms"
+          f" ({t['bound_by']}), share {share:.3f}; replays equal the eager "
+          f"outputs. Eager (host time in it): " + ", ".join(
+              f"{n} {m:.4f} ms" for n, m in eager.items()))
+    check(share <= 1, f"{name}: share of the bound {share:.3f} > 1")
+    return t
+
+
+def excess(got, want, rtol: float, atol: float, scale=None,
+           extra=0.0) -> float:
+    """max over the elements of |got − want| / (atol + rtol·scale + extra),
+    in fp32, ``scale`` |want| by default: at most 1 where numpy's
+    ``assert_allclose(rtol, atol)`` holds (``extra`` 0)."""
     a, b = got.float(), want.float()
     s = b.abs() if scale is None else scale
-    return float(((a - b).abs() / (atol + rtol * s)).max())
+    return float(((a - b).abs() / (atol + rtol * s + extra)).max())
 
 
 def nbytes(*tensors) -> int:
@@ -506,9 +575,6 @@ def phase_kernels(dev, rng) -> dict:
           f"{tuple(got.shape)}: max abs {err:.3e} (tol {TOL['frontend_logmel']})")
     check(bool(torch.isfinite(got).all()), "frontend_logmel: non-finite")
     check(err <= TOL["frontend_logmel"], "frontend_logmel disagrees")
-    # the kernel's work: a dense fp32 DFT (2·512·514 flops a frame) + mel
-    nb = C.N_FFT // 2 + 1
-    flops = CHECK_B * T * (2 * C.N_FFT * 2 * nb + 2 * nb * C.N_MELS)
     # yardstick: cuFFT's rfft of the windowed frames, power, the mel matmul
     # and the log (the frames are cut and windowed outside the timing)
     win, mel = _tables(dev)
@@ -520,15 +586,13 @@ def phase_kernels(dev, rng) -> dict:
         return torch.log(torch.clamp(power @ mel, min=C.LOG_EPS))
 
     lib_err = float((library_logmel() - want).abs().max())
-    out["frontend_logmel"] = dict(
-        max_abs_err=err, ms=time_ms(lambda: fused_logmel_rows_cuda(ext, T)),
-        plain_ms=time_ms(lambda: logmel_from_extended(ext, T)),
-        library_ms=time_ms(library_logmel),
-        **bound(nbytes(ext, got), flops, "fp32"))
-    print(f"[kernels] frontend_logmel {out['frontend_logmel']['ms']:.4f} ms, "
-          f"plain {out['frontend_logmel']['plain_ms']:.4f} ms, cuFFT rfft + "
-          f"mel + log on windowed frames {out['frontend_logmel']['library_ms']:.4f}"
-          f" ms (max abs vs plain {lib_err:.3e})")
+    print(f"[kernels] frontend_logmel: cuFFT rfft + mel + log on windowed "
+          f"frames, max abs vs plain {lib_err:.3e}")
+    out["frontend_logmel"] = frontend_timing(
+        "kernels", "frontend_logmel", err,
+        lambda: fused_logmel_rows_cuda(ext, T),
+        lambda: logmel_from_extended(ext, T), library_logmel,
+        nbytes(ext, got), CHECK_B * T)
 
     # GRU: [T', 2B, 3H] at the subsampled length of 10 s
     Tp = T
@@ -1728,23 +1792,17 @@ def flash_bound(B, T, h, dh, pairs, n_read, n_write, n_rows, ops_per_pair):
                  ops_per_pair * pairs * dh, "bf16")
 
 
-def phase_attention_kernels(dev, rng) -> dict:
-    """The three flash kernels vs their plain versions (phase 18)."""
-    import torch
-    import torch.nn.functional as F
-
+def attention_cases(rng) -> list:
+    """Phase 18's three cases, (tag, B, T', lengths [B] int64 CPU, chunk,
+    left): 32 long-form wavs of 22-28 s in one decode chunk (T' = 701 at
+    28 s), whole and in the conformer_stream preset's chunk window; 24
+    training utterances of 9-10 s in the 1024-frame bucket. Ragged: the
+    first two rows have lengths T' and 1."""
     from chainer_speech_recognition_tpu_torch import constants as C
     from chainer_speech_recognition_tpu_torch.config import preset_config
-    from chainer_speech_recognition_tpu_torch.models.attention import (
-        einsum_attention)
-    from chainer_speech_recognition_tpu_torch.models.rnn import time_mask
-    from chainer_speech_recognition_tpu_torch.ops import attention_cuda as ac
 
-    mcfg = preset_config(CONF_PRESET).model
-    h, dh = mcfg.attn_heads, mcfg.attn_dim // mcfg.attn_heads
-    strides = mcfg.conv_stride_time
-    # decode: 32 long-form wavs of 22-28 s in one chunk (T' = 701 at 28 s);
-    # training: 24 utterances of 9-10 s in the 1024-frame bucket
+    strides = preset_config(CONF_PRESET).model.conv_stride_time
+    smcfg = preset_config(CONF_STREAM).model
     n_long = int(LONG_SECONDS[1] * C.SAMPLE_RATE)
     dec_len, T_dec = subsampled(
         rng.uniform(*LONG_SECONDS, CHECK_B) * C.SAMPLE_RATE,
@@ -1753,14 +1811,28 @@ def phase_attention_kernels(dev, rng) -> dict:
         rng.uniform(*TRAIN_SECONDS, TRAIN_B) * C.SAMPLE_RATE, TRAIN_FRAMES,
         strides)
     for lens, T in ((dec_len, T_dec), (tr_len, T_tr)):
-        lens[0], lens[1] = T, 1                # ragged: lengths T and 1
-    cases = [("decode", CHECK_B, T_dec, dec_len, 0, 0),
-             ("decode chunk 16/4", CHECK_B, T_dec, dec_len,
-              preset_config(CONF_STREAM).model.attn_chunk,
-              preset_config(CONF_STREAM).model.attn_left_chunks),
-             ("train", TRAIN_B, T_tr, tr_len, 0, 0)]
+        lens[0], lens[1] = T, 1
+    return [("decode", CHECK_B, T_dec, dec_len, 0, 0),
+            ("decode chunk 16/4", CHECK_B, T_dec, dec_len, smcfg.attn_chunk,
+             smcfg.attn_left_chunks),
+            ("train", TRAIN_B, T_tr, tr_len, 0, 0)]
+
+
+def phase_attention_kernels(dev, rng) -> dict:
+    """The three flash kernels vs their plain versions (phase 18)."""
+    import torch
+    import torch.nn.functional as F
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.models.attention import (
+        einsum_attention)
+    from chainer_speech_recognition_tpu_torch.models.rnn import time_mask
+    from chainer_speech_recognition_tpu_torch.ops import attention_cuda as ac
+
+    mcfg = preset_config(CONF_PRESET).model
+    h, dh = mcfg.attn_heads, mcfg.attn_dim // mcfg.attn_heads
     out = {}
-    for tag, B, T, lens_cpu, chunk, left in cases:
+    for tag, B, T, lens_cpu, chunk, left in attention_cases(rng):
         lens = lens_cpu.to(torch.int32).to(dev)
         d = h * dh
         f32 = lambda *s: torch.from_numpy(
@@ -1792,27 +1864,52 @@ def phase_attention_kernels(dev, rng) -> dict:
                   f"flash {tag} {dtag}: rows with no allowed key")
             ftol, gtol = TOL[f"flash_{dtag}"], TOL[f"flash_grad_{dtag}"]
             o_scale = o_p.float().abs()
+            room = (0.0, 0.0, 0.0)
             if cdt == torch.bfloat16:         # + Σ p·|v| / l (see TOL)
                 o_scale += ac.flash_fwd_plain(q, k, v.abs(), lens, chunk,
                                               left)[0].float()
-            # (max abs error, max of |a - b| / (atol + rtol·s)): each
-            # output passes where the second is at most 1
+                # the gradients' bar adds the rounding room of p and ds
+                room = ac.bwd_rounding_room(*args)
+            grads = (("dq", dq, dq_p, room[0]), ("dk", dk, dk_p, room[1]),
+                     ("dv", dv, dv_p, room[2]))
+            # (max abs error, max of |a - b| / (atol + rtol·s + room)):
+            # each output passes where the second is at most 1
             err = {n: (float((a.float() - b.float()).abs().max()),
-                       excess(a, b, *tol, s))
-                   for n, a, b, tol, s in (
-                       ("out", o, o_p, ftol, o_scale),
+                       excess(a, b, *tol, s, x))
+                   for n, a, b, tol, s, x in (
+                       ("out", o, o_p, ftol, o_scale, 0.0),
                        ("lse", lse[live], lse_p[live], TOL["flash_fp32"],
-                        None),
-                       ("dq", dq, dq_p, gtol, None),
-                       ("dk", dk, dk_p, gtol, None),
-                       ("dv", dv, dv_p, gtol, None))}
+                        None, 0.0),
+                       *((n, a, b, gtol, None, x) for n, a, b, x in grads))}
+            bf = cdt == torch.bfloat16
             print(f"[attn-kernels] {tag} {dtag} B={B} T'={T} h={h} dh={dh}"
                   f" ({int((~live).sum())} rows with no allowed key): max abs"
                   f" (share of the elementwise bar) " + ", ".join(
                       f"{n} {a:.3e} ({x:.3f})" for n, (a, x) in err.items())
                   + f"; bars (rtol, atol): out {ftol}"
-                  f"{' of |b| + Σp|v|/l' if cdt == torch.bfloat16 else ''}"
-                  f", lse {TOL['flash_fp32']}, gradients {gtol}")
+                  f"{' of |b| + Σp|v|/l' if bf else ''}"
+                  f", lse {TOL['flash_fp32']}, gradients {gtol}"
+                  f"{' + the rounding room of p and ds' if bf else ''}")
+            if bf:
+                print(f"[attn-kernels] {tag} bf16 gradients' share of the old"
+                      f" bar 2^-7·|b| + 1e-3 (no rounding room): " + ", ".join(
+                          f"{n} {excess(a, b, *gtol):.3f}"
+                          for n, a, b, _ in grads))
+                # the bar's power: each planted fault, added to the
+                # kernels' own gradients, must exceed it somewhere
+                planted = {
+                    f: [excess((a.float() + dd).to(cdt), b, *gtol, None, x)
+                        for (_, a, b, x), dd in zip(grads, deltas)]
+                    for f, deltas in ac.bwd_planted_faults(*args).items()}
+                print(f"[attn-kernels] {tag} bf16 planted faults' share of "
+                      f"the derived bar (each must exceed 1): " + "; ".join(
+                          f"{f}: " + ", ".join(
+                              f"{n} {s:.3f}" for n, s in zip(
+                                  ("dq", "dk", "dv"), sh))
+                          for f, sh in planted.items()))
+                check(all(max(sh) > 1 for sh in planted.values()),
+                      f"flash backward {tag}: a planted fault passes the "
+                      "derived bar")
             check(err["out"][1] <= 1 and err["lse"][1] <= 1,
                   f"flash_fwd {tag} {dtag} disagrees")
             check(max(err[n][1] for n in ("dq", "dk", "dv")) <= 1,
@@ -1821,14 +1918,6 @@ def phase_attention_kernels(dev, rng) -> dict:
             gerr = {n: err[n][0] for n in ("dq", "dk", "dv")}
             if cdt != torch.bfloat16:          # the presets' compute dtype
                 continue
-            t = {}
-            t["flash_fwd"] = dict(
-                max_abs_err=ferr,
-                ms=time_ms(lambda: ac.flash_fwd_cuda(q, k, v, lens, chunk,
-                                                     left)),
-                plain_ms=time_ms(lambda: ac.flash_fwd_plain(
-                    q, k, v, lens, chunk, left), warmup=1, reps=3),
-                **flash_bound(B, T, h, dh, pairs, 3, 1, 1, 4))
             # yardstick: PyTorch's SDPA with the same boolean mask, heads
             # second; its backward computes dq, dk and dv in one call
             qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
@@ -1837,55 +1926,80 @@ def phase_attention_kernels(dev, rng) -> dict:
 
             def sdpa_fwd():
                 with torch.no_grad():
-                    F.scaled_dot_product_attention(qh, kh, vh, attn_mask=ok)
+                    return F.scaled_dot_product_attention(qh, kh, vh,
+                                                          attn_mask=ok)
 
             def sdpa_train():
                 return F.scaled_dot_product_attention(*leaves, attn_mask=ok)
 
-            # the backward pair and SDPA's backward in alternating rounds of
-            # CUDA-graph replays, device time only on both sides; SDPA's
-            # backward is its forward and backward less its training
-            # forward, the two captured alike
+            # the three kernels and SDPA's forward and backward in
+            # alternating rounds of CUDA-graph replays, device time only on
+            # both sides; SDPA's backward is its forward and backward less
+            # its training forward, the two captured alike
+            g_fwd, fwd_g = graph_of(lambda: ac.flash_fwd_cuda(
+                q, k, v, lens, chunk, left))
+            g_sf, _ = graph_of(sdpa_fwd)
             g_dq, dq_g = graph_of(lambda: ac.flash_bwd_dq_cuda(*args))
             g_dkv, dkv_g = graph_of(lambda: ac.flash_bwd_dkv_cuda(*args))
             g_fb, _ = graph_of(lambda: torch.autograd.grad(
                 sdpa_train(), leaves, doh))
             g_fw, _ = graph_of(sdpa_train)
             rounds = alternating_ms({
+                "flash_fwd": g_fwd, "sdpa_fwd": g_sf,
                 "flash_bwd_dq": g_dq, "flash_bwd_dkv": g_dkv,
                 "sdpa_fwd_bwd": g_fb, "sdpa_train": g_fw})
             check(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
-                      for a, b in zip((dq_g, *dkv_g), (dq, dk, dv))),
-                  f"flash backward {tag}: a replay differs from the eager "
+                      for a, b in zip((fwd_g[0], dq_g, *dkv_g),
+                                      (o, dq, dk, dv)))
+                  and torch.equal(fwd_g[1], lse),
+                  f"flash kernels {tag}: a replay differs from the eager "
                   "call (not deterministic)")
             rounds["sdpa_bwd"] = [a - b for a, b in zip(
                 rounds["sdpa_fwd_bwd"], rounds["sdpa_train"])]
             med = {n: statistics.median(r) for n, r in rounds.items()}
+            fwd_ratio = [a / b for a, b in zip(rounds["flash_fwd"],
+                                               rounds["sdpa_fwd"])]
             ratio = [(a + b) / c for a, b, c in zip(
                 rounds["flash_bwd_dq"], rounds["flash_bwd_dkv"],
                 rounds["sdpa_bwd"])]
+            t = {}
+            t["flash_fwd"] = dict(
+                max_abs_err=ferr, ms=med["flash_fwd"],
+                plain_ms=time_ms(lambda: ac.flash_fwd_plain(
+                    q, k, v, lens, chunk, left), warmup=1, reps=3),
+                library_ms=med["sdpa_fwd"],
+                **flash_bound(B, T, h, dh, pairs, 3, 1, 1, 4))
             t["flash_bwd_dq"] = dict(
                 max_abs_err=gerr["dq"], ms=med["flash_bwd_dq"],
                 plain_ms=time_ms(lambda: ac.flash_bwd_dq_plain(*args),
                                  warmup=1, reps=3),
+                library_ms=med["sdpa_bwd"],
                 **flash_bound(B, T, h, dh, pairs, 4, 1, 2, 6))
             t["flash_bwd_dkv"] = dict(
                 max_abs_err=max(gerr["dk"], gerr["dv"]),
                 ms=med["flash_bwd_dkv"],
                 plain_ms=time_ms(lambda: ac.flash_bwd_dkv_plain(*args),
                                  warmup=1, reps=3),
+                library_ms=med["sdpa_bwd"],
                 **flash_bound(B, T, h, dh, pairs, 4, 2, 2, 8))
-            t["flash_fwd"]["library_ms"] = time_ms(sdpa_fwd)
-            t["flash_bwd_dq"]["library_ms"] = med["sdpa_bwd"]
-            t["flash_bwd_dkv"]["library_ms"] = med["sdpa_bwd"]
+            eager = {"flash_fwd": time_ms(lambda: ac.flash_fwd_cuda(
+                q, k, v, lens, chunk, left)),
+                "SDPA forward": time_ms(sdpa_fwd)}
             pair = med["flash_bwd_dq"] + med["flash_bwd_dkv"]
-            print(f"[attn-kernels] {tag} backward, {len(ratio)} alternating "
-                  f"rounds of graph replays (medians): dq "
-                  f"{med['flash_bwd_dq']:.4f} ms "
-                  f"({t['flash_bwd_dq']['bound_ms'] / med['flash_bwd_dq']:.3f}"
+            share = {n: t[n]["bound_ms"] / med[n] for n in FLASH}
+            print(f"[attn-kernels] {tag} forward, {len(fwd_ratio)} "
+                  f"alternating rounds of graph replays (medians): flash_fwd "
+                  f"{med['flash_fwd']:.4f} ms ({share['flash_fwd']:.3f} of "
+                  f"its bound), SDPA forward {med['sdpa_fwd']:.4f} ms; "
+                  f"flash_fwd / SDPA {statistics.median(fwd_ratio):.3f} "
+                  f"(rounds {min(fwd_ratio):.3f}-{max(fwd_ratio):.3f}); "
+                  f"eager (host time in it): " + ", ".join(
+                      f"{n} {m:.4f} ms" for n, m in eager.items()))
+            print(f"[attn-kernels] {tag} backward, same rounds (medians): dq "
+                  f"{med['flash_bwd_dq']:.4f} ms ({share['flash_bwd_dq']:.3f}"
                   f" of its bound), dkv {med['flash_bwd_dkv']:.4f} ms "
-                  f"({t['flash_bwd_dkv']['bound_ms'] / med['flash_bwd_dkv']:.3f}"
-                  f" of its bound), pair {pair:.4f} ms; SDPA backward "
+                  f"({share['flash_bwd_dkv']:.3f} of its bound), pair "
+                  f"{pair:.4f} ms; SDPA backward "
                   f"{med['sdpa_bwd']:.4f} ms (forward and backward "
                   f"{med['sdpa_fwd_bwd']:.4f} ms); pair / SDPA "
                   f"{statistics.median(ratio):.3f} (rounds {min(ratio):.3f}"
@@ -1894,17 +2008,19 @@ def phase_attention_kernels(dev, rng) -> dict:
                 r = t[name]
                 both = " (dq, dk, dv together)" if name != "flash_fwd" else ""
                 print(f"[attn-kernels] {tag} {name}: {r['ms']:.4f} ms, plain "
-                      f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} "
-                      f"ms{both}, bound {r['bound_ms']:.5f} ms "
-                      f"({r['bound_by']}), "
+                      f"(eager) {r['plain_ms']:.4f} ms, SDPA "
+                      f"{r['library_ms']:.4f} ms{both}, bound "
+                      f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
                       f"{pairs} allowed (query, key) pairs")
             if chunk == 0:
-                # the port's einsum path on the same q, k, v: the card's
-                # flash/einsum crossover (recorded, not acted on)
+                # the port's einsum path on the same q, k, v beside the
+                # eager flash_fwd: the card's flash/einsum crossover
+                # (recorded, not acted on)
                 mask = time_mask(T, lens)
                 ein = time_ms(lambda: einsum_attention(q, k, v, mask))
                 print(f"[attn-kernels] {tag} einsum path {ein:.4f} ms vs "
-                      f"flash_fwd {t['flash_fwd']['ms']:.4f} ms at T'={T}")
+                      f"flash_fwd {eager['flash_fwd']:.4f} ms at T'={T} "
+                      f"(both eager)")
             if tag == "decode":
                 out["flash_fwd"] = t["flash_fwd"]
             elif tag == "train":
@@ -1958,16 +2074,13 @@ def phase_frames_kernel(dev, rng) -> tuple[dict, int]:
         power = spec.real.square() + spec.imag.square()
         return torch.log(torch.clamp(power @ mel, min=C.LOG_EPS))
 
-    nb = C.N_FFT // 2 + 1
-    t = dict(max_abs_err=err, ms=time_ms(lambda: fused_logmel_cuda(frames)),
-             plain_ms=time_ms(lambda: logmel_from_frames(frames)),
-             library_ms=time_ms(library_logmel),
-             **bound(nbytes(frames, got),
-                     CHECK_B * T * (2 * C.N_FFT * 2 * nb + 2 * nb * C.N_MELS),
-                     "fp32"))
-    print(f"[frames-kernel] {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-          f"cuFFT rfft + mel + log {t['library_ms']:.4f} ms, bound "
-          f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    # the bytes the function needs: the 400 windowed samples of each frame
+    # (the window zeroes the other 112) and the output
+    t = frontend_timing("frames-kernel", "frontend_logmel_frames", err,
+                        lambda: fused_logmel_cuda(frames),
+                        lambda: logmel_from_frames(frames), library_logmel,
+                        CHECK_B * T * C.WIN_LENGTH * 4 + nbytes(got),
+                        CHECK_B * T)
     _kernels.reset_launches()
     feats = fused_logmel(frames)
     torch.cuda.synchronize()

@@ -18,7 +18,8 @@ from chainer_speech_recognition_tpu_torch import constants as C
 from chainer_speech_recognition_tpu_torch.decode.greedy import (
     best_keep_cuda, best_keep_plain)
 from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
-    fused_logmel_cuda, fused_logmel_rows_cuda)
+    _device_tables, frames_per_block, fused_logmel_cuda,
+    fused_logmel_rows_cuda)
 from chainer_speech_recognition_tpu_torch.frontend.torch_frontend import (
     _K, extend_signal, logmel_from_extended, logmel_from_frames)
 from chainer_speech_recognition_tpu_torch.ops import attention_cuda as ac
@@ -62,6 +63,53 @@ def test_frontend_kernel_matches_plain(dev, lens):
     assert _kernels.FRONTEND_LOGMEL.launches == before + 1
     assert got.shape == (len(lens), T, C.N_MELS)
     assert float((got - want).abs().max()) <= 5e-4
+
+
+@pytest.mark.parametrize("tiles,extra", [(0, 1), (1, -1), (1, 0), (1, 1),
+                                         (2, 1)])
+@pytest.mark.parametrize("framed", [False, True])
+def test_frontend_kernel_tile_edges(dev, tiles, extra, framed):
+    """Both forms at T = 1, F - 1, F, F + 1 and 2F + 1 frames for the
+    kernel's tile of F frames, as the library reports it: ragged lengths
+    whose signal is silent past its length (the batch's zero padding), one
+    utterance of T frames; the extended form also on a row length that is
+    not a multiple of 4 (its scalar load). Bar: 5e-4 max abs."""
+    T = tiles * frames_per_block() + extra
+    rng = np.random.default_rng(T)
+    n = (T - 1) * C.HOP_LENGTH + 37                  # T frames exactly
+    lens = [n, max(n // 2, 1), max(n - 300, 1)]
+    sigs = np.zeros((3, n), np.float32)
+    for i, L in enumerate(lens):
+        sigs[i, :L] = np.sin(0.03 * np.arange(L) * (i + 1)) \
+            + 0.05 * rng.standard_normal(L)
+    assert C.num_frames(n) == T
+    ext = extend_signal(torch.from_numpy(sigs).to(dev),
+                        torch.tensor(lens, device=dev), T + _K + 1)
+    if framed:
+        frames = ext.unfold(1, C.N_FFT, C.HOP_LENGTH)[:, :T].contiguous()
+        got, want = fused_logmel_cuda(frames), logmel_from_frames(frames)
+    else:
+        got, want = fused_logmel_rows_cuda(ext, T), logmel_from_extended(
+            ext, T)
+        odd = ext[:, :-1].contiguous()               # ext_len % 4 == 3
+        assert torch.equal(fused_logmel_rows_cuda(odd, T), got)
+    torch.cuda.synchronize()
+    assert got.shape == (3, T, C.N_MELS)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 5e-4
+
+
+@pytest.mark.parametrize("n_mels", [1, 33, 39, 41])
+def test_frontend_kernel_refuses_other_mel_counts(dev, n_mels):
+    """The tables hold 40 filters and the wide filters' split takes all 32
+    lanes of a warp: the entry point refuses any other count."""
+    ext = torch.zeros(1, 1024, device=dev)
+    out = torch.empty(1, 2, 41, device=dev)
+    floats, ints = _device_tables(ext.device)
+    with pytest.raises(RuntimeError, match="csr_frontend_logmel: CUDA error"):
+        _kernels.FRONTEND_LOGMEL.launch(
+            ext.data_ptr(), 1024, 1, 2, floats.data_ptr(), ints.data_ptr(),
+            n_mels, out.data_ptr(), _kernels.stream_ptr(ext))
 
 
 @pytest.mark.parametrize("T,B,H", [(1, 1, 32), (7, 3, 64), (40, 5, 96),
@@ -418,8 +466,10 @@ def test_flash_kernels_match_plain(dev, B, T, h, dh, chunk, left, dtype,
     (2e-5 forward, 3e-4 gradients). bf16, both sides bf16 on the same
     inputs: out at s = |b| + Σ p·|v| / l, since each side rounds p (the
     kernel against its running max, the plain version against the row's)
-    and out to half an ulp (2^-8); gradients one ulp plus 1e-3; lse (fp32
-    in both) at the fp32 forward bar."""
+    and out to half an ulp (2^-8); gradients one ulp plus the rounding
+    room of p and ds (``attention_cuda.bwd_rounding_room``: the tensor
+    cores may round a p or ds one bf16 ulp the other way) plus 1e-3; lse
+    (fp32 in both) at the fp32 forward bar."""
     q, k, v, do, lens = _flash_inputs(dev, B, T, h, dh, dtype, T + dh,
                                       strided=B % 2 == 0)
     before = {n: _kernels.KERNELS[n].launches
@@ -447,12 +497,63 @@ def test_flash_kernels_match_plain(dev, B, T, h, dh, chunk, left, dtype,
     dq_p = ac.flash_bwd_dq_plain(*args)
     dk_p, dv_p = ac.flash_bwd_dkv_plain(*args)
     torch.cuda.synchronize()
-    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+    room = ac.bwd_rounding_room(*args) if dtype == torch.bfloat16 \
+        else (0.0, 0.0, 0.0)
+    for got, want, r in zip((dq, dk, dv), (dq_p, dk_p, dv_p), room):
         assert got.dtype == dtype and torch.isfinite(got.float()).all()
-        torch.testing.assert_close(got.float(), want.float(), rtol=gtol[0],
-                                   atol=gtol[1])
+        diff = (got.float() - want.float()).abs()
+        bar = gtol[1] + gtol[0] * want.float().abs() + r
+        assert bool((diff <= bar).all()), float((diff / bar).max())
     after = {n: _kernels.KERNELS[n].launches for n in before}
     assert after == {n: c + 1 for n, c in before.items()}
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13])
+@pytest.mark.parametrize("B,T,chunk,left", [(8, 701, 0, 0), (8, 701, 16, 4),
+                                            (8, 256, 0, 0)])
+def test_flash_bwd_bf16_within_derived_bar(dev, seed, B, T, chunk, left):
+    """The bf16 backward at the long-form, chunk 16/4 and training widths
+    (h = 4) on seeds of its own: every gradient within 2^-7·|b| plus the
+    rounding room (one bf16 ulp of each p or ds times its partner operand,
+    summed: attention_cuda.bwd_rounding_room) plus 1e-3."""
+    q, k, v, do, lens = _flash_inputs(dev, B, T, 4, 64, torch.bfloat16, seed,
+                                      strided=True)
+    o_p, lse_p = ac.flash_fwd_plain(q, k, v, lens, chunk, left)
+    d_rows = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, lens, do, lse_p, d_rows, chunk, left)
+    got = (ac.flash_bwd_dq_cuda(*args), *ac.flash_bwd_dkv_cuda(*args))
+    want = (ac.flash_bwd_dq_plain(*args), *ac.flash_bwd_dkv_plain(*args))
+    for a, b, r in zip(got, want, ac.bwd_rounding_room(*args)):
+        diff = (a.float() - b.float()).abs()
+        bar = 1e-3 + 2 ** -7 * b.float().abs() + r
+        assert bool((diff <= bar).all()), float((diff / bar).max())
+
+
+@pytest.mark.parametrize("B,T,chunk,left", [(8, 701, 0, 0), (8, 701, 16, 4),
+                                            (8, 256, 0, 0)])
+def test_flash_bwd_bf16_bar_catches_planted_faults(dev, B, T, chunk, left):
+    """The derived bar has power: each fault of
+    ``attention_cuda.bwd_planted_faults`` (p at 3 mantissa bits, one 64-row
+    tile skipped), added to the kernels' own bf16 gradients, exceeds it in
+    some gradient, while the kernels' gradients stay within it."""
+    q, k, v, do, lens = _flash_inputs(dev, B, T, 4, 64, torch.bfloat16, 7,
+                                      strided=True)
+    o_p, lse_p = ac.flash_fwd_plain(q, k, v, lens, chunk, left)
+    d_rows = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, lens, do, lse_p, d_rows, chunk, left)
+    got = (ac.flash_bwd_dq_cuda(*args), *ac.flash_bwd_dkv_cuda(*args))
+    want = (ac.flash_bwd_dq_plain(*args), *ac.flash_bwd_dkv_plain(*args))
+    bars = [1e-3 + 2 ** -7 * b.float().abs() + r
+            for b, r in zip(want, ac.bwd_rounding_room(*args))]
+
+    def share(grads):
+        return max(float(((a.float() - b.float()).abs() / bar).max())
+                   for a, b, bar in zip(grads, want, bars))
+
+    assert share(got) <= 1
+    for name, deltas in ac.bwd_planted_faults(*args).items():
+        planted = [(a.float() + d).to(a.dtype) for a, d in zip(got, deltas)]
+        assert share(planted) > 1, name
 
 
 @pytest.mark.parametrize("chunk,left", [(0, 0), (16, 4)])
@@ -515,15 +616,30 @@ def test_flash_mhsa_bf16_autograd_takes_unaligned_rows(dev):
 
     q, k, v, do, lens = _flash_inputs(dev, B, T, h, 64, torch.bfloat16, 11,
                                       strided=False)
-    grads = []
+    outs, grads = [], []
     for make in (unaligned, lambda t: t.clone()):
         leaves = [make(t).requires_grad_() for t in (q, k, v)]
         g = make(do)
         assert ac.rows_aligned16(g) == (make is not unaligned)
-        out = ac.flash_mhsa(*leaves, lens)
-        grads.append(torch.autograd.grad(out, leaves, g))
+        outs.append(ac.flash_mhsa(*leaves, lens))
+        grads.append(torch.autograd.grad(outs[-1], leaves, g))
+    assert torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16))
     for a, b in zip(*grads):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_flash_fwd_bf16_refuses_unaligned_rows(dev):
+    """The bf16 forward copies 16-byte pieces of q, k and v rows too: its
+    wrapper refuses a t stride that is not a multiple of 8 values
+    (``FlashAttention.forward`` copies such operands first)."""
+    B, T, h = 2, 10, 2
+    q = torch.zeros(B, T, h * 64 + 4, device=dev, dtype=torch.bfloat16)[
+        ..., :h * 64].reshape(B, T, h, 64)
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="forward kernels need 16-byte"):
+        ac.flash_fwd_cuda(q, q, q, lens)
+    out, _ = ac.flash_fwd_cuda(q.float(), q.float(), q.float(), lens)
+    assert torch.equal(out, torch.zeros_like(out))    # fp32: no such rule
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(dev):

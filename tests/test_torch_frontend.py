@@ -19,7 +19,7 @@ from chainer_speech_recognition_tpu.frontend.pallas_frontend import (
     batch_features_pallas)
 from chainer_speech_recognition_tpu_torch.frontend import select_frontend
 from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
-    batch_features_cuda, dft_tables, fused_logmel_rows)
+    batch_features_cuda, fused_logmel_rows)
 from chainer_speech_recognition_tpu_torch.frontend.torch_frontend import (
     _K, batch_features, extend_signal, logmel_from_extended)
 
@@ -129,17 +129,3 @@ def test_select_frontend():
     assert select_frontend(FeatureConfig(frontend_impl="jnp")) \
         is batch_features
 
-
-def test_dft_table_is_the_windowed_rfft():
-    """The kernel's table (window folded in) reproduces the plain path's
-    power spectrum in fp64 — what the kernel computes in fp32 FMA."""
-    rng = np.random.default_rng(1)
-    frames = rng.standard_normal((5, 512))
-    dft, mel = dft_tables()
-    reim = frames @ dft.astype(np.float64)
-    power = reim[:, :257] ** 2 + reim[:, 257:] ** 2
-    win = np.zeros(512)
-    win[56:456] = g.hann_periodic(400)
-    ref = np.abs(np.fft.rfft(frames * win, n=512)) ** 2
-    np.testing.assert_allclose(power, ref, rtol=1e-5, atol=1e-5)
-    assert mel.shape == (257, 40)

@@ -1,0 +1,322 @@
+"""Time this checkout's redesigned kernels against another checkout's on
+one card, on the same inputs, by two yardsticks:
+
+    python3 tools/kernel_ab.py OTHER_ROOT [--rounds 9] [--seed 0]
+
+OTHER_ROOT is the root of another checkout of the repo (for example an
+older commit unpacked by ``git archive`` into a git-ignored directory).
+Its ``csrc/frontend_logmel.cu``, ``attention_fwd.cu`` and
+``attention_bwd.cu`` (with ``library.cu``, the error strings) are built
+alone into a library of their own, and its Python package is imported
+under another name with that library bound in, so each build is called
+through its own checkout's wrappers and host tables (the two front-ends'
+tables differ).
+
+Kernels and shapes (those of ``chip_smoke.py``):
+
+* the front-end, rows 1 and 2 (phase 3 and the frames phase: B = 32 wavs
+  of 10 s, the last 8 s, T = 1001): the extended-signal form and the
+  framed form, beside cuFFT's rfft of the windowed frames + power + mel
+  matmul + log;
+* the bf16 flash forward (row 11) and backward pair (rows 12-13), h = 4,
+  dh = 64, at phase 18's three shapes (B = 32, T' = 701 with chunk 0 and
+  with chunk 16 / left 4; B = 24, T' = 256), beside SDPA's forward and its
+  backward (its forward and backward less its training forward).
+
+Each is timed in alternating rounds, both builds and the library call in
+each round:
+
+* graph: replays of a CUDA graph of 10 calls, device time only;
+* eager: one call between CUDA events, median of 7 warm calls
+  (``chip_smoke.time_ms``), so each wrapper's host time is in it wherever
+  it exceeds the kernel's.
+
+Each build is first held to the plain versions: the front-end at 5e-4 max
+abs, the forward's out at 2^-7·(|b| + Σp·|v|/l) + 1e-5 and lse at 2e-5,
+the gradients at the bar derived from bf16 rounding (2^-7·|b| + the
+rounding room + 1e-3, ``attention_cuda.bwd_rounding_room``); the share of
+the old gradient bar (2^-7·|b| + 1e-3) is printed beside it. Prints the
+card, the medians, the per-round ratios of the other build to this one
+with their spread; the last line is all of it as JSON. Exits 1 without a
+card or if a build breaks a bar.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+PKG = "chainer_speech_recognition_tpu_torch"
+SOURCES = ("frontend_logmel.cu", "attention_fwd.cu", "attention_bwd.cu",
+           "library.cu")
+
+
+def build_alone(root: str, tag: str) -> str:
+    """``root``'s kernel sources of ``SOURCES``, one nvcc each, started
+    together, linked into one library → its path."""
+    from chainer_speech_recognition_tpu_torch import _kernels
+
+    csrc = os.path.join(root, PKG, "csrc")
+    out = os.path.join(_kernels._BUILD, "ab")
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, f"{tag}_{os.getpid()}.so")
+    objs = [f"{so}.{s}.o" for s in SOURCES]
+    procs = [subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-c",
+                               "-o", o, os.path.join(csrc, s)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    for s, p, log in zip(SOURCES, procs, logs):
+        cs.check(p.returncode == 0, f"nvcc failed on {root}/{s}:\n{log}")
+    r = subprocess.run([_kernels._nvcc(), "-shared", "-o", so, *objs],
+                       capture_output=True, text=True)
+    cs.check(r.returncode == 0, f"nvcc link failed:\n{r.stdout}{r.stderr}")
+    return so
+
+
+def load_checkout(root: str, alias: str):
+    """``root``'s port package imported as ``alias``, its kernels launched
+    from a library of ``SOURCES`` built alone → the package."""
+    init = os.path.join(root, PKG, "__init__.py")
+    spec = importlib.util.spec_from_file_location(
+        alias, init, submodule_search_locations=[os.path.dirname(init)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = pkg
+    spec.loader.exec_module(pkg)
+    kern = importlib.import_module(f"{alias}._kernels")
+    lib = ctypes.CDLL(build_alone(root, alias))
+    for k in kern.KERNELS.values():
+        if hasattr(lib, k.symbol):
+            fn = getattr(lib, k.symbol)
+            fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
+    lib.csr_error_string.argtypes = [ctypes.c_int]
+    lib.csr_error_string.restype = ctypes.c_char_p
+    kern.library = lambda: lib
+    return pkg
+
+
+def timed(fns: dict, rounds: int, replays: dict) -> dict:
+    """{kind: {name: median ms}, kind + " rounds": {name: [ms]}} of
+    ``fns`` as graph replays and eagerly, in alternating rounds."""
+    graph = cs.alternating_ms(replays, rounds)
+    eager = {n: [] for n in fns}
+    for _ in range(rounds):
+        for n, fn in fns.items():
+            eager[n].append(cs.time_ms(fn, warmup=1, reps=7))
+    return {"graph": graph, "eager": eager}
+
+
+def ratios(t: dict, num: str, den: str) -> dict:
+    r = [a / b for a, b in zip(t[num], t[den])]
+    return {"median": statistics.median(r), "rounds": [min(r), max(r)]}
+
+
+def report(tag: str, times: dict, pairs: list) -> dict:
+    """Medians and the listed ratios (numerator, denominator) per kind."""
+    res = {}
+    for kind, t in times.items():
+        med = {n: statistics.median(x) for n, x in t.items()}
+        rat = {f"{a}/{b}": ratios(t, a, b) for a, b in pairs}
+        res[kind] = {"ms": med, "ratios": rat}
+        print(f"[ab] {tag}, {kind}, medians (ms): " + ", ".join(
+            f"{n} {m:.4f}" for n, m in med.items()) + "; " + ", ".join(
+            f"{n} {r['median']:.3f} ({r['rounds'][0]:.3f}-"
+            f"{r['rounds'][1]:.3f})" for n, r in rat.items()))
+    return res
+
+
+def frontend_cases(dev, rng, other, rounds: int) -> list:
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.frontend import cuda_frontend
+    from chainer_speech_recognition_tpu_torch.frontend.torch_frontend import (
+        _K, _tables, extend_signal, logmel_from_extended, logmel_from_frames)
+
+    ocf = importlib.import_module(f"{other.__name__}.frontend.cuda_frontend")
+    V = preset_config(cs.PRESET).model.vocab_size
+    n = int(cs.CHECK_SECONDS * C.SAMPLE_RATE)
+    sigs = np.zeros((cs.CHECK_B, n), np.float32)
+    lens = np.full(cs.CHECK_B, n, np.int32)
+    for i in range(cs.CHECK_B):
+        s = cs.synth_signal(rng, cs.WAV_SECONDS[0] if i == cs.CHECK_B - 1
+                            else cs.CHECK_SECONDS, V)
+        sigs[i, :len(s)] = s
+        lens[i] = len(s)
+    T = C.num_frames(n)
+    ext = extend_signal(torch.from_numpy(sigs).to(dev),
+                        torch.from_numpy(lens).to(dev), T + _K + 1)
+    frames = ext.unfold(1, C.N_FFT, C.HOP_LENGTH)[:, :T].contiguous()
+    win, mel = _tables(dev)
+    windowed = frames * win
+
+    def cufft():
+        spec = torch.fft.rfft(windowed, n=C.N_FFT, dim=-1)
+        power = spec.real.square() + spec.imag.square()
+        return torch.log(torch.clamp(power @ mel, min=C.LOG_EPS))
+
+    out = []
+    for tag, this, oth, plain in (
+            ("frontend rows (row 1)",
+             lambda: cuda_frontend.fused_logmel_rows_cuda(ext, T),
+             lambda: ocf.fused_logmel_rows_cuda(ext, T),
+             logmel_from_extended(ext, T)),
+            ("frontend frames (row 2)",
+             lambda: cuda_frontend.fused_logmel_cuda(frames),
+             lambda: ocf.fused_logmel_cuda(frames),
+             logmel_from_frames(frames))):
+        fns = {"this": this, "other": oth, "cufft": cufft}
+        res = {"tag": tag, "B": cs.CHECK_B, "T": T}
+        for b in ("this", "other"):
+            got = fns[b]()
+            torch.cuda.synchronize()
+            err = float((got - plain).abs().max())
+            cs.check(bool(torch.isfinite(got).all())
+                     and err <= cs.TOL["frontend_logmel"],
+                     f"{tag} {b}: max abs {err:.3e} vs plain")
+            res[f"{b} max abs"] = err
+        print(f"[ab] {tag}: max abs vs plain this {res['this max abs']:.3e},"
+              f" other {res['other max abs']:.3e}")
+        replays = {n: cs.graph_of(fn, mode="relaxed")[0]
+                   for n, fn in fns.items()}
+        res.update(report(tag, timed(fns, rounds, replays),
+                          [("other", "this"), ("this", "cufft"),
+                           ("other", "cufft")]))
+        out.append(res)
+    return out
+
+
+def shares(got, want, room) -> tuple[float, float]:
+    """(share of the derived gradient bar, share of the old one)."""
+    new = cs.excess(got, want, 2 ** -7, 1e-3, extra=room)
+    return new, cs.excess(got, want, 2 ** -7, 1e-3)
+
+
+def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left):
+    import torch
+    import torch.nn.functional as F
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.ops import attention_cuda as ac
+
+    oac = importlib.import_module(f"{other.__name__}.ops.attention_cuda")
+    mcfg = preset_config(cs.CONF_PRESET).model
+    h, dh = mcfg.attn_heads, mcfg.attn_dim // mcfg.attn_heads
+    d = h * dh
+    lens = lens_cpu.to(torch.int32).to(dev)
+    bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev).to(torch.bfloat16)
+    qkv, do = bf(B, T, 3 * d), bf(B, T, h, dh)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(B, T, h, dh)
+               for i in range(3))
+    o_p, lse_p = ac.flash_fwd_plain(q, k, v, lens, chunk, left)
+    o_scale = o_p.float().abs() + ac.flash_fwd_plain(
+        q, k, v.abs(), lens, chunk, left)[0].float()
+    live = lse_p > ac.NEG / 2
+    d_rows = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, lens, do, lse_p, d_rows, chunk, left)
+    plain = (ac.flash_bwd_dq_plain(*args), *ac.flash_bwd_dkv_plain(*args))
+    room = ac.bwd_rounding_room(*args)
+    ok = ac.allowed_mask(T, lens, chunk, left)
+    res = {"tag": tag, "B": B, "T": T, "chunk": chunk, "left": left,
+           "pairs": int(ok.expand(B, 1, T, T).sum()) * h}
+    mods = {"this": ac, "other": oac}
+    for b, m in mods.items():
+        o, lse = m.flash_fwd_cuda(q, k, v, lens, chunk, left)
+        grads = (m.flash_bwd_dq_cuda(*args), *m.flash_bwd_dkv_cuda(*args))
+        torch.cuda.synchronize()
+        out_share = cs.excess(o, o_p, *cs.TOL["flash_bf16"], o_scale)
+        lse_share = cs.excess(lse[live], lse_p[live], *cs.TOL["flash_fp32"])
+        g = [shares(a, p, r) for a, p, r in zip(grads, plain, room)]
+        cs.check(out_share <= 1 and lse_share <= 1,
+                 f"{tag} {b}: forward breaks its bar ({out_share:.3f}, "
+                 f"{lse_share:.3f})")
+        cs.check(max(x[0] for x in g) <= 1,
+                 f"{tag} {b}: a gradient breaks the derived bar")
+        res[f"{b} shares"] = {"out": out_share, "lse": lse_share, **{
+            n: {"derived": x[0], "old": x[1]}
+            for n, x in zip(("dq", "dk", "dv"), g)}}
+        print(f"[ab] {tag} {b}: bar shares out {out_share:.3f}, lse "
+              f"{lse_share:.3f}; derived (old) gradient bar: " + ", ".join(
+                  f"{n} {x[0]:.3f} ({x[1]:.3f})"
+                  for n, x in zip(("dq", "dk", "dv"), g)))
+
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    leaves = [x.detach().clone().requires_grad_() for x in (qh, kh, vh)]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=ok)
+
+    sdpa_train = lambda: F.scaled_dot_product_attention(*leaves,
+                                                        attn_mask=ok)
+    fns = {}
+    for b, m in mods.items():
+        fns[f"{b} fwd"] = lambda m=m: m.flash_fwd_cuda(q, k, v, lens, chunk,
+                                                       left)
+        fns[f"{b} dq"] = lambda m=m: m.flash_bwd_dq_cuda(*args)
+        fns[f"{b} dkv"] = lambda m=m: m.flash_bwd_dkv_cuda(*args)
+    fns["sdpa fwd"] = sdpa_fwd
+    fns["sdpa fwd+bwd"] = lambda: torch.autograd.grad(sdpa_train(), leaves,
+                                                      doh)
+    fns["sdpa train fwd"] = sdpa_train
+    replays = {n: cs.graph_of(fn, mode="relaxed")[0] for n, fn in fns.items()}
+    times = timed(fns, rounds, replays)
+    for t in times.values():
+        t["sdpa bwd"] = [a - b for a, b in zip(t["sdpa fwd+bwd"],
+                                                t["sdpa train fwd"])]
+        for b in mods:
+            t[f"{b} pair"] = [x + y for x, y in zip(t[f"{b} dq"],
+                                                    t[f"{b} dkv"])]
+    res.update(report(f"{tag} B={B} T'={T} chunk {chunk}/{left}", times, [
+        ("other fwd", "this fwd"), ("this fwd", "sdpa fwd"),
+        ("other fwd", "sdpa fwd"), ("other pair", "this pair"),
+        ("this pair", "sdpa bwd"), ("other pair", "sdpa bwd")]))
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", help="root of the other checkout")
+    ap.add_argument("--rounds", type=int, default=9)
+    ap.add_argument("--seed", type=int, default=cs.SEED)
+    a = ap.parse_args()
+    try:
+        name, smi = cs.phase_device()
+        import torch
+
+        from chainer_speech_recognition_tpu_torch import _kernels
+
+        dev = torch.device("cuda")
+        _kernels.library()
+        other = load_checkout(os.path.abspath(a.other), "other_port")
+        rng = np.random.default_rng(a.seed)
+        out = frontend_cases(dev, rng, other, a.rounds)
+        out += [flash_case(dev, rng, other, a.rounds, *c)
+                for c in cs.attention_cases(rng)]
+    except cs.SmokeFailure as e:
+        print(f"FAILED: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"card": smi, "other": os.path.abspath(a.other),
+                      "cases": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
