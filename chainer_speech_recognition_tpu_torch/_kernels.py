@@ -71,12 +71,15 @@ CTC_FWD = Kernel("csr_ctc_fwd",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 CTC_BWD = Kernel("csr_ctc_bwd",
                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+# the LSTM's (..., T, B, H[, ndir], C, bf16, stream): C is the bf16
+# cluster kernels' blocks a cluster (ops/rnn_cuda.lstm_plan), unread under
+# fp32
 LSTM_FWD = Kernel("csr_lstm_fwd",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train",
-                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 LSTM_BWD = Kernel("csr_lstm_bwd",
-                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 GRU_FWD_STREAM = Kernel("csr_gru_fwd_stream",
                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _P])
@@ -99,6 +102,11 @@ KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "frontend_logmel_frames": FRONTEND_LOGMEL_FRAMES,
            "flash_fwd": FLASH_FWD, "flash_bwd_dq": FLASH_BWD_DQ,
            "flash_bwd_dkv": FLASH_BWD_DKV}
+
+# functions of the library that launch nothing (no count): (H, out) →
+# out = (shared memory bytes, clusters the card holds at once)
+HELPERS = {"csr_lstm_fwd_occupancy": [_I, ctypes.POINTER(_I)],
+           "csr_lstm_bwd_occupancy": [_I, ctypes.POINTER(_I)]}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -178,14 +186,21 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            for k in KERNELS.values():
-                fn = getattr(lib, k.symbol)
-                fn.argtypes = k.argtypes
+            for symbol, argtypes in [*((k.symbol, k.argtypes)
+                                       for k in KERNELS.values()),
+                                     *HELPERS.items()]:
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.csr_error_string.argtypes = [ctypes.c_int]
             lib.csr_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def call(symbol: str, *args) -> int:
+    """Call one of ``HELPERS`` → its return value (a CUDA status)."""
+    return getattr(library(), symbol)(*args)
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -3,8 +3,8 @@
 // Replaces ops/rnn_pallas.py::_lstm_bwd_kernel (the custom VJP's backward,
 // _birnn_bwd's LSTM branch). Same boundary but one stream: gates [T, R=2B,
 // 4H] = (i, f, o, u) from the training forward (csrc/lstm_fwd.cu, stream
-// dtype), the recurrent weights transposed per direction as k-quads
-// (below), lo/hi [R] fp32, cs [T, R, H] fp32 (the cell states) and g
+// dtype), the recurrent weights (laid out for each kernel, below), lo/hi
+// [R] fp32, cs [T, R, H] fp32 (the cell states) and g
 // [T, R, H] fp32 (the gradient of the layer's ys). The reference also takes
 // c_prev, the cell states shifted by one step with zeros first; here a
 // step reads cs one step back (0 at t = 0) instead. Out: dxs [T, R, 4H] in
@@ -27,23 +27,23 @@
 // step is a [rows x 4H] x [4H x H] product that needs all of the
 // direction's W (1.18 MB in bf16 at bilstm_deep) and the step before's dh.
 //
-// Design: the forward's, turned around (csrc/gru_bwd.cu's with four
-// gates). One block owns one row of one direction and walks T backwards;
-// thread j owns hidden unit j and keeps its dh and dc in registers. It
-// writes its unit's four dg values, rounded to the compute dtype, to shared
-// memory (double-buffered: one barrier a step), then reduces the row's 4H
-// values against column j of W^T, i.e. row j of W. The wrapper passes W as
-// k-quads of W^T, wtq [2][H][H][4]: wtq[d][k4][j][kk] = W[d][j][4 k4 + kk],
-// so a thread fetches four reduction rows with one load and a warp's loads
-// are contiguous. W is streamed from L2 in register chunks of kQ quads
-// (4 kQ rows) whose next loads are issued before the current FMAs; the
-// product keeps four partial sums (the lanes of a float4). The chunk sets
-// the number of dependent L2 round trips a step (4H / (4 kQ)) against the
-// registers it takes: 64 rows in bf16 (24 round trips a step at H = 384;
-// on an H100 at B = 24, T' = 256 as fast as 96 rows and faster than 24,
-// 32, 48 and 128, PERF.md), which also fits the 512-thread block, and 32
-// in fp32, whose rows take twice the registers. The next step's gates, c,
-// c_{t-1} and g are loaded before the product, so their latency hides
+// Two kernels: under bf16 compute (the presets' path) a thread-block
+// cluster keeps W resident in its shared memory and runs the step product
+// on the tensor cores (lstm_bwd_tc_kernel, below); under fp32 the FMA
+// kernel (lstm_bwd_kernel).
+//
+// The FMA kernel: the forward's, turned around (csrc/gru_bwd.cu's with
+// four gates). One block owns one row of one direction and walks T
+// backwards; thread j owns hidden unit j and keeps its dh and dc in
+// registers. It writes its unit's four dg values to shared memory
+// (double-buffered: one barrier a step), then reduces the row's 4H values
+// against column j of W^T, i.e. row j of W. The wrapper passes W as k-quads
+// of W^T, wtq [2][H][H][4]: wtq[d][k4][j][kk] = W[d][j][4 k4 + kk], so a
+// thread fetches four reduction rows with one load and a warp's loads are
+// contiguous. W is streamed from L2 in register chunks of 8 quads (32
+// rows) whose next loads are issued before the current FMAs; the product
+// keeps four partial sums (the lanes of a float4). The next step's gates,
+// c, c_{t-1} and g are loaded before the product, so their latency hides
 // behind it.
 // Bounds: 32 <= H <= 512, H % 32 == 0, any B, T >= 1.
 #include <cuda_bf16.h>
@@ -51,6 +51,7 @@
 
 #include "common.cuh"
 #include "rnn_common.cuh"
+#include "rnn_mma.cuh"
 
 namespace {
 
@@ -161,41 +162,231 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// W^T quads per register chunk: 16 (64 rows) in bf16, 8 (32 rows) in fp32;
-// both divide the H quads of any H % 32 == 0
-template <typename S>
-constexpr int kChunkQuads = sizeof(S) == 2 ? 16 : 8;
+// W^T quads per register chunk: 8 (32 rows, fp32), which divides the H
+// quads of any H % 32 == 0
+constexpr int kChunkQuads = 8;
 
-template <typename S>
-int launch(const void* gates, const void* wtq, const float* lo,
-           const float* hi, const float* cs, const float* g, void* dxs, int T,
-           int B, int H, cudaStream_t stream) {
-  using Q = typename Quad<S>::T;
+int launch_fp32(const void* gates, const void* wtq, const float* lo,
+                const float* hi, const float* cs, const float* g, void* dxs,
+                int T, int B, int H, cudaStream_t stream) {
   const dim3 grid(B, 2);
   const size_t smem = 2 * 4 * H * sizeof(float);
   if (H <= 384)
-    lstm_bwd_kernel<S, kChunkQuads<S>, 384><<<grid, H, smem, stream>>>(
-        static_cast<const S*>(gates), static_cast<const Q*>(wtq), lo, hi, cs,
-        g, static_cast<S*>(dxs), T, B, H);
+    lstm_bwd_kernel<float, kChunkQuads, 384><<<grid, H, smem, stream>>>(
+        static_cast<const float*>(gates), static_cast<const float4*>(wtq), lo,
+        hi, cs, g, static_cast<float*>(dxs), T, B, H);
   else
-    lstm_bwd_kernel<S, kChunkQuads<S>, 512><<<grid, H, smem, stream>>>(
-        static_cast<const S*>(gates), static_cast<const Q*>(wtq), lo, hi, cs,
-        g, static_cast<S*>(dxs), T, B, H);
+    lstm_bwd_kernel<float, kChunkQuads, 512><<<grid, H, smem, stream>>>(
+        static_cast<const float*>(gates), static_cast<const float4*>(wtq), lo,
+        hi, cs, g, static_cast<float*>(dxs), T, B, H);
   CSR_RETURN_LAUNCH_STATUS();
+}
+
+
+// ---------------------------------------------------------------------------
+// The bf16 backward on a thread-block cluster (csr_lstm_bwd under bf16
+// compute; layout in rnn_mma.cuh).
+//
+// Grid: C·groups x 2 blocks, C = H / 32, in clusters of C along x, as the
+// forward's: cluster (group, d) walks rows [16 group, 16 group + 16) of
+// direction d backwards, block c of it owns units [32 c, 32 c + 32) and
+// their 128 gate columns. Thread p owns the pair (row p / 32, unit
+// p % 32) and keeps its dh and dc (fp32) in registers. The product is
+// split by the reduction, not by the output: block c multiplies its own
+// dg columns by the matching columns of every row of W, so it needs no
+// other block's dg, and sends each block the partial sums for that block's
+// units (a reduce-scatter: 16 x H fp32 a step leave each block, half the
+// bytes of gathering the 16 x 4H bf16 dg). Its W slice, wb[d][c] =
+// [H][4][32] bf16 (element [j][g][u] = W[d][j][g H + 32 c + u], laid out by
+// the wrapper), stays in shared memory for all T steps: the n rows (units
+// j) of the product's B operand, k-major. A step:
+//   1. dg = (di, df, do, du) of the pair from the prefetched gates, c_t,
+//      c_{t-1} and g; the next step's inputs are loaded;
+//   2. the unmasked dg, rounded to bf16 (where _dot2 rounds it), into this
+//      block's A [16][128];
+//   3. warp w takes n-tiles w, w + 16, ... of the H units: 8 k-steps of
+//      mma.sync m16n8k16 (bf16 operands, fp32 accumulators, A fragments
+//      loaded once a step), and stores its 16 x 8 partial sums into the
+//      owning block's buffer slot for source c through DSMEM;
+//   4. the cluster barrier, release / acquire (dxs = dg masked to the live
+//      steps is stored between its halves);
+//   5. dh_prev of the pair = the C partial sums added in source order: no
+//      atomics, bitwise repeatable; live: dh = dh_prev, dc = dc_t f;
+//      otherwise dh = dh_total and dc passes through.
+// The partial sums are double-buffered, so one cluster barrier a step is
+// enough, as in the forward. At t = 0 the product is not needed.
+__global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
+    lstm_bwd_tc_kernel(const __nv_bfloat16* __restrict__ gates,
+                       const __nv_bfloat16* __restrict__ wb,
+                       const float* __restrict__ lo,
+                       const float* __restrict__ hi,
+                       const float* __restrict__ cs,
+                       const float* __restrict__ g,
+                       __nv_bfloat16* __restrict__ dxs, int T, int B, int H) {
+  namespace tc = csr_rnn_mma;
+  constexpr int kU = tc::kUnits, kM = tc::kRows, kK = 4 * kU;
+  constexpr int kSteps = kK / 16;                // k-steps of the product
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = static_cast<int>(tc::cluster_nctarank());
+  const int c = static_cast<int>(tc::cluster_ctarank());
+  const int G = 4 * H;
+  const int d = blockIdx.y, group = blockIdx.x / C;
+  const int R = 2 * B;
+  constexpr int row_b = tc::row_bytes(kK);
+  const uint32_t s_w = tc::smem_addr(smem);
+  const uint32_t s_a = s_w + H * row_b;          // A [kM][kK]
+  const uint32_t s_p = s_a + kM * row_b;         // partials [2][C][kM][kU]
+  const float* part = reinterpret_cast<const float*>(smem + (s_p - s_w));
+  const int part_buf = C * kM * kU;              // floats a buffer
+  const int tid = threadIdx.x, l = tid & 31, wp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+
+  // the W slice, once
+  const __nv_bfloat16* wsrc = wb + (static_cast<int64_t>(d) * C + c) * H * kK;
+  for (int i = tid; i < H * (kK / 8); i += blockDim.x)
+    tc::cp_async16(s_w + (i / (kK / 8)) * row_b + (i % (kK / 8)) * 16,
+                   wsrc + static_cast<int64_t>(i) * 8, true);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  tc::cluster_sync();   // every peer has started before DSMEM stores
+
+  // this thread's pair
+  const int r = tid / kU, u = tid % kU, j = c * kU + u;
+  const int b = group * kM + r;
+  const bool valid = b < B;
+  const int rr = d * B + b;
+  const float lo_r = valid ? lo[rr] : 0.0f;
+  const float hi_r = valid ? hi[rr] : 0.0f;   // never live
+  // fragment addresses: A row l % 16 at k chunk l / 16; B rows (units) of
+  // an n-tile at k chunks l / 8 of two k-steps
+  const uint32_t a_base = s_a + (l & 15) * row_b + (l >> 4) * 16;
+  const uint32_t b_off = (l & 7) * row_b + (l >> 3) * 16;
+
+  struct In {
+    float i, f, o, u, cp, c, g;
+  };
+  auto load_in = [&](int t) {
+    In in = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (valid) {
+      const int64_t row = static_cast<int64_t>(t) * R + rr;
+      const __nv_bfloat16* gt = gates + row * G;
+      in.i = __bfloat162float(gt[j]);
+      in.f = __bfloat162float(gt[H + j]);
+      in.o = __bfloat162float(gt[2 * H + j]);
+      in.u = __bfloat162float(gt[3 * H + j]);
+      in.cp = t > 0 ? cs[(row - R) * H + j] : 0.0f;
+      in.c = cs[row * H + j];
+      in.g = g[row * H + j];
+    }
+    return in;
+  };
+  auto store_dxs = [&](int t, const float (&dgv)[4], bool live) {
+    if (!valid) return;
+    __nv_bfloat16* dx = dxs + (static_cast<int64_t>(t) * R + rr) * G;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      dx[q * H + j] = __float2bfloat16_rn(live ? dgv[q] : 0.0f);
+  };
+
+  float dh = 0.0f, dc = 0.0f;
+  In in = load_in(T - 1);
+  int cur = 0;
+  for (int t = T - 1; t >= 0; --t) {
+    const float dh_total = in.g + dh;
+    const float tc_ = tanhf(in.c);
+    const float dog = dh_total * tc_ * in.o * (1.0f - in.o);
+    const float dct = dc + dh_total * in.o * (1.0f - tc_ * tc_);
+    const float dfg = dct * in.cp * in.f * (1.0f - in.f);
+    const float dig = dct * in.u * in.i * (1.0f - in.i);
+    const float dug = dct * in.i * (1.0f - in.u * in.u);
+    const float ft = in.f;
+    const float tf = static_cast<float>(t);
+    const bool live = lo_r <= tf && tf < hi_r;
+    const float dgv[4] = {dig, dfg, dog, dug};
+    if (t == 0) {   // dh_prev of step 0 is not needed
+      store_dxs(t, dgv, live);
+      break;
+    }
+    in = load_in(t - 1);
+    __nv_bfloat16* arow =
+        reinterpret_cast<__nv_bfloat16*>(smem + (s_a - s_w) + r * row_b);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) arow[q * kU + u] = __float2bfloat16_rn(dgv[q]);
+    __syncthreads();
+
+    uint32_t af[kSteps][4];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) tc::ldsm_x4(a_base + kk * 32, af[kk]);
+    const uint32_t s_dst = s_p + (cur * part_buf + c * kM * kU) * 4;
+    for (int nt = wp; nt < H / 8; nt += n_warps) {
+      uint32_t bf[kSteps / 2][4];
+#pragma unroll
+      for (int kp = 0; kp < kSteps / 2; ++kp)
+        tc::ldsm_x4(s_w + nt * 8 * row_b + b_off + kp * 64, bf[kp]);
+      // two accumulators (even and odd k-steps) halve the dependent chain
+      float acc[2][4] = {};
+#pragma unroll
+      for (int kp = 0; kp < kSteps / 2; ++kp) {
+        tc::mma(acc[0], af[2 * kp], bf[kp][0], bf[kp][1]);
+        tc::mma(acc[1], af[2 * kp + 1], bf[kp][2], bf[kp][3]);
+      }
+      // units 8 nt + 2 (l % 4) + {0, 1} belong to block 8 nt / 32
+      const int owner = nt / (kU / 8);
+      const int col = (nt % (kU / 8)) * 8 + 2 * (l & 3);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        tc::st_cluster8(
+            tc::map_rank(s_dst + (((l >> 2) + 8 * i) * kU + col) * 4, owner),
+            acc[0][2 * i] + acc[1][2 * i], acc[0][2 * i + 1] + acc[1][2 * i + 1]);
+    }
+    tc::cluster_arrive();
+    store_dxs(t, dgv, live);
+    tc::cluster_wait();
+    const float* p = part + cur * part_buf + r * kU + u;
+    float dot = p[0];
+    for (int src = 1; src < C; ++src) dot += p[src * kM * kU];
+    if (live) {
+      dh = dot;
+      dc = dct * ft;
+    } else {
+      dh = dh_total;
+    }
+    cur ^= 1;
+  }
 }
 
 }  // namespace
 
-// gates [T, 2B, 4H], wtq [2, H, H, 4] and dxs [T, 2B, 4H] all bf16
-// (bf16 != 0) or all fp32; lo/hi [2B], cs and g [T, 2B, H] fp32.
-// Requires 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1 (the wrapper
-// checks).
+// gates [T, 2B, 4H], dxs [T, 2B, 4H] and the weights all fp32 (the FMA
+// kernel: wtq [2, H, H, 4]) or, when bf16 != 0, all bf16 (the cluster
+// kernel: wb [2, C, H, 4, 32], C = H / 32 blocks a cluster,
+// ops/rnn_cuda.py's lstm_plan; unread under fp32); lo/hi [2B], cs and g
+// [T, 2B, H] fp32. Requires 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1
+// (the wrapper checks).
 CSR_API int csr_lstm_bwd(const void* gates, const void* wtq, const float* lo,
                          const float* hi, const float* cs, const float* g,
-                         void* dxs, int T, int B, int H, int bf16,
+                         void* dxs, int T, int B, int H, int C, int bf16,
                          cudaStream_t stream) {
-  if (bf16)
-    return launch<__nv_bfloat16>(gates, wtq, lo, hi, cs, g, dxs, T, B, H,
-                                 stream);
-  return launch<float>(gates, wtq, lo, hi, cs, g, dxs, T, B, H, stream);
+  namespace tc = csr_rnn_mma;
+  if (!bf16)
+    return launch_fp32(gates, wtq, lo, hi, cs, g, dxs, T, B, H, stream);
+  if (C * tc::kUnits != H) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_clusters(
+      lstm_bwd_tc_kernel, C, (B + tc::kRows - 1) / tc::kRows, 2,
+      tc::kRows * tc::kUnits, tc::bwd_smem(H), stream,
+      static_cast<const __nv_bfloat16*>(gates),
+      static_cast<const __nv_bfloat16*>(wtq), lo, hi, cs, g,
+      static_cast<__nv_bfloat16*>(dxs), T, B, H);
+}
+
+// The cluster backward's plan as the card takes it: out[0] = its shared
+// memory bytes at hidden size H (C = H / 32 blocks), out[1] = how many of
+// its clusters the card holds at once (cudaOccupancyMaxActiveClusters; 0:
+// it cannot launch).
+CSR_API int csr_lstm_bwd_occupancy(int H, int* out) {
+  namespace tc = csr_rnn_mma;
+  out[0] = tc::bwd_smem(H);
+  return tc::max_clusters(lstm_bwd_tc_kernel, H / tc::kUnits,
+                          tc::kRows * tc::kUnits, out[0], out + 1);
 }

@@ -12,8 +12,7 @@
 // the stream dtype, which the backward kernel (csrc/lstm_bwd.cu) reads
 // instead of recomputing the gate matmul. The stream form seeds h and c
 // from h0 [R, 2H] = h||c fp32 instead of 0 and writes carry [R, 2H], the
-// h||c of step emit_t - 1 (h0 when emit_t == 0). The three forms are one
-// template (kResiduals, kStream).
+// h||c of step emit_t - 1 (h0 when emit_t == 0).
 //
 // Same boundary as the TPU kernel: xs [T, R=ndir*B, 4H] in the stream
 // dtype (bf16 under bf16 compute, fp32 under fp32), lo/hi [R] fp32 -> ys
@@ -28,36 +27,40 @@
 // form's h0 seeds the fp32 registers, its compute-dtype rounding the shared
 // copy of h that the first product reads).
 //
-// W arrives from the wrapper in the compute dtype as k-quads,
-// wq [ndir][H/4][4H][4]: wq[d][k4][col][kk] = W[d][4 k4 + kk][col], so thread
-// j fetches four reduction rows of its gate column with one load.
+// Two kernels. The bf16 residual-free and training forms (the presets'
+// path) run on a thread-block cluster with W resident in its shared
+// memory and the step product on the tensor cores (lstm_fwd_tc_kernel,
+// below; one template over kResiduals). The fp32 forms and the stream form
+// (both dtypes) run the FMA kernel (lstm_fwd_kernel, one template over
+// kResiduals and kStream).
 //
 // What bounds it on Hopper: the sequential dependency over T. Each step is
 // a [rows x H] x [H x 4H] product that needs all of the direction's W
-// (384 x 1536 bf16 = 1.18 MB at bilstm_deep) and the step before's h. As
-// in csrc/gru_fwd.cu, every block streams its direction's W from L2 once a
-// step, so a step costs the dependent L2 round trips of the W loads unless
-// they overlap, and at most the L2 bandwidth shared by all blocks' streams
-// (64 blocks x 1.18 MB = 75 MB a step at B = 32).
+// (384 x 1536 bf16 = 1.18 MB at bilstm_deep) and the step before's h; the
+// bytes the function must move (xs, ys, the residuals) take ~0.03 ms at
+// the training shape, the T dependent steps far longer.
 //
-// Design (csrc/gru_fwd.cu's, with four gates): a block owns one row of one
-// direction and loops over all T inside the kernel; nothing crosses
-// blocks. Thread j owns hidden unit j: it accumulates the i, f, o and u
-// pre-activations of unit j (W reads coalesced across j, h broadcast from
-// shared memory as float4) and keeps its fp32 h and c in registers. W is
-// read in register chunks of kQ quads (4 kQ reduction rows) per gate, the
-// next chunk's loads issued before the current chunk's FMAs; the k-quad
-// layout halves (bf16) the loads and registers of gru_fwd.cu's one-row
-// loads, so four gates fit in a chunk of 16 rows: 24 dependent round trips
-// a step at H = 384. The next step's xs is loaded before the product, so its latency
-// hides behind it. The compute-dtype copy of h that the next step reads is
-// double-buffered in shared memory: one barrier a step. Bounds:
-// 32 <= H <= 512, H % 32 == 0 (one thread per unit), any B, T >= 1.
+// The FMA kernel (csrc/gru_fwd.cu's design, with four gates): a block owns
+// one row of one direction and loops over all T inside the kernel; nothing
+// crosses blocks. Thread j owns hidden unit j: it accumulates the i, f, o
+// and u pre-activations of unit j (W reads coalesced across j, h broadcast
+// from shared memory as float4) and keeps its fp32 h and c in registers.
+// W arrives as k-quads, wq [ndir][H/4][4H][4]: wq[d][k4][col][kk] =
+// W[d][4 k4 + kk][col], so thread j fetches four reduction rows of its gate
+// column with one load; every block streams its direction's W from L2 once
+// a step, in register chunks of kQ quads (4 kQ reduction rows) per gate,
+// the next chunk's loads issued before the current chunk's FMAs: 24
+// dependent round trips a step at H = 384. The next step's xs is loaded
+// before the product, so its latency hides behind it. The compute-dtype
+// copy of h that the next step reads is double-buffered in shared memory:
+// one barrier a step. Bounds: 32 <= H <= 512, H % 32 == 0 (one thread per
+// unit), any B, T >= 1.
 #include <cuda_bf16.h>
 #include <math.h>
 
 #include "common.cuh"
 #include "rnn_common.cuh"
+#include "rnn_mma.cuh"
 
 namespace {
 
@@ -205,19 +208,236 @@ int launch(const void* xs, const void* wq, const float* lo, const float* hi,
   CSR_RETURN_LAUNCH_STATUS();
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on a thread-block cluster (csr_lstm_fwd and
+// csr_lstm_fwd_train under bf16 compute; layout in rnn_mma.cuh).
+//
+// Grid: C·groups x ndir blocks, C = H / 32, in clusters of C along x;
+// cluster (group, d) serves rows [16 group, 16 group + 16) of direction d,
+// block c of it the units [32 c, 32 c + 32) with all four gates of each,
+// so the gate math and the c update stay in the block. Its W slice, wt[d]
+// [c] = [4][32][H] bf16 (element [g][u][k] = W[d][k][g H + 32 c + u], laid
+// out by the wrapper), is copied into shared memory once and read there for
+// all T steps: the n rows (gate columns) of the product's B operand,
+// k-major, so ldmatrix reads them without a transpose. A step:
+//   1. the product: the group's 16 rows of h (bf16, where _dot2 rounds
+//      it) times the W slice, split over 16 warps: warp w takes unit block
+//      w % 4 (units 8 (w % 4) .. + 7, four m16n8 accumulators, one a gate)
+//      and quarter w / 4 of the H / 16 k-steps of mma.sync m16n8k16 (bf16
+//      operands, fp32 accumulators, the next k-step's fragments loaded
+//      before the current one's products); the four quarters' partial sums
+//      meet in shared memory;
+//   2. thread p owns the pair (row p / 32, unit p % 32): it adds the
+//      quarters in a fixed order (no atomics: bitwise repeatable), adds xs
+//      (prefetched a step ahead), and runs the gate math on fp32 h and c,
+//      which stay in its registers for all T steps;
+//   3. the new h, rounded to bf16, goes into this block's columns of the
+//      next A buffer, and from there into every other block's through
+//      DSMEM; one cluster barrier a step (release / acquire) makes it
+//      visible, the step's global stores made between its arrive and its
+//      wait.
+// Double buffering makes one barrier enough: a block writes buffer t % 2
+// only after every block has passed the barrier that follows its reads of
+// that buffer at step t - 2. Both forms share the product and the gate
+// math, so their ys are equal.
+//
+// What bounds a step: each block reads its W slice (H x 128 bf16, 98 KB at
+// H = 384) from shared memory once a step, runs the gate math of its 512
+// pairs and exchanges h; C = H / 32 spreads all three over the most blocks
+// that keep 32 units (n8 tiles of whole unit blocks) each.
+template <bool kResiduals>
+__global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
+    lstm_fwd_tc_kernel(const __nv_bfloat16* __restrict__ xs,
+                       const __nv_bfloat16* __restrict__ wt,
+                       const float* __restrict__ lo,
+                       const float* __restrict__ hi, float* __restrict__ ys,
+                       float* __restrict__ cs,
+                       __nv_bfloat16* __restrict__ gates, int T, int B,
+                       int H) {
+  namespace tc = csr_rnn_mma;
+  constexpr int kU = tc::kUnits, kM = tc::kRows, kN = 4 * kU;
+  constexpr int kLd = tc::kPartLd;   // row stride of the partial sums
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = static_cast<int>(tc::cluster_nctarank());
+  const int c = static_cast<int>(tc::cluster_ctarank());
+  const int d = blockIdx.y, group = blockIdx.x / C;
+  const int R = gridDim.y * B;
+  const int row_b = tc::row_bytes(H);
+  const uint32_t s_w = tc::smem_addr(smem);
+  const uint32_t s_a = s_w + kN * row_b;         // A[2][kM]
+  const uint32_t a_bytes = kM * row_b;
+  // partial sums [4 quarters][4 gates][kM][kLd] fp32
+  float* part = reinterpret_cast<float*>(smem + kN * row_b + 2 * a_bytes);
+  const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
+
+  // the W slice, once; A[0] = h_0 = 0
+  const __nv_bfloat16* wsrc = wt + (static_cast<int64_t>(d) * C + c) * kN * H;
+  const int kc = H / 8;
+  for (int i = tid; i < kN * kc; i += blockDim.x)
+    tc::cp_async16(s_w + (i / kc) * row_b + (i % kc) * 16,
+                   wsrc + static_cast<int64_t>(i / kc) * H + (i % kc) * 8,
+                   true);
+  tc::cp_async_commit();
+  for (uint32_t i = tid * 16; i < a_bytes; i += blockDim.x * 16)
+    *reinterpret_cast<uint4*>(smem + (s_a - s_w) + i) = make_uint4(0, 0, 0, 0);
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  tc::cluster_sync();   // every peer has started before DSMEM stores
+
+  // this thread's pair
+  const int r = tid / kU, u = tid % kU, j = c * kU + u;
+  const int b = group * kM + r;
+  const bool valid = b < B;
+  const int rr = d * B + b;
+  const float lo_r = valid ? lo[rr] : 0.0f;
+  const float hi_r = valid ? hi[rr] : 0.0f;   // never live
+  // this warp's product: unit block ub, k-steps [k0, k1) of H / 16;
+  // fragment addresses: A row l % 16 at k chunk l / 16; B rows (gates g,
+  // g + 1 of unit 8 ub + l % 8) at k chunk l / 8 % 2
+  const int ub = w & 3, K = H / 16;
+  const int k0 = K * (w >> 2) / 4, k1 = K * ((w >> 2) + 1) / 4;
+  const uint32_t a_off = (l & 15) * row_b + (l >> 4) * 16 + k0 * 32;
+  uint32_t b_base[2];
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+    b_base[p] = s_w + (2 * p * kU + 8 * ub + (l & 7) + (l >> 4) * kU) * row_b +
+                ((l >> 3) & 1) * 16 + k0 * 32;
+  // where this lane's accumulator elements go: gate g, row l / 4 (+ 8),
+  // units 8 ub + 2 (l % 4) (+ 1) of quarter w / 4
+  float* part_w = part + (w >> 2) * 4 * kM * kLd + (l >> 2) * kLd + 8 * ub +
+                  2 * (l & 3);
+
+  auto load_x = [&](int t, float (&v)[4]) {
+    const __nv_bfloat16* xr =
+        xs + (static_cast<int64_t>(t) * R + rr) * 4 * H + j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      v[g] = valid ? __bfloat162float(xr[g * H]) : 0.0f;
+  };
+  float x[4];
+  load_x(0, x);
+  float h = 0.0f, cv = 0.0f;
+  int cur = 0;
+  for (int t = 0; t < T; ++t) {
+    float nx[4];
+    if (t + 1 < T) load_x(t + 1, nx);
+    const uint32_t a_base = s_a + cur * a_bytes + a_off;
+    float acc[4][4] = {};
+    if (k0 < k1) {
+      uint32_t a[4], b0[4], b1[4];   // gates (0, 1) and (2, 3)
+      tc::ldsm_x4(a_base, a);
+      tc::ldsm_x4(b_base[0], b0);
+      tc::ldsm_x4(b_base[1], b1);
+      for (int kk = 0; kk < k1 - k0; ++kk) {
+        // the next k-step, clamped
+        const int kn = kk + 1 < k1 - k0 ? kk + 1 : kk;
+        uint32_t na[4], nb0[4], nb1[4];
+        tc::ldsm_x4(a_base + kn * 32, na);
+        tc::ldsm_x4(b_base[0] + kn * 32, nb0);
+        tc::ldsm_x4(b_base[1] + kn * 32, nb1);
+        tc::mma(acc[0], a, b0[0], b0[1]);
+        tc::mma(acc[1], a, b0[2], b0[3]);
+        tc::mma(acc[2], a, b1[0], b1[1]);
+        tc::mma(acc[3], a, b1[2], b1[3]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          a[q] = na[q];
+          b0[q] = nb0[q];
+          b1[q] = nb1[q];
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(part_w + (g * kM + 8 * i) * kLd) =
+            make_float2(acc[g][2 * i], acc[g][2 * i + 1]);
+    __syncthreads();
+    float pre[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float* p = part + (g * kM + r) * kLd + u;
+      pre[g] = ((p[0] + p[4 * kM * kLd]) + p[8 * kM * kLd]) +
+               p[12 * kM * kLd];
+    }
+    const float ig = sigmoidf(x[0] + pre[0]);
+    const float fg = sigmoidf((x[1] + pre[1]) + 1.0f);  // forget bias +1
+    const float og = sigmoidf(x[2] + pre[2]);
+    const float ug = tanhf(x[3] + pre[3]);
+    const float cn = fg * cv + ig * ug;
+    const float hn = og * tanhf(cn);
+    const float tf = static_cast<float>(t);
+    if (lo_r <= tf && tf < hi_r) {
+      h = hn;
+      cv = cn;
+    }
+    const int nxt = cur ^ 1;
+    const bool more = t + 1 < T;
+    if (more) {
+      // h into this block's columns of A[nxt], then its 16 rows x 64 bytes
+      // into every other block's
+      const uint32_t s_nxt = s_a + nxt * a_bytes;
+      reinterpret_cast<__nv_bfloat16*>(smem + (s_nxt - s_w) + r * row_b)[j] =
+          __float2bfloat16_rn(h);
+      __syncthreads();
+      for (int q = tid; q < (C - 1) * kM * 4; q += blockDim.x) {
+        const int p = q / (kM * 4), e = q % (kM * 4);
+        const uint32_t ad = s_nxt + (e >> 2) * row_b + c * kU * 2 + (e & 3) * 16;
+        tc::st_cluster16(tc::map_rank(ad, p + (p >= c)), tc::ld_shared16(ad));
+      }
+      tc::cluster_arrive();
+    }
+    if (valid) {
+      const int64_t row = static_cast<int64_t>(t) * R + rr;
+      ys[row * H + j] = h;
+      if (kResiduals) {
+        cs[row * H + j] = cv;
+        __nv_bfloat16* gt = gates + row * 4 * H + j;
+        gt[0] = __float2bfloat16_rn(ig);
+        gt[H] = __float2bfloat16_rn(fg);
+        gt[2 * H] = __float2bfloat16_rn(og);
+        gt[3 * H] = __float2bfloat16_rn(ug);
+      }
+    }
+    if (more) {
+      tc::cluster_wait();
+#pragma unroll
+      for (int g = 0; g < 4; ++g) x[g] = nx[g];
+    }
+    cur = nxt;
+  }
+}
+
+template <bool kResiduals>
+int launch_tc(const void* xs, const void* wt, const float* lo,
+              const float* hi, float* ys, float* cs, void* gates, int T,
+              int B, int H, int ndir, int C, cudaStream_t stream) {
+  namespace tc = csr_rnn_mma;
+  if (C * tc::kUnits != H) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_clusters(
+      lstm_fwd_tc_kernel<kResiduals>, C, (B + tc::kRows - 1) / tc::kRows,
+      ndir, tc::kRows * tc::kUnits, tc::fwd_smem(H), stream,
+      static_cast<const __nv_bfloat16*>(xs),
+      static_cast<const __nv_bfloat16*>(wt), lo, hi, ys, cs,
+      static_cast<__nv_bfloat16*>(gates), T, B, H);
+}
+
 }  // namespace
 
-// xs [T, ndir*B, 4H] and wq [ndir, H/4, 4H, 4] both bf16 (bf16 != 0) or
-// both fp32; lo/hi [ndir*B] fp32; ys [T, ndir*B, H] fp32. Requires
-// 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper
-// checks).
+// xs [T, ndir*B, 4H] fp32 and wq [ndir, H/4, 4H, 4] fp32 (the FMA kernel),
+// or, when bf16 != 0, xs bf16 and wq = wt [ndir, C, 4, 32, H] bf16 (the
+// cluster kernel: C = H / 32 blocks a cluster, ops/rnn_cuda.py's
+// lstm_plan; unread under fp32); lo/hi [ndir*B] fp32; ys [T, ndir*B, H]
+// fp32. Requires 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2
+// (the wrapper checks).
 CSR_API int csr_lstm_fwd(const void* xs, const void* wq, const float* lo,
                          const float* hi, float* ys, int T, int B, int H,
-                         int ndir, int bf16, cudaStream_t stream) {
+                         int ndir, int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, false, false>(
-        xs, wq, lo, hi, nullptr, ys, nullptr, nullptr, nullptr, T, B, H, ndir,
-        0, stream);
+    return launch_tc<false>(xs, wq, lo, hi, ys, nullptr, nullptr, T, B, H,
+                            ndir, C, stream);
   return launch<float, false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
                                      nullptr, nullptr, T, B, H, ndir, 0,
                                      stream);
@@ -229,13 +449,23 @@ CSR_API int csr_lstm_fwd(const void* xs, const void* wq, const float* lo,
 CSR_API int csr_lstm_fwd_train(const void* xs, const void* wq,
                                const float* lo, const float* hi, float* ys,
                                float* cs, void* gates, int T, int B, int H,
-                               int bf16, cudaStream_t stream) {
+                               int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, true, false>(
-        xs, wq, lo, hi, nullptr, ys, cs, gates, nullptr, T, B, H, 2, 0,
-        stream);
+    return launch_tc<true>(xs, wq, lo, hi, ys, cs, gates, T, B, H, 2, C,
+                           stream);
   return launch<float, true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
                                     nullptr, T, B, H, 2, 0, stream);
+}
+
+// The cluster forward's plan as the card takes it: out[0] = its shared
+// memory bytes at hidden size H (C = H / 32 blocks), out[1] = how many of
+// its clusters the card holds at once (cudaOccupancyMaxActiveClusters; 0:
+// it cannot launch).
+CSR_API int csr_lstm_fwd_occupancy(int H, int* out) {
+  namespace tc = csr_rnn_mma;
+  out[0] = tc::fwd_smem(H);
+  return tc::max_clusters(lstm_fwd_tc_kernel<true>, H / tc::kUnits,
+                          tc::kRows * tc::kUnits, out[0], out + 1);
 }
 
 // As csr_lstm_fwd, with h||c seeded from h0 [ndir*B, 2H] fp32 and carry

@@ -1,0 +1,166 @@
+// Shared by the bf16 cluster kernels of the LSTM (lstm_fwd.cu, lstm_bwd.cu):
+// the shared-memory layout, the thread-block cluster's rank, distributed
+// shared memory (DSMEM) stores and barrier, and the cluster launch.
+//
+// A cluster of C = H / 32 blocks serves one direction and one group of
+// kRows = 16 rows (one m16 tile; rows past B are zero); block c owns the
+// kUnits = 32 hidden units [32 c, 32 c + 32). Its slice of W stays in its
+// shared memory for all T steps, as bf16 rows of a k-extent K (the
+// reduction) padded by 16 bytes: row r starts at r (2 K + 16) bytes, so the
+// 8 rows that one ldmatrix phase reads fall in 8 distinct 16-byte bank
+// groups for every K % 32 == 0 (the row stride is 16 or 80 mod 128 bytes).
+// ops/rnn_cuda.py's lstm_plan computes the same sizes.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "attention_mma.cuh"
+#include "common.cuh"
+
+namespace csr_rnn_mma {
+
+using csr_attn::cp_async16;
+using csr_attn::cp_async_commit;
+using csr_attn::cp_async_wait;
+using csr_attn::ldsm_x4;
+using csr_attn::mma;
+using csr_attn::smem_addr;
+
+constexpr int kUnits = 32;   // hidden units a block
+constexpr int kRows = 16;    // rows a cluster: one m16 tile
+
+// bytes of one padded bf16 row of K values
+__host__ __device__ constexpr int row_bytes(int K) { return 2 * K + 16; }
+
+// the forward's partial sums: rows of kUnits fp32 padded to 40, so the
+// float2 stores of a warp's 8 rows take two wavefronts
+constexpr int kPartLd = kUnits + 8;
+
+// forward: the W slice [4][kUnits][H] (its gate columns, k-major), the
+// double buffer of h, [2][kRows][H], and the partial sums of the product's
+// four k-quarters, [4][4 gates][kRows][kPartLd] fp32
+__host__ __device__ constexpr int fwd_smem(int H) {
+  return (4 * kUnits + 2 * kRows) * row_bytes(H) + 16 * kRows * kPartLd * 4;
+}
+
+// backward: the W slice [H][4][kUnits] (its gate columns of every row of
+// W), this block's dg [kRows][4 kUnits] and the double buffer of partial
+// sums [2][C][kRows][kUnits] fp32 (C = H / kUnits sources)
+__host__ __device__ constexpr int bwd_smem(int H) {
+  return (H + kRows) * row_bytes(4 * kUnits) + 2 * kRows * H * 4;
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the address of the same shared-memory location in block `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster8(uint32_t addr, float x,
+                                            float y) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(x), "f"(y)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// the cluster barrier in two halves: after arrive (release), this
+// thread's earlier stores to peers' shared memory are seen by every thread
+// that has returned from wait (acquire); wait returns once every thread
+// of the cluster has arrived
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// the launch configuration of `kernel` on clusters of C blocks along x,
+// grid (C·nx, ny), `smem` bytes of dynamic shared memory (the kernel's
+// attributes set to allow them) → the status of setting the attributes
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+
+  template <typename... Exp>
+  cudaError_t init(void (*kernel)(Exp...), int C, int nx, int ny,
+                   int threads, int smem, cudaStream_t stream) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg = {};
+    cfg.gridDim = dim3(C * nx, ny);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    return e != cudaSuccess ? e : cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+};
+
+// launches `kernel` on clusters (ClusterLaunch::init) → the launch status
+template <typename... Exp, typename... Act>
+int launch_clusters(void (*kernel)(Exp...), int C, int nx, int ny,
+                    int threads, int smem, cudaStream_t stream,
+                    Act&&... args) {
+  ClusterLaunch l;
+  cudaError_t e = l.init(kernel, C, nx, ny, threads, smem, stream);
+  if (e == cudaSuccess)
+    e = cudaLaunchKernelEx(&l.cfg, kernel, static_cast<Act&&>(args)...);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// how many clusters of `kernel` (C blocks of `threads`, `smem` bytes) the
+// card can hold at once, into *n → the query's status
+template <typename... Exp>
+int max_clusters(void (*kernel)(Exp...), int C, int threads, int smem,
+                 int* n) {
+  ClusterLaunch l;
+  cudaError_t e = l.init(kernel, C, 1, 1, threads, smem, nullptr);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(n, kernel, &l.cfg);
+  return static_cast<int>(e);
+}
+
+}  // namespace csr_rnn_mma

@@ -42,6 +42,13 @@ plain version for CPU tensors):
 * ``gru_bwd`` → (dxs, dhn) and ``lstm_bwd`` → dxs: the reverse-time
   gradient walk.
 
+Under bf16 compute the LSTM's residual-free and training forwards and its
+backward run on thread-block clusters (``lstm_plan``: C = H / 32 blocks,
+16 rows a cluster), each block keeping its slice of W in shared memory
+(``lstm_fwd_tc_weights``, ``lstm_bwd_tc_weights``) and multiplying on
+the tensor cores; under fp32, and in the stream form, the FMA kernels read
+W as k-quads.
+
 ``BiGRUScan`` and ``BiLSTMScan`` are ``birnn_pallas``'s custom VJP: the
 training forward, the backward kernel, then dW = Σ_t h_prevᵀ·dgate as
 matmuls with compute-dtype operands and fp32 accumulation (``_dw_einsum``;
@@ -53,6 +60,9 @@ layer call took.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -383,19 +393,102 @@ def gru_bwd_cuda(gates, w, lo, hi, h_prev, g, compute_dtype):
 
 
 def _lstm_fwd_weights(w, compute_dtype):
-    """W [ndir, H, 4H] → the forward kernel's k-quads [ndir, H/4, 4H, 4] in
-    the compute dtype: element [d, k4, col, kk] is W[d, 4·k4 + kk, col]."""
+    """W [ndir, H, 4H] → the fp32 forward kernel's k-quads [ndir, H/4, 4H,
+    4]: element [d, k4, col, kk] is W[d, 4·k4 + kk, col]."""
     ndir, H = w.shape[:2]
     return w.to(compute_dtype).reshape(ndir, H // 4, 4, 4 * H).transpose(
         2, 3).contiguous()
 
 
 def _lstm_bwd_weights(w, compute_dtype):
-    """W [2, H, 4H] → the backward kernel's k-quads of Wᵀ, [2, H, H, 4] in
-    the compute dtype: element [d, k4, j, kk] is W[d, j, 4·k4 + kk]."""
+    """W [2, H, 4H] → the fp32 backward kernel's k-quads of Wᵀ, [2, H, H,
+    4]: element [d, k4, j, kk] is W[d, j, 4·k4 + kk]."""
     H = w.shape[1]
     return w.to(compute_dtype).reshape(2, H, H, 4).transpose(1, 2) \
         .contiguous()
+
+
+def lstm_fwd_tc_weights(w, C: int):
+    """W [ndir, H, 4H] → the bf16 cluster forward's slices [ndir, C, 4, U,
+    H] bf16, U = H / C: element [d, c, g, u, k] is W[d, k, g·H + c·U + u],
+    the gate columns of block c's units, k-major (``csrc/lstm_fwd.cu``)."""
+    ndir, H = w.shape[:2]
+    return w.to(torch.bfloat16).reshape(ndir, H, 4, C, H // C).permute(
+        0, 3, 2, 4, 1).contiguous()
+
+
+def lstm_bwd_tc_weights(w, C: int):
+    """W [2, H, 4H] → the bf16 cluster backward's slices [2, C, H, 4, U]
+    bf16, U = H / C: element [d, c, j, g, u] is W[d, j, g·H + c·U + u],
+    block c's gate columns of every row j of W (``csrc/lstm_bwd.cu``)."""
+    H = w.shape[1]
+    return w.to(torch.bfloat16).reshape(2, H, 4, C, H // C).permute(
+        0, 3, 1, 2, 4).contiguous()
+
+
+# the cluster kernels' units a block and rows a cluster (csrc/rnn_mma.cuh
+# kUnits, kRows); a block runs a thread a (row, unit) pair
+UNITS, ROWS = 32, 16
+
+
+class LstmPlan(NamedTuple):
+    cluster: int        # C: blocks a cluster, each owning UNITS units
+    rows: int           # M: rows a cluster (of one direction)
+    smem: int           # dynamic shared memory a block, bytes
+    clusters: int       # ndir · ⌈B / M⌉
+
+
+def lstm_smem(form: str, H: int) -> int:
+    """Shared memory of a block of the bf16 cluster kernels (the layout of
+    ``csrc/rnn_mma.cuh``; a padded bf16 row of K values is 2K + 16 bytes):
+    forward, the W slice (4·UNITS rows of H) and the double buffer of h
+    (2·ROWS rows of H); backward, the W slice (H rows of 4·UNITS), this
+    block's dg (ROWS rows of 4·UNITS) and the double buffer of the partial
+    sums (2 × ROWS × H fp32); forward, also the partial sums of the
+    product's four k-quarters (4 × 4 gates × ROWS rows of UNITS + 8
+    fp32)."""
+    if form == "bwd":
+        return (H + ROWS) * (8 * UNITS + 16) + 2 * ROWS * H * 4
+    return (4 * UNITS + 2 * ROWS) * (2 * H + 16) + 16 * ROWS * (UNITS + 8) * 4
+
+
+def lstm_plan(H: int, B: int, ndir: int, form: str) -> LstmPlan:
+    """The bf16 cluster kernels' launch for hidden size H, B rows a
+    direction, ``form`` "fwd" (both forward forms) or "bwd": C = H / 32
+    blocks a cluster, each owning 32 units (whole n8 tiles) and running a
+    thread a (row, unit) pair, so each block reads the fewest bytes of W
+    from its shared memory a step; 16 rows (one m16 tile) a cluster;
+    ndir · ⌈B / 16⌉ clusters."""
+    if not kernel_takes(H):
+        raise ValueError(f"lstm_plan: hidden size {H} unsupported")
+    return LstmPlan(H // UNITS, ROWS, lstm_smem(form, H),
+                    ndir * -(-B // ROWS))
+
+
+def lstm_occupancy(H: int, form: str) -> tuple[int, int]:
+    """(shared memory bytes, clusters the card holds at once) of the plan
+    at H as the kernel library computes them
+    (``cudaOccupancyMaxActiveClusters``); needs the card."""
+    out = (ctypes.c_int * 2)()
+    fn = {"fwd": "csr_lstm_fwd_occupancy",
+          "bwd": "csr_lstm_bwd_occupancy"}[form]
+    err = _kernels.call(fn, H, out)
+    if err:
+        raise RuntimeError(f"{fn}: CUDA error {err}")
+    return out[0], out[1]
+
+
+def _lstm_launch_args(w, B: int, compute_dtype, form: str):
+    """(weights as the kernel takes them, C) for a launch; C = 0 under
+    fp32 (the FMA kernels)."""
+    ndir, H = w.shape[:2]
+    if compute_dtype != torch.bfloat16:
+        wk = (_lstm_fwd_weights if form == "fwd" else _lstm_bwd_weights)(
+            w, compute_dtype)
+        return wk, 0
+    C = lstm_plan(H, B, ndir, form).cluster
+    return (lstm_fwd_tc_weights if form == "fwd" else lstm_bwd_tc_weights)(
+        w, C), C
 
 
 def lstm_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
@@ -404,12 +497,12 @@ def lstm_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
     shapes it does not take); ndir = w.shape[0]."""
     ndir = w.shape[0]
     T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype, "lstm", ndir)
-    wq = _lstm_fwd_weights(w, compute_dtype)
+    wk, C = _lstm_launch_args(w, B, compute_dtype, "fwd")
     ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     _kernels.LSTM_FWD.launch(
-        xs.data_ptr(), wq.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), T, B, H, ndir, int(compute_dtype == torch.bfloat16),
-        _kernels.stream_ptr(xs))
+        xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        ys.data_ptr(), T, B, H, ndir, C,
+        int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys
 
 
@@ -430,13 +523,13 @@ def lstm_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
 def lstm_scan_train_cuda(xs, w, lo, hi, compute_dtype):
     """LSTM training forward launch: (ys, cs, gates); CUDA tensors only."""
     T, B, H, sdt = _check_scan(xs, w, lo, hi, compute_dtype, "lstm")
-    wq = _lstm_fwd_weights(w, compute_dtype)
+    wk, C = _lstm_launch_args(w, B, compute_dtype, "fwd")
     ys = torch.empty((T, 2 * B, H), dtype=torch.float32, device=xs.device)
     cs = torch.empty_like(ys)
     gates = torch.empty((T, 2 * B, 4 * H), dtype=sdt, device=xs.device)
     _kernels.LSTM_FWD_TRAIN.launch(
-        xs.data_ptr(), wq.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), cs.data_ptr(), gates.data_ptr(), T, B, H,
+        xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        ys.data_ptr(), cs.data_ptr(), gates.data_ptr(), T, B, H, C,
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys, cs, gates
 
@@ -450,11 +543,11 @@ def lstm_bwd_cuda(gates, w, lo, hi, cs, g, compute_dtype):
     _kernels.check_cuda_tensor("gates", gates, sdt, (T, R, 4 * H))
     for name, t in (("cs", cs), ("g", g)):
         _kernels.check_cuda_tensor(name, t, torch.float32, (T, R, H))
-    wtq = _lstm_bwd_weights(w, compute_dtype)
+    wk, C = _lstm_launch_args(w, R // 2, compute_dtype, "bwd")
     dxs = torch.empty((T, R, 4 * H), dtype=sdt, device=gates.device)
     _kernels.LSTM_BWD.launch(
-        gates.data_ptr(), wtq.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        cs.data_ptr(), g.data_ptr(), dxs.data_ptr(), T, R // 2, H,
+        gates.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        cs.data_ptr(), g.data_ptr(), dxs.data_ptr(), T, R // 2, H, C,
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(gates))
     return dxs
 

@@ -44,12 +44,18 @@ no result line) if any phase fails:
    on the CPU: loss within rtol 1e-4, per-parameter gradients within the
    bf16 bar;
 10. LSTM kernels: the residual-free BiLSTM forward in fp32 and bf16
-    against its plain version at the decode shapes (B = 32, T' = 251),
-    timed as in phase 3 beside cuDNN's LSTM;
+    against its plain version at the decode shapes (B = 32, T' = 251);
+    the bf16 cluster kernel's plan (C, M, shared memory, clusters the
+    card holds: ``print_lstm_plan``) and its time beside cuDNN's LSTM in
+    9 alternating rounds of CUDA-graph replays (device time only, the
+    replays equal to the eager outputs bitwise: ``rnn_graph_rounds``),
+    the eager figures beside; fp32 timed eagerly;
 11. LSTM training kernels: the training forward (ys, cs, gates) and the
     backward (dxs, on the plain forward's residuals and on the kernel's
     own) against their plain versions at the training shapes (B = 24,
-    T' = 256), timed beside cuDNN's LSTM;
+    T' = 256), both plans printed, timed as in phase 10 beside cuDNN's
+    training forward and backward (its forward+backward less its training
+    forward);
 12. bilstm_deep decode: a checkpoint of random weights through the decode
     CLI on the 64 wavs with exact launch counts, a warm
     rerun's utterances per second and real-time factor, and 4 wavs' logits
@@ -434,10 +440,12 @@ def _check_no_compaction(cell: str, *fns) -> None:
           f"every call ({compacted[:1]})")
 
 
-def library_rnn(cell: str, dev, T: int, B: int, H: int, lens, dtype):
+def library_rnn_fns(cell: str, dev, T: int, B: int, H: int, lens,
+                    dtype) -> dict:
     """cuDNN's bidirectional GRU or LSTM over packed sequences (``_cudnn``):
     the yardstick for the recurrence kernels, input projection included.
-    → (forward ms, training-forward ms, backward ms)."""
+    → {"forward", "training forward", "forward+backward": callable}; the
+    backward is the last less the second."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
@@ -448,19 +456,83 @@ def library_rnn(cell: str, dev, T: int, B: int, H: int, lens, dtype):
 
     def fwd():
         with torch.no_grad():
-            rnn(packed)
+            return rnn(packed)[0].data
 
     def fwd_train():
-        rnn(packed_g)
+        return rnn(packed_g)[0].data
 
     def fwd_bwd():
         out, _ = rnn(packed_g)
-        out.data.sum().backward()
+        return torch.autograd.grad(out.data.sum(), [packed_g.data])[0]
 
     _check_no_compaction(cell, fwd, fwd_bwd)
-    t_fwd = time_ms(fwd)
-    t_train = time_ms(fwd_train)
-    return t_fwd, t_train, time_ms(fwd_bwd) - t_train
+    return {"forward": fwd, "training forward": fwd_train,
+            "forward+backward": fwd_bwd}
+
+
+def library_rnn(cell: str, dev, T: int, B: int, H: int, lens, dtype):
+    """``library_rnn_fns`` timed eagerly (``time_ms``) → (forward ms,
+    training-forward ms, backward ms)."""
+    fns = library_rnn_fns(cell, dev, T, B, H, lens, dtype)
+    t_fwd = time_ms(fns["forward"])
+    t_train = time_ms(fns["training forward"])
+    return t_fwd, t_train, time_ms(fns["forward+backward"]) - t_train
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two tensors or tuples of tensors (bf16 compared
+    as int16, so -0.0 and NaN payloads count too)."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return a.dtype == b.dtype and torch.equal(
+        a.view(view.get(a.dtype, a.dtype)), b.view(view.get(b.dtype, b.dtype)))
+
+
+def rnn_graph_rounds(tag: str, kernels: dict, library: dict) -> dict:
+    """The recurrence kernels (name → call) and cuDNN's calls (``library_
+    rnn_fns``) in alternating rounds of CUDA-graph replays (device time
+    only), each kernel's replay equal to its eager output bit for bit; the
+    eager (``time_ms``) figures printed beside → {name: [ms a round]},
+    cuDNN's backward as "cuDNN backward" where both its calls are given."""
+    fns = {**kernels, **{f"cuDNN {n}": f for n, f in library.items()}}
+    graphs = {n: graph_of(fn, mode="relaxed") for n, fn in fns.items()}
+    rounds = alternating_ms({n: g[0] for n, g in graphs.items()})
+    for n, fn in kernels.items():
+        check(same_bits(graphs[n][1], fn()),
+              f"{tag}: the {n} replay differs from its eager output")
+    if "forward+backward" in library:
+        rounds["cuDNN backward"] = [a - b for a, b in zip(
+            rounds["cuDNN forward+backward"],
+            rounds["cuDNN training forward"])]
+    eager = {n: time_ms(fn) for n, fn in fns.items()}
+    print(f"[{tag}] {len(next(iter(rounds.values())))} alternating rounds "
+          f"of graph replays (medians): " + ", ".join(
+              f"{n} {statistics.median(r):.4f} ms" for n, r in
+              rounds.items()) + "; replays equal the eager outputs. Eager "
+          f"(host time in it): " + ", ".join(
+              f"{n} {m:.4f} ms" for n, m in eager.items()))
+    return rounds
+
+
+def print_lstm_plan(tag: str, H: int, B: int, ndir: int, form: str) -> None:
+    """The bf16 cluster kernel's plan at this shape, as the library and
+    the card take it."""
+    from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
+        lstm_occupancy, lstm_plan)
+
+    p = lstm_plan(H, B, ndir, form)
+    smem, n = lstm_occupancy(H, form)
+    print(f"[{tag}] {form} plan at H={H}, B={B}, ndir={ndir}: cluster C = "
+          f"{p.cluster} blocks of {H // p.cluster} units, M = {p.rows} rows,"
+          f" {p.smem} bytes of shared memory a block, {p.clusters} "
+          f"clusters; "
+          f"the card holds {n} at once")
+    check(smem == p.smem, f"{tag}: the library's shared memory {smem} != "
+          f"the plan's {p.smem}")
+    check(n >= 1, f"{tag}: the card cannot hold one {form} cluster")
 
 
 def library_stream(cell: str, dev, T: int, B: int, H: int, ndir: int, lens,
@@ -869,7 +941,8 @@ def phase_lstm_kernels(dev, rng) -> dict:
     xs32 = torch.from_numpy(rng.standard_normal(
         (Tp, 2 * B, 4 * H)).astype(np.float32)).to(dev)
     live = 2 * int(flen.sum())               # live (row, step) pairs
-    lib_fwd, _, _ = library_rnn("lstm", dev, Tp, B, H, flen, torch.bfloat16)
+    lib = library_rnn_fns("lstm", dev, Tp, B, H, flen, torch.bfloat16)
+    print_lstm_plan("lstm-kernels", H, B, 2, "fwd")
     out = {}
     for tag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         xs = xs32.to(torch.bfloat16) if tag == "bf16" else xs32
@@ -883,20 +956,31 @@ def phase_lstm_kernels(dev, rng) -> dict:
         check(bool(torch.isfinite(got).all()), f"lstm_fwd {tag}: non-finite")
         check(err <= tol, f"lstm_fwd {tag} disagrees")
         esz = xs.element_size()
+        kernel = lambda: lstm_scan_cuda(xs, w, lo, hi, cdt)
         timing = dict(
             max_abs_err=err,
-            ms=time_ms(lambda: lstm_scan_cuda(xs, w, lo, hi, cdt)),
             plain_ms=time_ms(lambda: lstm_scan_plain(xs, w, lo, hi, cdt),
                              warmup=1, reps=3),
-            library_ms=lib_fwd,
             **bound(live * 4 * H * esz + w.numel() * esz
                     + nbytes(got, lo, hi), 2 * live * H * 4 * H, tag))
-        print(f"[lstm-kernels] lstm_fwd {tag}: {timing['ms']:.4f} ms, plain "
-              f"{timing['plain_ms']:.4f} ms, cuDNN LSTM (bf16, with input "
-              f"projection) {lib_fwd:.4f} ms, bound {timing['bound_ms']:.5f} "
-              f"ms ({timing['bound_by']})")
         if cdt == torch.bfloat16:       # the preset's compute dtype
+            # the kernel and cuDNN's forward (bf16, with its input
+            # projection) in alternating rounds of graph replays
+            rounds = rnn_graph_rounds("lstm-kernels", {"lstm_fwd": kernel},
+                                      {"forward": lib["forward"]})
+            timing["ms"] = statistics.median(rounds["lstm_fwd"])
+            timing["library_ms"] = statistics.median(rounds["cuDNN forward"])
             out["lstm_fwd"] = timing
+        else:
+            timing["ms"] = time_ms(kernel)
+            timing["library_ms"] = None
+        print(f"[lstm-kernels] lstm_fwd {tag}: {timing['ms']:.4f} ms"
+              f"{' (graph)' if tag == 'bf16' else ' (eager)'}, plain "
+              f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.5f} "
+              f"ms ({timing['bound_by']})" + (
+                  f", cuDNN LSTM (bf16, with input projection) "
+                  f"{timing['library_ms']:.4f} ms (graph)"
+                  if timing["library_ms"] is not None else ""))
     print(f"[lstm-kernels] T' = {Tp}, B = {B}, H = {H}")
     return out
 
@@ -960,33 +1044,42 @@ def phase_lstm_train_kernels(dev, rng) -> dict:
     live = 2 * int(flen.sum())
     esz = xs.element_size()
     w_bytes = w.numel() * esz
-    _, lib_train, lib_bwd = library_rnn("lstm", dev, T, B, H, flen, cdt)
+    print_lstm_plan("lstm-train-kernels", H, B, 2, "fwd")
+    print_lstm_plan("lstm-train-kernels", H, B, 2, "bwd")
+    lib = library_rnn_fns("lstm", dev, T, B, H, flen, cdt)
+    # both kernels and cuDNN's training forward and forward+backward in
+    # alternating rounds of graph replays (device time only)
+    rounds = rnn_graph_rounds(
+        "lstm-train-kernels",
+        {"lstm_fwd_train": lambda: lstm_scan_train_cuda(xs, w, lo, hi, cdt),
+         "lstm_bwd": lambda: lstm_bwd_cuda(*args)},
+        {n: lib[n] for n in ("training forward", "forward+backward")})
+    med = {n: statistics.median(r) for n, r in rounds.items()}
     out = {
         "lstm_fwd_train": dict(
-            max_abs_err=err,
-            ms=time_ms(lambda: lstm_scan_train_cuda(xs, w, lo, hi, cdt)),
+            max_abs_err=err, ms=med["lstm_fwd_train"],
             plain_ms=time_ms(lambda: lstm_scan_train_plain(xs, w, lo, hi,
                                                            cdt),
                              warmup=1, reps=3),
-            library_ms=lib_train,
+            library_ms=med["cuDNN training forward"],
             **bound(live * 4 * H * esz + w_bytes
                     + nbytes(ys, cs, gates, lo, hi),
                     2 * live * H * 4 * H, "bf16")),
         "lstm_bwd": dict(
-            max_abs_err=gerr,
-            ms=time_ms(lambda: lstm_bwd_cuda(*args)),
+            max_abs_err=gerr, ms=med["lstm_bwd"],
             plain_ms=time_ms(lambda: lstm_bwd_plain(*args), warmup=1,
                              reps=3),
-            library_ms=lib_bwd,
+            library_ms=med["cuDNN backward"],
             # gates, cs (read once: c_{t-1} is the step before's c) and g
             **bound(live * (4 * H * esz + 2 * H * 4) + w_bytes
                     + nbytes(dxs, lo, hi), 2 * live * 4 * H * H, "bf16")),
     }
     for name in ("lstm_fwd_train", "lstm_bwd"):
         t = out[name]
-        print(f"[lstm-train-kernels] {name}: {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, cuDNN LSTM {t['library_ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+        print(f"[lstm-train-kernels] {name}: {t['ms']:.4f} ms (graph), plain "
+              f"{t['plain_ms']:.4f} ms, cuDNN LSTM {t['library_ms']:.4f} ms "
+              f"(graph), bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
+              f"share {t['bound_ms'] / t['ms']:.4f}")
     print(f"[lstm-train-kernels] T' = {T}, B = {B}, H = {H}")
     return out
 
@@ -1790,6 +1883,27 @@ def flash_bound(B, T, h, dh, pairs, n_read, n_write, n_rows, ops_per_pair):
     n = B * T * h * dh * 2
     return bound((n_read + n_write) * n + n_rows * B * h * T * 4 + B * 4,
                  ops_per_pair * pairs * dh, "bf16")
+
+
+def lstm_cases(rng) -> list:
+    """The bf16 LSTM kernels' shapes in phases 10-11, (tag, B, T', lengths
+    [B] int64 CPU, training): a decode chunk of 32 wavs of 10 s (the last
+    8 s), T' = 251, for the residual-free form (row 6); 24 training
+    utterances of 9-10 s in the 1024-frame bucket, T' = 256, for the
+    training form (row 6) and the backward (row 7)."""
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    strides = preset_config(LSTM_PRESET).model.conv_stride_time
+    n = int(CHECK_SECONDS * C.SAMPLE_RATE)
+    dec = np.full(CHECK_B, n, np.int64)
+    dec[-1] = int(WAV_SECONDS[0] * C.SAMPLE_RATE)
+    dec_len, T_dec = subsampled(dec, C.num_frames(n), strides)
+    tr_len, T_tr = subsampled(
+        rng.uniform(*TRAIN_SECONDS, TRAIN_B) * C.SAMPLE_RATE, TRAIN_FRAMES,
+        strides)
+    return [("row 6 decode", CHECK_B, T_dec, dec_len, False),
+            ("rows 6-7 train", TRAIN_B, T_tr, tr_len, True)]
 
 
 def attention_cases(rng) -> list:

@@ -32,8 +32,8 @@ from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
     gru_scan_plain, gru_scan_stream_cuda, gru_scan_stream_plain,
     gru_scan_train_cuda, gru_scan_train_plain, lstm_bwd_cuda,
     lstm_bwd_plain, lstm_scan_cuda, lstm_scan_plain, lstm_scan_stream_cuda,
-    lstm_scan_stream_plain, lstm_scan_train_cuda, lstm_scan_train_plain,
-    shift_prev)
+    lstm_occupancy, lstm_plan, lstm_scan_stream_plain, lstm_scan_train_cuda,
+    lstm_scan_train_plain, shift_prev)
 
 pytestmark = pytest.mark.cuda
 
@@ -203,7 +203,10 @@ def _lstm_inputs(dev, T, B, H, dtype, seed):
 
 
 @pytest.mark.parametrize("T,B,H", [(1, 1, 32), (7, 3, 64), (40, 5, 96),
-                                   (33, 2, 384), (5, 2, 512)])
+                                   (33, 2, 384), (5, 2, 512),
+                                   (9, 15, 384), (6, 16, 96), (5, 17, 512),
+                                   (4, 33, 32), (3, 64, 384), (12, 1, 384),
+                                   (7, 17, 448), (8, 16, 160)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_lstm_kernels_match_plain(dev, T, B, H, dtype, tol):
@@ -211,7 +214,12 @@ def test_lstm_kernels_match_plain(dev, T, B, H, dtype, tol):
     and backward (dxs) against their plain versions. The backward runs on
     the plain forward's residuals (the kernel alone), then on the forward
     kernel's own (the training path's chain). bf16: the reference's bars,
-    3e-2 forward and 5e-2 gradient (tests/test_rnn_pallas.py:81,88)."""
+    3e-2 forward and 5e-2 gradient (tests/test_rnn_pallas.py:81,88). The
+    shapes cover the bf16 cluster kernels' edges: B at and around the
+    16-row group (1, 15, 16, 17, 33, 64: padded rows of the m16 tile and
+    more than one cluster a direction) and clusters of 1 to 16 blocks
+    (H = 32 to 512, C = H / 32; 160 and 448 odd sizes), with ragged
+    lengths and a length-0 row."""
     xs, w, lo, hi, g = _lstm_inputs(dev, T, B, H, dtype, T * 1000 + H + B)
     before = (_kernels.LSTM_FWD.launches, _kernels.LSTM_FWD_TRAIN.launches,
               _kernels.LSTM_BWD.launches)
@@ -235,6 +243,40 @@ def test_lstm_kernels_match_plain(dev, T, B, H, dtype, tol):
     if B > 1:       # a length-0 row: h and c stay 0, no gradient
         assert torch.all(ys[:, 1] == 0) and torch.all(cs[:, B + 1] == 0)
         assert torch.all(dxs[:, 1] == 0) and torch.all(dxs[:, B + 1] == 0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lstm_bf16_kernels_are_repeatable(dev, seed):
+    """The bf16 cluster kernels three times on the same inputs at
+    bilstm_deep's width (T = 64, B = 24, H = 384): the forward (both forms)
+    and the backward bitwise equal each time (no atomics; a missing
+    cluster barrier would show as rare mismatches)."""
+    xs, w, lo, hi, g = _lstm_inputs(dev, 64, 24, 384, torch.bfloat16,
+                                    100 + seed)
+    cdt = torch.bfloat16
+    first = None
+    for _ in range(3):
+        ys0 = lstm_scan_cuda(xs, w, lo, hi, cdt)
+        ys, cs, gates = lstm_scan_train_cuda(xs, w, lo, hi, cdt)
+        dxs = lstm_bwd_cuda(gates, w, lo, hi, cs, g, cdt)
+        got = [t.view(torch.int16) if t.dtype == cdt else t
+               for t in (ys0, ys, cs, gates, dxs)]
+        if first is None:
+            first = got
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+    assert torch.equal(first[0], first[1])
+
+
+@pytest.mark.parametrize("form", ["fwd", "bwd"])
+def test_lstm_plan_launches_on_card(dev, form):
+    """For every hidden size the kernels take, the library computes the
+    plan's shared memory to the byte and the card holds at least one of
+    its clusters (cudaOccupancyMaxActiveClusters)."""
+    for H in range(32, 513, 32):
+        p = lstm_plan(H, 24, 2, form)
+        smem, n = lstm_occupancy(H, form)
+        assert smem == p.smem
+        assert n >= 1, (H, form, p)
 
 
 _STREAM = {"gru": (3, gru_scan_stream_cuda, gru_scan_stream_plain,

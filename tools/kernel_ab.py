@@ -2,15 +2,16 @@
 one card, on the same inputs, by two yardsticks:
 
     python3 tools/kernel_ab.py OTHER_ROOT [--rounds 9] [--seed 0]
+                               [--cases frontend,flash,lstm]
 
 OTHER_ROOT is the root of another checkout of the repo (for example an
 older commit unpacked by ``git archive`` into a git-ignored directory).
-Its ``csrc/frontend_logmel.cu``, ``attention_fwd.cu`` and
-``attention_bwd.cu`` (with ``library.cu``, the error strings) are built
-alone into a library of their own, and its Python package is imported
-under another name with that library bound in, so each build is called
-through its own checkout's wrappers and host tables (the two front-ends'
-tables differ).
+Its ``csrc/frontend_logmel.cu``, ``attention_fwd.cu``,
+``attention_bwd.cu``, ``lstm_fwd.cu`` and ``lstm_bwd.cu`` (with
+``library.cu``, the error strings) are built alone into a library of
+their own, and its Python package is imported under another name with
+that library bound in, so each build is called through its own
+checkout's wrappers, weight layouts and host tables.
 
 Kernels and shapes (those of ``chip_smoke.py``):
 
@@ -21,7 +22,15 @@ Kernels and shapes (those of ``chip_smoke.py``):
 * the bf16 flash forward (row 11) and backward pair (rows 12-13), h = 4,
   dh = 64, at phase 18's three shapes (B = 32, T' = 701 with chunk 0 and
   with chunk 16 / left 4; B = 24, T' = 256), beside SDPA's forward and its
-  backward (its forward and backward less its training forward).
+  backward (its forward and backward less its training forward);
+* the bf16 LSTM, H = 384 (``chip_smoke.lstm_cases``): row 6's
+  residual-free form at B = 32, T' = 251 beside cuDNN's forward; row 6's
+  training form and row 7 at B = 24, T' = 256 beside cuDNN's training
+  forward and backward; and the forms the cluster redesign keeps (fp32
+  forward, training forward and backward; the stream form in fp32 and
+  bf16), which must be bitwise equal across the builds.
+
+``--cases`` takes a subset of ``frontend,flash,lstm``.
 
 Each is timed in alternating rounds, both builds and the library call in
 each round:
@@ -31,8 +40,9 @@ each round:
   (``chip_smoke.time_ms``), so each wrapper's host time is in it wherever
   it exceeds the kernel's.
 
-Each build is first held to the plain versions: the front-end at 5e-4 max
-abs, the forward's out at 2^-7·(|b| + Σp·|v|/l) + 1e-5 and lse at 2e-5,
+Each build is first held to the plain versions: the LSTM at 3e-2
+(forward) and 5e-2 (gradient) max abs, the front-end at 5e-4 max abs,
+the flash forward's out at 2^-7·(|b| + Σp·|v|/l) + 1e-5 and lse at 2e-5,
 the gradients at the bar derived from bf16 rounding (2^-7·|b| + the
 rounding room + 1e-3, ``attention_cuda.bwd_rounding_room``); the share of
 the old gradient bar (2^-7·|b| + 1e-3) is printed beside it. Prints the
@@ -62,7 +72,8 @@ import chip_smoke as cs  # noqa: E402
 
 PKG = "chainer_speech_recognition_tpu_torch"
 SOURCES = ("frontend_logmel.cu", "attention_fwd.cu", "attention_bwd.cu",
-           "library.cu")
+           "lstm_fwd.cu", "lstm_bwd.cu", "library.cu")
+CASES = ("frontend", "flash", "lstm")
 
 
 def build_alone(root: str, tag: str) -> str:
@@ -291,12 +302,115 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left):
     return res
 
 
+def lstm_case(dev, rng, other, rounds, tag, B, T, lens, train: bool):
+    """Row 6 (the residual-free form, or the training form with row 7)
+    in bf16 at bilstm_deep's width: both builds held to the plain versions
+    at 3e-2 (forward) and 5e-2 (gradient), then timed with cuDNN's LSTM in
+    the same rounds; under fp32 the two builds' forward forms, backward and
+    stream form (fp32 and bf16), which this redesign keeps, must agree bit
+    for bit."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.ops import rnn_cuda as rc
+
+    orc = importlib.import_module(f"{other.__name__}.ops.rnn_cuda")
+    H = preset_config(cs.LSTM_PRESET).model.rnn_hidden
+    lo, hi = cs.rnn_rows(lens.to(torch.float32), T, dev)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev)
+    w = f32(2, H, 4 * H) / np.sqrt(H)
+    xs32, g = f32(T, 2 * B, 4 * H), f32(T, 2 * B, H)
+    h0 = 0.5 * f32(2 * B, 2 * H)
+    cdt = torch.bfloat16
+    xs = xs32.to(cdt)
+    mods = {"this": rc, "other": orc}
+    res = {"tag": tag, "B": B, "T": T, "H": H}
+    if train:
+        ys_p, cs_p, gates_p = rc.lstm_scan_train_plain(xs, w, lo, hi, cdt)
+        dxs_p = rc.lstm_bwd_plain(gates_p, w, lo, hi, cs_p, g, cdt)
+    else:
+        ys_p = rc.lstm_scan_plain(xs, w, lo, hi, cdt)
+    for b, m in mods.items():
+        if train:
+            ys, c, gates = m.lstm_scan_train_cuda(xs, w, lo, hi, cdt)
+            dxs = m.lstm_bwd_cuda(gates_p, w, lo, hi, cs_p, g, cdt)
+            err = {"ys": ys - ys_p, "cs": c - cs_p,
+                   "gates": gates.float() - gates_p.float(),
+                   "dxs": dxs.float() - dxs_p.float()}
+        else:
+            err = {"ys": m.lstm_scan_cuda(xs, w, lo, hi, cdt) - ys_p}
+        torch.cuda.synchronize()
+        err = {n: float(e.abs().max()) for n, e in err.items()}
+        res[f"{b} max abs"] = err
+        print(f"[ab] {tag} {b}: max abs vs plain " + ", ".join(
+            f"{n} {e:.3e}" for n, e in err.items()))
+        cs.check(all(e <= (cs.TOL["gru_grad_bf16"] if n == "dxs" else
+                           cs.TOL["gru_bf16"]) for n, e in err.items()),
+                 f"{tag} {b}: breaks the bf16 bar")
+    # the forms this redesign keeps: bitwise those of the other build
+    kept = {}
+    for b, m in mods.items():
+        out = []
+        for dt in (torch.float32, cdt):
+            x = xs32.to(dt)
+            if dt == torch.float32:
+                out.append(m.lstm_scan_cuda(x, w, lo, hi, dt))
+                ys, c, gates = m.lstm_scan_train_cuda(x, w, lo, hi, dt)
+                out += [ys, c, gates, m.lstm_bwd_cuda(gates, w, lo, hi, c,
+                                                      g, dt)]
+            out += list(m.lstm_scan_stream_cuda(x, w, lo, hi, h0, dt,
+                                                T // 2))
+        kept[b] = out
+    torch.cuda.synchronize()
+    res["kept forms bitwise equal"] = cs.same_bits(kept["this"],
+                                                   kept["other"])
+    print(f"[ab] {tag}: fp32 forward, training forward and backward and "
+          f"the stream form (fp32, bf16) bitwise equal across the builds: "
+          f"{res['kept forms bitwise equal']}")
+    cs.check(res["kept forms bitwise equal"],
+             f"{tag}: a kept form differs from the other build's")
+
+    lib = cs.library_rnn_fns("lstm", dev, T, B, H, lens, cdt)
+    fns = {}
+    for b, m in mods.items():
+        if train:
+            fns[f"{b} fwd_train"] = lambda m=m: m.lstm_scan_train_cuda(
+                xs, w, lo, hi, cdt)
+            fns[f"{b} bwd"] = lambda m=m: m.lstm_bwd_cuda(
+                gates_p, w, lo, hi, cs_p, g, cdt)
+        else:
+            fns[f"{b} fwd"] = lambda m=m: m.lstm_scan_cuda(xs, w, lo, hi,
+                                                           cdt)
+    if train:
+        fns["cudnn train fwd"] = lib["training forward"]
+        fns["cudnn fwd+bwd"] = lib["forward+backward"]
+        pairs = [("other fwd_train", "this fwd_train"),
+                 ("this fwd_train", "cudnn train fwd"),
+                 ("other bwd", "this bwd"), ("this bwd", "cudnn bwd")]
+    else:
+        fns["cudnn fwd"] = lib["forward"]
+        pairs = [("other fwd", "this fwd"), ("this fwd", "cudnn fwd"),
+                 ("other fwd", "cudnn fwd")]
+    replays = {n: cs.graph_of(fn, mode="relaxed")[0] for n, fn in fns.items()}
+    times = timed(fns, rounds, replays)
+    if train:
+        for t in times.values():
+            t["cudnn bwd"] = [a - b for a, b in zip(t["cudnn fwd+bwd"],
+                                                    t["cudnn train fwd"])]
+    res.update(report(f"{tag} B={B} T'={T} H={H}", times, pairs))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=9)
     ap.add_argument("--seed", type=int, default=cs.SEED)
+    ap.add_argument("--cases", default=",".join(CASES),
+                    help=f"comma-separated subset of {CASES}")
     a = ap.parse_args()
+    cases = a.cases.split(",")
     try:
         name, smi = cs.phase_device()
         import torch
@@ -307,9 +421,15 @@ def main() -> int:
         _kernels.library()
         other = load_checkout(os.path.abspath(a.other), "other_port")
         rng = np.random.default_rng(a.seed)
-        out = frontend_cases(dev, rng, other, a.rounds)
-        out += [flash_case(dev, rng, other, a.rounds, *c)
-                for c in cs.attention_cases(rng)]
+        out = []
+        if "frontend" in cases:
+            out += frontend_cases(dev, rng, other, a.rounds)
+        if "flash" in cases:
+            out += [flash_case(dev, rng, other, a.rounds, *c)
+                    for c in cs.attention_cases(rng)]
+        if "lstm" in cases:
+            out += [lstm_case(dev, rng, other, a.rounds, *c)
+                    for c in cs.lstm_cases(rng)]
     except cs.SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
