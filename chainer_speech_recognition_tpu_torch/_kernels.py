@@ -59,21 +59,21 @@ class Kernel:
 # (pointers..., sizes..., stream): see the matching csrc/*.cu entry point
 FRONTEND_LOGMEL = Kernel("csr_frontend_logmel",
                          [_P, _I, _I, _I, _P, _P, _I, _P, _P])
-GRU_FWD = Kernel("csr_gru_fwd",
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 GREEDY = Kernel("csr_greedy",
                 [_P, _P, _I, _I, _I, _P, _P, _P])
-GRU_FWD_TRAIN = Kernel("csr_gru_fwd_train",
-                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
-GRU_BWD = Kernel("csr_gru_bwd",
-                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 CTC_FWD = Kernel("csr_ctc_fwd",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 CTC_BWD = Kernel("csr_ctc_bwd",
                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
-# the LSTM's (..., T, B, H[, ndir], C, bf16, stream): C is the bf16
-# cluster kernels' blocks a cluster (ops/rnn_cuda.lstm_plan), unread under
-# fp32
+# the recurrences' (..., T, B, H[, ndir], C, bf16, stream): C is the bf16
+# cluster kernels' blocks a cluster (ops/rnn_cuda.lstm_plan, gru_plan),
+# unread under fp32
+GRU_FWD = Kernel("csr_gru_fwd",
+                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+GRU_FWD_TRAIN = Kernel("csr_gru_fwd_train",
+                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+GRU_BWD = Kernel("csr_gru_bwd",
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 LSTM_FWD = Kernel("csr_lstm_fwd",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train",
@@ -105,8 +105,8 @@ KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
 
 # functions of the library that launch nothing (no count): (H, out) →
 # out = (shared memory bytes, clusters the card holds at once)
-HELPERS = {"csr_lstm_fwd_occupancy": [_I, ctypes.POINTER(_I)],
-           "csr_lstm_bwd_occupancy": [_I, ctypes.POINTER(_I)]}
+HELPERS = {f"csr_{cell}_{form}_occupancy": [_I, ctypes.POINTER(_I)]
+           for cell in ("gru", "lstm") for form in ("fwd", "bwd")}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

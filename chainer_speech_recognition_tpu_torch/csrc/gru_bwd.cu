@@ -3,8 +3,8 @@
 // Replaces ops/rnn_pallas.py::_gru_bwd_kernel (the custom VJP's backward,
 // _birnn_bwd). Same boundary: gates [T, R=2B, 4H] = (r, z, n, hp_n) from
 // the training forward (csrc/gru_fwd.cu, stream dtype), the recurrent
-// weights transposed per direction wt [2, 3H, H] in the compute dtype (the
-// wrapper makes this copy once per call), lo/hi [R] fp32, h_prev [T, R, H]
+// weights in the compute dtype (laid out for each kernel by the wrapper,
+// once per call: below), lo/hi [R] fp32, h_prev [T, R, H]
 // fp32 (the carries shifted by one step, zeros first) and g [T, R, H] fp32
 // (the gradient of the layer's ys). Out, in the stream dtype:
 //   dxs [T, R, 3H] = (dr, dz, dn) pre-activation gradients, masked to the
@@ -29,29 +29,33 @@
 // streamed bytes (gates, h_prev, g in; dxs, dhn out: ~76 MB a layer at
 // B=24, T=256) would take ~23 us at HBM rate.
 //
-// Design: the forward's, turned around. Rows are independent given W, so
-// one block owns one row of one direction and walks T backwards; thread j
-// owns hidden unit j and keeps its dh in a register. The row's (dr, dz,
-// dn r) vector goes to shared memory (double-buffered: one barrier a step)
-// and each thread then reduces it against column j of W^T, i.e. row j of
-// wt[d], streaming wt from L2 in register chunks whose next loads are
-// issued before the current FMAs (reads coalesced across j, which is why
-// the wrapper passes W transposed: W's own row j is strided by 3H across
-// a warp). The chunk is 96 rows at H <= 256: with 8 (the forward's 8 rows
-// x 3 gates per batch is 24 loads; the backward has one column) a step
-// makes 96 dependent L2 round trips, and a sweep of chunk sizes on an H100
-// at B=24, T'=256 found the larger chunks faster up to 96. The product
-// keeps four partial sums (the lanes of a float4), so its 3H FMAs form
-// four dependent chains instead of one: in chip_smoke.py's profiled
-// training steps on an NVIDIA H100 80GB HBM3 (700 W) that made the kernel
-// ~5% faster. The next
-// step's gates, h_prev and g are loaded before the product, so their
-// latency hides behind it. Bounds: 32 <= H <= 512, H % 32 == 0, any B.
+// Two kernels: under bf16 compute (the presets' path) a thread-block
+// cluster keeps W resident in its shared memory and runs the step product
+// on the tensor cores (gru_bwd_tc_kernel, below); under fp32 the FMA
+// kernel (gru_bwd_kernel).
+//
+// The FMA kernel: the forward's, turned around. Rows are independent
+// given W, so one block owns one row of one direction and walks T
+// backwards; thread j owns hidden unit j and keeps its dh in a register.
+// The row's (dr, dz, dn r) vector goes to shared memory (double-buffered:
+// one barrier a step) and each thread then reduces it against column j of
+// W^T, i.e. row j of wt[d], streaming wt from L2 in register chunks whose
+// next loads are issued before the current FMAs (reads coalesced across j,
+// which is why the wrapper passes W transposed: W's own row j is strided
+// by 3H across a warp). The chunk is 96 rows at H <= 256: a sweep of chunk
+// sizes on an H100 at B=24, T'=256 found the larger chunks faster up to
+// 96. The product keeps four partial sums (the lanes of a float4), so its
+// 3H FMAs form four dependent chains instead of one (~5% faster in
+// chip_smoke.py's profiled training steps on an NVIDIA H100 80GB HBM3,
+// 700 W). The next step's gates, h_prev and g are loaded before the
+// product, so their latency hides behind it. Bounds: 32 <= H <= 512,
+// H % 32 == 0, any B.
 #include <cuda_bf16.h>
 #include <math.h>
 
 #include "common.cuh"
 #include "rnn_common.cuh"
+#include "rnn_mma.cuh"
 
 namespace {
 
@@ -160,34 +164,258 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <typename S>
-int launch(const void* gates, const void* wt, const float* lo,
-           const float* hi, const float* hprev, const float* g, void* dxs,
-           void* dhn, int T, int B, int H, cudaStream_t stream) {
+int launch_fp32(const void* gates, const void* wt, const float* lo,
+                const float* hi, const float* hprev, const float* g,
+                void* dxs, void* dhn, int T, int B, int H,
+                cudaStream_t stream) {
   const dim3 grid(B, 2);
   const size_t smem = 2 * 3 * H * sizeof(float);
   if (H <= 256)
-    gru_bwd_kernel<S, kChunkSmallH, 256><<<grid, H, smem, stream>>>(
-        static_cast<const S*>(gates), static_cast<const S*>(wt), lo, hi,
-        hprev, g, static_cast<S*>(dxs), static_cast<S*>(dhn), T, B, H);
+    gru_bwd_kernel<float, kChunkSmallH, 256><<<grid, H, smem, stream>>>(
+        static_cast<const float*>(gates), static_cast<const float*>(wt), lo,
+        hi, hprev, g, static_cast<float*>(dxs), static_cast<float*>(dhn), T,
+        B, H);
   else
-    gru_bwd_kernel<S, kChunkLargeH, 512><<<grid, H, smem, stream>>>(
-        static_cast<const S*>(gates), static_cast<const S*>(wt), lo, hi,
-        hprev, g, static_cast<S*>(dxs), static_cast<S*>(dhn), T, B, H);
+    gru_bwd_kernel<float, kChunkLargeH, 512><<<grid, H, smem, stream>>>(
+        static_cast<const float*>(gates), static_cast<const float*>(wt), lo,
+        hi, hprev, g, static_cast<float*>(dxs), static_cast<float*>(dhn), T,
+        B, H);
   CSR_RETURN_LAUNCH_STATUS();
+}
+
+
+// ---------------------------------------------------------------------------
+// The bf16 backward on a thread-block cluster (csr_gru_bwd under bf16
+// compute; layout in rnn_mma.cuh): the LSTM's reduce-scatter
+// (csrc/lstm_bwd.cu) with three gates.
+//
+// Grid: C·groups x 2 blocks, C = H / kU, in clusters of C along x, as the
+// forward's, with kU = gru_bwd_units(H) (rnn_mma.cuh: 16 units a block up
+// to H = 256, where 16 blocks of 16 beat 8 of 32, and 32 above, where 16
+// units would need more than 16 blocks a cluster): cluster (group, d)
+// walks rows [16 group, 16 group + 16) of
+// direction d backwards, block c of it owns units [kU c, kU c + kU) and
+// their 3 kU gate columns. Thread p owns the pair (row p / kU, unit
+// p % kU) and keeps its dh (fp32) in a register. The product is split by
+// the reduction, not by the output: block c multiplies its own (dr, dz,
+// dn r) columns by the matching columns of every row of W, so it needs no
+// other block's gradients, and sends each block the partial sums for that
+// block's units (a reduce-scatter: 16 x H fp32 a step leave each block).
+// Its W slice, wb[d][c] = [H][3][kU] bf16 (element [j][g][u] =
+// W[d][j][g H + kU c + u], laid out by the wrapper), stays in shared
+// memory for all T steps: the n rows (units j) of the product's B
+// operand, k-major. A step:
+//   1. (dr, dz, dn) and dn r of the pair from the prefetched gates
+//      (r, z, n, hp_n), h_prev and g; the next step's inputs are loaded;
+//   2. the unmasked (dr, dz, dn r), rounded to bf16 (where _dot2 rounds
+//      it), into this block's A [16][3 kU];
+//   3. warp w takes n-tiles w, w + kU / 2, ... of the H units: 3 kU / 16
+//      k-steps of mma.sync m16n8k16 (bf16 operands, fp32 accumulators, A
+//      fragments loaded once a step; B by ldmatrix.x4 for two k-steps, .x2
+//      for the odd last one at kU = 16), and stores its 16 x 8 partial sums
+//      into the owning block's buffer slot for source c through DSMEM;
+//   4. the cluster barrier, release / acquire (dxs and dhn, masked to the
+//      live steps, are stored between its halves);
+//   5. dh_prev of the pair = dh_total z + the C partial sums added in
+//      source order: no atomics, bitwise repeatable; live: dh = dh_prev,
+//      otherwise dh = dh_total.
+// The partial sums are double-buffered, so one cluster barrier a step is
+// enough, as in the forward. At t = 0 the product is not needed.
+template <int kU>
+__global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
+    gru_bwd_tc_kernel(const __nv_bfloat16* __restrict__ gates,
+                      const __nv_bfloat16* __restrict__ wb,
+                      const float* __restrict__ lo,
+                      const float* __restrict__ hi,
+                      const float* __restrict__ hprev,
+                      const float* __restrict__ g,
+                      __nv_bfloat16* __restrict__ dxs,
+                      __nv_bfloat16* __restrict__ dhn, int T, int B, int H) {
+  namespace tc = csr_rnn_mma;
+  constexpr int kM = tc::kRows, kK = 3 * kU;
+  constexpr int kSteps = kK / 16;                // k-steps of the product
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = static_cast<int>(tc::cluster_nctarank());
+  const int c = static_cast<int>(tc::cluster_ctarank());
+  const int G = 3 * H;
+  const int d = blockIdx.y, group = blockIdx.x / C;
+  const int R = 2 * B;
+  constexpr int row_b = tc::row_bytes(kK);
+  const uint32_t s_w = tc::smem_addr(smem);
+  const uint32_t s_a = s_w + H * row_b;          // A [kM][kK]
+  const uint32_t s_p = s_a + kM * row_b;         // partials [2][C][kM][kU]
+  const float* part = reinterpret_cast<const float*>(smem + (s_p - s_w));
+  const int part_buf = C * kM * kU;              // floats a buffer
+  const int tid = threadIdx.x, l = tid & 31, wp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+
+  // the W slice, once
+  const __nv_bfloat16* wsrc = wb + (static_cast<int64_t>(d) * C + c) * H * kK;
+  for (int i = tid; i < H * (kK / 8); i += blockDim.x)
+    tc::cp_async16(s_w + (i / (kK / 8)) * row_b + (i % (kK / 8)) * 16,
+                   wsrc + static_cast<int64_t>(i) * 8, true);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  tc::cluster_sync();   // every peer has started before DSMEM stores
+
+  // this thread's pair
+  const int r = tid / kU, u = tid % kU, j = c * kU + u;
+  const int b = group * kM + r;
+  const bool valid = b < B;
+  const int rr = d * B + b;
+  const float lo_r = valid ? lo[rr] : 0.0f;
+  const float hi_r = valid ? hi[rr] : 0.0f;   // never live
+  // fragment addresses: A row l % 16 at k chunk l / 16; B rows (units) of
+  // an n-tile at k chunks l / 8 of two k-steps (x4) or l / 8 % 2 of one
+  // (x2, the odd last k-step)
+  const uint32_t a_base = s_a + (l & 15) * row_b + (l >> 4) * 16;
+  const uint32_t b_off = (l & 7) * row_b + (l >> 3) * 16;
+  const uint32_t b1_off = (l & 7) * row_b + ((l >> 3) & 1) * 16;
+
+  struct In {
+    float r, z, n, hn, hp, g;
+  };
+  auto load_in = [&](int t) {
+    In in = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (valid) {
+      const int64_t row = static_cast<int64_t>(t) * R + rr;
+      const __nv_bfloat16* gt = gates + row * 4 * H + j;
+      in.r = __bfloat162float(gt[0]);
+      in.z = __bfloat162float(gt[H]);
+      in.n = __bfloat162float(gt[2 * H]);
+      in.hn = __bfloat162float(gt[3 * H]);
+      in.hp = hprev[row * H + j];
+      in.g = g[row * H + j];
+    }
+    return in;
+  };
+  auto store_out = [&](int t, float dr, float dz, float dn, float dhn_j,
+                       bool live) {
+    if (!valid) return;
+    const int64_t row = static_cast<int64_t>(t) * R + rr;
+    __nv_bfloat16* dx = dxs + row * G + j;
+    dx[0] = __float2bfloat16_rn(live ? dr : 0.0f);
+    dx[H] = __float2bfloat16_rn(live ? dz : 0.0f);
+    dx[2 * H] = __float2bfloat16_rn(live ? dn : 0.0f);
+    dhn[row * H + j] = __float2bfloat16_rn(live ? dhn_j : 0.0f);
+  };
+
+  float dh = 0.0f;
+  In in = load_in(T - 1);
+  int cur = 0;
+  for (int t = T - 1; t >= 0; --t) {
+    const float dh_total = in.g + dh;
+    const float dz = dh_total * (in.hp - in.n) * in.z * (1.0f - in.z);
+    const float dn = dh_total * (1.0f - in.z) * (1.0f - in.n * in.n);
+    const float dr = dn * in.hn * in.r * (1.0f - in.r);
+    const float dhn_j = dn * in.r;
+    const float zt = in.z;
+    const float tf = static_cast<float>(t);
+    const bool live = lo_r <= tf && tf < hi_r;
+    if (t == 0) {   // dh_prev of step 0 is not needed
+      store_out(t, dr, dz, dn, dhn_j, live);
+      break;
+    }
+    in = load_in(t - 1);
+    __nv_bfloat16* arow =
+        reinterpret_cast<__nv_bfloat16*>(smem + (s_a - s_w) + r * row_b);
+    arow[u] = __float2bfloat16_rn(dr);
+    arow[kU + u] = __float2bfloat16_rn(dz);
+    arow[2 * kU + u] = __float2bfloat16_rn(dhn_j);
+    __syncthreads();
+
+    uint32_t af[kSteps][4];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) tc::ldsm_x4(a_base + kk * 32, af[kk]);
+    const uint32_t s_dst = s_p + (cur * part_buf + c * kM * kU) * 4;
+    for (int nt = wp; nt < H / 8; nt += n_warps) {
+      const uint32_t s_b = s_w + nt * 8 * row_b;
+      uint32_t bf[(kSteps + 1) / 2][4];
+#pragma unroll
+      for (int kp = 0; kp < kSteps / 2; ++kp)
+        tc::ldsm_x4(s_b + b_off + kp * 64, bf[kp]);
+      if constexpr (kSteps % 2 != 0)
+        tc::ldsm_x2(s_b + b1_off + (kSteps - 1) * 32, bf[kSteps / 2]);
+      // two accumulators (even and odd k-steps) halve the dependent chain
+      float acc[2][4] = {};
+#pragma unroll
+      for (int kp = 0; kp < kSteps / 2; ++kp) {
+        tc::mma(acc[0], af[2 * kp], bf[kp][0], bf[kp][1]);
+        tc::mma(acc[1], af[2 * kp + 1], bf[kp][2], bf[kp][3]);
+      }
+      if constexpr (kSteps % 2 != 0)
+        tc::mma(acc[0], af[kSteps - 1], bf[kSteps / 2][0],
+                bf[kSteps / 2][1]);
+      // units 8 nt + 2 (l % 4) + {0, 1} belong to block 8 nt / kU
+      const int owner = nt / (kU / 8);
+      const int col = (nt % (kU / 8)) * 8 + 2 * (l & 3);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        tc::st_cluster8(
+            tc::map_rank(s_dst + (((l >> 2) + 8 * i) * kU + col) * 4, owner),
+            acc[0][2 * i] + acc[1][2 * i], acc[0][2 * i + 1] + acc[1][2 * i + 1]);
+    }
+    tc::cluster_arrive();
+    store_out(t, dr, dz, dn, dhn_j, live);
+    tc::cluster_wait();
+    const float* p = part + cur * part_buf + r * kU + u;
+    float dot = p[0];
+    for (int src = 1; src < C; ++src) dot += p[src * kM * kU];
+    dh = live ? dh_total * zt + dot : dh_total;
+    cur ^= 1;
+  }
+}
+
+template <int kU>
+int launch_tc(const void* gates, const void* wb, const float* lo,
+              const float* hi, const float* hprev, const float* g, void* dxs,
+              void* dhn, int T, int B, int H, int C, cudaStream_t stream) {
+  namespace tc = csr_rnn_mma;
+  return tc::launch_clusters(
+      gru_bwd_tc_kernel<kU>, C, (B + tc::kRows - 1) / tc::kRows, 2,
+      tc::kRows * kU, tc::bwd_smem(H, 3, kU), stream,
+      static_cast<const __nv_bfloat16*>(gates),
+      static_cast<const __nv_bfloat16*>(wb), lo, hi, hprev, g,
+      static_cast<__nv_bfloat16*>(dxs), static_cast<__nv_bfloat16*>(dhn), T,
+      B, H);
 }
 
 }  // namespace
 
-// gates [T, 2B, 4H], wt [2, 3H, H], dxs [T, 2B, 3H] and dhn [T, 2B, H] all
-// bf16 (bf16 != 0) or all fp32; lo/hi [2B], hprev and g [T, 2B, H] fp32.
-// Requires 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1 (the wrapper checks).
+// gates [T, 2B, 4H], dxs [T, 2B, 3H], dhn [T, 2B, H] and the weights all
+// fp32 (the FMA kernel: wt [2, 3H, H], W transposed) or, when bf16 != 0,
+// all bf16 (the cluster kernel: wb [2, C, H, 3, H/C], C = H /
+// gru_bwd_units(H) blocks a cluster, ops/rnn_cuda.py's gru_plan; unread
+// under fp32); lo/hi [2B], hprev and g [T, 2B, H] fp32. Requires
+// 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1 (the wrapper checks).
 CSR_API int csr_gru_bwd(const void* gates, const void* wt, const float* lo,
                         const float* hi, const float* hprev, const float* g,
-                        void* dxs, void* dhn, int T, int B, int H, int bf16,
-                        cudaStream_t stream) {
-  if (bf16)
-    return launch<__nv_bfloat16>(gates, wt, lo, hi, hprev, g, dxs, dhn, T, B,
-                                 H, stream);
-  return launch<float>(gates, wt, lo, hi, hprev, g, dxs, dhn, T, B, H, stream);
+                        void* dxs, void* dhn, int T, int B, int H, int C,
+                        int bf16, cudaStream_t stream) {
+  namespace tc = csr_rnn_mma;
+  if (!bf16)
+    return launch_fp32(gates, wt, lo, hi, hprev, g, dxs, dhn, T, B, H,
+                       stream);
+  if (C * tc::gru_bwd_units(H) != H)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (tc::gru_bwd_units(H) == 16)
+    return launch_tc<16>(gates, wt, lo, hi, hprev, g, dxs, dhn, T, B, H, C,
+                         stream);
+  return launch_tc<tc::kUnits>(gates, wt, lo, hi, hprev, g, dxs, dhn, T, B,
+                               H, C, stream);
+}
+
+// The cluster backward's plan as the card takes it: out[0] = its shared
+// memory bytes at hidden size H (C = H / gru_bwd_units(H) blocks), out[1]
+// = how many of its clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot launch).
+CSR_API int csr_gru_bwd_occupancy(int H, int* out) {
+  namespace tc = csr_rnn_mma;
+  const int U = tc::gru_bwd_units(H);
+  out[0] = tc::bwd_smem(H, 3, U);
+  return U == 16 ? tc::max_clusters(gru_bwd_tc_kernel<16>, H / U,
+                                    tc::kRows * U, out[0], out + 1)
+                 : tc::max_clusters(gru_bwd_tc_kernel<tc::kUnits>, H / U,
+                                    tc::kRows * U, out[0], out + 1);
 }

@@ -17,9 +17,10 @@
 // compiles to the same code as before the other forms existed.
 //
 // Same boundary as the TPU kernel: xs [T, R=ndir*B, 3H] in the stream
-// dtype (bf16 under bf16 compute, fp32 under fp32), w [ndir, H, 3H]
+// dtype (bf16 under bf16 compute, fp32 under fp32), W [ndir, H, 3H]
 // already cast to the compute dtype by the wrapper (the TPU kernel casts it
-// in-step, which is the same value), lo/hi [R] fp32 -> ys [T, R, H] fp32.
+// in-step, which is the same value; the cluster kernel takes it in slices,
+// below), lo/hi [R] fp32 -> ys [T, R, H] fp32.
 // Rows [d*B, (d+1)*B) use w[d]: ndir = 2 for a bidirectional layer, 1 for a
 // forward-only one (the TPU path duplicates the one W instead, which needs
 // an even R; one stream at batch 1 has R = 1). Row r is live at step t iff
@@ -29,36 +30,40 @@
 // the fp32 register while its compute-dtype rounding seeds the shared copy
 // the first product reads.
 //
-// What bounds it on Hopper: the sequential dependency over T. Each step is
-// a [rows x H] x [H x 3H] product that needs all of W (256*768 bf16 =
-// 393 KB per direction at bigru) and the previous h. In this design every
-// block streams its direction's W from L2 once per step (W fits L2 many
-// times over, never shared memory), so a step costs the L2 latency of the
-// W loads unless they are overlapped, and at most the L2 bandwidth divided
-// among all blocks' W streams (64 blocks x 393 KB = 25 MB a step at B=32).
+// Two kernels. The bf16 residual-free and training forms (the presets'
+// path) run on a thread-block cluster with W resident in its shared
+// memory and the step product on the tensor cores (gru_fwd_tc_kernel,
+// below; one template over kResiduals). The fp32 forms and the stream form
+// (both dtypes) run the FMA kernel (gru_fwd_kernel, one template over
+// kGates and kStream).
 //
-// Design (the simple right version): rows are independent given W, so a
-// block owns kRows rows of one direction and loops over all T inside the
-// kernel; nothing crosses blocks. Thread j owns hidden unit j: it
+// What bounds it on Hopper: the sequential dependency over T. Each step is
+// a [rows x H] x [H x 3H] product that needs all of the direction's W
+// (256 x 768 bf16 = 393 KB at bigru) and the step before's h; the bytes
+// the function must move (xs, ys, the residuals) take ~0.02 ms at the
+// training shape, the T dependent steps far longer.
+//
+// The FMA kernel (the simple right version): rows are independent given W,
+// so a block owns kRows rows of one direction and loops over all T inside
+// the kernel; nothing crosses blocks. Thread j owns hidden unit j: it
 // accumulates the r, z and n pre-activations of unit j for its rows (W
 // reads coalesced across j, h broadcast from shared memory as float4),
-// applies the gates and keeps its fp32 h in registers. W is read in
-// register chunks of kChunk rows, the next chunk's loads issued before the
-// current chunk's FMAs, which hides the L2 latency (measured on an H100 at
-// bigru, B=32: 12.7 ms a layer without the pipelining, 4.4 ms with it at
-// kRows=4, 3.2 ms at kRows=1, the chosen value). The compute-dtype copy of
-// h that the next step reads is double-buffered in shared memory, so a
-// step needs one barrier. Bounds: 32 <= H <= 512, H % 32 == 0 (one thread
-// per unit; at ~120 registers a thread, 512 threads fill one SM's register
-// file; capping registers with __launch_bounds__ measured 25% slower);
-// any B. Keeping W resident across SMs (thread block clusters
-// with distributed shared memory, one slice of W per SM) and tensor-core
-// products are later work.
+// applies the gates and keeps its fp32 h in registers. Every block streams
+// its direction's W from L2 once a step, in register chunks of kChunk
+// rows, the next chunk's loads issued before the current chunk's FMAs,
+// which hides the L2 latency (measured on an H100 at bigru, B=32: 12.7 ms
+// a layer without the pipelining, 4.4 ms with it at kRows=4, 3.2 ms at
+// kRows=1, the chosen value). The compute-dtype copy of h that the next
+// step reads is double-buffered in shared memory, so a step needs one
+// barrier. Bounds: 32 <= H <= 512, H % 32 == 0 (one thread per unit; at
+// ~120 registers a thread, 512 threads fill one SM's register file;
+// capping registers with __launch_bounds__ measured 25% slower); any B.
 #include <cuda_bf16.h>
 #include <math.h>
 
 #include "common.cuh"
 #include "rnn_common.cuh"
+#include "rnn_mma.cuh"
 
 namespace {
 
@@ -205,19 +210,236 @@ int launch(const void* xs, const void* w, const float* lo, const float* hi,
   CSR_RETURN_LAUNCH_STATUS();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward on a thread-block cluster (csr_gru_fwd and
+// csr_gru_fwd_train under bf16 compute; layout in rnn_mma.cuh), the
+// LSTM's design (csrc/lstm_fwd.cu) with three gates.
+//
+// Grid: C·groups x ndir blocks, C = H / kU, in clusters of C along x;
+// cluster (group, d) serves rows [16 group, 16 group + 16) of direction d,
+// block c of it the units [kU c, kU c + kU) with their r, z and n columns,
+// so the gate math stays in the block. Its W slice, wt[d][c] = [3][kU][H]
+// bf16 (element [g][u][k] = W[d][k][g H + kU c + u], laid out by the
+// wrapper), is copied into shared memory once and read there for all T
+// steps: the 3 kU rows (gate columns) of the product's B operand, k-major,
+// so ldmatrix reads them without a transpose. A step:
+//   1. the product: the group's 16 rows of h (bf16, where _dot2 rounds
+//      it) times the W slice, split over kU / 2 warps: warp w takes unit
+//      block w % (kU / 8) (8 units, three m16n8 accumulators, one a gate:
+//      r and z from one ldmatrix.x4, n from an x2) and quarter w / (kU / 8)
+//      of the H / 16 k-steps of mma.sync m16n8k16 (bf16 operands, fp32
+//      accumulators, the next k-step's fragments loaded before the current
+//      one's products); the four quarters' partial sums meet in shared
+//      memory;
+//   2. thread p owns the pair (row p / kU, unit p % kU): it adds the
+//      quarters in a fixed order (no atomics: bitwise repeatable), and runs
+//      the gate math on its fp32 h, which stays in its register for all T
+//      steps. The recurrent n pre-activation hp_n = (h W_n) stays apart
+//      from xs: n = tanh(x_n + r hp_n), and hp_n is the 4th residual;
+//   3. the new h, rounded to bf16, goes into this block's columns of the
+//      next A buffer, and from there into every other block's through
+//      DSMEM; one cluster barrier a step (release / acquire) makes it
+//      visible, the step's global stores made between its arrive and its
+//      wait.
+// Double buffering makes one barrier enough: a block writes buffer t % 2
+// only after every block has passed the barrier that follows its reads of
+// that buffer at step t - 2. Both forms share the product and the gate
+// math, so their ys are equal.
+//
+// What bounds a step: each block reads its W slice (H x 3 kU bf16, 49.5
+// KB at H = 256 and kU = 32) from shared memory once a step, runs the gate
+// math of its 16 kU pairs and exchanges h.
+template <int kU, bool kResiduals>
+__global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
+    gru_fwd_tc_kernel(const __nv_bfloat16* __restrict__ xs,
+                      const __nv_bfloat16* __restrict__ wt,
+                      const float* __restrict__ lo,
+                      const float* __restrict__ hi, float* __restrict__ ys,
+                      __nv_bfloat16* __restrict__ gates, int T, int B,
+                      int H) {
+  namespace tc = csr_rnn_mma;
+  constexpr int kM = tc::kRows, kN = 3 * kU;
+  constexpr int kNB = kU / 8;              // unit blocks of 8 a block
+  constexpr int kLd = tc::part_ld(kU);     // row stride of the partial sums
+  constexpr int kQ = 3 * kM * kLd;         // floats a quarter's partials
+  constexpr int kChunks = kU / 8;          // 16-byte chunks of a row's h
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = static_cast<int>(tc::cluster_nctarank());
+  const int c = static_cast<int>(tc::cluster_ctarank());
+  const int d = blockIdx.y, group = blockIdx.x / C;
+  const int R = gridDim.y * B;
+  const int G = 3 * H;
+  const int row_b = tc::row_bytes(H);
+  const uint32_t s_w = tc::smem_addr(smem);
+  const uint32_t s_a = s_w + kN * row_b;         // A[2][kM]
+  const uint32_t a_bytes = kM * row_b;
+  // partial sums [4 quarters][3 gates][kM][kLd] fp32
+  float* part = reinterpret_cast<float*>(smem + kN * row_b + 2 * a_bytes);
+  const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
+
+  // the W slice, once; A[0] = h_0 = 0
+  const __nv_bfloat16* wsrc = wt + (static_cast<int64_t>(d) * C + c) * kN * H;
+  const int kc = H / 8;
+  for (int i = tid; i < kN * kc; i += blockDim.x)
+    tc::cp_async16(s_w + (i / kc) * row_b + (i % kc) * 16,
+                   wsrc + static_cast<int64_t>(i / kc) * H + (i % kc) * 8,
+                   true);
+  tc::cp_async_commit();
+  for (uint32_t i = tid * 16; i < a_bytes; i += blockDim.x * 16)
+    *reinterpret_cast<uint4*>(smem + (s_a - s_w) + i) = make_uint4(0, 0, 0, 0);
+  tc::cp_async_wait<0>();
+  __syncthreads();
+  tc::cluster_sync();   // every peer has started before DSMEM stores
+
+  // this thread's pair
+  const int r = tid / kU, u = tid % kU, j = c * kU + u;
+  const int b = group * kM + r;
+  const bool valid = b < B;
+  const int rr = d * B + b;
+  const float lo_r = valid ? lo[rr] : 0.0f;
+  const float hi_r = valid ? hi[rr] : 0.0f;   // never live
+  // this warp's product: unit block ub, k-steps [k0, k1) of H / 16;
+  // fragment addresses: A row l % 16 at k chunk l / 16; B rows of gates r
+  // and z (x4: gate l / 16) and of gate n (x2) of unit 8 ub + l % 8 at k
+  // chunk l / 8 % 2
+  const int ub = w % kNB, qt = w / kNB, K = H / 16;
+  const int k0 = K * qt / 4, k1 = K * (qt + 1) / 4;
+  const uint32_t a_off = (l & 15) * row_b + (l >> 4) * 16 + k0 * 32;
+  const uint32_t b_k = ((l >> 3) & 1) * 16 + k0 * 32;
+  const uint32_t b_rz = s_w + (8 * ub + (l & 7) + (l >> 4) * kU) * row_b + b_k;
+  const uint32_t b_n = s_w + (2 * kU + 8 * ub + (l & 7)) * row_b + b_k;
+  // where this lane's accumulator elements go: gate g, row l / 4 (+ 8),
+  // units 8 ub + 2 (l % 4) (+ 1) of quarter qt
+  float* part_w = part + qt * kQ + (l >> 2) * kLd + 8 * ub + 2 * (l & 3);
+
+  auto load_x = [&](int t, float (&v)[3]) {
+    const __nv_bfloat16* xr = xs + (static_cast<int64_t>(t) * R + rr) * G + j;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      v[g] = valid ? __bfloat162float(xr[g * H]) : 0.0f;
+  };
+  float x[3];
+  load_x(0, x);
+  float h = 0.0f;
+  int cur = 0;
+  for (int t = 0; t < T; ++t) {
+    float nx[3];
+    if (t + 1 < T) load_x(t + 1, nx);
+    const uint32_t a_base = s_a + cur * a_bytes + a_off;
+    float acc[3][4] = {};
+    if (k0 < k1) {
+      uint32_t a[4], brz[4], bn[2];
+      tc::ldsm_x4(a_base, a);
+      tc::ldsm_x4(b_rz, brz);
+      tc::ldsm_x2(b_n, bn);
+      for (int kk = 0; kk < k1 - k0; ++kk) {
+        // the next k-step, clamped
+        const int kn = kk + 1 < k1 - k0 ? kk + 1 : kk;
+        uint32_t na[4], nrz[4], nn[2];
+        tc::ldsm_x4(a_base + kn * 32, na);
+        tc::ldsm_x4(b_rz + kn * 32, nrz);
+        tc::ldsm_x2(b_n + kn * 32, nn);
+        tc::mma(acc[0], a, brz[0], brz[1]);
+        tc::mma(acc[1], a, brz[2], brz[3]);
+        tc::mma(acc[2], a, bn[0], bn[1]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          a[q] = na[q];
+          brz[q] = nrz[q];
+        }
+        bn[0] = nn[0];
+        bn[1] = nn[1];
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(part_w + (g * kM + 8 * i) * kLd) =
+            make_float2(acc[g][2 * i], acc[g][2 * i + 1]);
+    __syncthreads();
+    float pre[3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const float* p = part + (g * kM + r) * kLd + u;
+      pre[g] = ((p[0] + p[kQ]) + p[2 * kQ]) + p[3 * kQ];
+    }
+    const float rg = sigmoidf(x[0] + pre[0]);
+    const float z = sigmoidf(x[1] + pre[1]);
+    const float n = tanhf(x[2] + rg * pre[2]);
+    const float hn = (1.0f - z) * n + z * h;
+    const float tf = static_cast<float>(t);
+    if (lo_r <= tf && tf < hi_r) h = hn;
+    const int nxt = cur ^ 1;
+    const bool more = t + 1 < T;
+    if (more) {
+      // h into this block's columns of A[nxt], then its 16 rows x 2 kU
+      // bytes into every other block's
+      const uint32_t s_nxt = s_a + nxt * a_bytes;
+      reinterpret_cast<__nv_bfloat16*>(smem + (s_nxt - s_w) + r * row_b)[j] =
+          __float2bfloat16_rn(h);
+      __syncthreads();
+      for (int q = tid; q < (C - 1) * kM * kChunks; q += blockDim.x) {
+        const int p = q / (kM * kChunks), e = q % (kM * kChunks);
+        const uint32_t ad = s_nxt + (e / kChunks) * row_b + c * kU * 2 +
+                            (e % kChunks) * 16;
+        tc::st_cluster16(tc::map_rank(ad, p + (p >= c)), tc::ld_shared16(ad));
+      }
+      tc::cluster_arrive();
+    }
+    if (valid) {
+      const int64_t row = static_cast<int64_t>(t) * R + rr;
+      ys[row * H + j] = h;
+      if (kResiduals) {
+        __nv_bfloat16* gt = gates + row * 4 * H + j;
+        gt[0] = __float2bfloat16_rn(rg);
+        gt[H] = __float2bfloat16_rn(z);
+        gt[2 * H] = __float2bfloat16_rn(n);
+        gt[3 * H] = __float2bfloat16_rn(pre[2]);
+      }
+    }
+    if (more) {
+      tc::cluster_wait();
+#pragma unroll
+      for (int g = 0; g < 3; ++g) x[g] = nx[g];
+    }
+    cur = nxt;
+  }
+}
+
+// units a block of the cluster kernel (ops/rnn_cuda.py's gru_plan; 16
+// were no faster at bigru's H = 256: csrc/rnn_mma.cuh, gru_bwd_units)
+constexpr int kTcUnits = csr_rnn_mma::kUnits;
+
+template <bool kResiduals>
+int launch_tc(const void* xs, const void* wt, const float* lo,
+              const float* hi, float* ys, void* gates, int T, int B, int H,
+              int ndir, int C, cudaStream_t stream) {
+  namespace tc = csr_rnn_mma;
+  if (C * kTcUnits != H) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::launch_clusters(
+      gru_fwd_tc_kernel<kTcUnits, kResiduals>, C,
+      (B + tc::kRows - 1) / tc::kRows, ndir, tc::kRows * kTcUnits,
+      tc::fwd_smem(H, 3, kTcUnits), stream,
+      static_cast<const __nv_bfloat16*>(xs),
+      static_cast<const __nv_bfloat16*>(wt), lo, hi, ys,
+      static_cast<__nv_bfloat16*>(gates), T, B, H);
+}
+
 }  // namespace
 
-// xs [T, ndir*B, 3H] and w [ndir, H, 3H] both bf16 (bf16 != 0) or both
-// fp32; lo/hi [ndir*B] fp32; ys [T, ndir*B, H] fp32. Requires
-// 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper
-// checks).
+// xs [T, ndir*B, 3H] and w [ndir, H, 3H] both fp32 (the FMA kernel), or,
+// when bf16 != 0, xs bf16 and w = wt [ndir, C, 3, H/C, H] bf16 (the
+// cluster kernel: C = H / 32 blocks a cluster, ops/rnn_cuda.py's
+// gru_plan; unread under fp32); lo/hi [ndir*B] fp32; ys [T, ndir*B, H]
+// fp32. Requires 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2
+// (the wrapper checks).
 CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
                         const float* hi, float* ys, int T, int B, int H,
-                        int ndir, int bf16, cudaStream_t stream) {
+                        int ndir, int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, false, false>(
-        xs, w, lo, hi, nullptr, ys, nullptr, nullptr, T, B, H, ndir, 0,
-        stream);
+    return launch_tc<false>(xs, w, lo, hi, ys, nullptr, T, B, H, ndir, C,
+                            stream);
   return launch<float, false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
                                      nullptr, T, B, H, ndir, 0, stream);
 }
@@ -226,12 +448,23 @@ CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
 // (the dtype of xs) out: (r, z, n, hp_n) of every step, live or not.
 CSR_API int csr_gru_fwd_train(const void* xs, const void* w, const float* lo,
                               const float* hi, float* ys, void* gates, int T,
-                              int B, int H, int bf16, cudaStream_t stream) {
+                              int B, int H, int C, int bf16,
+                              cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, true, false>(
-        xs, w, lo, hi, nullptr, ys, gates, nullptr, T, B, H, 2, 0, stream);
+    return launch_tc<true>(xs, w, lo, hi, ys, gates, T, B, H, 2, C, stream);
   return launch<float, true, false>(xs, w, lo, hi, nullptr, ys, gates,
                                     nullptr, T, B, H, 2, 0, stream);
+}
+
+// The cluster forward's plan as the card takes it: out[0] = its shared
+// memory bytes at hidden size H (C = H / 32 blocks), out[1] = how many of
+// its clusters the card holds at once (cudaOccupancyMaxActiveClusters; 0:
+// it cannot launch).
+CSR_API int csr_gru_fwd_occupancy(int H, int* out) {
+  namespace tc = csr_rnn_mma;
+  out[0] = tc::fwd_smem(H, 3, kTcUnits);
+  return tc::max_clusters(gru_fwd_tc_kernel<kTcUnits, true>, H / kTcUnits,
+                          tc::kRows * kTcUnits, out[0], out + 1);
 }
 
 // As csr_gru_fwd, with h seeded from h0 [ndir*B, H] fp32 and carry

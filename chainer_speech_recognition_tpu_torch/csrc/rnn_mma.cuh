@@ -1,15 +1,19 @@
-// Shared by the bf16 cluster kernels of the LSTM (lstm_fwd.cu, lstm_bwd.cu):
-// the shared-memory layout, the thread-block cluster's rank, distributed
-// shared memory (DSMEM) stores and barrier, and the cluster launch.
+// Shared by the bf16 cluster kernels of the recurrences (lstm_fwd.cu,
+// lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu): the shared-memory layout, the
+// thread-block cluster's rank, distributed shared memory (DSMEM) stores and
+// barrier, and the cluster launch.
 //
-// A cluster of C = H / 32 blocks serves one direction and one group of
-// kRows = 16 rows (one m16 tile; rows past B are zero); block c owns the
-// kUnits = 32 hidden units [32 c, 32 c + 32). Its slice of W stays in its
-// shared memory for all T steps, as bf16 rows of a k-extent K (the
-// reduction) padded by 16 bytes: row r starts at r (2 K + 16) bytes, so the
-// 8 rows that one ldmatrix phase reads fall in 8 distinct 16-byte bank
-// groups for every K % 32 == 0 (the row stride is 16 or 80 mod 128 bytes).
-// ops/rnn_cuda.py's lstm_plan computes the same sizes.
+// A cluster of C = H / U blocks serves one direction and one group of
+// kRows = 16 rows (one m16 tile; rows past B are zero); block c owns the U
+// hidden units [U c, U c + U) (U = kUnits = 32, but gru_bwd_units for
+// the GRU's backward) with all G
+// gate columns of each (G = 4 for the LSTM, 3 for the GRU). Its slice of W
+// stays in its shared memory for all T steps, as bf16 rows of a k-extent K
+// (the reduction) padded by 16 bytes: row r starts at r (2 K + 16) bytes,
+// so the 8 rows that one ldmatrix phase reads fall in 8 distinct 16-byte
+// bank groups for every K % 16 == 0 (the row stride is an odd multiple of
+// 16 bytes). ops/rnn_cuda.py's lstm_plan and gru_plan compute the same
+// sizes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,25 +34,44 @@ using csr_attn::smem_addr;
 constexpr int kUnits = 32;   // hidden units a block
 constexpr int kRows = 16;    // rows a cluster: one m16 tile
 
+// hidden units a block of the GRU's backward: 16 up to H = 256 (C = H / 16
+// <= 16 blocks, the largest cluster), kUnits above. At bigru's H = 256 the
+// backward on 16 blocks of 16 units took 0.846x the time of 8 blocks of 32
+// in tools/kernel_ab.py's rounds on an H100; the forward was no faster so
+// (1.00x), and keeps kUnits.
+__host__ __device__ constexpr int gru_bwd_units(int H) {
+  return H <= 256 ? 16 : kUnits;
+}
+
 // bytes of one padded bf16 row of K values
 __host__ __device__ constexpr int row_bytes(int K) { return 2 * K + 16; }
 
-// the forward's partial sums: rows of kUnits fp32 padded to 40, so the
-// float2 stores of a warp's 8 rows take two wavefronts
-constexpr int kPartLd = kUnits + 8;
+// the forward's partial sums: rows of U fp32 padded to U + 8, so the
+// float2 stores of a half-warp's 4 rows fall in distinct banks
+__host__ __device__ constexpr int part_ld(int U) { return U + 8; }
+constexpr int kPartLd = part_ld(kUnits);
 
-// forward: the W slice [4][kUnits][H] (its gate columns, k-major), the
-// double buffer of h, [2][kRows][H], and the partial sums of the product's
-// four k-quarters, [4][4 gates][kRows][kPartLd] fp32
-__host__ __device__ constexpr int fwd_smem(int H) {
-  return (4 * kUnits + 2 * kRows) * row_bytes(H) + 16 * kRows * kPartLd * 4;
+// forward: the W slice [G][U][H] (its gate columns, k-major), the double
+// buffer of h, [2][kRows][H], and the partial sums of the product's four
+// k-quarters, [4][G gates][kRows][U + 8] fp32
+__host__ __device__ constexpr int fwd_smem(int H, int G = 4,
+                                           int U = kUnits) {
+  return (G * U + 2 * kRows) * row_bytes(H) + 4 * G * kRows * part_ld(U) * 4;
 }
 
-// backward: the W slice [H][4][kUnits] (its gate columns of every row of
-// W), this block's dg [kRows][4 kUnits] and the double buffer of partial
-// sums [2][C][kRows][kUnits] fp32 (C = H / kUnits sources)
-__host__ __device__ constexpr int bwd_smem(int H) {
-  return (H + kRows) * row_bytes(4 * kUnits) + 2 * kRows * H * 4;
+// backward: the W slice [H][G][U] (its gate columns of every row of W),
+// this block's gate gradients [kRows][G U] and the double buffer of
+// partial sums [2][C][kRows][U] fp32 (C = H / U sources)
+__host__ __device__ constexpr int bwd_smem(int H, int G = 4,
+                                           int U = kUnits) {
+  return (H + kRows) * row_bytes(G * U) + 2 * kRows * H * 4;
+}
+
+// the two 8x8 bf16 matrices whose row addresses lanes 0-7 and 8-15 give
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t r[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
 }
 
 __device__ __forceinline__ uint32_t cluster_ctarank() {

@@ -42,12 +42,15 @@ plain version for CPU tensors):
 * ``gru_bwd`` → (dxs, dhn) and ``lstm_bwd`` → dxs: the reverse-time
   gradient walk.
 
-Under bf16 compute the LSTM's residual-free and training forwards and its
-backward run on thread-block clusters (``lstm_plan``: C = H / 32 blocks,
-16 rows a cluster), each block keeping its slice of W in shared memory
-(``lstm_fwd_tc_weights``, ``lstm_bwd_tc_weights``) and multiplying on
-the tensor cores; under fp32, and in the stream form, the FMA kernels read
-W as k-quads.
+Under bf16 compute the residual-free and training forwards and the
+backward of both cells run on thread-block clusters (``lstm_plan``,
+``gru_plan``: C = H / 32 blocks, or H / 16 in the GRU's backward up to
+H = 256; 16 rows a cluster), each block keeping
+its slice of W in shared memory (``lstm_fwd_tc_weights``,
+``lstm_bwd_tc_weights``, ``gru_fwd_tc_weights``, ``gru_bwd_tc_weights``)
+and multiplying on the tensor cores; under fp32, and in the stream forms,
+the FMA kernels read W as it is (the GRU's forward), transposed (its
+backward) or as k-quads (the LSTM's).
 
 ``BiGRUScan`` and ``BiLSTMScan`` are ``birnn_pallas``'s custom VJP: the
 training forward, the backward kernel, then dW = Σ_t h_prevᵀ·dgate as
@@ -335,11 +338,11 @@ def gru_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
     does not take); ndir = w.shape[0]."""
     ndir = w.shape[0]
     T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype, ndir=ndir)
-    wk = w.to(compute_dtype).contiguous()
+    wk, C = _gru_launch_args(w, B, compute_dtype, "fwd")
     ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     _kernels.GRU_FWD.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), T, B, H, ndir, int(compute_dtype == torch.bfloat16),
+        ys.data_ptr(), T, B, H, ndir, C, int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(xs))
     return ys
 
@@ -361,19 +364,18 @@ def gru_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
 def gru_scan_train_cuda(xs, w, lo, hi, compute_dtype):
     """Training forward launch: (ys, gates); CUDA tensors only."""
     T, B, H, sdt = _check_scan(xs, w, lo, hi, compute_dtype)
-    wk = w.to(compute_dtype).contiguous()
+    wk, C = _gru_launch_args(w, B, compute_dtype, "fwd")
     ys = torch.empty((T, 2 * B, H), dtype=torch.float32, device=xs.device)
     gates = torch.empty((T, 2 * B, 4 * H), dtype=sdt, device=xs.device)
     _kernels.GRU_FWD_TRAIN.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), gates.data_ptr(), T, B, H,
+        ys.data_ptr(), gates.data_ptr(), T, B, H, C,
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys, gates
 
 
 def gru_bwd_cuda(gates, w, lo, hi, h_prev, g, compute_dtype):
-    """Backward kernel launch: (dxs, dhn); CUDA tensors only. W is passed
-    transposed per direction ([2, 3H, H]) so the kernel's reads coalesce."""
+    """Backward kernel launch: (dxs, dhn); CUDA tensors only."""
     T, R, _ = gates.shape
     H = w.shape[1]
     sdt = _check_sizes(T, R, H, compute_dtype)
@@ -381,13 +383,13 @@ def gru_bwd_cuda(gates, w, lo, hi, h_prev, g, compute_dtype):
     _kernels.check_cuda_tensor("gates", gates, sdt, (T, R, 4 * H))
     _kernels.check_cuda_tensor("h_prev", h_prev, torch.float32, (T, R, H))
     _kernels.check_cuda_tensor("g", g, torch.float32, (T, R, H))
-    wt = w.to(compute_dtype).transpose(1, 2).contiguous()
+    wk, C = _gru_launch_args(w, R // 2, compute_dtype, "bwd")
     dxs = torch.empty((T, R, 3 * H), dtype=sdt, device=gates.device)
     dhn = torch.empty((T, R, H), dtype=sdt, device=gates.device)
     _kernels.GRU_BWD.launch(
-        gates.data_ptr(), wt.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        gates.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         h_prev.data_ptr(), g.data_ptr(), dxs.data_ptr(), dhn.data_ptr(),
-        T, R // 2, H, int(compute_dtype == torch.bfloat16),
+        T, R // 2, H, C, int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(gates))
     return dxs, dhn
 
@@ -408,22 +410,50 @@ def _lstm_bwd_weights(w, compute_dtype):
         .contiguous()
 
 
+def _fwd_tc_weights(w, C: int):
+    """W [ndir, H, G·H] → the bf16 cluster forward's slices [ndir, C, G, U,
+    H] bf16, U = H / C: element [d, c, g, u, k] is W[d, k, g·H + c·U + u],
+    the gate columns of block c's units, k-major."""
+    ndir, H, GH = w.shape
+    return w.to(torch.bfloat16).reshape(ndir, H, GH // H, C, H // C).permute(
+        0, 3, 2, 4, 1).contiguous()
+
+
+def _bwd_tc_weights(w, C: int):
+    """W [2, H, G·H] → the bf16 cluster backward's slices [2, C, H, G, U]
+    bf16, U = H / C: element [d, c, j, g, u] is W[d, j, g·H + c·U + u],
+    block c's gate columns of every row j of W."""
+    ndir, H, GH = w.shape
+    return w.to(torch.bfloat16).reshape(ndir, H, GH // H, C, H // C).permute(
+        0, 3, 1, 2, 4).contiguous()
+
+
 def lstm_fwd_tc_weights(w, C: int):
     """W [ndir, H, 4H] → the bf16 cluster forward's slices [ndir, C, 4, U,
     H] bf16, U = H / C: element [d, c, g, u, k] is W[d, k, g·H + c·U + u],
     the gate columns of block c's units, k-major (``csrc/lstm_fwd.cu``)."""
-    ndir, H = w.shape[:2]
-    return w.to(torch.bfloat16).reshape(ndir, H, 4, C, H // C).permute(
-        0, 3, 2, 4, 1).contiguous()
+    return _fwd_tc_weights(w, C)
 
 
 def lstm_bwd_tc_weights(w, C: int):
     """W [2, H, 4H] → the bf16 cluster backward's slices [2, C, H, 4, U]
     bf16, U = H / C: element [d, c, j, g, u] is W[d, j, g·H + c·U + u],
     block c's gate columns of every row j of W (``csrc/lstm_bwd.cu``)."""
-    H = w.shape[1]
-    return w.to(torch.bfloat16).reshape(2, H, 4, C, H // C).permute(
-        0, 3, 1, 2, 4).contiguous()
+    return _bwd_tc_weights(w, C)
+
+
+def gru_fwd_tc_weights(w, C: int):
+    """W [ndir, H, 3H] → the bf16 cluster forward's slices [ndir, C, 3, U,
+    H] bf16, U = H / C: element [d, c, g, u, k] is W[d, k, g·H + c·U + u]
+    for the gates (r, z, n) (``csrc/gru_fwd.cu``)."""
+    return _fwd_tc_weights(w, C)
+
+
+def gru_bwd_tc_weights(w, C: int):
+    """W [2, H, 3H] → the bf16 cluster backward's slices [2, C, H, 3, U]
+    bf16, U = H / C: element [d, c, j, g, u] is W[d, j, g·H + c·U + u]
+    (``csrc/gru_bwd.cu``)."""
+    return _bwd_tc_weights(w, C)
 
 
 # the cluster kernels' units a block and rows a cluster (csrc/rnn_mma.cuh
@@ -431,51 +461,89 @@ def lstm_bwd_tc_weights(w, C: int):
 UNITS, ROWS = 32, 16
 
 
-class LstmPlan(NamedTuple):
-    cluster: int        # C: blocks a cluster, each owning UNITS units
+class RnnPlan(NamedTuple):
+    cluster: int        # C: blocks a cluster, each owning H / C units
     rows: int           # M: rows a cluster (of one direction)
     smem: int           # dynamic shared memory a block, bytes
     clusters: int       # ndir · ⌈B / M⌉
 
 
-def lstm_smem(form: str, H: int) -> int:
-    """Shared memory of a block of the bf16 cluster kernels (the layout of
-    ``csrc/rnn_mma.cuh``; a padded bf16 row of K values is 2K + 16 bytes):
-    forward, the W slice (4·UNITS rows of H) and the double buffer of h
-    (2·ROWS rows of H); backward, the W slice (H rows of 4·UNITS), this
-    block's dg (ROWS rows of 4·UNITS) and the double buffer of the partial
-    sums (2 × ROWS × H fp32); forward, also the partial sums of the
-    product's four k-quarters (4 × 4 gates × ROWS rows of UNITS + 8
-    fp32)."""
+def gru_units(H: int, form: str) -> int:
+    """Units a block of the GRU's cluster kernels: the backward takes 16 up
+    to H = 256 (C = H / 16 ≤ 16 blocks, the largest cluster), where 16
+    blocks of 16 ran in 0.846× the time of 8 blocks of 32 at bigru's width;
+    everything else UNITS (``csrc/rnn_mma.cuh``'s ``gru_bwd_units``)."""
+    return 16 if form == "bwd" and H <= 256 else UNITS
+
+
+def _tc_smem(form: str, H: int, G: int, U: int = UNITS) -> int:
+    """Shared memory of a block of the bf16 cluster kernels of a cell with
+    G gates and U units a block (``csrc/rnn_mma.cuh``'s ``fwd_smem`` and
+    ``bwd_smem``; a padded bf16 row of K values is 2K + 16 bytes):
+    forward, the W slice (G·U rows of H), the double buffer of h (2·ROWS
+    rows of H) and the partial sums of the product's four k-quarters (4 ×
+    G gates × ROWS rows of U + 8 fp32); backward, the W slice (H rows of
+    G·U), this block's gate gradients (ROWS rows of G·U) and the double
+    buffer of the partial sums (2 × ROWS × H fp32)."""
     if form == "bwd":
-        return (H + ROWS) * (8 * UNITS + 16) + 2 * ROWS * H * 4
-    return (4 * UNITS + 2 * ROWS) * (2 * H + 16) + 16 * ROWS * (UNITS + 8) * 4
+        return (H + ROWS) * (2 * G * U + 16) + 2 * ROWS * H * 4
+    return (G * U + 2 * ROWS) * (2 * H + 16) + 4 * G * ROWS * (U + 8) * 4
 
 
-def lstm_plan(H: int, B: int, ndir: int, form: str) -> LstmPlan:
+def lstm_smem(form: str, H: int) -> int:
+    """``_tc_smem`` of the LSTM (4 gates, UNITS units a block)."""
+    return _tc_smem(form, H, 4)
+
+
+def gru_smem(form: str, H: int) -> int:
+    """``_tc_smem`` of the GRU (3 gates: r, z, n; ``gru_units``)."""
+    return _tc_smem(form, H, 3, gru_units(H, form))
+
+
+def _tc_plan(name: str, H: int, B: int, ndir: int, U: int,
+             smem: int) -> RnnPlan:
+    if not kernel_takes(H):
+        raise ValueError(f"{name}: hidden size {H} unsupported")
+    return RnnPlan(H // U, ROWS, smem, ndir * -(-B // ROWS))
+
+
+def lstm_plan(H: int, B: int, ndir: int, form: str) -> RnnPlan:
     """The bf16 cluster kernels' launch for hidden size H, B rows a
     direction, ``form`` "fwd" (both forward forms) or "bwd": C = H / 32
     blocks a cluster, each owning 32 units (whole n8 tiles) and running a
     thread a (row, unit) pair, so each block reads the fewest bytes of W
     from its shared memory a step; 16 rows (one m16 tile) a cluster;
     ndir · ⌈B / 16⌉ clusters."""
-    if not kernel_takes(H):
-        raise ValueError(f"lstm_plan: hidden size {H} unsupported")
-    return LstmPlan(H // UNITS, ROWS, lstm_smem(form, H),
-                    ndir * -(-B // ROWS))
+    return _tc_plan("lstm_plan", H, B, ndir, UNITS, lstm_smem(form, H))
+
+
+def gru_plan(H: int, B: int, ndir: int, form: str) -> RnnPlan:
+    """``lstm_plan`` for the GRU's cluster kernels, three gate columns a
+    unit: C = H / ``gru_units(H, form)`` blocks (32 units a block, but 16
+    in the backward up to H = 256), 16 rows a cluster."""
+    return _tc_plan("gru_plan", H, B, ndir, gru_units(H, form),
+                    gru_smem(form, H))
+
+
+def _occupancy(cell: str, H: int, form: str) -> tuple[int, int]:
+    out = (ctypes.c_int * 2)()
+    fn = f"csr_{cell}_{form}_occupancy"
+    err = _kernels.call(fn, H, out)
+    if err:
+        raise RuntimeError(f"{fn}: CUDA error {err}")
+    return out[0], out[1]
 
 
 def lstm_occupancy(H: int, form: str) -> tuple[int, int]:
     """(shared memory bytes, clusters the card holds at once) of the plan
     at H as the kernel library computes them
     (``cudaOccupancyMaxActiveClusters``); needs the card."""
-    out = (ctypes.c_int * 2)()
-    fn = {"fwd": "csr_lstm_fwd_occupancy",
-          "bwd": "csr_lstm_bwd_occupancy"}[form]
-    err = _kernels.call(fn, H, out)
-    if err:
-        raise RuntimeError(f"{fn}: CUDA error {err}")
-    return out[0], out[1]
+    return _occupancy("lstm", H, form)
+
+
+def gru_occupancy(H: int, form: str) -> tuple[int, int]:
+    """``lstm_occupancy`` of the GRU's cluster kernels."""
+    return _occupancy("gru", H, form)
 
 
 def _lstm_launch_args(w, B: int, compute_dtype, form: str):
@@ -488,6 +556,19 @@ def _lstm_launch_args(w, B: int, compute_dtype, form: str):
         return wk, 0
     C = lstm_plan(H, B, ndir, form).cluster
     return (lstm_fwd_tc_weights if form == "fwd" else lstm_bwd_tc_weights)(
+        w, C), C
+
+
+def _gru_launch_args(w, B: int, compute_dtype, form: str):
+    """(weights as the kernel takes them, C) for a launch; C = 0 under
+    fp32: the FMA kernels take W (forward) or Wᵀ [2, 3H, H] (backward,
+    so its reads coalesce)."""
+    ndir, H = w.shape[:2]
+    if compute_dtype != torch.bfloat16:
+        wk = w.to(compute_dtype)
+        return (wk if form == "fwd" else wk.transpose(1, 2)).contiguous(), 0
+    C = gru_plan(H, B, ndir, form).cluster
+    return (gru_fwd_tc_weights if form == "fwd" else gru_bwd_tc_weights)(
         w, C), C
 
 

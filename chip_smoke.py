@@ -19,7 +19,9 @@ no result line) if any phase fails:
    front-end kernel, its plain version and the cuFFT chain as alternating
    rounds of CUDA-graph replays (device time only, the replays equal to
    the eager outputs bitwise; ``frontend_timing``), the eager figures
-   printed beside them;
+   printed beside them; the bf16 GRU forward's cluster plan
+   (``print_rnn_plan``) and its time beside cuDNN's GRU in alternating
+   rounds of graph replays (``rnn_graph_rounds``), fp32 timed eagerly;
 4. inputs: a ``bigru`` checkpoint (config.json + msgpack params written by
    the port's own writer), a 63-symbol vocab and 64 synthetic wavs of
    8-10 s;
@@ -29,10 +31,13 @@ no result line) if any phase fails:
 6. CPU parity: 4 of the wavs through the same checkpoint on the CPU (the
    kernels' plain versions): finite logits of the same shape within the
    bf16 bar of the card's;
-7. training kernels: the GRU training forward and backward and the CTC
-   alpha and beta kernels against their plain versions (every output) at the training
+7. training kernels: the GRU training forward and backward (on the plain
+   forward's residuals and on the kernel's own) and the CTC alpha and beta
+   kernels against their plain versions (every output) at the training
    path's shapes (24 utterances of 9-10 s in the 1024-frame bucket), timed
-   as in phase 3;
+   as in phase 3: the GRU pair's plans printed and both timed beside
+   cuDNN's training forward and backward (its forward+backward less its
+   training forward) in alternating rounds of graph replays;
 8. train: a synthetic corpus (192 + 24 utterances of 9-10 s) through the
    port's train CLI on the card, 16 steps with dev eval and checkpoints
    every 8; every training kernel must show launches from that run; the
@@ -46,7 +51,7 @@ no result line) if any phase fails:
 10. LSTM kernels: the residual-free BiLSTM forward in fp32 and bf16
     against its plain version at the decode shapes (B = 32, T' = 251);
     the bf16 cluster kernel's plan (C, M, shared memory, clusters the
-    card holds: ``print_lstm_plan``) and its time beside cuDNN's LSTM in
+    card holds: ``print_rnn_plan``) and its time beside cuDNN's LSTM in
     9 alternating rounds of CUDA-graph replays (device time only, the
     replays equal to the eager outputs bitwise: ``rnn_graph_rounds``),
     the eager figures beside; fp32 timed eagerly;
@@ -71,7 +76,8 @@ no result line) if any phase fails:
     right 0: T = 16; bilstm_deep at chunk 64, right 16: T = 20), fp32 and
     bf16, emit_t 0, C/s and T, ragged lengths, nonzero h0, and the R = 1
     forward-only launch; timed beside the bound and cuDNN with hx = h0;
-    the forward-only gru_fwd at uni_gru's decode shape;
+    the forward-only gru_fwd at uni_gru's decode shape, its plan and its
+    time beside cuDNN's forward-only GRU as in phase 3;
 16. uni_gru streaming: a random-weight checkpoint through the stream CLI
     (--batch 32 --chunk-frames 64 --right-frames 0 --timing) on the 64
     wavs with exact launch counts from the stream geometry and the wav
@@ -441,16 +447,17 @@ def _check_no_compaction(cell: str, *fns) -> None:
 
 
 def library_rnn_fns(cell: str, dev, T: int, B: int, H: int, lens,
-                    dtype) -> dict:
-    """cuDNN's bidirectional GRU or LSTM over packed sequences (``_cudnn``):
-    the yardstick for the recurrence kernels, input projection included.
-    → {"forward", "training forward", "forward+backward": callable}; the
-    backward is the last less the second."""
+                    dtype, ndir: int = 2) -> dict:
+    """cuDNN's GRU or LSTM (bidirectional when ndir = 2) over packed
+    sequences (``_cudnn``): the yardstick for the recurrence kernels, input
+    projection included. → {"forward", "training forward",
+    "forward+backward": callable}; the backward is the last less the
+    second."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
-    rnn = _cudnn(cell, dev, 2 * H, H, True, dtype)
-    x = torch.randn(T, B, 2 * H, device=dev, dtype=dtype)
+    rnn = _cudnn(cell, dev, ndir * H, H, ndir == 2, dtype)
+    x = torch.randn(T, B, ndir * H, device=dev, dtype=dtype)
     packed = pack_padded_sequence(x, lens.cpu(), enforce_sorted=False)
     packed_g = packed._replace(data=packed.data.clone().requires_grad_())
 
@@ -468,15 +475,6 @@ def library_rnn_fns(cell: str, dev, T: int, B: int, H: int, lens,
     _check_no_compaction(cell, fwd, fwd_bwd)
     return {"forward": fwd, "training forward": fwd_train,
             "forward+backward": fwd_bwd}
-
-
-def library_rnn(cell: str, dev, T: int, B: int, H: int, lens, dtype):
-    """``library_rnn_fns`` timed eagerly (``time_ms``) → (forward ms,
-    training-forward ms, backward ms)."""
-    fns = library_rnn_fns(cell, dev, T, B, H, lens, dtype)
-    t_fwd = time_ms(fns["forward"])
-    t_train = time_ms(fns["training forward"])
-    return t_fwd, t_train, time_ms(fns["forward+backward"]) - t_train
 
 
 def same_bits(a, b) -> bool:
@@ -517,15 +515,16 @@ def rnn_graph_rounds(tag: str, kernels: dict, library: dict) -> dict:
     return rounds
 
 
-def print_lstm_plan(tag: str, H: int, B: int, ndir: int, form: str) -> None:
-    """The bf16 cluster kernel's plan at this shape, as the library and
-    the card take it."""
-    from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
-        lstm_occupancy, lstm_plan)
+def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
+                   form: str) -> None:
+    """The bf16 cluster kernel's plan of ``cell`` ("gru" or "lstm") at
+    this shape, as the library and the card take it."""
+    from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
 
-    p = lstm_plan(H, B, ndir, form)
-    smem, n = lstm_occupancy(H, form)
-    print(f"[{tag}] {form} plan at H={H}, B={B}, ndir={ndir}: cluster C = "
+    p = getattr(rnn_cuda, f"{cell}_plan")(H, B, ndir, form)
+    smem, n = getattr(rnn_cuda, f"{cell}_occupancy")(H, form)
+    print(f"[{tag}] {cell} {form} plan at H={H}, B={B}, ndir={ndir}: "
+          f"cluster C = "
           f"{p.cluster} blocks of {H // p.cluster} units, M = {p.rows} rows,"
           f" {p.smem} bytes of shared memory a block, {p.clusters} "
           f"clusters; "
@@ -680,7 +679,8 @@ def phase_kernels(dev, rng) -> dict:
     xs32 = torch.from_numpy(rng.standard_normal(
         (Tp, 2 * B, 3 * H)).astype(np.float32)).to(dev)
     live = 2 * int(flen.sum())               # live (row, step) pairs
-    lib_fwd, _, _ = library_rnn("gru", dev, Tp, B, H, flen, torch.bfloat16)
+    lib = library_rnn_fns("gru", dev, Tp, B, H, flen, torch.bfloat16)
+    print_rnn_plan("gru", "kernels", H, B, 2, "fwd")
     for tag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         xs = xs32.to(torch.bfloat16) if tag == "bf16" else xs32
         got = gru_scan_cuda(xs, w, lo, hi, cdt)
@@ -694,19 +694,31 @@ def phase_kernels(dev, rng) -> dict:
         check(err <= tol, f"gru_fwd {tag} disagrees")
         xs_live = live * 3 * H * xs.element_size()
         w_bytes = w.numel() * xs.element_size()
+        kernel = lambda: gru_scan_cuda(xs, w, lo, hi, cdt)
         timing = dict(
             max_abs_err=err,
-            ms=time_ms(lambda: gru_scan_cuda(xs, w, lo, hi, cdt)),
             plain_ms=time_ms(lambda: gru_scan_plain(xs, w, lo, hi, cdt),
                              warmup=1, reps=3),
-            library_ms=lib_fwd,
             **bound(xs_live + w_bytes + nbytes(got, lo, hi),
                     2 * live * H * 3 * H, tag))
-        print(f"[kernels] gru_fwd {tag}: {timing['ms']:.3f} ms, plain "
-              f"{timing['plain_ms']:.3f} ms, cuDNN GRU (bf16, with input "
-              f"projection) {lib_fwd:.3f} ms")
         if cdt == torch.bfloat16:       # the preset's compute dtype
+            # the kernel and cuDNN's forward (bf16, with its input
+            # projection) in alternating rounds of graph replays
+            rounds = rnn_graph_rounds("kernels", {"gru_fwd": kernel},
+                                      {"forward": lib["forward"]})
+            timing["ms"] = statistics.median(rounds["gru_fwd"])
+            timing["library_ms"] = statistics.median(rounds["cuDNN forward"])
             out["gru_fwd"] = timing
+        else:
+            timing["ms"] = time_ms(kernel)
+            timing["library_ms"] = None
+        print(f"[kernels] gru_fwd {tag}: {timing['ms']:.4f} ms"
+              f"{' (graph)' if tag == 'bf16' else ' (eager)'}, plain "
+              f"{timing['plain_ms']:.4f} ms, bound {timing['bound_ms']:.5f} "
+              f"ms ({timing['bound_by']})" + (
+                  f", cuDNN GRU (bf16, with input projection) "
+                  f"{timing['library_ms']:.4f} ms (graph)"
+                  if timing["library_ms"] is not None else ""))
 
     # greedy: random logits + planted ties, NaN frames, lengths 0, 1, T'
     V = mcfg.vocab_size
@@ -787,34 +799,49 @@ def phase_train_kernels(dev, rng) -> dict:
           "gru_fwd_train: non-finite")
     check(err <= TOL["gru_bf16"], "gru_fwd_train disagrees")
     h_prev = shift_prev(ys_p)
-    dxs, dhn = gru_bwd_cuda(gates_p, w, lo, hi, h_prev, g, cdt)
-    dxs_p, dhn_p = gru_bwd_plain(gates_p, w, lo, hi, h_prev, g, cdt)
-    torch.cuda.synchronize()
-    gerr = max(float((dxs.float() - dxs_p.float()).abs().max()),
-               float((dhn.float() - dhn_p.float()).abs().max()))
+    args = (gates_p, w, lo, hi, h_prev, g, cdt)
+    dxs_p, dhn_p = gru_bwd_plain(*args)
+    gerr = 0.0
+    # once on the plain forward's residuals (the kernel alone), once on the
+    # forward kernel's own (the training path)
+    for gt, y in ((gates_p, ys_p), (gates, ys)):
+        dxs, dhn = gru_bwd_cuda(gt, w, lo, hi, shift_prev(y), g, cdt)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(dxs.float()).all()
+                   and torch.isfinite(dhn.float()).all()),
+              "gru_bwd: non-finite")
+        gerr = max(gerr, float((dxs.float() - dxs_p.float()).abs().max()),
+                   float((dhn.float() - dhn_p.float()).abs().max()))
     print(f"[train-kernels] gru_bwd gates {tuple(gates.shape)} -> dxs "
           f"{tuple(dxs.shape)}, dhn: max abs {gerr:.3e} "
-          f"(tol {TOL['gru_grad_bf16']})")
-    check(bool(torch.isfinite(dxs.float()).all()), "gru_bwd: non-finite")
+          f"(tol {TOL['gru_grad_bf16']}; on the plain and the kernel's "
+          f"residuals)")
     check(gerr <= TOL["gru_grad_bf16"], "gru_bwd disagrees")
     live = 2 * int(flen.sum())
     esz = xs.element_size()
-    _, lib_train, lib_bwd = library_rnn("gru", dev, T, B, H, flen, cdt)
+    print_rnn_plan("gru", "train-kernels", H, B, 2, "fwd")
+    print_rnn_plan("gru", "train-kernels", H, B, 2, "bwd")
+    lib = library_rnn_fns("gru", dev, T, B, H, flen, cdt)
+    # both kernels and cuDNN's training forward and forward+backward in
+    # alternating rounds of graph replays (device time only)
+    rounds = rnn_graph_rounds(
+        "train-kernels",
+        {"gru_fwd_train": lambda: gru_scan_train_cuda(xs, w, lo, hi, cdt),
+         "gru_bwd": lambda: gru_bwd_cuda(*args)},
+        {n: lib[n] for n in ("training forward", "forward+backward")})
+    med = {n: statistics.median(r) for n, r in rounds.items()}
     out["gru_fwd_train"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: gru_scan_train_cuda(xs, w, lo, hi, cdt)),
+        max_abs_err=err, ms=med["gru_fwd_train"],
         plain_ms=time_ms(lambda: gru_scan_train_plain(xs, w, lo, hi, cdt),
                          warmup=1, reps=3),
-        library_ms=lib_train,
+        library_ms=med["cuDNN training forward"],
         **bound(live * 3 * H * esz + w.numel() * esz + nbytes(ys, gates, lo,
                                                                hi),
                 2 * live * H * 3 * H, "bf16"))
     out["gru_bwd"] = dict(
-        max_abs_err=gerr,
-        ms=time_ms(lambda: gru_bwd_cuda(gates_p, w, lo, hi, h_prev, g, cdt)),
-        plain_ms=time_ms(lambda: gru_bwd_plain(gates_p, w, lo, hi, h_prev,
-                                               g, cdt), warmup=1, reps=3),
-        library_ms=lib_bwd,
+        max_abs_err=gerr, ms=med["gru_bwd"],
+        plain_ms=time_ms(lambda: gru_bwd_plain(*args), warmup=1, reps=3),
+        library_ms=med["cuDNN backward"],
         **bound(live * (4 * H * esz + 2 * H * 4) + w.numel() * esz
                 + nbytes(dxs, dhn, lo, hi), 2 * live * 3 * H * H, "bf16"))
 
@@ -905,7 +932,8 @@ def phase_train_kernels(dev, rng) -> dict:
         "library_ms"]
     for name in ("gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd"):
         t = out[name]
-        print(f"[train-kernels] {name}: {t['ms']:.4f} ms, plain "
+        print(f"[train-kernels] {name}: {t['ms']:.4f} ms"
+              f"{' (graph)' if name.startswith('gru') else ''}, plain "
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     print(f"[train-kernels] S = {S}, T' = {T}, B = {B}")
@@ -942,7 +970,7 @@ def phase_lstm_kernels(dev, rng) -> dict:
         (Tp, 2 * B, 4 * H)).astype(np.float32)).to(dev)
     live = 2 * int(flen.sum())               # live (row, step) pairs
     lib = library_rnn_fns("lstm", dev, Tp, B, H, flen, torch.bfloat16)
-    print_lstm_plan("lstm-kernels", H, B, 2, "fwd")
+    print_rnn_plan("lstm", "lstm-kernels", H, B, 2, "fwd")
     out = {}
     for tag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         xs = xs32.to(torch.bfloat16) if tag == "bf16" else xs32
@@ -1044,8 +1072,8 @@ def phase_lstm_train_kernels(dev, rng) -> dict:
     live = 2 * int(flen.sum())
     esz = xs.element_size()
     w_bytes = w.numel() * esz
-    print_lstm_plan("lstm-train-kernels", H, B, 2, "fwd")
-    print_lstm_plan("lstm-train-kernels", H, B, 2, "bwd")
+    print_rnn_plan("lstm", "lstm-train-kernels", H, B, 2, "fwd")
+    print_rnn_plan("lstm", "lstm-train-kernels", H, B, 2, "bwd")
     lib = library_rnn_fns("lstm", dev, T, B, H, flen, cdt)
     # both kernels and cuDNN's training forward and forward+backward in
     # alternating rounds of graph replays (device time only)
@@ -1217,15 +1245,27 @@ def phase_stream_kernels(dev, rng) -> dict:
     want = gru_scan_plain(xs, w, lo, hi, torch.bfloat16)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "gru_fwd ndir=1: non-finite")
+    check(err <= TOL["gru_bf16"], "gru_fwd ndir=1 disagrees")
     live = int(flen.sum())
-    t = dict(max_abs_err=err,
-             ms=time_ms(lambda: gru_scan_cuda(xs, w, lo, hi, torch.bfloat16)),
+    print_rnn_plan("gru", "stream-kernels", H, B, 1, "fwd")
+    # the kernel and cuDNN's forward-only GRU in alternating rounds of
+    # graph replays, as phase 3
+    lib = library_rnn_fns("gru", dev, Tp, B, H, flen, torch.bfloat16, ndir=1)
+    rounds = rnn_graph_rounds(
+        "stream-kernels",
+        {"gru_fwd ndir=1": lambda: gru_scan_cuda(xs, w, lo, hi,
+                                                 torch.bfloat16)},
+        {"forward": lib["forward"]})
+    t = dict(max_abs_err=err, ms=statistics.median(rounds["gru_fwd ndir=1"]),
+             library_ms=statistics.median(rounds["cuDNN forward"]),
              **bound(live * 3 * H * 2 + w.numel() * 2 + nbytes(got, lo, hi),
                      2 * live * H * 3 * H, "bf16"))
     print(f"[stream-kernels] gru_fwd ndir=1 bf16 xs {tuple(xs.shape)}: max "
-          f"abs {err:.3e} (tol {TOL['gru_bf16']}), {t['ms']:.4f} ms, bound "
-          f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
-    check(err <= TOL["gru_bf16"], "gru_fwd ndir=1 disagrees")
+          f"abs {err:.3e} (tol {TOL['gru_bf16']}), {t['ms']:.4f} ms (graph),"
+          f" cuDNN GRU (forward-only, with input projection) "
+          f"{t['library_ms']:.4f} ms (graph), bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']})")
     return out
 
 
@@ -1904,6 +1944,31 @@ def lstm_cases(rng) -> list:
         strides)
     return [("row 6 decode", CHECK_B, T_dec, dec_len, False),
             ("rows 6-7 train", TRAIN_B, T_tr, tr_len, True)]
+
+
+def gru_cases(rng) -> list:
+    """The bf16 GRU kernels' shapes in phases 3, 7 and 15, (tag, B, T',
+    lengths [B] int64 CPU, training, ndir): a decode chunk of 32 wavs of
+    10 s (the last 8 s), T' = 251, for the residual-free form (row 3) of
+    bigru (ndir 2) and of uni_gru (ndir 1); 24 training utterances of
+    9-10 s in the 1024-frame bucket, T' = 256, for the training form (row
+    4) and the backward (row 5)."""
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    n = int(CHECK_SECONDS * C.SAMPLE_RATE)
+    dec = np.full(CHECK_B, n, np.int64)
+    dec[-1] = int(WAV_SECONDS[0] * C.SAMPLE_RATE)
+    out = []
+    for preset, ndir in ((PRESET, 2), (UNI_PRESET, 1)):
+        strides = preset_config(preset).model.conv_stride_time
+        dec_len, T_dec = subsampled(dec, C.num_frames(n), strides)
+        out.append((f"row 3 decode ndir={ndir}", CHECK_B, T_dec, dec_len,
+                    False, ndir))
+    tr_len, T_tr = subsampled(
+        rng.uniform(*TRAIN_SECONDS, TRAIN_B) * C.SAMPLE_RATE, TRAIN_FRAMES,
+        preset_config(PRESET).model.conv_stride_time)
+    return out + [("rows 4-5 train", TRAIN_B, T_tr, tr_len, True, 2)]
 
 
 def attention_cases(rng) -> list:

@@ -28,7 +28,7 @@ from chainer_speech_recognition_tpu_torch.ops.ctc import (
 from chainer_speech_recognition_tpu_torch.ops.ctc_cuda import (
     ctc_bwd_cuda, ctc_fwd_cuda)
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
-    gru_bwd_cuda, gru_bwd_plain, gru_scan_cuda,
+    gru_bwd_cuda, gru_bwd_plain, gru_occupancy, gru_plan, gru_scan_cuda,
     gru_scan_plain, gru_scan_stream_cuda, gru_scan_stream_plain,
     gru_scan_train_cuda, gru_scan_train_plain, lstm_bwd_cuda,
     lstm_bwd_plain, lstm_scan_cuda, lstm_scan_plain, lstm_scan_stream_cuda,
@@ -180,6 +180,109 @@ def test_gru_train_kernels_match_plain(dev, T, B, H, dtype, tol):
         before[0] + 1, before[1] + 1)
     if B > 1:       # a length-0 row has no live step: zero gradient
         assert torch.all(dxs[:, 1] == 0) and torch.all(dhn[:, B + 1] == 0)
+
+
+def _gru_inputs(dev, T, B, H, dtype, seed):
+    """Ragged lengths including T and 0; xs in the stream dtype."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, T + 1, B).astype(np.float32)
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
+    lens = torch.from_numpy(lens)
+    lo = torch.cat([torch.zeros(B), T - lens])[:, None].to(dev)
+    hi = torch.cat([lens, torch.full((B,), float(T))])[:, None].to(dev)
+    w = torch.from_numpy((rng.standard_normal((2, H, 3 * H))
+                          / np.sqrt(H)).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rng.standard_normal(
+        (T, 2 * B, 3 * H)).astype(np.float32)).to(dev).to(dtype)
+    g = torch.from_numpy(rng.standard_normal(
+        (T, 2 * B, H)).astype(np.float32)).to(dev)
+    return lens, xs, w, lo, hi, g
+
+
+@pytest.mark.parametrize("T,B,H", [(9, 15, 256), (6, 16, 96), (5, 17, 512),
+                                   (4, 33, 32), (3, 64, 256), (12, 1, 256),
+                                   (7, 17, 448), (8, 16, 160), (1, 20, 256)])
+def test_gru_bf16_kernels_at_cluster_edges(dev, T, B, H):
+    """The bf16 cluster kernels: the residual-free forward (ndir 2 and,
+    on the forward rows with their own W, ndir 1), the training forward
+    (ys and the gate stream) and the backward (dxs, dhn, on the plain
+    forward's residuals and on the kernel's own) against their plain
+    versions, at B around the 16-row group (1, 15, 16, 17, 20, 33, 64:
+    padded rows of the m16 tile and more than one cluster a direction),
+    clusters of 1 to 16 blocks (H = 32 to 512, C = H / 32, and H / 16 in
+    the backward up to H = 256: both of its instantiations; 96, 160 and
+    448 odd sizes), T = 1 (no exchange), ragged lengths and a length-0
+    row.
+    The reference's bars, 3e-2 forward and 5e-2 gradient
+    (tests/test_rnn_pallas.py:81,88)."""
+    cdt = torch.bfloat16
+    lens, xs, w, lo, hi, g = _gru_inputs(dev, T, B, H, cdt,
+                                         T * 1000 + H + B)
+    before = (_kernels.GRU_FWD.launches, _kernels.GRU_FWD_TRAIN.launches,
+              _kernels.GRU_BWD.launches)
+    ys0 = gru_scan_cuda(xs, w, lo, hi, cdt)
+    assert float((ys0 - gru_scan_plain(xs, w, lo, hi, cdt)).abs().max()) \
+        <= 3e-2
+    x1, w1, lo1 = xs[:, :B].contiguous(), w[:1].contiguous(), lo[:B]
+    hi1 = hi[:B]
+    ys1 = gru_scan_cuda(x1, w1, lo1, hi1, cdt)
+    assert float((ys1 - gru_scan_plain(x1, w1, lo1, hi1, cdt)).abs().max()) \
+        <= 3e-2
+    ys, gates = gru_scan_train_cuda(xs, w, lo, hi, cdt)
+    ys_p, gates_p = gru_scan_train_plain(xs, w, lo, hi, cdt)
+    assert torch.equal(ys, ys0)
+    assert float((ys - ys_p).abs().max()) <= 3e-2
+    assert float((gates.float() - gates_p.float()).abs().max()) <= 3e-2
+    dxs_p, dhn_p = gru_bwd_plain(gates_p, w, lo, hi, shift_prev(ys_p), g,
+                                 cdt)
+    for gt, y in ((gates_p, ys_p), (gates, ys)):
+        dxs, dhn = gru_bwd_cuda(gt, w, lo, hi, shift_prev(y), g, cdt)
+        assert float((dxs.float() - dxs_p.float()).abs().max()) <= 5e-2
+        assert float((dhn.float() - dhn_p.float()).abs().max()) <= 5e-2
+    assert (_kernels.GRU_FWD.launches, _kernels.GRU_FWD_TRAIN.launches,
+            _kernels.GRU_BWD.launches) == (before[0] + 2, before[1] + 1,
+                                           before[2] + 2)
+    if B > 1:       # a length-0 row: h stays 0, no gradient
+        assert torch.all(ys[:, 1] == 0) and torch.all(ys[:, B + 1] == 0)
+        assert torch.all(ys1[:, 1] == 0)
+        assert torch.all(dxs[:, 1] == 0) and torch.all(dhn[:, B + 1] == 0)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_gru_bf16_kernels_are_repeatable(dev, seed):
+    """The bf16 cluster kernels three times on the same inputs at bigru's
+    width (T = 64, B = 24, H = 256): the forward (both forms, and ndir 1)
+    and the backward bitwise equal each time (no atomics; a missing
+    cluster barrier would show as rare mismatches)."""
+    cdt = torch.bfloat16
+    _, xs, w, lo, hi, g = _gru_inputs(dev, 64, 24, 256, cdt, 200 + seed)
+    x1, w1 = xs[:, :24].contiguous(), w[:1].contiguous()
+    first = None
+    for _ in range(3):
+        ys0 = gru_scan_cuda(xs, w, lo, hi, cdt)
+        ys1 = gru_scan_cuda(x1, w1, lo[:24], hi[:24], cdt)
+        ys, gates = gru_scan_train_cuda(xs, w, lo, hi, cdt)
+        dxs, dhn = gru_bwd_cuda(gates, w, lo, hi, shift_prev(ys), g, cdt)
+        got = [t.view(torch.int16) if t.dtype == cdt else t
+               for t in (ys0, ys1, ys, gates, dxs, dhn)]
+        if first is None:
+            first = got
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+    assert torch.equal(first[0], first[2])
+
+
+@pytest.mark.parametrize("form", ["fwd", "bwd"])
+def test_gru_plan_launches_on_card(dev, form):
+    """For every hidden size the kernels take, the library computes the
+    GRU plan's shared memory to the byte and the card holds at least one
+    of its clusters (cudaOccupancyMaxActiveClusters)."""
+    for H in range(32, 513, 32):
+        p = gru_plan(H, 24, 2, form)
+        smem, n = gru_occupancy(H, form)
+        assert smem == p.smem
+        assert n >= 1, (H, form, p)
 
 
 def _lstm_inputs(dev, T, B, H, dtype, seed):

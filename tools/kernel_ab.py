@@ -2,13 +2,14 @@
 one card, on the same inputs, by two yardsticks:
 
     python3 tools/kernel_ab.py OTHER_ROOT [--rounds 9] [--seed 0]
-                               [--cases frontend,flash,lstm]
+                               [--cases frontend,flash,lstm,gru]
 
 OTHER_ROOT is the root of another checkout of the repo (for example an
 older commit unpacked by ``git archive`` into a git-ignored directory).
 Its ``csrc/frontend_logmel.cu``, ``attention_fwd.cu``,
-``attention_bwd.cu``, ``lstm_fwd.cu`` and ``lstm_bwd.cu`` (with
-``library.cu``, the error strings) are built alone into a library of
+``attention_bwd.cu``, ``lstm_fwd.cu``, ``lstm_bwd.cu``, ``gru_fwd.cu``
+and ``gru_bwd.cu`` (with ``library.cu``, the error strings) are built
+alone into a library of
 their own, and its Python package is imported under another name with
 that library bound in, so each build is called through its own
 checkout's wrappers, weight layouts and host tables.
@@ -28,9 +29,16 @@ Kernels and shapes (those of ``chip_smoke.py``):
   training form and row 7 at B = 24, T' = 256 beside cuDNN's training
   forward and backward; and the forms the cluster redesign keeps (fp32
   forward, training forward and backward; the stream form in fp32 and
-  bf16), which must be bitwise equal across the builds.
+  bf16), which must be bitwise equal across the builds;
+* the bf16 GRU, H = 256 (``chip_smoke.gru_cases``): row 3's
+  residual-free form at B = 32, T' = 251 for bigru (ndir 2) and uni_gru
+  (ndir 1) beside cuDNN's forward; row 4's training form and row 5 at
+  B = 24, T' = 256 beside cuDNN's training forward and backward; the
+  forms kept on the FMA kernels (fp32 forward, training forward and
+  backward; the stream form in fp32 and bf16) bitwise equal across the
+  builds, as the LSTM's.
 
-``--cases`` takes a subset of ``frontend,flash,lstm``.
+``--cases`` takes a subset of ``frontend,flash,lstm,gru``.
 
 Each is timed in alternating rounds, both builds and the library call in
 each round:
@@ -40,7 +48,7 @@ each round:
   (``chip_smoke.time_ms``), so each wrapper's host time is in it wherever
   it exceeds the kernel's.
 
-Each build is first held to the plain versions: the LSTM at 3e-2
+Each build is first held to the plain versions: the LSTM and the GRU at 3e-2
 (forward) and 5e-2 (gradient) max abs, the front-end at 5e-4 max abs,
 the flash forward's out at 2^-7·(|b| + Σp·|v|/l) + 1e-5 and lse at 2e-5,
 the gradients at the bar derived from bf16 rounding (2^-7·|b| + the
@@ -72,8 +80,9 @@ import chip_smoke as cs  # noqa: E402
 
 PKG = "chainer_speech_recognition_tpu_torch"
 SOURCES = ("frontend_logmel.cu", "attention_fwd.cu", "attention_bwd.cu",
-           "lstm_fwd.cu", "lstm_bwd.cu", "library.cu")
-CASES = ("frontend", "flash", "lstm")
+           "lstm_fwd.cu", "lstm_bwd.cu", "gru_fwd.cu", "gru_bwd.cu",
+           "library.cu")
+CASES = ("frontend", "flash", "lstm", "gru")
 
 
 def build_alone(root: str, tag: str) -> str:
@@ -402,6 +411,114 @@ def lstm_case(dev, rng, other, rounds, tag, B, T, lens, train: bool):
     return res
 
 
+def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
+             ndir: int):
+    """Row 3 (the residual-free form, ndir 2 or 1), or the training form
+    (row 4) with the backward (row 5), in bf16 at bigru's and uni_gru's
+    width: both builds held to the plain versions at 3e-2 (forward) and
+    5e-2 (gradients), then timed with cuDNN's GRU in the same rounds; the
+    forms the FMA kernels keep (fp32 forward, training forward and
+    backward; the stream form in fp32 and bf16) must agree bit for bit
+    across the builds."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.ops import rnn_cuda as rc
+
+    orc = importlib.import_module(f"{other.__name__}.ops.rnn_cuda")
+    H = preset_config(cs.PRESET if ndir == 2 else cs.UNI_PRESET) \
+        .model.rnn_hidden
+    if ndir == 2:
+        lo, hi = cs.rnn_rows(lens.to(torch.float32), T, dev)
+    else:
+        lo = torch.zeros(B, 1, device=dev)
+        hi = lens.to(torch.float32)[:, None].to(dev)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev)
+    w = f32(ndir, H, 3 * H) / np.sqrt(H)
+    xs32, g = f32(T, ndir * B, 3 * H), f32(T, ndir * B, H)
+    h0 = 0.5 * f32(ndir * B, H)
+    cdt = torch.bfloat16
+    xs = xs32.to(cdt)
+    mods = {"this": rc, "other": orc}
+    res = {"tag": tag, "B": B, "T": T, "H": H, "ndir": ndir}
+    if train:
+        ys_p, gates_p = rc.gru_scan_train_plain(xs, w, lo, hi, cdt)
+        h_prev = rc.shift_prev(ys_p)
+        dxs_p, dhn_p = rc.gru_bwd_plain(gates_p, w, lo, hi, h_prev, g, cdt)
+    else:
+        ys_p = rc.gru_scan_plain(xs, w, lo, hi, cdt)
+    for b, m in mods.items():
+        if train:
+            ys, gates = m.gru_scan_train_cuda(xs, w, lo, hi, cdt)
+            dxs, dhn = m.gru_bwd_cuda(gates_p, w, lo, hi, h_prev, g, cdt)
+            err = {"ys": ys - ys_p, "gates": gates.float() - gates_p.float(),
+                   "dxs": dxs.float() - dxs_p.float(),
+                   "dhn": dhn.float() - dhn_p.float()}
+        else:
+            err = {"ys": m.gru_scan_cuda(xs, w, lo, hi, cdt) - ys_p}
+        torch.cuda.synchronize()
+        err = {n: float(e.abs().max()) for n, e in err.items()}
+        res[f"{b} max abs"] = err
+        print(f"[ab] {tag} {b}: max abs vs plain " + ", ".join(
+            f"{n} {e:.3e}" for n, e in err.items()))
+        cs.check(all(e <= (cs.TOL["gru_grad_bf16"] if n in ("dxs", "dhn")
+                           else cs.TOL["gru_bf16"]) for n, e in err.items()),
+                 f"{tag} {b}: breaks the bf16 bar")
+    # the forms the FMA kernels keep: bitwise those of the other build
+    kept = {}
+    for b, m in mods.items():
+        out = []
+        for dt in (torch.float32, cdt):
+            x = xs32.to(dt)
+            if dt == torch.float32:
+                out.append(m.gru_scan_cuda(x, w, lo, hi, dt))
+                if ndir == 2:
+                    ys, gates = m.gru_scan_train_cuda(x, w, lo, hi, dt)
+                    out += [ys, gates, *m.gru_bwd_cuda(
+                        gates, w, lo, hi, rc.shift_prev(ys), g, dt)]
+            out += list(m.gru_scan_stream_cuda(x, w, lo, hi, h0, dt, T // 2))
+        kept[b] = out
+    torch.cuda.synchronize()
+    res["kept forms bitwise equal"] = cs.same_bits(kept["this"],
+                                                   kept["other"])
+    print(f"[ab] {tag}: fp32 forward"
+          + (", training forward and backward" if ndir == 2 else "")
+          + " and the stream form (fp32, bf16) bitwise equal across the "
+          f"builds: {res['kept forms bitwise equal']}")
+    cs.check(res["kept forms bitwise equal"],
+             f"{tag}: a kept form differs from the other build's")
+
+    lib = cs.library_rnn_fns("gru", dev, T, B, H, lens, cdt, ndir)
+    fns = {}
+    for b, m in mods.items():
+        if train:
+            fns[f"{b} fwd_train"] = lambda m=m: m.gru_scan_train_cuda(
+                xs, w, lo, hi, cdt)
+            fns[f"{b} bwd"] = lambda m=m: m.gru_bwd_cuda(
+                gates_p, w, lo, hi, h_prev, g, cdt)
+        else:
+            fns[f"{b} fwd"] = lambda m=m: m.gru_scan_cuda(xs, w, lo, hi, cdt)
+    if train:
+        fns["cudnn train fwd"] = lib["training forward"]
+        fns["cudnn fwd+bwd"] = lib["forward+backward"]
+        pairs = [("other fwd_train", "this fwd_train"),
+                 ("this fwd_train", "cudnn train fwd"),
+                 ("other bwd", "this bwd"), ("this bwd", "cudnn bwd")]
+    else:
+        fns["cudnn fwd"] = lib["forward"]
+        pairs = [("other fwd", "this fwd"), ("this fwd", "cudnn fwd"),
+                 ("other fwd", "cudnn fwd")]
+    replays = {n: cs.graph_of(fn, mode="relaxed")[0] for n, fn in fns.items()}
+    times = timed(fns, rounds, replays)
+    if train:
+        for t in times.values():
+            t["cudnn bwd"] = [a - b for a, b in zip(t["cudnn fwd+bwd"],
+                                                    t["cudnn train fwd"])]
+    res.update(report(f"{tag} B={B} T'={T} H={H}", times, pairs))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the other checkout")
@@ -430,6 +547,9 @@ def main() -> int:
         if "lstm" in cases:
             out += [lstm_case(dev, rng, other, a.rounds, *c)
                     for c in cs.lstm_cases(rng)]
+        if "gru" in cases:
+            out += [gru_case(dev, rng, other, a.rounds, *c)
+                    for c in cs.gru_cases(rng)]
     except cs.SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
