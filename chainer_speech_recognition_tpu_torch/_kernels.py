@@ -80,12 +80,9 @@ LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train",
                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 LSTM_BWD = Kernel("csr_lstm_bwd",
                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-GRU_FWD_STREAM = Kernel("csr_gru_fwd_stream",
-                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _P])
-LSTM_FWD_STREAM = Kernel("csr_lstm_fwd_stream",
-                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _P])
+# the stream forms': (..., T, B, H, ndir, emit_t, C, bf16, stream)
+GRU_FWD_STREAM = Kernel("csr_gru_fwd_stream", [_P] * 7 + [_I] * 7 + [_P])
+LSTM_FWD_STREAM = Kernel("csr_lstm_fwd_stream", [_P] * 7 + [_I] * 7 + [_P])
 FRONTEND_LOGMEL_FRAMES = Kernel("csr_frontend_logmel_frames",
                                 [_P, _I, _I, _P, _P, _I, _P, _P])
 # flash attention: (tensors..., dims, strides) with dims and strides host

@@ -12,9 +12,10 @@
 // reads them instead of recomputing the gate matmul. The stream form seeds
 // h from h0 [R, H] fp32 instead of 0 and writes carry [R, H] fp32, the h
 // of step emit_t - 1 (h0 when emit_t == 0), so a streaming window carries
-// its forward state across the chunk boundary inside its lookahead. The
-// three forms are one template (kGates, kStream), so the inference form
-// compiles to the same code as before the other forms existed.
+// its forward state across the chunk boundary inside its lookahead. In
+// each kernel below the three forms are one template (compile-time flags),
+// so the inference form compiles to the same code as before the other
+// forms existed.
 //
 // Same boundary as the TPU kernel: xs [T, R=ndir*B, 3H] in the stream
 // dtype (bf16 under bf16 compute, fp32 under fp32), W [ndir, H, 3H]
@@ -30,12 +31,11 @@
 // the fp32 register while its compute-dtype rounding seeds the shared copy
 // the first product reads.
 //
-// Two kernels. The bf16 residual-free and training forms (the presets'
-// path) run on a thread-block cluster with W resident in its shared
-// memory and the step product on the tensor cores (gru_fwd_tc_kernel,
-// below; one template over kResiduals). The fp32 forms and the stream form
-// (both dtypes) run the FMA kernel (gru_fwd_kernel, one template over
-// kGates and kStream).
+// Two kernels. The bf16 forms, all three (the presets' path), run on a
+// thread-block cluster with W resident in its shared memory and the step
+// product on the tensor cores (gru_fwd_tc_kernel, below; one template over
+// kResiduals and kStream). The fp32 forms run the FMA kernel
+// (gru_fwd_kernel, one template over kGates and kStream).
 //
 // What bounds it on Hopper: the sequential dependency over T. Each step is
 // a [rows x H] x [H x 3H] product that needs all of the direction's W
@@ -211,9 +211,9 @@ int launch(const void* xs, const void* w, const float* lo, const float* hi,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 forward on a thread-block cluster (csr_gru_fwd and
-// csr_gru_fwd_train under bf16 compute; layout in rnn_mma.cuh), the
-// LSTM's design (csrc/lstm_fwd.cu) with three gates.
+// The bf16 forward on a thread-block cluster (csr_gru_fwd,
+// csr_gru_fwd_train and csr_gru_fwd_stream under bf16 compute; layout in
+// rnn_mma.cuh), the LSTM's design (csrc/lstm_fwd.cu) with three gates.
 //
 // Grid: C·groups x ndir blocks, C = H / kU, in clusters of C along x;
 // cluster (group, d) serves rows [16 group, 16 group + 16) of direction d,
@@ -243,20 +243,29 @@ int launch(const void* xs, const void* w, const float* lo, const float* hi,
 //      wait.
 // Double buffering makes one barrier enough: a block writes buffer t % 2
 // only after every block has passed the barrier that follows its reads of
-// that buffer at step t - 2. Both forms share the product and the gate
-// math, so their ys are equal.
+// that buffer at step t - 2. The stream form (kStream) seeds each thread's
+// fp32 h from h0 and A[0] from bf16(h0), every block filling all H columns
+// of its 16 rows from global memory (rnn_mma.cuh's fill_h0), so step 0
+// needs no exchange; it writes carry after step emit_t - 1's padding
+// freeze, or h0 at entry when emit_t == 0. The three forms share the
+// product and the gate math, so their ys are equal (the stream form's at
+// h0 = 0).
 //
 // What bounds a step: each block reads its W slice (H x 3 kU bf16, 49.5
 // KB at H = 256 and kU = 32) from shared memory once a step, runs the gate
-// math of its 16 kU pairs and exchanges h.
-template <int kU, bool kResiduals>
+// math of its 16 kU pairs and exchanges h. A stream window has few steps
+// (T = 16-20), so the fixed cost weighs more there: the launch, the W
+// slice's copy into shared memory and the first cluster barrier.
+template <int kU, bool kResiduals, bool kStream>
 __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
     gru_fwd_tc_kernel(const __nv_bfloat16* __restrict__ xs,
                       const __nv_bfloat16* __restrict__ wt,
                       const float* __restrict__ lo,
-                      const float* __restrict__ hi, float* __restrict__ ys,
-                      __nv_bfloat16* __restrict__ gates, int T, int B,
-                      int H) {
+                      const float* __restrict__ hi,
+                      const float* __restrict__ h0, float* __restrict__ ys,
+                      __nv_bfloat16* __restrict__ gates,
+                      float* __restrict__ carry, int T, int B, int H,
+                      int emit_t) {
   namespace tc = csr_rnn_mma;
   constexpr int kM = tc::kRows, kN = 3 * kU;
   constexpr int kNB = kU / 8;              // unit blocks of 8 a block
@@ -277,7 +286,7 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
   float* part = reinterpret_cast<float*>(smem + kN * row_b + 2 * a_bytes);
   const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
 
-  // the W slice, once; A[0] = h_0 = 0
+  // the W slice, once; A[0] = h_0: 0, or the stream form's bf16(h0)
   const __nv_bfloat16* wsrc = wt + (static_cast<int64_t>(d) * C + c) * kN * H;
   const int kc = H / 8;
   for (int i = tid; i < kN * kc; i += blockDim.x)
@@ -285,8 +294,14 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
                    wsrc + static_cast<int64_t>(i / kc) * H + (i % kc) * 8,
                    true);
   tc::cp_async_commit();
-  for (uint32_t i = tid * 16; i < a_bytes; i += blockDim.x * 16)
-    *reinterpret_cast<uint4*>(smem + (s_a - s_w) + i) = make_uint4(0, 0, 0, 0);
+  if (kStream)
+    tc::fill_h0(smem + (s_a - s_w), h0 + (static_cast<int64_t>(d) * B +
+                                          group * kM) * H,
+                H, B - group * kM, H);
+  else
+    for (uint32_t i = tid * 16; i < a_bytes; i += blockDim.x * 16)
+      *reinterpret_cast<uint4*>(smem + (s_a - s_w) + i) =
+          make_uint4(0, 0, 0, 0);
   tc::cp_async_wait<0>();
   __syncthreads();
   tc::cluster_sync();   // every peer has started before DSMEM stores
@@ -321,6 +336,11 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
   float x[3];
   load_x(0, x);
   float h = 0.0f;
+  const int64_t hc = static_cast<int64_t>(rr) * H + j;   // [R, H] h0, carry
+  if (kStream && valid) {
+    h = h0[hc];
+    if (emit_t == 0) carry[hc] = h;
+  }
   int cur = 0;
   for (int t = 0; t < T; ++t) {
     float nx[3];
@@ -397,6 +417,7 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
         gt[2 * H] = __float2bfloat16_rn(n);
         gt[3 * H] = __float2bfloat16_rn(pre[2]);
       }
+      if (kStream && t == emit_t - 1) carry[hc] = h;
     }
     if (more) {
       tc::cluster_wait();
@@ -411,19 +432,20 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
 // were no faster at bigru's H = 256: csrc/rnn_mma.cuh, gru_bwd_units)
 constexpr int kTcUnits = csr_rnn_mma::kUnits;
 
-template <bool kResiduals>
+template <bool kResiduals, bool kStream>
 int launch_tc(const void* xs, const void* wt, const float* lo,
-              const float* hi, float* ys, void* gates, int T, int B, int H,
-              int ndir, int C, cudaStream_t stream) {
+              const float* hi, const float* h0, float* ys, void* gates,
+              float* carry, int T, int B, int H, int ndir, int emit_t, int C,
+              cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (C * kTcUnits != H) return static_cast<int>(cudaErrorInvalidValue);
   return tc::launch_clusters(
-      gru_fwd_tc_kernel<kTcUnits, kResiduals>, C,
+      gru_fwd_tc_kernel<kTcUnits, kResiduals, kStream>, C,
       (B + tc::kRows - 1) / tc::kRows, ndir, tc::kRows * kTcUnits,
       tc::fwd_smem(H, 3, kTcUnits), stream,
       static_cast<const __nv_bfloat16*>(xs),
-      static_cast<const __nv_bfloat16*>(wt), lo, hi, ys,
-      static_cast<__nv_bfloat16*>(gates), T, B, H);
+      static_cast<const __nv_bfloat16*>(wt), lo, hi, h0, ys,
+      static_cast<__nv_bfloat16*>(gates), carry, T, B, H, emit_t);
 }
 
 }  // namespace
@@ -438,8 +460,8 @@ CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
                         const float* hi, float* ys, int T, int B, int H,
                         int ndir, int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch_tc<false>(xs, w, lo, hi, ys, nullptr, T, B, H, ndir, C,
-                            stream);
+    return launch_tc<false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
+                                   nullptr, T, B, H, ndir, 0, C, stream);
   return launch<float, false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
                                      nullptr, T, B, H, ndir, 0, stream);
 }
@@ -451,7 +473,8 @@ CSR_API int csr_gru_fwd_train(const void* xs, const void* w, const float* lo,
                               int B, int H, int C, int bf16,
                               cudaStream_t stream) {
   if (bf16)
-    return launch_tc<true>(xs, w, lo, hi, ys, gates, T, B, H, 2, C, stream);
+    return launch_tc<true, false>(xs, w, lo, hi, nullptr, ys, gates, nullptr,
+                                  T, B, H, 2, 0, C, stream);
   return launch<float, true, false>(xs, w, lo, hi, nullptr, ys, gates,
                                     nullptr, T, B, H, 2, 0, stream);
 }
@@ -463,21 +486,22 @@ CSR_API int csr_gru_fwd_train(const void* xs, const void* w, const float* lo,
 CSR_API int csr_gru_fwd_occupancy(int H, int* out) {
   namespace tc = csr_rnn_mma;
   out[0] = tc::fwd_smem(H, 3, kTcUnits);
-  return tc::max_clusters(gru_fwd_tc_kernel<kTcUnits, true>, H / kTcUnits,
+  return tc::max_clusters(gru_fwd_tc_kernel<kTcUnits, true, false>,
+                          H / kTcUnits,
                           tc::kRows * kTcUnits, out[0], out + 1);
 }
 
-// As csr_gru_fwd, with h seeded from h0 [ndir*B, H] fp32 and carry
-// [ndir*B, H] fp32 out: h after step emit_t - 1, h0 when emit_t == 0.
-// Requires 0 <= emit_t <= T (the wrapper checks).
+// As csr_gru_fwd (w and C likewise), with h seeded from h0 [ndir*B, H]
+// fp32 and carry [ndir*B, H] fp32 out: h after step emit_t - 1, h0 when
+// emit_t == 0. Requires 0 <= emit_t <= T (the wrapper checks).
 CSR_API int csr_gru_fwd_stream(const void* xs, const void* w,
                                const float* lo, const float* hi,
                                const float* h0, float* ys, float* carry,
                                int T, int B, int H, int ndir, int emit_t,
-                               int bf16, cudaStream_t stream) {
+                               int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, false, true>(
-        xs, w, lo, hi, h0, ys, nullptr, carry, T, B, H, ndir, emit_t, stream);
+    return launch_tc<false, true>(xs, w, lo, hi, h0, ys, nullptr, carry, T,
+                                  B, H, ndir, emit_t, C, stream);
   return launch<float, false, true>(xs, w, lo, hi, h0, ys, nullptr, carry, T,
                                     B, H, ndir, emit_t, stream);
 }

@@ -27,12 +27,11 @@
 // form's h0 seeds the fp32 registers, its compute-dtype rounding the shared
 // copy of h that the first product reads).
 //
-// Two kernels. The bf16 residual-free and training forms (the presets'
-// path) run on a thread-block cluster with W resident in its shared
-// memory and the step product on the tensor cores (lstm_fwd_tc_kernel,
-// below; one template over kResiduals). The fp32 forms and the stream form
-// (both dtypes) run the FMA kernel (lstm_fwd_kernel, one template over
-// kResiduals and kStream).
+// Two kernels. The bf16 forms, all three (the presets' path), run on a
+// thread-block cluster with W resident in its shared memory and the step
+// product on the tensor cores (lstm_fwd_tc_kernel, below; one template over
+// kResiduals and kStream). The fp32 forms run the FMA kernel
+// (lstm_fwd_kernel, one template over kResiduals and kStream).
 //
 // What bounds it on Hopper: the sequential dependency over T. Each step is
 // a [rows x H] x [H x 4H] product that needs all of the direction's W
@@ -183,10 +182,9 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// W rows per register chunk and gate: 16 in bf16 (4 quads of 8 bytes),
-// 8 in fp32 (2 quads of 16 bytes), the same 32 registers per chunk
-template <typename S>
-constexpr int kQuads = sizeof(S) == 2 ? 4 : 2;
+// W rows per register chunk and gate: 8 (2 fp32 quads of 16 bytes, 32
+// registers a chunk)
+constexpr int kQuads = 2;
 
 template <typename S, bool kResiduals, bool kStream>
 int launch(const void* xs, const void* wq, const float* lo, const float* hi,
@@ -196,22 +194,22 @@ int launch(const void* xs, const void* wq, const float* lo, const float* hi,
   const dim3 grid(B, ndir);
   const size_t smem = 2 * H * sizeof(float);
   if (H <= 384)
-    lstm_fwd_kernel<S, kQuads<S>, 384, kResiduals, kStream>
+    lstm_fwd_kernel<S, kQuads, 384, kResiduals, kStream>
         <<<grid, H, smem, stream>>>(
             static_cast<const S*>(xs), static_cast<const Q*>(wq), lo, hi, h0,
             ys, cs, static_cast<S*>(gates), carry, T, B, H, emit_t);
   else
-    lstm_fwd_kernel<S, kQuads<S>, 512, kResiduals, kStream>
+    lstm_fwd_kernel<S, kQuads, 512, kResiduals, kStream>
         <<<grid, H, smem, stream>>>(
             static_cast<const S*>(xs), static_cast<const Q*>(wq), lo, hi, h0,
             ys, cs, static_cast<S*>(gates), carry, T, B, H, emit_t);
   CSR_RETURN_LAUNCH_STATUS();
 }
 
-
 // ---------------------------------------------------------------------------
-// The bf16 forward on a thread-block cluster (csr_lstm_fwd and
-// csr_lstm_fwd_train under bf16 compute; layout in rnn_mma.cuh).
+// The bf16 forward on a thread-block cluster (csr_lstm_fwd,
+// csr_lstm_fwd_train and csr_lstm_fwd_stream under bf16 compute; layout in
+// rnn_mma.cuh).
 //
 // Grid: C·groups x ndir blocks, C = H / 32, in clusters of C along x;
 // cluster (group, d) serves rows [16 group, 16 group + 16) of direction d,
@@ -239,22 +237,29 @@ int launch(const void* xs, const void* wq, const float* lo, const float* hi,
 //      wait.
 // Double buffering makes one barrier enough: a block writes buffer t % 2
 // only after every block has passed the barrier that follows its reads of
-// that buffer at step t - 2. Both forms share the product and the gate
-// math, so their ys are equal.
+// that buffer at step t - 2. The stream form (kStream) seeds each thread's
+// fp32 h and c from h0's h||c and A[0] from bf16(h), every block filling
+// all H columns of its 16 rows from global memory (rnn_mma.cuh's
+// fill_h0), so step 0 needs no exchange; it writes carry = h||c after step
+// emit_t - 1's padding freeze, or h0 at entry when emit_t == 0. The three
+// forms share the product and the gate math, so their ys are equal (the
+// stream form's at h0 = 0).
 //
 // What bounds a step: each block reads its W slice (H x 128 bf16, 98 KB at
 // H = 384) from shared memory once a step, runs the gate math of its 512
 // pairs and exchanges h; C = H / 32 spreads all three over the most blocks
 // that keep 32 units (n8 tiles of whole unit blocks) each.
-template <bool kResiduals>
+template <bool kResiduals, bool kStream>
 __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
     lstm_fwd_tc_kernel(const __nv_bfloat16* __restrict__ xs,
                        const __nv_bfloat16* __restrict__ wt,
                        const float* __restrict__ lo,
-                       const float* __restrict__ hi, float* __restrict__ ys,
+                       const float* __restrict__ hi,
+                       const float* __restrict__ h0, float* __restrict__ ys,
                        float* __restrict__ cs,
-                       __nv_bfloat16* __restrict__ gates, int T, int B,
-                       int H) {
+                       __nv_bfloat16* __restrict__ gates,
+                       float* __restrict__ carry, int T, int B, int H,
+                       int emit_t) {
   namespace tc = csr_rnn_mma;
   constexpr int kU = tc::kUnits, kM = tc::kRows, kN = 4 * kU;
   constexpr int kLd = tc::kPartLd;   // row stride of the partial sums
@@ -271,7 +276,8 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
   float* part = reinterpret_cast<float*>(smem + kN * row_b + 2 * a_bytes);
   const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
 
-  // the W slice, once; A[0] = h_0 = 0
+  // the W slice, once; A[0] = h_0: 0, or the stream form's bf16(h0), the
+  // h half of h0's rows h||c
   const __nv_bfloat16* wsrc = wt + (static_cast<int64_t>(d) * C + c) * kN * H;
   const int kc = H / 8;
   for (int i = tid; i < kN * kc; i += blockDim.x)
@@ -279,8 +285,14 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
                    wsrc + static_cast<int64_t>(i / kc) * H + (i % kc) * 8,
                    true);
   tc::cp_async_commit();
-  for (uint32_t i = tid * 16; i < a_bytes; i += blockDim.x * 16)
-    *reinterpret_cast<uint4*>(smem + (s_a - s_w) + i) = make_uint4(0, 0, 0, 0);
+  if (kStream)
+    tc::fill_h0(smem + (s_a - s_w), h0 + (static_cast<int64_t>(d) * B +
+                                          group * kM) * 2 * H,
+                2 * H, B - group * kM, H);
+  else
+    for (uint32_t i = tid * 16; i < a_bytes; i += blockDim.x * 16)
+      *reinterpret_cast<uint4*>(smem + (s_a - s_w) + i) =
+          make_uint4(0, 0, 0, 0);
   tc::cp_async_wait<0>();
   __syncthreads();
   tc::cluster_sync();   // every peer has started before DSMEM stores
@@ -318,6 +330,15 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
   float x[4];
   load_x(0, x);
   float h = 0.0f, cv = 0.0f;
+  const int64_t hc = static_cast<int64_t>(rr) * 2 * H + j;  // [R, 2H] h||c
+  if (kStream && valid) {
+    h = h0[hc];
+    cv = h0[hc + H];
+    if (emit_t == 0) {
+      carry[hc] = h;
+      carry[hc + H] = cv;
+    }
+  }
   int cur = 0;
   for (int t = 0; t < T; ++t) {
     float nx[4];
@@ -400,6 +421,10 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
         gt[2 * H] = __float2bfloat16_rn(og);
         gt[3 * H] = __float2bfloat16_rn(ug);
       }
+      if (kStream && t == emit_t - 1) {
+        carry[hc] = h;
+        carry[hc + H] = cv;
+      }
     }
     if (more) {
       tc::cluster_wait();
@@ -410,18 +435,19 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
   }
 }
 
-template <bool kResiduals>
+template <bool kResiduals, bool kStream>
 int launch_tc(const void* xs, const void* wt, const float* lo,
-              const float* hi, float* ys, float* cs, void* gates, int T,
-              int B, int H, int ndir, int C, cudaStream_t stream) {
+              const float* hi, const float* h0, float* ys, float* cs,
+              void* gates, float* carry, int T, int B, int H, int ndir,
+              int emit_t, int C, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (C * tc::kUnits != H) return static_cast<int>(cudaErrorInvalidValue);
   return tc::launch_clusters(
-      lstm_fwd_tc_kernel<kResiduals>, C, (B + tc::kRows - 1) / tc::kRows,
-      ndir, tc::kRows * tc::kUnits, tc::fwd_smem(H), stream,
-      static_cast<const __nv_bfloat16*>(xs),
-      static_cast<const __nv_bfloat16*>(wt), lo, hi, ys, cs,
-      static_cast<__nv_bfloat16*>(gates), T, B, H);
+      lstm_fwd_tc_kernel<kResiduals, kStream>, C,
+      (B + tc::kRows - 1) / tc::kRows, ndir, tc::kRows * tc::kUnits,
+      tc::fwd_smem(H), stream, static_cast<const __nv_bfloat16*>(xs),
+      static_cast<const __nv_bfloat16*>(wt), lo, hi, h0, ys, cs,
+      static_cast<__nv_bfloat16*>(gates), carry, T, B, H, emit_t);
 }
 
 }  // namespace
@@ -436,8 +462,9 @@ CSR_API int csr_lstm_fwd(const void* xs, const void* wq, const float* lo,
                          const float* hi, float* ys, int T, int B, int H,
                          int ndir, int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch_tc<false>(xs, wq, lo, hi, ys, nullptr, nullptr, T, B, H,
-                            ndir, C, stream);
+    return launch_tc<false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
+                                   nullptr, nullptr, T, B, H, ndir, 0, C,
+                                   stream);
   return launch<float, false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
                                      nullptr, nullptr, T, B, H, ndir, 0,
                                      stream);
@@ -451,8 +478,8 @@ CSR_API int csr_lstm_fwd_train(const void* xs, const void* wq,
                                float* cs, void* gates, int T, int B, int H,
                                int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch_tc<true>(xs, wq, lo, hi, ys, cs, gates, T, B, H, 2, C,
-                           stream);
+    return launch_tc<true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
+                                  nullptr, T, B, H, 2, 0, C, stream);
   return launch<float, true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
                                     nullptr, T, B, H, 2, 0, stream);
 }
@@ -464,22 +491,22 @@ CSR_API int csr_lstm_fwd_train(const void* xs, const void* wq,
 CSR_API int csr_lstm_fwd_occupancy(int H, int* out) {
   namespace tc = csr_rnn_mma;
   out[0] = tc::fwd_smem(H);
-  return tc::max_clusters(lstm_fwd_tc_kernel<true>, H / tc::kUnits,
+  return tc::max_clusters(lstm_fwd_tc_kernel<true, false>, H / tc::kUnits,
                           tc::kRows * tc::kUnits, out[0], out + 1);
 }
 
-// As csr_lstm_fwd, with h||c seeded from h0 [ndir*B, 2H] fp32 and carry
-// [ndir*B, 2H] fp32 out: h||c after step emit_t - 1, h0 when emit_t == 0.
-// Requires 0 <= emit_t <= T (the wrapper checks).
+// As csr_lstm_fwd (wq and C likewise), with h||c seeded from h0
+// [ndir*B, 2H] fp32 and carry [ndir*B, 2H] fp32 out: h||c after step
+// emit_t - 1, h0 when emit_t == 0. Requires 0 <= emit_t <= T (the wrapper
+// checks).
 CSR_API int csr_lstm_fwd_stream(const void* xs, const void* wq,
                                 const float* lo, const float* hi,
                                 const float* h0, float* ys, float* carry,
                                 int T, int B, int H, int ndir, int emit_t,
-                                int bf16, cudaStream_t stream) {
+                                int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch<__nv_bfloat16, false, true>(
-        xs, wq, lo, hi, h0, ys, nullptr, nullptr, carry, T, B, H, ndir,
-        emit_t, stream);
+    return launch_tc<false, true>(xs, wq, lo, hi, h0, ys, nullptr, nullptr,
+                                  carry, T, B, H, ndir, emit_t, C, stream);
   return launch<float, false, true>(xs, wq, lo, hi, h0, ys, nullptr, nullptr,
                                     carry, T, B, H, ndir, emit_t, stream);
 }

@@ -86,6 +86,24 @@ __device__ __forceinline__ uint32_t cluster_nctarank() {
   return r;
 }
 
+// The stream forms' first A buffer: row r < kRows of `a` (bf16, rows of
+// row_bytes(H)) takes bf16(h0[r ld + k]) for k < H where r < rows, zeros
+// past them (the m16 tile's rows past B); the block's threads share the
+// work. Each block reads its h0 rows straight from global memory, so step
+// 0 needs no DSMEM exchange.
+__device__ __forceinline__ void fill_h0(unsigned char* a,
+                                        const float* __restrict__ h0, int ld,
+                                        int rows, int H) {
+  const int half = H / 2;
+  for (int i = threadIdx.x; i < kRows * half; i += blockDim.x) {
+    const int r = i / half, k = 2 * (i % half);
+    const float* src = h0 + static_cast<int64_t>(r) * ld + k;
+    *reinterpret_cast<__nv_bfloat162*>(a + r * row_bytes(H) + 2 * k) =
+        r < rows ? __floats2bfloat162_rn(src[0], src[1])
+                 : __floats2bfloat162_rn(0.0f, 0.0f);
+  }
+}
+
 // the address of the same shared-memory location in block `rank`
 __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
   uint32_t r;

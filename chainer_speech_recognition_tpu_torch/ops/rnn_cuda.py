@@ -42,15 +42,17 @@ plain version for CPU tensors):
 * ``gru_bwd`` → (dxs, dhn) and ``lstm_bwd`` → dxs: the reverse-time
   gradient walk.
 
-Under bf16 compute the residual-free and training forwards and the
-backward of both cells run on thread-block clusters (``lstm_plan``,
-``gru_plan``: C = H / 32 blocks, or H / 16 in the GRU's backward up to
-H = 256; 16 rows a cluster), each block keeping
-its slice of W in shared memory (``lstm_fwd_tc_weights``,
+Under bf16 compute every form of both cells, the three forwards
+(residual-free, stream, training) and the backward, runs on thread-block
+clusters (``lstm_plan``, ``gru_plan``: C = H / 32 blocks, or H / 16 in the
+GRU's backward up to H = 256; 16 rows a cluster), each block keeping its
+slice of W in shared memory (``lstm_fwd_tc_weights``,
 ``lstm_bwd_tc_weights``, ``gru_fwd_tc_weights``, ``gru_bwd_tc_weights``)
-and multiplying on the tensor cores; under fp32, and in the stream forms,
-the FMA kernels read W as it is (the GRU's forward), transposed (its
-backward) or as k-quads (the LSTM's).
+and multiplying on the tensor cores; under fp32 the FMA kernels read W as
+it is (the GRU's forward), transposed (its backward) or as k-quads (the
+LSTM's). The stream wrappers take the laid-out W from a cache kept per
+weight tensor (``stream_launch_args``), since a streaming window calls
+every layer once; the other wrappers lay it out at each call.
 
 ``BiGRUScan`` and ``BiLSTMScan`` are ``birnn_pallas``'s custom VJP: the
 training forward, the backward kernel, then dW = Σ_t h_prevᵀ·dgate as
@@ -68,6 +70,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .. import _kernels
 
@@ -351,13 +354,14 @@ def gru_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
     """Stream kernel launch: (ys, carry); CUDA tensors only."""
     T, B, H, ndir = _check_stream(xs, w, lo, hi, h0, compute_dtype, emit_t,
                                   "gru")
-    wk = w.to(compute_dtype).contiguous()
+    wk, C = stream_launch_args("gru", w, B, compute_dtype)
     ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     carry = torch.empty_like(h0)
     _kernels.GRU_FWD_STREAM.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         h0.data_ptr(), ys.data_ptr(), carry.data_ptr(), T, B, H, ndir,
-        emit_t, int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
+        emit_t, C, int(compute_dtype == torch.bfloat16),
+        _kernels.stream_ptr(xs))
     return ys, carry
 
 
@@ -572,6 +576,37 @@ def _gru_launch_args(w, B: int, compute_dtype, form: str):
         w, C), C
 
 
+# the stream wrappers' laid-out weights, one entry a weight tensor (a
+# layer's ``rec``): (its key, the layout)
+_STREAM_LAYOUTS = WeakIdKeyDictionary()
+
+
+def stream_launch_args(cell: str, w, B: int, compute_dtype):
+    """The forward's launch arguments (``_gru_launch_args`` or
+    ``_lstm_launch_args``: the laid-out W and C) for a stream launch, the
+    layout cached per weight tensor. The key is the tensor itself (not its
+    data pointer, which a later tensor may reuse), its in-place version,
+    the compute dtype and C, so an in-place update (a reloaded checkpoint's
+    ``copy_``) or another tensor misses. An inference tensor has no
+    version and is laid out at each call."""
+    args, plan = {"gru": (_gru_launch_args, gru_plan),
+                  "lstm": (_lstm_launch_args, lstm_plan)}[cell]
+    if w.is_inference():
+        return args(w, B, compute_dtype, "fwd")
+    ndir, H = w.shape[:2]
+    C = (plan(H, B, ndir, "fwd").cluster if compute_dtype == torch.bfloat16
+         else 0)
+    key = (w._version, compute_dtype, C)
+    hit = _STREAM_LAYOUTS.get(w)
+    if hit is not None and hit[0] == key:
+        return hit[1], C
+    with torch.no_grad():
+        wk, C = args(w, B, compute_dtype, "fwd")
+    if wk is not w:         # w itself (fp32 GRU) would keep its key alive
+        _STREAM_LAYOUTS[w] = (key, wk)
+    return wk, C
+
+
 def lstm_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
                    hi: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """Residual-free LSTM kernel launch (CUDA tensors only; raises on
@@ -591,13 +626,14 @@ def lstm_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
     """LSTM stream kernel launch: (ys, carry h‖c); CUDA tensors only."""
     T, B, H, ndir = _check_stream(xs, w, lo, hi, h0, compute_dtype, emit_t,
                                   "lstm")
-    wq = _lstm_fwd_weights(w, compute_dtype)
+    wk, C = stream_launch_args("lstm", w, B, compute_dtype)
     ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     carry = torch.empty_like(h0)
     _kernels.LSTM_FWD_STREAM.launch(
-        xs.data_ptr(), wq.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         h0.data_ptr(), ys.data_ptr(), carry.data_ptr(), T, B, H, ndir,
-        emit_t, int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
+        emit_t, C, int(compute_dtype == torch.bfloat16),
+        _kernels.stream_ptr(xs))
     return ys, carry
 
 

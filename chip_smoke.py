@@ -74,10 +74,17 @@ no result line) if any phase fails:
 15. stream kernels: the GRU and LSTM stream forms against their plain
     versions at the stream windows' shapes (B = 32; uni_gru at chunk 64,
     right 0: T = 16; bilstm_deep at chunk 64, right 16: T = 20), fp32 and
-    bf16, emit_t 0, C/s and T, ragged lengths, nonzero h0, and the R = 1
-    forward-only launch; timed beside the bound and cuDNN with hx = h0;
-    the forward-only gru_fwd at uni_gru's decode shape, its plan and its
-    time beside cuDNN's forward-only GRU as in phase 3;
+    bf16, emit_t 0, C/s and T, ragged lengths with an empty row, nonzero
+    h0, and the R = 1 forward-only launch; in bf16 with h0 = 0 the stream
+    form's ys bitwise equal to the residual-free form's (the cluster
+    kernels share the product and the gate math); the two windows (bf16,
+    emit_t = C/s) with their cluster plans, timed beside the bound and
+    cuDNN with hx = h0 in alternating rounds of graph replays as in phase
+    10, the eager figure (20 calls back to back) on a line of its own, and
+    the fixed cost of a launch as the intercept of its device time over
+    T in {1, 4, 16, 20, 64}; the forward-only gru_fwd at uni_gru's decode
+    shape, its plan and its time beside cuDNN's forward-only GRU as in
+    phase 3;
 16. uni_gru streaming: a random-weight checkpoint through the stream CLI
     (--batch 32 --chunk-frames 64 --right-frames 0 --timing) on the 64
     wavs with exact launch counts from the stream geometry and the wav
@@ -152,6 +159,7 @@ LSTM_PRESET = "bilstm_deep"
 UNI_PRESET = "uni_gru"                # the online preset: forward-only GRU
 STREAM_CHUNK = 64                     # --chunk-frames of the stream runs
 STREAM_CALLS = 20                     # back-to-back calls a stream timing
+STREAM_SWEEP = (1, 4, 16, 20, 64)     # window steps of the fixed-cost fit
 # stream CLI flags: uni_gru at zero lookahead; bilstm_deep (trained with
 # causal CMVN) at the default lookahead of 16 frames
 STREAM_ARGS = {UNI_PRESET: ["--right-frames", "0"], LSTM_PRESET: []}
@@ -535,12 +543,12 @@ def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
 
 
 def library_stream(cell: str, dev, T: int, B: int, H: int, ndir: int, lens,
-                   h0, dtype) -> float:
+                   h0, dtype):
     """cuDNN's GRU or LSTM (bidirectional when ndir = 2) over the same
     window, packed, its initial state hx taken from h0 (the port's rows
     [d·B, (d+1)·B) are direction d): the same work as a stream launch,
     input projection included, but not the same function (no carry at
-    emit_t; a length-0 row runs one step). → forward ms."""
+    emit_t; a length-0 row runs one step). → its forward, a callable."""
     import torch
     from torch.nn.utils.rnn import pack_padded_sequence
 
@@ -554,10 +562,10 @@ def library_stream(cell: str, dev, T: int, B: int, H: int, ndir: int, lens,
 
     def fwd():
         with torch.no_grad():
-            rnn(packed, hx)
+            return rnn(packed, hx)[0].data
 
     _check_no_compaction(cell, fwd)
-    return time_ms(fwd, calls=STREAM_CALLS)
+    return fwd
 
 
 # ---------------------------------------------------------------------------
@@ -1128,16 +1136,99 @@ def stream_shapes(preset: str, right: int) -> tuple[int, int, int, int]:
             2 if mcfg.rnn_bidirectional else 1)
 
 
+TIMED_STREAM = ("gru_fwd_stream", "lstm_fwd_stream")   # the two windows
+
+
+def stream_cases() -> list:
+    """Phase 15's cases, (tag, cell, ndir, B, T, emit_t, H): the streaming
+    paths' two windows (``TIMED_STREAM``: uni_gru's forward-only GRU at
+    chunk 64, right 0, T = 16; bilstm_deep's BiLSTM at chunk 64, right
+    16, T = 20; B = 32), the bidirectional GRU at bigru's width over the
+    second window's steps, and the R = 1 launch of one forward-only
+    stream of each cell."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    uT, u_emit, _, _ = stream_shapes(UNI_PRESET, 0)
+    bT, b_emit, _, _ = stream_shapes(LSTM_PRESET, 16)
+    uH, gH, lH = (preset_config(p).model.rnn_hidden
+                  for p in (UNI_PRESET, PRESET, LSTM_PRESET))
+    return [("gru_fwd_stream", "gru", 1, CHECK_B, uT, u_emit, uH),
+            ("gru_fwd_stream bidirectional", "gru", 2, CHECK_B, bT, b_emit,
+             gH),
+            ("lstm_fwd_stream", "lstm", 2, CHECK_B, bT, b_emit, lH),
+            ("gru_fwd_stream R=1", "gru", 1, 1, uT, u_emit, uH),
+            ("lstm_fwd_stream R=1", "lstm", 1, 1, bT, b_emit, lH)]
+
+
+def stream_inputs(rng, dev, cell: str, ndir: int, B: int, T: int,
+                  emit: int, H: int):
+    """One window's inputs: lengths T but row 1 ending before emit_t
+    (emit_t / 2) and row 2 empty (B > 2), the backward rows' live window
+    at the right edge; W; xs fp32; h0 nonzero on the forward rows, zero on
+    the backward ones (``models/rnn.py``). → (lens [B] CPU, lo, hi, w,
+    xs, h0)."""
+    import torch
+
+    G, Cw = (3, H) if cell == "gru" else (4, 2 * H)
+    R = ndir * B
+    lens = torch.full((B,), float(T))
+    if B > 2:
+        lens[1], lens[2] = emit // 2, 0
+    lo, hi = torch.zeros(B), lens
+    if ndir == 2:
+        lo, hi = torch.cat([lo, T - lens]), torch.cat(
+            [hi, torch.full((B,), float(T))])
+    lo, hi = lo[:, None].to(dev), hi[:, None].to(dev)
+    w = torch.from_numpy((rng.standard_normal((ndir, H, G * H))
+                          / np.sqrt(H)).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rng.standard_normal(
+        (T, R, G * H)).astype(np.float32)).to(dev)
+    h0 = torch.zeros(R, Cw, device=dev)
+    h0[:B] = torch.from_numpy(
+        0.5 * rng.standard_normal((B, Cw)).astype(np.float32)).to(dev)
+    return lens, lo, hi, w, xs, h0
+
+
+def stream_intercept(tag: str, kernel, cell: str, ndir: int, B: int, H: int,
+                     emit: int, w, h0, rng) -> tuple[float, float]:
+    """Device time of one bf16 stream launch over T in STREAM_SWEEP (every
+    row live, emit_t = min(C/s, T)), the T values in alternating rounds of
+    graph replays; → (a, b) of the least-squares line ms = a + b·T: a is
+    the fixed cost of a launch (the launch, the W slice's copy into shared
+    memory, the first cluster barrier), b the cost of a step."""
+    import torch
+
+    G = 3 if cell == "gru" else 4
+    fns = {}
+    for T in STREAM_SWEEP:
+        xs = torch.from_numpy(rng.standard_normal(
+            (T, ndir * B, G * H)).astype(np.float32)).to(h0.device).to(
+                torch.bfloat16)
+        lo = torch.zeros(ndir * B, 1, device=h0.device)
+        hi = torch.full_like(lo, float(T))
+        fns[T] = (lambda xs=xs, lo=lo, hi=hi, e=min(emit, T):
+                  kernel(xs, w, lo, hi, h0, torch.bfloat16, e))
+    rounds = alternating_ms({T: graph_of(fn, mode="relaxed")[0]
+                             for T, fn in fns.items()})
+    ms = [statistics.median(rounds[T]) for T in STREAM_SWEEP]
+    b, a = np.polyfit(STREAM_SWEEP, ms, 1)
+    print(f"[stream-kernels] {tag} bf16 over T (graph replays, medians of "
+          f"{len(rounds[STREAM_SWEEP[0]])} alternating rounds): " + ", ".join(
+              f"T={T} {m:.4f} ms" for T, m in zip(STREAM_SWEEP, ms))
+          + f"; fixed cost (intercept) {a:.4f} ms, {1e3 * b:.3f} us a step")
+    return float(a), float(b)
+
+
 def phase_stream_kernels(dev, rng) -> dict:
     """The stream kernels vs their plain versions at the streaming paths'
-    window shapes (B = 32): gru_fwd_stream forward-only (uni_gru, chunk 64,
-    right 0: T = 16) and bidirectional (T = 20), lstm_fwd_stream
-    bidirectional (bilstm_deep, chunk 64, right 16: T = 20), each in fp32
-    and bf16 at emit_t 0, C/s and T, with ragged lengths (row 1 ends before
-    C/s, row 2 is empty) and a nonzero h0 on the forward rows; the R = 1
-    launch of one forward-only stream; timed (bf16, emit_t = C/s) beside
-    the bound and cuDNN over the same window with hx = h0. Also the
-    forward-only inference form of gru_fwd at uni_gru's decode shape."""
+    window shapes (``stream_cases``), each in fp32 and bf16 at emit_t 0,
+    C/s and T, with ragged lengths and a nonzero h0 on the forward rows;
+    in bf16 with h0 = 0 their ys bitwise equal to the residual-free
+    form's; the two windows (bf16, emit_t = C/s) timed beside the bound
+    and cuDNN over the same window with hx = h0 in alternating rounds of
+    graph replays, with their plans and the fixed cost of a launch
+    (``stream_intercept``). Also the forward-only inference form of
+    gru_fwd at uni_gru's decode shape."""
     import torch
 
     from chainer_speech_recognition_tpu_torch import constants as C
@@ -1146,39 +1237,21 @@ def phase_stream_kernels(dev, rng) -> dict:
         conv_out_length)
     from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
         gru_scan_cuda, gru_scan_plain, gru_scan_stream_cuda,
-        gru_scan_stream_plain, lstm_scan_stream_cuda, lstm_scan_stream_plain)
+        gru_scan_stream_plain, lstm_scan_cuda, lstm_scan_stream_cuda,
+        lstm_scan_stream_plain)
 
-    fns = {"gru": (3, gru_scan_stream_cuda, gru_scan_stream_plain),
-           "lstm": (4, lstm_scan_stream_cuda, lstm_scan_stream_plain)}
+    fns = {"gru": (3, gru_scan_stream_cuda, gru_scan_stream_plain,
+                   gru_scan_cuda),
+           "lstm": (4, lstm_scan_stream_cuda, lstm_scan_stream_plain,
+                    lstm_scan_cuda)}
     out = {}
-    uT, u_emit, _, _ = stream_shapes(UNI_PRESET, 0)
-    bT, b_emit, _, _ = stream_shapes(LSTM_PRESET, 16)
-    uH, gH, lH = (preset_config(p).model.rnn_hidden
-                  for p in (UNI_PRESET, PRESET, LSTM_PRESET))
-    cases = [("gru_fwd_stream", "gru", 1, CHECK_B, uT, u_emit, uH),
-             ("gru_fwd_stream bidirectional", "gru", 2, CHECK_B, bT, b_emit,
-              gH),
-             ("lstm_fwd_stream", "lstm", 2, CHECK_B, bT, b_emit, lH),
-             ("gru_fwd_stream R=1", "gru", 1, 1, uT, u_emit, uH),
-             ("lstm_fwd_stream R=1", "lstm", 1, 1, bT, b_emit, lH)]
-    for tag, cell, ndir, B, T, emit, H in cases:
-        G, kernel, plain = fns[cell]
-        R, Cw = ndir * B, H if cell == "gru" else 2 * H
-        lens = torch.full((B,), float(T))
-        if B > 2:
-            lens[1], lens[2] = emit // 2, 0
-        lo, hi = torch.zeros(B), lens
-        if ndir == 2:
-            lo, hi = torch.cat([lo, T - lens]), torch.cat(
-                [hi, torch.full((B,), float(T))])
-        lo, hi = lo[:, None].to(dev), hi[:, None].to(dev)
-        w = torch.from_numpy((rng.standard_normal((ndir, H, G * H))
-                              / np.sqrt(H)).astype(np.float32)).to(dev)
-        xs32 = torch.from_numpy(rng.standard_normal(
-            (T, R, G * H)).astype(np.float32)).to(dev)
-        h0 = torch.zeros(R, Cw, device=dev)        # backward rows: zeros
-        h0[:B] = torch.from_numpy(
-            0.5 * rng.standard_normal((B, Cw)).astype(np.float32)).to(dev)
+    # the fixed-cost sweep draws from a stream of its own, so the later
+    # cases' and the streaming phases' inputs stay what they were
+    sweep_rng = np.random.default_rng(SEED + 4)
+    for tag, cell, ndir, B, T, emit, H in stream_cases():
+        G, kernel, plain, scan = fns[cell]
+        lens, lo, hi, w, xs32, h0 = stream_inputs(rng, dev, cell, ndir, B, T,
+                                                  emit, H)
         for dtag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             xs = xs32.to(torch.bfloat16) if dtag == "bf16" else xs32
             err = 0.0
@@ -1198,31 +1271,47 @@ def phase_stream_kernels(dev, rng) -> dict:
                   f"emit_t 0/{emit}/{T}: ys and carry max abs {err:.3e} "
                   f"(tol {tol})")
             check(err <= tol, f"{tag} {dtag} disagrees")
-            if tag not in ("gru_fwd_stream", "lstm_fwd_stream") \
-                    or cdt != torch.bfloat16:
+            if cdt != torch.bfloat16:
                 continue
+            zero = kernel(xs, w, lo, hi, torch.zeros_like(h0), cdt, emit)[0]
+            check(same_bits(zero, scan(xs, w, lo, hi, cdt)),
+                  f"{tag}: at h0 = 0 the stream form's ys differ from the "
+                  f"residual-free form's")
+            print(f"[stream-kernels] {tag} bf16 at h0 = 0: ys bitwise equal "
+                  f"to the residual-free form's")
+            if tag not in TIMED_STREAM:
+                continue
+            print_rnn_plan(cell, "stream-kernels", H, B, ndir, "fwd")
+            call = lambda: kernel(xs, w, lo, hi, h0, cdt, emit)
+            eager = time_ms(call, calls=STREAM_CALLS)
+            one = time_ms(call)
+            rounds = rnn_graph_rounds(
+                f"stream-kernels {tag}", {tag: call},
+                {"forward (hx = h0)": library_stream(
+                    cell, dev, T, B, H, ndir, lens.long(), h0, cdt)})
             live = int((hi - lo).sum())       # live (row, step) pairs
             esz = xs.element_size()
-            one = time_ms(lambda: kernel(xs, w, lo, hi, h0, cdt, emit))
             t = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: kernel(xs, w, lo, hi, h0, cdt, emit),
-                           calls=STREAM_CALLS),
+                max_abs_err=err, ms=statistics.median(rounds[tag]),
                 plain_ms=time_ms(lambda: plain(xs, w, lo, hi, h0, cdt, emit),
                                  warmup=1, reps=3),
-                library_ms=library_stream(cell, dev, T, B, H, ndir,
-                                          lens.long(), h0, cdt),
+                library_ms=statistics.median(
+                    rounds["cuDNN forward (hx = h0)"]),
                 **bound(live * G * H * esz + w.numel() * esz
                         + nbytes(ys, carry, lo, hi, h0),
                         2 * live * H * G * H, "bf16"))
             out[tag] = t
-            print(f"[stream-kernels] {tag}: {t['ms']:.4f} ms a call over "
-                  f"{STREAM_CALLS} back to back ({one:.4f} ms for one call, "
-                  f"the wrapper's host time included), plain "
+            print(f"[stream-kernels] {tag} eager: {eager:.4f} ms a call over "
+                  f"{STREAM_CALLS} back to back, {one:.4f} ms for one call "
+                  f"(the wrapper's host time included)")
+            print(f"[stream-kernels] {tag}: {t['ms']:.4f} ms (graph), plain "
                   f"{t['plain_ms']:.4f} ms, cuDNN {cell.upper()} (hx = h0, "
-                  f"with input projection, {STREAM_CALLS} back to back) "
-                  f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
-                  f"({t['bound_by']})")
+                  f"with input projection, graph) {t['library_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.6f} ms ({t['bound_by']})")
+            a, _ = stream_intercept(tag, kernel, cell, ndir, B, H, emit, w,
+                                    h0, sweep_rng)
+            print(f"[stream-kernels] {tag}: the fixed cost is "
+                  f"{a / t['ms']:.3f} of the window's {t['ms']:.4f} ms")
 
     # gru_fwd's forward-only inference form at uni_gru's decode shape (one
     # chunk of 32 wavs of 10 s, the last one 8 s): T' = 251, ndir = 1

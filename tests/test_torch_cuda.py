@@ -388,24 +388,19 @@ _STREAM = {"gru": (3, gru_scan_stream_cuda, gru_scan_stream_plain,
                     lstm_scan_cuda, lstm_scan_plain, "LSTM_FWD_STREAM")}
 
 
-@pytest.mark.parametrize("ndir,T,B,H", [(1, 16, 5, 256), (2, 20, 3, 96),
-                                        (1, 9, 1, 384), (2, 1, 1, 32),
-                                        (1, 33, 2, 512)])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("cell", ["gru", "lstm"])
-def test_stream_kernels_match_plain(dev, cell, ndir, T, B, H, dtype, tol):
-    """The stream forms (h0-seeded, carry after emit_t steps) and the
-    ndir = 1 inference form against their plain versions: emit_t 0, mid
-    and T, ragged lengths (row 1 ends at step 1, before mid), nonzero h0;
-    (1, 9, 1, 384) is the R = 1 launch of one forward-only stream. bf16:
-    the reference's bar (tests/test_rnn_pallas.py:81)."""
-    G, stream_cuda, stream_plain, scan_cuda, scan_plain, kname = _STREAM[cell]
-    rng = np.random.default_rng(T * 1000 + H + B + ndir)
+def _stream_inputs(dev, cell, ndir, T, B, H, dtype, seed):
+    """One window: ragged lengths (row 0 runs all T steps, row 1 ends at
+    step 1, row 2 is empty), the backward rows' live steps at the right
+    edge; xs in the stream dtype; a nonzero h0 on every row → (xs, w, lo,
+    hi, h0)."""
+    G = _STREAM[cell][0]
+    rng = np.random.default_rng(seed)
     lens = rng.integers(0, T + 1, B).astype(np.float32)
     lens[0] = T
     if B > 1:
         lens[1] = min(T, 1)
+    if B > 2:
+        lens[2] = 0
     lens = torch.from_numpy(lens)
     lo, hi = torch.zeros(B), lens
     if ndir == 2:
@@ -420,6 +415,32 @@ def test_stream_kernels_match_plain(dev, cell, ndir, T, B, H, dtype, tol):
             torch.float32 if dtype == torch.float32 else torch.bfloat16)
     h0 = torch.from_numpy((0.5 * rng.standard_normal((R, C))).astype(
         np.float32)).to(dev)
+    return xs, w, lo, hi, h0
+
+
+@pytest.mark.parametrize("ndir,T,B,H", [(1, 16, 5, 256), (2, 20, 3, 96),
+                                        (1, 9, 1, 384), (2, 1, 1, 32),
+                                        (1, 33, 2, 512), (2, 20, 15, 384),
+                                        (1, 16, 16, 96), (2, 7, 17, 512),
+                                        (1, 5, 33, 32), (2, 20, 33, 384),
+                                        (1, 16, 17, 256)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_stream_kernels_match_plain(dev, cell, ndir, T, B, H, dtype, tol):
+    """The stream forms (h0-seeded, carry after emit_t steps) and the
+    ndir = 1 inference form against their plain versions: emit_t 0, mid
+    and T, ragged lengths (row 1 ends at step 1, before mid; row 2 is
+    empty), nonzero h0; (1, 9, 1, 384) is the R = 1 launch of one
+    forward-only stream. The bf16 forms run on the cluster kernels: B
+    around the 16-row group (1, 15, 16, 17, 33: padded rows of the m16
+    tile and more than one cluster a direction) and clusters of 1 to 16
+    blocks (H = 32 to 512). bf16: the reference's bar
+    (tests/test_rnn_pallas.py:81)."""
+    _, stream_cuda, stream_plain, scan_cuda, scan_plain, kname = \
+        _STREAM[cell]
+    xs, w, lo, hi, h0 = _stream_inputs(dev, cell, ndir, T, B, H, dtype,
+                                       T * 1000 + H + B + ndir)
     kernel = getattr(_kernels, kname)
     before = kernel.launches
     for emit_t in sorted({0, max(T // 2, 1), T}):
@@ -432,6 +453,59 @@ def test_stream_kernels_match_plain(dev, cell, ndir, T, B, H, dtype, tol):
     assert kernel.launches == before + len({0, max(T // 2, 1), T})
     got = scan_cuda(xs, w, lo, hi, dtype)
     assert float((got - scan_plain(xs, w, lo, hi, dtype)).abs().max()) <= tol
+
+
+# the streaming paths' two windows (chip_smoke.stream_cases): uni_gru's
+# forward-only GRU and bilstm_deep's BiLSTM, B = 32, emit_t = C/s
+_WINDOWS = {"gru": (1, 16, 32, 256, 16), "lstm": (2, 20, 32, 384, 16)}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_stream_bf16_kernels_are_repeatable(dev, cell, seed):
+    """The bf16 stream form three times on the same window: ys and carry
+    bitwise equal each time (partial sums in a fixed order, no atomics; a
+    missing cluster barrier would show as rare mismatches)."""
+    ndir, T, B, H, emit = _WINDOWS[cell]
+    stream_cuda = _STREAM[cell][1]
+    xs, w, lo, hi, h0 = _stream_inputs(dev, cell, ndir, T, B, H,
+                                       torch.bfloat16, 300 + seed)
+    first = stream_cuda(xs, w, lo, hi, h0, torch.bfloat16, emit)
+    for _ in range(2):
+        got = stream_cuda(xs, w, lo, hi, h0, torch.bfloat16, emit)
+        assert all(torch.equal(a, b) for a, b in zip(got, first))
+
+
+@pytest.mark.parametrize("ndir,T,B,H", [(1, 16, 32, 256), (2, 20, 32, 384),
+                                        (1, 9, 1, 96), (2, 5, 17, 512)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_stream_bf16_at_zero_h0_equals_the_scan(dev, cell, ndir, T, B, H):
+    """With h0 = 0 the bf16 stream form's ys equal the residual-free
+    cluster form's bit for bit: both share the product and the gate math,
+    and bf16(0) seeds the first product's A operand."""
+    _, stream_cuda, _, scan_cuda, _, _ = _STREAM[cell]
+    xs, w, lo, hi, h0 = _stream_inputs(dev, cell, ndir, T, B, H,
+                                       torch.bfloat16, 400 + T + H)
+    cdt = torch.bfloat16
+    ys, carry = stream_cuda(xs, w, lo, hi, torch.zeros_like(h0), cdt, T // 2)
+    assert torch.equal(ys, scan_cuda(xs, w, lo, hi, cdt))
+    assert torch.equal(carry[:, :H], ys[T // 2 - 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_stream_wrapper_counts_one_launch_a_call(dev, cell, dtype):
+    """Each stream call adds one to its kernel's launch count and nothing
+    to any other kernel's, whichever kernel (cluster or FMA) it takes."""
+    ndir, T, B, H, emit = _WINDOWS[cell]
+    stream_cuda, kname = _STREAM[cell][1], _STREAM[cell][5]
+    xs, w, lo, hi, h0 = _stream_inputs(dev, cell, ndir, T, B, H, dtype, 7)
+    for n in range(1, 4):
+        before = _kernels.launches()
+        stream_cuda(xs, w, lo, hi, h0, dtype, emit)
+        after = _kernels.launches()
+        assert {k: after[k] - before[k] for k in after if
+                after[k] != before[k]} == {kname.lower(): 1}, n
 
 
 @pytest.mark.parametrize("B,T,V,L", [(1, 1, 3, 1), (6, 40, 7, 9),

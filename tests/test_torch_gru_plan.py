@@ -1,6 +1,7 @@
 """The bf16 GRU cluster kernels' host side, on the CPU: the launch plan
 (``rnn_cuda.gru_plan``), the weight layouts the kernels index
-(``csrc/gru_fwd.cu``, ``csrc/gru_bwd.cu``, ``csrc/rnn_mma.cuh``), the
+(``csrc/gru_fwd.cu``, ``csrc/gru_bwd.cu``, ``csrc/rnn_mma.cuh``) and the
+stream form's launch arguments (``rnn_cuda.stream_launch_args``), the
 LSTM's plan left as it was by the plan's generalisation to a gate count,
 and the C entry points' parameters against the argument types the loader
 gives them (``_kernels``).
@@ -109,15 +110,39 @@ def test_fwd_weight_layout_matches_the_kernel_index(ndir, H):
     flat = wk.reshape(-1)
     assert torch.equal(flat, gru_fwd_tc_weights(w, C).reshape(-1))
     assert flat.dtype == torch.bfloat16 and flat.numel() == w.numel()
+    assert torch.equal(flat, _fwd_by_kernel_index(w, C))
+
+
+def _fwd_by_kernel_index(w, C: int) -> torch.Tensor:
+    """The forward's slices by a hand-written loop: W[d, k, g·H + 32c + u]
+    (bf16) at ((d·C + c)·96 + g·32 + u)·H + k."""
+    ndir, H = w.shape[:2]
     wb = w.to(torch.bfloat16)
-    want = torch.empty_like(flat)
+    want = torch.empty(w.numel(), dtype=torch.bfloat16)
     for d in range(ndir):
         for c in range(C):
             for g in range(3):
                 for u in range(UNITS):
                     base = ((d * C + c) * 3 * UNITS + g * UNITS + u) * H
                     want[base:base + H] = wb[d, :, g * H + c * UNITS + u]
-    assert torch.equal(flat, want)
+    return want
+
+
+@pytest.mark.parametrize("ndir,H", [(1, 256), (2, 96), (1, 32), (2, 512)])
+def test_stream_launch_args(ndir, H):
+    """The stream form's launch arguments: under fp32 the FMA kernel's W as
+    it is and C = 0; under bf16 the plan's C and the cluster forward's
+    slices, at the flat index the kernel reads (the stream form runs
+    gru_fwd_tc_kernel)."""
+    rng = np.random.default_rng(H + ndir + 5)
+    w = torch.from_numpy(rng.standard_normal((ndir, H, 3 * H)).astype(
+        np.float32))
+    wk, C = rnn_cuda.stream_launch_args("gru", w, 32, torch.float32)
+    assert C == 0 and torch.equal(wk, w) and wk.is_contiguous()
+    wk, C = rnn_cuda.stream_launch_args("gru", w, 32, torch.bfloat16)
+    assert C == H // UNITS == gru_plan(H, 32, ndir, "fwd").cluster
+    assert wk.dtype == torch.bfloat16
+    assert torch.equal(wk.reshape(-1), _fwd_by_kernel_index(w, C))
 
 
 @pytest.mark.parametrize("H", [32, 96, 256, 288])

@@ -1,6 +1,7 @@
 """The bf16 LSTM cluster kernels' host side, on the CPU: the launch plan
-(``rnn_cuda.lstm_plan``) and the weight layouts the kernels index
-(``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``, ``csrc/rnn_mma.cuh``).
+(``rnn_cuda.lstm_plan``), the weight layouts the kernels index
+(``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``, ``csrc/rnn_mma.cuh``) and the
+stream form's launch arguments (``rnn_cuda.stream_launch_args``).
 
 The kernels themselves need a card (``tests/test_torch_cuda.py``)."""
 
@@ -79,15 +80,41 @@ def test_fwd_weight_layout_matches_the_kernel_index(ndir, H):
     flat = wk.reshape(-1)
     assert torch.equal(flat, lstm_fwd_tc_weights(w, C).reshape(-1))
     assert flat.dtype == torch.bfloat16 and flat.numel() == w.numel()
+    assert torch.equal(flat, _fwd_by_kernel_index(w, C))
+
+
+def _fwd_by_kernel_index(w, C: int) -> torch.Tensor:
+    """The forward's slices by a hand-written loop: W[d, k, g·H + 32c + u]
+    (bf16) at ((d·C + c)·128 + g·32 + u)·H + k."""
+    ndir, H = w.shape[:2]
     wb = w.to(torch.bfloat16)
-    want = torch.empty_like(flat)
+    want = torch.empty(w.numel(), dtype=torch.bfloat16)
     for d in range(ndir):
         for c in range(C):
             for g in range(4):
                 for u in range(UNITS):
                     base = ((d * C + c) * 4 * UNITS + g * UNITS + u) * H
                     want[base:base + H] = wb[d, :, g * H + c * UNITS + u]
-    assert torch.equal(flat, want)
+    return want
+
+
+@pytest.mark.parametrize("ndir,H", [(2, 384), (1, 64), (2, 32), (1, 512)])
+def test_stream_launch_args(ndir, H):
+    """The stream form's launch arguments: under fp32 the FMA kernel's
+    k-quads (element [d, k4, col, kk] = W[d, 4·k4 + kk, col]) and C = 0;
+    under bf16 the plan's C and the cluster forward's slices, at the flat
+    index the kernel reads (the stream form runs lstm_fwd_tc_kernel)."""
+    rng = np.random.default_rng(H + ndir + 9)
+    w = torch.from_numpy(rng.standard_normal((ndir, H, 4 * H)).astype(
+        np.float32))
+    wq, C = rnn_cuda.stream_launch_args("lstm", w, 32, torch.float32)
+    assert C == 0 and wq.shape == (ndir, H // 4, 4 * H, 4)
+    assert torch.equal(wq, w.reshape(ndir, H // 4, 4, 4 * H).transpose(2, 3))
+    assert torch.equal(wq[ndir - 1, 3, 17], w[ndir - 1, 12:16, 17])
+    wk, C = rnn_cuda.stream_launch_args("lstm", w, 32, torch.bfloat16)
+    assert C == H // UNITS == lstm_plan(H, 32, ndir, "fwd").cluster
+    assert wk.dtype == torch.bfloat16
+    assert torch.equal(wk.reshape(-1), _fwd_by_kernel_index(w, C))
 
 
 @pytest.mark.parametrize("H", [32, 96, 384])

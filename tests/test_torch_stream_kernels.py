@@ -8,7 +8,8 @@ Both directions (ndir = 2) and forward-only (ndir = 1: the JAX side runs
 its forward-only layout, one weight matrix duplicated over two row halves),
 ``emit_t`` ∈ {0, 3, T}, ragged lengths with a row that ends before
 ``emit_t``, and a nonzero ``h0``. Bars: fp32 1e-4, bf16 3e-2 (the
-reference suite's bf16 bar, tests/test_rnn_pallas.py:81)."""
+reference suite's bf16 bar, tests/test_rnn_pallas.py:81). Also the stream
+wrappers' cache of laid-out weights."""
 
 import numpy as np
 import pytest
@@ -17,9 +18,11 @@ import torch
 import jax.numpy as jnp
 
 from chainer_speech_recognition_tpu.ops.rnn_pallas import birnn_pallas_stream
+from chainer_speech_recognition_tpu_torch.models.rnn import BiRNNLayer
+from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
     gru_scan_stream, gru_scan_stream_plain, lstm_scan_stream,
-    lstm_scan_stream_plain, stream_dtype)
+    lstm_scan_stream_plain, stream_dtype, stream_launch_args)
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -124,3 +127,47 @@ def test_stream_wrappers_take_plain_versions_on_cpu(cell):
         wrapper(xs, w, lo, hi, h0, torch.float32, T + 1)
     with pytest.raises(ValueError, match="unsupported device"):
         wrapper(xs.to("meta"), w, lo, hi, h0, torch.float32, 3)
+
+
+@pytest.mark.parametrize("cell,dtype", [("gru", torch.bfloat16),
+                                        ("lstm", torch.bfloat16),
+                                        ("lstm", torch.float32)])
+def test_stream_layout_cache(cell, dtype):
+    """The stream wrappers take W laid out from a cache kept per weight
+    tensor (``stream_launch_args``): a second call with the same tensor
+    returns the same layout; an in-place ``add_``, a reloaded state dict
+    (``copy_``) or another tensor with the same values misses and lays W
+    out anew; an inference tensor (no version) is laid out at each call.
+    (The fp32 GRU takes W as it is: ``test_torch_gru_plan.py``.)"""
+    layer = BiRNNLayer(8, 32, cell=cell, bidirectional=False)
+    with torch.no_grad():
+        layer.rec.normal_()
+    w = layer.rec
+    args = {"gru": rnn_cuda._gru_launch_args,
+            "lstm": rnn_cuda._lstm_launch_args}[cell]
+
+    def laid_out(t):
+        """The cached layout, checked against one laid out afresh."""
+        wk, C = stream_launch_args(cell, t, 3, dtype)
+        ref, C_ref = args(t.detach(), 3, dtype, "fwd")
+        assert C == C_ref == (1 if dtype == torch.bfloat16 else 0)
+        assert torch.equal(wk, ref) and wk is not t
+        return wk
+
+    first = laid_out(w)
+    assert laid_out(w) is first                     # a hit
+    with torch.no_grad():
+        w.add_(1.0)
+    second = laid_out(w)                            # in place: a miss
+    assert not torch.equal(second, first)
+    assert laid_out(w) is second
+    layer.load_state_dict({k: v + 1.0 for k, v in
+                           layer.state_dict().items()})
+    third = laid_out(w)                             # reloaded: a miss
+    assert not torch.equal(third, second)
+    other = w.detach().clone()
+    assert laid_out(other) is not third             # another tensor
+    assert laid_out(other) is laid_out(other)
+    with torch.inference_mode():
+        inf = w.detach().clone()
+    assert laid_out(inf) is not laid_out(inf)       # no version: no cache

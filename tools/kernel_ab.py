@@ -2,7 +2,7 @@
 one card, on the same inputs, by two yardsticks:
 
     python3 tools/kernel_ab.py OTHER_ROOT [--rounds 9] [--seed 0]
-                               [--cases frontend,flash,lstm,gru]
+                               [--cases frontend,flash,lstm,gru,stream]
 
 OTHER_ROOT is the root of another checkout of the repo (for example an
 older commit unpacked by ``git archive`` into a git-ignored directory).
@@ -27,18 +27,23 @@ Kernels and shapes (those of ``chip_smoke.py``):
 * the bf16 LSTM, H = 384 (``chip_smoke.lstm_cases``): row 6's
   residual-free form at B = 32, T' = 251 beside cuDNN's forward; row 6's
   training form and row 7 at B = 24, T' = 256 beside cuDNN's training
-  forward and backward; and the forms the cluster redesign keeps (fp32
-  forward, training forward and backward; the stream form in fp32 and
-  bf16), which must be bitwise equal across the builds;
+  forward and backward; and the forms the FMA kernels keep (fp32
+  forward, training forward and backward; the stream form in fp32),
+  which must be bitwise equal across the builds;
 * the bf16 GRU, H = 256 (``chip_smoke.gru_cases``): row 3's
   residual-free form at B = 32, T' = 251 for bigru (ndir 2) and uni_gru
   (ndir 1) beside cuDNN's forward; row 4's training form and row 5 at
   B = 24, T' = 256 beside cuDNN's training forward and backward; the
   forms kept on the FMA kernels (fp32 forward, training forward and
-  backward; the stream form in fp32 and bf16) bitwise equal across the
-  builds, as the LSTM's.
+  backward; the stream form in fp32) bitwise equal across the builds, as
+  the LSTM's;
+* the bf16 stream forms (row 8) at the streaming paths' two windows
+  (``chip_smoke.stream_cases``: uni_gru's forward-only GRU, H = 256,
+  T = 16; bilstm_deep's BiLSTM, H = 384, T = 20; B = 32, emit_t = C/s,
+  ragged lengths and a nonzero h0) beside cuDNN over the same window
+  with hx = h0; the fp32 stream form bitwise equal across the builds.
 
-``--cases`` takes a subset of ``frontend,flash,lstm,gru``.
+``--cases`` takes a subset of ``frontend,flash,lstm,gru,stream``.
 
 Each is timed in alternating rounds, both builds and the library call in
 each round:
@@ -82,7 +87,7 @@ PKG = "chainer_speech_recognition_tpu_torch"
 SOURCES = ("frontend_logmel.cu", "attention_fwd.cu", "attention_bwd.cu",
            "lstm_fwd.cu", "lstm_bwd.cu", "gru_fwd.cu", "gru_bwd.cu",
            "library.cu")
-CASES = ("frontend", "flash", "lstm", "gru")
+CASES = ("frontend", "flash", "lstm", "gru", "stream")
 
 
 def build_alone(root: str, tag: str) -> str:
@@ -316,8 +321,7 @@ def lstm_case(dev, rng, other, rounds, tag, B, T, lens, train: bool):
     in bf16 at bilstm_deep's width: both builds held to the plain versions
     at 3e-2 (forward) and 5e-2 (gradient), then timed with cuDNN's LSTM in
     the same rounds; under fp32 the two builds' forward forms, backward and
-    stream form (fp32 and bf16), which this redesign keeps, must agree bit
-    for bit."""
+    stream form, which the FMA kernels keep, must agree bit for bit."""
     import torch
 
     from chainer_speech_recognition_tpu_torch.config import preset_config
@@ -357,25 +361,20 @@ def lstm_case(dev, rng, other, rounds, tag, B, T, lens, train: bool):
         cs.check(all(e <= (cs.TOL["gru_grad_bf16"] if n == "dxs" else
                            cs.TOL["gru_bf16"]) for n, e in err.items()),
                  f"{tag} {b}: breaks the bf16 bar")
-    # the forms this redesign keeps: bitwise those of the other build
+    # the forms the FMA kernels keep: bitwise those of the other build
     kept = {}
+    f32 = torch.float32
     for b, m in mods.items():
-        out = []
-        for dt in (torch.float32, cdt):
-            x = xs32.to(dt)
-            if dt == torch.float32:
-                out.append(m.lstm_scan_cuda(x, w, lo, hi, dt))
-                ys, c, gates = m.lstm_scan_train_cuda(x, w, lo, hi, dt)
-                out += [ys, c, gates, m.lstm_bwd_cuda(gates, w, lo, hi, c,
-                                                      g, dt)]
-            out += list(m.lstm_scan_stream_cuda(x, w, lo, hi, h0, dt,
-                                                T // 2))
-        kept[b] = out
+        ys, c, gates = m.lstm_scan_train_cuda(xs32, w, lo, hi, f32)
+        kept[b] = [m.lstm_scan_cuda(xs32, w, lo, hi, f32), ys, c, gates,
+                   m.lstm_bwd_cuda(gates, w, lo, hi, c, g, f32),
+                   *m.lstm_scan_stream_cuda(xs32, w, lo, hi, h0, f32,
+                                            T // 2)]
     torch.cuda.synchronize()
     res["kept forms bitwise equal"] = cs.same_bits(kept["this"],
                                                    kept["other"])
     print(f"[ab] {tag}: fp32 forward, training forward and backward and "
-          f"the stream form (fp32, bf16) bitwise equal across the builds: "
+          f"the fp32 stream form bitwise equal across the builds: "
           f"{res['kept forms bitwise equal']}")
     cs.check(res["kept forms bitwise equal"],
              f"{tag}: a kept form differs from the other build's")
@@ -418,8 +417,8 @@ def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
     width: both builds held to the plain versions at 3e-2 (forward) and
     5e-2 (gradients), then timed with cuDNN's GRU in the same rounds; the
     forms the FMA kernels keep (fp32 forward, training forward and
-    backward; the stream form in fp32 and bf16) must agree bit for bit
-    across the builds."""
+    backward; the stream form in fp32) must agree bit for bit across the
+    builds."""
     import torch
 
     from chainer_speech_recognition_tpu_torch.config import preset_config
@@ -467,25 +466,22 @@ def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
                  f"{tag} {b}: breaks the bf16 bar")
     # the forms the FMA kernels keep: bitwise those of the other build
     kept = {}
+    f32 = torch.float32
     for b, m in mods.items():
-        out = []
-        for dt in (torch.float32, cdt):
-            x = xs32.to(dt)
-            if dt == torch.float32:
-                out.append(m.gru_scan_cuda(x, w, lo, hi, dt))
-                if ndir == 2:
-                    ys, gates = m.gru_scan_train_cuda(x, w, lo, hi, dt)
-                    out += [ys, gates, *m.gru_bwd_cuda(
-                        gates, w, lo, hi, rc.shift_prev(ys), g, dt)]
-            out += list(m.gru_scan_stream_cuda(x, w, lo, hi, h0, dt, T // 2))
-        kept[b] = out
+        out = [m.gru_scan_cuda(xs32, w, lo, hi, f32)]
+        if ndir == 2:
+            ys, gates = m.gru_scan_train_cuda(xs32, w, lo, hi, f32)
+            out += [ys, gates, *m.gru_bwd_cuda(gates, w, lo, hi,
+                                               rc.shift_prev(ys), g, f32)]
+        kept[b] = out + list(m.gru_scan_stream_cuda(xs32, w, lo, hi, h0, f32,
+                                                    T // 2))
     torch.cuda.synchronize()
     res["kept forms bitwise equal"] = cs.same_bits(kept["this"],
                                                    kept["other"])
     print(f"[ab] {tag}: fp32 forward"
           + (", training forward and backward" if ndir == 2 else "")
-          + " and the stream form (fp32, bf16) bitwise equal across the "
-          f"builds: {res['kept forms bitwise equal']}")
+          + " and the fp32 stream form bitwise equal across the builds: "
+          f"{res['kept forms bitwise equal']}")
     cs.check(res["kept forms bitwise equal"],
              f"{tag}: a kept form differs from the other build's")
 
@@ -516,6 +512,60 @@ def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
             t["cudnn bwd"] = [a - b for a, b in zip(t["cudnn fwd+bwd"],
                                                     t["cudnn train fwd"])]
     res.update(report(f"{tag} B={B} T'={T} H={H}", times, pairs))
+    return res
+
+
+def stream_case(dev, rng, other, rounds, tag, cell, ndir, B, T, emit, H):
+    """Row 8 at one streaming window (``chip_smoke.stream_cases``): both
+    builds' bf16 stream forms held to the plain version at 3e-2 (ys and
+    carry, emit_t = C/s) and the fp32 stream form bitwise equal across the
+    builds (emit_t 0, C/s and T), then the bf16 form timed with cuDNN over
+    the same window, hx = h0 (``chip_smoke.library_stream``), in the same
+    rounds."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.ops import rnn_cuda as rc
+
+    orc = importlib.import_module(f"{other.__name__}.ops.rnn_cuda")
+    fn = f"{cell}_scan_stream"
+    lens, lo, hi, w, xs32, h0 = cs.stream_inputs(rng, dev, cell, ndir, B, T,
+                                                  emit, H)
+    cdt = torch.bfloat16
+    xs = xs32.to(cdt)
+    mods = {"this": rc, "other": orc}
+    res = {"tag": tag, "B": B, "T": T, "H": H, "ndir": ndir, "emit_t": emit}
+    ys_p, carry_p = getattr(rc, f"{fn}_plain")(xs, w, lo, hi, h0, cdt, emit)
+    kept = {}
+    for b, m in mods.items():
+        ys, carry = getattr(m, f"{fn}_cuda")(xs, w, lo, hi, h0, cdt, emit)
+        kept[b] = [getattr(m, f"{fn}_cuda")(xs32, w, lo, hi, h0,
+                                            torch.float32, e)
+                   for e in (0, emit, T)]
+        torch.cuda.synchronize()
+        err = {"ys": float((ys - ys_p).abs().max()),
+               "carry": float((carry - carry_p).abs().max())}
+        res[f"{b} max abs"] = err
+        print(f"[ab] {tag} {b}: max abs vs plain " + ", ".join(
+            f"{n} {e:.3e}" for n, e in err.items()))
+        cs.check(max(err.values()) <= cs.TOL["gru_bf16"],
+                 f"{tag} {b}: breaks the bf16 bar")
+    res["kept forms bitwise equal"] = cs.same_bits(kept["this"],
+                                                   kept["other"])
+    print(f"[ab] {tag}: the fp32 stream form (emit_t 0, {emit}, {T}) "
+          f"bitwise equal across the builds: "
+          f"{res['kept forms bitwise equal']}")
+    cs.check(res["kept forms bitwise equal"],
+             f"{tag}: the fp32 stream form differs from the other build's")
+    fns = {f"{b} stream": (lambda m=m: getattr(m, f"{fn}_cuda")(
+               xs, w, lo, hi, h0, cdt, emit)) for b, m in mods.items()}
+    fns["cudnn stream"] = cs.library_stream(cell, dev, T, B, H, ndir,
+                                            lens.long(), h0, cdt)
+    replays = {n: cs.graph_of(f, mode="relaxed")[0] for n, f in fns.items()}
+    res.update(report(f"{tag} B={B} T={T} H={H} ndir={ndir}",
+                      timed(fns, rounds, replays),
+                      [("other stream", "this stream"),
+                       ("this stream", "cudnn stream"),
+                       ("other stream", "cudnn stream")]))
     return res
 
 
@@ -550,6 +600,9 @@ def main() -> int:
         if "gru" in cases:
             out += [gru_case(dev, rng, other, a.rounds, *c)
                     for c in cs.gru_cases(rng)]
+        if "stream" in cases:
+            out += [stream_case(dev, rng, other, a.rounds, *c)
+                    for c in cs.stream_cases() if c[0] in cs.TIMED_STREAM]
     except cs.SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
