@@ -61,10 +61,10 @@ FRONTEND_LOGMEL = Kernel("csr_frontend_logmel",
                          [_P, _I, _I, _I, _P, _P, _I, _P, _P])
 GREEDY = Kernel("csr_greedy",
                 [_P, _P, _I, _I, _I, _P, _P, _P])
-CTC_FWD = Kernel("csr_ctc_fwd",
-                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
-CTC_BWD = Kernel("csr_ctc_bwd",
-                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+# the CTC recursions': (..., B, T, S, states, warps, stream), the launch
+# shape from ops/ctc_cuda.ctc_plan
+CTC_FWD = Kernel("csr_ctc_fwd", [_P] * 6 + [_I] * 5 + [_P])
+CTC_BWD = Kernel("csr_ctc_bwd", [_P] * 8 + [_I] * 5 + [_P])
 # the recurrences' (..., T, B, H[, ndir], C, bf16, stream): C is the bf16
 # cluster kernels' blocks a cluster (ops/rnn_cuda.lstm_plan, gru_plan),
 # unread under fp32

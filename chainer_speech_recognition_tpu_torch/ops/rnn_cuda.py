@@ -81,8 +81,10 @@ ROUTED = {"kernel": 0, "scan": 0}
 
 
 def kernel_takes(H: int) -> bool:
-    """The hidden sizes the kernels take (one thread per unit): 32 ≤ H ≤
-    512 with H % 32 == 0."""
+    """The hidden sizes the kernels take: 32 ≤ H ≤ 512 with H % 32 == 0
+    (the fp32 FMA kernels run one thread per unit; the bf16 cluster kernels
+    C = H / 32 ≤ 16 blocks, each with its slice of W in the 227 KB of
+    shared memory a block may take)."""
     return H % 32 == 0 and 32 <= H <= 512
 
 
@@ -296,8 +298,10 @@ def _check_sizes(T: int, R: int, H: int, compute_dtype,
                          f"positive multiple of ndir (got T={T}, R={R}, "
                          f"ndir={ndir})")
     if not kernel_takes(H):
-        raise ValueError(f"{cell} kernel: hidden size {H} unsupported (one "
-                         "thread per unit: 32 <= H <= 512, H % 32 == 0)")
+        raise ValueError(f"{cell} kernel: hidden size {H} unsupported "
+                         "(32 <= H <= 512, H % 32 == 0: one thread per unit "
+                         "in fp32; in bf16 a cluster of H / 32 <= 16 blocks, "
+                         "each with its slice of W in shared memory)")
     return stream_dtype(compute_dtype)
 
 

@@ -132,8 +132,8 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
     if data_mode != "stream":
         raise NotImplementedError(
             f"train.data_mode resolved to {data_mode!r}: the device-resident "
-            "corpus cache is not ported yet (ROADMAP.md §1 item 8); pass "
-            "--set train.data_mode=stream")
+            "corpus cache is not ported yet (ROADMAP.md, module queue: "
+            "GPU-resident corpus cache); pass --set train.data_mode=stream")
     if loader is None:
         loader = BatchLoader(train_utts, vocab, cfg.buckets,
                              use_cached_features=cfg.features.use_cache)

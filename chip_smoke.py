@@ -37,7 +37,12 @@ no result line) if any phase fails:
    path's shapes (24 utterances of 9-10 s in the 1024-frame bucket), timed
    as in phase 3: the GRU pair's plans printed and both timed beside
    cuDNN's training forward and backward (its forward+backward less its
-   training forward) in alternating rounds of graph replays;
+   training forward) in alternating rounds of graph replays; the CTC pair's
+   launch plans (``ctc_plan``) printed, whether they equal the plain
+   recursions bit for bit, and both timed as graph replays beside
+   F.ctc_loss's forward and backward (eager: its lengths pass through the
+   host) in alternating rounds (``ctc_rounds``), with the eager figures
+   and the microseconds a step;
 8. train: a synthetic corpus (192 + 24 utterances of 9-10 s) through the
    port's train CLI on the card, 16 steps with dev eval and checkpoints
    every 8; every training kernel must show launches from that run; the
@@ -762,14 +767,13 @@ def phase_train_kernels(dev, rng) -> dict:
     path's shapes: 24 utterances of 9-10 s padded to the 1024-frame
     bucket (T' = 256, S = 2·128 + 1)."""
     import torch
-    import torch.nn.functional as F
 
     from chainer_speech_recognition_tpu_torch import constants as C
     from chainer_speech_recognition_tpu_torch.config import preset_config
     from chainer_speech_recognition_tpu_torch.models.conv import (
         conv_out_length)
     from chainer_speech_recognition_tpu_torch.ops.ctc import (
-        LOG_ZERO, ctc_alpha_plain, ctc_beta_grad_plain, ctc_inputs)
+        ctc_alpha_plain, ctc_beta_grad_plain)
     from chainer_speech_recognition_tpu_torch.ops.ctc_cuda import (
         ctc_bwd_cuda, ctc_fwd_cuda)
     from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
@@ -854,94 +858,82 @@ def phase_train_kernels(dev, rng) -> dict:
                 + nbytes(dxs, dhn, lo, hi), 2 * live * 3 * H * H, "bf16"))
 
     # CTC alpha and beta: 90-100 labels an utterance (10 symbols a second)
-    lab_len = np.minimum((samples / C.SAMPLE_RATE * 10).astype(np.int64), L)
-    labels = np.full((B, L), -1, np.int64)
-    for i, n in enumerate(lab_len):
-        labels[i, :n] = rng.integers(1, V, n)
-    labels[0, 1] = labels[0, 0]                       # a repeat
-    logits = torch.from_numpy(
-        2 * rng.standard_normal((B, T, V)).astype(np.float32)).to(dev)
-    lp_ext, allow2, t_len, lab_len_t = ctc_inputs(
-        logits, flen.to(dev), torch.from_numpy(labels).to(dev),
-        torch.from_numpy(lab_len).to(dev))
+    logits, labels, lab_len = ctc_draws(rng, samples / C.SAMPLE_RATE, T, L,
+                                        V)
+    (lp_ext, allow2, t_len, lab_len_t), lib = ctc_setup(dev, logits, flen,
+                                                        labels, lab_len)
     alphas, loss = ctc_fwd_cuda(lp_ext, allow2, t_len, lab_len_t)
     alphas_p, loss_p = ctc_alpha_plain(lp_ext, allow2, t_len, lab_len_t)
     torch.cuda.synchronize()
-    rel = float(((loss - loss_p).abs() / loss_p.abs()).max())
-    # both outputs over all of [B, T', S]: the LOG_ZERO states and frozen
-    # rows exactly, the live alphas at the loss's rtol (the loss is their
-    # logsumexp) plus 1e-4
-    sent = alphas_p <= LOG_ZERO / 2
-    sent_ok = bool(torch.equal(alphas <= LOG_ZERO / 2, sent)
-                   and torch.equal(alphas[sent], alphas_p[sent]))
-    adiff = (alphas - alphas_p).abs()[~sent]
-    aerr = float(adiff.max())
-    alpha_ok = bool((adiff <= TOL["ctc_alpha_atol"] + TOL["ctc_loss_rtol"]
-                     * alphas_p[~sent].abs()).all())
+    a = ctc_alpha_check(alphas, loss, alphas_p, loss_p)
     print(f"[train-kernels] ctc_fwd lp_ext {tuple(lp_ext.shape)}: loss max "
-          f"rel {rel:.3e} (rtol {TOL['ctc_loss_rtol']}), loss "
+          f"rel {a['rel']:.3e} (rtol {TOL['ctc_loss_rtol']}), loss "
           f"{float(loss.min()):.2f}..{float(loss.max()):.2f}; alphas max abs "
-          f"{aerr:.3e} over {adiff.numel()} live states (atol "
+          f"{a['aerr']:.3e} over {a['live']} live states (atol "
           f"{TOL['ctc_alpha_atol']} + rtol {TOL['ctc_loss_rtol']}), "
-          f"{int(sent.sum())} LOG_ZERO states equal: {sent_ok}")
+          f"{a['sent']} LOG_ZERO states equal: {a['sent_ok']}; alphas and "
+          f"loss bitwise the plain recursion's: "
+          f"{same_bits((alphas, loss), (alphas_p, loss_p))}")
     check(bool(torch.isfinite(loss).all()), "ctc_fwd: non-finite loss")
-    check(rel <= TOL["ctc_loss_rtol"], "ctc_fwd loss disagrees")
-    check(sent_ok and alpha_ok, "ctc_fwd alphas disagree")
+    check(a["rel"] <= TOL["ctc_loss_rtol"], "ctc_fwd loss disagrees")
+    check(a["sent_ok"] and a["alpha_ok"], "ctc_fwd alphas disagree")
     gl = torch.from_numpy(rng.uniform(0.5, 2.0, B).astype(np.float32)).to(dev)
     grad_p = ctc_beta_grad_plain(lp_ext, allow2, t_len, lab_len_t, alphas_p,
                                  loss_p, gl)
     cerr = 0.0
     # once on the plain alphas (the kernel alone), once on the forward
     # kernel's own (the training path)
-    for a, l in ((alphas_p, loss_p), (alphas, loss)):
-        grad = ctc_bwd_cuda(lp_ext, allow2, t_len, lab_len_t, a, l, gl)
+    for al, l in ((alphas_p, loss_p), (alphas, loss)):
+        grad = ctc_bwd_cuda(lp_ext, allow2, t_len, lab_len_t, al, l, gl)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(grad).all()), "ctc_bwd: non-finite")
         cerr = max(cerr, float((grad - grad_p).abs().max()))
+        if al is alphas_p:
+            grad_bits = same_bits(grad, grad_p)
     print(f"[train-kernels] ctc_bwd: grad max abs {cerr:.3e} "
-          f"(tol {TOL['ctc_grad']}; on the plain and the kernel's alphas)")
+          f"(tol {TOL['ctc_grad']}; on the plain and the kernel's alphas); "
+          f"bitwise the plain recursion's on the plain alphas: {grad_bits}")
     check(cerr <= TOL["ctc_grad"], "ctc_bwd disagrees")
+    # both kernels as graph replays and F.ctc_loss (eager) in alternating
+    # rounds; the eager kernel figures (host time in them) beside
+    bwd_args = (lp_ext, allow2, t_len, lab_len_t, alphas_p, loss_p, gl)
+    kernels = {"ctc_fwd": lambda: ctc_fwd_cuda(lp_ext, allow2, t_len,
+                                               lab_len_t),
+               "ctc_bwd": lambda: ctc_bwd_cuda(*bwd_args)}
+    rounds = ctc_rounds("train-kernels", kernels, lib)
+    med = {n: statistics.median(r) for n, r in rounds.items()}
+    eager = {n: time_ms(fn) for n, fn in kernels.items()}
+    print(f"[train-kernels] ctc: {len(rounds['ctc_fwd'])} alternating rounds"
+          f" (medians): " + ", ".join(f"{n} {m:.4f} ms" for n, m in
+                                      med.items())
+          + f"; a step (ms / T' = {T}): " + ", ".join(
+              f"{n} {med[n] / T * 1e3:.4f} us" for n in kernels)
+          + "; eager, one call (host time in it): " + ", ".join(
+              f"{n} {m:.4f} ms" for n, m in eager.items()))
+    print_ctc_plan("train-kernels", lp_ext.shape[2])
     # the recursions need lp (and alphas) at live frames and valid states
     S = lp_ext.shape[2]
     need = int((t_len.long() * (2 * lab_len_t.long() + 1)).sum()) * 4
     cells = need // 4
     out["ctc_fwd"] = dict(
-        max_abs_err=max(aerr, float((loss - loss_p).abs().max())),
-        ms=time_ms(lambda: ctc_fwd_cuda(lp_ext, allow2, t_len, lab_len_t)),
+        max_abs_err=max(a["aerr"], float((loss - loss_p).abs().max())),
+        ms=med["ctc_fwd"],
         plain_ms=time_ms(lambda: ctc_alpha_plain(lp_ext, allow2, t_len,
                                                  lab_len_t), warmup=1,
                          reps=3),
+        library_ms=med["F.ctc_loss forward"],
         **bound(need + nbytes(allow2, t_len, lab_len_t, alphas, loss),
                 12 * cells, "fp32"))
     out["ctc_bwd"] = dict(
-        max_abs_err=cerr,
-        ms=time_ms(lambda: ctc_bwd_cuda(lp_ext, allow2, t_len, lab_len_t,
-                                        alphas_p, loss_p, gl)),
-        plain_ms=time_ms(lambda: ctc_beta_grad_plain(
-            lp_ext, allow2, t_len, lab_len_t, alphas_p, loss_p, gl),
-            warmup=1, reps=3),
+        max_abs_err=cerr, ms=med["ctc_bwd"],
+        plain_ms=time_ms(lambda: ctc_beta_grad_plain(*bwd_args), warmup=1,
+                         reps=3),
+        library_ms=med["F.ctc_loss backward"],
         **bound(2 * need + nbytes(allow2, t_len, lab_len_t, loss, gl, grad),
                 16 * cells, "fp32"))
-    # yardstick: PyTorch's CTC (blank 0) on the same log-probabilities
-    lpt = torch.log_softmax(logits, -1).transpose(0, 1).detach()
-    lpt.requires_grad_()
-    tg = torch.from_numpy(np.maximum(labels, 0)).to(dev)
-    il, tl = flen.to(dev), torch.from_numpy(lab_len).to(dev)
-
-    def lib_fwd():
-        F.ctc_loss(lpt, tg, il, tl, blank=0, reduction="none")
-
-    def lib_fwd_bwd():
-        F.ctc_loss(lpt, tg, il, tl, blank=0, reduction="none").sum() \
-            .backward()
-
-    out["ctc_fwd"]["library_ms"] = time_ms(lib_fwd)
-    out["ctc_bwd"]["library_ms"] = time_ms(lib_fwd_bwd) - out["ctc_fwd"][
-        "library_ms"]
     for name in ("gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd"):
         t = out[name]
-        print(f"[train-kernels] {name}: {t['ms']:.4f} ms"
-              f"{' (graph)' if name.startswith('gru') else ''}, plain "
+        print(f"[train-kernels] {name}: {t['ms']:.4f} ms (graph), plain "
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
               f"bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
     print(f"[train-kernels] S = {S}, T' = {T}, B = {B}")
@@ -2058,6 +2050,133 @@ def gru_cases(rng) -> list:
         rng.uniform(*TRAIN_SECONDS, TRAIN_B) * C.SAMPLE_RATE, TRAIN_FRAMES,
         preset_config(PRESET).model.conv_stride_time)
     return out + [("rows 4-5 train", TRAIN_B, T_tr, tr_len, True, 2)]
+
+
+CTC_RATE = 10           # labels a second of the CTC checks' utterances
+LONG_LABELS = 300       # label width of the long-form CTC case: S = 601
+
+
+def ctc_cases(rng) -> list:
+    """The CTC kernels' shapes in ``tools/kernel_ab.py``, (tag, seconds
+    [B], T', lengths [B] int64 CPU, label width L): phase 7's 24 training
+    utterances of 9-10 s in the 1024-frame bucket (T' = 256, S = 2·128 +
+    1), and 24 long-form ones of 22-28 s (the last 28 s: T' = 701, S =
+    2·300 + 1), bigru's subsampling."""
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    cfg = preset_config(PRESET)
+    strides = cfg.model.conv_stride_time
+    tr = rng.uniform(*TRAIN_SECONDS, TRAIN_B)
+    tr_len, T_tr = subsampled(tr * C.SAMPLE_RATE, TRAIN_FRAMES, strides)
+    lo = rng.uniform(*LONG_SECONDS, TRAIN_B)
+    lo[-1] = LONG_SECONDS[1]
+    n = int(LONG_SECONDS[1] * C.SAMPLE_RATE)
+    lo_len, T_lo = subsampled(lo * C.SAMPLE_RATE, C.num_frames(n), strides)
+    return [("rows 9-10 train", tr, T_tr, tr_len,
+             cfg.buckets.max_label_len),
+            ("rows 9-10 long-form", lo, T_lo, lo_len, LONG_LABELS)]
+
+
+def ctc_draws(rng, seconds, T: int, L: int, V: int) -> tuple:
+    """Labels and logits of utterances of ``seconds``: CTC_RATE labels a
+    second, at most L (padded with -1; the first utterance's second label
+    repeats its first), logits 2·N(0, 1) [B, T, V] → (logits, labels,
+    lab_len) as numpy arrays."""
+    B = len(seconds)
+    lab_len = np.minimum((seconds * CTC_RATE).astype(np.int64), L)
+    labels = np.full((B, L), -1, np.int64)
+    for i, n in enumerate(lab_len):
+        labels[i, :n] = rng.integers(1, V, n)
+    labels[0, 1] = labels[0, 0]                       # a repeat
+    logits = 2 * rng.standard_normal((B, T, V)).astype(np.float32)
+    return logits, labels, lab_len
+
+
+def ctc_setup(dev, logits, flen, labels, lab_len) -> tuple:
+    """(the kernels' inputs (lp_ext, allow2, t_len, lab_len) on the card,
+    {"forward", "forward+backward"}: F.ctc_loss (blank 0) on the same
+    log-probabilities, its lengths on the host as it takes them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from chainer_speech_recognition_tpu_torch.ops.ctc import ctc_inputs
+
+    lg = torch.from_numpy(logits).to(dev)
+    args = ctc_inputs(lg, flen.to(dev), torch.from_numpy(labels).to(dev),
+                      torch.from_numpy(lab_len).to(dev))
+    lpt = torch.log_softmax(lg, -1).transpose(0, 1).detach()
+    lpt.requires_grad_()
+    tg = torch.from_numpy(np.maximum(labels, 0)).to(dev)
+    il, tl = flen.clone(), torch.from_numpy(lab_len)
+
+    def fwd():
+        return F.ctc_loss(lpt, tg, il, tl, blank=0, reduction="none")
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd().sum(), lpt)
+
+    return args, {"forward": fwd, "forward+backward": fwd_bwd}
+
+
+def ctc_alpha_check(alphas, loss, alphas_p, loss_p) -> dict:
+    """The forward against the plain recursion over all of [B, T', S]: the
+    LOG_ZERO states and frozen rows exactly, the live alphas at the loss's
+    rtol (the loss is their logsumexp) plus ``ctc_alpha_atol``, the loss
+    at ``ctc_loss_rtol``."""
+    from chainer_speech_recognition_tpu_torch.ops.ctc import LOG_ZERO
+
+    sent = alphas_p <= LOG_ZERO / 2
+    sent_ok = bool((alphas <= LOG_ZERO / 2).equal(sent)
+                   and alphas[sent].equal(alphas_p[sent]))
+    adiff = (alphas - alphas_p).abs()[~sent]
+    return {"rel": float(((loss - loss_p).abs() / loss_p.abs()).max()),
+            "aerr": float(adiff.max()), "live": adiff.numel(),
+            "sent": int(sent.sum()), "sent_ok": sent_ok,
+            "alpha_ok": bool((adiff <= TOL["ctc_alpha_atol"]
+                              + TOL["ctc_loss_rtol"]
+                              * alphas_p[~sent].abs()).all())}
+
+
+def ctc_library_replay(fn):
+    """F.ctc_loss's call ``fn`` GRAPH_CALLS times back to back: its lengths
+    pass through the host, so no CUDA graph holds it; ``alternating_ms``
+    times it eagerly beside the kernels' replays."""
+    def replay():
+        for _ in range(GRAPH_CALLS):
+            fn()
+    return replay
+
+
+def ctc_rounds(tag: str, kernels: dict, library: dict) -> dict:
+    """The CTC kernels (name → call) as CUDA-graph replays, each equal to
+    its eager output bit for bit, and F.ctc_loss's calls (``ctc_setup``)
+    eagerly, in alternating rounds → {name: [ms a round]}, with
+    "F.ctc_loss backward" as its forward+backward less its forward."""
+    graphs = {n: graph_of(fn, mode="relaxed") for n, fn in kernels.items()}
+    replays = {n: g[0] for n, g in graphs.items()}
+    replays.update({f"F.ctc_loss {n}": ctc_library_replay(f)
+                    for n, f in library.items()})
+    rounds = alternating_ms(replays)
+    for n, fn in kernels.items():
+        check(same_bits(graphs[n][1], fn()),
+              f"{tag}: the {n} replay differs from its eager output")
+    rounds["F.ctc_loss backward"] = [
+        a - b for a, b in zip(rounds["F.ctc_loss forward+backward"],
+                              rounds["F.ctc_loss forward"])]
+    return rounds
+
+
+def print_ctc_plan(tag: str, S: int) -> None:
+    """The CTC kernels' launch shape at S extended states."""
+    from chainer_speech_recognition_tpu_torch.ops.ctc_cuda import ctc_plan
+
+    for form in ("fwd", "bwd"):
+        p = ctc_plan(S, form)
+        print(f"[{tag}] ctc_{form} plan at S = {S}: "
+              + (f"{p.states} states a thread, {p.warps} warps an utterance"
+                 if p.states else f"wide, {p.warps * 32} threads")
+              + f", {p.smem} bytes of shared memory a block")
 
 
 def attention_cases(rng) -> list:

@@ -508,23 +508,26 @@ def test_stream_wrapper_counts_one_launch_a_call(dev, cell, dtype):
                 after[k] != before[k]} == {kname.lower(): 1}, n
 
 
-@pytest.mark.parametrize("B,T,V,L", [(1, 1, 3, 1), (6, 40, 7, 9),
-                                     (4, 70, 30, 300)])
-def test_ctc_kernels_match_plain(dev, B, T, V, L):
-    """Loss, alphas and d lp_ext against the plain α/β recursions: ragged
-    time and label lengths, label length 0, repeated labels, an impossible
-    sample and a length above T; S = 601 takes more states than threads.
-    Bars: loss rtol 1e-5, gradient atol 2e-4, fp32
-    (tests/test_ctc_pallas.py:35-42); alphas at the loss's rtol plus 1e-4,
-    their LOG_ZERO states exactly. The backward runs on the plain alphas
-    and on the forward kernel's own, as training does."""
-    rng = np.random.default_rng(B * 100 + T)
+def _ctc_case(dev, B, T, V, L, S, tl_mode):
+    """CTC inputs on the card: ragged (or all-1, or all-T) time lengths,
+    label lengths from 0 to L (0 beside a full label), repeated labels, an
+    impossible sample and a length above T (ragged, B > 3); with S given,
+    the extended states cut to S (even S too) and lab_len to fit them.
+    The seed and the ragged draws are those the test took before its
+    length modes, so its first three cases keep their data."""
+    seed = B * 100 + T + 1000 * (S or 0) + 7 * ("ragged", "one",
+                                                 "full").index(tl_mode)
+    rng = np.random.default_rng(seed)
     logits = torch.from_numpy(
         2 * rng.standard_normal((B, T, V)).astype(np.float32))
     labels = torch.from_numpy(rng.integers(1, V, (B, L)).astype(np.int32))
     tl = rng.integers(1, T + 1, B)
     ll = rng.integers(0, L + 1, B)
-    if B > 1:
+    if tl_mode != "ragged":
+        tl[:] = 1 if tl_mode == "one" else T
+        ll[0] = 0
+        ll[-1] = L
+    elif B > 3:
         tl[0], ll[0] = T, min(L, max(T // 3, 1))
         labels[0, :2] = 2                       # repeat: no skip transition
         ll[1] = 0
@@ -534,6 +537,39 @@ def test_ctc_kernels_match_plain(dev, B, T, V, L):
     lp_ext, allow2, t_len, lab_len = ctc_inputs(
         logits.to(dev), torch.from_numpy(tl).to(dev), labels.to(dev),
         torch.from_numpy(ll).to(dev))
+    if S is not None:
+        lp_ext = lp_ext[:, :, :S].contiguous()
+        allow2 = allow2[:, :S].contiguous()
+        lab_len = torch.clamp(lab_len, max=(S - 1) // 2)
+    return lp_ext, allow2, t_len, lab_len, g
+
+
+@pytest.mark.parametrize("B,T,V,L,S,tl_mode", [
+    (1, 1, 3, 1, None, "ragged"), (6, 40, 7, 9, None, "ragged"),
+    (4, 70, 30, 300, None, "ragged"),
+    # the lanes kernels' edges, 56 own states a warp: S = 56k - 1, 56k
+    # and 56k + 1 (one warp, two, three), six warps, 16 warps, and a
+    # 66-label alignment over 200 frames across three warps' halos
+    (5, 20, 11, 27, None, "ragged"), (5, 20, 11, 28, 56, "ragged"),
+    (5, 20, 11, 28, None, "ragged"), (3, 12, 11, 55, None, "ragged"),
+    (3, 12, 11, 56, 112, "ragged"), (3, 12, 11, 56, None, "ragged"),
+    (5, 30, 11, 144, None, "ragged"), (2, 6, 11, 447, None, "ragged"),
+    (4, 200, 20, 80, None, "ragged"),
+    # past 16 warps: the wide kernels
+    (2, 6, 11, 448, None, "ragged"),
+    # every t_len 1, every t_len T, T = 1 below the ring's depth
+    (7, 30, 9, 40, None, "one"), (7, 30, 9, 40, None, "full"),
+    (5, 1, 9, 4, None, "full")])
+def test_ctc_kernels_match_plain(dev, B, T, V, L, S, tl_mode):
+    """Loss, alphas and d lp_ext against the plain α/β recursions: ragged
+    time and label lengths, label length 0, repeated labels, an impossible
+    sample and a length above T; S = 601 takes more states than threads.
+    Bars: loss rtol 1e-5, gradient atol 2e-4, fp32
+    (tests/test_ctc_pallas.py:35-42); alphas at the loss's rtol plus 1e-4,
+    their LOG_ZERO states exactly. The backward runs on the plain alphas
+    and on the forward kernel's own, as training does."""
+    lp_ext, allow2, t_len, lab_len, g = _ctc_case(dev, B, T, V, L, S,
+                                                  tl_mode)
     before = (_kernels.CTC_FWD.launches, _kernels.CTC_BWD.launches)
     alphas, loss = ctc_fwd_cuda(lp_ext, allow2, t_len, lab_len)
     alphas_p, loss_p = ctc_alpha_plain(lp_ext, allow2, t_len, lab_len)
@@ -553,8 +589,25 @@ def test_ctc_kernels_match_plain(dev, B, T, V, L):
         assert float((grad - grad_p).abs().max()) <= 2e-4
     assert (_kernels.CTC_FWD.launches, _kernels.CTC_BWD.launches) == (
         before[0] + 1, before[1] + 2)
-    if B > 1:
+    if B > 3 and tl_mode == "ragged":
         assert float(loss[2]) >= 1e29 and torch.all(grad[2] == 0)
+
+
+@pytest.mark.parametrize("B,T,L", [(24, 256, 128), (5, 40, 300)])
+def test_ctc_kernels_are_bitwise_repeatable(dev, B, T, L):
+    """Two runs of each kernel give the same bits (no atomics, a fixed
+    order of every sum), at the training shape and at S = 601."""
+    lp_ext, allow2, t_len, lab_len, g = _ctc_case(dev, B, T, 60, L, None,
+                                                  "ragged")
+    runs = []
+    for _ in range(2):
+        alphas, loss = ctc_fwd_cuda(lp_ext, allow2, t_len, lab_len)
+        gz = torch.where(loss < 5e29, g, 0.0)
+        runs.append([alphas, loss, ctc_bwd_cuda(lp_ext, allow2, t_len,
+                                                lab_len, alphas, loss, gz)])
+    torch.cuda.synchronize()
+    for x, y in zip(*runs):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 @pytest.mark.parametrize("B,T,V", [(1, 1, 1), (3, 70, 5), (2, 130, 100),
@@ -600,6 +653,11 @@ def test_kernels_refuse_what_they_do_not_take(dev):
         ctc_fwd_cuda(torch.zeros(1, 2, 3, device=dev),
                      torch.zeros(1, 3, device=dev),
                      torch.ones(1, device=dev), torch.ones(1, device=dev))
+    with pytest.raises(ValueError, match="extended states"):   # > 227 KB
+        ctc_fwd_cuda(torch.zeros(1, 2, 29057, device=dev),
+                     torch.zeros(1, 29057, device=dev),
+                     torch.ones(1, dtype=torch.int32, device=dev),
+                     torch.ones(1, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="hidden size"):
         gru_bwd_cuda(torch.zeros(3, 4, 4 * 48, device=dev), w, lo, lo,
                      torch.zeros(3, 4, 48, device=dev),

@@ -95,7 +95,7 @@ def test_cli_trains_bilstm_deep_with_specaugment(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("sets,match", [
-    ([], "ROADMAP.md §1 item 8"),                   # auto → device_cache
+    ([], "GPU-resident corpus cache"),              # auto → device_cache
     (["train.data_mode=rotating"], "train.data_mode=stream"),
     (["train.data_mode=stream", "model.glu_blocks=2"], "GLU"),
     (["train.data_mode=stream", "parallel.num_devices=2"], "parallelism"),

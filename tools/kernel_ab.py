@@ -2,14 +2,14 @@
 one card, on the same inputs, by two yardsticks:
 
     python3 tools/kernel_ab.py OTHER_ROOT [--rounds 9] [--seed 0]
-                               [--cases frontend,flash,lstm,gru,stream]
+                               [--cases frontend,flash,lstm,gru,stream,ctc]
 
 OTHER_ROOT is the root of another checkout of the repo (for example an
 older commit unpacked by ``git archive`` into a git-ignored directory).
 Its ``csrc/frontend_logmel.cu``, ``attention_fwd.cu``,
-``attention_bwd.cu``, ``lstm_fwd.cu``, ``lstm_bwd.cu``, ``gru_fwd.cu``
-and ``gru_bwd.cu`` (with ``library.cu``, the error strings) are built
-alone into a library of
+``attention_bwd.cu``, ``lstm_fwd.cu``, ``lstm_bwd.cu``, ``gru_fwd.cu``,
+``gru_bwd.cu`` and ``ctc.cu`` (with ``library.cu``, the error strings) are
+built alone into a library of
 their own, and its Python package is imported under another name with
 that library bound in, so each build is called through its own
 checkout's wrappers, weight layouts and host tables.
@@ -41,9 +41,15 @@ Kernels and shapes (those of ``chip_smoke.py``):
   (``chip_smoke.stream_cases``: uni_gru's forward-only GRU, H = 256,
   T = 16; bilstm_deep's BiLSTM, H = 384, T = 20; B = 32, emit_t = C/s,
   ragged lengths and a nonzero h0) beside cuDNN over the same window
-  with hx = h0; the fp32 stream form bitwise equal across the builds.
+  with hx = h0; the fp32 stream form bitwise equal across the builds;
+* the CTC α and β recursions (rows 9-10, ``chip_smoke.ctc_cases``) at
+  phase 7's training shape (B = 24, T' = 256, S = 257, 90-99 labels) and
+  long-form (B = 24, T' = 701, S = 601, 228-280 labels), beside
+  F.ctc_loss's forward and its backward (forward+backward less forward);
+  both builds' alphas, loss and grad must be bitwise equal (each build
+  through its own wrappers and launch plan).
 
-``--cases`` takes a subset of ``frontend,flash,lstm,gru,stream``.
+``--cases`` takes a subset of ``frontend,flash,lstm,gru,stream,ctc``.
 
 Each is timed in alternating rounds, both builds and the library call in
 each round:
@@ -53,8 +59,14 @@ each round:
   (``chip_smoke.time_ms``), so each wrapper's host time is in it wherever
   it exceeds the kernel's.
 
+F.ctc_loss takes its lengths through the host, so no graph holds it: in
+the graph kind it runs eagerly, 10 calls back to back a timing
+(``chip_smoke.ctc_library_replay``).
+
 Each build is first held to the plain versions: the LSTM and the GRU at 3e-2
 (forward) and 5e-2 (gradient) max abs, the front-end at 5e-4 max abs,
+the CTC loss at rtol 1e-5, alphas at 1e-4 + rtol 1e-5 (their LOG_ZERO
+states exactly) and the gradient at 2e-4 max abs,
 the flash forward's out at 2^-7·(|b| + Σp·|v|/l) + 1e-5 and lse at 2e-5,
 the gradients at the bar derived from bf16 rounding (2^-7·|b| + the
 rounding room + 1e-3, ``attention_cuda.bwd_rounding_room``); the share of
@@ -86,8 +98,8 @@ import chip_smoke as cs  # noqa: E402
 PKG = "chainer_speech_recognition_tpu_torch"
 SOURCES = ("frontend_logmel.cu", "attention_fwd.cu", "attention_bwd.cu",
            "lstm_fwd.cu", "lstm_bwd.cu", "gru_fwd.cu", "gru_bwd.cu",
-           "library.cu")
-CASES = ("frontend", "flash", "lstm", "gru", "stream")
+           "ctc.cu", "library.cu")
+CASES = ("frontend", "flash", "lstm", "gru", "stream", "ctc")
 
 
 def build_alone(root: str, tag: str) -> str:
@@ -569,6 +581,74 @@ def stream_case(dev, rng, other, rounds, tag, cell, ndir, B, T, emit, H):
     return res
 
 
+def ctc_case(dev, rng, other, rounds, tag, seconds, T, lens, L):
+    """Rows 9-10 at one shape (``chip_smoke.ctc_cases``): both builds held
+    to the plain recursions at phase 7's bars and bitwise to each other
+    (alphas, loss; grad on the plain alphas), then timed with F.ctc_loss in
+    the same rounds."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.ops import ctc_cuda as cc
+    from chainer_speech_recognition_tpu_torch.ops.ctc import (
+        ctc_alpha_plain, ctc_beta_grad_plain)
+
+    occ = importlib.import_module(f"{other.__name__}.ops.ctc_cuda")
+    V = preset_config(cs.PRESET).model.vocab_size
+    logits, labels, lab_len = cs.ctc_draws(rng, seconds, T, L, V)
+    args, lib = cs.ctc_setup(dev, logits, lens, labels, lab_len)
+    alphas_p, loss_p = ctc_alpha_plain(*args)
+    g = torch.from_numpy(rng.uniform(0.5, 2.0, len(seconds)).astype(
+        np.float32)).to(dev)
+    bwd_args = (*args, alphas_p, loss_p, g)
+    grad_p = ctc_beta_grad_plain(*bwd_args)
+    S = args[0].shape[2]
+    res = {"tag": tag, "B": len(seconds), "T": T, "S": S,
+           "plan": {f: list(cc.ctc_plan(S, f)) for f in ("fwd", "bwd")}}
+    outs = {}
+    mods = {"this": cc, "other": occ}
+    for b, m in mods.items():
+        alphas, loss = m.ctc_fwd_cuda(*args)
+        grad = m.ctc_bwd_cuda(*bwd_args)
+        torch.cuda.synchronize()
+        a = cs.ctc_alpha_check(alphas, loss, alphas_p, loss_p)
+        gerr = float((grad - grad_p).abs().max())
+        res[f"{b} vs plain"] = {
+            "loss rel": a["rel"], "alphas max abs": a["aerr"],
+            "grad max abs": gerr, "bitwise": cs.same_bits(
+                (alphas, loss, grad), (alphas_p, loss_p, grad_p))}
+        print(f"[ab] {tag} {b}: vs plain loss rel {a['rel']:.3e}, alphas "
+              f"max abs {a['aerr']:.3e}, grad max abs {gerr:.3e}; bitwise "
+              f"the plain recursions': {res[f'{b} vs plain']['bitwise']}")
+        cs.check(a["rel"] <= cs.TOL["ctc_loss_rtol"] and a["sent_ok"]
+                 and a["alpha_ok"] and gerr <= cs.TOL["ctc_grad"],
+                 f"{tag} {b}: breaks a CTC bar")
+        outs[b] = (alphas, loss, grad)
+    res["bitwise equal"] = cs.same_bits(outs["this"], outs["other"])
+    print(f"[ab] {tag}: alphas, loss and grad bitwise equal across the "
+          f"builds: {res['bitwise equal']}; plan {res['plan']}")
+    cs.check(res["bitwise equal"], f"{tag}: the builds' outputs differ")
+    fns = {}
+    for b, m in mods.items():
+        fns[f"{b} fwd"] = lambda m=m: m.ctc_fwd_cuda(*args)
+        fns[f"{b} bwd"] = lambda m=m: m.ctc_bwd_cuda(*bwd_args)
+    replays = {n: cs.graph_of(f, mode="relaxed")[0] for n, f in fns.items()}
+    for n, f in lib.items():
+        fns[f"F.ctc_loss {n}"] = f
+        replays[f"F.ctc_loss {n}"] = cs.ctc_library_replay(f)
+    times = timed(fns, rounds, replays)
+    for t in times.values():
+        t["F.ctc_loss bwd"] = [a - b for a, b in zip(
+            t["F.ctc_loss forward+backward"], t["F.ctc_loss forward"])]
+    res.update(report(f"{tag} B={len(seconds)} T'={T} S={S}", times, [
+        ("other fwd", "this fwd"), ("other bwd", "this bwd"),
+        ("this fwd", "F.ctc_loss forward"), ("this bwd", "F.ctc_loss bwd")]))
+    med = res["graph"]["ms"]
+    print(f"[ab] {tag}: a step (graph ms / T'): " + ", ".join(
+        f"{n} {med[n] / T * 1e3:.4f} us" for n in fns if "ctc_loss" not in n))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the other checkout")
@@ -603,6 +683,9 @@ def main() -> int:
         if "stream" in cases:
             out += [stream_case(dev, rng, other, a.rounds, *c)
                     for c in cs.stream_cases() if c[0] in cs.TIMED_STREAM]
+        if "ctc" in cases:
+            out += [ctc_case(dev, rng, other, a.rounds, *c)
+                    for c in cs.ctc_cases(rng)]
     except cs.SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
