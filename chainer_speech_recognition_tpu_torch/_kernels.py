@@ -61,10 +61,10 @@ FRONTEND_LOGMEL = Kernel("csr_frontend_logmel",
                          [_P, _I, _I, _I, _P, _P, _I, _P, _P])
 GREEDY = Kernel("csr_greedy",
                 [_P, _P, _I, _I, _I, _P, _P, _P])
-# the CTC recursions': (..., B, T, S, states, warps, stream), the launch
-# shape from ops/ctc_cuda.ctc_plan
-CTC_FWD = Kernel("csr_ctc_fwd", [_P] * 6 + [_I] * 5 + [_P])
-CTC_BWD = Kernel("csr_ctc_bwd", [_P] * 8 + [_I] * 5 + [_P])
+CTC_FWD = Kernel("csr_ctc_fwd",
+                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+CTC_BWD = Kernel("csr_ctc_bwd",
+                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 # the recurrences' (..., T, B, H[, ndir], C, bf16, stream): C is the bf16
 # cluster kernels' blocks a cluster (ops/rnn_cuda.lstm_plan, gru_plan),
 # unread under fp32
@@ -101,9 +101,11 @@ KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "flash_bwd_dkv": FLASH_BWD_DKV}
 
 # functions of the library that launch nothing (no count): (H, out) →
-# out = (shared memory bytes, clusters the card holds at once)
+# out = (shared memory bytes, clusters the card holds at once); the CTC
+# kernels' (S, bwd, out) → out = their launch shape (ops/ctc_cuda.ctc_plan)
 HELPERS = {f"csr_{cell}_{form}_occupancy": [_I, ctypes.POINTER(_I)]
            for cell in ("gru", "lstm") for form in ("fwd", "bwd")}
+HELPERS["csr_ctc_plan"] = [_I, _I, ctypes.POINTER(_I)]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -42,9 +42,14 @@
 //   warps. With one live warp a step has no barrier at all.
 // - Emissions (and in the backward alphas) do not depend on the recursion:
 //   each thread copies its own states of frame t + kRing - 1 into a ring of
-//   kRing rows by 4-byte cp.async while frame t computes (rows are only
-//   4-byte aligned: S * 4 bytes with S odd), so a step reads only shared
-//   memory it filled itself.
+//   kRing slots by 4-byte cp.async while frame t computes (rows are only
+//   4-byte aligned: S * 4 bytes with S odd). A slot holds kStates columns
+//   for each thread, not one for each state: a halo state's lp is staged
+//   twice, by the halo lane and by its owner, each into its own columns.
+//   So a step reads only shared memory its own thread filled, a column is
+//   refilled only by the thread that read it and after it read it, and the
+//   thread's cp.async.wait_group is all the ordering the ring needs: the
+//   warps may drift apart by up to kExchange - 1 frames between exchanges.
 // - Every state computes and then selects, without a branch, so a thread's
 //   kStates lse3 chains interleave.
 // - Only live work enters the recursion: the forward stops at t_len, the
@@ -75,11 +80,9 @@ constexpr int kHaloLanes = 4;
 constexpr int kHalo = kHaloLanes * kStates;
 constexpr int kExchange = kHalo / 2;
 constexpr int kOwn = (32 - kHaloLanes) * kStates;   // a warp's own states
-// shared memory besides the rings' rows: kHalo floats before them (the
-// first warp's halo lies below state 0), 32 * kStates after (the last
-// warp's spare and halo states read past S), [2][kMaxWarps][kHalo] halo
-// values to exchange
-constexpr int kExtraFloats = kHalo + 32 * kStates + 2 * kMaxWarps * kHalo;
+// the halo values exchanged, [2][kMaxWarps][kHalo] floats
+constexpr int kExchangeFloats = 2 * kMaxWarps * kHalo;
+constexpr size_t kSmemLimit = 227 * 1024;   // what a block may take
 
 __device__ __forceinline__ float lse3(float a, float b, float c) {
   const float m = fmaxf(fmaxf(a, b), c);
@@ -137,9 +140,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                          float* __restrict__ loss, int T, int S) {
   constexpr int K = kStates;
   extern __shared__ float sh[];
-  float* ring = sh + kHalo;               // [kRing][S] lp rows
-  float* fin = ring + kRing * S;          // [S] the last live row
-  float* xbuf = fin + S + 32 * K;         // [2][kMaxWarps][kHalo]
+  const int slot = blockDim.x * K;        // a ring slot: K floats a thread
+  float* ring = sh;                       // [kRing][threads][K] lp
+  float* fin = ring + kRing * slot;       // [S] the last live row
+  float* xbuf = fin + S;                  // [2][kMaxWarps][kHalo]
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tl = min(t_len[b], T);
@@ -173,12 +177,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
       if (init && s < s_valid) a[j] = lpb[j];
       if (own && s < S) col[j] = a[j];
     }
-    // the ring: this thread's states of frame r at ring[r % kRing][s0 + j]
-    const uint32_t ring0 = smem_addr(ring + s0);
+    // the ring: this thread's states of frame r at ring[r % kRing][tid]
+    const uint32_t ring0 = smem_addr(ring + tid * K);
     const int lo = -s0, n = s_valid - s0;
     for (int r = 1; r < kRing; ++r) {     // frames 1 .. kRing - 1
       if (r < tl)
-        stage<K>(ring0 + 4 * r * S, lpb + static_cast<int64_t>(r) * S, lo, n);
+        stage<K>(ring0 + 4 * r * slot, lpb + static_cast<int64_t>(r) * S, lo,
+                 n);
       cp_async_commit();
     }
     const float* ahead = lpb + static_cast<int64_t>(kRing) * S;
@@ -201,7 +206,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
       // every state computes and selects, without a branch, so a
       // thread's K chains interleave (the first warp's halo, below state
       // 0, is LOG_ZERO)
-      const float* row = ring + (t % kRing) * S + s0;
+      const float* row = ring + (t % kRing) * slot + tid * K;
       float nx[K];
 #pragma unroll
       for (int j = 0; j < K; ++j) {
@@ -227,9 +232,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
         for (int j = 0; j < K; ++j) x[j] = a[j];
       }
       // frame t + kRing - 1 into the slot of frame t - 1, whose values this
-      // step has consumed
+      // thread has consumed
       if (t + kRing - 1 < tl)
-        stage<K>(ring0 + 4 * ((t + kRing - 1) % kRing) * S, ahead, lo, n);
+        stage<K>(ring0 + 4 * ((t + kRing - 1) % kRing) * slot, ahead, lo, n);
       cp_async_commit();
       ahead += S;
     }
@@ -268,9 +273,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
                          float* __restrict__ grad, int T, int S) {
   constexpr int K = kStates;
   extern __shared__ float sh[];
-  float* lring = sh + kHalo;              // [kRing][S] lp rows
-  float* aring = lring + kRing * S;       // [kRing][S] alpha rows
-  float* xbuf = aring + kRing * S + 32 * K;   // [2][kMaxWarps][kHalo]
+  const int slot = blockDim.x * K;        // a ring slot: K floats a thread
+  float* lring = sh;                      // [kRing][threads][K] lp
+  float* aring = lring + kRing * slot;    // [kRing][threads][K] alphas
+  float* xbuf = aring + kRing * slot;     // [2][kMaxWarps][kHalo]
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tl = min(t_len[b], T);
@@ -297,15 +303,16 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
         skip |= 1u << j;
     }
     // step i computes frame t = t_len - 1 - i from ring slot i % kRing
-    const uint32_t lring0 = smem_addr(lring + s0);
-    const uint32_t aring0 = smem_addr(aring + s0);
+    const uint32_t lring0 = smem_addr(lring + tid * K);
+    const uint32_t aring0 = smem_addr(aring + tid * K);
     const int n = s_valid - s0;
     const float* lpf = lp + base + static_cast<int64_t>(tl - 1) * S;
     const float* af = alphas + base + static_cast<int64_t>(tl - 1) * S;
     for (int i = 0; i < kRing - 1; ++i) {
       if (i < tl) {
-        stage<K>(lring0 + 4 * i * S, lpf - static_cast<int64_t>(i) * S, 0, n);
-        stage<K>(aring0 + 4 * i * S, af - static_cast<int64_t>(i) * S, 0, n);
+        stage<K>(lring0 + 4 * i * slot, lpf - static_cast<int64_t>(i) * S, 0,
+                 n);
+        stage<K>(aring0 + 4 * i * slot, af - static_cast<int64_t>(i) * S, 0, n);
       }
       cp_async_commit();
     }
@@ -331,8 +338,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
       float dn1 = __shfl_down_sync(0xffffffffu, bt[0], 1);
       float dn2 = __shfl_down_sync(0xffffffffu, bt[1], 1);
       if (lane == 31) dn1 = dn2 = kLogZero;
-      const float* lrow = lring + (i % kRing) * S + s0;
-      const float* arow = aring + (i % kRing) * S + s0;
+      const float* lrow = lring + (i % kRing) * slot + tid * K;
+      const float* arow = aring + (i % kRing) * slot + tid * K;
       float nx[K], gv[K];
 #pragma unroll
       for (int j = 0; j < K; ++j) {
@@ -369,9 +376,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32, 1)
         for (int j = 0; j < K; ++j) x[j] = bt[j];
       }
       // step i + kRing - 1 into the slot of step i - 1, whose values this
-      // step has consumed
+      // thread has consumed
       if (i + kRing - 1 < tl) {
-        const int at = 4 * ((i + kRing - 1) % kRing) * S;
+        const int at = 4 * ((i + kRing - 1) % kRing) * slot;
         stage<K>(lring0 + at, lpf, 0, n);
         stage<K>(aring0 + at, af, 0, n);
       }
@@ -506,49 +513,69 @@ __global__ void ctc_bwd_wide_kernel(const float* __restrict__ lp,
   }
 }
 
-// the lanes kernels' shared memory: `rows` rows of S floats (the rings and
-// the forward's last row) and kExtraFloats
-size_t lanes_smem(int rows, int S) {
-  return (static_cast<size_t>(rows) * S + kExtraFloats) * sizeof(float);
-}
-
 cudaError_t set_smem(const void* fn, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-// the launch shape of ops/ctc_cuda.ctc_plan: states a thread (kStates, or
-// 0 for the wide kernels) and warps an utterance
-bool plan_ok(int states, int warps, int S) {
-  if (states == 0) return warps * 32 == min((S + 31) / 32 * 32, kWideThreads);
-  return states == kStates && warps >= 1 && warps <= kMaxWarps &&
-         warps * kOwn >= S;
+// The launch shape for S extended states: the lanes kernels (kStates
+// states a thread, warps of kOwn own states) up to kMaxWarps warps, the
+// wide kernels above; `states` 0 means the wide kernels.
+struct Plan {
+  int states, warps;
+  size_t smem;                            // dynamic shared memory, bytes
+};
+
+Plan plan_for(int S, bool bwd) {
+  const int warps = (S + kOwn - 1) / kOwn;
+  if (warps <= kMaxWarps) {
+    // the rings (lp, and in the backward alphas), the forward's last row,
+    // the halo exchange
+    const size_t floats =
+        static_cast<size_t>(bwd ? 2 : 1) * kRing * warps * 32 * kStates +
+        (bwd ? 0 : S) + kExchangeFloats;
+    return {kStates, warps, floats * sizeof(float)};
+  }
+  return {0, min((S + 31) / 32, kWideThreads / 32),
+          2 * static_cast<size_t>(S) * sizeof(float)};
 }
 
 }  // namespace
 
+// The plan csr_ctc_fwd (bwd 0) or csr_ctc_bwd (bwd 1) launches for S
+// extended states: out = (states a thread, 0 for the wide kernels; warps
+// a block; shared memory bytes a block). cudaErrorInvalidValue past what a
+// block may take.
+CSR_API int csr_ctc_plan(int S, int bwd, int* out) {
+  if (S < 1) return cudaErrorInvalidValue;
+  const Plan p = plan_for(S, bwd != 0);
+  if (p.smem > kSmemLimit) return cudaErrorInvalidValue;
+  out[0] = p.states;
+  out[1] = p.warps;
+  out[2] = static_cast<int>(p.smem);
+  return cudaSuccess;
+}
+
 // lp [B, T, S], allow2 [B, S] fp32; t_len, lab_len [B] int32 (t_len <= T,
 // 2 lab_len + 1 <= S: the wrapper clamps and checks); alphas [B, T, S] and
-// loss [B] fp32 out. B, T, S >= 1; (states, warps) from ctc_plan(S).
+// loss [B] fp32 out. B, T, S >= 1.
 CSR_API int csr_ctc_fwd(const float* lp, const float* allow2,
                         const int* t_len, const int* lab_len, float* alphas,
-                        float* loss, int B, int T, int S, int states,
-                        int warps, cudaStream_t stream) {
-  if (!plan_ok(states, warps, S)) return cudaErrorInvalidValue;
-  const bool wide = states == 0;
-  const void* fn = wide ? reinterpret_cast<const void*>(ctc_fwd_wide_kernel)
-                        : reinterpret_cast<const void*>(
-                              ctc_fwd_lanes_kernel);
-  const size_t smem = wide ? 2 * static_cast<size_t>(S) * sizeof(float)
-                           : lanes_smem(kRing + 1, S);
-  const cudaError_t err = set_smem(fn, smem);
+                        float* loss, int B, int T, int S,
+                        cudaStream_t stream) {
+  const Plan p = plan_for(S, false);
+  if (p.smem > kSmemLimit) return cudaErrorInvalidValue;
+  const void* fn = p.states == 0
+                       ? reinterpret_cast<const void*>(ctc_fwd_wide_kernel)
+                       : reinterpret_cast<const void*>(ctc_fwd_lanes_kernel);
+  const cudaError_t err = set_smem(fn, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (wide)
-    ctc_fwd_wide_kernel<<<B, warps * 32, smem, stream>>>(
+  if (p.states == 0)
+    ctc_fwd_wide_kernel<<<B, p.warps * 32, p.smem, stream>>>(
         lp, allow2, t_len, lab_len, alphas, loss, T, S);
   else
-    ctc_fwd_lanes_kernel<<<B, warps * 32, smem, stream>>>(
+    ctc_fwd_lanes_kernel<<<B, p.warps * 32, p.smem, stream>>>(
         lp, allow2, t_len, lab_len, alphas, loss, T, S);
   CSR_RETURN_LAUNCH_STATUS();
 }
@@ -560,21 +587,19 @@ CSR_API int csr_ctc_bwd(const float* lp, const float* allow2,
                         const int* t_len, const int* lab_len,
                         const float* alphas, const float* loss,
                         const float* g, float* grad, int B, int T, int S,
-                        int states, int warps, cudaStream_t stream) {
-  if (!plan_ok(states, warps, S)) return cudaErrorInvalidValue;
-  const bool wide = states == 0;
-  const void* fn = wide ? reinterpret_cast<const void*>(ctc_bwd_wide_kernel)
-                        : reinterpret_cast<const void*>(
-                              ctc_bwd_lanes_kernel);
-  const size_t smem = wide ? 2 * static_cast<size_t>(S) * sizeof(float)
-                           : lanes_smem(2 * kRing, S);
-  const cudaError_t err = set_smem(fn, smem);
+                        cudaStream_t stream) {
+  const Plan p = plan_for(S, true);
+  if (p.smem > kSmemLimit) return cudaErrorInvalidValue;
+  const void* fn = p.states == 0
+                       ? reinterpret_cast<const void*>(ctc_bwd_wide_kernel)
+                       : reinterpret_cast<const void*>(ctc_bwd_lanes_kernel);
+  const cudaError_t err = set_smem(fn, p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (wide)
-    ctc_bwd_wide_kernel<<<B, warps * 32, smem, stream>>>(
+  if (p.states == 0)
+    ctc_bwd_wide_kernel<<<B, p.warps * 32, p.smem, stream>>>(
         lp, allow2, t_len, lab_len, alphas, loss, g, grad, T, S);
   else
-    ctc_bwd_lanes_kernel<<<B, warps * 32, smem, stream>>>(
+    ctc_bwd_lanes_kernel<<<B, p.warps * 32, p.smem, stream>>>(
         lp, allow2, t_len, lab_len, alphas, loss, g, grad, T, S);
   CSR_RETURN_LAUNCH_STATUS();
 }

@@ -13,12 +13,13 @@ clamped to T (``ctc_loss_pallas``; otherwise the β initialisation at
 (sentinel loss) get exactly zero gradient.
 
 ``ctc_alpha`` / ``ctc_beta_grad`` launch the kernels for CUDA tensors and
-run the plain versions (``ops/ctc.py``) for CPU tensors. ``ctc_plan`` gives
+run the plain versions (``ops/ctc.py``) for CPU tensors. ``ctc_plan`` reads
 the launch shape the kernels take for S extended states.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -27,49 +28,37 @@ from .. import _kernels
 from .ctc import LOG_ZERO, ctc_alpha_plain, ctc_beta_grad_plain, ctc_inputs
 
 
-STATES = 2          # states a thread of the lanes kernels (ctc.cu kStates)
-RING = 8            # frames in the ring, RING - 1 ahead (ctc.cu kRing)
-MAX_WARPS = 16      # warps an utterance (ctc.cu kMaxWarps)
-HALO_LANES = 4      # a warp's lanes that hold its neighbour's states
-OWN = (32 - HALO_LANES) * STATES     # a warp's own states (ctc.cu kOwn)
-WIDE_THREADS = 512  # threads of a wide kernel's block (ctc.cu kWideThreads)
-# ctc.cu kExtraFloats: the halo below state 0, the spare states past S,
-# the halo values exchanged (two buffers)
-EXTRA_BYTES = 4 * (HALO_LANES * STATES + 32 * STATES
-                   + 2 * MAX_WARPS * HALO_LANES * STATES)
-SMEM_LIMIT = 232448                  # shared memory a block may take (H100)
+# the wide kernels hold the wavefront's 2·S floats in the 227 KB a block
+# may take; below that csrc/ctc.cu picks the launch shape from S itself
+MAX_STATES = 29056
 
 
 class CtcPlan(NamedTuple):
-    states: int     # states a thread: STATES, or 0 for the wide kernels
+    states: int     # states a thread: 2 (the lanes kernels), 0 (wide)
     warps: int      # warps of a block, which owns one utterance
     smem: int       # dynamic shared memory a block, bytes
 
 
 def ctc_plan(S: int, form: str) -> CtcPlan:
-    """The launch shape of ``csrc/ctc.cu`` for S extended states (``form``
-    "fwd" or "bwd"): the lanes kernels (the wavefront in registers, STATES
-    a thread, ⌈S / OWN⌉ warps of OWN states and a halo; a ring of RING
-    rows of lp, and in the backward of alphas, plus the forward's last
-    row: 59 KB at most) up to MAX_WARPS warps, the wide kernels (the
-    wavefront in shared memory, 2·S floats) above, up to the 227 KB a
-    block may take."""
+    """The launch shape ``csrc/ctc.cu`` takes for S extended states
+    (``form`` "fwd" or "bwd"), as the kernel library computes it; needs
+    the card's build."""
     if form not in ("fwd", "bwd"):
         raise ValueError(f"ctc_plan: form {form!r} (fwd or bwd)")
-    warps = -(-S // OWN)
-    if warps <= MAX_WARPS:
-        rows = RING + 1 if form == "fwd" else 2 * RING
-        return CtcPlan(STATES, warps, rows * S * 4 + EXTRA_BYTES)
-    if 2 * S * 4 > SMEM_LIMIT:
-        raise ValueError(f"ctc kernel: S = {S} extended states exceed what "
-                         "a block's shared memory holds (2·S floats)")
-    return CtcPlan(0, min(-(-S // 32), WIDE_THREADS // 32), 2 * S * 4)
+    out = (ctypes.c_int * 3)()
+    err = _kernels.call("csr_ctc_plan", S, int(form == "bwd"), out)
+    if err:
+        raise RuntimeError(f"csr_ctc_plan: CUDA error {err} at S = {S}")
+    return CtcPlan(*out)
 
 
 def _check(lp_ext, allow2, t_len, lab_len):
     B, T, S = lp_ext.shape
     if B < 1 or T < 1 or S < 1:
         raise ValueError(f"ctc kernel: empty input {tuple(lp_ext.shape)}")
+    if S > MAX_STATES:
+        raise ValueError(f"ctc kernel: S = {S} extended states exceed what "
+                         "a block's shared memory holds (2·S floats)")
     _kernels.check_cuda_tensor("lp_ext", lp_ext, torch.float32, (B, T, S))
     _kernels.check_cuda_tensor("allow2", allow2, torch.float32, (B, S))
     _kernels.check_cuda_tensor("t_len", t_len, torch.int32, (B,))
@@ -81,13 +70,12 @@ def ctc_fwd_cuda(lp_ext, allow2, t_len, lab_len):
     """α kernel launch: (alphas [B,T,S], loss [B]) fp32; CUDA only.
     ``t_len <= T`` and ``2 lab_len + 1 <= S`` (``ctc_inputs`` clamps)."""
     B, T, S = _check(lp_ext, allow2, t_len, lab_len)
-    plan = ctc_plan(S, "fwd")
     alphas = torch.empty_like(lp_ext)
     loss = torch.empty((B,), dtype=torch.float32, device=lp_ext.device)
     _kernels.CTC_FWD.launch(
         lp_ext.data_ptr(), allow2.data_ptr(), t_len.data_ptr(),
         lab_len.data_ptr(), alphas.data_ptr(), loss.data_ptr(), B, T, S,
-        plan.states, plan.warps, _kernels.stream_ptr(lp_ext))
+        _kernels.stream_ptr(lp_ext))
     return alphas, loss
 
 
@@ -97,13 +85,11 @@ def ctc_bwd_cuda(lp_ext, allow2, t_len, lab_len, alphas, loss, g):
     _kernels.check_cuda_tensor("alphas", alphas, torch.float32, (B, T, S))
     _kernels.check_cuda_tensor("loss", loss, torch.float32, (B,))
     _kernels.check_cuda_tensor("g", g, torch.float32, (B,))
-    plan = ctc_plan(S, "bwd")
     grad = torch.empty_like(lp_ext)
     _kernels.CTC_BWD.launch(
         lp_ext.data_ptr(), allow2.data_ptr(), t_len.data_ptr(),
         lab_len.data_ptr(), alphas.data_ptr(), loss.data_ptr(), g.data_ptr(),
-        grad.data_ptr(), B, T, S, plan.states, plan.warps,
-        _kernels.stream_ptr(lp_ext))
+        grad.data_ptr(), B, T, S, _kernels.stream_ptr(lp_ext))
     return grad
 
 

@@ -26,7 +26,7 @@ from chainer_speech_recognition_tpu_torch.ops import attention_cuda as ac
 from chainer_speech_recognition_tpu_torch.ops.ctc import (
     LOG_ZERO, ctc_alpha_plain, ctc_beta_grad_plain, ctc_inputs)
 from chainer_speech_recognition_tpu_torch.ops.ctc_cuda import (
-    ctc_bwd_cuda, ctc_fwd_cuda)
+    MAX_STATES, ctc_bwd_cuda, ctc_fwd_cuda, ctc_plan)
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
     gru_bwd_cuda, gru_bwd_plain, gru_occupancy, gru_plan, gru_scan_cuda,
     gru_scan_plain, gru_scan_stream_cuda, gru_scan_stream_plain,
@@ -548,13 +548,14 @@ def _ctc_case(dev, B, T, V, L, S, tl_mode):
     (1, 1, 3, 1, None, "ragged"), (6, 40, 7, 9, None, "ragged"),
     (4, 70, 30, 300, None, "ragged"),
     # the lanes kernels' edges, 56 own states a warp: S = 56k - 1, 56k
-    # and 56k + 1 (one warp, two, three), six warps, 16 warps, and a
-    # 66-label alignment over 200 frames across three warps' halos
+    # and 56k + 1 (one warp, two, three), six warps, 16 warps, a 66-label
+    # alignment over 200 frames across three warps' halos, and 16 warps
+    # over 300 frames (75 exchanges for them to drift between)
     (5, 20, 11, 27, None, "ragged"), (5, 20, 11, 28, 56, "ragged"),
     (5, 20, 11, 28, None, "ragged"), (3, 12, 11, 55, None, "ragged"),
     (3, 12, 11, 56, 112, "ragged"), (3, 12, 11, 56, None, "ragged"),
     (5, 30, 11, 144, None, "ragged"), (2, 6, 11, 447, None, "ragged"),
-    (4, 200, 20, 80, None, "ragged"),
+    (4, 200, 20, 80, None, "ragged"), (2, 300, 11, 447, None, "full"),
     # past 16 warps: the wide kernels
     (2, 6, 11, 448, None, "ragged"),
     # every t_len 1, every t_len T, T = 1 below the ring's depth
@@ -608,6 +609,28 @@ def test_ctc_kernels_are_bitwise_repeatable(dev, B, T, L):
     torch.cuda.synchronize()
     for x, y in zip(*runs):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("form", ["fwd", "bwd"])
+def test_ctc_plan_covers_every_state(dev, form):
+    """The launch shape the library computes from S: for every S from 1
+    to 2·300 + 1 the lanes kernels (2 states a thread) with warps of 56
+    own states and no spare warp, within the 232,448 bytes a block may
+    take (at S = 257: 5 warps, rings of 8 slots of 64 floats a warp, the
+    forward's last row, 256 floats of halo exchange); past 16 warps the
+    wide kernels (512 threads, the wavefront's 2·S floats), up to the
+    largest S a block holds."""
+    for S in range(1, 2 * 300 + 2):
+        p = ctc_plan(S, form)
+        assert p.states == 2 and p.warps * 56 >= S > (p.warps - 1) * 56
+        assert p.smem <= 232448
+    rings = 1 if form == "fwd" else 2
+    assert tuple(ctc_plan(257, form)) == (
+        2, 5, 4 * (rings * 8 * 5 * 64 + (257 if form == "fwd" else 0) + 256))
+    assert tuple(ctc_plan(897, form)) == (0, 16, 2 * 897 * 4)
+    assert tuple(ctc_plan(MAX_STATES, form)) == (0, 16, 232448)
+    with pytest.raises(RuntimeError, match="csr_ctc_plan"):
+        ctc_plan(MAX_STATES + 1, form)
 
 
 @pytest.mark.parametrize("B,T,V", [(1, 1, 1), (3, 70, 5), (2, 130, 100),
