@@ -60,7 +60,7 @@ class Kernel:
 FRONTEND_LOGMEL = Kernel("csr_frontend_logmel",
                          [_P, _I, _I, _I, _P, _P, _I, _P, _P])
 GREEDY = Kernel("csr_greedy",
-                [_P, _P, _I, _I, _I, _P, _P, _P])
+                [_P, _P, _I, _I, _I, _I, _P, _P, _P])
 CTC_FWD = Kernel("csr_ctc_fwd",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 CTC_BWD = Kernel("csr_ctc_bwd",
@@ -90,6 +90,8 @@ FRONTEND_LOGMEL_FRAMES = Kernel("csr_frontend_logmel_frames",
 FLASH_FWD = Kernel("csr_flash_fwd", [_P] * 8 + [_I, _P])
 FLASH_BWD_DQ = Kernel("csr_flash_bwd_dq", [_P] * 10 + [_I, _P])
 FLASH_BWD_DKV = Kernel("csr_flash_bwd_dkv", [_P] * 11 + [_I, _P])
+# the recurrences' dW: (ys, g1, ld1, n1, g2, ld2, n2, out, T, B, H, stream)
+DW = Kernel("csr_dw", [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P])
 KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "greedy": GREEDY, "gru_fwd_train": GRU_FWD_TRAIN,
            "gru_bwd": GRU_BWD, "ctc_fwd": CTC_FWD, "ctc_bwd": CTC_BWD,
@@ -98,14 +100,16 @@ KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "lstm_fwd_stream": LSTM_FWD_STREAM,
            "frontend_logmel_frames": FRONTEND_LOGMEL_FRAMES,
            "flash_fwd": FLASH_FWD, "flash_bwd_dq": FLASH_BWD_DQ,
-           "flash_bwd_dkv": FLASH_BWD_DKV}
+           "flash_bwd_dkv": FLASH_BWD_DKV, "dw": DW}
 
 # functions of the library that launch nothing (no count): (H, out) →
 # out = (shared memory bytes, clusters the card holds at once); the CTC
-# kernels' (S, bwd, out) → out = their launch shape (ops/ctc_cuda.ctc_plan)
+# kernels' (S, bwd, out) → out = their launch shape (ops/ctc_cuda.ctc_plan);
+# the dW kernel's (T, B, H, N, out) → its launch shape (ops/rnn_cuda.dw_plan)
 HELPERS = {f"csr_{cell}_{form}_occupancy": [_I, ctypes.POINTER(_I)]
            for cell in ("gru", "lstm") for form in ("fwd", "bwd")}
 HELPERS["csr_ctc_plan"] = [_I, _I, ctypes.POINTER(_I)]
+HELPERS["csr_dw_plan"] = [_I, _I, _I, _I, ctypes.POINTER(_I)]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -37,12 +37,16 @@ EXEC_KNOBS = {"model.attn_impl", "model.attn_residual_dtype",
 
 
 def load_model(ckpt_dir: str, average_last: int = 1,
-               overrides: dict | None = None, device="cpu"):
+               overrides: dict | None = None, device="cuda"):
     """→ (config, model on ``device`` in eval mode, checkpoint description).
 
-    ``overrides`` are dotted config overrides on top of the frozen
-    training config; ``model.*`` keys other than ``EXEC_KNOBS`` are
-    rejected, since the topology must match the checkpoint."""
+    ``device`` is the card unless the caller asks for the CPU; it goes
+    through ``resolve_device``, so without a card the default refuses
+    rather than falling back to the CPU. ``overrides`` are dotted config
+    overrides on top of the frozen training config; ``model.*`` keys other
+    than ``EXEC_KNOBS`` are rejected, since the topology must match the
+    checkpoint."""
+    device = resolve_device(str(device))
     cfg = load_config(ckpt_dir)
     if overrides:
         bad = [k for k in overrides

@@ -4,15 +4,16 @@
 // _birnn_bwd). Same boundary: gates [T, R=2B, 4H] = (r, z, n, hp_n) from
 // the training forward (csrc/gru_fwd.cu, stream dtype), the recurrent
 // weights in the compute dtype (laid out for each kernel by the wrapper,
-// once per call: below), lo/hi [R] fp32, h_prev [T, R, H]
-// fp32 (the carries shifted by one step, zeros first) and g [T, R, H] fp32
-// (the gradient of the layer's ys). Out, in the stream dtype:
+// once per call: below), lo/hi [R] fp32, ys [T, R, H] fp32 (the
+// forward's carries: h_prev[t] is read as ys[t - 1], zeros at t = 0, so no
+// shifted copy is made) and g [T, R, H] fp32 (the gradient of the layer's
+// ys). Out, in the stream dtype:
 //   dxs [T, R, 3H] = (dr, dz, dn) pre-activation gradients, masked to the
 //                    live steps; they are the gradient of xs and, for the
 //                    r and z columns, of the recurrent pre-activations;
 //   dhn [T, R, H]  = the recurrent n pre-activation gradient dn * r, masked.
-// dW = sum_t h_prev^T (dr, dz, dhn) is one matmul after the kernel, off the
-// sequential path, as the TPU kernel leaves it to XLA.
+// dW = sum_t h_prev^T (dr, dz, dhn) is one launch of csrc/dw.cu after the
+// kernel, off the sequential path, as the TPU kernel leaves it to XLA.
 //
 // Per step and row, with dh the carried gradient (fp32):
 //   dh_total = g[t] + dh
@@ -72,18 +73,20 @@ struct StepIn {
   float r, z, n, hn, hp, g;
 };
 
+// (h_prev is ys one step back: row - R, zero in step 0's rows)
 template <typename S>
 __device__ __forceinline__ StepIn load_step(const S* __restrict__ gates,
-                                            const float* __restrict__ hprev,
+                                            const float* __restrict__ ys,
                                             const float* __restrict__ g,
-                                            int64_t row, int H, int j) {
+                                            int64_t row, int R, int H,
+                                            int j) {
   const S* gt = gates + row * 4 * H;
   StepIn in;
   in.r = to_f32(gt[j]);
   in.z = to_f32(gt[H + j]);
   in.n = to_f32(gt[2 * H + j]);
   in.hn = to_f32(gt[3 * H + j]);
-  in.hp = hprev[row * H + j];
+  in.hp = row >= R ? ys[(row - R) * H + j] : 0.0f;
   in.g = g[row * H + j];
   return in;
 }
@@ -94,7 +97,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                                const S* __restrict__ wt,
                                const float* __restrict__ lo,
                                const float* __restrict__ hi,
-                               const float* __restrict__ hprev,
+                               const float* __restrict__ ys,
                                const float* __restrict__ g,
                                S* __restrict__ dxs, S* __restrict__ dhn,
                                int T, int B, int H) {
@@ -111,8 +114,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   float dh = 0.0f;
   int cur = 0;
-  StepIn in = load_step(gates, hprev, g, static_cast<int64_t>(T - 1) * R + rr,
-                        H, j);
+  StepIn in = load_step(gates, ys, g, static_cast<int64_t>(T - 1) * R + rr,
+                        R, H, j);
   for (int t = T - 1; t >= 0; --t) {
     const int64_t row = static_cast<int64_t>(t) * R + rr;
     const float dh_total = in.g + dh;
@@ -133,7 +136,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     buf[H + j] = to_f32(from_f32<S>(dz));
     buf[2 * H + j] = to_f32(from_f32<S>(dhn_j));
     __syncthreads();
-    if (t > 0) in = load_step(gates, hprev, g, row - R, H, j);
+    if (t > 0) in = load_step(gates, ys, g, row - R, R, H, j);
 
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // 4 partial sums
     S w[kChunk];
@@ -165,7 +168,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 int launch_fp32(const void* gates, const void* wt, const float* lo,
-                const float* hi, const float* hprev, const float* g,
+                const float* hi, const float* ys, const float* g,
                 void* dxs, void* dhn, int T, int B, int H,
                 cudaStream_t stream) {
   const dim3 grid(B, 2);
@@ -173,12 +176,12 @@ int launch_fp32(const void* gates, const void* wt, const float* lo,
   if (H <= 256)
     gru_bwd_kernel<float, kChunkSmallH, 256><<<grid, H, smem, stream>>>(
         static_cast<const float*>(gates), static_cast<const float*>(wt), lo,
-        hi, hprev, g, static_cast<float*>(dxs), static_cast<float*>(dhn), T,
+        hi, ys, g, static_cast<float*>(dxs), static_cast<float*>(dhn), T,
         B, H);
   else
     gru_bwd_kernel<float, kChunkLargeH, 512><<<grid, H, smem, stream>>>(
         static_cast<const float*>(gates), static_cast<const float*>(wt), lo,
-        hi, hprev, g, static_cast<float*>(dxs), static_cast<float*>(dhn), T,
+        hi, ys, g, static_cast<float*>(dxs), static_cast<float*>(dhn), T,
         B, H);
   CSR_RETURN_LAUNCH_STATUS();
 }
@@ -206,7 +209,8 @@ int launch_fp32(const void* gates, const void* wt, const float* lo,
 // memory for all T steps: the n rows (units j) of the product's B
 // operand, k-major. A step:
 //   1. (dr, dz, dn) and dn r of the pair from the prefetched gates
-//      (r, z, n, hp_n), h_prev and g; the next step's inputs are loaded;
+//      (r, z, n, hp_n), h_prev (ys one step back) and g; the next step's
+//      inputs are loaded;
 //   2. the unmasked (dr, dz, dn r), rounded to bf16 (where _dot2 rounds
 //      it), into this block's A [16][3 kU];
 //   3. warp w takes n-tiles w, w + kU / 2, ... of the H units: 3 kU / 16
@@ -227,7 +231,7 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
                       const __nv_bfloat16* __restrict__ wb,
                       const float* __restrict__ lo,
                       const float* __restrict__ hi,
-                      const float* __restrict__ hprev,
+                      const float* __restrict__ ys,
                       const float* __restrict__ g,
                       __nv_bfloat16* __restrict__ dxs,
                       __nv_bfloat16* __restrict__ dhn, int T, int B, int H) {
@@ -285,7 +289,7 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
       in.z = __bfloat162float(gt[H]);
       in.n = __bfloat162float(gt[2 * H]);
       in.hn = __bfloat162float(gt[3 * H]);
-      in.hp = hprev[row * H + j];
+      in.hp = t > 0 ? ys[(row - R) * H + j] : 0.0f;
       in.g = g[row * H + j];
     }
     return in;
@@ -369,14 +373,14 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
 
 template <int kU>
 int launch_tc(const void* gates, const void* wb, const float* lo,
-              const float* hi, const float* hprev, const float* g, void* dxs,
+              const float* hi, const float* ys, const float* g, void* dxs,
               void* dhn, int T, int B, int H, int C, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   return tc::launch_clusters(
       gru_bwd_tc_kernel<kU>, C, (B + tc::kRows - 1) / tc::kRows, 2,
       tc::kRows * kU, tc::bwd_smem(H, 3, kU), stream,
       static_cast<const __nv_bfloat16*>(gates),
-      static_cast<const __nv_bfloat16*>(wb), lo, hi, hprev, g,
+      static_cast<const __nv_bfloat16*>(wb), lo, hi, ys, g,
       static_cast<__nv_bfloat16*>(dxs), static_cast<__nv_bfloat16*>(dhn), T,
       B, H);
 }
@@ -387,22 +391,23 @@ int launch_tc(const void* gates, const void* wb, const float* lo,
 // fp32 (the FMA kernel: wt [2, 3H, H], W transposed) or, when bf16 != 0,
 // all bf16 (the cluster kernel: wb [2, C, H, 3, H/C], C = H /
 // gru_bwd_units(H) blocks a cluster, ops/rnn_cuda.py's gru_plan; unread
-// under fp32); lo/hi [2B], hprev and g [T, 2B, H] fp32. Requires
+// under fp32); lo/hi [2B], ys (the carries; h_prev is read one step back)
+// and g [T, 2B, H] fp32. Requires
 // 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1 (the wrapper checks).
 CSR_API int csr_gru_bwd(const void* gates, const void* wt, const float* lo,
-                        const float* hi, const float* hprev, const float* g,
+                        const float* hi, const float* ys, const float* g,
                         void* dxs, void* dhn, int T, int B, int H, int C,
                         int bf16, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (!bf16)
-    return launch_fp32(gates, wt, lo, hi, hprev, g, dxs, dhn, T, B, H,
+    return launch_fp32(gates, wt, lo, hi, ys, g, dxs, dhn, T, B, H,
                        stream);
   if (C * tc::gru_bwd_units(H) != H)
     return static_cast<int>(cudaErrorInvalidValue);
   if (tc::gru_bwd_units(H) == 16)
-    return launch_tc<16>(gates, wt, lo, hi, hprev, g, dxs, dhn, T, B, H, C,
+    return launch_tc<16>(gates, wt, lo, hi, ys, g, dxs, dhn, T, B, H, C,
                          stream);
-  return launch_tc<tc::kUnits>(gates, wt, lo, hi, hprev, g, dxs, dhn, T, B,
+  return launch_tc<tc::kUnits>(gates, wt, lo, hi, ys, g, dxs, dhn, T, B,
                                H, C, stream);
 }
 

@@ -1,9 +1,10 @@
 """Greedy (best-path) CTC decoding: argmax → collapse repeats → drop blanks,
 lengths masked (port of ``decode/greedy.py`` + ``decode/greedy_pallas.py``).
 
-The per-frame stage is the kernel ``csrc/greedy.cu`` (``best_keep``: the
-kernel on CUDA tensors, ``best_keep_plain`` on CPU tensors); the
-compaction ``compact_kept`` stays plain torch, as it stays in XLA.
+On CUDA tensors ``greedy_decode`` is one launch of ``csrc/greedy.cu``
+(``greedy_decode_cuda``: the argmax, the keep mask and the compaction); on
+CPU tensors it is the plain version, ``compact_kept(*best_keep_plain(...))``,
+which the card holds the kernel to bit for bit.
 
 NaN rule: the reference's Pallas kernel's, not XLA argmax's — a frame
 holding any NaN decodes to blank (``greedy_pallas.py:32-39``), where
@@ -33,30 +34,6 @@ def best_keep_plain(logits: torch.Tensor, lengths: torch.Tensor):
     return best, keep.to(torch.int32)
 
 
-def best_keep_cuda(logits: torch.Tensor, lengths: torch.Tensor):
-    """Kernel launch: same contract as ``best_keep_plain``, CUDA only."""
-    B, T, V = logits.shape
-    if B < 1 or T < 1 or V < 1:
-        raise ValueError(f"greedy kernel: empty logits {tuple(logits.shape)}")
-    _kernels.check_cuda_tensor("logits", logits, torch.float32, (B, T, V))
-    lengths = lengths.to(device=logits.device, dtype=torch.int32).contiguous()
-    _kernels.check_cuda_tensor("lengths", lengths, torch.int32, (B,))
-    best = torch.empty((B, T), dtype=torch.int32, device=logits.device)
-    keep = torch.empty((B, T), dtype=torch.int32, device=logits.device)
-    _kernels.GREEDY.launch(logits.data_ptr(), lengths.data_ptr(), B, T, V,
-                           best.data_ptr(), keep.data_ptr(),
-                           _kernels.stream_ptr(logits))
-    return best, keep
-
-
-def best_keep(logits: torch.Tensor, lengths: torch.Tensor):
-    if logits.is_cuda:
-        return best_keep_cuda(logits.to(torch.float32).contiguous(), lengths)
-    if logits.device.type != "cpu":
-        raise ValueError(f"greedy: unsupported device {logits.device}")
-    return best_keep_plain(logits, lengths)
-
-
 def compact_kept(best: torch.Tensor, keep: torch.Tensor, max_len: int):
     """[B, T] (symbol, keep) → ([B, max_len] int32 ids padded with
     PAD_LABEL_ID, [B] lengths clamped to max_len)."""
@@ -73,9 +50,32 @@ def compact_kept(best: torch.Tensor, keep: torch.Tensor, max_len: int):
     return out[:, :max_len], out_lens.to(torch.int32)
 
 
+def greedy_decode_cuda(logits: torch.Tensor, lengths: torch.Tensor,
+                       max_len: int):
+    """Kernel launch: ``greedy_decode``'s contract, CUDA tensors only."""
+    B, T, V = logits.shape
+    if B < 1 or T < 1 or V < 1 or max_len < 0:
+        raise ValueError(f"greedy kernel: empty logits {tuple(logits.shape)}"
+                         f" or max_len {max_len} < 0")
+    _kernels.check_cuda_tensor("logits", logits, torch.float32, (B, T, V))
+    lengths = lengths.to(device=logits.device, dtype=torch.int32).contiguous()
+    _kernels.check_cuda_tensor("lengths", lengths, torch.int32, (B,))
+    ids = torch.empty((B, max_len), dtype=torch.int32, device=logits.device)
+    out_lens = torch.empty((B,), dtype=torch.int32, device=logits.device)
+    _kernels.GREEDY.launch(logits.data_ptr(), lengths.data_ptr(), B, T, V,
+                           max_len, ids.data_ptr(), out_lens.data_ptr(),
+                           _kernels.stream_ptr(logits))
+    return ids, out_lens
+
+
 def greedy_decode(logits: torch.Tensor, lengths: torch.Tensor,
                   max_len: int | None = None):
     """[B, T, V] logits, [B] frame lengths → (ids [B, max_len] int32 padded
-    with PAD_LABEL_ID, out_lens [B] int32)."""
-    best, keep = best_keep(logits, lengths)
-    return compact_kept(best, keep, max_len or logits.shape[1])
+    with PAD_LABEL_ID, out_lens [B] int32): one kernel launch on the card,
+    the plain version on the CPU."""
+    max_len = max_len or logits.shape[1]
+    if logits.is_cuda:
+        return greedy_decode_cuda(logits.to(torch.float32).contiguous(),
+                                  lengths, max_len)
+    _kernels.check_cpu_tensor("greedy", logits)
+    return compact_kept(*best_keep_plain(logits, lengths), max_len)

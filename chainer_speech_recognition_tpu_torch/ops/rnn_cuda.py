@@ -1,6 +1,7 @@
 """Bidirectional GRU and LSTM recurrence kernels (``csrc/gru_fwd.cu``,
-``csrc/gru_bwd.cu``, ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``) and their
-autograd Functions.
+``csrc/gru_bwd.cu``, ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``), the
+weight-gradient kernel of their training backward (``csrc/dw.cu``) and
+their autograd Functions.
 
 Port of ``ops/rnn_pallas.py``, with the same layout (G = 3 gates for the
 GRU, 4 for the LSTM):
@@ -29,7 +30,7 @@ products round their operands to the compute dtype and accumulate in fp32;
 carries and gate math are fp32 (fp64 when the compute dtype is fp64, which
 only the tests use). The LSTM's forget gate has the reference's +1 bias.
 
-Eight kernels, each with its wrapper (the kernel for CUDA tensors, the
+Eight recurrence kernels, each with its wrapper (the kernel for CUDA tensors, the
 plain version for CPU tensors):
 
 * ``gru_scan`` / ``lstm_scan``: the residual-free forward
@@ -55,9 +56,12 @@ weight tensor (``stream_launch_args``), since a streaming window calls
 every layer once; the other wrappers lay it out at each call.
 
 ``BiGRUScan`` and ``BiLSTMScan`` are ``birnn_pallas``'s custom VJP: the
-training forward, the backward kernel, then dW = Σ_t h_prevᵀ·dgate as
-matmuls with compute-dtype operands and fp32 accumulation (``_dw_einsum``;
-for the LSTM the masked dg is dxs itself).
+training forward, the backward kernel, then dW = Σ_t h_prevᵀ·dgate with
+compute-dtype operands and fp32 accumulation (``_dw_einsum``; for the LSTM
+the masked dg is dxs itself) through ``rnn_dw``: under bf16 on the card
+the dW kernel (``csrc/dw.cu``, ``dw_cuda``), which reads ys and the gate
+gradients in place by TMA and multiplies on wgmma, one launch a layer
+(the GRU's two products in one); otherwise the plain ``dw_plain``.
 
 ``kernel_takes(H)`` is the hidden sizes the kernels take and the gate of
 ``models/rnn.py``'s ``auto`` routing; ``ROUTED`` counts the path each
@@ -382,21 +386,23 @@ def gru_scan_train_cuda(xs, w, lo, hi, compute_dtype):
     return ys, gates
 
 
-def gru_bwd_cuda(gates, w, lo, hi, h_prev, g, compute_dtype):
-    """Backward kernel launch: (dxs, dhn); CUDA tensors only."""
+def gru_bwd_cuda(gates, w, lo, hi, ys, g, compute_dtype):
+    """Backward kernel launch: (dxs, dhn); CUDA tensors only. The kernel
+    reads h_prev as ``ys`` one step back (zeros at t = 0), so no shifted
+    copy of ys is made."""
     T, R, _ = gates.shape
     H = w.shape[1]
     sdt = _check_sizes(T, R, H, compute_dtype)
     _check_weights(w, lo, hi, R, H)
     _kernels.check_cuda_tensor("gates", gates, sdt, (T, R, 4 * H))
-    _kernels.check_cuda_tensor("h_prev", h_prev, torch.float32, (T, R, H))
+    _kernels.check_cuda_tensor("ys", ys, torch.float32, (T, R, H))
     _kernels.check_cuda_tensor("g", g, torch.float32, (T, R, H))
     wk, C = _gru_launch_args(w, R // 2, compute_dtype, "bwd")
     dxs = torch.empty((T, R, 3 * H), dtype=sdt, device=gates.device)
     dhn = torch.empty((T, R, H), dtype=sdt, device=gates.device)
     _kernels.GRU_BWD.launch(
         gates.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        h_prev.data_ptr(), g.data_ptr(), dxs.data_ptr(), dhn.data_ptr(),
+        ys.data_ptr(), g.data_ptr(), dxs.data_ptr(), dhn.data_ptr(),
         T, R // 2, H, C, int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(gates))
     return dxs, dhn
@@ -703,14 +709,15 @@ def gru_scan_train(xs, w, lo, hi, compute_dtype):
     return gru_scan_train_plain(xs, w, lo, hi, compute_dtype)
 
 
-def gru_bwd(gates, w, lo, hi, h_prev, g, compute_dtype):
-    """(dxs, dhn): the backward kernel on the card, the plain version on
-    the CPU."""
+def gru_bwd(gates, w, lo, hi, ys, g, compute_dtype):
+    """(dxs, dhn) given the layer's carries ``ys``: the backward kernel on
+    the card (h_prev read from ys in place), the plain version on the CPU
+    (on ``shift_prev(ys)``)."""
     if gates.is_cuda:
-        return gru_bwd_cuda(gates, w, lo, hi, h_prev.contiguous(),
+        return gru_bwd_cuda(gates, w, lo, hi, ys.contiguous(),
                             g.contiguous(), compute_dtype)
     _kernels.check_cpu_tensor("gru_bwd", gates)
-    return gru_bwd_plain(gates, w, lo, hi, h_prev, g, compute_dtype)
+    return gru_bwd_plain(gates, w, lo, hi, shift_prev(ys), g, compute_dtype)
 
 
 def lstm_scan(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
@@ -772,6 +779,91 @@ def dw_matmul(h_prev, dgate, B: int, compute_dtype):
         hp[:, B:].reshape(-1, H).T @ dg[:, B:].reshape(-1, G)])
 
 
+def dw_plain(ys, dgate, B: int, compute_dtype):
+    """Plain version of the dW kernel: ``dw_matmul`` on h_prev =
+    ``shift_prev(ys)`` (``_dw_einsum(_shift_prev(ys), dgate)``)."""
+    return dw_matmul(shift_prev(ys), dgate, B, compute_dtype)
+
+
+class DwPlan(NamedTuple):
+    rows: int           # bc: rows of a direction a K-tile
+    frames: int         # kt: frames a K-tile (kt · bc % 16 == 0, <= 64)
+    ktiles: int         # K-tiles a direction (frames 1 .. T - 1)
+    split: int          # S: blocks a cluster along K
+    tiles: int          # output tiles of 128 x 128, both directions
+    smem: int           # dynamic shared memory a block, bytes
+
+
+def dw_plan(T: int, B: int, H: int, N: int) -> DwPlan:
+    """The dW kernel's launch shape at (T, B, H, N) on this card, as the
+    library (``csr_dw_plan``) computes it; needs the card."""
+    out = (ctypes.c_int * 6)()
+    err = _kernels.call("csr_dw_plan", T, B, H, N, out)
+    if err:
+        raise RuntimeError(f"csr_dw_plan: CUDA error {err}")
+    return DwPlan(*out)
+
+
+def _check_gate_slice(name: str, g, T: int, R: int) -> None:
+    """A bf16 CUDA gate gradient [T, R, G] with unit column stride, a row
+    stride ``ld`` (a column slice of a wider tensor) that is a multiple of
+    8, frames ``R · ld`` apart and a 16-byte-aligned start: what the
+    kernel's tensor maps take."""
+    if not g.is_cuda or g.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: expected a bf16 CUDA tensor, got "
+                         f"{g.dtype} on {g.device}")
+    if g.dim() != 3 or tuple(g.shape[:2]) != (T, R) or g.shape[2] % 4:
+        raise ValueError(f"{name}: expected shape ({T}, {R}, G) with "
+                         f"G % 4 == 0, got {tuple(g.shape)}")
+    ld = g.stride(1)
+    if (g.stride(2) != 1 or ld % 8 or ld < g.shape[2]
+            or g.stride(0) != R * ld or g.data_ptr() % 16):
+        raise ValueError(f"{name}: strides {g.stride()} not taken (unit "
+                         "column stride, a row stride that is a multiple "
+                         "of 8 and frames R rows apart, 16-byte aligned)")
+
+
+def dw_cuda(ys, dgates, B: int) -> torch.Tensor:
+    """dW kernel launch (CUDA tensors only, bf16 compute): ``ys`` [T, 2B,
+    H] fp32 itself (not shifted) and one or two bf16 gate gradients [T, 2B,
+    G_i], which may be column slices of a wider tensor, → one fp32 [2, H,
+    Σ G_i] tensor, the second's columns after the first's (the GRU's
+    ``dxs[..., :2H]`` and ``dhn`` in one launch, no cat)."""
+    T, R, H = ys.shape
+    if not 1 <= len(dgates) <= 2 or R != 2 * B or B < 1 or H % 4:
+        raise ValueError(f"dw kernel: need ys [T, 2B, H] with H % 4 == 0 "
+                         f"and one or two gate tensors (got ys "
+                         f"{tuple(ys.shape)}, B={B}, {len(dgates)} gates)")
+    _kernels.check_cuda_tensor("ys", ys, torch.float32, (T, R, H))
+    for i, g in enumerate(dgates):
+        _check_gate_slice(f"dgate[{i}]", g, T, R)
+    g1, g2 = dgates[0], dgates[-1]
+    n1 = g1.shape[2]
+    n2 = g2.shape[2] if len(dgates) == 2 else 0
+    if n2 and n1 % 64:
+        raise ValueError(f"dw kernel: the first of two gate tensors needs "
+                         f"G % 64 == 0 (got {n1})")
+    out = torch.empty((2, H, n1 + n2), dtype=torch.float32, device=ys.device)
+    _kernels.DW.launch(ys.data_ptr(), g1.data_ptr(), g1.stride(1), n1,
+                       g2.data_ptr(), g2.stride(1), n2, out.data_ptr(), T, B,
+                       H, _kernels.stream_ptr(ys))
+    return out
+
+
+def rnn_dw(ys, dgates, B: int, compute_dtype) -> torch.Tensor:
+    """The recurrent weights' gradient of a BiRNN layer, [2, H, Σ G_i]
+    fp32: on the card under bf16 compute the dW kernel, one launch for all
+    ``dgates``; on the card under fp32 the plain product (fp32
+    ``torch.matmul``: a plain large product, as the fp32 recurrences keep
+    their FMA kernels); on the CPU the plain version."""
+    if ys.is_cuda and compute_dtype == torch.bfloat16:
+        return dw_cuda(ys, dgates, B)
+    if not ys.is_cuda:
+        _kernels.check_cpu_tensor("rnn_dw", ys)
+    dws = [dw_plain(ys, g, B, compute_dtype) for g in dgates]
+    return dws[0] if len(dws) == 1 else torch.cat(dws, dim=2)
+
+
 class BiGRUScan(torch.autograd.Function):
     """``birnn_pallas`` with its custom VJP: ys from (xs, w); gradients
     for xs (in the stream dtype) and w (fp32)."""
@@ -789,10 +881,8 @@ class BiGRUScan(torch.autograd.Function):
         cdt = ctx.compute_dtype
         H = w.shape[1]
         B = ys.shape[1] // 2
-        h_prev = shift_prev(ys)
-        dxs, dhn = gru_bwd(gates, w, lo, hi, h_prev, gy.to(ys.dtype), cdt)
-        dw = torch.cat([dw_matmul(h_prev, dxs[..., :2 * H], B, cdt),
-                        dw_matmul(h_prev, dhn, B, cdt)], dim=2)
+        dxs, dhn = gru_bwd(gates, w, lo, hi, ys, gy.to(ys.dtype), cdt)
+        dw = rnn_dw(ys, (dxs[..., :2 * H], dhn), B, cdt)
         return dxs, dw.to(w.dtype), None, None, None
 
 
@@ -813,5 +903,5 @@ class BiLSTMScan(torch.autograd.Function):
         cdt = ctx.compute_dtype
         B = ys.shape[1] // 2
         dxs = lstm_bwd(gates, w, lo, hi, cs, gy.to(ys.dtype), cdt)
-        dw = dw_matmul(shift_prev(ys), dxs, B, cdt)    # dg ≡ dxs (masked)
+        dw = rnn_dw(ys, (dxs,), B, cdt)                # dg ≡ dxs (masked)
         return dxs, dw.to(w.dtype), None, None, None

@@ -22,6 +22,10 @@ no result line) if any phase fails:
    printed beside them; the bf16 GRU forward's cluster plan
    (``print_rnn_plan``) and its time beside cuDNN's GRU in alternating
    rounds of graph replays (``rnn_graph_rounds``), fp32 timed eagerly;
+   the greedy decode, one launch (argmax, keep mask and compaction),
+   exactly equal to ``compact_kept(*best_keep_plain(...))`` at T' = 251
+   and the long-form T' = 701, both timed as alternating rounds of graph
+   replays (``greedy_check``);
 4. inputs: a ``bigru`` checkpoint (config.json + msgpack params written by
    the port's own writer), a 63-symbol vocab and 64 synthetic wavs of
    8-10 s;
@@ -42,10 +46,15 @@ no result line) if any phase fails:
    recursions bit for bit, and both timed as graph replays beside
    F.ctc_loss's forward and backward (eager: its lengths pass through the
    host) in alternating rounds (``ctc_rounds``), with the eager figures
-   and the microseconds a step;
+   and the microseconds a step; the dW kernel on the GRU kernels' own ys
+   and gradients (dxs[..., :2H] and dhn in one launch) against the fp64
+   sum of the same bf16 operands at K·2^-23·Σ|h·g|, the plain version at
+   twice that and itself bitwise, timed as graph replays beside the
+   parent's chain and cuBLAS's bmm (``dw_check``);
 8. train: a synthetic corpus (192 + 24 utterances of 9-10 s) through the
    port's train CLI on the card, 16 steps with dev eval and checkpoints
-   every 8; every training kernel must show launches from that run; the
+   every 8; every training kernel must show its exact launches from that
+   run (dw: one a layer a step); the
    last checkpoint decodes through the decode CLI; a second run resumes at
    step 16 and stops at 20; prints the warm step time, utterances per
    second, the device's busy share over the profiled steps 10-14 (counted
@@ -65,7 +74,8 @@ no result line) if any phase fails:
     own) against their plain versions at the training shapes (B = 24,
     T' = 256), both plans printed, timed as in phase 10 beside cuDNN's
     training forward and backward (its forward+backward less its training
-    forward);
+    forward); the dW kernel on their ys and dxs as in phase 7 (the kernel
+    line's dw entry);
 12. bilstm_deep decode: a checkpoint of random weights through the decode
     CLI on the 64 wavs with exact launch counts, a warm
     rerun's utterances per second and real-time factor, and 4 wavs' logits
@@ -270,7 +280,14 @@ SOURCES = {
     "flash_bwd_dkv": (
         "chainer_speech_recognition_tpu_torch/csrc/attention_bwd.cu",
         "chainer_speech_recognition_tpu/ops/attention_pallas.py:254"),
+    "dw": (
+        "chainer_speech_recognition_tpu_torch/csrc/dw.cu",
+        "chainer_speech_recognition_tpu/ops/rnn_pallas.py:408"),
 }
+# the kernels line's notes: dw replaces an XLA einsum, not a Pallas call
+NOTES = {"dw": "replaces _dw_einsum, an XLA einsum (not a Pallas call); "
+               "timed at bilstm_deep's training layer, launches from its "
+               "training run"}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GRAPH_CALLS = 10        # calls in one CUDA graph of phase 18's rounds
 # H100 SXM datasheet: HBM bytes/s, dense peak FLOP/s
@@ -626,7 +643,7 @@ def phase_kernels(dev, rng) -> dict:
     from chainer_speech_recognition_tpu_torch import constants as C
     from chainer_speech_recognition_tpu_torch.config import preset_config
     from chainer_speech_recognition_tpu_torch.decode.greedy import (
-        best_keep_cuda, best_keep_plain)
+        best_keep_plain)
     from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
         fused_logmel_rows_cuda)
     from chainer_speech_recognition_tpu_torch.frontend.torch_frontend import (
@@ -746,20 +763,142 @@ def phase_kernels(dev, rng) -> dict:
     glens[3], glens[4], glens[5] = 0, 1, Tp
     lg = torch.from_numpy(logits).to(dev)
     gl = glens.to(dev)
-    kb, kk = best_keep_cuda(lg, gl)
-    pb, pk = best_keep_plain(lg, gl)
-    torch.cuda.synchronize()
-    mism = int((kb != pb).sum() + (kk != pk).sum())
-    print(f"[kernels] greedy logits {tuple(lg.shape)}: {mism} mismatches "
-          f"(exact), best[1,2]={int(kb[1, 2])} best[1,5]={int(kb[1, 5])}")
-    check(mism == 0, "greedy disagrees with its plain version")
-    check(int(kb[1, 2]) == 0 and int(kb[1, 5]) == 0 and int(kb[0, 3]) == 5,
+    out["greedy"] = greedy_check("kernels", lg, gl, Tp)
+    pb, _ = best_keep_plain(lg, gl)
+    check(int(pb[1, 2]) == 0 and int(pb[1, 5]) == 0 and int(pb[0, 3]) == 5,
           "greedy: NaN/tie rule broken")
-    out["greedy"] = dict(
-        max_abs_err=float(mism), ms=time_ms(lambda: best_keep_cuda(lg, gl)),
-        plain_ms=time_ms(lambda: best_keep_plain(lg, gl)), library_ms=None,
-        **bound(nbytes(lg, gl, kb, kk), lg.numel(), "fp32"))
+    # the long-form shape (T' = 701): timed and held to the plain version
+    T_long = 701
+    llg = torch.from_numpy(rng.standard_normal((B, T_long, V)).astype(
+        np.float32)).to(dev)
+    lgl = torch.from_numpy(rng.integers(T_long // 2, T_long + 1, B).astype(
+        np.int32)).to(dev)
+    greedy_check("kernels", llg, lgl, T_long)
     return out
+
+
+def greedy_check(tag: str, lg, gl, max_len: int) -> dict:
+    """The one-launch greedy decode against compact_kept(*best_keep_plain
+    (...)) (exact: ids and lengths), then both timed as alternating rounds
+    of graph replays (device time only; the replays equal the eager
+    outputs) → the kernel line's timings. Bound: the live frames' logits
+    read once, ids and lengths written once; a comparison an element."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.decode.greedy import (
+        best_keep_plain, compact_kept, greedy_decode_cuda)
+
+    B, T, V = lg.shape
+    plain = lambda: compact_kept(*best_keep_plain(lg, gl), max_len)
+    kernel = lambda: greedy_decode_cuda(lg, gl, max_len)
+    ids, lens = kernel()
+    pids, plens = plain()
+    torch.cuda.synchronize()
+    mism = int((ids != pids).sum() + (lens != plens).sum())
+    print(f"[{tag}] greedy logits {tuple(lg.shape)} max_len {max_len}: "
+          f"{mism} mismatches in ids and lengths (exact), kept "
+          f"{int(lens.min())}..{int(lens.max())}")
+    check(mism == 0, "greedy disagrees with its plain version")
+    fns = {"greedy": kernel, "plain": plain}
+    graphs = {n: graph_of(fn, mode="relaxed") for n, fn in fns.items()}
+    rounds = alternating_ms({n: g[0] for n, g in graphs.items()})
+    for n, fn in fns.items():
+        check(same_bits(graphs[n][1], fn()),
+              f"{tag}: the greedy {n} replay differs from its eager output")
+    med = {n: statistics.median(r) for n, r in rounds.items()}
+    live = int(gl.clamp(0, T).sum())
+    t = dict(max_abs_err=float(mism), ms=med["greedy"],
+             plain_ms=med["plain"], library_ms=None,
+             **bound(live * V * 4 + nbytes(gl, ids, lens), live * V, "fp32"))
+    ratio = [b / a for a, b in zip(rounds["greedy"], rounds["plain"])]
+    print(f"[{tag}] greedy T' = {T}: {len(ratio)} alternating rounds of "
+          f"graph replays (medians): kernel {t['ms']:.5f} ms, plain "
+          f"{t['plain_ms']:.5f} ms (plain / kernel "
+          f"{statistics.median(ratio):.2f}, rounds {min(ratio):.2f}-"
+          f"{max(ratio):.2f}); bound {t['bound_ms']:.6f} ms "
+          f"({t['bound_by']}), share {t['bound_ms'] / t['ms']:.4f}; eager "
+          f"(host time in it): kernel {time_ms(kernel):.5f} ms")
+    return t
+
+
+def dw_check(tag: str, dev, ys, gates, B: int) -> dict:
+    """The dW kernel on a training layer's own ys and gate gradients:
+    against the fp64 sum of the same bf16 operands at |Δ| ≤ K·2⁻²³·Σ|h·g|
+    (K = T·B products an element, each exact in fp32, summed in fp32),
+    against the plain version at twice that bar, bitwise against a second
+    run; then timed in alternating rounds of graph replays beside the
+    parent's chain (shift_prev, dw_matmul per gate tensor, cat) and cuBLAS
+    (``torch.bmm`` of bf16 operands laid out per direction beforehand,
+    fp32 output) → the kernel line's timings, the chain as plain_ms."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
+        dw_cuda, dw_matmul, dw_plain, dw_plan, shift_prev)
+
+    T, R, H = ys.shape
+    N = sum(g.shape[2] for g in gates)
+    got = dw_cuda(ys, gates, B)
+    again = dw_cuda(ys, gates, B)
+    plain = torch.cat([dw_plain(ys, g, B, torch.bfloat16) for g in gates],
+                      dim=2)
+    hp = shift_prev(ys).to(torch.bfloat16)
+    g64 = torch.cat([g.double() for g in gates], dim=2)
+    ops = [(hp[:, d * B:(d + 1) * B].reshape(-1, H).double(),
+            g64[:, d * B:(d + 1) * B].reshape(-1, N)) for d in (0, 1)]
+    ref = torch.stack([a.T @ b for a, b in ops])
+    bar = T * B * 2.0 ** -23 * torch.stack([a.abs().T @ b.abs()
+                                            for a, b in ops])
+    tiny = torch.finfo(torch.float64).tiny
+    ex_ref = float(((got.double() - ref).abs() / (bar + tiny)).max())
+    ex_plain = float(((got.double() - plain.double()).abs()
+                      / (2 * bar + tiny)).max())
+    err = float((got - plain).abs().max())
+    print(f"[{tag}] dw ys {tuple(ys.shape)}, gates "
+          f"{[tuple(g.shape) for g in gates]} -> {tuple(got.shape)}: |Δ| / "
+          f"bar {ex_ref:.3e} vs the fp64 sum (bar K·2^-23·Σ|h·g|, K = "
+          f"{T * B}), {ex_plain:.3e} vs the plain version (2·bar; max abs "
+          f"{err:.3e}); two runs bitwise equal: {same_bits(got, again)}; "
+          f"plan {dw_plan(T, B, H, N)}")
+    check(bool(torch.isfinite(got).all()), "dw: non-finite")
+    check(ex_ref <= 1 and ex_plain <= 1, "dw disagrees")
+    check(same_bits(got, again), "dw: two runs differ")
+
+    def chain():
+        h_prev = shift_prev(ys)
+        d = [dw_matmul(h_prev, g, B, torch.bfloat16) for g in gates]
+        return d[0] if len(d) == 1 else torch.cat(d, dim=2)
+
+    a = torch.stack([hp[:, d * B:(d + 1) * B].reshape(-1, H)
+                     for d in (0, 1)]).transpose(1, 2)          # [2, H, K]
+    gb = torch.cat(list(gates), dim=2)
+    b = torch.stack([gb[:, d * B:(d + 1) * B].reshape(-1, N)
+                     for d in (0, 1)]).contiguous()              # [2, K, N]
+    library = lambda: torch.bmm(a, b, out_dtype=torch.float32)
+    lib_err = float((library() - plain).abs().max())
+    fns = {"dw": lambda: dw_cuda(ys, gates, B), "parent chain": chain,
+           "cuBLAS bmm": library}
+    graphs = {n: graph_of(fn, mode="relaxed") for n, fn in fns.items()}
+    rounds = alternating_ms({n: g[0] for n, g in graphs.items()})
+    check(same_bits(graphs["dw"][1], got),
+          f"{tag}: the dw replay differs from its eager output")
+    med = {n: statistics.median(r) for n, r in rounds.items()}
+    # what the product needs: ys at frames 0..T-2, the gate columns at
+    # frames 1..T-1, dW written once
+    need = (T - 1) * R * (H * 4 + N * 2) + nbytes(got)
+    t = dict(max_abs_err=err, ms=med["dw"], plain_ms=med["parent chain"],
+             library_ms=med["cuBLAS bmm"],
+             **bound(need, 2 * 2 * H * N * (T - 1) * B, "bf16"))
+    ratio = [c / k for k, c in zip(rounds["dw"], rounds["parent chain"])]
+    print(f"[{tag}] dw: {len(ratio)} alternating rounds of graph replays "
+          f"(medians): kernel {t['ms']:.5f} ms, parent chain "
+          f"{t['plain_ms']:.5f} ms (chain / kernel "
+          f"{statistics.median(ratio):.2f}, rounds {min(ratio):.2f}-"
+          f"{max(ratio):.2f}), cuBLAS bmm (bf16 in, fp32 out; max abs vs "
+          f"plain {lib_err:.3e}) {t['library_ms']:.5f} ms; bound "
+          f"{t['bound_ms']:.5f} ms ({t['bound_by']}), share "
+          f"{t['bound_ms'] / t['ms']:.4f}; eager (host time in it): kernel "
+          f"{time_ms(fns['dw']):.5f} ms")
+    return t
 
 
 def phase_train_kernels(dev, rng) -> dict:
@@ -810,14 +949,16 @@ def phase_train_kernels(dev, rng) -> dict:
     check(bool(torch.isfinite(ys).all() and torch.isfinite(gates).all()),
           "gru_fwd_train: non-finite")
     check(err <= TOL["gru_bf16"], "gru_fwd_train disagrees")
-    h_prev = shift_prev(ys_p)
-    args = (gates_p, w, lo, hi, h_prev, g, cdt)
-    dxs_p, dhn_p = gru_bwd_plain(*args)
+    # the kernel reads h_prev from ys in place; the plain version takes
+    # shift_prev(ys)
+    args = (gates_p, w, lo, hi, ys_p, g, cdt)
+    plain_args = (gates_p, w, lo, hi, shift_prev(ys_p), g, cdt)
+    dxs_p, dhn_p = gru_bwd_plain(*plain_args)
     gerr = 0.0
     # once on the plain forward's residuals (the kernel alone), once on the
     # forward kernel's own (the training path)
     for gt, y in ((gates_p, ys_p), (gates, ys)):
-        dxs, dhn = gru_bwd_cuda(gt, w, lo, hi, shift_prev(y), g, cdt)
+        dxs, dhn = gru_bwd_cuda(gt, w, lo, hi, y, g, cdt)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(dxs.float()).all()
                    and torch.isfinite(dhn.float()).all()),
@@ -829,6 +970,10 @@ def phase_train_kernels(dev, rng) -> dict:
           f"(tol {TOL['gru_grad_bf16']}; on the plain and the kernel's "
           f"residuals)")
     check(gerr <= TOL["gru_grad_bf16"], "gru_bwd disagrees")
+    # dW of the layer, on the kernels' own ys and gradients: the GRU's two
+    # products (dxs[..., :2H], row stride 3H, and dhn) in one launch
+    out["dw_bigru"] = dw_check("train-kernels", dev, ys,
+                               (dxs[..., :2 * H], dhn), B)
     live = 2 * int(flen.sum())
     esz = xs.element_size()
     print_rnn_plan("gru", "train-kernels", H, B, 2, "fwd")
@@ -852,7 +997,8 @@ def phase_train_kernels(dev, rng) -> dict:
                 2 * live * H * 3 * H, "bf16"))
     out["gru_bwd"] = dict(
         max_abs_err=gerr, ms=med["gru_bwd"],
-        plain_ms=time_ms(lambda: gru_bwd_plain(*args), warmup=1, reps=3),
+        plain_ms=time_ms(lambda: gru_bwd_plain(*plain_args), warmup=1,
+                         reps=3),
         library_ms=med["cuDNN backward"],
         **bound(live * (4 * H * esz + 2 * H * 4) + w.numel() * esz
                 + nbytes(dxs, dhn, lo, hi), 2 * live * 3 * H * H, "bf16"))
@@ -1068,6 +1214,9 @@ def phase_lstm_train_kernels(dev, rng) -> dict:
           f"{tuple(dxs.shape)}: max abs {gerr:.3e} (tol "
           f"{TOL['gru_grad_bf16']}; on the plain and the kernel's residuals)")
     check(gerr <= TOL["gru_grad_bf16"], "lstm_bwd disagrees")
+    # dW of the layer, on the kernels' own ys and dxs (the kernel line's
+    # dw entry)
+    dw = dw_check("lstm-train-kernels", dev, ys, (dxs,), B)
 
     live = 2 * int(flen.sum())
     esz = xs.element_size()
@@ -1101,6 +1250,7 @@ def phase_lstm_train_kernels(dev, rng) -> dict:
             # gates, cs (read once: c_{t-1} is the step before's c) and g
             **bound(live * (4 * H * esz + 2 * H * 4) + w_bytes
                     + nbytes(dxs, lo, hi), 2 * live * 4 * H * H, "bf16")),
+        "dw": dw,
     }
     for name in ("lstm_fwd_train", "lstm_bwd"):
         t = out[name]
@@ -1717,9 +1867,9 @@ def _events(path: str) -> list[dict]:
 
 
 def _busy_share(trace_path: str) -> tuple[float, float, list]:
-    """(device busy share, window ms, top kernels) of a torch.profiler
-    chrome trace: the union of device kernel/copy intervals over the span
-    of all events."""
+    """(device busy share, window ms, every kernel's device time, largest
+    first) of a torch.profiler chrome trace: the union of device
+    kernel/copy intervals over the span of all events."""
     with open(trace_path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
@@ -1737,8 +1887,8 @@ def _busy_share(trace_path: str) -> tuple[float, float, list]:
     by_name: dict = {}
     for a, b, name in dev:
         by_name[name] = by_name.get(name, 0.0) + (b - a)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return busy / (t1 - t0), (t1 - t0) / 1e3, top
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return busy / (t1 - t0), (t1 - t0) / 1e3, ranked
 
 
 def write_corpus(root: str, rng) -> str:
@@ -1820,6 +1970,8 @@ def phase_train(root: str, data: str, preset: str,
         want.update({f"{cell}_fwd_train": layers * TRAIN_STEPS,
                      f"{cell}_bwd": layers * TRAIN_STEPS,
                      f"{cell}_fwd": layers * n_eval})
+        if cfg.model.compute_dtype == "bfloat16":   # one dW launch a layer
+            want["dw"] = layers * TRAIN_STEPS
     if cfg.model.attn_impl == "flash":      # every block, eval included
         blocks = cfg.model.attn_blocks
         want.update({"flash_fwd": blocks * (TRAIN_STEPS + n_eval),
@@ -1850,8 +2002,12 @@ def phase_train(root: str, data: str, preset: str,
           f"10-14 counted from 0), whose steps take {prof_s * 1e3:.3f} ms "
           f"(profiler overhead {prof_s / step_s - 1:+.1%}); peak memory "
           f"{peak:.3f} GiB")
-    for name, us in top:
+    for name, us in top[:8]:
         print(f"[{tag}] device time {us / 1e3:9.3f} ms  {name[:90]}")
+    if want.get("dw"):
+        dw_us = sum(us for name, us in top if "dw_kernel" in name)
+        print(f"[{tag}] device time {dw_us / 1e3:9.3f} ms  the dW kernel "
+              f"(csrc/dw.cu) in the same window")
 
     # the last checkpoint decodes through the decode CLI
     dev_wavs = [json.loads(l)["wav"] for l in open(
@@ -2590,7 +2746,7 @@ def main() -> int:
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]
         launches.update({k: lstm_train[k] for k in (
-            "lstm_fwd_train", "lstm_bwd")})
+            "lstm_fwd_train", "lstm_bwd", "dw")})
         launches["gru_fwd_stream"] = uni_stream["gru_fwd_stream"]
         launches["lstm_fwd_stream"] = lstm_stream["lstm_fwd_stream"]
         launches["frontend_logmel_frames"] = frames_launches
@@ -2607,7 +2763,9 @@ def main() -> int:
         return 1
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1], launches=launches[name],
-                    **timings[name]) for name in SOURCES]
+                    **timings[name],
+                    **({"note": NOTES[name]} if name in NOTES else {}))
+               for name in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

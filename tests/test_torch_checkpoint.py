@@ -131,3 +131,17 @@ def test_writer_round_trip(tmp_path):
     assert os.path.basename(path) == "step_00000012.msgpack"
     _tree_equal(tree["params"], ck.read_params(path))
     assert ck.load_config(str(tmp_path / "c")).to_json() == cfg.to_json()
+
+
+def test_load_model_defaults_to_the_card(tmp_path):
+    """``cli.decode.load_model`` without ``device`` runs on the card: on a
+    host without one it refuses (no silent CPU fallback) before it reads
+    the checkpoint."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.cli.decode import load_model
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default loads onto it")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        load_model(str(tmp_path / "absent"))

@@ -16,7 +16,7 @@ import torch
 from chainer_speech_recognition_tpu_torch import _kernels
 from chainer_speech_recognition_tpu_torch import constants as C
 from chainer_speech_recognition_tpu_torch.decode.greedy import (
-    best_keep_cuda, best_keep_plain)
+    best_keep_plain, compact_kept, greedy_decode, greedy_decode_cuda)
 from chainer_speech_recognition_tpu_torch.frontend.cuda_frontend import (
     _device_tables, frames_per_block, fused_logmel_cuda,
     fused_logmel_rows_cuda)
@@ -28,7 +28,7 @@ from chainer_speech_recognition_tpu_torch.ops.ctc import (
 from chainer_speech_recognition_tpu_torch.ops.ctc_cuda import (
     MAX_STATES, ctc_bwd_cuda, ctc_fwd_cuda, ctc_plan)
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
-    gru_bwd_cuda, gru_bwd_plain, gru_occupancy, gru_plan, gru_scan_cuda,
+    dw_cuda, dw_plain, dw_plan, gru_bwd_cuda, gru_bwd_plain, gru_occupancy, gru_plan, gru_scan_cuda,
     gru_scan_plain, gru_scan_stream_cuda, gru_scan_stream_plain,
     gru_scan_train_cuda, gru_scan_train_plain, lstm_bwd_cuda,
     lstm_bwd_plain, lstm_scan_cuda, lstm_scan_plain, lstm_scan_stream_cuda,
@@ -170,9 +170,9 @@ def test_gru_train_kernels_match_plain(dev, T, B, H, dtype, tol):
     assert float((ys - ys_p).abs().max()) <= tol
     assert float((gates.float() - gates_p.float()).abs().max()) <= tol
     assert torch.equal(ys, gru_scan_cuda(xs, w, lo, hi, dtype))
-    h_prev = shift_prev(ys_p)
-    dxs, dhn = gru_bwd_cuda(gates_p, w, lo, hi, h_prev, g, dtype)
-    dxs_p, dhn_p = gru_bwd_plain(gates_p, w, lo, hi, h_prev, g, dtype)
+    dxs, dhn = gru_bwd_cuda(gates_p, w, lo, hi, ys_p, g, dtype)
+    dxs_p, dhn_p = gru_bwd_plain(gates_p, w, lo, hi, shift_prev(ys_p), g,
+                                 dtype)
     gtol = tol if dtype == torch.float32 else 5e-2
     assert float((dxs.float() - dxs_p.float()).abs().max()) <= gtol
     assert float((dhn.float() - dhn_p.float()).abs().max()) <= gtol
@@ -238,7 +238,7 @@ def test_gru_bf16_kernels_at_cluster_edges(dev, T, B, H):
     dxs_p, dhn_p = gru_bwd_plain(gates_p, w, lo, hi, shift_prev(ys_p), g,
                                  cdt)
     for gt, y in ((gates_p, ys_p), (gates, ys)):
-        dxs, dhn = gru_bwd_cuda(gt, w, lo, hi, shift_prev(y), g, cdt)
+        dxs, dhn = gru_bwd_cuda(gt, w, lo, hi, y, g, cdt)
         assert float((dxs.float() - dxs_p.float()).abs().max()) <= 5e-2
         assert float((dhn.float() - dhn_p.float()).abs().max()) <= 5e-2
     assert (_kernels.GRU_FWD.launches, _kernels.GRU_FWD_TRAIN.launches,
@@ -264,7 +264,7 @@ def test_gru_bf16_kernels_are_repeatable(dev, seed):
         ys0 = gru_scan_cuda(xs, w, lo, hi, cdt)
         ys1 = gru_scan_cuda(x1, w1, lo[:24], hi[:24], cdt)
         ys, gates = gru_scan_train_cuda(xs, w, lo, hi, cdt)
-        dxs, dhn = gru_bwd_cuda(gates, w, lo, hi, shift_prev(ys), g, cdt)
+        dxs, dhn = gru_bwd_cuda(gates, w, lo, hi, ys, g, cdt)
         got = [t.view(torch.int16) if t.dtype == cdt else t
                for t in (ys0, ys1, ys, gates, dxs, dhn)]
         if first is None:
@@ -633,25 +633,112 @@ def test_ctc_plan_covers_every_state(dev, form):
         ctc_plan(MAX_STATES + 1, form)
 
 
-@pytest.mark.parametrize("B,T,V", [(1, 1, 1), (3, 70, 5), (2, 130, 100),
-                                   (4, 65, 64)])
-def test_greedy_kernel_matches_plain(dev, B, T, V):
-    """Exact: ties, a NaN in a frame, an all-NaN frame, lengths 0, 1, T."""
-    rng = np.random.default_rng(V)
+@pytest.mark.parametrize("B,T,V,max_len", [
+    (1, 1, 1, None), (3, 70, 5, None), (2, 130, 100, 3), (4, 65, 64, None),
+    (2, 9, 1, 1), (32, 251, 64, None), (32, 701, 64, None),
+    (3, 2048, 3001, None), (5, 1100, 64, 7), (4, 600, 64, 1)])
+def test_greedy_kernel_matches_plain(dev, B, T, V, max_len):
+    """The one-launch decode (argmax, keep mask and compaction) exactly
+    equal to compact_kept(*best_keep_plain(...)): ties, a NaN in a frame,
+    an all-NaN frame, an all-NaN utterance, lengths 0, 1 and T, V = 1, 5,
+    64 (16-byte loads) and 3001 (scalar loads), T past one chunk of 512
+    frames (up to 2048), and max_len below the kept count."""
+    rng = np.random.default_rng(V * 7 + T)
     logits = rng.standard_normal((B, T, V)).astype(np.float32)
     if V > 3 and T > 5:
         logits[0, 2, [1, 3]] = 9.0
         logits[0, 3, 2] = np.nan
         logits[0, 5, :] = np.nan
-    lens = np.asarray([T, 0, 1, T // 2][:B], np.int32)
+    if B > 3:
+        logits[3] = np.nan
+    lens = rng.integers(0, T + 1, B).astype(np.int32)
+    lens[: min(B, 3)] = [T, 0, 1][: min(B, 3)]
     lg = torch.from_numpy(logits).to(dev)
     ln = torch.from_numpy(lens).to(dev)
-    kb, kk = best_keep_cuda(lg, ln)
-    pb, pk = best_keep_plain(lg, ln)
-    assert torch.equal(kb, pb) and torch.equal(kk, pk)
-    if V > 3 and T > 5:
-        assert int(kb[0, 2]) == 1 and int(kb[0, 3]) == 0 \
-            and int(kb[0, 5]) == 0
+    want_len = max_len or T
+    before = _kernels.GREEDY.launches
+    ids, out_lens = greedy_decode(lg, ln, max_len)
+    assert _kernels.GREEDY.launches == before + 1
+    pids, plens = compact_kept(*best_keep_plain(lg, ln), want_len)
+    assert ids.shape == (B, want_len) and ids.dtype == torch.int32
+    assert torch.equal(ids, pids) and torch.equal(out_lens, plens)
+    if max_len is not None and V > 1:      # some row is cut at max_len
+        assert bool((plens == max_len).any())
+    if B > 1:
+        assert int(out_lens[1]) == 0
+    if B > 3:
+        assert int(out_lens[3]) == 0
+
+
+def _dw_operands(dev, T, B, H, gru, seed):
+    """ys [T, 2B, H] fp32 and the gate gradients: the LSTM's dxs [T, 2B,
+    4H], or the GRU's dxs[..., :2H] of a [T, 2B, 3H] tensor (row stride 3H)
+    and dhn [T, 2B, H], bf16, with dead rows zero as the backward masks
+    them."""
+    rng = np.random.default_rng(seed)
+    ys = torch.from_numpy(rng.uniform(-1, 1, (T, 2 * B, H)).astype(
+        np.float32)).to(dev)
+    widths = (3 * H, H) if gru else (4 * H,)
+    gs = [torch.from_numpy(rng.standard_normal((T, 2 * B, n)).astype(
+        np.float32)).to(dev).to(torch.bfloat16) for n in widths]
+    if B > 1:
+        for g in gs:
+            g[T // 2:, 1] = 0
+    return ys, ((gs[0][..., :2 * H], gs[1]) if gru else (gs[0],))
+
+
+def _dw_fp64(ys, gates, B):
+    """The fp64 sum of the same bf16 operands and Σ|h·g| of each element."""
+    hp = shift_prev(ys).to(torch.bfloat16).double()
+    g = torch.cat([x.double() for x in gates], dim=2)
+    H, N = hp.shape[2], g.shape[2]
+    a = [hp[:, d * B:(d + 1) * B].reshape(-1, H) for d in (0, 1)]
+    b = [g[:, d * B:(d + 1) * B].reshape(-1, N) for d in (0, 1)]
+    ref = torch.stack([x.T @ y for x, y in zip(a, b)])
+    absum = torch.stack([x.abs().T @ y.abs() for x, y in zip(a, b)])
+    return ref, absum
+
+
+@pytest.mark.parametrize("gru", [False, True])
+@pytest.mark.parametrize("T", [1, 2, 256])
+@pytest.mark.parametrize("B", [1, 7, 24])
+@pytest.mark.parametrize("H", [32, 256, 384, 512])
+def test_dw_kernel_matches_fp64_sum(dev, H, B, T, gru):
+    """The dW kernel against the fp64 sum of the same bf16 operands at
+    |Δ| ≤ K·2⁻²³·Σ_k|h_k·g_k| (K = T·B products an element, each exact in
+    fp32, added in fp32: the worst-case growth of such a sum), against
+    the plain version (today's fp32 product, itself within that bar of
+    the fp64 sum: twice the bar between them), and against itself bitwise;
+    one launch a call, the GRU's two products in one."""
+    ys, gates = _dw_operands(dev, T, B, H, gru, H + 10 * B + T)
+    before = _kernels.DW.launches
+    got = dw_cuda(ys, gates, B)
+    again = dw_cuda(ys, gates, B)
+    assert _kernels.DW.launches == before + 2
+    N = sum(g.shape[2] for g in gates)
+    assert got.shape == (2, H, N) and got.dtype == torch.float32
+    ref, absum = _dw_fp64(ys, gates, B)
+    bar = T * B * 2.0 ** -23 * absum
+    assert bool(((got.double() - ref).abs() <= bar).all())
+    plain = torch.cat([dw_plain(ys, g, B, torch.bfloat16) for g in gates], 2)
+    assert bool(((got.double() - plain.double()).abs() <= 2 * bar).all())
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    if T == 1:
+        assert bool((got == 0).all())
+
+
+def test_dw_plan_tiles_k_by_whole_wgmma_steps(dev):
+    """The library's launch plan: a K-tile is kt frames of bc rows with
+    kt·bc a multiple of 16 (a bf16 wgmma k-step) and at most 64, every row
+    of B covered; bilstm_deep's and bigru's training shapes split K."""
+    for B in range(1, 130):
+        p = dw_plan(256, B, 384, 1536)
+        assert (p.rows * p.frames) % 16 == 0 and p.rows * p.frames <= 64
+        nbc = -(-B // p.rows)
+        assert p.ktiles == -(-255 // p.frames) * nbc
+        assert p.smem <= 232448 and 1 <= p.split <= 8
+    assert dw_plan(256, 24, 384, 1536)[:2] == (24, 2)
+    assert dw_plan(1, 24, 384, 1536).ktiles == 0
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):
@@ -669,7 +756,16 @@ def test_kernels_refuse_what_they_do_not_take(dev):
                       torch.zeros(2, 32, 96, device=dev), lo, lo,
                       torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        best_keep_cuda(torch.zeros(1, 2, 3), torch.ones(1, dtype=torch.int32))
+        greedy_decode_cuda(torch.zeros(1, 2, 3),
+                           torch.ones(1, dtype=torch.int32), 2)
+    ys, (dg,) = _dw_operands(dev, 4, 2, 32, False, 0)
+    with pytest.raises(ValueError, match="strides"):        # row stride 132
+        dw_cuda(ys, (torch.zeros(4, 4, 132, device=dev,
+                                 dtype=torch.bfloat16)[..., 4:],), 2)
+    with pytest.raises(ValueError, match="bf16 CUDA tensor"):
+        dw_cuda(ys, (dg.float(),), 2)
+    with pytest.raises(ValueError, match="G % 64"):         # 2 maps, n1 = 32
+        dw_cuda(ys, (dg[..., :32], dg[..., 32:64]), 2)
     with pytest.raises(ValueError, match="cannot hold"):
         fused_logmel_rows_cuda(torch.zeros(1, 600, device=dev), 5)
     with pytest.raises(ValueError, match="int32"):

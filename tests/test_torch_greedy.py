@@ -1,7 +1,8 @@
-"""PyTorch greedy decode (decode/greedy.py: the kernel's plain version on
-the CPU + compact_kept) vs the JAX Pallas greedy kernel (interpret mode)
-and the host oracle. The CUDA kernel is checked on the card by
-chip_smoke.py."""
+"""PyTorch greedy decode (decode/greedy.py: on the CPU the plain version,
+compact_kept(*best_keep_plain(...))) vs the JAX Pallas greedy kernel
+(interpret mode) and the host oracle. The CUDA kernel, which does all of
+it in one launch, is held to the plain version on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import numpy as np
 import torch
@@ -13,7 +14,7 @@ from chainer_speech_recognition_tpu.decode.greedy import greedy_decode_np
 from chainer_speech_recognition_tpu.decode.greedy_pallas import (
     greedy_decode_pallas)
 from chainer_speech_recognition_tpu_torch.decode.greedy import (
-    best_keep, best_keep_plain, greedy_decode)
+    best_keep_plain, compact_kept, greedy_decode)
 
 
 def _decode(logits, lens, max_len=None):
@@ -79,8 +80,31 @@ def test_max_len_smaller_than_kept_count():
 
 
 def test_wrapper_takes_plain_version_on_cpu():
+    """On CPU tensors greedy_decode is compact_kept(*best_keep_plain(...)),
+    the version the card's one-launch kernel is held to."""
     logits, lens = _planted(seed=4)
-    a = best_keep(torch.from_numpy(logits), torch.from_numpy(lens))
-    b = best_keep_plain(torch.from_numpy(logits), torch.from_numpy(lens))
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert a[0].dtype == torch.int32 and a[1].dtype == torch.int32
+    lg, ln = torch.from_numpy(logits), torch.from_numpy(lens)
+    for max_len in (None, 3):
+        a = greedy_decode(lg, ln, max_len=max_len)
+        b = compact_kept(*best_keep_plain(lg, ln), max_len or lg.shape[1])
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert a[0].dtype == torch.int32 and a[1].dtype == torch.int32
+
+
+def test_one_symbol_vocab_single_slot_and_nan_batch():
+    """Edges the kernel takes too: V = 1 (every frame is blank), max_len =
+    1 (at most one symbol kept), and a batch whose frames are all NaN (all
+    blank): the CPU route against the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(5)
+    cases = [(rng.standard_normal((3, 9, 1)).astype(np.float32), None),
+             (_planted(seed=6)[0], 1),
+             (np.full((2, 7, 5), np.nan, np.float32), None)]
+    for logits, max_len in cases:
+        B, T, _ = logits.shape
+        lens = np.asarray([T, 0, 4, 1, T, 2][:B], np.int32)
+        ids, ol = _decode(logits, lens, max_len)
+        pids, pol = _pallas(logits, lens, max_len)
+        assert np.array_equal(ids, pids) and np.array_equal(ol, pol)
+        assert ids.shape == (B, max_len or T)
+    assert np.all(_decode(*cases[0][:1], np.asarray([9, 0, 4], np.int32))[1]
+                  == 0)

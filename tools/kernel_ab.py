@@ -2,14 +2,14 @@
 one card, on the same inputs, by two yardsticks:
 
     python3 tools/kernel_ab.py OTHER_ROOT [--rounds 9] [--seed 0]
-                               [--cases frontend,flash,lstm,gru,stream,ctc]
+                [--cases frontend,flash,lstm,gru,stream,ctc,greedy,dw]
 
 OTHER_ROOT is the root of another checkout of the repo (for example an
 older commit unpacked by ``git archive`` into a git-ignored directory).
 Its ``csrc/frontend_logmel.cu``, ``attention_fwd.cu``,
 ``attention_bwd.cu``, ``lstm_fwd.cu``, ``lstm_bwd.cu``, ``gru_fwd.cu``,
-``gru_bwd.cu`` and ``ctc.cu`` (with ``library.cu``, the error strings) are
-built alone into a library of
+``gru_bwd.cu``, ``ctc.cu``, ``greedy.cu`` and ``dw.cu`` (those it has; with
+``library.cu``, the error strings) are built alone into a library of
 their own, and its Python package is imported under another name with
 that library bound in, so each build is called through its own
 checkout's wrappers, weight layouts and host tables.
@@ -47,9 +47,20 @@ Kernels and shapes (those of ``chip_smoke.py``):
   long-form (B = 24, T' = 701, S = 601, 228-280 labels), beside
   F.ctc_loss's forward and its backward (forward+backward less forward);
   both builds' alphas, loss and grad must be bitwise equal (each build
-  through its own wrappers and launch plan).
+  through its own wrappers and launch plan);
+* greedy decoding (row 14) at the decode shape (B = 32, T' = 251, V =
+  64) and long-form (T' = 701): each build's ``greedy_decode`` (this
+  one's single launch; older builds' kernel and the torch compaction
+  after it), both equal to the plain version exactly;
+* the recurrences' weight gradient at bilstm_deep's training layer (T' =
+  256, B = 24, H = 384, N = 4H) and bigru's (H = 256, N = 3H: two gate
+  tensors): this build's ``rnn_dw`` (the dW kernel) against the other
+  build's chain (shift_prev, dw_matmul, cat) and cuBLAS's bmm of bf16
+  operands laid out beforehand, held to the other build at twice the
+  fp32 summation bar.
 
-``--cases`` takes a subset of ``frontend,flash,lstm,gru,stream,ctc``.
+``--cases`` takes a subset of
+``frontend,flash,lstm,gru,stream,ctc,greedy,dw``.
 
 Each is timed in alternating rounds, both builds and the library call in
 each round:
@@ -82,6 +93,7 @@ import argparse
 import ctypes
 import importlib
 import importlib.util
+import inspect
 import json
 import os
 import statistics
@@ -98,27 +110,29 @@ import chip_smoke as cs  # noqa: E402
 PKG = "chainer_speech_recognition_tpu_torch"
 SOURCES = ("frontend_logmel.cu", "attention_fwd.cu", "attention_bwd.cu",
            "lstm_fwd.cu", "lstm_bwd.cu", "gru_fwd.cu", "gru_bwd.cu",
-           "ctc.cu", "library.cu")
-CASES = ("frontend", "flash", "lstm", "gru", "stream", "ctc")
+           "ctc.cu", "greedy.cu", "dw.cu", "library.cu")
+CASES = ("frontend", "flash", "lstm", "gru", "stream", "ctc", "greedy",
+         "dw")
 
 
 def build_alone(root: str, tag: str) -> str:
-    """``root``'s kernel sources of ``SOURCES``, one nvcc each, started
-    together, linked into one library → its path."""
+    """``root``'s kernel sources of ``SOURCES`` (those it has), one nvcc
+    each, started together, linked into one library → its path."""
     from chainer_speech_recognition_tpu_torch import _kernels
 
     csrc = os.path.join(root, PKG, "csrc")
     out = os.path.join(_kernels._BUILD, "ab")
     os.makedirs(out, exist_ok=True)
     so = os.path.join(out, f"{tag}_{os.getpid()}.so")
-    objs = [f"{so}.{s}.o" for s in SOURCES]
+    srcs = [s for s in SOURCES if os.path.exists(os.path.join(csrc, s))]
+    objs = [f"{so}.{s}.o" for s in srcs]
     procs = [subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-c",
                                "-o", o, os.path.join(csrc, s)],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(SOURCES, objs)]
+             for s, o in zip(srcs, objs)]
     logs = [p.communicate()[0] for p in procs]
-    for s, p, log in zip(SOURCES, procs, logs):
+    for s, p, log in zip(srcs, procs, logs):
         cs.check(p.returncode == 0, f"nvcc failed on {root}/{s}:\n{log}")
     r = subprocess.run([_kernels._nvcc(), "-shared", "-o", so, *objs],
                        capture_output=True, text=True)
@@ -422,6 +436,13 @@ def lstm_case(dev, rng, other, rounds, tag, B, T, lens, train: bool):
     return res
 
 
+def bwd_carries(m, ys):
+    """What a build's GRU backward takes for h_prev: ys itself (it reads
+    one step back in place) or, in builds before that, ``shift_prev(ys)``."""
+    takes_ys = "ys" in inspect.signature(m.gru_bwd_cuda).parameters
+    return ys if takes_ys else m.shift_prev(ys)
+
+
 def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
              ndir: int):
     """Row 3 (the residual-free form, ndir 2 or 1), or the training form
@@ -455,14 +476,15 @@ def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
     res = {"tag": tag, "B": B, "T": T, "H": H, "ndir": ndir}
     if train:
         ys_p, gates_p = rc.gru_scan_train_plain(xs, w, lo, hi, cdt)
-        h_prev = rc.shift_prev(ys_p)
-        dxs_p, dhn_p = rc.gru_bwd_plain(gates_p, w, lo, hi, h_prev, g, cdt)
+        dxs_p, dhn_p = rc.gru_bwd_plain(gates_p, w, lo, hi,
+                                        rc.shift_prev(ys_p), g, cdt)
+        prev = {b: bwd_carries(m, ys_p) for b, m in mods.items()}
     else:
         ys_p = rc.gru_scan_plain(xs, w, lo, hi, cdt)
     for b, m in mods.items():
         if train:
             ys, gates = m.gru_scan_train_cuda(xs, w, lo, hi, cdt)
-            dxs, dhn = m.gru_bwd_cuda(gates_p, w, lo, hi, h_prev, g, cdt)
+            dxs, dhn = m.gru_bwd_cuda(gates_p, w, lo, hi, prev[b], g, cdt)
             err = {"ys": ys - ys_p, "gates": gates.float() - gates_p.float(),
                    "dxs": dxs.float() - dxs_p.float(),
                    "dhn": dhn.float() - dhn_p.float()}
@@ -484,7 +506,7 @@ def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
         if ndir == 2:
             ys, gates = m.gru_scan_train_cuda(xs32, w, lo, hi, f32)
             out += [ys, gates, *m.gru_bwd_cuda(gates, w, lo, hi,
-                                               rc.shift_prev(ys), g, f32)]
+                                               bwd_carries(m, ys), g, f32)]
         kept[b] = out + list(m.gru_scan_stream_cuda(xs32, w, lo, hi, h0, f32,
                                                     T // 2))
     torch.cuda.synchronize()
@@ -503,8 +525,8 @@ def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
         if train:
             fns[f"{b} fwd_train"] = lambda m=m: m.gru_scan_train_cuda(
                 xs, w, lo, hi, cdt)
-            fns[f"{b} bwd"] = lambda m=m: m.gru_bwd_cuda(
-                gates_p, w, lo, hi, h_prev, g, cdt)
+            fns[f"{b} bwd"] = lambda m=m, b=b: m.gru_bwd_cuda(
+                gates_p, w, lo, hi, prev[b], g, cdt)
         else:
             fns[f"{b} fwd"] = lambda m=m: m.gru_scan_cuda(xs, w, lo, hi, cdt)
     if train:
@@ -649,6 +671,101 @@ def ctc_case(dev, rng, other, rounds, tag, seconds, T, lens, L):
     return res
 
 
+def greedy_case(dev, rng, other, rounds, tag, B, T, V):
+    """Row 14: this build's greedy_decode (one launch: argmax, keep mask
+    and compaction) against the other build's (its kernel, then
+    compact_kept in torch), each through its own package, on the same
+    logits (planted ties and NaN frames, lengths 0, 1 and T'); both must
+    equal the plain version exactly."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.decode import greedy as gd
+
+    og = importlib.import_module(f"{other.__name__}.decode.greedy")
+    logits = rng.standard_normal((B, T, V)).astype(np.float32)
+    logits[0, 3, [5, 9]] = 7.0
+    logits[1, 2, 7] = np.nan
+    logits[1, 5, :] = np.nan
+    lens = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    lens[:3] = [0, 1, T]
+    lg, ln = torch.from_numpy(logits).to(dev), torch.from_numpy(lens).to(dev)
+    want = gd.compact_kept(*gd.best_keep_plain(lg, ln), T)
+    mods = {"this": gd, "other": og}
+    res = {"tag": tag, "B": B, "T": T, "V": V}
+    for b, m in mods.items():
+        got = m.greedy_decode(lg, ln)
+        torch.cuda.synchronize()
+        res[f"{b} equals plain"] = cs.same_bits(tuple(got), tuple(want))
+        cs.check(res[f"{b} equals plain"], f"{tag} {b}: differs from plain")
+    print(f"[ab] {tag}: both builds equal the plain version exactly")
+    fns = {f"{b} greedy_decode": (lambda m=m: m.greedy_decode(lg, ln))
+           for b, m in mods.items()}
+    replays = {n: cs.graph_of(f, mode="relaxed")[0] for n, f in fns.items()}
+    res.update(report(f"{tag} B={B} T'={T} V={V}",
+                      timed(fns, rounds, replays),
+                      [("other greedy_decode", "this greedy_decode")]))
+    return res
+
+
+def dw_case(dev, rng, other, rounds, tag, T, B, H, cell):
+    """The recurrent weights' gradient of one training layer: this build's
+    ``rnn_dw`` (the dW kernel, one launch; the GRU's two products in one)
+    against the other build's chain as its backward ran it (shift_prev,
+    dw_matmul per gate tensor on the card, cat for the GRU) and cuBLAS's
+    bmm (bf16 operands laid out per direction beforehand, fp32 out), on
+    the same ys (fp32) and bf16 gate gradients; held to the other build's
+    result at 2·K·2⁻²³·Σ|h·g| (both sum exact products in fp32)."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.ops import rnn_cuda as rc
+
+    orc = importlib.import_module(f"{other.__name__}.ops.rnn_cuda")
+    cdt = torch.bfloat16
+    ys = torch.from_numpy(rng.uniform(-1, 1, (T, 2 * B, H)).astype(
+        np.float32)).to(dev)
+    widths = (3 * H, H) if cell == "gru" else (4 * H,)
+    gs = [torch.from_numpy(rng.standard_normal((T, 2 * B, n)).astype(
+        np.float32)).to(dev).to(cdt) for n in widths]
+    gates = (gs[0][..., :2 * H], gs[1]) if cell == "gru" else (gs[0],)
+
+    def this():
+        return rc.rnn_dw(ys, gates, B, cdt)
+
+    def chain():
+        h_prev = orc.shift_prev(ys)
+        d = [orc.dw_matmul(h_prev, g, B, cdt) for g in gates]
+        return d[0] if len(d) == 1 else torch.cat(d, dim=2)
+
+    N = sum(g.shape[2] for g in gates)
+    hp = rc.shift_prev(ys).to(cdt)
+    a = torch.stack([hp[:, d * B:(d + 1) * B].reshape(-1, H)
+                     for d in (0, 1)]).transpose(1, 2)
+    gb = torch.cat(list(gates), dim=2)
+    bm = torch.stack([gb[:, d * B:(d + 1) * B].reshape(-1, N)
+                      for d in (0, 1)]).contiguous()
+    library = lambda: torch.bmm(a, bm, out_dtype=torch.float32)
+    got, want = this(), chain()
+    absum = torch.stack([a[d].double().abs() @ bm[d].double().abs()
+                         for d in (0, 1)])
+    bar = 2 * T * B * 2.0 ** -23 * absum
+    ex = float(((got.double() - want.double()).abs()
+                / (bar + torch.finfo(torch.float64).tiny)).max())
+    res = {"tag": tag, "T": T, "B": B, "H": H, "N": N,
+           "this vs other |d|/bar": ex,
+           "cuBLAS max abs vs other": float((library() - want).abs().max())}
+    print(f"[ab] {tag}: this vs the other build's chain |Δ| / (2·K·2^-23·"
+          f"Σ|h·g|) {ex:.3e}; cuBLAS bmm max abs vs it "
+          f"{res['cuBLAS max abs vs other']:.3e}")
+    cs.check(ex <= 1, f"{tag}: this build's dW breaks the bar")
+    fns = {"this rnn_dw": this, "other chain": chain, "cuBLAS bmm": library}
+    replays = {n: cs.graph_of(f, mode="relaxed")[0] for n, f in fns.items()}
+    res.update(report(f"{tag} T'={T} B={B} H={H} N={N}",
+                      timed(fns, rounds, replays),
+                      [("other chain", "this rnn_dw"),
+                       ("this rnn_dw", "cuBLAS bmm")]))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the other checkout")
@@ -663,6 +780,7 @@ def main() -> int:
         import torch
 
         from chainer_speech_recognition_tpu_torch import _kernels
+        from chainer_speech_recognition_tpu_torch.config import preset_config
 
         dev = torch.device("cuda")
         _kernels.library()
@@ -686,6 +804,16 @@ def main() -> int:
         if "ctc" in cases:
             out += [ctc_case(dev, rng, other, a.rounds, *c)
                     for c in cs.ctc_cases(rng)]
+        if "greedy" in cases:
+            V = preset_config(cs.PRESET).model.vocab_size
+            out += [greedy_case(dev, rng, other, a.rounds,
+                                f"greedy T'={T}", cs.CHECK_B, T, V)
+                    for T in (251, 701)]
+        if "dw" in cases:
+            for p in (cs.LSTM_PRESET, cs.PRESET):
+                m = preset_config(p).model
+                out.append(dw_case(dev, rng, other, a.rounds, f"dw {p}", 256,
+                                   cs.TRAIN_B, m.rnn_hidden, m.rnn_type))
     except cs.SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
