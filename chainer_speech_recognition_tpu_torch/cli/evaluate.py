@@ -1,0 +1,235 @@
+"""Evaluate CLI: checkpoint → dev/test CER (port of the greedy paths of
+``cli/evaluate.py``), on one card (default) or the CPU.
+
+Reconstructs the training config (front-end included) from the checkpoint
+directory's frozen config.json, scores each ``--index`` set (a JSONL
+index, or a packed ``.pack`` set) with one forward pass a batch and greedy
+decoding, and prints the reference's result lines:
+
+  CER 0.0123 | loss 12.3456 | 200 utts | 240 edits / 19310 ref chars
+
+``--streaming`` scores the same set through the online recognizer
+(``decode/streaming.py``) instead, and prints ``CER[streaming] …`` with
+its buffering. The checkpoint load's time and each set's utt/s go to
+stderr, so stdout compares line by line with the reference's. Beam search
+and LM fusion (``--beam``, ``--lm``, ``--lm-*``, ``--compare``,
+``--tune-*``) are parsed and refused; the mesh-sharded evaluation of the
+reference is not ported (one device).
+
+    python -m chainer_speech_recognition_tpu_torch.cli.evaluate \\
+        --ckpt-dir CKPT --data-dir prep --index dev_index.jsonl,dev.pack
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+
+from ..data.corpus import load_index, load_signal
+from ..data.packed import PackedBatchLoader, PackedCorpus
+from ..data.sampler import BatchLoader, BucketSampler
+from ..decode.metrics import CERAccumulator
+from ..decode.streaming import StreamingRecognizer, decode_lockstep
+from ..train.loop import evaluate_multi
+from ..train.step import make_eval_step
+from ..utils.wav import read_wav
+from ..vocab import Vocab
+from .common import parse_overrides, resolve_device
+from .decode import load_model
+
+# flags of the reference's beam and LM paths: parsed, then refused
+NOT_PORTED = ("beam", "lm", "lm_alpha", "lm_beta", "lm_repr", "compare",
+              "tune_lm", "tune_alphas", "tune_betas", "tune_chunk")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--ckpt-dir", required=True)
+    p.add_argument("--average-last", type=int, default=1,
+                   help="average the parameters of the last N kept "
+                        "checkpoints (eval-time checkpoint averaging)")
+    p.add_argument("--data-dir", required=True)
+    p.add_argument("--index", default="dev_index.jsonl",
+                   help="index file(s) under --data-dir; comma-separated "
+                        "for multi-set eval (a name ending in .pack, or "
+                        "with a .pack beside it, reads the packed set) — "
+                        "one model load, per-set CER rows")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--hyp-out", default=None,
+                   help="write hypotheses (utt_id<TAB>text, index order); "
+                        "with several sets, one file per set")
+    p.add_argument("--streaming", action="store_true",
+                   help="score through the ONLINE recognizer "
+                        "(decode/streaming.py) instead of the offline "
+                        "forward; needs a causal-CMVN checkpoint")
+    p.add_argument("--stream-chunk", type=int, default=64,
+                   help="streaming: emitted frames per step (10 ms units)")
+    p.add_argument("--stream-right", type=int, default=None,
+                   help="streaming: lookahead frames — buffering latency "
+                        "= (chunk + right) x 10 ms. Default 16, or 0 for "
+                        "chunk-causal attention checkpoints")
+    p.add_argument("--stream-batch", type=int, default=16,
+                   help="streaming: lockstep streams per step")
+    p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
+                   help="dotted eval-time config overrides on top of the "
+                        "frozen training config (bucket shapes, ...); "
+                        "model.* is rejected except the execution-choice "
+                        "knobs attn_impl / attn_residual_dtype / rnn_impl")
+    g = p.add_argument_group("not ported yet (refused)")
+    g.add_argument("--beam", type=int, default=None)
+    g.add_argument("--lm", default=None)
+    g.add_argument("--lm-alpha", type=float, default=None)
+    g.add_argument("--lm-beta", type=float, default=None)
+    g.add_argument("--lm-repr", default=None)
+    g.add_argument("--compare", action="store_true", default=None)
+    g.add_argument("--tune-lm", action="store_true", default=None)
+    g.add_argument("--tune-alphas", default=None)
+    g.add_argument("--tune-betas", default=None)
+    g.add_argument("--tune-chunk", type=int, default=None)
+    args = p.parse_args(argv)
+
+    given = [f"--{k.replace('_', '-')}" for k in NOT_PORTED
+             if getattr(args, k) is not None]
+    if given:
+        raise SystemExit(
+            f"{', '.join(given)}: prefix beam search and LM fusion are not "
+            "ported yet (ROADMAP.md, module queue: config 4, prefix beam "
+            "search with n-gram LM fusion); the port evaluates greedily")
+    device = resolve_device(args.device)
+
+    t0 = time.perf_counter()
+    cfg, model, path = load_model(args.ckpt_dir, args.average_last,
+                                  parse_overrides(args.set), device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    load_s = time.perf_counter() - t0
+    vocab = Vocab.load(os.path.join(args.data_dir, "vocab.txt"))
+    if len(vocab) != cfg.model.vocab_size:
+        raise SystemExit(
+            f"vocab has {len(vocab)} symbols but the checkpoint was trained "
+            f"with model.vocab_size={cfg.model.vocab_size} — wrong vocab "
+            "file for this checkpoint (decodes would be silently garbled)")
+    set_names = [s for s in args.index.split(",") if s]
+    if args.stream_right is None:   # model-aware default (stream_geometry
+        # rejects lookahead on chunk-causal attention checkpoints)
+        args.stream_right = 0 if cfg.model.attn_chunk else 16
+    if args.streaming and cfg.model.attn_blocks and cfg.model.attn_chunk:
+        raise SystemExit(
+            f"{cfg.model.preset}: streaming the chunk-causal attention "
+            "family is not ported yet (ROADMAP.md, module queue: "
+            "conformer_stream streaming); evaluate it offline")
+    eval_fn = make_eval_step(model, cfg)
+
+    print(f"checkpoint {path}")
+    print(f"checkpoint load {load_s:.3f} s", file=sys.stderr)
+    stream_rec = None                 # built once across --index sets
+    for set_name in set_names:
+        base = os.path.join(args.data_dir, set_name)
+        if set_name.endswith(".pack") or os.path.exists(base + ".pack"):
+            # packed binary eval set (preprocess --pack): the wire format
+            # the train CLI reads, so a packed corpus round-trips
+            prefix = base[: -len(".pack")] if set_name.endswith(".pack") \
+                else base
+            pv = prefix + ".vocab.txt"
+            has_sidecar = os.path.exists(pv)   # checked ONCE for both guards
+            if has_sidecar and Vocab.load(pv).symbols != vocab.symbols:
+                raise SystemExit(
+                    f"{pv} differs from the --data-dir vocab — the pack's "
+                    "label ids would mis-score against this checkpoint; "
+                    "re-pack the eval set with the training vocab")
+            pc = PackedCorpus(prefix)
+            if not has_sidecar:
+                # a pack without a vocab sidecar: bound-check the label ids
+                # so an out-of-range encoding fails loudly — a REORDERED
+                # vocab of the same size is undetectable here, so say so
+                lf = pc.labels_flat
+                if lf.size and int(lf.max()) >= len(vocab):
+                    raise SystemExit(
+                        f"{prefix}.pack labels reach id {int(lf.max())} but "
+                        f"the --data-dir vocab has {len(vocab)} symbols — "
+                        "the pack was encoded with a different vocab")
+                print(f"warning: {prefix}.pack has no .vocab.txt sidecar; "
+                      "cannot verify its label ids were encoded with this "
+                      "vocab (the loss column is wrong if not; CER is "
+                      "unaffected — hypotheses score against stored texts)")
+            utts = pc.utterances()
+            loader = PackedBatchLoader(pc, cfg.buckets)
+            read1 = pc.signal               # streaming reads from the mmap
+        else:
+            utts = load_index(base)
+            loader = BatchLoader(utts, vocab, cfg.buckets)
+            read1 = lambda i: load_signal(utts[i], read_wav)
+        sampler = BucketSampler(utts, cfg.buckets, seed=0)
+        stem = os.path.splitext(os.path.basename(set_name))[0]
+        tag = f"[{stem}] " if len(set_names) > 1 else ""
+        hyp_out = args.hyp_out
+        if hyp_out and len(set_names) > 1:   # one file per set
+            root_, ext_ = os.path.splitext(hyp_out)
+            hyp_out = f"{root_}.{stem}{ext_}"
+
+        if sampler.num_dropped and not args.streaming:
+            # the streaming path below is bucket-free and scores every
+            # utterance, so the drop warning would be wrong there
+            print(f"{tag}warning: {sampler.num_dropped}/{len(utts)} utterances "
+                  "exceed the bucket boundaries / max_label_len, NOT scored")
+
+        def write_hyps(sink):
+            with open(hyp_out, "w", encoding="utf-8") as f:
+                for i, text in sorted(sink):
+                    f.write(f"{utts[i].utt_id}\t{text}\n")
+            print(f"wrote {len(sink)} hypotheses -> {hyp_out}")
+
+        sink = [] if hyp_out else None
+        t_set = time.perf_counter()
+        if args.streaming:
+            if stream_rec is None:     # ONE recognizer across the sets
+                stream_rec = StreamingRecognizer(
+                    model, cfg, batch=max(1, args.stream_batch),
+                    chunk_frames=args.stream_chunk,
+                    right_frames=args.stream_right)
+            rec = stream_rec
+            acc = CERAccumulator()
+            # length-sorted lockstep batches through the feeder that
+            # cli/stream.py shares (decode/streaming.decode_lockstep)
+            order = sorted(range(len(utts)),
+                           key=lambda i: utts[i].num_samples)
+            for grp, ids in decode_lockstep(rec, order, read1):
+                texts = [vocab.decode(row) for row in ids]
+                acc.add_batch(texts, [utts[i].text for i in grp])
+                if sink is not None:
+                    sink.extend(zip(grp, texts))
+            g = rec.geo
+            print(f"{tag}CER[streaming] {acc.cer:.4f} | {acc.num_utts} utts "
+                  f"| {acc.edits} edits / {acc.ref_len} ref chars | "
+                  f"chunk {g['C']} + lookahead {g['R']} frames "
+                  f"(~{(g['C'] + g['R']) * 10} ms buffering)"
+                  + ("" if g["conv_exact"] else
+                     " | note: lookahead < conv right reach "
+                     f"({model.conv_right_margin()}) — boundary frames see "
+                     "zero-padded conv context"))
+        else:
+            accs, loss = evaluate_multi(eval_fn, loader,
+                                        sampler.eval_batches(), vocab, utts,
+                                        {"_": None}, device, sink=sink,
+                                        sink_decoder="_")
+            acc = accs["_"]
+            print(f"{tag}CER {acc.cer:.4f} | loss {loss:.4f} | "
+                  f"{acc.num_utts} utts | {acc.edits} edits / "
+                  f"{acc.ref_len} ref chars")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t_set
+        print(f"{tag}scored {acc.num_utts} utts in {wall:.3f} s: "
+              f"{acc.num_utts / max(wall, 1e-9):.3f} utt/s", file=sys.stderr)
+        if sink is not None:
+            write_hyps(sink)
+
+
+if __name__ == "__main__":
+    main()

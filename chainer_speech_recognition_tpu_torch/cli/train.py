@@ -1,14 +1,17 @@
 """Train CLI (port of ``cli/train.py``): a preprocessed data directory
-(``train_index.jsonl``, optional ``dev_index.jsonl``, ``vocab.txt``) →
-checkpoints, on one card (default) or the CPU.
+(``train_index.jsonl`` or the packed ``train.pack``, optional
+``dev_index.jsonl``, ``vocab.txt``) → checkpoints, on one card (default)
+or the CPU.
 
   python -m chainer_speech_recognition_tpu_torch.cli.train \\
       --data-dir prep_out --preset bigru \\
       --set train.data_mode=stream train.total_steps=20000
 
-Only the stream data mode is ported (the default ``train.data_mode=auto``
-picks the device-resident corpus cache for a corpus that fits, and raises);
-a packed corpus (``train.pack``) is refused.
+Where ``train.pack`` exists (``preprocess --pack``) the training batches
+come from it (``PackedBatchLoader``: memmap reads, int16 PCM to the
+device). Only the stream data mode is ported (the default
+``train.data_mode=auto`` picks the device-resident corpus cache for a
+corpus that fits, and raises).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import os
 import torch
 
 from ..data.corpus import load_index
+from ..data.packed import PackedBatchLoader, PackedCorpus
 from ..train.loop import train
 from ..vocab import Vocab
 from .common import add_config_args, load_config, resolve_device
@@ -49,18 +53,23 @@ def main(argv=None):
     cfg = cfg.override({"model.vocab_size": len(vocab)})
     if args.ckpt_dir:
         cfg = cfg.override({"train.checkpoint_dir": args.ckpt_dir})
-    if os.path.exists(os.path.join(args.data_dir, "train.pack")):
-        raise SystemExit(
-            f"{args.data_dir}/train.pack: the packed corpus is not ported yet "
-            "(ROADMAP.md, module queue); train from train_index.jsonl")
-    train_utts = load_index(os.path.join(args.data_dir, "train_index.jsonl"))
+    loader = None
+    pack_prefix = os.path.join(args.data_dir, "train")
+    if os.path.exists(pack_prefix + ".pack"):
+        # packed binary corpus (preprocess --pack): memmap loader, int16 wire
+        packed = PackedCorpus(pack_prefix)
+        train_utts = packed.utterances()
+        loader = PackedBatchLoader(packed, cfg.buckets)
+    else:
+        train_utts = load_index(
+            os.path.join(args.data_dir, "train_index.jsonl"))
     dev_path = os.path.join(args.data_dir, "dev_index.jsonl")
     dev_utts = load_index(dev_path) if os.path.exists(dev_path) else None
 
     with torch.autograd.set_detect_anomaly(args.debug_nans):
         train(cfg, train_utts, vocab, dev_utts=dev_utts,
               metrics_path=args.metrics, resume=not args.no_resume,
-              profile_dir=args.profile_dir, device=device,
+              profile_dir=args.profile_dir, device=device, loader=loader,
               debug_nans=args.debug_nans)
 
 

@@ -1,6 +1,8 @@
 """CER scoring (host-side, eval-only): the port's copy of the reference's
-``decode/metrics.py`` with its pure Python/NumPy edit distance (the port
-does not build the C++ one).
+``decode/metrics.py``. A batch of (hyp, ref) pairs is scored by one call
+of the C++ batch edit distance (``native/edit_distance.cpp``, built by
+``utils/native.py``); ``edit_distance_py`` is its plain version, which the
+tests hold it to.
 
 Corpus CER = total edit operations / total reference length
 (character-level Levenshtein).
@@ -35,6 +37,36 @@ def edit_distance_py(hyp, ref) -> int:
     return int(prev[n])
 
 
+def _to_ids(seq) -> list[int]:
+    return [ord(c) for c in seq] if isinstance(seq, str) else list(seq)
+
+
+def edit_distance_batch(hyps, refs) -> np.ndarray:
+    """Distances for N (hyp, ref) pairs (strings or id sequences) →
+    int64[N]: each side padded into one [N, S] int32 matrix, ONE native
+    call (``utils/native.edit_distance_batch_native``)."""
+    from ..utils.native import edit_distance_batch_native
+
+    hs = [_to_ids(h) for h in hyps]
+    rs = [_to_ids(r) for r in refs]
+    n = len(hs)
+    if n != len(rs):
+        raise ValueError(f"{n} hypotheses for {len(rs)} references")
+    if n == 0:
+        return np.zeros(0, np.int64)
+    sh = max(1, max(len(h) for h in hs))
+    sr = max(1, max(len(r) for r in rs))
+    hm = np.zeros((n, sh), np.int32)
+    rm = np.zeros((n, sr), np.int32)
+    for i, h in enumerate(hs):
+        hm[i, : len(h)] = h
+    for i, r in enumerate(rs):
+        rm[i, : len(r)] = r
+    hl = np.asarray([len(h) for h in hs], np.int32)
+    rl = np.asarray([len(r) for r in rs], np.int32)
+    return edit_distance_batch_native(hm, hl, rm, rl)
+
+
 class CERAccumulator:
     """Streaming corpus-level character error rate."""
 
@@ -44,12 +76,11 @@ class CERAccumulator:
         self.num_utts = 0
 
     def add(self, hyp, ref) -> None:
-        self.edits += edit_distance_py(hyp, ref)
-        self.ref_len += len(ref)
-        self.num_utts += 1
+        self.add_batch([hyp], [ref])
 
     def add_batch(self, hyps, refs) -> None:
-        self.edits += sum(edit_distance_py(h, r) for h, r in zip(hyps, refs))
+        """One native call for a whole eval batch of (hyp, ref) pairs."""
+        self.edits += int(edit_distance_batch(hyps, refs).sum())
         self.ref_len += sum(len(r) for r in refs)
         self.num_utts += len(refs)
 

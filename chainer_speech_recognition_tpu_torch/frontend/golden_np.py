@@ -1,7 +1,9 @@
-"""The window and mel-filterbank helpers of the reference's golden NumPy
-front-end (``frontend/golden_np.py``), copied so the port imports nothing
-of the JAX package: the periodic Hann window and the slaney mel
-filterbank (librosa defaults), computed in fp64 on the host.
+"""The reference's golden NumPy front-end (``frontend/golden_np.py``),
+copied so the port imports nothing of the JAX package: framing → periodic
+Hann window → STFT power spectrum → slaney mel filterbank (librosa
+defaults) → log → CMVN (utterance or causal) → Δ/ΔΔ, in fp64 on the host.
+The port builds its kernels' tables from the window and the filterbank,
+and ``preprocess --cache-features`` writes ``features`` to disk.
 """
 
 from __future__ import annotations
@@ -10,7 +12,10 @@ import numpy as np
 
 from .. import constants as C
 
-__all__ = ["hann_periodic", "mel_filterbank"]
+__all__ = [
+    "hann_periodic", "mel_filterbank", "stft_power", "log_mel",
+    "delta", "cmvn", "cmvn_causal", "features",
+]
 
 
 def hann_periodic(n: int) -> np.ndarray:
@@ -64,3 +69,93 @@ def mel_filterbank(
     enorm = 2.0 / (mel_pts[2 : n_mels + 2] - mel_pts[:n_mels])  # slaney norm
     weights *= enorm[:, None]
     return weights.astype(np.float32)
+
+
+# -- STFT --------------------------------------------------------------------
+
+def stft_power(signal: np.ndarray) -> np.ndarray:
+    """Centered power spectrogram [T, 1 + n_fft//2] of a 1-D fp signal."""
+    x = np.asarray(signal, dtype=np.float64)
+    pad = C.N_FFT // 2
+    x = np.pad(x, (pad, pad), mode=C.PAD_MODE)
+    n_frames = C.num_frames(len(signal))
+    win = hann_periodic(C.WIN_LENGTH)
+    # window centered inside the n_fft frame (librosa pads win to n_fft)
+    lpad = (C.N_FFT - C.WIN_LENGTH) // 2
+    win_full = np.zeros(C.N_FFT)
+    win_full[lpad : lpad + C.WIN_LENGTH] = win
+    out = np.empty((n_frames, 1 + C.N_FFT // 2), dtype=np.float64)
+    for t in range(n_frames):
+        frame = x[t * C.HOP_LENGTH : t * C.HOP_LENGTH + C.N_FFT] * win_full
+        spec = np.fft.rfft(frame, n=C.N_FFT)
+        out[t] = spec.real**2 + spec.imag**2
+    return out.astype(np.float32)
+
+
+def log_mel(signal: np.ndarray) -> np.ndarray:
+    """[T, n_mels] natural-log mel spectrogram."""
+    power = stft_power(signal).astype(np.float64)
+    mel = power @ mel_filterbank().astype(np.float64).T
+    return np.log(np.maximum(mel, C.LOG_EPS)).astype(np.float32)
+
+
+# -- deltas + CMVN -------------------------------------------------------------
+
+def delta(feat: np.ndarray, window: int = C.DELTA_WINDOW) -> np.ndarray:
+    """Regression deltas over time (axis 0) with edge replication."""
+    x = np.asarray(feat, dtype=np.float64)
+    padded = np.pad(x, ((window, window), (0, 0)), mode="edge")
+    denom = 2.0 * sum(n * n for n in range(1, window + 1))
+    out = np.zeros_like(x)
+    for n in range(1, window + 1):
+        out += n * (padded[window + n : window + n + len(x)]
+                    - padded[window - n : window - n + len(x)])
+    return (out / denom).astype(np.float32)
+
+
+def cmvn(feat: np.ndarray) -> np.ndarray:
+    """Per-utterance mean/variance normalization over time (axis 0)."""
+    x = np.asarray(feat, dtype=np.float64)
+    mean = x.mean(axis=0, keepdims=True)
+    var = x.var(axis=0, keepdims=True)
+    return ((x - mean) / np.sqrt(var + C.CMVN_VAR_EPS)).astype(np.float32)
+
+
+def cmvn_causal(feat: np.ndarray) -> np.ndarray:
+    """Causal (streaming) mean/variance normalization: frame ``t`` is
+    normalized by the running statistics of frames ``0..t`` only.
+
+    This is the streamable alternative to per-utterance CMVN — the
+    reference's utterance CMVN needs the whole utterance before the first
+    frame can be normalized, so an online recognizer cannot use it. The
+    causal form is exactly chunk-invariant: computing it over any chunking
+    of the stream (carrying count / Σx / Σx² across chunks) reproduces the
+    full-utterance result bit-for-bit (decode/streaming.py relies on this;
+    differential test in tests/test_streaming.py). Frame 0 normalizes to
+    exactly zero (its running mean is itself) — models trained with
+    ``features.cmvn_mode="causal"`` adapt to the warm-up transient.
+    """
+    x = np.asarray(feat, dtype=np.float64)
+    cnt = np.arange(1, len(x) + 1, dtype=np.float64)[:, None]
+    mean = np.cumsum(x, axis=0) / cnt
+    var = np.cumsum(x * x, axis=0) / cnt - mean * mean
+    return ((x - mean) / np.sqrt(np.maximum(var, 0.0) + C.CMVN_VAR_EPS)
+            ).astype(np.float32)
+
+
+def features(signal: np.ndarray, apply_cmvn=True) -> np.ndarray:
+    """Full front-end: 1-D PCM → float32 [T, n_mels, 3] (static, Δ, ΔΔ).
+
+    CMVN (when enabled) is applied to the static log-mel BEFORE the deltas are
+    computed, matching classic fbank pipelines where deltas are taken on the
+    normalized stream. ``apply_cmvn``: False | True/"utterance" | "causal"
+    (mirrors the device front-ends' argument).
+    """
+    lm = log_mel(signal)
+    if apply_cmvn == "causal":
+        lm = cmvn_causal(lm)
+    elif apply_cmvn:
+        lm = cmvn(lm)
+    d1 = delta(lm)
+    d2 = delta(d1)
+    return np.stack([lm, d1, d2], axis=-1).astype(np.float32)

@@ -78,8 +78,10 @@ def _resolve_data_mode(cfg: Config, sampler: BucketSampler,
 
 
 def to_device(batch: dict, device: torch.device) -> dict:
-    """Host batch (numpy) → tensors on ``device``; on the card through
-    pinned memory, so the copy does not wait for the steps in flight."""
+    """Host batch (numpy) → tensors on ``device`` in their host dtypes (a
+    packed batch's ``signals_i16`` crosses as int16 and becomes float32 on
+    the device, ``step._features``); on the card through pinned memory, so
+    the copy does not wait for the steps in flight."""
     out = {}
     for k, v in batch.items():
         if k == "bucket_id":
@@ -91,26 +93,55 @@ def to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
-def evaluate(eval_step, loader: BatchLoader, batches, vocab: Vocab, utts,
-             device: torch.device):
-    """Dev-set greedy decode → (CERAccumulator, mean loss over samples with
-    an alignment), scoring only the real rows of padded batches
-    (``evaluate_multi`` with the greedy decoder)."""
-    acc = CERAccumulator()
+def _greedy_fn(logits, olens) -> list:
+    ids, out_lens = greedy_decode(logits, olens)
+    ids, out_lens = ids.cpu().numpy(), out_lens.cpu().numpy()
+    return [ids[i, : out_lens[i]] for i in range(ids.shape[0])]
+
+
+def evaluate_multi(eval_step, loader: BatchLoader, batches, vocab: Vocab,
+                   utts, decoders: dict, device: torch.device,
+                   sink: list | None = None,
+                   sink_decoder: str | None = None):
+    """One forward pass per batch, scored by SEVERAL decoders at once
+    (the reference's ``evaluate_multi``; decoder value None = greedy on
+    the device, the only decoder ported so far). Only the ``n_valid`` real
+    rows of a padded batch are scored, and the mean loss leaves out the
+    samples with no alignment (the ``-LOG_ZERO`` sentinel). Returns
+    ({name: CERAccumulator}, mean_loss). When ``sink`` is a list,
+    ``sink_decoder``'s hypotheses are appended as (utt_index, text)
+    pairs: the evaluate CLI's ``--hyp-out``."""
+    accs = {name: CERAccumulator() for name in decoders}
     total_loss, n = 0.0, 0
-    for bid, idxs, n_valid in batches:
+    for entry in batches:
+        bid, idxs = entry[0], entry[1]
+        n_valid = entry[2] if len(entry) > 2 else len(idxs)
         losses, logits, olens = eval_step(
             to_device(loader.load(bid, idxs), device))
-        ids, out_lens = greedy_decode(logits, olens)
-        ids, out_lens = ids.cpu().numpy(), out_lens.cpu().numpy()
         refs = [utts[int(idxs[i])].text for i in range(n_valid)]
-        acc.add_batch([vocab.decode(ids[i, : out_lens[i]])
-                       for i in range(n_valid)], refs)
+        for name, fn in decoders.items():
+            hyps = (_greedy_fn if fn is None else fn)(logits, olens)
+            # one native edit-distance call per (decoder, batch)
+            texts = [vocab.decode(h) for h in hyps[:n_valid]]
+            accs[name].add_batch(texts, refs)
+            if sink is not None and name == sink_decoder:
+                sink.extend((int(idxs[i]), t) for i, t in enumerate(texts))
         losses = losses.cpu().numpy()[:n_valid]
+        # impossible CTC samples carry the -LOG_ZERO sentinel loss — drop
+        # them from the mean exactly as step.forward_loss's valid mask does
         fin = np.isfinite(losses) & (losses < -LOG_ZERO / 2)
         total_loss += float(losses[fin].sum())
         n += int(fin.sum())
-    return acc, total_loss / max(n, 1)
+    return accs, total_loss / max(n, 1)
+
+
+def evaluate(eval_step, loader: BatchLoader, batches, vocab: Vocab, utts,
+             device: torch.device):
+    """Dev-set greedy decode → (CERAccumulator, mean loss):
+    ``evaluate_multi`` with the one greedy decoder."""
+    accs, mean_loss = evaluate_multi(eval_step, loader, batches, vocab,
+                                     utts, {"_": None}, device)
+    return accs["_"], mean_loss
 
 
 def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
@@ -119,7 +150,9 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
           profile_dir: str | None = None, device: str | torch.device = "cuda",
           loader: BatchLoader | None = None, debug_nans: bool = False):
     """Train ``cfg.model`` on ``train_utts`` → the final TrainState;
-    ``debug_nans`` checks every step's loss and gradients
+    ``loader`` feeds the training batches from another source (the packed
+    corpus's ``data.packed.PackedBatchLoader``; default: a ``BatchLoader``
+    over the wavs); ``debug_nans`` checks every step's loss and gradients
     (``step.backward_finite``)."""
     if cfg.train.keep_checkpoints < 1:
         raise ValueError("train.keep_checkpoints must be >= 1")

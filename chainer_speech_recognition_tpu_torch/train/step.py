@@ -9,6 +9,10 @@ Batches are dicts of padded tensors:
   labels         [B, L_max] int32          cached-feature corpus)
   label_lengths  [B] int32
   sample_weight  [B] float32, optional (0 for padded remainder rows)
+
+A packed corpus (``data/packed.PackedBatchLoader``) gives ``signals_i16``
+[B, N_max] int16 PCM in place of ``signals``: it crosses to the device as
+int16 and becomes float32 there (``_features``).
 """
 
 from __future__ import annotations
@@ -38,11 +42,20 @@ def _ctc(cfg: Config):
     return table[impl]
 
 
+def _signals(batch: dict) -> torch.Tensor:
+    """float32 PCM on the batch's device: int16 batches (the packed
+    corpus's wire format, half the host→device bytes) are converted on
+    the device, as the reference's ``train/step._signals`` does."""
+    if "signals" in batch:
+        return batch["signals"]
+    return batch["signals_i16"].to(torch.float32) / 32768.0
+
+
 def _features(cfg: Config, batch: dict):
     if "features" in batch:
         return batch["features"], batch["frame_lengths"]
     return select_frontend(cfg.features)(
-        batch["signals"], batch["num_samples"],
+        _signals(batch), batch["num_samples"],
         apply_cmvn=cfg.features.cmvn_arg)
 
 

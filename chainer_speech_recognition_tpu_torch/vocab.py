@@ -1,6 +1,6 @@
 """Vocabulary + tokenizer with the frozen CTC label conventions: the
-port's copy of the reference's ``vocab.py`` without the BPE learner
-(``learn_bpe``, used only by the reference's preprocessing CLI).
+port's copy of the reference's ``vocab.py``, the BPE unit learner of
+``preprocess --unit bpe`` (``learn_bpe``) included.
 
 * id 0 == ``<blank>`` — never produced by ``encode``.
 * real symbols get ids 1..V-1 in first-seen or sorted order.
@@ -39,6 +39,80 @@ SEGMENTERS = {"char": segment_chars, "mora": segment_mora}
 
 def _resolve_segmenter(unit):
     return SEGMENTERS[unit] if isinstance(unit, str) else unit
+
+
+def learn_bpe(texts, vocab_size: int, unit: str = "char") -> list[str]:
+    """Byte-pair-encoding unit learning over transcripts: start from the
+    ``unit`` base inventory (char/mora) and repeatedly merge the most
+    frequent adjacent pair until the vocab (incl. <blank>/<unk>) reaches
+    ``vocab_size`` or no pair repeats. Returns the sorted unit list for
+    ``Vocab`` — subword units shorten CTC label sequences (fewer symbols
+    per utterance → easier alignments, shorter LM contexts).
+
+    Segmentation at ENCODE time is ``Vocab.encode``'s greedy
+    longest-match, not canonical merge-order BPE — deterministic,
+    metadata-free (a saved vocab file fully defines the codec), and
+    self-consistent between training labels and eval references, which is
+    all CTC requires of a unit inventory. Ties in pair frequency break
+    lexicographically so learned vocabs are reproducible.
+    """
+    import warnings
+    from collections import defaultdict
+
+    seg = _resolve_segmenter(unit)
+    seqs = [seg(t) for t in texts if t]
+    base = sorted({u for s in seqs for u in s})
+    n_special = 2                        # <blank> + <unk>
+    if len(base) + n_special > vocab_size:
+        warnings.warn(
+            f"BPE base inventory ({len(base)} units + {n_special} specials) "
+            f"already exceeds the requested vocab_size {vocab_size}; no "
+            "merges will be learned and the vocab will be larger than "
+            "asked", stacklevel=2)
+    symbols = set(base)
+    # incremental pair bookkeeping: a merge only changes pair counts
+    # INSIDE the sequences that contain it, so only those re-scan —
+    # O(corpus + Σ affected-text) total instead of O(merges × corpus)
+    counts: dict[tuple[str, str], int] = defaultdict(int)
+    where: dict[tuple[str, str], set[int]] = defaultdict(set)
+
+    def account(si, s, sign):
+        for p in zip(s, s[1:]):
+            counts[p] += sign
+            if sign > 0:
+                where[p].add(si)
+
+    for si, s in enumerate(seqs):
+        account(si, s, +1)
+
+    while len(symbols) + n_special < vocab_size:
+        # most frequent pair whose merge is a NEW symbol (mora bases can
+        # collide with concatenations); lexicographic tie-break
+        pick, best = None, None
+        for p, c in counts.items():
+            if c >= 2 and p[0] + p[1] not in symbols:
+                key = (-c, p)
+                if best is None or key < best:
+                    best, pick = key, p
+        if pick is None:
+            break
+        a, b = pick
+        new = a + b
+        symbols.add(new)
+        for si in sorted(where[pick]):
+            s = seqs[si]
+            account(si, s, -1)
+            out, i = [], 0
+            while i < len(s):
+                if i + 1 < len(s) and s[i] == a and s[i + 1] == b:
+                    out.append(new)
+                    i += 2
+                else:
+                    out.append(s[i])
+                    i += 1
+            seqs[si] = out
+            account(si, out, +1)
+    return sorted(symbols)
 
 
 class Vocab:

@@ -3,10 +3,11 @@
 Drives the port (``chainer_speech_recognition_tpu_torch``) at the full
 width of the ``bigru`` preset (phases 3-9), of the ``bilstm_deep`` preset
 (phases 10-14), of both streaming paths, the forward-only ``uni_gru``
-preset and ``bilstm_deep`` with causal CMVN (phases 15-17), and of the
+preset and ``bilstm_deep`` with causal CMVN (phases 15-17), of the
 attention family, ``conformer`` and ``conformer_stream`` offline (phases
-18-21), with random weights made from a seed, and fails (exit code != 0,
-no result line) if any phase fails:
+18-21), and the parity path of ``bigru`` (phase 22: data tools, training
+from a pack, the evaluate CLI), with random weights made from a seed, and
+fails (exit code != 0, no result line) if any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
@@ -147,6 +148,23 @@ no result line) if any phase fails:
     weights, batch and SpecAugment draws, at fp32 compute (the bars of
     phase 9) and at bf16 (loss rtol 4e-4: bf16's own noise over eight
     blocks reaches the 1e-4 bar).
+22. the parity path (PARITY.md §1's commands, cut to 48 confusable
+    utterances of 2-4 s, V = 82, one 512-frame bucket of 12): the port's
+    make_synthetic and preprocess --dev-fraction 0.25 --pack; the train
+    CLI from train.pack, 16 steps with one dev eval and a checkpoint,
+    exact launches of the training kernels, every training batch int16 on
+    the card (``train.loop.to_device`` watched by the phase); the evaluate
+    CLI on the trained checkpoint, then on a random-weight causal-CMVN
+    checkpoint with ``--index dev_index.jsonl,dev.pack``: identical
+    hypotheses, edits and loss for the two sets (the pack holds the wavs'
+    int16 samples), exact launches (front-end, gru_fwd, ctc_fwd, greedy a
+    batch), the mean loss card vs a ``--device cpu`` run within the bar
+    of ``phase_parity`` (3e-2, relative); ``evaluate --streaming
+    --stream-chunk 64 --stream-right 16`` with its --hyp-out equal to the
+    stream CLI's transcripts of the same wavs at the same batch and
+    gru_fwd_stream launches from ``stream_geometry``. Random-weight CERs
+    are printed, not gated; so is the phase's wall against its 30 s
+    budget.
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -290,6 +308,16 @@ NOTES = {"dw": "replaces _dw_einsum, an XLA einsum (not a Pallas call); "
                "training run"}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GRAPH_CALLS = 10        # calls in one CUDA graph of phase 18's rounds
+# phase 22: a confusable corpus of short utterances (PARITY.md §1's
+# synthesizer, cut to 48 utterances of 2-4 s), one 512-frame bucket
+PARITY_SYNTH = ["--style", "confusable", "--utts", "48", "--vocab", "82",
+                "--min-labels", "10", "--max-labels", "30", "--min-seconds",
+                "2", "--max-seconds", "4", "--seed", str(SEED)]
+PARITY_BUCKET_B = 12
+PARITY_BUCKETS = ["buckets.boundaries=[512]",
+                  f"buckets.batch_sizes=[{PARITY_BUCKET_B}]",
+                  "buckets.max_label_len=40"]
+PARITY_BUDGET_S = 30.0
 # H100 SXM datasheet: HBM bytes/s, dense peak FLOP/s
 HBM_RATE = 3.35e12
 PEAK = {"bf16": 989e12, "fp32": 67e12}
@@ -2689,6 +2717,207 @@ def phase_conformer_stream_decode(root, vocab, long_wavs, long_s, dev,
     return launches
 
 
+def _result_line(lines: list[str], prefix: str = "") -> dict:
+    """The evaluate CLI's result line(s) → {tag: (CER, loss, utts, edits,
+    ref chars)}, tag "" for a one-set run."""
+    out = {}
+    for l in lines:
+        m = re.match(r"(?:\[(\S+)\] )?CER(?:\[streaming\])? ([0-9.]+) \| "
+                     r"(?:loss ([0-9.]+) \| )?(\d+) utts \| (\d+) edits / "
+                     r"(\d+) ref chars", l)
+        if m:
+            out[m.group(1) or ""] = (
+                float(m.group(2)), None if m.group(3) is None
+                else float(m.group(3)), int(m.group(4)), int(m.group(5)),
+                int(m.group(6)))
+    return out
+
+
+def phase_parity_path(root: str, dev, rng) -> None:
+    """Phase 22, the parity path at the full width of ``PRESET``: a
+    confusable corpus from make_synthetic, preprocess --pack, training from
+    train.pack (exact launches, every batch int16 on the card), evaluate
+    on the index and the pack of the dev set (identical hypotheses and
+    edits, exact launches a batch, the mean loss card vs CPU) and evaluate
+    --streaming against the stream CLI on the same wavs (identical
+    transcripts, stream launches from ``stream_geometry``). The CERs of
+    random weights are printed, not gated."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.cli import (
+        evaluate, make_synthetic, preprocess, stream)
+    from chainer_speech_recognition_tpu_torch.cli import train as train_cli
+    from chainer_speech_recognition_tpu_torch.cli.decode import load_model
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.data.corpus import load_index
+    from chainer_speech_recognition_tpu_torch.decode.streaming import (
+        stream_geometry)
+    from chainer_speech_recognition_tpu_torch.train import loop
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
+
+    t_phase = time.perf_counter()
+    corpus, prep = os.path.join(root, "parity_corpus"), os.path.join(
+        root, "parity_prep")
+    run_cli(make_synthetic.main, ["--out", corpus, *PARITY_SYNTH])
+    run_cli(preprocess.main, ["--corpus", corpus, "--out", prep,
+                              "--dev-fraction", "0.25", "--pack"])
+    vocab_path = os.path.join(prep, "vocab.txt")
+    V = len(Vocab.load(vocab_path))
+    dev_utts = load_index(os.path.join(prep, "dev_index.jsonl"))
+    n_dev = len(dev_utts)
+    print(f"[parity-path] {PARITY_SYNTH[3]} confusable utterances "
+          f"({n_dev} dev), V = {V}, synthesized, indexed and packed in "
+          f"{time.perf_counter() - t_phase:.3f} s")
+
+    # train from train.pack; every training batch crosses as int16
+    wire: list = []
+    to_device = loop.to_device
+
+    def watched(batch, device):
+        out = to_device(batch, device)
+        if "signals_i16" in out:
+            wire.append((out["signals_i16"].dtype, out["signals_i16"].device))
+        return out
+
+    ckpt = os.path.join(root, "parity_train_ckpt")
+    metrics = os.path.join(root, "parity_train.jsonl")
+    _kernels.reset_launches()
+    loop.to_device = watched
+    t0 = time.perf_counter()
+    try:
+        run_cli(train_cli.main, [
+            "--data-dir", prep, "--preset", PRESET, "--device", "cuda",
+            "--ckpt-dir", ckpt, "--metrics", metrics, "--set",
+            "train.data_mode=stream", "train.log_every=1",
+            f"train.total_steps={TRAIN_STEPS}",
+            f"train.eval_every={TRAIN_STEPS}",
+            f"train.checkpoint_every={TRAIN_STEPS}", "optim.warmup_steps=4",
+            *PARITY_BUCKETS])
+    finally:
+        loop.to_device = to_device
+    train_s = time.perf_counter() - t0
+    launches = _kernels.launches()
+    ev = _events(metrics)
+    steps = [e for e in ev if e["kind"] == "train"]
+    evals = [e for e in ev if e["kind"] == "eval"]
+    print(f"[parity-path] train from train.pack: {TRAIN_STEPS} steps in "
+          f"{train_s:.3f} s, loss {steps[0]['loss']:.3f} -> "
+          f"{steps[-1]['loss']:.3f}, dev eval {evals}, launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check([e["step"] for e in steps] == list(range(1, TRAIN_STEPS + 1))
+          and all(np.isfinite(e["loss"]) for e in steps),
+          "parity-path training steps")
+    check(len(wire) == TRAIN_STEPS and all(
+        d == torch.int16 and v.type == dev.type for d, v in wire),
+        f"packed batches on the card: {wire[:3]} ({len(wire)} of "
+        f"{TRAIN_STEPS})")
+    print(f"[parity-path] all {len(wire)} training batches crossed as "
+          f"{wire[0][0]} on {wire[0][1]}")
+    layers = preset_config(PRESET).model.rnn_layers
+    n_eval = len(evals) * -(-n_dev // PARITY_BUCKET_B)
+    want = {k: 0 for k in _kernels.KERNELS}
+    want.update({"gru_fwd_train": layers * TRAIN_STEPS,
+                 "gru_bwd": layers * TRAIN_STEPS, "dw": layers * TRAIN_STEPS,
+                 "gru_fwd": layers * n_eval, "ctc_bwd": TRAIN_STEPS,
+                 "ctc_fwd": TRAIN_STEPS + n_eval,
+                 "frontend_logmel": TRAIN_STEPS + n_eval, "greedy": n_eval})
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches on "
+              f"the parity-path training run, expected {n}")
+
+    # evaluate: the trained checkpoint on the pack, then a random-weight
+    # causal-CMVN checkpoint (whose hypotheses are not empty) on both sets
+    lines, _, _ = run_cli(evaluate.main, [
+        "--ckpt-dir", ckpt, "--data-dir", prep, "--index", "dev.pack"])
+    res = _result_line(lines)[""]
+    check(res[2] == n_dev and np.isfinite(res[1]),
+          f"evaluate of the trained checkpoint: {lines}")
+    print(f"[parity-path] trained checkpoint: {lines[-1]} (16 steps: not "
+          f"gated)")
+    rckpt = write_checkpoint(root, PRESET, rng, {
+        "model.vocab_size": V, "features.cmvn_mode": "causal",
+        **{k: json.loads(v) for k, v in (kv.split("=", 1)
+                                         for kv in PARITY_BUCKETS)}})
+    hyp = os.path.join(root, "parity_hyp.txt")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    lines, err, wall = run_cli(evaluate.main, [
+        "--ckpt-dir", rckpt, "--data-dir", prep, "--index",
+        "dev_index.jsonl,dev.pack", "--hyp-out", hyp])
+    launches = _kernels.launches()
+    res = _result_line(lines)
+    print(f"[parity-path] evaluate (card, random weights) in {wall:.3f} s, "
+          f"launches { {k: v for k, v in launches.items() if v} }")
+    for l in lines + err.splitlines():
+        print(f"[parity-path]   {l}")
+    a, b = res.get("dev_index"), res.get("dev")
+    check(a is not None and b is not None and a == b and a[2] == n_dev,
+          f"index and pack sets score differently: {res}")
+    hyps = [open(f"{os.path.splitext(hyp)[0]}.{s}.txt",
+                 encoding="utf-8").read() for s in ("dev_index", "dev")]
+    check(hyps[0] == hyps[1] and hyps[0].count("\n") == n_dev,
+          "index and pack hypotheses differ")
+    check(any(l.split("\t")[1] for l in hyps[0].splitlines()),
+          "every hypothesis is empty: the comparison would be vacuous")
+    n_batches = 2 * -(-n_dev // PARITY_BUCKET_B)
+    want = {k: 0 for k in _kernels.KERNELS}
+    want.update({"frontend_logmel": n_batches, "ctc_fwd": n_batches,
+                 "greedy": n_batches, "gru_fwd": layers * n_batches})
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches in "
+              f"evaluate, expected {n}")
+    clines, _, cwall = run_cli(evaluate.main, [
+        "--ckpt-dir", rckpt, "--data-dir", prep, "--index", "dev.pack",
+        "--device", "cpu"])
+    cres = _result_line(clines)[""]
+    rel = abs(b[1] - cres[1]) / abs(cres[1])
+    print(f"[parity-path] mean loss card {b[1]:.4f} CPU {cres[1]:.4f} (rel "
+          f"{rel:.3e}, tol {TOL['gru_bf16']}); CER card {b[0]:.4f} CPU "
+          f"{cres[0]:.4f} ({cwall:.3f} s on the CPU)")
+    check(rel <= TOL["gru_bf16"], "evaluate's loss, card vs CPU")
+
+    # evaluate --streaming against the stream CLI on the same wavs and batch
+    model = load_model(rckpt, device=dev)[1]
+    geo = stream_geometry(model, STREAM_CHUNK, 16)
+    B = min(16, n_dev)
+    order = sorted(u.num_samples for u in dev_utts)
+    windows = sum(-(-C.num_frames(max(order[i : i + B])) // geo["C"])
+                  for i in range(0, n_dev, B))
+    shyp = os.path.join(root, "parity_stream_hyp.txt")
+    _kernels.reset_launches()
+    lines, _, wall = run_cli(evaluate.main, [
+        "--ckpt-dir", rckpt, "--data-dir", prep, "--streaming",
+        "--stream-chunk", str(STREAM_CHUNK), "--stream-right", "16",
+        "--stream-batch", str(B), "--hyp-out", shyp])
+    launches = _kernels.launches()
+    want = {k: 0 for k in _kernels.KERNELS}
+    want.update({"frontend_logmel": windows,
+                 "gru_fwd_stream": layers * windows})
+    print(f"[parity-path] evaluate --streaming in {wall:.3f} s: "
+          f"{lines[1]}; {windows} windows, launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches in "
+              f"evaluate --streaming, expected {n}")
+    slines, _, _ = run_cli(stream.main, [
+        "--ckpt-dir", rckpt, "--vocab", vocab_path, "--batch", str(B),
+        "--chunk-frames", str(STREAM_CHUNK), "--right-frames", "16",
+        *[u.wav for u in dev_utts]])
+    by_wav = dict(l.split("\t") for l in slines)
+    got = [l.split("\t") for l in open(shyp, encoding="utf-8").read()
+           .splitlines()]
+    check([g[0] for g in got] == [u.utt_id for u in dev_utts]
+          and [g[1] for g in got] == [by_wav[u.wav] for u in dev_utts],
+          "evaluate --streaming and the stream CLI transcribe differently")
+    check(any(g[1] for g in got), "every streaming hypothesis is empty")
+    took = time.perf_counter() - t_phase
+    print(f"[parity-path] evaluate --streaming equals the stream CLI on all "
+          f"{n_dev} wavs; phase 22 took {took:.3f} s (budget "
+          f"{PARITY_BUDGET_S} s: {'within' if took <= PARITY_BUDGET_S else 'OVER'})")
+
+
 def main() -> int:
     try:
         import torch
@@ -2742,6 +2971,8 @@ def main() -> int:
                 extra_sets=("model.attn_impl=flash",))
             phase_train_parity(dev, index, CONF_PRESET,
                                {"model.attn_impl": "flash"})
+            # the parity path draws from a stream of its own
+            phase_parity_path(root, dev, np.random.default_rng(SEED + 4))
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]

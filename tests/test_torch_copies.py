@@ -1,13 +1,17 @@
 """The port keeps its own copies of the reference's JAX-free host modules
-(config, constants, vocab, wav I/O, the mel/window helpers, synthetic
-audio, the bucketed sampler and loader, CER scoring) and of the host code
+(config, constants, vocab and its BPE learner, wav I/O, the golden NumPy
+front-end, synthetic audio and the confusable corpus, the corpus scanners
+and CSJ text cleanup, the bucketed sampler and loader, CER scoring) and of
+the host code
 of the streaming recognizer (window assembly, buffer trimming, the
 lockstep feeder); each copy is held to the original here, and no module of
 the port or ``chip_smoke.py`` imports the JAX package."""
 
+import contextlib
 import dataclasses
 import os
 import re
+import shutil
 import types
 
 import numpy as np
@@ -17,6 +21,7 @@ from chainer_speech_recognition_tpu import config as jconfig
 from chainer_speech_recognition_tpu import constants as jconst
 from chainer_speech_recognition_tpu.data import buckets as jbuckets
 from chainer_speech_recognition_tpu.data import corpus as jcorpus
+from chainer_speech_recognition_tpu.data import jptext as jjp
 from chainer_speech_recognition_tpu.data import sampler as jsampler
 from chainer_speech_recognition_tpu.data import synthetic as jsynth
 from chainer_speech_recognition_tpu.decode import metrics as jmetrics
@@ -24,10 +29,12 @@ from chainer_speech_recognition_tpu.decode import streaming as jstream
 from chainer_speech_recognition_tpu.frontend import golden_np as jgold
 from chainer_speech_recognition_tpu.utils import wav as jwav
 from chainer_speech_recognition_tpu.vocab import Vocab as JVocab
+from chainer_speech_recognition_tpu.vocab import learn_bpe as jlearn_bpe
 from chainer_speech_recognition_tpu_torch import config as tconfig
 from chainer_speech_recognition_tpu_torch import constants as tconst
 from chainer_speech_recognition_tpu_torch.data import buckets as tbuckets
 from chainer_speech_recognition_tpu_torch.data import corpus as tcorpus
+from chainer_speech_recognition_tpu_torch.data import jptext as tjp
 from chainer_speech_recognition_tpu_torch.data import sampler as tsampler
 from chainer_speech_recognition_tpu_torch.data import synthetic as tsynth
 from chainer_speech_recognition_tpu_torch.decode import metrics as tmetrics
@@ -35,6 +42,7 @@ from chainer_speech_recognition_tpu_torch.decode import streaming as tstream
 from chainer_speech_recognition_tpu_torch.frontend import golden_np as tgold
 from chainer_speech_recognition_tpu_torch.utils import wav as twav
 from chainer_speech_recognition_tpu_torch.vocab import Vocab as TVocab
+from chainer_speech_recognition_tpu_torch.vocab import learn_bpe as tlearn_bpe
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESETS = ["tiny_conv", "glu_conv", "conformer", "conformer_stream",
@@ -245,6 +253,105 @@ def test_decode_lockstep_matches():
                                        lambda i: reads.append(i) or sigs[i]))
         runs.append((out, rec.log, reads))
     assert runs[0] == runs[1]
+
+
+JP_TEXTS = ["(F えー)きょうは<笑>いい(A てんき;天気)ですね。",
+            "（Ｆ あの）(D2それ)ぎゅうにゅう(? のむ,のん)",
+            "(笑)", "カタカナ・ひらがな「ヴ」ー…", "(M (F え)まえ)x (Dで始まる)",
+            "(A 読み;表記)(X ばつ)", "abc(def", "ゃゅょャュョ"]
+
+
+@pytest.mark.parametrize("kana", [None, "katakana", "hiragana"])
+@pytest.mark.parametrize("strip_tags", [True, False])
+def test_jptext_matches(kana, strip_tags):
+    for t in JP_TEXTS:
+        assert tjp.normalize(t, kana=kana, strip_tags=strip_tags) == \
+            jjp.normalize(t, kana=kana, strip_tags=strip_tags)
+    assert tjp.hira_to_kata("きゃあ") == jjp.hira_to_kata("きゃあ") == "キャア"
+    assert tjp.kata_to_hira("キャア") == jjp.kata_to_hira("キャア")
+
+
+@pytest.mark.parametrize("unit,size", [("char", 30), ("mora", 40),
+                                       ("char", 3)])
+def test_learn_bpe_matches(unit, size):
+    texts = ["きゃりーぱみゅぱみゅ", "ぱみゅぱみゅきゃりー", "きょうきょう",
+             "abababcabc", "", "きゃきゃきゃ"] * 2
+    with pytest.warns(UserWarning) if size < 10 else contextlib.nullcontext():
+        t = tlearn_bpe(texts, size, unit=unit)
+    with pytest.warns(UserWarning) if size < 10 else contextlib.nullcontext():
+        j = jlearn_bpe(texts, size, unit=unit)
+    assert t == j and len(t) > 0
+
+
+@pytest.mark.parametrize("V", [3, 12, 82])
+def test_confusable_synthesis_matches(V):
+    tm, jm = tsynth.SymbolMarkov(V), jsynth.SymbolMarkov(V)
+    np.testing.assert_array_equal(tm.succ, jm.succ)
+    np.testing.assert_array_equal(tm.probs, jm.probs)
+    assert tm.sample(np.random.default_rng(1), 30) == \
+        jm.sample(np.random.default_rng(1), 30)
+    ts, js = tsynth.ConfusableSynth(V), jsynth.ConfusableSynth(V)
+    np.testing.assert_array_equal(ts.f1, js.f1)
+    np.testing.assert_array_equal(ts.f2, js.f2)
+    ids = tm.sample(np.random.default_rng(2), 6)
+    for kw in ({}, {"snr_db": 4.0}, {"coarticulation": True}, {"tone_len": 500}):
+        a = ts.utterance(np.random.default_rng(3), ids, **kw)
+        b = js.utterance(np.random.default_rng(3), ids, **kw)
+        assert a[0].dtype == b[0].dtype == np.float32
+        np.testing.assert_array_equal(a[0], b[0])
+        np.testing.assert_array_equal(a[1], b[1])
+    with pytest.raises(ValueError, match="vocab_size >= 3"):
+        tsynth.SymbolMarkov(2)
+
+
+def test_corpus_scanners_match(tmp_path):
+    """``scan_corpus`` on wav+txt pairs (a corrupt wav, a wav without a
+    transcript), ``scan_kaldi_style`` with and without ``segments``,
+    ``normalize_texts`` and ``build_vocab``."""
+    rng = np.random.default_rng(0)
+    pairs = tmp_path / "pairs"
+    (pairs / "a").mkdir(parents=True)
+    for i, text in enumerate(JP_TEXTS[:5]):
+        sig, _ = tsynth.make_utterance(rng, [1, 2], tone_len=400 + 80 * i)
+        twav.write_wav(pairs / ("a" if i % 2 else "") / f"u{i}.wav", sig,
+                       16000 if i != 3 else 8000)
+        (pairs / ("a" if i % 2 else "") / f"u{i}.txt").write_text(
+            text + "\n", encoding="utf-8")
+    twav.write_wav(pairs / "lone.wav", sig)
+    (pairs / "bad.wav").write_bytes(b"not a wav")
+    (pairs / "bad.txt").write_text("x")
+    kaldi = tmp_path / "kaldi"
+    kaldi.mkdir()
+    twav.write_wav(kaldi / "r0.wav", np.zeros(16000, np.float32))
+    twav.write_wav(kaldi / "r1.wav", np.zeros(8000, np.float32), 8000)
+    (kaldi / "wav.scp").write_text("r0 r0.wav\nr1 r1.wav\n")
+    (kaldi / "text").write_text("s0 あい\ns1 う\ns2 え\nr0 お\nr1 か\n",
+                                encoding="utf-8")
+    plain = tmp_path / "plain"
+    shutil.copytree(kaldi, plain)
+    (kaldi / "segments").write_text(
+        "s0 r0 0.1 0.5\ns1 r1 0.2 3.0\ns2 r1 2.0 3.0\n")
+    for root, scan in ((pairs, "scan_corpus"), (kaldi, "scan_kaldi_style"),
+                       (plain, "scan_kaldi_style")):
+        t = getattr(tcorpus, scan)(str(root))
+        j = getattr(jcorpus, scan)(str(root))
+        assert [dataclasses.asdict(u) for u in t] == \
+            [dataclasses.asdict(u) for u in j] and t
+        tn = tcorpus.normalize_texts(t, kana="katakana")
+        jn = jcorpus.normalize_texts(j, kana="katakana")
+        assert [dataclasses.asdict(u) for u in tn] == \
+            [dataclasses.asdict(u) for u in jn]
+        for unit in ("char", "mora"):
+            assert tcorpus.build_vocab(t, unit).symbols == \
+                jcorpus.build_vocab(j, unit).symbols
+
+
+@pytest.mark.parametrize("cmvn", [False, True, "causal"])
+def test_golden_features_match(cmvn):
+    sig = np.random.default_rng(5).standard_normal(4321).astype(np.float32)
+    a, b = tgold.features(sig, cmvn), jgold.features(sig, cmvn)
+    assert a.dtype == b.dtype == np.float32 and a.shape == b.shape
+    np.testing.assert_array_equal(a, b)
 
 
 _JAX_IMPORT = re.compile(

@@ -1051,3 +1051,52 @@ def test_flash_kernels_refuse_what_they_do_not_take(dev):
         ac.flash_fwd_cuda(q, q, q, lens.long())
     with pytest.raises(ValueError, match="expected torch.float32"):
         ac.flash_fwd_cuda(q, q, q.half(), lens)
+
+
+def test_packed_batch_crosses_as_int16_and_native_builds(dev, tmp_path):
+    """The packed corpus's wire: ``to_device`` of a ``PackedBatchLoader``
+    batch gives int16 PCM on the card, whose features (converted there,
+    ``step._features``: the front-end kernel) equal bitwise those of the
+    float32 batch that ``BatchLoader`` reads from the wavs of the same
+    PCM. The host edit distance builds on the card's machine and equals
+    its plain version."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.data.corpus import Utterance
+    from chainer_speech_recognition_tpu_torch.data.packed import (
+        PackedBatchLoader, PackedCorpus, pack_corpus)
+    from chainer_speech_recognition_tpu_torch.data.sampler import BatchLoader
+    from chainer_speech_recognition_tpu_torch.decode.metrics import (
+        edit_distance_batch, edit_distance_py)
+    from chainer_speech_recognition_tpu_torch.train.loop import to_device
+    from chainer_speech_recognition_tpu_torch.train.step import _features
+    from chainer_speech_recognition_tpu_torch.utils.wav import write_wav
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
+
+    rng = np.random.default_rng(0)
+    vocab = Vocab(["<blank>", "a", "b", "c"])
+    utts = []
+    for i, n in enumerate((16000, 9000, 12345)):
+        path = str(tmp_path / f"u{i}.wav")
+        write_wav(path, 0.3 * rng.standard_normal(n).astype(np.float32))
+        utts.append(Utterance(f"u{i}", path, "abc"[: i + 1], n))
+    pack_corpus(str(tmp_path / "p"), utts, vocab)
+    cfg = preset_config("bigru").override({"buckets.boundaries": [128],
+                                           "buckets.batch_sizes": [3]})
+    idxs = np.arange(3)
+    pb = to_device(PackedBatchLoader(PackedCorpus(str(tmp_path / "p")),
+                                     cfg.buckets).load(0, idxs), dev)
+    wb = to_device(BatchLoader(utts, vocab, cfg.buckets).load(0, idxs), dev)
+    assert pb["signals_i16"].dtype == torch.int16
+    assert pb["signals_i16"].device.type == wb["signals"].device.type \
+        == dev.type
+    assert "signals" not in pb and wb["signals"].dtype == torch.float32
+    before = _kernels.FRONTEND_LOGMEL.launches
+    fp, lp = _features(cfg, pb)
+    fw, lw = _features(cfg, wb)
+    assert _kernels.FRONTEND_LOGMEL.launches == before + 2
+    assert torch.equal(lp, lw) and torch.equal(fp, fw)
+    hyps = [list(rng.integers(0, 9, rng.integers(0, 30))) for _ in range(50)]
+    refs = [list(rng.integers(0, 9, rng.integers(0, 30))) for _ in range(50)]
+    np.testing.assert_array_equal(
+        edit_distance_batch(hyps, refs),
+        [edit_distance_py(h, r) for h, r in zip(hyps, refs)])

@@ -3,8 +3,9 @@ interpreter where ``jax``/``flax``/``optax`` and
 ``chainer_speech_recognition_tpu`` cannot be imported, every module of
 chainer_speech_recognition_tpu_torch imports, the plain decode path runs
 once end to end (a BiGRU and a cut conformer), the stream CLI streams a
-forward-only model over a few windows, and one CPU train step runs
-through the train loop."""
+forward-only model over a few windows, one CPU train step runs through
+the train loop, and the data tools and the evaluate CLI run once
+(make_synthetic, preprocess --pack, evaluate on the packed dev set)."""
 
 import os
 import subprocess
@@ -94,6 +95,24 @@ state = train(tcfg, utts, vocab, device="cpu")
 assert state.step == 1, state.step
 assert latest_checkpoint(os.path.join(root, "tckpt")).endswith(
     "step_00000001.msgpack")
+# the parity path's tools: a confusable corpus, packed, scored on its pack
+from chainer_speech_recognition_tpu_torch.cli import (
+    evaluate, make_synthetic, preprocess)
+corpus, prep = os.path.join(root, "corpus"), os.path.join(root, "prep")
+make_synthetic.main(["--out", corpus, "--style", "confusable", "--utts",
+                     "4", "--vocab", "6", "--min-labels", "2",
+                     "--max-labels", "4", "--min-seconds", "0.4",
+                     "--max-seconds", "0.6", "--seed", "1"])
+preprocess.main(["--corpus", corpus, "--out", prep, "--dev-fraction", "0.5",
+                 "--pack"])
+ecfg = cfg.override({"model.vocab_size": len(Vocab.load(
+    os.path.join(prep, "vocab.txt")))})
+esd = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32) * 0.3
+       for k, v in build_model(ecfg.model).state_dict().items()}
+save_params(os.path.join(root, "eckpt"), state_dict_to_flax(esd), ecfg)
+evaluate.main(["--ckpt-dir", os.path.join(root, "eckpt"), "--data-dir", prep,
+               "--device", "cpu", "--index", "dev.pack", "--set",
+               "buckets.boundaries=[128]", "buckets.batch_sizes=[2]"])
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in (
               "jax", "jaxlib", "flax", "optax",
@@ -116,3 +135,6 @@ def test_port_imports_and_decodes_without_jax():
     assert any(l.split("\t")[0].endswith("c.wav") for l in lines)  # conformer
     assert any(l.split("\t")[0].endswith("s.wav") for l in lines)  # stream
     assert any(l.startswith("step       1 |") for l in lines)       # train
+    assert any(l.startswith("packed 2 utterances") for l in lines)  # pack
+    assert any(l.startswith("CER ") and "| 2 utts |" in l
+               for l in lines)                                      # evaluate

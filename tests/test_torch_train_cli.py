@@ -1,11 +1,13 @@
 """The port's train CLI on the CPU, on a tiny synthetic corpus: the JSONL
 events of the reference's loop, checkpoints and resume, the profiler
-window, a cut ``bilstm_deep`` with SpecAugment on, and the refusals (data
-modes, model blocks and corpus formats that are not ported, no card for
-``--device cuda``, data parallelism)."""
+window, a cut ``bilstm_deep`` with SpecAugment on, training from the
+packed corpus (``train.pack``: the same losses as from the wavs), and the
+refusals (data modes and model blocks that are not ported, a file that is
+not a pack, no card for ``--device cuda``, data parallelism)."""
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -107,17 +109,50 @@ def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, sets, match):
 
 def test_cli_refuses_packed_corpus_and_missing_card(data_dir, tmp_path,
                                                     monkeypatch):
+    """A ``train.pack`` that is not a CSRPACK1 file is refused (the packed
+    corpus itself trains: ``test_cli_trains_from_the_pack_as_from_wavs``),
+    and so is ``--device cuda`` without a card."""
     packed = tmp_path / "packed"
     packed.mkdir()
     for name in ("vocab.txt", "train_index.jsonl"):
         (packed / name).write_bytes(
             open(os.path.join(data_dir, name), "rb").read())
     (packed / "train.pack").write_bytes(b"")
-    with pytest.raises(SystemExit, match="packed corpus"):
+    with pytest.raises(ValueError, match="not a CSRPACK1 file"):
         _run(str(packed), tmp_path, "train.data_mode=stream")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.main(["--data-dir", data_dir, "--device", "cuda"])
+
+
+def test_cli_trains_from_the_pack_as_from_wavs(tmp_path):
+    """``preprocess --pack`` output trains through ``train.pack`` (int16
+    PCM, labels encoded at pack time) with bitwise the losses and gradient
+    norms of training from ``train_index.jsonl`` (the wavs hold the same
+    int16 samples), dev eval included."""
+    from chainer_speech_recognition_tpu_torch.cli import (make_synthetic,
+                                                          preprocess)
+
+    corpus, data = str(tmp_path / "corpus"), str(tmp_path / "data")
+    make_synthetic.main(["--out", corpus, "--style", "confusable",
+                         "--utts", "10", "--vocab", "6", "--min-labels", "2",
+                         "--max-labels", "5", "--min-seconds", "0.3",
+                         "--max-seconds", "0.6", "--seed", "9"])
+    preprocess.main(["--corpus", corpus, "--out", data, "--dev-fraction",
+                     "0.3", "--pack"])
+    wavs = str(tmp_path / "wavs")
+    shutil.copytree(data, wavs)
+    os.remove(os.path.join(wavs, "train.pack"))
+    runs = []
+    for d, name in ((data, "pack"), (wavs, "wav")):
+        (tmp_path / name).mkdir()
+        ev = _run(d, tmp_path / name, "train.data_mode=stream",
+                  "train.total_steps=4", "train.log_every=1",
+                  "train.eval_every=4")
+        runs.append([(e["step"], e["loss"], e["grad_norm"]) if
+                     e["kind"] == "train" else (e["cer"], e["loss"])
+                     for e in ev if e["kind"] in ("train", "eval")])
+    assert len(runs[0]) == 5 and runs[0] == runs[1]
 
 
 @pytest.mark.parametrize("sets", [["train.eval_beam=4"],

@@ -1,0 +1,190 @@
+"""The CER-parity runs of PARITY.md §1, §3 and §3d through the port's CLIs,
+on one CUDA card: ``python3 tools/parity_runs.py [--out DIR]``.
+
+1. smoke: a 24-utterance corpus through make_synthetic, preprocess --pack,
+   10 training steps, evaluate and evaluate --streaming, so that a broken
+   path fails in a minute and not after the full synthesis;
+2. the parity corpus: ``make_synthetic --style confusable --utts 2000
+   --vocab 82 --min-labels 50 --max-labels 150 --seed 20260816`` and
+   ``preprocess --dev-fraction 0.1 --pack``;
+3. run 1, the greedy gate (PARITY.md §3): ``train --preset bigru``,
+   buckets {1024: 16, 1536: 8}, max_label_len 160, 2,500 steps, eval every
+   250, ``train.data_mode=stream`` (the port has no device cache), then
+   ``evaluate``: dev CER ≤ 0.015;
+4. run 2, the streaming gate (§3d): the same with
+   ``features.cmvn_mode=causal``, then ``evaluate`` (offline, ≤ 0.015) and
+   ``evaluate --streaming --stream-chunk 64 --stream-right 16
+   --stream-batch 16`` (≤ 0.020).
+
+Every command's output goes to ``DIR/<name>.log``; the last line of stdout
+is one JSON object with each run's dev CER, edits, reference characters,
+utterance count, gate, the training wall time and utt/s, evaluate's wall,
+utt/s and checkpoint load time, and the card's name and power limit. A
+missed gate is reported as missed (exit code 0); a command that fails
+gives exit code 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+PKG = "chainer_speech_recognition_tpu_torch"
+CORPUS = ["--style", "confusable", "--utts", "2000", "--vocab", "82",
+          "--min-labels", "50", "--max-labels", "150", "--seed", "20260816"]
+TRAIN_SETS = ["buckets.boundaries=[1024,1536]", "buckets.batch_sizes=[16,8]",
+              "buckets.max_label_len=160", "train.total_steps=2500",
+              "train.eval_every=250", "train.data_mode=stream"]
+SMOKE_CORPUS = ["--style", "confusable", "--utts", "24", "--vocab", "82",
+                "--min-labels", "10", "--max-labels", "20",
+                "--min-seconds", "2", "--max-seconds", "4", "--seed", "1"]
+SMOKE_SETS = ["buckets.boundaries=[512]", "buckets.batch_sizes=[8]",
+              "buckets.max_label_len=40", "train.total_steps=10",
+              "train.eval_every=10", "train.data_mode=stream"]
+GATES = {"run1": 0.015, "run2_offline": 0.015, "run2_streaming": 0.020}
+_CER = re.compile(r"CER(\[streaming\])? ([0-9.]+) \| (?:loss ([0-9.]+) \| )?"
+                  r"(\d+) utts \| (\d+) edits / (\d+) ref chars")
+
+
+class RunFailure(Exception):
+    pass
+
+
+def run(out: str, name: str, module: str, args: list[str]) -> tuple[str, float]:
+    """``python -m PKG.cli.<module> args`` → (stdout + stderr, wall s);
+    the output goes to ``out/<name>.log``, a non-zero exit raises."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli.{module}",
+                           *args], capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    text = proc.stdout + proc.stderr
+    with open(os.path.join(out, f"{name}.log"), "w") as f:
+        f.write(text)
+    print(f"[{name}] {module} exit {proc.returncode} in {wall:.3f} s",
+          flush=True)
+    if proc.returncode != 0:
+        print(text[-3000:], flush=True)
+        raise RunFailure(f"{name}: {module} exited {proc.returncode}")
+    return text, wall
+
+
+def train(out: str, name: str, prep: str, sets: list[str]) -> dict:
+    """Train bigru from ``prep`` (its train.pack) → training figures."""
+    ckpt = os.path.join(out, f"{name}_ckpt")
+    metrics = os.path.join(out, f"{name}_metrics.jsonl")
+    _, wall = run(out, f"{name}_train", "train", [
+        "--data-dir", prep, "--preset", "bigru", "--ckpt-dir", ckpt,
+        "--metrics", metrics, "--set", *sets])
+    with open(metrics) as f:
+        ev = [json.loads(l) for l in f]
+    steps = [e for e in ev if e["kind"] == "train"]
+    evals = [e for e in ev if e["kind"] == "eval"]
+    # utt/s of the logged windows after the first (the first one holds the
+    # kernel build and the first hit of each bucket)
+    rates = [e["utt_per_sec"] for e in steps[1:]]
+    res = {"ckpt": ckpt, "steps": steps[-1]["step"] if steps else 0,
+           "train_wall_s": wall,
+           "train_utt_per_s_median": statistics.median(rates) if rates
+           else None,
+           "dev_evals": [(e["step"], e["cer"]) for e in evals]}
+    print(f"[{name}] {json.dumps(res)}", flush=True)
+    return res
+
+
+def evaluate(out: str, name: str, ckpt: str, prep: str,
+             extra: list[str]) -> dict:
+    text, wall = run(out, name, "evaluate", [
+        "--ckpt-dir", ckpt, "--data-dir", prep, *extra])
+    m = _CER.search(text)
+    if m is None:
+        raise RunFailure(f"{name}: no CER line in {text[-2000:]!r}")
+    load = re.search(r"checkpoint load ([0-9.]+) s", text)
+    rate = re.search(r"scored \d+ utts in ([0-9.]+) s: ([0-9.]+) utt/s",
+                     text)
+    res = {"cer": float(m.group(2)),
+           "loss": None if m.group(3) is None else float(m.group(3)),
+           "utts": int(m.group(4)), "edits": int(m.group(5)),
+           "ref_chars": int(m.group(6)), "evaluate_wall_s": wall,
+           "checkpoint_load_s": float(load.group(1)),
+           "scoring_s": float(rate.group(1)),
+           "utt_per_s": float(rate.group(2)),
+           "line": m.group(0)}
+    if name in GATES:
+        res["gate"] = GATES[name]
+        res["passed"] = res["cer"] <= GATES[name]
+    print(f"[{name}] {json.dumps(res)}", flush=True)
+    return res
+
+
+def corpus(out: str, name: str, synth_args: list[str]) -> str:
+    root = os.path.join(out, f"{name}_corpus")
+    prep = os.path.join(out, f"{name}_prep")
+    _, synth_s = run(out, f"{name}_make_synthetic", "make_synthetic",
+                     ["--out", root, *synth_args])
+    _, prep_s = run(out, f"{name}_preprocess", "preprocess", [
+        "--corpus", root, "--out", prep, "--dev-fraction", "0.1", "--pack"])
+    print(f"[{name}] corpus synthesized in {synth_s:.3f} s, preprocessed "
+          f"and packed in {prep_s:.3f} s", flush=True)
+    return prep
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--out", default=os.path.join("chiprun_out", "parity"))
+    p.add_argument("--work", default=os.path.join(".chipscratch", "parity"),
+                   help="corpora and checkpoints (git-ignored)")
+    args = p.parse_args()
+    os.makedirs(args.out, exist_ok=True)
+    os.makedirs(args.work, exist_ok=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(card, flush=True)
+    result: dict = {"card": card}
+    try:
+        prep = corpus(args.work, "smoke", SMOKE_CORPUS)
+        sm = train(args.work, "smoke", prep, SMOKE_SETS + [
+            "features.cmvn_mode=causal"])
+        evaluate(args.work, "smoke_eval", sm["ckpt"], prep,
+                 ["--index", "dev_index.jsonl,dev.pack"])
+        evaluate(args.work, "smoke_stream", sm["ckpt"], prep,
+                 ["--streaming", "--stream-chunk", "64", "--stream-right",
+                  "16", "--stream-batch", "16"])
+        t0 = time.perf_counter()
+        prep = corpus(args.work, "parity", CORPUS)
+        result["corpus_s"] = time.perf_counter() - t0
+        result["run1"] = train(args.work, "run1", prep, TRAIN_SETS)
+        result["run1"].update(evaluate(args.work, "run1", result["run1"][
+            "ckpt"], prep, []))
+        result["run2"] = train(args.work, "run2", prep, TRAIN_SETS + [
+            "features.cmvn_mode=causal"])
+        result["run2"]["offline"] = evaluate(
+            args.work, "run2_offline", result["run2"]["ckpt"], prep, [])
+        result["run2"]["streaming"] = evaluate(
+            args.work, "run2_streaming", result["run2"]["ckpt"], prep,
+            ["--streaming", "--stream-chunk", "64", "--stream-right", "16",
+             "--stream-batch", "16"])
+    except RunFailure as e:
+        print(f"parity_runs: FAILED: {e}", file=sys.stderr)
+        print(json.dumps(result))
+        return 1
+    finally:
+        for name in os.listdir(args.work):    # logs and metrics come back
+            if name.endswith((".log", ".jsonl")):
+                with open(os.path.join(args.work, name), "rb") as src, \
+                        open(os.path.join(args.out, name), "wb") as dst:
+                    dst.write(src.read())
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
