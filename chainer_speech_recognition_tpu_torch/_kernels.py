@@ -92,6 +92,9 @@ FLASH_BWD_DQ = Kernel("csr_flash_bwd_dq", [_P] * 10 + [_I, _P])
 FLASH_BWD_DKV = Kernel("csr_flash_bwd_dkv", [_P] * 11 + [_I, _P])
 # the recurrences' dW: (ys, g1, ld1, n1, g2, ld2, n2, out, T, B, H, stream)
 DW = Kernel("csr_dw", [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P])
+# the prefix beam: (the address of its argument struct, ops/beam_cuda.BeamArgs,
+# stream)
+BEAM = Kernel("csr_beam", [_P, _P])
 KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "greedy": GREEDY, "gru_fwd_train": GRU_FWD_TRAIN,
            "gru_bwd": GRU_BWD, "ctc_fwd": CTC_FWD, "ctc_bwd": CTC_BWD,
@@ -100,16 +103,18 @@ KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "lstm_fwd_stream": LSTM_FWD_STREAM,
            "frontend_logmel_frames": FRONTEND_LOGMEL_FRAMES,
            "flash_fwd": FLASH_FWD, "flash_bwd_dq": FLASH_BWD_DQ,
-           "flash_bwd_dkv": FLASH_BWD_DKV, "dw": DW}
+           "flash_bwd_dkv": FLASH_BWD_DKV, "dw": DW, "beam": BEAM}
 
 # functions of the library that launch nothing (no count): (H, out) →
 # out = (shared memory bytes, clusters the card holds at once); the CTC
 # kernels' (S, bwd, out) → out = their launch shape (ops/ctc_cuda.ctc_plan);
-# the dW kernel's (T, B, H, N, out) → its launch shape (ops/rnn_cuda.dw_plan)
+# the dW kernel's (T, B, H, N, out) → its launch shape (ops/rnn_cuda.dw_plan);
+# the beam's (T, V, K, out) → its launch plan (ops/beam_cuda.beam_plan)
 HELPERS = {f"csr_{cell}_{form}_occupancy": [_I, ctypes.POINTER(_I)]
            for cell in ("gru", "lstm") for form in ("fwd", "bwd")}
 HELPERS["csr_ctc_plan"] = [_I, _I, ctypes.POINTER(_I)]
 HELPERS["csr_dw_plan"] = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+HELPERS["csr_beam_plan"] = [_I, _I, _I, ctypes.POINTER(_I)]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

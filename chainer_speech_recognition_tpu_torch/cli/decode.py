@@ -1,12 +1,13 @@
-"""Decode CLI: checkpoint + wav file(s) → greedy transcripts (port of the
-greedy path of ``cli/decode.py``).
+"""Decode CLI: checkpoint + wav file(s) → text (port of ``cli/decode.py``).
 
-Same flags, checks and output as the reference's greedy path: the vocab
-size check, length-sorted chunks of ``--batch`` wavs with signal lengths
-quantized to 1 s, results printed in input order as ``path<TAB>text``.
-``--device`` picks the card (default) or the CPU; ``--device cuda`` on a
-host without CUDA raises. Beam search (``--beam``, ``--lm``, ``--nbest``)
-is not ported yet and is refused.
+Greedy by default; ``--beam K`` switches to prefix beam search (one launch
+of ``csrc/beam.cu`` a chunk on the card), and ``--lm``/``--lm-alpha``/
+``--lm-beta`` add n-gram LM shallow fusion (config 4). Same flags, checks
+and output as the reference: the vocab size check, length-sorted chunks of
+``--batch`` wavs with signal lengths quantized to 1 s, results printed in
+input order as ``path<TAB>text`` (``--nbest N``: ``path<TAB>rank<TAB>
+log-score<TAB>text`` lines). ``--device`` picks the card (default) or the
+CPU; ``--device cuda`` on a host without CUDA raises.
 
     python -m chainer_speech_recognition_tpu_torch.cli.decode \\
         --ckpt-dir CKPT --vocab vocab.txt a.wav b.wav
@@ -15,6 +16,7 @@ is not ported yet and is refused.
 from __future__ import annotations
 
 import argparse
+import sys
 import wave
 
 import numpy as np
@@ -23,7 +25,9 @@ import torch
 from .. import constants as C
 from ..bridge import load_flax_params
 from ..checkpoint import load_config, load_params
+from ..decode.beam import beam_decode, beam_decode_nbest
 from ..decode.greedy import greedy_decode
+from ..decode.lm import NGramLM, device_lm
 from ..frontend import select_frontend
 from ..models.presets import build_model
 from ..utils.wav import read_wav
@@ -75,10 +79,18 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--beam", type=int, default=0,
-                   help="beam width: only 0 (greedy) is ported")
-    p.add_argument("--lm", default=None, help="not ported (needs --beam)")
+                   help="beam width (0 = greedy)")
+    p.add_argument("--lm", default=None, help="ARPA n-gram LM for fusion")
+    p.add_argument("--lm-alpha", type=float, default=0.5)
+    p.add_argument("--lm-beta", type=float, default=1.0)
+    p.add_argument("--lm-repr", default="auto",
+                   choices=("auto", "dense", "hashed"),
+                   help="device LM representation: dense table, sparse "
+                        "hashed (scales to order>=4 / large V), or auto "
+                        "by table size")
     p.add_argument("--nbest", type=int, default=1,
-                   help="not ported (needs --beam)")
+                   help="with --beam: print the top-N hypotheses per wav "
+                        "(tab-separated: path, rank, log-score, text)")
     p.add_argument("--batch", type=int, default=32,
                    help="wavs per device batch: long wav lists are decoded "
                         "in length-sorted chunks and printed in input order")
@@ -92,10 +104,6 @@ def main(argv=None):
     p.add_argument("wavs", nargs="*")
     args = p.parse_args(argv)
 
-    if args.beam > 0 or args.lm or args.nbest > 1:
-        raise SystemExit("beam decoding (--beam/--lm/--nbest) is not yet "
-                         "ported to the PyTorch package; decode greedily "
-                         "or use chainer_speech_recognition_tpu.cli.decode")
     if args.wav_list:
         with open(args.wav_list, encoding="utf-8") as f:
             args.wavs += [l.strip() for l in f if l.strip()]
@@ -103,6 +111,16 @@ def main(argv=None):
         raise SystemExit("no wavs given (positional or --wav-list)")
     if args.batch <= 0:
         raise SystemExit("--batch must be >= 1")
+    # --nbest only has meaning on the beam path: fail loudly instead of
+    # silently printing greedy 1-best
+    if args.nbest > 1 and args.beam <= 0:
+        raise SystemExit("--nbest requires --beam K")
+    if args.lm and args.beam <= 0:
+        raise SystemExit("--lm requires --beam K (greedy decode cannot "
+                         "apply LM fusion)")
+    if args.beam > 0 and args.nbest > args.beam:
+        print(f"warning: --nbest {args.nbest} clamped to beam width "
+              f"{args.beam}", file=sys.stderr)   # stdout is the result TSV
     device = resolve_device(args.device)
 
     overrides = parse_overrides(args.set)
@@ -114,6 +132,9 @@ def main(argv=None):
             f"vocab has {len(vocab)} symbols but the checkpoint was trained "
             f"with model.vocab_size={cfg.model.vocab_size} — wrong vocab "
             "file for this checkpoint (decodes would be silently garbled)")
+    lm = None
+    if args.lm:
+        lm = device_lm(NGramLM.from_arpa(args.lm, vocab), args.lm_repr)
 
     def header_len(path):
         with wave.open(path, "rb") as w:
@@ -150,13 +171,32 @@ def main(argv=None):
                                     torch.from_numpy(lens).to(device),
                                     apply_cmvn=cfg.features.cmvn_arg)
             logits, olens = model(feats, flens)
-            ids, out_lens = greedy_decode(logits, olens)
-            ids, out_lens = ids.cpu().numpy(), out_lens.cpu().numpy()
+            if args.beam > 0 and args.nbest > 1:
+                n = min(args.nbest, args.beam)
+                pfx, plen, scores = beam_decode_nbest(
+                    logits, olens, beam=args.beam, lm=lm,
+                    alpha=args.lm_alpha, beta=args.lm_beta)
+                for r, i in enumerate(chunk):
+                    results[i] = [(k + 1, float(scores[r, k]),
+                                   vocab.decode(pfx[r, k, : plen[r, k]]))
+                                  for k in range(n)]
+                continue
+            if args.beam > 0:
+                hyps = beam_decode(logits, olens, beam=args.beam, lm=lm,
+                                   alpha=args.lm_alpha, beta=args.lm_beta)
+            else:
+                ids, out_lens = greedy_decode(logits, olens)
+                ids, out_lens = ids.cpu().numpy(), out_lens.cpu().numpy()
+                hyps = [ids[r, : out_lens[r]] for r in range(len(ids))]
             for r, i in enumerate(chunk):
-                results[i] = vocab.decode(ids[r, : out_lens[r]])
+                results[i] = vocab.decode(hyps[r])
 
     for w, res in zip(args.wavs, results):       # input order
-        print(f"{w}\t{res}")
+        if isinstance(res, list):
+            for rank, score, text in res:
+                print(f"{w}\t{rank}\t{score:.3f}\t{text}")
+        else:
+            print(f"{w}\t{res}")
 
 
 if __name__ == "__main__":

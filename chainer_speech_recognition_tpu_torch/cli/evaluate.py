@@ -1,20 +1,23 @@
-"""Evaluate CLI: checkpoint → dev/test CER (port of the greedy paths of
-``cli/evaluate.py``), on one card (default) or the CPU.
+"""Evaluate CLI: checkpoint → dev/test CER (port of ``cli/evaluate.py``),
+on one card (default) or the CPU.
 
 Reconstructs the training config (front-end included) from the checkpoint
 directory's frozen config.json, scores each ``--index`` set (a JSONL
-index, or a packed ``.pack`` set) with one forward pass a batch and greedy
-decoding, and prints the reference's result lines:
+index, or a packed ``.pack`` set) with one forward pass a batch, greedy
+or (``--beam K``, ``--lm``) prefix beam search with LM fusion, and prints
+the reference's result lines:
 
   CER 0.0123 | loss 12.3456 | 200 utts | 240 edits / 19310 ref chars
 
-``--streaming`` scores the same set through the online recognizer
-(``decode/streaming.py``) instead, and prints ``CER[streaming] …`` with
-its buffering. The checkpoint load's time and each set's utt/s go to
-stderr, so stdout compares line by line with the reference's. Beam search
-and LM fusion (``--beam``, ``--lm``, ``--lm-*``, ``--compare``,
-``--tune-*``) are parsed and refused; the mesh-sharded evaluation of the
-reference is not ported (one device).
+``--compare`` scores greedy, beam-K and beam-K+LM from one forward pass;
+``--tune-lm`` grid-searches the fusion weights over logits kept on the
+device (``--tune-chunk`` batches at a time); ``--streaming`` scores the
+set through the online recognizer (``decode/streaming.py``, greedy or
+beam) instead, and prints ``CER[streaming] …`` with its buffering. The
+checkpoint load's time and each set's utt/s go to stderr, so stdout
+compares line by line with the reference's. The mesh-sharded evaluation
+of the reference waits for data parallelism (ROADMAP.md, module queue:
+config 5); the port evaluates on one device.
 
     python -m chainer_speech_recognition_tpu_torch.cli.evaluate \\
         --ckpt-dir CKPT --data-dir prep --index dev_index.jsonl,dev.pack
@@ -32,18 +35,16 @@ import torch
 from ..data.corpus import load_index, load_signal
 from ..data.packed import PackedBatchLoader, PackedCorpus
 from ..data.sampler import BatchLoader, BucketSampler
+from ..decode.beam import beam_decode
+from ..decode.lm import NGramLM, device_lm
 from ..decode.metrics import CERAccumulator
 from ..decode.streaming import StreamingRecognizer, decode_lockstep
-from ..train.loop import evaluate_multi
+from ..train.loop import evaluate_multi, to_device
 from ..train.step import make_eval_step
 from ..utils.wav import read_wav
 from ..vocab import Vocab
 from .common import parse_overrides, resolve_device
 from .decode import load_model
-
-# flags of the reference's beam and LM paths: parsed, then refused
-NOT_PORTED = ("beam", "lm", "lm_alpha", "lm_beta", "lm_repr", "compare",
-              "tune_lm", "tune_alphas", "tune_betas", "tune_chunk")
 
 
 def main(argv=None):
@@ -61,13 +62,38 @@ def main(argv=None):
                         "one model load, per-set CER rows")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--beam", type=int, default=0, help="beam width (0=greedy)")
+    p.add_argument("--lm", default=None, help="ARPA LM for shallow fusion")
+    p.add_argument("--lm-alpha", type=float, default=0.5)
+    p.add_argument("--lm-beta", type=float, default=1.0)
+    p.add_argument("--lm-repr", default="auto",
+                   choices=("auto", "dense", "hashed"),
+                   help="device LM representation: dense table, sparse "
+                        "hashed (scales to order>=4 / large V), or auto "
+                        "by table size")
+    p.add_argument("--compare", action="store_true",
+                   help="score greedy, beam-K and beam-K+LM from ONE "
+                        "forward pass and print the three-way CER table "
+                        "(requires --beam, LM row needs --lm)")
     p.add_argument("--hyp-out", default=None,
-                   help="write hypotheses (utt_id<TAB>text, index order); "
-                        "with several sets, one file per set")
+                   help="write hypotheses (utt_id<TAB>text, index order) "
+                        "from the strongest configured decoder; with "
+                        "several sets, one file per set")
+    p.add_argument("--tune-lm", action="store_true",
+                   help="grid-search (alpha, beta) fusion weights over "
+                        "this set from ONE acoustic forward pass (logits "
+                        "kept on the device). Requires --beam and --lm.")
+    p.add_argument("--tune-alphas", default="0.0,0.25,0.5,0.75,1.0")
+    p.add_argument("--tune-betas", default="0.0,0.5,1.0,1.5,2.0")
+    p.add_argument("--tune-chunk", type=int, default=64,
+                   help="batches whose logits stay on the device at once "
+                        "during --tune-lm (bounds device memory on large "
+                        "dev sets; the acoustic pass still runs ONCE)")
     p.add_argument("--streaming", action="store_true",
                    help="score through the ONLINE recognizer "
                         "(decode/streaming.py) instead of the offline "
-                        "forward; needs a causal-CMVN checkpoint")
+                        "forward; --beam/--lm select the streaming "
+                        "decoder; needs a causal-CMVN checkpoint")
     p.add_argument("--stream-chunk", type=int, default=64,
                    help="streaming: emitted frames per step (10 ms units)")
     p.add_argument("--stream-right", type=int, default=None,
@@ -81,26 +107,7 @@ def main(argv=None):
                         "frozen training config (bucket shapes, ...); "
                         "model.* is rejected except the execution-choice "
                         "knobs attn_impl / attn_residual_dtype / rnn_impl")
-    g = p.add_argument_group("not ported yet (refused)")
-    g.add_argument("--beam", type=int, default=None)
-    g.add_argument("--lm", default=None)
-    g.add_argument("--lm-alpha", type=float, default=None)
-    g.add_argument("--lm-beta", type=float, default=None)
-    g.add_argument("--lm-repr", default=None)
-    g.add_argument("--compare", action="store_true", default=None)
-    g.add_argument("--tune-lm", action="store_true", default=None)
-    g.add_argument("--tune-alphas", default=None)
-    g.add_argument("--tune-betas", default=None)
-    g.add_argument("--tune-chunk", type=int, default=None)
     args = p.parse_args(argv)
-
-    given = [f"--{k.replace('_', '-')}" for k in NOT_PORTED
-             if getattr(args, k) is not None]
-    if given:
-        raise SystemExit(
-            f"{', '.join(given)}: prefix beam search and LM fusion are not "
-            "ported yet (ROADMAP.md, module queue: config 4, prefix beam "
-            "search with n-gram LM fusion); the port evaluates greedily")
     device = resolve_device(args.device)
 
     t0 = time.perf_counter()
@@ -116,6 +123,17 @@ def main(argv=None):
             f"with model.vocab_size={cfg.model.vocab_size} — wrong vocab "
             "file for this checkpoint (decodes would be silently garbled)")
     set_names = [s for s in args.index.split(",") if s]
+    if len(set_names) > 1 and args.tune_lm:
+        raise SystemExit("--tune-lm tunes on ONE set; pass a single --index")
+    if args.tune_lm and args.compare:
+        raise SystemExit("--tune-lm and --compare are mutually exclusive "
+                         "(tune first, then --compare at the best weights)")
+    if args.lm and args.beam <= 0:
+        raise SystemExit("--lm requires --beam K (greedy scoring cannot "
+                         "apply LM fusion)")
+    if args.streaming and (args.compare or args.tune_lm):
+        raise SystemExit("--streaming scores one decoder; it combines with "
+                         "--beam/--lm but not --compare/--tune-lm")
     if args.stream_right is None:   # model-aware default (stream_geometry
         # rejects lookahead on chunk-causal attention checkpoints)
         args.stream_right = 0 if cfg.model.attn_chunk else 16
@@ -125,6 +143,16 @@ def main(argv=None):
             "family is not ported yet (ROADMAP.md, module queue: "
             "conformer_stream streaming); evaluate it offline")
     eval_fn = make_eval_step(model, cfg)
+
+    decode_fn = None                  # None: greedy on the device
+    lm_dev = None
+    if args.beam > 0:
+        lm = NGramLM.from_arpa(args.lm, vocab) if args.lm else None
+        lm_dev = device_lm(lm, args.lm_repr) if lm else None
+
+        def decode_fn(logits, olens):
+            return beam_decode(logits, olens, beam=args.beam, lm=lm_dev,
+                               alpha=args.lm_alpha, beta=args.lm_beta)
 
     print(f"checkpoint {path}")
     print(f"checkpoint load {load_s:.3f} s", file=sys.stderr)
@@ -192,7 +220,10 @@ def main(argv=None):
                 stream_rec = StreamingRecognizer(
                     model, cfg, batch=max(1, args.stream_batch),
                     chunk_frames=args.stream_chunk,
-                    right_frames=args.stream_right)
+                    right_frames=args.stream_right,
+                    decoder="beam" if args.beam > 0 else "greedy",
+                    beam=args.beam, lm=lm_dev, lm_alpha=args.lm_alpha,
+                    lm_beta=args.lm_beta)
             rec = stream_rec
             acc = CERAccumulator()
             # length-sorted lockstep batches through the feeder that
@@ -213,10 +244,70 @@ def main(argv=None):
                      " | note: lookahead < conv right reach "
                      f"({model.conv_right_margin()}) — boundary frames see "
                      "zero-padded conv context"))
+        elif args.tune_lm:
+            if args.beam <= 0 or lm_dev is None:
+                raise SystemExit("--tune-lm requires --beam K and --lm")
+            alphas = [float(x) for x in args.tune_alphas.split(",")]
+            betas = [float(x) for x in args.tune_betas.split(",")]
+            grid = [(a, b) for a in alphas for b in betas]
+            # ONE acoustic forward pass, chunk-major: the logits of
+            # --tune-chunk batches stay on the device while every grid
+            # point decodes them, then the chunk is released
+            accs = {ab: CERAccumulator() for ab in grid}
+            sinks = {ab: [] for ab in grid} if hyp_out else None
+            batches = sampler.eval_batches()
+            Ch = max(1, args.tune_chunk)
+            for c0 in range(0, len(batches), Ch):
+                stored = []
+                for bid, idxs, n_valid in batches[c0 : c0 + Ch]:
+                    _, logits, olens = eval_fn(
+                        to_device(loader.load(bid, idxs), device))
+                    refs = [utts[int(idxs[i])].text for i in range(n_valid)]
+                    stored.append((logits, olens, refs, n_valid, idxs))
+                for ab in grid:
+                    for logits, olens, refs, n_valid, idxs in stored:
+                        hyps = beam_decode(logits, olens, beam=args.beam,
+                                           lm=lm_dev, alpha=ab[0],
+                                           beta=ab[1])
+                        texts = [vocab.decode(h) for h in hyps[:n_valid]]
+                        accs[ab].add_batch(texts, refs)
+                        if sinks is not None:
+                            sinks[ab].extend((int(idxs[i]), t)
+                                             for i, t in enumerate(texts))
+            best = None
+            for (a, b) in grid:
+                acc = accs[(a, b)]
+                print(f"alpha={a:<5g} beta={b:<5g} CER {acc.cer:.4f} "
+                      f"({acc.edits} edits)")
+                if best is None or acc.cer < best[0]:
+                    best = (acc.cer, a, b)
+            print(f"best: alpha={best[1]:g} beta={best[2]:g} CER "
+                  f"{best[0]:.4f}")
+            if sinks is not None:
+                sink = sinks[(best[1], best[2])]   # best grid point
+            acc = accs[(best[1], best[2])]
+        elif args.compare:
+            if args.beam <= 0:
+                raise SystemExit("--compare requires --beam K")
+            decoders = {
+                "greedy": None,
+                f"beam{args.beam}": (lambda lg, ol: beam_decode(
+                    lg, ol, beam=args.beam)),
+            }
+            if lm_dev is not None:
+                decoders[f"beam{args.beam}+lm"] = decode_fn
+            accs, loss = evaluate_multi(eval_fn, loader,
+                                        sampler.eval_batches(), vocab, utts,
+                                        decoders, device, sink=sink,
+                                        sink_decoder=list(decoders)[-1])
+            for name, acc in accs.items():
+                print(f"{tag}CER[{name}] {acc.cer:.4f} | {acc.num_utts} "
+                      f"utts | {acc.edits} edits / {acc.ref_len} ref chars")
+            print(f"{tag}loss {loss:.4f}")
         else:
             accs, loss = evaluate_multi(eval_fn, loader,
                                         sampler.eval_batches(), vocab, utts,
-                                        {"_": None}, device, sink=sink,
+                                        {"_": decode_fn}, device, sink=sink,
                                         sink_decoder="_")
             acc = accs["_"]
             print(f"{tag}CER {acc.cer:.4f} | loss {loss:.4f} | "

@@ -1,5 +1,5 @@
 """Streaming decode CLI: online recognition over wavs or live stdin PCM
-(port of ``cli/stream.py``, greedy decoder).
+(port of ``cli/stream.py``).
 
 Serves the latency-controlled streaming recognizer (decode/streaming.py)
 two ways, on the card unless ``--device cpu`` is asked for:
@@ -14,8 +14,9 @@ two ways, on the card unless ``--device cpu`` is asked for:
 
 Requires a checkpoint trained with ``features.cmvn_mode=causal`` (or CMVN
 off); the recognizer refuses utterance CMVN with the retrain instruction.
-Beam search and LM fusion (``--beam``, ``--lm``) are not ported yet and
-are refused.
+``--beam K`` streams with the carried prefix beam (tokens print once every
+live beam agrees on them, the 1-best tail at stream end), ``--lm`` adds
+n-gram LM fusion.
 
     python -m chainer_speech_recognition_tpu_torch.cli.stream \\
         --ckpt-dir CKPT --vocab vocab.txt --right-frames 0 a.wav b.wav
@@ -30,6 +31,7 @@ import wave
 import numpy as np
 
 from .. import constants as C
+from ..decode.lm import NGramLM, device_lm
 from ..decode.streaming import StreamingRecognizer, decode_lockstep
 from ..utils.wav import read_wav
 from ..vocab import Vocab
@@ -125,9 +127,16 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--beam", type=int, default=0,
-                   help="streaming prefix-beam width: only 0 (greedy) is "
-                        "ported")
-    p.add_argument("--lm", default=None, help="not ported (needs --beam)")
+                   help="streaming prefix-beam width (0 = greedy); tokens "
+                        "print once every live beam agrees on them, the "
+                        "1-best tail lands at stream end")
+    p.add_argument("--lm", default=None,
+                   help="ARPA n-gram LM for streaming shallow fusion "
+                        "(requires --beam)")
+    p.add_argument("--lm-alpha", type=float, default=0.5)
+    p.add_argument("--lm-beta", type=float, default=1.0)
+    p.add_argument("--lm-repr", default="auto",
+                   choices=("auto", "dense", "hashed"))
     p.add_argument("--chunk-frames", type=int, default=64,
                    help="emitted frames per streaming step (10 ms units)")
     p.add_argument("--right-frames", type=int, default=16,
@@ -157,10 +166,6 @@ def main(argv=None):
     p.add_argument("wavs", nargs="*")
     args = p.parse_args(argv)
 
-    if args.beam > 0 or args.lm:
-        raise SystemExit("beam decoding (--beam/--lm) is not yet ported to "
-                         "the PyTorch package; stream greedily or use "
-                         "chainer_speech_recognition_tpu.cli.stream")
     if args.wav_list:
         with open(args.wav_list, encoding="utf-8") as f:
             args.wavs += [l.strip() for l in f if l.strip()]
@@ -171,6 +176,9 @@ def main(argv=None):
                          "for stdin PCM")
     if args.batch <= 0:
         raise SystemExit("--batch must be >= 1")
+    if args.lm and args.beam <= 0:
+        raise SystemExit("--lm requires --beam K (greedy streaming cannot "
+                         "apply LM fusion)")
     device = resolve_device(args.device)
 
     cfg, model, _ = load_model(args.ckpt_dir, args.average_last,
@@ -188,12 +196,18 @@ def main(argv=None):
             f"vocab has {len(vocab)} symbols but the checkpoint was trained "
             f"with model.vocab_size={cfg.model.vocab_size} — wrong vocab "
             "file for this checkpoint")
+    lm = None
+    if args.lm:
+        lm = device_lm(NGramLM.from_arpa(args.lm, vocab), args.lm_repr)
 
     batch = (1 if args.raw or args.partials
              else min(args.batch, len(args.wavs)))
     rec = StreamingRecognizer(
         model, cfg, batch=batch, chunk_frames=args.chunk_frames,
-        right_frames=args.right_frames, endpoint_ms=args.endpoint_ms)
+        right_frames=args.right_frames,
+        decoder="beam" if args.beam > 0 else "greedy", beam=args.beam,
+        lm=lm, lm_alpha=args.lm_alpha, lm_beta=args.lm_beta,
+        endpoint_ms=args.endpoint_ms)
 
     g = rec.geo
     if g["C"] != args.chunk_frames or g["R"] != args.right_frames:

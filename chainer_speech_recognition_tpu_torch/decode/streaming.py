@@ -1,5 +1,5 @@
 """Online (streaming) recognition: latency-controlled chunked inference
-(port of ``decode/streaming.py``, greedy decoder).
+(port of ``decode/streaming.py``).
 
 Each window of PCM goes through the same device math as the reference's
 compiled step, eagerly: the spectral stage (``cuda_frontend.
@@ -31,11 +31,19 @@ How each component streams, as in the reference:
   streams exactly at zero lookahead.
 * **Greedy CTC collapse**: argmax per frame with the previous chunk's last
   raw frame id carried, so repeats collapse across boundaries.
+* **Prefix beam search** (``decoder="beam"``, optional LM fusion): the
+  beam recursion is causal, so the [B, K] hypothesis state carries across
+  chunks exactly (``decode/beam.BeamStreamDecoder``: one launch of
+  ``csrc/beam.cu`` a window on the card) — chunked beam equals the
+  offline beam on the same logits. Tokens are finalized once every live
+  beam agrees on them; ``flush`` tops up with the 1-best tail, and an
+  endpoint closes a row's utterance with its 1-best tail
+  (``end_rows``).
 
 The host code (``stream_geometry``, ``decode_lockstep``, ``accept``,
 ``flush``, endpointing, ``_trim``, ``_assemble``) is the reference's,
-line for line. The reference's prefix beam decoder (``decoder="beam"``,
-``lm``) and mesh-sharded streams (``mesh``) are not ported yet and raise.
+line for line. Mesh-sharded streams (``mesh``) wait for data parallelism
+and raise.
 
 Latency = (chunk_frames + right_frames) × 10 ms of audio buffering plus
 one window of compute; throughput scales with the lockstep batch.
@@ -52,6 +60,7 @@ from .. import constants as C
 from ..constants import BLANK_ID
 from ..frontend.cuda_frontend import fused_logmel_rows
 from ..frontend.torch_frontend import _delta, cmvn_causal
+from .beam import BeamStreamDecoder
 
 _D = 2 * C.DELTA_WINDOW          # logmel margin the Δ/ΔΔ stack needs (4)
 _PAD = C.N_FFT // 2              # centered-STFT half window (256 samples)
@@ -210,6 +219,8 @@ class StreamingRecognizer:
     ``model`` is the port's ``AcousticModel`` with its weights (the
     reference passes flax params beside it). Requires
     ``features.cmvn_mode == "causal"`` (train the model with it).
+    ``decoder="beam"`` decodes each window with the carried prefix beam
+    (``beam`` wide, ``lm`` fused with ``lm_alpha``/``lm_beta``).
     ``accept`` feeds every stream the same number of samples (lockstep
     serving); streams of different true lengths end via
     ``flush(num_samples=[...])``.
@@ -218,18 +229,17 @@ class StreamingRecognizer:
     def __init__(self, model, cfg, *, batch: int = 1,
                  chunk_frames: int = 64, right_frames: int = 16,
                  left_margin: int | None = None, decoder: str = "greedy",
-                 lm=None, endpoint_ms: float | None = None, mesh=None):
+                 beam: int = 8, lm=None, lm_alpha: float = 0.5,
+                 lm_beta: float = 1.0, endpoint_ms: float | None = None,
+                 mesh=None):
         if decoder not in ("greedy", "beam"):
             raise ValueError(f"decoder={decoder!r}: expected greedy|beam")
-        if decoder == "beam" or lm is not None:
-            raise NotImplementedError(
-                "streaming prefix beam search and LM fusion are not ported "
-                "yet (ROADMAP.md, config 4: beam search with n-gram LM "
-                "fusion)")
+        self._decoder = decoder
+        self._beam_args = (beam, lm, lm_alpha, lm_beta)
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded streaming is not ported yet (ROADMAP.md, "
-                "config 5: multi-GPU data parallelism)")
+                "module queue item 6, config 5: data parallelism)")
         # CTC endpointing: an utterance ends once the argmax has been
         # blank for >= endpoint_ms of audio (checked at chunk granularity)
         # — the finished segment lands in ``self.segments`` and the
@@ -265,14 +275,22 @@ class StreamingRecognizer:
         self.reset()
 
     def _step(self, ext, frame_valid):
-        """One window on the device: → (ids, keep, n) for the host, and the
-        carries advance in place of the old ones."""
+        """One window on the device: → (ids, out, n), and the carries
+        advance in place of the old ones. Greedy: out is the keep mask of
+        the collapse; beam: the emit region's fp32 logits, which the beam
+        consumes on the device, and ids the raw argmax (the endpointer's)."""
         args = self._args_first if self._first else self._args_mid
         with torch.inference_mode():
             logits, lens, cmvn, rnn = _window_logits(
                 self.model, ext, frame_valid,
                 None if self._first else self._cmvn, self._rnn,
                 use_cmvn=self._use_cmvn, **args)
+            if self._beamdec is not None:
+                C_s = self._C_s
+                n = torch.clamp(lens, 0, C_s)
+                ids = torch.argmax(logits[:, :C_s], dim=-1).to(torch.int32)
+                self._cmvn, self._rnn = cmvn, rnn
+                return ids, logits[:, :C_s].to(torch.float32), n
             ids, keep, n, last = _emit_greedy(logits, lens, self._prev,
                                               self._C_s)
         self._cmvn, self._rnn, self._prev = cmvn, rnn, last
@@ -301,6 +319,12 @@ class StreamingRecognizer:
                                 device=self.device)
         self._out: list[list[int]] = [[] for _ in range(B)]
         self._finished = False
+        if self._decoder == "beam":
+            k, lm, a, bb = self._beam_args
+            self._beamdec = BeamStreamDecoder(B, beam=k, lm=lm, alpha=a,
+                                              beta=bb)
+        else:
+            self._beamdec = None
 
     @property
     def emitted(self) -> list[list[int]]:
@@ -361,6 +385,16 @@ class StreamingRecognizer:
                 "before flush(num_samples=...)")
         self._finished = True
         out = self._drain(finishing=True, total_frames=total, lengths=ns)
+        if self._beamdec is not None:
+            # the drain finalized only the tokens every live beam agreed
+            # on; at stream end the 1-best hypothesis wins outright (after
+            # a final endpoint reset the finished rows' lists are empty,
+            # so `best` only extends open utterances)
+            for b, best in enumerate(self._beamdec.finish()):
+                # _seg_start is 0 unless endpointing split the stream
+                extra = best[len(self._out[b]) - self._seg_start[b]:]
+                self._out[b].extend(extra)
+                out[b].extend(extra)
         if self._ep_frames is not None:
             for b in range(self.batch):   # close the open segments
                 seg = self._out[b][self._seg_start[b]:]
@@ -393,15 +427,22 @@ class StreamingRecognizer:
                 fv = np.clip(total_frames - g0, 0, W_lm)
             else:
                 fv = np.full((self.batch,), W_lm, np.int64)
-            ids, keep, n = self._step(
+            ids, out, n = self._step(
                 torch.from_numpy(ext).to(self.device),
                 torch.from_numpy(fv.astype(np.int64)).to(self.device))
-            ids = ids.cpu().numpy()
-            keep = keep.cpu().numpy()
-            for b in range(self.batch):
-                kept = ids[b][keep[b]].tolist()
-                self._out[b].extend(kept)
-                new[b].extend(kept)
+            if self._beamdec is not None:
+                # tokens finalize when every live beam agrees on them
+                for b, kept in enumerate(self._beamdec.step(out, n)):
+                    self._out[b].extend(kept)
+                    new[b].extend(kept)
+                ids = ids.cpu().numpy()
+            else:
+                ids = ids.cpu().numpy()
+                keep = out.cpu().numpy()
+                for b in range(self.batch):
+                    kept = ids[b][keep[b]].tolist()
+                    self._out[b].extend(kept)
+                    new[b].extend(kept)
             self._t0 += g["C"]
             self._first = False
             self.window_times.append(time.perf_counter() - t_win)
@@ -431,6 +472,11 @@ class StreamingRecognizer:
                 self._trail[b] = 0       # re-arms after more silence
         if not fired:
             return
+        if self._beamdec is not None:
+            # unfinalized 1-best tails land in the closing segments
+            for b, tail in self._beamdec.end_rows(fired).items():
+                self._out[b].extend(tail)
+                new[b].extend(tail)
         rows = np.asarray(fired)
         for b in fired:
             seg = self._out[b][self._seg_start[b]:]

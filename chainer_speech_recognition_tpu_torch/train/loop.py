@@ -1,7 +1,8 @@
 """Host-side training loop (port of ``train/loop.py``, stream data mode, one
 device): a background ``Prefetcher`` assembles padded host batches, each is
 copied to the device and trained on, with structured metrics, periodic
-greedy dev evaluation, keep-N checkpoints and exact resume (data order
+dev evaluation (greedy, plus the ``train.eval_beam`` and ``train.eval_lm``
+columns), keep-N checkpoints and exact resume (data order
 included).
 
 Only the "stream" data mode is ported. ``_resolve_data_mode`` is the
@@ -26,7 +27,9 @@ from ..config import Config
 from ..data.buckets import padding_waste
 from ..data.corpus import Utterance
 from ..data.sampler import BatchLoader, BucketSampler, Prefetcher
+from ..decode.beam import beam_decode
 from ..decode.greedy import greedy_decode
+from ..decode.lm import NGramLM, device_lm
 from ..decode.metrics import CERAccumulator
 from ..models.presets import build_model, init_parameters
 from ..ops.ctc import LOG_ZERO
@@ -104,8 +107,9 @@ def evaluate_multi(eval_step, loader: BatchLoader, batches, vocab: Vocab,
                    sink: list | None = None,
                    sink_decoder: str | None = None):
     """One forward pass per batch, scored by SEVERAL decoders at once
-    (the reference's ``evaluate_multi``; decoder value None = greedy on
-    the device, the only decoder ported so far). Only the ``n_valid`` real
+    (the reference's ``evaluate_multi``, e.g. {"greedy": None, "beam8":
+    fn, "beam8+lm": fn}; decoder value None = greedy on the device, fn
+    (logits, olens) → id lists otherwise). Only the ``n_valid`` real
     rows of a padded batch are scored, and the mean loss leaves out the
     samples with no alignment (the ``-LOG_ZERO`` sentinel). Returns
     ({name: CERAccumulator}, mean_loss). When ``sink`` is a list,
@@ -133,15 +137,6 @@ def evaluate_multi(eval_step, loader: BatchLoader, batches, vocab: Vocab,
         total_loss += float(losses[fin].sum())
         n += int(fin.sum())
     return accs, total_loss / max(n, 1)
-
-
-def evaluate(eval_step, loader: BatchLoader, batches, vocab: Vocab, utts,
-             device: torch.device):
-    """Dev-set greedy decode → (CERAccumulator, mean loss):
-    ``evaluate_multi`` with the one greedy decoder."""
-    accs, mean_loss = evaluate_multi(eval_step, loader, batches, vocab,
-                                     utts, {"_": None}, device)
-    return accs["_"], mean_loss
 
 
 def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
@@ -200,6 +195,27 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
         dev_loader = BatchLoader(dev_utts, vocab, cfg.buckets,
                                  use_cached_features=cfg.features.use_cache)
         dev_batches = dev_sampler.eval_batches()
+
+    # periodic-eval decoder columns: greedy always; train.eval_beam adds a
+    # prefix-beam column and train.eval_lm a beam+LM column, all from one
+    # forward pass a batch (evaluate_multi)
+    eval_decoders: dict = {"greedy": None}
+    if cfg.train.eval_beam > 0:
+        kb = cfg.train.eval_beam
+
+        def _beam_fn(lg, ol, _lm=None, _a=0.0, _b=0.0):
+            return beam_decode(lg, ol, beam=kb, lm=_lm, alpha=_a, beta=_b)
+
+        eval_decoders["beam"] = _beam_fn
+        if cfg.train.eval_lm:
+            # "auto": the dense table while it is small, the hashed LM
+            # beyond it
+            eval_lm = device_lm(
+                NGramLM.from_arpa(cfg.train.eval_lm, vocab), "auto")
+            eval_decoders["beam_lm"] = (
+                lambda lg, ol: _beam_fn(lg, ol, eval_lm,
+                                        cfg.train.eval_lm_alpha,
+                                        cfg.train.eval_lm_beta))
 
     t_last, utts_since = time.perf_counter(), 0
     seen_buckets: set[int] = set()
@@ -266,10 +282,13 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
                     bucket_id=int(bucket_id))
             t_last, utts_since = now, 0
         if dev_batches and crossed(cfg.train.eval_every):
-            acc, dev_loss = evaluate(eval_step, dev_loader, dev_batches,
-                                     vocab, dev_utts, device)
-            log.log("eval", step=step, cer=acc.cer, loss=dev_loss,
-                    num_utts=acc.num_utts)
+            accs, dev_loss = evaluate_multi(eval_step, dev_loader,
+                                            dev_batches, vocab, dev_utts,
+                                            eval_decoders, device)
+            extra_cols = {f"cer_{nm}": acc.cer for nm, acc in accs.items()
+                          if nm != "greedy"}
+            log.log("eval", step=step, cer=accs["greedy"].cer, loss=dev_loss,
+                    num_utts=accs["greedy"].num_utts, **extra_cols)
         if crossed(cfg.train.checkpoint_every):
             path = save_checkpoint(cfg.train.checkpoint_dir, state, cfg,
                                    keep=cfg.train.keep_checkpoints)

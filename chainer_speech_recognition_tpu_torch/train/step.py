@@ -88,13 +88,6 @@ def check_trainable(cfg: Config) -> None:
             f"parallel.num_devices={cfg.parallel.num_devices}: data "
             "parallelism is not ported yet (ROADMAP.md, module queue: data "
             "parallelism); the port trains on one device")
-    if cfg.train.eval_beam > 0 or cfg.train.eval_lm:
-        raise NotImplementedError(
-            f"train.eval_beam={cfg.train.eval_beam}, "
-            f"train.eval_lm={cfg.train.eval_lm!r}: the periodic eval's beam "
-            "and beam+LM columns need prefix beam search and LM fusion, not "
-            "ported yet (ROADMAP.md, module queue: config 4, prefix beam "
-            "search with n-gram LM fusion); the port's dev eval is greedy")
 
 
 def step_draws(cfg: Config, state: TrainState, batch: dict):

@@ -5,8 +5,10 @@ width of the ``bigru`` preset (phases 3-9), of the ``bilstm_deep`` preset
 (phases 10-14), of both streaming paths, the forward-only ``uni_gru``
 preset and ``bilstm_deep`` with causal CMVN (phases 15-17), of the
 attention family, ``conformer`` and ``conformer_stream`` offline (phases
-18-21), and the parity path of ``bigru`` (phase 22: data tools, training
-from a pack, the evaluate CLI), with random weights made from a seed, and
+18-21), the parity path of ``bigru`` (phase 22: data tools, training
+from a pack, the evaluate CLI) and config 4 on ``bigru`` (phase 23:
+prefix beam search with LM fusion, offline and streaming), with random
+weights made from a seed, and
 fails (exit code != 0, no result line) if any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
@@ -165,6 +167,21 @@ fails (exit code != 0, no result line) if any phase fails:
     gru_fwd_stream launches from ``stream_geometry``. Random-weight CERs
     are printed, not gated; so is the phase's wall against its 30 s
     budget.
+23. config 4, prefix beam search with n-gram LM fusion: the beam kernel
+    (``csrc/beam.cu``, one launch a batch or a streaming chunk) against
+    its plain version at B = 32, T' = 251, K = 8 — V = 64 without an LM,
+    with the dense 3-gram and with a hashed 4-gram of fp16 rows, V = 2048
+    without an LM; ids, n-best rows, counts, parent beams and the hash
+    state exact, scores within 1e-4 — in its offline 1-best, n-best and
+    chunk forms; 16-frame chunks equal the offline 1-best on the card,
+    one launch a chunk; the kernel timed as graph replays in alternating
+    rounds with the plain version (eager); then the decode CLI with
+    ``--beam 8 --lm`` (3-gram ARPA, dense) and the stream CLI with
+    ``--beam 8 --lm`` on a causal-CMVN checkpoint over the 64 wavs, exact
+    launches (one beam launch a decode chunk and a stream window), every
+    beam launch held to the plain version on its own inputs
+    (``beam_checked``), warm walls. Its wall is printed against a 30 s
+    budget.
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -237,7 +254,10 @@ TOL = {"frontend_logmel": 5e-4,       # tests/test_pallas_frontend.py:34
        "attn_bf16_ratio": 1.25,
        # conformer step loss in bf16: 3x the 1.34e-4 an H100 gave, the
        # CPU's own bf16 noise over eight blocks (1.5e-7 at fp32 compute)
-       "attn_loss_bf16_rtol": 4e-4}
+       "attn_loss_bf16_rtol": 4e-4,
+       # the beam: ids, counts and hashes exact; scores at the JAX beam
+       # tests' 1e-4 (tests/test_torch_beam.py)
+       "beam_score": 1e-4}
 # decode CLI, 64 wavs in two chunks: the launches of each decode kernel
 DECODE_LAUNCHES = {
     PRESET: {"frontend_logmel": 2, "gru_fwd": 6, "greedy": 2},
@@ -301,11 +321,19 @@ SOURCES = {
     "dw": (
         "chainer_speech_recognition_tpu_torch/csrc/dw.cu",
         "chainer_speech_recognition_tpu/ops/rnn_pallas.py:408"),
+    "beam": (
+        "chainer_speech_recognition_tpu_torch/csrc/beam.cu",
+        "chainer_speech_recognition_tpu/decode/beam.py:342"),
 }
 # the kernels line's notes: dw replaces an XLA einsum, not a Pallas call
 NOTES = {"dw": "replaces _dw_einsum, an XLA einsum (not a Pallas call); "
                "timed at bilstm_deep's training layer, launches from its "
-               "training run"}
+               "training run",
+         "beam": "replaces _beam_step in the lax.scan of _beam_decode_jit "
+                 "and _beam_chunk_jit (not a Pallas call); timed at the "
+                 "decode shape with the dense 3-gram, launches from the "
+                 "decode CLI's --beam 8 --lm run; no PyTorch call computes "
+                 "a prefix beam"}
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GRAPH_CALLS = 10        # calls in one CUDA graph of phase 18's rounds
 # phase 22: a confusable corpus of short utterances (PARITY.md §1's
@@ -318,6 +346,12 @@ PARITY_BUCKETS = ["buckets.boundaries=[512]",
                   f"buckets.batch_sizes=[{PARITY_BUCKET_B}]",
                   "buckets.max_label_len=40"]
 PARITY_BUDGET_S = 30.0
+# phase 23, config 4: the prefix beam at the decode shape (one 10 s chunk:
+# T' = 251), PARITY.md §3's K = 8, alpha = 0.5, beta = 1.0
+BEAM_FRAMES, BEAM_WIDTH, BEAM_ALPHA, BEAM_BETA = 251, 8, 0.5, 1.0
+BEAM_CHUNK = 16                       # frames a chunk of the chunked check
+BEAM_ROUNDS = 5                       # alternating timing rounds
+BEAM_BUDGET_S = 30.0
 # H100 SXM datasheet: HBM bytes/s, dense peak FLOP/s
 HBM_RATE = 3.35e12
 PEAK = {"bf16": 989e12, "fp32": 67e12}
@@ -2918,6 +2952,290 @@ def phase_parity_path(root: str, dev, rng) -> None:
           f"{PARITY_BUDGET_S} s: {'within' if took <= PARITY_BUDGET_S else 'OVER'})")
 
 
+def train_arpa(root: str, vocab_path: str, rng, order: int) -> str:
+    """An ``order``-gram LM trained (``NGramLM.train``) on 400 random
+    strings over the vocab's symbols and written as ARPA; → its path."""
+    from chainer_speech_recognition_tpu_torch.decode.lm import NGramLM
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
+
+    vocab = Vocab.load(vocab_path)
+    syms = vocab.symbols[1:]
+    texts = ["".join(rng.choice(syms, size=int(rng.integers(5, 40))))
+             for _ in range(400)]
+    path = os.path.join(root, f"lm_{order}gram.arpa")
+    NGramLM.train(texts, vocab, order=order).to_arpa(path, vocab)
+    return path
+
+
+def beam_same(tag: str, got, want) -> float:
+    """One beam launch's outputs against the plain version's: chars,
+    counts, parent0 and the integer state exactly, the final scores and
+    the state's pb / pnb within ``TOL["beam_score"]``; → the largest score
+    difference."""
+    import torch
+
+    for name, a, b in zip(("chars", "counts", "parent0"), got[:3], want[:3]):
+        check(torch.equal(a, b), f"{tag}: {name} differ from the plain "
+              f"version's")
+    for i, (a, b) in enumerate(zip(got[4][2:], want[4][2:])):
+        check(torch.equal(a, b), f"{tag}: state array {i + 2} (hashes, "
+              "parent hashes, last, LM context) differs from the plain "
+              "version's")
+    err = max(float((a - b).abs().max()) for a, b in (
+        (got[3], want[3]), (got[4][0], want[4][0]), (got[4][1], want[4][1])))
+    check(err <= TOL["beam_score"], f"{tag}: scores differ by {err:.3e}")
+    return err
+
+
+@contextlib.contextmanager
+def beam_checked(log: list):
+    """Within the block every beam launch on the card (``decode.beam.
+    beam_chunk``) is held to the plain version on the same inputs
+    (``beam_same``; the plain version launches nothing); ``log`` gets one
+    score difference a launch."""
+    from chainer_speech_recognition_tpu_torch.decode import beam
+
+    orig = beam.beam_chunk
+
+    def checked(lp, lengths, state, dlm, alpha, beta, keep, width, ordered):
+        got = orig(lp, lengths, state, dlm, alpha, beta, keep, width,
+                   ordered)
+        want = beam.beam_chunk_plain(lp, lengths, state, dlm, alpha, beta,
+                                     keep, width, ordered)
+        log.append(beam_same("beam on the CLI path", got, want))
+        return got
+
+    beam.beam_chunk = checked
+    try:
+        yield
+    finally:
+        beam.beam_chunk = orig
+
+
+def phase_beam(root, ckpt, vocab, wavs, audio_s, dev,
+               rng) -> tuple[dict, int]:
+    """Phase 23, config 4: the prefix beam kernel against its plain version
+    at the decode shape (B = 32, T' = 251, K = 8; V = 64 with no LM, the
+    dense 3-gram and a hashed 4-gram with fp16 rows; V = 2048 without an
+    LM), chunked decoding equal to offline on the card with one launch a
+    chunk, the kernel timed by graph replays in alternating rounds with
+    the plain version (eager), then the decode CLI (--beam 8 --lm) and the
+    stream CLI (--beam 8 --lm, causal CMVN) on the 64 wavs with exact
+    launches and every launch held to the plain version on its inputs.
+    → (the kernel line's timings, the decode CLI's beam launches)."""
+    import wave
+
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.cli import stream
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.decode import beam
+    from chainer_speech_recognition_tpu_torch.decode.lm import (
+        HashedLM, NGramLM, device_lm)
+    from chainer_speech_recognition_tpu_torch.ops import beam_cuda
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
+
+    t_phase = time.perf_counter()
+    B, T, K = CHECK_B, BEAM_FRAMES, BEAM_WIDTH
+    V = preset_config(PRESET).model.vocab_size
+    vocab_obj = Vocab.load(vocab)
+    arpa3, arpa4 = (train_arpa(root, vocab, rng, n) for n in (3, 4))
+    dense = device_lm(NGramLM.from_arpa(arpa3, vocab_obj), "auto")
+    h = NGramLM.from_arpa(arpa4, vocab_obj).to_hashed()
+    hashed16 = HashedLM(h.table, h.rows.astype(np.float16), h.order,
+                        h.max_probes)
+    check(isinstance(dense, tuple), "the 3-gram should take the dense table")
+    lens = torch.from_numpy(rng.integers(T // 2, T + 1, B).astype(np.int32))
+    lens[0] = T
+    lens = lens.to(dev)
+
+    def logits_of(V_):
+        x = rng.standard_normal((B, T, V_)).astype(np.float32) * 2
+        path = rng.integers(0, V_, (B, T))
+        for b in range(B):
+            x[b, np.arange(T), path[b]] += 3.0
+        return torch.from_numpy(x).to(dev)
+
+    errs, case = {}, {}
+    for name, V_, lm in (("V=64 no LM", V, None), ("V=64 dense 3-gram", V,
+                                                   dense),
+                         ("V=64 hashed 4-gram fp16", V, hashed16),
+                         ("V=2048 no LM", 2048, None)):
+        logits = logits_of(V_)
+        lp = beam._log_probs(logits)
+        dlm = beam.lm_on_device(lm, V_, dev)
+        a, b = BEAM_ALPHA, BEAM_BETA
+        for ordered, keep in ((True, 1), (True, K), (False, K)):
+            s0 = beam.beam_stream_init(B, K, dlm.ctx_len, dev)
+            got = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, keep, T,
+                                            ordered)
+            torch.cuda.synchronize()
+            want = beam.beam_chunk_plain(lp, lens, s0, dlm, a, b, keep, T,
+                                         ordered)
+            errs[(name, ordered, keep)] = beam_same(f"beam {name}", got,
+                                                    want)
+        case[name] = (logits, lp, dlm, a, b)
+    print(f"[beam] kernel = plain version at B={B}, T'={T}, K={K} (ids, "
+          f"n-best, counts, parent beams, hash state exact; offline 1-best, "
+          f"offline n-best and the chunk form): max score difference "
+          + ", ".join(f"{n} {max(e for k, e in errs.items() if k[0] == n):.2e}"
+                      for n in case))
+
+    # chunked == offline on the card, one launch a chunk
+    logits, lp, dlm, a, b = case["V=64 dense 3-gram"]
+    _kernels.reset_launches()
+    offline = beam.beam_decode(logits, lens, beam=K, lm=dense,
+                               alpha=BEAM_ALPHA, beta=BEAM_BETA)
+    check(_kernels.BEAM.launches == 1, "offline beam: "
+          f"{_kernels.BEAM.launches} launches, expected 1")
+    dec = beam.BeamStreamDecoder(B, beam=K, lm=dense, alpha=BEAM_ALPHA,
+                                 beta=BEAM_BETA)
+    n_chunks = 0
+    for c0 in range(0, T, BEAM_CHUNK):
+        n = torch.clamp(lens - c0, 0, BEAM_CHUNK)
+        dec.step(logits[:, c0 : c0 + BEAM_CHUNK], n)
+        n_chunks += 1
+    check(_kernels.BEAM.launches == 1 + n_chunks,
+          f"chunked beam: {_kernels.BEAM.launches - 1} launches for "
+          f"{n_chunks} chunks")
+    check(dec.finish() == offline, "chunked beam differs from offline")
+    print(f"[beam] {n_chunks} chunks of {BEAM_CHUNK} frames, one launch "
+          "each, equal the offline 1-best (one launch) on all "
+          f"{B} rows")
+
+    # time: the kernel as graph replays, the plain version eagerly, in turns
+    s0 = beam.beam_stream_init(B, K, dlm.ctx_len, dev)
+    kernel = lambda: beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, 1, T,
+                                               True)[0]
+    plain = lambda: beam.beam_chunk_plain(lp, lens, s0, dlm, a, b, 1, T,
+                                          True)[0]
+    replay, res = graph_of(kernel)
+    replay()
+    torch.cuda.synchronize()
+    check(torch.equal(res, plain()), "the beam's replay differs from the "
+          "plain version")
+    rounds = {"kernel": [], "plain": []}
+    for _ in range(BEAM_ROUNDS):
+        rounds["kernel"].append(time_ms(replay, warmup=0, reps=1)
+                                / GRAPH_CALLS)
+        rounds["plain"].append(time_ms(plain, warmup=0, reps=1))
+    med = {n: statistics.median(r) for n, r in rounds.items()}
+    # bytes: the live frames' log-probs, every LM row the hypotheses read
+    # (distinct rows, by content), the outputs
+    rows: list = []
+    lm_rows = beam._lm_rows
+
+    def collect(dlm_, ctx, V_):
+        out = lm_rows(dlm_, ctx, V_)
+        rows.append(out.reshape(-1, V_))
+        return out
+
+    beam._lm_rows = collect
+    try:
+        beam.beam_chunk_plain(lp, lens, s0, dlm, a, b, 1, T, True)
+    finally:
+        beam._lm_rows = lm_rows
+    n_rows = torch.unique(torch.cat(rows), dim=0).shape[0]
+    live = int(lens.sum())
+    n_bytes = (live * V + n_rows * V) * 4 + B * (T + 2 + K * 8 + K * 2) * 4
+    t = dict(max_abs_err=max(errs.values()), ms=med["kernel"],
+             plain_ms=med["plain"], library_ms=None,
+             **bound(n_bytes, 0, "fp32"))
+    print(f"[beam] main-path shape (V={V}, dense 3-gram, K={K}, 1-best), "
+          f"{BEAM_ROUNDS} alternating rounds (kernel: graph replays, plain: "
+          f"eager), medians: kernel {med['kernel']:.4f} ms "
+          f"({med['kernel'] / T * 1e3:.3f} us a frame; rounds "
+          f"{min(rounds['kernel']):.4f}-{max(rounds['kernel']):.4f}), plain "
+          f"{med['plain']:.3f} ms ({med['plain'] / med['kernel']:.1f}x); "
+          f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}: {live} live "
+          f"frames, {n_rows} distinct LM rows), share "
+          f"{t['bound_ms'] / t['ms']:.4f}: the frame chain, not the bytes, "
+          "sets the pace; no PyTorch call computes a prefix beam")
+    logits2, lp2, dlm2, a2, b2 = case["V=2048 no LM"]
+    s2 = beam.beam_stream_init(B, K, dlm2.ctx_len, dev)
+    k2 = time_ms(lambda: beam_cuda.beam_chunk_cuda(
+        lp2, lens, s2, dlm2, a2, b2, 1, T, True), warmup=1, reps=3)
+    print(f"[beam] V=2048, no LM: kernel {k2:.4f} ms eager "
+          f"({k2 / T * 1e3:.3f} us a frame), plan "
+          f"{beam_cuda.beam_plan(T, 2048, K)}")
+
+    # the decode CLI, every launch held to the plain version
+    args = ["--ckpt-dir", ckpt, "--vocab", vocab, "--batch",
+            str(BATCH), "--device", "cuda", "--beam", str(K), "--lm", arpa3,
+            "--lm-alpha", str(BEAM_ALPHA), "--lm-beta", str(BEAM_BETA),
+            *wavs]
+    diffs: list = []
+    _kernels.reset_launches()
+    with beam_checked(diffs):
+        lines, cold = run_decode(args)
+    launches = _kernels.launches()
+    decode_launches = launches["beam"]
+    want = {k: 0 for k in _kernels.KERNELS}
+    want.update({**DECODE_LAUNCHES[PRESET], "greedy": 0,
+                 "beam": -(-len(wavs) // BATCH)})
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches on "
+              f"the beam decode path, expected {n}")
+    check(len(diffs) == want["beam"], "not every beam launch was checked")
+    check([l.split("\t")[0] for l in lines] == wavs and all(
+        len(l.split("\t")) == 2 for l in lines), "beam decode output")
+    check(any(l.split("\t")[1] for l in lines), "every transcript is empty")
+    lines2, warm = run_decode(args)
+    check(lines2 == lines, "warm beam decode differs from the cold one")
+    print(f"[beam-decode] decode --beam {K} --lm (3-gram, dense): cold "
+          f"{cold:.3f} s (launches "
+          f"{ {k: v for k, v in launches.items() if v} }, each beam launch "
+          f"equal to the plain version on its logits), warm {warm:.3f} s: "
+          f"{len(wavs) / warm:.3f} utt/s, RTF {warm / audio_s:.6f}")
+
+    # the stream CLI with the beam, causal CMVN
+    sckpt = write_checkpoint(root, PRESET, rng,
+                             {"features.cmvn_mode": "causal"})
+    lens_w = []
+    for w in wavs:
+        with wave.open(w, "rb") as f:
+            lens_w.append(f.getnframes())
+    order = sorted(lens_w)
+    windows = sum(-(-C.num_frames(max(order[i : i + BATCH])) // STREAM_CHUNK)
+                  for i in range(0, len(order), BATCH))
+    layers = preset_config(PRESET).model.rnn_layers
+    sargs = ["--ckpt-dir", sckpt, "--vocab", vocab, "--device", "cuda",
+             "--batch", str(BATCH), "--chunk-frames", str(STREAM_CHUNK),
+             "--right-frames", "16", "--beam", str(K), "--lm", arpa3,
+             "--lm-alpha", str(BEAM_ALPHA), "--lm-beta", str(BEAM_BETA),
+             *wavs]
+    diffs = []
+    _kernels.reset_launches()
+    with beam_checked(diffs):
+        slines, _, swall = run_cli(stream.main, sargs)
+    launches = _kernels.launches()
+    want = {k: 0 for k in _kernels.KERNELS}
+    want.update({"frontend_logmel": windows, "gru_fwd_stream":
+                 layers * windows, "beam": windows})
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches on "
+              f"the beam stream path, expected {n}")
+    check(len(diffs) == windows, "not every stream beam launch was checked")
+    check([l.split("\t")[0] for l in slines] == wavs, "stream output order")
+    check(any(l.split("\t")[1] for l in slines), "every streamed transcript "
+          "is empty")
+    slines2, _, swarm = run_cli(stream.main, sargs)
+    check(slines2 == slines, "warm beam stream differs from the cold one")
+    took = time.perf_counter() - t_phase
+    print(f"[beam-stream] stream --beam {K} --lm, chunk {STREAM_CHUNK} + "
+          f"16: {windows} windows (one beam launch each, equal to the plain "
+          f"version on its logits), cold {swall:.3f} s, warm {swarm:.3f} s: "
+          f"{len(wavs) / swarm:.3f} utt/s, RTF {swarm / audio_s:.6f}; phase "
+          f"23 took {took:.3f} s (budget {BEAM_BUDGET_S} s: "
+          f"{'within' if took <= BEAM_BUDGET_S else 'OVER'})")
+    for l in slines[:2]:
+        print(f"[beam-stream] {os.path.basename(l.split(chr(9))[0])}: "
+              f"{l.split(chr(9))[1][:40]!r}")
+    return t, decode_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2973,6 +3291,10 @@ def main() -> int:
                                {"model.attn_impl": "flash"})
             # the parity path draws from a stream of its own
             phase_parity_path(root, dev, np.random.default_rng(SEED + 4))
+            # so does config 4
+            timings["beam"], beam_launches = phase_beam(
+                root, ckpt, vocab, wavs, audio_s, dev,
+                np.random.default_rng(SEED + 5))
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]
@@ -2984,6 +3306,7 @@ def main() -> int:
         launches["flash_fwd"] = conf_decode["flash_fwd"]
         launches["flash_bwd_dq"] = conf_train["flash_bwd_dq"]
         launches["flash_bwd_dkv"] = conf_train["flash_bwd_dkv"]
+        launches["beam"] = beam_launches
         loaded = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "optax",

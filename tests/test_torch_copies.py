@@ -1,8 +1,8 @@
 """The port keeps its own copies of the reference's JAX-free host modules
 (config, constants, vocab and its BPE learner, wav I/O, the golden NumPy
 front-end, synthetic audio and the confusable corpus, the corpus scanners
-and CSJ text cleanup, the bucketed sampler and loader, CER scoring) and of
-the host code
+and CSJ text cleanup, the bucketed sampler and loader, CER scoring, the
+n-gram LM) and of the host code
 of the streaming recognizer (window assembly, buffer trimming, the
 lockstep feeder); each copy is held to the original here, and no module of
 the port or ``chip_smoke.py`` imports the JAX package."""
@@ -24,6 +24,7 @@ from chainer_speech_recognition_tpu.data import corpus as jcorpus
 from chainer_speech_recognition_tpu.data import jptext as jjp
 from chainer_speech_recognition_tpu.data import sampler as jsampler
 from chainer_speech_recognition_tpu.data import synthetic as jsynth
+from chainer_speech_recognition_tpu.decode import lm as jlm
 from chainer_speech_recognition_tpu.decode import metrics as jmetrics
 from chainer_speech_recognition_tpu.decode import streaming as jstream
 from chainer_speech_recognition_tpu.frontend import golden_np as jgold
@@ -37,6 +38,7 @@ from chainer_speech_recognition_tpu_torch.data import corpus as tcorpus
 from chainer_speech_recognition_tpu_torch.data import jptext as tjp
 from chainer_speech_recognition_tpu_torch.data import sampler as tsampler
 from chainer_speech_recognition_tpu_torch.data import synthetic as tsynth
+from chainer_speech_recognition_tpu_torch.decode import lm as tlm
 from chainer_speech_recognition_tpu_torch.decode import metrics as tmetrics
 from chainer_speech_recognition_tpu_torch.decode import streaming as tstream
 from chainer_speech_recognition_tpu_torch.frontend import golden_np as tgold
@@ -368,3 +370,27 @@ def test_port_never_imports_the_jax_package():
            or re.search(r"^\s*(from|import)\s+(jax|flax|optax)\b",
                         open(f).read(), re.M)]
     assert not bad, bad
+
+
+@pytest.mark.parametrize("order", [1, 3, 4])
+def test_ngram_lm_copy_matches(order, tmp_path):
+    """decode/lm.py's copy: the same public names and hash constants, and
+    an LM trained on the same texts gives the same ARPA bytes, dense table
+    and hashed table (tests/test_torch_lm.py holds the rest)."""
+    public = lambda m: sorted(n for n in vars(m) if not n.startswith("__")
+                              and n not in ("np", "math", "defaultdict",
+                                            "annotations", "Vocab"))
+    assert public(tlm) == public(jlm)
+    assert (tlm._CTX_MULT2, tlm._CTX_MOD2) == (jlm._CTX_MULT2, jlm._CTX_MOD2)
+    texts = ["あいうあい", "いうえおあ", "おあい", "えおえおう"]
+    jv, tv = JVocab.build(texts, add_unk=False), TVocab.build(texts,
+                                                               add_unk=False)
+    j = jlm.NGramLM.train(texts, jv, order=order)
+    t = tlm.NGramLM.train(texts, tv, order=order)
+    j.to_arpa(str(tmp_path / "j.arpa"), jv)
+    t.to_arpa(str(tmp_path / "t.arpa"), tv)
+    assert (tmp_path / "t.arpa").read_bytes() == \
+        (tmp_path / "j.arpa").read_bytes()
+    assert np.array_equal(t.to_dense()[0], j.to_dense()[0])
+    if order > 1:
+        assert np.array_equal(t.to_hashed().table, j.to_hashed().table)

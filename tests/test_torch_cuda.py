@@ -1100,3 +1100,116 @@ def test_packed_batch_crosses_as_int16_and_native_builds(dev, tmp_path):
     np.testing.assert_array_equal(
         edit_distance_batch(hyps, refs),
         [edit_distance_py(h, r) for h, r in zip(hyps, refs)])
+
+
+# ------------------------------------------------------------ the beam --
+
+def _beam_case(dev, B, T, V, K, kind, seed):
+    from chainer_speech_recognition_tpu_torch.decode import beam as tb
+    from chainer_speech_recognition_tpu_torch.decode.lm import NGramLM
+
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((B, T, V)) * 2).astype(np.float32)
+    path = rng.integers(0, V, (B, T))
+    for b in range(B):
+        x[b, np.arange(T), path[b]] += 3.0
+    lens = torch.from_numpy(rng.integers(1, T + 1, B).astype(np.int32))
+    lens[0] = T
+    lm = None
+    if kind != "none":
+        order = {"dense3": 3, "hashed4": 4, "hashed4_fp16": 4}[kind]
+        lm = NGramLM(order, V)
+        lm.logp[0][()] = {c: float(np.log(0.8 / (V - 1)))
+                          for c in range(1, V, 3)}
+        for k in range(1, order):
+            for ctx in {tuple(int(c) for c in rng.integers(1, V, k))
+                        for _ in range(60)}:
+                succ = rng.integers(1, V, size=5)
+                lp = np.log(rng.dirichlet(np.ones(5)) * 0.7)
+                lm.logp[k][ctx] = {int(c): float(p)
+                                   for c, p in zip(succ, lp)}
+                lm.backoff[k][ctx] = float(np.log(0.3))
+        if kind == "dense3":
+            lm = lm.to_dense()
+        else:
+            lm = lm.to_hashed(rows_dtype=np.float16 if kind.endswith("16")
+                              else np.float32)
+    lp = tb._log_probs(torch.from_numpy(x).to(dev))
+    dlm = tb.lm_on_device(lm, V, dev)
+    return tb, lp, lens.to(dev), dlm, 0.6, 0.8
+
+
+@pytest.mark.parametrize("B,T,V,K,kind", [
+    (1, 1, 2, 1, "none"), (3, 17, 5, 8, "none"), (5, 40, 64, 4, "dense3"),
+    (4, 33, 64, 8, "hashed4"), (4, 33, 64, 8, "hashed4_fp16"),
+    (2, 20, 3000, 8, "hashed4"), (3, 25, 64, 32, "none"),
+    (2, 12, 64, 9, "dense3"), (1, 1700, 8, 32, "none"),    # tb in scratch
+    (2, 6, 13000, 2, "none"),                               # lp unstaged
+])
+@pytest.mark.parametrize("ordered,keep", [(True, 1), (True, 0), (False, -1)])
+def test_beam_kernel_matches_plain(dev, B, T, V, K, kind, ordered, keep):
+    """The beam kernel against its plain version on the same log-probs and
+    state: chars, counts, parent beams and the integer state exactly,
+    scores within 1e-4 (chip_smoke phase 23 holds the decode shape);
+    exactly one launch. keep 0 = all K beams best-first, -1 = all in
+    place (the streaming form)."""
+    from chainer_speech_recognition_tpu_torch.ops import beam_cuda
+
+    tb, lp, lens, dlm, a, b = _beam_case(dev, B, T, V, K, kind, V + K + T)
+    keep = keep if keep > 0 else K
+    s0 = tb.beam_stream_init(B, K, dlm.ctx_len, dev)
+    before = _kernels.BEAM.launches
+    got = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, keep, T,
+                                    ordered)
+    torch.cuda.synchronize()
+    assert _kernels.BEAM.launches == before + 1
+    want = tb.beam_chunk_plain(lp, lens, s0, dlm, a, b, keep, T, ordered)
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[4][2:], want[4][2:]):
+        assert torch.equal(g, w)
+    for g, w in ((got[3], want[3]), (got[4][0], want[4][0]),
+                 (got[4][1], want[4][1])):
+        assert float((g - w).abs().max()) <= 1e-4
+
+
+def test_beam_kernel_chunks_equal_offline_and_width_cut(dev):
+    """Carried-state chunks of 7 frames equal one offline launch (state,
+    emissions chained); a width below the emissions keeps the first ones,
+    as the plain version does."""
+    from chainer_speech_recognition_tpu_torch.ops import beam_cuda
+
+    tb, lp, lens, dlm, a, b = _beam_case(dev, 3, 40, 64, 8, "dense3", 5)
+    K = 8
+    s = tb.beam_stream_init(3, K, dlm.ctx_len, dev)
+    full = beam_cuda.beam_chunk_cuda(lp, lens, s, dlm, a, b, K, 40, False)
+    for c0 in range(0, 40, 7):
+        n = torch.clamp(lens - c0, 0, 7)
+        s = beam_cuda.beam_chunk_cuda(lp[:, c0 : c0 + 7].contiguous(), n, s,
+                                      dlm, a, b, K, 7, False)[4]
+    for g, w in zip(s, full[4]):
+        assert torch.equal(g, w)
+    cut = beam_cuda.beam_chunk_cuda(lp, lens, tb.beam_stream_init(
+        3, K, dlm.ctx_len, dev), dlm, a, b, 1, 3, True)
+    want = tb.beam_chunk_plain(lp, lens, tb.beam_stream_init(
+        3, K, dlm.ctx_len, dev), dlm, a, b, 1, 3, True)
+    assert torch.equal(cut[0], want[0]) and torch.equal(cut[1], want[1])
+
+
+def test_beam_refuses_wide_beams_on_the_card(dev):
+    """K > 32 on a CUDA tensor raises (never the plain version); so do
+    an LM context past 8 lanes and a vocabulary past 32767."""
+    from chainer_speech_recognition_tpu_torch.decode import beam as tb
+
+    logits = torch.zeros((1, 4, 6), device=dev)
+    with pytest.raises(ValueError, match="outside 1..32"):
+        tb.beam_decode(logits, [4], beam=33)
+    before = _kernels.BEAM.launches
+    assert len(tb.beam_decode(logits, [4], beam=32)) == 1
+    assert _kernels.BEAM.launches == before + 1
+    from chainer_speech_recognition_tpu_torch.ops import beam_cuda
+    with pytest.raises(ValueError, match="LM context"):
+        beam_cuda.beam_chunk_cuda(
+            tb._log_probs(logits), torch.tensor([4], device=dev),
+            tb.beam_stream_init(1, 2, 9, dev), tb.DeviceLM("dense", 10),
+            0.0, 0.0, 1, 4, True)

@@ -1,5 +1,9 @@
 """The port's decode CLI (--device cpu) vs the reference decode CLI on the
-same tiny checkpoint and wavs: identical transcripts at fp32 compute."""
+same tiny checkpoint and wavs: identical transcripts at fp32 compute,
+greedy and with prefix beam search and LM fusion (--beam, --lm, --lm-repr,
+--nbest), and the reference's error cases."""
+
+import os
 
 import numpy as np
 import pytest
@@ -16,6 +20,8 @@ from chainer_speech_recognition_tpu.train.state import init_state
 from chainer_speech_recognition_tpu.utils.wav import write_wav
 from chainer_speech_recognition_tpu.vocab import Vocab
 from chainer_speech_recognition_tpu_torch.cli import decode as torch_decode
+from chainer_speech_recognition_tpu_torch.decode.lm import NGramLM
+from chainer_speech_recognition_tpu_torch.vocab import Vocab as TVocab
 
 V = 10
 
@@ -41,6 +47,12 @@ def setup(tmp_path_factory):
                                 tone_len=1200)
         wavs.append(str(root / f"u{i}.wav"))
         write_wav(wavs[-1], sig)
+    tv = TVocab.load(vocab)
+    texts = ["".join(rng.choice(tv.symbols[1:], size=int(rng.integers(3, 9))))
+             for _ in range(30)]
+    for order in (2, 3):
+        NGramLM.train(texts, tv, order=order).to_arpa(
+            str(root / f"lm{order}.arpa"), tv)
     return ckpt, vocab, wavs
 
 
@@ -85,9 +97,13 @@ def test_wav_list_and_average_last(setup, capsys, tmp_path):
 def test_refusals(setup, tmp_path, monkeypatch):
     ckpt, vocab, wavs = setup
     base = ["--ckpt-dir", ckpt, "--vocab", vocab, "--device", "cpu"]
-    for extra in (["--beam", "4"], ["--lm", "x.arpa"], ["--nbest", "2"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
+    # the reference's own error cases of the beam flags
+    for extra, match in ((["--lm", "x.arpa"], "--lm requires --beam"),
+                         (["--nbest", "2"], "--nbest requires --beam")):
+        with pytest.raises(SystemExit, match=match):
             torch_decode.main(base + extra + wavs[:1])
+        with pytest.raises(SystemExit, match=match):
+            jax_decode.main(base[:4] + extra + wavs[:1])
     with pytest.raises(SystemExit, match="model topology"):
         torch_decode.main(["--set", "model.rnn_hidden=64"] + base + wavs[:1])
     bad_vocab = str(tmp_path / "v.txt")
@@ -111,3 +127,33 @@ def test_exec_knob_override_keeps_transcripts(setup, capsys):
     torch_decode.main(["--set", "model.rnn_impl=scan",
                        "features.frontend_impl=jnp"] + base)
     assert _lines(capsys) == a
+
+
+@pytest.mark.parametrize("extra", [
+    ["--beam", "4"],
+    ["--beam", "4", "--lm", "lm3.arpa", "--lm-alpha", "0.8"],
+    ["--beam", "4", "--lm", "lm3.arpa", "--lm-repr", "hashed", "--nbest",
+     "3"],
+    ["--beam", "2", "--lm", "lm2.arpa", "--nbest", "5"],   # clamped to 2
+])
+def test_beam_transcripts_match_reference_cli(setup, capsys, extra):
+    """Prefix beam decoding, with and without LM fusion (dense and hashed
+    tables), 1-best and n-best (rank and log-score columns): the same
+    stdout as the reference CLI; --nbest above the beam is clamped with a
+    warning on stderr."""
+    ckpt, vocab, wavs = setup
+    root = os.path.dirname(vocab)
+    extra = [os.path.join(root, x) if x.endswith(".arpa") else x
+             for x in extra]
+    args = ["--ckpt-dir", ckpt, "--vocab", vocab, "--batch", "2", *extra,
+            *wavs]
+    jax_decode.main(args)
+    ref = capsys.readouterr()
+    torch_decode.main(["--device", "cpu", *args])
+    got = capsys.readouterr()
+    assert got.out.splitlines() == ref.out.splitlines()
+    assert ("clamped" in got.err) == ("5" in extra)
+    lines = got.out.splitlines()
+    assert len(lines) == len(wavs) * min(
+        int(extra[extra.index("--nbest") + 1]) if "--nbest" in extra else 1,
+        int(extra[1]))

@@ -5,7 +5,9 @@ same data directory and port-written checkpoints (a cut bigru: conv
 rtol 1e-5 that tests/test_torch_train_step.py holds the loss to), the
 same --hyp-out files, with --average-last 2, a two-set --index with a
 .pack set and the bucket-drop warning; --streaming on a causal-CMVN
-checkpoint; and the refusals."""
+checkpoint; config 4: --beam with --lm, --compare (greedy, beam and
+beam+LM from one forward pass), a 2×2 --tune-lm grid and --streaming
+--beam --lm; and the reference's error cases."""
 
 import os
 import re
@@ -18,7 +20,8 @@ import torch
 from chainer_speech_recognition_tpu.cli import evaluate as jax_eval
 from chainer_speech_recognition_tpu_torch.checkpoint import save_checkpoint
 from chainer_speech_recognition_tpu_torch.cli import evaluate as torch_eval
-from chainer_speech_recognition_tpu_torch.cli import make_synthetic, preprocess
+from chainer_speech_recognition_tpu_torch.cli import (
+    make_synthetic, preprocess, train_lm)
 from chainer_speech_recognition_tpu_torch.config import preset_config
 from chainer_speech_recognition_tpu_torch.data import packed
 from chainer_speech_recognition_tpu_torch.data.corpus import load_index
@@ -65,6 +68,7 @@ def setup(tmp_path_factory):
     ckpt = _checkpoints(root, "ckpt", V, 2)
     causal = _checkpoints(root, "causal", V, 1,
                           **{"features.cmvn_mode": "causal"})
+    train_lm.main(["--data-dir", data, "--order", "3"])
     return root, data, ckpt, causal
 
 
@@ -162,10 +166,90 @@ def test_refusals(setup, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="cannot override model topology"):
         torch_eval.main(base + ["--data-dir", data, "--set",
                                 "model.vocab_size=5"])
-    for extra in (["--beam", "4"], ["--lm", "x.arpa"], ["--compare"],
-                  ["--tune-lm"], ["--lm-alpha", "0.3"]):
-        with pytest.raises(SystemExit, match="config 4"):
+    # the reference's own error cases of the beam and LM flags
+    for extra, match in (
+            (["--lm", "x.arpa"], "--lm requires --beam"),
+            (["--compare"], "--compare requires --beam"),
+            (["--tune-lm", "--beam", "4"], "requires --beam K and --lm"),
+            (["--tune-lm", "--compare", "--beam", "4"], "mutually exclusive"),
+            (["--streaming", "--compare", "--beam", "4"], "one decoder"),
+            (["--tune-lm", "--index", "a.jsonl,b.jsonl"], "ONE set")):
+        with pytest.raises(SystemExit, match=match):
             torch_eval.main(base + ["--data-dir", data, *extra])
+        with pytest.raises(SystemExit, match=match):
+            jax_eval.main(["--ckpt-dir", ckpt, "--data-dir", data, *extra])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         torch_eval.main(["--ckpt-dir", ckpt, "--data-dir", data])
+
+
+def _lm(data):
+    return ["--lm", os.path.join(data, "lm_3gram.arpa")]
+
+
+def _same_lines(ref, got, hyp_names=()):
+    """Line by line equal after the hypothesis file names, but a
+    ``loss X`` line within LOSS_RTOL."""
+    assert len(got) == len(ref)
+    for r, g in zip(ref, got):
+        for a, b in hyp_names:
+            r, g = r.replace(a, "HYP"), g.replace(b, "HYP")
+        if r.startswith("loss ") and g.startswith("loss "):
+            np.testing.assert_allclose(float(g[5:]), float(r[5:]),
+                                       rtol=LOSS_RTOL)
+        else:
+            assert g == r
+
+
+def test_compare_and_beam_lm_match_reference(setup, capsys):
+    """--compare prints CER[greedy], CER[beam4] and CER[beam4+lm] from one
+    forward pass, and --hyp-out takes the beam+LM hypotheses; a plain
+    --beam --lm run prints the reference's CER line."""
+    root, data, ckpt, _ = setup
+    jhyp, thyp = str(root / "jc.txt"), str(root / "tc.txt")
+    args = ["--ckpt-dir", ckpt, "--data-dir", data, "--beam", "4",
+            *_lm(data), "--lm-alpha", "0.7", "--lm-beta", "0.4"]
+    ref = _run(jax_eval.main, args + ["--compare", "--hyp-out", jhyp],
+               capsys)
+    got = _run(torch_eval.main, ["--device", "cpu", "--compare",
+                                 "--hyp-out", thyp] + args, capsys)
+    _same_lines(ref, got, [(jhyp, thyp)])
+    assert [l.split(" ")[0] for l in got[1:4]] == [
+        "CER[greedy]", "CER[beam4]", "CER[beam4+lm]"]
+    assert open(thyp).read() == open(jhyp).read()
+    ref = _run(jax_eval.main, args + ["--lm-repr", "hashed"], capsys)
+    got = _run(torch_eval.main, ["--device", "cpu", "--lm-repr", "hashed"]
+               + args, capsys)
+    assert _compare(ref, got, root, []) == 1
+
+
+def test_tune_lm_grid_matches_reference(setup, capsys):
+    """A 2×2 (alpha, beta) grid over logits kept from one forward pass
+    (--tune-chunk 1: one batch's logits at a time): every grid line, the
+    best point and its hypotheses."""
+    root, data, ckpt, _ = setup
+    jhyp, thyp = str(root / "jt.txt"), str(root / "tt.txt")
+    args = ["--ckpt-dir", ckpt, "--data-dir", data, "--beam", "4",
+            *_lm(data), "--tune-lm", "--tune-alphas", "0.0,0.8",
+            "--tune-betas", "0.0,1.5", "--tune-chunk", "1"]
+    ref = _run(jax_eval.main, args + ["--hyp-out", jhyp], capsys)
+    got = _run(torch_eval.main, ["--device", "cpu", "--hyp-out", thyp]
+               + args, capsys)
+    _same_lines(ref, got, [(jhyp, thyp)])
+    assert sum(l.startswith("alpha=") for l in got) == 4
+    assert any(l.startswith("best: alpha=") for l in got)
+    assert open(thyp).read() == open(jhyp).read()
+
+
+def test_streaming_beam_lm_matches_reference(setup, capsys):
+    root, data, _, causal = setup
+    args = ["--ckpt-dir", causal, "--data-dir", data, "--streaming",
+            "--stream-chunk", "16", "--stream-batch", "2", "--beam", "4",
+            *_lm(data)]
+    jhyp, thyp = str(root / "jsb.txt"), str(root / "tsb.txt")
+    ref = _run(jax_eval.main, args + ["--hyp-out", jhyp], capsys)
+    got = _run(torch_eval.main, ["--device", "cpu", "--hyp-out", thyp]
+               + args, capsys)
+    assert _compare(ref, got, root, [(jhyp, thyp)]) == 1
+    assert "CER[streaming]" in got[1]
+    assert open(thyp).read() == open(jhyp).read()

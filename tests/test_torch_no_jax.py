@@ -4,8 +4,9 @@ interpreter where ``jax``/``flax``/``optax`` and
 chainer_speech_recognition_tpu_torch imports, the plain decode path runs
 once end to end (a BiGRU and a cut conformer), the stream CLI streams a
 forward-only model over a few windows, one CPU train step runs through
-the train loop, and the data tools and the evaluate CLI run once
-(make_synthetic, preprocess --pack, evaluate on the packed dev set)."""
+the train loop, the data tools and the evaluate CLI run once
+(make_synthetic, preprocess --pack, evaluate on the packed dev set), and a
+beam + LM decode runs (train_lm, decode --beam --lm)."""
 
 import os
 import subprocess
@@ -113,6 +114,17 @@ save_params(os.path.join(root, "eckpt"), state_dict_to_flax(esd), ecfg)
 evaluate.main(["--ckpt-dir", os.path.join(root, "eckpt"), "--data-dir", prep,
                "--device", "cpu", "--index", "dev.pack", "--set",
                "buckets.boundaries=[128]", "buckets.batch_sizes=[2]"])
+# config 4: an LM trained on the prep dir, then a beam + LM decode
+from chainer_speech_recognition_tpu_torch.cli import train_lm
+train_lm.main(["--data-dir", prep, "--order", "2"])
+decode.main(["--ckpt-dir", os.path.join(root, "ckpt"), "--vocab",
+             os.path.join(root, "v.txt"), "--device", "cpu", "--beam", "4",
+             "--nbest", "2", wav])
+evaluate.main(["--ckpt-dir", os.path.join(root, "eckpt"), "--data-dir", prep,
+               "--device", "cpu", "--index", "dev.pack", "--set",
+               "buckets.boundaries=[128]", "buckets.batch_sizes=[2]",
+               "--compare", "--beam", "4", "--lm",
+               os.path.join(prep, "lm_2gram.arpa")])
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in (
               "jax", "jaxlib", "flax", "optax",
@@ -138,3 +150,7 @@ def test_port_imports_and_decodes_without_jax():
     assert any(l.startswith("packed 2 utterances") for l in lines)  # pack
     assert any(l.startswith("CER ") and "| 2 utts |" in l
                for l in lines)                                      # evaluate
+    assert any(l.startswith("trained 2-gram LM") for l in lines)    # train_lm
+    assert any(l.split("\t")[0].endswith("u.wav") and l.split("\t")[1] == "2"
+               for l in lines)                                      # n-best
+    assert any(l.startswith("CER[beam4+lm] ") for l in lines)       # compare

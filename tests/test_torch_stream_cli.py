@@ -1,7 +1,8 @@
 """The port's stream CLI (--device cpu) against the reference stream CLI on
 the same port-written checkpoint (a forward-only ``uni_gru`` at cut
 widths, fp32, causal CMVN): identical output in wav mode, ``--partials``
-and ``--raw``; its refusals and its ``--timing`` line."""
+and ``--raw``, greedy and with the streaming prefix beam and LM fusion;
+its refusals and its ``--timing`` line."""
 
 import io
 import sys
@@ -110,9 +111,11 @@ def test_timing_line(setup, capsys):
 def test_refusals(setup, monkeypatch):
     root, ckpt, vocab, wavs = setup
     base = ["--ckpt-dir", ckpt, "--vocab", vocab, "--device", "cpu"]
-    for extra in (["--beam", "4"], ["--lm", "x.arpa"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            torch_stream.main(base + extra + wavs[:1])
+    # the reference's own error case of the LM flag
+    with pytest.raises(SystemExit, match="--lm requires --beam"):
+        torch_stream.main(base + ["--lm", "x.arpa"] + wavs[:1])
+    with pytest.raises(SystemExit, match="--lm requires --beam"):
+        jax_stream.main(base[:4] + ["--lm", "x.arpa"] + wavs[:1])
     with pytest.raises(SystemExit, match="--raw reads stdin"):
         torch_stream.main(base + ["--raw"] + wavs[:1])
     utt = _checkpoint(root, "utt_cmvn", **{"features.cmvn_mode": "utterance"})
@@ -122,3 +125,28 @@ def test_refusals(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         torch_stream.main(["--ckpt-dir", ckpt, "--vocab", vocab, *wavs[:1]])
+
+
+def test_beam_lm_matches_reference_cli(setup, capsys, monkeypatch):
+    """--beam 4 --lm (a 2-gram over the vocab): wav mode in lockstep
+    batches of 2 and --partials in 50 ms blocks, tokens printed as every
+    live beam agrees on them and the 1-best tail at the end."""
+    from chainer_speech_recognition_tpu_torch.decode.lm import NGramLM
+
+    root, ckpt, vocab, wavs = setup
+    tv = Vocab.load(vocab)
+    rng = np.random.default_rng(4)
+    texts = ["".join(rng.choice(tv.symbols[1:], size=int(rng.integers(3, 9))))
+             for _ in range(30)]
+    arpa = str(root / "lm2.arpa")
+    NGramLM.train(texts, tv, order=2).to_arpa(arpa, tv)
+    monkeypatch.setattr(jax_stream._print_partial, "__defaults__", (None,))
+    base = ["--ckpt-dir", ckpt, "--vocab", vocab, "--chunk-frames", "16",
+            "--right-frames", "0", "--beam", "4", "--lm", arpa,
+            "--lm-alpha", "0.6"]
+    for mode in (["--batch", "2", *wavs],
+                 ["--partials", "--block-ms", "50", *wavs[:2]]):
+        ref, _ = _run(jax_stream.main, base + mode, capsys)
+        got, _ = _run(torch_stream.main, ["--device", "cpu"] + base + mode,
+                      capsys)
+        assert got == ref and any(l.split("\t")[-1] for l in got)

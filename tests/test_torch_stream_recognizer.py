@@ -141,9 +141,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="causal"):
         tstream.StreamingRecognizer(tm, cfg)
     cfg, tm = _setup("tiny_conv")[:2]
-    with pytest.raises(NotImplementedError, match="config 4"):
-        tstream.StreamingRecognizer(tm, cfg, decoder="beam")
-    with pytest.raises(NotImplementedError, match="config 5"):
+    with pytest.raises(ValueError, match="expected greedy|beam"):
+        tstream.StreamingRecognizer(tm, cfg, decoder="prefix")
+    with pytest.raises(NotImplementedError, match="item 6, config 5"):
         tstream.StreamingRecognizer(tm, cfg, mesh=object())
     rec = tstream.StreamingRecognizer(tm, cfg, chunk_frames=16,
                                       right_frames=8)

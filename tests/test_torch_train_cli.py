@@ -1,9 +1,10 @@
 """The port's train CLI on the CPU, on a tiny synthetic corpus: the JSONL
 events of the reference's loop, checkpoints and resume, the profiler
 window, a cut ``bilstm_deep`` with SpecAugment on, training from the
-packed corpus (``train.pack``: the same losses as from the wavs), and the
-refusals (data modes and model blocks that are not ported, a file that is
-not a pack, no card for ``--device cuda``, data parallelism)."""
+packed corpus (``train.pack``: the same losses as from the wavs), the
+dev eval's beam and beam+LM columns, and the refusals (data modes and
+model blocks that are not ported, a file that is not a pack, no card for
+``--device cuda``, data parallelism)."""
 
 import json
 import os
@@ -155,17 +156,39 @@ def test_cli_trains_from_the_pack_as_from_wavs(tmp_path):
     assert len(runs[0]) == 5 and runs[0] == runs[1]
 
 
-@pytest.mark.parametrize("sets", [["train.eval_beam=4"],
-                                  ["train.eval_lm=lm.arpa"]])
-def test_cli_refuses_beam_eval_columns_before_a_step(data_dir, tmp_path,
-                                                     sets):
-    """The reference's periodic eval adds beam and beam+LM columns; the
-    port has no beam search yet, so it refuses them rather than ignore
-    them, before any step."""
-    with pytest.raises(NotImplementedError, match="config 4"):
-        _run(data_dir, tmp_path, "train.data_mode=stream", *sets)
-    assert not os.path.exists(tmp_path / "ckpt") or not list_checkpoints(
-        str(tmp_path / "ckpt"))
+@pytest.mark.parametrize("with_lm", [False, True])
+def test_cli_eval_beam_columns_match_evaluate_compare(data_dir, tmp_path,
+                                                      capsys, with_lm):
+    """``train.eval_beam`` (and ``train.eval_lm``) add the reference's
+    ``cer_beam`` (and ``cer_beam_lm``) columns to the periodic dev eval,
+    from the same forward pass as ``cer``; at the last step they equal
+    what ``evaluate --compare`` prints for the checkpoint of that step."""
+    from chainer_speech_recognition_tpu_torch.cli import evaluate, train_lm
+
+    sets = ["train.eval_beam=4"]
+    extra = []
+    if with_lm:
+        arpa = str(tmp_path / "lm.arpa")
+        train_lm.main(["--data-dir", data_dir, "--order", "2", "--out",
+                       arpa])
+        sets += [f"train.eval_lm={arpa}", "train.eval_lm_alpha=0.7",
+                 "train.eval_lm_beta=0.3"]
+        extra = ["--lm", arpa, "--lm-alpha", "0.7", "--lm-beta", "0.3"]
+    ev = _run(data_dir, tmp_path, "train.data_mode=stream", *sets,
+              "train.total_steps=3", "train.eval_every=3",
+              "train.checkpoint_every=3")
+    last = [e for e in ev if e["kind"] == "eval"][-1]
+    assert {"cer", "cer_beam"} <= set(last)
+    assert ("cer_beam_lm" in last) == with_lm
+    capsys.readouterr()
+    evaluate.main(["--ckpt-dir", str(tmp_path / "ckpt"), "--data-dir",
+                   data_dir, "--device", "cpu", "--compare", "--beam", "4",
+                   *extra])
+    out = capsys.readouterr().out
+    for name, col in (("greedy", "cer"), ("beam4", "cer_beam"),
+                      ("beam4+lm", "cer_beam_lm")):
+        if col in last:
+            assert f"CER[{name}] {last[col]:.4f} |" in out, (col, out)
 
 
 def test_cli_debug_nans_trains_and_scopes_anomaly_mode(data_dir, tmp_path):

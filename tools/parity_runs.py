@@ -2,8 +2,9 @@
 on one CUDA card: ``python3 tools/parity_runs.py [--out DIR]``.
 
 1. smoke: a 24-utterance corpus through make_synthetic, preprocess --pack,
-   10 training steps, evaluate and evaluate --streaming, so that a broken
-   path fails in a minute and not after the full synthesis;
+   10 training steps, evaluate, evaluate --streaming, train_lm and the
+   beam paths below, so that a broken path fails in a minute and not after
+   the full synthesis;
 2. the parity corpus: ``make_synthetic --style confusable --utts 2000
    --vocab 82 --min-labels 50 --max-labels 150 --seed 20260816`` and
    ``preprocess --dev-fraction 0.1 --pack``;
@@ -14,14 +15,21 @@ on one CUDA card: ``python3 tools/parity_runs.py [--out DIR]``.
 4. run 2, the streaming gate (§3d): the same with
    ``features.cmvn_mode=causal``, then ``evaluate`` (offline, ≤ 0.015) and
    ``evaluate --streaming --stream-chunk 64 --stream-right 16
-   --stream-batch 16`` (≤ 0.020).
+   --stream-batch 16`` (≤ 0.020);
+5. config 4, the LM gate (PARITY.md §3): ``train_lm --order 3`` on the
+   parity corpus, ``evaluate --compare --beam 8 --lm lm_3gram.arpa
+   --lm-alpha 0.5 --lm-beta 1.0`` on run 1's checkpoint: beam+LM edits
+   ≤ 0.6 × greedy edits on the same dev set; ``evaluate --streaming
+   --stream-chunk 64 --stream-right 16 --beam 8 --lm …`` on run 2's
+   checkpoint: ≤ 0.6 × run 2's streaming greedy edits; recorded without a
+   gate: ``--lm-repr hashed`` with an order-4 LM on run 1's checkpoint.
 
 Every command's output goes to ``DIR/<name>.log``; the last line of stdout
 is one JSON object with each run's dev CER, edits, reference characters,
 utterance count, gate, the training wall time and utt/s, evaluate's wall,
-utt/s and checkpoint load time, and the card's name and power limit. A
-missed gate is reported as missed (exit code 0); a command that fails
-gives exit code 1.
+utt/s and checkpoint load time, and the card's name and power limit. The
+gates' verdicts are printed; a command that fails gives exit code 1, a
+missed gate exit code 4.
 """
 
 from __future__ import annotations
@@ -48,8 +56,14 @@ SMOKE_SETS = ["buckets.boundaries=[512]", "buckets.batch_sizes=[8]",
               "buckets.max_label_len=40", "train.total_steps=10",
               "train.eval_every=10", "train.data_mode=stream"]
 GATES = {"run1": 0.015, "run2_offline": 0.015, "run2_streaming": 0.020}
+LM_RATIO = 0.6           # PARITY.md §3: beam K=8 + 3-gram edits / greedy's
+BEAM_ARGS = ["--beam", "8", "--lm-alpha", "0.5", "--lm-beta", "1.0"]
+STREAM_ARGS = ["--streaming", "--stream-chunk", "64", "--stream-right", "16",
+               "--stream-batch", "16"]
 _CER = re.compile(r"CER(\[streaming\])? ([0-9.]+) \| (?:loss ([0-9.]+) \| )?"
                   r"(\d+) utts \| (\d+) edits / (\d+) ref chars")
+_CMP = re.compile(r"CER\[([^\]]+)\] ([0-9.]+) \| (\d+) utts \| (\d+) edits / "
+                  r"(\d+) ref chars")
 
 
 class RunFailure(Exception):
@@ -122,6 +136,35 @@ def evaluate(out: str, name: str, ckpt: str, prep: str,
     return res
 
 
+def compare(out: str, name: str, ckpt: str, prep: str, lm: str) -> dict:
+    """``evaluate --compare`` (greedy, beam 8, beam 8 + LM from one forward
+    pass) → {decoder: {cer, edits, ref_chars, utts}} and the LM gate."""
+    text, wall = run(out, name, "evaluate", [
+        "--ckpt-dir", ckpt, "--data-dir", prep, "--compare", "--lm", lm,
+        *BEAM_ARGS])
+    res = {m.group(1): {"cer": float(m.group(2)), "utts": int(m.group(3)),
+                        "edits": int(m.group(4)),
+                        "ref_chars": int(m.group(5))}
+           for m in _CMP.finditer(text)}
+    if set(res) != {"greedy", "beam8", "beam8+lm"}:
+        raise RunFailure(f"{name}: compare lines {text[-2000:]!r}")
+    res["evaluate_wall_s"] = wall
+    res["gate_edits"] = LM_RATIO * res["greedy"]["edits"]
+    res["passed"] = res["beam8+lm"]["edits"] <= res["gate_edits"]
+    print(f"[{name}] {json.dumps(res)}", flush=True)
+    return res
+
+
+def lm_gate(name: str, edits: int, greedy_edits: int) -> dict:
+    gate = LM_RATIO * greedy_edits
+    res = {"edits": edits, "greedy_edits": greedy_edits, "gate_edits": gate,
+           "passed": edits <= gate}
+    print(f"[{name}] LM gate: {edits} edits against {LM_RATIO} x "
+          f"{greedy_edits} = {gate:.1f}: "
+          f"{'met' if res['passed'] else 'MISSED'}", flush=True)
+    return res
+
+
 def corpus(out: str, name: str, synth_args: list[str]) -> str:
     root = os.path.join(out, f"{name}_corpus")
     prep = os.path.join(out, f"{name}_prep")
@@ -155,9 +198,13 @@ def main() -> int:
             "features.cmvn_mode=causal"])
         evaluate(args.work, "smoke_eval", sm["ckpt"], prep,
                  ["--index", "dev_index.jsonl,dev.pack"])
-        evaluate(args.work, "smoke_stream", sm["ckpt"], prep,
-                 ["--streaming", "--stream-chunk", "64", "--stream-right",
-                  "16", "--stream-batch", "16"])
+        evaluate(args.work, "smoke_stream", sm["ckpt"], prep, STREAM_ARGS)
+        run(args.work, "smoke_train_lm", "train_lm",
+            ["--data-dir", prep, "--order", "3"])
+        smoke_lm = os.path.join(prep, "lm_3gram.arpa")
+        compare(args.work, "smoke_compare", sm["ckpt"], prep, smoke_lm)
+        evaluate(args.work, "smoke_stream_beam", sm["ckpt"], prep,
+                 STREAM_ARGS + BEAM_ARGS + ["--lm", smoke_lm])
         t0 = time.perf_counter()
         prep = corpus(args.work, "parity", CORPUS)
         result["corpus_s"] = time.perf_counter() - t0
@@ -170,8 +217,27 @@ def main() -> int:
             args.work, "run2_offline", result["run2"]["ckpt"], prep, [])
         result["run2"]["streaming"] = evaluate(
             args.work, "run2_streaming", result["run2"]["ckpt"], prep,
-            ["--streaming", "--stream-chunk", "64", "--stream-right", "16",
-             "--stream-batch", "16"])
+            STREAM_ARGS)
+        # config 4: the LM gate, offline and streaming
+        for order in (3, 4):
+            run(args.work, f"train_lm_{order}", "train_lm",
+                ["--data-dir", prep, "--order", str(order)])
+        lm3 = os.path.join(prep, "lm_3gram.arpa")
+        cmp = compare(args.work, "run1_compare", result["run1"]["ckpt"],
+                      prep, lm3)
+        result["config4_offline"] = {**cmp, **lm_gate(
+            "config4_offline", cmp["beam8+lm"]["edits"],
+            cmp["greedy"]["edits"])}
+        sb = evaluate(args.work, "run2_streaming_beam_lm",
+                      result["run2"]["ckpt"], prep,
+                      STREAM_ARGS + BEAM_ARGS + ["--lm", lm3])
+        result["config4_streaming"] = {**sb, **lm_gate(
+            "config4_streaming", sb["edits"],
+            result["run2"]["streaming"]["edits"])}
+        result["config4_hashed4"] = evaluate(
+            args.work, "run1_beam_lm4_hashed", result["run1"]["ckpt"], prep,
+            BEAM_ARGS + ["--lm", os.path.join(prep, "lm_4gram.arpa"),
+                         "--lm-repr", "hashed"])
     except RunFailure as e:
         print(f"parity_runs: FAILED: {e}", file=sys.stderr)
         print(json.dumps(result))
@@ -182,8 +248,15 @@ def main() -> int:
                 with open(os.path.join(args.work, name), "rb") as src, \
                         open(os.path.join(args.out, name), "wb") as dst:
                     dst.write(src.read())
+    verdicts = {name: r["passed"] for name, r in (
+        ("run1", result["run1"]), ("run2_offline", result["run2"]["offline"]),
+        ("run2_streaming", result["run2"]["streaming"]),
+        ("config4_offline", result["config4_offline"]),
+        ("config4_streaming", result["config4_streaming"]))}
+    print(f"gates: " + ", ".join(f"{n} {'met' if v else 'MISSED'}"
+                                 for n, v in verdicts.items()), flush=True)
     print(json.dumps(result))
-    return 0
+    return 0 if all(verdicts.values()) else 4
 
 
 if __name__ == "__main__":
