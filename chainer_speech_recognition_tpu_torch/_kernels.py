@@ -13,11 +13,14 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises if that is not 0 and counts
 the launches, so a run can prove that its main path went through the
 kernel (``chip_smoke.py`` resets the counts before the path and reads them
-after).
+after). A launch into a stream that is capturing a CUDA graph runs nothing
+and is held out of the counts (:func:`capturing`); each replay of the
+graph adds the launches captured in it (:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -53,7 +56,12 @@ class Kernel:
             raise RuntimeError(
                 f"{self.symbol}: CUDA error {err} "
                 f"({library().csr_error_string(err).decode()})")
-        self.launches += 1
+        held = _held
+        with _count_lock:
+            if held is not None and _stream_capturing():
+                held[self] = held.get(self, 0) + 1
+            else:
+                self.launches += 1
 
 
 # (pointers..., sizes..., stream): see the matching csrc/*.cu entry point
@@ -117,6 +125,8 @@ HELPERS["csr_dw_plan"] = [_I, _I, _I, _I, ctypes.POINTER(_I)]
 HELPERS["csr_beam_plan"] = [_I, _I, _I, ctypes.POINTER(_I)]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_held: dict | None = None         # {Kernel: n} while a graph is captured
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
 
@@ -128,6 +138,42 @@ def reset_launches() -> None:
 
 def launches() -> dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` to the kernels' counts: a CUDA graph's replay
+    launches the kernels captured in it without calling their wrappers
+    (``train/step.make_cached_train_step``)."""
+    with _count_lock:
+        for name, n in counts.items():
+            KERNELS[name].launches += n
+
+
+def _stream_capturing() -> bool:
+    return torch.cuda.is_current_stream_capturing()
+
+
+@contextlib.contextmanager
+def capturing():
+    """While a CUDA graph is captured: launches into a capturing stream
+    (from the capturing thread, and from autograd's thread for the
+    backward) are held out of the counts and gathered into the yielded
+    ``{name: n}`` (filled on exit). Launches into other streams (a window
+    fetch on its own stream meanwhile) count as usual."""
+    global _held
+    held: dict = {}
+    with _count_lock:
+        if _held is not None:
+            raise RuntimeError("kernel launches: nested capture")
+        _held = held
+    out: dict[str, int] = {}
+    try:
+        yield out
+    finally:
+        with _count_lock:
+            _held = None
+        out.update({name: held[k] for name, k in KERNELS.items()
+                    if k in held})
 
 
 def stream_ptr(t: torch.Tensor) -> int:

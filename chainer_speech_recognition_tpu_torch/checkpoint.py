@@ -30,6 +30,7 @@ import numpy as np
 from .bridge import (load_flax_params, opt_state_from_flax, opt_state_to_flax,
                      state_dict_to_flax)
 from .config import Config
+from .train.state import copy_into
 
 _CKPT_RE = re.compile(r"^step_(\d{8,})\.msgpack$")
 _EXT_NDARRAY = 1
@@ -320,14 +321,16 @@ def save_checkpoint(ckpt_dir: str, state, config: Config,
 
 def restore_checkpoint(path: str, state) -> None:
     """Load a full checkpoint (written by either package) into ``state`` in
-    place: parameters, optimizer state (strict against the state's own
-    layout), step and rng."""
+    place: parameters and optimizer state (strict against the state's own
+    layout) into their tensors, step and rng."""
     with open(path, "rb") as f:
         tree = msgpack_restore(f.read())
     if "opt_state" not in tree:
         raise ValueError(f"{path}: no optimizer state (a params-only "
                          "serving checkpoint cannot resume training)")
     load_flax_params(state.model, tree["params"]["params"])
-    state.opt_state = opt_state_from_flax(tree["opt_state"], state.opt_state)
+    # into the state's own tensors: a captured train step reads them
+    copy_into(state.opt_state,
+               opt_state_from_flax(tree["opt_state"], state.opt_state))
     state.step = int(tree["step"])
     state.rng = np.asarray(tree["rng"], np.uint32)

@@ -4,14 +4,15 @@
 or the CPU.
 
   python -m chainer_speech_recognition_tpu_torch.cli.train \\
-      --data-dir prep_out --preset bigru \\
-      --set train.data_mode=stream train.total_steps=20000
+      --data-dir prep_out --preset bigru --set train.total_steps=20000
 
 Where ``train.pack`` exists (``preprocess --pack``) the training batches
-come from it (``PackedBatchLoader``: memmap reads, int16 PCM to the
-device). Only the stream data mode is ported (the default
-``train.data_mode=auto`` picks the device-resident corpus cache for a
-corpus that fits, and raises).
+come from it (``PackedBatchLoader``: memmap reads, int16 PCM). The default
+``train.data_mode=auto`` keeps a corpus within
+``train.device_cache_budget_gb`` on the device (``device_cache``: bf16
+features built once, ``train.steps_per_dispatch`` steps a dispatch, on the
+card one CUDA-graph replay) and rotates windows of a larger one
+(``rotating``); ``train.data_mode=stream`` feeds host batches each step.
 """
 
 from __future__ import annotations
@@ -40,11 +41,13 @@ def main(argv=None):
     p.add_argument("--debug-nans", action="store_true",
                    help="anomaly detection, and a check each step that the "
                    "loss and every gradient are finite (FloatingPointError "
-                   "naming the step and the tensor)")
+                   "naming the step and the tensor); the cached data modes "
+                   "then run their steps eagerly, without CUDA graphs")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler chrome trace of steps 10-14")
+                   help="write a torch.profiler chrome trace of steps 10-14 "
+                   "(of the whole dispatches that hold them)")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
 

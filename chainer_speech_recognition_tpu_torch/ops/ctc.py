@@ -8,7 +8,8 @@ alignment gets the sentinel loss ``-LOG_ZERO``.
 
 What the reference leaves to XLA is here too, shared by both CTC paths:
 ``log_softmax``, the extended labels, ``allow2`` and the emission gather
-``lp_ext [B, T, S]`` (``ctc_inputs``). The α and β recursions over time
+``lp_ext [B, T, S]`` (``ctc_inputs``), whose backward is repeatable
+(``_EmissionGather``). The α and β recursions over time
 (``ctc_alpha_plain``, ``ctc_beta_grad_plain``) are the plain versions of
 the kernels in ``csrc/ctc.cu`` (``ops/ctc_cuda.py``). ``ctc_loss_scan``
 differentiates the plain α recursion with autograd, as ``ctc_jax.ctc_loss``
@@ -42,6 +43,29 @@ def extend_labels(labels: torch.Tensor) -> torch.Tensor:
     return ext
 
 
+class _EmissionGather(torch.autograd.Function):
+    """``lp [B, T, V] → lp[b, t, ext[b, s]]`` [B, T, S] with a repeatable
+    backward: each frame's S gradients summed into their V classes (the
+    blank and repeated labels share one) as one fp64 product with the
+    one-hot [B, S, V] of ``ext``. ``gather``'s own backward scatter-adds
+    with atomics on the card, in another order each run, so no two
+    training runs there would be bitwise equal."""
+
+    @staticmethod
+    def forward(ctx, lp, ext):
+        ctx.save_for_backward(ext)
+        ctx.n_classes = lp.shape[-1]
+        B, T, _ = lp.shape
+        return torch.gather(lp, 2, ext[:, None, :].expand(B, T, ext.shape[1]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ext,) = ctx.saved_tensors
+        classes = torch.arange(ctx.n_classes, device=ext.device)
+        onehot = (ext[:, :, None] == classes).to(torch.float64)
+        return torch.bmm(grad.to(torch.float64), onehot).to(grad.dtype), None
+
+
 def ctc_inputs(logits, logit_lengths, labels, label_lengths):
     """(lp_ext [B,T,S] fp32, allow2 [B,S] fp32, t_len [B] int32, lab_len
     [B] int32): the recursions' inputs. ``t_len`` is clamped to T (as
@@ -56,7 +80,7 @@ def ctc_inputs(logits, logit_lengths, labels, label_lengths):
     prev2 = torch.cat([torch.zeros_like(ext[:, :2]), ext[:, :-2]],
                       dim=1)[:, :S]
     allow2 = (sidx >= 2) & (ext != BLANK_ID) & (ext != prev2)
-    lp_ext = torch.gather(lp, 2, ext[:, None, :].expand(B, T, S))
+    lp_ext = _EmissionGather.apply(lp, ext)
     t_len = torch.clamp(logit_lengths.to(lp.device), max=T).to(torch.int32)
     lab_len = torch.clamp(label_lengths.to(lp.device),
                           max=labels.shape[1]).to(torch.int32)

@@ -3,8 +3,8 @@ Function (port of ``ops/ctc_pallas.py``).
 
 As in the reference, the kernels see only the extended-label emissions:
 ``log_softmax``, the ``[B,T,V] → [B,T,S]`` gather (``ops/ctc.ctc_inputs``),
-the gather's scatter back and the ``log_softmax`` backward stay with
-autograd, as they stay with XLA. ``CTCLoss`` runs the α kernel forward
+the gather's sum back (a one-hot product, repeatable) and the
+``log_softmax`` backward stay with autograd, as they stay with XLA. ``CTCLoss`` runs the α kernel forward
 (alphas are kept for the backward) and the β kernel backward.
 
 Two behaviours of the reference wrapper are kept: ``logit_lengths`` are

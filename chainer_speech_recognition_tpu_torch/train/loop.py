@@ -1,18 +1,30 @@
-"""Host-side training loop (port of ``train/loop.py``, stream data mode, one
-device): a background ``Prefetcher`` assembles padded host batches, each is
-copied to the device and trained on, with structured metrics, periodic
-dev evaluation (greedy, plus the ``train.eval_beam`` and ``train.eval_lm``
-columns), keep-N checkpoints and exact resume (data order
-included).
+"""Host-side training loop (port of ``train/loop.py``, one device): feeds
+the train step in one of the reference's data modes, with structured
+metrics, periodic dev evaluation (greedy, plus the ``train.eval_beam`` and
+``train.eval_lm`` columns), keep-N checkpoints and exact resume (data
+order included).
 
-Only the "stream" data mode is ported. ``_resolve_data_mode`` is the
-reference's; when it resolves to "device_cache" or "rotating" (the
-default "auto" does for a corpus that fits the budget) the port raises
-instead of switching mode.
+``_resolve_data_mode`` picks the mode as the reference does:
+
+* "stream": a background ``Prefetcher`` assembles padded host batches,
+  each copied to the device and trained on;
+* "device_cache" (``auto``'s choice for a corpus within
+  ``train.device_cache_budget_gb``): the corpus crosses to the device once
+  (``data/device_cache.DeviceCorpusCache``, bf16 features by default) and
+  each dispatch of ``train.steps_per_dispatch`` steps sends its [K, B]
+  slot ids, copied while the dispatch before runs; on the card a dispatch
+  is one CUDA-graph replay (``step.make_cached_train_step``);
+* "rotating" (a corpus over the budget): the same steps on fixed-size
+  windows of the corpus, the next window filled on a thread while the
+  current one trains (``RotatingDeviceCache``, ``rotating_dispatches``).
+
+The step count advances by K a dispatch; logging, evaluation and
+checkpoints happen where a dispatch crosses their cadence.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 import signal
 import time
@@ -20,12 +32,13 @@ import time
 import numpy as np
 import torch
 
-from .. import constants as C
 from ..checkpoint import (latest_checkpoint, restore_checkpoint,
                           save_checkpoint)
 from ..config import Config
 from ..data.buckets import padding_waste
 from ..data.corpus import Utterance
+from ..data.device_cache import (DeviceCorpusCache, RotatingDeviceCache,
+                                 estimate_bytes, rotating_dispatches)
 from ..data.sampler import BatchLoader, BucketSampler, Prefetcher
 from ..decode.beam import beam_decode
 from ..decode.greedy import greedy_decode
@@ -36,32 +49,15 @@ from ..ops.ctc import LOG_ZERO
 from ..vocab import Vocab
 from .metrics import MetricsLogger
 from .state import init_state
-from .step import check_trainable, make_eval_step, make_train_step
-
-
-def estimate_bytes(sampler: BucketSampler, features: bool = False,
-                   cache_dtype: str = "bfloat16") -> int:
-    """Device bytes the reference's corpus cache would take
-    (``data/device_cache.py::estimate_bytes``): the data-mode decision of
-    ``_resolve_data_mode`` depends on it."""
-    total, max_bucket_pcm = 0, 0
-    for shape, idxs in zip(sampler.shapes, sampler.buckets):
-        if features:
-            itemsize = np.dtype(cache_dtype).itemsize
-            row = (shape.max_frames * C.N_MELS * C.N_FEATURE_CHANNELS
-                   * itemsize + shape.max_label_len * 4 + 8)
-            total += row * len(idxs)
-            max_bucket_pcm = max(max_bucket_pcm,
-                                 shape.max_samples * 2 * len(idxs))
-        else:
-            total += (shape.max_samples * 2 + shape.max_label_len * 4
-                      + 8) * len(idxs)
-    return total + max_bucket_pcm
+from .step import (check_trainable, make_cached_train_step, make_eval_step,
+                   make_train_step)
 
 
 def _resolve_data_mode(cfg: Config, sampler: BucketSampler,
                        n_devices: int = 1) -> str:
-    """The reference's rule: "stream", "device_cache" or "rotating"."""
+    """The reference's rule: "stream", "device_cache" or "rotating".
+    ``train.device_cache_budget_gb`` is a device's: the corpus fits where
+    its bytes are within ``n_devices`` times the budget."""
     mode = cfg.train.data_mode
     if mode not in ("auto", "stream", "device_cache", "rotating"):
         raise ValueError(f"unknown train.data_mode: {mode!r}")
@@ -139,6 +135,15 @@ def evaluate_multi(eval_step, loader: BatchLoader, batches, vocab: Vocab,
     return accs, total_loss / max(n, 1)
 
 
+def _slots_to(slots: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A dispatch's slot ids on ``device`` (int64; on the card through
+    pinned memory, so the copy does not wait for the steps in flight)."""
+    t = torch.from_numpy(np.ascontiguousarray(slots, np.int64))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
           dev_utts: list[Utterance] | None = None,
           metrics_path: str | None = None, resume: bool = True,
@@ -148,7 +153,7 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
     ``loader`` feeds the training batches from another source (the packed
     corpus's ``data.packed.PackedBatchLoader``; default: a ``BatchLoader``
     over the wavs); ``debug_nans`` checks every step's loss and gradients
-    (``step.backward_finite``)."""
+    (``step.backward_finite``; the cached modes then run eagerly)."""
     if cfg.train.keep_checkpoints < 1:
         raise ValueError("train.keep_checkpoints must be >= 1")
     check_trainable(cfg)
@@ -157,11 +162,6 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
 
     sampler = BucketSampler(train_utts, cfg.buckets, seed=cfg.train.seed)
     data_mode = _resolve_data_mode(cfg, sampler)
-    if data_mode != "stream":
-        raise NotImplementedError(
-            f"train.data_mode resolved to {data_mode!r}: the device-resident "
-            "corpus cache is not ported yet (ROADMAP.md, module queue: "
-            "GPU-resident corpus cache); pass --set train.data_mode=stream")
     if loader is None:
         loader = BatchLoader(train_utts, vocab, cfg.buckets,
                              use_cached_features=cfg.features.use_cache)
@@ -185,9 +185,45 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
     if ckpt:
         restore_checkpoint(ckpt, state)
         log.log("resume", checkpoint=ckpt, step=state.step)
-    train_step = make_train_step(cfg, debug_nans)
+
+    k_dispatch = 1
+    if data_mode in ("device_cache", "rotating"):
+        k_dispatch = max(1, cfg.train.steps_per_dispatch)
+        features_cfg = cfg.features if cfg.train.cache_features else None
+        cache_bytes = estimate_bytes(sampler,
+                                     features=cfg.train.cache_features,
+                                     cache_dtype=cfg.train.cache_dtype)
+        t_c = time.perf_counter()
+        if data_mode == "rotating":
+            corpus_cache = RotatingDeviceCache(
+                loader, sampler,
+                budget_bytes=int(cfg.train.device_cache_budget_gb * 1e9),
+                device=device, seed=cfg.train.seed,
+                features_cfg=features_cfg, cache_dtype=cfg.train.cache_dtype)
+            epoch_batches = (lambda e: corpus_cache.epoch_plan(e, k_dispatch))
+            extra = {"n_windows": corpus_cache.n_windows,
+                     "corpus_bytes": cache_bytes}
+        else:
+            corpus_cache = DeviceCorpusCache(
+                loader, sampler, device=device, seed=cfg.train.seed,
+                features_cfg=features_cfg, cache_dtype=cfg.train.cache_dtype)
+            epoch_batches = (lambda e: corpus_cache.epoch_dispatches(
+                e, k_dispatch))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            extra = {"cache_bytes": cache_bytes,
+                     "device_bytes": corpus_cache.nbytes(),
+                     "build_seconds": round(time.perf_counter() - t_c, 2)}
+        train_step = make_cached_train_step(model, cfg, corpus_cache,
+                                            k_dispatch, debug_nans)
+        log.log("data_mode", mode=data_mode, steps_per_dispatch=k_dispatch,
+                cache_features=cfg.train.cache_features,
+                graphs=train_step.graphs, **extra)
+    else:
+        train_step = make_train_step(cfg, debug_nans)
+        epoch_batches = sampler.epoch_batches
+        log.log("data_mode", mode=data_mode)
     eval_step = make_eval_step(model, cfg)
-    log.log("data_mode", mode=data_mode)
 
     dev_batches = None
     if dev_utts:
@@ -217,12 +253,19 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
                                         cfg.train.eval_lm_alpha,
                                         cfg.train.eval_lm_beta))
 
+    if not epoch_batches(0):
+        raise ValueError(
+            "no trainable batches in the selected data mode — in "
+            "device_cache mode every bucket needs at least batch_size/"
+            "num_devices utterances per device")
+
     t_last, utts_since = time.perf_counter(), 0
     seen_buckets: set[int] = set()
     epoch = 0
+    # a run that already reached total_steps resumes to a no-op
     done = state.step >= cfg.train.total_steps
 
-    # SIGTERM / SIGINT: finish the step in flight, checkpoint, return
+    # SIGTERM / SIGINT: finish the dispatch in flight, checkpoint, return
     stop_sig: dict = {"num": None}
     prev_handlers: dict = {}
     for s in (signal.SIGTERM, signal.SIGINT):
@@ -233,11 +276,13 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
             pass
     prof = None
 
-    def timed_step(bucket_id, batch):
-        """One step; the first hit of a bucket logs its time (kernel build
-        and cuDNN planning included), steps 10-14 are profiled."""
+    def timed_step(bucket_id, *args):
+        """One dispatch (K steps); the first hit of a bucket logs its time
+        (kernel build, cuDNN planning and the graph capture included), the
+        dispatches that hold steps 10-14 are profiled (whole replays)."""
         nonlocal prof
-        if profile_dir and prof is None and state.step == 10:
+        if (profile_dir and prof is None
+                and state.step <= 10 < state.step + k_dispatch):
             prof = torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 *([torch.profiler.ProfilerActivity.CUDA]
@@ -245,7 +290,7 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
             prof.__enter__()
         first = bucket_id not in seen_buckets
         t_c = time.perf_counter()
-        m = train_step(state, batch)
+        m = train_step(state, *args)
         if first:
             _ = float(m["loss"])
             log.log("compile", bucket_id=int(bucket_id),
@@ -267,7 +312,8 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
         log.log("profile", trace=path, steps=steps)
 
     def crossed(every: int) -> bool:
-        return state.step % every == 0
+        """Did the last dispatch cross a multiple of ``every``?"""
+        return (state.step // every) != ((state.step - k_dispatch) // every)
 
     def bookkeep(m, bucket_id, batch_utts) -> bool:
         nonlocal t_last, utts_since
@@ -298,31 +344,61 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
             return True
         return step >= cfg.train.total_steps
 
+    def cached_utts(bucket_id) -> int:
+        return sampler.shapes[bucket_id].batch_size * k_dispatch
+
     try:
-        prior = 0           # batches of the epochs before the current one
+        prior = 0           # dispatches of the epochs before the current one
         while not done:
-            batches = sampler.epoch_batches(epoch)
-            # exact resume: skip the batches already consumed this epoch
-            consumed = state.step - prior
+            batches = epoch_batches(epoch)
+            # exact resume: skip the dispatches already consumed this epoch
+            consumed = state.step // k_dispatch - prior
             if consumed >= len(batches):
                 prior += len(batches)
                 epoch += 1
                 continue
-            prefetch = Prefetcher(loader, batches[max(consumed, 0):],
-                                  depth=cfg.train.prefetch_depth,
-                                  num_workers=cfg.train.loader_workers)
-            try:
-                for batch in prefetch:
-                    bucket_id = batch["bucket_id"]
-                    m = timed_step(bucket_id, to_device(batch, device))
-                    n_real = (int(batch["sample_weight"].sum())
-                              if "sample_weight" in batch
-                              else batch["labels"].shape[0])
-                    if bookkeep(m, bucket_id, n_real):
+            todo = batches[max(consumed, 0):]
+            if data_mode == "rotating":
+                pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="csr-window")
+                try:
+                    # window w+1 fills the idle buffer set while w trains
+                    for bucket_id, slots in rotating_dispatches(
+                            corpus_cache, epoch, todo, pool):
+                        m = timed_step(bucket_id, bucket_id,
+                                       _slots_to(slots, device))
+                        if bookkeep(m, bucket_id, cached_utts(bucket_id)):
+                            done = True
+                            break
+                finally:
+                    pool.shutdown(wait=True, cancel_futures=True)
+            elif data_mode == "device_cache":
+                # lookahead 1: dispatch k+1's slot ids cross while k runs
+                pending = _slots_to(todo[0][1], device)
+                for i, (bucket_id, _) in enumerate(todo):
+                    slots = pending
+                    m = timed_step(bucket_id, bucket_id, slots)
+                    if i + 1 < len(todo):
+                        pending = _slots_to(todo[i + 1][1], device)
+                    if bookkeep(m, bucket_id, cached_utts(bucket_id)):
                         done = True
                         break
-            finally:
-                prefetch.stop()
+            else:
+                prefetch = Prefetcher(loader, todo,
+                                      depth=cfg.train.prefetch_depth,
+                                      num_workers=cfg.train.loader_workers)
+                try:
+                    for batch in prefetch:
+                        bucket_id = batch["bucket_id"]
+                        m = timed_step(bucket_id, to_device(batch, device))
+                        n_real = (int(batch["sample_weight"].sum())
+                                  if "sample_weight" in batch
+                                  else batch["labels"].shape[0])
+                        if bookkeep(m, bucket_id, n_real):
+                            done = True
+                            break
+                finally:
+                    prefetch.stop()
             prior += len(batches)
             epoch += 1
     finally:

@@ -18,8 +18,11 @@ names (``bridge.opt_state_to_flax`` turns those into the flax tree):
   sgd:   {"0": {}, "1": {"0": {trace}, "1": {count}}}
 
 Counts are int32 scalars and every number stays on the parameters' device,
-so a step needs no host synchronisation. The update is applied to the
-parameters in place (``p += u``, the same value as optax's ``p + u``).
+so a step needs no host synchronisation. The state is updated in place:
+its tensors keep their addresses from ``init`` on (a CUDA graph of cached
+steps reads and writes them, ``train/step.make_cached_train_step``), and
+so does the update of the parameters (``p += u``, the same value as
+optax's ``p + u``).
 """
 
 from __future__ import annotations
@@ -98,6 +101,10 @@ class Optimizer:
         return {"0": {}, "1": {"0": adam, "1": sched}}
 
     def update(self, grads: dict, state: dict, params: dict):
+        """→ (updates, ``state``): each new moment and count is computed
+        as optax does, then copied into ``state``'s own tensor, so the
+        state keeps its addresses (a captured CUDA graph reads and writes
+        them) and the values are optax's bit for bit."""
         cfg = self.cfg
         # clip_by_global_norm
         g_norm = global_norm(grads.values())
@@ -108,7 +115,7 @@ class Optimizer:
         if cfg.optimizer == "sgd":        # trace(0.9, nesterov) → lr
             trace = {k: g + 0.9 * inner["0"]["trace"][k] for k, g in u.items()}
             u = {k: g + 0.9 * trace[k] for k, g in u.items()}
-            new_inner = {"0": {"trace": trace}}
+            copy_into(inner["0"]["trace"], trace)
             sched_key = "1"
         else:                             # scale_by_adam (→ decay) → lr
             b1, b2 = cfg.b1, cfg.b2
@@ -118,23 +125,31 @@ class Optimizer:
                   for k, g in u.items()}
             count = st["count"] + 1
             cf = count.to(torch.float32)
-            bc1 = 1 - torch.tensor(b1, dtype=torch.float32,
-                                   device=cf.device) ** cf
-            bc2 = 1 - torch.tensor(b2, dtype=torch.float32,
-                                   device=cf.device) ** cf
+            bc1 = 1 - torch.full((), b1, dtype=torch.float32,
+                                 device=cf.device) ** cf
+            bc2 = 1 - torch.full((), b2, dtype=torch.float32,
+                                 device=cf.device) ** cf
             u = {k: (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + 1e-8)
                  for k in u}
-            new_inner = {"0": {"count": count, "mu": mu, "nu": nu}}
+            copy_into(st, {"count": count, "mu": mu, "nu": nu})
             sched_key = "1"
             if cfg.weight_decay:
                 u = {k: v + cfg.weight_decay * params[k] for k, v in u.items()}
-                new_inner["1"] = {}
                 sched_key = "2"
         sched_count = inner[sched_key]["count"]
         step_size = -self.schedule(sched_count)
         u = {k: step_size.to(v.dtype) * v for k, v in u.items()}
-        new_inner[sched_key] = {"count": sched_count + 1}
-        return u, {"0": {}, "1": new_inner}
+        sched_count.add_(1)
+        return u, state
+
+
+def copy_into(dst: dict, src: dict) -> None:
+    """Copy a (nested) dict of tensors into ``dst``'s tensors in place."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            copy_into(dst[k], v)
+        else:
+            dst[k].copy_(v)
 
 
 def init_state(model: torch.nn.Module, optim_cfg: OptimConfig,

@@ -13,6 +13,10 @@ Batches are dicts of padded tensors:
 A packed corpus (``data/packed.PackedBatchLoader``) gives ``signals_i16``
 [B, N_max] int16 PCM in place of ``signals``: it crosses to the device as
 int16 and becomes float32 there (``_features``).
+
+``make_cached_train_step`` runs the same step body on rows gathered from
+a device-resident corpus (``data/device_cache.py``), K steps a dispatch:
+on the card one CUDA-graph replay.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Callable
 
 import torch
 
+from .. import _kernels
 from ..config import Config
 from ..frontend import select_frontend
 from ..ops.ctc import LOG_ZERO, ctc_loss_scan
@@ -125,6 +130,34 @@ def backward_finite(loss: torch.Tensor, params: dict, step: int) -> None:
                 f"step {step}: non-finite gradient of {name}")
 
 
+def _step_body(tx, cfg: Config, state: TrainState, batch: dict, draws,
+               debug_step: int | None = None) -> dict:
+    """One optimizer step's device work on ``state`` (parameters and
+    moments updated in place); ``step`` is not advanced. Reads nothing on
+    the host unless ``debug_step`` (the step's number for ``--debug-nans``
+    errors) asks for the checks, so the same call can be captured in a
+    CUDA graph."""
+    model = state.model
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    loss, (n_valid, n_real), _, _ = forward_loss(model, cfg, batch, draws)
+    if debug_step is not None:
+        backward_finite(loss, params, debug_step)
+    else:
+        loss.backward()
+    grads = {k: p.grad for k, p in params.items()}
+    gnorm = global_norm(grads.values())
+    with torch.no_grad():
+        updates, _ = tx.update(grads, state.opt_state,
+                               {k: p.detach() for k, p in params.items()})
+        for k, p in params.items():
+            p.add_(updates[k])
+            p.grad = None
+    return {"loss": loss.detach(), "grad_norm": gnorm,
+            "valid_frac": n_valid / torch.clamp(n_real, min=1.0)}
+
+
 def make_train_step(cfg: Config, debug_nans: bool = False) -> Callable:
     """→ ``train_step(state, batch) -> metrics``: one optimizer step on
     ``state`` (parameters and moments updated in place, step + 1);
@@ -135,30 +168,152 @@ def make_train_step(cfg: Config, debug_nans: bool = False) -> Callable:
     tx = Optimizer(cfg.optim)
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        model = state.model
-        params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        loss, (n_valid, n_real), _, _ = forward_loss(
-            model, cfg, batch, step_draws(cfg, state, batch))
-        if debug_nans:
-            backward_finite(loss, params, state.step + 1)
-        else:
-            loss.backward()
-        grads = {k: p.grad for k, p in params.items()}
-        gnorm = global_norm(grads.values())
-        with torch.no_grad():
-            updates, state.opt_state = tx.update(
-                grads, state.opt_state,
-                {k: p.detach() for k, p in params.items()})
-            for k, p in params.items():
-                p.add_(updates[k])
-                p.grad = None
+        m = _step_body(tx, cfg, state, batch, step_draws(cfg, state, batch),
+                       state.step + 1 if debug_nans else None)
         state.step += 1
-        return {"loss": loss.detach(), "grad_norm": gnorm,
-                "valid_frac": n_valid / torch.clamp(n_real, min=1.0)}
+        return m
 
     return train_step
+
+
+def _gather(bucket: dict, idx: torch.Tensor) -> dict:
+    """One batch's rows of a cached bucket (the reference's ``jnp.take``)."""
+    return {k: v.index_select(0, idx) for k, v in bucket.items()}
+
+
+def _mean_metrics(ms: list[dict]) -> dict:
+    return {k: torch.stack([m[k] for m in ms]).mean(0) for k in ms[0]}
+
+
+class _Replay:
+    """One CUDA graph of K cached steps on one bucket's buffers, with the
+    static inputs it reads (slot ids, SpecAugment draws), the metrics it
+    writes and the kernel launches captured in it."""
+
+    def __init__(self, K: int, B: int, n_draws: int, device):
+        self.graph = torch.cuda.CUDAGraph()
+        self.slots = torch.zeros((K, B), dtype=torch.int64, device=device)
+        self.draws = self.draws_host = self.copied = None
+        if n_draws:
+            self.draws = torch.zeros((K, n_draws, 2, B), device=device)
+            self.draws_host = torch.zeros((K, n_draws, 2, B),
+                                          pin_memory=True)
+        self.metrics: dict = {}
+        self.launches: dict = {}
+
+
+def make_cached_train_step(model, cfg: Config, corpus_cache,
+                           steps_per_dispatch: int = 1,
+                           debug_nans: bool = False, *,
+                           _eager: bool = False) -> Callable:
+    """Train step fed from a device-resident corpus
+    (``data/device_cache.py``; reference ``make_cached_train_step``):
+    ``call(state, bucket_id, slot_ids) -> metrics``, ``slot_ids`` [K, B]
+    (or [B] for K = 1) on the model's device. Each of the K steps gathers
+    its rows from ``corpus_cache.buckets[bucket_id]`` (read at call time:
+    the rotating cache swaps it) and runs the body of ``make_train_step``
+    with the SpecAugment draws of ``step_generator(state.rng, state.step
+    + j)``; the metrics are averaged over the K steps.
+
+    On the CPU the K steps run eagerly. On the card one dispatch is one
+    replay of a CUDA graph of the K steps, one graph a bucket's buffers:
+    the first dispatch on them runs eagerly on a side stream (the warm-up
+    capture asks for), then the graph is captured; before each replay the
+    host copies only the slot ids and the draws (from one pinned buffer)
+    into the graph's static inputs. Each replay adds the kernel launches
+    captured in the graph to ``_kernels``' counts. A failed capture or
+    replay raises. ``debug_nans`` (its checks read the host) and
+    ``_eager`` (for holding the replay against eager steps) run every
+    dispatch eagerly."""
+    check_trainable(cfg)
+    tx = Optimizer(cfg.optim)
+    K = max(1, steps_per_dispatch)
+    device = next(model.parameters()).device
+    graphs = device.type == "cuda" and not (debug_nans or _eager)
+    replays: dict = {}
+
+    def draws_of(state, B: int, K_: int):
+        if not cfg.specaugment.enabled:
+            return None
+        return torch.stack([specaugment_draws(
+            step_generator(state.rng, state.step + j), B, cfg.specaugment)
+            for j in range(K_)])
+
+    def run_steps(state, bucket, slots, draws, first_step=None):
+        ms = []
+        for j in range(slots.shape[0]):
+            ms.append(_step_body(
+                tx, cfg, state, _gather(bucket, slots[j]),
+                None if draws is None else draws[j],
+                None if first_step is None else first_step + j))
+        return _mean_metrics(ms)
+
+    def eager(state, bucket, slots):
+        draws = draws_of(state, slots.shape[1], slots.shape[0])
+        if draws is not None and slots.is_cuda:
+            draws = draws.pin_memory().to(slots.device, non_blocking=True)
+        m = run_steps(state, bucket, slots, draws,
+                      state.step + 1 if debug_nans else None)
+        state.step += slots.shape[0]
+        return m
+
+    def first_dispatch(state, bucket, slots, key) -> dict:
+        """Warm-up (this dispatch's K steps, eagerly on a side stream),
+        then the capture of the graph that later dispatches replay."""
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            m = eager(state, bucket, slots)
+        torch.cuda.current_stream(device).wait_stream(side)
+        n_draws = (cfg.specaugment.num_time_masks
+                   + cfg.specaugment.num_freq_masks
+                   if cfg.specaugment.enabled else 0)
+        r = _Replay(K, slots.shape[1], n_draws, device)
+        for p in model.parameters():
+            p.grad = None
+        # thread_local: a rotating cache's fetch thread may allocate, pin
+        # and launch on its own stream while this thread captures
+        with _kernels.capturing() as r.launches, torch.cuda.graph(
+                r.graph, capture_error_mode="thread_local"):
+            r.metrics = run_steps(state, bucket, r.slots, r.draws)
+        replays[key] = r
+        return m
+
+    def replay(state, r: _Replay, slots) -> dict:
+        r.slots.copy_(slots, non_blocking=True)
+        if r.draws is not None:
+            if r.copied is not None:
+                r.copied.synchronize()   # the last copy out of draws_host
+            r.draws_host.copy_(draws_of(state, r.slots.shape[1], K))
+            r.draws.copy_(r.draws_host, non_blocking=True)
+            r.copied = torch.cuda.Event()
+            r.copied.record()
+        r.graph.replay()
+        _kernels.add_launches(r.launches)
+        state.step += K
+        return {k: v.clone() for k, v in r.metrics.items()}
+
+    def call(state: TrainState, bucket_id: int, slot_ids) -> dict:
+        if state.model is not model:
+            raise ValueError("cached train step: state.model is not the "
+                             "model the step was built for")
+        bucket = corpus_cache.buckets[bucket_id]
+        slots = torch.as_tensor(slot_ids).to(torch.int64)
+        if slots.dim() == 1:
+            slots = slots[None]
+        if slots.shape[0] != K:
+            raise ValueError(f"cached train step: {slots.shape[0]} steps of "
+                             f"slot ids, expected {K}")
+        if not graphs:
+            return eager(state, bucket, slots)
+        key = (bucket_id,) + tuple(t.data_ptr() for t in bucket.values())
+        r = replays.get(key)
+        if r is None:
+            return first_dispatch(state, bucket, slots, key)
+        return replay(state, r, slots)
+
+    call.graphs = graphs
+    return call
 
 
 def make_eval_step(model, cfg: Config) -> Callable:

@@ -6,9 +6,10 @@ width of the ``bigru`` preset (phases 3-9), of the ``bilstm_deep`` preset
 preset and ``bilstm_deep`` with causal CMVN (phases 15-17), of the
 attention family, ``conformer`` and ``conformer_stream`` offline (phases
 18-21), the parity path of ``bigru`` (phase 22: data tools, training
-from a pack, the evaluate CLI) and config 4 on ``bigru`` (phase 23:
-prefix beam search with LM fusion, offline and streaming), with random
-weights made from a seed, and
+from a pack, the evaluate CLI), config 4 on ``bigru`` (phase 23:
+prefix beam search with LM fusion, offline and streaming) and training
+from the device-resident corpus, the default data mode (phase 24), with
+random weights made from a seed, and
 fails (exit code != 0, no result line) if any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
@@ -182,6 +183,29 @@ fails (exit code != 0, no result line) if any phase fails:
     beam launch held to the plain version on its own inputs
     (``beam_checked``), warm walls. Its wall is printed against a 30 s
     budget.
+24. the device cache, the default ``train.data_mode``: bigru, bilstm_deep
+    (SpecAugment on) and conformer (``attn_impl=flash``) train phase 8's
+    corpus through the train CLI with no data-mode override, 24 steps:
+    the log line must say ``device_cache``, bf16 features, K = 8, graphs
+    on; exact launches (the front-end ⌈rows/32⌉ times at the cache's
+    build and never in a step, every training kernel its count a step
+    times 24, the dev eval's forward); the busy share over the profiled
+    replay of steps 8-15 and the step wall of the third dispatch, printed
+    beside phases 8, 13 and 21's stream-mode figures; bigru and
+    bilstm_deep resume a copy of a run's step-16 checkpoint to 24, bitwise
+    equal to that run's end. In process, from one feature cache, 2
+    dispatches of K = 8 (the second one replay) against the same steps
+    eagerly (twice for bigru and bilstm_deep), all bitwise equal (the CTC
+    emission gather sums its gradient by a product, not with atomics;
+    bigru's model backward and CTC gradient run twice each on the same
+    inputs must agree bitwise). PCM-mode cached steps (the front-end in
+    the step) equal stream steps on the same rows; a rotating run (3
+    windows, K = 8, 24 steps) holds each later window's fetch inside a
+    graph capture, with exact launches; 6 windows at K = 2 with the
+    training stream asleep ~0.25 s before each dispatch, through graphs
+    equal to eager and with a planted race (the window fetch skips its
+    wait for the set's last replay) unequal. Its wall is printed against
+    a 45 s budget.
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -2097,7 +2121,7 @@ def phase_train(root: str, data: str, preset: str,
               "no checkpoint at the resumed run's end")
         print(f"[{tag}] resumed at step {resume[0]['step']}, stopped at "
               f"{steps[-1]}")
-    return launches, os.path.join(data, "train_index.jsonl")
+    return launches, os.path.join(data, "train_index.jsonl"), (step_s, busy)
 
 
 def phase_train_parity(dev, index: str, preset: str,
@@ -3236,6 +3260,556 @@ def phase_beam(root, ckpt, vocab, wavs, audio_s, dev,
     return t, decode_launches
 
 
+# phase 24, the device cache: phase 8's corpus trained from the device-
+# resident bf16 feature cache, CACHE_K steps a dispatch (one CUDA-graph
+# replay), with the default train.data_mode
+CACHE_K, CACHE_RESUME = 8, 24
+CACHE_BUDGET_S = 45.0
+ROTATE_GB = 0.06          # 3 windows of the corpus at the residency peak
+# the planted race: 6 windows of 32 rows (2 batches), one dispatch of K = 2
+# each; the training stream sleeps ~0.25 s before each dispatch, so the
+# fetch of window w+2 runs while window w's replay waits in the stream
+RACE_GB, RACE_K, RACE_STEPS = 0.027, 2, 12
+RACE_SLEEP_CYCLES = 500_000_000
+CAPTURE_WAIT_S = 20.0     # a held fetch's wait for a capture, and back
+
+
+def ckpt_arrays(path: str) -> dict:
+    """Every array of a checkpoint's parameters and optimizer state, by
+    path in the tree."""
+    from chainer_speech_recognition_tpu_torch.checkpoint import (
+        msgpack_restore)
+
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    out = {}
+
+    def walk(prefix, v):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                walk(f"{prefix}/{k}", x)
+        else:
+            out[prefix] = np.asarray(v)
+
+    walk("", {"params": tree["params"], "opt_state": tree["opt_state"]})
+    return out
+
+
+def ckpt_gap(a: str, b: str) -> float:
+    """Largest |difference| between two checkpoints' arrays (parameters,
+    moments and counts); inf where their trees differ."""
+    x, y = ckpt_arrays(a), ckpt_arrays(b)
+    if set(x) != set(y):
+        return float("inf")
+    return max(float(np.max(np.abs(x[k].astype(np.float64)
+                                    - y[k].astype(np.float64))))
+               if x[k].size else 0.0 for k in x)
+
+
+@contextlib.contextmanager
+def cached_variant(eager: bool = False, sleep: int = 0,
+                   skip_release_wait: bool = False,
+                   overlap: list | None = None):
+    """Run the train CLI's cached step eagerly on the card (``eager``),
+    with the training stream asleep ``sleep`` cycles before each dispatch, with the planted race (the
+    window fetch skips its wait for the last dispatch that read the buffer
+    set it overwrites), or (``overlap``, a list) with each window fetch
+    after the first held until a graph capture has begun and the capture
+    held open until that fetch (its allocations, pinned copies and
+    front-end launches) is done: ``overlap`` gets, for each capture,
+    whether a fetch ran inside it."""
+    import functools
+    import threading
+
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.data import device_cache
+    from chainer_speech_recognition_tpu_torch.train import loop
+
+    make = loop.make_cached_train_step
+    wait = device_cache.RotatingDeviceCache._await_release
+    fetch = device_cache.RotatingDeviceCache.fetch_window
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def patched(*args, **kw):
+        call = functools.partial(make, _eager=eager)(*args, **kw)
+        if not sleep:
+            return call
+
+        def slept(state, bucket_id, slots):
+            torch.cuda._sleep(sleep)
+            return call(state, bucket_id, slots)
+
+        slept.graphs = call.graphs
+        return slept
+
+    loop.make_cached_train_step = patched
+    if skip_release_wait:
+        device_cache.RotatingDeviceCache._await_release = (
+            lambda self, s: None)
+    if overlap is not None:
+        opened, done, fetches = threading.Event(), threading.Event(), [0]
+
+        def gated_fetch(self, epoch, w, s):
+            fetches[0] += 1
+            if fetches[0] == 1:          # the run waits for it: no capture
+                return fetch(self, epoch, w, s)
+            opened.wait(CAPTURE_WAIT_S)
+            try:
+                return fetch(self, epoch, w, s)
+            finally:
+                done.set()
+
+        def gated_begin(self, *args, **kw):
+            begin(self, *args, **kw)
+            opened.set()
+            overlap.append(done.wait(CAPTURE_WAIT_S))
+            opened.clear()
+            done.clear()
+
+        device_cache.RotatingDeviceCache.fetch_window = gated_fetch
+        torch.cuda.CUDAGraph.capture_begin = gated_begin
+    try:
+        yield
+    finally:
+        loop.make_cached_train_step = make
+        device_cache.RotatingDeviceCache._await_release = wait
+        device_cache.RotatingDeviceCache.fetch_window = fetch
+        torch.cuda.CUDAGraph.capture_begin = begin
+
+
+def cached_train(data: str, name: str, root: str, preset: str, steps: int,
+                 sets=(), profile: bool = False, fresh: bool = True,
+                 **variant) -> tuple[list[dict], dict, float, str]:
+    """One in-process train CLI run on the card with the default data mode
+    (dotted ``sets`` added) → (its events, the kernel launches of the run,
+    its wall in s, the final checkpoint's path)."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch.checkpoint import (
+        latest_checkpoint)
+    from chainer_speech_recognition_tpu_torch.cli import train as train_cli
+
+    ckpt = os.path.join(root, f"cache_ckpt_{name}")
+    metrics = os.path.join(root, f"cache_{name}.jsonl")
+    n_before = len(_events(metrics)) if os.path.exists(metrics) else 0
+    args = ["--data-dir", data, "--preset", preset, "--device", "cuda",
+            "--ckpt-dir", ckpt, "--metrics", metrics]
+    if profile:
+        args += ["--profile-dir", os.path.join(root, f"prof_cache_{name}")]
+    if not fresh:
+        check(latest_checkpoint(ckpt) is not None,
+              f"{name}: nothing to resume")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    with cached_variant(**variant), \
+            contextlib.redirect_stdout(io.StringIO()):
+        train_cli.main(args + ["--set", "optim.warmup_steps=4",
+                               f"train.total_steps={steps}", *sets])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (_events(metrics)[n_before:], _kernels.launches(), wall,
+            latest_checkpoint(ckpt))
+
+
+def cached_want(cfg, steps: int, n_eval: int, fe_build: int) -> dict:
+    """Exact kernel launches of a cached training run: ``fe_build``
+    front-end launches at the cache's build (none a step in feature mode),
+    each training kernel its count a step times ``steps``, and the eval
+    batches' forward launches."""
+    from chainer_speech_recognition_tpu_torch import _kernels
+
+    want = {name: 0 for name in _kernels.KERNELS}
+    cell, layers = cfg.model.rnn_type, cfg.model.rnn_layers
+    if cell != "none":
+        want.update({f"{cell}_fwd_train": layers * steps,
+                     f"{cell}_bwd": layers * steps,
+                     f"{cell}_fwd": layers * n_eval})
+        if cfg.model.compute_dtype == "bfloat16":
+            want["dw"] = layers * steps
+    if cfg.model.attn_impl == "flash":
+        blocks = cfg.model.attn_blocks
+        want.update({"flash_fwd": blocks * (steps + n_eval),
+                     "flash_bwd_dq": blocks * steps,
+                     "flash_bwd_dkv": blocks * steps})
+    want.update({"ctc_bwd": steps, "ctc_fwd": steps + n_eval,
+                 "frontend_logmel": fe_build + n_eval, "greedy": n_eval})
+    return want
+
+
+def check_launches(tag: str, got: dict, want: dict) -> None:
+    for name, n in want.items():
+        check(got[name] == n, f"{tag}: {name} launched {got[name]} times, "
+              f"expected {n}")
+
+
+def phase_cached_preset(root: str, data: str, preset: str, sets=(),
+                        resume: bool = True) -> tuple[float, float]:
+    """One preset through the train CLI in phase 24 → (warm step wall s,
+    busy share). The default program trains 24 steps: the log line, exact
+    launches, the busy share over the profiled replay of steps 8-15 and
+    the step wall from the third dispatch (a replay with no eval,
+    checkpoint or profiler around it). With ``resume``, a run of 24 steps
+    checkpoints at 16, and a copy of that checkpoint resumed to 24 must
+    end bitwise where the run ended."""
+    import shutil
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    tag = f"cache-{preset}"
+    cfg = preset_config(preset).override(
+        dict(kv.split("=", 1) for kv in sets))
+    ev, launches, wall, _ = cached_train(
+        data, f"{preset}_run", root, preset, CACHE_RESUME,
+        [*sets, "train.log_every=1", f"train.eval_every={CACHE_RESUME}",
+         f"train.checkpoint_every={CACHE_RESUME}"], profile=True)
+    mode = [e for e in ev if e["kind"] == "data_mode"][0]
+    print(f"[{tag}] {json.dumps(mode)}")
+    check(mode["mode"] == "device_cache" and mode["cache_features"]
+          and mode["steps_per_dispatch"] == CACHE_K and mode["graphs"],
+          f"{preset}: the default data mode is not the bf16 feature cache "
+          f"at K = {CACHE_K} with graphs")
+    train = [e for e in ev if e["kind"] == "train"]
+    evals = [e for e in ev if e["kind"] == "eval"]
+    check([e["step"] for e in train] == [CACHE_K, 2 * CACHE_K, 3 * CACHE_K]
+          and all(np.isfinite(e["loss"]) and e["grad_norm"] > 0
+                  for e in train), f"{preset}: dispatch metrics {train}")
+    check([e["step"] for e in evals] == [CACHE_RESUME]
+          and evals[0]["num_utts"] == DEV_UTTS, f"{preset}: dev eval {evals}")
+    n_eval = -(-DEV_UTTS // TRAIN_B)
+    fe_build = -(-TRAIN_UTTS // 32)          # one bucket holds the corpus
+    check_launches(tag, launches, cached_want(cfg, CACHE_RESUME, n_eval,
+                                              fe_build))
+    t = {e["step"]: e["t"] for e in train}
+    step_s = (t[3 * CACHE_K] - t[2 * CACHE_K]) / CACHE_K
+    busy, window_ms, top = _busy_share(os.path.join(
+        root, f"prof_cache_{preset}_run", "trace.json"))
+    print(f"[{tag}] {CACHE_RESUME} steps in {wall:.3f} s (cache build, "
+          f"capture and eval included), launches exact ({fe_build} "
+          f"front-end launches at the build, none a step); warm step "
+          f"{step_s * 1e3:.3f} ms (the third dispatch, one replay / "
+          f"{CACHE_K}), {TRAIN_B / step_s:.3f} utt/s; device busy "
+          f"{busy:.4f} of the {window_ms:.3f} ms profiled window (the "
+          f"replay of steps 8-15)")
+    for name, us in top[:6]:
+        print(f"[{tag}] device time {us / 1e3:9.3f} ms  {name[:90]}")
+    if resume:
+        _, _, w_whole, whole = cached_train(
+            data, f"{preset}_whole", root, preset, CACHE_RESUME,
+            [*sets, f"train.checkpoint_every={TRAIN_STEPS}"])
+        src = os.path.dirname(whole)
+        dst = os.path.join(root, f"cache_ckpt_{preset}_resumed")
+        os.makedirs(dst)
+        for f in os.listdir(src):
+            if f != os.path.basename(whole):
+                shutil.copy(os.path.join(src, f), dst)
+        rev, _, w_res, resumed = cached_train(
+            data, f"{preset}_resumed", root, preset, CACHE_RESUME, sets,
+            fresh=False)
+        res = [e for e in rev if e["kind"] == "resume"]
+        check(len(res) == 1 and res[0]["step"] == TRAIN_STEPS,
+              f"{preset}: resume events {res}")
+        rgap = ckpt_gap(resumed, whole)
+        print(f"[{tag}] resumed at {TRAIN_STEPS} from a run's checkpoint, "
+              f"stopped at {CACHE_RESUME}: max |diff| to that run's end "
+              f"{rgap:.3e} (bar: bitwise) "
+              f"[runs of {w_whole:.3f} s and {w_res:.3f} s]")
+        check(rgap == 0, f"{preset}: the resumed run differs from the "
+              f"unbroken one by {rgap:.3e}")
+    return step_s, busy
+
+
+def cached_steps(cfg, cache, plan, dev, eager: bool):
+    """A model from SEED through ``plan``'s dispatches of the cached step,
+    eagerly or (the first dispatch eager, then replays) through its graph
+    → (state, each dispatch's metrics)."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model, init_parameters)
+    from chainer_speech_recognition_tpu_torch.train.state import init_state
+    from chainer_speech_recognition_tpu_torch.train.step import (
+        make_cached_train_step)
+
+    model = build_model(cfg.model)
+    init_parameters(model, SEED)
+    model.to(dev)
+    state = init_state(model, cfg.optim, SEED)
+    step = make_cached_train_step(model, cfg, cache, CACHE_K, _eager=eager)
+    check(step.graphs == (not eager), "cached step: graphs on the card")
+    ms = [step(state, bid, torch.from_numpy(slots).to(dev))
+          for bid, slots in plan]
+    torch.cuda.synchronize()
+    return state, ms
+
+
+def state_gap(a, b) -> float:
+    """Largest |difference| between two (state, metrics) runs: parameters,
+    Adam moments and counts, and each dispatch's metrics."""
+    (sa, ma), (sb, mb) = a, b
+    out = [float((x.float() - y.float()).abs().max()) for x, y in zip(
+        sa.model.state_dict().values(), sb.model.state_dict().values())]
+    adam_a, adam_b = sa.opt_state["1"]["0"], sb.opt_state["1"]["0"]
+    for key in ("mu", "nu"):
+        out += [float((adam_a[key][k] - adam_b[key][k]).abs().max())
+                for k in adam_a[key]]
+    out.append(abs(int(adam_a["count"]) - int(adam_b["count"])))
+    out += [abs(float(x[k]) - float(y[k])) for x, y in zip(ma, mb)
+            for k in x]
+    return max(out)
+
+
+def phase_cached_replay(dev, cache, plan) -> None:
+    """The replay against eager steps in process, with the algorithms the
+    program runs: 2 dispatches of K = 8 from the same weights (the first
+    eager, then one replay), at full width. Two eager runs of bigru and
+    of bilstm_deep must be bitwise equal (the steps are repeatable), and
+    so must the replay of each preset: parameters, Adam moments and
+    counts, and the dispatches' metrics."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    for preset, sets in ((PRESET, {}), (LSTM_PRESET, {}),
+                         (CONF_PRESET, {"model.attn_impl": "flash"})):
+        cfg = preset_config(preset).override(
+            {"optim.warmup_steps": 4, **sets})
+        t0 = time.perf_counter()
+        eager = [cached_steps(cfg, cache, plan, dev, True)
+                 for _ in range(1 if preset == CONF_PRESET else 2)]
+        gap = state_gap(cached_steps(cfg, cache, plan, dev, False), eager[0])
+        spread = (f"eager vs eager {state_gap(*eager):.3e}, "
+                  if len(eager) == 2 else "")
+        print(f"[cache-replay-{preset}] {2 * CACHE_K} steps: {spread}graph "
+              f"vs eager {gap:.3e} (bar: bitwise) "
+              f"[{time.perf_counter() - t0:.3f} s]")
+        check(len(eager) == 1 or state_gap(*eager) == 0,
+              f"{preset}: two eager runs differ")
+        check(gap == 0, f"{preset}: the replay differs from eager steps by "
+              f"{gap:.3e}")
+
+
+def repeatable_gradients(dev, cache, plan) -> None:
+    """Why the steps are repeatable: bigru's pieces each run twice on the
+    same inputs (one batch of the cache), on the card, with the default
+    algorithms: the model's backward from one fixed gradient of its
+    logits and the CTC loss's gradient w.r.t. fixed logits must be
+    bitwise equal; beside them, the emission gather's own backward
+    (``torch.gather``'s scatter-add with atomics, which ``ops/ctc`` does
+    not use), printed."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model, init_parameters)
+    from chainer_speech_recognition_tpu_torch.ops.ctc import extend_labels
+    from chainer_speech_recognition_tpu_torch.train import step as step_mod
+
+    cfg = preset_config(PRESET)
+    model = build_model(cfg.model)
+    init_parameters(model, SEED)
+    model.to(dev)
+    bid, slots = plan[0]
+    batch = step_mod._gather(cache.buckets[bid],
+                             torch.from_numpy(slots[0]).to(dev).long())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    names, params = zip(*model.named_parameters())
+
+    def gap(fn) -> float:
+        a, b = fn(), fn()
+        return float((a - b).abs().max())
+
+    with torch.no_grad():
+        logits, olens = model(batch["features"], batch["frame_lengths"])
+    dout = torch.randn(logits.shape, generator=gen, device=dev,
+                       dtype=logits.dtype)
+
+    def dparams():
+        out, _ = model(batch["features"], batch["frame_lengths"])
+        return torch.autograd.grad(out, params, dout, allow_unused=True)
+
+    ga, gb = dparams(), dparams()
+    differ = [n for n, x, y in zip(names, ga, gb)
+              if x is not None and not torch.equal(x, y)]
+    x0 = logits.detach()
+
+    def dctc():
+        x = x0.clone().requires_grad_()
+        loss = step_mod._ctc(cfg)(x, olens, batch["labels"],
+                                  batch["label_lengths"]).sum()
+        return torch.autograd.grad(loss, x)[0]
+
+    B, T, V = x0.shape
+    ext = extend_labels(batch["labels"])[:, None, :]
+    ext = ext.expand(B, T, ext.shape[-1])
+    lp = torch.randn((B, T, V), generator=gen, device=dev)
+    dext = torch.randn(ext.shape, generator=gen, device=dev)
+
+    def dgather():
+        x = lp.clone().requires_grad_()
+        return torch.autograd.grad(torch.gather(x, 2, ext), x, dext)[0]
+
+    ctc_gap, gather_gap = gap(dctc), gap(dgather)
+    listed = f" ({', '.join(differ[:6])})" if differ else ""
+    print(f"[cache-repeat] {PRESET}, each piece twice on the same inputs: "
+          f"the model's backward from a fixed logits gradient: "
+          f"{len(differ)} of {len(names)} parameter gradients differ"
+          f"{listed}; the CTC loss's dlogits: max |diff| {ctc_gap:.3e}; "
+          f"torch.gather's own backward ([{B}, {T}, {ext.shape[-1]}] into "
+          f"V = {V}; not used): {gather_gap:.3e}")
+    check(not differ and ctc_gap == 0, "the gradients are not repeatable")
+
+
+def phase_cached_pcm(data: str, dev) -> None:
+    """PCM-mode cached steps (the front-end in the step) against stream
+    steps on the same rows: two dispatches of K = 8 (the warm-up and one
+    replay) beside 16 stream steps, from the same weights, bitwise."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.data.corpus import load_index
+    from chainer_speech_recognition_tpu_torch.data.device_cache import (
+        DeviceCorpusCache)
+    from chainer_speech_recognition_tpu_torch.data.sampler import (
+        BatchLoader, BucketSampler)
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model, init_parameters)
+    from chainer_speech_recognition_tpu_torch.train.loop import to_device
+    from chainer_speech_recognition_tpu_torch.train.state import init_state
+    from chainer_speech_recognition_tpu_torch.train.step import (
+        make_train_step)
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
+
+    cfg = preset_config(PRESET).override({"optim.warmup_steps": 4})
+    utts = load_index(os.path.join(data, "train_index.jsonl"))
+    vocab = Vocab.load(os.path.join(data, "vocab.txt"))
+    loader = BatchLoader(utts, vocab, cfg.buckets)
+    cache = DeviceCorpusCache(loader, BucketSampler(utts, cfg.buckets), dev)
+    plan = [cache.epoch_dispatches(e, CACHE_K)[0] for e in (0, 1)]
+    cached, _ = cached_steps(cfg, cache, plan, dev, eager=False)
+    model = build_model(cfg.model)
+    init_parameters(model, SEED)
+    model.to(dev)
+    state = init_state(model, cfg.optim, SEED)
+    step = make_train_step(cfg)
+    for bid, slots in plan:
+        for row in slots:
+            step(state, to_device(loader.load(
+                bid, cache.utterance_indices(bid, row)), dev))
+    torch.cuda.synchronize()
+    gap = state_gap((cached, []), (state, []))
+    print(f"[cache-pcm] {PRESET}, int16 PCM cache (front-end in the step), "
+          f"2 dispatches of {CACHE_K} (the second "
+          f"one replay) vs {2 * CACHE_K} stream steps on the same rows: max "
+          f"|diff| of parameters, moments and counts {gap:.3e} (bar: "
+          f"bitwise)")
+    check(gap == 0, "PCM cached steps differ from stream steps")
+
+
+def phase_rotating(root: str, data: str) -> None:
+    """The rotating cache through the CLI: a budget that forces 3 windows
+    trains 24 steps at K = 8 with each later window's fetch held inside a
+    graph capture (launches exact: the window builds' front-end launches
+    counted, the captured ones only through replays); then 6 windows at
+    K = 2, 12 steps, with the training stream asleep before each dispatch, eagerly, through graphs
+    and with the planted race (the fetch skips its wait): graphs equal
+    eager bitwise, the race does not."""
+    import math
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    cfg = preset_config(PRESET)
+    sets = [f"train.device_cache_budget_gb={ROTATE_GB}", "train.log_every=1"]
+    overlap: list = []
+    ev, launches, wall, _ = cached_train(data, "rotating", root, PRESET,
+                                         3 * CACHE_K, sets, overlap=overlap)
+    mode = [e for e in ev if e["kind"] == "data_mode"][0]
+    train = [e for e in ev if e["kind"] == "train"]
+    print(f"[cache-rotating] {json.dumps(mode)}")
+    check(mode["mode"] == "rotating" and mode["n_windows"] >= 3
+          and mode["graphs"], "the rotating run's data mode")
+    check([e["step"] for e in train] == [CACHE_K, 2 * CACHE_K, 3 * CACHE_K]
+          and all(np.isfinite(e["loss"]) for e in train),
+          f"rotating steps {train}")
+    check(overlap == [True] * (mode["n_windows"] - 1),
+          f"a window fetch inside each capture: {overlap}")
+    rows = math.ceil(TRAIN_UTTS / mode["n_windows"])
+    check_launches("cache-rotating", launches, cached_want(
+        cfg, 3 * CACHE_K, 0, len(train) * math.ceil(rows / 32)))
+    print(f"[cache-rotating] {mode['n_windows']} windows of {rows} rows, "
+          f"{3 * CACHE_K} steps in {wall:.3f} s; the fetches of windows "
+          f"2-{mode['n_windows']} each ran inside a graph capture (buffers, "
+          f"pinned copies, front-end launches); launches exact")
+
+    sets = [f"train.device_cache_budget_gb={RACE_GB}",
+            f"train.steps_per_dispatch={RACE_K}"]
+    runs = {name: cached_train(data, f"race_{name}", root, PRESET,
+                               RACE_STEPS, sets, **kw)
+            for name, kw in (
+                ("eager", {"eager": True}),
+                ("graph", {"sleep": RACE_SLEEP_CYCLES}),
+                ("planted", {"sleep": RACE_SLEEP_CYCLES,
+                             "skip_release_wait": True}))}
+    mode = [e for e in runs["graph"][0] if e["kind"] == "data_mode"][0]
+    check(mode["mode"] == "rotating" and mode["n_windows"] * RACE_K
+          >= RACE_STEPS, f"race runs' data mode {mode}")
+    good = ckpt_gap(runs["graph"][3], runs["eager"][3])
+    bad = ckpt_gap(runs["planted"][3], runs["eager"][3])
+    print(f"[cache-race] {mode['n_windows']} windows, K = {RACE_K}, "
+          f"{RACE_STEPS} steps, the training stream asleep ~0.25 s a "
+          f"dispatch: graphs vs eager max |diff| {good:.3e} (bar: bitwise); "
+          f"with the planted race (no wait for the set's last replay) "
+          f"{bad:.3e} [runs of {', '.join(f'{r[2]:.3f}' for r in runs.values())} s]")
+    check(good == 0, "rotating windows differ from eager steps")
+    check(bad > 0, "the planted race went unseen")
+
+
+def phase_device_cache(root: str, data: str, dev,
+                       stream_walls: dict) -> None:
+    """Phase 24: the default data mode, the device-resident corpus."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.data.corpus import load_index
+    from chainer_speech_recognition_tpu_torch.data.device_cache import (
+        DeviceCorpusCache)
+    from chainer_speech_recognition_tpu_torch.data.sampler import (
+        BatchLoader, BucketSampler)
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
+
+    t_phase = time.perf_counter()
+    walls = {}
+    for preset, sets in ((PRESET, ()), (LSTM_PRESET, ()),
+                         (CONF_PRESET, ("model.attn_impl=flash",))):
+        walls[preset] = phase_cached_preset(root, data, preset, sets,
+                                            resume=preset != CONF_PRESET)
+    for preset, (step_s, busy) in walls.items():
+        s_step, s_busy = stream_walls[preset]
+        print(f"[cache] {preset}: step {step_s * 1e3:.3f} ms, busy "
+              f"{busy:.4f} (device_cache, graphs) vs {s_step * 1e3:.3f} ms, "
+              f"{s_busy:.4f} (stream, phases 8/13/21 of this run)")
+    # one feature cache for the in-process runs: the three presets share
+    # their buckets and front-end
+    cfg = preset_config(PRESET)
+    utts = load_index(os.path.join(data, "train_index.jsonl"))
+    loader = BatchLoader(utts, Vocab.load(os.path.join(data, "vocab.txt")),
+                         cfg.buckets)
+    cache = DeviceCorpusCache(loader, BucketSampler(utts, cfg.buckets), dev,
+                              features_cfg=cfg.features)
+    plan = [cache.epoch_dispatches(e, CACHE_K)[0] for e in (0, 1)]
+    parts = {"the CLI runs": time.perf_counter() - t_phase}
+    for name, fn in (("replay vs eager", lambda: phase_cached_replay(
+                          dev, cache, plan)),
+                     ("repeatable", lambda: repeatable_gradients(
+                         dev, cache, plan)),
+                     ("PCM", lambda: phase_cached_pcm(data, dev)),
+                     ("rotating", lambda: phase_rotating(root, data))):
+        t0 = time.perf_counter()
+        fn()
+        parts[name] = time.perf_counter() - t0
+    print("[cache] " + ", ".join(f"{k} {v:.3f} s" for k, v in parts.items()))
+    took = time.perf_counter() - t_phase
+    print(f"[cache] phase 24 took {took:.3f} s (budget {CACHE_BUDGET_S} s: "
+          f"{'within' if took <= CACHE_BUDGET_S else 'OVER'})")
+
+
 def main() -> int:
     try:
         import torch
@@ -3265,14 +3839,16 @@ def main() -> int:
                                        DECODE_LAUNCHES[PRESET])
             phase_parity(ckpt, wavs, dev, "parity")
             data = write_corpus(root, rng)
-            train_launches, index = phase_train(root, data, PRESET,
-                                                resume_to=RESUME_STEPS)
+            train_launches, index, walls = phase_train(
+                root, data, PRESET, resume_to=RESUME_STEPS)
+            stream_walls = {PRESET: walls}
             phase_train_parity(dev, index, PRESET)
             lckpt = write_checkpoint(root, LSTM_PRESET, lrng)
             lstm_decode, _ = phase_decode("lstm-decode", lckpt, vocab, wavs,
                                           audio_s, DECODE_LAUNCHES[LSTM_PRESET])
             phase_parity(lckpt, wavs, dev, "lstm-parity")
-            lstm_train, _ = phase_train(root, data, LSTM_PRESET)
+            lstm_train, _, stream_walls[LSTM_PRESET] = phase_train(
+                root, data, LSTM_PRESET)
             phase_train_parity(dev, index, LSTM_PRESET)
             uni_stream = phase_stream(root, vocab, wavs, audio_s, UNI_PRESET,
                                       dev, srng)
@@ -3284,7 +3860,7 @@ def main() -> int:
                 root, vocab, wavs, audio_s, long_wavs, long_s, dev, crng)
             phase_conformer_stream_decode(root, vocab, long_wavs, long_s,
                                           dev, crng)
-            conf_train, _ = phase_train(
+            conf_train, _, stream_walls[CONF_PRESET] = phase_train(
                 root, data, CONF_PRESET,
                 extra_sets=("model.attn_impl=flash",))
             phase_train_parity(dev, index, CONF_PRESET,
@@ -3295,6 +3871,7 @@ def main() -> int:
             timings["beam"], beam_launches = phase_beam(
                 root, ckpt, vocab, wavs, audio_s, dev,
                 np.random.default_rng(SEED + 5))
+            phase_device_cache(root, data, dev, stream_walls)
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]

@@ -123,3 +123,23 @@ def test_plain_recursions_are_the_function_on_cpu():
     (loss * g).sum().backward()
     grad = ctc_beta_grad(lp_ext.detach(), allow2, t_len, lab_len, a2, l2, g)
     torch.testing.assert_close(grad, lp_ext.grad, atol=2e-4, rtol=0)
+
+
+def test_emission_gather_sums_each_class_as_gather_does():
+    """``ctc_inputs``' emission gather: the forward is ``torch.gather``'s,
+    and its backward (an fp64 one-hot product, so the card sums in one
+    order every run) equals ``gather``'s scatter-add backward, the blank
+    and repeated labels each summed into their one class."""
+    logits, _, labels, _, _ = _case(5)
+    lp = torch.log_softmax(torch.from_numpy(logits), -1)
+    ext = tctc.extend_labels(torch.from_numpy(labels))
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (B, T, ext.shape[1])).astype(np.float32))
+    x, y = lp.clone().requires_grad_(), lp.clone().requires_grad_()
+    ours = tctc._EmissionGather.apply(x, ext)
+    ref = torch.gather(y, 2, ext[:, None, :].expand(B, T, ext.shape[1]))
+    assert torch.equal(ours, ref)
+    ours.backward(g)
+    ref.backward(g)
+    torch.testing.assert_close(x.grad, y.grad, atol=1e-6, rtol=1e-6)
+    assert x.grad[..., 0].abs().sum() > 0     # the blank's S/2+1 terms

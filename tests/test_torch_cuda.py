@@ -1213,3 +1213,78 @@ def test_beam_refuses_wide_beams_on_the_card(dev):
             tb._log_probs(logits), torch.tensor([4], device=dev),
             tb.beam_stream_init(1, 2, 9, dev), tb.DeviceLM("dense", 10),
             0.0, 0.0, 1, 4, True)
+
+
+@pytest.mark.parametrize("preset", ["bigru", "bilstm_deep"])
+def test_cached_dispatch_replay_equals_eager_steps(dev, tmp_path, preset):
+    """Two dispatches of K = 8 cached steps (bf16 feature cache, full width,
+    bilstm_deep with SpecAugment): the first runs eagerly and captures the
+    graph, the second is one replay. After it the parameters, Adam moments
+    and counts and the dispatch's metrics equal those of the same 16 steps
+    run eagerly, bitwise, with the default algorithms; two eager runs are
+    bitwise equal too (the CTC emission gather's backward is repeatable).
+    The replay adds each captured launch to the counts."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.data.corpus import load_index
+    from chainer_speech_recognition_tpu_torch.data.device_cache import (
+        DeviceCorpusCache)
+    from chainer_speech_recognition_tpu_torch.data.sampler import (
+        BatchLoader, BucketSampler)
+    from chainer_speech_recognition_tpu_torch.data.synthetic import (
+        write_tone_corpus)
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model, init_parameters)
+    from chainer_speech_recognition_tpu_torch.train.state import init_state
+    from chainer_speech_recognition_tpu_torch.train.step import (
+        make_cached_train_step)
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
+
+    K = 8
+    cfg = preset_config(preset).override({
+        "buckets.boundaries": [256], "buckets.batch_sizes": [8],
+        "optim.warmup_steps": 2})
+    root = str(tmp_path)
+    write_tone_corpus(root, np.random.default_rng(5), {"train": 40},
+                      cfg.model.vocab_size, (1.5, 2.5))
+    utts = load_index(f"{root}/train_index.jsonl")
+    loader = BatchLoader(utts, Vocab.load(f"{root}/vocab.txt"), cfg.buckets)
+    cache = DeviceCorpusCache(loader, BucketSampler(utts, cfg.buckets), dev,
+                              features_cfg=cfg.features)
+    plan = [cache.epoch_dispatches(e, K)[0] for e in (0, 1)]
+
+    def run(eager: bool):
+        model = build_model(cfg.model)
+        init_parameters(model, 0)
+        model.to(dev)
+        state = init_state(model, cfg.optim, 0)
+        step = make_cached_train_step(model, cfg, cache, K, _eager=eager)
+        assert step.graphs == (not eager)
+        ms = []
+        for bid, slots in plan:
+            before = _kernels.launches()
+            ms.append(step(state, bid, torch.from_numpy(slots).to(dev)))
+            after = _kernels.launches()
+            ms[-1]["launches"] = {k: after[k] - before[k] for k in after}
+        torch.cuda.synchronize()
+        return state, ms
+
+    def gap(a, b) -> float:
+        (sa, ma), (sb, mb) = a, b
+        out = [float((x.float() - y.float()).abs().max()) for x, y in zip(
+            sa.model.state_dict().values(), sb.model.state_dict().values())]
+        for key in ("mu", "nu"):
+            ta, tb = sa.opt_state["1"]["0"][key], sb.opt_state["1"]["0"][key]
+            out += [float((ta[k] - tb[k]).abs().max()) for k in ta]
+        out += [abs(float(x[k]) - float(y[k])) for x, y in zip(ma, mb)
+                for k in ("loss", "grad_norm", "valid_frac")]
+        return max(out)
+
+    e1, e2, g = run(True), run(True), run(False)
+    assert int(g[0].opt_state["1"]["0"]["count"]) == 2 * K
+    assert g[0].step == e1[0].step == 2 * K
+    # the replay counts what eager steps launch
+    assert g[1][1]["launches"] == e1[1][1]["launches"]
+    assert g[1][1]["launches"][f"{cfg.model.rnn_type}_bwd"] == \
+        K * cfg.model.rnn_layers
+    assert gap(e1, e2) == 0
+    assert gap(g, e1) == 0

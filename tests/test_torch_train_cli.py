@@ -2,8 +2,9 @@
 events of the reference's loop, checkpoints and resume, the profiler
 window, a cut ``bilstm_deep`` with SpecAugment on, training from the
 packed corpus (``train.pack``: the same losses as from the wavs), the
-dev eval's beam and beam+LM columns, and the refusals (data modes and
-model blocks that are not ported, a file that is not a pack, no card for
+dev eval's beam and beam+LM columns, the default data mode (the device
+cache, and rotating windows under a small budget), and the refusals
+(model blocks that are not ported, a file that is not a pack, no card for
 ``--device cuda``, data parallelism)."""
 
 import json
@@ -98,14 +99,37 @@ def test_cli_trains_bilstm_deep_with_specaugment(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("sets,match", [
-    ([], "GPU-resident corpus cache"),              # auto → device_cache
-    (["train.data_mode=rotating"], "train.data_mode=stream"),
     (["train.data_mode=stream", "model.glu_blocks=2"], "GLU"),
     (["train.data_mode=stream", "parallel.num_devices=2"], "parallelism"),
 ])
 def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, sets, match):
     with pytest.raises(NotImplementedError, match=match):
         _run(data_dir, tmp_path, *sets)
+
+
+@pytest.mark.parametrize("sets,mode", [
+    ([], "device_cache"),                       # auto: the corpus fits
+    (["train.device_cache_budget_gb=1e-5"], "rotating"),
+])
+def test_cli_trains_in_the_default_data_mode(data_dir, tmp_path, sets,
+                                             mode):
+    """With no ``train.data_mode`` the CLI trains from the device-resident
+    corpus (the bf16 feature cache, K = 8 steps a dispatch; eager on the
+    CPU) or, under a budget too small for it, from rotating windows; the
+    step advances by K a dispatch, and logging, dev eval and checkpoints
+    land where a dispatch crosses their cadence."""
+    ev = _run(data_dir, tmp_path, *sets, "train.total_steps=12",
+              "train.log_every=4", "train.eval_every=10",
+              "train.checkpoint_every=10")
+    dm = [e for e in ev if e["kind"] == "data_mode"][0]
+    assert dm["mode"] == mode and dm["steps_per_dispatch"] == 8
+    assert dm["cache_features"] and not dm["graphs"]
+    train = [e for e in ev if e["kind"] == "train"]
+    assert [e["step"] for e in train] == [8, 16]
+    assert all(np.isfinite(e["loss"]) and e["grad_norm"] > 0 for e in train)
+    assert [e["step"] for e in ev if e["kind"] == "eval"] == [16]
+    assert list_checkpoints(str(tmp_path / "ckpt")) == [
+        "step_00000016.msgpack"]
 
 
 def test_cli_refuses_packed_corpus_and_missing_card(data_dir, tmp_path,

@@ -10,7 +10,8 @@ on one CUDA card: ``python3 tools/parity_runs.py [--out DIR]``.
    ``preprocess --dev-fraction 0.1 --pack``;
 3. run 1, the greedy gate (PARITY.md §3): ``train --preset bigru``,
    buckets {1024: 16, 1536: 8}, max_label_len 160, 2,500 steps, eval every
-   250, ``train.data_mode=stream`` (the port has no device cache), then
+   250, the default data mode (the bf16 device cache, 8 steps a
+   CUDA-graph replay: 2,504 steps), then
    ``evaluate``: dev CER ≤ 0.015;
 4. run 2, the streaming gate (§3d): the same with
    ``features.cmvn_mode=causal``, then ``evaluate`` (offline, ≤ 0.015) and
@@ -48,13 +49,13 @@ CORPUS = ["--style", "confusable", "--utts", "2000", "--vocab", "82",
           "--min-labels", "50", "--max-labels", "150", "--seed", "20260816"]
 TRAIN_SETS = ["buckets.boundaries=[1024,1536]", "buckets.batch_sizes=[16,8]",
               "buckets.max_label_len=160", "train.total_steps=2500",
-              "train.eval_every=250", "train.data_mode=stream"]
+              "train.eval_every=250"]
 SMOKE_CORPUS = ["--style", "confusable", "--utts", "24", "--vocab", "82",
                 "--min-labels", "10", "--max-labels", "20",
                 "--min-seconds", "2", "--max-seconds", "4", "--seed", "1"]
 SMOKE_SETS = ["buckets.boundaries=[512]", "buckets.batch_sizes=[8]",
               "buckets.max_label_len=40", "train.total_steps=10",
-              "train.eval_every=10", "train.data_mode=stream"]
+              "train.eval_every=10"]
 GATES = {"run1": 0.015, "run2_offline": 0.015, "run2_streaming": 0.020}
 LM_RATIO = 0.6           # PARITY.md §3: beam K=8 + 3-gram edits / greedy's
 BEAM_ARGS = ["--beam", "8", "--lm-alpha", "0.5", "--lm-beta", "1.0"]
@@ -102,7 +103,10 @@ def train(out: str, name: str, prep: str, sets: list[str]) -> dict:
     # utt/s of the logged windows after the first (the first one holds the
     # kernel build and the first hit of each bucket)
     rates = [e["utt_per_sec"] for e in steps[1:]]
+    mode = [e for e in ev if e["kind"] == "data_mode"]
     res = {"ckpt": ckpt, "steps": steps[-1]["step"] if steps else 0,
+           "data_mode": {k: v for k, v in mode[0].items()
+                         if k not in ("kind", "t")} if mode else None,
            "train_wall_s": wall,
            "train_utt_per_s_median": statistics.median(rates) if rates
            else None,
