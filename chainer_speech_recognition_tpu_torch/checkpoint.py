@@ -16,7 +16,9 @@ tree, ``opt_state`` as ``to_state_dict`` of optax's state, ``step`` and
 ``rng`` — so the reference's ``restore_checkpoint`` (and its evaluate and
 decode CLIs) load a port checkpoint, and ``restore_checkpoint`` resumes
 the port from either package's checkpoints. Writes are write-to-temp +
-rename; the last ``keep`` checkpoints are kept.
+rename; the last ``keep`` checkpoints are kept. In a data-parallel run
+(``parallel/mesh.py``) rank 0 alone writes, the other ranks wait for it
+at a barrier, and every rank reads on resume.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 from .bridge import (load_flax_params, opt_state_from_flax, opt_state_to_flax,
                      state_dict_to_flax)
 from .config import Config
+from .parallel.mesh import barrier
 from .train.state import copy_into
 
 _CKPT_RE = re.compile(r"^step_(\d{8,})\.msgpack$")
@@ -298,25 +301,36 @@ def save_params(ckpt_dir: str, params: dict, config: Config,
 
 
 def save_checkpoint(ckpt_dir: str, state, config: Config,
-                    keep: int = 3) -> str:
+                    keep: int = 3, mesh=None) -> str:
     """Write ``state`` (``train/state.TrainState``) as
     ``step_XXXXXXXX.msgpack``, rewrite ``config.json``, and delete all but
-    the newest ``keep`` checkpoints."""
+    the newest ``keep`` checkpoints. Over a ``mesh`` (the state is
+    replicated) rank 0 writes and every rank returns after the write."""
     if keep < 1:
         raise ValueError(f"keep={keep}: must retain at least the checkpoint "
                          "just written")
+    path = os.path.join(ckpt_dir, f"step_{state.step:08d}.msgpack")
+    if mesh is not None and mesh.distributed:
+        if mesh.is_writer:
+            _write_state(ckpt_dir, path, state, config, keep)
+        barrier(mesh)
+        return path
+    _write_state(ckpt_dir, path, state, config, keep)
+    return path
+
+
+def _write_state(ckpt_dir: str, path: str, state, config: Config,
+                 keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     tree = {"params": {"params": state_dict_to_flax(state.model.state_dict())},
             "opt_state": opt_state_to_flax(state.opt_state),
             "step": np.asarray(state.step, np.int32),
             "rng": np.asarray(state.rng, np.uint32)}
-    path = os.path.join(ckpt_dir, f"step_{state.step:08d}.msgpack")
     _write_atomic(path, msgpack_serialize(tree))
     _write_atomic(os.path.join(ckpt_dir, "config.json"),
                   config.to_json().encode())
     for old in list_checkpoints(ckpt_dir)[:-keep]:
         os.remove(os.path.join(ckpt_dir, old))
-    return path
 
 
 def restore_checkpoint(path: str, state) -> None:

@@ -1,5 +1,5 @@
 """Evaluate CLI: checkpoint → dev/test CER (port of ``cli/evaluate.py``),
-on one card (default) or the CPU.
+on every visible card (default) or the CPU.
 
 Reconstructs the training config (front-end included) from the checkpoint
 directory's frozen config.json, scores each ``--index`` set (a JSONL
@@ -15,9 +15,18 @@ device (``--tune-chunk`` batches at a time); ``--streaming`` scores the
 set through the online recognizer (``decode/streaming.py``, greedy or
 beam) instead, and prints ``CER[streaming] …`` with its buffering. The
 checkpoint load's time and each set's utt/s go to stderr, so stdout
-compares line by line with the reference's. The mesh-sharded evaluation
-of the reference waits for data parallelism (ROADMAP.md, module queue:
-config 5); the port evaluates on one device.
+compares line by line with the reference's.
+
+With more than one visible card the CLI evaluates on all of them, one
+rank a card (``parallel/mesh.launch``; under ``torchrun``, or inside a
+process group the caller made, on that group's ranks), over a 1-D mesh
+whatever mesh the checkpoint was trained on. When every bucket's batch
+splits evenly over the ranks, each rank runs the forward of its rows and
+the beam decodes its rows (``--beam``/``--lm``), and ``--streaming`` runs
+each rank's segment of the lockstep streams when ``--stream-batch`` splits
+too; else every rank evaluates the whole set, as one card would. Every
+rank scores the gathered results; rank 0 alone prints and writes
+``--hyp-out``.
 
     python -m chainer_speech_recognition_tpu_torch.cli.evaluate \\
         --ckpt-dir CKPT --data-dir prep --index dev_index.jsonl,dev.pack
@@ -26,12 +35,15 @@ config 5); the port evaluates on one device.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import os
 import sys
 import time
 
 import torch
 
+from ..checkpoint import load_config
 from ..data.corpus import load_index, load_signal
 from ..data.packed import PackedBatchLoader, PackedCorpus
 from ..data.sampler import BatchLoader, BucketSampler
@@ -39,8 +51,9 @@ from ..decode.beam import beam_decode
 from ..decode.lm import NGramLM, device_lm
 from ..decode.metrics import CERAccumulator
 from ..decode.streaming import StreamingRecognizer, decode_lockstep
-from ..train.loop import evaluate_multi, to_device
-from ..train.step import make_eval_step
+from ..parallel.mesh import launch, make_mesh, visible_devices
+from ..train.loop import evaluate_multi
+from ..train.step import make_auto_eval
 from ..utils.wav import read_wav
 from ..vocab import Vocab
 from .common import parse_overrides, resolve_device
@@ -109,10 +122,32 @@ def main(argv=None):
                         "knobs attn_impl / attn_residual_dtype / rnn_impl")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
+    launch(_evaluate, visible_devices(device), device, args)
 
+
+def _evaluate(device, args) -> None:
+    """The evaluation on this rank: a 1-D mesh over the ranks whatever
+    the training mesh was (the frozen num_devices and dcn_slices do not
+    apply); rank 0 alone prints and writes."""
+    mesh = make_mesh(dataclasses.replace(
+        load_config(args.ckpt_dir).parallel, num_devices=0, dcn_slices=1),
+        device)
+    with contextlib.ExitStack() as stack:
+        if not mesh.is_writer:
+            quiet = stack.enter_context(open(os.devnull, "w"))
+            stack.enter_context(contextlib.redirect_stdout(quiet))
+            stack.enter_context(contextlib.redirect_stderr(quiet))
+        _score(device, args, mesh)
+
+
+def _score(device, args, mesh) -> None:
     t0 = time.perf_counter()
     cfg, model, path = load_model(args.ckpt_dir, args.average_last,
                                   parse_overrides(args.set), device)
+    writer = mesh.is_writer
+    # the one place that decides whether the rows split over the ranks
+    if not all(bs % mesh.size == 0 for bs in cfg.buckets.batch_sizes):
+        mesh = None              # every rank evaluates the whole set
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     load_s = time.perf_counter() - t0
@@ -142,7 +177,7 @@ def main(argv=None):
             f"{cfg.model.preset}: streaming the chunk-causal attention "
             "family is not ported yet (ROADMAP.md, module queue: "
             "conformer_stream streaming); evaluate it offline")
-    eval_fn = make_eval_step(model, cfg)
+    eval_fn = make_auto_eval(model, cfg, mesh)
 
     decode_fn = None                  # None: greedy on the device
     lm_dev = None
@@ -152,7 +187,8 @@ def main(argv=None):
 
         def decode_fn(logits, olens):
             return beam_decode(logits, olens, beam=args.beam, lm=lm_dev,
-                               alpha=args.lm_alpha, beta=args.lm_beta)
+                               alpha=args.lm_alpha, beta=args.lm_beta,
+                               mesh=mesh)
 
     print(f"checkpoint {path}")
     print(f"checkpoint load {load_s:.3f} s", file=sys.stderr)
@@ -208,6 +244,8 @@ def main(argv=None):
                   "exceed the bucket boundaries / max_label_len, NOT scored")
 
         def write_hyps(sink):
+            if not writer:
+                return
             with open(hyp_out, "w", encoding="utf-8") as f:
                 for i, text in sorted(sink):
                     f.write(f"{utts[i].utt_id}\t{text}\n")
@@ -223,7 +261,7 @@ def main(argv=None):
                     right_frames=args.stream_right,
                     decoder="beam" if args.beam > 0 else "greedy",
                     beam=args.beam, lm=lm_dev, lm_alpha=args.lm_alpha,
-                    lm_beta=args.lm_beta)
+                    lm_beta=args.lm_beta, mesh=mesh)
             rec = stream_rec
             acc = CERAccumulator()
             # length-sorted lockstep batches through the feeder that
@@ -260,15 +298,14 @@ def main(argv=None):
             for c0 in range(0, len(batches), Ch):
                 stored = []
                 for bid, idxs, n_valid in batches[c0 : c0 + Ch]:
-                    _, logits, olens = eval_fn(
-                        to_device(loader.load(bid, idxs), device))
+                    _, logits, olens = eval_fn(loader.load(bid, idxs))
                     refs = [utts[int(idxs[i])].text for i in range(n_valid)]
                     stored.append((logits, olens, refs, n_valid, idxs))
                 for ab in grid:
                     for logits, olens, refs, n_valid, idxs in stored:
                         hyps = beam_decode(logits, olens, beam=args.beam,
                                            lm=lm_dev, alpha=ab[0],
-                                           beta=ab[1])
+                                           beta=ab[1], mesh=mesh)
                         texts = [vocab.decode(h) for h in hyps[:n_valid]]
                         accs[ab].add_batch(texts, refs)
                         if sinks is not None:
@@ -292,13 +329,13 @@ def main(argv=None):
             decoders = {
                 "greedy": None,
                 f"beam{args.beam}": (lambda lg, ol: beam_decode(
-                    lg, ol, beam=args.beam)),
+                    lg, ol, beam=args.beam, mesh=mesh)),
             }
             if lm_dev is not None:
                 decoders[f"beam{args.beam}+lm"] = decode_fn
             accs, loss = evaluate_multi(eval_fn, loader,
                                         sampler.eval_batches(), vocab, utts,
-                                        decoders, device, sink=sink,
+                                        decoders, sink=sink,
                                         sink_decoder=list(decoders)[-1])
             for name, acc in accs.items():
                 print(f"{tag}CER[{name}] {acc.cer:.4f} | {acc.num_utts} "
@@ -307,7 +344,7 @@ def main(argv=None):
         else:
             accs, loss = evaluate_multi(eval_fn, loader,
                                         sampler.eval_batches(), vocab, utts,
-                                        {"_": decode_fn}, device, sink=sink,
+                                        {"_": decode_fn}, sink=sink,
                                         sink_decoder="_")
             acc = accs["_"]
             print(f"{tag}CER {acc.cer:.4f} | loss {loss:.4f} | "

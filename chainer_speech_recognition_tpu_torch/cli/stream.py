@@ -186,10 +186,9 @@ def main(argv=None):
     if cfg.model.attn_blocks and cfg.model.attn_chunk:
         raise SystemExit(
             f"{cfg.model.preset}: streaming the chunk-causal attention "
-            "family (its KV-cache and conv-tail carries) is not ported to "
-            "the PyTorch package yet; decode it offline with "
-            "chainer_speech_recognition_tpu_torch.cli.decode, or stream it "
-            "with chainer_speech_recognition_tpu.cli.stream")
+            "family (its KV-cache and conv-tail carries) is not ported yet "
+            "(ROADMAP.md, module queue: conformer_stream streaming); decode "
+            "it offline with chainer_speech_recognition_tpu_torch.cli.decode")
     vocab = Vocab.load(args.vocab)
     if len(vocab) != cfg.model.vocab_size:
         raise SystemExit(

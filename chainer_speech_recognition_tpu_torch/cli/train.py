@@ -1,10 +1,18 @@
 """Train CLI (port of ``cli/train.py``): a preprocessed data directory
 (``train_index.jsonl`` or the packed ``train.pack``, optional
-``dev_index.jsonl``, ``vocab.txt``) → checkpoints, on one card (default)
+``dev_index.jsonl``, ``vocab.txt``) → checkpoints, on the cards (default)
 or the CPU.
 
   python -m chainer_speech_recognition_tpu_torch.cli.train \\
-      --data-dir prep_out --preset bigru --set train.total_steps=20000
+      --data-dir prep_out --preset bigru \\
+      --set train.total_steps=20000 parallel.num_devices=4
+
+``parallel.num_devices`` N > 1 trains data-parallel on N ranks that the
+CLI starts itself (``parallel/mesh.launch``): one card each in an NCCL
+group, or, with ``--device cpu``, N CPU processes in a gloo group; 0 (the
+default) takes every visible card, and one process on the CPU. Under
+``torchrun`` the CLI is the rank that the environment names. Rank 0 writes
+the metrics and checkpoints.
 
 Where ``train.pack`` exists (``preprocess --pack``) the training batches
 come from it (``PackedBatchLoader``: memmap reads, int16 PCM). The default
@@ -24,6 +32,7 @@ import torch
 
 from ..data.corpus import load_index
 from ..data.packed import PackedBatchLoader, PackedCorpus
+from ..parallel.mesh import launch, visible_devices
 from ..train.loop import train
 from ..vocab import Vocab
 from .common import add_config_args, load_config, resolve_device
@@ -56,6 +65,12 @@ def main(argv=None):
     cfg = cfg.override({"model.vocab_size": len(vocab)})
     if args.ckpt_dir:
         cfg = cfg.override({"train.checkpoint_dir": args.ckpt_dir})
+    launch(_rank_main, cfg.parallel.num_devices or visible_devices(device),
+           device, cfg, vocab, args)
+
+
+def _rank_main(device, cfg, vocab, args) -> None:
+    """One rank's training run (the whole run without data parallelism)."""
     loader = None
     pack_prefix = os.path.join(args.data_dir, "train")
     if os.path.exists(pack_prefix + ".pack"):

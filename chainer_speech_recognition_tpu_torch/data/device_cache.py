@@ -16,10 +16,13 @@ corpus crosses to the card once, and each training dispatch sends only its
   reads the other. Row counts are fixed a bucket, so a CUDA graph captured
   on a set is replayed on every window that set holds.
 
-The layout keeps the reference's device-major rows and per-device slot
-segments for ``n`` devices; the port trains on one (``n = 1``), so data
-parallelism can extend it. The slot draws are the reference's, so the
-data order equals its order on a one-device mesh.
+Over a data-parallel mesh of ``n`` ranks (``parallel/mesh.py``) each
+rank builds only its own shard, the reference's device d: rows d, d+n,
+d+2n, ... of each bucket. Every rank draws the same slot plan from the
+same seed (segment d of each [B] slot vector indexes device d's rows),
+rotating windows advance in lockstep, and the budget is a device's. The
+slot draws are the reference's, so the data order equals its order on a
+mesh of the same size.
 """
 
 from __future__ import annotations
@@ -99,21 +102,25 @@ def _build_features(sig: torch.Tensor, num: torch.Tensor, features_cfg,
 class DeviceCorpusCache:
     """Per-bucket device-resident padded corpus.
 
-    ``buckets[bid]`` is a dict of tensors on ``device``, rows device-major:
-      PCM mode:     signals_i16 [n·R, S] int16, num_samples [n·R] int32
-      feature mode: features [n·R, T, n_mels, 3] cache_dtype,
-                    frame_lengths [n·R] int32
-      both:         labels [n·R, L] int32, label_lengths [n·R] int32
+    ``buckets[bid]`` is a dict of tensors on ``device``: this rank's R
+    rows (device d of the reference's device-major layout, R the largest
+    device's count; the shorter ones pad with rows never sampled):
+      PCM mode:     signals_i16 [R, S] int16, num_samples [R] int32
+      feature mode: features [R, T, n_mels, 3] cache_dtype,
+                    frame_lengths [R] int32
+      both:         labels [R, L] int32, label_lengths [R] int32
     ``epoch_batches`` gives device-local slot ids: segment d of each [B]
-    vector indexes device d's rows."""
+    vector indexes device d's rows, so rank d trains on its segment
+    (``parallel.mesh.dispatch_rows``)."""
 
     FE_CHUNK = 32          # rows a front-end call at build time
     PUT_ROWS = 256         # rows a host load chunk (bounds host RAM)
 
     def __init__(self, loader, sampler: BucketSampler, device,
                  seed: int = 0, features_cfg=None,
-                 cache_dtype: str = "bfloat16"):
-        self.n = 1                  # devices: the port trains on one
+                 cache_dtype: str = "bfloat16", mesh=None):
+        self.n = 1 if mesh is None else mesh.size
+        self.rank = 0 if mesh is None else mesh.rank
         self.seed = seed
         self.shapes = sampler.shapes
         self.device = torch.device(device)
@@ -133,21 +140,18 @@ class DeviceCorpusCache:
                 for l in local])                        # [n, R]
             host: dict | None = None
             for r0 in range(0, R, self.PUT_ROWS):
-                sel = padded[:, r0:r0 + self.PUT_ROWS]          # [n, w]
-                part = loader.load(bid, sel.reshape(-1))
+                sel = padded[self.rank, r0:r0 + self.PUT_ROWS]  # this rank's
+                part = loader.load(bid, sel)
                 arrs = {"signals_i16": _to_int16(part),
                         "num_samples": part["num_samples"].astype(np.int32),
                         "labels": part["labels"],
                         "label_lengths": part["label_lengths"]}
                 if host is None:
-                    host = {k: _host_buffer((self.n * R,) + v.shape[1:],
-                                            v.dtype, pinned)
+                    host = {k: _host_buffer((R,) + v.shape[1:], v.dtype,
+                                            pinned)
                             for k, v in arrs.items()}
-                w = sel.shape[1]
                 for k, v in arrs.items():
-                    # device d owns rows [d·R, (d+1)·R)
-                    host[k].numpy().reshape((self.n, R) + v.shape[1:])[
-                        :, r0:r0 + w] = v.reshape((self.n, w) + v.shape[1:])
+                    host[k].numpy()[r0:r0 + len(sel)] = v
             dev = {k: v.to(self.device, non_blocking=True)
                    for k, v in host.items()}
             if features_cfg is not None:
@@ -238,8 +242,11 @@ class RotatingDeviceCache:
 
     def __init__(self, loader, sampler: BucketSampler, budget_bytes: int,
                  device, seed: int = 0, features_cfg=None,
-                 cache_dtype: str = "bfloat16"):
-        self.n = 1                  # devices: the port trains on one
+                 cache_dtype: str = "bfloat16", mesh=None):
+        """``budget_bytes`` is the whole mesh's: a device's budget times
+        the ranks (as the reference's loop passes it)."""
+        self.n = 1 if mesh is None else mesh.size
+        self.rank = 0 if mesh is None else mesh.rank
         self.seed = seed
         self.loader = loader
         self.shapes = sampler.shapes
@@ -354,7 +361,7 @@ class RotatingDeviceCache:
         bufs = self._sets[s].get(bid)
         if bufs is None:
             dev = self.device
-            R = self.n * self.rows_per_window[bid]
+            R = self.rows_per_window[bid]          # this rank's rows
             shape = self.shapes[bid]
             labels = {
                 "labels": torch.empty(host["labels"].shape, dtype=torch.int32,
@@ -399,7 +406,7 @@ class RotatingDeviceCache:
             for bid, mat in rows.items():
                 if int(counts[bid].max()) == 0:
                     continue     # the plan dispatches no batch of it here
-                host = self.loader.load(bid, mat.reshape(-1))
+                host = self.loader.load(bid, mat[self.rank])
                 arrs = {"signals_i16": _to_int16(host),
                         "num_samples": host["num_samples"].astype(np.int32),
                         "labels": host["labels"],

@@ -43,6 +43,7 @@ import torch
 from .. import _kernels
 from ..constants import BLANK_ID
 from ..ops.beam_cuda import beam_chunk_cuda
+from ..parallel.mesh import all_gather_rows, row_segment
 from .lm import _CTX_MOD2, _CTX_MULT2, HashedLM, NGramLM
 
 LOG_ZERO = -1.0e30
@@ -479,30 +480,45 @@ def _log_probs(logits, device=None) -> torch.Tensor:
     return torch.log_softmax(x.to(torch.float32), dim=-1).contiguous()
 
 
-def _beam_call(logits, lengths, beam, max_len, lm, alpha, beta, keep):
+def _beam_call(logits, lengths, beam, max_len, lm, alpha, beta, keep,
+               mesh=None):
     """Offline beam over a batch → (chars [B, keep, max_len] int32 with -1
     pads, counts [B, keep], final [B, K] best-first), on the logits'
-    device."""
+    device. Over a ``mesh`` of n ranks with B % n == 0 (reference
+    ``_sharded_beam``) each rank decodes its own rows and the results
+    are gathered back in the global order: identical, since rows decode
+    independently."""
     B, T, V = logits.shape
     _check_sizes(V, T)
     if beam < 1:
         raise ValueError(f"beam width must be >= 1, got {beam}")
+    lengths = torch.as_tensor(np.asarray(lengths) if not torch.is_tensor(
+        lengths) else lengths)
+    sharded = mesh is not None and mesh.size > 1 and B % mesh.size == 0
+    if sharded:
+        seg = row_segment(mesh, B)
+        logits, lengths = logits[seg], lengths[seg]
+        B = logits.shape[0]
     lp = _log_probs(logits)
     dlm = lm_on_device(lm, V, lp.device)
     state = beam_stream_init(B, beam, dlm.ctx_len, lp.device)
-    lengths = torch.as_tensor(np.asarray(lengths) if not torch.is_tensor(
-        lengths) else lengths).to(device=lp.device, dtype=torch.int32)
+    lengths = lengths.to(device=lp.device, dtype=torch.int32)
     chars, counts, _, final, _ = beam_chunk(lp, lengths, state, dlm, alpha,
                                             beta, keep, max_len, True)
+    if sharded:
+        chars, counts, final = (all_gather_rows(mesh, x.contiguous())
+                                for x in (chars, counts, final))
     return chars, counts, final
 
 
 def beam_decode(logits, lengths, beam: int = 8, lm=None,
                 alpha: float = 0.5, beta: float = 1.0,
-                max_len: int | None = None):
+                max_len: int | None = None, mesh=None):
     """Batched prefix beam. logits [B, T, V] (a tensor on the decode
     device, or numpy for the CPU), lengths [B] → the best prefix of each
-    utterance as a list of ids.
+    utterance as a list of ids; with a ``mesh`` (``parallel/mesh.py``) of
+    n ranks and B % n == 0, each rank decodes its rows and every rank
+    returns the whole batch's.
 
     ``lm``: None, an ``NGramLM`` (densified automatically), a (dense
     table [C, V], order) pair, or a ``HashedLM`` (``decode/lm.device_lm``
@@ -510,7 +526,7 @@ def beam_decode(logits, lengths, beam: int = 8, lm=None,
     enough the result is ``beam_decode_reference``'s."""
     max_len = max_len or logits.shape[1]
     chars, counts, _ = _beam_call(logits, lengths, beam, max_len, lm, alpha,
-                                  beta, keep=1)
+                                  beta, keep=1, mesh=mesh)
     chars, counts = chars.cpu().numpy(), counts.cpu().numpy()
     return [chars[b, 0, : counts[b, 0]].tolist()
             for b in range(chars.shape[0])]
@@ -518,18 +534,19 @@ def beam_decode(logits, lengths, beam: int = 8, lm=None,
 
 def beam_decode_nbest(logits, lengths, beam: int = 8, lm=None,
                       alpha: float = 0.5, beta: float = 1.0,
-                      max_len: int | None = None):
+                      max_len: int | None = None, mesh=None):
     """n-best variant: → (pfx [B, K, max_len], plen [B, K], scores [B, K])
-    numpy arrays, best first."""
+    numpy arrays, best first (rows split over ``mesh`` as in
+    ``beam_decode``)."""
     max_len = max_len or logits.shape[1]
     chars, counts, final = _beam_call(logits, lengths, beam, max_len, lm,
-                                      alpha, beta, keep=beam)
+                                      alpha, beta, keep=beam, mesh=mesh)
     return chars.cpu().numpy(), counts.cpu().numpy(), final.cpu().numpy()
 
 
 def beam_decode_stream(batches, beam: int = 8, lm=None,
                        alpha: float = 0.5, beta: float = 1.0,
-                       max_len: int | None = None):
+                       max_len: int | None = None, mesh=None):
     """Beam decode over an iterable of (logits, lengths) pairs — the bulk
     path (dev-set eval, corpus transcription). Yields one list of
     per-utterance id lists per input batch, in input order. (The
@@ -537,7 +554,7 @@ def beam_decode_stream(batches, beam: int = 8, lm=None,
     each batch is one launch and one small copy back.)"""
     for logits, lengths in batches:
         yield beam_decode(logits, lengths, beam=beam, lm=lm, alpha=alpha,
-                          beta=beta, max_len=max_len)
+                          beta=beta, max_len=max_len, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

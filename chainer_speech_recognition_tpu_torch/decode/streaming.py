@@ -42,8 +42,15 @@ How each component streams, as in the reference:
 
 The host code (``stream_geometry``, ``decode_lockstep``, ``accept``,
 ``flush``, endpointing, ``_trim``, ``_assemble``) is the reference's,
-line for line. Mesh-sharded streams (``mesh``) wait for data parallelism
-and raise.
+line for line.
+
+Over a data-parallel mesh (``mesh=``, ``parallel/mesh.py``; config 5
+extended to online serving), when the lockstep batch splits evenly each
+rank runs the window's device math (front-end, CMVN, model, with their
+carries) on its own segment of the streams, and the window logits are
+gathered back in the global order, so the decoder (greedy or the chunk
+beam, replicated as in the reference) and the host state see the whole
+batch on every rank: each rank returns what one device returns.
 
 Latency = (chunk_frames + right_frames) × 10 ms of audio buffering plus
 one window of compute; throughput scales with the lockstep batch.
@@ -60,6 +67,7 @@ from .. import constants as C
 from ..constants import BLANK_ID
 from ..frontend.cuda_frontend import fused_logmel_rows
 from ..frontend.torch_frontend import _delta, cmvn_causal
+from ..parallel.mesh import all_gather_rows, row_segment
 from .beam import BeamStreamDecoder
 
 _D = 2 * C.DELTA_WINDOW          # logmel margin the Δ/ΔΔ stack needs (4)
@@ -236,10 +244,6 @@ class StreamingRecognizer:
             raise ValueError(f"decoder={decoder!r}: expected greedy|beam")
         self._decoder = decoder
         self._beam_args = (beam, lm, lm_alpha, lm_beta)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded streaming is not ported yet (ROADMAP.md, "
-                "module queue item 6, config 5: data parallelism)")
         # CTC endpointing: an utterance ends once the argmax has been
         # blank for >= endpoint_ms of audio (checked at chunk granularity)
         # — the finished segment lands in ``self.segments`` and the
@@ -258,6 +262,9 @@ class StreamingRecognizer:
         self.model, self.cfg = model, cfg
         self.device = model.output.weight.device
         self.batch = batch
+        self._mesh = (mesh if mesh is not None and mesh.size > 1
+                      and batch % mesh.size == 0 else None)
+        self._rows = row_segment(self._mesh, batch)   # this rank's streams
         g = stream_geometry(model, chunk_frames, right_frames, left_margin)
         self.geo = g
         s = g["s"]
@@ -285,6 +292,9 @@ class StreamingRecognizer:
                 self.model, ext, frame_valid,
                 None if self._first else self._cmvn, self._rnn,
                 use_cmvn=self._use_cmvn, **args)
+            if self._mesh is not None:   # this rank's streams → all
+                logits = all_gather_rows(self._mesh, logits)
+                lens = all_gather_rows(self._mesh, lens)
             if self._beamdec is not None:
                 C_s = self._C_s
                 n = torch.clamp(lens, 0, C_s)
@@ -314,7 +324,9 @@ class StreamingRecognizer:
         self.segments: list[list[tuple[list[int], int]]] = \
             [[] for _ in range(B)]       # (ids, end 10ms-frame) per utt
         self._cmvn = None                # device carry after first window
-        self._rnn = self.model.init_stream_carries(B)
+        # the model's carries hold this rank's streams only
+        self._rnn = self.model.init_stream_carries(
+            self._rows.stop - self._rows.start)
         self._prev = torch.full((B,), BLANK_ID, dtype=torch.int32,
                                 device=self.device)
         self._out: list[list[int]] = [[] for _ in range(B)]
@@ -428,8 +440,9 @@ class StreamingRecognizer:
             else:
                 fv = np.full((self.batch,), W_lm, np.int64)
             ids, out, n = self._step(
-                torch.from_numpy(ext).to(self.device),
-                torch.from_numpy(fv.astype(np.int64)).to(self.device))
+                torch.from_numpy(ext[self._rows]).to(self.device),
+                torch.from_numpy(fv[self._rows].astype(np.int64)).to(
+                    self.device))
             if self._beamdec is not None:
                 # tokens finalize when every live beam agrees on them
                 for b, kept in enumerate(self._beamdec.step(out, n)):
@@ -487,7 +500,11 @@ class StreamingRecognizer:
         # next utterance starts fresh: model stream state + greedy repeat
         # carry reset (causal-CMVN stats continue — same channel)
         idx = torch.from_numpy(rows).to(self.device)
-        self._rnn = self.model.reset_stream_rows(self._rnn, idx)
+        r = self._rows                   # the model's carries: local rows
+        local = rows[(rows >= r.start) & (rows < r.stop)] - r.start
+        if local.size:
+            self._rnn = self.model.reset_stream_rows(
+                self._rnn, torch.from_numpy(local).to(self.device))
         self._prev = self._prev.index_fill(0, idx, BLANK_ID)
 
     def _trim(self) -> None:

@@ -28,11 +28,15 @@ import torch
 from ..config import SpecAugmentConfig
 
 
-def step_generator(rng, step: int) -> torch.Generator:
-    """A CPU generator determined by the train state's ``rng`` (uint32[2])
-    and ``step``."""
+def step_generator(rng, step: int, rank: int = 0) -> torch.Generator:
+    """A CPU generator determined by the train state's ``rng`` (uint32[2]),
+    ``step`` and the data-parallel ``rank`` (folded in above 0, so rank 0
+    draws what one device draws)."""
     words = [int(x) for x in np.asarray(rng, np.uint32).ravel()]
-    seed = np.random.SeedSequence(words + [int(step)]).generate_state(
+    words.append(int(step))
+    if rank:
+        words.append(int(rank))
+    seed = np.random.SeedSequence(words).generate_state(
         1, np.uint64)[0]
     return torch.Generator().manual_seed(int(seed) & (2**63 - 1))
 

@@ -1,8 +1,18 @@
-"""Host-side training loop (port of ``train/loop.py``, one device): feeds
-the train step in one of the reference's data modes, with structured
-metrics, periodic dev evaluation (greedy, plus the ``train.eval_beam`` and
+"""Host-side training loop (port of ``train/loop.py``): feeds the train
+step in one of the reference's data modes, with structured metrics,
+periodic dev evaluation (greedy, plus the ``train.eval_beam`` and
 ``train.eval_lm`` columns), keep-N checkpoints and exact resume (data
 order included).
+
+Data parallelism (config 5): every rank of the process group runs this
+loop on its own device over the same plan (``parallel/mesh.make_mesh``;
+the bucket batch sizes must divide over the ranks). Each rank trains on
+its segment of every global batch: its own rows in stream mode, its own
+shard of the corpus in the cached modes. The parameters and moments are
+broadcast from rank 0 after init or resume, the dev eval splits its rows
+over the ranks and gathers the results in the global order, and rank 0
+alone writes the metrics, the logs and the checkpoints while the others
+wait at a barrier.
 
 ``_resolve_data_mode`` picks the mode as the reference does:
 
@@ -28,6 +38,7 @@ import concurrent.futures
 import os
 import signal
 import time
+from contextlib import ExitStack
 
 import numpy as np
 import torch
@@ -46,11 +57,13 @@ from ..decode.lm import NGramLM, device_lm
 from ..decode.metrics import CERAccumulator
 from ..models.presets import build_model, init_parameters
 from ..ops.ctc import LOG_ZERO
+from ..parallel.mesh import (any_rank, broadcast_, dispatch_rows, make_mesh,
+                             row_segment)
 from ..vocab import Vocab
 from .metrics import MetricsLogger
 from .state import init_state
-from .step import (check_trainable, make_cached_train_step, make_eval_step,
-                   make_train_step)
+from .step import (make_auto_eval, make_cached_train_step, make_train_step,
+                   to_device)
 
 
 def _resolve_data_mode(cfg: Config, sampler: BucketSampler,
@@ -76,36 +89,21 @@ def _resolve_data_mode(cfg: Config, sampler: BucketSampler,
     return mode
 
 
-def to_device(batch: dict, device: torch.device) -> dict:
-    """Host batch (numpy) → tensors on ``device`` in their host dtypes (a
-    packed batch's ``signals_i16`` crosses as int16 and becomes float32 on
-    the device, ``step._features``); on the card through pinned memory, so
-    the copy does not wait for the steps in flight."""
-    out = {}
-    for k, v in batch.items():
-        if k == "bucket_id":
-            continue
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t
-    return out
-
-
 def _greedy_fn(logits, olens) -> list:
     ids, out_lens = greedy_decode(logits, olens)
     ids, out_lens = ids.cpu().numpy(), out_lens.cpu().numpy()
     return [ids[i, : out_lens[i]] for i in range(ids.shape[0])]
 
 
-def evaluate_multi(eval_step, loader: BatchLoader, batches, vocab: Vocab,
-                   utts, decoders: dict, device: torch.device,
-                   sink: list | None = None,
+def evaluate_multi(eval_fn, loader: BatchLoader, batches, vocab: Vocab,
+                   utts, decoders: dict, sink: list | None = None,
                    sink_decoder: str | None = None):
     """One forward pass per batch, scored by SEVERAL decoders at once
     (the reference's ``evaluate_multi``, e.g. {"greedy": None, "beam8":
     fn, "beam8+lm": fn}; decoder value None = greedy on the device, fn
-    (logits, olens) → id lists otherwise). Only the ``n_valid`` real
+    (logits, olens) → id lists otherwise). ``eval_fn`` takes the host
+    batch (``step.make_auto_eval``: over a mesh each rank runs its rows,
+    and every rank scores the gathered batch). Only the ``n_valid`` real
     rows of a padded batch are scored, and the mean loss leaves out the
     samples with no alignment (the ``-LOG_ZERO`` sentinel). Returns
     ({name: CERAccumulator}, mean_loss). When ``sink`` is a list,
@@ -116,8 +114,7 @@ def evaluate_multi(eval_step, loader: BatchLoader, batches, vocab: Vocab,
     for entry in batches:
         bid, idxs = entry[0], entry[1]
         n_valid = entry[2] if len(entry) > 2 else len(idxs)
-        losses, logits, olens = eval_step(
-            to_device(loader.load(bid, idxs), device))
+        losses, logits, olens = eval_fn(loader.load(bid, idxs))
         refs = [utts[int(idxs[i])].text for i in range(n_valid)]
         for name, fn in decoders.items():
             hyps = (_greedy_fn if fn is None else fn)(logits, olens)
@@ -144,24 +141,73 @@ def _slots_to(slots: np.ndarray, device: torch.device) -> torch.Tensor:
     return t
 
 
+def _state_tensors(state) -> list:
+    """Every tensor of the replicated state: parameters, buffers, moments
+    and counts."""
+    out = list(state.model.state_dict().values())
+
+    def walk(d):
+        for v in d.values():
+            if isinstance(v, dict):
+                walk(v)
+            else:
+                out.append(v)
+
+    walk(state.opt_state)
+    return out
+
+
+def _local_batches(mesh, batches) -> list:
+    """This rank's rows of each global (bucket_id, idxs, n_valid) batch;
+    its real rows are those of the global batch's first n_valid in its
+    segment."""
+    out = []
+    for bid, idxs, n_valid in batches:
+        seg = row_segment(mesh, len(idxs))
+        out.append((bid, idxs[seg],
+                    int(np.clip(n_valid - seg.start, 0, len(idxs[seg])))))
+    return out
+
+
 def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
           dev_utts: list[Utterance] | None = None,
           metrics_path: str | None = None, resume: bool = True,
           profile_dir: str | None = None, device: str | torch.device = "cuda",
           loader: BatchLoader | None = None, debug_nans: bool = False):
-    """Train ``cfg.model`` on ``train_utts`` → the final TrainState;
-    ``loader`` feeds the training batches from another source (the packed
-    corpus's ``data.packed.PackedBatchLoader``; default: a ``BatchLoader``
-    over the wavs); ``debug_nans`` checks every step's loss and gradients
+    """Train ``cfg.model`` on ``train_utts`` → the final TrainState (on
+    every rank of a data-parallel run: ``parallel/mesh.launch`` starts
+    the ranks, each calling this with its own device); ``loader`` feeds
+    the training batches from another source (the packed corpus's
+    ``data.packed.PackedBatchLoader``; default: a ``BatchLoader`` over the
+    wavs); ``debug_nans`` checks every step's loss and gradients
     (``step.backward_finite``; the cached modes then run eagerly)."""
     if cfg.train.keep_checkpoints < 1:
         raise ValueError("train.keep_checkpoints must be >= 1")
-    check_trainable(cfg)
     device = torch.device(device)
-    log = MetricsLogger(metrics_path)
+    mesh = make_mesh(cfg.parallel, device)
+    n_dev = mesh.size
+    bad = [(i, bs) for i, bs in enumerate(cfg.buckets.batch_sizes)
+           if bs % n_dev]
+    if bad:
+        raise ValueError(
+            f"bucket batch sizes {bad} (bucket_id, batch) are not divisible "
+            f"by the {n_dev}-device data-parallel mesh — adjust "
+            "buckets.batch_sizes or parallel.num_devices")
+    with ExitStack() as stack:
+        quiet = None
+        if not mesh.is_writer:           # rank 0 alone writes and prints
+            quiet = stack.enter_context(open(os.devnull, "w"))
+            metrics_path = profile_dir = None
+        return _train(cfg, train_utts, vocab, dev_utts, metrics_path, resume,
+                      profile_dir, device, loader, debug_nans, mesh,
+                      MetricsLogger(metrics_path, stream=quiet))
 
+
+def _train(cfg, train_utts, vocab, dev_utts, metrics_path, resume,
+           profile_dir, device, loader, debug_nans, mesh, log):
+    n_dev = mesh.size
     sampler = BucketSampler(train_utts, cfg.buckets, seed=cfg.train.seed)
-    data_mode = _resolve_data_mode(cfg, sampler)
+    data_mode = _resolve_data_mode(cfg, sampler, n_dev)
     if loader is None:
         loader = BatchLoader(train_utts, vocab, cfg.buckets,
                              use_cached_features=cfg.features.use_cache)
@@ -178,13 +224,15 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
             buckets=[len(b) for b in sampler.buckets])
 
     model = build_model(cfg.model)
-    init_parameters(model, cfg.train.seed)
+    ckpt = latest_checkpoint(cfg.train.checkpoint_dir) if resume else None
+    if not ckpt:             # a checkpoint sets every parameter (strictly)
+        init_parameters(model, cfg.train.seed)
     model.to(device)
     state = init_state(model, cfg.optim, cfg.train.seed)
-    ckpt = latest_checkpoint(cfg.train.checkpoint_dir) if resume else None
-    if ckpt:
+    if ckpt:                             # every rank reads it
         restore_checkpoint(ckpt, state)
         log.log("resume", checkpoint=ckpt, step=state.step)
+    broadcast_(mesh, _state_tensors(state))
 
     k_dispatch = 1
     if data_mode in ("device_cache", "rotating"):
@@ -197,16 +245,19 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
         if data_mode == "rotating":
             corpus_cache = RotatingDeviceCache(
                 loader, sampler,
-                budget_bytes=int(cfg.train.device_cache_budget_gb * 1e9),
+                budget_bytes=int(cfg.train.device_cache_budget_gb * 1e9
+                                 * n_dev),
                 device=device, seed=cfg.train.seed,
-                features_cfg=features_cfg, cache_dtype=cfg.train.cache_dtype)
+                features_cfg=features_cfg, cache_dtype=cfg.train.cache_dtype,
+                mesh=mesh)
             epoch_batches = (lambda e: corpus_cache.epoch_plan(e, k_dispatch))
             extra = {"n_windows": corpus_cache.n_windows,
                      "corpus_bytes": cache_bytes}
         else:
             corpus_cache = DeviceCorpusCache(
                 loader, sampler, device=device, seed=cfg.train.seed,
-                features_cfg=features_cfg, cache_dtype=cfg.train.cache_dtype)
+                features_cfg=features_cfg, cache_dtype=cfg.train.cache_dtype,
+                mesh=mesh)
             epoch_batches = (lambda e: corpus_cache.epoch_dispatches(
                 e, k_dispatch))
             if device.type == "cuda":
@@ -215,15 +266,17 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
                      "device_bytes": corpus_cache.nbytes(),
                      "build_seconds": round(time.perf_counter() - t_c, 2)}
         train_step = make_cached_train_step(model, cfg, corpus_cache,
-                                            k_dispatch, debug_nans)
+                                            k_dispatch, debug_nans, mesh)
         log.log("data_mode", mode=data_mode, steps_per_dispatch=k_dispatch,
                 cache_features=cfg.train.cache_features,
-                graphs=train_step.graphs, **extra)
+                graphs=train_step.graphs, devices=n_dev, **extra)
     else:
-        train_step = make_train_step(cfg, debug_nans)
+        train_step = make_train_step(cfg, debug_nans, mesh)
         epoch_batches = sampler.epoch_batches
-        log.log("data_mode", mode=data_mode)
-    eval_step = make_eval_step(model, cfg)
+        log.log("data_mode", mode=data_mode, devices=n_dev)
+    # dev eval rides the same mesh as training: eval_batches pads every
+    # batch to its bucket's size, which the check above splits evenly
+    eval_fn = make_auto_eval(model, cfg, mesh)
 
     dev_batches = None
     if dev_utts:
@@ -234,13 +287,15 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
 
     # periodic-eval decoder columns: greedy always; train.eval_beam adds a
     # prefix-beam column and train.eval_lm a beam+LM column, all from one
-    # forward pass a batch (evaluate_multi)
+    # forward pass a batch (evaluate_multi); the beams split their rows
+    # over the mesh
     eval_decoders: dict = {"greedy": None}
     if cfg.train.eval_beam > 0:
         kb = cfg.train.eval_beam
 
         def _beam_fn(lg, ol, _lm=None, _a=0.0, _b=0.0):
-            return beam_decode(lg, ol, beam=kb, lm=_lm, alpha=_a, beta=_b)
+            return beam_decode(lg, ol, beam=kb, lm=_lm, alpha=_a, beta=_b,
+                               mesh=mesh)
 
         eval_decoders["beam"] = _beam_fn
         if cfg.train.eval_lm:
@@ -328,19 +383,22 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
                     bucket_id=int(bucket_id))
             t_last, utts_since = now, 0
         if dev_batches and crossed(cfg.train.eval_every):
-            accs, dev_loss = evaluate_multi(eval_step, dev_loader,
+            accs, dev_loss = evaluate_multi(eval_fn, dev_loader,
                                             dev_batches, vocab, dev_utts,
-                                            eval_decoders, device)
+                                            eval_decoders)
             extra_cols = {f"cer_{nm}": acc.cer for nm, acc in accs.items()
                           if nm != "greedy"}
             log.log("eval", step=step, cer=accs["greedy"].cer, loss=dev_loss,
                     num_utts=accs["greedy"].num_utts, **extra_cols)
         if crossed(cfg.train.checkpoint_every):
             path = save_checkpoint(cfg.train.checkpoint_dir, state, cfg,
-                                   keep=cfg.train.keep_checkpoints)
+                                   keep=cfg.train.keep_checkpoints,
+                                   mesh=mesh)
             log.log("checkpoint", step=step, path=path)
-        if stop_sig["num"] is not None:
-            log.log("signal_stop", step=step, signum=int(stop_sig["num"]))
+        # every rank stops at the same dispatch, whichever got the signal
+        if any_rank(mesh, stop_sig["num"] is not None):
+            log.log("signal_stop", step=step,
+                    signum=int(stop_sig["num"] or 0))
             return True
         return step >= cfg.train.total_steps
 
@@ -365,8 +423,8 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
                     # window w+1 fills the idle buffer set while w trains
                     for bucket_id, slots in rotating_dispatches(
                             corpus_cache, epoch, todo, pool):
-                        m = timed_step(bucket_id, bucket_id,
-                                       _slots_to(slots, device))
+                        m = timed_step(bucket_id, bucket_id, _slots_to(
+                            dispatch_rows(mesh, slots), device))
                         if bookkeep(m, bucket_id, cached_utts(bucket_id)):
                             done = True
                             break
@@ -374,26 +432,26 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
                     pool.shutdown(wait=True, cancel_futures=True)
             elif data_mode == "device_cache":
                 # lookahead 1: dispatch k+1's slot ids cross while k runs
-                pending = _slots_to(todo[0][1], device)
+                # (this rank's segment of them)
+                pending = _slots_to(dispatch_rows(mesh, todo[0][1]), device)
                 for i, (bucket_id, _) in enumerate(todo):
                     slots = pending
                     m = timed_step(bucket_id, bucket_id, slots)
                     if i + 1 < len(todo):
-                        pending = _slots_to(todo[i + 1][1], device)
+                        pending = _slots_to(dispatch_rows(
+                            mesh, todo[i + 1][1]), device)
                     if bookkeep(m, bucket_id, cached_utts(bucket_id)):
                         done = True
                         break
             else:
-                prefetch = Prefetcher(loader, todo,
+                # each rank loads its own rows of every global batch
+                prefetch = Prefetcher(loader, _local_batches(mesh, todo),
                                       depth=cfg.train.prefetch_depth,
                                       num_workers=cfg.train.loader_workers)
                 try:
-                    for batch in prefetch:
+                    for (_, _, n_real), batch in zip(todo, prefetch):
                         bucket_id = batch["bucket_id"]
                         m = timed_step(bucket_id, to_device(batch, device))
-                        n_real = (int(batch["sample_weight"].sum())
-                                  if "sample_weight" in batch
-                                  else batch["labels"].shape[0])
                         if bookkeep(m, bucket_id, n_real):
                             done = True
                             break
@@ -407,6 +465,6 @@ def train(cfg: Config, train_utts: list[Utterance], vocab: Vocab,
         if prof is not None:            # the run ended inside the window
             _stop_profile("partial")
     save_checkpoint(cfg.train.checkpoint_dir, state, cfg,
-                    keep=cfg.train.keep_checkpoints)
+                    keep=cfg.train.keep_checkpoints, mesh=mesh)
     log.close()
     return state

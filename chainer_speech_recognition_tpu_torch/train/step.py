@@ -1,7 +1,17 @@
-"""The train and eval steps (port of ``train/step.py``, one device):
-front-end → SpecAugment (train step only, when enabled) → acoustic model →
-CTC → weighted mean → backward → clip → update, on torch tensors already
-on the model's device.
+"""The train and eval steps (port of ``train/step.py``): front-end →
+SpecAugment (train step only, when enabled) → acoustic model → CTC →
+weighted sum → backward → (all-reduce over the ranks) → weighted mean →
+clip → update, on torch tensors already on the model's device.
+
+With a data-parallel mesh (``parallel/mesh.py``) each rank runs the step
+on its rows of the global batch. The loss is Σ(local weighted losses) /
+max(Σ over ranks of the weights, 1), as the reference's psum'd
+normaliser: a scalar all-reduce sums the weights between the forward and
+the backward, each rank back-propagates its local sum over that global
+normaliser, and one more all-reduce sums a flat fp32 buffer of every
+gradient, the loss and the real-row count. So the result is exact
+whatever valid or padded rows each rank holds, and one rank without a
+group runs the one-device arithmetic, op for op, less the collectives.
 
 Batches are dicts of padded tensors:
   signals        [B, N_max] float32 PCM   (or features [B,T,F,3] +
@@ -23,6 +33,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -32,6 +43,7 @@ from ..ops.ctc import LOG_ZERO, ctc_loss_scan
 from ..ops.ctc_cuda import ctc_loss
 from ..ops.specaugment import (apply_specaugment, specaugment_draws,
                                step_generator)
+from ..parallel.mesh import all_gather_rows, all_reduce_, shard_batch
 from .state import Optimizer, TrainState, global_norm
 
 
@@ -64,12 +76,12 @@ def _features(cfg: Config, batch: dict):
         apply_cmvn=cfg.features.cmvn_arg)
 
 
-def forward_loss(model, cfg: Config, batch: dict, draws=None):
-    """Weighted-mean CTC loss: ``sample_weight`` (optional) and samples with
-    no valid alignment weigh 0; the normaliser is max(Σ weights, 1).
-    ``draws`` (``ops/specaugment.specaugment_draws`` on the batch's device)
-    mask the features before the model; None leaves them as they are.
-    → (loss, (n_valid_real, n_real), logits, out_lens)."""
+def loss_terms(model, cfg: Config, batch: dict, draws=None):
+    """The weighted CTC loss SUM and its weights: ``sample_weight``
+    (optional) and samples with no valid alignment weigh 0. ``draws``
+    (``ops/specaugment.specaugment_draws`` on the batch's device) mask the
+    features before the model; None leaves them as they are.
+    → (Σ w·loss, Σ w, n_real, logits, out_lens)."""
     feats, flens = _features(cfg, batch)
     if draws is not None:
         feats = apply_specaugment(feats, flens, draws, cfg.specaugment)
@@ -80,29 +92,29 @@ def forward_loss(model, cfg: Config, batch: dict, draws=None):
     real = (torch.ones_like(losses) if real is None
             else real.to(torch.float32))
     w = real * valid.to(torch.float32)
-    total = w.sum()
-    loss = (torch.where(valid, losses, 0.0) * w).sum() / torch.clamp(
-        total, min=1.0)
-    return loss, (total, real.sum()), logits, olens
+    total = (torch.where(valid, losses, 0.0) * w).sum()
+    return total, w.sum(), real.sum(), logits, olens
 
 
-def check_trainable(cfg: Config) -> None:
-    """Raise for the training options the port does not run yet."""
-    if cfg.parallel.num_devices > 1:
-        raise NotImplementedError(
-            f"parallel.num_devices={cfg.parallel.num_devices}: data "
-            "parallelism is not ported yet (ROADMAP.md, module queue: data "
-            "parallelism); the port trains on one device")
+def forward_loss(model, cfg: Config, batch: dict, draws=None):
+    """Weighted-mean CTC loss of one device's batch: ``loss_terms``' sum
+    over max(Σ weights, 1). → (loss, (n_valid_real, n_real), logits,
+    out_lens)."""
+    total, wsum, n_real, logits, olens = loss_terms(model, cfg, batch, draws)
+    loss = total / torch.clamp(wsum, min=1.0)
+    return loss, (wsum, n_real), logits, olens
 
 
-def step_draws(cfg: Config, state: TrainState, batch: dict):
+def step_draws(cfg: Config, state: TrainState, batch: dict, rank: int = 0):
     """The SpecAugment draws of this step (None when disabled): drawn on the
-    CPU from ``step_generator(state.rng, state.step)``, then copied to the
-    batch's device without waiting for it."""
+    CPU from ``step_generator(state.rng, state.step, rank)`` for the
+    batch's rows (a rank's own draws differ from the others', as the
+    reference folds in ``axis_index``), then copied to the batch's device
+    without waiting for it."""
     if not cfg.specaugment.enabled:
         return None
     labels = batch["labels"]
-    draws = specaugment_draws(step_generator(state.rng, state.step),
+    draws = specaugment_draws(step_generator(state.rng, state.step, rank),
                               labels.shape[0], cfg.specaugment)
     if labels.is_cuda:
         draws = draws.pin_memory().to(labels.device, non_blocking=True)
@@ -130,23 +142,47 @@ def backward_finite(loss: torch.Tensor, params: dict, step: int) -> None:
                 f"step {step}: non-finite gradient of {name}")
 
 
+def _reduce(mesh, grads: list, scalars: list):
+    """One all-reduce over the ranks of a flat fp32 buffer that holds every
+    gradient and the scalars (loss, real rows) → the summed gradients
+    (views of the buffer) and scalars."""
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [torch.stack(scalars).to(torch.float32)])
+    all_reduce_(mesh, flat)
+    sizes = [g.numel() for g in grads]
+    parts = torch.split(flat[:-len(scalars)], sizes)
+    return ([p.view_as(g) for p, g in zip(parts, grads)],
+            list(flat[-len(scalars):].unbind()))
+
+
 def _step_body(tx, cfg: Config, state: TrainState, batch: dict, draws,
-               debug_step: int | None = None) -> dict:
+               debug_step: int | None = None, mesh=None) -> dict:
     """One optimizer step's device work on ``state`` (parameters and
     moments updated in place); ``step`` is not advanced. Reads nothing on
     the host unless ``debug_step`` (the step's number for ``--debug-nans``
     errors) asks for the checks, so the same call can be captured in a
-    CUDA graph."""
+    CUDA graph. With a ``mesh`` that has a group, ``batch`` is the rank's
+    rows, the weights are summed over the ranks before the backward and
+    the gradients and counts after it (module docstring)."""
     model = state.model
     params = dict(model.named_parameters())
     for p in params.values():
         p.grad = None
-    loss, (n_valid, n_real), _, _ = forward_loss(model, cfg, batch, draws)
+    dp = mesh is not None and mesh.distributed
+    total, n_valid, n_real, _, _ = loss_terms(model, cfg, batch, draws)
+    if dp:
+        all_reduce_(mesh, n_valid)
+    loss = total / torch.clamp(n_valid, min=1.0)
     if debug_step is not None:
         backward_finite(loss, params, debug_step)
     else:
         loss.backward()
-    grads = {k: p.grad for k, p in params.items()}
+    names = list(params)
+    grads = [params[k].grad for k in names]
+    loss = loss.detach()
+    if dp:
+        grads, (loss, n_real) = _reduce(mesh, grads, [loss, n_real])
+    grads = dict(zip(names, grads))
     gnorm = global_norm(grads.values())
     with torch.no_grad():
         updates, _ = tx.update(grads, state.opt_state,
@@ -154,22 +190,26 @@ def _step_body(tx, cfg: Config, state: TrainState, batch: dict, draws,
         for k, p in params.items():
             p.add_(updates[k])
             p.grad = None
-    return {"loss": loss.detach(), "grad_norm": gnorm,
+    return {"loss": loss, "grad_norm": gnorm,
             "valid_frac": n_valid / torch.clamp(n_real, min=1.0)}
 
 
-def make_train_step(cfg: Config, debug_nans: bool = False) -> Callable:
+def make_train_step(cfg: Config, debug_nans: bool = False,
+                    mesh=None) -> Callable:
     """→ ``train_step(state, batch) -> metrics``: one optimizer step on
     ``state`` (parameters and moments updated in place, step + 1);
     metrics ``loss``, ``grad_norm`` (before clipping) and ``valid_frac``
     are 0-d tensors on the device, read only when logged. ``debug_nans``
-    checks the loss and every gradient (``backward_finite``)."""
-    check_trainable(cfg)
+    checks the loss and every gradient (``backward_finite``). With a
+    ``mesh``, ``batch`` is this rank's rows (``parallel.mesh.
+    shard_batch``) and the metrics are the global batch's."""
     tx = Optimizer(cfg.optim)
+    rank = 0 if mesh is None else mesh.rank
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        m = _step_body(tx, cfg, state, batch, step_draws(cfg, state, batch),
-                       state.step + 1 if debug_nans else None)
+        m = _step_body(tx, cfg, state, batch,
+                       step_draws(cfg, state, batch, rank),
+                       state.step + 1 if debug_nans else None, mesh)
         state.step += 1
         return m
 
@@ -204,16 +244,20 @@ class _Replay:
 
 def make_cached_train_step(model, cfg: Config, corpus_cache,
                            steps_per_dispatch: int = 1,
-                           debug_nans: bool = False, *,
+                           debug_nans: bool = False, mesh=None, *,
                            _eager: bool = False) -> Callable:
     """Train step fed from a device-resident corpus
     (``data/device_cache.py``; reference ``make_cached_train_step``):
     ``call(state, bucket_id, slot_ids) -> metrics``, ``slot_ids`` [K, B]
-    (or [B] for K = 1) on the model's device. Each of the K steps gathers
+    (or [B] for K = 1) on the model's device: with a ``mesh``, this
+    rank's [K, B/n] segment (``parallel.mesh.dispatch_rows``) of local
+    slot ids into its own shard of the corpus. Each of the K steps gathers
     its rows from ``corpus_cache.buckets[bucket_id]`` (read at call time:
     the rotating cache swaps it) and runs the body of ``make_train_step``
     with the SpecAugment draws of ``step_generator(state.rng, state.step
-    + j)``; the metrics are averaged over the K steps.
+    + j, rank)``; the metrics are averaged over the K steps. Each step's
+    all-reduce over the ranks (NCCL) is captured in the graph with it;
+    the eager first dispatch is the collective that precedes the capture.
 
     On the CPU the K steps run eagerly. On the card one dispatch is one
     replay of a CUDA graph of the K steps, one graph a bucket's buffers:
@@ -225,9 +269,9 @@ def make_cached_train_step(model, cfg: Config, corpus_cache,
     replay raises. ``debug_nans`` (its checks read the host) and
     ``_eager`` (for holding the replay against eager steps) run every
     dispatch eagerly."""
-    check_trainable(cfg)
     tx = Optimizer(cfg.optim)
     K = max(1, steps_per_dispatch)
+    rank = 0 if mesh is None else mesh.rank
     device = next(model.parameters()).device
     graphs = device.type == "cuda" and not (debug_nans or _eager)
     replays: dict = {}
@@ -236,8 +280,8 @@ def make_cached_train_step(model, cfg: Config, corpus_cache,
         if not cfg.specaugment.enabled:
             return None
         return torch.stack([specaugment_draws(
-            step_generator(state.rng, state.step + j), B, cfg.specaugment)
-            for j in range(K_)])
+            step_generator(state.rng, state.step + j, rank), B,
+            cfg.specaugment) for j in range(K_)])
 
     def run_steps(state, bucket, slots, draws, first_step=None):
         ms = []
@@ -245,7 +289,7 @@ def make_cached_train_step(model, cfg: Config, corpus_cache,
             ms.append(_step_body(
                 tx, cfg, state, _gather(bucket, slots[j]),
                 None if draws is None else draws[j],
-                None if first_step is None else first_step + j))
+                None if first_step is None else first_step + j, mesh))
         return _mean_metrics(ms)
 
     def eager(state, bucket, slots):
@@ -330,3 +374,40 @@ def make_eval_step(model, cfg: Config) -> Callable:
         return losses, logits, olens
 
     return eval_step
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """Host batch (numpy) → tensors on ``device`` in their host dtypes (a
+    packed batch's ``signals_i16`` crosses as int16 and becomes float32 on
+    the device, ``_features``); on the card through pinned memory, so
+    the copy does not wait for the steps in flight."""
+    out = {}
+    for k, v in batch.items():
+        if k == "bucket_id":
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def make_auto_eval(model, cfg: Config, mesh=None) -> Callable:
+    """Eval over HOST batches (reference ``make_auto_eval``, the train
+    loop's and the evaluate CLI's): ``call(batch) → (losses, logits,
+    olens)`` of the whole batch on the model's device. With a mesh of
+    more than one rank (the reference's ``make_sharded_eval_step``) only
+    this rank's rows cross to the device and run the forward, and the
+    per-utterance losses, logits and lengths of every rank are gathered
+    in the global row order, so the decoders see the whole batch on
+    every rank; else the batch runs whole."""
+    device = next(model.parameters()).device
+    step = make_eval_step(model, cfg)
+    if mesh is None or mesh.size == 1:
+        return lambda batch: step(to_device(batch, device))
+
+    def call(batch: dict):
+        out = step(to_device(shard_batch(mesh, batch), device))
+        return tuple(all_gather_rows(mesh, x) for x in out)
+
+    return call

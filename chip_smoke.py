@@ -7,9 +7,10 @@ preset and ``bilstm_deep`` with causal CMVN (phases 15-17), of the
 attention family, ``conformer`` and ``conformer_stream`` offline (phases
 18-21), the parity path of ``bigru`` (phase 22: data tools, training
 from a pack, the evaluate CLI), config 4 on ``bigru`` (phase 23:
-prefix beam search with LM fusion, offline and streaming) and training
-from the device-resident corpus, the default data mode (phase 24), with
-random weights made from a seed, and
+prefix beam search with LM fusion, offline and streaming), training
+from the device-resident corpus, the default data mode (phase 24), and
+data-parallel training, config 5 (phase 25), with random weights made
+from a seed, and
 fails (exit code != 0, no result line) if any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
@@ -193,9 +194,11 @@ fails (exit code != 0, no result line) if any phase fails:
     replay of steps 8-15 and the step wall of the third dispatch, printed
     beside phases 8, 13 and 21's stream-mode figures; bigru and
     bilstm_deep resume a copy of a run's step-16 checkpoint to 24, bitwise
-    equal to that run's end. In process, from one feature cache, 2
-    dispatches of K = 8 (the second one replay) against the same steps
-    eagerly (twice for bigru and bilstm_deep), all bitwise equal (the CTC
+    equal to that run's end (the run's own step-16 checkpoint, copied).
+    In process, from one feature cache, the same 2 dispatches of K = 8
+    eagerly (twice for bigru and bilstm_deep), each run bitwise equal to
+    the CLI run's first 16 steps (its first dispatch eager, the second one
+    replay: its step-16 checkpoint and logged metrics; the CTC
     emission gather sums its gradient by a product, not with atomics;
     bigru's model backward and CTC gradient run twice each on the same
     inputs must agree bitwise). PCM-mode cached steps (the front-end in
@@ -206,6 +209,22 @@ fails (exit code != 0, no result line) if any phase fails:
     equal to eager and with a planted race (the window fetch skips its
     wait for the set's last replay) unequal. Its wall is printed against
     a 45 s budget.
+25. config 5, data parallelism: (a) the train CLI as the one rank of an
+    NCCL group (the environment ``torchrun --nproc_per_node=1`` gives)
+    with phase 24's bigru program (default data mode, 24 steps): the
+    all-reduces of every step captured in the K = 8 graph (16 captured:
+    the weight sum before the backward, the gradients after it),
+    launches exact, metrics, eval and the checkpoints at 16 and 24
+    bitwise equal to phase 24's run without a group, the all-reduce's
+    device time in the profiled replay and the warm step beside phase
+    24's; (b) two ranks on the one card (NCCL refuses two ranks on one
+    device: a gloo group over the card's tensors), the train CLI in
+    stream mode, 4 steps of bigru, against one rank over the same global
+    batches: each rank's launches exact, losses at the train-loss bar,
+    parameters within the bf16 gradient bar. A failure of the group, of
+    NCCL or of the capture fails the run. Its wall is printed against a
+    30 s budget, and the whole run's wall on a line before the kernel
+    table.
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -3444,15 +3463,26 @@ def check_launches(tag: str, got: dict, want: dict) -> None:
               f"expected {n}")
 
 
+def third_dispatch_s(ev: list) -> float:
+    """A step's wall in a cached run's third dispatch (one replay, no
+    eval or profiler): from the end of the step-16 checkpoint to the log
+    of step 24, over K."""
+    t = {e["step"]: e["t"] for e in ev if e["kind"] == "train"}
+    t.update({e["step"]: e["t"] for e in ev if e["kind"] == "checkpoint"
+              and e["step"] == 2 * CACHE_K})
+    return (t[3 * CACHE_K] - t[2 * CACHE_K]) / CACHE_K
+
+
 def phase_cached_preset(root: str, data: str, preset: str, sets=(),
                         resume: bool = True) -> tuple[float, float]:
     """One preset through the train CLI in phase 24 → (warm step wall s,
     busy share). The default program trains 24 steps: the log line, exact
     launches, the busy share over the profiled replay of steps 8-15 and
     the step wall from the third dispatch (a replay with no eval,
-    checkpoint or profiler around it). With ``resume``, a run of 24 steps
-    checkpoints at 16, and a copy of that checkpoint resumed to 24 must
-    end bitwise where the run ended."""
+    checkpoint or profiler inside it: timed from the end of the step-16
+    checkpoint). The run checkpoints at 16 too (the replay check and
+    phase 25 hold it); with ``resume``, a copy of that checkpoint resumed
+    to 24 must end bitwise where the run ended."""
     import shutil
 
     from chainer_speech_recognition_tpu_torch.config import preset_config
@@ -3460,10 +3490,10 @@ def phase_cached_preset(root: str, data: str, preset: str, sets=(),
     tag = f"cache-{preset}"
     cfg = preset_config(preset).override(
         dict(kv.split("=", 1) for kv in sets))
-    ev, launches, wall, _ = cached_train(
+    ev, launches, wall, end = cached_train(
         data, f"{preset}_run", root, preset, CACHE_RESUME,
         [*sets, "train.log_every=1", f"train.eval_every={CACHE_RESUME}",
-         f"train.checkpoint_every={CACHE_RESUME}"], profile=True)
+         f"train.checkpoint_every={TRAIN_STEPS}"], profile=True)
     mode = [e for e in ev if e["kind"] == "data_mode"][0]
     print(f"[{tag}] {json.dumps(mode)}")
     check(mode["mode"] == "device_cache" and mode["cache_features"]
@@ -3481,8 +3511,7 @@ def phase_cached_preset(root: str, data: str, preset: str, sets=(),
     fe_build = -(-TRAIN_UTTS // 32)          # one bucket holds the corpus
     check_launches(tag, launches, cached_want(cfg, CACHE_RESUME, n_eval,
                                               fe_build))
-    t = {e["step"]: e["t"] for e in train}
-    step_s = (t[3 * CACHE_K] - t[2 * CACHE_K]) / CACHE_K
+    step_s = third_dispatch_s(ev)
     busy, window_ms, top = _busy_share(os.path.join(
         root, f"prof_cache_{preset}_run", "trace.json"))
     print(f"[{tag}] {CACHE_RESUME} steps in {wall:.3f} s (cache build, "
@@ -3494,15 +3523,22 @@ def phase_cached_preset(root: str, data: str, preset: str, sets=(),
           f"replay of steps 8-15)")
     for name, us in top[:6]:
         print(f"[{tag}] device time {us / 1e3:9.3f} ms  {name[:90]}")
+    print(f"[{tag}] the run's log, s from the logger's start: " + ", ".join(
+        f"{e['kind']}{'@' + str(e['step']) if 'step' in e else ''} "
+        f"{e['t']:.3f}" + (f" ({e['seconds']} s)" if "seconds" in e else "")
+        for e in ev if e["kind"] in ("data_mode", "compile", "train",
+                                     "eval", "checkpoint", "profile"))
+          + f"; the whole call {wall:.3f} s")
     if resume:
-        _, _, w_whole, whole = cached_train(
-            data, f"{preset}_whole", root, preset, CACHE_RESUME,
-            [*sets, f"train.checkpoint_every={TRAIN_STEPS}"])
-        src = os.path.dirname(whole)
+        src = os.path.dirname(end)
+        check(sorted(os.listdir(src)) == [
+            "config.json", f"step_{TRAIN_STEPS:08d}.msgpack",
+            f"step_{CACHE_RESUME:08d}.msgpack"], f"{preset}: checkpoints "
+            f"{sorted(os.listdir(src))}")
         dst = os.path.join(root, f"cache_ckpt_{preset}_resumed")
         os.makedirs(dst)
         for f in os.listdir(src):
-            if f != os.path.basename(whole):
+            if f != os.path.basename(end):
                 shutil.copy(os.path.join(src, f), dst)
         rev, _, w_res, resumed = cached_train(
             data, f"{preset}_resumed", root, preset, CACHE_RESUME, sets,
@@ -3510,14 +3546,33 @@ def phase_cached_preset(root: str, data: str, preset: str, sets=(),
         res = [e for e in rev if e["kind"] == "resume"]
         check(len(res) == 1 and res[0]["step"] == TRAIN_STEPS,
               f"{preset}: resume events {res}")
-        rgap = ckpt_gap(resumed, whole)
-        print(f"[{tag}] resumed at {TRAIN_STEPS} from a run's checkpoint, "
+        rgap = ckpt_gap(resumed, end)
+        print(f"[{tag}] resumed at {TRAIN_STEPS} from the run's checkpoint, "
               f"stopped at {CACHE_RESUME}: max |diff| to that run's end "
-              f"{rgap:.3e} (bar: bitwise) "
-              f"[runs of {w_whole:.3f} s and {w_res:.3f} s]")
+              f"{rgap:.3e} (bar: bitwise) [a run of {w_res:.3f} s]")
         check(rgap == 0, f"{preset}: the resumed run differs from the "
               f"unbroken one by {rgap:.3e}")
     return step_s, busy
+
+
+SEEDED: dict = {}      # model config → the weights drawn from SEED (CPU)
+
+
+def seeded_model(cfg, dev):
+    """``cfg.model`` with the weights ``init_parameters`` draws from SEED,
+    on ``dev``; the draws are made once a model config (a second at full
+    width on the host)."""
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model, init_parameters)
+
+    model = build_model(cfg.model)
+    key = repr(cfg.model)
+    if key not in SEEDED:
+        init_parameters(model, SEED)
+        SEEDED[key] = {k: v.clone() for k, v in model.state_dict().items()}
+    else:
+        model.load_state_dict(SEEDED[key])
+    return model.to(dev)
 
 
 def cached_steps(cfg, cache, plan, dev, eager: bool):
@@ -3526,15 +3581,11 @@ def cached_steps(cfg, cache, plan, dev, eager: bool):
     → (state, each dispatch's metrics)."""
     import torch
 
-    from chainer_speech_recognition_tpu_torch.models.presets import (
-        build_model, init_parameters)
     from chainer_speech_recognition_tpu_torch.train.state import init_state
     from chainer_speech_recognition_tpu_torch.train.step import (
         make_cached_train_step)
 
-    model = build_model(cfg.model)
-    init_parameters(model, SEED)
-    model.to(dev)
+    model = seeded_model(cfg, dev)
     state = init_state(model, cfg.optim, SEED)
     step = make_cached_train_step(model, cfg, cache, CACHE_K, _eager=eager)
     check(step.graphs == (not eager), "cached step: graphs on the card")
@@ -3560,13 +3611,36 @@ def state_gap(a, b) -> float:
     return max(out)
 
 
-def phase_cached_replay(dev, cache, plan) -> None:
-    """The replay against eager steps in process, with the algorithms the
-    program runs: 2 dispatches of K = 8 from the same weights (the first
-    eager, then one replay), at full width. Two eager runs of bigru and
-    of bilstm_deep must be bitwise equal (the steps are repeatable), and
-    so must the replay of each preset: parameters, Adam moments and
-    counts, and the dispatches' metrics."""
+def state_arrays(state) -> dict:
+    """A train state's arrays by path in the checkpoint tree, as
+    ``ckpt_arrays`` reads them from a file."""
+    from chainer_speech_recognition_tpu_torch.bridge import (
+        opt_state_to_flax, state_dict_to_flax)
+
+    out = {}
+
+    def walk(prefix, v):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                walk(f"{prefix}/{k}", x)
+        else:
+            out[prefix] = np.asarray(v)
+
+    walk("", {"params": {"params": state_dict_to_flax(
+        state.model.state_dict())},
+              "opt_state": opt_state_to_flax(state.opt_state)})
+    return out
+
+
+def phase_cached_replay(root: str, dev, cache, plan) -> None:
+    """The replay against eager steps, with the algorithms the program
+    runs: 2 dispatches of K = 8 from the same weights at full width, in
+    process eagerly, against the same 16 steps of the preset's CLI run in
+    this phase (the first dispatch eager, then one replay; the cache, the
+    plan, the weights and the draws are the same): parameters, Adam
+    moments and counts of its step-16 checkpoint and the metrics it
+    logged at steps 8 and 16, bitwise. Two eager runs of bigru and of
+    bilstm_deep must be bitwise equal too (the steps are repeatable)."""
     from chainer_speech_recognition_tpu_torch.config import preset_config
 
     for preset, sets in ((PRESET, {}), (LSTM_PRESET, {}),
@@ -3576,11 +3650,21 @@ def phase_cached_replay(dev, cache, plan) -> None:
         t0 = time.perf_counter()
         eager = [cached_steps(cfg, cache, plan, dev, True)
                  for _ in range(1 if preset == CONF_PRESET else 2)]
-        gap = state_gap(cached_steps(cfg, cache, plan, dev, False), eager[0])
+        graph = ckpt_arrays(os.path.join(
+            root, f"cache_ckpt_{preset}_run", f"step_{TRAIN_STEPS:08d}.msgpack"))
+        mine = state_arrays(eager[0][0])
+        logged = {e["step"]: e for e in _events(os.path.join(
+            root, f"cache_{preset}_run.jsonl")) if e["kind"] == "train"}
+        gap = max([float(np.max(np.abs(graph[k].astype(np.float64)
+                                       - mine[k].astype(np.float64))))
+                   if set(graph) == set(mine) else float("inf")
+                   for k in mine]
+                  + [abs(logged[(i + 1) * CACHE_K][k] - float(m[k]))
+                     for i, m in enumerate(eager[0][1]) for k in m])
         spread = (f"eager vs eager {state_gap(*eager):.3e}, "
                   if len(eager) == 2 else "")
-        print(f"[cache-replay-{preset}] {2 * CACHE_K} steps: {spread}graph "
-              f"vs eager {gap:.3e} (bar: bitwise) "
+        print(f"[cache-replay-{preset}] {2 * CACHE_K} steps: {spread}the "
+              f"CLI run's replay vs eager {gap:.3e} (bar: bitwise) "
               f"[{time.perf_counter() - t0:.3f} s]")
         check(len(eager) == 1 or state_gap(*eager) == 0,
               f"{preset}: two eager runs differ")
@@ -3599,15 +3683,11 @@ def repeatable_gradients(dev, cache, plan) -> None:
     import torch
 
     from chainer_speech_recognition_tpu_torch.config import preset_config
-    from chainer_speech_recognition_tpu_torch.models.presets import (
-        build_model, init_parameters)
     from chainer_speech_recognition_tpu_torch.ops.ctc import extend_labels
     from chainer_speech_recognition_tpu_torch.train import step as step_mod
 
     cfg = preset_config(PRESET)
-    model = build_model(cfg.model)
-    init_parameters(model, SEED)
-    model.to(dev)
+    model = seeded_model(cfg, dev)
     bid, slots = plan[0]
     batch = step_mod._gather(cache.buckets[bid],
                              torch.from_numpy(slots[0]).to(dev).long())
@@ -3671,8 +3751,6 @@ def phase_cached_pcm(data: str, dev) -> None:
         DeviceCorpusCache)
     from chainer_speech_recognition_tpu_torch.data.sampler import (
         BatchLoader, BucketSampler)
-    from chainer_speech_recognition_tpu_torch.models.presets import (
-        build_model, init_parameters)
     from chainer_speech_recognition_tpu_torch.train.loop import to_device
     from chainer_speech_recognition_tpu_torch.train.state import init_state
     from chainer_speech_recognition_tpu_torch.train.step import (
@@ -3686,9 +3764,7 @@ def phase_cached_pcm(data: str, dev) -> None:
     cache = DeviceCorpusCache(loader, BucketSampler(utts, cfg.buckets), dev)
     plan = [cache.epoch_dispatches(e, CACHE_K)[0] for e in (0, 1)]
     cached, _ = cached_steps(cfg, cache, plan, dev, eager=False)
-    model = build_model(cfg.model)
-    init_parameters(model, SEED)
-    model.to(dev)
+    model = seeded_model(cfg, dev)
     state = init_state(model, cfg.optim, SEED)
     step = make_train_step(cfg)
     for bid, slots in plan:
@@ -3796,7 +3872,7 @@ def phase_device_cache(root: str, data: str, dev,
     plan = [cache.epoch_dispatches(e, CACHE_K)[0] for e in (0, 1)]
     parts = {"the CLI runs": time.perf_counter() - t_phase}
     for name, fn in (("replay vs eager", lambda: phase_cached_replay(
-                          dev, cache, plan)),
+                          root, dev, cache, plan)),
                      ("repeatable", lambda: repeatable_gradients(
                          dev, cache, plan)),
                      ("PCM", lambda: phase_cached_pcm(data, dev)),
@@ -3810,7 +3886,247 @@ def phase_device_cache(root: str, data: str, dev,
           f"{'within' if took <= CACHE_BUDGET_S else 'OVER'})")
 
 
+# phase 25, config 5: data-parallel training on the card's one H100
+DP_GLOO_STEPS = 4
+DP_BUDGET_S = 30.0
+DP_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env(port: int):
+    """The environment ``torchrun --nproc_per_node=1`` gives its one
+    rank."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+
+
+def phase_dp_nccl(root: str, data: str) -> None:
+    """Phase 25 (a): the train CLI as the one rank of an NCCL group, with
+    phase 24's bigru program (the default data mode, 24 steps, dev eval at
+    24, checkpoints at 16 and 24, the replay of steps 8-15 profiled): the
+    all-reduces captured in the K = 8 replay, launches exact, the metrics,
+    the eval and both checkpoints bitwise equal to phase 24's run without
+    a group (an all-reduce over one rank is an identity; the rest is the
+    same arithmetic); the all-reduces' device time in the profiled replay
+    and the third dispatch's step wall beside phase 24's."""
+    import torch
+    import torch.distributed as dist
+
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.train import step as step_mod
+
+    reduce_ = step_mod.all_reduce_
+    captured: list = []
+
+    def counted(mesh, t):
+        if torch.cuda.is_current_stream_capturing():
+            captured.append((mesh.size, dist.get_backend(mesh.group)))
+        return reduce_(mesh, t)
+
+    step_mod.all_reduce_ = counted
+    try:
+        with torchrun_env(_free_port()):
+            ev, launches, wall, end = cached_train(
+                data, "dp_nccl", root, PRESET, CACHE_RESUME,
+                ["train.log_every=1", f"train.eval_every={CACHE_RESUME}",
+                 f"train.checkpoint_every={TRAIN_STEPS}"], profile=True)
+    finally:
+        step_mod.all_reduce_ = reduce_
+    check(not dist.is_initialized(), "the train CLI left its group")
+    mode = [e for e in ev if e["kind"] == "data_mode"][0]
+    check(mode["mode"] == "device_cache" and mode["graphs"]
+          and mode["devices"] == 1, f"dp-nccl data mode {mode}")
+    # two a step: the weight sum before the backward, the gradients after
+    check(captured == [(1, "nccl")] * (2 * CACHE_K),
+          f"all-reduces captured in the graph: {captured}")
+    check_launches("dp-nccl", launches, cached_want(
+        preset_config(PRESET), CACHE_RESUME, -(-DEV_UTTS // TRAIN_B),
+        -(-TRAIN_UTTS // 32)))
+    ref_ev = _events(os.path.join(root, f"cache_{PRESET}_run.jsonl"))
+    keys = ("step", "loss", "grad_norm", "valid_frac", "cer", "num_utts")
+    got, ref = ([[e.get(k) for k in keys] for e in x
+                 if e["kind"] in ("train", "eval")] for x in (ev, ref_ev))
+    check(got == ref, f"dp-nccl metrics {got} differ from phase 24's {ref}")
+    ref_dir = os.path.join(root, f"cache_ckpt_{PRESET}_run")
+    gap = max(ckpt_gap(os.path.join(os.path.dirname(end), f),
+                       os.path.join(ref_dir, f))
+              for f in (f"step_{TRAIN_STEPS:08d}.msgpack",
+                        f"step_{CACHE_RESUME:08d}.msgpack"))
+    _, window_ms, top = _busy_share(os.path.join(root, "prof_cache_dp_nccl",
+                                                 "trace.json"))
+    nccl = [(n, us) for n, us in top if "nccl" in n.lower()]
+    nccl_ms = sum(us for _, us in nccl) / 1e3
+    print(f"[dp-nccl] train CLI as rank 0 of an NCCL group of 1 (NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}), device_cache, "
+          f"K = {CACHE_K}: {len(captured)} all-reduces captured in the "
+          f"graph, launches exact, {CACHE_RESUME} steps in {wall:.3f} s; "
+          f"metrics and eval equal phase 24's, checkpoints at "
+          f"{TRAIN_STEPS} and {CACHE_RESUME} max |diff| {gap:.3e} (bar: "
+          f"bitwise); warm step {third_dispatch_s(ev) * 1e3:.3f} ms vs "
+          f"phase 24's {third_dispatch_s(ref_ev) * 1e3:.3f} ms (the third "
+          f"dispatch, one replay / {CACHE_K})")
+    print(f"[dp-nccl] the all-reduces' device time in the profiled replay "
+          f"of steps 8-15 ({window_ms:.3f} ms window): {nccl_ms:.6f} ms, "
+          f"{nccl_ms / CACHE_K:.6f} ms a step ({len(nccl)} NCCL kernel "
+          f"names: {[n[:60] for n, _ in nccl]})")
+    check(gap == 0, f"dp-nccl: the state differs from phase 24's by "
+          f"{gap:.3e}")
+
+
+def dp_args(data: str, root: str, name: str) -> list:
+    """Phase 25 (b)'s train CLI arguments: stream mode, eager, no eval."""
+    return ["--data-dir", data, "--preset", PRESET, "--device", "cuda",
+            "--ckpt-dir", os.path.join(root, f"dp_{name}_ckpt"),
+            "--metrics", os.path.join(root, f"dp_{name}.jsonl"), "--set",
+            "train.data_mode=stream", "optim.warmup_steps=4",
+            f"train.total_steps={DP_GLOO_STEPS}", "train.log_every=1",
+            "train.eval_every=1000", "train.checkpoint_every=1000"]
+
+
+def dp_gloo_rank(rank: int, world: int, store: str, data: str,
+                 root: str) -> None:
+    """One rank of phase 25 (b), in a process of its own: the train CLI
+    inside a gloo group over the one card's tensors; writes its kernel
+    launches to ``dp_gloo_rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch.cli import train as train_cli
+
+    os.environ["LOCAL_RANK"] = "0"          # both ranks on card 0
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + store,
+                            world_size=world, rank=rank)
+    try:
+        _kernels.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(dp_args(data, root, "gloo"))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(root, f"dp_gloo_rank{rank}.json"), "w") as f:
+        json.dump(_kernels.launches(), f)
+
+
+def phase_dp_gloo(root: str, data: str) -> None:
+    """Phase 25 (b): two ranks on the one card (NCCL refuses two ranks on
+    one device, so a gloo group over the card's tensors), the train CLI
+    in stream mode, 4 steps of bigru at full width, against one rank over
+    the same global batches: each rank's launches exact, the losses at
+    the train-loss bar, the parameters within the bf16 gradient bar
+    (norm of the difference over the norm of the one rank's update:
+    Adam may flip the update of a weight whose gradient is rounding
+    noise)."""
+    import multiprocessing as mp
+
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.bridge import (
+        state_dict_to_flax)
+    from chainer_speech_recognition_tpu_torch.cli import train as train_cli
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model, init_parameters)
+
+    ctx = mp.get_context("spawn")
+    store = os.path.join(root, "dp_gloo_store")
+    procs = [ctx.Process(target=dp_gloo_rank,
+                         args=(r, 2, store, data, root)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        run_cli(train_cli.main, dp_args(data, root, "one"))   # meanwhile
+        torch.cuda.synchronize()
+        for p in procs:
+            p.join(DP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    check(all(p.exitcode == 0 for p in procs),
+          f"dp-gloo ranks exited {[p.exitcode for p in procs]}")
+    cfg = preset_config(PRESET)
+    want = cached_want(cfg, DP_GLOO_STEPS, 0, DP_GLOO_STEPS)
+    for r in range(2):
+        with open(os.path.join(root, f"dp_gloo_rank{r}.json")) as f:
+            check_launches(f"dp-gloo rank {r}", json.load(f), want)
+    two = [e for e in _events(os.path.join(root, "dp_gloo.jsonl"))
+           if e["kind"] == "train"]
+    one = [e for e in _events(os.path.join(root, "dp_one.jsonl"))
+           if e["kind"] == "train"]
+    check([e["step"] for e in two] == [e["step"] for e in one]
+          == list(range(1, DP_GLOO_STEPS + 1)), f"dp-gloo steps {two}")
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(two, one))
+    x = ckpt_arrays(os.path.join(root, "dp_gloo_ckpt",
+                                 f"step_{DP_GLOO_STEPS:08d}.msgpack"))
+    y = ckpt_arrays(os.path.join(root, "dp_one_ckpt",
+                                 f"step_{DP_GLOO_STEPS:08d}.msgpack"))
+    model = build_model(cfg.model)          # the runs' initial weights
+    init_parameters(model, cfg.train.seed)
+    flat: dict = {}
+
+    def walk(prefix, v):
+        if isinstance(v, dict):
+            for k, w in v.items():
+                walk(f"{prefix}/{k}", w)
+        else:
+            flat[prefix] = np.asarray(v, np.float64)
+
+    walk("/params/params", state_dict_to_flax(
+        {k: v.numpy() for k, v in model.state_dict().items()}))
+    keys = sorted(flat)
+    check(set(keys) <= set(x) and set(x) == set(y),
+          "dp-gloo checkpoints' parameter trees")
+    diff = np.sqrt(sum(float(np.sum((x[k] - y[k]) ** 2)) for k in keys))
+    step = np.sqrt(sum(float(np.sum((y[k] - flat[k]) ** 2)) for k in keys))
+    worst = max(float(np.max(np.abs(x[k] - y[k]))) for k in keys)
+    print(f"[dp-gloo] 2 ranks on one card (gloo over CUDA tensors), train "
+          f"CLI, stream mode, {DP_GLOO_STEPS} steps of {PRESET} "
+          f"(B = {TRAIN_B}, {TRAIN_B // 2} rows a rank) vs 1 rank on the "
+          f"same batches: launches exact on each rank; loss rel diff "
+          f"{rel:.3e} (tol {TOL['train_loss_rtol']}); parameters |diff| / "
+          f"|update| {diff / step:.3e} (tol {TOL['gru_grad_bf16']}), max "
+          f"|diff| {worst:.3e} [{wall:.3f} s, both runs]")
+    check(rel <= TOL["train_loss_rtol"], "dp-gloo losses")
+    check(diff / step <= TOL["gru_grad_bf16"], "dp-gloo parameters")
+
+
+def phase_dp(root: str, data: str) -> None:
+    """Phase 25, config 5: data-parallel training on the card."""
+    t_phase = time.perf_counter()
+    phase_dp_nccl(root, data)
+    t_a = time.perf_counter() - t_phase
+    phase_dp_gloo(root, data)
+    took = time.perf_counter() - t_phase
+    print(f"[dp] phase 25 took {took:.3f} s ((a) {t_a:.3f} s, (b) "
+          f"{took - t_a:.3f} s; budget {DP_BUDGET_S} s: "
+          f"{'within' if took <= DP_BUDGET_S else 'OVER'})")
+
+
 def main() -> int:
+    t_run = time.perf_counter()
     try:
         import torch
 
@@ -3872,6 +4188,7 @@ def main() -> int:
                 root, ckpt, vocab, wavs, audio_s, dev,
                 np.random.default_rng(SEED + 5))
             phase_device_cache(root, data, dev, stream_walls)
+            phase_dp(root, data)
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]
@@ -3892,6 +4209,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"[chip_smoke] the whole run took {time.perf_counter() - t_run:.3f}"
+          " s (the kernels' build included)")
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1], launches=launches[name],
                     **timings[name],

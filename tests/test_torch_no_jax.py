@@ -4,7 +4,8 @@ interpreter where ``jax``/``flax``/``optax`` and
 chainer_speech_recognition_tpu_torch imports, the plain decode path runs
 once end to end (a BiGRU and a cut conformer), the stream CLI streams a
 forward-only model over a few windows, one CPU train step runs through
-the train loop, the data tools and the evaluate CLI run once
+the train loop (alone, then as the one rank of a gloo group: the
+data-parallel path of ``parallel/mesh.py``), the data tools and the evaluate CLI run once
 (make_synthetic, preprocess --pack, evaluate on the packed dev set), and a
 beam + LM decode runs (train_lm, decode --beam --lm)."""
 
@@ -96,6 +97,17 @@ state = train(tcfg, utts, vocab, device="cpu")
 assert state.step == 1, state.step
 assert latest_checkpoint(os.path.join(root, "tckpt")).endswith(
     "step_00000001.msgpack")
+# the same step as the one rank of a gloo group: the data-parallel path
+# (parallel/mesh.py, the all-reduce in the step, the writer rank)
+import torch.distributed as dist
+from chainer_speech_recognition_tpu_torch.parallel.mesh import make_mesh
+dist.init_process_group("gloo", world_size=1, rank=0, init_method="file://"
+                        + os.path.join(root, "store"))
+assert make_mesh(tcfg.parallel, "cpu").distributed
+state = train(tcfg.override({"train.checkpoint_dir": os.path.join(
+    root, "dckpt")}), utts, vocab, device="cpu")
+dist.destroy_process_group()
+assert state.step == 1 and latest_checkpoint(os.path.join(root, "dckpt"))
 # the parity path's tools: a confusable corpus, packed, scored on its pack
 from chainer_speech_recognition_tpu_torch.cli import (
     evaluate, make_synthetic, preprocess)

@@ -122,6 +122,20 @@ def test_refusals(setup, monkeypatch):
     with pytest.raises(ValueError, match="retrain"):
         torch_stream.main(["--ckpt-dir", utt, "--vocab", vocab, "--device",
                            "cpu", *wavs[:1]])
+    # a chunk-causal attention checkpoint: refused, naming the ROADMAP
+    # item, not the JAX package (which needs flax)
+    acfg = preset_config("conformer_stream").override({
+        "model.conv_channels": [4, 4], "model.attn_blocks": 1,
+        "model.attn_dim": 16, "model.attn_heads": 1, "model.vocab_size": V})
+    amodel = build_model(acfg.model)
+    init_parameters(amodel, 5)
+    attn = str(root / "attn")
+    save_checkpoint(attn, init_state(amodel, acfg.optim, 0), acfg)
+    with pytest.raises(SystemExit, match="ROADMAP.md, module queue: "
+                       "conformer_stream streaming") as e:
+        torch_stream.main(["--ckpt-dir", attn, "--vocab", vocab, "--device",
+                           "cpu", *wavs[:1]])
+    assert "chainer_speech_recognition_tpu.cli" not in str(e.value)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         torch_stream.main(["--ckpt-dir", ckpt, "--vocab", vocab, *wavs[:1]])

@@ -13,6 +13,7 @@ from chainer_speech_recognition_tpu_torch.decode import streaming as tstream
 from chainer_speech_recognition_tpu_torch.decode.greedy import greedy_decode
 from chainer_speech_recognition_tpu_torch.frontend.torch_frontend import (
     batch_features)
+from chainer_speech_recognition_tpu_torch.parallel.mesh import Mesh
 from test_torch_streaming import _pcm, _setup
 
 torch.set_num_threads(1)
@@ -143,8 +144,11 @@ def test_refusals():
     cfg, tm = _setup("tiny_conv")[:2]
     with pytest.raises(ValueError, match="expected greedy|beam"):
         tstream.StreamingRecognizer(tm, cfg, decoder="prefix")
-    with pytest.raises(NotImplementedError, match="item 6, config 5"):
-        tstream.StreamingRecognizer(tm, cfg, mesh=object())
+    # a mesh the lockstep batch does not split over runs the batch whole
+    # (the sharded recognizer: tests/test_torch_mesh.py)
+    three = Mesh(rank=1, size=3, device=torch.device("cpu"), shape=(3,),
+                 axis_names=("data",))
+    assert tstream.StreamingRecognizer(tm, cfg, mesh=three)._mesh is None
     rec = tstream.StreamingRecognizer(tm, cfg, chunk_frames=16,
                                       right_frames=8)
     rec.accept(_pcm((48000,), seed=5))           # eager: drains windows

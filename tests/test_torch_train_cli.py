@@ -5,7 +5,7 @@ packed corpus (``train.pack``: the same losses as from the wavs), the
 dev eval's beam and beam+LM columns, the default data mode (the device
 cache, and rotating windows under a small budget), and the refusals
 (model blocks that are not ported, a file that is not a pack, no card for
-``--device cuda``, data parallelism)."""
+``--device cuda``, dcn slices that do not divide the devices)."""
 
 import json
 import os
@@ -98,12 +98,17 @@ def test_cli_trains_bilstm_deep_with_specaugment(data_dir, tmp_path):
         "step_00000003.msgpack"]
 
 
-@pytest.mark.parametrize("sets,match", [
-    (["train.data_mode=stream", "model.glu_blocks=2"], "GLU"),
-    (["train.data_mode=stream", "parallel.num_devices=2"], "parallelism"),
-])
-def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, sets, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("sets,match,exc", [
+    (["train.data_mode=stream", "model.glu_blocks=2"], "GLU",
+     NotImplementedError),
+    # data parallelism is ported (tests/test_torch_dp.py); a 2-D mesh
+    # whose dcn slices do not divide the one device is refused
+    (["train.data_mode=stream", "parallel.dcn_slices=2"], "parallelism",
+     ValueError),
+], ids=["sets0-GLU", "sets1-parallelism"])
+def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, sets, match,
+                                        exc):
+    with pytest.raises(exc, match=match):
         _run(data_dir, tmp_path, *sets)
 
 
