@@ -73,21 +73,15 @@ CTC_FWD = Kernel("csr_ctc_fwd",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 CTC_BWD = Kernel("csr_ctc_bwd",
                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
-# the recurrences' (..., T, B, H[, ndir], C, bf16, stream): C is the bf16
+# the recurrences' (..., T, B, H, ndir, C, bf16, stream): C is the bf16
 # cluster kernels' blocks a cluster (ops/rnn_cuda.lstm_plan, gru_plan),
 # unread under fp32
-GRU_FWD = Kernel("csr_gru_fwd",
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-GRU_FWD_TRAIN = Kernel("csr_gru_fwd_train",
-                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-GRU_BWD = Kernel("csr_gru_bwd",
-                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-LSTM_FWD = Kernel("csr_lstm_fwd",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train",
-                        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-LSTM_BWD = Kernel("csr_lstm_bwd",
-                  [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+GRU_FWD = Kernel("csr_gru_fwd", [_P] * 5 + [_I] * 6 + [_P])
+GRU_FWD_TRAIN = Kernel("csr_gru_fwd_train", [_P] * 6 + [_I] * 6 + [_P])
+GRU_BWD = Kernel("csr_gru_bwd", [_P] * 8 + [_I] * 6 + [_P])
+LSTM_FWD = Kernel("csr_lstm_fwd", [_P] * 5 + [_I] * 6 + [_P])
+LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train", [_P] * 7 + [_I] * 6 + [_P])
+LSTM_BWD = Kernel("csr_lstm_bwd", [_P] * 7 + [_I] * 6 + [_P])
 # the stream forms': (..., T, B, H, ndir, emit_t, C, bf16, stream)
 GRU_FWD_STREAM = Kernel("csr_gru_fwd_stream", [_P] * 7 + [_I] * 7 + [_P])
 LSTM_FWD_STREAM = Kernel("csr_lstm_fwd_stream", [_P] * 7 + [_I] * 7 + [_P])
@@ -98,8 +92,9 @@ FRONTEND_LOGMEL_FRAMES = Kernel("csr_frontend_logmel_frames",
 FLASH_FWD = Kernel("csr_flash_fwd", [_P] * 8 + [_I, _P])
 FLASH_BWD_DQ = Kernel("csr_flash_bwd_dq", [_P] * 10 + [_I, _P])
 FLASH_BWD_DKV = Kernel("csr_flash_bwd_dkv", [_P] * 11 + [_I, _P])
-# the recurrences' dW: (ys, g1, ld1, n1, g2, ld2, n2, out, T, B, H, stream)
-DW = Kernel("csr_dw", [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _P])
+# the recurrences' dW: (ys, g1, ld1, n1, g2, ld2, n2, out, T, B, H, ndir,
+# stream)
+DW = Kernel("csr_dw", [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P])
 # the prefix beam: (the address of its argument struct, ops/beam_cuda.BeamArgs,
 # stream)
 BEAM = Kernel("csr_beam", [_P, _P])
@@ -116,12 +111,13 @@ KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
 # functions of the library that launch nothing (no count): (H, out) →
 # out = (shared memory bytes, clusters the card holds at once); the CTC
 # kernels' (S, bwd, out) → out = their launch shape (ops/ctc_cuda.ctc_plan);
-# the dW kernel's (T, B, H, N, out) → its launch shape (ops/rnn_cuda.dw_plan);
+# the dW kernel's (T, B, H, N, ndir, out) → its launch shape
+# (ops/rnn_cuda.dw_plan);
 # the beam's (T, V, K, out) → its launch plan (ops/beam_cuda.beam_plan)
 HELPERS = {f"csr_{cell}_{form}_occupancy": [_I, ctypes.POINTER(_I)]
            for cell in ("gru", "lstm") for form in ("fwd", "bwd")}
 HELPERS["csr_ctc_plan"] = [_I, _I, ctypes.POINTER(_I)]
-HELPERS["csr_dw_plan"] = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+HELPERS["csr_dw_plan"] = [_I] * 5 + [ctypes.POINTER(_I)]
 HELPERS["csr_beam_plan"] = [_I, _I, _I, ctypes.POINTER(_I)]
 
 _lock = threading.Lock()

@@ -172,11 +172,6 @@ def _score(device, args, mesh) -> None:
     if args.stream_right is None:   # model-aware default (stream_geometry
         # rejects lookahead on chunk-causal attention checkpoints)
         args.stream_right = 0 if cfg.model.attn_chunk else 16
-    if args.streaming and cfg.model.attn_blocks and cfg.model.attn_chunk:
-        raise SystemExit(
-            f"{cfg.model.preset}: streaming the chunk-causal attention "
-            "family is not ported yet (ROADMAP.md, module queue: "
-            "conformer_stream streaming); evaluate it offline")
     eval_fn = make_auto_eval(model, cfg, mesh)
 
     decode_fn = None                  # None: greedy on the device

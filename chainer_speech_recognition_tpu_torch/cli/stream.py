@@ -16,7 +16,9 @@ Requires a checkpoint trained with ``features.cmvn_mode=causal`` (or CMVN
 off); the recognizer refuses utterance CMVN with the retrain instruction.
 ``--beam K`` streams with the carried prefix beam (tokens print once every
 live beam agrees on them, the 1-best tail at stream end), ``--lm`` adds
-n-gram LM fusion.
+n-gram LM fusion. ``--right-frames`` defaults per model, as in the
+reference: 0 for a chunk-causal attention checkpoint (``conformer_stream``:
+its lookahead lives inside the chunk), 16 otherwise.
 
     python -m chainer_speech_recognition_tpu_torch.cli.stream \\
         --ckpt-dir CKPT --vocab vocab.txt --right-frames 0 a.wav b.wav
@@ -139,9 +141,11 @@ def main(argv=None):
                    choices=("auto", "dense", "hashed"))
     p.add_argument("--chunk-frames", type=int, default=64,
                    help="emitted frames per streaming step (10 ms units)")
-    p.add_argument("--right-frames", type=int, default=16,
+    p.add_argument("--right-frames", type=int, default=None,
                    help="future context per emitted frame (10 ms units); "
-                        "latency = (chunk+right) x 10 ms + compute")
+                        "latency = (chunk+right) x 10 ms + compute. "
+                        "Default 16, or 0 for chunk-causal attention "
+                        "models (their lookahead lives inside the chunk)")
     p.add_argument("--block-ms", type=float, default=100.0,
                    help="PCM feed granularity for --partials / --raw "
                         "(simulated real time; batch wav mode buffers "
@@ -183,12 +187,6 @@ def main(argv=None):
 
     cfg, model, _ = load_model(args.ckpt_dir, args.average_last,
                                device=device)
-    if cfg.model.attn_blocks and cfg.model.attn_chunk:
-        raise SystemExit(
-            f"{cfg.model.preset}: streaming the chunk-causal attention "
-            "family (its KV-cache and conv-tail carries) is not ported yet "
-            "(ROADMAP.md, module queue: conformer_stream streaming); decode "
-            "it offline with chainer_speech_recognition_tpu_torch.cli.decode")
     vocab = Vocab.load(args.vocab)
     if len(vocab) != cfg.model.vocab_size:
         raise SystemExit(
@@ -198,6 +196,10 @@ def main(argv=None):
     lm = None
     if args.lm:
         lm = device_lm(NGramLM.from_arpa(args.lm, vocab), args.lm_repr)
+
+    if args.right_frames is None:   # model-aware default (stream_geometry
+        # rejects lookahead on chunk-causal attention models)
+        args.right_frames = 0 if cfg.model.attn_chunk else 16
 
     batch = (1 if args.raw or args.partials
              else min(args.batch, len(args.wavs)))

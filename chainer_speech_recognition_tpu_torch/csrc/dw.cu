@@ -1,7 +1,8 @@
-// The recurrent weights' gradient of the BiGRU and BiLSTM training
-// backward: dW[d] = sum over (t, b) of h_prev[t, dB + b, :]^T dg[t, dB + b, :]
-// -> fp32 [2, H, N], with h_prev[t] = ys[t - 1] (zeros at t = 0) rounded to
-// bf16 and dg the bf16 gate gradients, products accumulated in fp32.
+// The recurrent weights' gradient of the GRU and LSTM training backward,
+// bidirectional (ndir = 2) or forward-only (ndir = 1): dW[d] = sum over
+// (t, b) of h_prev[t, dB + b, :]^T dg[t, dB + b, :] -> fp32 [ndir, H, N],
+// with h_prev[t] = ys[t - 1] (zeros at t = 0) rounded to bf16 and dg the
+// bf16 gate gradients, products accumulated in fp32.
 //
 // Replaces ops/rnn_pallas.py::_dw_einsum (an XLA einsum, not a Pallas
 // kernel: the TPU left this product to XLA, after the backward kernel).
@@ -13,9 +14,13 @@
 // is exact in fp32, so the tensor cores form the products the fp32 SIMT
 // matmul formed; only the order of the fp32 sums differs.
 //
+// A forward-only layer has one W and its B rows (the TPU path duplicates
+// W, runs 2B rows and sums the two halves' dW: the same sum over the same
+// products of the forward rows).
+//
 // Design: a GEMM on wgmma with its operands read in place by TMA.
-// * Each operand is a 4-D tensor map over [T, 2, B, X] (X = H for ys, the
-//   gate tensor's row stride for dg, whose column slice is the map's
+// * Each operand is a 4-D tensor map over [T, ndir, B, X] (X = H for ys,
+//   the gate tensor's row stride for dg, whose column slice is the map's
 //   extent), so a box of kt frames x bc rows x 64 columns of one
 //   direction lands in shared memory as a [kt bc][64] K-tile. The shift of
 //   h_prev is the ys map addressed one frame back: the K walk starts at
@@ -36,12 +41,12 @@
 //   bilstm_deep's layer in about half the time of 128 x 128, and keeping
 //   one wgmma group in flight was slower at both (a sweep of variants).
 // * The output has few tiles (36 at bilstm_deep, 12 at bigru's fused
-//   N = 3H) against 132 SMs, and K is long, so K is split over a cluster
-//   of S blocks (the plan below); each block leaves its partial tile in
-//   its shared memory and rank r sums the rows it owns over the cluster's
-//   blocks in rank order through distributed shared memory: a fixed order,
-//   no atomics, so two runs are bitwise equal. Each output element is
-//   written once.
+//   N = 3H, 6 at uni_gru's) against 132 SMs, and K is long, so K is split
+//   over a cluster of S blocks (the plan below); each block leaves its
+//   partial tile in its shared memory and rank r sums the rows it owns
+//   over the cluster's blocks in rank order through distributed shared
+//   memory: a fixed order, no atomics, so two runs are bitwise equal.
+//   Each output element is written once.
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -78,7 +83,7 @@ int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 // kt bc is a multiple of 16 (a wgmma k-step) and at most kKMax: B whole
 // when that allows it (B = 24: kt = 2), otherwise B rounded up to 16 rows
 // in chunks of at most kKMax, the rows past B zero-filled by TMA
-Plan plan_for(int T, int B, int H, int N, int sms) {
+Plan plan_for(int T, int B, int H, int N, int ndir, int sms) {
   Plan p;
   const int g = 16 / gcd(B, 16);
   if (B * g <= kKMax) {
@@ -93,7 +98,7 @@ Plan plan_for(int T, int B, int H, int N, int sms) {
   p.nk = (T - 1 + p.kt - 1) / p.kt * nbc;
   p.mt = (H + kBM - 1) / kBM;
   p.nt = (N + kBN - 1) / kBN;
-  const int tiles = 2 * p.mt * p.nt;
+  const int tiles = ndir * p.mt * p.nt;
   int s = sms / tiles;
   if (s > kMaxSplit) s = kMaxSplit;
   if (s > p.nk) s = p.nk;
@@ -225,10 +230,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 struct Args {
   int H, N, n1, n2;     // N = n1 + n2 output columns, n2 from the 2nd map
   int bc, kt, nbc, nk;  // the plan's K-tiles
-  float* out;           // [2, H, N] fp32
+  int ndir;             // directions: 2, or 1 for a forward-only layer
+  float* out;           // [ndir, H, N] fp32
 };
 
-// Grid (nt, mt, 2 S), clusters of S along z: block (n, m, d S + r) owns
+// Grid (nt, mt, ndir S), clusters of S along z: block (n, m, d S + r) owns
 // output tile (m, n) of direction d and K-tiles [r nk / S, (r+1) nk / S).
 __global__ void __launch_bounds__(kThreads, 1)
     dw_kernel(const __grid_constant__ CUtensorMap ys_map,
@@ -242,7 +248,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t s_full = s_abf + 4 * kABf;
   const uint32_t s_empty = s_full + kStages * 8;
 
-  const int S = gridDim.z / 2;
+  const int S = gridDim.z / a.ndir;
   const uint32_t rank = cluster_rank();
   const int d = blockIdx.z / S;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
@@ -376,15 +382,17 @@ PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// the map of one operand over [T, 2, B, cols] with row stride `ld`
+// the map of one operand over [T, ndir, B, cols] with row stride `ld`
 // elements, boxes of 64 columns x bc rows x 1 direction x kt frames
-bool encode(CUtensorMap* map, const void* base, bool bf16, int T, int B,
-            int cols, int ld, const Plan& p) {
+bool encode(CUtensorMap* map, const void* base, bool bf16, int T, int ndir,
+            int B, int cols, int ld, const Plan& p) {
   const uint64_t es = bf16 ? 2 : 4;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(B), 2,
+                              static_cast<cuuint64_t>(B),
+                              static_cast<cuuint64_t>(ndir),
                               static_cast<cuuint64_t>(T)};
-  const cuuint64_t strides[3] = {ld * es, B * ld * es, 2 * B * ld * es};
+  const cuuint64_t strides[3] = {ld * es, B * ld * es,
+                                 static_cast<cuuint64_t>(ndir) * B * ld * es};
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(p.bc), 1,
                              static_cast<cuuint32_t>(p.kt)};
   const cuuint32_t one[4] = {1, 1, 1, 1};
@@ -409,46 +417,49 @@ int sm_count() {
   return n;
 }
 
-bool takes(int T, int B, int H, int ld1, int n1, int ld2, int n2) {
-  return T >= 1 && B >= 1 && H >= 4 && H % 4 == 0 && n1 >= 4 &&
-         n1 % 4 == 0 && ld1 % 8 == 0 && ld1 >= n1 && n2 >= 0 &&
+bool takes(int T, int B, int H, int ndir, int ld1, int n1, int ld2,
+           int n2) {
+  return T >= 1 && B >= 1 && (ndir == 1 || ndir == 2) && H >= 4 &&
+         H % 4 == 0 && n1 >= 4 && n1 % 4 == 0 && ld1 % 8 == 0 && ld1 >= n1 &&
+         n2 >= 0 &&
          n2 % 4 == 0 && (n2 == 0 || (n1 % 64 == 0 && ld2 % 8 == 0 &&
                                      ld2 >= n2));
 }
 
 }  // namespace
 
-// The launch shape at (T, B, H, N) on this card: out = {bc, kt, K-tiles a
-// direction, S (blocks a cluster along K), output tiles (2 mt nt), shared
-// memory a block}.
-CSR_API int csr_dw_plan(int T, int B, int H, int N, int* out) {
-  if (T < 1 || B < 1 || H < 1 || N < 1) return cudaErrorInvalidValue;
-  const Plan p = plan_for(T, B, H, N, sm_count());
+// The launch shape at (T, B, H, N, ndir) on this card: out = {bc, kt,
+// K-tiles a direction, S (blocks a cluster along K), output tiles (ndir mt
+// nt), shared memory a block}.
+CSR_API int csr_dw_plan(int T, int B, int H, int N, int ndir, int* out) {
+  if (T < 1 || B < 1 || H < 1 || N < 1 || (ndir != 1 && ndir != 2))
+    return cudaErrorInvalidValue;
+  const Plan p = plan_for(T, B, H, N, ndir, sm_count());
   out[0] = p.bc;
   out[1] = p.kt;
   out[2] = p.nk;
   out[3] = p.split;
-  out[4] = 2 * p.mt * p.nt;
+  out[4] = ndir * p.mt * p.nt;
   out[5] = kSmem;
   return cudaSuccess;
 }
 
-// ys [T, 2B, H] fp32 (the layer's carries); g1 [T, 2B, ld1] bf16 read at
-// columns [0, n1) and, when n2 > 0, g2 [T, 2B, ld2] bf16 at [0, n2) (the
-// GRU's dxs[..., :2H] and dhn); out [2, H, n1 + n2] fp32, written whole.
-// Requires H % 4 == 0, n1 % 4 == 0 (n1 % 64 == 0 with a second map),
-// n2 % 4 == 0, row strides a multiple of 8 elements and 16-byte-aligned
-// bases (the wrapper checks), T >= 1, B >= 1.
+// ys [T, ndir*B, H] fp32 (the layer's carries); g1 [T, ndir*B, ld1] bf16
+// read at columns [0, n1) and, when n2 > 0, g2 [T, ndir*B, ld2] bf16 at
+// [0, n2) (the GRU's dxs[..., :2H] and dhn); out [ndir, H, n1 + n2] fp32,
+// written whole. Requires H % 4 == 0, n1 % 4 == 0 (n1 % 64 == 0 with a
+// second map), n2 % 4 == 0, row strides a multiple of 8 elements and
+// 16-byte-aligned bases (the wrapper checks), T >= 1, B >= 1, ndir 1 or 2.
 CSR_API int csr_dw(const float* ys, const void* g1, int ld1, int n1,
                    const void* g2, int ld2, int n2, float* out, int T, int B,
-                   int H, cudaStream_t stream) {
-  if (!takes(T, B, H, ld1, n1, ld2, n2)) return cudaErrorInvalidValue;
+                   int H, int ndir, cudaStream_t stream) {
+  if (!takes(T, B, H, ndir, ld1, n1, ld2, n2)) return cudaErrorInvalidValue;
   const int N = n1 + n2;
-  const Plan p = plan_for(T, B, H, N, sm_count());
+  const Plan p = plan_for(T, B, H, N, ndir, sm_count());
   CUtensorMap ys_map, g1_map, g2_map;
-  if (!encode(&ys_map, ys, false, T, B, H, H, p) ||
-      !encode(&g1_map, g1, true, T, B, n1, ld1, p) ||
-      !encode(&g2_map, n2 > 0 ? g2 : g1, true, T, B, n2 > 0 ? n2 : n1,
+  if (!encode(&ys_map, ys, false, T, ndir, B, H, H, p) ||
+      !encode(&g1_map, g1, true, T, ndir, B, n1, ld1, p) ||
+      !encode(&g2_map, n2 > 0 ? g2 : g1, true, T, ndir, B, n2 > 0 ? n2 : n1,
               n2 > 0 ? ld2 : ld1, p))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
@@ -460,14 +471,14 @@ CSR_API int csr_dw(const float* ys, const void* g1, int ld1, int n1,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = p.split;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.nt, p.mt, 2 * p.split);
+  cfg.gridDim = dim3(p.nt, p.mt, ndir * p.split);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = kSmem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const Args a = {H, N, n1, n2, p.bc, p.kt, (B + p.bc - 1) / p.bc, p.nk,
-                  out};
+                  ndir, out};
   e = cudaLaunchKernelEx(&cfg, dw_kernel, ys_map, g1_map, g2_map, a);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }

@@ -1,7 +1,8 @@
-// Bidirectional GRU recurrence, backward (reverse-time gradient walk).
+// GRU recurrence (bidirectional or forward-only), backward (reverse-time
+// gradient walk).
 //
 // Replaces ops/rnn_pallas.py::_gru_bwd_kernel (the custom VJP's backward,
-// _birnn_bwd). Same boundary: gates [T, R=2B, 4H] = (r, z, n, hp_n) from
+// _birnn_bwd). Same boundary: gates [T, R=ndir*B, 4H] = (r, z, n, hp_n) from
 // the training forward (csrc/gru_fwd.cu, stream dtype), the recurrent
 // weights in the compute dtype (laid out for each kernel by the wrapper,
 // once per call: below), lo/hi [R] fp32, ys [T, R, H] fp32 (the
@@ -12,6 +13,10 @@
 //                    live steps; they are the gradient of xs and, for the
 //                    r and z columns, of the recurrent pre-activations;
 //   dhn [T, R, H]  = the recurrent n pre-activation gradient dn * r, masked.
+// Rows [d*B, (d+1)*B) use w[d]: ndir = 2 for a bidirectional layer, 1 for a
+// forward-only one, which runs its one W over its B rows (the TPU path
+// runs a forward-only layer with W duplicated, two halves of B rows whose
+// dW autodiff sums; the forward rows' gradients are the same).
 // dW = sum_t h_prev^T (dr, dz, dhn) is one launch of csrc/dw.cu after the
 // kernel, off the sequential path, as the TPU kernel leaves it to XLA.
 //
@@ -105,7 +110,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int d = blockIdx.y;      // direction
   const int b = blockIdx.x;      // row within the direction
   const int j = threadIdx.x;     // hidden unit
-  const int R = 2 * B;
+  const int R = gridDim.y * B;   // ndir * B
   const int G = 3 * H;
   const int rr = d * B + b;
   const S* wd = wt + static_cast<int64_t>(d) * G * H;
@@ -169,9 +174,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 int launch_fp32(const void* gates, const void* wt, const float* lo,
                 const float* hi, const float* ys, const float* g,
-                void* dxs, void* dhn, int T, int B, int H,
+                void* dxs, void* dhn, int T, int B, int H, int ndir,
                 cudaStream_t stream) {
-  const dim3 grid(B, 2);
+  const dim3 grid(B, ndir);
   const size_t smem = 2 * 3 * H * sizeof(float);
   if (H <= 256)
     gru_bwd_kernel<float, kChunkSmallH, 256><<<grid, H, smem, stream>>>(
@@ -243,7 +248,7 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
   const int c = static_cast<int>(tc::cluster_ctarank());
   const int G = 3 * H;
   const int d = blockIdx.y, group = blockIdx.x / C;
-  const int R = 2 * B;
+  const int R = gridDim.y * B;   // ndir * B
   constexpr int row_b = tc::row_bytes(kK);
   const uint32_t s_w = tc::smem_addr(smem);
   const uint32_t s_a = s_w + H * row_b;          // A [kM][kK]
@@ -374,10 +379,11 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * kU, 1)
 template <int kU>
 int launch_tc(const void* gates, const void* wb, const float* lo,
               const float* hi, const float* ys, const float* g, void* dxs,
-              void* dhn, int T, int B, int H, int C, cudaStream_t stream) {
+              void* dhn, int T, int B, int H, int ndir, int C,
+              cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   return tc::launch_clusters(
-      gru_bwd_tc_kernel<kU>, C, (B + tc::kRows - 1) / tc::kRows, 2,
+      gru_bwd_tc_kernel<kU>, C, (B + tc::kRows - 1) / tc::kRows, ndir,
       tc::kRows * kU, tc::bwd_smem(H, 3, kU), stream,
       static_cast<const __nv_bfloat16*>(gates),
       static_cast<const __nv_bfloat16*>(wb), lo, hi, ys, g,
@@ -387,28 +393,29 @@ int launch_tc(const void* gates, const void* wb, const float* lo,
 
 }  // namespace
 
-// gates [T, 2B, 4H], dxs [T, 2B, 3H], dhn [T, 2B, H] and the weights all
-// fp32 (the FMA kernel: wt [2, 3H, H], W transposed) or, when bf16 != 0,
-// all bf16 (the cluster kernel: wb [2, C, H, 3, H/C], C = H /
-// gru_bwd_units(H) blocks a cluster, ops/rnn_cuda.py's gru_plan; unread
-// under fp32); lo/hi [2B], ys (the carries; h_prev is read one step back)
-// and g [T, 2B, H] fp32. Requires
-// 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1 (the wrapper checks).
+// gates [T, ndir*B, 4H], dxs [T, ndir*B, 3H], dhn [T, ndir*B, H] and the
+// weights all fp32 (the FMA kernel: wt [ndir, 3H, H], W transposed) or,
+// when bf16 != 0, all bf16 (the cluster kernel: wb [ndir, C, H, 3, H/C],
+// C = H / gru_bwd_units(H) blocks a cluster, ops/rnn_cuda.py's gru_plan;
+// unread under fp32); lo/hi [ndir*B], ys (the carries; h_prev is read one
+// step back) and g [T, ndir*B, H] fp32. Requires 32 <= H <= 512,
+// H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_gru_bwd(const void* gates, const void* wt, const float* lo,
                         const float* hi, const float* ys, const float* g,
-                        void* dxs, void* dhn, int T, int B, int H, int C,
-                        int bf16, cudaStream_t stream) {
+                        void* dxs, void* dhn, int T, int B, int H, int ndir,
+                        int C, int bf16, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
+  if (ndir != 1 && ndir != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (!bf16)
-    return launch_fp32(gates, wt, lo, hi, ys, g, dxs, dhn, T, B, H,
+    return launch_fp32(gates, wt, lo, hi, ys, g, dxs, dhn, T, B, H, ndir,
                        stream);
   if (C * tc::gru_bwd_units(H) != H)
     return static_cast<int>(cudaErrorInvalidValue);
   if (tc::gru_bwd_units(H) == 16)
-    return launch_tc<16>(gates, wt, lo, hi, ys, g, dxs, dhn, T, B, H, C,
-                         stream);
+    return launch_tc<16>(gates, wt, lo, hi, ys, g, dxs, dhn, T, B, H, ndir,
+                         C, stream);
   return launch_tc<tc::kUnits>(gates, wt, lo, hi, ys, g, dxs, dhn, T, B,
-                               H, C, stream);
+                               H, ndir, C, stream);
 }
 
 // The cluster backward's plan as the card takes it: out[0] = its shared

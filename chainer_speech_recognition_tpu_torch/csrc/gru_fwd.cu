@@ -23,8 +23,9 @@
 // in-step, which is the same value; the cluster kernel takes it in slices,
 // below), lo/hi [R] fp32 -> ys [T, R, H] fp32.
 // Rows [d*B, (d+1)*B) use w[d]: ndir = 2 for a bidirectional layer, 1 for a
-// forward-only one (the TPU path duplicates the one W instead, which needs
-// an even R; one stream at batch 1 has R = 1). Row r is live at step t iff
+// forward-only one, in every form (the TPU path duplicates the one W
+// instead, which needs an even R, and sums the two halves' dW; one stream
+// at batch 1 has R = 1). Row r is live at step t iff
 // lo[r] <= t < hi[r], and its h is frozen otherwise. The recurrent product
 // rounds h (and w) to the compute dtype and accumulates in fp32, exactly as
 // _dot2; the carry and the gate math (_gru_gates) stay fp32, and h0 seeds
@@ -466,17 +467,18 @@ CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
                                      nullptr, T, B, H, ndir, 0, stream);
 }
 
-// As csr_gru_fwd with ndir = 2, plus gates [T, 2B, 4H] in the stream dtype
-// (the dtype of xs) out: (r, z, n, hp_n) of every step, live or not.
+// As csr_gru_fwd (ndir 1 or 2 likewise: a forward-only layer runs its one
+// W over its B rows), plus gates [T, ndir*B, 4H] in the stream dtype (the
+// dtype of xs) out: (r, z, n, hp_n) of every step, live or not.
 CSR_API int csr_gru_fwd_train(const void* xs, const void* w, const float* lo,
                               const float* hi, float* ys, void* gates, int T,
-                              int B, int H, int C, int bf16,
+                              int B, int H, int ndir, int C, int bf16,
                               cudaStream_t stream) {
   if (bf16)
     return launch_tc<true, false>(xs, w, lo, hi, nullptr, ys, gates, nullptr,
-                                  T, B, H, 2, 0, C, stream);
+                                  T, B, H, ndir, 0, C, stream);
   return launch<float, true, false>(xs, w, lo, hi, nullptr, ys, gates,
-                                    nullptr, T, B, H, 2, 0, stream);
+                                    nullptr, T, B, H, ndir, 0, stream);
 }
 
 // The cluster forward's plan as the card takes it: out[0] = its shared

@@ -1,10 +1,11 @@
-// Bidirectional LSTM recurrence, backward (reverse-time gradient walk).
+// LSTM recurrence (bidirectional or forward-only), backward (reverse-time
+// gradient walk).
 //
 // Replaces ops/rnn_pallas.py::_lstm_bwd_kernel (the custom VJP's backward,
-// _birnn_bwd's LSTM branch). Same boundary but one stream: gates [T, R=2B,
-// 4H] = (i, f, o, u) from the training forward (csrc/lstm_fwd.cu, stream
-// dtype), the recurrent weights (laid out for each kernel, below), lo/hi
-// [R] fp32, cs [T, R, H] fp32 (the cell states) and g
+// _birnn_bwd's LSTM branch). Same boundary but one stream: gates [T,
+// R=ndir*B, 4H] = (i, f, o, u) from the training forward (csrc/lstm_fwd.cu,
+// stream dtype), the recurrent weights (laid out for each kernel, below),
+// lo/hi [R] fp32, cs [T, R, H] fp32 (the cell states) and g
 // [T, R, H] fp32 (the gradient of the layer's ys). The reference also takes
 // c_prev, the cell states shifted by one step with zeros first; here a
 // step reads cs one step back (0 at t = 0) instead. Out: dxs [T, R, 4H] in
@@ -12,6 +13,8 @@
 // du), masked to the live steps; they are the gradient of xs and of the
 // recurrent pre-activations, so dW = sum_t h_prev^T dxs is one matmul after
 // the kernel, off the sequential path, as the TPU kernel leaves it to XLA.
+// Rows [d*B, (d+1)*B) use w[d], ndir 2 or, for a forward-only layer, 1 (its
+// one W, not duplicated as on the TPU path).
 //
 // Per step and row, with dh and dc the carried gradients (fp32):
 //   dh_total = g[t] + dh,         tc = tanh(c_t)
@@ -92,7 +95,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int d = blockIdx.y;       // direction
   const int rr = d * B + blockIdx.x;
   const int j = threadIdx.x;      // hidden unit
-  const int R = 2 * B;
+  const int R = gridDim.y * B;   // ndir * B
   const int G = 4 * H;
   const Q* wd = wtq + static_cast<int64_t>(d) * H * H;  // [H quads][H]
   const float lo_r = lo[rr];
@@ -168,8 +171,8 @@ constexpr int kChunkQuads = 8;
 
 int launch_fp32(const void* gates, const void* wtq, const float* lo,
                 const float* hi, const float* cs, const float* g, void* dxs,
-                int T, int B, int H, cudaStream_t stream) {
-  const dim3 grid(B, 2);
+                int T, int B, int H, int ndir, cudaStream_t stream) {
+  const dim3 grid(B, ndir);
   const size_t smem = 2 * 4 * H * sizeof(float);
   if (H <= 384)
     lstm_bwd_kernel<float, kChunkQuads, 384><<<grid, H, smem, stream>>>(
@@ -231,7 +234,7 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
   const int c = static_cast<int>(tc::cluster_ctarank());
   const int G = 4 * H;
   const int d = blockIdx.y, group = blockIdx.x / C;
-  const int R = 2 * B;
+  const int R = gridDim.y * B;   // ndir * B
   constexpr int row_b = tc::row_bytes(kK);
   const uint32_t s_w = tc::smem_addr(smem);
   const uint32_t s_a = s_w + H * row_b;          // A [kM][kK]
@@ -358,22 +361,24 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
 
 }  // namespace
 
-// gates [T, 2B, 4H], dxs [T, 2B, 4H] and the weights all fp32 (the FMA
-// kernel: wtq [2, H, H, 4]) or, when bf16 != 0, all bf16 (the cluster
-// kernel: wb [2, C, H, 4, 32], C = H / 32 blocks a cluster,
-// ops/rnn_cuda.py's lstm_plan; unread under fp32); lo/hi [2B], cs and g
-// [T, 2B, H] fp32. Requires 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1
-// (the wrapper checks).
+// gates [T, ndir*B, 4H], dxs [T, ndir*B, 4H] and the weights all fp32 (the
+// FMA kernel: wtq [ndir, H, H, 4]) or, when bf16 != 0, all bf16 (the
+// cluster kernel: wb [ndir, C, H, 4, 32], C = H / 32 blocks a cluster,
+// ops/rnn_cuda.py's lstm_plan; unread under fp32); lo/hi [ndir*B], cs and
+// g [T, ndir*B, H] fp32. Requires 32 <= H <= 512, H % 32 == 0, T >= 1,
+// B >= 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_lstm_bwd(const void* gates, const void* wtq, const float* lo,
                          const float* hi, const float* cs, const float* g,
-                         void* dxs, int T, int B, int H, int C, int bf16,
-                         cudaStream_t stream) {
+                         void* dxs, int T, int B, int H, int ndir, int C,
+                         int bf16, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
+  if (ndir != 1 && ndir != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (!bf16)
-    return launch_fp32(gates, wtq, lo, hi, cs, g, dxs, T, B, H, stream);
+    return launch_fp32(gates, wtq, lo, hi, cs, g, dxs, T, B, H, ndir,
+                       stream);
   if (C * tc::kUnits != H) return static_cast<int>(cudaErrorInvalidValue);
   return tc::launch_clusters(
-      lstm_bwd_tc_kernel, C, (B + tc::kRows - 1) / tc::kRows, 2,
+      lstm_bwd_tc_kernel, C, (B + tc::kRows - 1) / tc::kRows, ndir,
       tc::kRows * tc::kUnits, tc::bwd_smem(H), stream,
       static_cast<const __nv_bfloat16*>(gates),
       static_cast<const __nv_bfloat16*>(wtq), lo, hi, cs, g,

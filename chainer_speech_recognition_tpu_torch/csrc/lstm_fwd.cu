@@ -470,18 +470,19 @@ CSR_API int csr_lstm_fwd(const void* xs, const void* wq, const float* lo,
                                      stream);
 }
 
-// As csr_lstm_fwd with ndir = 2, plus cs [T, 2B, H] fp32 and gates
-// [T, 2B, 4H] in the stream dtype (the dtype of xs) out: c and (i, f, o, u)
-// of every step, live or not.
+// As csr_lstm_fwd (ndir 1 or 2 likewise), plus cs [T, ndir*B, H] fp32 and
+// gates [T, ndir*B, 4H] in the stream dtype (the dtype of xs) out: c and
+// (i, f, o, u) of every step, live or not.
 CSR_API int csr_lstm_fwd_train(const void* xs, const void* wq,
                                const float* lo, const float* hi, float* ys,
                                float* cs, void* gates, int T, int B, int H,
-                               int C, int bf16, cudaStream_t stream) {
+                               int ndir, int C, int bf16,
+                               cudaStream_t stream) {
   if (bf16)
     return launch_tc<true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
-                                  nullptr, T, B, H, 2, 0, C, stream);
+                                  nullptr, T, B, H, ndir, 0, C, stream);
   return launch<float, true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
-                                    nullptr, T, B, H, 2, 0, stream);
+                                    nullptr, T, B, H, ndir, 0, stream);
 }
 
 // The cluster forward's plan as the card takes it: out[0] = its shared

@@ -29,6 +29,14 @@ How each component streams, as in the reference:
   right edge (the latency-controlled BiRNN approximation, exact when a
   window reaches the utterance end). A forward-only stack (``uni_gru``)
   streams exactly at zero lookahead.
+* **Chunk-causal attention** (``conformer_stream``, ``attn_chunk > 0``):
+  the emit region is one attention chunk and the lookahead lives inside
+  it (``right_frames`` must be 0); each block carries the post-RoPE keys
+  and values of the last ``attn_left_chunks`` chunks and the causal
+  conv's tail, and the model carries each row's positions (the model's
+  ``init_stream_carries`` / ``reset_stream_rows``), so streaming equals
+  the offline chunk-masked computation exactly. Global-attention models
+  refuse to stream.
 * **Greedy CTC collapse**: argmax per frame with the previous chunk's last
   raw frame id carried, so repeats collapse across boundaries.
 * **Prefix beam search** (``decoder="beam"``, optional LM fusion): the

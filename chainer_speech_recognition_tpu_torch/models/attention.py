@@ -1,6 +1,7 @@
-"""Conformer blocks (port of ``models/attention.py``, the offline call): a
-macaron block is ½FFN → MHSA → conv module → ½FFN → final LayerNorm over
-a ``[B, T, d]`` residual stream, padded frames zeroed on exit.
+"""Conformer blocks (port of ``models/attention.py``: the offline call and
+the chunk-causal streaming step): a macaron block is ½FFN → MHSA → conv
+module → ½FFN → final LayerNorm over a ``[B, T, d]`` residual stream,
+padded frames zeroed on exit.
 
 As in the reference: every dense layer computes in the compute dtype with
 fp32 parameters (``rnn.linear``); LayerNorm statistics are fp32, with
@@ -21,8 +22,23 @@ their plain versions on CPU tensors), ``"einsum"`` the einsum path below
 (the reference's XLA path, the model's own torch code), ``"auto"`` the
 kernels on a CUDA tensor when ``attention_cuda.supports(T, dh)`` holds
 (T' > 512: the reference's long-form policy) and the einsum path
-otherwise. The streaming step (KV caches, conv tails, ``pos0``) is not
-ported: ``AcousticModel`` refuses streaming calls of attention models.
+otherwise.
+
+The streaming step of a chunk-causal block (``chunk > 0``, the
+``conformer_stream`` preset; ``decode/streaming.py``) takes one chunk and
+the block's carries ``(k_cache, v_cache, conv_tail)``, as the reference's:
+q and k rotate at each row's global position ``pos0``; the post-RoPE k and
+v of the chunk, in the compute dtype, follow the ``[B, P, h, dh]`` caches
+(P = chunk · left_chunks frames); the keys attendable are ``cache_mask ++
+mask`` with no pattern mask (the key extent IS the chunk-causal window);
+the scores are fp32, masked at −1e30, with the softmax in fp32 and the
+probabilities in the compute dtype; the caches roll to the last P keys and
+values, padded frames included by position (``cache_mask`` keeps them
+unattendable). The depthwise conv runs VALID over ``[tail ++ chunk]`` and
+the new tail is the last k − 1 post-GLU, post-mask frames. A streaming
+step never takes the flash kernels (``ROUTED`` counts it under
+``einsum``), as the reference's streaming step always takes its einsum
+path.
 
 Module names mirror the flax tree (``bridge.py``): ``ffn1/{in,out}``,
 ``ln_ffn1``, ``mhsa/{qkv,out}``, ``ln_mhsa``, ``conv/{pw_in,dw,ln,
@@ -120,7 +136,9 @@ class ConvModule(nn.Module):
         self.ln = _layer_norm(d)
         self.pw_out = nn.Linear(d, d)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask, h_tail=None):
+        """Offline → out; streaming (``h_tail`` [B, k−1, d], the previous
+        chunk's post-GLU tail) → (out, new_tail)."""
         d = x.shape[-1]
         gates = linear(x, self.pw_in, self.dtype)
         h = gates[..., :d] * torch.sigmoid(gates[..., d:])
@@ -128,17 +146,25 @@ class ConvModule(nn.Module):
         # leak through its receptive field
         h = h * mask[:, :, None].to(h.dtype)
         k = self.kernel
-        pad = (k - 1, 0) if self.causal else ((k - 1) // 2, k // 2)
+        if h_tail is not None:
+            # VALID over [tail ++ chunk]: a zero tail is the causal left pad
+            h = torch.cat([h_tail.to(h.dtype), h], dim=1)     # [B, k−1+T, d]
+            new_tail = h[:, -(k - 1):]
+            pad = (0, 0)
+        else:
+            pad = (k - 1, 0) if self.causal else ((k - 1) // 2, k // 2)
         h = F.conv1d(F.pad(h.transpose(1, 2), pad),
                      self.dw.weight.to(self.dtype),
                      self.dw.bias.to(self.dtype), groups=d).transpose(1, 2)
         h = F.silu(layer_norm(h, self.ln)).to(self.dtype)
-        return linear(h, self.pw_out, self.dtype)
+        out = linear(h, self.pw_out, self.dtype)
+        return out if h_tail is None else (out, new_tail)
 
 
 class MHSA(nn.Module):
     """Multi-head self-attention with RoPE and the key-padding mask (and
-    the chunk-causal pattern when ``chunk > 0``), offline call."""
+    the chunk-causal pattern when ``chunk > 0``): the offline call, and
+    with ``kv_cache`` the streaming step over one chunk."""
 
     def __init__(self, d: int, heads: int, dtype: torch.dtype,
                  chunk: int = 0, left_chunks: int = 0, impl: str = "auto"):
@@ -153,7 +179,11 @@ class MHSA(nn.Module):
         return self.impl == "flash" or (
             self.impl == "auto" and x.is_cuda and supports(T, dh))
 
-    def forward(self, x, mask, lengths):
+    def forward(self, x, mask, lengths, kv_cache=None, cache_mask=None,
+                pos0=None):
+        """Offline → out [B, T, d]; streaming (``kv_cache`` = (k, v)
+        [B, P, h, dh] in the compute dtype, ``cache_mask`` [B, P] bool,
+        ``pos0`` [B] int32) → (out, (new_k, new_v))."""
         B, T, d = x.shape
         h = self.heads
         dh = d // h
@@ -162,7 +192,16 @@ class MHSA(nn.Module):
         q = qkv[..., :d].reshape(B, T, h, dh)
         k = qkv[..., d:2 * d].reshape(B, T, h, dh)
         v = qkv[..., 2 * d:].reshape(B, T, h, dh)
-        q, k = rope(q), rope(k)
+        q, k = rope(q, pos0=pos0), rope(k, pos0=pos0)
+        if kv_cache is not None:
+            ROUTED["einsum"] += 1
+            P = kv_cache[0].shape[1]
+            k_all = torch.cat([kv_cache[0], k.to(self.dtype)], dim=1)
+            v_all = torch.cat([kv_cache[1], v.to(self.dtype)], dim=1)
+            key_ok = torch.cat([cache_mask, mask], dim=1)    # [B, P + T]
+            out = einsum_attention(q, k_all, v_all, key_ok)
+            out = linear(out.reshape(B, T, d), self.out, self.dtype)
+            return out, (k_all[:, -P:], v_all[:, -P:])
         if self.takes_kernel(x):
             ROUTED["flash"] += 1
             out = flash_mhsa(q, k, v, lengths, self.chunk, self.left_chunks)
@@ -174,9 +213,10 @@ class MHSA(nn.Module):
 
 
 def einsum_attention(q, k, v, mask, chunk: int = 0, left_chunks: int = 0):
-    """The offline einsum path (the reference's XLA path): [B, T, h, dh]
-    q, k, v in the compute dtype and the [B, T] key mask → [B, T, h, dh]
-    in v's dtype, through the [B, h, T, T] fp32 scores."""
+    """The einsum path (the reference's XLA path): [B, T, h, dh] q and
+    [B, S, h, dh] k, v in the compute dtype and the [B, S] key mask → [B,
+    T, h, dh] in v's dtype, through the [B, h, T, S] fp32 scores (S = T
+    offline; the streaming step's S = P + T keys, ``chunk`` 0)."""
     T, dh = q.shape[1], q.shape[-1]
     # fp32 scores of the compute-dtype q and k
     scores = torch.einsum("bthd,bshd->bhts", q.to(torch.float32),
@@ -192,7 +232,9 @@ def einsum_attention(q, k, v, mask, chunk: int = 0, left_chunks: int = 0):
 
 class ConformerBlock(nn.Module):
     """One macaron block: [B, T, d] residual stream in, same out (padded
-    frames zeroed)."""
+    frames zeroed). A streaming step of a chunk-causal block passes
+    ``carries`` (k_cache, v_cache, conv_tail), ``cache_mask`` [B, P] and
+    ``pos0`` [B] and gets (out, new carries)."""
 
     def __init__(self, d: int, heads: int = 4, ff_mult: int = 4,
                  conv_kernel: int = 15, dtype: torch.dtype = torch.bfloat16,
@@ -210,7 +252,8 @@ class ConformerBlock(nn.Module):
         self.ln_ffn2 = _layer_norm(d)
         self.ln_out = _layer_norm(d)
 
-    def forward(self, x, lengths):
+    def forward(self, x, lengths, carries=None, cache_mask=None, pos0=None):
+        stream = carries is not None
         mask = time_mask(x.shape[1], lengths)               # [B, T]
         rdt = self.residual_dtype
         x = x.to(rdt)
@@ -220,9 +263,21 @@ class ConformerBlock(nn.Module):
 
         x = x + (0.5 * self.ffn1(pre(self.ln_ffn1, x)).to(torch.float32)
                  ).to(rdt)
-        x = x + self.mhsa(pre(self.ln_mhsa, x), mask, lengths).to(rdt)
-        x = x + self.conv(pre(self.ln_conv, x), mask).to(rdt)
+        if stream:
+            att, new_kv = self.mhsa(pre(self.ln_mhsa, x), mask, lengths,
+                                    kv_cache=carries[:2],
+                                    cache_mask=cache_mask, pos0=pos0)
+        else:
+            att = self.mhsa(pre(self.ln_mhsa, x), mask, lengths)
+        x = x + att.to(rdt)
+        if stream:
+            cv, new_tail = self.conv(pre(self.ln_conv, x), mask,
+                                     h_tail=carries[2])
+        else:
+            cv = self.conv(pre(self.ln_conv, x), mask)
+        x = x + cv.to(rdt)
         x = x + (0.5 * self.ffn2(pre(self.ln_ffn2, x)).to(torch.float32)
                  ).to(rdt)
         x = layer_norm(x, self.ln_out).to(rdt)
-        return x * mask[:, :, None].to(x.dtype)
+        x = x * mask[:, :, None].to(x.dtype)
+        return (x, (*new_kv, new_tail)) if stream else x

@@ -9,9 +9,13 @@ with V including the CTC blank at index 0. The streaming call
 new_carries)``) and its helpers (``subsample_factor``,
 ``init_stream_carries``, ``reset_stream_rows``, ``conv_receptive_margin``,
 ``conv_right_margin``) serve ``decode/streaming.py``. GLU blocks raise at
-construction; attention models (``conformer``, ``conformer_stream``) run
-the offline call only: their streaming call and stream carries (KV caches,
-conv tails) are not ported yet and raise, rather than stream without them.
+construction. A chunk-causal attention model (``conformer_stream``,
+``attn_chunk > 0``) streams on the reference's carries: ``[pos0,
+total_valid, seg_start]`` ([B] int32: each row's global subsampled index of
+the window's first frame, the frames fed so far, the first frame of the
+open utterance) and each block's ``[k_cache, v_cache, conv_tail]``, ahead
+of the RNN states; a global-attention model (``conformer``) refuses to
+stream, as in the reference.
 
 The port's state_dict names mirror the flax tree (``bridge.py`` maps one
 onto the other): ``subsampler.conv{i}`` ≘ ``ConvSubsampler_0/conv{i}``,
@@ -98,30 +102,61 @@ class AcousticModel(nn.Module):
                 rnn_carries=None, carry_at: int | None = None,
                 drop_left: int = 0):
         """Full-utterance call → (logits, lens). Streaming call
-        (decode/streaming.py): ``rnn_carries`` holds each RNN layer's
-        forward state carried from the previous chunk ([] for conv-only
-        models), ``carry_at`` the chunk length in subsampled frames and
-        ``drop_left`` the subsampled left-margin frames to drop after the
-        conv stack → (logits, lens, new_carries)."""
+        (decode/streaming.py): ``rnn_carries`` holds the flat stream state
+        carried from the previous chunk (``init_stream_carries``' layout;
+        [] for conv-only models), ``carry_at`` the chunk length in
+        subsampled frames and ``drop_left`` the subsampled left-margin
+        frames to drop after the conv stack → (logits, lens,
+        new_carries)."""
+        cfg = self.cfg
         stream = rnn_carries is not None
         if stream and carry_at is None:
             raise ValueError("streaming call needs carry_at")
-        if stream and self.n_attn:
-            self._refuse_attention_stream()
+        if stream and self.n_attn and not cfg.attn_chunk:
+            # full self-attention has a global receptive field: a chunked
+            # call cannot reproduce the offline computation
+            raise ValueError(
+                "global-attention presets do not support streaming "
+                "calls; train a chunk-causal preset (attn_chunk > 0, "
+                "e.g. conformer_stream) to serve attention online")
         x, lens = self.subsampler(feats, lengths)
         if drop_left:
             x = x[:, drop_left:]
             lens = torch.clamp(lens - drop_left, min=0)
+        new_carries = []
+        rnn_off = 0
         if self.n_attn:
             if self.attn_in is not None:
                 x = linear(x, self.attn_in, self.dtype)
+            cache_mask = pos0 = None
+            if stream:
+                # a cached key slot is attendable iff its global position
+                # has been fed real audio (< total_valid) and lies in the
+                # open utterance (>= seg_start); padded frames' k/v enter
+                # the rolled cache by position but are never attended
+                P = cfg.attn_chunk * cfg.attn_left_chunks
+                pos0, total_valid, seg_start = rnn_carries[:3]
+                kpos = (pos0[:, None] - P + torch.arange(
+                    P, dtype=torch.int32, device=pos0.device)[None, :])
+                cache_mask = ((kpos >= 0) & (kpos >= seg_start[:, None])
+                              & (kpos < total_valid[:, None]))
+                new_carries += [pos0 + cfg.attn_chunk,
+                                total_valid + lens.to(torch.int32),
+                                seg_start]
+                rnn_off = 3 + 3 * self.n_attn
             for i in range(self.n_attn):
-                x = getattr(self, f"conformer{i}")(x, lens)
-        new_carries = []
+                block = getattr(self, f"conformer{i}")
+                if stream:
+                    x, blk = block(x, lens,
+                                   carries=rnn_carries[3 + 3 * i:6 + 3 * i],
+                                   cache_mask=cache_mask, pos0=pos0)
+                    new_carries += list(blk)
+                else:
+                    x = block(x, lens)
         for i in range(self.n_rnn):
             layer = getattr(self, f"birnn{i}")
             if stream:
-                x, h = layer(x, lens, h0_fwd=rnn_carries[i],
+                x, h = layer(x, lens, h0_fwd=rnn_carries[rnn_off + i],
                              emit_carry_at=carry_at)
                 new_carries.append(h)
             else:
@@ -142,34 +177,61 @@ class AcousticModel(nn.Module):
             f *= s
         return f
 
-    def _refuse_attention_stream(self):
-        raise NotImplementedError(
-            "streaming the attention family (the KV-cache and conv-tail "
-            "carries of conformer_stream) is not ported yet (ROADMAP.md, "
-            "module queue: conformer_stream streaming); decode attention "
-            "models offline (cli/decode.py)")
-
     def init_stream_carries(self, batch: int) -> list:
-        """Zero stream state for a fresh stream: one forward-direction
-        state [batch, H] (GRU) or [batch, 2H] (LSTM h‖c) fp32 per RNN
-        layer, on the model's device; [] for conv-only models. Attention
-        models raise (their carries are not ported)."""
-        if self.n_attn:
-            self._refuse_attention_stream()
-        dim = self.cfg.rnn_hidden * (2 if self.cfg.rnn_type == "lstm" else 1)
+        """Zero stream state for a fresh stream, a flat list on the model's
+        device: a chunk-causal attention model's carries first (``[pos0,
+        total_valid, seg_start]`` [batch] int32, then for each block
+        ``[k_cache, v_cache]`` [batch, P, heads, dh] and ``conv_tail``
+        [batch, k − 1, d] in the compute dtype, P = attn_chunk ·
+        attn_left_chunks), then one forward-direction state [batch, H]
+        (GRU) or [batch, 2H] (LSTM h‖c) fp32 per RNN layer; [] for
+        conv-only models."""
+        cfg = self.cfg
         dev = self.output.weight.device
-        return [torch.zeros((batch, dim), dtype=torch.float32, device=dev)
-                for _ in range(self.n_rnn)]
+        carries: list = []
+        if self.n_attn and cfg.attn_chunk:
+            if cfg.attn_left_chunks < 1:
+                raise ValueError("attn_chunk > 0 needs attn_left_chunks >= 1")
+            P = cfg.attn_chunk * cfg.attn_left_chunks
+            dh = cfg.attn_dim // cfg.attn_heads
+            carries += [torch.zeros((batch,), dtype=torch.int32, device=dev)
+                        for _ in range(3)]
+            for _ in range(self.n_attn):
+                carries += [
+                    torch.zeros((batch, P, cfg.attn_heads, dh),
+                                dtype=self.dtype, device=dev),       # k
+                    torch.zeros((batch, P, cfg.attn_heads, dh),
+                                dtype=self.dtype, device=dev),       # v
+                    torch.zeros((batch, cfg.attn_conv_kernel - 1,
+                                 cfg.attn_dim), dtype=self.dtype,
+                                device=dev)]                          # conv
+        dim = cfg.rnn_hidden * (2 if cfg.rnn_type == "lstm" else 1)
+        carries += [torch.zeros((batch, dim), dtype=torch.float32, device=dev)
+                    for _ in range(self.n_rnn)]
+        return carries
 
     def reset_stream_rows(self, carries: list, rows) -> list:
-        """Endpoint reset (decode/streaming.py): the RNN states of ``rows``
-        return to zero (the offline left edge); other streams keep theirs.
-        Attention models raise, as in ``init_stream_carries``."""
-        if self.n_attn:
-            self._refuse_attention_stream()
-        out = [h.clone() for h in carries]
-        for h in out:
-            h[rows] = 0.0
+        """Endpoint reset (decode/streaming.py): a fresh utterance starts
+        on ``rows``; other streams keep their state. RNN states and the
+        causal-conv tails return to zero (the offline left edge); the KV
+        caches stay, and ``seg_start`` advances to the frames already fed,
+        so the keys before the boundary become unattendable. ``pos0`` and
+        ``total_valid`` keep counting: RoPE scores depend only on relative
+        offsets."""
+        out = list(carries)
+        off = 0
+        if self.n_attn and self.cfg.attn_chunk:
+            seg_start = carries[2].clone()
+            seg_start[rows] = carries[1][rows]
+            out[2] = seg_start
+            for i in range(self.n_attn):
+                j = 3 + 3 * i + 2                       # conv_tail
+                out[j] = carries[j].clone()
+                out[j][rows] = 0
+            off = 3 + 3 * self.n_attn
+        for i in range(off, len(carries)):
+            out[i] = carries[i].clone()
+            out[i][rows] = 0.0
         return out
 
     def conv_receptive_margin(self) -> int:

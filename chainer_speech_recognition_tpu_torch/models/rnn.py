@@ -10,7 +10,9 @@ reversal; both directions run as one ``[T, 2B, G·H]`` recurrence
 half is reversed back, and the output is masked. A forward-only layer
 (``bidirectional=False``, the ``uni_gru`` preset) has ``in_fwd`` and
 ``rec [1, H, G·H]`` only, runs a ``[T, B, G·H]`` recurrence (the kernels'
-direction count is ``rec``'s leading extent) and outputs ``[B, T, H]``.
+direction count is ``rec``'s leading extent, in every form, training
+included: its one W is not duplicated as on the TPU path) and outputs
+``[B, T, H]``.
 
 ``impl``: "pallas" takes the kernels' wrappers (the kernels on CUDA
 tensors, their plain versions on CPU tensors): ``BiGRUScan`` /
@@ -30,8 +32,8 @@ The streaming call (``h0_fwd``, ``emit_carry_at``) takes the stream form
 "scan"): forward rows seed from ``h0_fwd``, backward rows from zeros at the
 window's right edge, and it returns ``(out, h_fwd)``, the forward rows'
 state after ``emit_carry_at`` steps, frozen at padding like the reference's
-``h_carry``. It is inference only, and so is a forward-only layer: neither
-has a backward kernel yet, so both raise under autograd.
+``h_carry``. It is inference only: a streaming call under autograd
+raises (no path trains through a stream window).
 """
 
 from __future__ import annotations
@@ -118,12 +120,11 @@ class BiRNNLayer(nn.Module):
         ROUTED["scan" if use_scan else "kernel"] += 1
         if torch.is_grad_enabled() and (xs.requires_grad
                                         or self.rec.requires_grad):
-            if stream or not self.bidirectional:
+            if stream:
                 raise NotImplementedError(
-                    "streaming calls and forward-only layers are inference "
-                    "only: their training forward and backward (ndir = 1) "
-                    "are not ported yet (ROADMAP.md, module queue: "
-                    "forward-only training)")
+                    "streaming calls are inference only: no training path "
+                    "runs through a stream window; call the layer without "
+                    "h0_fwd/emit_carry_at to train it")
             ys = (plain if use_scan else function.apply)(
                 xs, self.rec, lo, hi, self.dtype)
         elif stream:

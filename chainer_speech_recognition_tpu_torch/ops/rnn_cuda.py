@@ -12,8 +12,9 @@ GRU, 4 for the LSTM):
                          rows [B, 2B) the time-reversed backward direction;
                          a forward-only layer (ndir = 1) has rows [0, B)
   w     [ndir, H, G·H] fp32 — recurrent weights per direction (ndir is w's
-                         leading extent: 2, or 1 for the forward-only
-                         inference and stream forms; training takes 2)
+                         leading extent: 2, or 1 for a forward-only layer,
+                         in every form: a forward-only layer runs its one
+                         W, where the TPU path duplicates it)
   lo/hi [R, 1]        fp32 — step t is live for a row iff lo ≤ t < hi
   ys    [T, R, H]     fp32 — the carries h, frozen outside [lo, hi)
   cs    [T, R, H]     fp32 — the LSTM cell states c, frozen likewise
@@ -55,8 +56,9 @@ LSTM's). The stream wrappers take the laid-out W from a cache kept per
 weight tensor (``stream_launch_args``), since a streaming window calls
 every layer once; the other wrappers lay it out at each call.
 
-``BiGRUScan`` and ``BiLSTMScan`` are ``birnn_pallas``'s custom VJP: the
-training forward, the backward kernel, then dW = Σ_t h_prevᵀ·dgate with
+``BiGRUScan`` and ``BiLSTMScan`` are ``birnn_pallas``'s custom VJP, for
+both direction counts: the training forward, the backward kernel, then
+dW = Σ_t h_prevᵀ·dgate with
 compute-dtype operands and fp32 accumulation (``_dw_einsum``; for the LSTM
 the masked dg is dxs itself) through ``rnn_dw``: under bf16 on the card
 the dW kernel (``csrc/dw.cu``, ``dw_cuda``), which reads ys and the gate
@@ -374,36 +376,39 @@ def gru_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
 
 
 def gru_scan_train_cuda(xs, w, lo, hi, compute_dtype):
-    """Training forward launch: (ys, gates); CUDA tensors only."""
-    T, B, H, sdt = _check_scan(xs, w, lo, hi, compute_dtype)
+    """Training forward launch: (ys, gates); CUDA tensors only; ndir =
+    w.shape[0]."""
+    ndir = w.shape[0]
+    T, B, H, sdt = _check_scan(xs, w, lo, hi, compute_dtype, ndir=ndir)
     wk, C = _gru_launch_args(w, B, compute_dtype, "fwd")
-    ys = torch.empty((T, 2 * B, H), dtype=torch.float32, device=xs.device)
-    gates = torch.empty((T, 2 * B, 4 * H), dtype=sdt, device=xs.device)
+    ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
+    gates = torch.empty((T, ndir * B, 4 * H), dtype=sdt, device=xs.device)
     _kernels.GRU_FWD_TRAIN.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), gates.data_ptr(), T, B, H, C,
+        ys.data_ptr(), gates.data_ptr(), T, B, H, ndir, C,
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys, gates
 
 
 def gru_bwd_cuda(gates, w, lo, hi, ys, g, compute_dtype):
-    """Backward kernel launch: (dxs, dhn); CUDA tensors only. The kernel
-    reads h_prev as ``ys`` one step back (zeros at t = 0), so no shifted
-    copy of ys is made."""
+    """Backward kernel launch: (dxs, dhn); CUDA tensors only; ndir =
+    w.shape[0]. The kernel reads h_prev as ``ys`` one step back (zeros at
+    t = 0), so no shifted copy of ys is made."""
     T, R, _ = gates.shape
-    H = w.shape[1]
-    sdt = _check_sizes(T, R, H, compute_dtype)
-    _check_weights(w, lo, hi, R, H)
+    ndir, H = w.shape[:2]
+    sdt = _check_sizes(T, R, H, compute_dtype, ndir=ndir)
+    _check_weights(w, lo, hi, R, H, ndir=ndir)
     _kernels.check_cuda_tensor("gates", gates, sdt, (T, R, 4 * H))
     _kernels.check_cuda_tensor("ys", ys, torch.float32, (T, R, H))
     _kernels.check_cuda_tensor("g", g, torch.float32, (T, R, H))
-    wk, C = _gru_launch_args(w, R // 2, compute_dtype, "bwd")
+    B = R // ndir
+    wk, C = _gru_launch_args(w, B, compute_dtype, "bwd")
     dxs = torch.empty((T, R, 3 * H), dtype=sdt, device=gates.device)
     dhn = torch.empty((T, R, H), dtype=sdt, device=gates.device)
     _kernels.GRU_BWD.launch(
         gates.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         ys.data_ptr(), g.data_ptr(), dxs.data_ptr(), dhn.data_ptr(),
-        T, R // 2, H, C, int(compute_dtype == torch.bfloat16),
+        T, B, H, ndir, C, int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(gates))
     return dxs, dhn
 
@@ -417,10 +422,10 @@ def _lstm_fwd_weights(w, compute_dtype):
 
 
 def _lstm_bwd_weights(w, compute_dtype):
-    """W [2, H, 4H] → the fp32 backward kernel's k-quads of Wᵀ, [2, H, H,
-    4]: element [d, k4, j, kk] is W[d, j, 4·k4 + kk]."""
-    H = w.shape[1]
-    return w.to(compute_dtype).reshape(2, H, H, 4).transpose(1, 2) \
+    """W [ndir, H, 4H] → the fp32 backward kernel's k-quads of Wᵀ, [ndir,
+    H, H, 4]: element [d, k4, j, kk] is W[d, j, 4·k4 + kk]."""
+    ndir, H = w.shape[:2]
+    return w.to(compute_dtype).reshape(ndir, H, H, 4).transpose(1, 2) \
         .contiguous()
 
 
@@ -434,7 +439,8 @@ def _fwd_tc_weights(w, C: int):
 
 
 def _bwd_tc_weights(w, C: int):
-    """W [2, H, G·H] → the bf16 cluster backward's slices [2, C, H, G, U]
+    """W [ndir, H, G·H] → the bf16 cluster backward's slices [ndir, C, H,
+    G, U]
     bf16, U = H / C: element [d, c, j, g, u] is W[d, j, g·H + c·U + u],
     block c's gate columns of every row j of W."""
     ndir, H, GH = w.shape
@@ -450,7 +456,8 @@ def lstm_fwd_tc_weights(w, C: int):
 
 
 def lstm_bwd_tc_weights(w, C: int):
-    """W [2, H, 4H] → the bf16 cluster backward's slices [2, C, H, 4, U]
+    """W [ndir, H, 4H] → the bf16 cluster backward's slices [ndir, C, H,
+    4, U]
     bf16, U = H / C: element [d, c, j, g, u] is W[d, j, g·H + c·U + u],
     block c's gate columns of every row j of W (``csrc/lstm_bwd.cu``)."""
     return _bwd_tc_weights(w, C)
@@ -464,7 +471,8 @@ def gru_fwd_tc_weights(w, C: int):
 
 
 def gru_bwd_tc_weights(w, C: int):
-    """W [2, H, 3H] → the bf16 cluster backward's slices [2, C, H, 3, U]
+    """W [ndir, H, 3H] → the bf16 cluster backward's slices [ndir, C, H,
+    3, U]
     bf16, U = H / C: element [d, c, j, g, u] is W[d, j, g·H + c·U + u]
     (``csrc/gru_bwd.cu``)."""
     return _bwd_tc_weights(w, C)
@@ -575,7 +583,7 @@ def _lstm_launch_args(w, B: int, compute_dtype, form: str):
 
 def _gru_launch_args(w, B: int, compute_dtype, form: str):
     """(weights as the kernel takes them, C) for a launch; C = 0 under
-    fp32: the FMA kernels take W (forward) or Wᵀ [2, 3H, H] (backward,
+    fp32: the FMA kernels take W (forward) or Wᵀ [ndir, 3H, H] (backward,
     so its reads coalesce)."""
     ndir, H = w.shape[:2]
     if compute_dtype != torch.bfloat16:
@@ -648,33 +656,37 @@ def lstm_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
 
 
 def lstm_scan_train_cuda(xs, w, lo, hi, compute_dtype):
-    """LSTM training forward launch: (ys, cs, gates); CUDA tensors only."""
-    T, B, H, sdt = _check_scan(xs, w, lo, hi, compute_dtype, "lstm")
+    """LSTM training forward launch: (ys, cs, gates); CUDA tensors only;
+    ndir = w.shape[0]."""
+    ndir = w.shape[0]
+    T, B, H, sdt = _check_scan(xs, w, lo, hi, compute_dtype, "lstm", ndir)
     wk, C = _lstm_launch_args(w, B, compute_dtype, "fwd")
-    ys = torch.empty((T, 2 * B, H), dtype=torch.float32, device=xs.device)
+    ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     cs = torch.empty_like(ys)
-    gates = torch.empty((T, 2 * B, 4 * H), dtype=sdt, device=xs.device)
+    gates = torch.empty((T, ndir * B, 4 * H), dtype=sdt, device=xs.device)
     _kernels.LSTM_FWD_TRAIN.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), cs.data_ptr(), gates.data_ptr(), T, B, H, C,
+        ys.data_ptr(), cs.data_ptr(), gates.data_ptr(), T, B, H, ndir, C,
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys, cs, gates
 
 
 def lstm_bwd_cuda(gates, w, lo, hi, cs, g, compute_dtype):
-    """LSTM backward kernel launch: dxs; CUDA tensors only."""
+    """LSTM backward kernel launch: dxs; CUDA tensors only; ndir =
+    w.shape[0]."""
     T, R, _ = gates.shape
-    H = w.shape[1]
-    sdt = _check_sizes(T, R, H, compute_dtype, "lstm")
-    _check_weights(w, lo, hi, R, H, 4)
+    ndir, H = w.shape[:2]
+    sdt = _check_sizes(T, R, H, compute_dtype, "lstm", ndir)
+    _check_weights(w, lo, hi, R, H, 4, ndir)
     _kernels.check_cuda_tensor("gates", gates, sdt, (T, R, 4 * H))
     for name, t in (("cs", cs), ("g", g)):
         _kernels.check_cuda_tensor(name, t, torch.float32, (T, R, H))
-    wk, C = _lstm_launch_args(w, R // 2, compute_dtype, "bwd")
+    B = R // ndir
+    wk, C = _lstm_launch_args(w, B, compute_dtype, "bwd")
     dxs = torch.empty((T, R, 4 * H), dtype=sdt, device=gates.device)
     _kernels.LSTM_BWD.launch(
         gates.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        cs.data_ptr(), g.data_ptr(), dxs.data_ptr(), T, R // 2, H, C,
+        cs.data_ptr(), g.data_ptr(), dxs.data_ptr(), T, B, H, ndir, C,
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(gates))
     return dxs
 
@@ -766,17 +778,20 @@ def shift_prev(ys: torch.Tensor) -> torch.Tensor:
 
 
 def dw_matmul(h_prev, dgate, B: int, compute_dtype):
-    """dW[d] = Σ_t h_prev[t, d-rows]ᵀ · dgate[t, d-rows] → [2, H, G] with
-    compute-dtype operands and fp32 accumulation (``_dw_einsum``): the
-    operands are rounded to the compute dtype and multiplied in fp32, where
-    a product of two bf16 values is exact."""
+    """dW[d] = Σ_t h_prev[t, d-rows]ᵀ · dgate[t, d-rows] → [ndir, H, G],
+    ndir = rows / B (2, or 1 for a forward-only layer), with compute-dtype
+    operands and fp32 accumulation (``_dw_einsum``): the operands are
+    rounded to the compute dtype and multiplied in fp32, where a product of
+    two bf16 values is exact. A forward-only layer's dW is the TPU path's
+    sum of its duplicated halves: the same products of the same rows."""
     acc = _acc_dtype(compute_dtype)
     hp = h_prev.to(compute_dtype).to(acc)
     dg = dgate.to(compute_dtype).to(acc)
     H, G = hp.shape[-1], dg.shape[-1]
     return torch.stack([
-        hp[:, :B].reshape(-1, H).T @ dg[:, :B].reshape(-1, G),
-        hp[:, B:].reshape(-1, H).T @ dg[:, B:].reshape(-1, G)])
+        hp[:, d * B:(d + 1) * B].reshape(-1, H).T
+        @ dg[:, d * B:(d + 1) * B].reshape(-1, G)
+        for d in range(hp.shape[1] // B)])
 
 
 def dw_plain(ys, dgate, B: int, compute_dtype):
@@ -790,15 +805,15 @@ class DwPlan(NamedTuple):
     frames: int         # kt: frames a K-tile (kt · bc % 16 == 0, <= 64)
     ktiles: int         # K-tiles a direction (frames 1 .. T - 1)
     split: int          # S: blocks a cluster along K
-    tiles: int          # output tiles of 128 x 128, both directions
+    tiles: int          # output tiles of 128 x 256, all directions
     smem: int           # dynamic shared memory a block, bytes
 
 
-def dw_plan(T: int, B: int, H: int, N: int) -> DwPlan:
-    """The dW kernel's launch shape at (T, B, H, N) on this card, as the
-    library (``csr_dw_plan``) computes it; needs the card."""
+def dw_plan(T: int, B: int, H: int, N: int, ndir: int = 2) -> DwPlan:
+    """The dW kernel's launch shape at (T, B, H, N, ndir) on this card, as
+    the library (``csr_dw_plan``) computes it; needs the card."""
     out = (ctypes.c_int * 6)()
-    err = _kernels.call("csr_dw_plan", T, B, H, N, out)
+    err = _kernels.call("csr_dw_plan", T, B, H, N, ndir, out)
     if err:
         raise RuntimeError(f"csr_dw_plan: CUDA error {err}")
     return DwPlan(*out)
@@ -824,16 +839,20 @@ def _check_gate_slice(name: str, g, T: int, R: int) -> None:
 
 
 def dw_cuda(ys, dgates, B: int) -> torch.Tensor:
-    """dW kernel launch (CUDA tensors only, bf16 compute): ``ys`` [T, 2B,
-    H] fp32 itself (not shifted) and one or two bf16 gate gradients [T, 2B,
-    G_i], which may be column slices of a wider tensor, → one fp32 [2, H,
-    Σ G_i] tensor, the second's columns after the first's (the GRU's
+    """dW kernel launch (CUDA tensors only, bf16 compute): ``ys`` [T,
+    ndir·B, H] fp32 itself (not shifted; ndir 2, or 1 for a forward-only
+    layer) and one or two bf16 gate gradients [T, ndir·B, G_i], which may
+    be column slices of a wider tensor, → one fp32 [ndir, H, Σ G_i]
+    tensor, the second's columns after the first's (the GRU's
     ``dxs[..., :2H]`` and ``dhn`` in one launch, no cat)."""
     T, R, H = ys.shape
-    if not 1 <= len(dgates) <= 2 or R != 2 * B or B < 1 or H % 4:
-        raise ValueError(f"dw kernel: need ys [T, 2B, H] with H % 4 == 0 "
-                         f"and one or two gate tensors (got ys "
-                         f"{tuple(ys.shape)}, B={B}, {len(dgates)} gates)")
+    if (not 1 <= len(dgates) <= 2 or B < 1 or R not in (B, 2 * B)
+            or H % 4):
+        raise ValueError(f"dw kernel: need ys [T, ndir·B, H], ndir 1 or 2, "
+                         f"with H % 4 == 0 and one or two gate tensors (got "
+                         f"ys {tuple(ys.shape)}, B={B}, {len(dgates)} "
+                         "gates)")
+    ndir = R // B
     _kernels.check_cuda_tensor("ys", ys, torch.float32, (T, R, H))
     for i, g in enumerate(dgates):
         _check_gate_slice(f"dgate[{i}]", g, T, R)
@@ -843,17 +862,19 @@ def dw_cuda(ys, dgates, B: int) -> torch.Tensor:
     if n2 and n1 % 64:
         raise ValueError(f"dw kernel: the first of two gate tensors needs "
                          f"G % 64 == 0 (got {n1})")
-    out = torch.empty((2, H, n1 + n2), dtype=torch.float32, device=ys.device)
+    out = torch.empty((ndir, H, n1 + n2), dtype=torch.float32,
+                      device=ys.device)
     _kernels.DW.launch(ys.data_ptr(), g1.data_ptr(), g1.stride(1), n1,
                        g2.data_ptr(), g2.stride(1), n2, out.data_ptr(), T, B,
-                       H, _kernels.stream_ptr(ys))
+                       H, ndir, _kernels.stream_ptr(ys))
     return out
 
 
 def rnn_dw(ys, dgates, B: int, compute_dtype) -> torch.Tensor:
-    """The recurrent weights' gradient of a BiRNN layer, [2, H, Σ G_i]
-    fp32: on the card under bf16 compute the dW kernel, one launch for all
-    ``dgates``; on the card under fp32 the plain product (fp32
+    """The recurrent weights' gradient of a GRU or LSTM layer, [ndir, H,
+    Σ G_i] fp32 (ndir = rows of ys / B): on the card under bf16 compute the
+    dW kernel, one launch for all ``dgates``; on the card under fp32 the
+    plain product (fp32
     ``torch.matmul``: a plain large product, as the fp32 recurrences keep
     their FMA kernels); on the CPU the plain version."""
     if ys.is_cuda and compute_dtype == torch.bfloat16:
@@ -879,8 +900,8 @@ class BiGRUScan(torch.autograd.Function):
     def backward(ctx, gy):
         w, lo, hi, ys, gates = ctx.saved_tensors
         cdt = ctx.compute_dtype
-        H = w.shape[1]
-        B = ys.shape[1] // 2
+        ndir, H = w.shape[:2]
+        B = ys.shape[1] // ndir
         dxs, dhn = gru_bwd(gates, w, lo, hi, ys, gy.to(ys.dtype), cdt)
         dw = rnn_dw(ys, (dxs[..., :2 * H], dhn), B, cdt)
         return dxs, dw.to(w.dtype), None, None, None
@@ -901,7 +922,7 @@ class BiLSTMScan(torch.autograd.Function):
     def backward(ctx, gy):
         w, lo, hi, ys, cs, gates = ctx.saved_tensors
         cdt = ctx.compute_dtype
-        B = ys.shape[1] // 2
+        B = ys.shape[1] // w.shape[0]
         dxs = lstm_bwd(gates, w, lo, hi, cs, gy.to(ys.dtype), cdt)
         dw = rnn_dw(ys, (dxs,), B, cdt)                # dg ≡ dxs (masked)
         return dxs, dw.to(w.dtype), None, None, None

@@ -9,8 +9,9 @@ attention family, ``conformer`` and ``conformer_stream`` offline (phases
 from a pack, the evaluate CLI), config 4 on ``bigru`` (phase 23:
 prefix beam search with LM fusion, offline and streaming), training
 from the device-resident corpus, the default data mode (phase 24), and
-data-parallel training, config 5 (phase 25), with random weights made
-from a seed, and
+data-parallel training, config 5 (phase 25), and the online presets end
+to end (phases 26-28: the one-direction training forms, uni_gru training,
+conformer_stream streaming), with random weights made from a seed, and
 fails (exit code != 0, no result line) if any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
@@ -225,6 +226,33 @@ fails (exit code != 0, no result line) if any phase fails:
     NCCL or of the capture fails the run. Its wall is printed against a
     30 s budget, and the whole run's wall on a line before the kernel
     table.
+26. the one-direction training forms (ndir = 1, a forward-only layer's
+    one W over its B rows): the GRU training forward and backward at
+    uni_gru's training shape (B = 24, T' = 256, H = 256) and the LSTM's
+    at H = 384, each against its plain version at the bars of phases 7
+    and 11 (the gradients' plus 2^-7 of their largest |value|), dW on
+    their own ys and gradients (``dw_check``), both plans,
+    and the pair timed beside cuDNN's unidirectional training forward and
+    backward in alternating rounds of graph replays (the kernel line's
+    ``ndir1`` sub-entries);
+27. the forward-only presets' training: uni_gru through the train CLI in
+    the default data mode as phase 24 runs its presets (24 steps, exact
+    launches: 4 gru_fwd_train, 4 gru_bwd and 4 dw a step, the dev eval,
+    the step-16 checkpoint resumed to 24 bitwise), one step card vs CPU
+    at phase 9's bars, and bilstm_deep with
+    ``model.rnn_bidirectional=false`` for one dispatch of 8 steps with
+    exact launches;
+28. conformer_stream online: a random-weight full-width checkpoint (8
+    blocks, d = 256, chunk 16, left 4, causal CMVN) through the stream CLI
+    (--batch 32 --chunk-frames 64, default --right-frames), greedy and
+    --beam 8 --lm with every beam launch held to the plain version, exact
+    launches (the front-end and the beam once a window; the streaming
+    step takes no flash launch), warm reruns' utt/s and window latency;
+    the chained window logits of 4 wavs against the offline chunk-masked
+    logits (einsum) at the bf16 bar of phase 16 and, at fp32 compute, at
+    phase 19's fp32 bar, and the streamed transcripts equal to the offline
+    argmax's wherever it has no near-tie.
+    Phases 26-28's walls are printed against a 40 s budget.
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -371,7 +399,15 @@ SOURCES = {
 # the kernels line's notes: dw replaces an XLA einsum, not a Pallas call
 NOTES = {"dw": "replaces _dw_einsum, an XLA einsum (not a Pallas call); "
                "timed at bilstm_deep's training layer, launches from its "
-               "training run",
+               "training run; ndir1_gru / ndir1_lstm: the one-direction "
+               "form at uni_gru's layer and a forward-only LSTM layer of "
+               "384, launches from phase 27's runs",
+         **{name: "ndir1: the one-direction training form (a forward-only "
+                  "layer's one W over its B rows), timed at B = 24, T' = "
+                  "256 (H 256 GRU, 384 LSTM) beside cuDNN's unidirectional "
+                  "training call, launches from phase 27's forward-only "
+                  "runs" for name in ("gru_fwd_train", "gru_bwd",
+                                      "lstm_fwd_train", "lstm_bwd")},
          "beam": "replaces _beam_step in the lax.scan of _beam_decode_jit "
                  "and _beam_chunk_jit (not a Pallas call); timed at the "
                  "decode shape with the dense 3-gram, launches from the "
@@ -942,6 +978,7 @@ def dw_check(tag: str, dev, ys, gates, B: int) -> dict:
 
     T, R, H = ys.shape
     N = sum(g.shape[2] for g in gates)
+    dirs = range(R // B)                 # 2, or 1 for a forward-only layer
     got = dw_cuda(ys, gates, B)
     again = dw_cuda(ys, gates, B)
     plain = torch.cat([dw_plain(ys, g, B, torch.bfloat16) for g in gates],
@@ -949,7 +986,7 @@ def dw_check(tag: str, dev, ys, gates, B: int) -> dict:
     hp = shift_prev(ys).to(torch.bfloat16)
     g64 = torch.cat([g.double() for g in gates], dim=2)
     ops = [(hp[:, d * B:(d + 1) * B].reshape(-1, H).double(),
-            g64[:, d * B:(d + 1) * B].reshape(-1, N)) for d in (0, 1)]
+            g64[:, d * B:(d + 1) * B].reshape(-1, N)) for d in dirs]
     ref = torch.stack([a.T @ b for a, b in ops])
     bar = T * B * 2.0 ** -23 * torch.stack([a.abs().T @ b.abs()
                                             for a, b in ops])
@@ -963,7 +1000,7 @@ def dw_check(tag: str, dev, ys, gates, B: int) -> dict:
           f"bar {ex_ref:.3e} vs the fp64 sum (bar K·2^-23·Σ|h·g|, K = "
           f"{T * B}), {ex_plain:.3e} vs the plain version (2·bar; max abs "
           f"{err:.3e}); two runs bitwise equal: {same_bits(got, again)}; "
-          f"plan {dw_plan(T, B, H, N)}")
+          f"plan {dw_plan(T, B, H, N, len(dirs))}")
     check(bool(torch.isfinite(got).all()), "dw: non-finite")
     check(ex_ref <= 1 and ex_plain <= 1, "dw disagrees")
     check(same_bits(got, again), "dw: two runs differ")
@@ -974,10 +1011,10 @@ def dw_check(tag: str, dev, ys, gates, B: int) -> dict:
         return d[0] if len(d) == 1 else torch.cat(d, dim=2)
 
     a = torch.stack([hp[:, d * B:(d + 1) * B].reshape(-1, H)
-                     for d in (0, 1)]).transpose(1, 2)          # [2, H, K]
+                     for d in dirs]).transpose(1, 2)          # [ndir, H, K]
     gb = torch.cat(list(gates), dim=2)
     b = torch.stack([gb[:, d * B:(d + 1) * B].reshape(-1, N)
-                     for d in (0, 1)]).contiguous()              # [2, K, N]
+                     for d in dirs]).contiguous()              # [ndir, K, N]
     library = lambda: torch.bmm(a, b, out_dtype=torch.float32)
     lib_err = float((library() - plain).abs().max())
     fns = {"dw": lambda: dw_cuda(ys, gates, B), "parent chain": chain,
@@ -1364,6 +1401,148 @@ def phase_lstm_train_kernels(dev, rng) -> dict:
               f"(graph), bound {t['bound_ms']:.5f} ms ({t['bound_by']}), "
               f"share {t['bound_ms'] / t['ms']:.4f}")
     print(f"[lstm-train-kernels] T' = {T}, B = {B}, H = {H}")
+    return out
+
+
+def phase_uni_train_kernels(dev, rng) -> dict:
+    """Phase 26: the one-direction training forms (ndir = 1: a forward-only
+    layer's one W over its B rows) of the GRU at uni_gru's training shape
+    and of the LSTM at bilstm_deep's width (B = 24, T' = 256, bf16): the
+    training forward and the backward (on the plain forward's residuals
+    and on the kernel's own) against their plain versions at the bars of
+    phases 7 and 11 (the gradients' 5e-2 plus 2^-7 of their largest |value|:
+    over 256 steps the bf16-rounded carries drift in proportion to the
+    gradients' scale), dW on the kernels' own ys and gradients
+    (``dw_check``), both plans printed, and the pair timed beside cuDNN's
+    unidirectional training forward and backward in alternating rounds of
+    graph replays → {"gru": {...}, "lstm": {...}} of the kernel line's
+    ``ndir1`` timings (dw under "dw")."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.models.conv import (
+        conv_out_length)
+    from chainer_speech_recognition_tpu_torch.ops import rnn_cuda as rc
+
+    t_phase = time.perf_counter()
+    cdt, B = torch.bfloat16, TRAIN_B
+    out = {}
+    for cell, preset in (("gru", UNI_PRESET), ("lstm", LSTM_PRESET)):
+        tag = f"uni-train-kernels {cell}"
+        cfg = preset_config(preset)
+        H, G = cfg.model.rnn_hidden, 3 if cell == "gru" else 4
+        fwd, fwd_p = (getattr(rc, f"{cell}_scan_train_cuda"),
+                      getattr(rc, f"{cell}_scan_train_plain"))
+        bwd, bwd_p = getattr(rc, f"{cell}_bwd_cuda"), getattr(
+            rc, f"{cell}_bwd_plain")
+        samples = rng.uniform(*TRAIN_SECONDS, B) * C.SAMPLE_RATE
+        flen = torch.from_numpy((samples.astype(np.int64) // C.HOP_LENGTH)
+                                + 1)
+        T = TRAIN_FRAMES
+        for st in cfg.model.conv_stride_time:
+            flen = conv_out_length(flen, st)
+            T = -(-T // st)
+        lo = torch.zeros(B, 1, device=dev)
+        hi = flen.to(torch.float32)[:, None].to(dev)
+        w = torch.from_numpy((rng.standard_normal((1, H, G * H))
+                              / np.sqrt(H)).astype(np.float32)).to(dev)
+        xs = torch.from_numpy(rng.standard_normal(
+            (T, B, G * H)).astype(np.float32)).to(dev).to(cdt)
+        g = torch.from_numpy(rng.standard_normal(
+            (T, B, H)).astype(np.float32)).to(dev)
+        res = fwd(xs, w, lo, hi, cdt)
+        res_p = fwd_p(xs, w, lo, hi, cdt)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t.float()).all()) for t in res),
+              f"{cell} ndir 1 training forward: non-finite")
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(res, res_p))
+        print(f"[{tag}] {cell}_fwd_train ndir 1 xs {tuple(xs.shape)} -> "
+              f"{[tuple(t.shape) for t in res]}: max abs {err:.3e} (tol "
+              f"{TOL['gru_bf16']})")
+        check(err <= TOL["gru_bf16"], f"{cell} ndir 1 training forward "
+              "disagrees")
+        ys, ys_p = res[0], res_p[0]
+        # the backward's arguments: the GRU reads h_prev from ys in place
+        # (the plain version takes shift_prev), the LSTM reads cs
+        if cell == "gru":
+            args = (res_p[1], w, lo, hi, ys_p, g, cdt)
+            plain_args = (res_p[1], w, lo, hi, rc.shift_prev(ys_p), g, cdt)
+            own = (res[1], w, lo, hi, ys, g, cdt)
+        else:
+            args = plain_args = (res_p[2], w, lo, hi, res_p[1], g, cdt)
+            own = (res[2], w, lo, hi, res[1], g, cdt)
+        want = bwd_p(*plain_args)
+        want = want if cell == "gru" else (want,)
+        # the bf16 gradients: TOL's 5e-2 plus 2^-7 of the gradient's
+        # largest |value|: each step rounds the carried gradient's operands
+        # to bf16 on both sides, so over T' = 256 steps they drift apart in
+        # proportion to the gradients' scale (|dxs| passes 16: ulp 0.125)
+        gerr = gex = 0.0
+        for a in (args, own):
+            got = bwd(*a)
+            got = got if cell == "gru" else (got,)
+            torch.cuda.synchronize()
+            check(all(bool(torch.isfinite(t.float()).all()) for t in got),
+                  f"{cell} ndir 1 backward: non-finite")
+            gerr = max([gerr] + [float((x.float() - y.float()).abs().max())
+                                 for x, y in zip(got, want)])
+            gex = max([gex] + [excess(x, y, 2 ** -7, TOL["gru_grad_bf16"],
+                                      scale=y.float().abs().max())
+                               for x, y in zip(got, want)])
+        print(f"[{tag}] {cell}_bwd ndir 1 -> {[tuple(t.shape) for t in got]}"
+              f": max abs {gerr:.3e}, {gex:.3f} of the bar "
+              f"{TOL['gru_grad_bf16']} + 2^-7·max|b| (on the plain and the "
+              f"kernel's residuals); |dxs| max "
+              f"{float(want[0].float().abs().max()):.3f}")
+        check(gex <= 1, f"{cell} ndir 1 backward disagrees")
+        dgates = (got[0][..., :2 * H], got[1]) if cell == "gru" else got
+        dw = dw_check(tag, dev, ys, dgates, B)
+        print_rnn_plan(cell, tag, H, B, 1, "fwd")
+        print_rnn_plan(cell, tag, H, B, 1, "bwd")
+        lib = library_rnn_fns(cell, dev, T, B, H, flen, cdt, ndir=1)
+        rounds = rnn_graph_rounds(
+            tag, {"fwd_train": lambda: fwd(xs, w, lo, hi, cdt),
+                  "bwd": lambda: bwd(*args)},
+            {n: lib[n] for n in ("training forward", "forward+backward")})
+        med = {n: statistics.median(r) for n, r in rounds.items()}
+        live = int(flen.sum())
+        esz = xs.element_size()
+        w_bytes = w.numel() * esz
+        n_res = 4 * H * esz + (4 * H if cell == "lstm" else 0)
+        # the forward reads xs and W and writes ys and the residuals; the
+        # backward reads the residuals (gates; cs or h_prev) and g, writes
+        # the gate gradients
+        f_bytes = live * (G * H * esz + 4 * H + n_res) + w_bytes + nbytes(
+            lo, hi)
+        b_bytes = live * (n_res + (0 if cell == "lstm" else 4 * H) + 4 * H
+                          + G * H * esz + (H * esz if cell == "gru" else 0)
+                          ) + w_bytes + nbytes(lo, hi)
+        out[cell] = {
+            "fwd_train": dict(
+                max_abs_err=err, ms=med["fwd_train"],
+                plain_ms=time_ms(lambda: fwd_p(xs, w, lo, hi, cdt),
+                                 warmup=1, reps=3),
+                library_ms=med["cuDNN training forward"],
+                **bound(f_bytes, 2 * live * H * G * H, "bf16")),
+            "bwd": dict(
+                max_abs_err=gerr, ms=med["bwd"],
+                plain_ms=time_ms(lambda: bwd_p(*plain_args), warmup=1,
+                                 reps=3),
+                library_ms=med["cuDNN backward"],
+                **bound(b_bytes, 2 * live * G * H * H, "bf16")),
+            "dw": dw}
+        for name in ("fwd_train", "bwd"):
+            t = out[cell][name]
+            print(f"[{tag}] {cell}_{name} ndir 1: {t['ms']:.4f} ms (graph), "
+                  f"plain {t['plain_ms']:.4f} ms, cuDNN unidirectional "
+                  f"{t['library_ms']:.4f} ms (graph), bound "
+                  f"{t['bound_ms']:.5f} ms ({t['bound_by']}), share "
+                  f"{t['bound_ms'] / t['ms']:.4f}")
+        print(f"[{tag}] T' = {T}, B = {B}, H = {H}, ndir = 1")
+    print(f"[uni-train-kernels] phase 26 took "
+          f"{time.perf_counter() - t_phase:.3f} s")
     return out
 
 
@@ -2162,7 +2341,8 @@ def phase_train_parity(dev, index: str, preset: str,
     from chainer_speech_recognition_tpu_torch.vocab import Vocab
 
     tag = {PRESET: "train-parity", LSTM_PRESET: "lstm-train-parity",
-           CONF_PRESET: "conformer-train-parity"}[preset]
+           CONF_PRESET: "conformer-train-parity",
+           UNI_PRESET: "uni-train-parity"}[preset]
     cfg = preset_config(preset).override(overrides or {})
     utts = load_index(index)
     vocab = Vocab.load(os.path.join(os.path.dirname(index), "vocab.txt"))
@@ -2792,6 +2972,191 @@ def phase_conformer_stream_decode(root, vocab, long_wavs, long_s, dev,
         long_s, {"frontend_logmel": 1, "greedy": 1, "flash_fwd": blocks})
     phase_parity(ckpt, long_wavs, dev, "conformer_stream-parity")
     return launches
+
+
+def near_tie_free(logits, lens, gap: float) -> list[bool]:
+    """Per utterance: whether every live frame's best logit leads the
+    second by more than ``gap`` (no argmax a small error could flip)."""
+    import torch
+
+    top2 = torch.topk(logits, 2, dim=-1).values
+    lead = (top2[..., 0] - top2[..., 1]).cpu()
+    return [bool((lead[b, : int(lens[b])] > gap).all())
+            for b in range(logits.shape[0])]
+
+
+def phase_conformer_stream_online(root, vocab, wavs, audio_s, dev,
+                                  rng) -> dict:
+    """Phase 28: conformer_stream served online through the stream CLI on
+    the card: a random-weight full-width checkpoint (8 blocks, d = 256,
+    chunk 16, left 4, causal CMVN), the 64 wavs in lockstep batches of 32
+    at --chunk-frames 64 with the default --right-frames (0: the lookahead
+    lives inside the chunk), greedy, then --beam 8 --lm (the dense 3-gram)
+    with every beam launch held to the plain version; exact launches (the
+    front-end once a window, the beam once a window, nothing else: the
+    streaming step takes the einsum path); warm reruns' utt/s and window
+    latency; the chained window logits of 4 wavs against the offline
+    chunk-masked logits (``attn_impl=einsum``) of the same checkpoint at
+    the bf16 bar of phase 16, and at fp32 compute (the same weights) at
+    the fp32 bar of phase 19; the streamed transcripts equal the offline
+    argmax's wherever it has no near-tie. → the greedy run's launches."""
+    import wave
+
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.cli import stream
+    from chainer_speech_recognition_tpu_torch.cli.decode import load_model
+    from chainer_speech_recognition_tpu_torch.decode.greedy import (
+        greedy_decode)
+    from chainer_speech_recognition_tpu_torch.frontend import select_frontend
+    from chainer_speech_recognition_tpu_torch.ops import attention_cuda
+    from chainer_speech_recognition_tpu_torch.utils.wav import read_wav
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
+
+    t_phase = time.perf_counter()
+    tag = "cstream-online"
+    ckpt = write_checkpoint(root, CONF_STREAM, rng,
+                            {"features.cmvn_mode": "causal",
+                             "features.cmvn": True})
+    lens = []
+    for w in wavs:
+        with wave.open(w, "rb") as f:
+            lens.append(f.getnframes())
+    order = sorted(lens)
+    windows = sum(-(-C.num_frames(max(order[i : i + BATCH])) // STREAM_CHUNK)
+                  for i in range(0, len(order), BATCH))
+    base = ["--ckpt-dir", ckpt, "--vocab", vocab, "--device", "cuda",
+            "--batch", str(BATCH), "--chunk-frames", str(STREAM_CHUNK),
+            "--timing", *wavs]
+    walls = {}
+    results = {}
+    arpa = train_arpa(root, vocab, rng, 3)
+    for mode, extra in (("greedy", []), ("beam", [
+            "--beam", str(BEAM_WIDTH), "--lm", arpa, "--lm-alpha",
+            str(BEAM_ALPHA), "--lm-beta", str(BEAM_BETA)])):
+        want = {k: 0 for k in _kernels.KERNELS}
+        want["frontend_logmel"] = windows
+        if mode == "beam":
+            want["beam"] = windows
+        diffs: list = []
+        routed = dict(attention_cuda.ROUTED)
+        _kernels.reset_launches()
+        with beam_checked(diffs):
+            lines, err, cold = run_cli(stream.main, base + extra)
+        launches = _kernels.launches()
+        check_launches(f"{tag} {mode}", launches, want)
+        check(attention_cuda.ROUTED["flash"] == routed["flash"],
+              "a streaming step took the flash kernels")
+        check(len(diffs) == want["beam"], "not every stream beam launch was "
+              "checked")
+        check([l.split("\t")[0] for l in lines] == wavs and all(
+            len(l.split("\t")) == 2 for l in lines), f"{mode} stream output")
+        check(any(l.split("\t")[1] for l in lines),
+              f"every {mode} transcript is empty")
+        check("effective geometry" not in err, f"default geometry: {err!r}")
+        lines2, err2, warm = run_cli(stream.main, base + extra)
+        check(lines2 == lines, f"warm {mode} stream differs from the cold")
+        timing = [l for l in err2.splitlines() if "window latency" in l]
+        check(len(timing) == 1, f"no --timing line in {err2!r}")
+        walls[mode] = (cold, warm)
+        results[mode] = (launches, lines)
+        print(f"[{tag}] {mode}: {windows} windows (chunk {STREAM_CHUNK} = "
+              f"one attention chunk of 16, right 0), launches exact "
+              f"{ {k: v for k, v in launches.items() if v} }"
+              + (f" (each beam launch equal to the plain version)"
+                 if mode == "beam" else "")
+              + f"; cold {cold:.3f} s, warm {warm:.3f} s: "
+              f"{len(wavs) / warm:.3f} utt/s, RTF {warm / audio_s:.6f}; "
+              f"{timing[0]}")
+    # the chained window logits against the offline chunk-masked logits
+    cfg, model, _ = load_model(ckpt, device=dev)
+    for i in range(cfg.model.attn_blocks):
+        getattr(model, f"conformer{i}").mhsa.impl = "einsum"
+    sigs = [read_wav(w) for w in wavs]
+    got = stream_window_logits(model, cfg, sigs[:PARITY_WAVS], 0)
+    offline, off_lens = [], []
+    fe = select_frontend(cfg.features)
+    for i in range(0, len(sigs), BATCH):
+        part = sigs[i : i + BATCH]
+        n = np.asarray([len(x) for x in part], np.int32)
+        x = np.zeros((len(part), int(n.max())), np.float32)
+        for j, sg in enumerate(part):
+            x[j, : len(sg)] = sg
+        with torch.inference_mode():
+            feats, fl = fe(torch.from_numpy(x).to(dev),
+                           torch.from_numpy(n).to(dev),
+                           apply_cmvn=cfg.features.cmvn_arg)
+            lg, ol = model(feats, fl)
+        offline += [lg[b, : int(ol[b])].float() for b in range(len(part))]
+        off_lens += [int(v) for v in ol]
+    want_l = [o.cpu() for o in offline[:PARITY_WAVS]]
+    check([g.shape for g in got] == [w.shape for w in want_l],
+          f"chained window logits {[tuple(g.shape) for g in got]} vs "
+          f"offline {[tuple(w.shape) for w in want_l]}")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "non-finite stream logits")
+    lerr = max(float((g - w).abs().max()) for g, w in zip(got, want_l))
+    print(f"[{tag}] chained window logits of {len(got)} wavs "
+          f"{[tuple(g.shape) for g in got]} card vs the offline chunk-masked"
+          f" logits (einsum): max abs {lerr:.3e} (tol {TOL['gru_bf16']}), "
+          f"|logits| max {max(float(w.abs().max()) for w in want_l):.3f}")
+    check(lerr <= TOL["gru_bf16"], "conformer_stream window logits disagree "
+          "with the offline ones")
+    # the same weights at fp32 compute: the stream is the offline function,
+    # so its window logits meet the fp32 bar
+    from chainer_speech_recognition_tpu_torch.models.presets import (
+        build_model)
+
+    cfg32 = cfg.override({"model.compute_dtype": "float32",
+                          "model.attn_residual_dtype": "float32",
+                          "model.attn_impl": "einsum"})
+    model32 = build_model(cfg32.model)
+    model32.load_state_dict(model.state_dict())
+    model32.to(dev).eval()
+    got32 = stream_window_logits(model32, cfg32, sigs[:PARITY_WAVS], 0)
+    err32 = 0.0
+    for j, sg in enumerate(sigs[:PARITY_WAVS]):
+        with torch.inference_mode():
+            feats, fl = fe(torch.from_numpy(sg[None]).to(dev),
+                           torch.tensor([len(sg)], dtype=torch.int32,
+                                        device=dev),
+                           apply_cmvn=cfg32.features.cmvn_arg)
+            lg, ol = model32(feats, fl)
+        want32 = lg[0, : int(ol[0])].float().cpu()
+        check(got32[j].shape == want32.shape, "fp32 stream logits' shape")
+        err32 = max(err32, float((got32[j] - want32).abs().max()))
+    print(f"[{tag}] at fp32 compute, the same weights: window logits vs "
+          f"offline max abs {err32:.3e} (tol {TOL['attn_fp32']})")
+    check(err32 <= TOL["attn_fp32"], "conformer_stream fp32 window logits "
+          "disagree with the offline ones")
+    # greedy transcripts against the offline argmax, where it has no
+    # near-tie (a lead of more than twice the bar)
+    vocab_obj = Vocab.load(vocab)
+    Tmax = max(off_lens)
+    padded = torch.zeros(len(offline), Tmax, offline[0].shape[1],
+                         device=dev)
+    for b, o in enumerate(offline):
+        padded[b, : o.shape[0]] = o
+    olens = torch.tensor(off_lens, device=dev)
+    ids, n_ids = greedy_decode(padded, olens.to(torch.int32))
+    texts = [vocab_obj.decode(ids[b, : int(n_ids[b])].tolist())
+             for b in range(len(offline))]
+    clean = near_tie_free(padded, olens, 2 * TOL["gru_bf16"])
+    streamed = [l.split("\t")[1] for l in results["greedy"][1]]
+    same = [a == b for a, b in zip(streamed, texts)]
+    print(f"[{tag}] streamed vs offline greedy transcripts: "
+          f"{sum(same)}/{len(same)} equal; {sum(clean)} utterances without "
+          f"a near-tie (lead > {2 * TOL['gru_bf16']}), all of them equal: "
+          f"{all(s for s, c in zip(same, clean) if c)}")
+    check(all(s for s, c in zip(same, clean) if c),
+          "a streamed transcript without a near-tie differs from offline")
+    took = time.perf_counter() - t_phase
+    print(f"[{tag}] phase 28 took {took:.3f} s (greedy cold/warm "
+          f"{walls['greedy'][0]:.3f}/{walls['greedy'][1]:.3f} s, beam "
+          f"{walls['beam'][0]:.3f}/{walls['beam'][1]:.3f} s)")
+    return results["greedy"][0]
 
 
 def _result_line(lines: list[str], prefix: str = "") -> dict:
@@ -3474,13 +3839,13 @@ def third_dispatch_s(ev: list) -> float:
 
 
 def phase_cached_preset(root: str, data: str, preset: str, sets=(),
-                        resume: bool = True) -> tuple[float, float]:
-    """One preset through the train CLI in phase 24 → (warm step wall s,
-    busy share). The default program trains 24 steps: the log line, exact
-    launches, the busy share over the profiled replay of steps 8-15 and
-    the step wall from the third dispatch (a replay with no eval,
-    checkpoint or profiler inside it: timed from the end of the step-16
-    checkpoint). The run checkpoints at 16 too (the replay check and
+                        resume: bool = True) -> tuple[float, float, dict]:
+    """One preset through the train CLI in phase 24 (and uni_gru's in
+    phase 27) → (warm step wall s, busy share, the run's launches). The
+    default program trains 24 steps: the log line, exact launches, the
+    busy share over the profiled replay of steps 8-15 and the step wall
+    from the third dispatch (a replay with no eval, checkpoint or
+    profiler inside it: timed from the end of the step-16 checkpoint). The run checkpoints at 16 too (the replay check and
     phase 25 hold it); with ``resume``, a copy of that checkpoint resumed
     to 24 must end bitwise where the run ended."""
     import shutil
@@ -3552,7 +3917,7 @@ def phase_cached_preset(root: str, data: str, preset: str, sets=(),
               f"{rgap:.3e} (bar: bitwise) [a run of {w_res:.3f} s]")
         check(rgap == 0, f"{preset}: the resumed run differs from the "
               f"unbroken one by {rgap:.3e}")
-    return step_s, busy
+    return step_s, busy, launches
 
 
 SEEDED: dict = {}      # model config → the weights drawn from SEED (CPU)
@@ -3856,7 +4221,7 @@ def phase_device_cache(root: str, data: str, dev,
                          (CONF_PRESET, ("model.attn_impl=flash",))):
         walls[preset] = phase_cached_preset(root, data, preset, sets,
                                             resume=preset != CONF_PRESET)
-    for preset, (step_s, busy) in walls.items():
+    for preset, (step_s, busy, _) in walls.items():
         s_step, s_busy = stream_walls[preset]
         print(f"[cache] {preset}: step {step_s * 1e3:.3f} ms, busy "
               f"{busy:.4f} (device_cache, graphs) vs {s_step * 1e3:.3f} ms, "
@@ -3884,6 +4249,53 @@ def phase_device_cache(root: str, data: str, dev,
     took = time.perf_counter() - t_phase
     print(f"[cache] phase 24 took {took:.3f} s (budget {CACHE_BUDGET_S} s: "
           f"{'within' if took <= CACHE_BUDGET_S else 'OVER'})")
+
+
+# phase 27: the forward-only presets' training through the train CLI
+ONLINE_BUDGET_S = 40.0    # phases 26-28 together
+UNI_LSTM_SETS = ("model.rnn_bidirectional=false",)   # bilstm_deep, ndir 1
+UNI_LSTM_STEPS = 8                                    # one dispatch
+
+
+def phase_uni_train(root: str, data: str, dev, index: str) -> dict:
+    """Phase 27: uni_gru (4 forward-only GRU layers of 256, bf16) through
+    the train CLI in the default data mode as phase 24 trains its presets
+    (``phase_cached_preset``: 24 steps with the step-16 checkpoint, exact
+    launches — 4 gru_fwd_train, 4 gru_bwd and 4 dw a step, all ndir 1 —
+    the dev eval, the busy share, a copy of the step-16 checkpoint resumed
+    to 24 bitwise); one step card vs CPU at phase 9's bars; then
+    bilstm_deep with ``model.rnn_bidirectional=false`` (5 forward-only
+    LSTM layers of 384, SpecAugment on) for one dispatch of 8 steps with
+    exact launches → {"gru": the uni_gru run's launches, "lstm": the
+    forward-only LSTM run's}."""
+    from chainer_speech_recognition_tpu_torch.cli.common import (
+        parse_overrides)
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    t_phase = time.perf_counter()
+    step_s, busy, gru = phase_cached_preset(root, data, UNI_PRESET)
+    phase_train_parity(dev, index, UNI_PRESET)
+    cfg = preset_config(LSTM_PRESET).override(parse_overrides(
+        list(UNI_LSTM_SETS)))
+    check(cfg.model.rnn_bidirectional is False, "forward-only LSTM config")
+    ev, lstm, wall, _ = cached_train(
+        data, "uni_lstm", root, LSTM_PRESET, UNI_LSTM_STEPS,
+        [*UNI_LSTM_SETS, "train.log_every=1",
+         f"train.eval_every={UNI_LSTM_STEPS}"])
+    train = [e for e in ev if e["kind"] == "train"]
+    check([e["step"] for e in train] == [UNI_LSTM_STEPS]
+          and np.isfinite(train[0]["loss"]) and train[0]["grad_norm"] > 0,
+          f"forward-only LSTM: dispatch metrics {train}")
+    check_launches("uni-lstm-train", lstm, cached_want(
+        cfg, UNI_LSTM_STEPS, -(-DEV_UTTS // TRAIN_B), -(-TRAIN_UTTS // 32)))
+    print(f"[uni-train] bilstm_deep forward-only ({cfg.model.rnn_layers} "
+          f"layers of {cfg.model.rnn_hidden}, ndir 1): {UNI_LSTM_STEPS} "
+          f"steps in {wall:.3f} s (cache build and capture included), loss "
+          f"{train[0]['loss']:.4f}, launches exact "
+          f"{ {k: v for k, v in lstm.items() if v} }")
+    print(f"[uni-train] uni_gru warm step {step_s * 1e3:.3f} ms, busy "
+          f"{busy:.4f}; phase 27 took {time.perf_counter() - t_phase:.3f} s")
+    return {"gru": gru, "lstm": lstm}
 
 
 # phase 25, config 5: data-parallel training on the card's one H100
@@ -4143,6 +4555,10 @@ def main() -> int:
         timings.update(phase_train_kernels(dev, rng))
         timings.update(phase_lstm_kernels(dev, lrng))
         timings.update(phase_lstm_train_kernels(dev, lrng))
+        # the one-direction training forms draw from a stream of their own
+        t_new = time.perf_counter()
+        uni_t = phase_uni_train_kernels(dev, np.random.default_rng(SEED + 6))
+        new_walls = {26: time.perf_counter() - t_new}
         timings.update(phase_stream_kernels(dev, srng))
         # the attention phases draw from a stream of their own
         crng = np.random.default_rng(SEED + 3)
@@ -4176,6 +4592,12 @@ def main() -> int:
                 root, vocab, wavs, audio_s, long_wavs, long_s, dev, crng)
             phase_conformer_stream_decode(root, vocab, long_wavs, long_s,
                                           dev, crng)
+            # conformer_stream online draws from a stream of its own
+            t_new = time.perf_counter()
+            cs_stream = phase_conformer_stream_online(
+                root, vocab, wavs, audio_s, dev,
+                np.random.default_rng(SEED + 7))
+            new_walls[28] = time.perf_counter() - t_new
             conf_train, _, stream_walls[CONF_PRESET] = phase_train(
                 root, data, CONF_PRESET,
                 extra_sets=("model.attn_impl=flash",))
@@ -4189,6 +4611,9 @@ def main() -> int:
                 np.random.default_rng(SEED + 5))
             phase_device_cache(root, data, dev, stream_walls)
             phase_dp(root, data)
+            t_new = time.perf_counter()
+            uni_launches = phase_uni_train(root, data, dev, index)
+            new_walls[27] = time.perf_counter() - t_new
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]
@@ -4201,6 +4626,20 @@ def main() -> int:
         launches["flash_bwd_dq"] = conf_train["flash_bwd_dq"]
         launches["flash_bwd_dkv"] = conf_train["flash_bwd_dkv"]
         launches["beam"] = beam_launches
+        check(cs_stream["frontend_logmel"] > 0, "conformer_stream online: "
+              "no front-end launch")
+        # the one-direction training forms: sub-entries of their kernels,
+        # timed in phase 26, launched by phase 27's runs
+        for name, cell, form in (("gru_fwd_train", "gru", "fwd_train"),
+                                 ("gru_bwd", "gru", "bwd"),
+                                 ("lstm_fwd_train", "lstm", "fwd_train"),
+                                 ("lstm_bwd", "lstm", "bwd")):
+            n = uni_launches[cell][name]
+            check(n > 0, f"{name} ndir 1: no launch on the training path")
+            timings[name]["ndir1"] = {"launches": n, **uni_t[cell][form]}
+        for cell in ("gru", "lstm"):
+            timings["dw"][f"ndir1_{cell}"] = {
+                "launches": uni_launches[cell]["dw"], **uni_t[cell]["dw"]}
         loaded = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "optax",
@@ -4209,6 +4648,12 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"[chip_smoke] the online presets' phases: " + ", ".join(
+        f"{k} {new_walls[k]:.3f} s" for k in sorted(new_walls))
+        + f", together {sum(new_walls.values()):.3f} s (budget "
+        f"{ONLINE_BUDGET_S} s: "
+        + ("within" if sum(new_walls.values()) <= ONLINE_BUDGET_S
+           else "OVER") + ")")
     print(f"[chip_smoke] the whole run took {time.perf_counter() - t_run:.3f}"
           " s (the kernels' build included)")
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],

@@ -5,8 +5,10 @@ mask, the feed-forward and conv modules, MHSA and the whole block under
 ``impl`` einsum and flash (the Pallas kernel in interpret mode on the JAX
 side, the kernels' plain versions on the port's), chunk 0 and 16/2,
 residual stream fp32 and bf16. Bars: fp32 1e-5 (modules) and 3e-5 (the
-block's eight sums), bf16 3e-2. Also the refusals of the streaming call
-and of the stream CLI for ``conformer_stream``."""
+block's eight sums), bf16 3e-2. Also the streaming call: refused for
+global attention, run for ``conformer_stream`` (through the model, the
+recognizer and the stream CLI; tests/test_torch_attention_stream.py holds
+the stream against JAX)."""
 
 import numpy as np
 import pytest
@@ -190,41 +192,59 @@ def test_layer_norm_matches_flax(loc, spread):
 
 
 def test_streaming_refuses_attention_models():
-    """conformer_stream's offline call runs; its streaming call and stream
-    carries are not ported and raise (a stream without its KV caches would
-    give wrong ids silently)."""
+    """A global-attention model (``conformer``, attn_chunk 0) refuses to
+    stream, in the model and in the recognizer's geometry, as the
+    reference does; ``conformer_stream`` streams: its stream carries lay
+    out as [pos0, total_valid, seg_start] + 3 a block, and one streaming
+    call advances pos0 by the chunk and total_valid by the frames fed
+    (tests/test_torch_attention_stream.py holds it against JAX)."""
     from chainer_speech_recognition_tpu_torch.config import preset_config
     from chainer_speech_recognition_tpu_torch.decode.streaming import (
         StreamingRecognizer)
     from chainer_speech_recognition_tpu_torch.models.presets import (
         build_model)
 
-    cfg = preset_config("conformer_stream").override({
-        "model.attn_blocks": 1, "model.attn_dim": 64, "model.attn_heads": 1,
-        "model.conv_channels": [4, 4], "model.vocab_size": 6})
-    model = build_model(cfg.model)
+    small = {"model.attn_blocks": 1, "model.attn_dim": 64,
+             "model.attn_heads": 1, "model.conv_channels": [4, 4],
+             "model.vocab_size": 6}
     feats = torch.zeros(1, 64, 40, 3)
+    glob = build_model(preset_config("conformer").override(small).model)
+    with pytest.raises(ValueError, match="global-attention presets"):
+        glob(feats, torch.tensor([64]), rnn_carries=[], carry_at=16)
+    with pytest.raises(ValueError, match="global-attention presets"):
+        StreamingRecognizer(glob, preset_config("conformer").override(
+            {**small, "features.cmvn_mode": "causal"}), batch=1)
+    cfg = preset_config("conformer_stream").override(small)
+    model = build_model(cfg.model)
     with torch.inference_mode():
         logits, lens = model(feats, torch.tensor([64]))
-    assert logits.shape == (1, 16, 6)
-    for call in (lambda: model.init_stream_carries(1),
-                 lambda: model.reset_stream_rows([], [0]),
-                 lambda: model(feats, torch.tensor([64]), rnn_carries=[],
-                               carry_at=16)):
-        with pytest.raises(NotImplementedError, match="conformer_stream"):
-            call()
-    with pytest.raises(NotImplementedError, match="not ported"):
+        assert logits.shape == (1, 16, 6)
+        carries = model.init_stream_carries(1)
+        assert len(carries) == 3 + 3 and carries[3].shape == (1, 64, 1, 64)
+        out, slens, new = model(feats, torch.tensor([64]),
+                                rnn_carries=carries, carry_at=16)
+    assert out.shape == (1, 16, 6) and int(slens[0]) == 16
+    assert [int(c[0]) for c in new[:3]] == [16, 16, 0]
+    with pytest.raises(ValueError, match="right_frames must be 0"):
         StreamingRecognizer(model, cfg, batch=1, chunk_frames=64,
-                            right_frames=0)
+                            right_frames=16)
+    rec = StreamingRecognizer(model, cfg, batch=1, chunk_frames=64,
+                              right_frames=0)
+    assert rec.geo["C"] == 64 and rec.geo["R"] == 0
 
 
-def test_stream_cli_refuses_conformer_stream(tmp_path):
+def test_stream_cli_refuses_conformer_stream(tmp_path, capsys):
+    """The stream CLI streams a conformer_stream checkpoint with default
+    flags (``--right-frames`` resolves to 0: the lookahead lives inside
+    the chunk) and refuses it only with an explicit lookahead, which would
+    shift the attention grid off its training-time alignment."""
     from chainer_speech_recognition_tpu_torch.bridge import state_dict_to_flax
     from chainer_speech_recognition_tpu_torch.checkpoint import save_params
     from chainer_speech_recognition_tpu_torch.cli import stream
     from chainer_speech_recognition_tpu_torch.config import preset_config
     from chainer_speech_recognition_tpu_torch.models.presets import (
         build_model)
+    from chainer_speech_recognition_tpu_torch.utils.wav import write_wav
     from chainer_speech_recognition_tpu_torch.vocab import Vocab
 
     cfg = preset_config("conformer_stream").override({
@@ -233,7 +253,14 @@ def test_stream_cli_refuses_conformer_stream(tmp_path):
     save_params(str(tmp_path / "ckpt"),
                 state_dict_to_flax(build_model(cfg.model).state_dict()), cfg)
     Vocab(["<blank>", "a", "b", "c", "d", "e"]).save(tmp_path / "v.txt")
-    with pytest.raises(SystemExit, match="attention family.*not ported"):
-        stream.main(["--ckpt-dir", str(tmp_path / "ckpt"), "--vocab",
-                     str(tmp_path / "v.txt"), "--device", "cpu",
-                     "--right-frames", "0", str(tmp_path / "a.wav")])
+    wav = str(tmp_path / "a.wav")
+    write_wav(wav, np.random.default_rng(0).uniform(-0.3, 0.3, 8000)
+              .astype(np.float32))
+    base = ["--ckpt-dir", str(tmp_path / "ckpt"), "--vocab",
+            str(tmp_path / "v.txt"), "--device", "cpu"]
+    with pytest.raises(ValueError, match="right_frames must be 0"):
+        stream.main(base + ["--right-frames", "16", wav])
+    capsys.readouterr()
+    stream.main(base + [wav])
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 1 and out[0].startswith(wav + "\t")

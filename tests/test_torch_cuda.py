@@ -688,12 +688,14 @@ def _dw_operands(dev, T, B, H, gru, seed):
 
 
 def _dw_fp64(ys, gates, B):
-    """The fp64 sum of the same bf16 operands and Σ|h·g| of each element."""
+    """The fp64 sum of the same bf16 operands and Σ|h·g| of each element,
+    for each of the ys.shape[1] / B directions."""
     hp = shift_prev(ys).to(torch.bfloat16).double()
     g = torch.cat([x.double() for x in gates], dim=2)
     H, N = hp.shape[2], g.shape[2]
-    a = [hp[:, d * B:(d + 1) * B].reshape(-1, H) for d in (0, 1)]
-    b = [g[:, d * B:(d + 1) * B].reshape(-1, N) for d in (0, 1)]
+    dirs = range(hp.shape[1] // B)
+    a = [hp[:, d * B:(d + 1) * B].reshape(-1, H) for d in dirs]
+    b = [g[:, d * B:(d + 1) * B].reshape(-1, N) for d in dirs]
     ref = torch.stack([x.T @ y for x, y in zip(a, b)])
     absum = torch.stack([x.abs().T @ y.abs() for x, y in zip(a, b)])
     return ref, absum
@@ -727,6 +729,114 @@ def test_dw_kernel_matches_fp64_sum(dev, H, B, T, gru):
         assert bool((got == 0).all())
 
 
+_UNI = {"gru": (3, gru_scan_train_cuda, gru_scan_train_plain, gru_bwd_cuda,
+                gru_bwd_plain),
+        "lstm": (4, lstm_scan_train_cuda, lstm_scan_train_plain,
+                 lstm_bwd_cuda, lstm_bwd_plain)}
+
+
+def _uni_bwd(cell, fn, res, w, lo, hi, ys, g, dtype, plain=False):
+    """(dxs, and dhn for the GRU) of the backward ``fn`` on residuals
+    ``res`` (the GRU's gates, the LSTM's (cs, gates))."""
+    if cell == "gru":
+        return fn(res[-1], w, lo, hi, shift_prev(ys) if plain else ys, g,
+                  dtype)
+    return (fn(res[-1], w, lo, hi, res[0], g, dtype),)
+
+
+@pytest.mark.parametrize("T,B,H", [(1, 1, 32), (7, 3, 64), (9, 15, 256),
+                                   (6, 17, 384), (5, 33, 512), (256, 24, 256),
+                                   (256, 24, 384)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_forward_only_train_kernels_match_plain(dev, cell, T, B, H, dtype,
+                                                tol):
+    """The one-direction training forms (ndir = 1: w [1, H, G·H], B rows,
+    a forward-only layer's one W): the training forward (ys, the
+    residuals), the backward (on the plain forward's residuals and on the
+    kernel's own) and, in bf16, dW, against their plain versions at the
+    reference's bars (3e-2 forward, 5e-2 gradient; dW within
+    K·2⁻²³·Σ|h·g| of the fp64 sum); and, each, bitwise the forward rows of
+    the two-direction launch with W duplicated, which is what the TPU path
+    runs for a forward-only layer. The bf16 gradient bar adds 2⁻⁷ of the
+    gradient's largest |value| to 5e-2 (T' = 256 carries |dxs| past 16).
+    Ragged lengths,
+    a length-0 row, B
+    around the 16-row group, uni_gru's and a forward-only LSTM's training
+    shape (B = 24, T' = 256)."""
+    G, fwd, fwd_p, bwd, bwd_p = _UNI[cell]
+    rng = np.random.default_rng(T * 1000 + H + B + G)
+    lens = rng.integers(0, T + 1, B).astype(np.float32)
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
+    lo = torch.zeros(B, 1, device=dev)
+    hi = torch.from_numpy(lens)[:, None].to(dev)
+    w = torch.from_numpy((rng.standard_normal((1, H, G * H))
+                          / np.sqrt(H)).astype(np.float32)).to(dev)
+    xs = torch.from_numpy(rng.standard_normal((T, B, G * H)).astype(
+        np.float32)).to(dev).to(dtype)
+    g = torch.from_numpy(rng.standard_normal((T, B, H)).astype(
+        np.float32)).to(dev)
+    k_fwd, k_bwd = {"gru": (_kernels.GRU_FWD_TRAIN, _kernels.GRU_BWD),
+                    "lstm": (_kernels.LSTM_FWD_TRAIN,
+                             _kernels.LSTM_BWD)}[cell]
+    before = (k_fwd.launches, k_bwd.launches)
+    out = fwd(xs, w, lo, hi, dtype)
+    out_p = fwd_p(xs, w, lo, hi, dtype)
+    assert out[0].shape == (T, B, H)
+    for a, b in zip(out, out_p):
+        assert float((a.float() - b.float()).abs().max()) <= tol
+    ys, ys_p = out[0], out_p[0]
+    want = _uni_bwd(cell, bwd_p, out_p[1:], w, lo, hi, ys_p, g, dtype, True)
+    # bf16 gradients: 5e-2 plus 2⁻⁷ of the tensor's largest |value|: each
+    # step rounds the carried gradient's operands to bf16 on both sides, so
+    # over T' = 256 steps the two drift apart in proportion to the
+    # gradients' scale (|dxs| passes 16, where one bf16 ulp is 0.125)
+    gtol, grel = (tol, 0.0) if dtype == torch.float32 else (5e-2, 2 ** -7)
+    for res, y in ((out_p[1:], ys_p), (out[1:], ys)):
+        got = _uni_bwd(cell, bwd, res, w, lo, hi, y, g, dtype)
+        for a, b in zip(got, want):
+            d = float((a.float() - b.float()).abs().max())
+            scale = float(b.float().abs().max())
+            assert d <= gtol + grel * scale, (d, scale)
+    assert (k_fwd.launches, k_bwd.launches) == (before[0] + 1,
+                                                before[1] + 2)
+    # the TPU path's form: 2B rows, W duplicated; its forward rows
+    w2 = torch.cat([w, w]).contiguous()
+    x2 = torch.cat([xs, xs], dim=1).contiguous()
+    lo2, hi2 = torch.cat([lo, lo]), torch.cat([hi, hi])
+    g2 = torch.cat([g, g], dim=1).contiguous()
+    out2 = fwd(x2, w2, lo2, hi2, dtype)
+    for a, b in zip(out, out2):
+        assert same_bits(a, b[:, :B].contiguous())
+    got2 = _uni_bwd(cell, bwd, out2[1:], w2, lo2, hi2, out2[0], g2, dtype)
+    for a, b in zip(got, got2):
+        assert same_bits(a, b[:, :B].contiguous())
+    if B > 1:       # a length-0 row: no live step, no gradient
+        assert torch.all(ys[:, 1] == 0) and torch.all(got[0][:, 1] == 0)
+    if dtype == torch.bfloat16:
+        dgates = ((got[0][..., :2 * H], got[1]) if cell == "gru"
+                  else (got[0],))
+        n = _kernels.DW.launches
+        dw = dw_cuda(ys, dgates, B)
+        assert _kernels.DW.launches == n + 1
+        assert dw.shape == (1, H, (2 if cell == "gru" else 4) * H + (
+            H if cell == "gru" else 0))
+        ref, absum = _dw_fp64(ys, dgates, B)
+        bar = T * B * 2.0 ** -23 * absum
+        assert bool(((dw.double() - ref).abs() <= bar).all())
+        plain = torch.cat([dw_plain(ys, x, B, dtype) for x in dgates], 2)
+        assert bool(((dw.double() - plain.double()).abs() <= 2 * bar).all())
+
+
+def same_bits(a, b) -> bool:
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return a.dtype == b.dtype and torch.equal(a.view(view[a.dtype]),
+                                              b.view(view[b.dtype]))
+
+
 def test_dw_plan_tiles_k_by_whole_wgmma_steps(dev):
     """The library's launch plan: a K-tile is kt frames of bc rows with
     kt·bc a multiple of 16 (a bf16 wgmma k-step) and at most 64, every row
@@ -739,6 +849,9 @@ def test_dw_plan_tiles_k_by_whole_wgmma_steps(dev):
         assert p.smem <= 232448 and 1 <= p.split <= 8
     assert dw_plan(256, 24, 384, 1536)[:2] == (24, 2)
     assert dw_plan(1, 24, 384, 1536).ktiles == 0
+    # a forward-only layer: one direction's tiles, K split the same way
+    uni = dw_plan(256, 24, 256, 768, 1)
+    assert uni.tiles == 6 and uni[:3] == (24, 2, 128) and uni.split == 8
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

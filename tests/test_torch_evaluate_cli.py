@@ -253,3 +253,32 @@ def test_streaming_beam_lm_matches_reference(setup, capsys):
     assert _compare(ref, got, root, [(jhyp, thyp)]) == 1
     assert "CER[streaming]" in got[1]
     assert open(thyp).read() == open(jhyp).read()
+
+
+def test_conformer_stream_streaming_matches_reference(setup, capsys):
+    """``evaluate --streaming`` scores a chunk-causal attention checkpoint
+    (conformer_stream cut to 1 block of d = 16, chunk 4, left 2, causal
+    CMVN) greedy and with ``--beam 4 --lm``: the lookahead resolves to 0
+    and the lines and hypotheses equal the reference CLI's."""
+    root, data, _, _ = setup
+    V = len(Vocab.load(os.path.join(data, "vocab.txt")))
+    cfg = preset_config("conformer_stream").override({
+        "model.conv_channels": [8, 8], "model.attn_blocks": 1,
+        "model.attn_dim": 16, "model.attn_heads": 2, "model.attn_chunk": 4,
+        "model.attn_left_chunks": 2, "model.attn_conv_kernel": 7,
+        "model.vocab_size": V, "model.compute_dtype": "float32",
+        "features.cmvn_mode": "causal"})
+    model = build_model(cfg.model)
+    init_parameters(model, 11)
+    ckpt = str(root / "cstream")
+    save_checkpoint(ckpt, init_state(model, cfg.optim, 0), cfg)
+    for extra in ([], ["--beam", "4", *_lm(data)]):
+        args = ["--ckpt-dir", ckpt, "--data-dir", data, "--streaming",
+                "--stream-batch", "2", "--index", "dev.pack", *extra]
+        jhyp, thyp = str(root / "jc.txt"), str(root / "tc.txt")
+        ref = _run(jax_eval.main, args + ["--hyp-out", jhyp], capsys)
+        got = _run(torch_eval.main, ["--device", "cpu", "--hyp-out", thyp]
+                   + args, capsys)
+        assert _compare(ref, got, root, [(jhyp, thyp)]) == 1
+        assert "CER[streaming]" in got[1] and "lookahead 0 frames" in got[1]
+        assert open(thyp).read() == open(jhyp).read()

@@ -8,7 +8,8 @@ decoders over the mesh: the sharded dev eval, ``beam_decode(mesh=)`` with
 and without an LM, and ``StreamingRecognizer(mesh=)`` greedy, beam and
 with endpointing, each equal to one device (mirroring the reference's
 ``tests/test_multichip.py``). fp32, one BiGRU layer of 16, V = 12 (8 for
-streaming), SpecAugment off."""
+streaming), SpecAugment off. Then two ranks streaming ``conformer_stream``
+(each holding its own streams' attention carries) against one device."""
 
 import numpy as np
 import pytest
@@ -246,3 +247,49 @@ def test_sharded_eval_beam_and_streaming_match_one_device(ranks):
         for key in ("beam", "beam_lm", "stream", "stream_beam",
                     "stream_endpoint"):
             assert got[key] == want[key], key
+
+
+def _cstream(mesh, **kw):
+    """conformer_stream (2 blocks, d = 16, 2 heads, chunk 4, left 2, conv
+    kernel 7, causal CMVN, fp32) streaming 4 utterances of different
+    lengths in one lockstep batch over ``mesh`` → (emitted, segments)."""
+    cfg = preset_config("conformer_stream").override({
+        "model.conv_channels": [8, 8], "model.attn_blocks": 2,
+        "model.attn_dim": 16, "model.attn_heads": 2, "model.attn_chunk": 4,
+        "model.attn_left_chunks": 2, "model.attn_conv_kernel": 7,
+        "model.vocab_size": 8, "model.compute_dtype": "float32",
+        "features.cmvn_mode": "causal"})
+    rng = np.random.default_rng(5)
+    ns = [9600, 7040, 12000, 3300]
+    pcm = np.asarray(rng.uniform(-0.5, 0.5, (4, max(ns))), np.float32)
+    for b, nb in enumerate(ns):
+        pcm[b, nb:] = 0.0
+    rec = StreamingRecognizer(_model(cfg, 3), cfg, batch=4, chunk_frames=16,
+                              right_frames=0, mesh=mesh, **kw)
+    rec.accept(pcm, drain=False)
+    rec.flush(num_samples=ns)
+    return rec.emitted, rec.segments
+
+
+def _cstream_all(mesh) -> dict:
+    return {"greedy": _cstream(mesh)[0],
+            "beam": _cstream(mesh, decoder="beam", beam=4)[0],
+            "endpoint": _cstream(mesh, endpoint_ms=100.0)}
+
+
+def _cstream_on_ranks(rank: int) -> dict:
+    mesh = make_mesh(_cfg(**{"parallel.dcn_slices": 1,
+                             "parallel.num_devices": 2}).parallel, CPU)
+    assert mesh.size == 2
+    return _cstream_all(mesh)
+
+
+def test_sharded_conformer_stream_matches_one_device(tmp_path):
+    """Two gloo ranks streaming conformer_stream, each holding the KV-cache,
+    conv-tail and position carries of its own two streams only: greedy,
+    beam and endpointed results equal to one device's on every rank."""
+    torch.set_num_threads(1)
+    want = _cstream_all(None)
+    assert any(want["greedy"])
+    for got in run_ranks(_cstream_on_ranks, 2, tmp_path):
+        assert got == want

@@ -115,8 +115,9 @@ def test_uni_gru_bridges_forward_only():
 
 
 def test_unported_blocks_raise():
-    """GLU blocks are not ported; the attention presets build (their
-    streaming call raises, tests/test_torch_attention.py)."""
+    """GLU blocks are not ported; the attention presets build (conformer
+    refuses a streaming call, conformer_stream streams:
+    tests/test_torch_attention.py, tests/test_torch_attention_stream.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(preset_config("glu_conv").model)
     for preset in ("conformer", "conformer_stream"):

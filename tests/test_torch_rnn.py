@@ -85,9 +85,11 @@ def test_birnn_layer_matches_flax(impl, dtype, tol):
 def test_birnn_layer_refuses_unported_variants():
     """LSTM cells are ported (tests/test_torch_lstm.py): the layer builds
     with the kernel's [2, H, 4H] recurrent weights. A forward-only layer
-    builds with rec [1, H, 3H] and no in_bwd. Under autograd, forward-only
-    layers and streaming calls raise (their training kernels are not
-    ported); so does an unknown cell, and h0_fwd without emit_carry_at."""
+    builds with rec [1, H, 3H] and no in_bwd and trains: under autograd its
+    gradients reach rec and in_fwd (tests/test_torch_uni_train.py holds
+    them against JAX). A streaming call under autograd raises (no path
+    trains through a stream window); so does an unknown cell, and h0_fwd
+    without emit_carry_at."""
     assert tuple(BiRNNLayer(8, 32, cell="lstm").rec.shape) == (2, 32, 128)
     with pytest.raises(ValueError, match="rnn cell"):
         BiRNNLayer(8, 32, cell="rnn")
@@ -95,10 +97,12 @@ def test_birnn_layer_refuses_unported_variants():
     assert tuple(uni.rec.shape) == (1, 32, 96) and not hasattr(uni, "in_bwd")
     x = torch.zeros(2, 5, 8)
     lens = torch.tensor([5, 3])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        uni(x, lens)
+    uni(x + 0.5, lens).sum().backward()
+    assert uni.rec.grad.shape == (1, 32, 96)
+    assert torch.any(uni.rec.grad != 0) and torch.any(uni.in_fwd.weight.grad
+                                                      != 0)
     layer = BiRNNLayer(8, 32, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="inference only"):
         layer(x, lens, h0_fwd=torch.zeros(2, 32), emit_carry_at=2)
     with pytest.raises(ValueError, match="together"):
         layer(x, lens, h0_fwd=torch.zeros(2, 32))

@@ -2,7 +2,8 @@
 the same port-written checkpoint (a forward-only ``uni_gru`` at cut
 widths, fp32, causal CMVN): identical output in wav mode, ``--partials``
 and ``--raw``, greedy and with the streaming prefix beam and LM fusion;
-its refusals and its ``--timing`` line."""
+its refusals, its ``--timing`` line, and a ``conformer_stream``
+checkpoint under default flags (``--right-frames`` resolved per model)."""
 
 import io
 import sys
@@ -108,7 +109,7 @@ def test_timing_line(setup, capsys):
     assert "window latency ms over" in err and "p95" in err
 
 
-def test_refusals(setup, monkeypatch):
+def test_refusals(setup, capsys, monkeypatch):
     root, ckpt, vocab, wavs = setup
     base = ["--ckpt-dir", ckpt, "--vocab", vocab, "--device", "cpu"]
     # the reference's own error case of the LM flag
@@ -122,20 +123,21 @@ def test_refusals(setup, monkeypatch):
     with pytest.raises(ValueError, match="retrain"):
         torch_stream.main(["--ckpt-dir", utt, "--vocab", vocab, "--device",
                            "cpu", *wavs[:1]])
-    # a chunk-causal attention checkpoint: refused, naming the ROADMAP
-    # item, not the JAX package (which needs flax)
+    # a chunk-causal attention checkpoint streams with default flags:
+    # --right-frames resolves to 0 (the lookahead lives inside the chunk)
+    # as in the reference CLI, whose output it equals
     acfg = preset_config("conformer_stream").override({
         "model.conv_channels": [4, 4], "model.attn_blocks": 1,
-        "model.attn_dim": 16, "model.attn_heads": 1, "model.vocab_size": V})
+        "model.attn_dim": 16, "model.attn_heads": 1, "model.vocab_size": V,
+        "model.compute_dtype": "float32"})
     amodel = build_model(acfg.model)
     init_parameters(amodel, 5)
     attn = str(root / "attn")
     save_checkpoint(attn, init_state(amodel, acfg.optim, 0), acfg)
-    with pytest.raises(SystemExit, match="ROADMAP.md, module queue: "
-                       "conformer_stream streaming") as e:
-        torch_stream.main(["--ckpt-dir", attn, "--vocab", vocab, "--device",
-                           "cpu", *wavs[:1]])
-    assert "chainer_speech_recognition_tpu.cli" not in str(e.value)
+    aargs = ["--ckpt-dir", attn, "--vocab", vocab, "--batch", "2", *wavs]
+    ref, _ = _run(jax_stream.main, aargs, capsys)
+    got, _ = _run(torch_stream.main, ["--device", "cpu", *aargs], capsys)
+    assert got == ref and len(got) == 3
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         torch_stream.main(["--ckpt-dir", ckpt, "--vocab", vocab, *wavs[:1]])

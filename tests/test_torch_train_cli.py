@@ -3,7 +3,8 @@ events of the reference's loop, checkpoints and resume, the profiler
 window, a cut ``bilstm_deep`` with SpecAugment on, training from the
 packed corpus (``train.pack``: the same losses as from the wavs), the
 dev eval's beam and beam+LM columns, the default data mode (the device
-cache, and rotating windows under a small budget), and the refusals
+cache, and rotating windows under a small budget), the forward-only
+``uni_gru`` in both data modes with resume, and the refusals
 (model blocks that are not ported, a file that is not a pack, no card for
 ``--device cuda``, dcn slices that do not divide the devices)."""
 
@@ -135,6 +136,30 @@ def test_cli_trains_in_the_default_data_mode(data_dir, tmp_path, sets,
     assert [e["step"] for e in ev if e["kind"] == "eval"] == [16]
     assert list_checkpoints(str(tmp_path / "ckpt")) == [
         "step_00000016.msgpack"]
+
+
+@pytest.mark.parametrize("mode", ["stream", "device_cache"])
+def test_cli_trains_uni_gru_and_resumes(data_dir, tmp_path, mode):
+    """The forward-only preset (rec [1, H, 3H]) trains through the CLI in
+    the stream data mode and the default one (the device cache, K = 8),
+    with dev eval and checkpoints, and resumes from its checkpoint."""
+    sets = [f"train.data_mode={mode}", "train.log_every=1",
+            "train.eval_every=8", "train.checkpoint_every=8"]
+    ev = _run(data_dir, tmp_path, *sets, "train.total_steps=8",
+              preset="uni_gru")
+    assert [e for e in ev if e["kind"] == "data_mode"][0]["mode"] == mode
+    train = [e for e in ev if e["kind"] == "train"]
+    assert train[-1]["step"] == 8
+    assert all(np.isfinite(e["loss"]) and e["grad_norm"] > 0 for e in train)
+    assert [e["step"] for e in ev if e["kind"] == "eval"] == [8]
+    cfg = load_config(str(tmp_path / "ckpt"))
+    assert cfg.model.rnn_bidirectional is False
+    ev = _run(data_dir, tmp_path, *sets, "train.total_steps=16",
+              preset="uni_gru")
+    assert [e for e in ev if e["kind"] == "resume"][-1]["step"] == 8
+    assert [e["step"] for e in ev if e["kind"] == "train"][-1] == 16
+    assert list_checkpoints(str(tmp_path / "ckpt"))[-1] == \
+        "step_00000016.msgpack"
 
 
 def test_cli_refuses_packed_corpus_and_missing_card(data_dir, tmp_path,

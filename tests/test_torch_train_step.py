@@ -109,9 +109,7 @@ def lstm_pair():
     return _pair("bilstm_deep", LSTM_OVER)
 
 
-def test_gradients_loss_and_counts_match(pair):
-    """fp32 gradients of the weighted-mean loss (remainder row weighted 0,
-    impossible sample masked) agree to summation order."""
+def _gradients_loss_and_counts(pair):
     cfg, jm, jstate, tcfg, tm = pair
     b = BATCHES[0]
     (lj, ((nvj, nrj), _, _)), gj = jax.value_and_grad(
@@ -131,6 +129,12 @@ def test_gradients_loss_and_counts_match(pair):
                                    atol=2e-5, rtol=1e-3, err_msg=name)
 
 
+def test_gradients_loss_and_counts_match(pair):
+    """fp32 gradients of the weighted-mean loss (remainder row weighted 0,
+    impossible sample masked) agree to summation order."""
+    _gradients_loss_and_counts(pair)
+
+
 def test_three_steps_match(pair):
     """Metrics every step; parameters and Adam moments after three.
 
@@ -140,6 +144,10 @@ def test_three_steps_match(pair):
     step's learning rate in opposite directions; the bar is therefore
     2 · Σ lr over the steps taken (0 + lr/4 + lr/2 with a 4-step warmup),
     and most weights agree far better (checked via the median)."""
+    _three_steps(pair)
+
+
+def _three_steps(pair):
     cfg, jm, jstate, tcfg, tm = pair
     mesh = make_mesh(cfg.parallel)
     jstep = jax_train_step(jm, cfg, mesh)
@@ -176,6 +184,26 @@ def test_three_steps_match(pair):
             np.testing.assert_allclose(t.numpy(), wj[name].numpy(),
                                        atol=tol, rtol=1e-3,
                                        err_msg=f"{key}/{name}")
+
+
+@pytest.fixture(scope="module")
+def uni_pair():
+    return _pair("uni_gru", OVER)
+
+
+def test_uni_gru_gradients_match(uni_pair):
+    """The forward-only preset (2 GRU layers, rec [1, H, 3H]): the port's
+    one-direction training forward, backward and dW (plain versions on the
+    CPU) give JAX's gradients, whose Pallas path duplicates W and sums the
+    two halves' dW."""
+    assert tuple(uni_pair[-1].birnn0.rec.shape) == (1, 32, 96)
+    _gradients_loss_and_counts(uni_pair)
+
+
+def test_uni_gru_three_steps_match(uni_pair):
+    """Three uni_gru steps: metrics every step, parameters and Adam
+    moments after three, at test_three_steps_match's bars."""
+    _three_steps(uni_pair)
 
 
 def test_bilstm_deep_step_matches_jax(lstm_pair):

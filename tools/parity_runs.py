@@ -1,5 +1,6 @@
-"""The CER-parity runs of PARITY.md §1, §3 and §3d through the port's CLIs,
-on one CUDA card: ``python3 tools/parity_runs.py [--out DIR]``.
+"""The CER-parity runs of PARITY.md §1, §3, §3d and §3g through the port's
+CLIs, on one CUDA card: ``python3 tools/parity_runs.py [--out DIR]
+[--runs bigru,online]``.
 
 1. smoke: a 24-utterance corpus through make_synthetic, preprocess --pack,
    10 training steps, evaluate, evaluate --streaming, train_lm and the
@@ -23,7 +24,21 @@ on one CUDA card: ``python3 tools/parity_runs.py [--out DIR]``.
    ≤ 0.6 × greedy edits on the same dev set; ``evaluate --streaming
    --stream-chunk 64 --stream-right 16 --beam 8 --lm …`` on run 2's
    checkpoint: ≤ 0.6 × run 2's streaming greedy edits; recorded without a
-   gate: ``--lm-repr hashed`` with an order-4 LM on run 1's checkpoint.
+   gate: ``--lm-repr hashed`` with an order-4 LM on run 1's checkpoint;
+6. the online presets (``--runs online``; the smoke trains and streams
+   both for 10 steps first): §3d's ``uni_gru`` (causal CMVN, 2,500 steps
+   with run 1's buckets), scored offline, streaming greedy at chunk 32 /
+   right 0 (320 ms: its edits within ±2 of offline's, the one utterance
+   the offline bucket menu drops) and streaming beam 8 + 3-gram;
+   §3g's ``conformer_stream`` (causal CMVN, 9,000 steps, eval every 500):
+   offline greedy ≤ 0.03, ``--compare --beam 8 --lm``: beam+LM edits ≤
+   0.6 × greedy's, and streaming greedy and streaming beam+LM (chunk 64 =
+   one attention chunk, right 0) each within ±2 edits of its offline row.
+   Beside each ±2 gate, recorded: the streamed and offline hypotheses
+   (``--hyp-out``) compared utterance by utterance on the ones both score.
+
+``--runs`` picks the parts after the smoke and the corpus: ``bigru``
+(3-5) and ``online`` (6); both by default.
 
 Every command's output goes to ``DIR/<name>.log``; the last line of stdout
 is one JSON object with each run's dev CER, edits, reference characters,
@@ -56,11 +71,22 @@ SMOKE_CORPUS = ["--style", "confusable", "--utts", "24", "--vocab", "82",
 SMOKE_SETS = ["buckets.boundaries=[512]", "buckets.batch_sizes=[8]",
               "buckets.max_label_len=40", "train.total_steps=10",
               "train.eval_every=10"]
-GATES = {"run1": 0.015, "run2_offline": 0.015, "run2_streaming": 0.020}
+GATES = {"run1": 0.015, "run2_offline": 0.015, "run2_streaming": 0.020,
+         "cstream_offline": 0.03}
 LM_RATIO = 0.6           # PARITY.md §3: beam K=8 + 3-gram edits / greedy's
 BEAM_ARGS = ["--beam", "8", "--lm-alpha", "0.5", "--lm-beta", "1.0"]
 STREAM_ARGS = ["--streaming", "--stream-chunk", "64", "--stream-right", "16",
                "--stream-batch", "16"]
+# PARITY.md §3d's uni_gru and §3g's conformer_stream (causal CMVN both)
+UNI_SETS = TRAIN_SETS + ["features.cmvn_mode=causal"]
+CSTREAM_SETS = ["buckets.boundaries=[1024,1536]", "buckets.batch_sizes=[16,8]",
+                "buckets.max_label_len=160", "train.total_steps=9000",
+                "train.eval_every=500", "features.cmvn_mode=causal"]
+UNI_STREAM_ARGS = ["--streaming", "--stream-chunk", "32", "--stream-right",
+                   "0", "--stream-batch", "16"]
+CSTREAM_ARGS = ["--streaming", "--stream-chunk", "64", "--stream-batch",
+                "16"]                   # the lookahead resolves to 0
+EXACT_EDITS = 2          # streaming vs offline: the utterance offline drops
 _CER = re.compile(r"CER(\[streaming\])? ([0-9.]+) \| (?:loss ([0-9.]+) \| )?"
                   r"(\d+) utts \| (\d+) edits / (\d+) ref chars")
 _CMP = re.compile(r"CER\[([^\]]+)\] ([0-9.]+) \| (\d+) utts \| (\d+) edits / "
@@ -89,12 +115,14 @@ def run(out: str, name: str, module: str, args: list[str]) -> tuple[str, float]:
     return text, wall
 
 
-def train(out: str, name: str, prep: str, sets: list[str]) -> dict:
-    """Train bigru from ``prep`` (its train.pack) → training figures."""
+def train(out: str, name: str, prep: str, sets: list[str],
+          preset: str = "bigru") -> dict:
+    """Train ``preset`` from ``prep`` (its train.pack) → training
+    figures."""
     ckpt = os.path.join(out, f"{name}_ckpt")
     metrics = os.path.join(out, f"{name}_metrics.jsonl")
     _, wall = run(out, f"{name}_train", "train", [
-        "--data-dir", prep, "--preset", "bigru", "--ckpt-dir", ckpt,
+        "--data-dir", prep, "--preset", preset, "--ckpt-dir", ckpt,
         "--metrics", metrics, "--set", *sets])
     with open(metrics) as f:
         ev = [json.loads(l) for l in f]
@@ -140,12 +168,13 @@ def evaluate(out: str, name: str, ckpt: str, prep: str,
     return res
 
 
-def compare(out: str, name: str, ckpt: str, prep: str, lm: str) -> dict:
+def compare(out: str, name: str, ckpt: str, prep: str, lm: str,
+            extra: tuple = ()) -> dict:
     """``evaluate --compare`` (greedy, beam 8, beam 8 + LM from one forward
     pass) → {decoder: {cer, edits, ref_chars, utts}} and the LM gate."""
     text, wall = run(out, name, "evaluate", [
         "--ckpt-dir", ckpt, "--data-dir", prep, "--compare", "--lm", lm,
-        *BEAM_ARGS])
+        *BEAM_ARGS, *extra])
     res = {m.group(1): {"cer": float(m.group(2)), "utts": int(m.group(3)),
                         "edits": int(m.group(4)),
                         "ref_chars": int(m.group(5))}
@@ -169,6 +198,107 @@ def lm_gate(name: str, edits: int, greedy_edits: int) -> dict:
     return res
 
 
+def read_hyps(path: str) -> dict:
+    with open(path, encoding="utf-8") as f:
+        return dict(line.rstrip("\n").split("\t", 1) for line in f)
+
+
+def exact_gate(name: str, edits: int, offline_edits: int, hyps: str,
+               offline_hyps: str) -> dict:
+    """Streaming against offline on the same checkpoint: the edits within
+    ±EXACT_EDITS (offline drops the one utterance past the bucket menu);
+    recorded beside it, the utterances both score whose hypotheses
+    differ, and the ones only one of them scores."""
+    a, b = read_hyps(hyps), read_hyps(offline_hyps)
+    common = sorted(set(a) & set(b))
+    differ = [u for u in common if a[u] != b[u]]
+    res = {"edits": edits, "offline_edits": offline_edits,
+           "passed": abs(edits - offline_edits) <= EXACT_EDITS,
+           "common_utts": len(common), "differing_utts": differ,
+           "streaming_only": sorted(set(a) - set(b)),
+           "offline_only": sorted(set(b) - set(a))}
+    print(f"[{name}] streaming {edits} edits vs offline {offline_edits}: "
+          f"{'met' if res['passed'] else 'MISSED'} (±{EXACT_EDITS}); "
+          f"hypotheses differ on {len(differ)} of the {len(common)} "
+          f"utterances both score {differ[:5]}; streaming alone scores "
+          f"{res['streaming_only']}", flush=True)
+    return res
+
+
+def bigru_runs(out: str, prep: str, lm3: str) -> dict:
+    """PARITY.md §3's run 1, §3d's run 2 and config 4's LM gates → their
+    figures and gates."""
+    res = {"run1": train(out, "run1", prep, TRAIN_SETS)}
+    res["run1"].update(evaluate(out, "run1", res["run1"]["ckpt"], prep, []))
+    res["run2"] = train(out, "run2", prep, TRAIN_SETS + [
+        "features.cmvn_mode=causal"])
+    res["run2"]["offline"] = evaluate(out, "run2_offline",
+                                      res["run2"]["ckpt"], prep, [])
+    res["run2"]["streaming"] = evaluate(out, "run2_streaming",
+                                        res["run2"]["ckpt"], prep,
+                                        STREAM_ARGS)
+    # config 4: the LM gate, offline and streaming
+    cmp = compare(out, "run1_compare", res["run1"]["ckpt"], prep, lm3)
+    res["config4_offline"] = {**cmp, **lm_gate(
+        "config4_offline", cmp["beam8+lm"]["edits"], cmp["greedy"]["edits"])}
+    sb = evaluate(out, "run2_streaming_beam_lm", res["run2"]["ckpt"], prep,
+                  STREAM_ARGS + BEAM_ARGS + ["--lm", lm3])
+    res["config4_streaming"] = {**sb, **lm_gate(
+        "config4_streaming", sb["edits"], res["run2"]["streaming"]["edits"])}
+    res["config4_hashed4"] = evaluate(
+        out, "run1_beam_lm4_hashed", res["run1"]["ckpt"], prep,
+        BEAM_ARGS + ["--lm", os.path.join(prep, "lm_4gram.arpa"),
+                     "--lm-repr", "hashed"])
+    return res
+
+
+def online_runs(out: str, prep: str, lm3: str) -> dict:
+    """PARITY.md §3d's uni_gru and §3g's conformer_stream → their figures
+    and gates."""
+    res = {}
+
+    def hyp(name):
+        return ["--hyp-out", os.path.join(out, f"{name}_hyps.txt")]
+
+    uni = train(out, "uni", prep, UNI_SETS, "uni_gru")
+    uni["offline"] = evaluate(out, "uni_offline", uni["ckpt"], prep,
+                              hyp("uni_offline"))
+    uni["streaming"] = evaluate(out, "uni_streaming", uni["ckpt"], prep,
+                                UNI_STREAM_ARGS + hyp("uni_streaming"))
+    uni["streaming"].update(exact_gate(
+        "uni_streaming", uni["streaming"]["edits"],
+        uni["offline"]["edits"], hyp("uni_streaming")[1],
+        hyp("uni_offline")[1]))
+    uni["streaming_beam_lm"] = evaluate(
+        out, "uni_streaming_beam_lm", uni["ckpt"], prep,
+        UNI_STREAM_ARGS + BEAM_ARGS + ["--lm", lm3])
+    res["uni"] = uni
+    cs = train(out, "cstream", prep, CSTREAM_SETS, "conformer_stream")
+    cs["offline"] = evaluate(out, "cstream_offline", cs["ckpt"], prep,
+                             hyp("cstream_offline"))
+    # --compare writes the beam8+lm hypotheses
+    cmp = compare(out, "cstream_compare", cs["ckpt"], prep, lm3,
+                  hyp("cstream_offline_lm"))
+    cs["compare"] = {**cmp, **lm_gate("cstream_lm", cmp["beam8+lm"]["edits"],
+                                      cmp["greedy"]["edits"])}
+    cs["streaming"] = evaluate(out, "cstream_streaming", cs["ckpt"], prep,
+                               CSTREAM_ARGS + hyp("cstream_streaming"))
+    cs["streaming"].update(exact_gate(
+        "cstream_streaming", cs["streaming"]["edits"],
+        cs["offline"]["edits"], hyp("cstream_streaming")[1],
+        hyp("cstream_offline")[1]))
+    cs["streaming_beam_lm"] = evaluate(
+        out, "cstream_streaming_beam_lm", cs["ckpt"], prep,
+        CSTREAM_ARGS + BEAM_ARGS + ["--lm", lm3]
+        + hyp("cstream_streaming_lm"))
+    cs["streaming_beam_lm"].update(exact_gate(
+        "cstream_streaming_beam_lm", cs["streaming_beam_lm"]["edits"],
+        cmp["beam8+lm"]["edits"], hyp("cstream_streaming_lm")[1],
+        hyp("cstream_offline_lm")[1]))
+    res["cstream"] = cs
+    return res
+
+
 def corpus(out: str, name: str, synth_args: list[str]) -> str:
     root = os.path.join(out, f"{name}_corpus")
     prep = os.path.join(out, f"{name}_prep")
@@ -187,7 +317,13 @@ def main() -> int:
     p.add_argument("--out", default=os.path.join("chiprun_out", "parity"))
     p.add_argument("--work", default=os.path.join(".chipscratch", "parity"),
                    help="corpora and checkpoints (git-ignored)")
+    p.add_argument("--runs", default="bigru,online",
+                   help="comma list of bigru (runs 1-2, config 4) and online "
+                        "(uni_gru, conformer_stream)")
     args = p.parse_args()
+    runs = set(args.runs.split(","))
+    if not runs or runs - {"bigru", "online"}:
+        raise SystemExit(f"--runs {args.runs!r}: expected bigru and/or online")
     os.makedirs(args.out, exist_ok=True)
     os.makedirs(args.work, exist_ok=True)
     card = subprocess.run(
@@ -209,54 +345,50 @@ def main() -> int:
         compare(args.work, "smoke_compare", sm["ckpt"], prep, smoke_lm)
         evaluate(args.work, "smoke_stream_beam", sm["ckpt"], prep,
                  STREAM_ARGS + BEAM_ARGS + ["--lm", smoke_lm])
+        if "online" in runs:
+            for name, preset, sargs in (("uni", "uni_gru", UNI_STREAM_ARGS),
+                                        ("cstream", "conformer_stream",
+                                         CSTREAM_ARGS)):
+                o = train(args.work, f"smoke_{name}", prep, SMOKE_SETS + [
+                    "features.cmvn_mode=causal"], preset)
+                evaluate(args.work, f"smoke_{name}_stream", o["ckpt"], prep,
+                         sargs + BEAM_ARGS + ["--lm", smoke_lm])
         t0 = time.perf_counter()
         prep = corpus(args.work, "parity", CORPUS)
         result["corpus_s"] = time.perf_counter() - t0
-        result["run1"] = train(args.work, "run1", prep, TRAIN_SETS)
-        result["run1"].update(evaluate(args.work, "run1", result["run1"][
-            "ckpt"], prep, []))
-        result["run2"] = train(args.work, "run2", prep, TRAIN_SETS + [
-            "features.cmvn_mode=causal"])
-        result["run2"]["offline"] = evaluate(
-            args.work, "run2_offline", result["run2"]["ckpt"], prep, [])
-        result["run2"]["streaming"] = evaluate(
-            args.work, "run2_streaming", result["run2"]["ckpt"], prep,
-            STREAM_ARGS)
-        # config 4: the LM gate, offline and streaming
         for order in (3, 4):
             run(args.work, f"train_lm_{order}", "train_lm",
                 ["--data-dir", prep, "--order", str(order)])
         lm3 = os.path.join(prep, "lm_3gram.arpa")
-        cmp = compare(args.work, "run1_compare", result["run1"]["ckpt"],
-                      prep, lm3)
-        result["config4_offline"] = {**cmp, **lm_gate(
-            "config4_offline", cmp["beam8+lm"]["edits"],
-            cmp["greedy"]["edits"])}
-        sb = evaluate(args.work, "run2_streaming_beam_lm",
-                      result["run2"]["ckpt"], prep,
-                      STREAM_ARGS + BEAM_ARGS + ["--lm", lm3])
-        result["config4_streaming"] = {**sb, **lm_gate(
-            "config4_streaming", sb["edits"],
-            result["run2"]["streaming"]["edits"])}
-        result["config4_hashed4"] = evaluate(
-            args.work, "run1_beam_lm4_hashed", result["run1"]["ckpt"], prep,
-            BEAM_ARGS + ["--lm", os.path.join(prep, "lm_4gram.arpa"),
-                         "--lm-repr", "hashed"])
+        if "online" in runs:
+            result.update(online_runs(args.work, prep, lm3))
+        if "bigru" in runs:
+            result.update(bigru_runs(args.work, prep, lm3))
     except RunFailure as e:
         print(f"parity_runs: FAILED: {e}", file=sys.stderr)
         print(json.dumps(result))
         return 1
     finally:
-        for name in os.listdir(args.work):    # logs and metrics come back
-            if name.endswith((".log", ".jsonl")):
+        for name in os.listdir(args.work):    # logs, metrics, hypotheses
+            if name.endswith((".log", ".jsonl", "_hyps.txt")):
                 with open(os.path.join(args.work, name), "rb") as src, \
                         open(os.path.join(args.out, name), "wb") as dst:
                     dst.write(src.read())
-    verdicts = {name: r["passed"] for name, r in (
-        ("run1", result["run1"]), ("run2_offline", result["run2"]["offline"]),
-        ("run2_streaming", result["run2"]["streaming"]),
-        ("config4_offline", result["config4_offline"]),
-        ("config4_streaming", result["config4_streaming"]))}
+    gated = []
+    if "bigru" in runs:
+        gated += [("run1", result["run1"]),
+                  ("run2_offline", result["run2"]["offline"]),
+                  ("run2_streaming", result["run2"]["streaming"]),
+                  ("config4_offline", result["config4_offline"]),
+                  ("config4_streaming", result["config4_streaming"])]
+    if "online" in runs:
+        cs = result["cstream"]
+        gated += [("uni_streaming", result["uni"]["streaming"]),
+                  ("cstream_offline", cs["offline"]),
+                  ("cstream_lm", cs["compare"]),
+                  ("cstream_streaming", cs["streaming"]),
+                  ("cstream_streaming_beam_lm", cs["streaming_beam_lm"])]
+    verdicts = {name: r["passed"] for name, r in gated}
     print(f"gates: " + ", ".join(f"{n} {'met' if v else 'MISSED'}"
                                  for n, v in verdicts.items()), flush=True)
     print(json.dumps(result))
