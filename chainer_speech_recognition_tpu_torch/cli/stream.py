@@ -238,8 +238,9 @@ def main(argv=None):
         q = lambda p: wt[min(int(p * len(wt)), len(wt) - 1)] * 1000
         print(f"window latency ms over {len(wt)} steady windows: "
               f"p50 {q(0.5):.1f} | p95 {q(0.95):.1f} | max "
-              f"{max(rec.window_times) * 1000:.1f} (incl. the first windows)",
-              file=sys.stderr)
+              f"{max(rec.window_times) * 1000:.1f} (incl. the first windows)"
+              f"; chunk {g['C']} + lookahead {g['R']} frames, conv_exact "
+              f"{g['conv_exact']}", file=sys.stderr)
 
     if args.raw:
         _stream_stdin(args, rec, vocab)

@@ -24,6 +24,8 @@ using csr_rnn::round_to;
 using csr_rnn::to_f32;
 
 constexpr int kTile = 64;          // query and key rows per tile
+constexpr int kMaxDh = 512;        // head widths taken: 64, 128, ..., 512
+                                   // (attention_pallas.py:383's set)
 constexpr int kThreads = 256;
 constexpr int kLdP = kTile + 1;    // row stride of the [64][64] p/ds tiles
 constexpr float kNeg = -1e30f;     // the reference's masking constant
@@ -31,6 +33,11 @@ constexpr float kNeg = -1e30f;     // the reference's masking constant
 struct Dims {
   int B, T, h, dh, chunk, left;
 };
+
+// the head widths the kernels take: 64, 128, ..., kMaxDh
+__host__ __device__ inline bool dh_taken(int dh) {
+  return dh >= 64 && dh <= kMaxDh && dh % 64 == 0;
+}
 
 // element strides of a [B, T, h, dh] operand (the head dim is dense)
 struct Strides {

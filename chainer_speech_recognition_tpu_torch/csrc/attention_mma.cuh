@@ -2,7 +2,11 @@
 // (attention_fwd.cu, attention_bwd.cu): swizzled [64][64] bf16 tiles in
 // shared memory filled by cp.async, ldmatrix fragments, mma.sync m16n8k16
 // with fp32 accumulators, accumulators reused as A operands (the
-// FlashAttention-2 register reuse) and the stores of a warp's rows.
+// FlashAttention-2 register reuse) and the stores of a warp's rows. A head
+// wider than 64 is handled in 64-column chunks: a [64][dh] operand sits in
+// shared memory as dh/64 consecutive [64][64] tiles (load_chunks), each
+// swizzled on its own, so every fragment helper below works unchanged on
+// one chunk.
 //
 // A block has four warps; warp w owns rows 16w .. 16w+15 of a tile. An
 // m16n8k16 accumulator c[4] of lane l holds rows l/4 and l/4 + 8, columns
@@ -18,7 +22,9 @@ namespace csr_attn {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kDh = 64;                   // the head width of this path
+constexpr int kDh = 64;                   // the head width of the narrow
+                                          // kernels, and the chunk width of
+                                          // the wide ones (dh = 64n)
 constexpr int kWarps = kTile / 16;        // a warp owns 16 rows of a tile
 constexpr int kThreadsTc = 32 * kWarps;
 constexpr int kTileBytes = kTile * kDh * 2;   // a [64][64] bf16 tile
@@ -70,6 +76,15 @@ __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* base,
     const bool ok = t < T;
     cp_async16(dst + swz(r, c), base + (ok ? t * st : 0) + c * 8, ok);
   }
+}
+
+// the n 64-column chunks of rows [row0, row0 + 64) into n consecutive
+// swizzled tiles (chunk c: head-dim columns 64c .. 64c + 63)
+__device__ __forceinline__ void load_chunks_async(uint32_t dst,
+                                                  const bf16* base, int64_t st,
+                                                  int row0, int T, int n) {
+  for (int c = 0; c < n; ++c)
+    load_tile_async(dst + c * kTileBytes, base + c * kDh, st, row0, T);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
@@ -150,18 +165,54 @@ __device__ __forceinline__ void product_tc(float acc[8][4],
     }
 }
 
-// a warp's accumulator rows (r, r + 8 with r = lane / 4; columns 8j + 2
-// (lane % 4) + {0, 1}) times `scale` into rows t0, t0 + 8 of a [B, T, h,
-// 64] contiguous bf16 output; rows at or past T are not written
+// this thread's queries t0 + 8i and the keys [s_lo, s_hi) each may attend
+// (none past T)
+__device__ __forceinline__ void row_windows(int t0, int len, const Dims& d,
+                                            int s_lo[2], int s_hi[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + 8 * i;
+    const bool row = t < d.T;
+    s_lo[i] = 0;
+    s_hi[i] = row ? len : 0;
+    if (row && d.chunk) {
+      const int qc = t / d.chunk;
+      s_lo[i] = max(0, (qc - d.left) * d.chunk);
+      s_hi[i] = min(len, (qc + 1) * d.chunk);
+    }
+  }
+}
+
+// this thread's keys s0 + 8i and the queries [t_lo, t_hi) that may
+// attend each (none for a key at or past the length)
+__device__ __forceinline__ void key_windows(int s0, int len, const Dims& d,
+                                            int t_lo[2], int t_hi[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = s0 + 8 * i;
+    t_lo[i] = 0;
+    t_hi[i] = key < len ? d.T : 0;
+    if (key < len && d.chunk) {
+      const int kc = key / d.chunk;
+      t_lo[i] = kc * d.chunk;
+      t_hi[i] = min(d.T, (kc + d.left + 1) * d.chunk);
+    }
+  }
+}
+
+// a warp's accumulator rows (r, r + 8 with r = lane / 4; columns col0 + 8j
+// + 2 (lane % 4) + {0, 1}) times `scale` into rows t0, t0 + 8 of a [B, T,
+// h, dh] contiguous bf16 output; rows at or past T are not written
 __device__ __forceinline__ void store_rows(bf16* out, const float acc[8][4],
                                            float scale, int b, int t0,
-                                           int head, const Dims& d, int l) {
+                                           int head, const Dims& d, int l,
+                                           int col0 = 0) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = t0 + 8 * i;
     if (t >= d.T) continue;
-    bf16* o = out + ((static_cast<int64_t>(b) * d.T + t) * d.h + head) * kDh +
-              2 * (l & 3);
+    bf16* o = out + ((static_cast<int64_t>(b) * d.T + t) * d.h + head) * d.dh +
+              col0 + 2 * (l & 3);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(

@@ -21,8 +21,8 @@ call): ``impl="flash"`` takes ``flash_mhsa`` (the kernels on CUDA tensors,
 their plain versions on CPU tensors), ``"einsum"`` the einsum path below
 (the reference's XLA path, the model's own torch code), ``"auto"`` the
 kernels on a CUDA tensor when ``attention_cuda.supports(T, dh)`` holds
-(T' > 512: the reference's long-form policy) and the einsum path
-otherwise.
+(the reference's gate: T' > 512, its long-form policy, and dh % 64 == 0,
+dh <= 512) and the einsum path otherwise.
 
 The streaming step of a chunk-causal block (``chunk > 0``, the
 ``conformer_stream`` preset; ``decode/streaming.py``) takes one chunk and

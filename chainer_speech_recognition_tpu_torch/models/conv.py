@@ -1,15 +1,17 @@
-"""Strided 2-D conv subsampling stack (port of ``models/conv.py``).
+"""Strided 2-D conv subsampling stack and the GLU-gated residual conv
+block (port of ``models/conv.py``).
 
-Layout and padding follow the flax module exactly:
+Layout and padding follow the flax modules exactly:
 
 * explicit ``((k-1)//2, k//2)`` padding per axis, asymmetric for even
   kernels — ``F.pad`` then a conv with ``padding=0`` (the symmetric
   ``padding=`` argument of ``nn.Conv2d`` would shift every output frame);
 * the time mask after every layer;
-* the output flattens NHWC ``[B, T, F, C] → [B, T, F·C]`` (F major, C
-  minor), so torch's NCHW result is permuted back before the reshape.
-
-``GLUConvBlock`` is not on the ported path yet (see ROADMAP.md).
+* the subsampler's output flattens NHWC ``[B, T, F, C] → [B, T, F·C]`` (F
+  major, C minor), so torch's NCHW result is permuted back before the
+  reshape;
+* compute in the model's dtype on fp32 parameters (flax's ``dtype`` /
+  ``param_dtype``): input, kernel and bias cast before each product.
 """
 
 from __future__ import annotations
@@ -65,3 +67,40 @@ class ConvSubsampler(nn.Module):
             x = x * tmask[:, None, :, None].to(x.dtype)
         B, C, T, Fq = x.shape
         return x.permute(0, 2, 3, 1).reshape(B, T, Fq * C), lengths
+
+
+class GLUConvBlock(nn.Module):
+    """GLU-gated residual 1-D conv over time (the reference's
+    ``GLUConvBlock``, the ``glu_conv`` preset's blocks): ``[B, T, D]``
+    compute-dtype frames, ``[B]`` lengths → ``[B, T, C]``; ``(a, b)`` =
+    the ``glu_conv`` Conv1d (D → 2C, ``kernel_time`` frames, explicit
+    ``((kt−1)//2, kt//2)`` padding) split on channels, ``y = x' + a ·
+    sigmoid(b)`` in the compute dtype with ``x'`` = x, or its ``res_proj``
+    Linear where D ≠ C, then the time mask."""
+
+    kernel_time = 5
+
+    def __init__(self, in_dim: int, channels: int, dtype: torch.dtype):
+        super().__init__()
+        self.channels, self.dtype = channels, dtype
+        kt = self.kernel_time
+        self.pad = ((kt - 1) // 2, kt // 2)
+        self.glu_conv = nn.Conv1d(in_dim, 2 * channels, kt, padding=0)
+        self.res_proj = (nn.Linear(in_dim, channels) if in_dim != channels
+                         else None)
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt)
+        gates = F.conv1d(F.pad(x.transpose(1, 2), self.pad),
+                         self.glu_conv.weight.to(dt),
+                         self.glu_conv.bias.to(dt)).transpose(1, 2)
+        a, b = gates[..., :self.channels], gates[..., self.channels:]
+        h = a * torch.sigmoid(b)
+        if self.res_proj is not None:
+            x = F.linear(x, self.res_proj.weight.to(dt),
+                         self.res_proj.bias.to(dt))
+        y = x + h
+        tmask = (torch.arange(y.shape[1], device=y.device)[None, :]
+                 < lengths[:, None])
+        return y * tmask[:, :, None].to(y.dtype)

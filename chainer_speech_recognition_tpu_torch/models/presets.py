@@ -1,5 +1,6 @@
 """Acoustic model assembly (port of ``models/presets.py``): conv
-subsampler → optional ``attn_in`` projection and Conformer blocks →
+subsampler → GLU-gated residual conv blocks (``glu_conv``) → optional
+``attn_in`` projection and Conformer blocks →
 BiGRU, BiLSTM or forward-only GRU/LSTM stack → optional tanh ``proj`` →
 fp32 ``output`` projection → logits masked by the subsampled lengths.
 
@@ -8,8 +9,9 @@ with V including the CTC blank at index 0. The streaming call
 (``rnn_carries``, ``carry_at``, ``drop_left`` → ``(logits, lens,
 new_carries)``) and its helpers (``subsample_factor``,
 ``init_stream_carries``, ``reset_stream_rows``, ``conv_receptive_margin``,
-``conv_right_margin``) serve ``decode/streaming.py``. GLU blocks raise at
-construction. A chunk-causal attention model (``conformer_stream``,
+``conv_right_margin``) serve ``decode/streaming.py``; a conv-only model
+(``tiny_conv``, ``glu_conv``) streams with no carries. A chunk-causal
+attention model (``conformer_stream``,
 ``attn_chunk > 0``) streams on the reference's carries: ``[pos0,
 total_valid, seg_start]`` ([B] int32: each row's global subsampled index of
 the window's first frame, the frames fed so far, the first frame of the
@@ -19,12 +21,13 @@ stream, as in the reference.
 
 The port's state_dict names mirror the flax tree (``bridge.py`` maps one
 onto the other): ``subsampler.conv{i}`` ≘ ``ConvSubsampler_0/conv{i}``,
-``attn_in``, ``conformer{i}.*`` (``models/attention.py``),
+``glu{i}.{glu_conv,res_proj}``, ``attn_in``, ``conformer{i}.*``
+(``models/attention.py``),
 ``birnn{i}.{in_fwd,in_bwd,rec}``, ``proj``, ``output``.
 
 ``init_parameters`` draws a fresh model's weights from flax's default
 distributions (``train/state.py::init_state``): ``lecun_normal`` kernels
-(dense, conv, depthwise conv), zero biases, unit LayerNorm scales,
+(dense, conv, GLU conv, depthwise conv), zero biases, unit LayerNorm scales,
 ``orthogonal`` recurrent weights. The numbers are torch's, not JAX's (the
 two generators differ); tests that compare the packages inject the same
 weights through ``bridge.py``.
@@ -40,7 +43,7 @@ from torch import nn
 from .. import constants as C
 from ..config import ModelConfig
 from .attention import ConformerBlock
-from .conv import ConvSubsampler, conv_out_features
+from .conv import ConvSubsampler, GLUConvBlock, conv_out_features
 from .rnn import BiRNNLayer, linear, time_mask
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -64,10 +67,6 @@ def exact_fp32_on_cuda() -> None:
 class AcousticModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.glu_blocks:
-            raise NotImplementedError(
-                "GLU blocks are not ported yet (ROADMAP.md, module queue: "
-                "the GLU conv block)")
         exact_fp32_on_cuda()
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.compute_dtype)
@@ -76,6 +75,11 @@ class AcousticModel(nn.Module):
             cfg.conv_stride_time, cfg.conv_stride_freq, self.dtype)
         dim = (conv_out_features(C.N_MELS, cfg.conv_stride_freq)
                * cfg.conv_channels[-1])
+        self.n_glu = cfg.glu_blocks
+        for i in range(self.n_glu):
+            self.add_module(f"glu{i}", GLUConvBlock(dim, cfg.glu_channels,
+                                                    self.dtype))
+            dim = cfg.glu_channels
         self.n_attn = cfg.attn_blocks
         if self.n_attn:
             self.attn_in = (nn.Linear(dim, cfg.attn_dim)
@@ -120,6 +124,8 @@ class AcousticModel(nn.Module):
                 "calls; train a chunk-causal preset (attn_chunk > 0, "
                 "e.g. conformer_stream) to serve attention online")
         x, lens = self.subsampler(feats, lengths)
+        for i in range(self.n_glu):
+            x = getattr(self, f"glu{i}")(x, lens)
         if drop_left:
             x = x[:, drop_left:]
             lens = torch.clamp(lens - drop_left, min=0)
@@ -235,17 +241,19 @@ class AcousticModel(nn.Module):
         return out
 
     def conv_receptive_margin(self) -> int:
-        """Input-frame margin that fully covers the conv stack's one-sided
-        receptive field: window-edge conv outputs farther than this many
-        INPUT frames from the edge equal the full-utterance computation
-        (decode/streaming.py's left-margin floor). The reference also
-        counts GLU blocks, which the port refuses at construction."""
+        """Input-frame margin that fully covers the conv (+GLU) stack's
+        one-sided receptive field: window-edge conv outputs farther than
+        this many INPUT frames from the edge equal the full-utterance
+        computation (decode/streaming.py's left-margin floor)."""
         cfg = self.cfg
         kt = cfg.conv_kernel[0]
         rf, jump = 1, 1                    # receptive field, input stride
         for st in cfg.conv_stride_time:
             rf += (kt - 1) * jump
             jump *= st
+        # the GLU blocks run at the subsampled rate; their extent comes
+        # from the module's kernel_time, so the two cannot drift apart
+        rf += cfg.glu_blocks * (GLUConvBlock.kernel_time - 1) * jump
         return (rf - 1) // 2 + 1
 
     def conv_right_margin(self) -> int:
@@ -255,14 +263,15 @@ class AcousticModel(nn.Module):
         stack's ((k−1)//2, k//2) padding the last emitted output reaches
         ``max(0, O − S + 1)`` frames past the emit region, O = Σᵢ
         (kᵢ//2)·Jᵢ (Jᵢ the input jump at layer i, S the total stride); 0
-        for the plain subsampling stacks (GLU blocks, which would add to
-        it, are refused at construction)."""
+        for the plain subsampling stacks, 48 for ``glu_conv`` (6 stride-1
+        GLU blocks of time-kernel 5 at jump 4)."""
         cfg = self.cfg
         kt = cfg.conv_kernel[0]
         off, jump = 0, 1
         for st in cfg.conv_stride_time:
             off += (kt // 2) * jump
             jump *= st
+        off += cfg.glu_blocks * (GLUConvBlock.kernel_time // 2) * jump
         return max(0, off - jump + 1)
 
 
@@ -312,7 +321,8 @@ def init_parameters(model: nn.Module, seed: int) -> None:
             _orthogonal_(p, gen)
         elif p.dim() in (2, 3, 4):
             # Linear [out, in], depthwise Conv1d [d, 1, kt] (flax's [kt, 1,
-            # d]: fan_in kt), Conv2d [out, in, kt, kf]
+            # d]: fan_in kt), GLU Conv1d [2C, D, kt] (flax's [kt, D, 2C]:
+            # fan_in kt·D), Conv2d [out, in, kt, kf]
             _lecun_normal_(p, p[0].numel(), gen)
         else:
             raise KeyError(f"init_parameters: no rule for {name} "

@@ -44,8 +44,11 @@ import torch
 from .. import _kernels
 
 NEG = -1e30                      # the masking constant of the reference
-KERNEL_DH = 64                   # the head width the kernels are built for
-                                 # (both presets': d 256 over 4 heads)
+# the head widths the kernels take: the reference's set
+# (attention_pallas.supports), dh = 64 for both presets (d 256 over 4
+# heads) on the tensor-core kernels of one 64-wide tile, wider heads split
+# into 64-column slices over blocks (csrc/attention_fwd.cu)
+KERNEL_DHS = tuple(range(64, 513, 64))
 AUTO_MIN_T = 512                 # auto routes flash only for T' above this
 
 # per-call routing log: models/attention.py adds one to the path each
@@ -54,11 +57,10 @@ ROUTED = {"flash": 0, "einsum": 0}
 
 
 def supports(T: int, dh: int) -> bool:
-    """The ``auto`` gate: the reference's policy (flash only for long-form
-    T' > 512, a speed and a training-quality decision, see
-    ``attention_pallas.supports``) with the CUDA kernels' own head width
-    in place of the TPU's lane rule."""
-    return dh == KERNEL_DH and T > AUTO_MIN_T
+    """The ``auto`` gate, the reference's (``attention_pallas.supports``):
+    head widths of the kernels' set, and flash only for long-form T' >
+    512, a speed and a training-quality decision."""
+    return dh % 64 == 0 and dh <= 512 and T > AUTO_MIN_T
 
 
 # ------------------------------------------------------------ plain versions
@@ -221,9 +223,10 @@ def _geometry(q, k, v, lens, chunk, left_chunks, *extra):
     B, T, h, dh = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash attention: dtype {q.dtype} is not built")
-    if dh != KERNEL_DH:
+    if dh not in KERNEL_DHS:
         raise ValueError(f"flash attention: head width {dh} is not built "
-                         f"(the kernels take dh = {KERNEL_DH})")
+                         f"(the kernels take dh in {KERNEL_DHS}: dh % 64 "
+                         "== 0, dh <= 512)")
     if B < 1 or T < 1 or h < 1:
         raise ValueError(f"flash attention: empty shape {tuple(q.shape)}")
     if chunk < 0 or left_chunks < 0:

@@ -9,10 +9,12 @@ attention family, ``conformer`` and ``conformer_stream`` offline (phases
 from a pack, the evaluate CLI), config 4 on ``bigru`` (phase 23:
 prefix beam search with LM fusion, offline and streaming), training
 from the device-resident corpus, the default data mode (phase 24), and
-data-parallel training, config 5 (phase 25), and the online presets end
+data-parallel training, config 5 (phase 25), the online presets end
 to end (phases 26-28: the one-direction training forms, uni_gru training,
-conformer_stream streaming), with random weights made from a seed, and
-fails (exit code != 0, no result line) if any phase fails:
+conformer_stream streaming), the flash kernels at every head width the
+reference takes, conformer at dh 128 and 256, and ``glu_conv`` (phases
+29-31), with random weights made from a seed, and fails (exit code != 0,
+no result line) if any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
@@ -253,6 +255,40 @@ fails (exit code != 0, no result line) if any phase fails:
     phase 19's fp32 bar, and the streamed transcripts equal to the offline
     argmax's wherever it has no near-tie.
     Phases 26-28's walls are printed against a 40 s budget.
+29. the flash widths: forward, dQ and dK/dV at every head width the
+    kernels take (dh = 64, 128, ..., 512: the reference's set; dh > 64
+    splits the head dim over blocks in 64-column slices), fp32 and bf16,
+    against their plain versions at phase 18's decode (B = 32, T' = 701)
+    and training (B = 24, T' = 256) shapes, h = 4, 2, 1 where dh divides
+    256 (``width_heads``) and 1 elsewhere, chunk 16 / left 4 at dh 128 and
+    512, ragged lengths 1 and T', q/k/v strided as the fused qkv gives
+    them; the bf16 gradients at phase 18's derived bar, both planted
+    faults beyond it at every dh; the bf16 forward at the decode shape and
+    the backward pair at the training shape timed in 5 alternating rounds
+    of graph replays beside SDPA with the same boolean mask (the backend
+    it picks named), the plain versions and the bound (the kernel line's
+    ``dh`` sub-entries);
+30. conformer at ``model.attn_heads`` 2 and 1 (dh 128, 256; every
+    parameter's shape as in the preset): the decode CLI on phase 19's 32
+    long-form wavs under ``auto`` with exactly one flash_fwd a block (the
+    reference's gate at dh != 64), 4 wavs' logits card vs CPU at phase
+    19's bars; the train CLI in the default data mode with
+    ``attn_impl=flash``, 24 steps, exact flash_fwd / flash_bwd_dq /
+    flash_bwd_dkv launches; one step card vs CPU at phase 21's bars;
+31. glu_conv (the subsampler and six GLU conv blocks of 256, conv-only
+    CTC): a random-weight checkpoint through the decode CLI on the 64 wavs
+    (exact front-end and greedy launches), 4 wavs' logits card vs CPU at
+    fp32 (1e-4) and bf16 (as phase 19: six gated residual convolutions);
+    24 training steps in the default data mode (exact ctc_fwd / ctc_bwd
+    launches, the step-16 checkpoint resumed to 24 bitwise) and 4 steps in
+    stream mode (exact launches); one step card vs CPU at phase 9's bars;
+    the stream CLI with causal CMVN at
+    --right-frames 48 (its right reach: conv_exact, printed in the
+    --timing line) with exact launches, the chained window logits of 4
+    wavs against the offline ones at phase 16's bar, and at 16 (the
+    default) the error printed; the decode CLI with --beam 8 --lm once,
+    every beam launch held to the plain version.
+    Phases 29-31's walls are printed against a 60 s budget.
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -285,6 +321,7 @@ STREAM_SWEEP = (1, 4, 16, 20, 64)     # window steps of the fixed-cost fit
 # causal CMVN) at the default lookahead of 16 frames
 STREAM_ARGS = {UNI_PRESET: ["--right-frames", "0"], LSTM_PRESET: []}
 CONF_PRESET, CONF_STREAM = "conformer", "conformer_stream"
+GLU_PRESET = "glu_conv"               # conv-only CTC: six GLU conv blocks
 LONG_WAVS, LONG_SECONDS = 32, (22.0, 28.0)   # long-form: T' 551-701 > 512
 SEED = 0
 N_WAVS, BATCH = 64, 32
@@ -396,6 +433,7 @@ SOURCES = {
         "chainer_speech_recognition_tpu_torch/csrc/beam.cu",
         "chainer_speech_recognition_tpu/decode/beam.py:342"),
 }
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the kernels line's notes: dw replaces an XLA einsum, not a Pallas call
 NOTES = {"dw": "replaces _dw_einsum, an XLA einsum (not a Pallas call); "
                "timed at bilstm_deep's training layer, launches from its "
@@ -408,12 +446,18 @@ NOTES = {"dw": "replaces _dw_einsum, an XLA einsum (not a Pallas call); "
                   "training call, launches from phase 27's forward-only "
                   "runs" for name in ("gru_fwd_train", "gru_bwd",
                                       "lstm_fwd_train", "lstm_bwd")},
+         **{name: "dh: the kernel at each head width of the reference's "
+                  "set, timed in phase 29 (forward at B = 32, T' = 701, the "
+                  "backward at B = 24, T' = 256, h = 4, 2 or 1) beside SDPA "
+                  "(sdpa_backend: the backend it picks); launches from the "
+                  "main path's runs at dh 64 (phases 19, 21), 128 and 256 "
+                  "(phase 30), 0 where no preset reaches the width"
+            for name in FLASH},
          "beam": "replaces _beam_step in the lax.scan of _beam_decode_jit "
                  "and _beam_chunk_jit (not a Pallas call); timed at the "
                  "decode shape with the dense 3-gram, launches from the "
                  "decode CLI's --beam 8 --lm run; no PyTorch call computes "
                  "a prefix beam"}
-FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 GRAPH_CALLS = 10        # calls in one CUDA graph of phase 18's rounds
 # phase 22: a confusable corpus of short utterances (PARITY.md §1's
 # synthesizer, cut to 48 utterances of 2-4 s), one 512-frame bucket
@@ -1785,10 +1829,11 @@ def phase_stream_kernels(dev, rng) -> dict:
 
 
 def write_checkpoint(root: str, preset: str, rng,
-                     overrides: dict | None = None) -> str:
+                     overrides: dict | None = None,
+                     name: str | None = None) -> str:
     """A params-only checkpoint of ``preset`` (with dotted config
     ``overrides``) with random weights from ``rng``, written by the port's
-    own writer; → its directory."""
+    own writer into ``ckpt_{name}``; → its directory."""
     from chainer_speech_recognition_tpu_torch.bridge import state_dict_to_flax
     from chainer_speech_recognition_tpu_torch.checkpoint import save_params
     from chainer_speech_recognition_tpu_torch.config import preset_config
@@ -1799,7 +1844,8 @@ def write_checkpoint(root: str, preset: str, rng,
     if overrides:
         cfg = cfg.override(overrides)
     model = build_model(cfg.model)
-    ckpt = os.path.join(root, f"ckpt_{preset}{'_stream' if overrides else ''}")
+    ckpt = os.path.join(root, f"ckpt_{name}" if name else
+                        f"ckpt_{preset}{'_stream' if overrides else ''}")
     path = save_params(ckpt, state_dict_to_flax(
         random_state_dict(model, rng)), cfg)
     print(f"[inputs] {preset} checkpoint {os.path.basename(path)} "
@@ -1900,9 +1946,10 @@ def phase_decode(tag: str, ckpt, vocab, wavs, audio_s, want: dict,
 def phase_parity(ckpt, wavs, dev, tag: str) -> None:
     """Logits and output lengths of 4 wavs card vs CPU, the model built as
     ``cli.decode.load_model`` builds it. An RNN checkpoint is held at its
-    compute dtype to 3e-2. An attention checkpoint, whose bf16 noise over
-    eight blocks of LayerNorms, softmaxes and residual sums is as large as
-    that bar, runs at fp32 and at bf16 compute on both: fp32 card vs CPU to
+    compute dtype to 3e-2. An attention or GLU checkpoint, whose bf16 noise
+    over its residual blocks (eight of LayerNorms, softmaxes and sums; six
+    gated convolutions) is as large as that bar, runs at fp32 and at bf16
+    compute on both: fp32 card vs CPU to
     1e-4 (the port's fp32 bar against flax); bf16 card vs CPU to the larger
     of 3e-2 and the CPU's own bf16 gap to its fp32 logits; and the card's
     bf16 logits no farther from the CPU's fp32 ones than
@@ -1919,7 +1966,7 @@ def phase_parity(ckpt, wavs, dev, tag: str) -> None:
 
     cfg = load_config(ckpt)
     params, _ = load_params(ckpt, 1)
-    attention = cfg.model.attn_blocks > 0
+    attention = cfg.model.attn_blocks > 0 or cfg.model.glu_blocks > 0
     dtypes = ("float32", "bfloat16") if attention else (
         cfg.model.compute_dtype,)
     sigs = [read_wav(w) for w in wavs[:PARITY_WAVS]]
@@ -2323,11 +2370,12 @@ def phase_train(root: str, data: str, preset: str,
 
 
 def phase_train_parity(dev, index: str, preset: str,
-                       overrides: dict | None = None) -> None:
+                       overrides: dict | None = None,
+                       tag: str | None = None) -> None:
     """One step's loss and gradients, card (kernels) vs CPU (plain
     versions), from the same weights, batch of 2 utterances and, where the
     preset enables it, SpecAugment draws; ``overrides`` are dotted config
-    overrides of the preset."""
+    overrides of the preset, ``tag`` the log's (by the preset)."""
     import torch
 
     from chainer_speech_recognition_tpu_torch.config import preset_config
@@ -2340,9 +2388,10 @@ def phase_train_parity(dev, index: str, preset: str,
     from chainer_speech_recognition_tpu_torch.train.step import forward_loss
     from chainer_speech_recognition_tpu_torch.vocab import Vocab
 
-    tag = {PRESET: "train-parity", LSTM_PRESET: "lstm-train-parity",
-           CONF_PRESET: "conformer-train-parity",
-           UNI_PRESET: "uni-train-parity"}[preset]
+    tag = tag or {PRESET: "train-parity", LSTM_PRESET: "lstm-train-parity",
+                  CONF_PRESET: "conformer-train-parity",
+                  UNI_PRESET: "uni-train-parity",
+                  GLU_PRESET: "glu-train-parity"}[preset]
     cfg = preset_config(preset).override(overrides or {})
     utts = load_index(index)
     vocab = Vocab.load(os.path.join(os.path.dirname(index), "vocab.txt"))
@@ -2646,214 +2695,313 @@ def attention_cases(rng) -> list:
             ("train", TRAIN_B, T_tr, tr_len, 0, 0)]
 
 
-def phase_attention_kernels(dev, rng) -> dict:
-    """The three flash kernels vs their plain versions (phase 18)."""
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for these
+    operands and boolean mask: the first of the fused backends, in the
+    dispatcher's priority order, that takes them alone, else "math"."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    order = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
+    if hasattr(torch._C, "_get_sdp_priority_order"):
+        prio = list(torch._C._get_sdp_priority_order())
+        order.sort(key=lambda b: prio.index(int(b)) if int(b) in prio
+                   else len(prio))
+    for backend in order:
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            return backend.name.lower()
+        except RuntimeError:
+            continue
+    return "math"
+
+
+def flash_case(dev, rng, tag, B, T, lens_cpu, chunk, left, h, dh,
+               timed=FLASH, crossover=False, n_rounds: int = 9) -> dict:
+    """The three flash kernels vs their plain versions in fp32 and bf16 on
+    one case (phases 18 and 29): outputs finite, rows with no allowed key
+    exact, each output within its elementwise bar, the bf16 gradients'
+    planted faults beyond theirs. Where ``timed`` names kernels, the bf16
+    forward (and with "flash_bwd_dq" in it the backward pair) in
+    alternating rounds of graph replays beside SDPA's forward (and
+    backward) in ``n_rounds`` rounds → {kernel: its timing entry}, else {};
+    ``crossover`` adds the einsum path's eager time beside flash_fwd's."""
     import torch
     import torch.nn.functional as F
 
-    from chainer_speech_recognition_tpu_torch.config import preset_config
     from chainer_speech_recognition_tpu_torch.models.attention import (
         einsum_attention)
     from chainer_speech_recognition_tpu_torch.models.rnn import time_mask
     from chainer_speech_recognition_tpu_torch.ops import attention_cuda as ac
 
-    mcfg = preset_config(CONF_PRESET).model
-    h, dh = mcfg.attn_heads, mcfg.attn_dim // mcfg.attn_heads
-    out = {}
-    for tag, B, T, lens_cpu, chunk, left in attention_cases(rng):
-        lens = lens_cpu.to(torch.int32).to(dev)
-        d = h * dh
-        f32 = lambda *s: torch.from_numpy(
-            rng.standard_normal(s).astype(np.float32)).to(dev)
-        qkv32, do32 = f32(B, T, 3 * d), f32(B, T, h, dh)
-        ok = ac.allowed_mask(T, lens, chunk, left)            # [B, 1, T, T]
-        pairs = int(ok.expand(B, 1, T, T).sum()) * h
-        for dtag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            qkv, do = qkv32.to(cdt), do32.to(cdt)
-            # strided views of the fused projection, as the model has them
-            q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(B, T, h, dh)
-                       for i in range(3))
-            o, lse = ac.flash_fwd_cuda(q, k, v, lens, chunk, left)
-            o_p, lse_p = ac.flash_fwd_plain(q, k, v, lens, chunk, left)
-            d_rows = (do.float() * o_p.float()).sum(-1).transpose(1, 2) \
-                .contiguous()
-            args = (q, k, v, lens, do, lse_p, d_rows, chunk, left)
-            dq, (dk, dv) = (ac.flash_bwd_dq_cuda(*args),
-                            ac.flash_bwd_dkv_cuda(*args))
-            dq_p, (dk_p, dv_p) = (ac.flash_bwd_dq_plain(*args),
-                                  ac.flash_bwd_dkv_plain(*args))
-            torch.cuda.synchronize()
-            for name, t in (("out", o), ("lse", lse), ("dq", dq), ("dk", dk),
-                            ("dv", dv)):
-                check(bool(torch.isfinite(t.float()).all()),
-                      f"flash {tag} {dtag}: non-finite {name}")
-            live = lse_p > ac.NEG / 2
-            check(torch.equal(lse[~live], lse_p[~live]),
-                  f"flash {tag} {dtag}: rows with no allowed key")
-            ftol, gtol = TOL[f"flash_{dtag}"], TOL[f"flash_grad_{dtag}"]
-            o_scale = o_p.float().abs()
-            room = (0.0, 0.0, 0.0)
-            if cdt == torch.bfloat16:         # + Σ p·|v| / l (see TOL)
-                o_scale += ac.flash_fwd_plain(q, k, v.abs(), lens, chunk,
-                                              left)[0].float()
-                # the gradients' bar adds the rounding room of p and ds
-                room = ac.bwd_rounding_room(*args)
-            grads = (("dq", dq, dq_p, room[0]), ("dk", dk, dk_p, room[1]),
-                     ("dv", dv, dv_p, room[2]))
-            # (max abs error, max of |a - b| / (atol + rtol·s + room)):
-            # each output passes where the second is at most 1
-            err = {n: (float((a.float() - b.float()).abs().max()),
-                       excess(a, b, *tol, s, x))
-                   for n, a, b, tol, s, x in (
-                       ("out", o, o_p, ftol, o_scale, 0.0),
-                       ("lse", lse[live], lse_p[live], TOL["flash_fp32"],
-                        None, 0.0),
-                       *((n, a, b, gtol, None, x) for n, a, b, x in grads))}
-            bf = cdt == torch.bfloat16
-            print(f"[attn-kernels] {tag} {dtag} B={B} T'={T} h={h} dh={dh}"
-                  f" ({int((~live).sum())} rows with no allowed key): max abs"
-                  f" (share of the elementwise bar) " + ", ".join(
-                      f"{n} {a:.3e} ({x:.3f})" for n, (a, x) in err.items())
-                  + f"; bars (rtol, atol): out {ftol}"
-                  f"{' of |b| + Σp|v|/l' if bf else ''}"
-                  f", lse {TOL['flash_fp32']}, gradients {gtol}"
-                  f"{' + the rounding room of p and ds' if bf else ''}")
-            if bf:
-                print(f"[attn-kernels] {tag} bf16 gradients' share of the old"
-                      f" bar 2^-7·|b| + 1e-3 (no rounding room): " + ", ".join(
-                          f"{n} {excess(a, b, *gtol):.3f}"
-                          for n, a, b, _ in grads))
-                # the bar's power: each planted fault, added to the
-                # kernels' own gradients, must exceed it somewhere
-                planted = {
-                    f: [excess((a.float() + dd).to(cdt), b, *gtol, None, x)
-                        for (_, a, b, x), dd in zip(grads, deltas)]
-                    for f, deltas in ac.bwd_planted_faults(*args).items()}
-                print(f"[attn-kernels] {tag} bf16 planted faults' share of "
-                      f"the derived bar (each must exceed 1): " + "; ".join(
-                          f"{f}: " + ", ".join(
-                              f"{n} {s:.3f}" for n, s in zip(
-                                  ("dq", "dk", "dv"), sh))
-                          for f, sh in planted.items()))
-                check(all(max(sh) > 1 for sh in planted.values()),
-                      f"flash backward {tag}: a planted fault passes the "
-                      "derived bar")
-            check(err["out"][1] <= 1 and err["lse"][1] <= 1,
-                  f"flash_fwd {tag} {dtag} disagrees")
-            check(max(err[n][1] for n in ("dq", "dk", "dv")) <= 1,
-                  f"flash backward {tag} {dtag} disagrees")
-            ferr = max(err["out"][0], err["lse"][0])
-            gerr = {n: err[n][0] for n in ("dq", "dk", "dv")}
-            if cdt != torch.bfloat16:          # the presets' compute dtype
-                continue
-            # yardstick: PyTorch's SDPA with the same boolean mask, heads
-            # second; its backward computes dq, dk and dv in one call
-            qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
-            leaves = [x.detach().clone().requires_grad_() for x in
-                      (qh, kh, vh)]
+    lens = lens_cpu.to(torch.int32).to(dev)
+    d = h * dh
+    f32 = lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dev)
+    qkv32, do32 = f32(B, T, 3 * d), f32(B, T, h, dh)
+    ok = ac.allowed_mask(T, lens, chunk, left)            # [B, 1, T, T]
+    pairs = int(ok.expand(B, 1, T, T).sum()) * h
+    t = {}
+    for dtag, cdt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        qkv, do = qkv32.to(cdt), do32.to(cdt)
+        # strided views of the fused projection, as the model has them
+        q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(B, T, h, dh)
+                   for i in range(3))
+        o, lse = ac.flash_fwd_cuda(q, k, v, lens, chunk, left)
+        o_p, lse_p = ac.flash_fwd_plain(q, k, v, lens, chunk, left)
+        d_rows = (do.float() * o_p.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        args = (q, k, v, lens, do, lse_p, d_rows, chunk, left)
+        dq, (dk, dv) = (ac.flash_bwd_dq_cuda(*args),
+                        ac.flash_bwd_dkv_cuda(*args))
+        dq_p, (dk_p, dv_p) = (ac.flash_bwd_dq_plain(*args),
+                              ac.flash_bwd_dkv_plain(*args))
+        torch.cuda.synchronize()
+        for name, x in (("out", o), ("lse", lse), ("dq", dq), ("dk", dk),
+                        ("dv", dv)):
+            check(bool(torch.isfinite(x.float()).all()),
+                  f"flash {tag} {dtag}: non-finite {name}")
+        live = lse_p > ac.NEG / 2
+        check(torch.equal(lse[~live], lse_p[~live]),
+              f"flash {tag} {dtag}: rows with no allowed key")
+        ftol, gtol = TOL[f"flash_{dtag}"], TOL[f"flash_grad_{dtag}"]
+        o_scale = o_p.float().abs()
+        room = (0.0, 0.0, 0.0)
+        if cdt == torch.bfloat16:         # + Σ p·|v| / l (see TOL)
+            o_scale += ac.flash_fwd_plain(q, k, v.abs(), lens, chunk,
+                                          left)[0].float()
+            # the gradients' bar adds the rounding room of p and ds
+            room = ac.bwd_rounding_room(*args)
+        grads = (("dq", dq, dq_p, room[0]), ("dk", dk, dk_p, room[1]),
+                 ("dv", dv, dv_p, room[2]))
+        # (max abs error, max of |a - b| / (atol + rtol·s + room)):
+        # each output passes where the second is at most 1
+        err = {n: (float((a.float() - b.float()).abs().max()),
+                   excess(a, b, *tol, s, x))
+               for n, a, b, tol, s, x in (
+                   ("out", o, o_p, ftol, o_scale, 0.0),
+                   ("lse", lse[live], lse_p[live], TOL["flash_fp32"],
+                    None, 0.0),
+                   *((n, a, b, gtol, None, x) for n, a, b, x in grads))}
+        bf = cdt == torch.bfloat16
+        print(f"[attn-kernels] {tag} {dtag} B={B} T'={T} h={h} dh={dh}"
+              f" ({int((~live).sum())} rows with no allowed key): max abs"
+              f" (share of the elementwise bar) " + ", ".join(
+                  f"{n} {a:.3e} ({x:.3f})" for n, (a, x) in err.items())
+              + f"; bars (rtol, atol): out {ftol}"
+              f"{' of |b| + Σp|v|/l' if bf else ''}"
+              f", lse {TOL['flash_fp32']}, gradients {gtol}"
+              f"{' + the rounding room of p and ds' if bf else ''}")
+        if bf:
+            print(f"[attn-kernels] {tag} bf16 gradients' share of the old"
+                  f" bar 2^-7·|b| + 1e-3 (no rounding room): " + ", ".join(
+                      f"{n} {excess(a, b, *gtol):.3f}"
+                      for n, a, b, _ in grads))
+            # the bar's power: each planted fault, added to the
+            # kernels' own gradients, must exceed it somewhere
+            planted = {
+                f: [excess((a.float() + dd).to(cdt), b, *gtol, None, x)
+                    for (_, a, b, x), dd in zip(grads, deltas)]
+                for f, deltas in ac.bwd_planted_faults(*args).items()}
+            print(f"[attn-kernels] {tag} bf16 planted faults' share of "
+                  f"the derived bar (each must exceed 1): " + "; ".join(
+                      f"{f}: " + ", ".join(
+                          f"{n} {s:.3f}" for n, s in zip(
+                              ("dq", "dk", "dv"), sh))
+                      for f, sh in planted.items()))
+            check(all(max(sh) > 1 for sh in planted.values()),
+                  f"flash backward {tag}: a planted fault passes the "
+                  "derived bar")
+        check(err["out"][1] <= 1 and err["lse"][1] <= 1,
+              f"flash_fwd {tag} {dtag} disagrees")
+        check(max(err[n][1] for n in ("dq", "dk", "dv")) <= 1,
+              f"flash backward {tag} {dtag} disagrees")
+        ferr = max(err["out"][0], err["lse"][0])
+        gerr = {n: err[n][0] for n in ("dq", "dk", "dv")}
+        if cdt != torch.bfloat16 or not timed:   # time the working type
+            continue
+        # yardstick: PyTorch's SDPA with the same boolean mask, heads
+        # second; its backward computes dq, dk and dv in one call
+        qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+        leaves = [x.detach().clone().requires_grad_() for x in
+                  (qh, kh, vh)]
+        backend = sdpa_backend(qh, kh, vh, ok)
 
-            def sdpa_fwd():
-                with torch.no_grad():
-                    return F.scaled_dot_product_attention(qh, kh, vh,
-                                                          attn_mask=ok)
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=ok)
 
-            def sdpa_train():
-                return F.scaled_dot_product_attention(*leaves, attn_mask=ok)
+        def sdpa_train():
+            return F.scaled_dot_product_attention(*leaves, attn_mask=ok)
 
-            # the three kernels and SDPA's forward and backward in
-            # alternating rounds of CUDA-graph replays, device time only on
-            # both sides; SDPA's backward is its forward and backward less
-            # its training forward, the two captured alike
-            g_fwd, fwd_g = graph_of(lambda: ac.flash_fwd_cuda(
-                q, k, v, lens, chunk, left))
-            g_sf, _ = graph_of(sdpa_fwd)
-            g_dq, dq_g = graph_of(lambda: ac.flash_bwd_dq_cuda(*args))
-            g_dkv, dkv_g = graph_of(lambda: ac.flash_bwd_dkv_cuda(*args))
-            g_fb, _ = graph_of(lambda: torch.autograd.grad(
-                sdpa_train(), leaves, doh))
-            g_fw, _ = graph_of(sdpa_train)
-            rounds = alternating_ms({
-                "flash_fwd": g_fwd, "sdpa_fwd": g_sf,
-                "flash_bwd_dq": g_dq, "flash_bwd_dkv": g_dkv,
-                "sdpa_fwd_bwd": g_fb, "sdpa_train": g_fw})
-            check(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
-                      for a, b in zip((fwd_g[0], dq_g, *dkv_g),
-                                      (o, dq, dk, dv)))
-                  and torch.equal(fwd_g[1], lse),
-                  f"flash kernels {tag}: a replay differs from the eager "
-                  "call (not deterministic)")
+        # the kernels and SDPA's forward and backward in alternating
+        # rounds of CUDA-graph replays, device time only on both sides;
+        # SDPA's backward is its forward and backward less its training
+        # forward, the two captured alike
+        fns = {"flash_fwd": lambda: ac.flash_fwd_cuda(
+            q, k, v, lens, chunk, left), "sdpa_fwd": sdpa_fwd}
+        bwd = "flash_bwd_dq" in timed
+        if bwd:
+            fns.update({
+                "flash_bwd_dq": lambda: ac.flash_bwd_dq_cuda(*args),
+                "flash_bwd_dkv": lambda: ac.flash_bwd_dkv_cuda(*args),
+                "sdpa_fwd_bwd": lambda: torch.autograd.grad(
+                    sdpa_train(), leaves, doh),
+                "sdpa_train": sdpa_train})
+        graphs = {n: graph_of(fn) for n, fn in fns.items()}
+        rounds = alternating_ms({n: g[0] for n, g in graphs.items()},
+                                rounds=n_rounds)
+        replayed = [graphs["flash_fwd"][1]]
+        eager_out = [(o, lse)]
+        if bwd:
+            replayed += [graphs["flash_bwd_dq"][1],
+                         graphs["flash_bwd_dkv"][1]]
+            eager_out += [dq, (dk, dv)]
+        check(same_bits(replayed, eager_out), f"flash kernels {tag}: a "
+              "replay differs from the eager call (not deterministic)")
+        med = {n: statistics.median(r) for n, r in rounds.items()}
+        fwd_ratio = [a / b for a, b in zip(rounds["flash_fwd"],
+                                           rounds["sdpa_fwd"])]
+        t = {"flash_fwd": dict(
+            max_abs_err=ferr, ms=med["flash_fwd"],
+            plain_ms=time_ms(lambda: ac.flash_fwd_plain(
+                q, k, v, lens, chunk, left), warmup=1, reps=3),
+            library_ms=med["sdpa_fwd"], sdpa_backend=backend,
+            **flash_bound(B, T, h, dh, pairs, 3, 1, 1, 4))}
+        eager = {"flash_fwd": time_ms(fns["flash_fwd"]),
+                 "SDPA forward": time_ms(sdpa_fwd)}
+        print(f"[attn-kernels] {tag} dh={dh} forward, {len(fwd_ratio)} "
+              f"alternating rounds of graph replays (medians): flash_fwd "
+              f"{med['flash_fwd']:.4f} ms ("
+              f"{t['flash_fwd']['bound_ms'] / med['flash_fwd']:.3f} of its "
+              f"bound), SDPA forward ({backend}) {med['sdpa_fwd']:.4f} ms; "
+              f"flash_fwd / SDPA {statistics.median(fwd_ratio):.3f} "
+              f"(rounds {min(fwd_ratio):.3f}-{max(fwd_ratio):.3f}); "
+              f"eager (host time in it): " + ", ".join(
+                  f"{n} {m:.4f} ms" for n, m in eager.items()))
+        if bwd:
             rounds["sdpa_bwd"] = [a - b for a, b in zip(
                 rounds["sdpa_fwd_bwd"], rounds["sdpa_train"])]
-            med = {n: statistics.median(r) for n, r in rounds.items()}
-            fwd_ratio = [a / b for a, b in zip(rounds["flash_fwd"],
-                                               rounds["sdpa_fwd"])]
+            med["sdpa_bwd"] = statistics.median(rounds["sdpa_bwd"])
             ratio = [(a + b) / c for a, b, c in zip(
                 rounds["flash_bwd_dq"], rounds["flash_bwd_dkv"],
                 rounds["sdpa_bwd"])]
-            t = {}
-            t["flash_fwd"] = dict(
-                max_abs_err=ferr, ms=med["flash_fwd"],
-                plain_ms=time_ms(lambda: ac.flash_fwd_plain(
-                    q, k, v, lens, chunk, left), warmup=1, reps=3),
-                library_ms=med["sdpa_fwd"],
-                **flash_bound(B, T, h, dh, pairs, 3, 1, 1, 4))
             t["flash_bwd_dq"] = dict(
                 max_abs_err=gerr["dq"], ms=med["flash_bwd_dq"],
                 plain_ms=time_ms(lambda: ac.flash_bwd_dq_plain(*args),
                                  warmup=1, reps=3),
-                library_ms=med["sdpa_bwd"],
+                library_ms=med["sdpa_bwd"], sdpa_backend=backend,
                 **flash_bound(B, T, h, dh, pairs, 4, 1, 2, 6))
             t["flash_bwd_dkv"] = dict(
                 max_abs_err=max(gerr["dk"], gerr["dv"]),
                 ms=med["flash_bwd_dkv"],
                 plain_ms=time_ms(lambda: ac.flash_bwd_dkv_plain(*args),
                                  warmup=1, reps=3),
-                library_ms=med["sdpa_bwd"],
+                library_ms=med["sdpa_bwd"], sdpa_backend=backend,
                 **flash_bound(B, T, h, dh, pairs, 4, 2, 2, 8))
-            eager = {"flash_fwd": time_ms(lambda: ac.flash_fwd_cuda(
-                q, k, v, lens, chunk, left)),
-                "SDPA forward": time_ms(sdpa_fwd)}
             pair = med["flash_bwd_dq"] + med["flash_bwd_dkv"]
-            share = {n: t[n]["bound_ms"] / med[n] for n in FLASH}
-            print(f"[attn-kernels] {tag} forward, {len(fwd_ratio)} "
-                  f"alternating rounds of graph replays (medians): flash_fwd "
-                  f"{med['flash_fwd']:.4f} ms ({share['flash_fwd']:.3f} of "
-                  f"its bound), SDPA forward {med['sdpa_fwd']:.4f} ms; "
-                  f"flash_fwd / SDPA {statistics.median(fwd_ratio):.3f} "
-                  f"(rounds {min(fwd_ratio):.3f}-{max(fwd_ratio):.3f}); "
-                  f"eager (host time in it): " + ", ".join(
-                      f"{n} {m:.4f} ms" for n, m in eager.items()))
-            print(f"[attn-kernels] {tag} backward, same rounds (medians): dq "
-                  f"{med['flash_bwd_dq']:.4f} ms ({share['flash_bwd_dq']:.3f}"
-                  f" of its bound), dkv {med['flash_bwd_dkv']:.4f} ms "
+            share = {n: t[n]["bound_ms"] / med[n] for n in FLASH[1:]}
+            print(f"[attn-kernels] {tag} dh={dh} backward, same rounds "
+                  f"(medians): dq {med['flash_bwd_dq']:.4f} ms "
+                  f"({share['flash_bwd_dq']:.3f} of its bound), dkv "
+                  f"{med['flash_bwd_dkv']:.4f} ms "
                   f"({share['flash_bwd_dkv']:.3f} of its bound), pair "
                   f"{pair:.4f} ms; SDPA backward "
                   f"{med['sdpa_bwd']:.4f} ms (forward and backward "
                   f"{med['sdpa_fwd_bwd']:.4f} ms); pair / SDPA "
                   f"{statistics.median(ratio):.3f} (rounds {min(ratio):.3f}"
                   f"-{max(ratio):.3f}); replays equal the eager outputs")
-            for name in FLASH:
-                r = t[name]
-                both = " (dq, dk, dv together)" if name != "flash_fwd" else ""
-                print(f"[attn-kernels] {tag} {name}: {r['ms']:.4f} ms, plain "
-                      f"(eager) {r['plain_ms']:.4f} ms, SDPA "
-                      f"{r['library_ms']:.4f} ms{both}, bound "
-                      f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
-                      f"{pairs} allowed (query, key) pairs")
-            if chunk == 0:
-                # the port's einsum path on the same q, k, v beside the
-                # eager flash_fwd: the card's flash/einsum crossover
-                # (recorded, not acted on)
-                mask = time_mask(T, lens)
-                ein = time_ms(lambda: einsum_attention(q, k, v, mask))
-                print(f"[attn-kernels] {tag} einsum path {ein:.4f} ms vs "
-                      f"flash_fwd {eager['flash_fwd']:.4f} ms at T'={T} "
-                      f"(both eager)")
-            if tag == "decode":
-                out["flash_fwd"] = t["flash_fwd"]
-            elif tag == "train":
-                out["flash_bwd_dq"] = t["flash_bwd_dq"]
-                out["flash_bwd_dkv"] = t["flash_bwd_dkv"]
+        for name, r in t.items():
+            both = " (dq, dk, dv together)" if name != "flash_fwd" else ""
+            print(f"[attn-kernels] {tag} dh={dh} {name}: {r['ms']:.4f} ms, "
+                  f"plain (eager) {r['plain_ms']:.4f} ms, SDPA "
+                  f"{r['library_ms']:.4f} ms{both}, bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                  f"{pairs} allowed (query, key) pairs")
+        if crossover and chunk == 0:
+            # the port's einsum path on the same q, k, v beside the
+            # eager flash_fwd: the card's flash/einsum crossover
+            # (recorded, not acted on)
+            mask = time_mask(T, lens)
+            ein = time_ms(lambda: einsum_attention(q, k, v, mask))
+            print(f"[attn-kernels] {tag} einsum path {ein:.4f} ms vs "
+                  f"flash_fwd {eager['flash_fwd']:.4f} ms at T'={T} "
+                  f"(both eager)")
+    return t
+
+
+def phase_attention_kernels(dev, rng) -> dict:
+    """The three flash kernels vs their plain versions (phase 18) at the
+    presets' head width."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    mcfg = preset_config(CONF_PRESET).model
+    h, dh = mcfg.attn_heads, mcfg.attn_dim // mcfg.attn_heads
+    out = {}
+    for tag, B, T, lens_cpu, chunk, left in attention_cases(rng):
+        t = flash_case(dev, rng, tag, B, T, lens_cpu, chunk, left, h, dh,
+                       crossover=True)
+        if tag == "decode":
+            out["flash_fwd"] = t["flash_fwd"]
+        elif tag == "train":
+            out["flash_bwd_dq"] = t["flash_bwd_dq"]
+            out["flash_bwd_dkv"] = t["flash_bwd_dkv"]
+    return out
+
+
+WIDTH_ROUNDS = 5          # phase 29's alternating rounds a case
+
+
+def width_heads(dh: int) -> int:
+    """Phase 29's heads at head width dh: the presets' d = 256 where dh
+    divides it (h = 4, 2, 1 at dh = 64, 128, 256), else one head."""
+    return max(1, 256 // dh) if 256 % dh == 0 else 1
+
+
+def phase_flash_widths(dev, rng) -> dict:
+    """Phase 29: the three flash kernels at every head width the kernels
+    take (``attention_cuda.KERNEL_DHS``, the reference's set), fp32 and
+    bf16, against their plain versions at the decode and training shapes
+    of phase 18 (ragged lengths 1 and T', q/k/v strided as the fused qkv
+    gives them; h from ``width_heads``), chunk 16 / left 4 at dh 128 and
+    512; the bf16 forward timed at the decode shape and the backward pair
+    at the training shape beside SDPA (``WIDTH_ROUNDS`` alternating rounds)
+    → {kernel: {dh: timing entry}}."""
+    from chainer_speech_recognition_tpu_torch.ops.attention_cuda import (
+        KERNEL_DHS)
+
+    cases = {c[0]: c for c in attention_cases(rng)}
+    out = {name: {} for name in FLASH}
+    for dh in KERNEL_DHS:
+        h = width_heads(dh)
+        tag, B, T, lens, chunk, left = cases["decode"]
+        fwd = flash_case(dev, rng, f"width {tag}", B, T, lens, chunk, left,
+                         h, dh, timed=("flash_fwd",), n_rounds=WIDTH_ROUNDS)
+        tag, B, T, lens, chunk, left = cases["train"]
+        bwd = flash_case(dev, rng, f"width {tag}", B, T, lens, chunk, left,
+                         h, dh, timed=FLASH, n_rounds=WIDTH_ROUNDS)
+        if dh in (128, 512):
+            tag, B, T, lens, chunk, left = cases["decode chunk 16/4"]
+            flash_case(dev, rng, f"width {tag}", B, T, lens, chunk, left, h,
+                       dh, timed=())
+        for name, r in (("flash_fwd", fwd["flash_fwd"]),
+                        ("flash_bwd_dq", bwd["flash_bwd_dq"]),
+                        ("flash_bwd_dkv", bwd["flash_bwd_dkv"])):
+            out[name][str(dh)] = {"h": h, **r}
+    print("[flash-widths] bf16 medians (ms; forward at B=32 T'=701, the "
+          "backward at B=24 T'=256): " + "; ".join(
+              f"dh {dh}: fwd {out['flash_fwd'][str(dh)]['ms']:.4f} (SDPA "
+              f"{out['flash_fwd'][str(dh)]['library_ms']:.4f} "
+              f"{out['flash_fwd'][str(dh)]['sdpa_backend']}, bound "
+              f"{out['flash_fwd'][str(dh)]['bound_ms']:.4f}), dq+dkv "
+              f"{out['flash_bwd_dq'][str(dh)]['ms'] + out['flash_bwd_dkv'][str(dh)]['ms']:.4f}"
+              f" (SDPA {out['flash_bwd_dq'][str(dh)]['library_ms']:.4f})"
+              for dh in KERNEL_DHS))
     return out
 
 
@@ -3157,6 +3305,178 @@ def phase_conformer_stream_online(root, vocab, wavs, audio_s, dev,
           f"{walls['greedy'][0]:.3f}/{walls['greedy'][1]:.3f} s, beam "
           f"{walls['beam'][0]:.3f}/{walls['beam'][1]:.3f} s)")
     return results["greedy"][0]
+
+
+# phases 29-31: the flash kernels' head widths, conformer at dh 128 and
+# 256, and glu_conv
+WIDTHS_BUDGET_S = 60.0    # phases 29-31 together
+WIDTH_HEADS = (2, 1)      # conformer's attn_heads in phase 30: dh 128, 256
+GLU_RIGHT = 48            # glu_conv's right reach: its exact lookahead
+GLU_STREAM_STEPS = 4      # glu_conv's steps in stream mode
+
+
+def phase_conformer_widths(root, vocab, long_wavs, long_s, data, index,
+                           dev, rng) -> dict:
+    """Phase 30: conformer (8 blocks, d = 256) at ``model.attn_heads`` 2 and
+    1, head widths 128 and 256 (every parameter's shape as in the preset):
+    a random-weight checkpoint decoding phase 19's 32 long-form wavs under
+    ``auto`` (exactly one flash_fwd a block: the reference's gate at dh ≠
+    64) with 4 wavs' logits card vs CPU at phase 19's bars; training in
+    the default data mode with ``attn_impl=flash`` (24 steps, exact
+    flash_fwd, flash_bwd_dq and flash_bwd_dkv launches) and one step card
+    vs CPU at phase 21's bars → {dh: {kernel: launches}}."""
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    mcfg = preset_config(CONF_PRESET).model
+    out = {}
+    for heads in WIDTH_HEADS:
+        dh = mcfg.attn_dim // heads
+        name = f"{CONF_PRESET}_h{heads}"
+        over = {"model.attn_heads": heads}
+        ckpt = write_checkpoint(root, CONF_PRESET, rng, over, name=name)
+        dec, _ = phase_decode(
+            f"conformer-dh{dh}-decode long-form auto", ckpt, vocab,
+            long_wavs, long_s, {"frontend_logmel": 1, "greedy": 1,
+                                "flash_fwd": mcfg.attn_blocks})
+        phase_parity(ckpt, long_wavs, dev, f"conformer-dh{dh}-parity")
+        sets = (f"model.attn_heads={heads}", "model.attn_impl=flash")
+        step_s, busy, tr = phase_cached_preset(root, data, CONF_PRESET, sets,
+                                               resume=False, name=name)
+        phase_train_parity(dev, index, CONF_PRESET,
+                           {**over, "model.attn_impl": "flash"},
+                           tag=f"conformer-dh{dh}-train-parity")
+        out[dh] = {"flash_fwd": dec["flash_fwd"],
+                   "flash_bwd_dq": tr["flash_bwd_dq"],
+                   "flash_bwd_dkv": tr["flash_bwd_dkv"]}
+        print(f"[conformer-dh{dh}] attn_heads={heads}: decode and training "
+              f"through the kernels at dh = {dh}, launches {out[dh]}; warm "
+              f"step {step_s * 1e3:.3f} ms, busy {busy:.4f}")
+    return out
+
+
+def phase_glu(root, vocab, wavs, audio_s, data, index, dev, rng) -> None:
+    """Phase 31: glu_conv (the conv subsampler and six GLU conv blocks of
+    256, conv-only CTC) at full width: a random-weight checkpoint through
+    the decode CLI on the 64 wavs (exact front-end and greedy launches), 4
+    wavs' logits card vs CPU; 24 training steps in the default data mode
+    (exact ctc_fwd / ctc_bwd launches, the step-16 checkpoint resumed to 24
+    bitwise) and 4 in stream mode (exact launches); one step card vs CPU
+    at phase 9's bars; the stream CLI with
+    causal CMVN at --right-frames 48 (exact: conv_exact) with exact
+    launches, the chained window logits of 4 wavs against the offline
+    ones at phase 16's bar, and at 16 (the default) the error printed;
+    the decode CLI with --beam 8 --lm once, every beam launch held to the
+    plain version."""
+    import wave
+
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.cli import stream
+    from chainer_speech_recognition_tpu_torch.cli.decode import load_model
+    from chainer_speech_recognition_tpu_torch.frontend import select_frontend
+    from chainer_speech_recognition_tpu_torch.utils.wav import read_wav
+
+    ckpt = write_checkpoint(root, GLU_PRESET, rng)
+    chunks = -(-len(wavs) // BATCH)
+    want = {"frontend_logmel": chunks, "greedy": chunks}
+    phase_decode("glu-decode", ckpt, vocab, wavs, audio_s, want)
+    phase_parity(ckpt, wavs, dev, "glu-parity")
+    step_s, busy, tr = phase_cached_preset(root, data, GLU_PRESET)
+    # the other data mode: host batches a step
+    ev, sl, swall, _ = cached_train(
+        data, "glu_stream_mode", root, GLU_PRESET, GLU_STREAM_STEPS,
+        ["train.data_mode=stream", "train.log_every=1",
+         "train.eval_every=100", "train.checkpoint_every=100"])
+    steps = [e for e in ev if e["kind"] == "train"]
+    check([e["step"] for e in steps] == list(range(1, GLU_STREAM_STEPS + 1))
+          and all(np.isfinite(e["loss"]) for e in steps),
+          f"glu_conv stream mode: metrics {steps}")
+    swant = {k: 0 for k in _kernels.KERNELS}
+    swant.update({k: GLU_STREAM_STEPS for k in ("frontend_logmel",
+                                                "ctc_fwd", "ctc_bwd")})
+    check_launches("glu-train stream mode", sl, swant)
+    print(f"[glu-train] data_mode=stream: {GLU_STREAM_STEPS} steps in "
+          f"{swall:.3f} s, losses "
+          f"{[round(e['loss'], 4) for e in steps]}, launches exact")
+    phase_train_parity(dev, index, GLU_PRESET)
+
+    sckpt = write_checkpoint(root, GLU_PRESET, rng,
+                             {"features.cmvn_mode": "causal"})
+    lens = []
+    for w in wavs:
+        with wave.open(w, "rb") as f:
+            lens.append(f.getnframes())
+    order = sorted(lens)
+    windows = sum(-(-C.num_frames(max(order[i : i + BATCH])) // STREAM_CHUNK)
+                  for i in range(0, len(order), BATCH))
+    args = ["--ckpt-dir", sckpt, "--vocab", vocab, "--device", "cuda",
+            "--batch", str(BATCH), "--chunk-frames", str(STREAM_CHUNK),
+            "--right-frames", str(GLU_RIGHT), "--timing", *wavs]
+    _kernels.reset_launches()
+    lines, err, wall = run_cli(stream.main, args)
+    launches = _kernels.launches()
+    swant = {k: 0 for k in _kernels.KERNELS}
+    swant["frontend_logmel"] = windows
+    check_launches("glu-stream", launches, swant)
+    check([l.split("\t")[0] for l in lines] == wavs and all(
+        len(l.split("\t")) == 2 for l in lines), "glu stream output")
+    timing = [l for l in err.splitlines() if "window latency" in l]
+    check(len(timing) == 1 and "conv_exact True" in timing[0],
+          f"glu stream --timing line {timing}")
+    print(f"[glu-stream] stream CLI, chunk {STREAM_CHUNK} + "
+          f"{GLU_RIGHT}: {windows} windows in {wall:.3f} s (cold), launches "
+          f"exact {{'frontend_logmel': {windows}}}; {timing[0]}")
+    sigs = [read_wav(w) for w in wavs[:PARITY_WAVS]]
+    cfg, model, _ = load_model(sckpt, device=dev)
+    n = np.asarray([len(x) for x in sigs], np.int32)
+    x = np.zeros((len(sigs), int(n.max())), np.float32)
+    for i, sg in enumerate(sigs):
+        x[i, : len(sg)] = sg
+    with torch.inference_mode():
+        feats, fl = select_frontend(cfg.features)(
+            torch.from_numpy(x).to(dev), torch.from_numpy(n).to(dev),
+            apply_cmvn=cfg.features.cmvn_arg)
+        logits, ol = model(feats, fl)
+    offline = [logits[b, : int(ol[b])].float().cpu()
+               for b in range(len(sigs))]
+    errs = {}
+    for right in (GLU_RIGHT, 16):
+        got = stream_window_logits(model, cfg, sigs, right)
+        check([g.shape for g in got] == [w.shape for w in offline],
+              f"glu stream at right {right}: logits shapes")
+        errs[right] = max(float((g - w).abs().max())
+                          for g, w in zip(got, offline))
+    print(f"[glu-stream] chained window logits of {len(sigs)} wavs vs the "
+          f"offline ones (card): right {GLU_RIGHT} max abs "
+          f"{errs[GLU_RIGHT]:.3e} (tol {TOL['gru_bf16']}); right 16 (the "
+          f"default, conv_exact False) {errs[16]:.3e} (not gated), |logits| "
+          f"max {max(float(w.abs().max()) for w in offline):.3f}")
+    check(errs[GLU_RIGHT] <= TOL["gru_bf16"], "glu stream logits at the "
+          "exact lookahead disagree with the offline ones")
+
+    arpa = train_arpa(root, vocab, rng, 3)
+    bargs = ["--ckpt-dir", ckpt, "--vocab", vocab, "--batch", str(BATCH),
+             "--device", "cuda", "--beam", str(BEAM_WIDTH), "--lm", arpa,
+             "--lm-alpha", str(BEAM_ALPHA), "--lm-beta", str(BEAM_BETA),
+             *wavs]
+    diffs: list = []
+    _kernels.reset_launches()
+    with beam_checked(diffs):
+        blines, bwall = run_decode(bargs)
+    bl = _kernels.launches()
+    bwant = {k: 0 for k in _kernels.KERNELS}
+    bwant.update({"frontend_logmel": chunks, "beam": chunks})
+    check_launches("glu-beam", bl, bwant)
+    check(len(diffs) == chunks, "not every glu beam launch was checked")
+    check([l.split("\t")[0] for l in blines] == wavs, "glu beam output")
+    print(f"[glu-beam] decode --beam {BEAM_WIDTH} --lm (3-gram): "
+          f"{bwall:.3f} s (cold), launches exact "
+          f"{ {k: v for k, v in bl.items() if v} }, each beam launch equal "
+          f"to the plain version (max score diff {max(diffs):.3e})")
+    print(f"[glu] train: warm step {step_s * 1e3:.3f} ms, busy {busy:.4f}, "
+          f"launches {tr['ctc_fwd']} ctc_fwd, {tr['ctc_bwd']} ctc_bwd")
 
 
 def _result_line(lines: list[str], prefix: str = "") -> dict:
@@ -3839,7 +4159,8 @@ def third_dispatch_s(ev: list) -> float:
 
 
 def phase_cached_preset(root: str, data: str, preset: str, sets=(),
-                        resume: bool = True) -> tuple[float, float, dict]:
+                        resume: bool = True,
+                        name: str | None = None) -> tuple[float, float, dict]:
     """One preset through the train CLI in phase 24 (and uni_gru's in
     phase 27) → (warm step wall s, busy share, the run's launches). The
     default program trains 24 steps: the log line, exact launches, the
@@ -3847,16 +4168,18 @@ def phase_cached_preset(root: str, data: str, preset: str, sets=(),
     from the third dispatch (a replay with no eval, checkpoint or
     profiler inside it: timed from the end of the step-16 checkpoint). The run checkpoints at 16 too (the replay check and
     phase 25 hold it); with ``resume``, a copy of that checkpoint resumed
-    to 24 must end bitwise where the run ended."""
+    to 24 must end bitwise where the run ended. ``name`` (the preset's by
+    default) names the run's directories and its log tag."""
     import shutil
 
     from chainer_speech_recognition_tpu_torch.config import preset_config
 
-    tag = f"cache-{preset}"
+    name = name or preset
+    tag = f"cache-{name}"
     cfg = preset_config(preset).override(
         dict(kv.split("=", 1) for kv in sets))
     ev, launches, wall, end = cached_train(
-        data, f"{preset}_run", root, preset, CACHE_RESUME,
+        data, f"{name}_run", root, preset, CACHE_RESUME,
         [*sets, "train.log_every=1", f"train.eval_every={CACHE_RESUME}",
          f"train.checkpoint_every={TRAIN_STEPS}"], profile=True)
     mode = [e for e in ev if e["kind"] == "data_mode"][0]
@@ -3878,7 +4201,7 @@ def phase_cached_preset(root: str, data: str, preset: str, sets=(),
                                               fe_build))
     step_s = third_dispatch_s(ev)
     busy, window_ms, top = _busy_share(os.path.join(
-        root, f"prof_cache_{preset}_run", "trace.json"))
+        root, f"prof_cache_{name}_run", "trace.json"))
     print(f"[{tag}] {CACHE_RESUME} steps in {wall:.3f} s (cache build, "
           f"capture and eval included), launches exact ({fe_build} "
           f"front-end launches at the build, none a step); warm step "
@@ -3886,8 +4209,8 @@ def phase_cached_preset(root: str, data: str, preset: str, sets=(),
           f"{CACHE_K}), {TRAIN_B / step_s:.3f} utt/s; device busy "
           f"{busy:.4f} of the {window_ms:.3f} ms profiled window (the "
           f"replay of steps 8-15)")
-    for name, us in top[:6]:
-        print(f"[{tag}] device time {us / 1e3:9.3f} ms  {name[:90]}")
+    for kernel, us in top[:6]:
+        print(f"[{tag}] device time {us / 1e3:9.3f} ms  {kernel[:90]}")
     print(f"[{tag}] the run's log, s from the logger's start: " + ", ".join(
         f"{e['kind']}{'@' + str(e['step']) if 'step' in e else ''} "
         f"{e['t']:.3f}" + (f" ({e['seconds']} s)" if "seconds" in e else "")
@@ -3900,13 +4223,13 @@ def phase_cached_preset(root: str, data: str, preset: str, sets=(),
             "config.json", f"step_{TRAIN_STEPS:08d}.msgpack",
             f"step_{CACHE_RESUME:08d}.msgpack"], f"{preset}: checkpoints "
             f"{sorted(os.listdir(src))}")
-        dst = os.path.join(root, f"cache_ckpt_{preset}_resumed")
+        dst = os.path.join(root, f"cache_ckpt_{name}_resumed")
         os.makedirs(dst)
         for f in os.listdir(src):
             if f != os.path.basename(end):
                 shutil.copy(os.path.join(src, f), dst)
         rev, _, w_res, resumed = cached_train(
-            data, f"{preset}_resumed", root, preset, CACHE_RESUME, sets,
+            data, f"{name}_resumed", root, preset, CACHE_RESUME, sets,
             fresh=False)
         res = [e for e in rev if e["kind"] == "resume"]
         check(len(res) == 1 and res[0]["step"] == TRAIN_STEPS,
@@ -4614,6 +4937,18 @@ def main() -> int:
             t_new = time.perf_counter()
             uni_launches = phase_uni_train(root, data, dev, index)
             new_walls[27] = time.perf_counter() - t_new
+            # phases 29-31 draw from a stream of their own
+            wrng = np.random.default_rng(SEED + 8)
+            t_new = time.perf_counter()
+            width_t = phase_flash_widths(dev, wrng)
+            width_walls = {29: time.perf_counter() - t_new}
+            t_new = time.perf_counter()
+            width_launches = phase_conformer_widths(
+                root, vocab, long_wavs, long_s, data, index, dev, wrng)
+            width_walls[30] = time.perf_counter() - t_new
+            t_new = time.perf_counter()
+            phase_glu(root, vocab, wavs, audio_s, data, index, dev, wrng)
+            width_walls[31] = time.perf_counter() - t_new
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]
@@ -4640,6 +4975,17 @@ def main() -> int:
         for cell in ("gru", "lstm"):
             timings["dw"][f"ndir1_{cell}"] = {
                 "launches": uni_launches[cell]["dw"], **uni_t[cell]["dw"]}
+        # the head widths: sub-entries of the flash kernels, timed in phase
+        # 29; launches from the main path's runs at dh 64 (phases 19, 21),
+        # 128 and 256 (phase 30), none at the widths no preset reaches
+        width_launches[64] = {n: launches[n] for n in FLASH}
+        for name in FLASH:
+            timings[name]["dh"] = {
+                dh: {"launches": width_launches.get(int(dh), {}).get(name, 0),
+                     **r} for dh, r in width_t[name].items()}
+        for dh in (128, 256):
+            check(all(width_launches[dh][n] > 0 for n in FLASH),
+                  f"dh {dh}: a flash kernel not launched on the main path")
         loaded = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "optax",
@@ -4653,6 +4999,12 @@ def main() -> int:
         + f", together {sum(new_walls.values()):.3f} s (budget "
         f"{ONLINE_BUDGET_S} s: "
         + ("within" if sum(new_walls.values()) <= ONLINE_BUDGET_S
+           else "OVER") + ")")
+    print(f"[chip_smoke] the head widths and glu_conv's phases: " + ", ".join(
+        f"{k} {width_walls[k]:.3f} s" for k in sorted(width_walls))
+        + f", together {sum(width_walls.values()):.3f} s (budget "
+        f"{WIDTHS_BUDGET_S} s: "
+        + ("within" if sum(width_walls.values()) <= WIDTHS_BUDGET_S
            else "OVER") + ")")
     print(f"[chip_smoke] the whole run took {time.perf_counter() - t_run:.3f}"
           " s (the kernels' build included)")

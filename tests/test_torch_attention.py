@@ -4,7 +4,7 @@ CPU, at a cut width (d = 128, h = 2, dh = 64): RoPE, the chunk-causal
 mask, the feed-forward and conv modules, MHSA and the whole block under
 ``impl`` einsum and flash (the Pallas kernel in interpret mode on the JAX
 side, the kernels' plain versions on the port's), chunk 0 and 16/2,
-residual stream fp32 and bf16. Bars: fp32 1e-5 (modules) and 3e-5 (the
+residual stream fp32 and bf16, and one head of 128 (dh = 128). Bars: fp32 1e-5 (modules) and 3e-5 (the
 block's eight sums), bf16 3e-2. Also the streaming call: refused for
 global attention, run for ``conformer_stream`` (through the model, the
 recognizer and the stream CLI; tests/test_torch_attention_stream.py holds
@@ -110,17 +110,29 @@ def test_conv_module_matches(causal, dtype):
 @pytest.mark.parametrize("chunk,left", [(0, 0), (16, 2)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mhsa_matches(impl, chunk, left, dtype):
+    _mhsa_case(impl, chunk, left, dtype, H)
+
+
+@pytest.mark.parametrize("impl", ["einsum", "flash"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mhsa_one_head_of_128_matches(impl, dtype):
+    """h = 1 at d = 128: a head of 128, which the kernels take split over
+    two 64-column slices (the plain versions here)."""
+    _mhsa_case(impl, 0, 0, dtype, 1)
+
+
+def _mhsa_case(impl, chunk, left, dtype, heads):
     jdt, tdt, tol = DT[dtype]
     T = 64
     x = _x(3, T, D, 2)
     lens = np.asarray([64, 40, 1], np.int32)
-    jm = jatt._MHSA(heads=H, dtype=jdt, chunk=chunk, left_chunks=left,
+    jm = jatt._MHSA(heads=heads, dtype=jdt, chunk=chunk, left_chunks=left,
                     impl=impl)
     mask = jtime_mask(T, jnp.asarray(lens))
     args = (jnp.asarray(x, jdt), mask)
     params = jm.init(jax.random.key(2), *args, lengths=jnp.asarray(lens))
     want = jm.apply(params, *args, lengths=jnp.asarray(lens))
-    tm = _load(tatt.MHSA(D, H, tdt, chunk, left, impl), params)
+    tm = _load(tatt.MHSA(D, heads, tdt, chunk, left, impl), params)
     before = dict(attention_cuda.ROUTED)
     got = tm(torch.from_numpy(x).to(tdt), torch.from_numpy(np.array(mask)),
              torch.from_numpy(lens))
@@ -143,6 +155,17 @@ def test_mhsa_matches(impl, chunk, left, dtype):
     ("einsum", 0, 0, "float32", "bfloat16"),
 ])
 def test_conformer_block_matches(impl, chunk, left, rdt, dtype):
+    _block_case(impl, chunk, left, rdt, dtype, H)
+
+
+@pytest.mark.parametrize("impl", ["einsum", "flash"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conformer_block_one_head_of_128_matches(impl, dtype):
+    """The block at h = 1, d = 128 (dh = 128), fp32 residual stream."""
+    _block_case(impl, 0, 0, "float32", dtype, 1)
+
+
+def _block_case(impl, chunk, left, rdt, dtype, heads):
     jdt, tdt, tol = DT[dtype]
     if rdt == "bfloat16":
         tol = 3e-2
@@ -151,12 +174,12 @@ def test_conformer_block_matches(impl, chunk, left, rdt, dtype):
     T = 48
     x = _x(3, T, D, 3)
     lens = np.asarray([48, 29, 1], np.int32)
-    jm = jatt.ConformerBlock(heads=H, dtype=jdt, chunk=chunk,
+    jm = jatt.ConformerBlock(heads=heads, dtype=jdt, chunk=chunk,
                              left_chunks=left, impl=impl,
                              residual_dtype=jnp.dtype(rdt))
     params = jm.init(jax.random.key(3), jnp.asarray(x), jnp.asarray(lens))
     want = jm.apply(params, jnp.asarray(x), jnp.asarray(lens))
-    tm = _load(tatt.ConformerBlock(D, heads=H, dtype=tdt, chunk=chunk,
+    tm = _load(tatt.ConformerBlock(D, heads=heads, dtype=tdt, chunk=chunk,
                                    left_chunks=left, impl=impl,
                                    residual_dtype=DT[rdt][1]), params)
     got = tm(torch.from_numpy(x), torch.from_numpy(lens))

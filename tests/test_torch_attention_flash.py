@@ -22,6 +22,12 @@ CASES = [
     dict(B=3, T=64, h=2, chunk=0, left=0),
     dict(B=2, T=200, h=2, chunk=0, left=0),      # ragged T, two key tiles
     dict(B=3, T=96, h=2, chunk=16, left=2),      # chunk-causal
+    # wider heads of the reference's set (dh % 64 == 0, dh <= 512)
+    dict(B=2, T=200, h=1, chunk=0, left=0, dh=128),
+    dict(B=3, T=96, h=2, chunk=16, left=2, dh=128),
+    dict(B=2, T=130, h=1, chunk=0, left=0, dh=256),
+    dict(B=2, T=64, h=1, chunk=16, left=1, dh=256),
+    dict(B=2, T=64, h=1, chunk=0, left=0, dh=192),
 ]
 
 
@@ -42,15 +48,15 @@ def _row_has_key(T, lens, chunk, left):
 
 @pytest.mark.parametrize("case", CASES)
 def test_forward_and_lse_match_pallas(case):
-    B, T, h = case["B"], case["T"], case["h"]
-    q, k, v, _, lens = _inputs(B, T, h, seed=T)
+    B, T, h, dh = case["B"], case["T"], case["h"], case.get("dh", 64)
+    q, k, v, _, lens = _inputs(B, T, h, seed=T, dh=dh)
     Tp = ap._pad_t(T)
-    fold = lambda x: np.pad(np.moveaxis(x, 2, 1).reshape(B * h, T, 64),
+    fold = lambda x: np.pad(np.moveaxis(x, 2, 1).reshape(B * h, T, dh),
                             ((0, 0), (0, Tp - T), (0, 0)))
     out_j, lse_j = ap._flash_forward(
         jnp.asarray(fold(q)), jnp.asarray(fold(k)), jnp.asarray(fold(v)),
         jnp.asarray(np.repeat(lens, h)), case["chunk"], case["left"])
-    out_j = np.moveaxis(np.asarray(out_j)[:, :T].reshape(B, h, T, 64), 1, 2)
+    out_j = np.moveaxis(np.asarray(out_j)[:, :T].reshape(B, h, T, dh), 1, 2)
     lse_j = np.asarray(lse_j)[:, :T, 0].reshape(B, h, T)
     out, lse = tc.flash_fwd(*(torch.from_numpy(x) for x in (q, k, v, lens)),
                             case["chunk"], case["left"])
@@ -67,7 +73,7 @@ def test_gradients_match_pallas(case):
     """The cotangent weighs every query row that has an allowed key,
     padded rows included (the dK/dV plain version walks them all)."""
     B, T, h = case["B"], case["T"], case["h"]
-    q, k, v, w, lens = _inputs(B, T, h, seed=T + 1)
+    q, k, v, w, lens = _inputs(B, T, h, seed=T + 1, dh=case.get("dh", 64))
     w = w * _row_has_key(T, lens, case["chunk"], case["left"])[:, :, None,
                                                                None]
 
@@ -130,8 +136,15 @@ def test_rows_aligned16(extra, offset, aligned):
 
 
 def test_auto_gate():
-    """The reference's long-form gate (T' > 512) with the kernels' head
-    width in place of the TPU's lane rule."""
+    """The reference's gate: long-form T' > 512 and a head width of its
+    set (dh % 64 == 0, dh <= 512), which the kernels take whole."""
     assert not tc.supports(256, 64) and not tc.supports(512, 64)
     assert tc.supports(513, 64) and tc.supports(700, 64)
-    assert not tc.supports(1024, 96) and not tc.supports(1024, 128)
+    assert tc.supports(1024, 128) and tc.supports(701, 512)
+    assert not tc.supports(1024, 96) and not tc.supports(1024, 1024)
+    assert not tc.supports(512, 128)
+    for T, dh in ((513, 64), (700, 192), (1024, 128), (600, 96),
+                  (1024, 576), (256, 256)):
+        assert tc.supports(T, dh) == ap.supports(T, dh)
+    assert tc.KERNEL_DHS == tuple(dh for dh in range(1, 1025)
+                                  if ap.supports(1024, dh))

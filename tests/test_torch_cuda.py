@@ -962,7 +962,14 @@ def _flash_inputs(dev, B, T, h, dh, dtype, seed, strided):
     + [(B, T, 2, 64, 0, 0) for T in (63, 64, 65, 127, 128, 129)
        for B in (2, 3)]
     + [(2, 701, 4, 64, 0, 0), (3, 701, 2, 64, 0, 0), (2, 701, 2, 64, 16, 4),
-       (3, 701, 2, 64, 16, 4)])
+       (3, 701, 2, 64, 16, 4)]
+    # the wider heads the kernels take (dh = 64n, n = 2 .. 8: the head dim
+    # split over blocks in 64-column slices) at the tile edges, in chunk
+    # windows and at the long-form length
+    + [(B, 129, 1, dh, 0, 0) for dh in range(128, 513, 64) for B in (2, 3)]
+    + [(3, 70, 2, 128, 16, 2), (2, 300, 1, 512, 16, 4), (2, 65, 2, 192, 8, 1),
+       (2, 701, 2, 128, 0, 0), (3, 701, 1, 256, 0, 0),
+       (2, 701, 1, 512, 16, 4)])
 @pytest.mark.parametrize("dtype,tol,gtol", [
     (torch.float32, (2e-5, 2e-5), (3e-4, 3e-4)),
     (torch.bfloat16, (2 ** -7, 1e-5), (2 ** -7, 1e-3))])
@@ -1038,14 +1045,17 @@ def test_flash_bwd_bf16_within_derived_bar(dev, seed, B, T, chunk, left):
         assert bool((diff <= bar).all()), float((diff / bar).max())
 
 
-@pytest.mark.parametrize("B,T,chunk,left", [(8, 701, 0, 0), (8, 701, 16, 4),
-                                            (8, 256, 0, 0)])
-def test_flash_bwd_bf16_bar_catches_planted_faults(dev, B, T, chunk, left):
+@pytest.mark.parametrize("B,T,chunk,left,h,dh", [
+    (8, 701, 0, 0, 4, 64), (8, 701, 16, 4, 4, 64), (8, 256, 0, 0, 4, 64),
+    (4, 701, 0, 0, 2, 128), (4, 256, 16, 4, 1, 320), (4, 701, 0, 0, 1, 512)])
+def test_flash_bwd_bf16_bar_catches_planted_faults(dev, B, T, chunk, left, h,
+                                                   dh):
     """The derived bar has power: each fault of
     ``attention_cuda.bwd_planted_faults`` (p at 3 mantissa bits, one 64-row
     tile skipped), added to the kernels' own bf16 gradients, exceeds it in
-    some gradient, while the kernels' gradients stay within it."""
-    q, k, v, do, lens = _flash_inputs(dev, B, T, 4, 64, torch.bfloat16, 7,
+    some gradient, while the kernels' gradients stay within it, at the
+    presets' head width and at wider ones."""
+    q, k, v, do, lens = _flash_inputs(dev, B, T, h, dh, torch.bfloat16, 7,
                                       strided=True)
     o_p, lse_p = ac.flash_fwd_plain(q, k, v, lens, chunk, left)
     d_rows = (do.float() * o_p.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1065,11 +1075,12 @@ def test_flash_bwd_bf16_bar_catches_planted_faults(dev, B, T, chunk, left):
         assert share(planted) > 1, name
 
 
-@pytest.mark.parametrize("chunk,left", [(0, 0), (16, 4)])
-def test_flash_bwd_bf16_is_bitwise_repeatable(dev, chunk, left):
+@pytest.mark.parametrize("chunk,left,h,dh", [(0, 0, 4, 64), (16, 4, 4, 64),
+                                             (0, 0, 1, 384)])
+def test_flash_bwd_bf16_is_bitwise_repeatable(dev, chunk, left, h, dh):
     """Each output tile has one owner block and no atomics: two bf16
     backward calls on the same inputs give the same bits."""
-    q, k, v, do, lens = _flash_inputs(dev, 4, 701, 4, 64, torch.bfloat16,
+    q, k, v, do, lens = _flash_inputs(dev, 4, 701, h, dh, torch.bfloat16,
                                       chunk + 1, strided=True)
     out, lse = ac.flash_fwd_cuda(q, k, v, lens, chunk, left)
     d_rows = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1154,9 +1165,15 @@ def test_flash_fwd_bf16_refuses_unaligned_rows(dev):
 def test_flash_kernels_refuse_what_they_do_not_take(dev):
     q = torch.zeros(2, 10, 2, 64, device=dev)
     lens = torch.full((2,), 10, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head width 96"):
-        z = torch.zeros(2, 10, 2, 96, device=dev)
-        ac.flash_fwd_cuda(z, z, z, lens)
+    for dh in (32, 96, 576):               # outside the reference's set
+        z = torch.zeros(2, 10, 2, dh, device=dev)
+        with pytest.raises(ValueError, match=f"head width {dh} .*dh % 64"):
+            ac.flash_fwd_cuda(z, z, z, lens)
+        rows = torch.zeros(2, 2, 10, device=dev)
+        with pytest.raises(ValueError, match=f"head width {dh}"):
+            ac.flash_bwd_dq_cuda(z, z, z, lens, z, rows, rows)
+        with pytest.raises(ValueError, match=f"head width {dh}"):
+            ac.flash_bwd_dkv_cuda(z, z, z, lens, z, rows, rows)
     with pytest.raises(ValueError, match="head dim must be dense"):
         ac.flash_fwd_cuda(q, q, q.transpose(2, 3).contiguous()
                           .transpose(2, 3), lens)

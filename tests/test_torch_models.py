@@ -115,11 +115,22 @@ def test_uni_gru_bridges_forward_only():
 
 
 def test_unported_blocks_raise():
-    """GLU blocks are not ported; the attention presets build (conformer
-    refuses a streaming call, conformer_stream streams:
+    """Every preset of the JAX package builds in the port: glu_conv with
+    the reference's module names (glu0-5, block 0's res_proj from the
+    subsampler's 320 features to 256 channels, held to flax in
+    tests/test_torch_glu.py); the attention presets too (conformer refuses
+    a streaming call, conformer_stream streams:
     tests/test_torch_attention.py, tests/test_torch_attention_stream.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(preset_config("glu_conv").model)
+    jm = build_jax_model(preset_config("glu_conv").model)
+    params = jm.init(jax.random.key(0), jnp.zeros((1, 40, 40, 3)),
+                     jnp.asarray([40]))["params"]
+    model = build_model(preset_config("glu_conv").model)
+    assert model.n_glu == 6 and model.n_attn == 0 and model.n_rnn == 0
+    want = {k: tuple(v.shape) for k, v in flax_to_state_dict(
+        jax.tree_util.tree_map(np.asarray, params)).items()}
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == want
+    assert "glu0.res_proj.weight" in want and want[
+        "glu0.glu_conv.weight"] == (512, 320, 5)
     for preset in ("conformer", "conformer_stream"):
         model = build_model(preset_config(preset).model)
         assert model.n_attn == 8 and model.attn_in is not None

@@ -4,9 +4,9 @@ window, a cut ``bilstm_deep`` with SpecAugment on, training from the
 packed corpus (``train.pack``: the same losses as from the wavs), the
 dev eval's beam and beam+LM columns, the default data mode (the device
 cache, and rotating windows under a small budget), the forward-only
-``uni_gru`` in both data modes with resume, and the refusals
-(model blocks that are not ported, a file that is not a pack, no card for
-``--device cuda``, dcn slices that do not divide the devices)."""
+``uni_gru`` in both data modes with resume, ``glu_conv``, and the
+refusals (a file that is not a pack, no card for ``--device cuda``, dcn
+slices that do not divide the devices)."""
 
 import json
 import os
@@ -100,8 +100,12 @@ def test_cli_trains_bilstm_deep_with_specaugment(data_dir, tmp_path):
 
 
 @pytest.mark.parametrize("sets,match,exc", [
-    (["train.data_mode=stream", "model.glu_blocks=2"], "GLU",
-     NotImplementedError),
+    # GLU blocks, once refused here, are ported: the case now trains them
+    # (glu_conv at two blocks of 16 channels, the port's own preset name
+    # and module names: tests/test_torch_glu.py holds it to JAX)
+    (["train.data_mode=stream", "model.glu_blocks=2",
+      "model.glu_channels=16", "train.total_steps=2",
+      "train.log_every=1"], "GLU", None),
     # data parallelism is ported (tests/test_torch_dp.py); a 2-D mesh
     # whose dcn slices do not divide the one device is refused
     (["train.data_mode=stream", "parallel.dcn_slices=2"], "parallelism",
@@ -109,6 +113,15 @@ def test_cli_trains_bilstm_deep_with_specaugment(data_dir, tmp_path):
 ], ids=["sets0-GLU", "sets1-parallelism"])
 def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, sets, match,
                                         exc):
+    """What the port does not take is refused; what it once refused and
+    now takes (``exc`` None) trains."""
+    if exc is None:
+        ev = _run(data_dir, tmp_path, *sets, preset="glu_conv")
+        train = [e for e in ev if e["kind"] == "train"]
+        assert [e["step"] for e in train] == [1, 2] and all(
+            np.isfinite(e["loss"]) and e["grad_norm"] > 0 for e in train)
+        assert load_config(str(tmp_path / "ckpt")).model.glu_blocks == 2
+        return
     with pytest.raises(exc, match=match):
         _run(data_dir, tmp_path, *sets)
 

@@ -23,7 +23,9 @@ Kernels and shapes (those of ``chip_smoke.py``):
 * the bf16 flash forward (row 11) and backward pair (rows 12-13), h = 4,
   dh = 64, at phase 18's three shapes (B = 32, T' = 701 with chunk 0 and
   with chunk 16 / left 4; B = 24, T' = 256), beside SDPA's forward and its
-  backward (its forward and backward less its training forward);
+  backward (its forward and backward less its training forward); the two
+  builds' outputs (out, lse, dq, dk, dv) must be bitwise equal, in bf16
+  and in fp32 on the same inputs widened;
 * the bf16 LSTM, H = 384 (``chip_smoke.lstm_cases``): row 6's
   residual-free form at B = 32, T' = 251 beside cuDNN's forward; row 6's
   training form and row 7 at B = 24, T' = 256 beside cuDNN's training
@@ -288,10 +290,12 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left):
     res = {"tag": tag, "B": B, "T": T, "chunk": chunk, "left": left,
            "pairs": int(ok.expand(B, 1, T, T).sum()) * h}
     mods = {"this": ac, "other": oac}
+    outs = {}
     for b, m in mods.items():
         o, lse = m.flash_fwd_cuda(q, k, v, lens, chunk, left)
         grads = (m.flash_bwd_dq_cuda(*args), *m.flash_bwd_dkv_cuda(*args))
         torch.cuda.synchronize()
+        outs[b] = (o, lse, *grads)
         out_share = cs.excess(o, o_p, *cs.TOL["flash_bf16"], o_scale)
         lse_share = cs.excess(lse[live], lse_p[live], *cs.TOL["flash_fp32"])
         g = [shares(a, p, r) for a, p, r in zip(grads, plain, room)]
@@ -307,6 +311,23 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left):
               f"{lse_share:.3f}; derived (old) gradient bar: " + ", ".join(
                   f"{n} {x[0]:.3f} ({x[1]:.3f})"
                   for n, x in zip(("dq", "dk", "dv"), g)))
+
+    # the two builds bitwise: bf16 here, fp32 on the same inputs widened
+    same = {"bf16": all(cs.same_bits(a, b) for a, b in zip(outs["this"],
+                                                          outs["other"]))}
+    args32 = tuple(x.float() if torch.is_tensor(x) and x.is_floating_point()
+                   else x for x in args)
+    q32, k32, v32 = args32[:3]
+    outs32 = [(m.flash_fwd_cuda(q32, k32, v32, lens, chunk, left),
+               m.flash_bwd_dq_cuda(*args32), m.flash_bwd_dkv_cuda(*args32))
+              for m in mods.values()]
+    flat = [[o, lse, dq, dk, dv] for (o, lse), dq, (dk, dv) in outs32]
+    same["fp32"] = all(cs.same_bits(a, b) for a, b in zip(*flat))
+    res["bitwise"] = same
+    print(f"[ab] {tag}: this build's outputs (out, lse, dq, dk, dv) bitwise "
+          f"the other build's: " + ", ".join(
+              f"{k} {'yes' if v else 'NO'}" for k, v in same.items()))
+    cs.check(all(same.values()), f"{tag}: the builds' outputs differ")
 
     qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
     leaves = [x.detach().clone().requires_grad_() for x in (qh, kh, vh)]

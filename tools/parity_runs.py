@@ -1,6 +1,6 @@
 """The CER-parity runs of PARITY.md §1, §3, §3d and §3g through the port's
 CLIs, on one CUDA card: ``python3 tools/parity_runs.py [--out DIR]
-[--runs bigru,online]``.
+[--runs bigru,online,glu]``.
 
 1. smoke: a 24-utterance corpus through make_synthetic, preprocess --pack,
    10 training steps, evaluate, evaluate --streaming, train_lm and the
@@ -35,10 +35,15 @@ CLIs, on one CUDA card: ``python3 tools/parity_runs.py [--out DIR]
    0.6 × greedy's, and streaming greedy and streaming beam+LM (chunk 64 =
    one attention chunk, right 0) each within ±2 edits of its offline row.
    Beside each ±2 gate, recorded: the streamed and offline hypotheses
-   (``--hyp-out``) compared utterance by utterance on the ones both score.
+   (``--hyp-out``) compared utterance by utterance on the ones both score;
+7. ``glu_conv`` (``--runs glu``; the smoke trains it for 10 steps first),
+   PARITY.md's "All four acoustic-model families" row: run 1's buckets and
+   2,500 steps, then ``evaluate --compare --beam 8 --lm lm_3gram.arpa
+   --lm-alpha 0.5 --lm-beta 1.0``: greedy, beam 8 and beam 8 + LM,
+   recorded (PARITY.md gives the row no gate).
 
 ``--runs`` picks the parts after the smoke and the corpus: ``bigru``
-(3-5) and ``online`` (6); both by default.
+(3-5), ``online`` (6) and ``glu`` (7); ``bigru,online`` by default.
 
 Every command's output goes to ``DIR/<name>.log``; the last line of stdout
 is one JSON object with each run's dev CER, edits, reference characters,
@@ -299,6 +304,14 @@ def online_runs(out: str, prep: str, lm3: str) -> dict:
     return res
 
 
+def glu_runs(out: str, prep: str, lm3: str) -> dict:
+    """PARITY.md's glu_conv row: trained as run 1, scored by ``--compare``
+    (recorded, no gate)."""
+    glu = train(out, "glu", prep, TRAIN_SETS, "glu_conv")
+    glu["compare"] = compare(out, "glu_compare", glu["ckpt"], prep, lm3)
+    return {"glu": glu}
+
+
 def corpus(out: str, name: str, synth_args: list[str]) -> str:
     root = os.path.join(out, f"{name}_corpus")
     prep = os.path.join(out, f"{name}_prep")
@@ -318,12 +331,13 @@ def main() -> int:
     p.add_argument("--work", default=os.path.join(".chipscratch", "parity"),
                    help="corpora and checkpoints (git-ignored)")
     p.add_argument("--runs", default="bigru,online",
-                   help="comma list of bigru (runs 1-2, config 4) and online "
-                        "(uni_gru, conformer_stream)")
+                   help="comma list of bigru (runs 1-2, config 4), online "
+                        "(uni_gru, conformer_stream) and glu (glu_conv)")
     args = p.parse_args()
     runs = set(args.runs.split(","))
-    if not runs or runs - {"bigru", "online"}:
-        raise SystemExit(f"--runs {args.runs!r}: expected bigru and/or online")
+    if not runs or runs - {"bigru", "online", "glu"}:
+        raise SystemExit(f"--runs {args.runs!r}: expected a comma list of "
+                         "bigru, online and glu")
     os.makedirs(args.out, exist_ok=True)
     os.makedirs(args.work, exist_ok=True)
     card = subprocess.run(
@@ -353,6 +367,10 @@ def main() -> int:
                     "features.cmvn_mode=causal"], preset)
                 evaluate(args.work, f"smoke_{name}_stream", o["ckpt"], prep,
                          sargs + BEAM_ARGS + ["--lm", smoke_lm])
+        if "glu" in runs:
+            o = train(args.work, "smoke_glu", prep, SMOKE_SETS, "glu_conv")
+            compare(args.work, "smoke_glu_compare", o["ckpt"], prep,
+                    smoke_lm)
         t0 = time.perf_counter()
         prep = corpus(args.work, "parity", CORPUS)
         result["corpus_s"] = time.perf_counter() - t0
@@ -364,6 +382,8 @@ def main() -> int:
             result.update(online_runs(args.work, prep, lm3))
         if "bigru" in runs:
             result.update(bigru_runs(args.work, prep, lm3))
+        if "glu" in runs:
+            result.update(glu_runs(args.work, prep, lm3))
     except RunFailure as e:
         print(f"parity_runs: FAILED: {e}", file=sys.stderr)
         print(json.dumps(result))
@@ -388,6 +408,11 @@ def main() -> int:
                   ("cstream_lm", cs["compare"]),
                   ("cstream_streaming", cs["streaming"]),
                   ("cstream_streaming_beam_lm", cs["streaming_beam_lm"])]
+    if "glu" in runs:
+        c = result["glu"]["compare"]
+        print("glu_conv (recorded, no gate): " + ", ".join(
+            f"{k} {c[k]['cer']:.4f} ({c[k]['edits']} edits)"
+            for k in ("greedy", "beam8", "beam8+lm")), flush=True)
     verdicts = {name: r["passed"] for name, r in gated}
     print(f"gates: " + ", ".join(f"{n} {'met' if v else 'MISSED'}"
                                  for n, v in verdicts.items()), flush=True)
