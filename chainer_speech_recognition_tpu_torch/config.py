@@ -2,9 +2,9 @@
 ``config.py``, whole, so a ``config.json`` frozen into a checkpoint by
 either package reads back identically in the other
 (``tests/test_torch_copies.py`` compares ``to_json`` for every preset).
-Fields the port does not run yet (attention, LSTM, the device cache, ...)
-are kept so the layout matches; the modules that read them refuse what is
-not ported.
+Every field is kept so the layout matches; the port runs every preset,
+model family and data mode the fields select (attention, the LSTM and the
+device cache among them).
 """
 
 from __future__ import annotations

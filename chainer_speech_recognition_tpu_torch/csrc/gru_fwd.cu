@@ -32,10 +32,12 @@
 // the fp32 register while its compute-dtype rounding seeds the shared copy
 // the first product reads.
 //
-// Two kernels. The bf16 forms, all three (the presets' path), run on a
-// thread-block cluster with W resident in its shared memory and the step
-// product on the tensor cores (gru_fwd_tc_kernel, below; one template over
-// kResiduals and kStream). The fp32 forms run the FMA kernel
+// Three kernels. The bf16 forms, all three (the presets' path), run on a
+// thread-block cluster with the step product on the tensor cores: up to
+// H = 512 with W resident in the cluster's shared memory
+// (gru_fwd_tc_kernel, below; one template over kResiduals and kStream),
+// above with W streamed from global memory at each step
+// (gru_fwd_wide_kernel, further below). The fp32 forms run the FMA kernel
 // (gru_fwd_kernel, one template over kGates and kStream).
 //
 // What bounds it on Hopper: the sequential dependency over T. Each step is
@@ -56,9 +58,11 @@
 // a layer without the pipelining, 4.4 ms with it at kRows=4, 3.2 ms at
 // kRows=1, the chosen value). The compute-dtype copy of h that the next
 // step reads is double-buffered in shared memory, so a step needs one
-// barrier. Bounds: 32 <= H <= 512, H % 32 == 0 (one thread per unit; at
-// ~120 registers a thread, 512 threads fill one SM's register file;
-// capping registers with __launch_bounds__ measured 25% slower); any B.
+// barrier. Up to H = 512 one thread a unit (at ~120 registers a thread,
+// 512 threads fill one SM's register file; capping registers with
+// __launch_bounds__ measured 25% slower); past it a thread owns kUPT = 2
+// (H <= 1024) or 4 units, one after the other. Bounds: 32 <= H <= 2048,
+// H % 32 == 0, any B.
 #include <cuda_bf16.h>
 #include <math.h>
 
@@ -87,7 +91,7 @@ __device__ __forceinline__ void load_chunk(const S* __restrict__ wd, int k0,
   }
 }
 
-template <typename S, bool kGates, bool kStream>
+template <typename S, int kUPT, bool kGates, bool kStream>
 __global__ void gru_fwd_kernel(const S* __restrict__ xs,
                                const S* __restrict__ w,
                                const float* __restrict__ lo,
@@ -100,114 +104,146 @@ __global__ void gru_fwd_kernel(const S* __restrict__ xs,
   const int d = blockIdx.y;      // direction
   const int r0 = blockIdx.x * kRows;
   const int nrows = min(kRows, B - r0);
-  const int j = threadIdx.x;     // hidden unit
   const int R = gridDim.y * B;   // ndir * B
   const int G = 3 * H;
   const S* wd = w + static_cast<int64_t>(d) * H * G;
 
-  float h[kRows], lo_r[kRows], hi_r[kRows];
+  // thread's hidden units: j = threadIdx.x + u blockDim.x, u < kUPT
+  // (blockDim.x = H / kUPT)
+  float h[kUPT][kRows], lo_r[kRows], hi_r[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    h[r] = 0.0f;
     lo_r[r] = 1.0f;  // rows past B are never live
     hi_r[r] = 0.0f;
     if (r < nrows) {
       const int64_t row = d * B + r0 + r;
       lo_r[r] = lo[row];
       hi_r[r] = hi[row];
-      if (kStream) {
-        h[r] = h0[row * H + j];
-        if (emit_t == 0) carry[row * H + j] = h[r];
-      }
     }
-    hs[r * H + j] = round_to<S>(h[r]);
+  }
+#pragma unroll
+  for (int q = 0; q < kUPT; ++q) {
+    const int j = threadIdx.x + q * blockDim.x;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      h[q][r] = 0.0f;
+      if (r < nrows && kStream) {
+        const int64_t row = d * B + r0 + r;
+        h[q][r] = h0[row * H + j];
+        if (emit_t == 0) carry[row * H + j] = h[q][r];
+      }
+      hs[r * H + j] = round_to<S>(h[q][r]);
+    }
   }
   __syncthreads();
 
   int cur = 0;
   for (int t = 0; t < T; ++t) {
-    float xr[kRows], xz[kRows], xn[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      xr[r] = xz[r] = xn[r] = 0.0f;
-      if (r < nrows) {
-        const S* x = xs + (static_cast<int64_t>(t) * R + d * B + r0 + r) * G;
-        xr[r] = to_f32(x[j]);
-        xz[r] = to_f32(x[H + j]);
-        xn[r] = to_f32(x[2 * H + j]);
-      }
-    }
-    float ar[kRows], az[kRows], an[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) ar[r] = az[r] = an[r] = 0.0f;
     const float* hb = hs + cur * kRows * H;
-    // W in chunks of kChunk rows held in registers; the next chunk's loads
-    // are issued before this chunk's FMAs, so L2 latency overlaps compute
-    S wr[kChunk], wz[kChunk], wn[kChunk];
-    load_chunk(wd, 0, j, H, G, wr, wz, wn);
-    for (int k0 = 0; k0 < H; k0 += kChunk) {
-      S nr[kChunk], nz[kChunk], nn[kChunk];
-      if (k0 + kChunk < H) load_chunk(wd, k0 + kChunk, j, H, G, nr, nz, nn);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4* h4 = reinterpret_cast<const float4*>(hb + r * H + k0);
-#pragma unroll
-        for (int q = 0; q < kChunk / 4; ++q) {
-          const float4 hv = h4[q];
-          const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            ar[r] = fmaf(hk[u], to_f32(wr[4 * q + u]), ar[r]);
-            az[r] = fmaf(hk[u], to_f32(wz[4 * q + u]), az[r]);
-            an[r] = fmaf(hk[u], to_f32(wn[4 * q + u]), an[r]);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kChunk; ++u) {
-        wr[u] = nr[u];
-        wz[u] = nz[u];
-        wn[u] = nn[u];
-      }
-    }
     float* hnext = hs + (cur ^ 1) * kRows * H;
     const float tf = static_cast<float>(t);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float rg = sigmoidf(xr[r] + ar[r]);
-      const float z = sigmoidf(xz[r] + az[r]);
-      const float n = tanhf(xn[r] + rg * an[r]);
-      const float hn = (1.0f - z) * n + z * h[r];
-      if (lo_r[r] <= tf && tf < hi_r[r]) h[r] = hn;
-      if (r < nrows) {
-        const int64_t row = static_cast<int64_t>(t) * R + d * B + r0 + r;
-        ys[row * H + j] = h[r];
-        if (kGates) {
-          S* gt = gates + row * 4 * H;
-          gt[j] = from_f32<S>(rg);
-          gt[H + j] = from_f32<S>(z);
-          gt[2 * H + j] = from_f32<S>(n);
-          gt[3 * H + j] = from_f32<S>(an[r]);
+    for (int q = 0; q < kUPT; ++q) {
+      const int j = threadIdx.x + q * blockDim.x;
+      float xr[kRows], xz[kRows], xn[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        xr[r] = xz[r] = xn[r] = 0.0f;
+        if (r < nrows) {
+          const S* x =
+              xs + (static_cast<int64_t>(t) * R + d * B + r0 + r) * G;
+          xr[r] = to_f32(x[j]);
+          xz[r] = to_f32(x[H + j]);
+          xn[r] = to_f32(x[2 * H + j]);
         }
-        if (kStream && t == emit_t - 1)
-          carry[(static_cast<int64_t>(d) * B + r0 + r) * H + j] = h[r];
       }
-      hnext[r * H + j] = round_to<S>(h[r]);
+      float ar[kRows], az[kRows], an[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) ar[r] = az[r] = an[r] = 0.0f;
+      // W in chunks of kChunk rows held in registers; the next chunk's
+      // loads are issued before this chunk's FMAs, so L2 latency overlaps
+      // compute
+      S wr[kChunk], wz[kChunk], wn[kChunk];
+      load_chunk(wd, 0, j, H, G, wr, wz, wn);
+      for (int k0 = 0; k0 < H; k0 += kChunk) {
+        S nr[kChunk], nz[kChunk], nn[kChunk];
+        if (k0 + kChunk < H) load_chunk(wd, k0 + kChunk, j, H, G, nr, nz, nn);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float4* h4 = reinterpret_cast<const float4*>(hb + r * H + k0);
+#pragma unroll
+          for (int qq = 0; qq < kChunk / 4; ++qq) {
+            const float4 hv = h4[qq];
+            const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              ar[r] = fmaf(hk[u], to_f32(wr[4 * qq + u]), ar[r]);
+              az[r] = fmaf(hk[u], to_f32(wz[4 * qq + u]), az[r]);
+              an[r] = fmaf(hk[u], to_f32(wn[4 * qq + u]), an[r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kChunk; ++u) {
+          wr[u] = nr[u];
+          wz[u] = nz[u];
+          wn[u] = nn[u];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float rg = sigmoidf(xr[r] + ar[r]);
+        const float z = sigmoidf(xz[r] + az[r]);
+        const float n = tanhf(xn[r] + rg * an[r]);
+        const float hn = (1.0f - z) * n + z * h[q][r];
+        if (lo_r[r] <= tf && tf < hi_r[r]) h[q][r] = hn;
+        if (r < nrows) {
+          const int64_t row = static_cast<int64_t>(t) * R + d * B + r0 + r;
+          ys[row * H + j] = h[q][r];
+          if (kGates) {
+            S* gt = gates + row * 4 * H;
+            gt[j] = from_f32<S>(rg);
+            gt[H + j] = from_f32<S>(z);
+            gt[2 * H + j] = from_f32<S>(n);
+            gt[3 * H + j] = from_f32<S>(an[r]);
+          }
+          if (kStream && t == emit_t - 1)
+            carry[(static_cast<int64_t>(d) * B + r0 + r) * H + j] = h[q][r];
+        }
+        hnext[r * H + j] = round_to<S>(h[q][r]);
+      }
     }
     __syncthreads();
     cur ^= 1;
   }
 }
 
+template <typename S, int kUPT, bool kGates, bool kStream>
+void launch_upt(const void* xs, const void* w, const float* lo,
+                const float* hi, const float* h0, float* ys, void* gates,
+                float* carry, int T, int B, int H, int ndir, int emit_t,
+                cudaStream_t stream) {
+  const dim3 grid((B + kRows - 1) / kRows, ndir);
+  const size_t smem = 2 * kRows * H * sizeof(float);
+  gru_fwd_kernel<S, kUPT, kGates, kStream><<<grid, H / kUPT, smem, stream>>>(
+      static_cast<const S*>(xs), static_cast<const S*>(w), lo, hi, h0, ys,
+      static_cast<S*>(gates), carry, T, B, H, emit_t);
+}
+
+// one unit a thread up to H = 512, two up to 1024, four above
 template <typename S, bool kGates, bool kStream>
 int launch(const void* xs, const void* w, const float* lo, const float* hi,
            const float* h0, float* ys, void* gates, float* carry, int T,
            int B, int H, int ndir, int emit_t, cudaStream_t stream) {
-  const dim3 grid((B + kRows - 1) / kRows, ndir);
-  const size_t smem = 2 * kRows * H * sizeof(float);
-  gru_fwd_kernel<S, kGates, kStream><<<grid, H, smem, stream>>>(
-      static_cast<const S*>(xs), static_cast<const S*>(w), lo, hi, h0, ys,
-      static_cast<S*>(gates), carry, T, B, H, emit_t);
+  if (H <= 512)
+    launch_upt<S, 1, kGates, kStream>(xs, w, lo, hi, h0, ys, gates, carry, T,
+                                      B, H, ndir, emit_t, stream);
+  else if (H <= 1024)
+    launch_upt<S, 2, kGates, kStream>(xs, w, lo, hi, h0, ys, gates, carry, T,
+                                      B, H, ndir, emit_t, stream);
+  else
+    launch_upt<S, 4, kGates, kStream>(xs, w, lo, hi, h0, ys, gates, carry, T,
+                                      B, H, ndir, emit_t, stream);
   CSR_RETURN_LAUNCH_STATUS();
 }
 
@@ -449,20 +485,232 @@ int launch_tc(const void* xs, const void* wt, const float* lo,
       static_cast<__nv_bfloat16*>(gates), carry, T, B, H, emit_t);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward past H = 512, W streamed (rnn_mma.cuh's streamed-W form;
+// the same three entries under bf16 compute): csrc/lstm_fwd.cu's
+// lstm_fwd_wide_kernel with three gates. Warp w of block c owns the 8
+// units of unit block ub = U c / 8 + w with their r, z and n columns, over
+// the whole reduction (B fragments wf[d][ub] = [H / 16][3][32 lanes] uint2,
+// ops/rnn_cuda.py's wide_fwd_weights, streamed kP k-steps ahead); each
+// lane runs the gate math of its accumulators' pairs (rows l / 4 and
+// l / 4 + 8, units 8 ub + 2 (l % 4) + {0, 1}), keeping hp_n = h W_n apart
+// (n = tanh(x_n + r hp_n), the 4th residual), and the block pushes its
+// columns of the next A buffer to every peer over DSMEM; one cluster
+// barrier a step.
+template <bool kResiduals, bool kStream, int kP>
+__global__ void __launch_bounds__(csr_rnn_mma::wide_max_threads(kP), 1)
+    gru_fwd_wide_kernel(const __nv_bfloat16* __restrict__ xs,
+                        const uint2* __restrict__ wf,
+                        const float* __restrict__ lo,
+                        const float* __restrict__ hi,
+                        const float* __restrict__ h0, float* __restrict__ ys,
+                        __nv_bfloat16* __restrict__ gates,
+                        float* __restrict__ carry, int T, int B, int H,
+                        int emit_t) {
+  namespace tc = csr_rnn_mma;
+  constexpr int kM = tc::kRows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = static_cast<int>(tc::cluster_nctarank());
+  const int c = static_cast<int>(tc::cluster_ctarank());
+  const int U = tc::wide_units(H), K = H / 16;
+  const int d = blockIdx.y, group = blockIdx.x / C;
+  const int R = gridDim.y * B;
+  const int G = 3 * H;
+  const int row_b = tc::row_bytes(H);
+  const uint32_t s_a = tc::smem_addr(smem);    // A[2][kM]
+  const uint32_t a_bytes = kM * row_b;
+  const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
+  const int u0 = c * U, uc = min(U, H - u0);   // this block's units
+  const bool active = 8 * w < uc;              // this warp's unit block
+  const int j = u0 + 8 * w + 2 * (l & 3);      // this lane's units j, j + 1
+
+  // A[0] = h_0: 0, or the stream form's bf16(h0)
+  if (kStream)
+    tc::fill_h0(smem, h0 + (static_cast<int64_t>(d) * B + group * kM) * H, H,
+                B - group * kM, H);
+  else
+    tc::zero_shared(smem, a_bytes);
+  __syncthreads();
+  tc::cluster_sync();   // every peer has started before DSMEM stores
+
+  // this lane's rows i = 0, 1: l / 4 and l / 4 + 8 of the group
+  bool valid[2];
+  int rr[2];
+  float lo_r[2], hi_r[2], h[2][2] = {};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int b = group * kM + (l >> 2) + 8 * i;
+    valid[i] = active && b < B;
+    rr[i] = d * B + b;
+    lo_r[i] = valid[i] ? lo[rr[i]] : 0.0f;
+    hi_r[i] = valid[i] ? hi[rr[i]] : 0.0f;   // never live
+    if (kStream && valid[i]) {
+      const float* src = h0 + static_cast<int64_t>(rr[i]) * H + j;
+      h[i][0] = src[0];
+      h[i][1] = src[1];
+      if (emit_t == 0)
+        *reinterpret_cast<float2*>(carry + static_cast<int64_t>(rr[i]) * H +
+                                   j) = make_float2(h[i][0], h[i][1]);
+    }
+  }
+  // A row l % 16 at k chunk l / 16; this warp's fragments
+  const uint32_t a_off = (l & 15) * row_b + (l >> 4) * 16;
+  const uint2* wb =
+      wf + (static_cast<int64_t>(d) * (H / 8) + u0 / 8 + w) * K * 3 * 32 + l;
+
+  // xs of the lane's pairs: [row i][gate g] as (unit j, unit j + 1)
+  auto load_x = [&](int t, float2 (&v)[2][3]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const __nv_bfloat16* xr =
+          xs + (static_cast<int64_t>(t) * R + rr[i]) * G + j;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        v[i][g] = valid[i] ? __bfloat1622float2(
+                                 *reinterpret_cast<const __nv_bfloat162*>(
+                                     xr + g * H))
+                           : make_float2(0.0f, 0.0f);
+    }
+  };
+  float2 x[2][3];
+  load_x(0, x);
+  uint2 ring[kP][3];      // this warp's B fragments in flight
+  if (active) tc::stream_prefetch<3, kP>(wb, K, ring);
+  int cur = 0;
+  for (int t = 0; t < T; ++t) {
+    float2 nx[2][3];
+    if (t + 1 < T) load_x(t + 1, nx);
+    float acc[3][4] = {};
+    if (active) {
+      tc::streamed_product<3, kP>(s_a + cur * a_bytes + a_off, wb, K, ring,
+                                   acc);
+      // the next step's first fragments, in flight over the gate math,
+      // the exchange and the barrier
+      if (t + 1 < T) tc::stream_prefetch<3, kP>(wb, K, ring);
+    }
+    // gate math of the lane's pairs (accumulator element 2 i + e: row i,
+    // unit j + e); gv: (r, z, n, hp_n)
+    float gv[2][2][4];
+    const float tf = static_cast<float>(t);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xe[3] = {e ? x[i][0].y : x[i][0].x,
+                             e ? x[i][1].y : x[i][1].x,
+                             e ? x[i][2].y : x[i][2].x};
+        const float hp_n = acc[2][2 * i + e];
+        const float rg = sigmoidf(xe[0] + acc[0][2 * i + e]);
+        const float z = sigmoidf(xe[1] + acc[1][2 * i + e]);
+        const float n = tanhf(xe[2] + rg * hp_n);
+        const float hn = (1.0f - z) * n + z * h[i][e];
+        if (lo_r[i] <= tf && tf < hi_r[i]) h[i][e] = hn;
+        gv[i][e][0] = rg;
+        gv[i][e][1] = z;
+        gv[i][e][2] = n;
+        gv[i][e][3] = hp_n;
+      }
+    const int nxt = cur ^ 1;
+    const bool more = t + 1 < T;
+    if (more) {
+      // h into this block's columns of A[nxt], then into every peer's
+      const uint32_t s_nxt = s_a + nxt * a_bytes;
+      if (active)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(
+              smem + (s_nxt - s_a) + ((l >> 2) + 8 * i) * row_b + 2 * j) =
+              __floats2bfloat162_rn(h[i][0], h[i][1]);
+      __syncthreads();
+      tc::push_columns(s_nxt, row_b, 2 * u0, uc / 8, c, C);
+      tc::cluster_arrive();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!valid[i]) continue;
+      const int64_t row = static_cast<int64_t>(t) * R + rr[i];
+      *reinterpret_cast<float2*>(ys + row * H + j) =
+          make_float2(h[i][0], h[i][1]);
+      if (kResiduals) {
+        __nv_bfloat16* gt = gates + row * 4 * H + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          *reinterpret_cast<__nv_bfloat162*>(gt + g * H) =
+              __floats2bfloat162_rn(gv[i][0][g], gv[i][1][g]);
+      }
+      if (kStream && t == emit_t - 1)
+        *reinterpret_cast<float2*>(carry + static_cast<int64_t>(rr[i]) * H +
+                                   j) = make_float2(h[i][0], h[i][1]);
+    }
+    if (more) {
+      tc::cluster_wait();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int g = 0; g < 3; ++g) x[i][g] = nx[i][g];
+    }
+    cur = nxt;
+  }
+}
+
+template <bool kResiduals, bool kStream, int kP>
+int launch_wide_kp(const void* xs, const void* wf, const float* lo,
+                   const float* hi, const float* h0, float* ys, void* gates,
+                   float* carry, int T, int B, int H, int ndir, int emit_t,
+                   cudaStream_t stream) {
+  namespace tc = csr_rnn_mma;
+  return tc::launch_clusters(
+      gru_fwd_wide_kernel<kResiduals, kStream, kP>, tc::wide_cluster(H),
+      (B + tc::kRows - 1) / tc::kRows, ndir, tc::wide_fwd_threads(H),
+      tc::wide_fwd_smem(H), stream, static_cast<const __nv_bfloat16*>(xs),
+      static_cast<const uint2*>(wf), lo, hi, h0, ys,
+      static_cast<__nv_bfloat16*>(gates), carry, T, B, H, emit_t);
+}
+
+// the bf16 forms: the resident cluster kernel up to H = 512, W streamed
+// above
+template <bool kResiduals, bool kStream>
+int launch_bf16(const void* xs, const void* wt, const float* lo,
+                const float* hi, const float* h0, float* ys, void* gates,
+                float* carry, int T, int B, int H, int ndir, int emit_t,
+                int C, cudaStream_t stream) {
+  namespace tc = csr_rnn_mma;
+  if (H <= tc::kResidentMax)
+    return launch_tc<kResiduals, kStream>(xs, wt, lo, hi, h0, ys, gates,
+                                          carry, T, B, H, ndir, emit_t, C,
+                                          stream);
+  if (C != tc::wide_cluster(H)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (tc::wide_prefetch(tc::wide_fwd_threads(H))) {
+    case 16:
+      return launch_wide_kp<kResiduals, kStream, 16>(
+          xs, wt, lo, hi, h0, ys, gates, carry, T, B, H, ndir, emit_t,
+          stream);
+    case 8:
+      return launch_wide_kp<kResiduals, kStream, 8>(
+          xs, wt, lo, hi, h0, ys, gates, carry, T, B, H, ndir, emit_t,
+          stream);
+    default:
+      return launch_wide_kp<kResiduals, kStream, 4>(
+          xs, wt, lo, hi, h0, ys, gates, carry, T, B, H, ndir, emit_t,
+          stream);
+  }
+}
+
 }  // namespace
 
 // xs [T, ndir*B, 3H] and w [ndir, H, 3H] both fp32 (the FMA kernel), or,
 // when bf16 != 0, xs bf16 and w = wt [ndir, C, 3, H/C, H] bf16 (the
 // cluster kernel: C = H / 32 blocks a cluster, ops/rnn_cuda.py's
-// gru_plan; unread under fp32); lo/hi [ndir*B] fp32; ys [T, ndir*B, H]
-// fp32. Requires 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2
-// (the wrapper checks).
+// gru_plan; past H = 512 the streamed-W fragments [ndir, H/8, H/16, 3, 32,
+// 4] and C = wide_cluster(H), rnn_cuda.wide_fwd_weights; unread under
+// fp32); lo/hi [ndir*B] fp32; ys [T, ndir*B, H] fp32. Requires 32 <= H <=
+// 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
                         const float* hi, float* ys, int T, int B, int H,
                         int ndir, int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch_tc<false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
-                                   nullptr, T, B, H, ndir, 0, C, stream);
+    return launch_bf16<false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
+                                     nullptr, T, B, H, ndir, 0, C, stream);
   return launch<float, false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
                                      nullptr, T, B, H, ndir, 0, stream);
 }
@@ -475,8 +723,8 @@ CSR_API int csr_gru_fwd_train(const void* xs, const void* w, const float* lo,
                               int B, int H, int ndir, int C, int bf16,
                               cudaStream_t stream) {
   if (bf16)
-    return launch_tc<true, false>(xs, w, lo, hi, nullptr, ys, gates, nullptr,
-                                  T, B, H, ndir, 0, C, stream);
+    return launch_bf16<true, false>(xs, w, lo, hi, nullptr, ys, gates,
+                                    nullptr, T, B, H, ndir, 0, C, stream);
   return launch<float, true, false>(xs, w, lo, hi, nullptr, ys, gates,
                                     nullptr, T, B, H, ndir, 0, stream);
 }
@@ -487,6 +735,16 @@ CSR_API int csr_gru_fwd_train(const void* xs, const void* w, const float* lo,
 // it cannot launch).
 CSR_API int csr_gru_fwd_occupancy(int H, int* out) {
   namespace tc = csr_rnn_mma;
+  if (H > tc::kResidentMax) {
+    const int threads = tc::wide_fwd_threads(H);
+    out[0] = tc::wide_fwd_smem(H);
+    const int kP = tc::wide_prefetch(threads);
+    auto kernel = kP == 16  ? gru_fwd_wide_kernel<true, false, 16>
+                  : kP == 8 ? gru_fwd_wide_kernel<true, false, 8>
+                            : gru_fwd_wide_kernel<true, false, 4>;
+    return tc::max_clusters(kernel, tc::wide_cluster(H), threads, out[0],
+                            out + 1);
+  }
   out[0] = tc::fwd_smem(H, 3, kTcUnits);
   return tc::max_clusters(gru_fwd_tc_kernel<kTcUnits, true, false>,
                           H / kTcUnits,
@@ -502,8 +760,8 @@ CSR_API int csr_gru_fwd_stream(const void* xs, const void* w,
                                int T, int B, int H, int ndir, int emit_t,
                                int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch_tc<false, true>(xs, w, lo, hi, h0, ys, nullptr, carry, T,
-                                  B, H, ndir, emit_t, C, stream);
+    return launch_bf16<false, true>(xs, w, lo, hi, h0, ys, nullptr, carry, T,
+                                    B, H, ndir, emit_t, C, stream);
   return launch<float, false, true>(xs, w, lo, hi, h0, ys, nullptr, carry, T,
                                     B, H, ndir, emit_t, stream);
 }

@@ -48,7 +48,9 @@
 // keeps four partial sums (the lanes of a float4). The next step's gates,
 // c, c_{t-1} and g are loaded before the product, so their latency hides
 // behind it.
-// Bounds: 32 <= H <= 512, H % 32 == 0, any B, T >= 1.
+// Past H = 512 a thread owns kUPT = 2 (H <= 1024) or 4 units, one after
+// the other, in blocks of H / kUPT <= 512 threads. Bounds: 32 <= H <= 2048,
+// H % 32 == 0, any B, T >= 1.
 #include <cuda_bf16.h>
 #include <math.h>
 
@@ -83,7 +85,7 @@ __device__ __forceinline__ StepIn load_step(const S* __restrict__ gates,
   return in;
 }
 
-template <typename S, int kQ, int kMaxThreads>
+template <typename S, int kQ, int kMaxThreads, int kUPT>
 __global__ void __launch_bounds__(kMaxThreads)
     lstm_bwd_kernel(const S* __restrict__ gates,
                     const typename Quad<S>::T* __restrict__ wtq,
@@ -94,72 +96,94 @@ __global__ void __launch_bounds__(kMaxThreads)
   extern __shared__ float dgs[];  // [2][4H] compute-dtype (di, df, do, du)
   const int d = blockIdx.y;       // direction
   const int rr = d * B + blockIdx.x;
-  const int j = threadIdx.x;      // hidden unit
   const int R = gridDim.y * B;   // ndir * B
   const int G = 4 * H;
   const Q* wd = wtq + static_cast<int64_t>(d) * H * H;  // [H quads][H]
   const float lo_r = lo[rr];
   const float hi_r = hi[rr];
 
-  float dh = 0.0f, dc = 0.0f;
+  // thread's hidden units: j = threadIdx.x + q blockDim.x, q < kUPT
+  // (blockDim.x = H / kUPT)
+  float dh[kUPT], dc[kUPT];
+  StepIn in[kUPT];
+#pragma unroll
+  for (int q = 0; q < kUPT; ++q) {
+    dh[q] = 0.0f;
+    dc[q] = 0.0f;
+    in[q] = load_step(gates, cs, g, static_cast<int64_t>(T - 1) * R + rr, R,
+                      T - 1, H, threadIdx.x + q * blockDim.x);
+  }
   int cur = 0;
-  StepIn in = load_step(gates, cs, g, static_cast<int64_t>(T - 1) * R + rr,
-                        R, T - 1, H, j);
   for (int t = T - 1; t >= 0; --t) {
     const int64_t row = static_cast<int64_t>(t) * R + rr;
-    const float dh_total = in.g + dh;
-    const float tc = tanhf(in.c);
-    const float dog = dh_total * tc * in.o * (1.0f - in.o);
-    const float dct = dc + dh_total * in.o * (1.0f - tc * tc);
-    const float dfg = dct * in.cp * in.f * (1.0f - in.f);
-    const float dig = dct * in.u * in.i * (1.0f - in.i);
-    const float dug = dct * in.i * (1.0f - in.u * in.u);
-    const float ft = in.f;
     const float tf = static_cast<float>(t);
     const bool live = lo_r <= tf && tf < hi_r;
-    S* dx = dxs + row * G;
-    dx[j] = from_f32<S>(live ? dig : 0.0f);
-    dx[H + j] = from_f32<S>(live ? dfg : 0.0f);
-    dx[2 * H + j] = from_f32<S>(live ? dog : 0.0f);
-    dx[3 * H + j] = from_f32<S>(live ? dug : 0.0f);
+    float dct[kUPT], ft[kUPT], dht[kUPT];
     float* buf = dgs + cur * G;
-    buf[j] = round_to<S>(dig);
-    buf[H + j] = round_to<S>(dfg);
-    buf[2 * H + j] = round_to<S>(dog);
-    buf[3 * H + j] = round_to<S>(dug);
-    __syncthreads();
-    if (t > 0) in = load_step(gates, cs, g, row - R, R, t - 1, H, j);
-
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // 4 partial sums
-    const float4* v4 = reinterpret_cast<const float4*>(buf);
-    Q w[kQ];
 #pragma unroll
-    for (int q = 0; q < kQ; ++q) w[q] = wd[static_cast<int64_t>(q) * H + j];
-    for (int k4 = 0; k4 < H; k4 += kQ) {
-      Q nw[kQ];
-      if (k4 + kQ < H) {
-#pragma unroll
-        for (int q = 0; q < kQ; ++q)
-          nw[q] = wd[static_cast<int64_t>(k4 + kQ + q) * H + j];
-      }
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        const float4 v = v4[k4 + q];
-        const float4 wv = Quad<S>::unpack(w[q]);
-        acc.x = fmaf(v.x, wv.x, acc.x);
-        acc.y = fmaf(v.y, wv.y, acc.y);
-        acc.z = fmaf(v.z, wv.z, acc.z);
-        acc.w = fmaf(v.w, wv.w, acc.w);
-      }
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) w[q] = nw[q];
+    for (int q = 0; q < kUPT; ++q) {
+      const int j = threadIdx.x + q * blockDim.x;
+      const float dh_total = in[q].g + dh[q];
+      const float tc = tanhf(in[q].c);
+      const float dog = dh_total * tc * in[q].o * (1.0f - in[q].o);
+      dct[q] = dc[q] + dh_total * in[q].o * (1.0f - tc * tc);
+      const float dfg = dct[q] * in[q].cp * in[q].f * (1.0f - in[q].f);
+      const float dig = dct[q] * in[q].u * in[q].i * (1.0f - in[q].i);
+      const float dug = dct[q] * in[q].i * (1.0f - in[q].u * in[q].u);
+      ft[q] = in[q].f;
+      dht[q] = dh_total;
+      S* dx = dxs + row * G;
+      dx[j] = from_f32<S>(live ? dig : 0.0f);
+      dx[H + j] = from_f32<S>(live ? dfg : 0.0f);
+      dx[2 * H + j] = from_f32<S>(live ? dog : 0.0f);
+      dx[3 * H + j] = from_f32<S>(live ? dug : 0.0f);
+      buf[j] = round_to<S>(dig);
+      buf[H + j] = round_to<S>(dfg);
+      buf[2 * H + j] = round_to<S>(dog);
+      buf[3 * H + j] = round_to<S>(dug);
     }
-    const float dot = (acc.x + acc.y) + (acc.z + acc.w);
-    if (live) {
-      dh = dot;
-      dc = dct * ft;
-    } else {
-      dh = dh_total;
+    __syncthreads();
+    if (t > 0)
+#pragma unroll
+      for (int q = 0; q < kUPT; ++q)
+        in[q] = load_step(gates, cs, g, row - R, R, t - 1, H,
+                          threadIdx.x + q * blockDim.x);
+
+    const float4* v4 = reinterpret_cast<const float4*>(buf);
+#pragma unroll
+    for (int q = 0; q < kUPT; ++q) {
+      const int j = threadIdx.x + q * blockDim.x;
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // 4 partial sums
+      Q w[kQ];
+#pragma unroll
+      for (int qq = 0; qq < kQ; ++qq)
+        w[qq] = wd[static_cast<int64_t>(qq) * H + j];
+      for (int k4 = 0; k4 < H; k4 += kQ) {
+        Q nw[kQ];
+        if (k4 + kQ < H) {
+#pragma unroll
+          for (int qq = 0; qq < kQ; ++qq)
+            nw[qq] = wd[static_cast<int64_t>(k4 + kQ + qq) * H + j];
+        }
+#pragma unroll
+        for (int qq = 0; qq < kQ; ++qq) {
+          const float4 v = v4[k4 + qq];
+          const float4 wv = Quad<S>::unpack(w[qq]);
+          acc.x = fmaf(v.x, wv.x, acc.x);
+          acc.y = fmaf(v.y, wv.y, acc.y);
+          acc.z = fmaf(v.z, wv.z, acc.z);
+          acc.w = fmaf(v.w, wv.w, acc.w);
+        }
+#pragma unroll
+        for (int qq = 0; qq < kQ; ++qq) w[qq] = nw[qq];
+      }
+      const float dot = (acc.x + acc.y) + (acc.z + acc.w);
+      if (live) {
+        dh[q] = dot;
+        dc[q] = dct[q] * ft[q];
+      } else {
+        dh[q] = dht[q];
+      }
     }
     cur ^= 1;
   }
@@ -169,19 +193,46 @@ __global__ void __launch_bounds__(kMaxThreads)
 // quads of any H % 32 == 0
 constexpr int kChunkQuads = 8;
 
+template <int kMaxThreads, int kUPT>
+cudaError_t launch_upt(const void* gates, const void* wtq, const float* lo,
+                       const float* hi, const float* cs, const float* g,
+                       void* dxs, int T, int B, int H, int ndir,
+                       cudaStream_t stream) {
+  // half the chunk past one unit a thread: its registers go to the
+  // units' carries and prefetched inputs
+  auto kernel = lstm_bwd_kernel<float, kUPT == 1 ? kChunkQuads
+                                                 : kChunkQuads / 2,
+                                kMaxThreads, kUPT>;
+  const int smem = 2 * 4 * H * sizeof(float);   // 64 KB at H = 2048
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<dim3(B, ndir), H / kUPT, smem, stream>>>(
+      static_cast<const float*>(gates), static_cast<const float4*>(wtq), lo,
+      hi, cs, g, static_cast<float*>(dxs), T, B, H);
+  return cudaSuccess;
+}
+
+// one unit a thread up to H = 512, two up to 1024, four above
 int launch_fp32(const void* gates, const void* wtq, const float* lo,
                 const float* hi, const float* cs, const float* g, void* dxs,
                 int T, int B, int H, int ndir, cudaStream_t stream) {
-  const dim3 grid(B, ndir);
-  const size_t smem = 2 * 4 * H * sizeof(float);
+  cudaError_t e;
   if (H <= 384)
-    lstm_bwd_kernel<float, kChunkQuads, 384><<<grid, H, smem, stream>>>(
-        static_cast<const float*>(gates), static_cast<const float4*>(wtq), lo,
-        hi, cs, g, static_cast<float*>(dxs), T, B, H);
+    e = launch_upt<384, 1>(gates, wtq, lo, hi, cs, g, dxs, T, B, H, ndir,
+                           stream);
+  else if (H <= 512)
+    e = launch_upt<512, 1>(gates, wtq, lo, hi, cs, g, dxs, T, B, H, ndir,
+                           stream);
+  else if (H <= 1024)
+    e = launch_upt<512, 2>(gates, wtq, lo, hi, cs, g, dxs, T, B, H, ndir,
+                           stream);
   else
-    lstm_bwd_kernel<float, kChunkQuads, 512><<<grid, H, smem, stream>>>(
-        static_cast<const float*>(gates), static_cast<const float4*>(wtq), lo,
-        hi, cs, g, static_cast<float*>(dxs), T, B, H);
+    e = launch_upt<512, 4>(gates, wtq, lo, hi, cs, g, dxs, T, B, H, ndir,
+                           stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
   CSR_RETURN_LAUNCH_STATUS();
 }
 
@@ -359,13 +410,255 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 backward past H = 512, W streamed (rnn_mma.cuh's streamed-W
+// form; csr_lstm_bwd under bf16 compute).
+//
+// Clusters as lstm_bwd_tc_kernel's, with C = wide_cluster(H) blocks of U =
+// wide_units(H) units (the last may own fewer) and 512 threads. The pairs
+// (row p / U, unit p % U) of a block go to threads p, p + 512, ... (up to
+// kPairs a thread), each keeping its dh and dc in registers. A step:
+//   1. dg of the thread's pairs, from the prefetched inputs; the next
+//      step's are loaded; the unmasked dg, rounded to bf16, into this
+//      block's A [16][K] (column g U + u; K = wide_bwd_k(H, 4), its
+//      padding and the columns of units past H stay zero);
+//   2. the reduce-scatter's product A W_c^T -> [16][H] partial sums of dh:
+//      warp w takes a contiguous range of the H / 32 n-groups (4 n8 tiles,
+//      32 units j), each over the K / 16 k-steps, its B fragments streamed
+//      from wb[d][c] = [H / 32][K / 16][4 tiles][32 lanes] uint2
+//      (ops/rnn_cuda.py's wide_bwd_weights) kP k-steps ahead, across the
+//      n-groups; a finished n-group's 16 x 32 sums go to their owners'
+//      buffer slot for source c through DSMEM (an n8 tile never straddles
+//      two owners: U % 8 == 0);
+//   3. the cluster barrier (dxs stored between its halves), then each pair
+//      adds its C partial sums in source order (bitwise repeatable) and
+//      updates dh and dc as lstm_bwd_tc_kernel does;
+//   4. with one partial-sum buffer (wide_bwd_bufs), a second cluster
+//      barrier, so no block writes the next step's sums before every block
+//      has read this step's.
+template <int kP, int kPairs>
+__global__ void __launch_bounds__(csr_rnn_mma::kWideBwdThreads, 1)
+    lstm_bwd_wide_kernel(const __nv_bfloat16* __restrict__ gates,
+                         const uint2* __restrict__ wb,
+                         const float* __restrict__ lo,
+                         const float* __restrict__ hi,
+                         const float* __restrict__ cs,
+                         const float* __restrict__ g,
+                         __nv_bfloat16* __restrict__ dxs, int T, int B,
+                         int H) {
+  namespace tc = csr_rnn_mma;
+  constexpr int kM = tc::kRows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = static_cast<int>(tc::cluster_nctarank());
+  const int c = static_cast<int>(tc::cluster_ctarank());
+  const int U = tc::wide_units(H), K = tc::wide_bwd_k(H, 4), KS = K / 16;
+  const int NG = H / 32;                         // n-groups of the product
+  const int G = 4 * H;
+  const int d = blockIdx.y, group = blockIdx.x / C;
+  const int R = gridDim.y * B;   // ndir * B
+  const int row_b = tc::row_bytes(K);
+  const int bufs = tc::wide_bwd_bufs(H, 4);
+  const uint32_t s_a = tc::smem_addr(smem);      // A [kM][K]
+  const uint32_t s_p = s_a + kM * row_b;         // partials [bufs][C][kM][U]
+  const float* part = reinterpret_cast<const float*>(smem + kM * row_b);
+  const int part_buf = C * kM * U;               // floats a buffer
+  const int tid = threadIdx.x, l = tid & 31, wp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+  const int u0 = c * U, uc = min(U, H - u0);     // this block's units
+
+  tc::zero_shared(smem, kM * row_b);
+  __syncthreads();
+  tc::cluster_sync();   // every peer has started before DSMEM stores
+
+  // this thread's pairs
+  bool has[kPairs], valid[kPairs];
+  int pr[kPairs], pu[kPairs], rr[kPairs];
+  float lo_r[kPairs], hi_r[kPairs], dh[kPairs], dc[kPairs];
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) {
+    const int p = tid + q * blockDim.x;
+    pr[q] = p / U;
+    pu[q] = p % U;
+    has[q] = p < kM * U && pu[q] < uc;
+    const int b = group * kM + pr[q];
+    valid[q] = has[q] && b < B;
+    rr[q] = d * B + b;
+    lo_r[q] = valid[q] ? lo[rr[q]] : 0.0f;
+    hi_r[q] = valid[q] ? hi[rr[q]] : 0.0f;   // never live
+    dh[q] = 0.0f;
+    dc[q] = 0.0f;
+  }
+  struct In {
+    float i, f, o, u, cp, c, g;
+  };
+  auto load_in = [&](int t, int q) {
+    In in = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (valid[q]) {
+      const int64_t row = static_cast<int64_t>(t) * R + rr[q];
+      const int j = u0 + pu[q];
+      const __nv_bfloat16* gt = gates + row * G + j;
+      in.i = __bfloat162float(gt[0]);
+      in.f = __bfloat162float(gt[H]);
+      in.o = __bfloat162float(gt[2 * H]);
+      in.u = __bfloat162float(gt[3 * H]);
+      in.cp = t > 0 ? cs[(row - R) * H + j] : 0.0f;
+      in.c = cs[row * H + j];
+      in.g = g[row * H + j];
+    }
+    return in;
+  };
+  // this warp's n-groups [ng0, ng1) and their fragments
+  const int ng0 = wp * NG / n_warps, ng1 = (wp + 1) * NG / n_warps;
+  const uint2* wsrc =
+      wb + ((static_cast<int64_t>(d) * C + c) * NG + ng0) * KS * 4 * 32 + l;
+  const uint32_t a_lane = s_a + (l & 15) * row_b + (l >> 4) * 16;
+
+  const int n = (ng1 - ng0) * KS;   // this warp's k-steps a step
+  uint2 b[kP][4];                   // its B fragments in flight
+  tc::stream_prefetch<4, kP>(wsrc, n, b);
+  In in[kPairs];
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) in[q] = load_in(T - 1, q);
+  int cur = 0;
+  for (int t = T - 1; t >= 0; --t) {
+    const float tf = static_cast<float>(t);
+    float dgv[kPairs][4], dct[kPairs], ft[kPairs], dht[kPairs];
+    bool live[kPairs];
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
+      const float dh_total = in[q].g + dh[q];
+      const float tc_ = tanhf(in[q].c);
+      dgv[q][2] = dh_total * tc_ * in[q].o * (1.0f - in[q].o);
+      dct[q] = dc[q] + dh_total * in[q].o * (1.0f - tc_ * tc_);
+      dgv[q][1] = dct[q] * in[q].cp * in[q].f * (1.0f - in[q].f);
+      dgv[q][0] = dct[q] * in[q].u * in[q].i * (1.0f - in[q].i);
+      dgv[q][3] = dct[q] * in[q].i * (1.0f - in[q].u * in[q].u);
+      ft[q] = in[q].f;
+      dht[q] = dh_total;
+      live[q] = lo_r[q] <= tf && tf < hi_r[q];
+    }
+    auto store_dxs = [&]() {
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+        if (!valid[q]) continue;
+        __nv_bfloat16* dx =
+            dxs + (static_cast<int64_t>(t) * R + rr[q]) * G + u0 + pu[q];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          dx[k * H] = __float2bfloat16_rn(live[q] ? dgv[q][k] : 0.0f);
+      }
+    };
+    if (t == 0) {   // dh_prev of step 0 is not needed
+      store_dxs();
+      break;
+    }
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
+      in[q] = load_in(t - 1, q);
+      if (has[q]) {
+        __nv_bfloat16* arow = reinterpret_cast<__nv_bfloat16*>(
+            smem + pr[q] * row_b);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          arow[k * U + pu[q]] = __float2bfloat16_rn(dgv[q][k]);
+      }
+    }
+    __syncthreads();
+
+    // the product over this warp's n-groups, fragments kP k-steps ahead
+    {
+      const uint32_t s_dst = s_p + (cur * part_buf + c * kM * U) * 4;
+      float acc[4][4] = {};
+      int ks = 0, ng = ng0;
+      for (int s0 = 0; s0 < n; s0 += kP) {
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          const int st = s0 + p;
+          if (st < n) {
+            uint32_t a[4];
+            tc::ldsm_x4(a_lane + ks * 32, a);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) tc::mma(acc[q], a, b[p][q].x, b[p][q].y);
+            if (st + kP < n)
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                b[p][q] = __ldg(wsrc + ((st + kP) * 4 + q) * 32);
+            if (++ks == KS) {
+              // the n-group's 16 x 32 sums to their owners: tile q holds
+              // units 32 ng + 8 q + 2 (l % 4) + {0, 1} of rows l / 4 (+ 8)
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const int j0 = 32 * ng + 8 * q;
+                const int owner = j0 / U;
+                const int col = j0 - owner * U + 2 * (l & 3);
+#pragma unroll
+                for (int i = 0; i < 2; ++i)
+                  tc::st_cluster8(
+                      tc::map_rank(s_dst + (((l >> 2) + 8 * i) * U + col) * 4,
+                                   owner),
+                      acc[q][2 * i], acc[q][2 * i + 1]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
+              }
+              ks = 0;
+              ++ng;
+            }
+          }
+        }
+      }
+      // the next step's first fragments (W is the same at every step), in
+      // flight over the barrier and the reduction
+      if (t > 1) tc::stream_prefetch<4, kP>(wsrc, n, b);
+    }
+    tc::cluster_arrive();
+    store_dxs();
+    tc::cluster_wait();
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
+      if (!has[q]) continue;
+      const float* p = part + cur * part_buf + pr[q] * U + pu[q];
+      float dot = p[0];
+      for (int src = 1; src < C; ++src) dot += p[src * kM * U];
+      if (live[q]) {
+        dh[q] = dot;
+        dc[q] = dct[q] * ft[q];
+      } else {
+        dh[q] = dht[q];
+      }
+    }
+    if (bufs == 2)
+      cur ^= 1;
+    else
+      tc::cluster_sync();
+  }
+}
+
+
+int launch_wide(const void* gates, const void* wb, const float* lo,
+                const float* hi, const float* cs, const float* g, void* dxs,
+                int T, int B, int H, int ndir, int C, cudaStream_t stream) {
+  namespace tc = csr_rnn_mma;
+  if (C != tc::wide_cluster(H)) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kP = tc::wide_prefetch(tc::kWideBwdThreads);
+  auto kernel = tc::wide_pairs(H) == 2 ? lstm_bwd_wide_kernel<kP, 2>
+                                       : lstm_bwd_wide_kernel<kP, 4>;
+  return tc::launch_clusters(
+      kernel, C, (B + tc::kRows - 1) / tc::kRows, ndir, tc::kWideBwdThreads,
+      tc::wide_bwd_smem(H, 4), stream,
+      static_cast<const __nv_bfloat16*>(gates),
+      static_cast<const uint2*>(wb), lo, hi, cs, g,
+      static_cast<__nv_bfloat16*>(dxs), T, B, H);
+}
+
 }  // namespace
 
 // gates [T, ndir*B, 4H], dxs [T, ndir*B, 4H] and the weights all fp32 (the
 // FMA kernel: wtq [ndir, H, H, 4]) or, when bf16 != 0, all bf16 (the
 // cluster kernel: wb [ndir, C, H, 4, 32], C = H / 32 blocks a cluster,
-// ops/rnn_cuda.py's lstm_plan; unread under fp32); lo/hi [ndir*B], cs and
-// g [T, ndir*B, H] fp32. Requires 32 <= H <= 512, H % 32 == 0, T >= 1,
+// ops/rnn_cuda.py's lstm_plan; past H = 512 the streamed-W fragments
+// [ndir, C, H/32, K/16, 4, 32, 4], C = wide_cluster(H),
+// rnn_cuda.wide_bwd_weights; unread under fp32); lo/hi [ndir*B], cs and g
+// [T, ndir*B, H] fp32. Requires 32 <= H <= 2048, H % 32 == 0, T >= 1,
 // B >= 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_lstm_bwd(const void* gates, const void* wtq, const float* lo,
                          const float* hi, const float* cs, const float* g,
@@ -375,6 +668,9 @@ CSR_API int csr_lstm_bwd(const void* gates, const void* wtq, const float* lo,
   if (ndir != 1 && ndir != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (!bf16)
     return launch_fp32(gates, wtq, lo, hi, cs, g, dxs, T, B, H, ndir,
+                       stream);
+  if (H > tc::kResidentMax)
+    return launch_wide(gates, wtq, lo, hi, cs, g, dxs, T, B, H, ndir, C,
                        stream);
   if (C * tc::kUnits != H) return static_cast<int>(cudaErrorInvalidValue);
   return tc::launch_clusters(
@@ -391,6 +687,14 @@ CSR_API int csr_lstm_bwd(const void* gates, const void* wtq, const float* lo,
 // it cannot launch).
 CSR_API int csr_lstm_bwd_occupancy(int H, int* out) {
   namespace tc = csr_rnn_mma;
+  if (H > tc::kResidentMax) {
+    out[0] = tc::wide_bwd_smem(H, 4);
+    constexpr int kP = tc::wide_prefetch(tc::kWideBwdThreads);
+    auto kernel = tc::wide_pairs(H) == 2 ? lstm_bwd_wide_kernel<kP, 2>
+                                         : lstm_bwd_wide_kernel<kP, 4>;
+    return tc::max_clusters(kernel, tc::wide_cluster(H), tc::kWideBwdThreads,
+                            out[0], out + 1);
+  }
   out[0] = tc::bwd_smem(H);
   return tc::max_clusters(lstm_bwd_tc_kernel, H / tc::kUnits,
                           tc::kRows * tc::kUnits, out[0], out + 1);

@@ -27,10 +27,12 @@
 // form's h0 seeds the fp32 registers, its compute-dtype rounding the shared
 // copy of h that the first product reads).
 //
-// Two kernels. The bf16 forms, all three (the presets' path), run on a
-// thread-block cluster with W resident in its shared memory and the step
-// product on the tensor cores (lstm_fwd_tc_kernel, below; one template over
-// kResiduals and kStream). The fp32 forms run the FMA kernel
+// Three kernels. The bf16 forms, all three (the presets' path), run on a
+// thread-block cluster with the step product on the tensor cores: up to
+// H = 512 with W resident in the cluster's shared memory
+// (lstm_fwd_tc_kernel, below; one template over kResiduals and kStream),
+// above with W streamed from global memory at each step
+// (lstm_fwd_wide_kernel, further below). The fp32 forms run the FMA kernel
 // (lstm_fwd_kernel, one template over kResiduals and kStream).
 //
 // What bounds it on Hopper: the sequential dependency over T. Each step is
@@ -52,8 +54,10 @@
 // dependent round trips a step at H = 384. The next step's xs is loaded
 // before the product, so its latency hides behind it. The compute-dtype
 // copy of h that the next step reads is double-buffered in shared memory:
-// one barrier a step. Bounds: 32 <= H <= 512, H % 32 == 0 (one thread per
-// unit), any B, T >= 1.
+// one barrier a step. Past H = 512 a thread owns kUPT = 2 (H <= 1024) or
+// 4 units, j and j + H / kUPT ..., one after the other, in blocks of
+// H / kUPT <= 512 threads. Bounds: 32 <= H <= 2048, H % 32 == 0, any B,
+// T >= 1.
 #include <cuda_bf16.h>
 #include <math.h>
 
@@ -85,7 +89,8 @@ __device__ __forceinline__ void load_x(const S* __restrict__ xs, int64_t row,
   for (int g = 0; g < 4; ++g) x[g] = to_f32(xr[g * H + j]);
 }
 
-template <typename S, int kQ, int kMaxThreads, bool kResiduals, bool kStream>
+template <typename S, int kQ, int kMaxThreads, int kUPT, bool kResiduals,
+          bool kStream>
 __global__ void __launch_bounds__(kMaxThreads)
     lstm_fwd_kernel(const S* __restrict__ xs,
                     const typename Quad<S>::T* __restrict__ wq,
@@ -98,7 +103,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   extern __shared__ float hs[];  // [2][H] compute-dtype h
   const int d = blockIdx.y;      // direction
   const int rr = d * B + blockIdx.x;
-  const int j = threadIdx.x;     // hidden unit
   const int R = gridDim.y * B;   // ndir * B
   const int nq = H / 4;          // quads per gate column
   const Q* wd = wq + static_cast<int64_t>(d) * nq * 4 * H;
@@ -107,78 +111,95 @@ __global__ void __launch_bounds__(kMaxThreads)
   // this row's h||c in h0 and carry [R, 2H]
   const int64_t hc_off = static_cast<int64_t>(rr) * 2 * H;
 
-  float h = 0.0f, c = 0.0f;
-  if (kStream) {
-    h = h0[hc_off + j];
-    c = h0[hc_off + H + j];
-    if (emit_t == 0) {
-      carry[hc_off + j] = h;
-      carry[hc_off + H + j] = c;
+  // thread's hidden units: j = threadIdx.x + q blockDim.x, q < kUPT
+  // (blockDim.x = H / kUPT)
+  float h[kUPT], c[kUPT], x[kUPT][4];
+#pragma unroll
+  for (int q = 0; q < kUPT; ++q) {
+    const int j = threadIdx.x + q * blockDim.x;
+    h[q] = 0.0f;
+    c[q] = 0.0f;
+    if (kStream) {
+      h[q] = h0[hc_off + j];
+      c[q] = h0[hc_off + H + j];
+      if (emit_t == 0) {
+        carry[hc_off + j] = h[q];
+        carry[hc_off + H + j] = c[q];
+      }
     }
+    load_x(xs, rr, H, j, x[q]);
+    hs[j] = round_to<S>(h[q]);
   }
-  float x[4];
-  load_x(xs, rr, H, j, x);
-  hs[j] = round_to<S>(h);
   __syncthreads();
 
   int cur = 0;
   for (int t = 0; t < T; ++t) {
-    float nx[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (t + 1 < T) load_x(xs, static_cast<int64_t>(t + 1) * R + rr, H, j, nx);
-    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float nx[kUPT][4] = {};
+    if (t + 1 < T)
+#pragma unroll
+      for (int q = 0; q < kUPT; ++q)
+        load_x(xs, static_cast<int64_t>(t + 1) * R + rr, H,
+               threadIdx.x + q * blockDim.x, nx[q]);
     const float4* h4 = reinterpret_cast<const float4*>(hs + cur * H);
-    Q w[4][kQ];
-    load_chunk<S, kQ>(wd, 0, j, H, w);
-    for (int k4 = 0; k4 < nq; k4 += kQ) {
-      Q nw[4][kQ];
-      if (k4 + kQ < nq) load_chunk<S, kQ>(wd, k4 + kQ, j, H, nw);
 #pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        const float4 hv = h4[k4 + q];
+    for (int q = 0; q < kUPT; ++q) {
+      const int j = threadIdx.x + q * blockDim.x;
+      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      Q w[4][kQ];
+      load_chunk<S, kQ>(wd, 0, j, H, w);
+      for (int k4 = 0; k4 < nq; k4 += kQ) {
+        Q nw[4][kQ];
+        if (k4 + kQ < nq) load_chunk<S, kQ>(wd, k4 + kQ, j, H, nw);
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float4 wv = Quad<S>::unpack(w[g][q]);
-          a[g] = fmaf(hv.x, wv.x, a[g]);
-          a[g] = fmaf(hv.y, wv.y, a[g]);
-          a[g] = fmaf(hv.z, wv.z, a[g]);
-          a[g] = fmaf(hv.w, wv.w, a[g]);
+        for (int qq = 0; qq < kQ; ++qq) {
+          const float4 hv = h4[k4 + qq];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            const float4 wv = Quad<S>::unpack(w[g][qq]);
+            a[g] = fmaf(hv.x, wv.x, a[g]);
+            a[g] = fmaf(hv.y, wv.y, a[g]);
+            a[g] = fmaf(hv.z, wv.z, a[g]);
+            a[g] = fmaf(hv.w, wv.w, a[g]);
+          }
         }
+#pragma unroll
+        for (int qq = 0; qq < kQ; ++qq)
+#pragma unroll
+          for (int g = 0; g < 4; ++g) w[g][qq] = nw[g][qq];
       }
-#pragma unroll
-      for (int q = 0; q < kQ; ++q)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) w[g][q] = nw[g][q];
+      const float ig = sigmoidf(x[q][0] + a[0]);
+      const float fg = sigmoidf((x[q][1] + a[1]) + 1.0f);  // forget bias +1
+      const float og = sigmoidf(x[q][2] + a[2]);
+      const float ug = tanhf(x[q][3] + a[3]);
+      const float cn = fg * c[q] + ig * ug;
+      const float hn = og * tanhf(cn);
+      const float tf = static_cast<float>(t);
+      if (lo_r <= tf && tf < hi_r) {
+        h[q] = hn;
+        c[q] = cn;
+      }
+      const int64_t row = static_cast<int64_t>(t) * R + rr;
+      ys[row * H + j] = h[q];
+      if (kResiduals) {
+        cs[row * H + j] = c[q];
+        S* gt = gates + row * 4 * H;
+        gt[j] = from_f32<S>(ig);
+        gt[H + j] = from_f32<S>(fg);
+        gt[2 * H + j] = from_f32<S>(og);
+        gt[3 * H + j] = from_f32<S>(ug);
+      }
+      if (kStream && t == emit_t - 1) {
+        carry[hc_off + j] = h[q];
+        carry[hc_off + H + j] = c[q];
+      }
+      hs[(cur ^ 1) * H + j] = round_to<S>(h[q]);
     }
-    const float ig = sigmoidf(x[0] + a[0]);
-    const float fg = sigmoidf((x[1] + a[1]) + 1.0f);  // forget bias +1
-    const float og = sigmoidf(x[2] + a[2]);
-    const float ug = tanhf(x[3] + a[3]);
-    const float cn = fg * c + ig * ug;
-    const float hn = og * tanhf(cn);
-    const float tf = static_cast<float>(t);
-    if (lo_r <= tf && tf < hi_r) {
-      h = hn;
-      c = cn;
-    }
-    const int64_t row = static_cast<int64_t>(t) * R + rr;
-    ys[row * H + j] = h;
-    if (kResiduals) {
-      cs[row * H + j] = c;
-      S* gt = gates + row * 4 * H;
-      gt[j] = from_f32<S>(ig);
-      gt[H + j] = from_f32<S>(fg);
-      gt[2 * H + j] = from_f32<S>(og);
-      gt[3 * H + j] = from_f32<S>(ug);
-    }
-    if (kStream && t == emit_t - 1) {
-      carry[hc_off + j] = h;
-      carry[hc_off + H + j] = c;
-    }
-    hs[(cur ^ 1) * H + j] = round_to<S>(h);
     __syncthreads();
     cur ^= 1;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) x[g] = nx[g];
+    for (int q = 0; q < kUPT; ++q)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) x[q][g] = nx[q][g];
   }
 }
 
@@ -186,23 +207,43 @@ __global__ void __launch_bounds__(kMaxThreads)
 // registers a chunk)
 constexpr int kQuads = 2;
 
+template <typename S, int kMaxThreads, int kUPT, bool kResiduals,
+          bool kStream>
+void launch_upt(const void* xs, const void* wq, const float* lo,
+                const float* hi, const float* h0, float* ys, float* cs,
+                void* gates, float* carry, int T, int B, int H, int ndir,
+                int emit_t, cudaStream_t stream) {
+  using Q = typename Quad<S>::T;
+  // one quad a chunk past one unit a thread: its registers go to the
+  // units' carries and prefetched inputs
+  lstm_fwd_kernel<S, kUPT == 1 ? kQuads : 1, kMaxThreads, kUPT, kResiduals,
+                  kStream>
+      <<<dim3(B, ndir), H / kUPT, 2 * H * sizeof(float), stream>>>(
+          static_cast<const S*>(xs), static_cast<const Q*>(wq), lo, hi, h0,
+          ys, cs, static_cast<S*>(gates), carry, T, B, H, emit_t);
+}
+
+// one unit a thread up to H = 512, two up to 1024, four above
 template <typename S, bool kResiduals, bool kStream>
 int launch(const void* xs, const void* wq, const float* lo, const float* hi,
            const float* h0, float* ys, float* cs, void* gates, float* carry,
            int T, int B, int H, int ndir, int emit_t, cudaStream_t stream) {
-  using Q = typename Quad<S>::T;
-  const dim3 grid(B, ndir);
-  const size_t smem = 2 * H * sizeof(float);
   if (H <= 384)
-    lstm_fwd_kernel<S, kQuads, 384, kResiduals, kStream>
-        <<<grid, H, smem, stream>>>(
-            static_cast<const S*>(xs), static_cast<const Q*>(wq), lo, hi, h0,
-            ys, cs, static_cast<S*>(gates), carry, T, B, H, emit_t);
+    launch_upt<S, 384, 1, kResiduals, kStream>(xs, wq, lo, hi, h0, ys, cs,
+                                               gates, carry, T, B, H, ndir,
+                                               emit_t, stream);
+  else if (H <= 512)
+    launch_upt<S, 512, 1, kResiduals, kStream>(xs, wq, lo, hi, h0, ys, cs,
+                                               gates, carry, T, B, H, ndir,
+                                               emit_t, stream);
+  else if (H <= 1024)
+    launch_upt<S, 512, 2, kResiduals, kStream>(xs, wq, lo, hi, h0, ys, cs,
+                                               gates, carry, T, B, H, ndir,
+                                               emit_t, stream);
   else
-    lstm_fwd_kernel<S, kQuads, 512, kResiduals, kStream>
-        <<<grid, H, smem, stream>>>(
-            static_cast<const S*>(xs), static_cast<const Q*>(wq), lo, hi, h0,
-            ys, cs, static_cast<S*>(gates), carry, T, B, H, emit_t);
+    launch_upt<S, 512, 4, kResiduals, kStream>(xs, wq, lo, hi, h0, ys, cs,
+                                               gates, carry, T, B, H, ndir,
+                                               emit_t, stream);
   CSR_RETURN_LAUNCH_STATUS();
 }
 
@@ -450,21 +491,254 @@ int launch_tc(const void* xs, const void* wt, const float* lo,
       static_cast<__nv_bfloat16*>(gates), carry, T, B, H, emit_t);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 forward past H = 512, W streamed (rnn_mma.cuh's streamed-W form;
+// the same three entries under bf16 compute).
+//
+// Grid and clusters as lstm_fwd_tc_kernel's, with C = wide_cluster(H)
+// blocks of U = wide_units(H) units and 4 U threads: warp w of block c owns
+// the 8 units of unit block ub = U c / 8 + w (none past H) with all four
+// gates, over the whole reduction, so no partial sums cross warps. Its
+// B fragments come from wf[d][ub] = [H / 16 k-steps][4 gates][32 lanes]
+// uint2 (ops/rnn_cuda.py's wide_fwd_weights), read from global memory at
+// every step, kP k-steps ahead of the mma.sync products; A (the group's
+// 16 rows of bf16 h) is double-buffered in shared memory as in the
+// resident form. Each lane keeps the pairs its accumulators hold: rows
+// l / 4 and l / 4 + 8, units 8 ub + 2 (l % 4) + {0, 1} (fp32 h and c in
+// registers), runs their gate math straight from the accumulators, writes
+// their bf16 h into the next A buffer, and the block pushes its columns to
+// every peer over DSMEM (push_columns); one cluster barrier a step, the
+// step's global stores between its arrive and its wait. The stream form
+// fills A[0] with bf16(h0) (fill_h0) and seeds the lanes' h and c from
+// h0, as the resident form does.
+template <bool kResiduals, bool kStream, int kP>
+__global__ void __launch_bounds__(csr_rnn_mma::wide_max_threads(kP), 1)
+    lstm_fwd_wide_kernel(const __nv_bfloat16* __restrict__ xs,
+                         const uint2* __restrict__ wf,
+                         const float* __restrict__ lo,
+                         const float* __restrict__ hi,
+                         const float* __restrict__ h0, float* __restrict__ ys,
+                         float* __restrict__ cs,
+                         __nv_bfloat16* __restrict__ gates,
+                         float* __restrict__ carry, int T, int B, int H,
+                         int emit_t) {
+  namespace tc = csr_rnn_mma;
+  constexpr int kM = tc::kRows;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = static_cast<int>(tc::cluster_nctarank());
+  const int c = static_cast<int>(tc::cluster_ctarank());
+  const int U = tc::wide_units(H), K = H / 16;
+  const int d = blockIdx.y, group = blockIdx.x / C;
+  const int R = gridDim.y * B;
+  const int row_b = tc::row_bytes(H);
+  const uint32_t s_a = tc::smem_addr(smem);    // A[2][kM]
+  const uint32_t a_bytes = kM * row_b;
+  const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
+  const int u0 = c * U, uc = min(U, H - u0);   // this block's units
+  const bool active = 8 * w < uc;              // this warp's unit block
+  const int j = u0 + 8 * w + 2 * (l & 3);      // this lane's units j, j + 1
+
+  // A[0] = h_0: 0, or the stream form's bf16(h0), the h half of h0's rows
+  if (kStream)
+    tc::fill_h0(smem, h0 + (static_cast<int64_t>(d) * B + group * kM) * 2 * H,
+                2 * H, B - group * kM, H);
+  else
+    tc::zero_shared(smem, a_bytes);
+  __syncthreads();
+  tc::cluster_sync();   // every peer has started before DSMEM stores
+
+  // this lane's rows i = 0, 1: l / 4 and l / 4 + 8 of the group
+  bool valid[2];
+  int rr[2];
+  float lo_r[2], hi_r[2], h[2][2] = {}, cv[2][2] = {};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int b = group * kM + (l >> 2) + 8 * i;
+    valid[i] = active && b < B;
+    rr[i] = d * B + b;
+    lo_r[i] = valid[i] ? lo[rr[i]] : 0.0f;
+    hi_r[i] = valid[i] ? hi[rr[i]] : 0.0f;   // never live
+    if (kStream && valid[i]) {
+      const float* src = h0 + static_cast<int64_t>(rr[i]) * 2 * H + j;
+      h[i][0] = src[0];
+      h[i][1] = src[1];
+      cv[i][0] = src[H];
+      cv[i][1] = src[H + 1];
+      if (emit_t == 0) {
+        float* dst = carry + static_cast<int64_t>(rr[i]) * 2 * H + j;
+        *reinterpret_cast<float2*>(dst) = make_float2(h[i][0], h[i][1]);
+        *reinterpret_cast<float2*>(dst + H) = make_float2(cv[i][0], cv[i][1]);
+      }
+    }
+  }
+  // A row l % 16 at k chunk l / 16; this warp's fragments
+  const uint32_t a_off = (l & 15) * row_b + (l >> 4) * 16;
+  const uint2* wb =
+      wf + (static_cast<int64_t>(d) * (H / 8) + u0 / 8 + w) * K * 4 * 32 + l;
+
+  // xs of the lane's pairs: [row i][gate g] as (unit j, unit j + 1)
+  auto load_x = [&](int t, float2 (&v)[2][4]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const __nv_bfloat16* xr =
+          xs + (static_cast<int64_t>(t) * R + rr[i]) * 4 * H + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        v[i][g] = valid[i] ? __bfloat1622float2(
+                                 *reinterpret_cast<const __nv_bfloat162*>(
+                                     xr + g * H))
+                           : make_float2(0.0f, 0.0f);
+    }
+  };
+  float2 x[2][4];
+  load_x(0, x);
+  uint2 ring[kP][4];      // this warp's B fragments in flight
+  if (active) tc::stream_prefetch<4, kP>(wb, K, ring);
+  int cur = 0;
+  for (int t = 0; t < T; ++t) {
+    float2 nx[2][4];
+    if (t + 1 < T) load_x(t + 1, nx);
+    float acc[4][4] = {};
+    if (active) {
+      tc::streamed_product<4, kP>(s_a + cur * a_bytes + a_off, wb, K, ring,
+                                   acc);
+      // the next step's first fragments, in flight over the gate math,
+      // the exchange and the barrier
+      if (t + 1 < T) tc::stream_prefetch<4, kP>(wb, K, ring);
+    }
+    // gate math of the lane's pairs (accumulator element 2 i + e: row i,
+    // unit j + e)
+    float gv[2][2][4];
+    const float tf = static_cast<float>(t);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xe[4] = {e ? x[i][0].y : x[i][0].x,
+                             e ? x[i][1].y : x[i][1].x,
+                             e ? x[i][2].y : x[i][2].x,
+                             e ? x[i][3].y : x[i][3].x};
+        const float ig = sigmoidf(xe[0] + acc[0][2 * i + e]);
+        const float fg = sigmoidf((xe[1] + acc[1][2 * i + e]) + 1.0f);
+        const float og = sigmoidf(xe[2] + acc[2][2 * i + e]);
+        const float ug = tanhf(xe[3] + acc[3][2 * i + e]);
+        const float cn = fg * cv[i][e] + ig * ug;
+        const float hn = og * tanhf(cn);
+        if (lo_r[i] <= tf && tf < hi_r[i]) {
+          h[i][e] = hn;
+          cv[i][e] = cn;
+        }
+        gv[i][e][0] = ig;
+        gv[i][e][1] = fg;
+        gv[i][e][2] = og;
+        gv[i][e][3] = ug;
+      }
+    const int nxt = cur ^ 1;
+    const bool more = t + 1 < T;
+    if (more) {
+      // h into this block's columns of A[nxt], then into every peer's
+      const uint32_t s_nxt = s_a + nxt * a_bytes;
+      if (active)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(
+              smem + (s_nxt - s_a) + ((l >> 2) + 8 * i) * row_b + 2 * j) =
+              __floats2bfloat162_rn(h[i][0], h[i][1]);
+      __syncthreads();
+      tc::push_columns(s_nxt, row_b, 2 * u0, uc / 8, c, C);
+      tc::cluster_arrive();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (!valid[i]) continue;
+      const int64_t row = static_cast<int64_t>(t) * R + rr[i];
+      *reinterpret_cast<float2*>(ys + row * H + j) =
+          make_float2(h[i][0], h[i][1]);
+      if (kResiduals) {
+        *reinterpret_cast<float2*>(cs + row * H + j) =
+            make_float2(cv[i][0], cv[i][1]);
+        __nv_bfloat16* gt = gates + row * 4 * H + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          *reinterpret_cast<__nv_bfloat162*>(gt + g * H) =
+              __floats2bfloat162_rn(gv[i][0][g], gv[i][1][g]);
+      }
+      if (kStream && t == emit_t - 1) {
+        float* dst = carry + static_cast<int64_t>(rr[i]) * 2 * H + j;
+        *reinterpret_cast<float2*>(dst) = make_float2(h[i][0], h[i][1]);
+        *reinterpret_cast<float2*>(dst + H) = make_float2(cv[i][0], cv[i][1]);
+      }
+    }
+    if (more) {
+      tc::cluster_wait();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) x[i][g] = nx[i][g];
+    }
+    cur = nxt;
+  }
+}
+
+template <bool kResiduals, bool kStream, int kP>
+int launch_wide_kp(const void* xs, const void* wf, const float* lo,
+                   const float* hi, const float* h0, float* ys, float* cs,
+                   void* gates, float* carry, int T, int B, int H, int ndir,
+                   int emit_t, cudaStream_t stream) {
+  namespace tc = csr_rnn_mma;
+  return tc::launch_clusters(
+      lstm_fwd_wide_kernel<kResiduals, kStream, kP>, tc::wide_cluster(H),
+      (B + tc::kRows - 1) / tc::kRows, ndir, tc::wide_fwd_threads(H),
+      tc::wide_fwd_smem(H), stream, static_cast<const __nv_bfloat16*>(xs),
+      static_cast<const uint2*>(wf), lo, hi, h0, ys, cs,
+      static_cast<__nv_bfloat16*>(gates), carry, T, B, H, emit_t);
+}
+
+// the bf16 forms: the resident cluster kernel up to H = 512, W streamed
+// above
+template <bool kResiduals, bool kStream>
+int launch_bf16(const void* xs, const void* wt, const float* lo,
+                const float* hi, const float* h0, float* ys, float* cs,
+                void* gates, float* carry, int T, int B, int H, int ndir,
+                int emit_t, int C, cudaStream_t stream) {
+  namespace tc = csr_rnn_mma;
+  if (H <= tc::kResidentMax)
+    return launch_tc<kResiduals, kStream>(xs, wt, lo, hi, h0, ys, cs, gates,
+                                          carry, T, B, H, ndir, emit_t, C,
+                                          stream);
+  if (C != tc::wide_cluster(H)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (tc::wide_prefetch(tc::wide_fwd_threads(H))) {
+    case 16:
+      return launch_wide_kp<kResiduals, kStream, 16>(
+          xs, wt, lo, hi, h0, ys, cs, gates, carry, T, B, H, ndir, emit_t,
+          stream);
+    case 8:
+      return launch_wide_kp<kResiduals, kStream, 8>(
+          xs, wt, lo, hi, h0, ys, cs, gates, carry, T, B, H, ndir, emit_t,
+          stream);
+    default:
+      return launch_wide_kp<kResiduals, kStream, 4>(
+          xs, wt, lo, hi, h0, ys, cs, gates, carry, T, B, H, ndir, emit_t,
+          stream);
+  }
+}
+
 }  // namespace
 
 // xs [T, ndir*B, 4H] fp32 and wq [ndir, H/4, 4H, 4] fp32 (the FMA kernel),
 // or, when bf16 != 0, xs bf16 and wq = wt [ndir, C, 4, 32, H] bf16 (the
 // cluster kernel: C = H / 32 blocks a cluster, ops/rnn_cuda.py's
-// lstm_plan; unread under fp32); lo/hi [ndir*B] fp32; ys [T, ndir*B, H]
-// fp32. Requires 32 <= H <= 512, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2
-// (the wrapper checks).
+// lstm_plan; past H = 512 the streamed-W fragments [ndir, H/8, H/16, 4,
+// 32, 4] and C = wide_cluster(H), rnn_cuda.wide_fwd_weights; unread under
+// fp32); lo/hi [ndir*B] fp32; ys [T, ndir*B, H] fp32. Requires 32 <= H <=
+// 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_lstm_fwd(const void* xs, const void* wq, const float* lo,
                          const float* hi, float* ys, int T, int B, int H,
                          int ndir, int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch_tc<false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
-                                   nullptr, nullptr, T, B, H, ndir, 0, C,
-                                   stream);
+    return launch_bf16<false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
+                                     nullptr, nullptr, T, B, H, ndir, 0, C,
+                                     stream);
   return launch<float, false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
                                      nullptr, nullptr, T, B, H, ndir, 0,
                                      stream);
@@ -479,18 +753,29 @@ CSR_API int csr_lstm_fwd_train(const void* xs, const void* wq,
                                int ndir, int C, int bf16,
                                cudaStream_t stream) {
   if (bf16)
-    return launch_tc<true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
-                                  nullptr, T, B, H, ndir, 0, C, stream);
+    return launch_bf16<true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
+                                    nullptr, T, B, H, ndir, 0, C, stream);
   return launch<float, true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
                                     nullptr, T, B, H, ndir, 0, stream);
 }
 
 // The cluster forward's plan as the card takes it: out[0] = its shared
-// memory bytes at hidden size H (C = H / 32 blocks), out[1] = how many of
-// its clusters the card holds at once (cudaOccupancyMaxActiveClusters; 0:
-// it cannot launch).
+// memory bytes at hidden size H (C = H / 32 blocks up to H = 512, the
+// streamed-W form's wide_cluster(H) above), out[1] = how many of its
+// clusters the card holds at once (cudaOccupancyMaxActiveClusters; 0: it
+// cannot launch).
 CSR_API int csr_lstm_fwd_occupancy(int H, int* out) {
   namespace tc = csr_rnn_mma;
+  if (H > tc::kResidentMax) {
+    const int threads = tc::wide_fwd_threads(H);
+    out[0] = tc::wide_fwd_smem(H);
+    const int kP = tc::wide_prefetch(threads);
+    auto kernel = kP == 16  ? lstm_fwd_wide_kernel<true, false, 16>
+                  : kP == 8 ? lstm_fwd_wide_kernel<true, false, 8>
+                            : lstm_fwd_wide_kernel<true, false, 4>;
+    return tc::max_clusters(kernel, tc::wide_cluster(H), threads, out[0],
+                            out + 1);
+  }
   out[0] = tc::fwd_smem(H);
   return tc::max_clusters(lstm_fwd_tc_kernel<true, false>, H / tc::kUnits,
                           tc::kRows * tc::kUnits, out[0], out + 1);
@@ -506,8 +791,8 @@ CSR_API int csr_lstm_fwd_stream(const void* xs, const void* wq,
                                 int T, int B, int H, int ndir, int emit_t,
                                 int C, int bf16, cudaStream_t stream) {
   if (bf16)
-    return launch_tc<false, true>(xs, wq, lo, hi, h0, ys, nullptr, nullptr,
-                                  carry, T, B, H, ndir, emit_t, C, stream);
+    return launch_bf16<false, true>(xs, wq, lo, hi, h0, ys, nullptr, nullptr,
+                                    carry, T, B, H, ndir, emit_t, C, stream);
   return launch<float, false, true>(xs, wq, lo, hi, h0, ys, nullptr, nullptr,
                                     carry, T, B, H, ndir, emit_t, stream);
 }

@@ -1,13 +1,14 @@
 // Shared by the bf16 cluster kernels of the recurrences (lstm_fwd.cu,
 // lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu): the shared-memory layout, the
 // thread-block cluster's rank, distributed shared memory (DSMEM) stores and
-// barrier, and the cluster launch.
+// barrier, and the cluster launch; and, past H = 512, the streamed-W
+// form's geometry and product (below).
 //
-// A cluster of C = H / U blocks serves one direction and one group of
-// kRows = 16 rows (one m16 tile; rows past B are zero); block c owns the U
-// hidden units [U c, U c + U) (U = kUnits = 32, but gru_bwd_units for
-// the GRU's backward) with all G
-// gate columns of each (G = 4 for the LSTM, 3 for the GRU). Its slice of W
+// Up to H = 512, a cluster of C = H / U blocks serves one direction and
+// one group of kRows = 16 rows (one m16 tile; rows past B are zero); block
+// c owns the U hidden units [U c, U c + U) (U = kUnits = 32, but
+// gru_bwd_units for the GRU's backward) with all G gate columns of each
+// (G = 4 for the LSTM, 3 for the GRU). Its slice of W
 // stays in its shared memory for all T steps, as bf16 rows of a k-extent K
 // (the reduction) padded by 16 bytes: row r starts at r (2 K + 16) bytes,
 // so the 8 rows that one ldmatrix phase reads fall in 8 distinct 16-byte
@@ -65,6 +66,121 @@ __host__ __device__ constexpr int fwd_smem(int H, int G = 4,
 __host__ __device__ constexpr int bwd_smem(int H, int G = 4,
                                            int U = kUnits) {
   return (H + kRows) * row_bytes(G * U) + 2 * kRows * H * 4;
+}
+
+// ---------------------------------------------------------------------------
+// The streamed-W form, 512 < H <= kMaxHidden (H % 32 == 0): a direction's
+// W (8 H^2 bytes for the LSTM: 8.4 MB at H = 1024) no longer fits the
+// shared memory of a 16-block cluster, so every block streams its slice
+// from global memory (L2) at each step, straight into the mma.sync B
+// fragments, laid out by the wrapper in fragment order (ops/rnn_cuda.py's
+// wide_fwd_weights, wide_bwd_weights): for each k-step and n-tile, lane l's
+// four bf16 values (rows 2 (l % 4) + {0, 1, 8, 9} of the k16 step, column
+// l / 4 of the n8 tile) are 8 consecutive bytes, so a warp reads each
+// fragment as 256 contiguous bytes with one 8-byte load a lane, kP k-steps
+// ahead of the products. h (forward) is exchanged over DSMEM as in the
+// resident form; the backward's reduce-scatter keeps its partial sums in
+// one buffer where two do not fit (wide_bwd_bufs), with a second cluster
+// barrier a step.
+//
+// Geometry: a cluster of C = ceil(H / U) <= 16 blocks, U = wide_units(H) =
+// 8 ceil(H / 128) units a block (the last block may own fewer: H - U (C -
+// 1), a multiple of 8), kRows rows a cluster.
+constexpr int kResidentMax = 512;   // the resident form's largest H
+constexpr int kMaxHidden = 2048;
+constexpr int kSmemMax = 232448;    // dynamic shared memory a block (H100)
+
+__host__ __device__ constexpr int wide_units(int H) {
+  return 8 * ((H + 127) / 128);
+}
+__host__ __device__ constexpr int wide_cluster(int H) {
+  return (H + wide_units(H) - 1) / wide_units(H);
+}
+// the forward: a warp per 8 units (one n8 tile of every gate); the double
+// buffer of h, [2][kRows][H]
+__host__ __device__ constexpr int wide_fwd_threads(int H) {
+  return 4 * wide_units(H);
+}
+__host__ __device__ constexpr int wide_fwd_smem(int H) {
+  return 2 * kRows * row_bytes(H);
+}
+// the backward: 16 warps; its product's reduction extent (G U gate
+// gradients, zero-padded to a multiple of 32: two k-steps), the partial
+// sums [bufs][C][kRows][U] fp32 and the gate gradients [kRows][K] bf16
+constexpr int kWideBwdThreads = 512;
+__host__ __device__ constexpr int wide_bwd_k(int H, int G) {
+  return (G * wide_units(H) + 31) / 32 * 32;
+}
+__host__ __device__ constexpr int wide_bwd_part(int H) {
+  return kRows * wide_cluster(H) * wide_units(H) * 4;
+}
+__host__ __device__ constexpr int wide_bwd_bufs(int H, int G) {
+  return kRows * row_bytes(wide_bwd_k(H, G)) + 2 * wide_bwd_part(H) <=
+                 kSmemMax
+             ? 2
+             : 1;
+}
+__host__ __device__ constexpr int wide_bwd_smem(int H, int G) {
+  return kRows * row_bytes(wide_bwd_k(H, G)) +
+         wide_bwd_bufs(H, G) * wide_bwd_part(H);
+}
+// the backward's (row, unit) pairs a thread: 16 U / 512 = U / 32, at most
+// 2 up to H = 1024 (U <= 64) and 4 above (fewer registers where fewer do)
+__host__ __device__ constexpr int wide_pairs(int H) {
+  return wide_units(H) <= 64 ? 2 : 4;
+}
+// B fragments in flight a warp, as many k-steps as the registers a thread
+// leave room for: 16 up to 256 threads a block, 8 up to 384, 4 at 512
+// (128 registers a thread)
+__host__ __device__ constexpr int wide_prefetch(int threads) {
+  return threads <= 256 ? 16 : threads <= 384 ? 8 : 4;
+}
+// the most threads a block of a kernel streaming kP k-steps ahead takes
+__host__ __device__ constexpr int wide_max_threads(int kP) {
+  return kP == 16 ? 256 : kP == 8 ? 384 : 512;
+}
+
+// The B fragments of the first kP k-steps of a streamed product into the
+// register ring b (bf: this lane's first fragment of [K][J][32 lanes]
+// uint2). W is the same at every step, so a kernel issues these loads for
+// the next step as soon as a step's product is done: they are in flight
+// over its gate math, exchange and barrier.
+template <int J, int kP>
+__device__ __forceinline__ void stream_prefetch(const uint2* __restrict__ bf,
+                                                int K, uint2 (&b)[kP][J]) {
+#pragma unroll
+  for (int p = 0; p < kP; ++p)
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      b[p][j] = p < K ? __ldg(bf + (p * J + j) * 32) : make_uint2(0, 0);
+}
+
+// acc[J][4] += A B over K k-steps for J n8 tiles: A's 16 rows in shared
+// memory (a_lane: this lane's ldmatrix address at k-step 0, 32 bytes a
+// k-step further each step), B streamed from global memory through the
+// ring b that stream_prefetch filled, each slot refilled with the k-step
+// kP ahead once its products are issued; the ring is spent on return
+template <int J, int kP>
+__device__ __forceinline__ void streamed_product(uint32_t a_lane,
+                                                 const uint2* __restrict__ bf,
+                                                 int K, uint2 (&b)[kP][J],
+                                                 float (&acc)[J][4]) {
+  for (int k0 = 0; k0 < K; k0 += kP) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      const int k = k0 + p;
+      if (k < K) {
+        uint32_t a[4];
+        ldsm_x4(a_lane + k * 32, a);
+#pragma unroll
+        for (int j = 0; j < J; ++j) mma(acc[j], a, b[p][j].x, b[p][j].y);
+        if (k + kP < K)
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            b[p][j] = __ldg(bf + ((k + kP) * J + j) * 32);
+      }
+    }
+  }
 }
 
 // the two 8x8 bf16 matrices whose row addresses lanes 0-7 and 8-15 give
@@ -151,6 +267,26 @@ __device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+
+// the streamed-W forward's exchange: this block's columns of the kRows
+// rows of an A buffer (s_buf, rows of row_b bytes; byte offset col0, n16
+// 16-byte chunks a row) into the same place of every other block of the
+// cluster, the block's threads sharing the stores
+__device__ __forceinline__ void push_columns(uint32_t s_buf, int row_b,
+                                             int col0, int n16, int c,
+                                             int C) {
+  for (int q = threadIdx.x; q < (C - 1) * kRows * n16; q += blockDim.x) {
+    const int p = q / (kRows * n16), e = q % (kRows * n16);
+    const uint32_t ad = s_buf + (e / n16) * row_b + col0 + (e % n16) * 16;
+    st_cluster16(map_rank(ad, p + (p >= c)), ld_shared16(ad));
+  }
+}
+
+// zeros over `bytes` (a multiple of 16) of shared memory at p
+__device__ __forceinline__ void zero_shared(unsigned char* p, int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16)
+    *reinterpret_cast<uint4*>(p + i) = make_uint4(0, 0, 0, 0);
 }
 
 // the launch configuration of `kernel` on clusters of C blocks along x,

@@ -21,7 +21,8 @@ backward kernel) when autograd will differentiate the layer, otherwise the
 residual-free forward, as ``birnn_pallas``'s primal-only call skips the
 residual streams; on the card it raises for a hidden size the kernels do
 not take. "auto" takes the wrappers where the kernels take the hidden size
-(``rnn_cuda.kernel_takes``: 32 ≤ H ≤ 512, H % 32 == 0) and the plain scan
+(``rnn_cuda.kernel_takes``: 32 ≤ H ≤ 2048, H % 32 == 0, every H % 128 == 0
+the reference's kernels take up to 2048 among them) and the plain scan
 elsewhere, as the reference's "auto" takes its scan wherever its kernel's
 tiling rule (H % 128 == 0) fails. "scan" takes the plain forward on either
 device and lets autograd differentiate it, as the reference's ``lax.scan``

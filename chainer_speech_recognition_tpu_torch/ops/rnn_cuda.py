@@ -46,15 +46,22 @@ plain version for CPU tensors):
 
 Under bf16 compute every form of both cells, the three forwards
 (residual-free, stream, training) and the backward, runs on thread-block
-clusters (``lstm_plan``, ``gru_plan``: C = H / 32 blocks, or H / 16 in the
-GRU's backward up to H = 256; 16 rows a cluster), each block keeping its
-slice of W in shared memory (``lstm_fwd_tc_weights``,
-``lstm_bwd_tc_weights``, ``gru_fwd_tc_weights``, ``gru_bwd_tc_weights``)
-and multiplying on the tensor cores; under fp32 the FMA kernels read W as
-it is (the GRU's forward), transposed (its backward) or as k-quads (the
-LSTM's). The stream wrappers take the laid-out W from a cache kept per
-weight tensor (``stream_launch_args``), since a streaming window calls
-every layer once; the other wrappers lay it out at each call.
+clusters (``lstm_plan``, ``gru_plan``; 16 rows a cluster) and multiplies
+on the tensor cores. Up to H = 512 (``RESIDENT_MAX``) each block keeps its
+slice of W in shared memory (C = H / 32 blocks, or H / 16 in the GRU's
+backward up to H = 256; ``lstm_fwd_tc_weights``, ``lstm_bwd_tc_weights``,
+``gru_fwd_tc_weights``, ``gru_bwd_tc_weights``). Past it, up to H = 2048
+(``MAX_HIDDEN``), W no longer fits a cluster's shared memory and each
+block streams its slice from global memory at every step, straight into
+the tensor cores' operand fragments (the streamed-W form: C = ⌈H / U⌉ ≤
+16 blocks of U = ``wide_units(H)`` = 8·⌈H / 128⌉ units; W laid out in
+fragment order by ``wide_fwd_weights`` and ``wide_bwd_weights``). Under
+fp32 the FMA kernels read W as it is (the GRU's forward), transposed (its
+backward) or as k-quads (the LSTM's), one hidden unit a thread up to H =
+512, two up to 1024 and four above. The stream wrappers take the laid-out
+W from a cache kept per weight tensor (``stream_launch_args``), since a
+streaming window calls every layer once; the other wrappers lay it out at
+each call.
 
 ``BiGRUScan`` and ``BiLSTMScan`` are ``birnn_pallas``'s custom VJP, for
 both direction counts: the training forward, the backward kernel, then
@@ -86,12 +93,19 @@ from .. import _kernels
 ROUTED = {"kernel": 0, "scan": 0}
 
 
+# the largest hidden size whose bf16 kernels keep W in a cluster's shared
+# memory, and the largest the kernels take (the streamed-W form between)
+RESIDENT_MAX, MAX_HIDDEN = 512, 2048
+SMEM_MAX = 232448       # shared memory a block may use on an H100 (227 KB)
+
+
 def kernel_takes(H: int) -> bool:
-    """The hidden sizes the kernels take: 32 ≤ H ≤ 512 with H % 32 == 0
-    (the fp32 FMA kernels run one thread per unit; the bf16 cluster kernels
-    C = H / 32 ≤ 16 blocks, each with its slice of W in the 227 KB of
-    shared memory a block may take)."""
-    return H % 32 == 0 and 32 <= H <= 512
+    """The hidden sizes the kernels take: 32 ≤ H ≤ 2048 with H % 32 == 0,
+    every H % 128 == 0 the reference's kernels take up to 2048 among them
+    (the bf16 cluster kernels: C ≤ 16 blocks, W resident in their shared
+    memory up to H = 512 and streamed from global memory above; the fp32
+    FMA kernels: up to four units a thread of 512)."""
+    return H % 32 == 0 and 32 <= H <= MAX_HIDDEN
 
 
 def stream_dtype(compute_dtype: torch.dtype) -> torch.dtype:
@@ -305,9 +319,10 @@ def _check_sizes(T: int, R: int, H: int, compute_dtype,
                          f"ndir={ndir})")
     if not kernel_takes(H):
         raise ValueError(f"{cell} kernel: hidden size {H} unsupported "
-                         "(32 <= H <= 512, H % 32 == 0: one thread per unit "
-                         "in fp32; in bf16 a cluster of H / 32 <= 16 blocks, "
-                         "each with its slice of W in shared memory)")
+                         f"(32 <= H <= {MAX_HIDDEN}, H % 32 == 0: in bf16 a "
+                         "cluster of at most 16 blocks, W in their shared "
+                         f"memory up to H = {RESIDENT_MAX} and streamed "
+                         "above; in fp32 up to 4 units a thread)")
     return stream_dtype(compute_dtype)
 
 
@@ -478,8 +493,71 @@ def gru_bwd_tc_weights(w, C: int):
     return _bwd_tc_weights(w, C)
 
 
-# the cluster kernels' units a block and rows a cluster (csrc/rnn_mma.cuh
-# kUnits, kRows); a block runs a thread a (row, unit) pair
+def wide_units(H: int) -> int:
+    """Units a block of the streamed-W form (H > ``RESIDENT_MAX``):
+    8·⌈H / 128⌉, whole n8 tiles, so C = ⌈H / U⌉ ≤ 16 (``csrc/rnn_mma.cuh``'s
+    wide_units; the last block may own fewer, a multiple of 8)."""
+    return 8 * -(-H // 128)
+
+
+def wide_bwd_k(H: int, G: int) -> int:
+    """The streamed-W backward's reduction extent: a block's G·U gate
+    gradients, zero-padded to a multiple of 32 (two k-steps)."""
+    return -(-G * wide_units(H) // 32) * 32
+
+
+def _wide_part(H: int) -> int:
+    """Bytes of one partial-sum buffer of the streamed-W backward: ROWS
+    rows of the C·U units of the C source blocks, fp32."""
+    U = wide_units(H)
+    return ROWS * -(-H // U) * U * 4
+
+
+def wide_bwd_bufs(H: int, G: int) -> int:
+    """Partial-sum buffers of the streamed-W backward: two (one cluster
+    barrier a step) where they fit beside the gate gradients, else one
+    (a second barrier a step)."""
+    gates = ROWS * (2 * wide_bwd_k(H, G) + 16)
+    return 2 if gates + 2 * _wide_part(H) <= SMEM_MAX else 1
+
+
+def wide_fwd_weights(w):
+    """W [ndir, H, G·H] → the streamed-W forward's B fragments [ndir, H/8,
+    H/16, G, 32, 4] bf16 (``csrc/rnn_mma.cuh``): element [d, ub, ks, g, l,
+    e] is W[d, 16·ks + 2·(l % 4) + e % 2 + 8·(e // 2), g·H + 8·ub + l // 4],
+    lane l's four values of the m16n8k16 B fragment of unit block ub's gate
+    g at k-step ks; the warp owning ub reads them as [ks][g][l]."""
+    ndir, H, GH = w.shape
+    G = GH // H
+    return w.to(torch.bfloat16).reshape(
+        ndir, H // 16, 2, 4, 2, G, H // 8, 8).permute(
+        0, 6, 1, 5, 7, 3, 2, 4).reshape(ndir, H // 8, H // 16, G, 32, 4) \
+        .contiguous()
+
+
+def wide_bwd_weights(w):
+    """W [ndir, H, G·H] → the streamed-W backward's B fragments [ndir, C,
+    H/32, K/16, 4, 32, 4] bf16, U = ``wide_units(H)``, C = ⌈H / U⌉, K =
+    ``wide_bwd_k(H, G)``: block c's operand B[k, j] = W[d, j, g·H + U·c +
+    u] at k = g·U + u (zero past G·U and for units U·c + u ≥ H), element
+    [d, c, ng, ks, q, l, e] = B[16·ks + 2·(l % 4) + e % 2 + 8·(e // 2),
+    32·ng + 8·q + l // 4]: lane l's four values of n-tile q of n-group ng
+    at k-step ks."""
+    ndir, H, GH = w.shape
+    G, U = GH // H, wide_units(H)
+    C, K = -(-H // U), wide_bwd_k(H, G)
+    wb = torch.nn.functional.pad(
+        w.to(torch.bfloat16).reshape(ndir, H, G, H), (0, C * U - H))
+    wb = wb.reshape(ndir, H, G, C, U).permute(0, 3, 2, 4, 1).reshape(
+        ndir, C, G * U, H)
+    wb = torch.nn.functional.pad(wb, (0, 0, 0, K - G * U))
+    return wb.reshape(ndir, C, K // 16, 2, 4, 2, H // 32, 4, 8).permute(
+        0, 1, 6, 2, 7, 8, 4, 3, 5).reshape(
+        ndir, C, H // 32, K // 16, 4, 32, 4).contiguous()
+
+
+# the resident cluster kernels' units a block and rows a cluster
+# (csrc/rnn_mma.cuh kUnits, kRows); a block runs a thread a (row, unit) pair
 UNITS, ROWS = 32, 16
 
 
@@ -494,8 +572,17 @@ def gru_units(H: int, form: str) -> int:
     """Units a block of the GRU's cluster kernels: the backward takes 16 up
     to H = 256 (C = H / 16 ≤ 16 blocks, the largest cluster), where 16
     blocks of 16 ran in 0.846× the time of 8 blocks of 32 at bigru's width;
-    everything else UNITS (``csrc/rnn_mma.cuh``'s ``gru_bwd_units``)."""
+    the streamed-W form ``wide_units(H)``; everything else UNITS
+    (``csrc/rnn_mma.cuh``'s ``gru_bwd_units``)."""
+    if H > RESIDENT_MAX:
+        return wide_units(H)
     return 16 if form == "bwd" and H <= 256 else UNITS
+
+
+def lstm_units(H: int) -> int:
+    """Units a block of the LSTM's cluster kernels: UNITS, the streamed-W
+    form ``wide_units(H)``."""
+    return wide_units(H) if H > RESIDENT_MAX else UNITS
 
 
 def _tc_smem(form: str, H: int, G: int, U: int = UNITS) -> int:
@@ -506,15 +593,23 @@ def _tc_smem(form: str, H: int, G: int, U: int = UNITS) -> int:
     rows of H) and the partial sums of the product's four k-quarters (4 ×
     G gates × ROWS rows of U + 8 fp32); backward, the W slice (H rows of
     G·U), this block's gate gradients (ROWS rows of G·U) and the double
-    buffer of the partial sums (2 × ROWS × H fp32)."""
+    buffer of the partial sums (2 × ROWS × H fp32). Past ``RESIDENT_MAX``
+    the streamed-W form's: forward, the double buffer of h alone;
+    backward, the gate gradients (ROWS rows of ``wide_bwd_k``) and
+    ``wide_bwd_bufs`` buffers of partial sums (ROWS × C·U fp32)."""
+    if H > RESIDENT_MAX:
+        if form != "bwd":
+            return 2 * ROWS * (2 * H + 16)
+        return (ROWS * (2 * wide_bwd_k(H, G) + 16)
+                + wide_bwd_bufs(H, G) * _wide_part(H))
     if form == "bwd":
         return (H + ROWS) * (2 * G * U + 16) + 2 * ROWS * H * 4
     return (G * U + 2 * ROWS) * (2 * H + 16) + 4 * G * ROWS * (U + 8) * 4
 
 
 def lstm_smem(form: str, H: int) -> int:
-    """``_tc_smem`` of the LSTM (4 gates, UNITS units a block)."""
-    return _tc_smem(form, H, 4)
+    """``_tc_smem`` of the LSTM (4 gates, ``lstm_units``)."""
+    return _tc_smem(form, H, 4, lstm_units(H))
 
 
 def gru_smem(form: str, H: int) -> int:
@@ -525,8 +620,9 @@ def gru_smem(form: str, H: int) -> int:
 def _tc_plan(name: str, H: int, B: int, ndir: int, U: int,
              smem: int) -> RnnPlan:
     if not kernel_takes(H):
-        raise ValueError(f"{name}: hidden size {H} unsupported")
-    return RnnPlan(H // U, ROWS, smem, ndir * -(-B // ROWS))
+        raise ValueError(f"{name}: hidden size {H} unsupported "
+                         f"(32 <= H <= {MAX_HIDDEN}, H % 32 == 0)")
+    return RnnPlan(-(-H // U), ROWS, smem, ndir * -(-B // ROWS))
 
 
 def lstm_plan(H: int, B: int, ndir: int, form: str) -> RnnPlan:
@@ -535,14 +631,17 @@ def lstm_plan(H: int, B: int, ndir: int, form: str) -> RnnPlan:
     blocks a cluster, each owning 32 units (whole n8 tiles) and running a
     thread a (row, unit) pair, so each block reads the fewest bytes of W
     from its shared memory a step; 16 rows (one m16 tile) a cluster;
-    ndir · ⌈B / 16⌉ clusters."""
-    return _tc_plan("lstm_plan", H, B, ndir, UNITS, lstm_smem(form, H))
+    ndir · ⌈B / 16⌉ clusters. Past ``RESIDENT_MAX`` the streamed-W form:
+    C = ⌈H / U⌉ blocks of U = ``wide_units(H)`` units."""
+    return _tc_plan("lstm_plan", H, B, ndir, lstm_units(H),
+                    lstm_smem(form, H))
 
 
 def gru_plan(H: int, B: int, ndir: int, form: str) -> RnnPlan:
     """``lstm_plan`` for the GRU's cluster kernels, three gate columns a
-    unit: C = H / ``gru_units(H, form)`` blocks (32 units a block, but 16
-    in the backward up to H = 256), 16 rows a cluster."""
+    unit: C = ⌈H / ``gru_units(H, form)``⌉ blocks (32 units a block, but
+    16 in the backward up to H = 256, and the streamed-W form's
+    ``wide_units(H)`` past ``RESIDENT_MAX``), 16 rows a cluster."""
     return _tc_plan("gru_plan", H, B, ndir, gru_units(H, form),
                     gru_smem(form, H))
 
@@ -577,6 +676,9 @@ def _lstm_launch_args(w, B: int, compute_dtype, form: str):
             w, compute_dtype)
         return wk, 0
     C = lstm_plan(H, B, ndir, form).cluster
+    if H > RESIDENT_MAX:
+        return (wide_fwd_weights if form == "fwd" else wide_bwd_weights)(
+            w), C
     return (lstm_fwd_tc_weights if form == "fwd" else lstm_bwd_tc_weights)(
         w, C), C
 
@@ -590,6 +692,9 @@ def _gru_launch_args(w, B: int, compute_dtype, form: str):
         wk = w.to(compute_dtype)
         return (wk if form == "fwd" else wk.transpose(1, 2)).contiguous(), 0
     C = gru_plan(H, B, ndir, form).cluster
+    if H > RESIDENT_MAX:
+        return (wide_fwd_weights if form == "fwd" else wide_bwd_weights)(
+            w), C
     return (gru_fwd_tc_weights if form == "fwd" else gru_bwd_tc_weights)(
         w, C), C
 

@@ -13,8 +13,9 @@ data-parallel training, config 5 (phase 25), the online presets end
 to end (phases 26-28: the one-direction training forms, uni_gru training,
 conformer_stream streaming), the flash kernels at every head width the
 reference takes, conformer at dh 128 and 256, and ``glu_conv`` (phases
-29-31), with random weights made from a seed, and fails (exit code != 0,
-no result line) if any phase fails:
+29-31), and the recurrences past H = 512 (phases 32-33), with random
+weights made from a seed, and fails (exit code != 0, no result line) if
+any phase fails:
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
@@ -289,6 +290,28 @@ no result line) if any phase fails:
     default) the error printed; the decode CLI with --beam 8 --lm once,
     every beam launch held to the plain version.
     Phases 29-31's walls are printed against a 60 s budget.
+32. the recurrences past H = 512 (``phase_rnn_widths``; W streamed from
+    global memory a step in bf16, 2 or 4 units a thread in fp32): rows
+    3-8 of both cells at H = 640, 768, 1024 and 2048, ndir 2 and 1, in
+    bf16 at the decode (B = 32, T' = 251), training (B = 24, T' = 256)
+    and stream-window (B = 32, T = 20) shapes and in fp32 at B = 8,
+    T' = 32, against their plain versions: the forward forms at 3e-2 /
+    1e-4, the bf16 backward at phase 26's 5e-2 + 2^-7·max|b| (on the plain
+    forward's residuals and on its own), the stream form at emit_t 0, C/s
+    and T; each call exactly one launch; four planted faults in the
+    streamed operand fragments beyond the bars at every H; both plans;
+    the four bf16 forms in 5 alternating rounds of graph replays beside
+    cuDNN's GRU or LSTM at the same H (the kernel line's ``H``
+    sub-entries);
+33. the wide path through the CLIs at ``model.rnn_hidden=1024``
+    (``phase_rnn_wide_path``): bilstm_deep decode (64 wavs, exact
+    launches, 4 wavs card vs CPU), training in the default data mode (24
+    steps, the step-16 checkpoint resumed to 24 bitwise), one step card
+    vs CPU, evaluate (exact launches) and the stream CLI
+    from a causal-CMVN checkpoint; uni_gru training with resume, one step
+    card vs CPU and its stream CLI, decode CLI and --raw; no layer call
+    on the plain scan (``rnn_cuda.ROUTED``).
+    Phases 32-33's walls are printed against a 60 s budget.
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -458,6 +481,21 @@ NOTES = {"dw": "replaces _dw_einsum, an XLA einsum (not a Pallas call); "
                  "decode shape with the dense 3-gram, launches from the "
                  "decode CLI's --beam 8 --lm run; no PyTorch call computes "
                  "a prefix beam"}
+# the recurrences' "H" sub-entries (phase 32), beside any note above
+WIDE_NOTE = ("H: the kernel at hidden sizes 640, 768, 1024 and 2048 (W "
+             "streamed from global memory at each step), timed in phase 32 "
+             "in bf16 (the residual-free form at B = 32, T' = 251, the "
+             "training pair at B = 24, T' = 256, the window at B = 32, T = "
+             "20, the GRU's forward-only) beside cuDNN at the same H; "
+             "launches from phase 33's CLI runs at H = 1024, 0 at the other "
+             "widths")
+NOTES.update({name: "; ".join(filter(None, [NOTES.get(name), WIDE_NOTE]))
+              for name in ("gru_fwd", "gru_fwd_train", "gru_bwd",
+                           "gru_fwd_stream", "lstm_fwd", "lstm_fwd_train",
+                           "lstm_bwd", "lstm_fwd_stream")})
+NOTES["dw"] += ("; H: on phase 32's wide LSTM training layer (B = 24, T' = "
+                "256) at H = 1024 and 2048, launches from phase 33's "
+                "bilstm_deep run at H = 1024")
 GRAPH_CALLS = 10        # calls in one CUDA graph of phase 18's rounds
 # phase 22: a confusable corpus of short utterances (PARITY.md §1's
 # synthesizer, cut to 48 utterances of 2-4 s), one 512-frame bucket
@@ -704,15 +742,19 @@ def same_bits(a, b) -> bool:
         a.view(view.get(a.dtype, a.dtype)), b.view(view.get(b.dtype, b.dtype)))
 
 
-def rnn_graph_rounds(tag: str, kernels: dict, library: dict) -> dict:
+def rnn_graph_rounds(tag: str, kernels: dict, library: dict,
+                     rounds: int = 9, calls: int = GRAPH_CALLS) -> dict:
     """The recurrence kernels (name → call) and cuDNN's calls (``library_
-    rnn_fns``) in alternating rounds of CUDA-graph replays (device time
-    only), each kernel's replay equal to its eager output bit for bit; the
-    eager (``time_ms``) figures printed beside → {name: [ms a round]},
-    cuDNN's backward as "cuDNN backward" where both its calls are given."""
+    rnn_fns``) in ``rounds`` alternating rounds of CUDA-graph replays of
+    ``calls`` calls (device time only), each kernel's replay equal to its
+    eager output bit for bit; the eager (``time_ms``) figures printed beside
+    → {name: [ms a round]}, cuDNN's backward as "cuDNN backward" where both
+    its calls are given."""
     fns = {**kernels, **{f"cuDNN {n}": f for n, f in library.items()}}
-    graphs = {n: graph_of(fn, mode="relaxed") for n, fn in fns.items()}
-    rounds = alternating_ms({n: g[0] for n, g in graphs.items()})
+    graphs = {n: graph_of(fn, calls=calls, mode="relaxed")
+              for n, fn in fns.items()}
+    rounds = alternating_ms({n: g[0] for n, g in graphs.items()}, rounds,
+                            calls)
     for n, fn in kernels.items():
         check(same_bits(graphs[n][1], fn()),
               f"{tag}: the {n} replay differs from its eager output")
@@ -738,9 +780,14 @@ def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
 
     p = getattr(rnn_cuda, f"{cell}_plan")(H, B, ndir, form)
     smem, n = getattr(rnn_cuda, f"{cell}_occupancy")(H, form)
+    U = (rnn_cuda.gru_units(H, form) if cell == "gru"
+         else rnn_cuda.lstm_units(H))
     print(f"[{tag}] {cell} {form} plan at H={H}, B={B}, ndir={ndir}: "
           f"cluster C = "
-          f"{p.cluster} blocks of {H // p.cluster} units, M = {p.rows} rows,"
+          f"{p.cluster} blocks of {U} units"
+          + (f" (W streamed; the last block {H - U * (p.cluster - 1)})"
+             if H > rnn_cuda.RESIDENT_MAX else "")
+          + f", M = {p.rows} rows,"
           f" {p.smem} bytes of shared memory a block, {p.clusters} "
           f"clusters; "
           f"the card holds {n} at once")
@@ -2052,7 +2099,9 @@ def stream_window_logits(model, cfg, sigs, right: int) -> list:
             for b in range(len(sigs))]
 
 
-def phase_stream(root, vocab, wavs, audio_s, preset: str, dev, rng) -> dict:
+def phase_stream(root, vocab, wavs, audio_s, preset: str, dev, rng,
+                 overrides: dict | None = None,
+                 tag: str | None = None) -> dict:
     """``preset`` served online through the port's stream CLI on the card:
     a random-weight checkpoint with causal CMVN, the 64 wavs in lockstep
     batches of 32 at chunk 64 (``STREAM_ARGS`` sets the lookahead), exact
@@ -2063,7 +2112,9 @@ def phase_stream(root, vocab, wavs, audio_s, preset: str, dev, rng) -> dict:
     same function), prints how many transcripts agree and their CER, and
     streams one wav as int16 PCM through --raw (batch 1: R = 1).
     bilstm_deep compares its chained window logits card vs CPU on 4 wavs.
-    → the cold stream run's launches."""
+    ``overrides`` (dotted config keys) widen the checkpoint (phase 33);
+    ``tag`` then names its logs and checkpoint. → the cold stream run's
+    launches."""
     import wave
 
     import torch
@@ -2078,11 +2129,12 @@ def phase_stream(root, vocab, wavs, audio_s, preset: str, dev, rng) -> dict:
     from chainer_speech_recognition_tpu_torch.utils.wav import read_wav
 
     uni = preset == UNI_PRESET
-    tag = "uni-stream" if uni else "lstm-stream"
+    tag = tag or ("uni-stream" if uni else "lstm-stream")
     right = 0 if uni else 16
     ckpt = write_checkpoint(root, preset, rng,
                             {"features.cmvn_mode": "causal",
-                             "features.cmvn": True})
+                             "features.cmvn": True, **(overrides or {})},
+                            name=tag if overrides else None)
     cell = "gru" if uni else "lstm"
     T, emit, layers, ndir = stream_shapes(preset, right)
     # exact launches: windows of a lockstep batch = ceil(longest stream's
@@ -2130,8 +2182,9 @@ def phase_stream(root, vocab, wavs, audio_s, preset: str, dev, rng) -> dict:
     got = stream_window_logits(model, cfg, sigs, right)
     if uni:
         # offline decode of the same checkpoint: the ndir = 1 gru_fwd
-        _, off_lines = phase_decode("uni-decode", ckpt, vocab, wavs, audio_s,
-                                    DECODE_LAUNCHES[UNI_PRESET])
+        _, off_lines = phase_decode(
+            f"{tag}-decode" if overrides else "uni-decode", ckpt, vocab,
+            wavs, audio_s, DECODE_LAUNCHES[UNI_PRESET])
         cer = CERAccumulator()
         cer.add_batch([l.split("\t")[1] for l in lines],
                       [l.split("\t")[1] for l in off_lines])
@@ -3477,6 +3530,424 @@ def phase_glu(root, vocab, wavs, audio_s, data, index, dev, rng) -> None:
           f"to the plain version (max score diff {max(diffs):.3e})")
     print(f"[glu] train: warm step {step_s * 1e3:.3f} ms, busy {busy:.4f}, "
           f"launches {tr['ctc_fwd']} ctc_fwd, {tr['ctc_bwd']} ctc_bwd")
+
+
+# ---------------------------------------------------------------------------
+# phases 32-33: the recurrences past H = 512 (W streamed)
+# ---------------------------------------------------------------------------
+
+WIDE_H = (640, 768, 1024, 2048)   # phase 32's hidden sizes
+WIDE_ROUNDS, WIDE_CALLS = 5, 3    # phase 32's alternating rounds, calls a graph
+WIDE_FP32 = (8, 32)               # (B, T') of the fp32 checks: the FMA
+                                  # kernels read all of W a row a step
+WIDE_PATH_H = 1024                # phase 33's model.rnn_hidden
+WIDE_DW_H = (1024, 2048)          # dW checked on phase 32's wide LSTM
+WIDE_BUDGET_S = 60.0              # phases 32-33 together
+# the kernels phase 32 holds, by cell: (residual-free, training, backward,
+# stream), the kernel line's names
+WIDE_KERNELS = {cell: (f"{cell}_fwd", f"{cell}_fwd_train", f"{cell}_bwd",
+                       f"{cell}_fwd_stream") for cell in ("gru", "lstm")}
+
+
+def wide_faults(rc) -> dict:
+    """Phase 32's planted faults, each a wrong layout of the streamed-W
+    operand fragments as a kernel bug would read them: ``ks-ring`` the B
+    fragments one k-step late (an off-by-one in the prefetch ring), and
+    ``neighbour`` a unit block's (forward) or an n-group's (backward)
+    fragments swapped with the next one's (a wrong warp-to-units map).
+    → {name: (form, the faulty layout function)}."""
+    import torch
+
+    fwd, bwd = rc.wide_fwd_weights, rc.wide_bwd_weights
+
+    def swap(t, dim):
+        idx = list(range(t.shape[dim]))
+        idx[0], idx[1] = 1, 0
+        return t.index_select(dim, torch.tensor(idx, device=t.device))
+
+    return {"fwd ks-ring": ("fwd", lambda w: fwd(w).roll(1, dims=2)),
+            "fwd neighbour": ("fwd", lambda w: swap(fwd(w), 1)),
+            "bwd ks-ring": ("bwd", lambda w: bwd(w).roll(1, dims=3)),
+            "bwd neighbour": ("bwd", lambda w: swap(bwd(w), 2))}
+
+
+def wide_rows(lens_f, T: int, ndir: int, dev):
+    """(lo, hi) [ndir·B, 1] of a layer: the bidirectional rows of
+    ``rnn_rows``, or the forward rows alone."""
+    import torch
+
+    if ndir == 2:
+        return rnn_rows(lens_f, T, dev)
+    return (torch.zeros(len(lens_f), 1, device=dev),
+            lens_f[:, None].to(dev))
+
+
+def wide_case(rc, dev, rng, cell: str, H: int, ndir: int, cdt, shapes: dict,
+              counts: dict) -> dict:
+    """Rows 3-8 of ``cell`` at hidden size H, direction count ``ndir`` and
+    compute dtype ``cdt`` against their plain versions: the residual-free
+    form at shapes["decode"], the training forward and the backward (on
+    the plain forward's residuals and on the kernel's own) at
+    shapes["train"], the stream form at shapes["stream"] (emit_t 0, C/s
+    and T, h0 nonzero on the forward rows); each shape (B, T', lengths).
+    Each kernel call must launch its kernel exactly once (``counts`` adds
+    them up). → {kernel name: (max abs error, share of its bar), ...} and
+    the inputs under "inputs"."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+
+    G = 3 if cell == "gru" else 4
+    bf16 = cdt == torch.bfloat16
+    tol = TOL["gru_bf16" if bf16 else "gru_fp32"]
+    names = WIDE_KERNELS[cell]
+    f32 = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(dev)
+    w = f32(ndir, H, G * H) / np.sqrt(H)
+    out, inputs = {}, {"w": w}
+
+    def once(name, fn):
+        before = _kernels.KERNELS[name].launches
+        res = fn()
+        check(_kernels.KERNELS[name].launches == before + 1,
+              f"{name} H={H}: not one launch a call")
+        counts[name] = counts.get(name, 0) + 1
+        return res
+
+    def held(name, got, want, gbar: bool = False):
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t.float()).all()) for t in got),
+              f"{name} H={H} ndir={ndir}: non-finite")
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        if gbar and bf16:       # phase 26's bar: + 2^-7 of max |b|
+            ex = max(excess(a, b, 2 ** -7, TOL["gru_grad_bf16"],
+                            scale=b.float().abs().max())
+                     for a, b in zip(got, want))
+        else:
+            bar = TOL["gru_grad_bf16"] if gbar and bf16 else tol
+            ex = err / bar
+        prev = out.get(name, (0.0, 0.0))
+        out[name] = (max(prev[0], err), max(prev[1], ex))
+
+    B, T, lens = shapes["decode"]
+    lo, hi = wide_rows(lens.to(torch.float32), T, ndir, dev)
+    xs = f32(T, ndir * B, G * H).to(rc.stream_dtype(cdt))
+    held(names[0], once(names[0], lambda: getattr(rc, f"{cell}_scan_cuda")(
+        xs, w, lo, hi, cdt)), getattr(rc, f"{cell}_scan_plain")(
+        xs, w, lo, hi, cdt))
+    inputs["decode"] = (xs, lo, hi)
+
+    B, T, lens = shapes["train"]
+    lo, hi = wide_rows(lens.to(torch.float32), T, ndir, dev)
+    xs = f32(T, ndir * B, G * H).to(rc.stream_dtype(cdt))
+    g = f32(T, ndir * B, H)
+    fwd = getattr(rc, f"{cell}_scan_train_cuda")
+    res = once(names[1], lambda: fwd(xs, w, lo, hi, cdt))
+    res_p = getattr(rc, f"{cell}_scan_train_plain")(xs, w, lo, hi, cdt)
+    held(names[1], res, res_p)
+    bwd, bwd_p = getattr(rc, f"{cell}_bwd_cuda"), getattr(
+        rc, f"{cell}_bwd_plain")
+    if cell == "gru":     # the kernel reads h_prev from ys in place
+        args_p = (res_p[1], w, lo, hi, res_p[0], g, cdt)
+        own = (res[1], w, lo, hi, res[0], g, cdt)
+        want = bwd_p(res_p[1], w, lo, hi, rc.shift_prev(res_p[0]), g, cdt)
+    else:
+        args_p = (res_p[2], w, lo, hi, res_p[1], g, cdt)
+        own = (res[2], w, lo, hi, res[1], g, cdt)
+        want = bwd_p(*args_p)
+    for a in (args_p, own):
+        held(names[2], once(names[2], lambda a=a: bwd(*a)), want, gbar=True)
+    inputs["train"] = (xs, lo, hi, g, res_p, args_p, want)
+
+    B, T, emit = shapes["stream"]
+    lens = torch.full((B,), float(T))
+    if B > 2:
+        lens[1], lens[2] = emit // 2, 0
+    lo, hi = wide_rows(lens, T, ndir, dev)
+    xs = f32(T, ndir * B, G * H).to(rc.stream_dtype(cdt))
+    Cw = H if cell == "gru" else 2 * H
+    h0 = torch.zeros(ndir * B, Cw, device=dev)
+    h0[:B] = 0.5 * f32(B, Cw)
+    kernel = getattr(rc, f"{cell}_scan_stream_cuda")
+    plain = getattr(rc, f"{cell}_scan_stream_plain")
+    for e in (0, emit, T):
+        held(names[3], once(names[3], lambda e=e: kernel(
+            xs, w, lo, hi, h0, cdt, e)), plain(xs, w, lo, hi, h0, cdt, e))
+    inputs["stream"] = (xs, lo, hi, h0, emit, lens)
+    out["inputs"] = inputs
+    return out
+
+
+def phase_rnn_widths(dev, rng) -> dict:
+    """Phase 32: rows 3-8 past H = 512, W streamed. At each H in ``WIDE_H``
+    and for both cells: every form (residual-free, training forward,
+    backward on the plain forward's residuals and on its own, stream at
+    emit_t 0, C/s and T) against its plain version, ndir 2 and 1, in bf16
+    at the decode (B = 32, T' = 251), training (B = 24, T' = 256) and
+    stream-window (B = 32, T = 20) shapes and in fp32 at B = 8, T' = 32
+    (the FMA kernels read all of W a row a step); bars: the forward forms
+    3e-2 (bf16) and 1e-4 (fp32), the bf16 backward phase 26's 5e-2 +
+    2^-7·max|b|, the fp32 backward 1e-4; each call one launch, exactly;
+    the planted faults (``wide_faults``) beyond the bars in bf16 at every
+    H; both plans of each cell printed; the four bf16 forms timed in
+    ``WIDE_ROUNDS`` alternating rounds of graph replays beside cuDNN's
+    GRU or LSTM at the same H and shape (bidirectional, the GRU's window
+    forward-only as uni_gru's) → {kernel name: {H: the kernel line's
+    timings}}."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.ops import rnn_cuda as rc
+
+    t_phase = time.perf_counter()
+    cases = lstm_cases(rng)
+    dec, tr = cases[0], cases[1]
+    wT, w_emit, _, _ = stream_shapes(LSTM_PRESET, 16)
+    bf_shapes = {"decode": (dec[1], dec[2], dec[3]),
+                 "train": (tr[1], tr[2], tr[3]),
+                 "stream": (CHECK_B, wT, w_emit)}
+    fB, fT = WIDE_FP32
+    f_lens = torch.from_numpy(rng.integers(fT // 2, fT + 1, fB))
+    f_lens[0] = fT
+    fp_shapes = {"decode": (fB, fT, f_lens), "train": (fB, fT, f_lens),
+                 "stream": (fB, fT // 2, fT // 4)}
+    out = {n: {} for names in WIDE_KERNELS.values() for n in names}
+    out["dw"] = {}
+    counts: dict = {}
+    faults = wide_faults(rc)
+    for H in WIDE_H:
+        for cell in ("gru", "lstm"):
+            G = 3 if cell == "gru" else 4
+            names = WIDE_KERNELS[cell]
+            errs = {}
+            for ndir in (2, 1):
+                for dtag, cdt, shapes in (
+                        ("bf16", torch.bfloat16, bf_shapes),
+                        ("fp32", torch.float32, fp_shapes)):
+                    r = wide_case(rc, dev, rng, cell, H, ndir, cdt, shapes,
+                                  counts)
+                    inputs = r.pop("inputs")
+                    print(f"[rnn-widths] {cell} H={H} ndir={ndir} {dtag}: "
+                          + ", ".join(f"{n} max abs {e:.3e} ({x:.3f} of the "
+                                      f"bar)" for n, (e, x) in r.items()))
+                    for n, (e, x) in r.items():
+                        check(x <= 1, f"{n} H={H} ndir={ndir} {dtag}: "
+                              f"{x:.3f} of its bar")
+                        if dtag == "bf16":
+                            errs[n] = max(errs.get(n, 0.0), e)
+                    if dtag == "bf16" and ndir == 2:
+                        kept = inputs
+            # planted faults, bf16, ndir 2, at the training shape
+            xs, lo, hi, g, res_p, args_p, want = kept["train"]
+            w = kept["w"]
+            fres = []
+            for fname, (form, layout) in faults.items():
+                attr = f"wide_{form}_weights"
+                orig = getattr(rc, attr)
+                setattr(rc, attr, layout)
+                try:
+                    if form == "fwd":
+                        got = getattr(rc, f"{cell}_scan_train_cuda")(
+                            xs, w, lo, hi, torch.bfloat16)
+                        ex = max(excess(a, b, 0.0, TOL["gru_bf16"])
+                                 for a, b in zip(got, res_p))
+                    else:
+                        got = getattr(rc, f"{cell}_bwd_cuda")(*args_p)
+                        got = got if cell == "gru" else (got,)
+                        wl = want if cell == "gru" else (want,)
+                        ex = max(excess(a, b, 2 ** -7, TOL["gru_grad_bf16"],
+                                        scale=b.float().abs().max())
+                                 for a, b in zip(got, wl))
+                    torch.cuda.synchronize()
+                finally:
+                    setattr(rc, attr, orig)
+                fres.append(f"{fname} {ex:.2f}x")
+                check(ex > 1, f"{cell} H={H}: the planted fault {fname} "
+                      f"stays within the bar ({ex:.3f})")
+            print(f"[rnn-widths] {cell} H={H} planted faults (bf16, ndir 2, "
+                  f"training shape), share of the bar: " + ", ".join(fres))
+            for form in ("fwd", "bwd"):
+                print_rnn_plan(cell, "rnn-widths", H, tr[1], 2, form)
+            if cell == "lstm" and H in WIDE_DW_H:
+                # dW (not a new kernel) on the wide layer's own ys and dxs
+                ys_k, cs_k, gates_k = rc.lstm_scan_train_cuda(
+                    xs, w, lo, hi, torch.bfloat16)
+                dxs_k = rc.lstm_bwd_cuda(gates_k, w, lo, hi, cs_k, g,
+                                         torch.bfloat16)
+                out["dw"][str(H)] = dw_check(f"rnn-widths dw H={H}", dev,
+                                             ys_k, (dxs_k,), tr[1])
+                del ys_k, cs_k, gates_k, dxs_k
+            # timing, bf16: the residual-free form at the decode shape,
+            # the training pair at the training shape, the window; beside
+            # cuDNN at the same shapes (the GRU's window forward-only)
+            cdt = torch.bfloat16
+            dxs, dlo, dhi = kept["decode"]
+            txs, tlo, thi = kept["train"][:3]
+            sxs, slo, shi, sh0, s_emit, s_lens = kept["stream"]
+            lib = library_rnn_fns(cell, dev, dec[2], dec[1], H, dec[3], cdt)
+            libt = library_rnn_fns(cell, dev, tr[2], tr[1], H, tr[3], cdt)
+            # the stream window: the GRU's forward-only, as uni_gru's
+            s_ndir = 1 if cell == "gru" else 2
+            if s_ndir == 1:
+                sxs = sxs[:, :CHECK_B].contiguous()
+                slo, shi, sh0 = slo[:CHECK_B], shi[:CHECK_B], sh0[:CHECK_B]
+                sw = kept["w"][:1].contiguous()
+            else:
+                sw = kept["w"]
+            libs = library_stream(cell, dev, wT, CHECK_B, H, s_ndir,
+                                  s_lens.long(), sh0, cdt)
+            kfns = {
+                names[0]: lambda: getattr(rc, f"{cell}_scan_cuda")(
+                    dxs, w, dlo, dhi, cdt),
+                names[1]: lambda: getattr(rc, f"{cell}_scan_train_cuda")(
+                    txs, w, tlo, thi, cdt),
+                names[2]: lambda: getattr(rc, f"{cell}_bwd_cuda")(*args_p),
+                names[3]: lambda: getattr(rc, f"{cell}_scan_stream_cuda")(
+                    sxs, sw, slo, shi, sh0, cdt, s_emit)}
+            rounds = rnn_graph_rounds(
+                f"rnn-widths {cell} H={H}", kfns,
+                {"forward": lib["forward"],
+                 "training forward": libt["training forward"],
+                 "forward+backward": libt["forward+backward"],
+                 "window (hx = h0)": libs},
+                rounds=WIDE_ROUNDS, calls=WIDE_CALLS)
+            med = {n: statistics.median(r) for n, r in rounds.items()}
+            pfns = {
+                names[0]: lambda: getattr(rc, f"{cell}_scan_plain")(
+                    dxs, w, dlo, dhi, cdt),
+                names[1]: lambda: getattr(rc, f"{cell}_scan_train_plain")(
+                    txs, w, tlo, thi, cdt),
+                names[2]: (lambda: rc.gru_bwd_plain(
+                    args_p[0], w, tlo, thi, rc.shift_prev(args_p[4]),
+                    args_p[5], cdt)) if cell == "gru" else (
+                    lambda: rc.lstm_bwd_plain(*args_p)),
+                names[3]: lambda: getattr(rc, f"{cell}_scan_stream_plain")(
+                    sxs, sw, slo, shi, sh0, cdt, s_emit)}
+            esz = 2
+            w_bytes = lambda nd: nd * H * G * H * esz
+            live_d = 2 * int(dec[3].sum())
+            live_t = 2 * int(tr[3].sum())
+            live_s = int((shi - slo).sum())
+            n_res = 4 * H * esz + (4 * H if cell == "lstm" else 0)
+            bounds = {
+                names[0]: bound(live_d * (G * H * esz + 4 * H) + w_bytes(2),
+                                2 * live_d * H * G * H, "bf16"),
+                names[1]: bound(live_t * (G * H * esz + 4 * H + n_res)
+                                + w_bytes(2), 2 * live_t * H * G * H,
+                                "bf16"),
+                names[2]: bound(live_t * (n_res + (0 if cell == "lstm"
+                                                   else 4 * H) + 4 * H
+                                          + G * H * esz
+                                          + (H * esz if cell == "gru"
+                                             else 0)) + w_bytes(2),
+                                2 * live_t * G * H * H, "bf16"),
+                names[3]: bound(live_s * (G * H * esz + 4 * H)
+                                + w_bytes(s_ndir), 2 * live_s * H * G * H,
+                                "bf16")}
+            libms = {names[0]: med["cuDNN forward"],
+                     names[1]: med["cuDNN training forward"],
+                     names[2]: med["cuDNN backward"],
+                     names[3]: med["cuDNN window (hx = h0)"]}
+            for n in names:
+                t = dict(max_abs_err=errs[n], ms=med[n],
+                         plain_ms=time_ms(pfns[n], warmup=0, reps=1),
+                         library_ms=libms[n], **bounds[n])
+                out[n][str(H)] = t
+                print(f"[rnn-widths] {n} H={H} bf16: {t['ms']:.4f} ms "
+                      f"(graph), plain {t['plain_ms']:.3f} ms, cuDNN "
+                      f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.5f} "
+                      f"ms ({t['bound_by']}), share "
+                      f"{t['bound_ms'] / t['ms']:.4f}, cuDNN / kernel "
+                      f"{t['library_ms'] / t['ms']:.3f}")
+    print(f"[rnn-widths] every checked call launched its kernel exactly "
+          f"once: {counts}; phase 32 took "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    return out
+
+
+def phase_rnn_wide_path(root, vocab, wavs, audio_s, data, index, dev,
+                        rng) -> dict:
+    """Phase 33: the wide recurrences through the CLIs at
+    ``model.rnn_hidden`` = ``WIDE_PATH_H`` (W streamed), ``auto`` routing:
+    bilstm_deep (five BiLSTM layers of 1024) through the decode CLI on the
+    64 wavs with exact launches and 4 wavs' logits card vs CPU; through
+    the train CLI in the default data mode (``phase_cached_preset``: 24
+    steps, K = 8 a CUDA-graph replay, exact launches, the step-16
+    checkpoint resumed to 24 bitwise), one step card vs CPU; the evaluate
+    CLI on that run's checkpoint (exact launches); the stream CLI from a
+    causal-CMVN checkpoint
+    (``phase_stream``: exact launches, window logits card vs CPU); then
+    uni_gru (four forward-only GRU layers of 1024): its training in the
+    default data mode with resume, one step card vs CPU, and its stream
+    CLI, decode CLI and --raw (``phase_stream``). No layer call takes the
+    plain scan (``rnn_cuda.ROUTED["scan"]`` unchanged). → {kernel name:
+    its launches on this path}."""
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch.cli import evaluate
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
+
+    t_phase = time.perf_counter()
+    routed = dict(rnn_cuda.ROUTED)
+    over = {"model.rnn_hidden": WIDE_PATH_H}
+    sets = (f"model.rnn_hidden={WIDE_PATH_H}",)
+    check(rnn_cuda.kernel_takes(WIDE_PATH_H)
+          and WIDE_PATH_H > rnn_cuda.RESIDENT_MAX,
+          "phase 33's width is not one of the streamed-W form's")
+    out = {}
+    ckpt = write_checkpoint(root, LSTM_PRESET, rng, over, name="lstm_wide")
+    dec, _ = phase_decode("wide-lstm-decode", ckpt, vocab, wavs, audio_s,
+                          DECODE_LAUNCHES[LSTM_PRESET])
+    out["lstm_fwd"] = dec["lstm_fwd"]
+    phase_parity(ckpt, wavs, dev, "wide-lstm-parity")
+    step_s, busy, tr = phase_cached_preset(root, data, LSTM_PRESET, sets,
+                                           name="lstm_wide")
+    out.update({k: tr[k] for k in ("lstm_fwd_train", "lstm_bwd", "dw")})
+    phase_train_parity(dev, index, LSTM_PRESET, over,
+                       tag="wide-lstm-train-parity")
+    # evaluate: the trained run's last checkpoint on the dev set, card and
+    # CPU
+    run_ckpt = os.path.join(root, "cache_ckpt_lstm_wide_run")
+    layers = preset_config(LSTM_PRESET).model.rnn_layers
+    n_batches = -(-DEV_UTTS // TRAIN_B)
+    _kernels.reset_launches()
+    lines, _, wall = run_cli(evaluate.main, [
+        "--ckpt-dir", run_ckpt, "--data-dir", data, "--index",
+        "dev_index.jsonl"])
+    got = _kernels.launches()
+    res = _result_line(lines)[""]
+    want = {k: 0 for k in _kernels.KERNELS}
+    want.update({"frontend_logmel": n_batches, "ctc_fwd": n_batches,
+                 "greedy": n_batches, "lstm_fwd": layers * n_batches})
+    check_launches("wide-lstm-evaluate", got, want)
+    check(res[2] == DEV_UTTS and np.isfinite(res[1]),
+          f"wide evaluate: {lines}")
+    print(f"[wide-lstm-evaluate] {lines[-1]} ({wall:.3f} s, launches "
+          f"exact)")
+    st = phase_stream(root, vocab, wavs, audio_s, LSTM_PRESET, dev, rng,
+                      over, tag="wide-lstm-stream")
+    out["lstm_fwd_stream"] = st["lstm_fwd_stream"]
+    ustep, ubusy, utr = phase_cached_preset(root, data, UNI_PRESET, sets,
+                                            name="uni_wide")
+    out.update({k: utr[k] for k in ("gru_fwd", "gru_fwd_train", "gru_bwd")})
+    phase_train_parity(dev, index, UNI_PRESET, over,
+                       tag="wide-uni-train-parity")
+    ust = phase_stream(root, vocab, wavs, audio_s, UNI_PRESET, dev, rng,
+                       over, tag="wide-uni-stream")
+    out["gru_fwd_stream"] = ust["gru_fwd_stream"]
+    calls = {k: rnn_cuda.ROUTED[k] - routed[k] for k in routed}
+    print(f"[wide-path] H = {WIDE_PATH_H}: bilstm_deep warm step "
+          f"{step_s * 1e3:.3f} ms (busy {busy:.4f}), uni_gru "
+          f"{ustep * 1e3:.3f} ms (busy {ubusy:.4f}); layer calls by path "
+          f"{calls}; launches on the path {out}; phase 33 took "
+          f"{time.perf_counter() - t_phase:.3f} s")
+    check(calls["scan"] == 0 and calls["kernel"] > 0,
+          f"phase 33: a layer call took the plain scan ({calls})")
+    check(all(n > 0 for n in out.values()), f"phase 33: a wide kernel not "
+          f"launched on the path: {out}")
+    return out
 
 
 def _result_line(lines: list[str], prefix: str = "") -> dict:
@@ -4949,6 +5420,15 @@ def main() -> int:
             t_new = time.perf_counter()
             phase_glu(root, vocab, wavs, audio_s, data, index, dev, wrng)
             width_walls[31] = time.perf_counter() - t_new
+            # phases 32-33 draw from a stream of their own
+            hrng = np.random.default_rng(SEED + 9)
+            t_new = time.perf_counter()
+            rnn_width_t = phase_rnn_widths(dev, hrng)
+            wide_walls = {32: time.perf_counter() - t_new}
+            t_new = time.perf_counter()
+            wide_launches = phase_rnn_wide_path(root, vocab, wavs, audio_s,
+                                                data, index, dev, hrng)
+            wide_walls[33] = time.perf_counter() - t_new
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]
@@ -4986,6 +5466,14 @@ def main() -> int:
         for dh in (128, 256):
             check(all(width_launches[dh][n] > 0 for n in FLASH),
                   f"dh {dh}: a flash kernel not launched on the main path")
+        # the hidden sizes past 512: sub-entries of the recurrence kernels,
+        # timed in phase 32; launches from phase 33's runs at WIDE_PATH_H,
+        # none at the widths no run reaches
+        for name in [*WIDE_KERNELS["gru"], *WIDE_KERNELS["lstm"], "dw"]:
+            timings[name]["H"] = {
+                h: {"launches": wide_launches[name]
+                    if int(h) == WIDE_PATH_H else 0, **r}
+                for h, r in rnn_width_t[name].items()}
         loaded = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "optax",
@@ -5005,6 +5493,12 @@ def main() -> int:
         + f", together {sum(width_walls.values()):.3f} s (budget "
         f"{WIDTHS_BUDGET_S} s: "
         + ("within" if sum(width_walls.values()) <= WIDTHS_BUDGET_S
+           else "OVER") + ")")
+    print(f"[chip_smoke] the recurrences past H = 512: " + ", ".join(
+        f"{k} {wide_walls[k]:.3f} s" for k in sorted(wide_walls))
+        + f", together {sum(wide_walls.values()):.3f} s (budget "
+        f"{WIDE_BUDGET_S} s: "
+        + ("within" if sum(wide_walls.values()) <= WIDE_BUDGET_S
            else "OVER") + ")")
     print(f"[chip_smoke] the whole run took {time.perf_counter() - t_run:.3f}"
           " s (the kernels' build included)")

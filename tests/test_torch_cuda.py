@@ -854,15 +854,138 @@ def test_dw_plan_tiles_k_by_whole_wgmma_steps(dev):
     assert uni.tiles == 6 and uni[:3] == (24, 2, 128) and uni.split == 8
 
 
+# the streamed-W form (H > 512): (cell, T, B, H, ndir) — clusters of
+# ⌈H / U⌉ blocks with a short last block (544, 1056), one partial-sum
+# buffer (1792, 2048), B around the 16-row group
+WIDE_CASES = [("gru", 9, 3, 544, 2), ("gru", 7, 17, 768, 1),
+              ("gru", 5, 16, 2048, 2), ("gru", 40, 5, 1056, 2),
+              ("lstm", 9, 3, 640, 2), ("lstm", 7, 17, 1024, 1),
+              ("lstm", 5, 16, 2048, 2), ("lstm", 33, 2, 1536, 1),
+              ("lstm", 6, 33, 1792, 2)]
+
+
+def _wide_inputs(dev, cell, T, B, H, ndir, dtype, seed):
+    """Ragged lengths (the first T, the second 0 where B > 1), W, xs in
+    the stream dtype, g, and h0 nonzero on the forward rows."""
+    import chainer_speech_recognition_tpu_torch.ops.rnn_cuda as rc
+
+    G = 3 if cell == "gru" else 4
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, T + 1, B).astype(np.float32)
+    lens[0] = T
+    if B > 1:
+        lens[1] = 0
+    lo, hi = np.zeros(B, np.float32), lens
+    if ndir == 2:
+        lo, hi = np.concatenate([lo, T - lens]), np.concatenate(
+            [hi, np.full(B, T, np.float32)])
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    w = f(rng.standard_normal((ndir, H, G * H)) / np.sqrt(H))
+    xs = f(rng.standard_normal((T, ndir * B, G * H))).to(
+        rc.stream_dtype(dtype))
+    g = f(rng.standard_normal((T, ndir * B, H)))
+    Cw = H if cell == "gru" else 2 * H
+    h0 = torch.zeros(ndir * B, Cw, device=dev)
+    h0[:B] = f(0.5 * rng.standard_normal((B, Cw)))
+    return xs, w, f(lo)[:, None], f(hi)[:, None], g, h0
+
+
+def _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, emit, plain):
+    """Every form of ``cell`` (the kernels' wrappers, or ``plain``): ys
+    of the residual-free form, the training form's outputs, the backward
+    on the plain training forward's residuals, the stream form's (ys,
+    carry) at ``emit``."""
+    sfx = "_plain" if plain else "_cuda"
+    train_p = getattr(rc, f"{cell}_scan_train_plain")(xs, w, lo, hi, dtype)
+    if cell == "gru":
+        bwd = (rc.gru_bwd_plain(train_p[1], w, lo, hi,
+                                rc.shift_prev(train_p[0]), g, dtype)
+               if plain else rc.gru_bwd_cuda(train_p[1], w, lo, hi,
+                                             train_p[0], g, dtype))
+    else:
+        bwd = (getattr(rc, f"lstm_bwd{sfx}")(train_p[2], w, lo, hi,
+                                             train_p[1], g, dtype),)
+    return {"fwd": (getattr(rc, f"{cell}_scan{sfx}")(xs, w, lo, hi, dtype),),
+            "train": getattr(rc, f"{cell}_scan_train{sfx}")(xs, w, lo, hi,
+                                                           dtype),
+            "bwd": bwd,
+            "stream": getattr(rc, f"{cell}_scan_stream{sfx}")(
+                xs, w, lo, hi, h0, dtype, emit)}
+
+
+@pytest.mark.parametrize("cell,T,B,H,ndir", WIDE_CASES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_wide_kernels_match_plain(dev, cell, T, B, H, ndir, dtype, tol):
+    """Past H = 512 (W streamed in bf16, several units a thread in fp32)
+    every form against its plain version: the residual-free and training
+    forwards, the backward, the stream form at emit_t T // 2; one launch a
+    call. Bars: 1e-4 fp32; bf16 3e-2 forward, and 5e-2 + 2⁻⁷ of the
+    gradient's largest |value| backward (test_forward_only_train_kernels_
+    match_plain's). A length-0 row keeps h = 0 and gets no gradient."""
+    import chainer_speech_recognition_tpu_torch.ops.rnn_cuda as rc
+
+    xs, w, lo, hi, g, h0 = _wide_inputs(dev, cell, T, B, H, ndir, dtype,
+                                        T * 10000 + H + B + ndir)
+    names = (f"{cell}_fwd", f"{cell}_fwd_train", f"{cell}_bwd",
+             f"{cell}_fwd_stream")
+    before = [_kernels.KERNELS[n].launches for n in names]
+    got = _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, T // 2, False)
+    assert [_kernels.KERNELS[n].launches - b
+            for n, b in zip(names, before)] == [1, 1, 1, 1]
+    want = _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, T // 2, True)
+    for form in got:
+        for a, b in zip(got[form], want[form]):
+            d = float((a.float() - b.float()).abs().max())
+            bar = tol
+            if form == "bwd" and dtype == torch.bfloat16:
+                bar = 5e-2 + 2 ** -7 * float(b.float().abs().max())
+            assert d <= bar, (form, d, bar)
+    assert torch.equal(got["train"][0], got["fwd"][0])
+    if B > 1:
+        assert torch.all(got["fwd"][0][:, 1] == 0)
+        assert torch.all(got["bwd"][0][:, 1] == 0)
+
+
+@pytest.mark.parametrize("cell,H", [("gru", 768), ("lstm", 1024),
+                                    ("lstm", 2048)])
+def test_wide_planted_faults_exceed_the_bars(dev, cell, H, monkeypatch):
+    """The bf16 bars catch what a streamed-W bug would do: the B fragments
+    one k-step late, and a unit block's (forward) or an n-group's
+    (backward) fragments swapped with the next one's."""
+    import chainer_speech_recognition_tpu_torch.ops.rnn_cuda as rc
+
+    dtype = torch.bfloat16
+    xs, w, lo, hi, g, h0 = _wide_inputs(dev, cell, 12, 5, H, 2, dtype, H)
+    want = _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, 6, True)
+    fwd, bwd = rc.wide_fwd_weights, rc.wide_bwd_weights
+    swap = lambda t, d: t.index_select(d, torch.tensor(
+        [1, 0] + list(range(2, t.shape[d])), device=t.device))
+    faults = [("wide_fwd_weights", lambda x: fwd(x).roll(1, dims=2), "train"),
+              ("wide_fwd_weights", lambda x: swap(fwd(x), 1), "train"),
+              ("wide_bwd_weights", lambda x: bwd(x).roll(1, dims=3), "bwd"),
+              ("wide_bwd_weights", lambda x: swap(bwd(x), 2), "bwd")]
+    for attr, layout, form in faults:
+        with monkeypatch.context() as m:
+            m.setattr(rc, attr, layout)
+            got = _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, 6,
+                              False)[form]
+        worst = max(float((a.float() - b.float()).abs().max())
+                    - (5e-2 + 2 ** -7 * float(b.float().abs().max())
+                       if form == "bwd" else 3e-2)
+                    for a, b in zip(got, want[form]))
+        assert worst > 0, (attr, form)
+
+
 def test_kernels_refuse_what_they_do_not_take(dev):
     xs = torch.zeros(3, 4, 3 * 48, device=dev)
     w = torch.zeros(2, 48, 3 * 48, device=dev)
     lo = torch.zeros(4, 1, device=dev)
     with pytest.raises(ValueError, match="hidden size"):
         gru_scan_cuda(xs, w, lo, lo, torch.float32)
-    with pytest.raises(ValueError, match="hidden size"):       # > 512
-        gru_scan_cuda(torch.zeros(3, 4, 3 * 544, device=dev),
-                      torch.zeros(2, 544, 3 * 544, device=dev), lo, lo,
+    with pytest.raises(ValueError, match="hidden size"):       # > 2048
+        gru_scan_cuda(torch.zeros(3, 4, 3 * 2080, device=dev),
+                      torch.zeros(2, 2080, 3 * 2080, device=dev), lo, lo,
                       torch.float32)
     with pytest.raises(ValueError, match="expected torch.bfloat16"):
         gru_scan_cuda(torch.zeros(3, 4, 96, device=dev),

@@ -18,10 +18,11 @@ import torch
 from chainer_speech_recognition_tpu_torch import _kernels
 from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
-    ROWS, UNITS, gru_bwd_tc_weights, gru_fwd_tc_weights, gru_plan, gru_smem,
-    gru_units, kernel_takes, lstm_plan, lstm_smem)
+    RESIDENT_MAX, ROWS, UNITS, gru_bwd_tc_weights, gru_fwd_tc_weights,
+    gru_plan, gru_smem, gru_units, kernel_takes, lstm_plan, lstm_smem,
+    wide_units)
 
-HIDDEN = [H for H in range(1, 1025) if kernel_takes(H)]
+HIDDEN = [H for H in range(1, 4097) if kernel_takes(H)]
 SMEM_LIMIT = 232448     # shared memory a block may use on an H100 (227 KB)
 
 
@@ -29,16 +30,23 @@ SMEM_LIMIT = 232448     # shared memory a block may use on an H100 (227 KB)
 @pytest.mark.parametrize("H", HIDDEN)
 def test_plan_fits_every_hidden_size(H, form):
     """For every H the kernels take and B = 1 .. 96: a block's slice of W
-    and its buffers fit the H100's 227 KB a block; the cluster has C ≤ 16
-    blocks (the largest cluster Hopper schedules) of 16 or 32 units each,
-    so the units fill n8 tiles; one m16 tile of rows a cluster; the grid
-    holds every row."""
+    (resident up to H = 512) and its buffers fit the H100's 227 KB a
+    block; the cluster has C ≤ 16 blocks (the largest cluster Hopper
+    schedules) of 16 or 32 units each up to H = 512, of the streamed-W
+    form's U = 8·⌈H / 128⌉ above (the last block the rest, a multiple of
+    8), so the units fill n8 tiles; one m16 tile of rows a cluster; the
+    grid holds every row."""
     U = gru_units(H, form)
     for ndir in ((1, 2) if form == "fwd" else (2,)):
         for B in range(1, 97):
             p = gru_plan(H, B, ndir, form)
             assert 1 <= p.cluster <= 16
-            assert p.cluster * U == H and U in (16, UNITS)
+            if H <= RESIDENT_MAX:
+                assert p.cluster * U == H and U in (16, UNITS)
+            else:
+                assert U == wide_units(H) and U % 8 == 0
+                assert p.cluster == -(-H // U)
+                assert 0 < H - (p.cluster - 1) * U <= U
             assert p.rows == ROWS == 16
             assert p.smem == gru_smem(form, H)
             assert p.smem <= SMEM_LIMIT and p.smem % 16 == 0
@@ -67,15 +75,20 @@ def test_plan_by_hand(H, form, want):
 
 def test_units_a_block():
     """The backward takes 16 units a block up to H = 256 and 32 above (16
-    would need more than 16 blocks a cluster); the forward always 32."""
+    would need more than 16 blocks a cluster); the forward always 32; past
+    H = 512 both take the streamed-W form's 8·⌈H / 128⌉."""
     for H in HIDDEN:
-        assert gru_units(H, "fwd") == UNITS == 32
-        assert gru_units(H, "bwd") == (16 if H <= 256 else 32)
-        assert H // gru_units(H, "bwd") <= 16
+        if H > RESIDENT_MAX:
+            assert gru_units(H, "fwd") == gru_units(H, "bwd") == \
+                wide_units(H) == 8 * -(-H // 128)
+        else:
+            assert gru_units(H, "fwd") == UNITS == 32
+            assert gru_units(H, "bwd") == (16 if H <= 256 else 32)
+        assert -(-H // gru_units(H, "bwd")) <= 16
 
 
 def test_plan_refuses_sizes_the_kernels_do_not_take():
-    for H in (0, 16, 48, 544, 1024):
+    for H in (0, 16, 48, 1040, 2080, 4096):
         for form in ("fwd", "bwd"):
             with pytest.raises(ValueError, match="gru_plan"):
                 gru_plan(H, 4, 2, form)
@@ -84,8 +97,9 @@ def test_plan_refuses_sizes_the_kernels_do_not_take():
 @pytest.mark.parametrize("form", ["fwd", "bwd"])
 def test_lstm_plan_is_unchanged(form):
     """The LSTM's plan after its generalisation to a gate count: the byte
-    counts it had before, written out, for every H and a few B."""
-    for H in HIDDEN:
+    counts it had before, written out, for every H of the resident form
+    and a few B (the streamed-W form's in tests/test_torch_rnn_wide.py)."""
+    for H in (H for H in HIDDEN if H <= RESIDENT_MAX):
         want = ((H + 16) * (8 * 32 + 16) + 2 * 16 * H * 4 if form == "bwd"
                 else (4 * 32 + 2 * 16) * (2 * H + 16) + 16 * 16 * 40 * 4)
         assert lstm_smem(form, H) == want

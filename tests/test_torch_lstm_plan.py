@@ -11,30 +11,38 @@ import torch
 
 from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
-    ROWS, UNITS, kernel_takes, lstm_bwd_tc_weights, lstm_fwd_tc_weights,
-    lstm_plan, lstm_smem)
+    RESIDENT_MAX, ROWS, UNITS, kernel_takes, lstm_bwd_tc_weights,
+    lstm_fwd_tc_weights, lstm_plan, lstm_smem, lstm_units, wide_units)
 
-HIDDEN = [H for H in range(1, 1025) if kernel_takes(H)]
+HIDDEN = [H for H in range(1, 4097) if kernel_takes(H)]
 SMEM_LIMIT = 232448     # shared memory a block may use on an H100 (227 KB)
 
 
 def test_kernel_takes_keeps_its_range():
-    assert HIDDEN == list(range(32, 513, 32))
+    assert HIDDEN == list(range(32, 2049, 32))
 
 
 @pytest.mark.parametrize("form", ["fwd", "bwd"])
 @pytest.mark.parametrize("H", HIDDEN)
 def test_plan_fits_every_hidden_size(H, form):
     """For every H the kernels take and B = 1 .. 96: a block's slice of W
-    and its buffers fit the H100's 227 KB a block; the cluster has C ≤ 16
-    blocks (the largest cluster Hopper schedules) of 32 units each, so the
-    units fill n8 tiles; one m16 tile of rows a cluster; the grid holds
-    every row."""
+    (resident up to H = 512) and its buffers fit the H100's 227 KB a
+    block; the cluster has C ≤ 16 blocks (the largest cluster Hopper
+    schedules) of 32 units each up to H = 512, of the streamed-W form's
+    U = 8·⌈H / 128⌉ above (the last block the rest, a multiple of 8), so
+    the units fill n8 tiles; one m16 tile of rows a cluster; the grid
+    holds every row."""
+    U = lstm_units(H)
+    assert U == (UNITS if H <= RESIDENT_MAX else wide_units(H))
     for ndir in ((1, 2) if form == "fwd" else (2,)):
         for B in range(1, 97):
             p = lstm_plan(H, B, ndir, form)
             assert 1 <= p.cluster <= 16
-            assert p.cluster * UNITS == H and UNITS % 8 == 0
+            if H <= RESIDENT_MAX:
+                assert p.cluster * UNITS == H and UNITS % 8 == 0
+            else:
+                assert p.cluster == -(-H // U) and U % 8 == 0
+                assert 0 < H - (p.cluster - 1) * U <= U
             assert p.rows == ROWS == 16
             assert p.smem == lstm_smem(form, H)
             assert p.smem <= SMEM_LIMIT and p.smem % 16 == 0
@@ -59,7 +67,7 @@ def test_plan_by_hand(H, form, want):
 
 
 def test_plan_refuses_sizes_the_kernels_do_not_take():
-    for H in (0, 16, 48, 544, 1024):
+    for H in (0, 16, 48, 1040, 2080, 4096):
         with pytest.raises(ValueError):
             lstm_plan(H, 4, 2, "fwd")
 

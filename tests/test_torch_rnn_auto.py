@@ -16,8 +16,9 @@ from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
 
 
 @pytest.mark.parametrize("H,takes", [(32, True), (256, True), (512, True),
-                                     (520, False), (768, False),
-                                     (100, False)])
+                                     (520, False), (768, True),
+                                     (100, False), (2048, True),
+                                     (2080, False)])
 def test_kernel_takes(H, takes):
     assert rnn_cuda.kernel_takes(H) is takes
 
@@ -38,11 +39,13 @@ def _logits(H: int, impl: str):
         return model(feats, flens)
 
 
-@pytest.mark.parametrize("H,path", [(768, "scan"), (256, "kernel")])
+@pytest.mark.parametrize("H,path", [(2080, "scan"), (768, "kernel"),
+                                    (256, "kernel")])
 def test_bigru_builds_and_decodes_through_auto(H, path):
-    """A bigru at H = 768, which the kernels do not take, decodes through
-    ``auto`` on the plain scan (the same logits as ``scan``); at H = 256
-    ``auto`` takes the kernels' wrappers. Each layer call counts once."""
+    """A bigru at H = 2080, past the sizes the kernels take, decodes
+    through ``auto`` on the plain scan (the same logits as ``scan``); at
+    H = 768 (W streamed on the card) and 256 (W resident) ``auto`` takes
+    the kernels' wrappers. Each layer call counts once."""
     before = dict(rnn_cuda.ROUTED)
     logits, olens = _logits(H, "auto")
     assert rnn_cuda.ROUTED[path] == before[path] + 2

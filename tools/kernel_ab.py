@@ -64,6 +64,11 @@ Kernels and shapes (those of ``chip_smoke.py``):
 ``--cases`` takes a subset of
 ``frontend,flash,lstm,gru,stream,ctc,greedy,dw``.
 
+Each case also records whether the two builds' bf16-compute outputs are
+bitwise equal (``bf16 bitwise equal``; dW against the other build's own
+dW kernel where it has one), printed, not gated: a redesign may change
+them, a change that leaves a path as it was must not.
+
 Each is timed in alternating rounds, both builds and the library call in
 each round:
 
@@ -391,6 +396,7 @@ def lstm_case(dev, rng, other, rounds, tag, B, T, lens, train: bool):
         dxs_p = rc.lstm_bwd_plain(gates_p, w, lo, hi, cs_p, g, cdt)
     else:
         ys_p = rc.lstm_scan_plain(xs, w, lo, hi, cdt)
+    bf16 = {}
     for b, m in mods.items():
         if train:
             ys, c, gates = m.lstm_scan_train_cuda(xs, w, lo, hi, cdt)
@@ -398,8 +404,10 @@ def lstm_case(dev, rng, other, rounds, tag, B, T, lens, train: bool):
             err = {"ys": ys - ys_p, "cs": c - cs_p,
                    "gates": gates.float() - gates_p.float(),
                    "dxs": dxs.float() - dxs_p.float()}
+            bf16[b] = [ys, c, gates, dxs]
         else:
-            err = {"ys": m.lstm_scan_cuda(xs, w, lo, hi, cdt) - ys_p}
+            bf16[b] = [m.lstm_scan_cuda(xs, w, lo, hi, cdt)]
+            err = {"ys": bf16[b][0] - ys_p}
         torch.cuda.synchronize()
         err = {n: float(e.abs().max()) for n, e in err.items()}
         res[f"{b} max abs"] = err
@@ -408,6 +416,7 @@ def lstm_case(dev, rng, other, rounds, tag, B, T, lens, train: bool):
         cs.check(all(e <= (cs.TOL["gru_grad_bf16"] if n == "dxs" else
                            cs.TOL["gru_bf16"]) for n, e in err.items()),
                  f"{tag} {b}: breaks the bf16 bar")
+    bf16_bits(res, tag, bf16)
     # the forms the FMA kernels keep: bitwise those of the other build
     kept = {}
     f32 = torch.float32
@@ -457,6 +466,18 @@ def lstm_case(dev, rng, other, rounds, tag, B, T, lens, train: bool):
     return res
 
 
+def bf16_bits(res: dict, tag: str, outs: dict) -> None:
+    """Whether the two builds' bf16-compute outputs (``outs``: {"this":
+    [...], "other": [...]}) are bitwise equal, recorded and printed (a
+    redesign may change them; a change that keeps a path must not)."""
+    import torch
+
+    torch.cuda.synchronize()
+    res["bf16 bitwise equal"] = cs.same_bits(outs["this"], outs["other"])
+    print(f"[ab] {tag}: the bf16 outputs bitwise equal across the builds: "
+          f"{res['bf16 bitwise equal']}")
+
+
 def bwd_carries(m, ys):
     """What a build's GRU backward takes for h_prev: ys itself (it reads
     one step back in place) or, in builds before that, ``shift_prev(ys)``."""
@@ -502,6 +523,7 @@ def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
         prev = {b: bwd_carries(m, ys_p) for b, m in mods.items()}
     else:
         ys_p = rc.gru_scan_plain(xs, w, lo, hi, cdt)
+    bf16 = {}
     for b, m in mods.items():
         if train:
             ys, gates = m.gru_scan_train_cuda(xs, w, lo, hi, cdt)
@@ -509,8 +531,10 @@ def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
             err = {"ys": ys - ys_p, "gates": gates.float() - gates_p.float(),
                    "dxs": dxs.float() - dxs_p.float(),
                    "dhn": dhn.float() - dhn_p.float()}
+            bf16[b] = [ys, gates, dxs, dhn]
         else:
-            err = {"ys": m.gru_scan_cuda(xs, w, lo, hi, cdt) - ys_p}
+            bf16[b] = [m.gru_scan_cuda(xs, w, lo, hi, cdt)]
+            err = {"ys": bf16[b][0] - ys_p}
         torch.cuda.synchronize()
         err = {n: float(e.abs().max()) for n, e in err.items()}
         res[f"{b} max abs"] = err
@@ -519,6 +543,7 @@ def gru_case(dev, rng, other, rounds, tag, B, T, lens, train: bool,
         cs.check(all(e <= (cs.TOL["gru_grad_bf16"] if n in ("dxs", "dhn")
                            else cs.TOL["gru_bf16"]) for n, e in err.items()),
                  f"{tag} {b}: breaks the bf16 bar")
+    bf16_bits(res, tag, bf16)
     # the forms the FMA kernels keep: bitwise those of the other build
     kept = {}
     f32 = torch.float32
@@ -590,9 +615,10 @@ def stream_case(dev, rng, other, rounds, tag, cell, ndir, B, T, emit, H):
     mods = {"this": rc, "other": orc}
     res = {"tag": tag, "B": B, "T": T, "H": H, "ndir": ndir, "emit_t": emit}
     ys_p, carry_p = getattr(rc, f"{fn}_plain")(xs, w, lo, hi, h0, cdt, emit)
-    kept = {}
+    kept, bf16 = {}, {}
     for b, m in mods.items():
         ys, carry = getattr(m, f"{fn}_cuda")(xs, w, lo, hi, h0, cdt, emit)
+        bf16[b] = [ys, carry]
         kept[b] = [getattr(m, f"{fn}_cuda")(xs32, w, lo, hi, h0,
                                             torch.float32, e)
                    for e in (0, emit, T)]
@@ -604,6 +630,7 @@ def stream_case(dev, rng, other, rounds, tag, cell, ndir, B, T, emit, H):
             f"{n} {e:.3e}" for n, e in err.items()))
         cs.check(max(err.values()) <= cs.TOL["gru_bf16"],
                  f"{tag} {b}: breaks the bf16 bar")
+    bf16_bits(res, tag, bf16)
     res["kept forms bitwise equal"] = cs.same_bits(kept["this"],
                                                    kept["other"])
     print(f"[ab] {tag}: the fp32 stream form (emit_t 0, {emit}, {T}) "
@@ -778,6 +805,9 @@ def dw_case(dev, rng, other, rounds, tag, T, B, H, cell):
           f"Σ|h·g|) {ex:.3e}; cuBLAS bmm max abs vs it "
           f"{res['cuBLAS max abs vs other']:.3e}")
     cs.check(ex <= 1, f"{tag}: this build's dW breaks the bar")
+    if hasattr(orc, "dw_cuda"):       # the other build's own dW kernel
+        bf16_bits(res, tag, {"this": [got], "other": [orc.dw_cuda(
+            ys, gates, B)]})
     fns = {"this rnn_dw": this, "other chain": chain, "cuBLAS bmm": library}
     replays = {n: cs.graph_of(f, mode="relaxed")[0] for n, f in fns.items()}
     res.update(report(f"{tag} T'={T} B={B} H={H} N={N}",
