@@ -95,9 +95,10 @@ FLASH_BWD_DKV = Kernel("csr_flash_bwd_dkv", [_P] * 11 + [_I, _P])
 # the recurrences' dW: (ys, g1, ld1, n1, g2, ld2, n2, out, T, B, H, ndir,
 # stream)
 DW = Kernel("csr_dw", [_P, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P])
-# the prefix beam: (the address of its argument struct, ops/beam_cuda.BeamArgs,
-# stream)
+# the prefix beam, narrow (K <= 32, order <= 9) and wide (any other call):
+# (the address of its argument struct, ops/beam_cuda.BeamArgs, stream)
 BEAM = Kernel("csr_beam", [_P, _P])
+BEAM_WIDE = Kernel("csr_beam_wide", [_P, _P])
 KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "greedy": GREEDY, "gru_fwd_train": GRU_FWD_TRAIN,
            "gru_bwd": GRU_BWD, "ctc_fwd": CTC_FWD, "ctc_bwd": CTC_BWD,
@@ -106,19 +107,21 @@ KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
            "lstm_fwd_stream": LSTM_FWD_STREAM,
            "frontend_logmel_frames": FRONTEND_LOGMEL_FRAMES,
            "flash_fwd": FLASH_FWD, "flash_bwd_dq": FLASH_BWD_DQ,
-           "flash_bwd_dkv": FLASH_BWD_DKV, "dw": DW, "beam": BEAM}
+           "flash_bwd_dkv": FLASH_BWD_DKV, "dw": DW, "beam": BEAM,
+           "beam_wide": BEAM_WIDE}
 
 # functions of the library that launch nothing (no count): (H, out) →
 # out = (shared memory bytes, clusters the card holds at once); the CTC
 # kernels' (S, bwd, out) → out = their launch shape (ops/ctc_cuda.ctc_plan);
 # the dW kernel's (T, B, H, N, ndir, out) → its launch shape
 # (ops/rnn_cuda.dw_plan);
-# the beam's (T, V, K, out) → its launch plan (ops/beam_cuda.beam_plan)
+# the beam's (T, V, K, ctx_len, wide, out) → its launch plan
+# (ops/beam_cuda.beam_plan)
 HELPERS = {f"csr_{cell}_{form}_occupancy": [_I, ctypes.POINTER(_I)]
            for cell in ("gru", "lstm") for form in ("fwd", "bwd")}
 HELPERS["csr_ctc_plan"] = [_I, _I, ctypes.POINTER(_I)]
 HELPERS["csr_dw_plan"] = [_I] * 5 + [ctypes.POINTER(_I)]
-HELPERS["csr_beam_plan"] = [_I, _I, _I, ctypes.POINTER(_I)]
+HELPERS["csr_beam_plan"] = [_I] * 5 + [ctypes.POINTER(_I)]
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -37,8 +37,11 @@
 // last one's top-K, and a frame is a few dependent steps with a block
 // barrier between each.
 //
-// Design: one block of kThreads threads per utterance row, the [K] beam
-// state in shared memory (two copies, flipped each frame). Per frame:
+// Two forms, one block per utterance row in both; csr_beam_plan picks one.
+//
+// The narrow form (beam_kernel: K <= 32 and an LM context of <= 8 lanes,
+// order <= 9), kThreads threads, the [K] beam state in static shared memory
+// (two copies, flipped each frame). Per frame:
 //   1. the next frame's lp row is staged into shared memory by 4-byte
 //      cp.async while this one computes (double-buffered; rows past
 //      kStageMaxV symbols are read from global memory instead);
@@ -58,6 +61,36 @@
 //      scratch in global memory).
 // After the frames, `keep` threads follow the parent chains back from the
 // live frames' end (twice: count, then write) into the outputs.
+//
+// The wide form (beam_wide_kernel: any other K <= 32767 and any context
+// length), kWideThreads threads. Its per-frame steps loop k += blockDim.x,
+// and everything that grows with K or the context (the state's two copies,
+// the context lanes, the per-beam scratch, the merge lists, the survivors)
+// lives in one workspace (wide_layout) that csr_beam_plan places in dynamic
+// shared memory when it fits beside the staged lp rows, else in a [B, bytes]
+// scratch in global memory; the tracebacks follow as in the narrow form.
+// Steps 1, 2 and 5 are the narrow form's; 3 and 4 differ:
+//   3. the consumed extensions are kept as lists per hash class: stay k
+//      with last_k > 0 joins (atomicExch, a linked list through next[]) the
+//      list of the lowest beam j whose (hash, hash2) equals its parent
+//      hashes; extension (j, v) is consumed when v is the last char of a
+//      beam on the list of j's class (rep[j]: the lowest beam with j's
+//      hashes). The lists hold at most K entries whatever K is;
+//   4. top-K by a radix select: each candidate's score maps to an
+//      order-preserving uint32 key (-0 as +0, so a float compare's ties
+//      stay ties); four passes of 8 bits, each a sweep that recomputes
+//      the candidates (nothing of the K + K.V grid is stored) into a
+//      256-bin shared histogram (warp-aggregated atomics), then one warp
+//      finds the digit that holds the K-th key. Then one sweep keeps every
+//      key above the threshold (atomic slots) and, when the threshold's
+//      ties outnumber what is left, a second sweep ranks those ties in
+//      ascending flat index (each warp owns a contiguous index range, so
+//      ballots and the warps' counts give the order); a bitonic sort of
+//      the K survivors by (key descending, index ascending) gives
+//      lax.top_k's order. The final order sorts the K final scores the
+//      same way.
+// Traceback entries pack (parent << 16) | (char & 0xffff), so the wide form
+// takes K <= 32767 (and V <= 32767, the reference's own limit).
 #include <cuda_fp16.h>
 #include <math.h>
 
@@ -80,6 +113,10 @@ constexpr int kHashMod2 = (1 << 30) - 173;
 constexpr int kCtxMult2 = 754877;       // decode/lm.py _CTX_MULT2
 constexpr int kCtxMod2 = (1 << 30) - 173;
 constexpr uint32_t kSlotMult = 2654435761u;
+constexpr int kWideThreads = 512;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kRadixBins = 256;         // 8 bits a pass, 4 passes
+constexpr int kMaxWideBeam = 32767;     // (parent << 16) | char tracebacks
 
 }  // namespace
 
@@ -106,6 +143,8 @@ struct BeamArgs {
   const void* lm_table;      // dense [C, V] fp32 | hashed [cap, 3] int32
   const void* lm_rows;       // hashed [R, V] fp32 or fp16
   int32_t* tb_scratch;       // [B, T, K] when the tracebacks pass shared mem
+  void* ws_scratch;          // [B, ws bytes]: the wide form's workspace when
+                             // it passes shared memory
   int32_t* out_chars;        // [B, keep, width]
   int32_t* out_counts;       // [B, keep]
   int32_t* out_parent0;      // [B, keep]
@@ -510,52 +549,498 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Dynamic shared memory past 48 KB with the kernel's static part must be
+// allowed first, or the launch is refused.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel fn, size_t smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess && smem + attr.sharedSizeBytes > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  return err;
+}
+
 template <int KMAX, bool kStage>
 int launch(const BeamArgs& a, size_t smem, cudaStream_t stream) {
   auto fn = beam_kernel<KMAX, kStage>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   fn<<<a.B, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// the wide form
+// ---------------------------------------------------------------------------
+
+// 32-bit [K] arrays of the workspace (pairs: the state's two copies)
+enum WideSlot {
+  kWPb = 0, kWPnb = 2, kWH = 4, kWH2 = 6, kWPh = 8, kWPh2 = 10, kWLast = 12,
+  kWTotal = 14, kWSpb, kWSpnb, kWStay, kWRep, kWHead, kWNext, kWSlots
+};
+
+struct WideLayout {
+  long long roff, surv, ctx, bytes;     // byte offsets, then the size
+};
+
+__host__ __device__ inline int pow2_at_least(int k) {
+  int p = 1;
+  while (p < k) p <<= 1;
+  return p;
+}
+
+// One row's workspace: kWSlots [K] arrays of 32 bits, roff [K] int64 (LM
+// row offsets), surv [P2] uint64 (the survivors, then the final order; P2
+// the power of 2 >= K), ctx [2][K][ctx_len] int32.
+__host__ __device__ inline WideLayout wide_layout(int K, int CL) {
+  WideLayout l;
+  l.roff = (static_cast<long long>(kWSlots) * K * 4 + 15) / 16 * 16;
+  l.surv = l.roff + 8LL * K;
+  l.ctx = l.surv + 8LL * pow2_at_least(K);
+  l.bytes = (l.ctx + 8LL * K * CL + 15) / 16 * 16;
+  return l;
+}
+
+// order-preserving key of a score (a larger score, a larger key), -0 as +0
+__device__ __forceinline__ uint32_t order_key(float s) {
+  const uint32_t u = __float_as_uint(__fadd_rn(s, 0.f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_score(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// (key, flat index) as one uint64 whose descending order is lax.top_k's
+__device__ __forceinline__ unsigned long long survivor(uint32_t key, int i) {
+  return (static_cast<unsigned long long>(key) << 32) |
+         (0xffffffffu - static_cast<uint32_t>(i));
+}
+
+__device__ __forceinline__ int survivor_index(unsigned long long c) {
+  return static_cast<int>(0xffffffffu - static_cast<uint32_t>(c));
+}
+
+// descending bitonic sort of s[0, n), n a power of 2, by the whole block
+__device__ void bitonic_desc(unsigned long long* s, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int q = threadIdx.x; q < n / 2; q += blockDim.x) {
+        const int lo = 2 * q - (q & (stride - 1)), hi = lo + stride;
+        const unsigned long long x = s[lo], y = s[hi];
+        if ((x < y) == ((lo & size) == 0)) {
+          s[lo] = y;
+          s[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+template <bool kStage, bool kWsShared>
+__global__ void __launch_bounds__(kWideThreads)
+    beam_wide_kernel(const BeamArgs a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ int hist[2][kRadixBins];
+  __shared__ int wcount[kWideWarps];
+  __shared__ uint32_t sel_prefix;
+  __shared__ int sel_shift, sel_need, sel_all, n_taken;
+  const int b = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int T = a.T, V = a.V, K = a.K, CL = a.ctx_len;
+  const int n = min(max(a.lengths[b], 0), T);
+  const int N = K + K * V;
+  const int P2 = pow2_at_least(K);
+  const WideLayout L = wide_layout(K, CL);
+  const long long stage = kStage ? 2LL * V * 4 : 0;
+  float* s_lp = reinterpret_cast<float*>(dyn);                  // [2][V]
+  unsigned char* ws =
+      kWsShared ? dyn + stage
+                : static_cast<unsigned char*>(a.ws_scratch) + b * L.bytes;
+  int32_t* tb = a.tb_scratch != nullptr
+                    ? a.tb_scratch + static_cast<long long>(b) * T * K
+                    : reinterpret_cast<int32_t*>(
+                          dyn + stage + (kWsShared ? L.bytes : 0));  // [T][K]
+  float* wf = reinterpret_cast<float*>(ws);
+  int* wi = reinterpret_cast<int*>(ws);
+  long long* roff = reinterpret_cast<long long*>(ws + L.roff);
+  unsigned long long* surv =
+      reinterpret_cast<unsigned long long*>(ws + L.surv);
+  int* wctx = reinterpret_cast<int*>(ws + L.ctx);              // [2][K][CL]
+  auto F = [&](int slot, int k) -> float& { return wf[slot * K + k]; };
+  auto I = [&](int slot, int k) -> int& { return wi[slot * K + k]; };
+  const float* lp_row = a.lp + static_cast<long long>(b) * T * V;
+  // warp w owns the flat indices [w span, (w + 1) span), 32 a round
+  const int span = ((N + kWideWarps - 1) / kWideWarps + 31) / 32 * 32;
+  const int i0 = warp * span + lane;
+
+  for (int k = tid; k < K; k += nthr) {
+    const long long o = static_cast<long long>(b) * K + k;
+    F(kWPb, k) = a.pb_in[o];
+    F(kWPnb, k) = a.pnb_in[o];
+    I(kWH, k) = a.h_in[o];
+    I(kWH2, k) = a.h2_in[o];
+    I(kWPh, k) = a.ph_in[o];
+    I(kWPh2, k) = a.ph2_in[o];
+    I(kWLast, k) = a.last_in[o];
+    for (int c = 0; c < CL; ++c) wctx[k * CL + c] = a.ctx_in[o * CL + c];
+  }
+  if (kStage && n > 0) {
+    for (int v = tid; v < V; v += nthr)
+      cp_async4(smem_u32(s_lp + v), lp_row + v);
+  }
+  cp_async_commit();
+  int st = 0;
+
+  for (int t = 0; t < n; ++t) {
+    const float* lpr;
+    if (kStage) {
+      if (t + 1 < n) {
+        float* dst = s_lp + ((t + 1) & 1) * V;
+        const float* src = lp_row + static_cast<long long>(t + 1) * V;
+        for (int v = tid; v < V; v += nthr)
+          cp_async4(smem_u32(dst + v), src + v);
+      }
+      cp_async_commit();
+      cp_async_wait1();
+      lpr = s_lp + (t & 1) * V;
+    } else {
+      lpr = lp_row + static_cast<long long>(t) * V;
+    }
+    __syncthreads();
+    const int* ctx_st = wctx + st * K * CL;
+
+    // 2. per-beam totals, stay scores and LM rows; each beam's hash class
+    for (int k = tid; k < K; k += nthr) {
+      const float pb = F(kWPb + st, k), pnb = F(kWPnb + st, k);
+      const int last = I(kWLast + st, k);
+      float total = lae(fmaxf(pb, kLogZero), pnb);
+      if (fmaxf(pb, pnb) <= kHalfLogZero) total = kLogZero;
+      F(kWTotal, k) = total;
+      F(kWSpb, k) = total + lpr[0];
+      F(kWSpnb, k) = last > 0 ? pnb + lpr[last] : kLogZero;
+      roff[k] = a.lm_kind != 0 ? lm_row_offset(a, ctx_st + k * CL) : 0;
+      const int h = I(kWH + st, k), h2 = I(kWH2 + st, k);
+      int rep = k;
+      for (int j = 0; j < k; ++j) {
+        if (I(kWH + st, j) == h && I(kWH2 + st, j) == h2) {
+          rep = j;
+          break;
+        }
+      }
+      I(kWRep, k) = rep;
+      I(kWHead, k) = -1;
+    }
+    for (int q = tid; q < kRadixBins; q += nthr) hist[0][q] = 0;
+    if (tid == 0) {
+      sel_prefix = 0;
+      sel_need = K;
+      sel_all = 0;
+      n_taken = 0;
+    }
+    __syncthreads();
+
+    // 3. merges: stay k <- ext(j, last_k) for every beam j of k's parent
+    // prefix; k joins the consumed list of the lowest such j
+    for (int k = tid; k < K; k += nthr) {
+      const int last_k = I(kWLast + st, k);
+      const int ph = I(kWPh + st, k), ph2 = I(kWPh2 + st, k);
+      float mmax = kLogZero;
+      int first = -1;
+      for (int j = 0; last_k > 0 && j < K; ++j) {
+        if (ph == I(kWH + st, j) && ph2 == I(kWH2 + st, j)) {
+          mmax = fmaxf(mmax, ext_raw(a, lpr, F(kWPb + st, j), F(kWTotal, j),
+                                     I(kWLast + st, j), roff[j], last_k));
+          if (first < 0) first = j;
+        }
+      }
+      const float mmax_s = fmaxf(mmax, kHalfLogZero);
+      float msum = 0.f;        // the other beams add exp(LOG_ZERO - m) = 0
+      for (int j = max(first, 0); first >= 0 && j < K; ++j) {
+        if (ph == I(kWH + st, j) && ph2 == I(kWH2 + st, j))
+          msum += expf(ext_raw(a, lpr, F(kWPb + st, j), F(kWTotal, j),
+                               I(kWLast + st, j), roff[j], last_k) -
+                       mmax_s);
+      }
+      const float merged = mmax <= kHalfLogZero
+                               ? kLogZero
+                               : mmax_s + logf(fmaxf(msum, 1e-37f));
+      float spnb = lae(fmaxf(F(kWSpnb, k), kLogZero), fmaxf(merged, kLogZero));
+      if (spnb <= kHalfLogZero) spnb = kLogZero;
+      F(kWSpnb, k) = spnb;
+      F(kWStay, k) = lae(fmaxf(F(kWSpb, k), kHalfLogZero),
+                         fmaxf(spnb, kHalfLogZero));
+      if (first >= 0) I(kWNext, k) = atomicExch(&I(kWHead, first), k);
+    }
+    __syncthreads();
+
+    // 4. top-K of the K stays and the K.V extensions
+    auto cand = [&](int i) -> float {
+      if (i < K) return F(kWStay, i);
+      const int e = i - K, j = e / V, v = e - j * V;
+      float s = ext_raw(a, lpr, F(kWPb + st, j), F(kWTotal, j),
+                        I(kWLast + st, j), roff[j], v);
+      for (int k = I(kWHead, I(kWRep, j)); v > 0 && k >= 0; k = I(kWNext, k)) {
+        if (I(kWLast + st, k) == v) {
+          s = kLogZero;
+          break;
+        }
+      }
+      return s;
+    };
+    for (int pass = 0; pass < 4; ++pass) {    // radix select, 8 bits a pass
+      const int cur = pass & 1, shift = 24 - 8 * pass;
+      const uint32_t prefix = sel_prefix;
+      for (int r = 0; r < span; r += 32) {
+        const int i = i0 + r;
+        int bin = -1;
+        if (i < N) {
+          const uint32_t key = order_key(cand(i));
+          if (pass == 0 || (key >> (shift + 8)) == prefix)
+            bin = static_cast<int>((key >> shift) & 0xffu);
+        }
+        const unsigned peers = __match_any_sync(0xffffffffu, bin);
+        if (bin >= 0 && lane == __ffs(peers) - 1)
+          atomicAdd(&hist[cur][bin], __popc(peers));
+      }
+      __syncthreads();
+      if (warp == 0) {             // the bin that holds the need-th key
+        const int need = sel_need;
+        int c[8], sum = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          c[q] = hist[cur][kRadixBins - 1 - 8 * lane - q];
+          sum += c[q];
+        }
+        int incl = sum;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += y;
+        }
+        const int src = __ffs(__ballot_sync(0xffffffffu, incl >= need)) - 1;
+        if (lane == src) {
+          int above = incl - sum, q = 0;
+          while (above + c[q] < need) above += c[q++];
+          sel_prefix = (prefix << 8) |
+                       static_cast<uint32_t>(kRadixBins - 1 - 8 * lane - q);
+          sel_shift = shift;
+          sel_need = need - above;
+          sel_all = c[q] == need - above;
+        }
+      } else {
+        for (int q = tid - 32; q < kRadixBins; q += nthr - 32)
+          hist[cur ^ 1][q] = 0;
+      }
+      __syncthreads();
+      if (sel_all) break;
+    }
+    // keys above the threshold class, and the class too when all of it is
+    // taken; else its first `need` members in ascending index
+    const uint32_t P = sel_prefix;
+    const int shift = sel_shift, need = sel_need;
+    const bool all = sel_all;
+    int ties = 0;
+    for (int r = 0; r < span; r += 32) {
+      const int i = i0 + r;
+      bool tie = false;
+      if (i < N) {
+        const uint32_t key = order_key(cand(i));
+        const uint32_t hi = key >> shift;
+        if (hi > P || (all && hi == P))
+          surv[atomicAdd(&n_taken, 1)] = survivor(key, i);
+        tie = !all && hi == P;
+      }
+      ties += __popc(__ballot_sync(0xffffffffu, tie));
+    }
+    if (lane == 0) wcount[warp] = ties;
+    for (int q = K + tid; q < P2; q += nthr) surv[q] = 0ULL;
+    __syncthreads();
+    if (!all) {
+      int base = 0;
+      for (int w = 0; w < warp; ++w) base += wcount[w];
+      for (int r = 0; r < span && ties > 0 && base < need; r += 32) {
+        const int i = i0 + r;
+        uint32_t key = 0;
+        bool tie = false;
+        if (i < N) {
+          key = order_key(cand(i));
+          tie = (key >> shift) == P;
+        }
+        const unsigned m = __ballot_sync(0xffffffffu, tie);
+        const int pos = base + __popc(m & ((1u << lane) - 1u));
+        if (tie && pos < need) surv[K - need + pos] = survivor(key, i);
+        base += __popc(m);
+        ties -= __popc(m);
+      }
+      __syncthreads();
+    }
+    bitonic_desc(surv, P2);
+
+    // 5. the new state and the traceback of frame t
+    const int nx = st ^ 1;
+    int* ctx_nx = wctx + nx * K * CL;
+    for (int k = tid; k < K; k += nthr) {
+      const unsigned long long c = surv[k];
+      const int idx = survivor_index(c);
+      const bool is_stay = idx < K;
+      const int e = max(idx - K, 0);
+      const int parent = is_stay ? idx : e / V;
+      const int ch = is_stay ? -1 : e - parent * V;
+      F(kWPb + nx, k) = is_stay ? F(kWSpb, parent) : kLogZero;
+      F(kWPnb + nx, k) = is_stay ? F(kWSpnb, parent)
+                                 : key_score(static_cast<uint32_t>(c >> 32));
+      const int ph = I(kWH + st, parent), ph2 = I(kWH2 + st, parent);
+      I(kWH + nx, k) = is_stay ? ph : roll(ph, ch, kHashMult, kHashMod);
+      I(kWH2 + nx, k) = is_stay ? ph2 : roll(ph2, ch, kHashMult2, kHashMod2);
+      I(kWPh + nx, k) = is_stay ? I(kWPh + st, parent) : ph;
+      I(kWPh2 + nx, k) = is_stay ? I(kWPh2 + st, parent) : ph2;
+      I(kWLast + nx, k) = is_stay ? I(kWLast + st, parent) : ch;
+      const bool shift_ctx = !is_stay && a.lm_order > 1;
+      const int* pc = ctx_st + parent * CL;
+      for (int q = 0; q < CL; ++q)
+        ctx_nx[k * CL + q] = shift_ctx ? (q + 1 < CL ? pc[q + 1] : ch) : pc[q];
+      tb[static_cast<long long>(t) * K + k] = (parent << 16) | (ch & 0xffff);
+    }
+    st = nx;
+    __syncthreads();
+  }
+
+  // final scores, their order, the state out
+  const int* ctx_st = wctx + st * K * CL;
+  for (int k = tid; k < K; k += nthr) {
+    F(kWStay, k) = lae(fmaxf(F(kWPb + st, k), kHalfLogZero),
+                       fmaxf(F(kWPnb + st, k), kHalfLogZero));
+    const long long o = static_cast<long long>(b) * K + k;
+    a.pb_out[o] = F(kWPb + st, k);
+    a.pnb_out[o] = F(kWPnb + st, k);
+    a.h_out[o] = I(kWH + st, k);
+    a.h2_out[o] = I(kWH2 + st, k);
+    a.ph_out[o] = I(kWPh + st, k);
+    a.ph2_out[o] = I(kWPh2 + st, k);
+    a.last_out[o] = I(kWLast + st, k);
+    for (int c = 0; c < CL; ++c) a.ctx_out[o * CL + c] = ctx_st[k * CL + c];
+  }
+  __syncthreads();
+  if (a.ordered) {
+    for (int q = tid; q < P2; q += nthr)
+      surv[q] = q < K ? survivor(order_key(F(kWStay, q)), q) : 0ULL;
+    __syncthreads();
+    bitonic_desc(surv, P2);
+  }
+  for (int r = tid; r < K; r += nthr) {
+    const int k = a.ordered ? survivor_index(surv[r]) : r;
+    I(kWRep, r) = k;                                  // the order
+    a.out_final[static_cast<long long>(b) * K + r] = F(kWStay, k);
+  }
+  __syncthreads();
+
+  // traceback of `keep` beams, as the narrow form's
+  for (int r = tid; r < a.keep; r += nthr) {
+    int cur = I(kWRep, r), cnt = 0;
+    for (int t = n - 1; t >= 0; --t) {
+      const int e = tb[static_cast<long long>(t) * K + cur];
+      cnt += static_cast<int16_t>(e & 0xffff) >= 0 ? 1 : 0;
+      cur = e >> 16;
+    }
+    const int W = a.width;
+    int32_t* out = a.out_chars + (static_cast<long long>(b) * a.keep + r) * W;
+    a.out_counts[b * a.keep + r] = min(cnt, W);
+    a.out_parent0[b * a.keep + r] = cur;
+    for (int w = cnt; w < W; ++w) out[w] = -1;
+    cur = I(kWRep, r);
+    int pos = cnt;
+    for (int t = n - 1; t >= 0; --t) {
+      const int e = tb[static_cast<long long>(t) * K + cur];
+      const int ch = static_cast<int16_t>(e & 0xffff);
+      if (ch >= 0 && --pos < W) out[pos] = ch;
+      cur = e >> 16;
+    }
+  }
+}
+
+template <bool kStage, bool kWsShared>
+int launch_wide(const BeamArgs& a, size_t smem, cudaStream_t stream) {
+  auto fn = beam_wide_kernel<kStage, kWsShared>;
+  const cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fn<<<a.B, kWideThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The launch plan: out[0] = 1 if lp rows are staged in shared memory,
-// out[1] = 1 if the tracebacks fit in shared memory (else the caller's
-// [B, T, K] int32 scratch holds them), out[2] = dynamic shared bytes.
-CSR_API int csr_beam_plan(int T, int V, int K, int* out) {
+// The launch plan of a call: out[0] = 1 for the wide form (K > 32, an LM
+// context past 8 lanes, or `wide` asked for), out[1] = 1 if lp rows are
+// staged in shared memory, out[2] = 1 if the tracebacks fit in shared
+// memory (else the caller's [B, T, K] int32 scratch holds them), out[3] =
+// 1 if the wide form's workspace fits in shared memory beside the staged
+// rows (else the caller's [B, out[5]] byte scratch holds it; 1 for the
+// narrow form, whose state is static), out[4] = dynamic shared bytes a
+// block, out[5] = the workspace's bytes a row (0 for the narrow form).
+CSR_API int csr_beam_plan(int T, int V, int K, int ctx_len, int wide,
+                          int* out) {
+  wide = wide || K > kMaxBeam || ctx_len > kMaxCtx;
   const long long stage = V <= kStageMaxV ? 2LL * V * 4 : 0;
+  const long long ws = wide ? wide_layout(K, max(ctx_len, 1)).bytes : 0;
+  const bool ws_smem = stage + ws <= kSharedBudget;
+  const long long used = stage + (ws_smem ? ws : 0);
   const long long tbb = static_cast<long long>(T) * K * 4;
-  const bool tb_smem = stage + tbb <= kSharedBudget;
-  out[0] = stage > 0;
-  out[1] = tb_smem;
-  out[2] = static_cast<int>(stage + (tb_smem ? tbb : 0));
+  const bool tb_smem = used + tbb <= kSharedBudget;
+  out[0] = wide ? 1 : 0;
+  out[1] = stage > 0;
+  out[2] = tb_smem;
+  out[3] = ws_smem;
+  out[4] = static_cast<int>(used + (tb_smem ? tbb : 0));
+  out[5] = static_cast<int>(ws);
   return 0;
 }
 
-// Requires 1 <= K <= 32, 1 <= V <= 32767, 1 <= T, ctx_len <= 8, keep <= K,
-// width >= 0; tb_scratch non-null exactly when csr_beam_plan says the
-// tracebacks do not fit in shared memory (the wrapper checks all of it).
+// The narrow form. Requires 1 <= K <= 32, 1 <= V <= 32767, 1 <= T,
+// ctx_len <= 8, keep <= K, width >= 0; tb_scratch non-null exactly when
+// csr_beam_plan says the tracebacks do not fit in shared memory (the
+// wrapper checks all of it).
 CSR_API int csr_beam(const BeamArgs* args, cudaStream_t stream) {
   BeamArgs a = *args;
   if (a.B < 1 || a.T < 1 || a.V < 1 || a.V > 32767 || a.K < 1 ||
       a.K > kMaxBeam || a.ctx_len < 1 || a.ctx_len > kMaxCtx ||
       a.keep < 0 || a.keep > a.K || a.width < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int plan[3];
-  csr_beam_plan(a.T, a.V, a.K, plan);
-  if ((a.tb_scratch == nullptr) != (plan[1] == 1))
+  int plan[6];
+  csr_beam_plan(a.T, a.V, a.K, a.ctx_len, 0, plan);
+  if ((a.tb_scratch == nullptr) != (plan[2] == 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(plan[2]);
-  if (plan[0]) {
+  const size_t smem = static_cast<size_t>(plan[4]);
+  if (plan[1]) {
     return a.K <= 8 ? launch<8, true>(a, smem, stream)
                     : launch<32, true>(a, smem, stream);
   }
   return a.K <= 8 ? launch<8, false>(a, smem, stream)
                   : launch<32, false>(a, smem, stream);
+}
+
+// The wide form. Requires 1 <= K <= 32767 (the tracebacks pack the parent
+// into 16 bits), 1 <= V <= 32767, 1 <= T, ctx_len >= 1, keep <= K, width
+// >= 0; tb_scratch and ws_scratch non-null exactly where csr_beam_plan
+// (wide = 1) places the tracebacks and the workspace in global memory.
+CSR_API int csr_beam_wide(const BeamArgs* args, cudaStream_t stream) {
+  BeamArgs a = *args;
+  if (a.B < 1 || a.T < 1 || a.V < 1 || a.V > 32767 || a.K < 1 ||
+      a.K > kMaxWideBeam || a.ctx_len < 1 || a.keep < 0 || a.keep > a.K ||
+      a.width < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int plan[6];
+  csr_beam_plan(a.T, a.V, a.K, a.ctx_len, 1, plan);
+  if ((a.tb_scratch == nullptr) != (plan[2] == 1) ||
+      (a.ws_scratch == nullptr) != (plan[3] == 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(plan[4]);
+  if (plan[1]) {
+    return plan[3] ? launch_wide<true, true>(a, smem, stream)
+                   : launch_wide<true, false>(a, smem, stream);
+  }
+  return plan[3] ? launch_wide<false, true>(a, smem, stream)
+                 : launch_wide<false, false>(a, smem, stream);
 }

@@ -16,7 +16,9 @@ Two implementations, as in the reference:
 
 On a CUDA tensor the whole scan of a batch (or of one streaming chunk),
 with its final ordering and traceback, is ONE launch of ``csrc/beam.cu``
-(``ops/beam_cuda.beam_chunk_cuda``); on a CPU tensor it is the plain
+(``ops/beam_cuda.beam_chunk_cuda``: the narrow form up to K = 32 and an
+order-9 LM, the wide form at any other beam width up to 32767 and any LM
+order); on a CPU tensor it is the plain
 version here (``beam_chunk_plain``: ``_beam_step`` per frame as tensor
 ops, then ``_traceback``), which the card holds the kernel to. The plain
 version runs on any device, so the tests and ``chip_smoke.py`` call it on
@@ -452,8 +454,8 @@ def beam_chunk_plain(lp, lengths, state, dlm: DeviceLM, alpha: float,
 def beam_chunk(lp, lengths, state, dlm: DeviceLM, alpha: float, beta: float,
                keep: int, width: int, ordered: bool):
     """``beam_chunk_plain``'s contract: one kernel launch on a CUDA tensor
-    (``ops/beam_cuda.beam_chunk_cuda``; K > 32 raises there), the plain
-    version on a CPU tensor."""
+    (``ops/beam_cuda.beam_chunk_cuda``, either form: what neither takes
+    raises there), the plain version on a CPU tensor."""
     if lp.is_cuda:
         return beam_chunk_cuda(lp, lengths, state, dlm, alpha, beta, keep,
                                width, ordered)

@@ -3,12 +3,18 @@
 back the kept ones — ``decode/beam.beam_chunk_plain``'s contract, CUDA
 tensors only.
 
-The kernel keeps one lane a beam in its merges, so K ≤ 32 on the card
-(``MAX_BEAM``); a wider beam on a CUDA tensor raises here, it never takes
-the plain version. ``beam_plan`` reads the launch plan from the library:
-whether the lp rows are staged in shared memory and whether the chunk's
-tracebacks fit there (else a [B, T, K] int32 scratch in device memory
-holds them).
+Two forms, one launch either way. The narrow form (``csr_beam``, counted
+as ``beam``) keeps one lane a beam in its merges and its state in static
+shared memory: K ≤ 32 and an LM context of ≤ 8 lanes (order ≤ 9). Every
+other call takes the wide form (``csr_beam_wide``, counted as
+``beam_wide``): any K up to ``MAX_WIDTH`` (the tracebacks pack a parent
+into 16 bits) and any LM order, its top-K a radix select. ``beam_plan``
+reads the launch plan from the library: the form, whether the lp rows are
+staged in shared memory, whether the chunk's tracebacks fit there (else a
+[B, T, K] int32 scratch in device memory holds them) and, for the wide
+form, whether its per-row workspace (the state, the LM context lanes, the
+merge lists and the survivors) does (else a [B, bytes] scratch holds it).
+Nothing here takes the plain version: what the kernel cannot take raises.
 """
 
 from __future__ import annotations
@@ -20,8 +26,8 @@ import torch
 
 from .. import _kernels
 
-MAX_BEAM = 32          # csrc/beam.cu kMaxBeam
-MAX_CTX = 8            # LM context lanes (order <= 9), csrc/beam.cu kMaxCtx
+MAX_WIDTH = 32767      # beam width, csrc/beam.cu kMaxWideBeam
+MAX_SYMBOLS = 32767    # V, the reference's own limit (decode/beam.py:57)
 _LM_KINDS = {"none": 0, "dense": 1, "hashed": 2}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -33,7 +39,7 @@ class BeamArgs(ctypes.Structure):
         "lp", "lengths", "pb_in", "pnb_in", "h_in", "h2_in", "ph_in",
         "ph2_in", "last_in", "ctx_in", "pb_out", "pnb_out", "h_out",
         "h2_out", "ph_out", "ph2_out", "last_out", "ctx_out", "lm_table",
-        "lm_rows", "tb_scratch", "out_chars", "out_counts", "out_parent0",
+        "lm_rows", "tb_scratch", "ws_scratch", "out_chars", "out_counts", "out_parent0",
         "out_final")] + [(n, _I) for n in (
             "B", "T", "V", "K", "ctx_len", "lm_kind", "lm_order",
             "rows_fp16", "cap", "probes")] + [
@@ -42,32 +48,39 @@ class BeamArgs(ctypes.Structure):
 
 
 class BeamPlan(NamedTuple):
+    wide: int        # 1: the wide form (csr_beam_wide)
     staged: int      # 1: lp rows double-buffered in shared memory
     tb_shared: int   # 1: the tracebacks in shared memory, 0: in scratch
+    ws_shared: int   # 1: the wide form's workspace in shared memory (1 for
+    #                  the narrow form's static state), 0: in scratch
     smem: int        # dynamic shared memory a block, bytes
+    ws_bytes: int    # the wide form's workspace a row, bytes (0: narrow)
 
 
-def beam_plan(T: int, V: int, K: int) -> BeamPlan:
-    """The launch plan ``csrc/beam.cu`` takes; needs the card's build."""
-    out = (ctypes.c_int * 3)()
-    _kernels.call("csr_beam_plan", T, V, K, out)
+def beam_plan(T: int, V: int, K: int, ctx_len: int = 1,
+              wide: bool = False) -> BeamPlan:
+    """The launch plan ``csrc/beam.cu`` takes for a call (``wide``: the
+    wide form at any K, as the card tests hold it to the narrow one);
+    needs the card's build."""
+    out = (ctypes.c_int * 6)()
+    _kernels.call("csr_beam_plan", T, V, K, ctx_len, int(wide), out)
     return BeamPlan(*out)
 
 
 def beam_chunk_cuda(lp, lengths, state, dlm, alpha: float, beta: float,
-                    keep: int, width: int, ordered: bool):
+                    keep: int, width: int, ordered: bool, wide: bool = False):
     """One launch: ``beam_chunk_plain``'s outputs (chars, counts, parent0,
-    final, new state) for CUDA tensors."""
+    final, new state) for CUDA tensors. ``wide`` takes the wide form where
+    the plan would take the narrow one."""
     B, T, V = lp.shape
     pb, pnb, h, h2, ph, ph2, last, ctx = state
     K, CL = pb.shape[1], ctx.shape[2]
-    if not 1 <= K <= MAX_BEAM:
-        raise ValueError(f"beam kernel: beam width {K} outside 1..{MAX_BEAM} "
-                         "(one lane a beam in its merges; ROADMAP.md lists "
-                         "wider beams as a shape still to port)")
-    if T < 1 or V < 1 or V > 32767 or CL > MAX_CTX:
-        raise ValueError(f"beam kernel: T = {T}, V = {V} (1..32767) or "
-                         f"LM context {CL} (<= {MAX_CTX}) not taken")
+    if not 1 <= K <= MAX_WIDTH:
+        raise ValueError(f"beam kernel: beam width {K} outside 1..{MAX_WIDTH} "
+                         "(the tracebacks pack a parent into 16 bits)")
+    if T < 1 or not 1 <= V <= MAX_SYMBOLS or CL < 1:
+        raise ValueError(f"beam kernel: T = {T}, V = {V} (1..{MAX_SYMBOLS}) "
+                         f"or LM context {CL} (>= 1) not taken")
     if not 0 <= keep <= K or width < 0:
         raise ValueError(f"beam kernel: keep {keep} (<= {K}) or width "
                          f"{width} out of range")
@@ -100,9 +113,11 @@ def beam_chunk_cuda(lp, lengths, state, dlm, alpha: float, beta: float,
         if cap & (cap - 1):
             raise ValueError(f"hashed LM capacity {cap} is not a power of 2")
 
-    plan = beam_plan(T, V, K)
+    plan = beam_plan(T, V, K, CL, wide)
     scratch = (None if plan.tb_shared else
                torch.empty((B, T, K), dtype=torch.int32, device=dev))
+    ws = (None if plan.ws_shared else
+          torch.empty((B, plan.ws_bytes), dtype=torch.uint8, device=dev))
     new = tuple(torch.empty_like(x) for x in state)
     chars = torch.empty((B, keep, width), dtype=torch.int32, device=dev)
     counts = torch.empty((B, keep), dtype=torch.int32, device=dev)
@@ -112,9 +127,10 @@ def beam_chunk_cuda(lp, lengths, state, dlm, alpha: float, beta: float,
     args = BeamArgs(
         lp.data_ptr(), lengths.data_ptr(), *(x.data_ptr() for x in state),
         *(x.data_ptr() for x in new), ptr(table), ptr(rows), ptr(scratch),
-        chars.data_ptr(), counts.data_ptr(), parent0.data_ptr(),
+        ptr(ws), chars.data_ptr(), counts.data_ptr(), parent0.data_ptr(),
         final.data_ptr(), B, T, V, K, CL, kind, dlm.order,
         int(rows is not None and rows.dtype == torch.float16), cap,
         dlm.probes, alpha, beta, keep, width, int(ordered))
-    _kernels.BEAM.launch(ctypes.addressof(args), _kernels.stream_ptr(lp))
+    kernel = _kernels.BEAM_WIDE if plan.wide else _kernels.BEAM
+    kernel.launch(ctypes.addressof(args), _kernels.stream_ptr(lp))
     return chars, counts, parent0, final, new

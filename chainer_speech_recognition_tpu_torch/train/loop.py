@@ -59,6 +59,7 @@ from ..models.presets import build_model, init_parameters
 from ..ops.ctc import LOG_ZERO
 from ..parallel.mesh import (any_rank, broadcast_, dispatch_rows, make_mesh,
                              row_segment)
+from ..utils.runtime import TRACE, profile_trace
 from ..vocab import Vocab
 from .metrics import MetricsLogger
 from .state import init_state
@@ -338,10 +339,7 @@ def _train(cfg, train_utts, vocab, dev_utts, metrics_path, resume,
         nonlocal prof
         if (profile_dir and prof is None
                 and state.step <= 10 < state.step + k_dispatch):
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                *([torch.profiler.ProfilerActivity.CUDA]
-                  if device.type == "cuda" else [])])
+            prof = profile_trace(profile_dir, device)
             prof.__enter__()
         first = bucket_id not in seen_buckets
         t_c = time.perf_counter()
@@ -357,14 +355,10 @@ def _train(cfg, train_utts, vocab, dev_utts, metrics_path, resume,
 
     def _stop_profile(steps: str = "10-14"):
         nonlocal prof
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
         prof.__exit__(None, None, None)
-        os.makedirs(profile_dir, exist_ok=True)
-        path = os.path.join(profile_dir, "trace.json")
-        prof.export_chrome_trace(path)
         prof = None
-        log.log("profile", trace=path, steps=steps)
+        log.log("profile", trace=os.path.join(profile_dir, TRACE),
+                steps=steps)
 
     def crossed(every: int) -> bool:
         """Did the last dispatch cross a multiple of ``every``?"""

@@ -13,7 +13,8 @@ data-parallel training, config 5 (phase 25), the online presets end
 to end (phases 26-28: the one-direction training forms, uni_gru training,
 conformer_stream streaming), the flash kernels at every head width the
 reference takes, conformer at dh 128 and 256, and ``glu_conv`` (phases
-29-31), and the recurrences past H = 512 (phases 32-33), with random
+29-31), the recurrences past H = 512 (phases 32-33), and the beam at
+every width and LM order the reference takes (phase 34), with random
 weights made from a seed, and fails (exit code != 0, no result line) if
 any phase fails:
 
@@ -312,6 +313,21 @@ any phase fails:
     card vs CPU and its stream CLI, decode CLI and --raw; no layer call
     on the plain scan (``rnn_cuda.ROUTED``).
     Phases 32-33's walls are printed against a 60 s budget.
+34. the beam's wide form (``phase_beam_widths``: K > 32 or an LM context
+    past 8 lanes; a radix-select top-K, its workspace in shared or global
+    memory) against its plain version at phase 23's decode shape (B = 32,
+    T' = 251, V = 64): K = 33, 64, 128 and 256 without an LM and with the
+    dense 3-gram, a hashed 10-gram of fp16 rows at K = 64, V = 2048
+    without an LM at K = 64, and the narrow form at K = 32 beside them;
+    the n-best form with ids, counts, parents and the hash state exact,
+    scores within 1e-4, one launch of the case's form and none of the
+    other; 16-frame chunks equal to the offline 1-best at K = 64, one wide
+    launch a chunk; each case's 1-best form timed by graph replays in
+    alternating rounds (the plain version: its check's one eager call);
+    then the decode CLI and the stream CLI (causal CMVN) with ``--beam 64
+    --lm`` over the 64 wavs, exact launches, every launch held to the
+    plain version (``beam_cli_runs``, as phase 23's). Its wall is printed
+    against a 40 s budget.
 
 The last two lines of stdout are the kernel table and the device line as
 JSON. Nothing of JAX or of the JAX package is imported; the run checks at
@@ -455,6 +471,9 @@ SOURCES = {
     "beam": (
         "chainer_speech_recognition_tpu_torch/csrc/beam.cu",
         "chainer_speech_recognition_tpu/decode/beam.py:342"),
+    "beam_wide": (
+        "chainer_speech_recognition_tpu_torch/csrc/beam.cu",
+        "chainer_speech_recognition_tpu/decode/beam.py:342"),
 }
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the kernels line's notes: dw replaces an XLA einsum, not a Pallas call
@@ -480,7 +499,16 @@ NOTES = {"dw": "replaces _dw_einsum, an XLA einsum (not a Pallas call); "
                  "and _beam_chunk_jit (not a Pallas call); timed at the "
                  "decode shape with the dense 3-gram, launches from the "
                  "decode CLI's --beam 8 --lm run; no PyTorch call computes "
-                 "a prefix beam"}
+                 "a prefix beam",
+         "beam_wide": "the beam's wide form (K > 32 or an LM context past "
+                      "8 lanes: a radix-select top-K, its workspace in "
+                      "shared or global memory; beam_wide_kernel in "
+                      "csrc/beam.cu), replacing the same _beam_step; timed "
+                      "in phase 34 at the decode shape with the dense "
+                      "3-gram at K = 64 (cases: every K and LM of phase 34, "
+                      "the plain version one eager call), launches from the "
+                      "decode CLI's --beam 64 --lm run; no PyTorch call "
+                      "computes a prefix beam"}
 # the recurrences' "H" sub-entries (phase 32), beside any note above
 WIDE_NOTE = ("H: the kernel at hidden sizes 640, 768, 1024 and 2048 (W "
              "streamed from global memory at each step), timed in phase 32 "
@@ -513,9 +541,6 @@ BEAM_FRAMES, BEAM_WIDTH, BEAM_ALPHA, BEAM_BETA = 251, 8, 0.5, 1.0
 BEAM_CHUNK = 16                       # frames a chunk of the chunked check
 BEAM_ROUNDS = 5                       # alternating timing rounds
 BEAM_BUDGET_S = 30.0
-# H100 SXM datasheet: HBM bytes/s, dense peak FLOP/s
-HBM_RATE = 3.35e12
-PEAK = {"bf16": 989e12, "fp32": 67e12}
 
 
 class SmokeFailure(Exception):
@@ -552,9 +577,15 @@ def time_ms(fn, warmup: int = 2, reps: int = 7, calls: int = 1) -> float:
 
 def bound(nbytes: float, flops: float, kind: str) -> dict:
     """The least time the card could take: bytes over the HBM rate or
-    operations over the peak of their type, whichever is larger."""
-    t_bytes = nbytes / HBM_RATE * 1e3
-    t_ops = flops / PEAK[kind] * 1e3
+    operations over the peak of their type, whichever is larger, on the
+    H100 SXM's datasheet peaks (``utils/flops.CARDS``)."""
+    from chainer_speech_recognition_tpu_torch.utils.flops import (
+        CARDS, H100_SXM)
+
+    card = CARDS[H100_SXM]
+    peak = {"bf16": card.bf16_tflops, "fp32": card.fp32_tflops}[kind]
+    t_bytes = nbytes / (card.hbm_tbs * 1e12) * 1e3
+    t_ops = flops / (peak * 1e12) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -4151,16 +4182,18 @@ def phase_parity_path(root: str, dev, rng) -> None:
           f"{PARITY_BUDGET_S} s: {'within' if took <= PARITY_BUDGET_S else 'OVER'})")
 
 
-def train_arpa(root: str, vocab_path: str, rng, order: int) -> str:
-    """An ``order``-gram LM trained (``NGramLM.train``) on 400 random
-    strings over the vocab's symbols and written as ARPA; → its path."""
+def train_arpa(root: str, vocab_path: str, rng, order: int,
+               n_texts: int = 400) -> str:
+    """An ``order``-gram LM trained (``NGramLM.train``) on ``n_texts``
+    random strings over the vocab's symbols and written as ARPA; → its
+    path."""
     from chainer_speech_recognition_tpu_torch.decode.lm import NGramLM
     from chainer_speech_recognition_tpu_torch.vocab import Vocab
 
     vocab = Vocab.load(vocab_path)
     syms = vocab.symbols[1:]
     texts = ["".join(rng.choice(syms, size=int(rng.integers(5, 40))))
-             for _ in range(400)]
+             for _ in range(n_texts)]
     path = os.path.join(root, f"lm_{order}gram.arpa")
     NGramLM.train(texts, vocab, order=order).to_arpa(path, vocab)
     return path
@@ -4211,6 +4244,89 @@ def beam_checked(log: list):
         beam.beam_chunk = orig
 
 
+def beam_cli_runs(ckpt, sckpt, vocab, wavs, audio_s, K: int, arpa: str,
+                  kernel: str) -> int:
+    """The decode CLI with ``--beam K --lm arpa`` (``ckpt``) and the stream
+    CLI with the same (``sckpt``, causal CMVN, chunk 64 + 16) over the
+    wavs: every beam launch held to the plain version on its inputs
+    (``beam_checked``), exact launches (the beam form ``kernel`` once a
+    decode chunk and a stream window, the other form never), warm reruns
+    equal to the cold runs; → the decode CLI's launches of ``kernel``."""
+    import wave
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch import constants as C
+    from chainer_speech_recognition_tpu_torch.cli import stream
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+
+    args = ["--ckpt-dir", ckpt, "--vocab", vocab, "--batch",
+            str(BATCH), "--device", "cuda", "--beam", str(K), "--lm", arpa,
+            "--lm-alpha", str(BEAM_ALPHA), "--lm-beta", str(BEAM_BETA),
+            *wavs]
+    diffs: list = []
+    _kernels.reset_launches()
+    with beam_checked(diffs):
+        lines, cold = run_decode(args)
+    launches = _kernels.launches()
+    decode_launches = launches[kernel]
+    want = {k: 0 for k in _kernels.KERNELS}
+    want.update({**DECODE_LAUNCHES[PRESET], "greedy": 0,
+                 kernel: -(-len(wavs) // BATCH)})
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches on "
+              f"the --beam {K} decode path, expected {n}")
+    check(len(diffs) == want[kernel], "not every beam launch was checked")
+    check([l.split("\t")[0] for l in lines] == wavs and all(
+        len(l.split("\t")) == 2 for l in lines), "beam decode output")
+    check(any(l.split("\t")[1] for l in lines), "every transcript is empty")
+    lines2, warm = run_decode(args)
+    check(lines2 == lines, "warm beam decode differs from the cold one")
+    print(f"[beam-decode] decode --beam {K} --lm (3-gram, dense): cold "
+          f"{cold:.3f} s (launches "
+          f"{ {k: v for k, v in launches.items() if v} }, each beam launch "
+          f"equal to the plain version on its logits), warm {warm:.3f} s: "
+          f"{len(wavs) / warm:.3f} utt/s, RTF {warm / audio_s:.6f}")
+
+    lens_w = []
+    for w in wavs:
+        with wave.open(w, "rb") as f:
+            lens_w.append(f.getnframes())
+    order = sorted(lens_w)
+    windows = sum(-(-C.num_frames(max(order[i : i + BATCH])) // STREAM_CHUNK)
+                  for i in range(0, len(order), BATCH))
+    layers = preset_config(PRESET).model.rnn_layers
+    sargs = ["--ckpt-dir", sckpt, "--vocab", vocab, "--device", "cuda",
+             "--batch", str(BATCH), "--chunk-frames", str(STREAM_CHUNK),
+             "--right-frames", "16", "--beam", str(K), "--lm", arpa,
+             "--lm-alpha", str(BEAM_ALPHA), "--lm-beta", str(BEAM_BETA),
+             *wavs]
+    diffs = []
+    _kernels.reset_launches()
+    with beam_checked(diffs):
+        slines, _, swall = run_cli(stream.main, sargs)
+    launches = _kernels.launches()
+    want = {k: 0 for k in _kernels.KERNELS}
+    want.update({"frontend_logmel": windows, "gru_fwd_stream":
+                 layers * windows, kernel: windows})
+    for name, n in want.items():
+        check(launches[name] == n, f"{name}: {launches[name]} launches on "
+              f"the --beam {K} stream path, expected {n}")
+    check(len(diffs) == windows, "not every stream beam launch was checked")
+    check([l.split("\t")[0] for l in slines] == wavs, "stream output order")
+    check(any(l.split("\t")[1] for l in slines), "every streamed transcript "
+          "is empty")
+    slines2, _, swarm = run_cli(stream.main, sargs)
+    check(slines2 == slines, "warm beam stream differs from the cold one")
+    print(f"[beam-stream] stream --beam {K} --lm, chunk {STREAM_CHUNK} + "
+          f"16: {windows} windows (one beam launch each, equal to the plain "
+          f"version on its logits), cold {swall:.3f} s, warm {swarm:.3f} s: "
+          f"{len(wavs) / swarm:.3f} utt/s, RTF {swarm / audio_s:.6f}")
+    for l in slines[:2]:
+        print(f"[beam-stream] {os.path.basename(l.split(chr(9))[0])}: "
+              f"{l.split(chr(9))[1][:40]!r}")
+    return decode_launches
+
+
 def phase_beam(root, ckpt, vocab, wavs, audio_s, dev,
                rng) -> tuple[dict, int]:
     """Phase 23, config 4: the prefix beam kernel against its plain version
@@ -4222,13 +4338,9 @@ def phase_beam(root, ckpt, vocab, wavs, audio_s, dev,
     stream CLI (--beam 8 --lm, causal CMVN) on the 64 wavs with exact
     launches and every launch held to the plain version on its inputs.
     → (the kernel line's timings, the decode CLI's beam launches)."""
-    import wave
-
     import torch
 
     from chainer_speech_recognition_tpu_torch import _kernels
-    from chainer_speech_recognition_tpu_torch import constants as C
-    from chainer_speech_recognition_tpu_torch.cli import stream
     from chainer_speech_recognition_tpu_torch.config import preset_config
     from chainer_speech_recognition_tpu_torch.decode import beam
     from chainer_speech_recognition_tpu_torch.decode.lm import (
@@ -4360,78 +4472,202 @@ def phase_beam(root, ckpt, vocab, wavs, audio_s, dev,
           f"({k2 / T * 1e3:.3f} us a frame), plan "
           f"{beam_cuda.beam_plan(T, 2048, K)}")
 
-    # the decode CLI, every launch held to the plain version
-    args = ["--ckpt-dir", ckpt, "--vocab", vocab, "--batch",
-            str(BATCH), "--device", "cuda", "--beam", str(K), "--lm", arpa3,
-            "--lm-alpha", str(BEAM_ALPHA), "--lm-beta", str(BEAM_BETA),
-            *wavs]
-    diffs: list = []
-    _kernels.reset_launches()
-    with beam_checked(diffs):
-        lines, cold = run_decode(args)
-    launches = _kernels.launches()
-    decode_launches = launches["beam"]
-    want = {k: 0 for k in _kernels.KERNELS}
-    want.update({**DECODE_LAUNCHES[PRESET], "greedy": 0,
-                 "beam": -(-len(wavs) // BATCH)})
-    for name, n in want.items():
-        check(launches[name] == n, f"{name}: {launches[name]} launches on "
-              f"the beam decode path, expected {n}")
-    check(len(diffs) == want["beam"], "not every beam launch was checked")
-    check([l.split("\t")[0] for l in lines] == wavs and all(
-        len(l.split("\t")) == 2 for l in lines), "beam decode output")
-    check(any(l.split("\t")[1] for l in lines), "every transcript is empty")
-    lines2, warm = run_decode(args)
-    check(lines2 == lines, "warm beam decode differs from the cold one")
-    print(f"[beam-decode] decode --beam {K} --lm (3-gram, dense): cold "
-          f"{cold:.3f} s (launches "
-          f"{ {k: v for k, v in launches.items() if v} }, each beam launch "
-          f"equal to the plain version on its logits), warm {warm:.3f} s: "
-          f"{len(wavs) / warm:.3f} utt/s, RTF {warm / audio_s:.6f}")
-
-    # the stream CLI with the beam, causal CMVN
     sckpt = write_checkpoint(root, PRESET, rng,
                              {"features.cmvn_mode": "causal"})
-    lens_w = []
-    for w in wavs:
-        with wave.open(w, "rb") as f:
-            lens_w.append(f.getnframes())
-    order = sorted(lens_w)
-    windows = sum(-(-C.num_frames(max(order[i : i + BATCH])) // STREAM_CHUNK)
-                  for i in range(0, len(order), BATCH))
-    layers = preset_config(PRESET).model.rnn_layers
-    sargs = ["--ckpt-dir", sckpt, "--vocab", vocab, "--device", "cuda",
-             "--batch", str(BATCH), "--chunk-frames", str(STREAM_CHUNK),
-             "--right-frames", "16", "--beam", str(K), "--lm", arpa3,
-             "--lm-alpha", str(BEAM_ALPHA), "--lm-beta", str(BEAM_BETA),
-             *wavs]
-    diffs = []
-    _kernels.reset_launches()
-    with beam_checked(diffs):
-        slines, _, swall = run_cli(stream.main, sargs)
-    launches = _kernels.launches()
-    want = {k: 0 for k in _kernels.KERNELS}
-    want.update({"frontend_logmel": windows, "gru_fwd_stream":
-                 layers * windows, "beam": windows})
-    for name, n in want.items():
-        check(launches[name] == n, f"{name}: {launches[name]} launches on "
-              f"the beam stream path, expected {n}")
-    check(len(diffs) == windows, "not every stream beam launch was checked")
-    check([l.split("\t")[0] for l in slines] == wavs, "stream output order")
-    check(any(l.split("\t")[1] for l in slines), "every streamed transcript "
-          "is empty")
-    slines2, _, swarm = run_cli(stream.main, sargs)
-    check(slines2 == slines, "warm beam stream differs from the cold one")
+    decode_launches = beam_cli_runs(ckpt, sckpt, vocab, wavs, audio_s, K,
+                                    arpa3, "beam")
     took = time.perf_counter() - t_phase
-    print(f"[beam-stream] stream --beam {K} --lm, chunk {STREAM_CHUNK} + "
-          f"16: {windows} windows (one beam launch each, equal to the plain "
-          f"version on its logits), cold {swall:.3f} s, warm {swarm:.3f} s: "
-          f"{len(wavs) / swarm:.3f} utt/s, RTF {swarm / audio_s:.6f}; phase "
-          f"23 took {took:.3f} s (budget {BEAM_BUDGET_S} s: "
+    print(f"[beam] phase 23 took {took:.3f} s (budget {BEAM_BUDGET_S} s: "
           f"{'within' if took <= BEAM_BUDGET_S else 'OVER'})")
-    for l in slines[:2]:
-        print(f"[beam-stream] {os.path.basename(l.split(chr(9))[0])}: "
-              f"{l.split(chr(9))[1][:40]!r}")
+    return t, decode_launches
+
+
+# phase 34: the beam's wide form (K > 32 or an LM context past 8 lanes) at
+# phase 23's decode shape; K = 32 is the narrow form's, beside it
+BEAM_WIDE_KS = (32, 33, 64, 128, 256)
+BEAM_WIDE_K = 64                      # the CLIs' and the chunked check's
+BEAM_WIDE_ORDER = 10                  # the hashed LM: 9 context lanes
+BEAM_WIDE_TEXTS = 60                  # its training strings (~7 k contexts)
+BEAM_WIDE_BUDGET_S = 40.0
+
+
+def beam_bytes(lens, V: int, K: int, CL: int, n_rows: int, row_bytes: int,
+               keep: int, width: int) -> int:
+    """Bytes one beam launch must move: the live frames' log-probs, each
+    distinct LM row its hypotheses read, the lengths, the state in and out,
+    the final scores and the kept beams' chars, counts and parents."""
+    B = lens.shape[0]
+    state = B * K * (7 + CL) * 4
+    return (int(lens.sum()) * V * 4 + n_rows * V * row_bytes + B * 4
+            + 2 * state + B * K * 4 + B * keep * (width + 2) * 4)
+
+
+def phase_beam_widths(root, ckpt, vocab, wavs, audio_s, dev,
+                      rng) -> tuple[dict, int]:
+    """Phase 34: the beam kernel's wide form against its plain version at
+    the decode shape (B = 32, T' = 251, V = 64) at K = 33, 64, 128, 256
+    without an LM and with the dense 3-gram, at K = 64 with a hashed
+    10-gram of fp16 rows and at V = 2048 without an LM, and the narrow
+    form at K = 32 beside them: the n-best form, ids, counts, parents and
+    the hash state exact, scores within ``TOL["beam_score"]``, each case
+    one launch of its form and none of the other; 16-frame chunks equal
+    the offline 1-best at K = 64, one launch a chunk; each case's 1-best
+    form timed by graph replays in alternating rounds (the plain version:
+    the one eager call of its check); then the decode and stream CLIs with
+    ``--beam 64 --lm`` (``beam_cli_runs``). → (the kernel line's
+    ``beam_wide`` entry, the decode CLI's wide launches)."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch import _kernels
+    from chainer_speech_recognition_tpu_torch.config import preset_config
+    from chainer_speech_recognition_tpu_torch.decode import beam
+    from chainer_speech_recognition_tpu_torch.decode.lm import (
+        HashedLM, NGramLM, device_lm)
+    from chainer_speech_recognition_tpu_torch.ops import beam_cuda
+    from chainer_speech_recognition_tpu_torch.vocab import Vocab
+
+    t_phase = time.perf_counter()
+    B, T, a, b = CHECK_B, BEAM_FRAMES, BEAM_ALPHA, BEAM_BETA
+    V = preset_config(PRESET).model.vocab_size
+    vocab_obj = Vocab.load(vocab)
+    arpa3 = train_arpa(root, vocab, rng, 3)
+    dense = device_lm(NGramLM.from_arpa(arpa3, vocab_obj), "auto")
+    h = NGramLM.from_arpa(train_arpa(root, vocab, rng, BEAM_WIDE_ORDER,
+                                     BEAM_WIDE_TEXTS), vocab_obj).to_hashed()
+    hashed16 = HashedLM(h.table, h.rows.astype(np.float16), h.order,
+                        h.max_probes)
+    check(isinstance(dense, tuple), "the 3-gram should take the dense table")
+    lens = torch.from_numpy(rng.integers(T // 2, T + 1, B).astype(np.int32))
+    lens[0] = T
+    lens = lens.to(dev)
+
+    def logits_of(V_):
+        x = rng.standard_normal((B, T, V_)).astype(np.float32) * 2
+        path = rng.integers(0, V_, (B, T))
+        for r in range(B):
+            x[r, np.arange(T), path[r]] += 3.0
+        return torch.from_numpy(x).to(dev)
+
+    lg, lg2048 = logits_of(V), logits_of(2048)
+    cases = [(f"K={K} {n}", K, lg, lm) for K in BEAM_WIDE_KS
+             for n, lm in (("no LM", None), ("dense 3-gram", dense))]
+    cases += [(f"K={BEAM_WIDE_K} hashed {BEAM_WIDE_ORDER}-gram fp16",
+               BEAM_WIDE_K, lg, hashed16),
+              (f"K={BEAM_WIDE_K} V=2048 no LM", BEAM_WIDE_K, lg2048, None)]
+    # the distinct LM rows a plain run reads, by a checksum of each row
+    sums: list = []
+    lm_rows = beam._lm_rows
+
+    def collect(dlm_, ctx, V_):
+        out = lm_rows(dlm_, ctx, V_)
+        w = torch.linspace(1.0, 2.0, V_, dtype=torch.float64, device=dev)
+        sums.append(torch.unique(out.reshape(-1, V_).double() @ w))
+        return out
+
+    res, replays, calls, inputs = {}, {}, {}, []
+    for name, K, logits, lm in cases:
+        lp = beam._log_probs(logits)
+        V_ = lp.shape[2]
+        dlm = beam.lm_on_device(lm, V_, dev)
+        s0 = beam.beam_stream_init(B, K, dlm.ctx_len, dev)
+        plan = beam_cuda.beam_plan(T, V_, K, dlm.ctx_len)
+        form = "beam_wide" if plan.wide else "beam"
+        _kernels.reset_launches()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        got = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, K, T, True)
+        e1.record()
+        torch.cuda.synchronize()
+        # a graph holds ~20 ms of calls: one for the slowest cases
+        calls[name] = max(1, min(GRAPH_CALLS, int(20 / e0.elapsed_time(e1))))
+        launched = {k: n for k, n in _kernels.launches().items() if n}
+        check(launched == {form: 1}, f"beam {name}: launches {launched}, "
+              f"expected one of {form}")
+        sums.clear()
+        beam._lm_rows = collect
+        try:
+            e0.record()
+            want = beam.beam_chunk_plain(lp, lens, s0, dlm, a, b, K, T, True)
+            e1.record()
+            torch.cuda.synchronize()
+        finally:
+            beam._lm_rows = lm_rows
+        err = beam_same(f"beam {name}", got, want)
+        n_rows = int(torch.unique(torch.cat(sums)).numel()) if sums else 0
+        row_bytes = 2 if dlm.rows is not None and \
+            dlm.rows.dtype == torch.float16 else 4
+        n_bytes = beam_bytes(lens, V_, K, dlm.ctx_len, n_rows, row_bytes, 1, T)
+        replay, out = graph_of(
+            lambda lp=lp, s0=s0, dlm=dlm: beam_cuda.beam_chunk_cuda(
+                lp, lens, s0, dlm, a, b, 1, T, True)[0], calls[name])
+        replay()
+        torch.cuda.synchronize()
+        check(torch.equal(out, want[0][:, :1]), f"beam {name}: the 1-best "
+              "replay differs from the plain version's best beam")
+        replays[name] = replay
+        inputs.append((lp, s0, dlm))      # the graph reads them at replay
+        res[name] = dict(form=form, plan=tuple(plan), max_abs_err=err,
+                         plain_ms=e0.elapsed_time(e1), n_rows=n_rows,
+                         **bound(n_bytes, 0, "fp32"))
+    rounds = {n: [] for n in replays}
+    for _ in range(BEAM_ROUNDS):
+        for n, replay in replays.items():
+            rounds[n].append(time_ms(replay, warmup=0, reps=1) / calls[n])
+    for name, r in res.items():
+        r["ms"] = statistics.median(rounds[name])
+        print(f"[beam-wide] {name} ({r['form']}, plan {r['plan']}): kernel "
+              f"{r['ms']:.4f} ms ({r['ms'] / T * 1e3:.3f} us a frame; rounds "
+              f"{min(rounds[name]):.4f}-{max(rounds[name]):.4f}), plain "
+              f"{r['plain_ms']:.3f} ms (one eager call, "
+              f"{r['plain_ms'] / r['ms']:.1f}x), bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}, {r['n_rows']} distinct LM rows; share "
+              f"{r['bound_ms'] / r['ms']:.5f}), max score difference "
+              f"{r['max_abs_err']:.2e}")
+    print(f"[beam-wide] every case equals the plain version (n-best ids, "
+          f"counts, parents, hash state exact; scores within "
+          f"{TOL['beam_score']}), one launch of its form; the 1-best "
+          f"replays equal its best beam; {BEAM_ROUNDS} alternating rounds of "
+          f"graph replays ({GRAPH_CALLS} calls a graph, fewer where a call "
+          "takes over 2 ms); the frame chain, not the bytes, sets the pace; "
+          "no PyTorch call computes a prefix beam")
+
+    # chunked == offline on the card at K = 64, one launch a chunk
+    K = BEAM_WIDE_K
+    _kernels.reset_launches()
+    offline = beam.beam_decode(lg, lens, beam=K, lm=dense, alpha=a, beta=b)
+    dec = beam.BeamStreamDecoder(B, beam=K, lm=dense, alpha=a, beta=b)
+    n_chunks = 0
+    for c0 in range(0, T, BEAM_CHUNK):
+        dec.step(lg[:, c0 : c0 + BEAM_CHUNK],
+                 torch.clamp(lens - c0, 0, BEAM_CHUNK))
+        n_chunks += 1
+    launched = {k: n for k, n in _kernels.launches().items() if n}
+    check(launched == {"beam_wide": 1 + n_chunks}, f"chunked beam at K={K}: "
+          f"launches {launched}, expected {1 + n_chunks} of beam_wide")
+    check(dec.finish() == offline, f"chunked beam at K={K} differs from "
+          "offline")
+    print(f"[beam-wide] K={K}, dense 3-gram: {n_chunks} chunks of "
+          f"{BEAM_CHUNK} frames, one wide launch each, equal the offline "
+          f"1-best (one launch) on all {B} rows")
+
+    sckpt = write_checkpoint(root, PRESET, rng,
+                             {"features.cmvn_mode": "causal"},
+                             name="bigru_beam_wide")
+    decode_launches = beam_cli_runs(ckpt, sckpt, vocab, wavs, audio_s, K,
+                                    arpa3, "beam_wide")
+    wide = {n: r for n, r in res.items() if r["form"] == "beam_wide"}
+    main = wide[f"K={K} dense 3-gram"]
+    t = dict(max_abs_err=max(r["max_abs_err"] for r in wide.values()),
+             ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+             cases={n: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")}
+                    for n, r in wide.items()})
+    took = time.perf_counter() - t_phase
+    print(f"[beam-wide] phase 34 took {took:.3f} s (budget "
+          f"{BEAM_WIDE_BUDGET_S} s: "
+          f"{'within' if took <= BEAM_WIDE_BUDGET_S else 'OVER'})")
     return t, decode_launches
 
 
@@ -5429,6 +5665,10 @@ def main() -> int:
             wide_launches = phase_rnn_wide_path(root, vocab, wavs, audio_s,
                                                 data, index, dev, hrng)
             wide_walls[33] = time.perf_counter() - t_new
+            # phase 34 draws from a stream of its own
+            timings["beam_wide"], launches_wide = phase_beam_widths(
+                root, ckpt, vocab, wavs, audio_s, dev,
+                np.random.default_rng(SEED + 10))
         launches.update({k: train_launches[k] for k in (
             "gru_fwd_train", "gru_bwd", "ctc_fwd", "ctc_bwd")})
         launches["lstm_fwd"] = lstm_decode["lstm_fwd"]
@@ -5441,6 +5681,7 @@ def main() -> int:
         launches["flash_bwd_dq"] = conf_train["flash_bwd_dq"]
         launches["flash_bwd_dkv"] = conf_train["flash_bwd_dkv"]
         launches["beam"] = beam_launches
+        launches["beam_wide"] = launches_wide
         check(cs_stream["frontend_logmel"] > 0, "conformer_stream online: "
               "no front-end launch")
         # the one-direction training forms: sub-entries of their kernels,

@@ -3,7 +3,10 @@ and the card holds its kernel to) against the reference's ``beam_decode`` /
 ``beam_decode_nbest`` on the same seeded logits: B = 4, T = 40, per-row
 lengths (one row of a single frame), V ∈ {5, 64, 512} × K ∈ {1, 4, 8}
 without an LM, with a dense 3-gram, a hashed 4-gram, a unigram at α = 0,
-β ≠ 0, and V = 3000 with an order-4 hashed LM (fp32 and fp16 rows).
+β ≠ 0, and V = 3000 with an order-4 hashed LM (fp32 and fp16 rows); the
+widths the kernel's wide form takes, K ∈ {33, 64, 100, 128} at V = 64
+without an LM, with the dense 3-gram and with the hashed 4-gram, and a
+hashed 12-gram (11 context lanes) at K = 64.
 
 Tolerances: 1-best ids, n-best prefixes and lengths exactly (dead-beam
 rows included: they show the top-K's tie rule), final scores within 1e-4
@@ -65,6 +68,9 @@ def _lms(kind, V):
         return random_lm(jl, V, 3, 5), random_lm(tl, V, 3, 5), 0.6, 0.5
     if kind == "unigram":
         return random_lm(jl, V, 1, 6), random_lm(tl, V, 1, 6), 0.0, 1.5
+    if kind == "hashed12":
+        return (random_lm(jl, V, 12, 8, 20).to_hashed(),
+                random_lm(tl, V, 12, 8, 20).to_hashed(), 0.6, 0.5)
     j, t = random_lm(jl, V, 4, 7).to_hashed(), random_lm(tl, V, 4, 7) \
         .to_hashed()
     if kind == "hashed4_fp16":
@@ -77,7 +83,10 @@ def _lms(kind, V):
 
 CASES = ([(V, K, "none") for V in (5, 64, 512) for K in (1, 4, 8)]
          + [(64, 8, "dense3"), (64, 4, "hashed4"), (64, 8, "unigram"),
-            (3000, 8, "hashed4"), (3000, 8, "hashed4_fp16")])
+            (3000, 8, "hashed4"), (3000, 8, "hashed4_fp16")]
+         + [(64, K, kind) for K in (33, 64, 100, 128)
+            for kind in ("none", "dense3", "hashed4")]
+         + [(64, 64, "hashed12")])
 
 
 @pytest.mark.parametrize("V,K,kind", CASES)

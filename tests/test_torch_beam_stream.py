@@ -1,7 +1,8 @@
 """The port's streaming beam against the reference's, on the CPU.
 
 ``BeamStreamDecoder`` over chunks of {1, 7, 16} frames (per-row valid
-counts, a dense 3-gram LM or none): the tokens it finalizes after each
+counts, a dense 3-gram LM or none; K = 6, and K = 64, a width of the
+kernel's wide form, at 16 frames): the tokens it finalizes after each
 step equal the reference ``BeamStreamDecoder``'s, and its final 1-best
 equals the port's offline beam on the same logits (the recursion is
 causal, so chunking is exact). ``StreamingRecognizer(decoder="beam",
@@ -28,7 +29,17 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize("chunk", [1, 7, 16])
 @pytest.mark.parametrize("with_lm", [False, True])
 def test_chunked_decoder_matches_reference_and_offline(chunk, with_lm):
-    B, T, V, K = 3, 40, 12, 6
+    _chunked_case(chunk, 6, with_lm)
+
+
+@pytest.mark.parametrize("with_lm", [False, True])
+def test_chunked_decoder_wide_beam_matches_reference(with_lm):
+    """K = 64, a width only the kernel's wide form takes on the card."""
+    _chunked_case(16, 64, with_lm)
+
+
+def _chunked_case(chunk, K, with_lm):
+    B, T, V = 3, 40, 12
     rng = np.random.default_rng(chunk)
     logits = (rng.standard_normal((B, T, V)) * 2).astype(np.float32)
     path = rng.integers(0, V, (B, T))

@@ -1370,7 +1370,7 @@ def _beam_case(dev, B, T, V, K, kind, seed):
     lens[0] = T
     lm = None
     if kind != "none":
-        order = {"dense3": 3, "hashed4": 4, "hashed4_fp16": 4}[kind]
+        order = int("".join(c for c in kind.split("_")[0] if c.isdigit()))
         lm = NGramLM(order, V)
         lm.logp[0][()] = {c: float(np.log(0.8 / (V - 1)))
                           for c in range(1, V, 3)}
@@ -1398,24 +1398,37 @@ def _beam_case(dev, B, T, V, K, kind, seed):
     (2, 20, 3000, 8, "hashed4"), (3, 25, 64, 32, "none"),
     (2, 12, 64, 9, "dense3"), (1, 1700, 8, 32, "none"),    # tb in scratch
     (2, 6, 13000, 2, "none"),                               # lp unstaged
+    (1, 1300, 8, 8, "none"),          # static + dynamic shared past 48 KB
+    # the wide form: K > 32, or an LM context past 8 lanes
+    (3, 25, 64, 33, "none"), (2, 30, 64, 64, "dense3"),
+    (2, 20, 64, 100, "hashed4"), (1, 12, 64, 256, "hashed4_fp16"),
+    (2, 15, 64, 64, "hashed12"), (2, 15, 64, 8, "hashed12"),
+    (3, 12, 5, 128, "none"),                          # dead-beam ties
+    (1, 300, 9, 256, "none"),                         # tb in scratch
+    (1, 6, 5, 2000, "none"),                          # workspace in scratch
+    (1, 4, 13000, 40, "none"),                        # lp unstaged
 ])
 @pytest.mark.parametrize("ordered,keep", [(True, 1), (True, 0), (False, -1)])
 def test_beam_kernel_matches_plain(dev, B, T, V, K, kind, ordered, keep):
     """The beam kernel against its plain version on the same log-probs and
     state: chars, counts, parent beams and the integer state exactly,
-    scores within 1e-4 (chip_smoke phase 23 holds the decode shape);
-    exactly one launch. keep 0 = all K beams best-first, -1 = all in
-    place (the streaming form)."""
+    scores within 1e-4 (chip_smoke phases 23 and 34 hold the decode
+    shape); exactly one launch, of the form the plan names (the wide one
+    past K = 32 or 8 context lanes). keep 0 = all K beams best-first, -1 =
+    all in place (the streaming form)."""
     from chainer_speech_recognition_tpu_torch.ops import beam_cuda
 
     tb, lp, lens, dlm, a, b = _beam_case(dev, B, T, V, K, kind, V + K + T)
     keep = keep if keep > 0 else K
     s0 = tb.beam_stream_init(B, K, dlm.ctx_len, dev)
-    before = _kernels.BEAM.launches
+    wide = beam_cuda.beam_plan(T, V, K, dlm.ctx_len).wide
+    assert wide == (K > 32 or dlm.ctx_len > 8)
+    _kernels.reset_launches()
     got = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, keep, T,
                                     ordered)
     torch.cuda.synchronize()
-    assert _kernels.BEAM.launches == before + 1
+    assert {k: n for k, n in _kernels.launches().items() if n} == {
+        "beam_wide" if wide else "beam": 1}
     want = tb.beam_chunk_plain(lp, lens, s0, dlm, a, b, keep, T, ordered)
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
@@ -1426,46 +1439,89 @@ def test_beam_kernel_matches_plain(dev, B, T, V, K, kind, ordered, keep):
         assert float((g - w).abs().max()) <= 1e-4
 
 
-def test_beam_kernel_chunks_equal_offline_and_width_cut(dev):
-    """Carried-state chunks of 7 frames equal one offline launch (state,
-    emissions chained); a width below the emissions keeps the first ones,
-    as the plain version does."""
+@pytest.mark.parametrize("K,kind", [(1, "none"), (8, "dense3"),
+                                    (8, "hashed4_fp16"), (32, "none"),
+                                    (32, "hashed4")])
+def test_beam_wide_form_equals_narrow(dev, K, kind):
+    """Where both forms take a call, the wide form's outputs equal the
+    narrow form's exactly (the same arithmetic in the same order; only the
+    selection and the merge lists differ), in the n-best and chunk
+    forms."""
     from chainer_speech_recognition_tpu_torch.ops import beam_cuda
 
-    tb, lp, lens, dlm, a, b = _beam_case(dev, 3, 40, 64, 8, "dense3", 5)
-    K = 8
-    s = tb.beam_stream_init(3, K, dlm.ctx_len, dev)
-    full = beam_cuda.beam_chunk_cuda(lp, lens, s, dlm, a, b, K, 40, False)
-    for c0 in range(0, 40, 7):
-        n = torch.clamp(lens - c0, 0, 7)
-        s = beam_cuda.beam_chunk_cuda(lp[:, c0 : c0 + 7].contiguous(), n, s,
-                                      dlm, a, b, K, 7, False)[4]
-    for g, w in zip(s, full[4]):
-        assert torch.equal(g, w)
-    cut = beam_cuda.beam_chunk_cuda(lp, lens, tb.beam_stream_init(
-        3, K, dlm.ctx_len, dev), dlm, a, b, 1, 3, True)
-    want = tb.beam_chunk_plain(lp, lens, tb.beam_stream_init(
-        3, K, dlm.ctx_len, dev), dlm, a, b, 1, 3, True)
-    assert torch.equal(cut[0], want[0]) and torch.equal(cut[1], want[1])
+    tb, lp, lens, dlm, a, b = _beam_case(dev, 3, 30, 64, K, kind, K + 7)
+    s0 = tb.beam_stream_init(3, K, dlm.ctx_len, dev)
+    for ordered in (True, False):
+        narrow = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, K, 30,
+                                           ordered)
+        _kernels.reset_launches()
+        wide = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, K, 30,
+                                         ordered, wide=True)
+        torch.cuda.synchronize()
+        assert _kernels.launches()["beam_wide"] == 1
+        for g, w in zip((*wide[:4], *wide[4]), (*narrow[:4], *narrow[4])):
+            assert torch.equal(g, w)
+
+
+def test_beam_kernel_chunks_equal_offline_and_width_cut(dev):
+    """Carried-state chunks of 7 frames equal one offline launch (state,
+    emissions chained), in both forms; a width below the emissions keeps
+    the first ones, as the plain version does."""
+    from chainer_speech_recognition_tpu_torch.ops import beam_cuda
+
+    for K in (8, 64):
+        tb, lp, lens, dlm, a, b = _beam_case(dev, 3, 40, 64, K, "dense3", 5)
+        s = tb.beam_stream_init(3, K, dlm.ctx_len, dev)
+        full = beam_cuda.beam_chunk_cuda(lp, lens, s, dlm, a, b, K, 40,
+                                         False)
+        for c0 in range(0, 40, 7):
+            n = torch.clamp(lens - c0, 0, 7)
+            s = beam_cuda.beam_chunk_cuda(lp[:, c0 : c0 + 7].contiguous(), n,
+                                          s, dlm, a, b, K, 7, False)[4]
+        for g, w in zip(s, full[4]):
+            assert torch.equal(g, w)
+        cut = beam_cuda.beam_chunk_cuda(lp, lens, tb.beam_stream_init(
+            3, K, dlm.ctx_len, dev), dlm, a, b, 1, 3, True)
+        want = tb.beam_chunk_plain(lp, lens, tb.beam_stream_init(
+            3, K, dlm.ctx_len, dev), dlm, a, b, 1, 3, True)
+        assert torch.equal(cut[0], want[0]) and torch.equal(cut[1], want[1])
 
 
 def test_beam_refuses_wide_beams_on_the_card(dev):
-    """K > 32 on a CUDA tensor raises (never the plain version); so do
-    an LM context past 8 lanes and a vocabulary past 32767."""
+    """Wide beams are taken on the card now, not refused: K = 33, 64, 100
+    and 256 and an 11-lane hashed context (order 12) each go through
+    ``beam_chunk``, the entry every decoder calls, as one launch of the
+    wide form equal to the plain version. What the kernel cannot take
+    still raises, never the plain version: a vocabulary past 32767 (the
+    reference's limit) and a beam past 32767 (the tracebacks' 16-bit
+    parents)."""
     from chainer_speech_recognition_tpu_torch.decode import beam as tb
-
-    logits = torch.zeros((1, 4, 6), device=dev)
-    with pytest.raises(ValueError, match="outside 1..32"):
-        tb.beam_decode(logits, [4], beam=33)
-    before = _kernels.BEAM.launches
-    assert len(tb.beam_decode(logits, [4], beam=32)) == 1
-    assert _kernels.BEAM.launches == before + 1
     from chainer_speech_recognition_tpu_torch.ops import beam_cuda
-    with pytest.raises(ValueError, match="LM context"):
+
+    for K, kind in ((33, "none"), (64, "dense3"), (100, "hashed4"),
+                    (256, "none"), (8, "hashed12")):
+        _, lp, lens, dlm, a, b = _beam_case(dev, 2, 20, 64, K, kind, K)
+        s0 = tb.beam_stream_init(2, K, dlm.ctx_len, dev)
+        _kernels.reset_launches()
+        got = tb.beam_chunk(lp, lens, s0, dlm, a, b, K, 20, True)
+        torch.cuda.synchronize()
+        assert {k: n for k, n in _kernels.launches().items() if n} == {
+            "beam_wide": 1}
+        want = tb.beam_chunk_plain(lp, lens, s0, dlm, a, b, K, 20, True)
+        for g, w in zip(got[:3], want[:3]):
+            assert torch.equal(g, w)
+        assert float((got[3] - want[3]).abs().max()) <= 1e-4
+    logits = torch.zeros((1, 4, 6), device=dev)
+    _kernels.reset_launches()
+    assert len(tb.beam_decode(logits, [4], beam=32)) == 1
+    assert _kernels.BEAM.launches == 1
+    with pytest.raises(ValueError, match="32767"):
+        tb.beam_decode(torch.zeros((1, 2, 32768), device=dev), [2], beam=2)
+    with pytest.raises(ValueError, match="outside 1..32767"):
         beam_cuda.beam_chunk_cuda(
             tb._log_probs(logits), torch.tensor([4], device=dev),
-            tb.beam_stream_init(1, 2, 9, dev), tb.DeviceLM("dense", 10),
-            0.0, 0.0, 1, 4, True)
+            tb.beam_stream_init(1, 32768, 1, dev), tb.NO_LM, 0.0, 0.0, 1, 4,
+            True)
 
 
 @pytest.mark.parametrize("preset", ["bigru", "bilstm_deep"])

@@ -2,13 +2,14 @@
 one card, on the same inputs, by two yardsticks:
 
     python3 tools/kernel_ab.py OTHER_ROOT [--rounds 9] [--seed 0]
-                [--cases frontend,flash,lstm,gru,stream,ctc,greedy,dw]
+                [--cases frontend,flash,lstm,gru,stream,ctc,greedy,dw,beam]
 
 OTHER_ROOT is the root of another checkout of the repo (for example an
 older commit unpacked by ``git archive`` into a git-ignored directory).
 Its ``csrc/frontend_logmel.cu``, ``attention_fwd.cu``,
 ``attention_bwd.cu``, ``lstm_fwd.cu``, ``lstm_bwd.cu``, ``gru_fwd.cu``,
-``gru_bwd.cu``, ``ctc.cu``, ``greedy.cu`` and ``dw.cu`` (those it has; with
+``gru_bwd.cu``, ``ctc.cu``, ``greedy.cu``, ``dw.cu`` and ``beam.cu`` (those
+it has; with
 ``library.cu``, the error strings) are built alone into a library of
 their own, and its Python package is imported under another name with
 that library bound in, so each build is called through its own
@@ -59,10 +60,16 @@ Kernels and shapes (those of ``chip_smoke.py``):
   tensors): this build's ``rnn_dw`` (the dW kernel) against the other
   build's chain (shift_prev, dw_matmul, cat) and cuBLAS's bmm of bf16
   operands laid out beforehand, held to the other build at twice the
-  fp32 summation bar.
+  fp32 summation bar;
+* the prefix beam's narrow form (chip_smoke phase 23's shape: B = 32,
+  T' = 251, V = 64, K = 8, a random dense 3-gram): each build's
+  ``beam_chunk_cuda`` through its own wrapper on the same log-probs, LM
+  and state, in the 1-best, n-best and chunk forms; the builds' outputs
+  (ids, counts, parents, scores, state) must be bitwise equal, and this
+  build's equal to the plain version at phase 23's bars.
 
 ``--cases`` takes a subset of
-``frontend,flash,lstm,gru,stream,ctc,greedy,dw``.
+``frontend,flash,lstm,gru,stream,ctc,greedy,dw,beam``.
 
 Each case also records whether the two builds' bf16-compute outputs are
 bitwise equal (``bf16 bitwise equal``; dW against the other build's own
@@ -117,9 +124,9 @@ import chip_smoke as cs  # noqa: E402
 PKG = "chainer_speech_recognition_tpu_torch"
 SOURCES = ("frontend_logmel.cu", "attention_fwd.cu", "attention_bwd.cu",
            "lstm_fwd.cu", "lstm_bwd.cu", "gru_fwd.cu", "gru_bwd.cu",
-           "ctc.cu", "greedy.cu", "dw.cu", "library.cu")
+           "ctc.cu", "greedy.cu", "dw.cu", "beam.cu", "library.cu")
 CASES = ("frontend", "flash", "lstm", "gru", "stream", "ctc", "greedy",
-         "dw")
+         "dw", "beam")
 
 
 def build_alone(root: str, tag: str) -> str:
@@ -817,6 +824,72 @@ def dw_case(dev, rng, other, rounds, tag, T, B, H, cell):
     return res
 
 
+def beam_case(dev, rng, other, rounds, tag, B, T, V, K):
+    """The beam's narrow form at K ≤ 32: this build's and the other
+    build's ``beam_chunk_cuda`` (each through its own wrapper and
+    ``DeviceLM``) on the same log-probs, dense 3-gram table and fresh
+    state, in the 1-best, n-best and chunk forms; every output bitwise
+    equal across the builds, this build's equal to the plain version at
+    phase 23's bars; the 1-best form timed."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.decode import beam as tb
+    from chainer_speech_recognition_tpu_torch.decode.lm import NGramLM
+    from chainer_speech_recognition_tpu_torch.ops import beam_cuda
+
+    ob = importlib.import_module(f"{other.__name__}.decode.beam")
+    obc = importlib.import_module(f"{other.__name__}.ops.beam_cuda")
+    x = rng.standard_normal((B, T, V)).astype(np.float32) * 2
+    path = rng.integers(0, V, (B, T))
+    for r in range(B):
+        x[r, np.arange(T), path[r]] += 3.0
+    lens = rng.integers(T // 2, T + 1, B).astype(np.int32)
+    lens[0] = T
+    lm = NGramLM(3, V)
+    lm.logp[0][()] = {c: float(np.log(0.8 / (V - 1))) for c in range(1, V)}
+    for k in (1, 2):
+        for ctx in {tuple(int(c) for c in rng.integers(1, V, k))
+                    for _ in range(400)}:
+            succ = rng.integers(1, V, size=5)
+            lm.logp[k][ctx] = {int(c): float(p) for c, p in zip(
+                succ, np.log(rng.dirichlet(np.ones(5)) * 0.7))}
+            lm.backoff[k][ctx] = float(np.log(0.3))
+    table = lm.to_dense()
+    lp = tb._log_probs(torch.from_numpy(x).to(dev))
+    ln = torch.from_numpy(lens).to(dev)
+    mods = {"this": (tb, beam_cuda), "other": (ob, obc)}
+    dlms = {n: m.lm_on_device(table, V, dev) for n, (m, _) in mods.items()}
+    a, b = cs.BEAM_ALPHA, cs.BEAM_BETA
+    res = {"tag": tag, "B": B, "T": T, "V": V, "K": K, "bitwise equal": True}
+    for ordered, keep in ((True, 1), (True, K), (False, K)):
+        outs = {}
+        for n, (m, c) in mods.items():
+            s0 = m.beam_stream_init(B, K, dlms[n].ctx_len, dev)
+            got = c.beam_chunk_cuda(lp, ln, s0, dlms[n], a, b, keep, T,
+                                    ordered)
+            outs[n] = (*got[:4], *got[4])
+        torch.cuda.synchronize()
+        s0 = tb.beam_stream_init(B, K, dlms["this"].ctx_len, dev)
+        want = tb.beam_chunk_plain(lp, ln, s0, dlms["this"], a, b, keep, T,
+                                   ordered)
+        cs.beam_same(f"{tag} keep={keep} ordered={ordered}",
+                     (*outs["this"][:4], outs["this"][4:]), want)
+        res["bitwise equal"] &= cs.same_bits(outs["this"], outs["other"])
+    print(f"[ab] {tag}: this build equals the plain version; the builds' "
+          f"outputs bitwise equal: {res['bitwise equal']}")
+    cs.check(res["bitwise equal"], f"{tag}: the builds' outputs differ")
+    fns = {}
+    for n, (m, c) in mods.items():
+        s0 = m.beam_stream_init(B, K, dlms[n].ctx_len, dev)
+        fns[f"{n} beam"] = (lambda c=c, s0=s0, d=dlms[n]: c.beam_chunk_cuda(
+            lp, ln, s0, d, a, b, 1, T, True)[0])
+    replays = {n: cs.graph_of(f, mode="relaxed")[0] for n, f in fns.items()}
+    res.update(report(f"{tag} B={B} T'={T} V={V} K={K} dense 3-gram",
+                      timed(fns, rounds, replays),
+                      [("other beam", "this beam")]))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="root of the other checkout")
@@ -865,6 +938,11 @@ def main() -> int:
                 m = preset_config(p).model
                 out.append(dw_case(dev, rng, other, a.rounds, f"dw {p}", 256,
                                    cs.TRAIN_B, m.rnn_hidden, m.rnn_type))
+        if "beam" in cases:
+            V = preset_config(cs.PRESET).model.vocab_size
+            out.append(beam_case(dev, rng, other, a.rounds, "beam narrow",
+                                 cs.CHECK_B, cs.BEAM_FRAMES, V,
+                                 cs.BEAM_WIDTH))
     except cs.SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
