@@ -116,12 +116,15 @@ KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
 # the dW kernel's (T, B, H, N, ndir, out) → its launch shape
 # (ops/rnn_cuda.dw_plan);
 # the beam's (T, V, K, ctx_len, wide, out) → its launch plan
-# (ops/beam_cuda.beam_plan)
+# (ops/beam_cuda.beam_plan); the wide flash backward's (dh, dkv, out) → its
+# warp groups, rows a block, shared memory, occupancy and n-tile split
+# (ops/attention_cuda.flash_bwd_occupancy)
 HELPERS = {f"csr_{cell}_{form}_occupancy": [_I, ctypes.POINTER(_I)]
            for cell in ("gru", "lstm") for form in ("fwd", "bwd")}
 HELPERS["csr_ctc_plan"] = [_I, _I, ctypes.POINTER(_I)]
 HELPERS["csr_dw_plan"] = [_I] * 5 + [ctypes.POINTER(_I)]
 HELPERS["csr_beam_plan"] = [_I] * 5 + [ctypes.POINTER(_I)]
+HELPERS["csr_flash_bwd_plan"] = [_I, _I, ctypes.POINTER(_I)]
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -50,19 +50,37 @@
 // warp; mma.sync issues at a lower rate than wgmma on Hopper, the cost of
 // this simpler design.
 //
-// Wider heads (dh = 64n, n = 2 .. 8, the reference's set), bf16: as in the
-// forward (attention_fwd.cu), the outputs' head columns are split over a
-// grid dimension of n 64-column slices. The block's own rows (Q and dO in
-// dQ, K and V in dK/dV) stay in shared memory as n chunk tiles; the
-// other side streams through a two-stage ring a chunk at a time, so each
-// 64 x 64 score tile S and dP (S^T and dP^T in dK/dV) is summed over the
-// head dim in the same order in every slice, and a last step per tile
-// brings the slice's columns of the product's operand (K_z in dQ; Q_z and
-// dO_z in dK/dV, with lse and D). Shared memory: (2n + 4) 8 KB tiles, 160
-// KB at dh = 512 (holding both sides whole with two stages would be 384
-// KB); registers: full 64-column S and dP beside the 64-column
-// accumulators, two blocks an SM. The score products are repeated in each
-// of the n slices, the price of this simple design.
+// Wider heads (dh = 64n, n = 2 .. 8, the reference's set), bf16: each
+// score tile is computed once for all n 64-column slices of the output.
+// A block owns every slice of its rows: a whole 64-row tile, but past dh =
+// 256 dK/dV, whose two accumulators a slice leave a thread no room for
+// more columns, takes two blocks of 32 rows a tile. It has W warp groups
+// (wide_warps: two at dh = 128, else four), each a warp for every 16 rows;
+// warp (r, g) owns rows 16r .. 16r + 15 and the n-tiles [ntile_lo(g, W),
+// ntile_lo(g + 1, W)) of the 8: 8-key (8-query in dK/dV) column blocks of
+// the score tile, and the same 8-column blocks of every slice's output.
+// The block's own rows stay in shared memory at full width (Q and dO in
+// dQ, K and V in dK/dV: 2n chunk tiles); the other side's tiles stream
+// through a ring of two cp.async stages of G chunks each (wide_group: the
+// whole tile up to dh = 256, three or two chunks past it; WideSteps), one
+// stage in flight while the other is multiplied. Each warp sums its
+// n-tiles of S and dP over the head dim once; after the last chunk every
+// warp turns them into p and ds (rounded to bf16 where the plain version
+// rounds them) in a shared P / dS tile, the block meets at a barrier, and
+// every warp multiplies its rows of the whole tile by its n-tiles of each
+// slice's operand, read from the score stage where it holds the whole
+// tile, else brought again by product steps. 64^3 products a tile pair:
+// 3n (dQ) and 4n (dK/dV), against n (2n + 1) and n (2n + 2) when each
+// slice was a block that repeated the scores. Nothing crosses blocks, so
+// each output element has one owner and its sums run in a fixed order:
+// the outputs are the same bits from run to run. One block barrier a step
+// (the stage it frees is the next load's) and one for the P / dS tile.
+// Shared memory 105-209 KB (attention_cuda.flash_bwd_plan computes the
+// same launch). Splitting the scores instead over a thread-block cluster
+// of the n slice blocks by head-dim chunks, the fp32 partial sums summed
+// through distributed shared memory, moves 32 KB a block and tile pair
+// between SMs, and on an H100 that took longer than computing the scores
+// in every slice (PERF.md).
 //
 // fp32 (the parity runs only): the first version's FMA path, with fp32
 // [64][65] tiles in shared memory (attention_common.cuh) and the wide
@@ -558,45 +576,197 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
   store_rows(dv, acc_v, 1.0f, b, s0, head, d, l);
 }
 
-// S (or S^T) and dP (or dP^T) of a warp's 16 rows against 64 columns,
-// summed over one 64-column chunk of the head dim: x += A_x . Bx^T, y +=
-// A_y . By^T, A rows r0.. of the chunk tiles ax, ay, B rows 0..63 of bx, by
-__device__ __forceinline__ void scores_chunk(uint32_t ax, uint32_t ay,
-                                             uint32_t bx, uint32_t by,
-                                             int r0, int l, float x[8][4],
-                                             float y[8][4]) {
+// ------------------------ bf16, dh = 64n (n = 2 .. 8): slices in one block
+
+constexpr int kMaxSlices = 4;   // warp groups a block, and the slices (256
+                                // columns) up to which a stage holds a tile
+constexpr int kRowsStage = 2 * kTile * 4;   // a query tile's lse and D
+
+// warp groups of four warps a block at dh = 64n: two at n = 2 (two blocks
+// an SM), else four, each owning two of a tile's 8 n-tiles (at n = 3 four
+// groups ran faster than three on an H100); every block owns all n slices
+// of its rows
+__host__ __device__ constexpr int wide_warps(int n) {
+  return n == 2 ? 2 : kMaxSlices;
+}
+// rows a block: the whole 64-row tile, but past n = 4 dK/dV, whose two
+// accumulators a slice allow a thread no more columns, takes two blocks a
+// tile of 32 rows (two warps a warp group)
+__host__ __device__ constexpr int wide_rows(int n, bool dkv) {
+  return dkv && n > kMaxSlices ? kTile / 2 : kTile;
+}
+// chunks of the streamed side a stage holds (two tiles each): a whole
+// tile up to n = 4, so that its products read the score step's tiles;
+// three or two past it
+__host__ __device__ constexpr int wide_group(int n) {
+  return n <= kMaxSlices ? n : n <= 6 ? 3 : 2;
+}
+// the first of a tile's 8 n-tiles (8 keys or queries; in the products 8
+// head-dim columns of each slice) that warp group g of W owns
+__host__ __device__ constexpr int ntile_lo(int g, int W) {
+  return (8 * g + W - 1) / W;
+}
+// dynamic shared memory of a wide kernel at dh = 64n (ops/attention_cuda.py
+// flash_bwd_plan computes the same): the resident side's n chunk tiles of
+// two operands, the dS tile (dQ) or the P^T and dS^T tiles (dK/dV), and
+// two ring stages of 2 wide_group(n) tiles and a tile's lse and D
+__host__ __device__ constexpr int wide_smem(int n, bool dkv) {
+  return (2 * n + (dkv ? 2 : 1) + 4 * wide_group(n)) * kTileBytes +
+         2 * kRowsStage;
+}
+
+// The steps over one tile of the streamed side: Sc score steps of G chunks
+// (chunks [G σ, G σ + G) ∩ [0, n), their two tiles each in the stage),
+// then Pr product steps of Ps slices each (their operand tiles), none where
+// one stage holds every chunk (G = n): the products read it
+struct WideSteps {
+  int G, Sc, Ps, Pr, per;
+  __device__ WideSteps(int n, bool dkv) {
+    G = wide_group(n);
+    Sc = (n + G - 1) / G;
+    Ps = dkv ? G : 2 * G;
+    Pr = G == n ? 0 : (n + Ps - 1) / Ps;
+    per = Sc + Pr;
+  }
+};
+
+// B fragments (ldmatrix.trans) of the two n-tiles at 16-byte chunks c0 and
+// c0 + 1 of a tile stored [k][n], k rows k0..k0+15 (bt_frag at any chunk)
+__device__ __forceinline__ uint32_t bt_chunk(uint32_t tile, int k0, int c0,
+                                             int l) {
+  return tile + swz(k0 + (l & 7) + (((l >> 3) & 1) << 3), c0 + (l >> 4));
+}
+
+// S (x) and dP (y) of a warp's 16 rows r0.. against the jn n-tiles j0..
+// (rows 8 j0.. of the B tiles bx, by), summed over one 64-column chunk: x
+// += A_x . Bx^T, y += A_y . By^T
+template <int kJ>
+__device__ __forceinline__ void scores_ntiles(uint32_t ax, uint32_t ay,
+                                              uint32_t bx, uint32_t by,
+                                              int r0, int j0, int jn, int l,
+                                              float x[kJ][4],
+                                              float y[kJ][4]) {
 #pragma unroll
   for (int kk = 0; kk < kDh / 16; ++kk) {
     uint32_t fa[4], fb[4];
     ldsm_x4(a_frag(ax, r0, kk, l), fa);
     ldsm_x4(a_frag(ay, r0, kk, l), fb);
 #pragma unroll
-    for (int nb = 0; nb < kTile / 16; ++nb) {
-      uint32_t gx[4], gy[4];
-      ldsm_x4(b_frag(bx, 16 * nb, kk, l), gx);
-      ldsm_x4(b_frag(by, 16 * nb, kk, l), gy);
-      mma(x[2 * nb], fa, gx[0], gx[1]);
-      mma(x[2 * nb + 1], fa, gx[2], gx[3]);
-      mma(y[2 * nb], fb, gy[0], gy[1]);
-      mma(y[2 * nb + 1], fb, gy[2], gy[3]);
+    for (int j = 0; j < kJ; j += 2) {
+      if (j < jn) {
+        uint32_t gx[4], gy[4];
+        ldsm_x4(b_frag(bx, 8 * (j0 + j), kk, l), gx);
+        ldsm_x4(b_frag(by, 8 * (j0 + j), kk, l), gy);
+        mma(x[j], fa, gx[0], gx[1]);
+        mma(y[j], fb, gy[0], gy[1]);
+        if (j + 1 < kJ && j + 1 < jn) {
+          mma(x[j + 1], fa, gx[2], gx[3]);
+          mma(y[j + 1], fb, gy[2], gy[3]);
+        }
+      }
     }
   }
 }
 
-__device__ __forceinline__ void zero8(float x[8][4], float y[8][4]) {
+// acc (a warp's 16 rows r0.. x the jn n-tiles j0.. of one slice's head
+// columns) += the rows r0.. of the swizzled [64][64] tile a (its 64
+// columns the reduction) . the tile b, stored [k][n]
+template <int kJ>
+__device__ __forceinline__ void product_ntiles(float acc[kJ][4], uint32_t a,
+                                               int r0, uint32_t b, int j0,
+                                               int jn, int l) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    uint32_t fa[4];
+    ldsm_x4(a_frag(a, r0, kk, l), fa);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.0f;
+    for (int j = 0; j < kJ; j += 2) {
+      if (j < jn) {
+        uint32_t f[4];
+        ldsm_x4_t(bt_chunk(b, 16 * kk, j0 + j, l), f);
+        mma(acc[j], fa, f[0], f[1]);
+        if (j + 1 < kJ && j + 1 < jn) mma(acc[j + 1], fa, f[2], f[3]);
+      }
+    }
+  }
 }
 
-// dQ, dh = 64n (n = 2 .. 8): one block per (b*h, 64-query tile, 64-column
-// slice z of the head dim). Q's and dO's n chunks stay in shared memory;
-// each key tile is n + 1 steps through a two-stage ring of two tiles:
-// chunks c of K and V (S += Q_c . K_c^T, dP += dO_c . V_c^T, in the same
-// order in every slice), then K's chunk z (p and ds of all 64 keys, dq_z
-// += ds . K_z)
-__global__ void __launch_bounds__(kThreadsTc, 2)
+// f(acc[z]) for the runtime slice z < S, each acc[Z] indexed by a
+// constant, so that the accumulators stay in registers
+template <int Z = 0, int S, int kJ, typename F>
+__device__ __forceinline__ void with_slice(float (&acc)[S][kJ][4], int z,
+                                           F f) {
+  if constexpr (Z < S) {
+    if (z == Z)
+      f(acc[Z]);
+    else
+      with_slice<Z + 1>(acc, z, f);
+  }
+}
+
+// bf16(x) of a warp's accumulators (rows r0 + l/4 and + 8, n-tiles j0..)
+// into the swizzled [64][64] tile t
+template <int kJ>
+__device__ __forceinline__ void store_ntiles(uint32_t t, const float x[kJ][4],
+                                             int r0, int j0, int jn, int l) {
+  const int r = r0 + (l >> 2);
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    if (j < jn) {
+      const uint32_t at = 4 * (l & 3);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(t + swz(r, j0 + j) +
+                                                       at),
+                   "r"(pack_bf16(x[j][0], x[j][1]))
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(t + swz(r + 8, j0 + j) +
+                                                       at),
+                   "r"(pack_bf16(x[j][2], x[j][3]))
+                   : "memory");
+    }
+  }
+}
+
+// a warp's accumulators of the block's m slices (rows t0, t0 + 8; n-tiles
+// j0.. of slice s: head columns 64 s + 8 (j0 + j) + 2 (l % 4)) times
+// `scale` into a [B, T, h, dh] contiguous bf16 output; rows past T are not
+// written
+template <int S, int kJ>
+__device__ __forceinline__ void store_slices(bf16* out,
+                                             const float acc[S][kJ][4],
+                                             float scale, int b, int t0,
+                                             int head, const Dims& d, int m,
+                                             int j0, int jn, int l) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = t0 + 8 * i;
+    if (t >= d.T) continue;
+    bf16* o = out + ((static_cast<int64_t>(b) * d.T + t) * d.h + head) * d.dh +
+              8 * j0 + 2 * (l & 3);
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+        if (s < m && j < jn)
+          *reinterpret_cast<__nv_bfloat162*>(o + kDh * s + 8 * j) =
+              __floats2bfloat162_rn(acc[s][j][2 * i] * scale,
+                                    acc[s][j][2 * i + 1] * scale);
+  }
+}
+
+// dQ, dh = 64n (n = 2 .. 8): one block per (b*h, 64-query tile) owning
+// its n slices (S >= n accumulators a warp), W warp groups of four warps;
+// warp (r, g) owns the queries 16r .. 16r + 15 and the n-tiles [ntile_lo(g, W),
+// ntile_lo(g + 1, W)): of each key tile's keys in the scores, of each
+// slice's head columns in the products. Q's and dO's n chunks stay in
+// shared memory; each key tile in the rows' window streams through a ring
+// of two stages (WideSteps): score steps bring chunks of K and V (S += Q_c
+// . K_c^T, dP += dO_c . V_c^T over the warp's keys: each score once a
+// block); after the last, p and ds of the warp's rows and keys go into the
+// dS tile (bf16, as the plain version rounds them), the block meets at a
+// barrier, and dq_s += dS . K_s over the warp's head columns of each slice
+// s, K_s from the score step's stage (n <= 4) or from product steps
+template <int W, int S>
+__global__ void __launch_bounds__(kThreadsTc * W, W == 2 ? 2 : 1)
 flash_bwd_dq_wide_kernel(const bf16* __restrict__ q,
                          const bf16* __restrict__ k,
                          const bf16* __restrict__ v,
@@ -606,88 +776,136 @@ flash_bwd_dq_wide_kernel(const bf16* __restrict__ q,
                          const float* __restrict__ drows,
                          bf16* __restrict__ dq, Dims d, Strides sq,
                          Strides sk, Strides sv, Strides sdo) {
+  constexpr int kJ = (8 + W - 1) / W;       // n-tiles a warp, at most
+  constexpr int kN = kThreadsTc * W;
   extern __shared__ __align__(128) unsigned char smem_tc[];
-  const int nc = d.dh / kDh, col0 = blockIdx.z * kDh;
-  // Q's and dO's chunks, then two stages of two tiles
+  const int nc = d.dh / kDh;
+  const WideSteps ws(nc, false);
+  const int sb = 2 * ws.G * kTileBytes + kRowsStage;   // a stage's bytes
+  // Q's and dO's chunks, the dS tile, the ring
   const uint32_t sQ = smem_addr(smem_tc), sdO = sQ + nc * kTileBytes;
-  const uint32_t sSt = sQ + 2 * nc * kTileBytes;
+  const uint32_t sdS = sQ + 2 * nc * kTileBytes, sRing = sdS + kTileBytes;
 
   const int bh = blockIdx.y, b = bh / d.h, head = bh % d.h;
   const int q0 = blockIdx.x * kTile;
   const int len = max(0, min(lens[b], d.T));
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int r0 = 16 * (w & 3), g = w >> 2;
+  const int j0 = ntile_lo(g, W), jn = ntile_lo(g + 1, W) - j0;
   const float scale = 1.0f / sqrtf(static_cast<float>(d.dh));
   const bf16* kb = k + b * sk.b + head * sk.h;
   const bf16* vb = v + b * sv.b + head * sv.h;
 
   // this thread's queries t0 + 8i: lse, D and the keys [s_lo, s_hi) each
   // may attend (none past T)
-  const int t0 = q0 + 16 * w + (l >> 2);
+  const int t0 = q0 + r0 + (l >> 2);
   float lse_r[2], dr[2];
   int s_lo[2], s_hi[2];
   query_rows(lse, drows, bh, t0, d, lse_r, dr);
   row_windows(t0, len, d, s_lo, s_hi);
 
-  float acc[8][4] = {}, s[8][4] = {}, dp[8][4] = {};
+  float acc[S][kJ][4] = {}, s[kJ][4], dp[kJ][4];
   int k_begin, k_end;
   key_range(q0, len, d, &k_begin, &k_end);
   const int first = (k_begin / kTile) * kTile;
   const int tiles = k_end > first ? (k_end - first + kTile - 1) / kTile : 0;
-  const int steps = tiles * (nc + 1);
-  // step g: key tile first + 64 (g / (nc + 1)), part c = g % (nc + 1)
-  auto load_step = [&](int g) {
-    const int c = g % (nc + 1), k0 = first + (g / (nc + 1)) * kTile;
-    const uint32_t dst = sSt + (g & 1) * 2 * kTileBytes;
-    if (c < nc) {
-      load_tile_async(dst, kb + c * kDh, sk.t, k0, d.T);
-      load_tile_async(dst + kTileBytes, vb + c * kDh, sv.t, k0, d.T);
-    } else {
-      load_tile_async(dst, kb + col0, sk.t, k0, d.T);
+  const int steps = tiles * ws.per;
+  // step e: key tile first + 64 (e / per), part e % per (WideSteps); a
+  // group is committed for every step, empty past the last
+  auto load_step = [&](int e) {
+    if (e < steps) {
+      const int part = e % ws.per, k0 = first + (e / ws.per) * kTile;
+      const uint32_t dst = sRing + (e & 1) * sb;
+      if (part < ws.Sc) {
+        const int c0 = part * ws.G, cn = min(ws.G, nc - c0);
+        for (int c = 0; c < cn; ++c) {
+          load_tile_async<kN>(dst + 2 * c * kTileBytes, kb + (c0 + c) * kDh,
+                              sk.t, k0, d.T);
+          load_tile_async<kN>(dst + (2 * c + 1) * kTileBytes,
+                              vb + (c0 + c) * kDh, sv.t, k0, d.T);
+        }
+      } else {
+        const int s0 = (part - ws.Sc) * ws.Ps, sn = min(ws.Ps, nc - s0);
+        for (int j = 0; j < sn; ++j)
+          load_tile_async<kN>(dst + j * kTileBytes, kb + (s0 + j) * kDh,
+                              sk.t, k0, d.T);
+      }
     }
+    cp_async_commit();
   };
   if (steps > 0) {
-    load_chunks_async(sQ, q + b * sq.b + head * sq.h, sq.t, q0, d.T, nc);
-    load_chunks_async(sdO, dout + b * sdo.b + head * sdo.h, sdo.t, q0, d.T,
-                      nc);
+    load_chunks_async<kN>(sQ, q + b * sq.b + head * sq.h, sq.t, q0, d.T, nc);
+    load_chunks_async<kN>(sdO, dout + b * sdo.b + head * sdo.h, sdo.t, q0,
+                          d.T, nc);
     load_step(0);
-    cp_async_commit();
   }
-  for (int g = 0; g < steps; ++g) {
-    const int c = g % (nc + 1), k0 = first + (g / (nc + 1)) * kTile;
-    const uint32_t cur = sSt + (g & 1) * 2 * kTileBytes;
-    if (g + 1 < steps) {
-      load_step(g + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int e = 0; e < steps; ++e) {
+    cp_async_wait<0>();   // step e's tiles have arrived
+    __syncthreads();      // for every thread; and step e - 1 is done
+    load_step(e + 1);     // into the stage step e - 1 used
+    const int part = e % ws.per, k0 = first + (e / ws.per) * kTile;
+    const uint32_t cur = sRing + (e & 1) * sb;
+    if (part < ws.Sc) {
+      const int c0 = part * ws.G, cn = min(ws.G, nc - c0);
+      if (part == 0) {
+#pragma unroll
+        for (int j = 0; j < kJ; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) s[j][x] = dp[j][x] = 0.0f;
+      }
+      for (int c = 0; c < cn; ++c)
+        scores_ntiles<kJ>(sQ + (c0 + c) * kTileBytes,
+                          sdO + (c0 + c) * kTileBytes,
+                          cur + 2 * c * kTileBytes,
+                          cur + (2 * c + 1) * kTileBytes, r0, j0, jn, l, s,
+                          dp);
+      if (part + 1 < ws.Sc) continue;
+      // the scores are whole: p, ds into the dS tile
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          if (j >= jn) continue;
+          const int i = x >> 1;
+          const int key = k0 + 8 * (j0 + j) + 2 * (l & 3) + (x & 1);
+          const bool ok = key >= s_lo[i] && key < s_hi[i];
+          const float p = ok ? prob(s[j][x], scale, lse_r[i]) : 0.0f;
+          dp[j][x] = p * (dp[j][x] - dr[i]);
+        }
+      store_ntiles<kJ>(sdS, dp, r0, j0, jn, l);
+      __syncthreads();
+      if (ws.Pr == 0) {   // K_s is the stage's tile 2s
+        for (int z = 0; z < nc; ++z)
+          with_slice(acc, z, [&](float (&a)[kJ][4]) {
+            product_ntiles<kJ>(a, sdS, r0, cur + 2 * z * kTileBytes, j0, jn,
+                               l);
+          });
+      }
+      continue;
     }
-    __syncthreads();
-    if (c < nc) {
-      if (c == 0) zero8(s, dp);
-      scores_chunk(sQ + c * kTileBytes, sdO + c * kTileBytes, cur,
-                   cur + kTileBytes, 16 * w, l, s, dp);
-    } else {
-      probs_by_key(s, dp, k0, s_lo, s_hi, lse_r, dr, scale, l);
-      probs_by_key(s + 4, dp + 4, k0 + 32, s_lo, s_hi, lse_r, dr, scale, l);
-      uint32_t da[2][4];
-      to_a_frags(dp, da);
-      product_tc(acc, da, cur, 0, l);
-      to_a_frags(dp + 4, da);
-      product_tc(acc, da, cur, 32, l);
-    }
-    __syncthreads();
+    const int s0 = (part - ws.Sc) * ws.Ps, sn = min(ws.Ps, nc - s0);
+    for (int j = 0; j < sn; ++j)
+      with_slice(acc, s0 + j, [&](float (&a)[kJ][4]) {
+        product_ntiles<kJ>(a, sdS, r0, cur + j * kTileBytes, j0, jn, l);
+      });
   }
-  store_rows(dq, acc, scale, b, t0, head, d, l, col0);
+  store_slices<S, kJ>(dq, acc, scale, b, t0, head, d, nc, j0, jn, l);
 }
 
-// dK/dV, dh = 64n (n = 2 .. 8): one block per (b*h, 64-key tile, 64-column
-// slice z). K's and V's n chunks stay in shared memory; each query tile is
-// n + 1 steps through a two-stage ring of two tiles and the rows: chunks c
-// of Q and dO (S^T += K_c . Q_c^T, dP^T += V_c . dO_c^T), then Q's and dO's
-// chunk z with the tile's lse and D (p and ds, dv_z += P^T . dO_z, dk_z +=
-// dS^T . Q_z)
-__global__ void __launch_bounds__(kThreadsTc, 2)
+// dK/dV, dh = 64n (n = 2 .. 8): one block per (b*h, 16R keys of a 64-key
+// tile: the tile, or past n = 4 a half) owning its n slices (S >= n), W
+// warp groups of R warps; warp (r, g) owns the keys 16r .. 16r + 15 and
+// n-tiles [ntile_lo(g, W), ntile_lo(g + 1, W)) of each query tile's
+// queries in the scores and of each slice's head columns in the products.
+// K's and V's n chunks stay in shared memory; each query tile that may
+// attend the keys streams through the ring (WideSteps): score steps bring
+// chunks of Q and dO (S^T += K_c . Q_c^T, dP^T += V_c . dO_c^T), the last
+// with the tile's lse and D; then p and ds into the P^T and dS^T tiles, a
+// block barrier, and dv_s += P^T . dO_s, dk_s += dS^T . Q_s for each
+// slice, Q_s and dO_s from the score step's stage (n <= 4) or from product
+// steps
+template <int W, int S, int R>
+__global__ void __launch_bounds__(32 * R * W, R == 4 && W == 2 ? 2 : 1)
 flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
@@ -698,88 +916,135 @@ flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q,
                           bf16* __restrict__ dk, bf16* __restrict__ dv,
                           Dims d, Strides sq, Strides sk, Strides sv,
                           Strides sdo) {
+  constexpr int kJ = (8 + W - 1) / W;
+  constexpr int kN = 32 * R * W;          // R warps a warp group
   extern __shared__ __align__(128) unsigned char smem_tc[];
-  const int nc = d.dh / kDh, col0 = blockIdx.z * kDh;
-  // K's and V's chunks, two stages of two tiles, then two stages of
-  // (lse[64], D[64])
+  const int nc = d.dh / kDh;
+  const WideSteps ws(nc, true);
+  const int sb = 2 * ws.G * kTileBytes + kRowsStage;
+  // K's and V's chunks, the P^T and dS^T tiles, the ring
   const uint32_t sK = smem_addr(smem_tc), sV = sK + nc * kTileBytes;
-  const uint32_t sSt = sK + 2 * nc * kTileBytes;
-  float* rows =
-      reinterpret_cast<float*>(smem_tc + (2 * nc + 4) * kTileBytes);
+  const uint32_t sP = sK + 2 * nc * kTileBytes, sdS = sP + kTileBytes;
+  const uint32_t sRing = sdS + kTileBytes;
 
   const int bh = blockIdx.y, b = bh / d.h, head = bh % d.h;
   const int k0 = blockIdx.x * kTile;
   const int len = max(0, min(lens[b], d.T));
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  // keys 16r .. of the block's rows (block z of a tile: rows 16 R z ..)
+  const int r0 = 16 * (w % R + R * blockIdx.z), g = w / R;
+  const int j0 = ntile_lo(g, W), jn = ntile_lo(g + 1, W) - j0;
   const float scale = 1.0f / sqrtf(static_cast<float>(d.dh));
   const bf16* qb = q + b * sq.b + head * sq.h;
   const bf16* ob = dout + b * sdo.b + head * sdo.h;
   const float* lse_row = lse + static_cast<int64_t>(bh) * d.T;
   const float* d_row = drows + static_cast<int64_t>(bh) * d.T;
 
-  const int s0 = k0 + 16 * w + (l >> 2);
+  // this thread's keys s0 + 8i and the queries [t_lo, t_hi) that may
+  // attend each
+  const int s0 = k0 + r0 + (l >> 2);
   int t_lo[2], t_hi[2];
   key_windows(s0, len, d, t_lo, t_hi);
 
-  float acc_k[8][4] = {}, acc_v[8][4] = {}, s[8][4] = {}, dp[8][4] = {};
+  float acc_k[S][kJ][4] = {}, acc_v[S][kJ][4] = {}, s[kJ][4],
+      dp[kJ][4];
+  int tiles = 0, first = 0;
   if (k0 < len) {
     int q_begin, q_end;
     query_range(k0, len, d, &q_begin, &q_end);
-    const int first = (q_begin / kTile) * kTile;
-    const int steps = (q_end - first + kTile - 1) / kTile * (nc + 1);
-    // step g: query tile first + 64 (g / (nc + 1)), part c = g % (nc + 1)
-    auto load_step = [&](int g) {
-      const int c = g % (nc + 1), q0 = first + (g / (nc + 1)) * kTile;
-      const int st = g & 1, col = c < nc ? c * kDh : col0;
-      const uint32_t dst = sSt + st * 2 * kTileBytes;
-      load_tile_async(dst, qb + col, sq.t, q0, d.T);
-      load_tile_async(dst + kTileBytes, ob + col, sdo.t, q0, d.T);
-      if (c == nc) {
+    first = (q_begin / kTile) * kTile;
+    tiles = (q_end - first + kTile - 1) / kTile;
+  }
+  const int steps = tiles * ws.per;
+  // step e: query tile first + 64 (e / per), part e % per (WideSteps):
+  // chunks of Q and dO, the last score step with the tile's lse and D;
+  // then Q and dO of Ps slices a product step
+  auto load_step = [&](int e) {
+    if (e < steps) {
+      const int part = e % ws.per, q0 = first + (e / ws.per) * kTile;
+      const uint32_t dst = sRing + (e & 1) * sb;
+      const bool score = part < ws.Sc;
+      const int c0 = score ? part * ws.G : (part - ws.Sc) * ws.Ps;
+      const int cn = min(score ? ws.G : ws.Ps, nc - c0);
+      for (int c = 0; c < cn; ++c) {
+        load_tile_async<kN>(dst + 2 * c * kTileBytes, qb + (c0 + c) * kDh,
+                            sq.t, q0, d.T);
+        load_tile_async<kN>(dst + (2 * c + 1) * kTileBytes,
+                            ob + (c0 + c) * kDh, sdo.t, q0, d.T);
+      }
+      if (part + 1 == ws.Sc && threadIdx.x < 2 * kTile) {
         const int t = q0 + (threadIdx.x & (kTile - 1));
         const float* src = threadIdx.x < kTile ? lse_row : d_row;
-        cp_async4(smem_addr(rows + st * 2 * kTile + threadIdx.x),
+        cp_async4(dst + 2 * ws.G * kTileBytes + 4 * threadIdx.x,
                   src + (t < d.T ? t : 0), t < d.T);
       }
-    };
-    load_chunks_async(sK, k + b * sk.b + head * sk.h, sk.t, k0, d.T, nc);
-    load_chunks_async(sV, v + b * sv.b + head * sv.h, sv.t, k0, d.T, nc);
-    load_step(0);
+    }
     cp_async_commit();
-    for (int g = 0; g < steps; ++g) {
-      const int c = g % (nc + 1), q0 = first + (g / (nc + 1)) * kTile;
-      const int st = g & 1;
-      const uint32_t sQ = sSt + st * 2 * kTileBytes, sdO = sQ + kTileBytes;
-      if (g + 1 < steps) {
-        load_step(g + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      if (c < nc) {
-        if (c == 0) zero8(s, dp);
-        scores_chunk(sK + c * kTileBytes, sV + c * kTileBytes, sQ, sdO,
-                     16 * w, l, s, dp);
-      } else {
-        const float* lse_s = rows + st * 2 * kTile;
-        const float* d_s = lse_s + kTile;
+  };
+  if (steps > 0) {
+    load_chunks_async<kN>(sK, k + b * sk.b + head * sk.h, sk.t, k0, d.T, nc);
+    load_chunks_async<kN>(sV, v + b * sv.b + head * sv.h, sv.t, k0, d.T, nc);
+    load_step(0);
+  }
+  for (int e = 0; e < steps; ++e) {
+    cp_async_wait<0>();
+    __syncthreads();
+    load_step(e + 1);
+    const int part = e % ws.per, q0 = first + (e / ws.per) * kTile;
+    const uint32_t cur = sRing + (e & 1) * sb;
+    if (part < ws.Sc) {
+      const int c0 = part * ws.G, cn = min(ws.G, nc - c0);
+      if (part == 0) {
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          probs_by_query(s + 4 * half, dp + 4 * half, q0, 32 * half, t_lo,
-                         t_hi, lse_s, d_s, scale, l);
-          uint32_t pa[2][4], da[2][4];
-          to_a_frags(s + 4 * half, pa);
-          to_a_frags(dp + 4 * half, da);
-          product_tc(acc_v, pa, sdO, 32 * half, l);
-          product_tc(acc_k, da, sQ, 32 * half, l);
-        }
+        for (int j = 0; j < kJ; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) s[j][x] = dp[j][x] = 0.0f;
       }
+      for (int c = 0; c < cn; ++c)
+        scores_ntiles<kJ>(sK + (c0 + c) * kTileBytes,
+                          sV + (c0 + c) * kTileBytes,
+                          cur + 2 * c * kTileBytes,
+                          cur + (2 * c + 1) * kTileBytes, r0, j0, jn, l, s,
+                          dp);
+      if (part + 1 < ws.Sc) continue;
+      // the scores are whole: p, ds into P^T, dS^T
+      const float* lse_s = reinterpret_cast<const float*>(
+          smem_tc + (cur - sK) + 2 * ws.G * kTileBytes);
+      const float* d_s = lse_s + kTile;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          if (j >= jn) continue;   // (the stage's lse and D end at 64)
+          const int i = x >> 1;
+          const int cq = 8 * (j0 + j) + 2 * (l & 3) + (x & 1);
+          const int t = q0 + cq;
+          const bool ok = t >= t_lo[i] && t < t_hi[i];
+          s[j][x] = ok ? prob(s[j][x], scale, lse_s[cq]) : 0.0f;
+          dp[j][x] = s[j][x] * (dp[j][x] - d_s[cq]);
+        }
+      store_ntiles<kJ>(sP, s, r0, j0, jn, l);
+      store_ntiles<kJ>(sdS, dp, r0, j0, jn, l);
       __syncthreads();
+      if (ws.Pr != 0) continue;
+    }
+    // the products: slices [c0, c0 + cn) of the block, Q_s and dO_s the
+    // stage's tiles 2 (s - c0) and 2 (s - c0) + 1
+    const bool score = part < ws.Sc;
+    const int c0 = score ? 0 : (part - ws.Sc) * ws.Ps;
+    const int cn = score ? nc : min(ws.Ps, nc - c0);
+    for (int j = 0; j < cn; ++j) {
+      const uint32_t tq = cur + 2 * j * kTileBytes;
+      with_slice(acc_v, c0 + j, [&](float (&a)[kJ][4]) {
+        product_ntiles<kJ>(a, sP, r0, tq + kTileBytes, j0, jn, l);
+      });
+      with_slice(acc_k, c0 + j, [&](float (&a)[kJ][4]) {
+        product_ntiles<kJ>(a, sdS, r0, tq, j0, jn, l);
+      });
     }
   }
-  store_rows(dk, acc_k, scale, b, s0, head, d, l, col0);
-  store_rows(dv, acc_v, 1.0f, b, s0, head, d, l, col0);
+  store_slices<S, kJ>(dk, acc_k, scale, b, s0, head, d, nc, j0, jn, l);
+  store_slices<S, kJ>(dv, acc_v, 1.0f, b, s0, head, d, nc, j0, jn, l);
 }
 
 // ------------------------------------------------------------- launches
@@ -790,6 +1055,34 @@ template <typename K>
 int set_smem(K kernel, int bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+// the wide kernel that serves n slices, N = n up to 4 and 8 past it (its
+// accumulators a warp), with the geometry of wide_warps and wide_rows
+template <int N, bool kDkv>
+constexpr auto wide_kernel() {
+  if constexpr (kDkv)
+    return flash_bwd_dkv_wide_kernel<wide_warps(N), N,
+                                     wide_rows(N, true) / 16>;
+  else
+    return flash_bwd_dq_wide_kernel<wide_warps(N), N>;
+}
+
+constexpr int kSmemBlockMax = 232448;   // dynamic shared memory a block
+
+// launches wide_kernel<N, kDkv> on the grid of (query or key tiles, b*h,
+// the tile's row blocks), the most dynamic shared memory a block may have
+// allowed once for that kernel, as set_smem does
+template <int N, bool kDkv, typename... Act>
+int launch_wide(const Dims& d, cudaStream_t stream, Act... args) {
+  constexpr auto kernel = wide_kernel<N, kDkv>();
+  constexpr int rows = wide_rows(N, kDkv);
+  static const int attr = set_smem(kernel, kSmemBlockMax);
+  if (attr) return attr;
+  const dim3 grid((d.T + kTile - 1) / kTile, d.B * d.h, kTile / rows);
+  kernel<<<grid, 2 * rows * wide_warps(N), wide_smem(d.dh / kDh, kDkv),
+           stream>>>(args...);
+  CSR_RETURN_LAUNCH_STATUS();
 }
 
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -809,14 +1102,25 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lens,
         lse, drows, static_cast<bf16*>(dq), d, s0, s1, s2, s3);
   } else if (bf16_path) {
-    static const int attr = set_smem(flash_bwd_dq_wide_kernel,
-                                     (2 * kMaxDh / kDh + 4) * kTileBytes);
-    if (attr) return attr;
-    flash_bwd_dq_wide_kernel<<<grid, kThreadsTc, (2 * nc + 4) * kTileBytes,
-                               stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lens,
-        lse, drows, static_cast<bf16*>(dq), d, s0, s1, s2, s3);
+    const auto* q_ = static_cast<const bf16*>(q);
+    const auto* k_ = static_cast<const bf16*>(k);
+    const auto* v_ = static_cast<const bf16*>(v);
+    const auto* o_ = static_cast<const bf16*>(dout);
+    auto* dq_ = static_cast<bf16*>(dq);
+    switch (nc) {
+      case 2:
+        return launch_wide<2, false>(d, stream, q_, k_, v_, o_, lens, lse,
+                                     drows, dq_, d, s0, s1, s2, s3);
+      case 3:
+        return launch_wide<3, false>(d, stream, q_, k_, v_, o_, lens, lse,
+                                     drows, dq_, d, s0, s1, s2, s3);
+      case 4:
+        return launch_wide<4, false>(d, stream, q_, k_, v_, o_, lens, lse,
+                                     drows, dq_, d, s0, s1, s2, s3);
+      default:
+        return launch_wide<8, false>(d, stream, q_, k_, v_, o_, lens, lse,
+                                     drows, dq_, d, s0, s1, s2, s3);
+    }
   } else {
     constexpr int bytes = smem_bytes<kDh>(4, 1);
     static const int attr = set_smem(flash_bwd_dq_kernel, bytes);
@@ -847,17 +1151,26 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
         lse, drows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), d, s0,
         s1, s2, s3);
   } else if (bf16_path) {
-    static const int attr = set_smem(
-        flash_bwd_dkv_wide_kernel,
-        (2 * kMaxDh / kDh + 4) * kTileBytes + kRowsBytes);
-    if (attr) return attr;
-    flash_bwd_dkv_wide_kernel<<<grid, kThreadsTc,
-                                (2 * nc + 4) * kTileBytes + kRowsBytes,
-                                stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lens,
-        lse, drows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), d, s0,
-        s1, s2, s3);
+    const auto* q_ = static_cast<const bf16*>(q);
+    const auto* k_ = static_cast<const bf16*>(k);
+    const auto* v_ = static_cast<const bf16*>(v);
+    const auto* o_ = static_cast<const bf16*>(dout);
+    auto* dk_ = static_cast<bf16*>(dk);
+    auto* dv_ = static_cast<bf16*>(dv);
+    switch (nc) {
+      case 2:
+        return launch_wide<2, true>(d, stream, q_, k_, v_, o_, lens, lse,
+                                    drows, dk_, dv_, d, s0, s1, s2, s3);
+      case 3:
+        return launch_wide<3, true>(d, stream, q_, k_, v_, o_, lens, lse,
+                                    drows, dk_, dv_, d, s0, s1, s2, s3);
+      case 4:
+        return launch_wide<4, true>(d, stream, q_, k_, v_, o_, lens, lse,
+                                    drows, dk_, dv_, d, s0, s1, s2, s3);
+      default:
+        return launch_wide<8, true>(d, stream, q_, k_, v_, o_, lens, lse,
+                                    drows, dk_, dv_, d, s0, s1, s2, s3);
+    }
   } else {
     constexpr int bytes = smem_bytes<kDh>(4, 2);
     static const int attr = set_smem(flash_bwd_dkv_kernel, bytes);
@@ -903,3 +1216,35 @@ CSR_API int csr_flash_bwd_dkv(const void* q, const void* k, const void* v,
                     use_bf16 != 0, stream);
 }
 
+// The wide backward kernels' launch at head width dh (128 .. 512; dkv: 0
+// for dQ, 1 for dK/dV) into out[0 .. W + 4]: {W = wide_warps warp groups,
+// rows a block (wide_rows), dynamic shared memory bytes, blocks an SM
+// holds (the occupancy query), then ntile_lo(g, W) for g = 0 .. W: the
+// n-tiles each warp group owns} (ops/attention_cuda.py's flash_bwd_plan
+// computes all but the occupancy) → the query's status
+CSR_API int csr_flash_bwd_plan(int dh, int dkv, int* out) {
+  if (!dh_taken(dh) || dh == kDh)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n = dh / kDh, W = wide_warps(n), rows = wide_rows(n, dkv != 0);
+  const int smem = wide_smem(n, dkv != 0), threads = 2 * rows * W;
+  out[0] = W;
+  out[1] = rows;
+  out[2] = smem;
+  for (int g = 0; g <= W; ++g) out[4 + g] = ntile_lo(g, W);
+  auto occupancy = [&](auto kernel) {
+    const int e = set_smem(kernel, kSmemBlockMax);
+    return e ? e
+             : static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &out[3], kernel, threads, smem));
+  };
+  if (dkv) {
+    return n == 2   ? occupancy(wide_kernel<2, true>())
+         : n == 3   ? occupancy(wide_kernel<3, true>())
+         : n == 4   ? occupancy(wide_kernel<4, true>())
+                    : occupancy(wide_kernel<8, true>());
+  }
+  return n == 2   ? occupancy(wide_kernel<2, false>())
+       : n == 3   ? occupancy(wide_kernel<3, false>())
+       : n == 4   ? occupancy(wide_kernel<4, false>())
+                  : occupancy(wide_kernel<8, false>());
+}

@@ -66,25 +66,30 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // rows [row0, row0 + 64) of one head (base: its row 0, st: the t stride)
-// into a swizzled tile; rows at or past T are zero-filled
+// into a swizzled tile, shared by a block of kN threads; rows at or past T
+// are zero-filled
+template <int kN = kThreadsTc>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* base,
                                                 int64_t st, int row0, int T) {
 #pragma unroll
-  for (int j = 0; j < kTile * 8 / kThreadsTc; ++j) {
-    const int i = threadIdx.x + j * kThreadsTc, r = i >> 3, c = i & 7;
-    const int t = row0 + r;
-    const bool ok = t < T;
-    cp_async16(dst + swz(r, c), base + (ok ? t * st : 0) + c * 8, ok);
+  for (int j = 0; j < (kTile * 8 + kN - 1) / kN; ++j) {
+    const int i = threadIdx.x + j * kN, r = i >> 3, c = i & 7;
+    if (kTile * 8 % kN == 0 || i < kTile * 8) {
+      const int t = row0 + r;
+      const bool ok = t < T;
+      cp_async16(dst + swz(r, c), base + (ok ? t * st : 0) + c * 8, ok);
+    }
   }
 }
 
 // the n 64-column chunks of rows [row0, row0 + 64) into n consecutive
 // swizzled tiles (chunk c: head-dim columns 64c .. 64c + 63)
+template <int kN = kThreadsTc>
 __device__ __forceinline__ void load_chunks_async(uint32_t dst,
                                                   const bf16* base, int64_t st,
                                                   int row0, int T, int n) {
   for (int c = 0; c < n; ++c)
-    load_tile_async(dst + c * kTileBytes, base + c * kDh, st, row0, T);
+    load_tile_async<kN>(dst + c * kTileBytes, base + c * kDh, st, row0, T);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {

@@ -38,6 +38,7 @@ the path each offline MHSA call took (one count per call, not per trace).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -202,6 +203,65 @@ def bwd_planted_faults(q, k, v, lens, do, lse, d_rows, chunk: int = 0,
     return {name: tuple(a - b for a, b in zip(g, base))
             for name, g in (("p at 3 bits", grads(p3, ds3, ds3)),
                             ("tile skipped", grads(p_k, ds_q, ds_k)))}
+
+
+# ------------------------------------------------------------ launch plan
+
+TILE = 64                        # query and key rows a tile, head columns
+                                 # a slice (csrc/attention_common.cuh)
+TILE_BYTES = TILE * TILE * 2     # a [64][64] bf16 tile
+ROWS_BYTES = 2 * TILE * 4        # a tile's lse and D
+MAX_SLICES = 4                   # warp groups a wide backward block
+
+
+class FlashBwdPlan(NamedTuple):
+    """The wide bf16 backward kernels' launch (``csrc/attention_bwd.cu``)
+    at one head width dh = 64n: a block owns ``rows`` rows of a 64-row
+    tile (so 64 / rows blocks a tile) and all n 64-column slices, in warp
+    groups of rows / 16 warps, ``threads`` a block; warp group g owns the
+    n-tiles ``ntiles[g]`` = [first, end) of the 8 (8 keys or queries each
+    in the scores, 8 head columns of each slice in the products);
+    ``smem`` dynamic shared memory bytes a block."""
+    rows: int
+    threads: int
+    ntiles: tuple
+    smem: int
+
+
+def flash_bwd_plan(dh: int, form: str) -> FlashBwdPlan:
+    """The plan of the wide dQ (``form`` "dq") or dK/dV ("dkv") kernel at
+    head width dh (128 … 512), as the library computes it: two warp
+    groups at n = 2, else four; whole 64-row tiles, but past n = 4
+    dK/dV in blocks of 32 rows; in shared memory the resident side's n
+    chunk tiles of two operands, the dS tile (dQ) or the P^T and dS^T
+    tiles (dK/dV), and a ring of two stages, each 2G tiles (G chunks of
+    the streamed side: all n up to 4, 3 up to 6, else 2) and a tile's lse
+    and D."""
+    if dh not in KERNEL_DHS[1:] or form not in ("dq", "dkv"):
+        raise ValueError(f"flash_bwd_plan: no wide {form!r} kernel at "
+                         f"dh {dh}")
+    n, dkv = dh // TILE, form == "dkv"
+    warps = 2 if n == 2 else MAX_SLICES
+    rows = TILE // 2 if dkv and n > MAX_SLICES else TILE
+    group = n if n <= MAX_SLICES else 3 if n <= 6 else 2
+    lo = [-(-8 * g // warps) for g in range(warps + 1)]
+    smem = ((2 * n + (2 if dkv else 1) + 4 * group) * TILE_BYTES
+            + 2 * ROWS_BYTES)
+    return FlashBwdPlan(rows, 2 * rows * warps, tuple(zip(lo, lo[1:])),
+                        smem)
+
+
+def flash_bwd_occupancy(dh: int, form: str) -> tuple[FlashBwdPlan, int]:
+    """(the plan, blocks an SM holds) as the kernel library computes them
+    (``csr_flash_bwd_plan``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    needs the card."""
+    out = (ctypes.c_int * 13)()
+    err = _kernels.call("csr_flash_bwd_plan", dh, int(form == "dkv"), out)
+    if err:
+        raise RuntimeError(f"csr_flash_bwd_plan: CUDA error {err}")
+    warps, rows = out[0], out[1]
+    return FlashBwdPlan(rows, 2 * rows * warps, tuple(
+        (out[4 + g], out[5 + g]) for g in range(warps)), out[2]), out[3]
 
 
 # ------------------------------------------------------------------ kernels

@@ -3048,17 +3048,30 @@ def width_heads(dh: int) -> int:
 
 
 def phase_flash_widths(dev, rng) -> dict:
-    """Phase 29: the three flash kernels at every head width the kernels
-    take (``attention_cuda.KERNEL_DHS``, the reference's set), fp32 and
-    bf16, against their plain versions at the decode and training shapes
-    of phase 18 (ragged lengths 1 and T', q/k/v strided as the fused qkv
-    gives them; h from ``width_heads``), chunk 16 / left 4 at dh 128 and
-    512; the bf16 forward timed at the decode shape and the backward pair
-    at the training shape beside SDPA (``WIDTH_ROUNDS`` alternating rounds)
-    → {kernel: {dh: timing entry}}."""
+    """Phase 29: the wide backward's launch plan (library against
+    ``attention_cuda.flash_bwd_plan``), then the three flash kernels at
+    every head width the kernels take (``attention_cuda.KERNEL_DHS``, the
+    reference's set), fp32 and bf16, against their plain versions at the
+    decode and training shapes of phase 18 (ragged lengths 1 and T', q/k/v
+    strided as the fused qkv gives them; h from ``width_heads``), chunk
+    16 / left 4 at dh 128 and 512; the bf16 forward timed at the decode
+    shape and the backward pair at the training shape beside SDPA
+    (``WIDTH_ROUNDS`` alternating rounds) → {kernel: {dh: timing entry}}."""
     from chainer_speech_recognition_tpu_torch.ops.attention_cuda import (
-        KERNEL_DHS)
+        KERNEL_DHS, flash_bwd_occupancy, flash_bwd_plan)
 
+    # the wide backward's launch as the library computes it against the
+    # plan the Python side documents, and the blocks an SM holds
+    for dh in KERNEL_DHS[1:]:
+        for form in ("dq", "dkv"):
+            plan, per_sm = flash_bwd_occupancy(dh, form)
+            check(plan == flash_bwd_plan(dh, form) and per_sm >= 1,
+                  f"flash_bwd_{form} plan at dh {dh}: library {plan}, "
+                  f"{per_sm} blocks an SM; Python {flash_bwd_plan(dh, form)}")
+            print(f"[flash-widths] flash_bwd_{form} dh={dh}: blocks of "
+                  f"{plan.rows} rows and every slice, {plan.threads} "
+                  f"threads, n-tiles {plan.ntiles}, {plan.smem} bytes of "
+                  f"shared memory, {per_sm} block(s) an SM")
     cases = {c[0]: c for c in attention_cases(rng)}
     out = {name: {} for name in FLASH}
     for dh in KERNEL_DHS:

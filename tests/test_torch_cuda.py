@@ -1092,7 +1092,12 @@ def _flash_inputs(dev, B, T, h, dh, dtype, seed, strided):
     + [(B, 129, 1, dh, 0, 0) for dh in range(128, 513, 64) for B in (2, 3)]
     + [(3, 70, 2, 128, 16, 2), (2, 300, 1, 512, 16, 4), (2, 65, 2, 192, 8, 1),
        (2, 701, 2, 128, 0, 0), (3, 701, 1, 256, 0, 0),
-       (2, 701, 1, 512, 16, 4)])
+       (2, 701, 1, 512, 16, 4)]
+    # the wide backward where a tile's 8 n-tiles do not split evenly over
+    # the warp groups (3/3/2 at dh 192 and 320, one block of 4 and one of
+    # 3 slices at dh 448), at the tile edges in 16/2 chunk windows,
+    # contiguous with a length-0 row
+    + [(3, T, 1, dh, 16, 2) for dh in (192, 320, 448) for T in (63, 65, 129)])
 @pytest.mark.parametrize("dtype,tol,gtol", [
     (torch.float32, (2e-5, 2e-5), (3e-4, 3e-4)),
     (torch.bfloat16, (2 ** -7, 1e-5), (2 ** -7, 1e-3))])
@@ -1199,7 +1204,8 @@ def test_flash_bwd_bf16_bar_catches_planted_faults(dev, B, T, chunk, left, h,
 
 
 @pytest.mark.parametrize("chunk,left,h,dh", [(0, 0, 4, 64), (16, 4, 4, 64),
-                                             (0, 0, 1, 384)])
+                                             (0, 0, 1, 384), (0, 0, 2, 128),
+                                             (16, 2, 1, 192), (0, 0, 1, 448)])
 def test_flash_bwd_bf16_is_bitwise_repeatable(dev, chunk, left, h, dh):
     """Each output tile has one owner block and no atomics: two bf16
     backward calls on the same inputs give the same bits."""
@@ -1213,6 +1219,18 @@ def test_flash_bwd_bf16_is_bitwise_repeatable(dev, chunk, left, h, dh):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("form", ["dq", "dkv"])
+@pytest.mark.parametrize("dh", ac.KERNEL_DHS[1:])
+def test_flash_bwd_plan_is_the_library_s(dev, dh, form):
+    """The wide backward's launch as the library computes it (slices and
+    warp groups a block, blocks a tile, the n-tiles each warp group owns,
+    shared memory) is ``attention_cuda.flash_bwd_plan``'s, and an SM holds
+    such a block (the launch would be refused otherwise)."""
+    plan, blocks = ac.flash_bwd_occupancy(dh, form)
+    assert plan == ac.flash_bwd_plan(dh, form)
+    assert blocks >= 1
 
 
 def test_flash_bwd_bf16_refuses_unaligned_rows(dev):

@@ -2,7 +2,8 @@
 one card, on the same inputs, by two yardsticks:
 
     python3 tools/kernel_ab.py OTHER_ROOT [--rounds 9] [--seed 0]
-                [--cases frontend,flash,lstm,gru,stream,ctc,greedy,dw,beam]
+                [--cases frontend,flash,flash_wide,lstm,gru,stream,ctc,
+                         greedy,dw,beam]
 
 OTHER_ROOT is the root of another checkout of the repo (for example an
 older commit unpacked by ``git archive`` into a git-ignored directory).
@@ -27,6 +28,13 @@ Kernels and shapes (those of ``chip_smoke.py``):
   backward (its forward and backward less its training forward); the two
   builds' outputs (out, lse, dq, dk, dv) must be bitwise equal, in bf16
   and in fp32 on the same inputs widened;
+* ``flash_wide``: the same at every wider head the kernels take, dh =
+  128 … 512 (``WIDE_DHS``; h = 2 at dh 128, else 1, by
+  ``chip_smoke.width_heads``) at phase 29's training shape (B = 24,
+  T' = 256), where the bf16 backward pair may differ from another build's
+  in the last bits (each build is held to the plain versions' derived
+  bar; whether they are equal is printed), and the bf16 forward and every
+  fp32 output must be bitwise equal;
 * the bf16 LSTM, H = 384 (``chip_smoke.lstm_cases``): row 6's
   residual-free form at B = 32, T' = 251 beside cuDNN's forward; row 6's
   training form and row 7 at B = 24, T' = 256 beside cuDNN's training
@@ -69,7 +77,7 @@ Kernels and shapes (those of ``chip_smoke.py``):
   build's equal to the plain version at phase 23's bars.
 
 ``--cases`` takes a subset of
-``frontend,flash,lstm,gru,stream,ctc,greedy,dw,beam``.
+``frontend,flash,flash_wide,lstm,gru,stream,ctc,greedy,dw,beam``.
 
 Each case also records whether the two builds' bf16-compute outputs are
 bitwise equal (``bf16 bitwise equal``; dW against the other build's own
@@ -125,8 +133,9 @@ PKG = "chainer_speech_recognition_tpu_torch"
 SOURCES = ("frontend_logmel.cu", "attention_fwd.cu", "attention_bwd.cu",
            "lstm_fwd.cu", "lstm_bwd.cu", "gru_fwd.cu", "gru_bwd.cu",
            "ctc.cu", "greedy.cu", "dw.cu", "beam.cu", "library.cu")
-CASES = ("frontend", "flash", "lstm", "gru", "stream", "ctc", "greedy",
-         "dw", "beam")
+CASES = ("frontend", "flash", "flash_wide", "lstm", "gru", "stream", "ctc",
+         "greedy", "dw", "beam")
+WIDE_DHS = tuple(range(128, 513, 64))   # flash_wide's head widths
 
 
 def build_alone(root: str, tag: str) -> str:
@@ -273,7 +282,12 @@ def shares(got, want, room) -> tuple[float, float]:
     return new, cs.excess(got, want, 2 ** -7, 1e-3)
 
 
-def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left):
+def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left,
+               dh=None, exact=("bf16 forward", "bf16 backward", "fp32")):
+    """Rows 11-13 at one shape, h and dh the presets' (dh None) or dh with
+    ``chip_smoke.width_heads(dh)`` heads; the two builds' outputs must be
+    bitwise equal in each part named in ``exact`` (the others are
+    printed)."""
     import torch
     import torch.nn.functional as F
 
@@ -281,8 +295,11 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left):
     from chainer_speech_recognition_tpu_torch.ops import attention_cuda as ac
 
     oac = importlib.import_module(f"{other.__name__}.ops.attention_cuda")
-    mcfg = preset_config(cs.CONF_PRESET).model
-    h, dh = mcfg.attn_heads, mcfg.attn_dim // mcfg.attn_heads
+    if dh is None:
+        mcfg = preset_config(cs.CONF_PRESET).model
+        h, dh = mcfg.attn_heads, mcfg.attn_dim // mcfg.attn_heads
+    else:
+        h = cs.width_heads(dh)
     d = h * dh
     lens = lens_cpu.to(torch.int32).to(dev)
     bf = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
@@ -299,8 +316,8 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left):
     plain = (ac.flash_bwd_dq_plain(*args), *ac.flash_bwd_dkv_plain(*args))
     room = ac.bwd_rounding_room(*args)
     ok = ac.allowed_mask(T, lens, chunk, left)
-    res = {"tag": tag, "B": B, "T": T, "chunk": chunk, "left": left,
-           "pairs": int(ok.expand(B, 1, T, T).sum()) * h}
+    res = {"tag": tag, "B": B, "T": T, "h": h, "dh": dh, "chunk": chunk,
+           "left": left, "pairs": int(ok.expand(B, 1, T, T).sum()) * h}
     mods = {"this": ac, "other": oac}
     outs = {}
     for b, m in mods.items():
@@ -325,8 +342,9 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left):
                   for n, x in zip(("dq", "dk", "dv"), g)))
 
     # the two builds bitwise: bf16 here, fp32 on the same inputs widened
-    same = {"bf16": all(cs.same_bits(a, b) for a, b in zip(outs["this"],
-                                                          outs["other"]))}
+    pairs = list(zip(outs["this"], outs["other"]))
+    same = {"bf16 forward": all(cs.same_bits(a, b) for a, b in pairs[:2]),
+            "bf16 backward": all(cs.same_bits(a, b) for a, b in pairs[2:])}
     args32 = tuple(x.float() if torch.is_tensor(x) and x.is_floating_point()
                    else x for x in args)
     q32, k32, v32 = args32[:3]
@@ -338,8 +356,10 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left):
     res["bitwise"] = same
     print(f"[ab] {tag}: this build's outputs (out, lse, dq, dk, dv) bitwise "
           f"the other build's: " + ", ".join(
-              f"{k} {'yes' if v else 'NO'}" for k, v in same.items()))
-    cs.check(all(same.values()), f"{tag}: the builds' outputs differ")
+              f"{k} {'yes' if v else 'NO'}" for k, v in same.items())
+          + f" (required: {', '.join(exact)})")
+    cs.check(all(same[k] for k in exact),
+             f"{tag}: the builds' outputs differ")
 
     qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
     leaves = [x.detach().clone().requires_grad_() for x in (qh, kh, vh)]
@@ -368,7 +388,8 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left):
         for b in mods:
             t[f"{b} pair"] = [x + y for x, y in zip(t[f"{b} dq"],
                                                     t[f"{b} dkv"])]
-    res.update(report(f"{tag} B={B} T'={T} chunk {chunk}/{left}", times, [
+    res.update(report(f"{tag} B={B} T'={T} h={h} dh={dh} chunk "
+                      f"{chunk}/{left}", times, [
         ("other fwd", "this fwd"), ("this fwd", "sdpa fwd"),
         ("other fwd", "sdpa fwd"), ("other pair", "this pair"),
         ("this pair", "sdpa bwd"), ("other pair", "sdpa bwd")]))
@@ -916,6 +937,13 @@ def main() -> int:
         if "flash" in cases:
             out += [flash_case(dev, rng, other, a.rounds, *c)
                     for c in cs.attention_cases(rng)]
+        if "flash_wide" in cases:
+            train = next(c for c in cs.attention_cases(rng)
+                         if c[0] == "train")
+            out += [flash_case(dev, rng, other, a.rounds,
+                               f"flash_wide dh={dh}", *train[1:], dh=dh,
+                               exact=("bf16 forward", "fp32"))
+                    for dh in WIDE_DHS]
         if "lstm" in cases:
             out += [lstm_case(dev, rng, other, a.rounds, *c)
                     for c in cs.lstm_cases(rng)]

@@ -42,8 +42,17 @@ CLIs, on one CUDA card: ``python3 tools/parity_runs.py [--out DIR]
    --lm-alpha 0.5 --lm-beta 1.0``: greedy, beam 8 and beam 8 + LM,
    recorded (PARITY.md gives the row no gate).
 
+8. §3g's streaming gate at each compute dtype (``--runs stream_gate``; the
+   smoke trains and streams conformer_stream for 10 steps first): the
+   ``conformer_stream`` of 6 trained alone, then ``tools/stream_gate.py``
+   scores it offline and streamed at one attention chunk, greedy, at bf16
+   and at fp32 compute on the utterances both score, and compares the
+   logits of each utterance whose hypotheses differ (recorded: the gate
+   of 6 stays the bf16 one).
+
 ``--runs`` picks the parts after the smoke and the corpus: ``bigru``
-(3-5), ``online`` (6) and ``glu`` (7); ``bigru,online`` by default.
+(3-5), ``online`` (6), ``glu`` (7) and ``stream_gate`` (8);
+``bigru,online`` by default.
 
 Every command's output goes to ``DIR/<name>.log``; the last line of stdout
 is one JSON object with each run's dev CER, edits, reference characters,
@@ -304,6 +313,36 @@ def online_runs(out: str, prep: str, lm3: str) -> dict:
     return res
 
 
+def stream_gate(out: str, name: str, ckpt: str, prep: str) -> dict:
+    """``tools/stream_gate.py`` on a conformer_stream checkpoint at one
+    attention chunk → its JSON (the output in ``out/<name>.log``)."""
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "stream_gate.py")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, tool, "--ckpt-dir", ckpt,
+                           "--data-dir", prep, *CSTREAM_ARGS[1:]],
+                          capture_output=True, text=True)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, f"{name}.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    print(f"[{name}] stream_gate exit {proc.returncode} in {wall:.3f} s\n"
+          + proc.stdout[-6000:], flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-3000:], flush=True)
+        raise RunFailure(f"{name}: stream_gate exited {proc.returncode}")
+    return {**json.loads(proc.stdout.strip().splitlines()[-1]),
+            "wall_s": wall}
+
+
+def stream_gate_runs(out: str, prep: str) -> dict:
+    """§3g's conformer_stream trained as in ``online_runs``, scored by
+    ``tools/stream_gate.py`` at bf16 and fp32 compute → its figures."""
+    cs = train(out, "cstream", prep, CSTREAM_SETS, "conformer_stream")
+    cs["stream_gate"] = stream_gate(out, "cstream_stream_gate", cs["ckpt"],
+                                    prep)
+    return {"cstream": cs}
+
+
 def glu_runs(out: str, prep: str, lm3: str) -> dict:
     """PARITY.md's glu_conv row: trained as run 1, scored by ``--compare``
     (recorded, no gate)."""
@@ -332,12 +371,16 @@ def main() -> int:
                    help="corpora and checkpoints (git-ignored)")
     p.add_argument("--runs", default="bigru,online",
                    help="comma list of bigru (runs 1-2, config 4), online "
-                        "(uni_gru, conformer_stream) and glu (glu_conv)")
+                        "(uni_gru, conformer_stream), glu (glu_conv) and "
+                        "stream_gate (conformer_stream at bf16 and fp32)")
     args = p.parse_args()
     runs = set(args.runs.split(","))
-    if not runs or runs - {"bigru", "online", "glu"}:
+    if not runs or runs - {"bigru", "online", "glu", "stream_gate"}:
         raise SystemExit(f"--runs {args.runs!r}: expected a comma list of "
-                         "bigru, online and glu")
+                         "bigru, online, glu and stream_gate")
+    if {"online", "stream_gate"} <= runs:
+        raise SystemExit("--runs: online already trains conformer_stream; "
+                         "take stream_gate alone")
     os.makedirs(args.out, exist_ok=True)
     os.makedirs(args.work, exist_ok=True)
     card = subprocess.run(
@@ -359,14 +402,17 @@ def main() -> int:
         compare(args.work, "smoke_compare", sm["ckpt"], prep, smoke_lm)
         evaluate(args.work, "smoke_stream_beam", sm["ckpt"], prep,
                  STREAM_ARGS + BEAM_ARGS + ["--lm", smoke_lm])
-        if "online" in runs:
-            for name, preset, sargs in (("uni", "uni_gru", UNI_STREAM_ARGS),
-                                        ("cstream", "conformer_stream",
-                                         CSTREAM_ARGS)):
-                o = train(args.work, f"smoke_{name}", prep, SMOKE_SETS + [
-                    "features.cmvn_mode=causal"], preset)
-                evaluate(args.work, f"smoke_{name}_stream", o["ckpt"], prep,
-                         sargs + BEAM_ARGS + ["--lm", smoke_lm])
+        online = [("uni", "uni_gru", UNI_STREAM_ARGS),
+                  ("cstream", "conformer_stream", CSTREAM_ARGS)]
+        if "online" not in runs:
+            online = online[1:] if "stream_gate" in runs else []
+        for name, preset, sargs in online:
+            o = train(args.work, f"smoke_{name}", prep, SMOKE_SETS + [
+                "features.cmvn_mode=causal"], preset)
+            evaluate(args.work, f"smoke_{name}_stream", o["ckpt"], prep,
+                     sargs + BEAM_ARGS + ["--lm", smoke_lm])
+            if "stream_gate" in runs:
+                stream_gate(args.work, "smoke_stream_gate", o["ckpt"], prep)
         if "glu" in runs:
             o = train(args.work, "smoke_glu", prep, SMOKE_SETS, "glu_conv")
             compare(args.work, "smoke_glu_compare", o["ckpt"], prep,
@@ -384,6 +430,8 @@ def main() -> int:
             result.update(bigru_runs(args.work, prep, lm3))
         if "glu" in runs:
             result.update(glu_runs(args.work, prep, lm3))
+        if "stream_gate" in runs:
+            result.update(stream_gate_runs(args.work, prep))
     except RunFailure as e:
         print(f"parity_runs: FAILED: {e}", file=sys.stderr)
         print(json.dumps(result))
