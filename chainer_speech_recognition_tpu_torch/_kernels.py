@@ -118,13 +118,16 @@ KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
 # the beam's (T, V, K, ctx_len, wide, out) → its launch plan
 # (ops/beam_cuda.beam_plan); the wide flash backward's (dh, dkv, out) → its
 # warp groups, rows a block, shared memory, occupancy and n-tile split
-# (ops/attention_cuda.flash_bwd_occupancy)
+# (ops/attention_cuda.flash_bwd_occupancy); the wide forward's (dh, tiles,
+# out) → the same and its ring's chunks a stage
+# (ops/attention_cuda.flash_fwd_occupancy)
 HELPERS = {f"csr_{cell}_{form}_occupancy": [_I, ctypes.POINTER(_I)]
            for cell in ("gru", "lstm") for form in ("fwd", "bwd")}
 HELPERS["csr_ctc_plan"] = [_I, _I, ctypes.POINTER(_I)]
 HELPERS["csr_dw_plan"] = [_I] * 5 + [ctypes.POINTER(_I)]
 HELPERS["csr_beam_plan"] = [_I] * 5 + [ctypes.POINTER(_I)]
 HELPERS["csr_flash_bwd_plan"] = [_I, _I, ctypes.POINTER(_I)]
+HELPERS["csr_flash_fwd_plan"] = [_I, _I, ctypes.POINTER(_I)]
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

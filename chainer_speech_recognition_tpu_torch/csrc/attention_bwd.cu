@@ -578,14 +578,12 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q,
 
 // ------------------------ bf16, dh = 64n (n = 2 .. 8): slices in one block
 
-constexpr int kMaxSlices = 4;   // warp groups a block, and the slices (256
-                                // columns) up to which a stage holds a tile
 constexpr int kRowsStage = 2 * kTile * 4;   // a query tile's lse and D
 
 // warp groups of four warps a block at dh = 64n: two at n = 2 (two blocks
 // an SM), else four, each owning two of a tile's 8 n-tiles (at n = 3 four
 // groups ran faster than three on an H100); every block owns all n slices
-// of its rows
+// of its rows (their n-tiles: ntile_lo, attention_mma.cuh)
 __host__ __device__ constexpr int wide_warps(int n) {
   return n == 2 ? 2 : kMaxSlices;
 }
@@ -600,11 +598,6 @@ __host__ __device__ constexpr int wide_rows(int n, bool dkv) {
 // three or two past it
 __host__ __device__ constexpr int wide_group(int n) {
   return n <= kMaxSlices ? n : n <= 6 ? 3 : 2;
-}
-// the first of a tile's 8 n-tiles (8 keys or queries; in the products 8
-// head-dim columns of each slice) that warp group g of W owns
-__host__ __device__ constexpr int ntile_lo(int g, int W) {
-  return (8 * g + W - 1) / W;
 }
 // dynamic shared memory of a wide kernel at dh = 64n (ops/attention_cuda.py
 // flash_bwd_plan computes the same): the resident side's n chunk tiles of
@@ -629,13 +622,6 @@ struct WideSteps {
     per = Sc + Pr;
   }
 };
-
-// B fragments (ldmatrix.trans) of the two n-tiles at 16-byte chunks c0 and
-// c0 + 1 of a tile stored [k][n], k rows k0..k0+15 (bt_frag at any chunk)
-__device__ __forceinline__ uint32_t bt_chunk(uint32_t tile, int k0, int c0,
-                                             int l) {
-  return tile + swz(k0 + (l & 7) + (((l >> 3) & 1) << 3), c0 + (l >> 4));
-}
 
 // S (x) and dP (y) of a warp's 16 rows r0.. against the jn n-tiles j0..
 // (rows 8 j0.. of the B tiles bx, by), summed over one 64-column chunk: x
@@ -701,28 +687,6 @@ __device__ __forceinline__ void with_slice(float (&acc)[S][kJ][4], int z,
       f(acc[Z]);
     else
       with_slice<Z + 1>(acc, z, f);
-  }
-}
-
-// bf16(x) of a warp's accumulators (rows r0 + l/4 and + 8, n-tiles j0..)
-// into the swizzled [64][64] tile t
-template <int kJ>
-__device__ __forceinline__ void store_ntiles(uint32_t t, const float x[kJ][4],
-                                             int r0, int j0, int jn, int l) {
-  const int r = r0 + (l >> 2);
-#pragma unroll
-  for (int j = 0; j < kJ; ++j) {
-    if (j < jn) {
-      const uint32_t at = 4 * (l & 3);
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(t + swz(r, j0 + j) +
-                                                       at),
-                   "r"(pack_bf16(x[j][0], x[j][1]))
-                   : "memory");
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(t + swz(r + 8, j0 + j) +
-                                                       at),
-                   "r"(pack_bf16(x[j][2], x[j][3]))
-                   : "memory");
-    }
   }
 }
 
@@ -1067,8 +1031,6 @@ constexpr auto wide_kernel() {
   else
     return flash_bwd_dq_wide_kernel<wide_warps(N), N>;
 }
-
-constexpr int kSmemBlockMax = 232448;   // dynamic shared memory a block
 
 // launches wide_kernel<N, kDkv> on the grid of (query or key tiles, b*h,
 // the tile's row blocks), the most dynamic shared memory a block may have

@@ -65,16 +65,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [row0, row0 + 64) of one head (base: its row 0, st: the t stride)
-// into a swizzled tile, shared by a block of kN threads; rows at or past T
-// are zero-filled
-template <int kN = kThreadsTc>
+// rows [row0, row0 + kRows) of one head (base: its row 0, st: the t
+// stride) into a swizzled tile of kRows rows, shared by a block of kN
+// threads; rows at or past T are zero-filled
+template <int kN = kThreadsTc, int kRows = kTile>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* base,
                                                 int64_t st, int row0, int T) {
 #pragma unroll
-  for (int j = 0; j < (kTile * 8 + kN - 1) / kN; ++j) {
+  for (int j = 0; j < (kRows * 8 + kN - 1) / kN; ++j) {
     const int i = threadIdx.x + j * kN, r = i >> 3, c = i & 7;
-    if (kTile * 8 % kN == 0 || i < kTile * 8) {
+    if (kRows * 8 % kN == 0 || i < kRows * 8) {
       const int t = row0 + r;
       const bool ok = t < T;
       cp_async16(dst + swz(r, c), base + (ok ? t * st : 0) + c * 8, ok);
@@ -82,14 +82,15 @@ __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* base,
   }
 }
 
-// the n 64-column chunks of rows [row0, row0 + 64) into n consecutive
+// the n 64-column chunks of rows [row0, row0 + kRows) into n consecutive
 // swizzled tiles (chunk c: head-dim columns 64c .. 64c + 63)
-template <int kN = kThreadsTc>
+template <int kN = kThreadsTc, int kRows = kTile>
 __device__ __forceinline__ void load_chunks_async(uint32_t dst,
                                                   const bf16* base, int64_t st,
                                                   int row0, int T, int n) {
   for (int c = 0; c < n; ++c)
-    load_tile_async<kN>(dst + c * kTileBytes, base + c * kDh, st, row0, T);
+    load_tile_async<kN, kRows>(dst + c * kRows * 128, base + c * kDh, st,
+                               row0, T);
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
@@ -168,6 +169,52 @@ __device__ __forceinline__ void product_tc(float acc[8][4],
       mma(acc[2 * nb], a[kk], f[0], f[1]);
       mma(acc[2 * nb + 1], a[kk], f[2], f[3]);
     }
+}
+
+// ------------- the wide kernels (dh = 64n, n = 2 .. 8): slices in one block
+//
+// A wide block owns every 64-column slice of its rows. It has W warp
+// groups of a warp for every 16 rows; warp (r, g) owns rows 16r .. 16r + 15
+// and the n-tiles [ntile_lo(g, W), ntile_lo(g + 1, W)) of a tile's 8: 8-key
+// (8-query in dK/dV) column blocks of the score tile, and the same 8-column
+// blocks of every slice's output.
+
+constexpr int kMaxSlices = 4;   // warp groups a block, and the slices (256
+                                // columns) up to which a stage holds a tile
+constexpr int kSmemBlockMax = 232448;   // dynamic shared memory a block
+
+// the first of a tile's 8 n-tiles that warp group g of W owns
+__host__ __device__ constexpr int ntile_lo(int g, int W) {
+  return (8 * g + W - 1) / W;
+}
+
+// B fragments (ldmatrix.trans) of the two n-tiles at 16-byte chunks c0 and
+// c0 + 1 of a tile stored [k][n], k rows k0..k0+15 (bt_frag at any chunk)
+__device__ __forceinline__ uint32_t bt_chunk(uint32_t tile, int k0, int c0,
+                                             int l) {
+  return tile + swz(k0 + (l & 7) + (((l >> 3) & 1) << 3), c0 + (l >> 4));
+}
+
+// bf16(x) of a warp's accumulators (rows r0 + l/4 and + 8, n-tiles j0..)
+// into the swizzled [64][64] tile t
+template <int kJ>
+__device__ __forceinline__ void store_ntiles(uint32_t t, const float x[kJ][4],
+                                             int r0, int j0, int jn, int l) {
+  const int r = r0 + (l >> 2);
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) {
+    if (j < jn) {
+      const uint32_t at = 4 * (l & 3);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(t + swz(r, j0 + j) +
+                                                       at),
+                   "r"(pack_bf16(x[j][0], x[j][1]))
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(t + swz(r + 8, j0 + j) +
+                                                       at),
+                   "r"(pack_bf16(x[j][2], x[j][3]))
+                   : "memory");
+    }
+  }
 }
 
 // this thread's queries t0 + 8i and the keys [s_lo, s_hi) each may attend

@@ -47,8 +47,9 @@ from .. import _kernels
 NEG = -1e30                      # the masking constant of the reference
 # the head widths the kernels take: the reference's set
 # (attention_pallas.supports), dh = 64 for both presets (d 256 over 4
-# heads) on the tensor-core kernels of one 64-wide tile, wider heads split
-# into 64-column slices over blocks (csrc/attention_fwd.cu)
+# heads) on the tensor-core kernels of one 64-wide tile, wider heads on the
+# wide kernels, a block owning every 64-column slice of its rows
+# (csrc/attention_fwd.cu, attention_bwd.cu)
 KERNEL_DHS = tuple(range(64, 513, 64))
 AUTO_MIN_T = 512                 # auto routes flash only for T' above this
 
@@ -211,7 +212,11 @@ TILE = 64                        # query and key rows a tile, head columns
                                  # a slice (csrc/attention_common.cuh)
 TILE_BYTES = TILE * TILE * 2     # a [64][64] bf16 tile
 ROWS_BYTES = 2 * TILE * 4        # a tile's lse and D
-MAX_SLICES = 4                   # warp groups a wide backward block
+MAX_SLICES = 4                   # warp groups a wide block
+SM_SLOTS = 128                   # a forward grid of fewer one-block-an-SM
+                                 # blocks than this leaves some of an
+                                 # H100's 132 SMs idle
+SMEM_BLOCK = 232448              # dynamic shared memory a block (H100)
 
 
 class FlashBwdPlan(NamedTuple):
@@ -262,6 +267,65 @@ def flash_bwd_occupancy(dh: int, form: str) -> tuple[FlashBwdPlan, int]:
     warps, rows = out[0], out[1]
     return FlashBwdPlan(rows, 2 * rows * warps, tuple(
         (out[4 + g], out[5 + g]) for g in range(warps)), out[2]), out[3]
+
+
+class FlashFwdPlan(NamedTuple):
+    """The wide bf16 forward kernel's launch (``csrc/attention_fwd.cu``)
+    at one head width dh = 64n: a block owns ``rows`` rows of a 64-row
+    query tile (so 64 / rows blocks a tile) and all n 64-column slices, in
+    warp groups of rows / 16 warps, ``threads`` a block; warp group g owns
+    the n-tiles ``ntiles[g]`` = [first, end) of the 8 (8 keys each in the
+    scores, 8 head columns of each slice in the products); a ring of
+    ``stages`` stages each holds the n 64-column chunks of one key tile's K
+    or V; ``smem`` dynamic shared memory bytes a block."""
+    rows: int
+    threads: int
+    ntiles: tuple
+    stages: int
+    smem: int
+
+
+def flash_fwd_plan(dh: int, tiles: int) -> FlashFwdPlan:
+    """The plan of the wide forward at head width dh = 64n (128 … 512) on
+    a grid of ``tiles`` 64-row query tiles (⌈T / 64⌉·B·h), as the library
+    computes it: one warp group at n = 2 (a warp owns whole rows), else
+    four; whole tiles, but at n = 3, 4 32 rows a block where the 64-row
+    blocks (512 threads, one an SM) do not fill the card (fewer tiles than
+    ``SM_SLOTS``); in shared memory Q's n chunks of the block's rows and,
+    with four warp groups, the bf16 P tile, the fp32 p tile (rows of 72
+    floats) and each warp group's row maxima; then a ring of up to 4 stages
+    of n chunk tiles, as many as fit in the block's share of an SM (all of
+    it at 512 threads, one block an SM, else half: the launch bounds ask
+    for two)."""
+    if dh not in KERNEL_DHS[1:] or tiles < 1:
+        raise ValueError(f"flash_fwd_plan: no wide forward at dh {dh} on "
+                         f"{tiles} tiles")
+    n = dh // TILE
+    warps = 1 if n == 2 else MAX_SLICES
+    rows = TILE // 2 if 2 < n <= MAX_SLICES and tiles < SM_SLOTS else TILE
+    threads = 2 * rows * warps
+    fixed = n * rows * 2 * TILE if warps == 1 else (
+        (n + 1) * rows * 2 * TILE + rows * (TILE + 8) * 4
+        + MAX_SLICES * rows * 4)
+    share = SMEM_BLOCK if threads >= 512 else SMEM_BLOCK // 2 - 512
+    stages = min(4, (share - fixed) // (n * TILE_BYTES))
+    lo = [-(-8 * g // warps) for g in range(warps + 1)]
+    return FlashFwdPlan(rows, threads, tuple(zip(lo, lo[1:])), stages,
+                        fixed + stages * n * TILE_BYTES)
+
+
+def flash_fwd_occupancy(dh: int, tiles: int) -> tuple[FlashFwdPlan, int]:
+    """(the plan, blocks an SM holds) as the kernel library computes them
+    (``csr_flash_fwd_plan``, ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+    needs the card."""
+    out = (ctypes.c_int * 13)()
+    err = _kernels.call("csr_flash_fwd_plan", dh, tiles, out)
+    if err:
+        raise RuntimeError(f"csr_flash_fwd_plan: CUDA error {err}")
+    warps, rows = out[0], out[1]
+    return FlashFwdPlan(rows, 2 * rows * warps, tuple(
+        (out[5 + g], out[6 + g]) for g in range(warps)), out[4],
+        out[2]), out[3]
 
 
 # ------------------------------------------------------------------ kernels

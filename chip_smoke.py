@@ -257,15 +257,18 @@ any phase fails:
     phase 19's fp32 bar, and the streamed transcripts equal to the offline
     argmax's wherever it has no near-tie.
     Phases 26-28's walls are printed against a 40 s budget.
-29. the flash widths: forward, dQ and dK/dV at every head width the
-    kernels take (dh = 64, 128, ..., 512: the reference's set; dh > 64
-    splits the head dim over blocks in 64-column slices), fp32 and bf16,
+29. the flash widths: the wide kernels' launch plans, library against
+    ``attention_cuda.flash_bwd_plan`` and (at both shapes below)
+    ``flash_fwd_plan``, printed; forward, dQ and dK/dV at every head
+    width the kernels take (dh = 64, 128, ..., 512: the reference's set;
+    past 64 a bf16 block owns every 64-column slice of its rows, the fp32
+    kernels split the head dim over blocks), fp32 and bf16,
     against their plain versions at phase 18's decode (B = 32, T' = 701)
     and training (B = 24, T' = 256) shapes, h = 4, 2, 1 where dh divides
     256 (``width_heads``) and 1 elsewhere, chunk 16 / left 4 at dh 128 and
     512, ragged lengths 1 and T', q/k/v strided as the fused qkv gives
     them; the bf16 gradients at phase 18's derived bar, both planted
-    faults beyond it at every dh; the bf16 forward at the decode shape and
+    faults beyond it at every dh; the bf16 forward at both shapes and
     the backward pair at the training shape timed in 5 alternating rounds
     of graph replays beside SDPA with the same boolean mask (the backend
     it picks named), the plain versions and the bound (the kernel line's
@@ -3048,17 +3051,20 @@ def width_heads(dh: int) -> int:
 
 
 def phase_flash_widths(dev, rng) -> dict:
-    """Phase 29: the wide backward's launch plan (library against
-    ``attention_cuda.flash_bwd_plan``), then the three flash kernels at
-    every head width the kernels take (``attention_cuda.KERNEL_DHS``, the
+    """Phase 29: the wide kernels' launch plans (library against
+    ``attention_cuda.flash_bwd_plan`` and, at the decode and training
+    shapes, ``flash_fwd_plan``), then the three flash kernels at every
+    head width the kernels take (``attention_cuda.KERNEL_DHS``, the
     reference's set), fp32 and bf16, against their plain versions at the
     decode and training shapes of phase 18 (ragged lengths 1 and T', q/k/v
     strided as the fused qkv gives them; h from ``width_heads``), chunk
-    16 / left 4 at dh 128 and 512; the bf16 forward timed at the decode
-    shape and the backward pair at the training shape beside SDPA
-    (``WIDTH_ROUNDS`` alternating rounds) → {kernel: {dh: timing entry}}."""
+    16 / left 4 at dh 128 and 512; the bf16 forward timed at both shapes
+    and the backward pair at the training shape beside SDPA
+    (``WIDTH_ROUNDS`` alternating rounds) → {kernel: {dh: timing entry}},
+    the forward's training-shape entry under "train" in its dh entry."""
     from chainer_speech_recognition_tpu_torch.ops.attention_cuda import (
-        KERNEL_DHS, flash_bwd_occupancy, flash_bwd_plan)
+        KERNEL_DHS, TILE, flash_bwd_occupancy, flash_bwd_plan,
+        flash_fwd_occupancy, flash_fwd_plan)
 
     # the wide backward's launch as the library computes it against the
     # plan the Python side documents, and the blocks an SM holds
@@ -3073,6 +3079,21 @@ def phase_flash_widths(dev, rng) -> dict:
                   f"threads, n-tiles {plan.ntiles}, {plan.smem} bytes of "
                   f"shared memory, {per_sm} block(s) an SM")
     cases = {c[0]: c for c in attention_cases(rng)}
+    for dh in KERNEL_DHS[1:]:
+        for tag in ("decode", "train"):
+            _, B, T, *_ = cases[tag]
+            tiles = -(-T // TILE) * B * width_heads(dh)
+            plan, per_sm = flash_fwd_occupancy(dh, tiles)
+            check(plan == flash_fwd_plan(dh, tiles) and per_sm >= 1,
+                  f"flash_fwd plan at dh {dh}, {tiles} tiles: library "
+                  f"{plan}, {per_sm} blocks an SM; Python "
+                  f"{flash_fwd_plan(dh, tiles)}")
+            print(f"[flash-widths] flash_fwd dh={dh} {tag} ({tiles} tiles "
+                  f"of 64 rows): blocks of {plan.rows} rows and every "
+                  f"slice, {plan.threads} threads, n-tiles {plan.ntiles}, "
+                  f"a ring of {plan.stages} stages, "
+                  f"{plan.smem} bytes of shared memory, {per_sm} block(s) "
+                  "an SM")
     out = {name: {} for name in FLASH}
     for dh in KERNEL_DHS:
         h = width_heads(dh)
@@ -3086,16 +3107,21 @@ def phase_flash_widths(dev, rng) -> dict:
             tag, B, T, lens, chunk, left = cases["decode chunk 16/4"]
             flash_case(dev, rng, f"width {tag}", B, T, lens, chunk, left, h,
                        dh, timed=())
-        for name, r in (("flash_fwd", fwd["flash_fwd"]),
+        for name, r in (("flash_fwd", {**fwd["flash_fwd"],
+                                       "train": bwd["flash_fwd"]}),
                         ("flash_bwd_dq", bwd["flash_bwd_dq"]),
                         ("flash_bwd_dkv", bwd["flash_bwd_dkv"])):
             out[name][str(dh)] = {"h": h, **r}
-    print("[flash-widths] bf16 medians (ms; forward at B=32 T'=701, the "
-          "backward at B=24 T'=256): " + "; ".join(
+    print("[flash-widths] bf16 medians (ms; forward at B=32 T'=701 and "
+          "at B=24 T'=256, the backward at B=24 T'=256): " + "; ".join(
               f"dh {dh}: fwd {out['flash_fwd'][str(dh)]['ms']:.4f} (SDPA "
               f"{out['flash_fwd'][str(dh)]['library_ms']:.4f} "
               f"{out['flash_fwd'][str(dh)]['sdpa_backend']}, bound "
-              f"{out['flash_fwd'][str(dh)]['bound_ms']:.4f}), dq+dkv "
+              f"{out['flash_fwd'][str(dh)]['bound_ms']:.4f}), training "
+              f"fwd {out['flash_fwd'][str(dh)]['train']['ms']:.4f} (SDPA "
+              f"{out['flash_fwd'][str(dh)]['train']['library_ms']:.4f}, "
+              f"bound {out['flash_fwd'][str(dh)]['train']['bound_ms']:.4f})"
+              f", dq+dkv "
               f"{out['flash_bwd_dq'][str(dh)]['ms'] + out['flash_bwd_dkv'][str(dh)]['ms']:.4f}"
               f" (SDPA {out['flash_bwd_dq'][str(dh)]['library_ms']:.4f})"
               for dh in KERNEL_DHS))
@@ -3446,8 +3472,9 @@ def phase_conformer_widths(root, vocab, long_wavs, long_s, data, index,
                    "flash_bwd_dq": tr["flash_bwd_dq"],
                    "flash_bwd_dkv": tr["flash_bwd_dkv"]}
         print(f"[conformer-dh{dh}] attn_heads={heads}: decode and training "
-              f"through the kernels at dh = {dh}, launches {out[dh]}; warm "
-              f"step {step_s * 1e3:.3f} ms, busy {busy:.4f}")
+              f"through the kernels at dh = {dh}, launches {out[dh]} "
+              f"(training flash_fwd {tr['flash_fwd']}); warm step "
+              f"{step_s * 1e3:.3f} ms, busy {busy:.4f}")
     return out
 
 

@@ -1221,6 +1221,37 @@ def test_flash_bwd_bf16_is_bitwise_repeatable(dev, chunk, left, h, dh):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+@pytest.mark.parametrize("B,chunk,left,h,dh", [
+    (4, 0, 0, 2, 128), (4, 16, 2, 1, 192), (4, 0, 0, 1, 256),
+    (4, 0, 0, 1, 384), (4, 0, 0, 1, 512), (32, 0, 0, 1, 256),
+    (32, 16, 2, 1, 448)])
+def test_flash_fwd_bf16_is_bitwise_repeatable(dev, B, chunk, left, h, dh):
+    """The wide forward's warp groups meet only at barriers and each
+    output has one owner thread: two bf16 forward calls on the same inputs
+    give the same bits, with one warp group (dh 128) and four, in blocks
+    of 32 rows (dh 192 and 256 at B = 4) and of whole 64-row tiles
+    (``attention_cuda.flash_fwd_plan``)."""
+    q, k, v, _, lens = _flash_inputs(dev, B, 701, h, dh, torch.bfloat16,
+                                     chunk + 1, strided=True)
+    runs = [ac.flash_fwd_cuda(q, k, v, lens, chunk, left) for _ in range(2)]
+    torch.cuda.synchronize()
+    (o1, lse1), (o2, lse2) = runs
+    assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(lse1.view(torch.int32), lse2.view(torch.int32))
+
+
+@pytest.mark.parametrize("tiles", [96, 192, 352])
+@pytest.mark.parametrize("dh", ac.KERNEL_DHS[1:])
+def test_flash_fwd_plan_is_the_library_s(dev, dh, tiles):
+    """The wide forward's launch as the library computes it on a grid of
+    ``tiles`` 64-row query tiles (rows and warp groups a block, the n-tiles
+    each warp group owns, chunks a ring stage, shared memory) is
+    ``attention_cuda.flash_fwd_plan``'s, and an SM holds such a block."""
+    plan, blocks = ac.flash_fwd_occupancy(dh, tiles)
+    assert plan == ac.flash_fwd_plan(dh, tiles)
+    assert blocks >= 1
+
+
 @pytest.mark.parametrize("form", ["dq", "dkv"])
 @pytest.mark.parametrize("dh", ac.KERNEL_DHS[1:])
 def test_flash_bwd_plan_is_the_library_s(dev, dh, form):

@@ -34,7 +34,8 @@ Kernels and shapes (those of ``chip_smoke.py``):
   T' = 256), where the bf16 backward pair may differ from another build's
   in the last bits (each build is held to the plain versions' derived
   bar; whether they are equal is printed), and the bf16 forward and every
-  fp32 output must be bitwise equal;
+  fp32 output must be bitwise equal; and the forward alone at the decode
+  shape (B = 32, T' = 701), bitwise equal in bf16 and fp32;
 * the bf16 LSTM, H = 384 (``chip_smoke.lstm_cases``): row 6's
   residual-free form at B = 32, T' = 251 beside cuDNN's forward; row 6's
   training form and row 7 at B = 24, T' = 256 beside cuDNN's training
@@ -283,11 +284,12 @@ def shares(got, want, room) -> tuple[float, float]:
 
 
 def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left,
-               dh=None, exact=("bf16 forward", "bf16 backward", "fp32")):
-    """Rows 11-13 at one shape, h and dh the presets' (dh None) or dh with
-    ``chip_smoke.width_heads(dh)`` heads; the two builds' outputs must be
-    bitwise equal in each part named in ``exact`` (the others are
-    printed)."""
+               dh=None, exact=("bf16 forward", "bf16 backward", "fp32"),
+               fwd_only=False):
+    """Rows 11-13 (row 11 alone where ``fwd_only``) at one shape, h and dh
+    the presets' (dh None) or dh with ``chip_smoke.width_heads(dh)``
+    heads; the two builds' outputs must be bitwise equal in each part
+    named in ``exact`` (the others are printed)."""
     import torch
     import torch.nn.functional as F
 
@@ -322,7 +324,8 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left,
     outs = {}
     for b, m in mods.items():
         o, lse = m.flash_fwd_cuda(q, k, v, lens, chunk, left)
-        grads = (m.flash_bwd_dq_cuda(*args), *m.flash_bwd_dkv_cuda(*args))
+        grads = () if fwd_only else (m.flash_bwd_dq_cuda(*args),
+                                     *m.flash_bwd_dkv_cuda(*args))
         torch.cuda.synchronize()
         outs[b] = (o, lse, *grads)
         out_share = cs.excess(o, o_p, *cs.TOL["flash_bf16"], o_scale)
@@ -331,7 +334,7 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left,
         cs.check(out_share <= 1 and lse_share <= 1,
                  f"{tag} {b}: forward breaks its bar ({out_share:.3f}, "
                  f"{lse_share:.3f})")
-        cs.check(max(x[0] for x in g) <= 1,
+        cs.check(max((x[0] for x in g), default=0.0) <= 1,
                  f"{tag} {b}: a gradient breaks the derived bar")
         res[f"{b} shares"] = {"out": out_share, "lse": lse_share, **{
             n: {"derived": x[0], "old": x[1]}
@@ -343,18 +346,21 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left,
 
     # the two builds bitwise: bf16 here, fp32 on the same inputs widened
     pairs = list(zip(outs["this"], outs["other"]))
-    same = {"bf16 forward": all(cs.same_bits(a, b) for a, b in pairs[:2]),
-            "bf16 backward": all(cs.same_bits(a, b) for a, b in pairs[2:])}
+    same = {"bf16 forward": all(cs.same_bits(a, b) for a, b in pairs[:2])}
+    if not fwd_only:
+        same["bf16 backward"] = all(cs.same_bits(a, b)
+                                    for a, b in pairs[2:])
     args32 = tuple(x.float() if torch.is_tensor(x) and x.is_floating_point()
                    else x for x in args)
     q32, k32, v32 = args32[:3]
-    outs32 = [(m.flash_fwd_cuda(q32, k32, v32, lens, chunk, left),
-               m.flash_bwd_dq_cuda(*args32), m.flash_bwd_dkv_cuda(*args32))
-              for m in mods.values()]
-    flat = [[o, lse, dq, dk, dv] for (o, lse), dq, (dk, dv) in outs32]
+    flat = [[*m.flash_fwd_cuda(q32, k32, v32, lens, chunk, left),
+             *(() if fwd_only else (m.flash_bwd_dq_cuda(*args32),
+                                    *m.flash_bwd_dkv_cuda(*args32)))]
+            for m in mods.values()]
     same["fp32"] = all(cs.same_bits(a, b) for a, b in zip(*flat))
     res["bitwise"] = same
-    print(f"[ab] {tag}: this build's outputs (out, lse, dq, dk, dv) bitwise "
+    print(f"[ab] {tag}: this build's outputs "
+          f"({'out, lse' if fwd_only else 'out, lse, dq, dk, dv'}) bitwise "
           f"the other build's: " + ", ".join(
               f"{k} {'yes' if v else 'NO'}" for k, v in same.items())
           + f" (required: {', '.join(exact)})")
@@ -374,25 +380,29 @@ def flash_case(dev, rng, other, rounds, tag, B, T, lens_cpu, chunk, left,
     for b, m in mods.items():
         fns[f"{b} fwd"] = lambda m=m: m.flash_fwd_cuda(q, k, v, lens, chunk,
                                                        left)
-        fns[f"{b} dq"] = lambda m=m: m.flash_bwd_dq_cuda(*args)
-        fns[f"{b} dkv"] = lambda m=m: m.flash_bwd_dkv_cuda(*args)
+        if not fwd_only:
+            fns[f"{b} dq"] = lambda m=m: m.flash_bwd_dq_cuda(*args)
+            fns[f"{b} dkv"] = lambda m=m: m.flash_bwd_dkv_cuda(*args)
     fns["sdpa fwd"] = sdpa_fwd
-    fns["sdpa fwd+bwd"] = lambda: torch.autograd.grad(sdpa_train(), leaves,
-                                                      doh)
-    fns["sdpa train fwd"] = sdpa_train
+    ratio_of = [("other fwd", "this fwd"), ("this fwd", "sdpa fwd"),
+                ("other fwd", "sdpa fwd")]
+    if not fwd_only:
+        fns["sdpa fwd+bwd"] = lambda: torch.autograd.grad(sdpa_train(),
+                                                          leaves, doh)
+        fns["sdpa train fwd"] = sdpa_train
+        ratio_of += [("other pair", "this pair"),
+                     ("this pair", "sdpa bwd"), ("other pair", "sdpa bwd")]
     replays = {n: cs.graph_of(fn, mode="relaxed")[0] for n, fn in fns.items()}
     times = timed(fns, rounds, replays)
-    for t in times.values():
-        t["sdpa bwd"] = [a - b for a, b in zip(t["sdpa fwd+bwd"],
-                                                t["sdpa train fwd"])]
-        for b in mods:
-            t[f"{b} pair"] = [x + y for x, y in zip(t[f"{b} dq"],
-                                                    t[f"{b} dkv"])]
+    if not fwd_only:
+        for t in times.values():
+            t["sdpa bwd"] = [a - b for a, b in zip(t["sdpa fwd+bwd"],
+                                                    t["sdpa train fwd"])]
+            for b in mods:
+                t[f"{b} pair"] = [x + y for x, y in zip(t[f"{b} dq"],
+                                                        t[f"{b} dkv"])]
     res.update(report(f"{tag} B={B} T'={T} h={h} dh={dh} chunk "
-                      f"{chunk}/{left}", times, [
-        ("other fwd", "this fwd"), ("this fwd", "sdpa fwd"),
-        ("other fwd", "sdpa fwd"), ("other pair", "this pair"),
-        ("this pair", "sdpa bwd"), ("other pair", "sdpa bwd")]))
+                      f"{chunk}/{left}", times, ratio_of))
     return res
 
 
@@ -938,12 +948,16 @@ def main() -> int:
             out += [flash_case(dev, rng, other, a.rounds, *c)
                     for c in cs.attention_cases(rng)]
         if "flash_wide" in cases:
-            train = next(c for c in cs.attention_cases(rng)
-                         if c[0] == "train")
-            out += [flash_case(dev, rng, other, a.rounds,
-                               f"flash_wide dh={dh}", *train[1:], dh=dh,
-                               exact=("bf16 forward", "fp32"))
-                    for dh in WIDE_DHS]
+            shapes = {c[0]: c[1:] for c in cs.attention_cases(rng)}
+            for dh in WIDE_DHS:
+                out.append(flash_case(dev, rng, other, a.rounds,
+                                      f"flash_wide dh={dh}", *shapes["train"],
+                                      dh=dh, exact=("bf16 forward", "fp32")))
+                out.append(flash_case(dev, rng, other, a.rounds,
+                                      f"flash_wide decode dh={dh}",
+                                      *shapes["decode"], dh=dh,
+                                      exact=("bf16 forward", "fp32"),
+                                      fwd_only=True))
         if "lstm" in cases:
             out += [lstm_case(dev, rng, other, a.rounds, *c)
                     for c in cs.lstm_cases(rng)]
