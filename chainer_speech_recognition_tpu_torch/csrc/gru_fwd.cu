@@ -32,13 +32,14 @@
 // the fp32 register while its compute-dtype rounding seeds the shared copy
 // the first product reads.
 //
-// Three kernels. The bf16 forms, all three (the presets' path), run on a
-// thread-block cluster with the step product on the tensor cores: up to
-// H = 512 with W resident in the cluster's shared memory
+// Three kernels. The bf16 forms, all three (the presets' path), run the
+// step product on the tensor cores: up to H = 512 on a thread-block
+// cluster with W resident in the cluster's shared memory
 // (gru_fwd_tc_kernel, below; one template over kResiduals and kStream),
-// above with W streamed from global memory at each step
-// (gru_fwd_wide_kernel, further below). The fp32 forms run the FMA kernel
-// (gru_fwd_kernel, one template over kGates and kStream).
+// above as one persistent cooperative launch over the whole card, W spread
+// over its blocks' shared memory (gru_fwd_persist_kernel, further below).
+// The fp32 forms run the FMA kernel (gru_fwd_kernel, one template over
+// kGates and kStream).
 //
 // What bounds it on Hopper: the sequential dependency over T. Each step is
 // a [rows x H] x [H x 3H] product that needs all of the direction's W
@@ -486,214 +487,324 @@ int launch_tc(const void* xs, const void* wt, const float* lo,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 forward past H = 512, W streamed (rnn_mma.cuh's streamed-W form;
-// the same three entries under bf16 compute): csrc/lstm_fwd.cu's
-// lstm_fwd_wide_kernel with three gates. Warp w of block c owns the 8
-// units of unit block ub = U c / 8 + w with their r, z and n columns, over
-// the whole reduction (B fragments wf[d][ub] = [H / 16][3][32 lanes] uint2,
-// ops/rnn_cuda.py's wide_fwd_weights, streamed kP k-steps ahead); each
-// lane runs the gate math of its accumulators' pairs (rows l / 4 and
-// l / 4 + 8, units 8 ub + 2 (l % 4) + {0, 1}), keeping hp_n = h W_n apart
-// (n = tanh(x_n + r hp_n), the 4th residual), and the block pushes its
-// columns of the next A buffer to every peer over DSMEM; one cluster
-// barrier a step.
-template <bool kResiduals, bool kStream, int kP>
-__global__ void __launch_bounds__(csr_rnn_mma::wide_max_threads(kP), 1)
-    gru_fwd_wide_kernel(const __nv_bfloat16* __restrict__ xs,
-                        const uint2* __restrict__ wf,
-                        const float* __restrict__ lo,
-                        const float* __restrict__ hi,
-                        const float* __restrict__ h0, float* __restrict__ ys,
-                        __nv_bfloat16* __restrict__ gates,
-                        float* __restrict__ carry, int T, int B, int H,
-                        int emit_t) {
+// The bf16 forward past H = 512: the persistent form (rnn_mma.cuh; the same
+// three entries under bf16 compute).
+//
+// What bounds it on Hopper: a step multiplies every row of a direction by
+// all of its W (3 H^2 bf16: 6.3 MB at H = 1024, 25.2 MB at 2048), and the
+// T steps run one after another. The clustered form that came before read
+// W from L2 once per 16-row group at every step, on the 16 SMs of one
+// cluster per group and direction: twice a step at B = 24 or 32, with at
+// most 64 of the 132 SMs reading (11.0 µs a step at H = 1024, 33.5 at
+// 2048 in the stream window, where cuDNN took 9.1 and 16.5).
+//
+// What this design does about it: W is spread over the whole card and
+// read once a step for all rows. Block (d, cb) of the NB ndir blocks owns
+// nt n8 tiles of units, tiles [nt cb, nt cb + nt), with their r, z and n
+// columns (nc = 3 nt B columns), so the gate math stays in the block; its
+// slice of W, wf[d][cb] = [K = H / 16][nc][32 lanes] uint2 in mma.sync
+// fragment order (ops/rnn_cuda.py's persist_fwd_weights), is copied into
+// shared memory once a launch (the first kr k-steps of each warp's range
+// where the whole slice does not fit, the rest read from L2 at each step;
+// at H = 2048 and ndir 1 all 196 KB of it fit). A step, for each pass of
+// 32 rows (B > 32 takes more passes, B <= 16 one m16 tile):
+//   1. the product: warp w of four multiplies the pass's rows of h
+//      (bf16, where _dot2 rounds it; A fragments from the global buffer,
+//      one 16- or 8-byte load a lane, P k-steps ahead) by the block's columns
+//      over its quarter of the K k-steps, each B fragment feeding both m16
+//      tiles;
+//   2. the quarters meet in shared memory; a slot (m-tile, tile, lane)
+//      adds them in warp order (no atomics: bitwise repeatable) and runs
+//      the gate math of its two rows and two units, hp_n = h W_n kept
+//      apart from xs (n = tanh(x_n + r hp_n), the 4th residual). With one
+//      pass and one slot a thread (B <= 32, nt <= 2) the slot keeps its
+//      fp32 h in registers and its xs, lo and hi for the next step are
+//      loaded during the barrier; otherwise h_prev is read back from ys[t
+//      - 1] (or h0 / 0) and xs at the step;
+//   3. the new h, rounded to bf16, goes into the next step's A buffer in
+//      global memory (two buffers, by step parity), then one grid barrier
+//      (rnn_mma.cuh's grid_arrive / grid_wait): a block writes buffer
+//      (t + 1) % 2 only after every block has passed the barrier that ends
+//      its reads of it.
+// Measured on an H100 (tools/kernel_ab.py --cases rnn_wide, against this
+// build and copies of it with a part of the step left out; PERF.md): a
+// step is the grid barrier (3-11%), the gate math with its loads, and the
+// product (54-74%), which is held by the latency of its A loads from L2
+// (every block reads the whole A; with A from shared memory the step
+// would take 0.65-0.86 of its time, with half the A bytes 0.96-1.01)
+// rather than by the mma.sync chain (3-8%).
+// At t = 0 the product of h_0 = 0 is skipped (it is +0 exactly); the
+// stream form (kStream) first writes bf16(h0) of its units into A[0] and
+// passes one more barrier, seeds h_prev from h0 and writes carry after
+// step emit_t - 1 (h0 at entry when emit_t == 0). The three forms share the
+// product and the gate math, so their ys are equal (the stream form's at
+// h0 = 0). The launch is cooperative (rnn_mma.cuh's launch_cooperative):
+// all NB ndir <= sms blocks are resident, or it fails.
+constexpr int kFwdWarps = 4;   // warps a block of the persistent form
+
+// a slot's inputs at one step: xs of its two rows (the bf16 pairs of its
+// two units, gates r, z, n) and the rows' lo and hi
+struct GruIn {
+  uint32_t x[2][3];
+  float lo[2], hi[2];
+};
+
+template <int NT, int P, bool kSt, bool kResiduals, bool kStream>
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+    gru_fwd_persist_kernel(const __nv_bfloat16* __restrict__ xs,
+                           const uint2* __restrict__ wf,
+                           const float* __restrict__ lo,
+                           const float* __restrict__ hi,
+                           const float* __restrict__ h0,
+                           float* __restrict__ ys,
+                           __nv_bfloat16* __restrict__ gates,
+                           float* __restrict__ carry, unsigned int* counter,
+                           uint4* abuf, int T, int B, int H, int NB, int kr,
+                           int emit_t) {
   namespace tc = csr_rnn_mma;
-  constexpr int kM = tc::kRows;
+  constexpr int NC = 3 * NT, kW = kFwdWarps;
+  // slots (m-tile, tile, lane) a thread, and whether one pass of one slot
+  // a thread can keep the slot's h and next inputs in registers
+  constexpr int kSlots = (2 * NT * 32 + 32 * kW - 1) / (32 * kW);
+  constexpr bool kCanHold = kSlots == 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int C = static_cast<int>(tc::cluster_nctarank());
-  const int c = static_cast<int>(tc::cluster_ctarank());
-  const int U = tc::wide_units(H), K = H / 16;
-  const int d = blockIdx.y, group = blockIdx.x / C;
-  const int R = gridDim.y * B;
-  const int G = 3 * H;
-  const int row_b = tc::row_bytes(H);
-  const uint32_t s_a = tc::smem_addr(smem);    // A[2][kM]
-  const uint32_t a_bytes = kM * row_b;
+  float* part = reinterpret_cast<float*>(smem);
+  unsigned char* res = smem + tc::persist_part(NC, kW);
+  const int ndir = gridDim.x / NB;
+  const int d = blockIdx.x / NB, cb = blockIdx.x % NB;
+  const int R = ndir * B, G = 3 * H, K = H / 16, nt_all = H / 8;
+  const int passes = (B + tc::kPassRows - 1) / tc::kPassRows;
+  const bool two = B > 16, hold = kCanHold && passes == 1;
   const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
-  const int u0 = c * U, uc = min(U, H - u0);   // this block's units
-  const bool active = 8 * w < uc;              // this warp's unit block
-  const int j = u0 + 8 * w + 2 * (l & 3);      // this lane's units j, j + 1
-
-  // A[0] = h_0: 0, or the stream form's bf16(h0)
-  if (kStream)
-    tc::fill_h0(smem, h0 + (static_cast<int64_t>(d) * B + group * kM) * H, H,
-                B - group * kM, H);
-  else
-    tc::zero_shared(smem, a_bytes);
+  const uint2* slice = wf + int64_t(d * NB + cb) * K * NC * 32;
+  // A of direction d, pass p, m-tile m in buffer buf: [2][ndir][passes][2]
+  // [K][32] uint4
+  auto a_of = [&](int buf, int p, int m) {
+    return abuf + (int64_t((buf * ndir + d) * passes + p) * 2 + m) * K * 32;
+  };
+  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC);
   __syncthreads();
-  tc::cluster_sync();   // every peer has started before DSMEM stores
+  const tc::WarpSteps ws = tc::warp_steps(w, kW, K, kr, cb, NB);
+  const uint2* sb = reinterpret_cast<const uint2*>(res) + w * kr * NC * 32 + l;
+  const uint2* gb = slice + int64_t(ws.kb) * NC * 32 + l;
+  const int nslots = (two ? 2 : 1) * NT * 32;
+  unsigned int barriers = 0;
 
-  // this lane's rows i = 0, 1: l / 4 and l / 4 + 8 of the group
-  bool valid[2];
-  int rr[2];
-  float lo_r[2], hi_r[2], h[2][2] = {};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int b = group * kM + (l >> 2) + 8 * i;
-    valid[i] = active && b < B;
-    rr[i] = d * B + b;
-    lo_r[i] = valid[i] ? lo[rr[i]] : 0.0f;
-    hi_r[i] = valid[i] ? hi[rr[i]] : 0.0f;   // never live
-    if (kStream && valid[i]) {
-      const float* src = h0 + static_cast<int64_t>(rr[i]) * H + j;
-      h[i][0] = src[0];
-      h[i][1] = src[1];
-      if (emit_t == 0)
-        *reinterpret_cast<float2*>(carry + static_cast<int64_t>(rr[i]) * H +
-                                   j) = make_float2(h[i][0], h[i][1]);
-    }
-  }
-  // A row l % 16 at k chunk l / 16; this warp's fragments
-  const uint32_t a_off = (l & 15) * row_b + (l >> 4) * 16;
-  const uint2* wb =
-      wf + (static_cast<int64_t>(d) * (H / 8) + u0 / 8 + w) * K * 3 * 32 + l;
-
-  // xs of the lane's pairs: [row i][gate g] as (unit j, unit j + 1)
-  auto load_x = [&](int t, float2 (&v)[2][3]) {
+  // slot s: m-tile m, its tile's lane ls, unit j (the pair j, j + 1);
+  // `own`: a slot of this launch's rows and of a unit below H
+  struct Slot {
+    int m, ls, j;
+    bool own;
+  };
+  auto slot_of = [&](int q) {
+    const int s = tid + q * 32 * kW, tg = cb * NT + (s / 32) % NT;
+    return Slot{s / (NT * 32), s & 31, 8 * tg + 2 * (s & 3),
+                s < nslots && tg < nt_all};
+  };
+  auto row_of = [&](int p, const Slot& o, int i) {
+    return p * tc::kPassRows + 16 * o.m + (o.ls >> 2) + 8 * i;
+  };
+  auto load_in = [&](int t, int p, const Slot& o) {
+    GruIn in;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const __nv_bfloat16* xr =
-          xs + (static_cast<int64_t>(t) * R + rr[i]) * G + j;
+      const int b = row_of(p, o, i);
+      const bool valid = b < B;
+      const int64_t rr = int64_t(d) * B + b, row = int64_t(t) * R + rr;
+      in.lo[i] = valid ? lo[rr] : 0.0f;   // rows past B: never live
+      in.hi[i] = valid ? hi[rr] : 0.0f;
 #pragma unroll
       for (int g = 0; g < 3; ++g)
-        v[i][g] = valid[i] ? __bfloat1622float2(
-                                 *reinterpret_cast<const __nv_bfloat162*>(
-                                     xr + g * H))
-                           : make_float2(0.0f, 0.0f);
+        in.x[i][g] = valid ? *reinterpret_cast<const uint32_t*>(
+                                 xs + row * G + g * H + o.j)
+                           : 0u;
     }
+    return in;
   };
-  float2 x[2][3];
-  load_x(0, x);
-  uint2 ring[kP][3];      // this warp's B fragments in flight
-  if (active) tc::stream_prefetch<3, kP>(wb, K, ring);
-  int cur = 0;
+  GruIn held[kCanHold ? kSlots : 1];
+  float2 hreg[kCanHold ? kSlots : 1][2];
+
+  // h_0: 0, or the stream form's h0 (and bf16(h0) into A[0])
+#pragma unroll
+  for (int q = 0; q < kSlots; ++q) {
+    const Slot o = slot_of(q);
+    if (!o.own) continue;
+    for (int p = 0; p < passes; ++p)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = row_of(p, o, i);
+        const int64_t rr = int64_t(d) * B + b;
+        float2 v = make_float2(0.0f, 0.0f);
+        if (kStream) {
+          if (b < B) v = *reinterpret_cast<const float2*>(h0 + rr * H + o.j);
+          *tc::a_word(a_of(0, p, o.m), o.j, i, o.ls) = tc::bf16x2(v.x, v.y);
+          if (b < B && emit_t == 0)
+            *reinterpret_cast<float2*>(carry + rr * H + o.j) = v;
+        }
+        if (kCanHold) hreg[kCanHold ? q : 0][i] = v;
+      }
+    if (hold) held[kCanHold ? q : 0] = load_in(0, 0, o);
+  }
+  if (kStream) {
+    tc::grid_arrive(counter);
+    tc::grid_wait(counter, ++barriers * gridDim.x);
+  }
   for (int t = 0; t < T; ++t) {
-    float2 nx[2][3];
-    if (t + 1 < T) load_x(t + 1, nx);
-    float acc[3][4] = {};
-    if (active) {
-      tc::streamed_product<3, kP>(s_a + cur * a_bytes + a_off, wb, K, ring,
-                                   acc);
-      // the next step's first fragments, in flight over the gate math,
-      // the exchange and the barrier
-      if (t + 1 < T) tc::stream_prefetch<3, kP>(wb, K, ring);
-    }
-    // gate math of the lane's pairs (accumulator element 2 i + e: row i,
-    // unit j + e); gv: (r, z, n, hp_n)
-    float gv[2][2][4];
+    const int cur = t & 1;
+    const bool product = kStream || t > 0;
     const float tf = static_cast<float>(t);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float xe[3] = {e ? x[i][0].y : x[i][0].x,
-                             e ? x[i][1].y : x[i][1].x,
-                             e ? x[i][2].y : x[i][2].x};
-        const float hp_n = acc[2][2 * i + e];
-        const float rg = sigmoidf(xe[0] + acc[0][2 * i + e]);
-        const float z = sigmoidf(xe[1] + acc[1][2 * i + e]);
-        const float n = tanhf(xe[2] + rg * hp_n);
-        const float hn = (1.0f - z) * n + z * h[i][e];
-        if (lo_r[i] <= tf && tf < hi_r[i]) h[i][e] = hn;
-        gv[i][e][0] = rg;
-        gv[i][e][1] = z;
-        gv[i][e][2] = n;
-        gv[i][e][3] = hp_n;
+    for (int p = 0; p < passes; ++p) {
+      if (product) {
+        const int rp = B - p * tc::kPassRows;   // rows of the pass (> 0)
+        float acc[2][NC][4] = {};
+        tc::persist_product<NC, P, kSt>(
+            acc, a_of(cur, p, 0) + ws.kb * 32 + l,
+            a_of(cur, p, 1) + ws.kb * 32 + l, two, rp > 8, rp > 24, ws.kw,
+            ws.kres, ws.rot, sb, gb);
+        tc::store_partials<NC>(part, acc, two, w, l);
       }
-    const int nxt = cur ^ 1;
-    const bool more = t + 1 < T;
-    if (more) {
-      // h into this block's columns of A[nxt], then into every peer's
-      const uint32_t s_nxt = s_a + nxt * a_bytes;
-      if (active)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          *reinterpret_cast<__nv_bfloat162*>(
-              smem + (s_nxt - s_a) + ((l >> 2) + 8 * i) * row_b + 2 * j) =
-              __floats2bfloat162_rn(h[i][0], h[i][1]);
       __syncthreads();
-      tc::push_columns(s_nxt, row_b, 2 * u0, uc / 8, c, C);
-      tc::cluster_arrive();
-    }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (!valid[i]) continue;
-      const int64_t row = static_cast<int64_t>(t) * R + rr[i];
-      *reinterpret_cast<float2*>(ys + row * H + j) =
-          make_float2(h[i][0], h[i][1]);
-      if (kResiduals) {
-        __nv_bfloat16* gt = gates + row * 4 * H + j;
+      for (int q = 0; q < kSlots; ++q) {
+        const Slot o = slot_of(q);
+        if (!o.own) continue;
+        const int tile = (o.j / 8) % NT;
+        float4 pre[3];
 #pragma unroll
-        for (int g = 0; g < 4; ++g)
-          *reinterpret_cast<__nv_bfloat162*>(gt + g * H) =
-              __floats2bfloat162_rn(gv[i][0][g], gv[i][1][g]);
+        for (int g = 0; g < 3; ++g)
+          pre[g] = product ? tc::sum_partials(part, kW, NC, o.m,
+                                              3 * tile + g, o.ls)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const GruIn in = hold ? held[kCanHold ? q : 0] : load_in(t, p, o);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int b = row_of(p, o, i);
+          const bool valid = b < B;
+          const int64_t rr = int64_t(d) * B + b;
+          const int64_t row = int64_t(t) * R + rr;
+          float2 hp = make_float2(0.0f, 0.0f), x[3];
+          if (hold) {
+            hp = hreg[kCanHold ? q : 0][i];
+          } else if (valid) {
+            if (t > 0)
+              hp = *reinterpret_cast<const float2*>(ys + (row - R) * H + o.j);
+            else if (kStream)
+              hp = *reinterpret_cast<const float2*>(h0 + rr * H + o.j);
+          }
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            x[g] = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&in.x[i][g]));
+          const bool live = in.lo[i] <= tf && tf < in.hi[i];
+          float h[2], gv[2][4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            auto pick = [&](const float4& v) {
+              return i ? (e ? v.w : v.z) : (e ? v.y : v.x);
+            };
+            const float hp_n = pick(pre[2]);
+            const float rg = sigmoidf((e ? x[0].y : x[0].x) + pick(pre[0]));
+            const float z = sigmoidf((e ? x[1].y : x[1].x) + pick(pre[1]));
+            const float n = tanhf((e ? x[2].y : x[2].x) + rg * hp_n);
+            const float hv = e ? hp.y : hp.x;
+            const float hn = (1.0f - z) * n + z * hv;
+            h[e] = live ? hn : hv;
+            gv[e][0] = rg;
+            gv[e][1] = z;
+            gv[e][2] = n;
+            gv[e][3] = hp_n;
+          }
+          if (kCanHold) hreg[kCanHold ? q : 0][i] = make_float2(h[0], h[1]);
+          if (t + 1 < T)
+            *tc::a_word(a_of(cur ^ 1, p, o.m), o.j, i, o.ls) =
+                tc::bf16x2(h[0], h[1]);
+          if (!valid) continue;
+          *reinterpret_cast<float2*>(ys + row * H + o.j) =
+              make_float2(h[0], h[1]);
+          if (kResiduals)
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              *reinterpret_cast<uint32_t*>(gates + row * 4 * H + g * H +
+                                           o.j) =
+                  tc::bf16x2(gv[0][g], gv[1][g]);
+          if (kStream && t == emit_t - 1)
+            *reinterpret_cast<float2*>(carry + rr * H + o.j) =
+                make_float2(h[0], h[1]);
+        }
       }
-      if (kStream && t == emit_t - 1)
-        *reinterpret_cast<float2*>(carry + static_cast<int64_t>(rr[i]) * H +
-                                   j) = make_float2(h[i][0], h[i][1]);
+      __syncthreads();
     }
-    if (more) {
-      tc::cluster_wait();
+    if (t + 1 < T) {
+      tc::grid_arrive(counter);
+      // the next step's inputs, in flight over the wait and the product
+      if (hold)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int g = 0; g < 3; ++g) x[i][g] = nx[i][g];
+        for (int q = 0; q < kSlots; ++q) {
+          const Slot o = slot_of(q);
+          if (o.own) held[kCanHold ? q : 0] = load_in(t + 1, 0, o);
+        }
+      tc::grid_wait(counter, ++barriers * gridDim.x);
     }
-    cur = nxt;
   }
 }
 
-template <bool kResiduals, bool kStream, int kP>
-int launch_wide_kp(const void* xs, const void* wf, const float* lo,
-                   const float* hi, const float* h0, float* ys, void* gates,
-                   float* carry, int T, int B, int H, int ndir, int emit_t,
-                   cudaStream_t stream) {
-  namespace tc = csr_rnn_mma;
-  return tc::launch_clusters(
-      gru_fwd_wide_kernel<kResiduals, kStream, kP>, tc::wide_cluster(H),
-      (B + tc::kRows - 1) / tc::kRows, ndir, tc::wide_fwd_threads(H),
-      tc::wide_fwd_smem(H), stream, static_cast<const __nv_bfloat16*>(xs),
-      static_cast<const uint2*>(wf), lo, hi, h0, ys,
-      static_cast<__nv_bfloat16*>(gates), carry, T, B, H, emit_t);
+// the persistent forward's plan at this card's SM count (ops/rnn_cuda.py's
+// persist_plan("gru_fwd", ...))
+csr_rnn_mma::PersistPlan fwd_persist_plan(int H, int ndir, int B,
+                                          int sms) {
+  return csr_rnn_mma::persist_plan(H, ndir, B, sms, 3, H / 16, kFwdWarps,
+                                   false);
 }
 
-// the bf16 forms: the resident cluster kernel up to H = 512, W streamed
-// above
+// the persistent kernel of nt tiles a block (P k-steps of loads in flight
+// a warp; the slice may not fit shared memory past two tiles); none past
+// kPersistMaxTiles
+template <bool kResiduals, bool kStream, typename Fn>
+int with_persist_kernel(int tiles, Fn&& fn) {
+  static_assert(csr_rnn_mma::kPersistMaxTiles == 4, "a kernel a tile count");
+  switch (tiles) {
+    case 1:
+      return fn(gru_fwd_persist_kernel<1, 12, false, kResiduals, kStream>);
+    case 2:
+      return fn(gru_fwd_persist_kernel<2, 8, false, kResiduals, kStream>);
+    case 3:
+      return fn(gru_fwd_persist_kernel<3, 3, true, kResiduals, kStream>);
+    case 4:
+      return fn(gru_fwd_persist_kernel<4, 2, true, kResiduals, kStream>);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the bf16 forms: the resident cluster kernel up to H = 512, the
+// persistent form above (C: its blocks a direction, work: its workspace
+// of the plan's bytes, rnn_mma.cuh's PersistPlan)
 template <bool kResiduals, bool kStream>
 int launch_bf16(const void* xs, const void* wt, const float* lo,
                 const float* hi, const float* h0, float* ys, void* gates,
-                float* carry, int T, int B, int H, int ndir, int emit_t,
-                int C, cudaStream_t stream) {
+                float* carry, void* work, int T, int B, int H, int ndir,
+                int emit_t, int C, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (H <= tc::kResidentMax)
     return launch_tc<kResiduals, kStream>(xs, wt, lo, hi, h0, ys, gates,
                                           carry, T, B, H, ndir, emit_t, C,
                                           stream);
-  if (C != tc::wide_cluster(H)) return static_cast<int>(cudaErrorInvalidValue);
-  switch (tc::wide_prefetch(tc::wide_fwd_threads(H))) {
-    case 16:
-      return launch_wide_kp<kResiduals, kStream, 16>(
-          xs, wt, lo, hi, h0, ys, gates, carry, T, B, H, ndir, emit_t,
-          stream);
-    case 8:
-      return launch_wide_kp<kResiduals, kStream, 8>(
-          xs, wt, lo, hi, h0, ys, gates, carry, T, B, H, ndir, emit_t,
-          stream);
-    default:
-      return launch_wide_kp<kResiduals, kStream, 4>(
-          xs, wt, lo, hi, h0, ys, gates, carry, T, B, H, ndir, emit_t,
-          stream);
-  }
+  int sms = 0;
+  const cudaError_t e = tc::device_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const tc::PersistPlan p = fwd_persist_plan(H, ndir, B, sms);
+  if (!p.ok || C != p.blocks || work == nullptr || p.resident < 1 ||
+      (p.tiles <= 2 && p.resident * kFwdWarps < H / 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  unsigned int* counter = static_cast<unsigned int*>(work);
+  uint4* abuf = reinterpret_cast<uint4*>(static_cast<char*>(work) + 256);
+  return with_persist_kernel<kResiduals, kStream>(p.tiles, [&](auto kernel) {
+    return tc::launch_cooperative(
+        kernel, p.blocks * ndir, 32 * kFwdWarps, p.smem, stream, counter,
+        static_cast<const __nv_bfloat16*>(xs), static_cast<const uint2*>(wt),
+        lo, hi, h0, ys, static_cast<__nv_bfloat16*>(gates), carry, counter,
+        abuf, T, B, H, p.blocks, p.resident, emit_t);
+  });
 }
 
 }  // namespace
@@ -701,16 +812,20 @@ int launch_bf16(const void* xs, const void* wt, const float* lo,
 // xs [T, ndir*B, 3H] and w [ndir, H, 3H] both fp32 (the FMA kernel), or,
 // when bf16 != 0, xs bf16 and w = wt [ndir, C, 3, H/C, H] bf16 (the
 // cluster kernel: C = H / 32 blocks a cluster, ops/rnn_cuda.py's
-// gru_plan; past H = 512 the streamed-W fragments [ndir, H/8, H/16, 3, 32,
-// 4] and C = wide_cluster(H), rnn_cuda.wide_fwd_weights; unread under
-// fp32); lo/hi [ndir*B] fp32; ys [T, ndir*B, H] fp32. Requires 32 <= H <=
-// 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
+// gru_plan; past H = 512 the persistent form's fragments [ndir, C, H/16,
+// nt, 3, 32, 4], C its blocks a direction, rnn_cuda.persist_fwd_weights;
+// unread under fp32); lo/hi [ndir*B] fp32; ys [T, ndir*B, H] fp32; work
+// the persistent form's workspace (csr_gru_fwd_persist_plan's bytes;
+// unread elsewhere). Requires 32 <= H <= 2048, H % 32 == 0, T >= 1, B >=
+// 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
-                        const float* hi, float* ys, int T, int B, int H,
-                        int ndir, int C, int bf16, cudaStream_t stream) {
+                        const float* hi, float* ys, void* work, int T, int B,
+                        int H, int ndir, int C, int bf16,
+                        cudaStream_t stream) {
   if (bf16)
     return launch_bf16<false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
-                                     nullptr, T, B, H, ndir, 0, C, stream);
+                                     nullptr, work, T, B, H, ndir, 0, C,
+                                     stream);
   return launch<float, false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
                                      nullptr, T, B, H, ndir, 0, stream);
 }
@@ -719,49 +834,70 @@ CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
 // W over its B rows), plus gates [T, ndir*B, 4H] in the stream dtype (the
 // dtype of xs) out: (r, z, n, hp_n) of every step, live or not.
 CSR_API int csr_gru_fwd_train(const void* xs, const void* w, const float* lo,
-                              const float* hi, float* ys, void* gates, int T,
-                              int B, int H, int ndir, int C, int bf16,
-                              cudaStream_t stream) {
+                              const float* hi, float* ys, void* gates,
+                              void* work, int T, int B, int H, int ndir,
+                              int C, int bf16, cudaStream_t stream) {
   if (bf16)
     return launch_bf16<true, false>(xs, w, lo, hi, nullptr, ys, gates,
-                                    nullptr, T, B, H, ndir, 0, C, stream);
+                                    nullptr, work, T, B, H, ndir, 0, C,
+                                    stream);
   return launch<float, true, false>(xs, w, lo, hi, nullptr, ys, gates,
                                     nullptr, T, B, H, ndir, 0, stream);
 }
 
-// The cluster forward's plan as the card takes it: out[0] = its shared
-// memory bytes at hidden size H (C = H / 32 blocks), out[1] = how many of
-// its clusters the card holds at once (cudaOccupancyMaxActiveClusters; 0:
-// it cannot launch).
+// The cluster forward's plan as the card takes it (H <= 512): out[0] = its
+// shared memory bytes at hidden size H (C = H / 32 blocks), out[1] = how
+// many of its clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot launch). Past H = 512 see
+// csr_gru_fwd_persist_plan.
 CSR_API int csr_gru_fwd_occupancy(int H, int* out) {
   namespace tc = csr_rnn_mma;
-  if (H > tc::kResidentMax) {
-    const int threads = tc::wide_fwd_threads(H);
-    out[0] = tc::wide_fwd_smem(H);
-    const int kP = tc::wide_prefetch(threads);
-    auto kernel = kP == 16  ? gru_fwd_wide_kernel<true, false, 16>
-                  : kP == 8 ? gru_fwd_wide_kernel<true, false, 8>
-                            : gru_fwd_wide_kernel<true, false, 4>;
-    return tc::max_clusters(kernel, tc::wide_cluster(H), threads, out[0],
-                            out + 1);
-  }
+  if (H > tc::kResidentMax) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = tc::fwd_smem(H, 3, kTcUnits);
   return tc::max_clusters(gru_fwd_tc_kernel<kTcUnits, true, false>,
                           H / kTcUnits,
                           tc::kRows * kTcUnits, out[0], out + 1);
 }
 
-// As csr_gru_fwd (w and C likewise), with h seeded from h0 [ndir*B, H]
-// fp32 and carry [ndir*B, H] fp32 out: h after step emit_t - 1, h0 when
+// The persistent forward's plan as this card takes it at hidden size H >
+// 512, ndir directions and B rows a direction: out = (blocks a direction,
+// tiles a block, resident k-steps a warp, shared memory bytes a block,
+// blocks the card holds at once: cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// times the SMs, workspace bytes). cudaErrorInvalidValue where the card
+// has too few SMs for the built tile counts (out filled all the same).
+CSR_API int csr_gru_fwd_persist_plan(int H, int ndir, int B,
+                                     long long* out) {
+  namespace tc = csr_rnn_mma;
+  int sms = 0;
+  cudaError_t e = tc::device_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const tc::PersistPlan p = fwd_persist_plan(H, ndir, B, sms);
+  out[0] = p.blocks;
+  out[1] = p.tiles;
+  out[2] = p.resident;
+  out[3] = p.smem;
+  out[4] = 0;
+  out[5] = p.work;
+  return with_persist_kernel<true, false>(p.tiles, [&](auto kernel) {
+    int n = 0;
+    e = tc::coresident_blocks(kernel, 32 * kFwdWarps, p.smem, &n);
+    out[4] = n;
+    return static_cast<int>(e);
+  });
+}
+
+// As csr_gru_fwd (w, C and work likewise), with h seeded from h0 [ndir*B,
+// H] fp32 and carry [ndir*B, H] fp32 out: h after step emit_t - 1, h0 when
 // emit_t == 0. Requires 0 <= emit_t <= T (the wrapper checks).
 CSR_API int csr_gru_fwd_stream(const void* xs, const void* w,
                                const float* lo, const float* hi,
                                const float* h0, float* ys, float* carry,
-                               int T, int B, int H, int ndir, int emit_t,
-                               int C, int bf16, cudaStream_t stream) {
+                               void* work, int T, int B, int H, int ndir,
+                               int emit_t, int C, int bf16,
+                               cudaStream_t stream) {
   if (bf16)
-    return launch_bf16<false, true>(xs, w, lo, hi, h0, ys, nullptr, carry, T,
-                                    B, H, ndir, emit_t, C, stream);
+    return launch_bf16<false, true>(xs, w, lo, hi, h0, ys, nullptr, carry,
+                                    work, T, B, H, ndir, emit_t, C, stream);
   return launch<float, false, true>(xs, w, lo, hi, h0, ys, nullptr, carry, T,
                                     B, H, ndir, emit_t, stream);
 }

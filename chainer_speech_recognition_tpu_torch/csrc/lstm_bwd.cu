@@ -30,10 +30,12 @@
 // step is a [rows x 4H] x [4H x H] product that needs all of the
 // direction's W (1.18 MB in bf16 at bilstm_deep) and the step before's dh.
 //
-// Two kernels: under bf16 compute (the presets' path) a thread-block
-// cluster keeps W resident in its shared memory and runs the step product
-// on the tensor cores (lstm_bwd_tc_kernel, below); under fp32 the FMA
-// kernel (lstm_bwd_kernel).
+// Three kernels: under bf16 compute (the presets' path) the step product
+// runs on the tensor cores, up to H = 512 on a thread-block cluster that
+// keeps W resident in its shared memory (lstm_bwd_tc_kernel, below), above
+// as one persistent cooperative launch over the whole card
+// (lstm_bwd_persist_kernel, further below); under fp32 the FMA kernel
+// (lstm_bwd_kernel).
 //
 // The FMA kernel: the forward's, turned around (csrc/gru_bwd.cu's with
 // four gates). One block owns one row of one direction and walks T
@@ -411,243 +413,296 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 backward past H = 512, W streamed (rnn_mma.cuh's streamed-W
-// form; csr_lstm_bwd under bf16 compute).
+// The bf16 backward past H = 512: the persistent form (rnn_mma.cuh;
+// csr_lstm_bwd under bf16 compute).
 //
-// Clusters as lstm_bwd_tc_kernel's, with C = wide_cluster(H) blocks of U =
-// wide_units(H) units (the last may own fewer) and 512 threads. The pairs
-// (row p / U, unit p % U) of a block go to threads p, p + 512, ... (up to
-// kPairs a thread), each keeping its dh and dc in registers. A step:
-//   1. dg of the thread's pairs, from the prefetched inputs; the next
-//      step's are loaded; the unmasked dg, rounded to bf16, into this
-//      block's A [16][K] (column g U + u; K = wide_bwd_k(H, 4), its
-//      padding and the columns of units past H stay zero);
-//   2. the reduce-scatter's product A W_c^T -> [16][H] partial sums of dh:
-//      warp w takes a contiguous range of the H / 32 n-groups (4 n8 tiles,
-//      32 units j), each over the K / 16 k-steps, its B fragments streamed
-//      from wb[d][c] = [H / 32][K / 16][4 tiles][32 lanes] uint2
-//      (ops/rnn_cuda.py's wide_bwd_weights) kP k-steps ahead, across the
-//      n-groups; a finished n-group's 16 x 32 sums go to their owners'
-//      buffer slot for source c through DSMEM (an n8 tile never straddles
-//      two owners: U % 8 == 0);
-//   3. the cluster barrier (dxs stored between its halves), then each pair
-//      adds its C partial sums in source order (bitwise repeatable) and
-//      updates dh and dc as lstm_bwd_tc_kernel does;
-//   4. with one partial-sum buffer (wide_bwd_bufs), a second cluster
-//      barrier, so no block writes the next step's sums before every block
-//      has read this step's.
-template <int kP, int kPairs>
-__global__ void __launch_bounds__(csr_rnn_mma::kWideBwdThreads, 1)
-    lstm_bwd_wide_kernel(const __nv_bfloat16* __restrict__ gates,
-                         const uint2* __restrict__ wb,
-                         const float* __restrict__ lo,
-                         const float* __restrict__ hi,
-                         const float* __restrict__ cs,
-                         const float* __restrict__ g,
-                         __nv_bfloat16* __restrict__ dxs, int T, int B,
-                         int H) {
+// What bounds it on Hopper: a step multiplies every row's dg [4H] by Wᵀ,
+// all of the direction's W (4 H^2 bf16: 8.4 MB at H = 1024, 33.6 MB at
+// 2048), one step after another. The clustered form that came before read
+// W from L2 once per 16-row group at every step on one 16-SM cluster per
+// group and direction, and scattered [16 x H] fp32 partial sums of dh
+// between its blocks over DSMEM (131 KB a block a step at 2048, with a
+// second cluster barrier where two buffers did not fit): 14.4 µs a step at
+// H = 1024 and 54.2 at 2048, against cuDNN's 13.0 and 32.9.
+//
+// What this design does about it: each block owns output units of dh_prev
+// and computes them whole. Block (d, cb) owns nt n8 tiles of units j: the
+// rows W[j, :] over all 4H gate columns, its B operand (B[k][j] = W[j][k],
+// k-major over K = 4H / 16 k-steps), laid out by the wrapper in fragment
+// order, wb[d][cb] = [K][nt][32 lanes] uint2 (ops/rnn_cuda.py's
+// persist_bwd_weights), kept in shared memory as far as it fits (at H =
+// 1024 all 131 KB a block; at 2048 each warp keeps its first kr k-steps and
+// reads the rest from L2 at each step). The block also owns the same units'
+// gate math: it keeps their carried dc and dh_total (in registers with one
+// pass, else in a global scratch that only the owning thread reads and
+// writes) and publishes their dg. A
+// step t, for each pass of 32 rows:
+//   1. (t < T - 1) the product: warp w of eight multiplies the pass's dg of
+//      step t + 1 (bf16, where _dot2 rounds it; A fragments from the global
+//      buffer, one 16- or 8-byte load a lane) by the block's columns over its
+//      eighth of the K k-steps, each B fragment feeding both m16 tiles;
+//      the eighths meet in shared memory and a slot (m-tile, tile, lane)
+//      adds them in warp order: dh_prev of its two rows and two units, in
+//      a fixed order, with no atomics and no partial sums between blocks
+//      (bitwise repeatable);
+//   2. the slot's dh (dh_prev where step t + 1 was live, else the carried
+//      dh_total) and dc, and its dg = (di, df, do, du) from gates, c_t,
+//      c_{t-1} and g; dxs = dg masked to the live steps; the unmasked dg,
+//      rounded to bf16, into the next A buffer (two, by step parity). With
+//      one pass (B <= 32) dc and dh_total stay in registers and the next
+//      step's inputs are loaded during the barrier;
+//   3. one grid barrier (rnn_mma.cuh's grid_arrive / grid_wait).
+// Measured on an H100 (tools/kernel_ab.py --cases rnn_wide, against this
+// build and copies of it with a part of the step left out; PERF.md): at
+// H = 1024 the slice is resident and the product (77% of a step) is held
+// by the latency of its A loads from L2 (256 KB a block a step, each
+// warp's ring as deep as the registers allow; with A from shared memory
+// the step would take 0.60 of its time, with half the A bytes 0.95,
+// without the mma.sync chain 0.88); at 2048, ndir 2,
+// 60% of W is read from L2 at each step, prefetched into L2 two rings
+// ahead (6% of the step; 17% more without the prefetch).
+// The launch is cooperative (rnn_mma.cuh's launch_cooperative): all NB ndir
+// <= sms blocks are resident, or it fails.
+constexpr int kBwdWarps = 8;   // warps a block of the persistent form
+
+// a slot's inputs at one step, for its two rows and two units: the gates
+// (i, f, o, u) as bf16 pairs, c_t, c_{t-1} and the gradient of ys, and the
+// rows' lo and hi
+struct LstmIn {
+  uint32_t q[2][4];
+  float2 c[2], cp[2], g[2];
+  float lo[2], hi[2];
+};
+
+template <int NT, int P, bool kSt>
+__global__ void __launch_bounds__(32 * kBwdWarps, 1)
+    lstm_bwd_persist_kernel(const __nv_bfloat16* __restrict__ gates,
+                            const uint2* __restrict__ wb,
+                            const float* __restrict__ lo,
+                            const float* __restrict__ hi,
+                            const float* __restrict__ cs,
+                            const float* __restrict__ g,
+                            __nv_bfloat16* __restrict__ dxs,
+                            unsigned int* counter, uint4* abuf, float* held,
+                            int T, int B, int H, int NB, int kr) {
   namespace tc = csr_rnn_mma;
-  constexpr int kM = tc::kRows;
+  constexpr int NC = NT, kW = kBwdWarps;
+  static_assert(2 * NT * 32 <= 32 * kW, "one slot a thread");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int C = static_cast<int>(tc::cluster_nctarank());
-  const int c = static_cast<int>(tc::cluster_ctarank());
-  const int U = tc::wide_units(H), K = tc::wide_bwd_k(H, 4), KS = K / 16;
-  const int NG = H / 32;                         // n-groups of the product
-  const int G = 4 * H;
-  const int d = blockIdx.y, group = blockIdx.x / C;
-  const int R = gridDim.y * B;   // ndir * B
-  const int row_b = tc::row_bytes(K);
-  const int bufs = tc::wide_bwd_bufs(H, 4);
-  const uint32_t s_a = tc::smem_addr(smem);      // A [kM][K]
-  const uint32_t s_p = s_a + kM * row_b;         // partials [bufs][C][kM][U]
-  const float* part = reinterpret_cast<const float*>(smem + kM * row_b);
-  const int part_buf = C * kM * U;               // floats a buffer
-  const int tid = threadIdx.x, l = tid & 31, wp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int u0 = c * U, uc = min(U, H - u0);     // this block's units
-
-  tc::zero_shared(smem, kM * row_b);
-  __syncthreads();
-  tc::cluster_sync();   // every peer has started before DSMEM stores
-
-  // this thread's pairs
-  bool has[kPairs], valid[kPairs];
-  int pr[kPairs], pu[kPairs], rr[kPairs];
-  float lo_r[kPairs], hi_r[kPairs], dh[kPairs], dc[kPairs];
-#pragma unroll
-  for (int q = 0; q < kPairs; ++q) {
-    const int p = tid + q * blockDim.x;
-    pr[q] = p / U;
-    pu[q] = p % U;
-    has[q] = p < kM * U && pu[q] < uc;
-    const int b = group * kM + pr[q];
-    valid[q] = has[q] && b < B;
-    rr[q] = d * B + b;
-    lo_r[q] = valid[q] ? lo[rr[q]] : 0.0f;
-    hi_r[q] = valid[q] ? hi[rr[q]] : 0.0f;   // never live
-    dh[q] = 0.0f;
-    dc[q] = 0.0f;
-  }
-  struct In {
-    float i, f, o, u, cp, c, g;
+  float* part = reinterpret_cast<float*>(smem);
+  unsigned char* res = smem + tc::persist_part(NC, kW);
+  const int ndir = gridDim.x / NB;
+  const int d = blockIdx.x / NB, cb = blockIdx.x % NB;
+  const int R = ndir * B, G = 4 * H, K = H / 4, nt_all = H / 8;
+  const int passes = (B + tc::kPassRows - 1) / tc::kPassRows;
+  // one pass: the slot's carried dc and dh_total and its next inputs stay
+  // in registers; more: dc and dh_total go through the global scratch
+  const bool two = B > 16, hold = passes == 1;
+  const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
+  const uint2* slice = wb + int64_t(d * NB + cb) * K * NC * 32;
+  // A (dg) of direction d, pass p, m-tile m in buffer buf: [2][ndir]
+  // [passes][2][K][32] uint4
+  auto a_of = [&](int buf, int p, int m) {
+    return abuf + (int64_t((buf * ndir + d) * passes + p) * 2 + m) * K * 32;
   };
-  auto load_in = [&](int t, int q) {
-    In in = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (valid[q]) {
-      const int64_t row = static_cast<int64_t>(t) * R + rr[q];
-      const int j = u0 + pu[q];
-      const __nv_bfloat16* gt = gates + row * G + j;
-      in.i = __bfloat162float(gt[0]);
-      in.f = __bfloat162float(gt[H]);
-      in.o = __bfloat162float(gt[2 * H]);
-      in.u = __bfloat162float(gt[3 * H]);
-      in.cp = t > 0 ? cs[(row - R) * H + j] : 0.0f;
-      in.c = cs[row * H + j];
-      in.g = g[row * H + j];
+  // what a slot carries past its step: dc and dh_total, [R][H] fp32 each
+  float* dc_held = held;
+  float* dh_held = held + int64_t(R) * H;
+  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC);
+  __syncthreads();
+  const tc::WarpSteps ws = tc::warp_steps(w, kW, K, kr, cb, NB);
+  const uint2* sb = reinterpret_cast<const uint2*>(res) + w * kr * NC * 32 + l;
+  const uint2* gb = slice + int64_t(ws.kb) * NC * 32 + l;
+  // this thread's slot: m-tile m, its tile's lane ls, unit j (the pair j,
+  // j + 1); `own`: a slot of this launch's rows and of a unit below H
+  const int m = tid / (NT * 32), ls = tid & 31, tile = (tid / 32) % NT;
+  const int tg = cb * NT + tile, j = 8 * tg + 2 * (ls & 3);
+  const bool own = tid < (two ? 2 : 1) * NT * 32 && tg < nt_all;
+  auto row_of = [&](int p, int i) {
+    return p * tc::kPassRows + 16 * m + (ls >> 2) + 8 * i;
+  };
+  auto load_in = [&](int t, int p) {
+    LstmIn in;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int b = row_of(p, i);
+      const bool valid = b < B;
+      const int64_t rr = int64_t(d) * B + b, row = int64_t(t) * R + rr;
+      const float2 z = make_float2(0.0f, 0.0f);
+      in.lo[i] = valid ? lo[rr] : 0.0f;   // rows past B: never live
+      in.hi[i] = valid ? hi[rr] : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        in.q[i][k] = valid ? *reinterpret_cast<const uint32_t*>(
+                                 gates + row * G + k * H + j)
+                           : 0u;
+      in.c[i] = valid ? *reinterpret_cast<const float2*>(cs + row * H + j)
+                      : z;
+      in.cp[i] = valid && t > 0 ? *reinterpret_cast<const float2*>(
+                                      cs + (row - R) * H + j)
+                                : z;
+      in.g[i] = valid ? *reinterpret_cast<const float2*>(g + row * H + j)
+                      : z;
     }
     return in;
   };
-  // this warp's n-groups [ng0, ng1) and their fragments
-  const int ng0 = wp * NG / n_warps, ng1 = (wp + 1) * NG / n_warps;
-  const uint2* wsrc =
-      wb + ((static_cast<int64_t>(d) * C + c) * NG + ng0) * KS * 4 * 32 + l;
-  const uint32_t a_lane = s_a + (l & 15) * row_b + (l >> 4) * 16;
+  LstmIn next;
+  float2 dc_reg[2], dh_reg[2];
+  if (hold && own) next = load_in(T - 1, 0);
+  unsigned int barriers = 0;
 
-  const int n = (ng1 - ng0) * KS;   // this warp's k-steps a step
-  uint2 b[kP][4];                   // its B fragments in flight
-  tc::stream_prefetch<4, kP>(wsrc, n, b);
-  In in[kPairs];
-#pragma unroll
-  for (int q = 0; q < kPairs; ++q) in[q] = load_in(T - 1, q);
-  int cur = 0;
   for (int t = T - 1; t >= 0; --t) {
+    const bool product = t < T - 1;
     const float tf = static_cast<float>(t);
-    float dgv[kPairs][4], dct[kPairs], ft[kPairs], dht[kPairs];
-    bool live[kPairs];
-#pragma unroll
-    for (int q = 0; q < kPairs; ++q) {
-      const float dh_total = in[q].g + dh[q];
-      const float tc_ = tanhf(in[q].c);
-      dgv[q][2] = dh_total * tc_ * in[q].o * (1.0f - in[q].o);
-      dct[q] = dc[q] + dh_total * in[q].o * (1.0f - tc_ * tc_);
-      dgv[q][1] = dct[q] * in[q].cp * in[q].f * (1.0f - in[q].f);
-      dgv[q][0] = dct[q] * in[q].u * in[q].i * (1.0f - in[q].i);
-      dgv[q][3] = dct[q] * in[q].i * (1.0f - in[q].u * in[q].u);
-      ft[q] = in[q].f;
-      dht[q] = dh_total;
-      live[q] = lo_r[q] <= tf && tf < hi_r[q];
-    }
-    auto store_dxs = [&]() {
-#pragma unroll
-      for (int q = 0; q < kPairs; ++q) {
-        if (!valid[q]) continue;
-        __nv_bfloat16* dx =
-            dxs + (static_cast<int64_t>(t) * R + rr[q]) * G + u0 + pu[q];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          dx[k * H] = __float2bfloat16_rn(live[q] ? dgv[q][k] : 0.0f);
+    for (int p = 0; p < passes; ++p) {
+      if (product) {
+        const int rp = B - p * tc::kPassRows;   // rows of the pass (> 0)
+        float acc[2][NC][4] = {};
+        tc::persist_product<NC, P, kSt>(
+            acc, a_of((t + 1) & 1, p, 0) + ws.kb * 32 + l,
+            a_of((t + 1) & 1, p, 1) + ws.kb * 32 + l, two, rp > 8, rp > 24,
+            ws.kw, ws.kres, ws.rot, sb, gb);
+        tc::store_partials<NC>(part, acc, two, w, l);
       }
-    };
-    if (t == 0) {   // dh_prev of step 0 is not needed
-      store_dxs();
-      break;
-    }
+      __syncthreads();
+      if (own) {
+        const float4 dhp = product
+                               ? tc::sum_partials(part, kW, NC, m, tile, ls)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const LstmIn in = hold ? next : load_in(t, p);
 #pragma unroll
-    for (int q = 0; q < kPairs; ++q) {
-      in[q] = load_in(t - 1, q);
-      if (has[q]) {
-        __nv_bfloat16* arow = reinterpret_cast<__nv_bfloat16*>(
-            smem + pr[q] * row_b);
+        for (int i = 0; i < 2; ++i) {
+          const int b = row_of(p, i);
+          const bool valid = b < B;
+          const int64_t rr = int64_t(d) * B + b;
+          const int64_t row = int64_t(t) * R + rr;
+          const bool live = in.lo[i] <= tf && tf < in.hi[i];
+          const bool live_next =
+              product && in.lo[i] <= tf + 1.0f && tf + 1.0f < in.hi[i];
+          // dc and dh from step t + 1 (0 at t = T - 1): dh = dh_prev where
+          // that step was live, else its dh_total passes through
+          float2 dc = make_float2(0.0f, 0.0f), dh = dc;
+          if (product && (hold || valid)) {
+            dc = hold ? dc_reg[i]
+                      : *reinterpret_cast<const float2*>(dc_held + rr * H +
+                                                         j);
+            dh = live_next
+                     ? (i ? make_float2(dhp.z, dhp.w)
+                          : make_float2(dhp.x, dhp.y))
+                     : hold ? dh_reg[i]
+                            : *reinterpret_cast<const float2*>(dh_held +
+                                                               rr * H + j);
+          }
+          float dg[4][2], dc_next[2], dh_total[2];
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          arow[k * U + pu[q]] = __float2bfloat16_rn(dgv[q][k]);
-      }
-    }
-    __syncthreads();
-
-    // the product over this warp's n-groups, fragments kP k-steps ahead
-    {
-      const uint32_t s_dst = s_p + (cur * part_buf + c * kM * U) * 4;
-      float acc[4][4] = {};
-      int ks = 0, ng = ng0;
-      for (int s0 = 0; s0 < n; s0 += kP) {
+          for (int e = 0; e < 2; ++e) {
+            float q[4];
 #pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          const int st = s0 + p;
-          if (st < n) {
-            uint32_t a[4];
-            tc::ldsm_x4(a_lane + ks * 32, a);
+            for (int k = 0; k < 4; ++k) {
+              const float2 v = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&in.q[i][k]));
+              q[k] = e ? v.y : v.x;
+            }
+            const float ig = q[0], fg = q[1], og = q[2], ug = q[3];
+            const float dht = (e ? in.g[i].y : in.g[i].x) + (e ? dh.y : dh.x);
+            const float tc_ = tanhf(e ? in.c[i].y : in.c[i].x);
+            const float dcv = e ? dc.y : dc.x;
+            dg[2][e] = dht * tc_ * og * (1.0f - og);
+            const float dct = dcv + dht * og * (1.0f - tc_ * tc_);
+            dg[1][e] = dct * (e ? in.cp[i].y : in.cp[i].x) * fg * (1.0f - fg);
+            dg[0][e] = dct * ug * ig * (1.0f - ig);
+            dg[3][e] = dct * ig * (1.0f - ug * ug);
+            dc_next[e] = live ? dct * fg : dcv;
+            dh_total[e] = dht;
+          }
+          if (t > 0) {
 #pragma unroll
-            for (int q = 0; q < 4; ++q) tc::mma(acc[q], a, b[p][q].x, b[p][q].y);
-            if (st + kP < n)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                b[p][q] = __ldg(wsrc + ((st + kP) * 4 + q) * 32);
-            if (++ks == KS) {
-              // the n-group's 16 x 32 sums to their owners: tile q holds
-              // units 32 ng + 8 q + 2 (l % 4) + {0, 1} of rows l / 4 (+ 8)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const int j0 = 32 * ng + 8 * q;
-                const int owner = j0 / U;
-                const int col = j0 - owner * U + 2 * (l & 3);
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-                  tc::st_cluster8(
-                      tc::map_rank(s_dst + (((l >> 2) + 8 * i) * U + col) * 4,
-                                   owner),
-                      acc[q][2 * i], acc[q][2 * i + 1]);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
-              }
-              ks = 0;
-              ++ng;
+            for (int k = 0; k < 4; ++k)
+              *tc::a_word(a_of(t & 1, p, m), k * H + j, i, ls) =
+                  tc::bf16x2(dg[k][0], dg[k][1]);
+            if (hold) {
+              dc_reg[i] = make_float2(dc_next[0], dc_next[1]);
+              dh_reg[i] = make_float2(dh_total[0], dh_total[1]);
+            } else if (valid) {
+              *reinterpret_cast<float2*>(dc_held + rr * H + j) =
+                  make_float2(dc_next[0], dc_next[1]);
+              *reinterpret_cast<float2*>(dh_held + rr * H + j) =
+                  make_float2(dh_total[0], dh_total[1]);
             }
           }
+          if (valid)
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              *reinterpret_cast<uint32_t*>(dxs + row * G + k * H + j) =
+                  tc::bf16x2(live ? dg[k][0] : 0.0f, live ? dg[k][1] : 0.0f);
         }
       }
-      // the next step's first fragments (W is the same at every step), in
-      // flight over the barrier and the reduction
-      if (t > 1) tc::stream_prefetch<4, kP>(wsrc, n, b);
+      __syncthreads();
     }
-    tc::cluster_arrive();
-    store_dxs();
-    tc::cluster_wait();
-#pragma unroll
-    for (int q = 0; q < kPairs; ++q) {
-      if (!has[q]) continue;
-      const float* p = part + cur * part_buf + pr[q] * U + pu[q];
-      float dot = p[0];
-      for (int src = 1; src < C; ++src) dot += p[src * kM * U];
-      if (live[q]) {
-        dh[q] = dot;
-        dc[q] = dct[q] * ft[q];
-      } else {
-        dh[q] = dht[q];
-      }
+    if (t > 0) {
+      tc::grid_arrive(counter);
+      // the next step's inputs, in flight over the wait and the product
+      if (hold && own) next = load_in(t - 1, 0);
+      tc::grid_wait(counter, ++barriers * gridDim.x);
     }
-    if (bufs == 2)
-      cur ^= 1;
-    else
-      tc::cluster_sync();
   }
 }
 
+// the persistent backward's plan at this card's SM count (ops/rnn_cuda.py's
+// persist_plan("lstm_bwd", ...))
+csr_rnn_mma::PersistPlan bwd_persist_plan(int H, int ndir, int B,
+                                          int sms) {
+  return csr_rnn_mma::persist_plan(H, ndir, B, sms, 1, H / 4, kBwdWarps,
+                                   true);
+}
 
-int launch_wide(const void* gates, const void* wb, const float* lo,
-                const float* hi, const float* cs, const float* g, void* dxs,
-                int T, int B, int H, int ndir, int C, cudaStream_t stream) {
+// the persistent kernel of nt tiles a block (the slice may not fit shared
+// memory past one tile); none past kPersistMaxTiles
+template <typename Fn>
+int with_persist_kernel(const csr_rnn_mma::PersistPlan& p, Fn&& fn) {
+  static_assert(csr_rnn_mma::kPersistMaxTiles == 4, "a kernel a tile count");
+  const bool resident = p.resident * kBwdWarps >= p.ksteps;
+  switch (p.tiles) {
+    case 1:
+      return fn(lstm_bwd_persist_kernel<1, 12, false>);
+    case 2:
+      return resident ? fn(lstm_bwd_persist_kernel<2, 10, false>)
+                      : fn(lstm_bwd_persist_kernel<2, 8, true>);
+    case 3:
+      return fn(lstm_bwd_persist_kernel<3, 6, true>);
+    case 4:
+      return fn(lstm_bwd_persist_kernel<4, 6, true>);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// C: the blocks a direction; work: the workspace of the plan's bytes
+// (rnn_mma.cuh's PersistPlan)
+int launch_persist(const void* gates, const void* wb, const float* lo,
+                   const float* hi, const float* cs, const float* g,
+                   void* dxs, void* work, int T, int B, int H, int ndir,
+                   int C, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
-  if (C != tc::wide_cluster(H)) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kP = tc::wide_prefetch(tc::kWideBwdThreads);
-  auto kernel = tc::wide_pairs(H) == 2 ? lstm_bwd_wide_kernel<kP, 2>
-                                       : lstm_bwd_wide_kernel<kP, 4>;
-  return tc::launch_clusters(
-      kernel, C, (B + tc::kRows - 1) / tc::kRows, ndir, tc::kWideBwdThreads,
-      tc::wide_bwd_smem(H, 4), stream,
-      static_cast<const __nv_bfloat16*>(gates),
-      static_cast<const uint2*>(wb), lo, hi, cs, g,
-      static_cast<__nv_bfloat16*>(dxs), T, B, H);
+  int sms = 0;
+  const cudaError_t e = tc::device_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const tc::PersistPlan p = bwd_persist_plan(H, ndir, B, sms);
+  if (!p.ok || C != p.blocks || work == nullptr || p.resident < 1 ||
+      (p.tiles == 1 && p.resident * kBwdWarps < H / 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  char* base = static_cast<char*>(work);
+  unsigned int* counter = reinterpret_cast<unsigned int*>(base);
+  uint4* abuf = reinterpret_cast<uint4*>(base + 256);
+  float* held = reinterpret_cast<float*>(base + p.held);
+  return with_persist_kernel(p, [&](auto kernel) {
+    return tc::launch_cooperative(
+        kernel, p.blocks * ndir, 32 * kBwdWarps, p.smem, stream, counter,
+        static_cast<const __nv_bfloat16*>(gates),
+        static_cast<const uint2*>(wb), lo, hi, cs, g,
+        static_cast<__nv_bfloat16*>(dxs), counter, abuf, held, T, B, H,
+        p.blocks, p.resident);
+  });
 }
 
 }  // namespace
@@ -655,23 +710,24 @@ int launch_wide(const void* gates, const void* wb, const float* lo,
 // gates [T, ndir*B, 4H], dxs [T, ndir*B, 4H] and the weights all fp32 (the
 // FMA kernel: wtq [ndir, H, H, 4]) or, when bf16 != 0, all bf16 (the
 // cluster kernel: wb [ndir, C, H, 4, 32], C = H / 32 blocks a cluster,
-// ops/rnn_cuda.py's lstm_plan; past H = 512 the streamed-W fragments
-// [ndir, C, H/32, K/16, 4, 32, 4], C = wide_cluster(H),
-// rnn_cuda.wide_bwd_weights; unread under fp32); lo/hi [ndir*B], cs and g
-// [T, ndir*B, H] fp32. Requires 32 <= H <= 2048, H % 32 == 0, T >= 1,
-// B >= 1, ndir 1 or 2 (the wrapper checks).
+// ops/rnn_cuda.py's lstm_plan; past H = 512 the persistent form's
+// fragments [ndir, C, H/4, nt, 32, 4], C its blocks a direction,
+// rnn_cuda.persist_bwd_weights; unread under fp32); lo/hi [ndir*B], cs and
+// g [T, ndir*B, H] fp32; work the persistent form's workspace
+// (csr_lstm_bwd_persist_plan's bytes; unread elsewhere). Requires 32 <= H <=
+// 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_lstm_bwd(const void* gates, const void* wtq, const float* lo,
                          const float* hi, const float* cs, const float* g,
-                         void* dxs, int T, int B, int H, int ndir, int C,
-                         int bf16, cudaStream_t stream) {
+                         void* dxs, void* work, int T, int B, int H, int ndir,
+                         int C, int bf16, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (ndir != 1 && ndir != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (!bf16)
     return launch_fp32(gates, wtq, lo, hi, cs, g, dxs, T, B, H, ndir,
                        stream);
   if (H > tc::kResidentMax)
-    return launch_wide(gates, wtq, lo, hi, cs, g, dxs, T, B, H, ndir, C,
-                       stream);
+    return launch_persist(gates, wtq, lo, hi, cs, g, dxs, work, T, B, H,
+                          ndir, C, stream);
   if (C * tc::kUnits != H) return static_cast<int>(cudaErrorInvalidValue);
   return tc::launch_clusters(
       lstm_bwd_tc_kernel, C, (B + tc::kRows - 1) / tc::kRows, ndir,
@@ -681,21 +737,42 @@ CSR_API int csr_lstm_bwd(const void* gates, const void* wtq, const float* lo,
       static_cast<__nv_bfloat16*>(dxs), T, B, H);
 }
 
-// The cluster backward's plan as the card takes it: out[0] = its shared
-// memory bytes at hidden size H (C = H / 32 blocks), out[1] = how many of
-// its clusters the card holds at once (cudaOccupancyMaxActiveClusters; 0:
-// it cannot launch).
+// The cluster backward's plan as the card takes it (H <= 512): out[0] =
+// its shared memory bytes at hidden size H (C = H / 32 blocks), out[1] =
+// how many of its clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot launch). Past H = 512 see
+// csr_lstm_bwd_persist_plan.
 CSR_API int csr_lstm_bwd_occupancy(int H, int* out) {
   namespace tc = csr_rnn_mma;
-  if (H > tc::kResidentMax) {
-    out[0] = tc::wide_bwd_smem(H, 4);
-    constexpr int kP = tc::wide_prefetch(tc::kWideBwdThreads);
-    auto kernel = tc::wide_pairs(H) == 2 ? lstm_bwd_wide_kernel<kP, 2>
-                                         : lstm_bwd_wide_kernel<kP, 4>;
-    return tc::max_clusters(kernel, tc::wide_cluster(H), tc::kWideBwdThreads,
-                            out[0], out + 1);
-  }
+  if (H > tc::kResidentMax) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = tc::bwd_smem(H);
   return tc::max_clusters(lstm_bwd_tc_kernel, H / tc::kUnits,
                           tc::kRows * tc::kUnits, out[0], out + 1);
+}
+
+// The persistent backward's plan as this card takes it at hidden size H >
+// 512, ndir directions and B rows a direction: out = (blocks a direction,
+// tiles a block, resident k-steps a warp, shared memory bytes a block,
+// blocks the card holds at once, workspace bytes). cudaErrorInvalidValue
+// where the card has too few SMs for the built tile counts (out filled all
+// the same).
+CSR_API int csr_lstm_bwd_persist_plan(int H, int ndir, int B,
+                                      long long* out) {
+  namespace tc = csr_rnn_mma;
+  int sms = 0;
+  cudaError_t e = tc::device_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const tc::PersistPlan p = bwd_persist_plan(H, ndir, B, sms);
+  out[0] = p.blocks;
+  out[1] = p.tiles;
+  out[2] = p.resident;
+  out[3] = p.smem;
+  out[4] = 0;
+  out[5] = p.work;
+  return with_persist_kernel(p, [&](auto kernel) {
+    int n = 0;
+    e = tc::coresident_blocks(kernel, 32 * kBwdWarps, p.smem, &n);
+    out[4] = n;
+    return static_cast<int>(e);
+  });
 }

@@ -1,8 +1,9 @@
-// Shared by the bf16 cluster kernels of the recurrences (lstm_fwd.cu,
-// lstm_bwd.cu, gru_fwd.cu, gru_bwd.cu): the shared-memory layout, the
+// Shared by the bf16 kernels of the recurrences (lstm_fwd.cu, lstm_bwd.cu,
+// gru_fwd.cu, gru_bwd.cu): the clusters' shared-memory layout, the
 // thread-block cluster's rank, distributed shared memory (DSMEM) stores and
-// barrier, and the cluster launch; and, past H = 512, the streamed-W
-// form's geometry and product (below).
+// barrier, and the cluster launch; past H = 512, the streamed-W form's
+// geometry and product (the LSTM's forwards, the GRU's backward) and the
+// persistent form's (the GRU's forwards, the LSTM's backward; below).
 //
 // Up to H = 512, a cluster of C = H / U blocks serves one direction and
 // one group of kRows = 16 rows (one m16 tile; rows past B are zero); block
@@ -316,6 +317,334 @@ struct ClusterLaunch {
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
 };
+
+// ---------------------------------------------------------------------------
+// The persistent form (gru_fwd.cu's gru_fwd_persist_kernel, lstm_bwd.cu's
+// lstm_bwd_persist_kernel), past H = 512: one cooperative launch of at
+// most one block an SM, a direction's W spread over about sms / ndir
+// blocks and kept in their shared memory where it fits, every row of the
+// direction multiplied at each step (32 rows a pass: two m16 tiles share
+// each B fragment), and the step's exchange through global memory (L2)
+// behind one grid barrier a step.
+//
+// Geometry (ops/rnn_cuda.py's persist_plan computes the same): the
+// product's N is H units in n8 tiles; a block owns nt = ceil((H / 8) /
+// (sms / ndir)) tiles (the last block of a direction may own fewer), so a
+// direction has NB = ceil((H / 8) / nt) blocks and the grid NB ndir. Each
+// tile brings `cols` n8 columns of B (the GRU forward: its three gates; the
+// LSTM backward: one, the units j of dh_prev), nc = cols nt a block. The
+// reduction of K k-steps is split over the block's warps, warp w taking
+// [K w / nw, K (w + 1) / nw). B is laid out by the wrapper in fragment
+// order, [ndir][NB][K][nc][32 lanes] uint2; a warp keeps up to kr of its
+// k-steps in shared memory ([nw][kr][nc][32] uint2, copied in once a
+// launch) and reads the rest from global memory at each step (kr is as
+// many as fit beside the partial sums). A, the exchanged h (forward) or dg
+// (backward) in bf16, sits in global memory in fragment order too,
+// [pass][2 m-tiles][K][32 lanes] uint4 a direction (a_word), so a warp
+// reads an A fragment with one 16-byte load a lane, or 8 bytes where the
+// m-tile's rows 8-15 are past B (B = 24 leaves a quarter of A unread);
+// ld.global.cg reads it through L2, never a stale L1 line. The warps'
+// partial sums meet in shared memory, [nw][2][nc][32] float4, and are
+// added in warp order (no atomics: bitwise repeatable).
+//
+// The workspace, in global memory: the grid barrier's counter (256
+// bytes), then the two A buffers ([2 parities][ndir][passes][2 m-tiles]
+// [K][32 lanes] uint4, 1024·K bytes a pass and direction), then (the LSTM
+// backward only, `carried`) the slots' carried dc and dh_total with more
+// than one pass ([2][ndir·B][H] fp32). The wrappers allocate `work` bytes
+// (on the card as csr_*_persist_plan reports them), and the kernels take
+// their offsets from the same plan.
+//
+// The kernels are built for nt <= kPersistMaxTiles (the LSTM backward's
+// slots, 2 m-tiles x nt x 32 lanes, are one a thread of its 256), so a
+// card with fewer than ndir·H/32 SMs has no kernel for this H: `ok` is
+// false and the launch refuses (ops/rnn_cuda.py's persist_plan raises).
+struct PersistPlan {
+  int tiles, blocks, cols, warps, ksteps, resident, smem, passes;
+  int64_t held, work;   // the carried state's offset; the workspace bytes
+  bool ok;              // tiles <= kPersistMaxTiles
+};
+
+constexpr int kPassRows = 32;        // rows a pass: two m16 tiles
+constexpr int kPersistMaxTiles = 4;  // tiles a block the kernels are built for
+
+__host__ __device__ constexpr int persist_part(int nc, int warps) {
+  return warps * 2 * nc * 512;
+}
+
+inline PersistPlan persist_plan(int H, int ndir, int B, int sms, int cols,
+                                int ksteps, int warps, bool carried) {
+  PersistPlan p{};
+  const int nt_all = H / 8, per = sms / ndir;
+  p.tiles = per > 0 ? (nt_all + per - 1) / per : nt_all;
+  p.blocks = (nt_all + p.tiles - 1) / p.tiles;
+  p.cols = cols;
+  p.warps = warps;
+  p.ksteps = ksteps;
+  const int nc = cols * p.tiles, part = persist_part(nc, warps);
+  const int kq = (ksteps + warps - 1) / warps;
+  const int fit = (kSmemMax - part) / (warps * nc * 256);
+  p.resident = kq < fit ? kq : fit;
+  p.smem = part + warps * p.resident * nc * 256;
+  p.passes = (B + kPassRows - 1) / kPassRows;
+  p.held = 256 + int64_t(2) * ndir * p.passes * 1024 * ksteps;
+  p.work = p.held + (carried ? int64_t(2) * ndir * B * H * 4 : 0);
+  p.ok = p.tiles <= kPersistMaxTiles;
+  return p;
+}
+
+// the SM count of the current device, into *n → the query's status
+inline cudaError_t device_sms(int* n) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  return e != cudaSuccess
+             ? e
+             : cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// the blocks of `kernel` (`threads`, `smem` bytes) the card holds at once,
+// into *n → the query's status (the attribute for `smem` set first)
+template <typename... Exp>
+cudaError_t coresident_blocks(void (*kernel)(Exp...), int threads, int smem,
+                              int* n) {
+  int sms = 0, per = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = device_sms(&sms);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads,
+                                                      smem);
+  *n = per * sms;
+  return e;
+}
+
+// zeroes the grid barrier's counter (4 bytes at `counter`) on `stream`,
+// then launches `kernel` on `grid` blocks as a cooperative launch: all
+// blocks resident at once, or the launch fails (never a partial grid that
+// would wait forever at the barrier) → the launch status
+template <typename... Exp, typename... Act>
+int launch_cooperative(void (*kernel)(Exp...), int grid, int threads,
+                       int smem, cudaStream_t stream, void* counter,
+                       Act&&... args) {
+  int n = 0;
+  cudaError_t e = coresident_blocks(kernel, threads, smem, &n);
+  if (e == cudaSuccess && n < grid) e = cudaErrorCooperativeLaunchTooLarge;
+  if (e == cudaSuccess) e = cudaMemsetAsync(counter, 0, 4, stream);
+  if (e == cudaSuccess) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
+  }
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The grid barrier, in two halves: after grid_wait, every block's stores
+// before its grid_arrive are seen by every thread of the block. A monotone
+// counter (zeroed before the launch, so a CUDA graph's replay starts
+// clean); the n-th barrier of a launch waits for n·gridDim.x arrivals.
+// Thread 0 arrives (fence, then a release add at GPU scope) once the
+// block's threads have passed a block barrier, and polls with acquire
+// loads; a block barrier after the poll orders its threads' loads. Work
+// between the halves (the next step's input loads) overlaps the wait; it
+// must not touch what other blocks write before their arrival. A barrier
+// still short of its arrivals after 2^28 polls (minutes) traps: a launch
+// error, not a hang.
+__device__ __forceinline__ void grid_arrive(unsigned int* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.add.u32 [%0], %1;\n" ::"l"(counter),
+                 "r"(1u)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void grid_wait(unsigned int* counter,
+                                          unsigned int target) {
+  if (threadIdx.x == 0) {
+    unsigned int v, polls = 0;
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(counter)
+                   : "memory");
+      if (++polls == (1u << 28)) __trap();
+    } while (v < target);
+  }
+  __syncthreads();
+}
+
+// the line at p into L2, kept past lines marked to go first
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2::evict_last [%0];\n" ::"l"(p));
+}
+
+// acc[m][c] += A_m B_c over one warp's kw k-steps: A from global memory
+// (a0, a1: this lane's fragment of m-tile 0 and 1 at the warp's first
+// k-step, 32 uint4 a k-step, words (a0, a2, a1, a3) of the m16n8k16
+// fragment; m-tile 1 only where `two`; `full0` / `full1`: whether rows
+// 8-15 of the m-tile hold rows of the pass, else only the first 8 bytes,
+// rows 0-7, are read), B from shared memory for the first kres k-steps
+// (sb: this lane's fragment of column 0 at the first k-step, nc·32 uint2 a
+// k-step) and from global memory past them (gb: the same in the launch's
+// layout; only with kSt). Where the slice is resident (!kSt) the warp
+// walks its k-steps from `rot` on, wrapping: each block of a direction
+// starts elsewhere, so the blocks do not all ask L2 for the same lines at
+// once (where B is streamed too, the plain order measured faster). A (and
+// streamed B) loads run P k-steps ahead in a register ring, the registers
+// allowing no deeper one; the streamed B of k-step i + 2P is prefetched
+// into L2 at k-step i (measured against a copy without it, PERF.md);
+// a k-step's B fragments are all loaded from shared memory before its
+// products, so their latency is paid once a k-step.
+template <int NC, int P, bool kSt>
+__device__ __forceinline__ void persist_product(
+    float (&acc)[2][NC][4], const uint4* __restrict__ a0,
+    const uint4* __restrict__ a1, bool two, bool full0, bool full1, int kw,
+    int kres, int rot, const uint2* sb, const uint2* __restrict__ gb) {
+  uint4 ra[P][2];
+  uint2 rb[kSt ? P : 1][NC];
+  if (kSt) rot = 0;
+  auto step = [&](int i) { return i + rot < kw ? i + rot : i + rot - kw; };
+  auto half = [](const uint4* a, bool full) {
+    if (full) return __ldcg(a);
+    const uint2 v = __ldcg(reinterpret_cast<const uint2*>(a));
+    return make_uint4(v.x, v.y, 0u, 0u);
+  };
+  auto fetch = [&](int slot, int i) {
+    const int k = step(i);
+    ra[slot][0] = half(a0 + k * 32, full0);
+    if (two) ra[slot][1] = half(a1 + k * 32, full1);
+    if (kSt && k >= kres)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        rb[kSt ? slot : 0][c] = __ldg(gb + (k * NC + c) * 32);
+  };
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    if (p < kw) fetch(p, p);
+  for (int k0 = 0; k0 < kw; k0 += P) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int i = k0 + p;
+      if (i < kw) {
+        const int k = step(i);
+        uint2 b[NC];
+        if (!kSt || k < kres) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) b[c] = sb[(k * NC + c) * 32];
+        } else {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) b[c] = rb[kSt ? p : 0][c];
+        }
+        const uint32_t am[4] = {ra[p][0].x, ra[p][0].z, ra[p][0].y,
+                                ra[p][0].w};
+        const uint32_t an[4] = {ra[p][1].x, ra[p][1].z, ra[p][1].y,
+                                ra[p][1].w};
+        if (i + P < kw) fetch(p, i + P);
+        if (kSt && i + 2 * P < kw && step(i + 2 * P) >= kres)
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            prefetch_l2(gb + (step(i + 2 * P) * NC + c) * 32);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          mma(acc[0][c], am, b[c].x, b[c].y);
+          if (two) mma(acc[1][c], an, b[c].x, b[c].y);
+        }
+      }
+    }
+  }
+}
+
+// A warp's k-steps [kb, kb + kw) of K over nw warps, how many of them it
+// keeps in shared memory (kr at most), and where block cb of NB starts
+// its walk over them (spread evenly)
+struct WarpSteps {
+  int kb, kw, kres, rot;
+};
+__device__ __forceinline__ WarpSteps warp_steps(int w, int nw, int K,
+                                                int kr, int cb = 0,
+                                                int NB = 1) {
+  WarpSteps s;
+  s.kb = K * w / nw;
+  s.kw = K * (w + 1) / nw - s.kb;
+  s.kres = s.kw < kr ? s.kw : kr;
+  s.rot = s.kw * cb / NB;
+  return s;
+}
+
+// the block's resident B fragments into shared memory: warp w's first
+// kres k-steps of its range (nc·256 bytes a k-step, contiguous in the
+// launch's layout at `slice`, the block's [K][nc][32] uint2) at s_res +
+// w·kr·nc·256; every thread shares the copies
+__device__ __forceinline__ void load_resident(uint32_t s_res,
+                                              const uint2* __restrict__ slice,
+                                              int nw, int K, int kr, int nc) {
+  for (int w = 0; w < nw; ++w) {
+    const WarpSteps s = warp_steps(w, nw, K, kr);
+    const char* src =
+        reinterpret_cast<const char*>(slice) + int64_t(s.kb) * nc * 256;
+    const uint32_t dst = s_res + w * kr * nc * 256;
+    for (int q = threadIdx.x; q < s.kres * nc * 16; q += blockDim.x)
+      cp_async16(dst + q * 16, src + int64_t(q) * 16, true);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// a warp's accumulators into its slots of the partial sums
+// ([nw][2][nc][32] float4 at s_part)
+template <int NC>
+__device__ __forceinline__ void store_partials(float* part,
+                                               const float (&acc)[2][NC][4],
+                                               bool two, int w, int l) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+    if (m == 0 || two)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        reinterpret_cast<float4*>(part)[((w * 2 + m) * NC + c) * 32 + l] =
+            make_float4(acc[m][c][0], acc[m][c][1], acc[m][c][2],
+                        acc[m][c][3]);
+}
+
+// the sum over the nw warps, in warp order, of slot (m, c, l)
+__device__ __forceinline__ float4 sum_partials(const float* part, int nw,
+                                               int nc, int m, int c, int l) {
+  const float4* p = reinterpret_cast<const float4*>(part);
+  float4 s = p[(m * nc + c) * 32 + l];
+  for (int w = 1; w < nw; ++w) {
+    const float4 v = p[((w * 2 + m) * nc + c) * 32 + l];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  return s;
+}
+
+// where the bf16 pair of A at (row m·16 + l/4 + 8i, column k, k + 1), k
+// even, goes: the 4-byte word of lane l' = 4 (row % 8) + (k % 8) / 2 of
+// k-step k / 16 — for a slot's own pair (l' = l) the word 2 i + k / 8 % 2
+// of lane l's uint4 (fragment words a0, a2, a1, a3: rows 0-7 of the m16
+// tile in the first 8 bytes)
+__device__ __forceinline__ uint32_t* a_word(uint4* a_mt, int k, int i,
+                                            int l) {
+  return reinterpret_cast<uint32_t*>(a_mt + (k / 16) * 32 + l) + 2 * i +
+         ((k / 8) & 1);
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 // launches `kernel` on clusters (ClusterLaunch::init) → the launch status
 template <typename... Exp, typename... Act>

@@ -45,17 +45,24 @@ plain version for CPU tensors):
   gradient walk.
 
 Under bf16 compute every form of both cells, the three forwards
-(residual-free, stream, training) and the backward, runs on thread-block
-clusters (``lstm_plan``, ``gru_plan``; 16 rows a cluster) and multiplies
-on the tensor cores. Up to H = 512 (``RESIDENT_MAX``) each block keeps its
-slice of W in shared memory (C = H / 32 blocks, or H / 16 in the GRU's
-backward up to H = 256; ``lstm_fwd_tc_weights``, ``lstm_bwd_tc_weights``,
-``gru_fwd_tc_weights``, ``gru_bwd_tc_weights``). Past it, up to H = 2048
-(``MAX_HIDDEN``), W no longer fits a cluster's shared memory and each
+(residual-free, stream, training) and the backward, multiplies on the
+tensor cores. Up to H = 512 (``RESIDENT_MAX``) they run on thread-block
+clusters (``lstm_plan``, ``gru_plan``; 16 rows a cluster), each block
+keeping its slice of W in shared memory (C = H / 32 blocks, or H / 16 in
+the GRU's backward up to H = 256; ``lstm_fwd_tc_weights``,
+``lstm_bwd_tc_weights``, ``gru_fwd_tc_weights``, ``gru_bwd_tc_weights``).
+Past it, up to H = 2048 (``MAX_HIDDEN``), W no longer fits a cluster's
+shared memory. The GRU's three forwards and the LSTM's backward then run
+the persistent form (``persist_plan``): one cooperative launch of about
+sms / ndir blocks a direction over the whole card, W spread over their
+shared memory (``persist_fwd_weights``, ``persist_bwd_weights``: fragment
+order), every row of a direction multiplied at each step and the step's
+exchange through a global workspace behind one grid barrier a step. The
+LSTM's forwards and the GRU's backward keep the streamed-W clusters: each
 block streams its slice from global memory at every step, straight into
-the tensor cores' operand fragments (the streamed-W form: C = ⌈H / U⌉ ≤
-16 blocks of U = ``wide_units(H)`` = 8·⌈H / 128⌉ units; W laid out in
-fragment order by ``wide_fwd_weights`` and ``wide_bwd_weights``). Under
+the tensor cores' operand fragments (C = ⌈H / U⌉ ≤ 16 blocks of U =
+``wide_units(H)`` = 8·⌈H / 128⌉ units; ``wide_fwd_weights``,
+``wide_bwd_weights``). Under
 fp32 the FMA kernels read W as it is (the GRU's forward), transposed (its
 backward) or as k-quads (the LSTM's), one hidden unit a thread up to H =
 512, two up to 1024 and four above. The stream wrappers take the laid-out
@@ -80,6 +87,7 @@ layer call took.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -97,14 +105,16 @@ ROUTED = {"kernel": 0, "scan": 0}
 # memory, and the largest the kernels take (the streamed-W form between)
 RESIDENT_MAX, MAX_HIDDEN = 512, 2048
 SMEM_MAX = 232448       # shared memory a block may use on an H100 (227 KB)
+SMS = 132               # an H100 SXM's SMs: the plans' default
 
 
 def kernel_takes(H: int) -> bool:
     """The hidden sizes the kernels take: 32 ≤ H ≤ 2048 with H % 32 == 0,
     every H % 128 == 0 the reference's kernels take up to 2048 among them
-    (the bf16 cluster kernels: C ≤ 16 blocks, W resident in their shared
-    memory up to H = 512 and streamed from global memory above; the fp32
-    FMA kernels: up to four units a thread of 512)."""
+    (the bf16 kernels: clusters of C ≤ 16 blocks, W resident in their
+    shared memory up to H = 512; above, the persistent form or clusters
+    streaming W from global memory; the fp32 FMA kernels: up to four units
+    a thread of 512)."""
     return H % 32 == 0 and 32 <= H <= MAX_HIDDEN
 
 
@@ -319,10 +329,10 @@ def _check_sizes(T: int, R: int, H: int, compute_dtype,
                          f"ndir={ndir})")
     if not kernel_takes(H):
         raise ValueError(f"{cell} kernel: hidden size {H} unsupported "
-                         f"(32 <= H <= {MAX_HIDDEN}, H % 32 == 0: in bf16 a "
-                         "cluster of at most 16 blocks, W in their shared "
-                         f"memory up to H = {RESIDENT_MAX} and streamed "
-                         "above; in fp32 up to 4 units a thread)")
+                         f"(32 <= H <= {MAX_HIDDEN}, H % 32 == 0: in bf16 W "
+                         f"in shared memory up to H = {RESIDENT_MAX}, spread "
+                         "over the card or streamed above; in fp32 up to 4 "
+                         "units a thread)")
     return stream_dtype(compute_dtype)
 
 
@@ -368,10 +378,11 @@ def gru_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
     T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype, ndir=ndir)
     wk, C = _gru_launch_args(w, B, compute_dtype, "fwd")
     ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
+    work = _work("gru", "fwd", w, B, compute_dtype)
     _kernels.GRU_FWD.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), T, B, H, ndir, C, int(compute_dtype == torch.bfloat16),
-        _kernels.stream_ptr(xs))
+        ys.data_ptr(), _ptr(work), T, B, H, ndir, C,
+        int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys
 
 
@@ -382,10 +393,11 @@ def gru_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
     wk, C = stream_launch_args("gru", w, B, compute_dtype)
     ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     carry = torch.empty_like(h0)
+    work = _work("gru", "fwd", w, B, compute_dtype)
     _kernels.GRU_FWD_STREAM.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        h0.data_ptr(), ys.data_ptr(), carry.data_ptr(), T, B, H, ndir,
-        emit_t, C, int(compute_dtype == torch.bfloat16),
+        h0.data_ptr(), ys.data_ptr(), carry.data_ptr(), _ptr(work), T, B, H,
+        ndir, emit_t, C, int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(xs))
     return ys, carry
 
@@ -398,9 +410,10 @@ def gru_scan_train_cuda(xs, w, lo, hi, compute_dtype):
     wk, C = _gru_launch_args(w, B, compute_dtype, "fwd")
     ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     gates = torch.empty((T, ndir * B, 4 * H), dtype=sdt, device=xs.device)
+    work = _work("gru", "fwd", w, B, compute_dtype)
     _kernels.GRU_FWD_TRAIN.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), gates.data_ptr(), T, B, H, ndir, C,
+        ys.data_ptr(), gates.data_ptr(), _ptr(work), T, B, H, ndir, C,
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys, gates
 
@@ -556,6 +569,152 @@ def wide_bwd_weights(w):
         ndir, C, H // 32, K // 16, 4, 32, 4).contiguous()
 
 
+# the persistent form: (B columns a unit tile, warps a block, k-steps a
+# hidden unit of the reduction: K = H / 16 forward, 4H / 16 backward)
+PERSIST = {"gru_fwd": (3, 4, 1 / 16), "lstm_bwd": (1, 8, 1 / 4)}
+PASS_ROWS = 32          # rows a pass of the persistent form: two m16 tiles
+PERSIST_MAX_TILES = 4   # tiles a block its kernels are built for
+
+
+class PersistPlan(NamedTuple):
+    blocks: int         # NB: blocks a direction (grid NB · ndir ≤ sms)
+    tiles: int          # nt: n8 tiles of units a block (the last block of
+                        # a direction may own fewer)
+    warps: int          # a block's warps, each a share of the k-steps
+    ksteps: int         # K: k-steps of the product
+    resident: int       # kr: k-steps a warp keeps in shared memory at most
+                        # (the rest of its share read from L2 each step)
+    passes: int         # ⌈B / 32⌉ passes of 32 rows a step
+    smem: int           # dynamic shared memory a block, bytes
+    work: int           # the global workspace, bytes
+
+
+def persist_plan(name: str, H: int, B: int, ndir: int,
+                 sms: int = SMS) -> PersistPlan:
+    """The persistent form's launch (``csrc/rnn_mma.cuh``'s
+    ``persist_plan``; ``name`` "gru_fwd" or "lstm_bwd") on a card of
+    ``sms`` SMs: nt = ⌈(H / 8) / (sms // ndir)⌉ unit tiles a block, NB =
+    ⌈(H / 8) / nt⌉ blocks a direction, one block an SM. Shared memory: the
+    warps' partial sums (warps × 2 m-tiles × nc columns × 512 bytes) and
+    as many k-steps of each warp's share of the B fragments (nc · 256
+    bytes a k-step) as fit beside them in ``SMEM_MAX``. The workspace: the
+    grid barrier's counter (256 bytes), two A buffers of ndir · passes ·
+    32 rows × K k-steps of 16 columns in bf16 (1024 · K bytes a pass and
+    direction), and for the LSTM's backward the carried dc and dh_total
+    (2 × ndir · B × H fp32). Raises where nt would pass
+    ``PERSIST_MAX_TILES`` (a card of fewer than ndir · H / 32 SMs: no
+    kernel is built for it)."""
+    if not kernel_takes(H) or H <= RESIDENT_MAX:
+        raise ValueError(f"persist_plan: hidden size {H} unsupported "
+                         f"({RESIDENT_MAX} < H <= {MAX_HIDDEN}, "
+                         "H % 32 == 0)")
+    cols, warps, per_unit = PERSIST[name]
+    K = int(H * per_unit)
+    units = H // 8
+    tiles = -(-units // max(sms // ndir, 1))
+    if tiles > PERSIST_MAX_TILES:
+        raise ValueError(
+            f"persist_plan: {name} at H = {H}, ndir {ndir} needs {tiles} "
+            f"unit tiles a block on a card of {sms} SMs; the kernels take "
+            f"at most {PERSIST_MAX_TILES} (at least {ndir * H // 32} SMs)")
+    blocks = -(-units // tiles)
+    nc = cols * tiles
+    part = warps * 2 * nc * 512
+    kr = min(-(-K // warps), (SMEM_MAX - part) // (warps * nc * 256))
+    passes = -(-B // PASS_ROWS)
+    work = 256 + 2 * ndir * passes * 1024 * K
+    if name == "lstm_bwd":
+        work += 2 * ndir * B * H * 4
+    return PersistPlan(blocks, tiles, warps, K, kr, passes,
+                       part + warps * kr * nc * 256, work)
+
+
+def _sms(t: torch.Tensor) -> int:
+    """The SMs of ``t``'s card (``SMS`` for a CPU tensor)."""
+    if t.is_cuda:
+        return torch.cuda.get_device_properties(t.device).multi_processor_count
+    return SMS
+
+
+def persist_fwd_weights(w, blocks: int, tiles: int):
+    """W [ndir, H, 3H] → the persistent GRU forward's B fragments [ndir,
+    NB, H/16, nt, 3, 32, 4] bf16 (``csrc/gru_fwd.cu``): element [d, c, ks,
+    i, g, l, e] is W[d, 16·ks + 2·(l % 4) + e % 2 + 8·(e // 2), g·H + u]
+    for unit u = 8·(nt·c + i) + l // 4 (zero for u ≥ H), lane l's four
+    values of the m16n8k16 B fragment of gate g of the block's tile i at
+    k-step ks; block c copies its [ks][i][g][l] slice into shared memory
+    as far as it fits."""
+    ndir, H, GH = w.shape
+    G = GH // H
+    wb = torch.nn.functional.pad(w.to(torch.bfloat16).reshape(ndir, H, G, H),
+                                 (0, 8 * blocks * tiles - H))
+    return wb.reshape(ndir, H // 16, 2, 4, 2, G, blocks, tiles, 8).permute(
+        0, 6, 1, 7, 5, 8, 3, 2, 4).reshape(
+        ndir, blocks, H // 16, tiles, G, 32, 4).contiguous()
+
+
+def persist_bwd_weights(w, blocks: int, tiles: int):
+    """W [ndir, H, 4H] → the persistent LSTM backward's B fragments [ndir,
+    NB, H/4, nt, 32, 4] bf16 (``csrc/lstm_bwd.cu``): block c's operand
+    B[k, j] = W[d, j, k] over the 4H gate columns k, element [d, c, ks, i,
+    l, e] = W[d, 8·(nt·c + i) + l // 4, 16·ks + 2·(l % 4) + e % 2 +
+    8·(e // 2)] (zero for units j ≥ H): lane l's four values of the B
+    fragment of the block's tile i at k-step ks."""
+    ndir, H, GH = w.shape
+    wb = torch.nn.functional.pad(w.to(torch.bfloat16),
+                                 (0, 0, 0, 8 * blocks * tiles - H))
+    return wb.reshape(ndir, blocks, tiles, 8, GH // 16, 2, 4, 2).permute(
+        0, 1, 4, 2, 3, 6, 5, 7).reshape(
+        ndir, blocks, GH // 16, tiles, 32, 4).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _persist_occupancy(name: str, H: int, ndir: int, B: int,
+                       device: int) -> tuple:
+    out = (ctypes.c_longlong * 6)()
+    fn = f"csr_{name}_persist_plan"
+    with torch.cuda.device(device):
+        err = _kernels.call(fn, H, ndir, B, out)
+    if err:
+        raise RuntimeError(f"{fn}: CUDA error {err} at H = {H}, ndir {ndir}")
+    return tuple(out)
+
+
+def persist_occupancy(name: str, H: int, ndir: int, B: int,
+                      device=None) -> tuple:
+    """(blocks a direction, tiles a block, resident k-steps a warp, shared
+    memory bytes, blocks the card holds at once, workspace bytes) of the
+    persistent form at B rows a direction as the kernel library computes
+    them on ``device``'s card (``csr_{name}_persist_plan``; the current
+    card by default); needs the card."""
+    index = None if device is None else torch.device(device).index
+    return _persist_occupancy(name, H, ndir, B,
+                              torch.cuda.current_device() if index is None
+                              else index)
+
+
+def _persists(cell: str, form: str, H: int) -> bool:
+    """Whether the bf16 launch of (cell, form) at H is the persistent form:
+    the GRU's forwards and the LSTM's backward past ``RESIDENT_MAX``."""
+    return (kernel_takes(H) and H > RESIDENT_MAX
+            and (cell, form) in (("gru", "fwd"), ("lstm", "bwd")))
+
+
+def _work(cell: str, form: str, w, B: int, compute_dtype):
+    """The persistent form's workspace of a launch on ``w``'s card, the
+    bytes the kernel library's plan gives (``persist_occupancy``; None for
+    every other launch, which reads none)."""
+    ndir, H = w.shape[:2]
+    if compute_dtype != torch.bfloat16 or not _persists(cell, form, H):
+        return None
+    n = persist_occupancy(f"{cell}_{form}", H, ndir, B, w.device)[5]
+    return torch.empty(n, dtype=torch.uint8, device=w.device)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 # the resident cluster kernels' units a block and rows a cluster
 # (csrc/rnn_mma.cuh kUnits, kRows); a block runs a thread a (row, unit) pair
 UNITS, ROWS = 32, 16
@@ -572,9 +731,13 @@ def gru_units(H: int, form: str) -> int:
     """Units a block of the GRU's cluster kernels: the backward takes 16 up
     to H = 256 (C = H / 16 ≤ 16 blocks, the largest cluster), where 16
     blocks of 16 ran in 0.846× the time of 8 blocks of 32 at bigru's width;
-    the streamed-W form ``wide_units(H)``; everything else UNITS
-    (``csrc/rnn_mma.cuh``'s ``gru_bwd_units``)."""
+    the backward's streamed-W form ``wide_units(H)``; everything else UNITS
+    (``csrc/rnn_mma.cuh``'s ``gru_bwd_units``). The forwards past
+    ``RESIDENT_MAX`` run no cluster (``persist_plan``)."""
     if H > RESIDENT_MAX:
+        if form != "bwd":
+            raise ValueError(f"gru_units: the forward at H = {H} is the "
+                             "persistent form (persist_plan)")
         return wide_units(H)
     return 16 if form == "bwd" and H <= 256 else UNITS
 
@@ -617,33 +780,48 @@ def gru_smem(form: str, H: int) -> int:
     return _tc_smem(form, H, 3, gru_units(H, form))
 
 
-def _tc_plan(name: str, H: int, B: int, ndir: int, U: int,
-             smem: int) -> RnnPlan:
+def _takes(name: str, H: int) -> None:
     if not kernel_takes(H):
         raise ValueError(f"{name}: hidden size {H} unsupported "
                          f"(32 <= H <= {MAX_HIDDEN}, H % 32 == 0)")
+
+
+def _tc_plan(H: int, B: int, ndir: int, U: int, smem: int) -> RnnPlan:
     return RnnPlan(-(-H // U), ROWS, smem, ndir * -(-B // ROWS))
 
 
-def lstm_plan(H: int, B: int, ndir: int, form: str) -> RnnPlan:
-    """The bf16 cluster kernels' launch for hidden size H, B rows a
-    direction, ``form`` "fwd" (both forward forms) or "bwd": C = H / 32
-    blocks a cluster, each owning 32 units (whole n8 tiles) and running a
-    thread a (row, unit) pair, so each block reads the fewest bytes of W
-    from its shared memory a step; 16 rows (one m16 tile) a cluster;
-    ndir · ⌈B / 16⌉ clusters. Past ``RESIDENT_MAX`` the streamed-W form:
-    C = ⌈H / U⌉ blocks of U = ``wide_units(H)`` units."""
-    return _tc_plan("lstm_plan", H, B, ndir, lstm_units(H),
-                    lstm_smem(form, H))
+def lstm_plan(H: int, B: int, ndir: int, form: str, sms: int = SMS):
+    """The bf16 kernels' launch for hidden size H, B rows a direction,
+    ``form`` "fwd" (both forward forms) or "bwd": an ``RnnPlan`` of
+    clusters of C = H / 32 blocks, each owning 32 units (whole n8 tiles)
+    and running a thread a (row, unit) pair, so each block reads the
+    fewest bytes of W from its shared memory a step; 16 rows (one m16
+    tile) a cluster; ndir · ⌈B / 16⌉ clusters. Past ``RESIDENT_MAX`` the
+    forward's streamed-W form (C = ⌈H / U⌉ blocks of U = ``wide_units(H)``
+    units) and the backward's persistent form (a ``PersistPlan`` on a card
+    of ``sms`` SMs)."""
+    _takes("lstm_plan", H)
+    if _persists("lstm", form, H):
+        return persist_plan("lstm_bwd", H, B, ndir, sms)
+    return _tc_plan(H, B, ndir, lstm_units(H), lstm_smem(form, H))
 
 
-def gru_plan(H: int, B: int, ndir: int, form: str) -> RnnPlan:
-    """``lstm_plan`` for the GRU's cluster kernels, three gate columns a
-    unit: C = ⌈H / ``gru_units(H, form)``⌉ blocks (32 units a block, but
-    16 in the backward up to H = 256, and the streamed-W form's
-    ``wide_units(H)`` past ``RESIDENT_MAX``), 16 rows a cluster."""
-    return _tc_plan("gru_plan", H, B, ndir, gru_units(H, form),
-                    gru_smem(form, H))
+def gru_plan(H: int, B: int, ndir: int, form: str, sms: int = SMS):
+    """``lstm_plan`` for the GRU's kernels, three gate columns a unit: C =
+    ⌈H / ``gru_units(H, form)``⌉ blocks a cluster (32 units a block, but
+    16 in the backward up to H = 256, and the backward's streamed-W form's
+    ``wide_units(H)`` past ``RESIDENT_MAX``), 16 rows a cluster; past
+    ``RESIDENT_MAX`` the forwards' persistent form (a ``PersistPlan``)."""
+    _takes("gru_plan", H)
+    if _persists("gru", form, H):
+        return persist_plan("gru_fwd", H, B, ndir, sms)
+    return _tc_plan(H, B, ndir, gru_units(H, form), gru_smem(form, H))
+
+
+def launch_blocks(plan) -> int:
+    """The C argument of a bf16 launch: a cluster's blocks, or the
+    persistent form's blocks a direction."""
+    return plan.blocks if isinstance(plan, PersistPlan) else plan.cluster
 
 
 def _occupancy(cell: str, H: int, form: str) -> tuple[int, int]:
@@ -675,10 +853,12 @@ def _lstm_launch_args(w, B: int, compute_dtype, form: str):
         wk = (_lstm_fwd_weights if form == "fwd" else _lstm_bwd_weights)(
             w, compute_dtype)
         return wk, 0
-    C = lstm_plan(H, B, ndir, form).cluster
+    p = lstm_plan(H, B, ndir, form, _sms(w))
+    C = launch_blocks(p)
+    if isinstance(p, PersistPlan):
+        return persist_bwd_weights(w, p.blocks, p.tiles), C
     if H > RESIDENT_MAX:
-        return (wide_fwd_weights if form == "fwd" else wide_bwd_weights)(
-            w), C
+        return wide_fwd_weights(w), C
     return (lstm_fwd_tc_weights if form == "fwd" else lstm_bwd_tc_weights)(
         w, C), C
 
@@ -691,10 +871,12 @@ def _gru_launch_args(w, B: int, compute_dtype, form: str):
     if compute_dtype != torch.bfloat16:
         wk = w.to(compute_dtype)
         return (wk if form == "fwd" else wk.transpose(1, 2)).contiguous(), 0
-    C = gru_plan(H, B, ndir, form).cluster
+    p = gru_plan(H, B, ndir, form, _sms(w))
+    C = launch_blocks(p)
+    if isinstance(p, PersistPlan):
+        return persist_fwd_weights(w, p.blocks, p.tiles), C
     if H > RESIDENT_MAX:
-        return (wide_fwd_weights if form == "fwd" else wide_bwd_weights)(
-            w), C
+        return wide_bwd_weights(w), C
     return (gru_fwd_tc_weights if form == "fwd" else gru_bwd_tc_weights)(
         w, C), C
 
@@ -706,19 +888,19 @@ _STREAM_LAYOUTS = WeakIdKeyDictionary()
 
 def stream_launch_args(cell: str, w, B: int, compute_dtype):
     """The forward's launch arguments (``_gru_launch_args`` or
-    ``_lstm_launch_args``: the laid-out W and C) for a stream launch, the
-    layout cached per weight tensor. The key is the tensor itself (not its
-    data pointer, which a later tensor may reuse), its in-place version,
-    the compute dtype and C, so an in-place update (a reloaded checkpoint's
-    ``copy_``) or another tensor misses. An inference tensor has no
-    version and is laid out at each call."""
+    ``_lstm_launch_args``: the laid-out W and C) for a stream launch, the layout cached per weight tensor. The key is the tensor
+    itself (not its data pointer, which a later tensor may reuse), its
+    in-place version, the compute dtype and C, so an in-place update (a
+    reloaded checkpoint's ``copy_``) or another tensor misses. An
+    inference tensor has no version and is laid out at each call."""
     args, plan = {"gru": (_gru_launch_args, gru_plan),
                   "lstm": (_lstm_launch_args, lstm_plan)}[cell]
     if w.is_inference():
         return args(w, B, compute_dtype, "fwd")
     ndir, H = w.shape[:2]
-    C = (plan(H, B, ndir, "fwd").cluster if compute_dtype == torch.bfloat16
-         else 0)
+    p = (plan(H, B, ndir, "fwd", _sms(w))
+         if compute_dtype == torch.bfloat16 else None)
+    C = 0 if p is None else launch_blocks(p)
     key = (w._version, compute_dtype, C)
     hit = _STREAM_LAYOUTS.get(w)
     if hit is not None and hit[0] == key:
@@ -789,10 +971,12 @@ def lstm_bwd_cuda(gates, w, lo, hi, cs, g, compute_dtype):
     B = R // ndir
     wk, C = _lstm_launch_args(w, B, compute_dtype, "bwd")
     dxs = torch.empty((T, R, 4 * H), dtype=sdt, device=gates.device)
+    work = _work("lstm", "bwd", w, B, compute_dtype)
     _kernels.LSTM_BWD.launch(
         gates.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        cs.data_ptr(), g.data_ptr(), dxs.data_ptr(), T, B, H, ndir, C,
-        int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(gates))
+        cs.data_ptr(), g.data_ptr(), dxs.data_ptr(), _ptr(work), T, B, H,
+        ndir, C, int(compute_dtype == torch.bfloat16),
+        _kernels.stream_ptr(gates))
     return dxs
 
 

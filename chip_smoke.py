@@ -294,16 +294,19 @@ any phase fails:
     default) the error printed; the decode CLI with --beam 8 --lm once,
     every beam launch held to the plain version.
     Phases 29-31's walls are printed against a 60 s budget.
-32. the recurrences past H = 512 (``phase_rnn_widths``; W streamed from
-    global memory a step in bf16, 2 or 4 units a thread in fp32): rows
-    3-8 of both cells at H = 640, 768, 1024 and 2048, ndir 2 and 1, in
-    bf16 at the decode (B = 32, T' = 251), training (B = 24, T' = 256)
-    and stream-window (B = 32, T = 20) shapes and in fp32 at B = 8,
-    T' = 32, against their plain versions: the forward forms at 3e-2 /
-    1e-4, the bf16 backward at phase 26's 5e-2 + 2^-7·max|b| (on the plain
-    forward's residuals and on its own), the stream form at emit_t 0, C/s
-    and T; each call exactly one launch; four planted faults in the
-    streamed operand fragments beyond the bars at every H; both plans;
+32. the recurrences past H = 512 (``phase_rnn_widths``; in bf16 the
+    GRU's forwards and the LSTM's backward the persistent form, one
+    cooperative launch over the card, the LSTM's forwards and the GRU's
+    backward W streamed from global memory a step; 2 or 4 units a thread
+    in fp32): rows 3-8 of both cells at H = 640, 768, 1024 and 2048, ndir
+    2 and 1, in bf16 at the decode (B = 32, T' = 251), training (B = 24,
+    T' = 256) and stream-window (B = 32, T = 20) shapes and in fp32 at
+    B = 8, T' = 32, against their plain versions: the forward forms at
+    3e-2 / 1e-4, the bf16 backward at phase 26's 5e-2 + 2^-7·max|b| (on
+    the plain forward's residuals and on its own), the stream form at
+    emit_t 0, C/s and T; each call exactly one launch, and in bf16 a
+    second call the same bits; four planted faults a cell in the
+    operand fragments beyond the bars at every H; the plans;
     the four bf16 forms in 5 alternating rounds of graph replays beside
     cuDNN's GRU or LSTM at the same H (the kernel line's ``H``
     sub-entries);
@@ -314,7 +317,8 @@ any phase fails:
     vs CPU, evaluate (exact launches) and the stream CLI
     from a causal-CMVN checkpoint; uni_gru training with resume, one step
     card vs CPU and its stream CLI, decode CLI and --raw; no layer call
-    on the plain scan (``rnn_cuda.ROUTED``).
+    on the plain scan (``rnn_cuda.ROUTED``); the persistent form's
+    launches exactly ``WIDE_PATH_LAUNCHES``.
     Phases 32-33's walls are printed against a 60 s budget.
 34. the beam's wide form (``phase_beam_widths``: K > 32 or an LM context
     past 8 lanes; a radix-select top-K, its workspace in shared or global
@@ -513,8 +517,11 @@ NOTES = {"dw": "replaces _dw_einsum, an XLA einsum (not a Pallas call); "
                       "decode CLI's --beam 64 --lm run; no PyTorch call "
                       "computes a prefix beam"}
 # the recurrences' "H" sub-entries (phase 32), beside any note above
-WIDE_NOTE = ("H: the kernel at hidden sizes 640, 768, 1024 and 2048 (W "
-             "streamed from global memory at each step), timed in phase 32 "
+WIDE_NOTE = ("H: the kernel at hidden sizes 640, 768, 1024 and 2048 (the "
+             "GRU's forwards and the LSTM's backward the persistent form: "
+             "one cooperative launch over the card, W in its blocks' "
+             "shared memory; the others W streamed from global memory at "
+             "each step), timed in phase 32 "
              "in bf16 (the residual-free form at B = 32, T' = 251, the "
              "training pair at B = 24, T' = 256, the window at B = 32, T = "
              "20, the GRU's forward-only) beside cuDNN at the same H; "
@@ -808,11 +815,30 @@ def rnn_graph_rounds(tag: str, kernels: dict, library: dict,
 
 def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
                    form: str) -> None:
-    """The bf16 cluster kernel's plan of ``cell`` ("gru" or "lstm") at
-    this shape, as the library and the card take it."""
+    """The bf16 kernel's plan of ``cell`` ("gru" or "lstm") at this shape,
+    as the library and the card take it: a cluster plan, or past H = 512
+    for the GRU's forwards and the LSTM's backward the persistent form's
+    (its grid at most the blocks the card holds at once)."""
     from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
 
-    p = getattr(rnn_cuda, f"{cell}_plan")(H, B, ndir, form)
+    p = getattr(rnn_cuda, f"{cell}_plan")(
+        H, B, ndir, form, torch_sms())
+    if isinstance(p, rnn_cuda.PersistPlan):
+        got = rnn_cuda.persist_occupancy(f"{cell}_{form}", H, ndir, B)
+        print(f"[{tag}] {cell} {form} plan at H={H}, B={B}, ndir={ndir}: "
+              f"persistent, {p.blocks} blocks a direction of {p.tiles} unit "
+              f"tiles, {p.warps} warps, {p.resident} of each warp's "
+              f"{-(-p.ksteps // p.warps)} k-steps resident, {p.passes} "
+              f"pass(es) of 32 rows, {p.smem} bytes of shared memory a "
+              f"block, {p.work} bytes of workspace; the card holds "
+              f"{got[4]} blocks at once")
+        check(got[:4] + got[5:] == (p.blocks, p.tiles, p.resident, p.smem,
+                                    p.work),
+              f"{tag}: the library's persistent plan {got} != the "
+              f"plan's {p}")
+        check(got[4] >= ndir * p.blocks, f"{tag}: the card cannot hold "
+              f"the {ndir * p.blocks} blocks of the {form} launch")
+        return
     smem, n = getattr(rnn_cuda, f"{cell}_occupancy")(H, form)
     U = (rnn_cuda.gru_units(H, form) if cell == "gru"
          else rnn_cuda.lstm_units(H))
@@ -828,6 +854,13 @@ def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
     check(smem == p.smem, f"{tag}: the library's shared memory {smem} != "
           f"the plan's {p.smem}")
     check(n >= 1, f"{tag}: the card cannot hold one {form} cluster")
+
+
+def torch_sms() -> int:
+    """The SMs of card 0."""
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def library_stream(cell: str, dev, T: int, B: int, H: int, ndir: int, lens,
@@ -3614,32 +3647,48 @@ WIDE_FP32 = (8, 32)               # (B, T') of the fp32 checks: the FMA
 WIDE_PATH_H = 1024                # phase 33's model.rnn_hidden
 WIDE_DW_H = (1024, 2048)          # dW checked on phase 32's wide LSTM
 WIDE_BUDGET_S = 60.0              # phases 32-33 together
+# phase 33's launches of the persistent form's kernels at H = 1024:
+# uni_gru's evaluate (4 layers), training (24 steps of 4 layers) and its
+# stream CLI's windows; bilstm_deep's training backward (24 steps of 5)
+WIDE_PATH_LAUNCHES = {"gru_fwd": 4, "gru_fwd_train": 96,
+                      "gru_fwd_stream": 124, "lstm_bwd": 120}
 # the kernels phase 32 holds, by cell: (residual-free, training, backward,
 # stream), the kernel line's names
 WIDE_KERNELS = {cell: (f"{cell}_fwd", f"{cell}_fwd_train", f"{cell}_bwd",
                        f"{cell}_fwd_stream") for cell in ("gru", "lstm")}
 
 
-def wide_faults(rc) -> dict:
-    """Phase 32's planted faults, each a wrong layout of the streamed-W
-    operand fragments as a kernel bug would read them: ``ks-ring`` the B
-    fragments one k-step late (an off-by-one in the prefetch ring), and
-    ``neighbour`` a unit block's (forward) or an n-group's (backward)
-    fragments swapped with the next one's (a wrong warp-to-units map).
-    → {name: (form, the faulty layout function)}."""
+def wide_faults(rc, cell: str) -> dict:
+    """Phase 32's planted faults of ``cell``'s wide kernels, each a wrong
+    layout of the B operand's fragments as a kernel bug would read them:
+    ``ks-ring`` the fragments one k-step late (an off-by-one in the
+    prefetch ring, or in a warp's resident and streamed k-steps), and
+    ``neighbour`` one owner's fragments swapped with the next one's (a
+    wrong map of units to warps or blocks): in the persistent form
+    (``persist_fwd_weights`` of the GRU's forwards, ``persist_bwd_weights``
+    of the LSTM's backward) block 0's slice and block 1's; in the
+    streamed-W clusters (``wide_fwd_weights`` of the LSTM's forwards,
+    ``wide_bwd_weights`` of the GRU's backward) a unit block's or an
+    n-group's. → {name: (form, the layout function's name, the faulty
+    layout)}."""
     import torch
-
-    fwd, bwd = rc.wide_fwd_weights, rc.wide_bwd_weights
 
     def swap(t, dim):
         idx = list(range(t.shape[dim]))
         idx[0], idx[1] = 1, 0
         return t.index_select(dim, torch.tensor(idx, device=t.device))
 
-    return {"fwd ks-ring": ("fwd", lambda w: fwd(w).roll(1, dims=2)),
-            "fwd neighbour": ("fwd", lambda w: swap(fwd(w), 1)),
-            "bwd ks-ring": ("bwd", lambda w: bwd(w).roll(1, dims=3)),
-            "bwd neighbour": ("bwd", lambda w: swap(bwd(w), 2))}
+    def faults(attr, ks_dim, owner_dim):
+        f = getattr(rc, attr)
+        return {"ks-ring": (attr, lambda *a: f(*a).roll(1, dims=ks_dim)),
+                "neighbour": (attr, lambda *a: swap(f(*a), owner_dim))}
+
+    fwd = (faults("persist_fwd_weights", 2, 1) if cell == "gru"
+           else faults("wide_fwd_weights", 2, 1))
+    bwd = (faults("persist_bwd_weights", 2, 1) if cell == "lstm"
+           else faults("wide_bwd_weights", 3, 2))
+    return {**{f"fwd {n}": ("fwd", *v) for n, v in fwd.items()},
+            **{f"bwd {n}": ("bwd", *v) for n, v in bwd.items()}}
 
 
 def wide_rows(lens_f, T: int, ndir: int, dev):
@@ -3662,8 +3711,9 @@ def wide_case(rc, dev, rng, cell: str, H: int, ndir: int, cdt, shapes: dict,
     shapes["train"], the stream form at shapes["stream"] (emit_t 0, C/s
     and T, h0 nonzero on the forward rows); each shape (B, T', lengths).
     Each kernel call must launch its kernel exactly once (``counts`` adds
-    them up). → {kernel name: (max abs error, share of its bar), ...} and
-    the inputs under "inputs"."""
+    them up), and in bf16 a second call must give the same bits. →
+    {kernel name: (max abs error, share of its bar), ...} and the inputs
+    under "inputs"."""
     import torch
 
     from chainer_speech_recognition_tpu_torch import _kernels
@@ -3683,6 +3733,9 @@ def wide_case(rc, dev, rng, cell: str, H: int, ndir: int, cdt, shapes: dict,
         check(_kernels.KERNELS[name].launches == before + 1,
               f"{name} H={H}: not one launch a call")
         counts[name] = counts.get(name, 0) + 1
+        if bf16:
+            check(same_bits(res, fn()), f"{name} H={H} ndir={ndir}: two "
+                  "calls differ in their bits")
         return res
 
     def held(name, got, want, gbar: bool = False):
@@ -3787,7 +3840,6 @@ def phase_rnn_widths(dev, rng) -> dict:
     out = {n: {} for names in WIDE_KERNELS.values() for n in names}
     out["dw"] = {}
     counts: dict = {}
-    faults = wide_faults(rc)
     for H in WIDE_H:
         for cell in ("gru", "lstm"):
             G = 3 if cell == "gru" else 4
@@ -3814,8 +3866,7 @@ def phase_rnn_widths(dev, rng) -> dict:
             xs, lo, hi, g, res_p, args_p, want = kept["train"]
             w = kept["w"]
             fres = []
-            for fname, (form, layout) in faults.items():
-                attr = f"wide_{form}_weights"
+            for fname, (form, attr, layout) in wide_faults(rc, cell).items():
                 orig = getattr(rc, attr)
                 setattr(rc, attr, layout)
                 try:
@@ -3841,6 +3892,8 @@ def phase_rnn_widths(dev, rng) -> dict:
                   f"training shape), share of the bar: " + ", ".join(fres))
             for form in ("fwd", "bwd"):
                 print_rnn_plan(cell, "rnn-widths", H, tr[1], 2, form)
+            if cell == "gru":       # the window's forward-only launch
+                print_rnn_plan(cell, "rnn-widths", H, CHECK_B, 1, "fwd")
             if cell == "lstm" and H in WIDE_DW_H:
                 # dW (not a new kernel) on the wide layer's own ys and dxs
                 ys_k, cs_k, gates_k = rc.lstm_scan_train_cuda(
@@ -4018,6 +4071,9 @@ def phase_rnn_wide_path(root, vocab, wavs, audio_s, data, index, dev,
           f"phase 33: a layer call took the plain scan ({calls})")
     check(all(n > 0 for n in out.values()), f"phase 33: a wide kernel not "
           f"launched on the path: {out}")
+    check(all(out[k] == n for k, n in WIDE_PATH_LAUNCHES.items()),
+          f"phase 33: the persistent form's launches {out} are not "
+          f"{WIDE_PATH_LAUNCHES}")
     return out
 
 

@@ -854,9 +854,10 @@ def test_dw_plan_tiles_k_by_whole_wgmma_steps(dev):
     assert uni.tiles == 6 and uni[:3] == (24, 2, 128) and uni.split == 8
 
 
-# the streamed-W form (H > 512): (cell, T, B, H, ndir) — clusters of
-# ⌈H / U⌉ blocks with a short last block (544, 1056), one partial-sum
-# buffer (1792, 2048), B around the 16-row group
+# past H = 512 (the persistent form of the GRU's forwards and the LSTM's
+# backward, the streamed-W clusters of the others): (cell, T, B, H, ndir)
+# — a short last block (544, 1056), one partial-sum buffer (1792, 2048),
+# B around the 16-row group
 WIDE_CASES = [("gru", 9, 3, 544, 2), ("gru", 7, 17, 768, 1),
               ("gru", 5, 16, 2048, 2), ("gru", 40, 5, 1056, 2),
               ("lstm", 9, 3, 640, 2), ("lstm", 7, 17, 1024, 1),
@@ -890,27 +891,34 @@ def _wide_inputs(dev, cell, T, B, H, ndir, dtype, seed):
     return xs, w, f(lo)[:, None], f(hi)[:, None], g, h0
 
 
-def _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, emit, plain):
+def _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, emit, plain,
+                only=None):
     """Every form of ``cell`` (the kernels' wrappers, or ``plain``): ys
     of the residual-free form, the training form's outputs, the backward
     on the plain training forward's residuals, the stream form's (ys,
-    carry) at ``emit``."""
+    carry) at ``emit``; ``only``: that form's outputs alone."""
     sfx = "_plain" if plain else "_cuda"
     train_p = getattr(rc, f"{cell}_scan_train_plain")(xs, w, lo, hi, dtype)
-    if cell == "gru":
-        bwd = (rc.gru_bwd_plain(train_p[1], w, lo, hi,
-                                rc.shift_prev(train_p[0]), g, dtype)
-               if plain else rc.gru_bwd_cuda(train_p[1], w, lo, hi,
-                                             train_p[0], g, dtype))
-    else:
-        bwd = (getattr(rc, f"lstm_bwd{sfx}")(train_p[2], w, lo, hi,
-                                             train_p[1], g, dtype),)
-    return {"fwd": (getattr(rc, f"{cell}_scan{sfx}")(xs, w, lo, hi, dtype),),
-            "train": getattr(rc, f"{cell}_scan_train{sfx}")(xs, w, lo, hi,
-                                                           dtype),
-            "bwd": bwd,
-            "stream": getattr(rc, f"{cell}_scan_stream{sfx}")(
-                xs, w, lo, hi, h0, dtype, emit)}
+
+    def bwd():
+        if cell == "gru":
+            return (rc.gru_bwd_plain(train_p[1], w, lo, hi,
+                                     rc.shift_prev(train_p[0]), g, dtype)
+                    if plain else rc.gru_bwd_cuda(train_p[1], w, lo, hi,
+                                                  train_p[0], g, dtype))
+        return (getattr(rc, f"lstm_bwd{sfx}")(train_p[2], w, lo, hi,
+                                              train_p[1], g, dtype),)
+
+    forms = {"fwd": lambda: (getattr(rc, f"{cell}_scan{sfx}")(
+                 xs, w, lo, hi, dtype),),
+             "train": lambda: getattr(rc, f"{cell}_scan_train{sfx}")(
+                 xs, w, lo, hi, dtype),
+             "bwd": bwd,
+             "stream": lambda: getattr(rc, f"{cell}_scan_stream{sfx}")(
+                 xs, w, lo, hi, h0, dtype, emit)}
+    if only is not None:
+        return forms[only]()
+    return {n: f() for n, f in forms.items()}
 
 
 @pytest.mark.parametrize("cell,T,B,H,ndir", WIDE_CASES)
@@ -950,21 +958,31 @@ def test_wide_kernels_match_plain(dev, cell, T, B, H, ndir, dtype, tol):
 @pytest.mark.parametrize("cell,H", [("gru", 768), ("lstm", 1024),
                                     ("lstm", 2048)])
 def test_wide_planted_faults_exceed_the_bars(dev, cell, H, monkeypatch):
-    """The bf16 bars catch what a streamed-W bug would do: the B fragments
-    one k-step late, and a unit block's (forward) or an n-group's
-    (backward) fragments swapped with the next one's."""
+    """The bf16 bars catch what a bug in the operand fragments would do:
+    the B fragments one k-step late, and one owner's fragments swapped
+    with the next one's: in the persistent form (the GRU's forwards, the
+    LSTM's backward) block 0's slice and block 1's, in the streamed-W
+    clusters (the LSTM's forwards, the GRU's backward) a unit block's or
+    an n-group's."""
     import chainer_speech_recognition_tpu_torch.ops.rnn_cuda as rc
 
     dtype = torch.bfloat16
     xs, w, lo, hi, g, h0 = _wide_inputs(dev, cell, 12, 5, H, 2, dtype, H)
     want = _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, 6, True)
-    fwd, bwd = rc.wide_fwd_weights, rc.wide_bwd_weights
     swap = lambda t, d: t.index_select(d, torch.tensor(
         [1, 0] + list(range(2, t.shape[d])), device=t.device))
-    faults = [("wide_fwd_weights", lambda x: fwd(x).roll(1, dims=2), "train"),
-              ("wide_fwd_weights", lambda x: swap(fwd(x), 1), "train"),
-              ("wide_bwd_weights", lambda x: bwd(x).roll(1, dims=3), "bwd"),
-              ("wide_bwd_weights", lambda x: swap(bwd(x), 2), "bwd")]
+
+    def faults(attr, form, ks_dim, owner_dim):
+        f = getattr(rc, attr)
+        return [(attr, lambda *a: f(*a).roll(1, dims=ks_dim), form),
+                (attr, lambda *a: swap(f(*a), owner_dim), form)]
+
+    if cell == "gru":
+        faults = (faults("persist_fwd_weights", "train", 2, 1)
+                  + faults("wide_bwd_weights", "bwd", 3, 2))
+    else:
+        faults = (faults("wide_fwd_weights", "train", 2, 1)
+                  + faults("persist_bwd_weights", "bwd", 2, 1))
     for attr, layout, form in faults:
         with monkeypatch.context() as m:
             m.setattr(rc, attr, layout)
@@ -975,6 +993,89 @@ def test_wide_planted_faults_exceed_the_bars(dev, cell, H, monkeypatch):
                        if form == "bwd" else 3e-2)
                     for a, b in zip(got, want[form]))
         assert worst > 0, (attr, form)
+
+
+@pytest.mark.parametrize("ndir", [2, 1])
+@pytest.mark.parametrize("B", [1, 33])
+@pytest.mark.parametrize("H", [544, 1024, 2048])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_persist_forms_match_plain(dev, cell, H, B, ndir):
+    """The persistent form (the GRU's three forwards, the LSTM's backward)
+    at a short last block (544), the training width (1024) and the widest
+    (2048: one, two or four tiles a block, streamed k-steps at ndir 2),
+    one row and 33 rows (two passes of 32): every form against its plain
+    version at test_wide_kernels_match_plain's bf16 bars, one launch a
+    call, a second call bitwise the first, and a CUDA graph's replay
+    bitwise the eager call."""
+    import chainer_speech_recognition_tpu_torch.ops.rnn_cuda as rc
+
+    dtype, T = torch.bfloat16, 7
+    xs, w, lo, hi, g, h0 = _wide_inputs(dev, cell, T, B, H, ndir, dtype,
+                                        H + B + ndir)
+    forms = ("fwd", "train", "stream") if cell == "gru" else ("bwd",)
+    names = {"fwd": "gru_fwd", "train": "gru_fwd_train",
+             "stream": "gru_fwd_stream", "bwd": "lstm_bwd"}
+    want = _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, 3, True)
+    for form in forms:
+        fn = lambda form=form: _wide_forms(rc, cell, xs, w, lo, hi, g, h0,
+                                           dtype, 3, False, only=form)
+        before = _kernels.KERNELS[names[form]].launches
+        got = fn()
+        assert _kernels.KERNELS[names[form]].launches == before + 1
+        for a, b in zip(got, want[form]):
+            d = float((a.float() - b.float()).abs().max())
+            bar = (5e-2 + 2 ** -7 * float(b.float().abs().max())
+                   if form == "bwd" else 3e-2)
+            assert d <= bar, (form, d, bar)
+        assert all(torch.equal(a, b) for a, b in zip(got, fn()))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, got))
+
+
+def test_persist_plan_on_card(dev):
+    """For every width past 512 and both direction counts, the library's
+    persistent plan on this card is the wrapper's (``persist_plan`` at the
+    card's SM count), workspace bytes included, and the card holds all of
+    its blocks at once, or (a card of fewer than ndir · H / 32 SMs) both
+    refuse; a launch given another block count raises instead of
+    running."""
+    import chainer_speech_recognition_tpu_torch.ops.rnn_cuda as rc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in rc.PERSIST:
+        for ndir in (1, 2):
+            for H in range(544, rc.MAX_HIDDEN + 1, 32):
+                if sms < ndir * H // 32:      # more tiles than are built
+                    with pytest.raises(ValueError, match="at most"):
+                        rc.persist_plan(name, H, 24, ndir, sms)
+                    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+                        rc.persist_occupancy(name, H, ndir, 24)
+                    continue
+                for B in (1, 24, 33):
+                    p = rc.persist_plan(name, H, B, ndir, sms)
+                    got = rc.persist_occupancy(name, H, ndir, B)
+                    assert got[:4] + got[5:] == (p.blocks, p.tiles,
+                                                 p.resident, p.smem, p.work)
+                assert got[4] >= ndir * p.blocks, (name, H, ndir, got)
+    xs, w, lo, hi, g, h0 = _wide_inputs(dev, "gru", 4, 3, 1024, 2,
+                                        torch.bfloat16, 0)
+    wk, C = rc._gru_launch_args(w, 3, torch.bfloat16, "fwd")
+    ys = torch.empty(4, 6, 1024, device=dev)
+    work = rc._work("gru", "fwd", w, 3, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="csr_gru_fwd"):
+        _kernels.GRU_FWD.launch(xs.data_ptr(), wk.data_ptr(), lo.data_ptr(),
+                                hi.data_ptr(), ys.data_ptr(),
+                                work.data_ptr(), 4, 3, 1024, 2, C + 1, 1,
+                                _kernels.stream_ptr(xs))
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

@@ -32,14 +32,25 @@ def test_plan_fits_every_hidden_size(H, form):
     """For every H the kernels take and B = 1 .. 96: a block's slice of W
     (resident up to H = 512) and its buffers fit the H100's 227 KB a
     block; the cluster has C ≤ 16 blocks (the largest cluster Hopper
-    schedules) of 16 or 32 units each up to H = 512, of the streamed-W
-    form's U = 8·⌈H / 128⌉ above (the last block the rest, a multiple of
-    8), so the units fill n8 tiles; one m16 tile of rows a cluster; the
-    grid holds every row."""
-    U = gru_units(H, form)
+    schedules) of 16 or 32 units each up to H = 512, of the backward's
+    streamed-W form's U = 8·⌈H / 128⌉ above (the last block the rest, a
+    multiple of 8), so the units fill n8 tiles; one m16 tile of rows a
+    cluster; the grid holds every row. The forwards past H = 512 take the
+    persistent form: at most one block an SM of the H100's 132 in all,
+    whole n8 tiles a block covering the H units, passes of 32 rows
+    covering B."""
     for ndir in ((1, 2) if form == "fwd" else (2,)):
         for B in range(1, 97):
             p = gru_plan(H, B, ndir, form)
+            if form == "fwd" and H > RESIDENT_MAX:
+                assert p == rnn_cuda.persist_plan("gru_fwd", H, B, ndir)
+                assert ndir * p.blocks <= rnn_cuda.SMS
+                assert (p.blocks - 1) * p.tiles < H // 8 <= \
+                    p.blocks * p.tiles
+                assert p.smem <= SMEM_LIMIT and p.smem % 16 == 0
+                assert (p.passes - 1) * 32 < B <= p.passes * 32
+                continue
+            U = gru_units(H, form)
             assert 1 <= p.cluster <= 16
             if H <= RESIDENT_MAX:
                 assert p.cluster * U == H and U in (16, UNITS)
@@ -76,11 +87,13 @@ def test_plan_by_hand(H, form, want):
 def test_units_a_block():
     """The backward takes 16 units a block up to H = 256 and 32 above (16
     would need more than 16 blocks a cluster); the forward always 32; past
-    H = 512 both take the streamed-W form's 8·⌈H / 128⌉."""
+    H = 512 the backward takes the streamed-W form's 8·⌈H / 128⌉ and the
+    forward runs no cluster (the persistent form)."""
     for H in HIDDEN:
         if H > RESIDENT_MAX:
-            assert gru_units(H, "fwd") == gru_units(H, "bwd") == \
-                wide_units(H) == 8 * -(-H // 128)
+            assert gru_units(H, "bwd") == wide_units(H) == 8 * -(-H // 128)
+            with pytest.raises(ValueError, match="persistent"):
+                gru_units(H, "fwd")
         else:
             assert gru_units(H, "fwd") == UNITS == 32
             assert gru_units(H, "bwd") == (16 if H <= 256 else 32)

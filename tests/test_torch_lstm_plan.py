@@ -28,15 +28,26 @@ def test_plan_fits_every_hidden_size(H, form):
     """For every H the kernels take and B = 1 .. 96: a block's slice of W
     (resident up to H = 512) and its buffers fit the H100's 227 KB a
     block; the cluster has C ≤ 16 blocks (the largest cluster Hopper
-    schedules) of 32 units each up to H = 512, of the streamed-W form's
-    U = 8·⌈H / 128⌉ above (the last block the rest, a multiple of 8), so
-    the units fill n8 tiles; one m16 tile of rows a cluster; the grid
-    holds every row."""
+    schedules) of 32 units each up to H = 512, of the forward's
+    streamed-W form's U = 8·⌈H / 128⌉ above (the last block the rest, a
+    multiple of 8), so the units fill n8 tiles; one m16 tile of rows a
+    cluster; the grid holds every row. The backward past H = 512 takes the
+    persistent form: at most one block an SM of the H100's 132 in all,
+    whole n8 tiles a block covering the H units, passes of 32 rows
+    covering B."""
     U = lstm_units(H)
     assert U == (UNITS if H <= RESIDENT_MAX else wide_units(H))
     for ndir in ((1, 2) if form == "fwd" else (2,)):
         for B in range(1, 97):
             p = lstm_plan(H, B, ndir, form)
+            if form == "bwd" and H > RESIDENT_MAX:
+                assert p == rnn_cuda.persist_plan("lstm_bwd", H, B, ndir)
+                assert ndir * p.blocks <= rnn_cuda.SMS
+                assert (p.blocks - 1) * p.tiles < H // 8 <= \
+                    p.blocks * p.tiles
+                assert p.smem <= SMEM_LIMIT and p.smem % 16 == 0
+                assert (p.passes - 1) * 32 < B <= p.passes * 32
+                continue
             assert 1 <= p.cluster <= 16
             if H <= RESIDENT_MAX:
                 assert p.cluster * UNITS == H and UNITS % 8 == 0

@@ -15,6 +15,8 @@ tests/test_torch_stream_kernels.py, tests/test_torch_rnn_train.py): the
 forward fp32 1e-5 (stream form 1e-4), bf16 3e-2; gradients fp32 atol 2e-5
 / rtol 1e-4, bf16 5e-2."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -264,29 +266,32 @@ WIDE = [H for H in range(544, rc.MAX_HIDDEN + 1, 32)]
 
 @pytest.mark.parametrize("H", WIDE)
 def test_streamed_geometry(H):
-    """U = 8·⌈H / 128⌉ units a block in C = ⌈H / U⌉ ≤ 16 blocks, the last
+    """The streamed-W clusters (the GRU's backward, the LSTM's forwards):
+    U = 8·⌈H / 128⌉ units a block in C = ⌈H / U⌉ ≤ 16 blocks, the last
     owning a positive multiple of 8; the forward a warp per unit block;
     the backward's reduction extent covers G·U in whole pairs of k-steps;
     shared memory within 227 KB, one partial-sum buffer only where two do
-    not fit."""
+    not fit. The other two (the GRU's forwards, the LSTM's backward) take
+    the persistent form's plan."""
     U = rc.wide_units(H)
-    for cell, G in _G.items():
-        for form in ("fwd", "bwd"):
-            p = getattr(rc, f"{cell}_plan")(H, 17, 2, form)
-            assert p.cluster == -(-H // U) <= 16 and U % 8 == 0
-            assert 0 < H - U * (p.cluster - 1) <= U
-            assert (H - U * (p.cluster - 1)) % 8 == 0
-            assert p.rows == rc.ROWS and p.clusters == 2 * 2
-            assert p.smem <= rc.SMEM_MAX and p.smem % 16 == 0
-        assert 4 * U <= 512                       # forward threads
-        K = rc.wide_bwd_k(H, G)
-        assert K % 32 == 0 and G * U <= K < G * U + 32
-        part = rc.ROWS * -(-H // U) * U * 4
-        bufs = rc.wide_bwd_bufs(H, G)
-        assert rc._tc_smem("bwd", H, G) == rc.ROWS * (2 * K + 16) + \
-            bufs * part
-        assert rc._tc_smem("fwd", H, G) == 2 * rc.ROWS * (2 * H + 16)
-        assert bufs == 2 or rc.ROWS * (2 * K + 16) + 2 * part > rc.SMEM_MAX
+    for cell, form in (("gru", "bwd"), ("lstm", "fwd")):
+        p = getattr(rc, f"{cell}_plan")(H, 17, 2, form)
+        assert p.cluster == -(-H // U) <= 16 and U % 8 == 0
+        assert 0 < H - U * (p.cluster - 1) <= U
+        assert (H - U * (p.cluster - 1)) % 8 == 0
+        assert p.rows == rc.ROWS and p.clusters == 2 * 2
+        assert p.smem <= rc.SMEM_MAX and p.smem % 16 == 0
+    for cell, form in (("gru", "fwd"), ("lstm", "bwd")):
+        assert getattr(rc, f"{cell}_plan")(H, 17, 2, form) == \
+            rc.persist_plan(f"{cell}_{form}", H, 17, 2)
+    assert 4 * U <= 512                       # the LSTM forward's threads
+    K = rc.wide_bwd_k(H, 3)                   # the GRU backward's
+    assert K % 32 == 0 and 3 * U <= K < 3 * U + 32
+    part = rc.ROWS * -(-H // U) * U * 4
+    bufs = rc.wide_bwd_bufs(H, 3)
+    assert rc._tc_smem("bwd", H, 3) == rc.ROWS * (2 * K + 16) + bufs * part
+    assert rc._tc_smem("fwd", H, 4) == 2 * rc.ROWS * (2 * H + 16)
+    assert bufs == 2 or rc.ROWS * (2 * K + 16) + 2 * part > rc.SMEM_MAX
 
 
 @pytest.mark.parametrize("H,want", [
@@ -295,30 +300,272 @@ def test_streamed_geometry(H):
     (1024, (64, 16, 256, 2, 66048, 139520)),
     (2048, (128, 16, 512, 1, 131584, 147712))])
 def test_streamed_plan_by_hand(H, want):
-    """The LSTM's streamed-W geometry worked by hand: (U, C, K, buffers,
-    forward and backward shared memory). H = 1024: 2 × 16 rows of h of
-    2·1024 + 16 bytes forward; backward 16 rows of 2·256 + 16 bytes of gate
-    gradients and 2 × 16 × 1024 fp32 partial sums. H = 2048: two buffers
-    would need 16,640 + 262,144 bytes, so one."""
+    """The streamed-W geometry worked by hand: (U, C, K, buffers, the
+    LSTM forward's shared memory, and a streamed-W backward's with the
+    LSTM's four gates, as the LSTM backward's clusters had it). H = 1024:
+    2 × 16 rows of h of 2·1024 + 16 bytes forward; backward 16 rows of
+    2·256 + 16 bytes of gate gradients and 2 × 16 × 1024 fp32 partial
+    sums. H = 2048: two buffers would need 16,640 + 262,144 bytes, so one.
+    The LSTM's backward past H = 512 is the persistent form."""
     U, C, K, bufs, fwd, bwd = want
     assert (rc.wide_units(H), rc.lstm_plan(H, 24, 2, "fwd").cluster,
             rc.wide_bwd_k(H, 4), rc.wide_bwd_bufs(H, 4)) == (U, C, K, bufs)
     assert rc.lstm_smem("fwd", H) == fwd == 2 * 16 * (2 * H + 16)
-    assert rc.lstm_smem("bwd", H) == bwd == 16 * (2 * K + 16) + \
+    assert rc._tc_smem("bwd", H, 4, U) == bwd == 16 * (2 * K + 16) + \
         bufs * 16 * C * U * 4
-    assert rc.gru_units(H, "fwd") == rc.gru_units(H, "bwd") == U
+    assert rc.gru_units(H, "bwd") == U
+    assert isinstance(rc.lstm_plan(H, 24, 2, "bwd"), rc.PersistPlan)
+
+
+def _warp_steps(w, nw, K, kr):
+    """``csrc/rnn_mma.cuh``'s warp_steps: (first k-step, k-steps, resident
+    k-steps) of warp w."""
+    kb = K * w // nw
+    kw = K * (w + 1) // nw - kb
+    return kb, kw, min(kw, kr)
+
+
+@pytest.mark.parametrize("H", WIDE)
+def test_persist_plan_covers_w(H):
+    """The persistent form at every width, ndir 1 and 2, B ∈ {1, 24, 32,
+    33, 64} and a card of 132 or 114 SMs: at most ``PERSIST_MAX_TILES``
+    unit tiles a block, or the plan raises (114 SMs and ndir 2 past H =
+    1824); each unit is owned by exactly one
+    block (whole n8 tiles, the last block the rest); each warp's k-steps,
+    resident then streamed, cover the K k-steps of W exactly once; shared
+    memory holds the partial sums and the resident k-steps within
+    ``SMEM_MAX``; the grid is at most the co-resident maximum the plan is
+    given (one block an SM); the passes cover B; the workspace holds the
+    counter, two A buffers and the LSTM's carried dc and dh_total."""
+    for name, (cols, warps, per_unit) in rc.PERSIST.items():
+        for ndir in (1, 2):
+            for sms in (rc.SMS, 114):
+                for B in (1, 24, 32, 33, 64):
+                    if -(-H // 8 // (sms // ndir)) > rc.PERSIST_MAX_TILES:
+                        assert sms < ndir * H // 32
+                        with pytest.raises(ValueError, match="at most 4"):
+                            rc.persist_plan(name, H, B, ndir, sms)
+                        continue
+                    p = rc.persist_plan(name, H, B, ndir, sms)
+                    assert 1 <= p.tiles <= rc.PERSIST_MAX_TILES
+                    assert p.blocks * ndir <= sms
+                    owner = [c for c in range(p.blocks)
+                             for _ in range(8 * p.tiles)][:H]
+                    assert len(owner) == H and owner[-1] == p.blocks - 1
+                    K = int(H * per_unit)
+                    assert p.ksteps == K and p.warps == warps
+                    seen = []
+                    for w in range(warps):
+                        kb, kw, kres = _warp_steps(w, warps, K, p.resident)
+                        seen += list(range(kb, kb + kres))        # resident
+                        seen += list(range(kb + kres, kb + kw))   # streamed
+                    assert seen == list(range(K))
+                    nc = cols * p.tiles
+                    assert p.smem == warps * 2 * nc * 512 + \
+                        warps * p.resident * nc * 256
+                    assert p.smem <= rc.SMEM_MAX and p.resident >= 1
+                    # the instantiations that never stream hold it all
+                    if (name, p.tiles) in (("gru_fwd", 1), ("gru_fwd", 2),
+                                           ("lstm_bwd", 1)):
+                        assert p.resident * warps >= K
+                    assert (p.passes - 1) * 32 < B <= p.passes * 32
+                    work = 256 + 2 * ndir * p.passes * 2 * K * 32 * 16
+                    if name == "lstm_bwd":
+                        work += 2 * ndir * B * H * 4
+                    assert p.work == work
+
+
+@pytest.mark.parametrize("name,H,ndir,sms,tiles", [
+    ("gru_fwd", 1824, 2, 114, 4), ("gru_fwd", 1856, 2, 114, None),
+    ("lstm_bwd", 1824, 2, 114, 4), ("lstm_bwd", 2048, 2, 114, None),
+    ("gru_fwd", 2048, 2, 128, 4), ("lstm_bwd", 2048, 2, 127, None),
+    ("gru_fwd", 2048, 1, 64, 4), ("lstm_bwd", 1024, 1, 31, None)])
+def test_persist_plan_refuses_tiles_it_has_no_kernel_for(name, H, ndir, sms,
+                                                          tiles):
+    """The kernels are built for 1 to ``PERSIST_MAX_TILES`` unit tiles a
+    block (``csrc/rnn_mma.cuh``'s kPersistMaxTiles, a ``case`` of each
+    ``with_persist_kernel`` a count, any other count refused there): a card
+    of at least ndir · H / 32 SMs gets a plan within them, a smaller one
+    (an H100 PCIe's 114 SMs at H = 1856–2048 bidirectional) a ValueError,
+    never a plan the launch would run at the wrong stride."""
+    csrc = os.path.join(os.path.dirname(rc.__file__), "..", "csrc")
+    with open(os.path.join(csrc, "rnn_mma.cuh")) as f:
+        assert (f"constexpr int kPersistMaxTiles = {rc.PERSIST_MAX_TILES};"
+                in f.read())
+    for src in ("gru_fwd.cu", "lstm_bwd.cu"):
+        with open(os.path.join(csrc, src)) as f:
+            text = f.read()
+        body = text[text.index("int with_persist_kernel("):]
+        body = body[:body.index("\n}\n")]
+        assert [f"case {n}:" in body for n in range(1, 6)] == \
+            [True] * rc.PERSIST_MAX_TILES + [False]
+        assert "default:\n      return static_cast<int>(" \
+            "cudaErrorInvalidValue);" in body
+    if tiles is None:
+        with pytest.raises(ValueError, match="at most 4"):
+            rc.persist_plan(name, H, 24, ndir, sms)
+    else:
+        assert rc.persist_plan(name, H, 24, ndir, sms).tiles == tiles
+
+
+@pytest.mark.parametrize("name,H,ndir,want", [
+    ("gru_fwd", 1024, 1, (128, 1, 16, 61440)),
+    ("gru_fwd", 1024, 2, (64, 2, 16, 122880)),
+    ("gru_fwd", 2048, 1, (128, 2, 32, 221184)),
+    ("gru_fwd", 2048, 2, (64, 4, 14, 221184)),
+    ("lstm_bwd", 640, 2, (40, 2, 20, 98304)),
+    ("lstm_bwd", 1024, 2, (64, 2, 32, 147456)),
+    ("lstm_bwd", 2048, 2, (64, 4, 24, 229376))])
+def test_persist_plan_by_hand(name, H, ndir, want):
+    """The persistent form's geometry worked by hand on 132 SMs: (blocks a
+    direction, tiles a block, resident k-steps a warp, shared memory).
+    GRU, H = 2048, ndir 1: 256 tiles over 132 blocks → 2 a block, 128
+    blocks; 4 warps × 2 m-tiles × 6 columns × 512 bytes of partial sums and
+    all 32 k-steps of each warp's share, 6 × 256 bytes each: 221,184
+    bytes, the whole slice resident. ndir 2: 4 tiles a block over 64, 14
+    of each warp's 32 k-steps resident. LSTM backward, H = 2048, ndir 2: K
+    = 512, 8 warps × 2 × 4 × 512 = 32,768 bytes of partial sums and 24 of
+    each warp's 64 k-steps of 4 × 256 bytes."""
+    p = rc.persist_plan(name, H, 24, ndir)
+    assert (p.blocks, p.tiles, p.resident, p.smem) == want
+
+
+def _a_words(h, K):
+    """The A buffer of one pass as the kernels write it: each slot (m-tile
+    m, unit tile tg, lane l) stores bf16 pairs (h[16 m + l/4 + 8 i, k],
+    h[.., k + 1]), k = 8 tg + 2 (l % 4), into word 2 i + k / 8 % 2 of
+    lane l's uint4 at k-step k / 16 (``rnn_mma.cuh``'s a_word) → [2][K][32]
+    [4 words][2 values]."""
+    a = np.full((2, K, 32, 4, 2), np.nan, np.float32)
+    for m in range(2):
+        for tg in range(2 * K):
+            for l in range(32):
+                k = 8 * tg + 2 * (l % 4)
+                for i in range(2):
+                    a[m, k // 16, l, 2 * i + k // 8 % 2] = \
+                        h[16 * m + l // 4 + 8 * i, k:k + 2]
+    return a
+
+
+@pytest.mark.parametrize("H", [544, 1024])
+def test_persist_a_buffer_is_the_mma_fragment(H):
+    """Every word of the A buffer is written exactly once, and lane l's
+    uint4 at k-step ks holds the m16n8k16 A fragment the products read, in
+    the order (a0, a2, a1, a3) = rows (l/4, l/4, l/4 + 8, l/4 + 8) at
+    columns 16 ks + 2 (l % 4) + {0, 1} (+ 8 for a2, a3): rows 0-7 of the
+    m-tile in the first 8 bytes, which is all a pass reads where rows 8-15
+    are past B. The LSTM's backward writes its dg at column g·H + j, the
+    same rule with k offset by g·H."""
+    K = H // 16
+    h = np.random.default_rng(H).standard_normal((32, H)).astype(np.float32)
+    a = _a_words(h, K)
+    assert not np.isnan(a).any()
+    for ks in (0, K // 2, K - 1):
+        for l in range(32):
+            r, c = l // 4, 16 * ks + 2 * (l % 4)
+            for m in range(2):
+                for q in range(4):
+                    rr = 16 * m + r + 8 * (q // 2)
+                    cc = c + 8 * (q % 2)
+                    np.testing.assert_array_equal(a[m, ks, l, q],
+                                                  h[rr, cc:cc + 2])
+
+
+@pytest.mark.parametrize("ndir,H,B", [(1, 544, 5), (2, 1056, 3),
+                                      (2, 2048, 2), (1, 2048, 2)])
+def test_persist_fwd_layout_matches_the_kernel_index(ndir, H, B):
+    """``_check_persist_fwd`` at the edges of the plan: one, two and four
+    tiles a block, a short last block (544, 1056)."""
+    _check_persist_fwd(ndir, H, B)
+
+
+def _check_persist_fwd(ndir, H, B):
+    """The persistent GRU forward's fragments: block c's tile i, gate g at
+    k-step ks, lane l's value e is W[d, 16·ks + 2·(l % 4) + e % 2 +
+    8·(e // 2), g·H + 8·(nt·c + i) + l // 4] (zero for units past H) at
+    flat index ((((((d·NB + c)·K + ks)·nt + i)·3 + g)·32 + l)·4 + e),
+    against a hand-written loop at the first and last blocks; the
+    wrapper's launch arguments are these fragments and the plan's NB; the
+    B operand they give, multiplied out, is W's columns of the block."""
+    rng = np.random.default_rng(H + ndir)
+    w = torch.from_numpy(rng.standard_normal((ndir, H, 3 * H)).astype(
+        np.float32))
+    p = rc.persist_plan("gru_fwd", H, B, ndir)
+    wk, C = rc._gru_launch_args(w, B, torch.bfloat16, "fwd")
+    assert C == p.blocks and wk.shape == (ndir, p.blocks, H // 16, p.tiles,
+                                          3, 32, 4)
+    assert torch.equal(wk, rc.persist_fwd_weights(w, p.blocks, p.tiles))
+    flat, wb = wk.reshape(-1), w.to(torch.bfloat16)
+    K, nt = H // 16, p.tiles
+    for c in (0, p.blocks - 1):
+        d, ks = rng.integers(ndir), rng.integers(K)
+        for i in range(nt):
+            for g in range(3):
+                for l in range(32):
+                    for e in range(4):
+                        k = 16 * ks + 2 * (l % 4) + e % 2 + 8 * (e // 2)
+                        u = 8 * (nt * c + i) + l // 4
+                        want = wb[d, k, g * H + u] if u < H else 0
+                        idx = ((((((d * p.blocks + c) * K + ks) * nt + i)
+                                 * 3 + g) * 32 + l) * 4 + e)
+                        assert flat[idx] == want
+    # every element of W once, zeros elsewhere
+    nz = flat[flat != 0]
+    assert torch.equal(nz.sort().values, wb[wb != 0].reshape(-1).sort()
+                       .values)
+
+
+@pytest.mark.parametrize("ndir,H,B", [(2, 640, 3), (1, 1088, 5),
+                                      (2, 2048, 24)])
+def test_persist_bwd_layout_matches_the_kernel_index(ndir, H, B):
+    """``_check_persist_bwd`` at one, two and four tiles a block."""
+    _check_persist_bwd(ndir, H, B)
+
+
+def _check_persist_bwd(ndir, H, B):
+    """The persistent LSTM backward's fragments of block c: B[k, j] = W[d,
+    j, k] over the 4H gate columns k, tile i, lane l, value e at flat index
+    (((((d·NB + c)·K + ks)·nt + i)·32 + l)·4 + e) with K = H / 4, j =
+    8·(nt·c + i) + l // 4 (zero past H) and k = 16·ks + 2·(l % 4) + e % 2
+    + 8·(e // 2), against a hand-written loop; the wrapper's launch
+    arguments are these fragments and the plan's NB."""
+    rng = np.random.default_rng(H + 3)
+    w = torch.from_numpy(rng.standard_normal((ndir, H, 4 * H)).astype(
+        np.float32))
+    p = rc.persist_plan("lstm_bwd", H, B, ndir)
+    wk, C = rc._lstm_launch_args(w, B, torch.bfloat16, "bwd")
+    assert C == p.blocks
+    assert torch.equal(wk, rc.persist_bwd_weights(w, p.blocks, p.tiles))
+    flat, wb = wk.reshape(-1), w.to(torch.bfloat16)
+    K, nt = H // 4, p.tiles
+    assert flat.numel() == ndir * p.blocks * K * nt * 128
+    for c in (0, p.blocks - 1):
+        d, ks = rng.integers(ndir), rng.integers(K)
+        for i in range(nt):
+            for l in range(32):
+                for e in range(4):
+                    k = 16 * ks + 2 * (l % 4) + e % 2 + 8 * (e // 2)
+                    j = 8 * (nt * c + i) + l // 4
+                    want = wb[d, j, k] if j < H else 0
+                    idx = (((((d * p.blocks + c) * K + ks) * nt + i) * 32
+                            + l) * 4 + e)
+                    assert flat[idx] == want
 
 
 @pytest.mark.parametrize("cell,ndir,H", [("lstm", 2, 640), ("gru", 1, 544),
                                          ("gru", 2, 1056),
                                          ("lstm", 1, 768)])
 def test_wide_fwd_layout_matches_the_kernel_index(cell, ndir, H):
-    """The streamed-W forward's fragments: W[d, k, g·H + 8·ub + n] (bf16)
-    at flat index ((((d·H/8 + ub)·H/16 + ks)·G + g)·32 + l)·4 + e with
-    k = 16·ks + 2·(l % 4) + (e % 2) + 8·(e // 2), n = l // 4 (a warp's
-    fragments [ks][g][l], its lane's four values), against a hand-written
-    loop; the wrapper's launch arguments are these fragments and the
-    plan's C."""
+    """The LSTM's streamed-W forward's fragments: W[d, k, g·H + 8·ub + n]
+    (bf16) at flat index ((((d·H/8 + ub)·H/16 + ks)·G + g)·32 + l)·4 + e
+    with k = 16·ks + 2·(l % 4) + (e % 2) + 8·(e // 2), n = l // 4 (a
+    warp's fragments [ks][g][l], its lane's four values), against a
+    hand-written loop; the wrapper's launch arguments are these fragments
+    and the plan's C. The GRU's forward past H = 512 is the persistent
+    form: its fragments (``_check_persist_fwd``)."""
+    if cell == "gru":
+        _check_persist_fwd(ndir, H, 5)
+        return
     G = _G[cell]
     rng = np.random.default_rng(H + ndir)
     w = torch.from_numpy(rng.standard_normal((ndir, H, G * H)).astype(
@@ -344,10 +591,15 @@ def test_wide_fwd_layout_matches_the_kernel_index(cell, ndir, H):
 @pytest.mark.parametrize("cell,H", [("lstm", 640), ("gru", 544),
                                     ("gru", 2048)])
 def test_wide_bwd_layout_matches_the_kernel_index(cell, H):
-    """The streamed-W backward's fragments of block c: B[k, j] =
+    """The GRU's streamed-W backward's fragments of block c: B[k, j] =
     W[d, j, g·H + U·c + u] at k = g·U + u (zero past G·U and for units
     past H) at flat index ((((((d·C + c)·H/32 + ng)·K/16 + ks)·4 + q)·32
-    + l)·4 + e), j = 32·ng + 8·q + l // 4, against a hand-written loop."""
+    + l)·4 + e), j = 32·ng + 8·q + l // 4, against a hand-written loop.
+    The LSTM's backward past H = 512 is the persistent form: its fragments
+    (``_check_persist_bwd``)."""
+    if cell == "lstm":
+        _check_persist_bwd(2, H, 3)
+        return
     G = _G[cell]
     rng = np.random.default_rng(H + 3)
     w = torch.from_numpy(rng.standard_normal((2, H, G * H)).astype(
@@ -377,19 +629,26 @@ def test_wide_bwd_layout_matches_the_kernel_index(cell, H):
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_wide_stream_launch_args(cell):
-    """The stream wrappers' cache keeps the streamed-W fragments past
-    H = 512: the same tensor on a second call, laid out anew after an
-    in-place update."""
+    """The stream wrappers' cache keeps the forward's fragments past
+    H = 512 (the GRU's persistent form's, the LSTM's streamed-W ones): the
+    same tensor on a second call, laid out anew after an in-place
+    update."""
     G = _G[cell]
     w = torch.randn(1, H, G * H)
+    if cell == "gru":
+        p = rc.persist_plan("gru_fwd", H, 32, 1)
+        layout, want_c = (lambda x: rc.persist_fwd_weights(
+            x, p.blocks, p.tiles)), p.blocks
+    else:
+        layout, want_c = rc.wide_fwd_weights, 16
     wk, C = rc.stream_launch_args(cell, w, 32, torch.bfloat16)
-    assert torch.equal(wk, rc.wide_fwd_weights(w)) and C == 16
+    assert torch.equal(wk, layout(w)) and C == want_c
     again, _ = rc.stream_launch_args(cell, w, 32, torch.bfloat16)
     assert again is wk
     with torch.no_grad():
         w.add_(1.0)
     fresh, _ = rc.stream_launch_args(cell, w, 32, torch.bfloat16)
-    assert fresh is not wk and torch.equal(fresh, rc.wide_fwd_weights(w))
+    assert fresh is not wk and torch.equal(fresh, layout(w))
 
 
 def test_kernel_takes_and_refuses():

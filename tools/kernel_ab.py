@@ -3,7 +3,7 @@ one card, on the same inputs, by two yardsticks:
 
     python3 tools/kernel_ab.py OTHER_ROOT [--rounds 9] [--seed 0]
                 [--cases frontend,flash,flash_wide,lstm,gru,stream,ctc,
-                         greedy,dw,beam]
+                         greedy,dw,beam,rnn_wide]
 
 OTHER_ROOT is the root of another checkout of the repo (for example an
 older commit unpacked by ``git archive`` into a git-ignored directory).
@@ -70,6 +70,23 @@ Kernels and shapes (those of ``chip_smoke.py``):
   build's chain (shift_prev, dw_matmul, cat) and cuBLAS's bmm of bf16
   operands laid out beforehand, held to the other build at twice the
   fp32 summation bar;
+* ``rnn_wide``: the recurrences past H = 512 at H = 640, 768, 1024 and
+  2048 (``WIDE_HS``) at chip_smoke phase 32's bf16 shapes: the
+  residual-free forward at the decode shape (B = 32, T' = 251, ndir 2),
+  the training forward and the backward at the training shape (B = 24,
+  T' = 256, ndir 2), the stream window (B = 32, T = 20, emit_t = C/s; the
+  GRU's forward-only, the LSTM's ndir 2), beside cuDNN at the same
+  shapes; each build held to the plain versions (3e-2 forward, phase
+  26's 5e-2 + 2^-7·max|b| backward). The GRU's three forwards and the
+  LSTM's backward (the persistent form in this build) give their speed
+  against the other build; the GRU's backward and the LSTM's forwards
+  (the streamed-W clusters, left as they were) must equal the other
+  build's bit for bit. Graph replays of 3 calls only (no eager kind).
+  ``--hs`` takes a subset of the widths. With ``--other-broken`` the other
+  build is a copy of this one patched to leave out a part of the
+  persistent form's step (its outputs wrong on purpose: they are printed
+  against the plain versions, not gated), so the difference of the times
+  is what that part costs; the kept forms must still equal this build's;
 * the prefix beam's narrow form (chip_smoke phase 23's shape: B = 32,
   T' = 251, V = 64, K = 8, a random dense 3-gram): each build's
   ``beam_chunk_cuda`` through its own wrapper on the same log-probs, LM
@@ -78,7 +95,7 @@ Kernels and shapes (those of ``chip_smoke.py``):
   build's equal to the plain version at phase 23's bars.
 
 ``--cases`` takes a subset of
-``frontend,flash,flash_wide,lstm,gru,stream,ctc,greedy,dw,beam``.
+``frontend,flash,flash_wide,lstm,gru,stream,ctc,greedy,dw,beam,rnn_wide``.
 
 Each case also records whether the two builds' bf16-compute outputs are
 bitwise equal (``bf16 bitwise equal``; dW against the other build's own
@@ -135,8 +152,13 @@ SOURCES = ("frontend_logmel.cu", "attention_fwd.cu", "attention_bwd.cu",
            "lstm_fwd.cu", "lstm_bwd.cu", "gru_fwd.cu", "gru_bwd.cu",
            "ctc.cu", "greedy.cu", "dw.cu", "beam.cu", "library.cu")
 CASES = ("frontend", "flash", "flash_wide", "lstm", "gru", "stream", "ctc",
-         "greedy", "dw", "beam")
+         "greedy", "dw", "beam", "rnn_wide")
 WIDE_DHS = tuple(range(128, 513, 64))   # flash_wide's head widths
+WIDE_HS = (640, 768, 1024, 2048)        # rnn_wide's hidden sizes
+# rnn_wide's forms by cell: those this build redesigned (timed against
+# the other build) and those it kept (bitwise the other build's)
+WIDE_FORMS = {"gru": (("fwd", "fwd_train", "stream"), ("bwd",)),
+              "lstm": (("bwd",), ("fwd", "fwd_train", "stream"))}
 
 
 def build_alone(root: str, tag: str) -> str:
@@ -689,6 +711,123 @@ def stream_case(dev, rng, other, rounds, tag, cell, ndir, B, T, emit, H):
     return res
 
 
+def rnn_wide_case(dev, rng, other, rounds, cell, H, broken=False):
+    """``cell``'s four wide forms at hidden size H (``rnn_wide`` above):
+    both builds against the plain versions (the other build not gated when
+    ``broken``), the kept forms bitwise across the builds, then every form of both builds and cuDNN's in the same
+    alternating rounds of graph replays (3 calls a graph)."""
+    import torch
+
+    from chainer_speech_recognition_tpu_torch.ops import rnn_cuda as rc
+
+    orc = importlib.import_module(f"{other.__name__}.ops.rnn_cuda")
+    mods = {"this": rc, "other": orc}
+    cdt = torch.bfloat16
+    G = 3 if cell == "gru" else 4
+    dec, tr = cs.lstm_cases(rng)           # phase 32's decode and training
+    wT, emit, _, _ = cs.stream_shapes(cs.LSTM_PRESET, 16)
+    sB, s_ndir = cs.CHECK_B, (1 if cell == "gru" else 2)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev)
+    w = f32(2, H, G * H) / np.sqrt(H)
+    sw = w[:s_ndir].contiguous()
+    lo_d, hi_d = cs.wide_rows(dec[3].to(torch.float32), dec[2], 2, dev)
+    xs_d = f32(dec[2], 2 * dec[1], G * H).to(cdt)
+    lo_t, hi_t = cs.wide_rows(tr[3].to(torch.float32), tr[2], 2, dev)
+    xs_t, g = f32(tr[2], 2 * tr[1], G * H).to(cdt), f32(tr[2], 2 * tr[1], H)
+    s_lens = torch.full((sB,), float(wT))
+    s_lens[1], s_lens[2] = emit // 2, 0
+    lo_s, hi_s = cs.wide_rows(s_lens, wT, s_ndir, dev)
+    xs_s = f32(wT, s_ndir * sB, G * H).to(cdt)
+    Cw = H if cell == "gru" else 2 * H
+    h0 = torch.zeros(s_ndir * sB, Cw, device=dev)
+    h0[:sB] = 0.5 * f32(sB, Cw)
+    if cell == "gru":
+        ys_p, gates_p = rc.gru_scan_train_plain(xs_t, w, lo_t, hi_t, cdt)
+        want_b = rc.gru_bwd_plain(gates_p, w, lo_t, hi_t,
+                                  rc.shift_prev(ys_p), g, cdt)
+        bwd_args = {b: (gates_p, w, lo_t, hi_t, bwd_carries(m, ys_p), g)
+                    for b, m in mods.items()}
+        want_t = (ys_p, gates_p)
+    else:
+        ys_p, cs_p, gates_p = rc.lstm_scan_train_plain(xs_t, w, lo_t, hi_t,
+                                                       cdt)
+        want_b = (rc.lstm_bwd_plain(gates_p, w, lo_t, hi_t, cs_p, g, cdt),)
+        bwd_args = {b: (gates_p, w, lo_t, hi_t, cs_p, g) for b in mods}
+        want_t = (ys_p, cs_p, gates_p)
+
+    def forms(b, m):
+        return {
+            "fwd": lambda: getattr(m, f"{cell}_scan_cuda")(
+                xs_d, w, lo_d, hi_d, cdt),
+            "fwd_train": lambda: getattr(m, f"{cell}_scan_train_cuda")(
+                xs_t, w, lo_t, hi_t, cdt),
+            "bwd": lambda: getattr(m, f"{cell}_bwd_cuda")(*bwd_args[b], cdt),
+            "stream": lambda: getattr(m, f"{cell}_scan_stream_cuda")(
+                xs_s, sw, lo_s, hi_s, h0, cdt, emit)}
+
+    plain = {"fwd": getattr(rc, f"{cell}_scan_plain")(xs_d, w, lo_d, hi_d,
+                                                       cdt),
+             "fwd_train": want_t, "bwd": want_b,
+             "stream": getattr(rc, f"{cell}_scan_stream_plain")(
+                 xs_s, sw, lo_s, hi_s, h0, cdt, emit)}
+    res = {"tag": f"rnn_wide {cell} H={H}", "H": H}
+    outs = {}
+    for b, m in mods.items():
+        fns = forms(b, m)
+        outs[b] = {n: fn() for n, fn in fns.items()}
+        torch.cuda.synchronize()
+        shares = {}
+        for n, got in outs[b].items():
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain[n] if isinstance(plain[n], tuple) else (plain[n],)
+            if n == "bwd":
+                shares[n] = max(cs.excess(x, y, 2 ** -7,
+                                          cs.TOL["gru_grad_bf16"],
+                                          scale=y.float().abs().max())
+                                for x, y in zip(got, want))
+            else:
+                shares[n] = max(float((x.float() - y.float()).abs().max())
+                                for x, y in zip(got, want)) / \
+                    cs.TOL["gru_bf16"]
+        res[f"{b} share of the bar"] = shares
+        print(f"[ab] {res['tag']} {b}: share of the bar vs plain " + ", ".join(
+            f"{n} {s:.3f}" for n, s in shares.items()))
+        cs.check((broken and b == "other")
+                 or all(s <= 1 for s in shares.values()),
+                 f"{res['tag']} {b}: breaks the bf16 bar")
+    redesigned, kept = WIDE_FORMS[cell]
+    res["bitwise equal"] = {n: cs.same_bits(outs["this"][n],
+                                            outs["other"][n])
+                            for n in redesigned + kept}
+    print(f"[ab] {res['tag']}: bitwise equal across the builds "
+          f"{res['bitwise equal']}")
+    cs.check(all(res["bitwise equal"][n] for n in kept),
+             f"{res['tag']}: a kept form differs from the other build's")
+    del outs
+    fns = {f"{b} {n}": fn for b, m in mods.items()
+           for n, fn in forms(b, m).items()}
+    lib = cs.library_rnn_fns(cell, dev, dec[2], dec[1], H, dec[3], cdt)
+    libt = cs.library_rnn_fns(cell, dev, tr[2], tr[1], H, tr[3], cdt)
+    fns["cudnn fwd"] = lib["forward"]
+    fns["cudnn fwd_train"] = libt["training forward"]
+    fns["cudnn fwd+bwd"] = libt["forward+backward"]
+    fns["cudnn stream"] = cs.library_stream(cell, dev, wT, sB, H, s_ndir,
+                                            s_lens.long(), h0, cdt)
+    replays = {n: cs.graph_of(fn, calls=3, mode="relaxed")[0]
+               for n, fn in fns.items()}
+    t = cs.alternating_ms(replays, rounds, calls=3)
+    t["cudnn bwd"] = [a - b for a, b in zip(t["cudnn fwd+bwd"],
+                                            t["cudnn fwd_train"])]
+    pairs = [p for n in redesigned + kept
+             for p in ((f"other {n}", f"this {n}"),
+                       (f"this {n}", f"cudnn {n}"))]
+    res.update(report(f"{res['tag']} (decode B={dec[1]} T'={dec[2]}, "
+                      f"training B={tr[1]} T'={tr[2]}, window B={sB} "
+                      f"T={wT} ndir={s_ndir})", {"graph": t}, pairs))
+    return res
+
+
 def ctc_case(dev, rng, other, rounds, tag, seconds, T, lens, L):
     """Rows 9-10 at one shape (``chip_smoke.ctc_cases``): both builds held
     to the plain recursions at phase 7's bars and bitwise to each other
@@ -928,6 +1067,13 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=cs.SEED)
     ap.add_argument("--cases", default=",".join(CASES),
                     help=f"comma-separated subset of {CASES}")
+    ap.add_argument("--hs", default=",".join(map(str, WIDE_HS)),
+                    help="rnn_wide's hidden sizes, a subset of "
+                    f"{WIDE_HS}")
+    ap.add_argument("--other-broken", action="store_true",
+                    help="rnn_wide: the other checkout is patched to leave "
+                    "out part of the persistent step; time it, do not "
+                    "hold its outputs to the plain versions")
     a = ap.parse_args()
     cases = a.cases.split(",")
     try:
@@ -980,6 +1126,10 @@ def main() -> int:
                 m = preset_config(p).model
                 out.append(dw_case(dev, rng, other, a.rounds, f"dw {p}", 256,
                                    cs.TRAIN_B, m.rnn_hidden, m.rnn_type))
+        if "rnn_wide" in cases:
+            out += [rnn_wide_case(dev, rng, other, a.rounds, cell, int(H),
+                                  a.other_broken)
+                    for H in a.hs.split(",") for cell in ("gru", "lstm")]
         if "beam" in cases:
             V = preset_config(cs.PRESET).model.vocab_size
             out.append(beam_case(dev, rng, other, a.rounds, "beam narrow",
