@@ -75,19 +75,18 @@ CTC_BWD = Kernel("csr_ctc_bwd",
                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 # the recurrences' (..., T, B, H, ndir, C, bf16, stream): C is the bf16
 # cluster kernels' blocks a cluster, or the persistent form's blocks a
-# direction (ops/rnn_cuda.lstm_plan, gru_plan), unread under fp32; the
-# GRU's forwards and the LSTM's backward take the persistent form's
-# workspace as their last pointer (ops/rnn_cuda.persist_occupancy's
-# bytes; NULL elsewhere)
+# direction (ops/rnn_cuda.lstm_plan, gru_plan), unread under fp32; each
+# takes the persistent form's workspace as its last pointer
+# (ops/rnn_cuda.persist_occupancy's bytes; NULL elsewhere)
 GRU_FWD = Kernel("csr_gru_fwd", [_P] * 6 + [_I] * 6 + [_P])
 GRU_FWD_TRAIN = Kernel("csr_gru_fwd_train", [_P] * 7 + [_I] * 6 + [_P])
-GRU_BWD = Kernel("csr_gru_bwd", [_P] * 8 + [_I] * 6 + [_P])
-LSTM_FWD = Kernel("csr_lstm_fwd", [_P] * 5 + [_I] * 6 + [_P])
-LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train", [_P] * 7 + [_I] * 6 + [_P])
+GRU_BWD = Kernel("csr_gru_bwd", [_P] * 9 + [_I] * 6 + [_P])
+LSTM_FWD = Kernel("csr_lstm_fwd", [_P] * 6 + [_I] * 6 + [_P])
+LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train", [_P] * 8 + [_I] * 6 + [_P])
 LSTM_BWD = Kernel("csr_lstm_bwd", [_P] * 8 + [_I] * 6 + [_P])
 # the stream forms': (..., T, B, H, ndir, emit_t, C, bf16, stream)
 GRU_FWD_STREAM = Kernel("csr_gru_fwd_stream", [_P] * 8 + [_I] * 7 + [_P])
-LSTM_FWD_STREAM = Kernel("csr_lstm_fwd_stream", [_P] * 7 + [_I] * 7 + [_P])
+LSTM_FWD_STREAM = Kernel("csr_lstm_fwd_stream", [_P] * 8 + [_I] * 7 + [_P])
 FRONTEND_LOGMEL_FRAMES = Kernel("csr_frontend_logmel_frames",
                                 [_P, _I, _I, _P, _P, _I, _P, _P])
 # flash attention: (tensors..., dims, strides) with dims and strides host
@@ -130,7 +129,7 @@ HELPERS = {f"csr_{cell}_{form}_occupancy": [_I, ctypes.POINTER(_I)]
            for cell in ("gru", "lstm") for form in ("fwd", "bwd")}
 HELPERS.update({f"csr_{n}_persist_plan":
                 [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
-                for n in ("gru_fwd", "lstm_bwd")})
+                for n in ("gru_fwd", "lstm_bwd", "lstm_fwd", "gru_bwd")})
 HELPERS["csr_ctc_plan"] = [_I, _I, ctypes.POINTER(_I)]
 HELPERS["csr_dw_plan"] = [_I] * 5 + [ctypes.POINTER(_I)]
 HELPERS["csr_beam_plan"] = [_I] * 5 + [ctypes.POINTER(_I)]

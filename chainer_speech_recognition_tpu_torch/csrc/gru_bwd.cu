@@ -35,11 +35,12 @@
 // streamed bytes (gates, h_prev, g in; dxs, dhn out: ~76 MB a layer at
 // B=24, T=256) would take ~23 us at HBM rate.
 //
-// Three kernels: under bf16 compute (the presets' path) a thread-block
-// cluster runs the step product on the tensor cores, with W resident in
-// its shared memory up to H = 512 (gru_bwd_tc_kernel, below) and streamed
-// from global memory above (gru_bwd_wide_kernel, further below); under
-// fp32 the FMA kernel (gru_bwd_kernel).
+// Three kernels: under bf16 compute (the presets' path) the step product
+// runs on the tensor cores, up to H = 512 on a thread-block cluster with W
+// resident in its shared memory (gru_bwd_tc_kernel, below), above as one
+// persistent cooperative launch over the whole card, A staged in shared
+// memory at each step (gru_bwd_persist_kernel, further below); under fp32
+// the FMA kernel (gru_bwd_kernel).
 //
 // The FMA kernel: the forward's, turned around. Rows are independent
 // given W, so one block owns one row of one direction and walks T
@@ -431,232 +432,296 @@ int launch_tc(const void* gates, const void* wb, const float* lo,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 backward past H = 512, W streamed (rnn_mma.cuh's streamed-W
-// form; csr_gru_bwd under bf16 compute): csrc/lstm_bwd.cu's
-// lstm_bwd_wide_kernel with three gates. A block's pairs (row p / U, unit
-// p % U) go to threads p, p + 512, ...; a step writes their unmasked
-// (dr, dz, dn r), rounded to bf16, into A [16][K] (column g U + u, K =
-// wide_bwd_k(H, 3): 3 U padded to a multiple of 32 with zeros), multiplies
-// it by the block's W columns streamed from wb[d][c] = [H / 32][K / 16][4
-// tiles][32 lanes] uint2 (ops/rnn_cuda.py's wide_bwd_weights), sends each
-// finished n-group's 16 x 32 partial sums of dh to their owners through
-// DSMEM, and after the cluster barrier (dxs and dhn stored between its
-// halves) adds each pair's C sums in source order: dh_prev = dh_total z +
-// the sum. One partial-sum buffer takes a second cluster barrier a step
-// (wide_bwd_bufs).
-template <int kP, int kPairs>
-__global__ void __launch_bounds__(csr_rnn_mma::kWideBwdThreads, 1)
-    gru_bwd_wide_kernel(const __nv_bfloat16* __restrict__ gates,
-                        const uint2* __restrict__ wb,
-                        const float* __restrict__ lo,
-                        const float* __restrict__ hi,
-                        const float* __restrict__ ys,
-                        const float* __restrict__ g,
-                        __nv_bfloat16* __restrict__ dxs,
-                        __nv_bfloat16* __restrict__ dhn, int T, int B,
-                        int H) {
+// The bf16 backward past H = 512: the persistent form (rnn_mma.cuh;
+// csr_gru_bwd under bf16 compute, for ops/rnn_pallas.py's
+// _gru_bwd_kernel), csrc/lstm_bwd.cu's
+// lstm_bwd_persist_kernel with three gate columns, the dhn output and A
+// staged in shared memory.
+//
+// What bounds it on Hopper: a step multiplies every row's (dr, dz, dn r)
+// [3H] by Wᵀ, all of the direction's W (3 H^2 bf16: 6.3 MB at H = 1024,
+// 25.2 MB at 2048), one step after another. The clustered form that came
+// before read W from L2 once per 16-row group at every step on one 16-SM
+// cluster per group and direction, and scattered [16 x H] fp32 partial
+// sums of dh between its blocks over DSMEM, with a second cluster barrier
+// a step where two buffers did not fit (40.1 µs a step at H = 2048 against
+// cuDNN's 27.4). In the persistent form the step is held by the latency
+// of the product's A loads from L2 (PERF.md: with A already in shared
+// memory the LSTM backward's step took 0.60 of its time).
+//
+// What this design does about it: each block owns output units of dh_prev
+// and computes them whole. Block (d, cb) owns nt n8 tiles of units j: the
+// rows W[j, :] over all 3H gate columns, its B operand (B[k][j] = W[j][k],
+// k-major over K = 3H / 16 k-steps), laid out by the wrapper in fragment
+// order, wb[d][cb] = [K][nt][32 lanes] uint2 (ops/rnn_cuda.py's
+// persist_gru_bwd_weights), kept in shared memory as far as it fits (at H
+// = 1024 all 96 KB a block; at 2048 each warp keeps its first kr k-steps
+// and the rest go through its ring at each step). Each warp copies its
+// k-steps of A into shared memory by cp.async as soon as the grid barrier
+// has passed, through a ring of kStages slots (192 KB of A a pass at H =
+// 1024 do not fit beside W), so the product reads A and B from shared
+// memory. The block also owns the same units' gate math: it keeps their
+// carried dh (in registers with one pass, else in the workspace's carried
+// [ndir·B][H], which only the owning thread reads and writes) and
+// publishes their gradients. A step t, for each pass of 32 rows:
+//   1. (t < T - 1) the product: warp w of eight multiplies the pass's
+//      (dr, dz, dn r) of step t + 1 (bf16, where _dot2 rounds it) by the
+//      block's columns over its eighth of the K k-steps, each B fragment
+//      feeding both m16 tiles; the eighths meet in shared memory and a slot
+//      (m-tile, tile, lane) adds them in warp order: the product's share of
+//      dh_prev of its two rows and two units, in a fixed order, with no
+//      atomics and no partial sums between blocks (bitwise repeatable);
+//   2. the slot's dh: its carried value (dh_total z where step t + 1 was
+//      live, else dh_total) plus the product where that step was live, 0
+//      at t = T - 1; its (dr, dz, dn) and dn r from the gates (r, z, n,
+//      hp_n), h_prev (ys one step back) and g; dxs and dhn masked to the
+//      live steps; the unmasked (dr, dz, dn r), rounded to bf16, into the
+//      next A buffer at gate columns g H + j (two buffers, by step parity).
+//      With one pass (B <= 32) the carried dh stays in registers and the
+//      next step's inputs are loaded during the barrier;
+//   3. one grid barrier (rnn_mma.cuh's grid_arrive / grid_wait).
+// Measured on an H100 (tools/kernel_ab.py --cases rnn_wide against copies
+// of this build, PERF.md): 1.93 ms at H = 1024 and 4.68 at 2048 (B = 24,
+// T' = 256), where cuDNN's backward takes 3.09 and 6.58. Staging A takes
+// 0.79 of the time of a copy that reads A from L2 (persist_product in
+// place of staged_product) at H = 1024. The product is 69-79% of a step, the ring's
+// copies 24% at H = 1024 and 31% at 2048 (measured with one-k-step slots;
+// at 2048 8 of each warp's 48 k-steps of W stay resident), the grid
+// barrier 3-4%.
+// The launch is cooperative (rnn_mma.cuh's launch_cooperative): all NB ndir
+// <= sms blocks are resident, or it fails.
+constexpr int kBwdWarps = 8;   // warps a block of the persistent form
+
+// a slot's inputs at one step, for its two rows and two units: the gates
+// (r, z, n, hp_n) as bf16 pairs, h_prev and the gradient of ys, and the
+// rows' lo and hi
+struct GruIn {
+  uint32_t q[2][4];
+  float2 hp[2], g[2];
+  float lo[2], hi[2];
+};
+
+template <int NT>
+__global__ void __launch_bounds__(32 * kBwdWarps, 1)
+    gru_bwd_persist_kernel(const __nv_bfloat16* __restrict__ gates,
+                           const uint2* __restrict__ wb,
+                           const float* __restrict__ lo,
+                           const float* __restrict__ hi,
+                           const float* __restrict__ ys,
+                           const float* __restrict__ g,
+                           __nv_bfloat16* __restrict__ dxs,
+                           __nv_bfloat16* __restrict__ dhn,
+                           unsigned int* counter, uint4* abuf, float* held,
+                           int T, int B, int H, int NB, int kr, int ck) {
   namespace tc = csr_rnn_mma;
-  constexpr int kM = tc::kRows;
+  constexpr int NC = NT, kW = kBwdWarps;
+  static_assert(2 * NT * 32 <= 32 * kW, "one slot a thread");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int C = static_cast<int>(tc::cluster_nctarank());
-  const int c = static_cast<int>(tc::cluster_ctarank());
-  const int U = tc::wide_units(H), K = tc::wide_bwd_k(H, 3), KS = K / 16;
-  const int NG = H / 32;                         // n-groups of the product
-  const int G = 3 * H;
-  const int d = blockIdx.y, group = blockIdx.x / C;
-  const int R = gridDim.y * B;   // ndir * B
-  const int row_b = tc::row_bytes(K);
-  const int bufs = tc::wide_bwd_bufs(H, 3);
-  const uint32_t s_a = tc::smem_addr(smem);      // A [kM][K]
-  const uint32_t s_p = s_a + kM * row_b;         // partials [bufs][C][kM][U]
-  const float* part = reinterpret_cast<const float*>(smem + kM * row_b);
-  const int part_buf = C * kM * U;               // floats a buffer
-  const int tid = threadIdx.x, l = tid & 31, wp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int u0 = c * U, uc = min(U, H - u0);     // this block's units
-
-  tc::zero_shared(smem, kM * row_b);
-  __syncthreads();
-  tc::cluster_sync();   // every peer has started before DSMEM stores
-
-  // this thread's pairs
-  bool has[kPairs], valid[kPairs];
-  int pr[kPairs], pu[kPairs], rr[kPairs];
-  float lo_r[kPairs], hi_r[kPairs], dh[kPairs];
-#pragma unroll
-  for (int q = 0; q < kPairs; ++q) {
-    const int p = tid + q * blockDim.x;
-    pr[q] = p / U;
-    pu[q] = p % U;
-    has[q] = p < kM * U && pu[q] < uc;
-    const int b = group * kM + pr[q];
-    valid[q] = has[q] && b < B;
-    rr[q] = d * B + b;
-    lo_r[q] = valid[q] ? lo[rr[q]] : 0.0f;
-    hi_r[q] = valid[q] ? hi[rr[q]] : 0.0f;   // never live
-    dh[q] = 0.0f;
-  }
-  struct In {
-    float r, z, n, hn, hp, g;
+  float* part = reinterpret_cast<float*>(smem);
+  unsigned char* res = smem + tc::persist_part(NC, kW);
+  const int ndir = gridDim.x / NB;
+  const int d = blockIdx.x / NB, cb = blockIdx.x % NB;
+  const int R = ndir * B, G = 3 * H, K = 3 * H / 16, nt_all = H / 8;
+  const int passes = (B + tc::kPassRows - 1) / tc::kPassRows;
+  // one pass: the slot's carried dh and its next inputs stay in
+  // registers; more: dh goes through the workspace
+  const bool two = B > 16, hold = passes == 1;
+  const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
+  const uint2* slice = wb + int64_t(d * NB + cb) * K * NC * 32;
+  // A of direction d, pass p, m-tile m in buffer buf: [2][ndir]
+  // [passes][2][K][32] uint4
+  auto a_of = [&](int buf, int p, int m) {
+    return abuf + (int64_t((buf * ndir + d) * passes + p) * 2 + m) * K * 32;
   };
-  auto load_in = [&](int t, int q) {
-    In in = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (valid[q]) {
-      const int64_t row = static_cast<int64_t>(t) * R + rr[q];
-      const int j = u0 + pu[q];
-      const __nv_bfloat16* gt = gates + row * 4 * H + j;
-      in.r = __bfloat162float(gt[0]);
-      in.z = __bfloat162float(gt[H]);
-      in.n = __bfloat162float(gt[2 * H]);
-      in.hn = __bfloat162float(gt[3 * H]);
-      in.hp = t > 0 ? ys[(row - R) * H + j] : 0.0f;
-      in.g = g[row * H + j];
+  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC);
+  __syncthreads();
+  const tc::WarpSteps ws = tc::warp_steps(w, kW, K, kr);
+  const int kq = (K + kW - 1) / kW;
+  const int sz = tc::stage_bytes(NC, kr < kq);
+  unsigned char* ring = res + kW * kr * NC * 256 + w * tc::kStages * ck * sz;
+  const int rot = ck > 0 ? (ws.kw + ck - 1) / ck * cb / NB : 0;
+  const uint2* sb = reinterpret_cast<const uint2*>(res) + w * kr * NC * 32 + l;
+  const uint2* gb = slice + int64_t(ws.kb) * NC * 32;
+  // this thread's slot: m-tile m, its tile's lane ls, unit j (the pair j,
+  // j + 1); `own`: a slot of this launch's rows and of a unit below H
+  const int m = tid / (NT * 32), ls = tid & 31, tile = (tid / 32) % NT;
+  const int tg = cb * NT + tile, j = 8 * tg + 2 * (ls & 3);
+  const bool own = tid < (two ? 2 : 1) * NT * 32 && tg < nt_all;
+  auto row_of = [&](int p, int i) {
+    return p * tc::kPassRows + 16 * m + (ls >> 2) + 8 * i;
+  };
+  auto load_in = [&](int t, int p) {
+    GruIn in;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int b = row_of(p, i);
+      const bool valid = b < B;
+      const int64_t rr = int64_t(d) * B + b, row = int64_t(t) * R + rr;
+      const float2 z = make_float2(0.0f, 0.0f);
+      in.lo[i] = valid ? lo[rr] : 0.0f;   // rows past B: never live
+      in.hi[i] = valid ? hi[rr] : 0.0f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        in.q[i][k] = valid ? *reinterpret_cast<const uint32_t*>(
+                                 gates + row * 4 * H + k * H + j)
+                           : 0u;
+      in.hp[i] = valid && t > 0 ? *reinterpret_cast<const float2*>(
+                                      ys + (row - R) * H + j)
+                                : z;
+      in.g[i] = valid ? *reinterpret_cast<const float2*>(g + row * H + j)
+                      : z;
     }
     return in;
   };
-  // this warp's n-groups [ng0, ng1) and their fragments
-  const int ng0 = wp * NG / n_warps, ng1 = (wp + 1) * NG / n_warps;
-  const uint2* wsrc =
-      wb + ((static_cast<int64_t>(d) * C + c) * NG + ng0) * KS * 4 * 32 + l;
-  const uint32_t a_lane = s_a + (l & 15) * row_b + (l >> 4) * 16;
+  GruIn next;
+  float2 dh_reg[2];
+  if (hold && own) next = load_in(T - 1, 0);
+  unsigned int barriers = 0;
 
-  const int n = (ng1 - ng0) * KS;   // this warp's k-steps a step
-  uint2 b[kP][4];                   // its B fragments in flight
-  tc::stream_prefetch<4, kP>(wsrc, n, b);
-  In in[kPairs];
-#pragma unroll
-  for (int q = 0; q < kPairs; ++q) in[q] = load_in(T - 1, q);
-  int cur = 0;
   for (int t = T - 1; t >= 0; --t) {
+    const bool product = t < T - 1;
     const float tf = static_cast<float>(t);
-    // (dr, dz, dn, dn r) of each pair
-    float dgv[kPairs][4], zt[kPairs], dht[kPairs];
-    bool live[kPairs];
-#pragma unroll
-    for (int q = 0; q < kPairs; ++q) {
-      const float dh_total = in[q].g + dh[q];
-      const float dz = dh_total * (in[q].hp - in[q].n) * in[q].z *
-                       (1.0f - in[q].z);
-      const float dn = dh_total * (1.0f - in[q].z) *
-                       (1.0f - in[q].n * in[q].n);
-      dgv[q][0] = dn * in[q].hn * in[q].r * (1.0f - in[q].r);
-      dgv[q][1] = dz;
-      dgv[q][2] = dn;
-      dgv[q][3] = dn * in[q].r;
-      zt[q] = in[q].z;
-      dht[q] = dh_total;
-      live[q] = lo_r[q] <= tf && tf < hi_r[q];
-    }
-    auto store_out = [&]() {
-#pragma unroll
-      for (int q = 0; q < kPairs; ++q) {
-        if (!valid[q]) continue;
-        const int64_t row = static_cast<int64_t>(t) * R + rr[q];
-        const int j = u0 + pu[q];
-        __nv_bfloat16* dx = dxs + row * G + j;
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-          dx[k * H] = __float2bfloat16_rn(live[q] ? dgv[q][k] : 0.0f);
-        dhn[row * H + j] = __float2bfloat16_rn(live[q] ? dgv[q][3] : 0.0f);
+    for (int p = 0; p < passes; ++p) {
+      if (product) {
+        const int buf = (t + 1) & 1;
+        float acc[2][NC][4] = {};
+        tc::staged_product<NC>(acc, a_of(buf, p, 0) + ws.kb * 32,
+                               a_of(buf, p, 1) + ws.kb * 32, two, ws.kw,
+                               ws.kres, rot, sb, NC, gb, ring, ck, sz, l);
+        tc::store_partials<NC>(part, acc, two, w, l);
       }
-    };
-    if (t == 0) {   // dh_prev of step 0 is not needed
-      store_out();
-      break;
-    }
+      __syncthreads();
+      if (own) {
+        const float4 dot = product
+                               ? tc::sum_partials(part, kW, NC, m, tile, ls)
+                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const GruIn in = hold ? next : load_in(t, p);
 #pragma unroll
-    for (int q = 0; q < kPairs; ++q) {
-      in[q] = load_in(t - 1, q);
-      if (has[q]) {
-        __nv_bfloat16* arow = reinterpret_cast<__nv_bfloat16*>(
-            smem + pr[q] * row_b);
-        arow[pu[q]] = __float2bfloat16_rn(dgv[q][0]);
-        arow[U + pu[q]] = __float2bfloat16_rn(dgv[q][1]);
-        arow[2 * U + pu[q]] = __float2bfloat16_rn(dgv[q][3]);
-      }
-    }
-    __syncthreads();
-
-    // the product over this warp's n-groups, fragments kP k-steps ahead
-    {
-      const uint32_t s_dst = s_p + (cur * part_buf + c * kM * U) * 4;
-      float acc[4][4] = {};
-      int ks = 0, ng = ng0;
-      for (int s0 = 0; s0 < n; s0 += kP) {
-#pragma unroll
-        for (int p = 0; p < kP; ++p) {
-          const int st = s0 + p;
-          if (st < n) {
-            uint32_t a[4];
-            tc::ldsm_x4(a_lane + ks * 32, a);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) tc::mma(acc[q], a, b[p][q].x, b[p][q].y);
-            if (st + kP < n)
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                b[p][q] = __ldg(wsrc + ((st + kP) * 4 + q) * 32);
-            if (++ks == KS) {
-              // the n-group's 16 x 32 sums to their owners: tile q holds
-              // units 32 ng + 8 q + 2 (l % 4) + {0, 1} of rows l / 4 (+ 8)
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const int j0 = 32 * ng + 8 * q;
-                const int owner = j0 / U;
-                const int col = j0 - owner * U + 2 * (l & 3);
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-                  tc::st_cluster8(
-                      tc::map_rank(s_dst + (((l >> 2) + 8 * i) * U + col) * 4,
-                                   owner),
-                      acc[q][2 * i], acc[q][2 * i + 1]);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
-              }
-              ks = 0;
-              ++ng;
+        for (int i = 0; i < 2; ++i) {
+          const int b = row_of(p, i);
+          const bool valid = b < B;
+          const int64_t rr = int64_t(d) * B + b;
+          const int64_t row = int64_t(t) * R + rr;
+          const bool live = in.lo[i] <= tf && tf < in.hi[i];
+          const bool live_next =
+              product && in.lo[i] <= tf + 1.0f && tf + 1.0f < in.hi[i];
+          // dh from step t + 1 (0 at t = T - 1): its carried dh_total z
+          // plus the product where that step was live, else its dh_total
+          float2 dh = make_float2(0.0f, 0.0f);
+          if (product && (hold || valid)) {
+            dh = hold ? dh_reg[i]
+                      : *reinterpret_cast<const float2*>(held + rr * H + j);
+            if (live_next) {
+              dh.x += i ? dot.z : dot.x;
+              dh.y += i ? dot.w : dot.y;
             }
+          }
+          float dg[4][2], carried[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float q[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const float2 v = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(&in.q[i][k]));
+              q[k] = e ? v.y : v.x;
+            }
+            const float r = q[0], z = q[1], n = q[2], hn = q[3];
+            const float dht = (e ? in.g[i].y : in.g[i].x) + (e ? dh.y : dh.x);
+            const float hp = e ? in.hp[i].y : in.hp[i].x;
+            const float dz = dht * (hp - n) * z * (1.0f - z);
+            const float dn = dht * (1.0f - z) * (1.0f - n * n);
+            dg[0][e] = dn * hn * r * (1.0f - r);
+            dg[1][e] = dz;
+            dg[2][e] = dn;
+            dg[3][e] = dn * r;
+            carried[e] = live ? dht * z : dht;
+          }
+          if (t > 0) {
+            // (dr, dz, dn r) at gate columns g H + j
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              *tc::a_word(a_of(t & 1, p, m), k * H + j, i, ls) =
+                  tc::bf16x2(dg[k == 2 ? 3 : k][0], dg[k == 2 ? 3 : k][1]);
+            if (hold)
+              dh_reg[i] = make_float2(carried[0], carried[1]);
+            else if (valid)
+              *reinterpret_cast<float2*>(held + rr * H + j) =
+                  make_float2(carried[0], carried[1]);
+          }
+          if (valid) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              *reinterpret_cast<uint32_t*>(dxs + row * G + k * H + j) =
+                  tc::bf16x2(live ? dg[k][0] : 0.0f, live ? dg[k][1] : 0.0f);
+            *reinterpret_cast<uint32_t*>(dhn + row * H + j) =
+                tc::bf16x2(live ? dg[3][0] : 0.0f, live ? dg[3][1] : 0.0f);
           }
         }
       }
-      // the next step's first fragments (W is the same at every step), in
-      // flight over the barrier and the reduction
-      if (t > 1) tc::stream_prefetch<4, kP>(wsrc, n, b);
+      __syncthreads();
     }
-    tc::cluster_arrive();
-    store_out();
-    tc::cluster_wait();
-#pragma unroll
-    for (int q = 0; q < kPairs; ++q) {
-      if (!has[q]) continue;
-      const float* p = part + cur * part_buf + pr[q] * U + pu[q];
-      float dot = p[0];
-      for (int src = 1; src < C; ++src) dot += p[src * kM * U];
-      dh[q] = live[q] ? dht[q] * zt[q] + dot : dht[q];
+    if (t > 0) {
+      tc::grid_arrive(counter);
+      // the next step's inputs, in flight over the wait and the product
+      if (hold && own) next = load_in(t - 1, 0);
+      tc::grid_wait(counter, ++barriers * gridDim.x);
     }
-    if (bufs == 2)
-      cur ^= 1;
-    else
-      tc::cluster_sync();
   }
 }
 
+// the persistent backward's plan at this card's SM count (ops/rnn_cuda.py's
+// persist_plan("gru_bwd", ...))
+csr_rnn_mma::PersistPlan bwd_persist_plan(int H, int ndir, int B,
+                                          int sms) {
+  return csr_rnn_mma::persist_plan(H, ndir, B, sms, 1, 3 * H / 16,
+                                   kBwdWarps, 1, true);
+}
 
-int launch_wide(const void* gates, const void* wb, const float* lo,
-                const float* hi, const float* ys, const float* g, void* dxs,
-                void* dhn, int T, int B, int H, int ndir, int C,
-                cudaStream_t stream) {
+// the persistent kernel of nt tiles a block; none past kPersistMaxTiles
+template <typename Fn>
+int with_persist_kernel(int tiles, Fn&& fn) {
+  static_assert(csr_rnn_mma::kPersistMaxTiles == 4, "a kernel a tile count");
+  switch (tiles) {
+    case 1:
+      return fn(gru_bwd_persist_kernel<1>);
+    case 2:
+      return fn(gru_bwd_persist_kernel<2>);
+    case 3:
+      return fn(gru_bwd_persist_kernel<3>);
+    case 4:
+      return fn(gru_bwd_persist_kernel<4>);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// C: the blocks a direction; work: the workspace of the plan's bytes
+// (rnn_mma.cuh's PersistPlan)
+int launch_persist(const void* gates, const void* wb, const float* lo,
+                   const float* hi, const float* ys, const float* g,
+                   void* dxs, void* dhn, void* work, int T, int B, int H,
+                   int ndir, int C, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
-  if (C != tc::wide_cluster(H)) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kP = tc::wide_prefetch(tc::kWideBwdThreads);
-  auto kernel = tc::wide_pairs(H) == 2 ? gru_bwd_wide_kernel<kP, 2>
-                                       : gru_bwd_wide_kernel<kP, 4>;
-  return tc::launch_clusters(
-      kernel, C, (B + tc::kRows - 1) / tc::kRows, ndir, tc::kWideBwdThreads,
-      tc::wide_bwd_smem(H, 3), stream,
-      static_cast<const __nv_bfloat16*>(gates),
-      static_cast<const uint2*>(wb), lo, hi, ys, g,
-      static_cast<__nv_bfloat16*>(dxs), static_cast<__nv_bfloat16*>(dhn), T,
-      B, H);
+  int sms = 0;
+  const cudaError_t e = tc::device_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const tc::PersistPlan p = bwd_persist_plan(H, ndir, B, sms);
+  if (!p.ok || C != p.blocks || work == nullptr || p.resident < 1 ||
+      p.chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  char* base = static_cast<char*>(work);
+  unsigned int* counter = reinterpret_cast<unsigned int*>(base);
+  uint4* abuf = reinterpret_cast<uint4*>(base + 256);
+  float* held = reinterpret_cast<float*>(base + p.held);
+  return with_persist_kernel(p.tiles, [&](auto kernel) {
+    return tc::launch_cooperative(
+        kernel, p.blocks * ndir, 32 * kBwdWarps, p.smem, stream, counter,
+        static_cast<const __nv_bfloat16*>(gates),
+        static_cast<const uint2*>(wb), lo, hi, ys, g,
+        static_cast<__nv_bfloat16*>(dxs), static_cast<__nv_bfloat16*>(dhn),
+        counter, abuf, held, T, B, H, p.blocks, p.resident, p.chunk);
+  });
 }
 
 }  // namespace
@@ -665,23 +730,24 @@ int launch_wide(const void* gates, const void* wb, const float* lo,
 // weights all fp32 (the FMA kernel: wt [ndir, 3H, H], W transposed) or,
 // when bf16 != 0, all bf16 (the cluster kernel: wb [ndir, C, H, 3, H/C],
 // C = H / gru_bwd_units(H) blocks a cluster, ops/rnn_cuda.py's gru_plan;
-// past H = 512 the streamed-W fragments [ndir, C, H/32, K/16, 4, 32, 4],
-// C = wide_cluster(H), rnn_cuda.wide_bwd_weights; unread under fp32);
-// lo/hi [ndir*B], ys (the carries; h_prev is read one step back) and g
-// [T, ndir*B, H] fp32. Requires 32 <= H <= 2048, H % 32 == 0, T >= 1,
-// B >= 1, ndir 1 or 2 (the wrapper checks).
+// past H = 512 the persistent form's fragments [ndir, C, 3H/16, nt, 32,
+// 4], C its blocks a direction, rnn_cuda.persist_gru_bwd_weights; unread
+// under fp32); lo/hi [ndir*B], ys (the carries; h_prev is read one step
+// back) and g [T, ndir*B, H] fp32; work the persistent form's workspace
+// (csr_gru_bwd_persist_plan's bytes; unread elsewhere). Requires 32 <= H
+// <= 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_gru_bwd(const void* gates, const void* wt, const float* lo,
                         const float* hi, const float* ys, const float* g,
-                        void* dxs, void* dhn, int T, int B, int H, int ndir,
-                        int C, int bf16, cudaStream_t stream) {
+                        void* dxs, void* dhn, void* work, int T, int B, int H,
+                        int ndir, int C, int bf16, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (ndir != 1 && ndir != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (!bf16)
     return launch_fp32(gates, wt, lo, hi, ys, g, dxs, dhn, T, B, H, ndir,
                        stream);
   if (H > tc::kResidentMax)
-    return launch_wide(gates, wt, lo, hi, ys, g, dxs, dhn, T, B, H, ndir, C,
-                       stream);
+    return launch_persist(gates, wt, lo, hi, ys, g, dxs, dhn, work, T, B, H,
+                          ndir, C, stream);
   if (C * tc::gru_bwd_units(H) != H)
     return static_cast<int>(cudaErrorInvalidValue);
   if (tc::gru_bwd_units(H) == 16)
@@ -691,24 +757,46 @@ CSR_API int csr_gru_bwd(const void* gates, const void* wt, const float* lo,
                                H, ndir, C, stream);
 }
 
-// The cluster backward's plan as the card takes it: out[0] = its shared
-// memory bytes at hidden size H (C = H / gru_bwd_units(H) blocks), out[1]
-// = how many of its clusters the card holds at once
-// (cudaOccupancyMaxActiveClusters; 0: it cannot launch).
+// The cluster backward's plan as the card takes it (H <= 512): out[0] =
+// its shared memory bytes at hidden size H (C = H / gru_bwd_units(H)
+// blocks), out[1] = how many of its clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot launch). Past H = 512 see
+// csr_gru_bwd_persist_plan.
 CSR_API int csr_gru_bwd_occupancy(int H, int* out) {
   namespace tc = csr_rnn_mma;
-  if (H > tc::kResidentMax) {
-    out[0] = tc::wide_bwd_smem(H, 3);
-    constexpr int kP = tc::wide_prefetch(tc::kWideBwdThreads);
-    auto kernel = tc::wide_pairs(H) == 2 ? gru_bwd_wide_kernel<kP, 2>
-                                         : gru_bwd_wide_kernel<kP, 4>;
-    return tc::max_clusters(kernel, tc::wide_cluster(H), tc::kWideBwdThreads,
-                            out[0], out + 1);
-  }
+  if (H > tc::kResidentMax) return static_cast<int>(cudaErrorInvalidValue);
   const int U = tc::gru_bwd_units(H);
   out[0] = tc::bwd_smem(H, 3, U);
   return U == 16 ? tc::max_clusters(gru_bwd_tc_kernel<16>, H / U,
                                     tc::kRows * U, out[0], out + 1)
                  : tc::max_clusters(gru_bwd_tc_kernel<tc::kUnits>, H / U,
                                     tc::kRows * U, out[0], out + 1);
+}
+
+// The persistent backward's plan as this card takes it at hidden size H >
+// 512, ndir directions and B rows a direction: out = (blocks a direction,
+// tiles a block, resident k-steps a warp, shared memory bytes a block,
+// blocks the card holds at once, workspace bytes, k-steps a slot of the
+// staged ring). cudaErrorInvalidValue where the card has too few SMs for
+// the built tile counts (out filled all the same).
+CSR_API int csr_gru_bwd_persist_plan(int H, int ndir, int B,
+                                     long long* out) {
+  namespace tc = csr_rnn_mma;
+  int sms = 0;
+  cudaError_t e = tc::device_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const tc::PersistPlan p = bwd_persist_plan(H, ndir, B, sms);
+  out[0] = p.blocks;
+  out[1] = p.tiles;
+  out[2] = p.resident;
+  out[3] = p.smem;
+  out[4] = 0;
+  out[5] = p.work;
+  out[6] = p.chunk;
+  return with_persist_kernel(p.tiles, [&](auto kernel) {
+    int n = 0;
+    e = tc::coresident_blocks(kernel, 32 * kBwdWarps, p.smem, &n);
+    out[4] = n;
+    return static_cast<int>(e);
+  });
 }

@@ -753,7 +753,7 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
 csr_rnn_mma::PersistPlan fwd_persist_plan(int H, int ndir, int B,
                                           int sms) {
   return csr_rnn_mma::persist_plan(H, ndir, B, sms, 3, H / 16, kFwdWarps,
-                                   false);
+                                   0);
 }
 
 // the persistent kernel of nt tiles a block (P k-steps of loads in flight
@@ -863,8 +863,9 @@ CSR_API int csr_gru_fwd_occupancy(int H, int* out) {
 // 512, ndir directions and B rows a direction: out = (blocks a direction,
 // tiles a block, resident k-steps a warp, shared memory bytes a block,
 // blocks the card holds at once: cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// times the SMs, workspace bytes). cudaErrorInvalidValue where the card
-// has too few SMs for the built tile counts (out filled all the same).
+// times the SMs, workspace bytes, k-steps a slot of a staged ring: 0, A
+// is read from L2). cudaErrorInvalidValue where the card has too few SMs
+// for the built tile counts (out filled all the same).
 CSR_API int csr_gru_fwd_persist_plan(int H, int ndir, int B,
                                      long long* out) {
   namespace tc = csr_rnn_mma;
@@ -878,6 +879,7 @@ CSR_API int csr_gru_fwd_persist_plan(int H, int ndir, int B,
   out[3] = p.smem;
   out[4] = 0;
   out[5] = p.work;
+  out[6] = p.chunk;
   return with_persist_kernel<true, false>(p.tiles, [&](auto kernel) {
     int n = 0;
     e = tc::coresident_blocks(kernel, 32 * kFwdWarps, p.smem, &n);

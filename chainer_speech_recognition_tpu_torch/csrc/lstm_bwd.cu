@@ -653,7 +653,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 1)
 csr_rnn_mma::PersistPlan bwd_persist_plan(int H, int ndir, int B,
                                           int sms) {
   return csr_rnn_mma::persist_plan(H, ndir, B, sms, 1, H / 4, kBwdWarps,
-                                   true);
+                                   2);
 }
 
 // the persistent kernel of nt tiles a block (the slice may not fit shared
@@ -753,9 +753,9 @@ CSR_API int csr_lstm_bwd_occupancy(int H, int* out) {
 // The persistent backward's plan as this card takes it at hidden size H >
 // 512, ndir directions and B rows a direction: out = (blocks a direction,
 // tiles a block, resident k-steps a warp, shared memory bytes a block,
-// blocks the card holds at once, workspace bytes). cudaErrorInvalidValue
-// where the card has too few SMs for the built tile counts (out filled all
-// the same).
+// blocks the card holds at once, workspace bytes, k-steps a slot of a
+// staged ring: 0, A is read from L2). cudaErrorInvalidValue where the card
+// has too few SMs for the built tile counts (out filled all the same).
 CSR_API int csr_lstm_bwd_persist_plan(int H, int ndir, int B,
                                       long long* out) {
   namespace tc = csr_rnn_mma;
@@ -769,6 +769,7 @@ CSR_API int csr_lstm_bwd_persist_plan(int H, int ndir, int B,
   out[3] = p.smem;
   out[4] = 0;
   out[5] = p.work;
+  out[6] = p.chunk;
   return with_persist_kernel(p, [&](auto kernel) {
     int n = 0;
     e = tc::coresident_blocks(kernel, 32 * kBwdWarps, p.smem, &n);

@@ -27,13 +27,14 @@
 // form's h0 seeds the fp32 registers, its compute-dtype rounding the shared
 // copy of h that the first product reads).
 //
-// Three kernels. The bf16 forms, all three (the presets' path), run on a
-// thread-block cluster with the step product on the tensor cores: up to
-// H = 512 with W resident in the cluster's shared memory
+// Three kernels. The bf16 forms, all three (the presets' path), run the
+// step product on the tensor cores: up to H = 512 on a thread-block
+// cluster with W resident in the cluster's shared memory
 // (lstm_fwd_tc_kernel, below; one template over kResiduals and kStream),
-// above with W streamed from global memory at each step
-// (lstm_fwd_wide_kernel, further below). The fp32 forms run the FMA kernel
-// (lstm_fwd_kernel, one template over kResiduals and kStream).
+// above as one persistent cooperative launch over the whole card, W
+// spread over its blocks' shared memory and A staged there at each step
+// (lstm_fwd_persist_kernel, further below). The fp32 forms run the FMA
+// kernel (lstm_fwd_kernel, one template over kResiduals and kStream).
 //
 // What bounds it on Hopper: the sequential dependency over T. Each step is
 // a [rows x H] x [H x 4H] product that needs all of the direction's W
@@ -492,235 +493,371 @@ int launch_tc(const void* xs, const void* wt, const float* lo,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 forward past H = 512, W streamed (rnn_mma.cuh's streamed-W form;
-// the same three entries under bf16 compute).
+// The bf16 forward past H = 512: the persistent form (rnn_mma.cuh; the same
+// three entries under bf16 compute, for ops/rnn_pallas.py's
+// _lstm_fwd_kernel in both its forms and _lstm_stream_kernel),
+// csrc/gru_fwd.cu's gru_fwd_persist_kernel with four gates, a cell state
+// and A staged in shared memory.
 //
-// Grid and clusters as lstm_fwd_tc_kernel's, with C = wide_cluster(H)
-// blocks of U = wide_units(H) units and 4 U threads: warp w of block c owns
-// the 8 units of unit block ub = U c / 8 + w (none past H) with all four
-// gates, over the whole reduction, so no partial sums cross warps. Its
-// B fragments come from wf[d][ub] = [H / 16 k-steps][4 gates][32 lanes]
-// uint2 (ops/rnn_cuda.py's wide_fwd_weights), read from global memory at
-// every step, kP k-steps ahead of the mma.sync products; A (the group's
-// 16 rows of bf16 h) is double-buffered in shared memory as in the
-// resident form. Each lane keeps the pairs its accumulators hold: rows
-// l / 4 and l / 4 + 8, units 8 ub + 2 (l % 4) + {0, 1} (fp32 h and c in
-// registers), runs their gate math straight from the accumulators, writes
-// their bf16 h into the next A buffer, and the block pushes its columns to
-// every peer over DSMEM (push_columns); one cluster barrier a step, the
-// step's global stores between its arrive and its wait. The stream form
-// fills A[0] with bf16(h0) (fill_h0) and seeds the lanes' h and c from
-// h0, as the resident form does.
-template <bool kResiduals, bool kStream, int kP>
-__global__ void __launch_bounds__(csr_rnn_mma::wide_max_threads(kP), 1)
-    lstm_fwd_wide_kernel(const __nv_bfloat16* __restrict__ xs,
-                         const uint2* __restrict__ wf,
-                         const float* __restrict__ lo,
-                         const float* __restrict__ hi,
-                         const float* __restrict__ h0, float* __restrict__ ys,
-                         float* __restrict__ cs,
-                         __nv_bfloat16* __restrict__ gates,
-                         float* __restrict__ carry, int T, int B, int H,
-                         int emit_t) {
+// What bounds it on Hopper: a step multiplies every row of a direction by
+// all of its W (4 H^2 bf16: 8.4 MB at H = 1024, 33.6 MB at 2048), and the
+// T steps run one after another. The clustered form that came before read
+// W from L2 once per 16-row group at every step, on the 16 SMs of one
+// cluster per group and direction (twice a step at B = 24 or 32, at most
+// 64 of the 132 SMs reading), its warps each owning one unit block over
+// the whole reduction (14.5 µs a training step at H = 1024 against cuDNN's
+// 10.6). In the persistent form the step is held by the latency of the
+// product's loads of A from L2, which every block reads whole (PERF.md, PR
+// 23: with A already in shared memory the GRU forward's step took 0.65-0.86
+// of its time, with half the A bytes 0.96-1.01).
+//
+// What this design does about it: W is spread over the whole card and read
+// once a step for all rows, and each warp copies its k-steps of A into
+// shared memory by cp.async as soon as the grid barrier has passed, all of
+// them in flight at once (a ring of kStages slots, the whole of the warp's
+// A where it fits beside W: up to H = 1024 at ndir 2), so the product reads
+// A and B from shared memory. Block (d, cb) of the NB ndir blocks owns nt
+// n8 tiles of units, tiles [nt cb, nt cb + nt), with their i, f, o and u
+// columns (nc = 4 nt B columns), so the gate math and c stay in the block;
+// its slice of W, wf[d][cb] = [K = H / 16][nc][32 lanes] uint2 in mma.sync
+// fragment order (ops/rnn_cuda.py's persist_lstm_fwd_weights), is copied
+// into shared memory once a launch (the first kr k-steps of each warp's
+// range where the whole slice does not fit beside the ring: the rest go
+// through the ring at each step). A step, for each pass of 32 rows (B > 32
+// takes more passes, B <= 16 one m16 tile):
+//   1. the product: warp w of four multiplies the pass's rows of h (bf16,
+//      where _dot2 rounds it) by the block's columns over its quarter of
+//      the K k-steps, each B fragment feeding both m16 tiles; at nt = 4 (16
+//      columns, 128 accumulators a thread) in two halves of 8 columns, each
+//      half staging A anew, so the accumulators fit the registers;
+//   2. the quarters meet in shared memory; a slot (m-tile, tile, lane)
+//      adds them in warp order (no atomics: bitwise repeatable) and runs
+//      the gate math of its two rows and two units. With one pass and one
+//      slot a thread (B <= 32, nt <= 2) the slot keeps its fp32 h and c in
+//      registers and its xs, lo and hi for the next step are loaded during
+//      the barrier; otherwise h_prev is read back from ys[t - 1] (or h0 /
+//      0), c from the workspace's carried [ndir·B][H] (written by the same
+//      slot the step before), and xs at the step;
+//   3. the new h, rounded to bf16, goes into the next step's A buffer in
+//      global memory (two buffers, by step parity), then one grid barrier
+//      (rnn_mma.cuh's grid_arrive / grid_wait).
+// Measured on an H100 (tools/kernel_ab.py --cases rnn_wide against copies
+// of this build, PERF.md): the training forward (B = 24, T' = 256) takes
+// 1.90 ms at H = 1024 and 7.90 at 2048, where cuDNN takes 2.60 and 8.51.
+// Staging A takes 0.80 of the time of a copy that reads A from L2
+// (persist_product in place of staged_product) at H = 1024. The product is 54-79% of a step,
+// the ring's copies 3-16% at H = 1024 and 33-36% at 2048 (measured with
+// one-k-step slots; most of them the streamed W's: 4 of each warp's 32
+// k-steps stay resident), the grid barrier 3-8%.
+// At t = 0 the product of h_0 = 0 is skipped (it is +0 exactly); the
+// stream form (kStream) first writes bf16(h0) of its units into A[0] and
+// passes one more barrier, seeds h and c from h0's h||c and writes carry =
+// h||c after step emit_t - 1 (h0 at entry when emit_t == 0). The three
+// forms share the product and the gate math, so their ys are equal (the
+// stream form's at h0 = 0). The launch is cooperative (rnn_mma.cuh's
+// launch_cooperative): all NB ndir <= sms blocks are resident, or it
+// fails.
+constexpr int kFwdWarps = 4;    // warps a block of the persistent form
+constexpr int kFwdCols = 12;    // columns a product at most (nt = 4: halves)
+
+// a slot's inputs at one step: xs of its two rows (the bf16 pairs of its
+// two units, gates i, f, o, u) and the rows' lo and hi
+struct LstmIn {
+  uint32_t x[2][4];
+  float lo[2], hi[2];
+};
+
+template <int NT, bool kResiduals, bool kStream>
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+    lstm_fwd_persist_kernel(const __nv_bfloat16* __restrict__ xs,
+                            const uint2* __restrict__ wf,
+                            const float* __restrict__ lo,
+                            const float* __restrict__ hi,
+                            const float* __restrict__ h0,
+                            float* __restrict__ ys, float* __restrict__ cs,
+                            __nv_bfloat16* __restrict__ gates,
+                            float* __restrict__ carry, unsigned int* counter,
+                            uint4* abuf, float* held, int T, int B, int H,
+                            int NB, int kr, int ck, int emit_t) {
   namespace tc = csr_rnn_mma;
-  constexpr int kM = tc::kRows;
+  constexpr int NC = 4 * NT, kW = kFwdWarps;
+  constexpr int kHalves = (NC + kFwdCols - 1) / kFwdCols;
+  constexpr int NCH = NC / kHalves;   // columns a product
+  // slots (m-tile, tile, lane) a thread, and whether one pass of one slot
+  // a thread can keep the slot's h, c and next inputs in registers
+  constexpr int kSlots = (2 * NT * 32 + 32 * kW - 1) / (32 * kW);
+  constexpr bool kCanHold = kSlots == 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int C = static_cast<int>(tc::cluster_nctarank());
-  const int c = static_cast<int>(tc::cluster_ctarank());
-  const int U = tc::wide_units(H), K = H / 16;
-  const int d = blockIdx.y, group = blockIdx.x / C;
-  const int R = gridDim.y * B;
-  const int row_b = tc::row_bytes(H);
-  const uint32_t s_a = tc::smem_addr(smem);    // A[2][kM]
-  const uint32_t a_bytes = kM * row_b;
+  float* part = reinterpret_cast<float*>(smem);
+  unsigned char* res = smem + tc::persist_part(NC, kW);
+  const int ndir = gridDim.x / NB;
+  const int d = blockIdx.x / NB, cb = blockIdx.x % NB;
+  const int R = ndir * B, G = 4 * H, K = H / 16, nt_all = H / 8;
+  const int passes = (B + tc::kPassRows - 1) / tc::kPassRows;
+  const bool two = B > 16, hold = kCanHold && passes == 1;
   const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
-  const int u0 = c * U, uc = min(U, H - u0);   // this block's units
-  const bool active = 8 * w < uc;              // this warp's unit block
-  const int j = u0 + 8 * w + 2 * (l & 3);      // this lane's units j, j + 1
-
-  // A[0] = h_0: 0, or the stream form's bf16(h0), the h half of h0's rows
-  if (kStream)
-    tc::fill_h0(smem, h0 + (static_cast<int64_t>(d) * B + group * kM) * 2 * H,
-                2 * H, B - group * kM, H);
-  else
-    tc::zero_shared(smem, a_bytes);
+  const uint2* slice = wf + int64_t(d * NB + cb) * K * NC * 32;
+  // A of direction d, pass p, m-tile m in buffer buf: [2][ndir][passes][2]
+  // [K][32] uint4
+  auto a_of = [&](int buf, int p, int m) {
+    return abuf + (int64_t((buf * ndir + d) * passes + p) * 2 + m) * K * 32;
+  };
+  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC);
   __syncthreads();
-  tc::cluster_sync();   // every peer has started before DSMEM stores
+  const tc::WarpSteps ws = tc::warp_steps(w, kW, K, kr);
+  const int kq = (K + kW - 1) / kW;
+  const int sz = tc::stage_bytes(NCH, kr < kq);
+  unsigned char* ring = res + kW * kr * NC * 256 + w * tc::kStages * ck * sz;
+  const int rot = ck > 0 ? (ws.kw + ck - 1) / ck * cb / NB : 0;
+  const uint2* sb = reinterpret_cast<const uint2*>(res) + w * kr * NC * 32 + l;
+  const uint2* gb = slice + int64_t(ws.kb) * NC * 32;
+  const int nslots = (two ? 2 : 1) * NT * 32;
+  unsigned int barriers = 0;
 
-  // this lane's rows i = 0, 1: l / 4 and l / 4 + 8 of the group
-  bool valid[2];
-  int rr[2];
-  float lo_r[2], hi_r[2], h[2][2] = {}, cv[2][2] = {};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int b = group * kM + (l >> 2) + 8 * i;
-    valid[i] = active && b < B;
-    rr[i] = d * B + b;
-    lo_r[i] = valid[i] ? lo[rr[i]] : 0.0f;
-    hi_r[i] = valid[i] ? hi[rr[i]] : 0.0f;   // never live
-    if (kStream && valid[i]) {
-      const float* src = h0 + static_cast<int64_t>(rr[i]) * 2 * H + j;
-      h[i][0] = src[0];
-      h[i][1] = src[1];
-      cv[i][0] = src[H];
-      cv[i][1] = src[H + 1];
-      if (emit_t == 0) {
-        float* dst = carry + static_cast<int64_t>(rr[i]) * 2 * H + j;
-        *reinterpret_cast<float2*>(dst) = make_float2(h[i][0], h[i][1]);
-        *reinterpret_cast<float2*>(dst + H) = make_float2(cv[i][0], cv[i][1]);
-      }
-    }
-  }
-  // A row l % 16 at k chunk l / 16; this warp's fragments
-  const uint32_t a_off = (l & 15) * row_b + (l >> 4) * 16;
-  const uint2* wb =
-      wf + (static_cast<int64_t>(d) * (H / 8) + u0 / 8 + w) * K * 4 * 32 + l;
-
-  // xs of the lane's pairs: [row i][gate g] as (unit j, unit j + 1)
-  auto load_x = [&](int t, float2 (&v)[2][4]) {
+  // slot s: m-tile m, its tile's lane ls, unit j (the pair j, j + 1);
+  // `own`: a slot of this launch's rows and of a unit below H
+  struct Slot {
+    int m, ls, j;
+    bool own;
+  };
+  auto slot_of = [&](int q) {
+    const int s = tid + q * 32 * kW, tg = cb * NT + (s / 32) % NT;
+    return Slot{s / (NT * 32), s & 31, 8 * tg + 2 * (s & 3),
+                s < nslots && tg < nt_all};
+  };
+  auto row_of = [&](int p, const Slot& o, int i) {
+    return p * tc::kPassRows + 16 * o.m + (o.ls >> 2) + 8 * i;
+  };
+  auto load_in = [&](int t, int p, const Slot& o) {
+    LstmIn in;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const __nv_bfloat16* xr =
-          xs + (static_cast<int64_t>(t) * R + rr[i]) * 4 * H + j;
+      const int b = row_of(p, o, i);
+      const bool valid = b < B;
+      const int64_t rr = int64_t(d) * B + b, row = int64_t(t) * R + rr;
+      in.lo[i] = valid ? lo[rr] : 0.0f;   // rows past B: never live
+      in.hi[i] = valid ? hi[rr] : 0.0f;
 #pragma unroll
       for (int g = 0; g < 4; ++g)
-        v[i][g] = valid[i] ? __bfloat1622float2(
-                                 *reinterpret_cast<const __nv_bfloat162*>(
-                                     xr + g * H))
-                           : make_float2(0.0f, 0.0f);
+        in.x[i][g] = valid ? *reinterpret_cast<const uint32_t*>(
+                                 xs + row * G + g * H + o.j)
+                           : 0u;
     }
+    return in;
   };
-  float2 x[2][4];
-  load_x(0, x);
-  uint2 ring[kP][4];      // this warp's B fragments in flight
-  if (active) tc::stream_prefetch<4, kP>(wb, K, ring);
-  int cur = 0;
-  for (int t = 0; t < T; ++t) {
-    float2 nx[2][4];
-    if (t + 1 < T) load_x(t + 1, nx);
-    float acc[4][4] = {};
-    if (active) {
-      tc::streamed_product<4, kP>(s_a + cur * a_bytes + a_off, wb, K, ring,
-                                   acc);
-      // the next step's first fragments, in flight over the gate math,
-      // the exchange and the barrier
-      if (t + 1 < T) tc::stream_prefetch<4, kP>(wb, K, ring);
-    }
-    // gate math of the lane's pairs (accumulator element 2 i + e: row i,
-    // unit j + e)
-    float gv[2][2][4];
-    const float tf = static_cast<float>(t);
+  LstmIn next[kCanHold ? kSlots : 1];
+  float2 hreg[kCanHold ? kSlots : 1][2], creg[kCanHold ? kSlots : 1][2];
+
+  // h_0 and c_0: 0, or the stream form's h0 = h||c (and bf16(h) into A[0])
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int q = 0; q < kSlots; ++q) {
+    const Slot o = slot_of(q);
+    if (!o.own) continue;
+    for (int p = 0; p < passes; ++p)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float xe[4] = {e ? x[i][0].y : x[i][0].x,
-                             e ? x[i][1].y : x[i][1].x,
-                             e ? x[i][2].y : x[i][2].x,
-                             e ? x[i][3].y : x[i][3].x};
-        const float ig = sigmoidf(xe[0] + acc[0][2 * i + e]);
-        const float fg = sigmoidf((xe[1] + acc[1][2 * i + e]) + 1.0f);
-        const float og = sigmoidf(xe[2] + acc[2][2 * i + e]);
-        const float ug = tanhf(xe[3] + acc[3][2 * i + e]);
-        const float cn = fg * cv[i][e] + ig * ug;
-        const float hn = og * tanhf(cn);
-        if (lo_r[i] <= tf && tf < hi_r[i]) {
-          h[i][e] = hn;
-          cv[i][e] = cn;
+      for (int i = 0; i < 2; ++i) {
+        const int b = row_of(p, o, i);
+        const int64_t rr = int64_t(d) * B + b;
+        float2 v = make_float2(0.0f, 0.0f), c = v;
+        if (kStream) {
+          if (b < B) {
+            v = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + o.j);
+            c = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + H + o.j);
+          }
+          *tc::a_word(a_of(0, p, o.m), o.j, i, o.ls) = tc::bf16x2(v.x, v.y);
+          if (b < B && emit_t == 0) {
+            *reinterpret_cast<float2*>(carry + rr * 2 * H + o.j) = v;
+            *reinterpret_cast<float2*>(carry + rr * 2 * H + H + o.j) = c;
+          }
         }
-        gv[i][e][0] = ig;
-        gv[i][e][1] = fg;
-        gv[i][e][2] = og;
-        gv[i][e][3] = ug;
+        if (kCanHold) {
+          hreg[kCanHold ? q : 0][i] = v;
+          creg[kCanHold ? q : 0][i] = c;
+        }
       }
-    const int nxt = cur ^ 1;
-    const bool more = t + 1 < T;
-    if (more) {
-      // h into this block's columns of A[nxt], then into every peer's
-      const uint32_t s_nxt = s_a + nxt * a_bytes;
-      if (active)
+    if (hold) next[kCanHold ? q : 0] = load_in(0, 0, o);
+  }
+  if (kStream) {
+    tc::grid_arrive(counter);
+    tc::grid_wait(counter, ++barriers * gridDim.x);
+  }
+  for (int t = 0; t < T; ++t) {
+    const int cur = t & 1;
+    const bool product = kStream || t > 0;
+    const float tf = static_cast<float>(t);
+    for (int p = 0; p < passes; ++p) {
+      if (product) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          *reinterpret_cast<__nv_bfloat162*>(
-              smem + (s_nxt - s_a) + ((l >> 2) + 8 * i) * row_b + 2 * j) =
-              __floats2bfloat162_rn(h[i][0], h[i][1]);
+        for (int hf = 0; hf < kHalves; ++hf) {
+          float acc[2][NCH][4] = {};
+          tc::staged_product<NCH>(
+              acc, a_of(cur, p, 0) + ws.kb * 32, a_of(cur, p, 1) + ws.kb * 32,
+              two, ws.kw, ws.kres, rot, sb + hf * NCH * 32, NC,
+              gb + hf * NCH * 32, ring, ck, sz, l);
+          tc::store_partials<NCH>(part, acc, two, w, l, NC, hf * NCH);
+        }
+      }
       __syncthreads();
-      tc::push_columns(s_nxt, row_b, 2 * u0, uc / 8, c, C);
-      tc::cluster_arrive();
-    }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (!valid[i]) continue;
-      const int64_t row = static_cast<int64_t>(t) * R + rr[i];
-      *reinterpret_cast<float2*>(ys + row * H + j) =
-          make_float2(h[i][0], h[i][1]);
-      if (kResiduals) {
-        *reinterpret_cast<float2*>(cs + row * H + j) =
-            make_float2(cv[i][0], cv[i][1]);
-        __nv_bfloat16* gt = gates + row * 4 * H + j;
+      for (int q = 0; q < kSlots; ++q) {
+        const Slot o = slot_of(q);
+        if (!o.own) continue;
+        const int tile = (o.j / 8) % NT;
+        float4 pre[4];
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          *reinterpret_cast<__nv_bfloat162*>(gt + g * H) =
-              __floats2bfloat162_rn(gv[i][0][g], gv[i][1][g]);
-      }
-      if (kStream && t == emit_t - 1) {
-        float* dst = carry + static_cast<int64_t>(rr[i]) * 2 * H + j;
-        *reinterpret_cast<float2*>(dst) = make_float2(h[i][0], h[i][1]);
-        *reinterpret_cast<float2*>(dst + H) = make_float2(cv[i][0], cv[i][1]);
-      }
-    }
-    if (more) {
-      tc::cluster_wait();
+          pre[g] = product ? tc::sum_partials(part, kW, NC, o.m,
+                                              4 * tile + g, o.ls)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const LstmIn in = hold ? next[kCanHold ? q : 0] : load_in(t, p, o);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < 2; ++i) {
+          const int b = row_of(p, o, i);
+          const bool valid = b < B;
+          const int64_t rr = int64_t(d) * B + b;
+          const int64_t row = int64_t(t) * R + rr;
+          float2 hp = make_float2(0.0f, 0.0f), cp = hp, x[4];
+          if (hold) {
+            hp = hreg[kCanHold ? q : 0][i];
+            cp = creg[kCanHold ? q : 0][i];
+          } else if (valid) {
+            if (t > 0) {
+              hp = *reinterpret_cast<const float2*>(ys + (row - R) * H + o.j);
+              cp = *reinterpret_cast<const float2*>(held + rr * H + o.j);
+            } else if (kStream) {
+              hp = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + o.j);
+              cp = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + H +
+                                                    o.j);
+            }
+          }
 #pragma unroll
-        for (int g = 0; g < 4; ++g) x[i][g] = nx[i][g];
+          for (int g = 0; g < 4; ++g)
+            x[g] = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&in.x[i][g]));
+          const bool live = in.lo[i] <= tf && tf < in.hi[i];
+          float h[2], c[2], gv[2][4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            auto pick = [&](const float4& v) {
+              return i ? (e ? v.w : v.z) : (e ? v.y : v.x);
+            };
+            const float ig = sigmoidf((e ? x[0].y : x[0].x) + pick(pre[0]));
+            const float fg =
+                sigmoidf(((e ? x[1].y : x[1].x) + pick(pre[1])) + 1.0f);
+            const float og = sigmoidf((e ? x[2].y : x[2].x) + pick(pre[2]));
+            const float ug = tanhf((e ? x[3].y : x[3].x) + pick(pre[3]));
+            const float cv = e ? cp.y : cp.x, hv = e ? hp.y : hp.x;
+            const float cn = fg * cv + ig * ug;
+            const float hn = og * tanhf(cn);
+            h[e] = live ? hn : hv;
+            c[e] = live ? cn : cv;
+            gv[e][0] = ig;
+            gv[e][1] = fg;
+            gv[e][2] = og;
+            gv[e][3] = ug;
+          }
+          if (kCanHold) {
+            hreg[kCanHold ? q : 0][i] = make_float2(h[0], h[1]);
+            creg[kCanHold ? q : 0][i] = make_float2(c[0], c[1]);
+          }
+          if (t + 1 < T)
+            *tc::a_word(a_of(cur ^ 1, p, o.m), o.j, i, o.ls) =
+                tc::bf16x2(h[0], h[1]);
+          if (!valid) continue;
+          if (!hold && t + 1 < T)
+            *reinterpret_cast<float2*>(held + rr * H + o.j) =
+                make_float2(c[0], c[1]);
+          *reinterpret_cast<float2*>(ys + row * H + o.j) =
+              make_float2(h[0], h[1]);
+          if (kResiduals) {
+            *reinterpret_cast<float2*>(cs + row * H + o.j) =
+                make_float2(c[0], c[1]);
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              *reinterpret_cast<uint32_t*>(gates + row * G + g * H + o.j) =
+                  tc::bf16x2(gv[0][g], gv[1][g]);
+          }
+          if (kStream && t == emit_t - 1) {
+            *reinterpret_cast<float2*>(carry + rr * 2 * H + o.j) =
+                make_float2(h[0], h[1]);
+            *reinterpret_cast<float2*>(carry + rr * 2 * H + H + o.j) =
+                make_float2(c[0], c[1]);
+          }
+        }
+      }
+      __syncthreads();
     }
-    cur = nxt;
+    if (t + 1 < T) {
+      tc::grid_arrive(counter);
+      // the next step's inputs, in flight over the wait and the product
+      if (hold)
+#pragma unroll
+        for (int q = 0; q < kSlots; ++q) {
+          const Slot o = slot_of(q);
+          if (o.own) next[kCanHold ? q : 0] = load_in(t + 1, 0, o);
+        }
+      tc::grid_wait(counter, ++barriers * gridDim.x);
+    }
   }
 }
 
-template <bool kResiduals, bool kStream, int kP>
-int launch_wide_kp(const void* xs, const void* wf, const float* lo,
-                   const float* hi, const float* h0, float* ys, float* cs,
-                   void* gates, float* carry, int T, int B, int H, int ndir,
-                   int emit_t, cudaStream_t stream) {
-  namespace tc = csr_rnn_mma;
-  return tc::launch_clusters(
-      lstm_fwd_wide_kernel<kResiduals, kStream, kP>, tc::wide_cluster(H),
-      (B + tc::kRows - 1) / tc::kRows, ndir, tc::wide_fwd_threads(H),
-      tc::wide_fwd_smem(H), stream, static_cast<const __nv_bfloat16*>(xs),
-      static_cast<const uint2*>(wf), lo, hi, h0, ys, cs,
-      static_cast<__nv_bfloat16*>(gates), carry, T, B, H, emit_t);
+// the persistent forward's plan at this card's SM count (ops/rnn_cuda.py's
+// persist_plan("lstm_fwd", ...))
+csr_rnn_mma::PersistPlan fwd_persist_plan(int H, int ndir, int B,
+                                          int sms) {
+  return csr_rnn_mma::persist_plan(H, ndir, B, sms, 4, H / 16, kFwdWarps, 1,
+                                   true, kFwdCols);
 }
 
-// the bf16 forms: the resident cluster kernel up to H = 512, W streamed
-// above
+// the persistent kernel of nt tiles a block; none past kPersistMaxTiles
+template <bool kResiduals, bool kStream, typename Fn>
+int with_persist_kernel(int tiles, Fn&& fn) {
+  static_assert(csr_rnn_mma::kPersistMaxTiles == 4, "a kernel a tile count");
+  switch (tiles) {
+    case 1:
+      return fn(lstm_fwd_persist_kernel<1, kResiduals, kStream>);
+    case 2:
+      return fn(lstm_fwd_persist_kernel<2, kResiduals, kStream>);
+    case 3:
+      return fn(lstm_fwd_persist_kernel<3, kResiduals, kStream>);
+    case 4:
+      return fn(lstm_fwd_persist_kernel<4, kResiduals, kStream>);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// the bf16 forms: the resident cluster kernel up to H = 512, the
+// persistent form above (C: its blocks a direction, work: its workspace of
+// the plan's bytes, rnn_mma.cuh's PersistPlan)
 template <bool kResiduals, bool kStream>
 int launch_bf16(const void* xs, const void* wt, const float* lo,
                 const float* hi, const float* h0, float* ys, float* cs,
-                void* gates, float* carry, int T, int B, int H, int ndir,
-                int emit_t, int C, cudaStream_t stream) {
+                void* gates, float* carry, void* work, int T, int B, int H,
+                int ndir, int emit_t, int C, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (H <= tc::kResidentMax)
     return launch_tc<kResiduals, kStream>(xs, wt, lo, hi, h0, ys, cs, gates,
                                           carry, T, B, H, ndir, emit_t, C,
                                           stream);
-  if (C != tc::wide_cluster(H)) return static_cast<int>(cudaErrorInvalidValue);
-  switch (tc::wide_prefetch(tc::wide_fwd_threads(H))) {
-    case 16:
-      return launch_wide_kp<kResiduals, kStream, 16>(
-          xs, wt, lo, hi, h0, ys, cs, gates, carry, T, B, H, ndir, emit_t,
-          stream);
-    case 8:
-      return launch_wide_kp<kResiduals, kStream, 8>(
-          xs, wt, lo, hi, h0, ys, cs, gates, carry, T, B, H, ndir, emit_t,
-          stream);
-    default:
-      return launch_wide_kp<kResiduals, kStream, 4>(
-          xs, wt, lo, hi, h0, ys, cs, gates, carry, T, B, H, ndir, emit_t,
-          stream);
-  }
+  int sms = 0;
+  const cudaError_t e = tc::device_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const tc::PersistPlan p = fwd_persist_plan(H, ndir, B, sms);
+  if (!p.ok || C != p.blocks || work == nullptr || p.resident < 1 ||
+      p.chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  char* base = static_cast<char*>(work);
+  unsigned int* counter = reinterpret_cast<unsigned int*>(base);
+  uint4* abuf = reinterpret_cast<uint4*>(base + 256);
+  float* held = reinterpret_cast<float*>(base + p.held);
+  return with_persist_kernel<kResiduals, kStream>(p.tiles, [&](auto kernel) {
+    return tc::launch_cooperative(
+        kernel, p.blocks * ndir, 32 * kFwdWarps, p.smem, stream, counter,
+        static_cast<const __nv_bfloat16*>(xs), static_cast<const uint2*>(wt),
+        lo, hi, h0, ys, cs, static_cast<__nv_bfloat16*>(gates), carry,
+        counter, abuf, held, T, B, H, p.blocks, p.resident, p.chunk, emit_t);
+  });
 }
 
 }  // namespace
@@ -728,17 +865,20 @@ int launch_bf16(const void* xs, const void* wt, const float* lo,
 // xs [T, ndir*B, 4H] fp32 and wq [ndir, H/4, 4H, 4] fp32 (the FMA kernel),
 // or, when bf16 != 0, xs bf16 and wq = wt [ndir, C, 4, 32, H] bf16 (the
 // cluster kernel: C = H / 32 blocks a cluster, ops/rnn_cuda.py's
-// lstm_plan; past H = 512 the streamed-W fragments [ndir, H/8, H/16, 4,
-// 32, 4] and C = wide_cluster(H), rnn_cuda.wide_fwd_weights; unread under
-// fp32); lo/hi [ndir*B] fp32; ys [T, ndir*B, H] fp32. Requires 32 <= H <=
-// 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
+// lstm_plan; past H = 512 the persistent form's fragments [ndir, C, H/16,
+// nt, 4, 32, 4], C its blocks a direction,
+// rnn_cuda.persist_lstm_fwd_weights; unread under fp32); lo/hi [ndir*B]
+// fp32; ys [T, ndir*B, H] fp32; work the persistent form's workspace
+// (csr_lstm_fwd_persist_plan's bytes; unread elsewhere). Requires 32 <= H
+// <= 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_lstm_fwd(const void* xs, const void* wq, const float* lo,
-                         const float* hi, float* ys, int T, int B, int H,
-                         int ndir, int C, int bf16, cudaStream_t stream) {
+                         const float* hi, float* ys, void* work, int T, int B,
+                         int H, int ndir, int C, int bf16,
+                         cudaStream_t stream) {
   if (bf16)
     return launch_bf16<false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
-                                     nullptr, nullptr, T, B, H, ndir, 0, C,
-                                     stream);
+                                     nullptr, nullptr, work, T, B, H, ndir, 0,
+                                     C, stream);
   return launch<float, false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
                                      nullptr, nullptr, T, B, H, ndir, 0,
                                      stream);
@@ -749,50 +889,73 @@ CSR_API int csr_lstm_fwd(const void* xs, const void* wq, const float* lo,
 // (i, f, o, u) of every step, live or not.
 CSR_API int csr_lstm_fwd_train(const void* xs, const void* wq,
                                const float* lo, const float* hi, float* ys,
-                               float* cs, void* gates, int T, int B, int H,
-                               int ndir, int C, int bf16,
+                               float* cs, void* gates, void* work, int T,
+                               int B, int H, int ndir, int C, int bf16,
                                cudaStream_t stream) {
   if (bf16)
     return launch_bf16<true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
-                                    nullptr, T, B, H, ndir, 0, C, stream);
+                                    nullptr, work, T, B, H, ndir, 0, C,
+                                    stream);
   return launch<float, true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
                                     nullptr, T, B, H, ndir, 0, stream);
 }
 
-// The cluster forward's plan as the card takes it: out[0] = its shared
-// memory bytes at hidden size H (C = H / 32 blocks up to H = 512, the
-// streamed-W form's wide_cluster(H) above), out[1] = how many of its
-// clusters the card holds at once (cudaOccupancyMaxActiveClusters; 0: it
-// cannot launch).
+// The cluster forward's plan as the card takes it (H <= 512): out[0] = its
+// shared memory bytes at hidden size H (C = H / 32 blocks), out[1] = how
+// many of its clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters; 0: it cannot launch). Past H = 512 see
+// csr_lstm_fwd_persist_plan.
 CSR_API int csr_lstm_fwd_occupancy(int H, int* out) {
   namespace tc = csr_rnn_mma;
-  if (H > tc::kResidentMax) {
-    const int threads = tc::wide_fwd_threads(H);
-    out[0] = tc::wide_fwd_smem(H);
-    const int kP = tc::wide_prefetch(threads);
-    auto kernel = kP == 16  ? lstm_fwd_wide_kernel<true, false, 16>
-                  : kP == 8 ? lstm_fwd_wide_kernel<true, false, 8>
-                            : lstm_fwd_wide_kernel<true, false, 4>;
-    return tc::max_clusters(kernel, tc::wide_cluster(H), threads, out[0],
-                            out + 1);
-  }
+  if (H > tc::kResidentMax) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = tc::fwd_smem(H);
   return tc::max_clusters(lstm_fwd_tc_kernel<true, false>, H / tc::kUnits,
                           tc::kRows * tc::kUnits, out[0], out + 1);
 }
 
-// As csr_lstm_fwd (wq and C likewise), with h||c seeded from h0
+// The persistent forward's plan as this card takes it at hidden size H >
+// 512, ndir directions and B rows a direction: out = (blocks a direction,
+// tiles a block, resident k-steps a warp, shared memory bytes a block,
+// blocks the card holds at once: cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// times the SMs, workspace bytes, k-steps a slot of the staged ring).
+// cudaErrorInvalidValue where the card has too few SMs for the built tile
+// counts (out filled all the same).
+CSR_API int csr_lstm_fwd_persist_plan(int H, int ndir, int B,
+                                      long long* out) {
+  namespace tc = csr_rnn_mma;
+  int sms = 0;
+  cudaError_t e = tc::device_sms(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const tc::PersistPlan p = fwd_persist_plan(H, ndir, B, sms);
+  out[0] = p.blocks;
+  out[1] = p.tiles;
+  out[2] = p.resident;
+  out[3] = p.smem;
+  out[4] = 0;
+  out[5] = p.work;
+  out[6] = p.chunk;
+  return with_persist_kernel<true, false>(p.tiles, [&](auto kernel) {
+    int n = 0;
+    e = tc::coresident_blocks(kernel, 32 * kFwdWarps, p.smem, &n);
+    out[4] = n;
+    return static_cast<int>(e);
+  });
+}
+
+// As csr_lstm_fwd (wq, C and work likewise), with h||c seeded from h0
 // [ndir*B, 2H] fp32 and carry [ndir*B, 2H] fp32 out: h||c after step
 // emit_t - 1, h0 when emit_t == 0. Requires 0 <= emit_t <= T (the wrapper
 // checks).
 CSR_API int csr_lstm_fwd_stream(const void* xs, const void* wq,
                                 const float* lo, const float* hi,
                                 const float* h0, float* ys, float* carry,
-                                int T, int B, int H, int ndir, int emit_t,
-                                int C, int bf16, cudaStream_t stream) {
+                                void* work, int T, int B, int H, int ndir,
+                                int emit_t, int C, int bf16,
+                                cudaStream_t stream) {
   if (bf16)
     return launch_bf16<false, true>(xs, wq, lo, hi, h0, ys, nullptr, nullptr,
-                                    carry, T, B, H, ndir, emit_t, C, stream);
+                                    carry, work, T, B, H, ndir, emit_t, C,
+                                    stream);
   return launch<float, false, true>(xs, wq, lo, hi, h0, ys, nullptr, nullptr,
                                     carry, T, B, H, ndir, emit_t, stream);
 }

@@ -1,9 +1,8 @@
 // Shared by the bf16 kernels of the recurrences (lstm_fwd.cu, lstm_bwd.cu,
 // gru_fwd.cu, gru_bwd.cu): the clusters' shared-memory layout, the
 // thread-block cluster's rank, distributed shared memory (DSMEM) stores and
-// barrier, and the cluster launch; past H = 512, the streamed-W form's
-// geometry and product (the LSTM's forwards, the GRU's backward) and the
-// persistent form's (the GRU's forwards, the LSTM's backward; below).
+// barrier, and the cluster launch; past H = 512, the persistent form's
+// geometry and products (every bf16 kernel of both cells; below).
 //
 // Up to H = 512, a cluster of C = H / U blocks serves one direction and
 // one group of kRows = 16 rows (one m16 tile; rows past B are zero); block
@@ -69,120 +68,12 @@ __host__ __device__ constexpr int bwd_smem(int H, int G = 4,
   return (H + kRows) * row_bytes(G * U) + 2 * kRows * H * 4;
 }
 
-// ---------------------------------------------------------------------------
-// The streamed-W form, 512 < H <= kMaxHidden (H % 32 == 0): a direction's
-// W (8 H^2 bytes for the LSTM: 8.4 MB at H = 1024) no longer fits the
-// shared memory of a 16-block cluster, so every block streams its slice
-// from global memory (L2) at each step, straight into the mma.sync B
-// fragments, laid out by the wrapper in fragment order (ops/rnn_cuda.py's
-// wide_fwd_weights, wide_bwd_weights): for each k-step and n-tile, lane l's
-// four bf16 values (rows 2 (l % 4) + {0, 1, 8, 9} of the k16 step, column
-// l / 4 of the n8 tile) are 8 consecutive bytes, so a warp reads each
-// fragment as 256 contiguous bytes with one 8-byte load a lane, kP k-steps
-// ahead of the products. h (forward) is exchanged over DSMEM as in the
-// resident form; the backward's reduce-scatter keeps its partial sums in
-// one buffer where two do not fit (wide_bwd_bufs), with a second cluster
-// barrier a step.
-//
-// Geometry: a cluster of C = ceil(H / U) <= 16 blocks, U = wide_units(H) =
-// 8 ceil(H / 128) units a block (the last block may own fewer: H - U (C -
-// 1), a multiple of 8), kRows rows a cluster.
+// The bf16 kernels past the resident form take up to H = kMaxHidden (the
+// persistent form, below); a block may use kSmemMax bytes of dynamic
+// shared memory.
 constexpr int kResidentMax = 512;   // the resident form's largest H
 constexpr int kMaxHidden = 2048;
 constexpr int kSmemMax = 232448;    // dynamic shared memory a block (H100)
-
-__host__ __device__ constexpr int wide_units(int H) {
-  return 8 * ((H + 127) / 128);
-}
-__host__ __device__ constexpr int wide_cluster(int H) {
-  return (H + wide_units(H) - 1) / wide_units(H);
-}
-// the forward: a warp per 8 units (one n8 tile of every gate); the double
-// buffer of h, [2][kRows][H]
-__host__ __device__ constexpr int wide_fwd_threads(int H) {
-  return 4 * wide_units(H);
-}
-__host__ __device__ constexpr int wide_fwd_smem(int H) {
-  return 2 * kRows * row_bytes(H);
-}
-// the backward: 16 warps; its product's reduction extent (G U gate
-// gradients, zero-padded to a multiple of 32: two k-steps), the partial
-// sums [bufs][C][kRows][U] fp32 and the gate gradients [kRows][K] bf16
-constexpr int kWideBwdThreads = 512;
-__host__ __device__ constexpr int wide_bwd_k(int H, int G) {
-  return (G * wide_units(H) + 31) / 32 * 32;
-}
-__host__ __device__ constexpr int wide_bwd_part(int H) {
-  return kRows * wide_cluster(H) * wide_units(H) * 4;
-}
-__host__ __device__ constexpr int wide_bwd_bufs(int H, int G) {
-  return kRows * row_bytes(wide_bwd_k(H, G)) + 2 * wide_bwd_part(H) <=
-                 kSmemMax
-             ? 2
-             : 1;
-}
-__host__ __device__ constexpr int wide_bwd_smem(int H, int G) {
-  return kRows * row_bytes(wide_bwd_k(H, G)) +
-         wide_bwd_bufs(H, G) * wide_bwd_part(H);
-}
-// the backward's (row, unit) pairs a thread: 16 U / 512 = U / 32, at most
-// 2 up to H = 1024 (U <= 64) and 4 above (fewer registers where fewer do)
-__host__ __device__ constexpr int wide_pairs(int H) {
-  return wide_units(H) <= 64 ? 2 : 4;
-}
-// B fragments in flight a warp, as many k-steps as the registers a thread
-// leave room for: 16 up to 256 threads a block, 8 up to 384, 4 at 512
-// (128 registers a thread)
-__host__ __device__ constexpr int wide_prefetch(int threads) {
-  return threads <= 256 ? 16 : threads <= 384 ? 8 : 4;
-}
-// the most threads a block of a kernel streaming kP k-steps ahead takes
-__host__ __device__ constexpr int wide_max_threads(int kP) {
-  return kP == 16 ? 256 : kP == 8 ? 384 : 512;
-}
-
-// The B fragments of the first kP k-steps of a streamed product into the
-// register ring b (bf: this lane's first fragment of [K][J][32 lanes]
-// uint2). W is the same at every step, so a kernel issues these loads for
-// the next step as soon as a step's product is done: they are in flight
-// over its gate math, exchange and barrier.
-template <int J, int kP>
-__device__ __forceinline__ void stream_prefetch(const uint2* __restrict__ bf,
-                                                int K, uint2 (&b)[kP][J]) {
-#pragma unroll
-  for (int p = 0; p < kP; ++p)
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-      b[p][j] = p < K ? __ldg(bf + (p * J + j) * 32) : make_uint2(0, 0);
-}
-
-// acc[J][4] += A B over K k-steps for J n8 tiles: A's 16 rows in shared
-// memory (a_lane: this lane's ldmatrix address at k-step 0, 32 bytes a
-// k-step further each step), B streamed from global memory through the
-// ring b that stream_prefetch filled, each slot refilled with the k-step
-// kP ahead once its products are issued; the ring is spent on return
-template <int J, int kP>
-__device__ __forceinline__ void streamed_product(uint32_t a_lane,
-                                                 const uint2* __restrict__ bf,
-                                                 int K, uint2 (&b)[kP][J],
-                                                 float (&acc)[J][4]) {
-  for (int k0 = 0; k0 < K; k0 += kP) {
-#pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      const int k = k0 + p;
-      if (k < K) {
-        uint32_t a[4];
-        ldsm_x4(a_lane + k * 32, a);
-#pragma unroll
-        for (int j = 0; j < J; ++j) mma(acc[j], a, b[p][j].x, b[p][j].y);
-        if (k + kP < K)
-#pragma unroll
-          for (int j = 0; j < J; ++j)
-            b[p][j] = __ldg(bf + ((k + kP) * J + j) * 32);
-      }
-    }
-  }
-}
 
 // the two 8x8 bf16 matrices whose row addresses lanes 0-7 and 8-15 give
 __device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t r[2]) {
@@ -270,26 +161,6 @@ __device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
   return v;
 }
 
-// the streamed-W forward's exchange: this block's columns of the kRows
-// rows of an A buffer (s_buf, rows of row_b bytes; byte offset col0, n16
-// 16-byte chunks a row) into the same place of every other block of the
-// cluster, the block's threads sharing the stores
-__device__ __forceinline__ void push_columns(uint32_t s_buf, int row_b,
-                                             int col0, int n16, int c,
-                                             int C) {
-  for (int q = threadIdx.x; q < (C - 1) * kRows * n16; q += blockDim.x) {
-    const int p = q / (kRows * n16), e = q % (kRows * n16);
-    const uint32_t ad = s_buf + (e / n16) * row_b + col0 + (e % n16) * 16;
-    st_cluster16(map_rank(ad, p + (p >= c)), ld_shared16(ad));
-  }
-}
-
-// zeros over `bytes` (a multiple of 16) of shared memory at p
-__device__ __forceinline__ void zero_shared(unsigned char* p, int bytes) {
-  for (int i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16)
-    *reinterpret_cast<uint4*>(p + i) = make_uint4(0, 0, 0, 0);
-}
-
 // the launch configuration of `kernel` on clusters of C blocks along x,
 // grid (C·nx, ny), `smem` bytes of dynamic shared memory (the kernel's
 // attributes set to allow them) → the status of setting the attributes
@@ -319,61 +190,90 @@ struct ClusterLaunch {
 };
 
 // ---------------------------------------------------------------------------
-// The persistent form (gru_fwd.cu's gru_fwd_persist_kernel, lstm_bwd.cu's
-// lstm_bwd_persist_kernel), past H = 512: one cooperative launch of at
-// most one block an SM, a direction's W spread over about sms / ndir
-// blocks and kept in their shared memory where it fits, every row of the
-// direction multiplied at each step (32 rows a pass: two m16 tiles share
-// each B fragment), and the step's exchange through global memory (L2)
-// behind one grid barrier a step.
+// The persistent form, past H = 512: gru_fwd.cu's gru_fwd_persist_kernel and
+// lstm_bwd.cu's lstm_bwd_persist_kernel (A read from L2), lstm_fwd.cu's
+// lstm_fwd_persist_kernel and gru_bwd.cu's gru_bwd_persist_kernel (A staged
+// in shared memory). One cooperative launch of at most one block an SM, a
+// direction's W spread over about sms / ndir blocks and kept in their
+// shared memory where it fits, every row of the direction multiplied at
+// each step (32 rows a pass: two m16 tiles share each B fragment), and the
+// step's exchange through global memory (L2) behind one grid barrier a
+// step.
 //
 // Geometry (ops/rnn_cuda.py's persist_plan computes the same): the
 // product's N is H units in n8 tiles; a block owns nt = ceil((H / 8) /
 // (sms / ndir)) tiles (the last block of a direction may own fewer), so a
 // direction has NB = ceil((H / 8) / nt) blocks and the grid NB ndir. Each
-// tile brings `cols` n8 columns of B (the GRU forward: its three gates; the
-// LSTM backward: one, the units j of dh_prev), nc = cols nt a block. The
+// tile brings `cols` n8 columns of B (the forwards: their G gates; the
+// backwards: one, the units j of dh_prev), nc = cols nt a block. The
 // reduction of K k-steps is split over the block's warps, warp w taking
 // [K w / nw, K (w + 1) / nw). B is laid out by the wrapper in fragment
 // order, [ndir][NB][K][nc][32 lanes] uint2; a warp keeps up to kr of its
 // k-steps in shared memory ([nw][kr][nc][32] uint2, copied in once a
 // launch) and reads the rest from global memory at each step (kr is as
-// many as fit beside the partial sums). A, the exchanged h (forward) or dg
-// (backward) in bf16, sits in global memory in fragment order too,
-// [pass][2 m-tiles][K][32 lanes] uint4 a direction (a_word), so a warp
-// reads an A fragment with one 16-byte load a lane, or 8 bytes where the
-// m-tile's rows 8-15 are past B (B = 24 leaves a quarter of A unread);
-// ld.global.cg reads it through L2, never a stale L1 line. The warps'
-// partial sums meet in shared memory, [nw][2][nc][32] float4, and are
-// added in warp order (no atomics: bitwise repeatable).
+// many as fit beside the partial sums and the staged A). A, the exchanged
+// h (forward) or dg (backward) in bf16, sits in global memory in fragment
+// order too, [pass][2 m-tiles][K][32 lanes] uint4 a direction (a_word), so
+// a lane's A fragment is one 16-byte word (8 bytes where the m-tile's rows
+// 8-15 are past B). The GRU's forwards and the LSTM's backward read it
+// with ld.global.cg through a register ring (persist_product); the LSTM's
+// forwards and the GRU's backward stage it (staged_product):
+// each warp copies its k-steps of A, and of B past its kr, into a ring of
+// kStages slots of `chunk` k-steps in shared memory by cp.async.cg (L2
+// only, never a stale L1 line), kStages - 1 slots ahead of its products,
+// the whole of its A where it fits. The warps' partial sums meet in shared
+// memory, [nw][2][nc][32] float4, and are added in warp order (no atomics:
+// bitwise repeatable).
 //
 // The workspace, in global memory: the grid barrier's counter (256
 // bytes), then the two A buffers ([2 parities][ndir][passes][2 m-tiles]
-// [K][32 lanes] uint4, 1024·K bytes a pass and direction), then (the LSTM
-// backward only, `carried`) the slots' carried dc and dh_total with more
-// than one pass ([2][ndir·B][H] fp32). The wrappers allocate `work` bytes
+// [K][32 lanes] uint4, 1024·K bytes a pass and direction), then `carried`
+// fp32 arrays [ndir·B][H] of what a slot carries past a step where it does
+// not stay in registers (the LSTM backward: dc and dh_total; the LSTM
+// forward: c; the GRU backward: dh). The wrappers allocate `work` bytes
 // (on the card as csr_*_persist_plan reports them), and the kernels take
 // their offsets from the same plan.
 //
-// The kernels are built for nt <= kPersistMaxTiles (the LSTM backward's
-// slots, 2 m-tiles x nt x 32 lanes, are one a thread of its 256), so a
-// card with fewer than ndir·H/32 SMs has no kernel for this H: `ok` is
-// false and the launch refuses (ops/rnn_cuda.py's persist_plan raises).
+// The kernels are built for nt <= kPersistMaxTiles (the backwards' slots,
+// 2 m-tiles x nt x 32 lanes, are one a thread of their 256), so a card
+// with fewer than ndir·H/32 SMs has no kernel for this H: `ok` is false
+// and the launch refuses (ops/rnn_cuda.py's persist_plan raises).
 struct PersistPlan {
   int tiles, blocks, cols, warps, ksteps, resident, smem, passes;
+  int chunk;            // k-steps a slot of the staged ring (0: A from L2)
   int64_t held, work;   // the carried state's offset; the workspace bytes
   bool ok;              // tiles <= kPersistMaxTiles
 };
 
 constexpr int kPassRows = 32;        // rows a pass: two m16 tiles
 constexpr int kPersistMaxTiles = 4;  // tiles a block the kernels are built for
+constexpr int kStages = 4;           // slots of a warp's staged ring
+constexpr int kStreamChunk = 2;      // k-steps a slot where W is streamed
 
 __host__ __device__ constexpr int persist_part(int nc, int warps) {
   return warps * 2 * nc * 512;
 }
 
+// the bytes of one k-step in a slot of the staged ring: A's two m-tiles
+// (1024), and B's ncw columns (256 each) where the warps stream some of W
+__host__ __device__ constexpr int stage_bytes(int ncw, bool streamed) {
+  return 1024 + (streamed ? ncw * 256 : 0);
+}
+
+// The plan of a kernel of `cols` B columns a tile, K = ksteps, `warps`
+// warps and `carried` fp32 [ndir·B][H] arrays; `staged`: A staged in
+// shared memory (the products of at most `ncmax` columns: a wider block
+// runs them in halves, and its ring holds a half's streamed B). Staged,
+// the warps keep all their k-steps of W where it fits beside a ring of
+// chunks as large as fit up to ceil(kq / kStages) (then the ring holds
+// the whole of a warp's A); where W does not fit, a ring of
+// kStreamChunk-k-step slots of A and the streamed B, and as many resident
+// k-steps as fit beside it (slots of 2 k-steps against 1: 0.91x the GRU
+// backward's time at H = 2048, 0.96-0.98x the LSTM forwards', on an H100,
+// PERF.md).
 inline PersistPlan persist_plan(int H, int ndir, int B, int sms, int cols,
-                                int ksteps, int warps, bool carried) {
+                                int ksteps, int warps, int carried,
+                                bool staged = false, int ncmax = 1 << 30) {
   PersistPlan p{};
   const int nt_all = H / 8, per = sms / ndir;
   p.tiles = per > 0 ? (nt_all + per - 1) / per : nt_all;
@@ -383,12 +283,31 @@ inline PersistPlan persist_plan(int H, int ndir, int B, int sms, int cols,
   p.ksteps = ksteps;
   const int nc = cols * p.tiles, part = persist_part(nc, warps);
   const int kq = (ksteps + warps - 1) / warps;
-  const int fit = (kSmemMax - part) / (warps * nc * 256);
-  p.resident = kq < fit ? kq : fit;
-  p.smem = part + warps * p.resident * nc * 256;
+  if (staged) {
+    const int room = (kSmemMax - part) / warps;   // bytes a warp
+    const int wk = nc * 256;                      // W bytes a k-step
+    const int ncw = nc / ((nc + ncmax - 1) / ncmax);
+    const int whole = (kq + kStages - 1) / kStages;
+    int ring = 0;
+    if (kq * wk + kStages * stage_bytes(ncw, false) <= room) {
+      p.resident = kq;
+      const int fit = (room - kq * wk) / (kStages * stage_bytes(ncw, false));
+      p.chunk = fit < whole ? fit : whole;
+    } else {
+      p.chunk = kStreamChunk;
+      ring = kStages * kStreamChunk * stage_bytes(ncw, true);
+      p.resident = (room - ring) / wk;
+    }
+    if (ring == 0) ring = kStages * p.chunk * stage_bytes(ncw, false);
+    p.smem = part + warps * (p.resident * wk + ring);
+  } else {
+    const int fit = (kSmemMax - part) / (warps * nc * 256);
+    p.resident = kq < fit ? kq : fit;
+    p.smem = part + warps * p.resident * nc * 256;
+  }
   p.passes = (B + kPassRows - 1) / kPassRows;
   p.held = 256 + int64_t(2) * ndir * p.passes * 1024 * ksteps;
-  p.work = p.held + (carried ? int64_t(2) * ndir * B * H * 4 : 0);
+  p.work = p.held + int64_t(carried) * ndir * B * H * 4;
   p.ok = p.tiles <= kPersistMaxTiles;
   return p;
 }
@@ -563,6 +482,85 @@ __device__ __forceinline__ void persist_product(
   }
 }
 
+// acc[m][c] += A_m B_c over one warp's kw k-steps for NC columns, A and
+// the streamed B staged in shared memory. a0, a1: m-tile 0 and 1 of A in
+// global memory at the warp's first k-step (32 uint4 a k-step, all lanes;
+// m-tile 1 only where `two`); sb: this lane's resident fragment of the
+// first column at that k-step (nc·32 uint2 a k-step, its first kres
+// k-steps); gb: the same columns in the launch's layout in global memory
+// (lane 0), read past kres; ring: this warp's kStages slots of ck k-steps
+// of stage_bytes(NC, kres < kq) bytes each (`sz`). The warp walks its
+// chunks of ck k-steps from chunk `rot` on, wrapping, and copies chunk i +
+// kStages - 1 (A, and B past kres) by cp.async.cg while it multiplies
+// chunk i from its slot; each lane waits for its own copies, then a warp
+// barrier makes every lane's visible. The caller has passed the barrier
+// after which A is complete; the ring is free again on return.
+template <int NC>
+__device__ __forceinline__ void staged_product(
+    float (&acc)[2][NC][4], const uint4* __restrict__ a0,
+    const uint4* __restrict__ a1, bool two, int kw, int kres, int rot,
+    const uint2* sb, int nc, const uint2* __restrict__ gb,
+    unsigned char* ring, int ck, int sz, int l) {
+  const int nq = (kw + ck - 1) / ck;
+  const uint32_t s_ring = smem_addr(ring);
+  auto first = [&](int q) {
+    const int c = q + rot < nq ? q + rot : q + rot - nq;
+    return c * ck;
+  };
+  auto copy = [&](int q) {
+    const int k0 = first(q), n = kw - k0 < ck ? kw - k0 : ck;
+    const uint32_t slot = s_ring + (q % kStages) * ck * sz;
+    for (int kk = 0; kk < n; ++kk) {
+      const int k = k0 + kk;
+      const uint32_t dst = slot + kk * sz;
+      cp_async16(dst + l * 16, a0 + k * 32 + l, true);
+      if (two) cp_async16(dst + 512 + l * 16, a1 + k * 32 + l, true);
+      if (k >= kres) {
+        const char* src = reinterpret_cast<const char*>(gb + k * nc * 32);
+        for (int i = l; i < NC * 16; i += 32)
+          cp_async16(dst + 1024 + i * 16, src + i * 16, true);
+      }
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < kStages - 1; ++q) {
+    if (q < nq) copy(q);
+    cp_async_commit();
+  }
+  for (int q = 0; q < nq; ++q) {
+    if (q + kStages - 1 < nq) copy(q + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncwarp();
+    const int k0 = first(q), n = kw - k0 < ck ? kw - k0 : ck;
+    const unsigned char* slot = ring + (q % kStages) * ck * sz;
+    for (int kk = 0; kk < n; ++kk) {
+      const int k = k0 + kk;
+      const unsigned char* st = slot + kk * sz;
+      const uint4 va = reinterpret_cast<const uint4*>(st)[l];
+      const uint4 vb = two ? reinterpret_cast<const uint4*>(st + 512)[l]
+                           : make_uint4(0u, 0u, 0u, 0u);
+      uint2 b[NC];
+      if (k < kres) {
+#pragma unroll
+        for (int c = 0; c < NC; ++c) b[c] = sb[(k * nc + c) * 32];
+      } else {
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          b[c] = reinterpret_cast<const uint2*>(st + 1024)[c * 32 + l];
+      }
+      const uint32_t am[4] = {va.x, va.z, va.y, va.w};
+      const uint32_t an[4] = {vb.x, vb.z, vb.y, vb.w};
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        mma(acc[0][c], am, b[c].x, b[c].y);
+        if (two) mma(acc[1][c], an, b[c].x, b[c].y);
+      }
+    }
+    __syncwarp();
+  }
+}
+
 // A warp's k-steps [kb, kb + kw) of K over nw warps, how many of them it
 // keeps in shared memory (kr at most), and where block cb of NB starts
 // its walk over them (spread evenly)
@@ -600,17 +598,19 @@ __device__ __forceinline__ void load_resident(uint32_t s_res,
 }
 
 // a warp's accumulators into its slots of the partial sums
-// ([nw][2][nc][32] float4 at s_part)
+// ([nw][2][nc][32] float4 at s_part): NC columns from column c0 of the
+// block's nc (a product run in column halves), all of them by default
 template <int NC>
 __device__ __forceinline__ void store_partials(float* part,
                                                const float (&acc)[2][NC][4],
-                                               bool two, int w, int l) {
+                                               bool two, int w, int l,
+                                               int nc = NC, int c0 = 0) {
 #pragma unroll
   for (int m = 0; m < 2; ++m)
     if (m == 0 || two)
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        reinterpret_cast<float4*>(part)[((w * 2 + m) * NC + c) * 32 + l] =
+        reinterpret_cast<float4*>(part)[((w * 2 + m) * nc + c0 + c) * 32 + l] =
             make_float4(acc[m][c][0], acc[m][c][1], acc[m][c][2],
                         acc[m][c][3]);
 }

@@ -52,17 +52,15 @@ keeping its slice of W in shared memory (C = H / 32 blocks, or H / 16 in
 the GRU's backward up to H = 256; ``lstm_fwd_tc_weights``,
 ``lstm_bwd_tc_weights``, ``gru_fwd_tc_weights``, ``gru_bwd_tc_weights``).
 Past it, up to H = 2048 (``MAX_HIDDEN``), W no longer fits a cluster's
-shared memory. The GRU's three forwards and the LSTM's backward then run
-the persistent form (``persist_plan``): one cooperative launch of about
-sms / ndir blocks a direction over the whole card, W spread over their
-shared memory (``persist_fwd_weights``, ``persist_bwd_weights``: fragment
-order), every row of a direction multiplied at each step and the step's
-exchange through a global workspace behind one grid barrier a step. The
-LSTM's forwards and the GRU's backward keep the streamed-W clusters: each
-block streams its slice from global memory at every step, straight into
-the tensor cores' operand fragments (C = ⌈H / U⌉ ≤ 16 blocks of U =
-``wide_units(H)`` = 8·⌈H / 128⌉ units; ``wide_fwd_weights``,
-``wide_bwd_weights``). Under
+shared memory. Every bf16 form of both cells then runs the persistent form
+(``persist_plan``): one cooperative launch of about sms / ndir blocks a
+direction over the whole card, W spread over their shared memory
+(``persist_fwd_weights``, ``persist_lstm_fwd_weights``,
+``persist_bwd_weights``, ``persist_gru_bwd_weights``: fragment order),
+every row of a direction multiplied at each step and the step's exchange
+through a global workspace behind one grid barrier a step; the LSTM's
+forwards and the GRU's backward stage that exchange (A) in shared memory
+before their products. Under
 fp32 the FMA kernels read W as it is (the GRU's forward), transposed (its
 backward) or as k-quads (the LSTM's), one hidden unit a thread up to H =
 512, two up to 1024 and four above. The stream wrappers take the laid-out
@@ -102,7 +100,7 @@ ROUTED = {"kernel": 0, "scan": 0}
 
 
 # the largest hidden size whose bf16 kernels keep W in a cluster's shared
-# memory, and the largest the kernels take (the streamed-W form between)
+# memory, and the largest the kernels take (the persistent form between)
 RESIDENT_MAX, MAX_HIDDEN = 512, 2048
 SMEM_MAX = 232448       # shared memory a block may use on an H100 (227 KB)
 SMS = 132               # an H100 SXM's SMs: the plans' default
@@ -112,9 +110,8 @@ def kernel_takes(H: int) -> bool:
     """The hidden sizes the kernels take: 32 ≤ H ≤ 2048 with H % 32 == 0,
     every H % 128 == 0 the reference's kernels take up to 2048 among them
     (the bf16 kernels: clusters of C ≤ 16 blocks, W resident in their
-    shared memory up to H = 512; above, the persistent form or clusters
-    streaming W from global memory; the fp32 FMA kernels: up to four units
-    a thread of 512)."""
+    shared memory up to H = 512; above, the persistent form; the fp32 FMA
+    kernels: up to four units a thread of 512)."""
     return H % 32 == 0 and 32 <= H <= MAX_HIDDEN
 
 
@@ -331,8 +328,8 @@ def _check_sizes(T: int, R: int, H: int, compute_dtype,
         raise ValueError(f"{cell} kernel: hidden size {H} unsupported "
                          f"(32 <= H <= {MAX_HIDDEN}, H % 32 == 0: in bf16 W "
                          f"in shared memory up to H = {RESIDENT_MAX}, spread "
-                         "over the card or streamed above; in fp32 up to 4 "
-                         "units a thread)")
+                         "over the card above; in fp32 up to 4 units a "
+                         "thread)")
     return stream_dtype(compute_dtype)
 
 
@@ -433,10 +430,11 @@ def gru_bwd_cuda(gates, w, lo, hi, ys, g, compute_dtype):
     wk, C = _gru_launch_args(w, B, compute_dtype, "bwd")
     dxs = torch.empty((T, R, 3 * H), dtype=sdt, device=gates.device)
     dhn = torch.empty((T, R, H), dtype=sdt, device=gates.device)
+    work = _work("gru", "bwd", w, B, compute_dtype)
     _kernels.GRU_BWD.launch(
         gates.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         ys.data_ptr(), g.data_ptr(), dxs.data_ptr(), dhn.data_ptr(),
-        T, B, H, ndir, C, int(compute_dtype == torch.bfloat16),
+        _ptr(work), T, B, H, ndir, C, int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(gates))
     return dxs, dhn
 
@@ -506,74 +504,19 @@ def gru_bwd_tc_weights(w, C: int):
     return _bwd_tc_weights(w, C)
 
 
-def wide_units(H: int) -> int:
-    """Units a block of the streamed-W form (H > ``RESIDENT_MAX``):
-    8·⌈H / 128⌉, whole n8 tiles, so C = ⌈H / U⌉ ≤ 16 (``csrc/rnn_mma.cuh``'s
-    wide_units; the last block may own fewer, a multiple of 8)."""
-    return 8 * -(-H // 128)
-
-
-def wide_bwd_k(H: int, G: int) -> int:
-    """The streamed-W backward's reduction extent: a block's G·U gate
-    gradients, zero-padded to a multiple of 32 (two k-steps)."""
-    return -(-G * wide_units(H) // 32) * 32
-
-
-def _wide_part(H: int) -> int:
-    """Bytes of one partial-sum buffer of the streamed-W backward: ROWS
-    rows of the C·U units of the C source blocks, fp32."""
-    U = wide_units(H)
-    return ROWS * -(-H // U) * U * 4
-
-
-def wide_bwd_bufs(H: int, G: int) -> int:
-    """Partial-sum buffers of the streamed-W backward: two (one cluster
-    barrier a step) where they fit beside the gate gradients, else one
-    (a second barrier a step)."""
-    gates = ROWS * (2 * wide_bwd_k(H, G) + 16)
-    return 2 if gates + 2 * _wide_part(H) <= SMEM_MAX else 1
-
-
-def wide_fwd_weights(w):
-    """W [ndir, H, G·H] → the streamed-W forward's B fragments [ndir, H/8,
-    H/16, G, 32, 4] bf16 (``csrc/rnn_mma.cuh``): element [d, ub, ks, g, l,
-    e] is W[d, 16·ks + 2·(l % 4) + e % 2 + 8·(e // 2), g·H + 8·ub + l // 4],
-    lane l's four values of the m16n8k16 B fragment of unit block ub's gate
-    g at k-step ks; the warp owning ub reads them as [ks][g][l]."""
-    ndir, H, GH = w.shape
-    G = GH // H
-    return w.to(torch.bfloat16).reshape(
-        ndir, H // 16, 2, 4, 2, G, H // 8, 8).permute(
-        0, 6, 1, 5, 7, 3, 2, 4).reshape(ndir, H // 8, H // 16, G, 32, 4) \
-        .contiguous()
-
-
-def wide_bwd_weights(w):
-    """W [ndir, H, G·H] → the streamed-W backward's B fragments [ndir, C,
-    H/32, K/16, 4, 32, 4] bf16, U = ``wide_units(H)``, C = ⌈H / U⌉, K =
-    ``wide_bwd_k(H, G)``: block c's operand B[k, j] = W[d, j, g·H + U·c +
-    u] at k = g·U + u (zero past G·U and for units U·c + u ≥ H), element
-    [d, c, ng, ks, q, l, e] = B[16·ks + 2·(l % 4) + e % 2 + 8·(e // 2),
-    32·ng + 8·q + l // 4]: lane l's four values of n-tile q of n-group ng
-    at k-step ks."""
-    ndir, H, GH = w.shape
-    G, U = GH // H, wide_units(H)
-    C, K = -(-H // U), wide_bwd_k(H, G)
-    wb = torch.nn.functional.pad(
-        w.to(torch.bfloat16).reshape(ndir, H, G, H), (0, C * U - H))
-    wb = wb.reshape(ndir, H, G, C, U).permute(0, 3, 2, 4, 1).reshape(
-        ndir, C, G * U, H)
-    wb = torch.nn.functional.pad(wb, (0, 0, 0, K - G * U))
-    return wb.reshape(ndir, C, K // 16, 2, 4, 2, H // 32, 4, 8).permute(
-        0, 1, 6, 2, 7, 8, 4, 3, 5).reshape(
-        ndir, C, H // 32, K // 16, 4, 32, 4).contiguous()
-
-
 # the persistent form: (B columns a unit tile, warps a block, k-steps a
-# hidden unit of the reduction: K = H / 16 forward, 4H / 16 backward)
-PERSIST = {"gru_fwd": (3, 4, 1 / 16), "lstm_bwd": (1, 8, 1 / 4)}
+# hidden unit of the reduction: K = H / 16 forward, G·H / 16 backward,
+# fp32 [ndir·B, H] arrays a slot carries in the workspace, the columns of
+# a product at most where A is staged in shared memory: None, A is read
+# from L2)
+PERSIST = {"gru_fwd": (3, 4, 1 / 16, 0, None),
+           "lstm_bwd": (1, 8, 1 / 4, 2, None),
+           "lstm_fwd": (4, 4, 1 / 16, 1, 12),
+           "gru_bwd": (1, 8, 3 / 16, 1, 4)}
 PASS_ROWS = 32          # rows a pass of the persistent form: two m16 tiles
 PERSIST_MAX_TILES = 4   # tiles a block its kernels are built for
+STAGES = 4              # slots of a warp's staged ring
+STREAM_CHUNK = 2        # k-steps a slot of it where W is streamed
 
 
 class PersistPlan(NamedTuple):
@@ -587,28 +530,43 @@ class PersistPlan(NamedTuple):
     passes: int         # ⌈B / 32⌉ passes of 32 rows a step
     smem: int           # dynamic shared memory a block, bytes
     work: int           # the global workspace, bytes
+    chunk: int          # k-steps a slot of a warp's staged ring (0: A is
+                        # read from L2)
+
+
+def stage_bytes(ncw: int, streamed: bool) -> int:
+    """Bytes of one k-step in a slot of the staged ring: A's two m-tiles of
+    32 lanes × 16 bytes, and B's ``ncw`` columns (32 lanes × 8 bytes each)
+    where the warps stream some of W through the ring."""
+    return 1024 + (ncw * 256 if streamed else 0)
 
 
 def persist_plan(name: str, H: int, B: int, ndir: int,
                  sms: int = SMS) -> PersistPlan:
     """The persistent form's launch (``csrc/rnn_mma.cuh``'s
-    ``persist_plan``; ``name`` "gru_fwd" or "lstm_bwd") on a card of
-    ``sms`` SMs: nt = ⌈(H / 8) / (sms // ndir)⌉ unit tiles a block, NB =
-    ⌈(H / 8) / nt⌉ blocks a direction, one block an SM. Shared memory: the
-    warps' partial sums (warps × 2 m-tiles × nc columns × 512 bytes) and
-    as many k-steps of each warp's share of the B fragments (nc · 256
-    bytes a k-step) as fit beside them in ``SMEM_MAX``. The workspace: the
-    grid barrier's counter (256 bytes), two A buffers of ndir · passes ·
-    32 rows × K k-steps of 16 columns in bf16 (1024 · K bytes a pass and
-    direction), and for the LSTM's backward the carried dc and dh_total
-    (2 × ndir · B × H fp32). Raises where nt would pass
-    ``PERSIST_MAX_TILES`` (a card of fewer than ndir · H / 32 SMs: no
-    kernel is built for it)."""
+    ``persist_plan``; ``name`` a key of ``PERSIST``) on a card of ``sms``
+    SMs: nt = ⌈(H / 8) / (sms // ndir)⌉ unit tiles a block, NB = ⌈(H / 8)
+    / nt⌉ blocks a direction, one block an SM. Shared memory: the warps'
+    partial sums (warps × 2 m-tiles × nc columns × 512 bytes), as many
+    k-steps of each warp's share of the B fragments (nc · 256 bytes a
+    k-step) as fit, and for the LSTM's forwards and the GRU's backward a
+    ring of ``STAGES`` slots a warp of ``chunk`` k-steps of A
+    (``stage_bytes``): beside all of a warp's W, chunks as large as fit up
+    to ⌈kq / STAGES⌉ (kq = ⌈K / warps⌉: then the ring holds the whole of
+    the warp's A), else slots of ``STREAM_CHUNK`` k-steps that carry the
+    streamed B too (a product's columns: the LSTM forward at 16 columns
+    runs two halves of 8) and as many resident k-steps as fit beside them.
+    The workspace: the grid barrier's counter (256 bytes), two A buffers of
+    ndir · passes · 32 rows × K k-steps of 16 columns in bf16 (1024 · K
+    bytes a pass and direction), and the fp32 [ndir · B, H] arrays a slot
+    carries (the LSTM backward: dc and dh_total; the LSTM forward: c; the
+    GRU backward: dh). Raises where nt would pass ``PERSIST_MAX_TILES`` (a
+    card of fewer than ndir · H / 32 SMs: no kernel is built for it)."""
     if not kernel_takes(H) or H <= RESIDENT_MAX:
         raise ValueError(f"persist_plan: hidden size {H} unsupported "
                          f"({RESIDENT_MAX} < H <= {MAX_HIDDEN}, "
                          "H % 32 == 0)")
-    cols, warps, per_unit = PERSIST[name]
+    cols, warps, per_unit, carried, ncmax = PERSIST[name]
     K = int(H * per_unit)
     units = H // 8
     tiles = -(-units // max(sms // ndir, 1))
@@ -620,13 +578,28 @@ def persist_plan(name: str, H: int, B: int, ndir: int,
     blocks = -(-units // tiles)
     nc = cols * tiles
     part = warps * 2 * nc * 512
-    kr = min(-(-K // warps), (SMEM_MAX - part) // (warps * nc * 256))
+    kq = -(-K // warps)
+    chunk = 0
+    if ncmax is None:
+        kr = min(kq, (SMEM_MAX - part) // (warps * nc * 256))
+        smem = part + warps * kr * nc * 256
+    else:
+        room, wk = (SMEM_MAX - part) // warps, nc * 256
+        ncw = nc // -(-nc // ncmax)
+        whole = -(-kq // STAGES)
+        if kq * wk + STAGES * stage_bytes(ncw, False) <= room:
+            kr = kq
+            chunk = min(whole, (room - kq * wk)
+                        // (STAGES * stage_bytes(ncw, False)))
+        else:
+            chunk = STREAM_CHUNK
+            kr = (room - STAGES * chunk * stage_bytes(ncw, True)) // wk
+        smem = part + warps * (kr * wk + STAGES * chunk
+                               * stage_bytes(ncw, kr < kq))
     passes = -(-B // PASS_ROWS)
-    work = 256 + 2 * ndir * passes * 1024 * K
-    if name == "lstm_bwd":
-        work += 2 * ndir * B * H * 4
-    return PersistPlan(blocks, tiles, warps, K, kr, passes,
-                       part + warps * kr * nc * 256, work)
+    work = 256 + 2 * ndir * passes * 1024 * K + carried * ndir * B * H * 4
+    return PersistPlan(blocks, tiles, warps, K, kr, passes, smem, work,
+                       chunk)
 
 
 def _sms(t: torch.Tensor) -> int:
@@ -636,14 +609,12 @@ def _sms(t: torch.Tensor) -> int:
     return SMS
 
 
-def persist_fwd_weights(w, blocks: int, tiles: int):
-    """W [ndir, H, 3H] → the persistent GRU forward's B fragments [ndir,
-    NB, H/16, nt, 3, 32, 4] bf16 (``csrc/gru_fwd.cu``): element [d, c, ks,
-    i, g, l, e] is W[d, 16·ks + 2·(l % 4) + e % 2 + 8·(e // 2), g·H + u]
-    for unit u = 8·(nt·c + i) + l // 4 (zero for u ≥ H), lane l's four
-    values of the m16n8k16 B fragment of gate g of the block's tile i at
-    k-step ks; block c copies its [ks][i][g][l] slice into shared memory
-    as far as it fits."""
+def _fwd_fragments(w, blocks: int, tiles: int):
+    """W [ndir, H, G·H] → a persistent forward's B fragments [ndir, NB,
+    H/16, nt, G, 32, 4] bf16: element [d, c, ks, i, g, l, e] is W[d, 16·ks
+    + 2·(l % 4) + e % 2 + 8·(e // 2), g·H + u] for unit u = 8·(nt·c + i)
+    + l // 4 (zero for u ≥ H), lane l's four values of the m16n8k16 B
+    fragment of gate g of the block's tile i at k-step ks."""
     ndir, H, GH = w.shape
     G = GH // H
     wb = torch.nn.functional.pad(w.to(torch.bfloat16).reshape(ndir, H, G, H),
@@ -653,13 +624,13 @@ def persist_fwd_weights(w, blocks: int, tiles: int):
         ndir, blocks, H // 16, tiles, G, 32, 4).contiguous()
 
 
-def persist_bwd_weights(w, blocks: int, tiles: int):
-    """W [ndir, H, 4H] → the persistent LSTM backward's B fragments [ndir,
-    NB, H/4, nt, 32, 4] bf16 (``csrc/lstm_bwd.cu``): block c's operand
-    B[k, j] = W[d, j, k] over the 4H gate columns k, element [d, c, ks, i,
-    l, e] = W[d, 8·(nt·c + i) + l // 4, 16·ks + 2·(l % 4) + e % 2 +
-    8·(e // 2)] (zero for units j ≥ H): lane l's four values of the B
-    fragment of the block's tile i at k-step ks."""
+def _bwd_fragments(w, blocks: int, tiles: int):
+    """W [ndir, H, G·H] → a persistent backward's B fragments [ndir, NB,
+    G·H/16, nt, 32, 4] bf16: block c's operand B[k, j] = W[d, j, k] over
+    the G·H gate columns k, element [d, c, ks, i, l, e] = W[d, 8·(nt·c +
+    i) + l // 4, 16·ks + 2·(l % 4) + e % 2 + 8·(e // 2)] (zero for units j
+    ≥ H): lane l's four values of the B fragment of the block's tile i at
+    k-step ks."""
     ndir, H, GH = w.shape
     wb = torch.nn.functional.pad(w.to(torch.bfloat16),
                                  (0, 0, 0, 8 * blocks * tiles - H))
@@ -668,10 +639,40 @@ def persist_bwd_weights(w, blocks: int, tiles: int):
         ndir, blocks, GH // 16, tiles, 32, 4).contiguous()
 
 
+def persist_fwd_weights(w, blocks: int, tiles: int):
+    """W [ndir, H, 3H] → the persistent GRU forward's B fragments [ndir,
+    NB, H/16, nt, 3, 32, 4] bf16 (``csrc/gru_fwd.cu``; ``_fwd_fragments``
+    with G = 3: gates r, z, n); block c copies its [ks][i][g][l] slice
+    into shared memory as far as it fits."""
+    return _fwd_fragments(w, blocks, tiles)
+
+
+def persist_lstm_fwd_weights(w, blocks: int, tiles: int):
+    """W [ndir, H, 4H] → the persistent LSTM forward's B fragments [ndir,
+    NB, H/16, nt, 4, 32, 4] bf16 (``csrc/lstm_fwd.cu``; ``_fwd_fragments``
+    with G = 4: gates i, f, o, u); block c copies its [ks][i][g][l] slice
+    into shared memory as far as it fits and stages the rest a step."""
+    return _fwd_fragments(w, blocks, tiles)
+
+
+def persist_bwd_weights(w, blocks: int, tiles: int):
+    """W [ndir, H, 4H] → the persistent LSTM backward's B fragments [ndir,
+    NB, H/4, nt, 32, 4] bf16 (``csrc/lstm_bwd.cu``; ``_bwd_fragments``
+    over the 4H gate columns)."""
+    return _bwd_fragments(w, blocks, tiles)
+
+
+def persist_gru_bwd_weights(w, blocks: int, tiles: int):
+    """W [ndir, H, 3H] → the persistent GRU backward's B fragments [ndir,
+    NB, 3H/16, nt, 32, 4] bf16 (``csrc/gru_bwd.cu``; ``_bwd_fragments``
+    over the 3H gate columns r, z, n)."""
+    return _bwd_fragments(w, blocks, tiles)
+
+
 @functools.lru_cache(maxsize=None)
 def _persist_occupancy(name: str, H: int, ndir: int, B: int,
                        device: int) -> tuple:
-    out = (ctypes.c_longlong * 6)()
+    out = (ctypes.c_longlong * 7)()
     fn = f"csr_{name}_persist_plan"
     with torch.cuda.device(device):
         err = _kernels.call(fn, H, ndir, B, out)
@@ -683,21 +684,21 @@ def _persist_occupancy(name: str, H: int, ndir: int, B: int,
 def persist_occupancy(name: str, H: int, ndir: int, B: int,
                       device=None) -> tuple:
     """(blocks a direction, tiles a block, resident k-steps a warp, shared
-    memory bytes, blocks the card holds at once, workspace bytes) of the
-    persistent form at B rows a direction as the kernel library computes
-    them on ``device``'s card (``csr_{name}_persist_plan``; the current
-    card by default); needs the card."""
+    memory bytes, blocks the card holds at once, workspace bytes, k-steps a
+    slot of the staged ring) of the persistent form at B rows a direction
+    as the kernel library computes them on ``device``'s card
+    (``csr_{name}_persist_plan``; the current card by default); needs the
+    card."""
     index = None if device is None else torch.device(device).index
     return _persist_occupancy(name, H, ndir, B,
                               torch.cuda.current_device() if index is None
                               else index)
 
 
-def _persists(cell: str, form: str, H: int) -> bool:
-    """Whether the bf16 launch of (cell, form) at H is the persistent form:
-    the GRU's forwards and the LSTM's backward past ``RESIDENT_MAX``."""
-    return (kernel_takes(H) and H > RESIDENT_MAX
-            and (cell, form) in (("gru", "fwd"), ("lstm", "bwd")))
+def _persists(H: int) -> bool:
+    """Whether a bf16 launch at H is the persistent form: every form of
+    both cells past ``RESIDENT_MAX``."""
+    return kernel_takes(H) and H > RESIDENT_MAX
 
 
 def _work(cell: str, form: str, w, B: int, compute_dtype):
@@ -705,7 +706,7 @@ def _work(cell: str, form: str, w, B: int, compute_dtype):
     bytes the kernel library's plan gives (``persist_occupancy``; None for
     every other launch, which reads none)."""
     ndir, H = w.shape[:2]
-    if compute_dtype != torch.bfloat16 or not _persists(cell, form, H):
+    if compute_dtype != torch.bfloat16 or not _persists(H):
         return None
     n = persist_occupancy(f"{cell}_{form}", H, ndir, B, w.device)[5]
     return torch.empty(n, dtype=torch.uint8, device=w.device)
@@ -727,25 +728,27 @@ class RnnPlan(NamedTuple):
     clusters: int       # ndir · ⌈B / M⌉
 
 
+def _cluster_only(name: str, H: int) -> None:
+    if H > RESIDENT_MAX:
+        raise ValueError(f"{name}: H = {H} runs the persistent form "
+                         "(persist_plan), no cluster")
+
+
 def gru_units(H: int, form: str) -> int:
     """Units a block of the GRU's cluster kernels: the backward takes 16 up
     to H = 256 (C = H / 16 ≤ 16 blocks, the largest cluster), where 16
     blocks of 16 ran in 0.846× the time of 8 blocks of 32 at bigru's width;
-    the backward's streamed-W form ``wide_units(H)``; everything else UNITS
-    (``csrc/rnn_mma.cuh``'s ``gru_bwd_units``). The forwards past
-    ``RESIDENT_MAX`` run no cluster (``persist_plan``)."""
-    if H > RESIDENT_MAX:
-        if form != "bwd":
-            raise ValueError(f"gru_units: the forward at H = {H} is the "
-                             "persistent form (persist_plan)")
-        return wide_units(H)
+    everything else UNITS (``csrc/rnn_mma.cuh``'s ``gru_bwd_units``). Past
+    ``RESIDENT_MAX`` no form runs a cluster (``persist_plan``)."""
+    _cluster_only("gru_units", H)
     return 16 if form == "bwd" and H <= 256 else UNITS
 
 
 def lstm_units(H: int) -> int:
-    """Units a block of the LSTM's cluster kernels: UNITS, the streamed-W
-    form ``wide_units(H)``."""
-    return wide_units(H) if H > RESIDENT_MAX else UNITS
+    """Units a block of the LSTM's cluster kernels: UNITS (none past
+    ``RESIDENT_MAX``: the persistent form)."""
+    _cluster_only("lstm_units", H)
+    return UNITS
 
 
 def _tc_smem(form: str, H: int, G: int, U: int = UNITS) -> int:
@@ -756,15 +759,9 @@ def _tc_smem(form: str, H: int, G: int, U: int = UNITS) -> int:
     rows of H) and the partial sums of the product's four k-quarters (4 ×
     G gates × ROWS rows of U + 8 fp32); backward, the W slice (H rows of
     G·U), this block's gate gradients (ROWS rows of G·U) and the double
-    buffer of the partial sums (2 × ROWS × H fp32). Past ``RESIDENT_MAX``
-    the streamed-W form's: forward, the double buffer of h alone;
-    backward, the gate gradients (ROWS rows of ``wide_bwd_k``) and
-    ``wide_bwd_bufs`` buffers of partial sums (ROWS × C·U fp32)."""
-    if H > RESIDENT_MAX:
-        if form != "bwd":
-            return 2 * ROWS * (2 * H + 16)
-        return (ROWS * (2 * wide_bwd_k(H, G) + 16)
-                + wide_bwd_bufs(H, G) * _wide_part(H))
+    buffer of the partial sums (2 × ROWS × H fp32). None past
+    ``RESIDENT_MAX`` (the persistent form's is ``persist_plan``'s)."""
+    _cluster_only("_tc_smem", H)
     if form == "bwd":
         return (H + ROWS) * (2 * G * U + 16) + 2 * ROWS * H * 4
     return (G * U + 2 * ROWS) * (2 * H + 16) + 4 * G * ROWS * (U + 8) * 4
@@ -797,24 +794,23 @@ def lstm_plan(H: int, B: int, ndir: int, form: str, sms: int = SMS):
     and running a thread a (row, unit) pair, so each block reads the
     fewest bytes of W from its shared memory a step; 16 rows (one m16
     tile) a cluster; ndir · ⌈B / 16⌉ clusters. Past ``RESIDENT_MAX`` the
-    forward's streamed-W form (C = ⌈H / U⌉ blocks of U = ``wide_units(H)``
-    units) and the backward's persistent form (a ``PersistPlan`` on a card
-    of ``sms`` SMs)."""
+    persistent form of both forms (a ``PersistPlan`` on a card of ``sms``
+    SMs)."""
     _takes("lstm_plan", H)
-    if _persists("lstm", form, H):
-        return persist_plan("lstm_bwd", H, B, ndir, sms)
+    if _persists(H):
+        return persist_plan(f"lstm_{form}", H, B, ndir, sms)
     return _tc_plan(H, B, ndir, lstm_units(H), lstm_smem(form, H))
 
 
 def gru_plan(H: int, B: int, ndir: int, form: str, sms: int = SMS):
     """``lstm_plan`` for the GRU's kernels, three gate columns a unit: C =
-    ⌈H / ``gru_units(H, form)``⌉ blocks a cluster (32 units a block, but
-    16 in the backward up to H = 256, and the backward's streamed-W form's
-    ``wide_units(H)`` past ``RESIDENT_MAX``), 16 rows a cluster; past
-    ``RESIDENT_MAX`` the forwards' persistent form (a ``PersistPlan``)."""
+    H / ``gru_units(H, form)`` blocks a cluster (32 units a block, but 16
+    in the backward up to H = 256), 16 rows a cluster; past
+    ``RESIDENT_MAX`` the persistent form of both forms (a
+    ``PersistPlan``)."""
     _takes("gru_plan", H)
-    if _persists("gru", form, H):
-        return persist_plan("gru_fwd", H, B, ndir, sms)
+    if _persists(H):
+        return persist_plan(f"gru_{form}", H, B, ndir, sms)
     return _tc_plan(H, B, ndir, gru_units(H, form), gru_smem(form, H))
 
 
@@ -856,9 +852,9 @@ def _lstm_launch_args(w, B: int, compute_dtype, form: str):
     p = lstm_plan(H, B, ndir, form, _sms(w))
     C = launch_blocks(p)
     if isinstance(p, PersistPlan):
-        return persist_bwd_weights(w, p.blocks, p.tiles), C
-    if H > RESIDENT_MAX:
-        return wide_fwd_weights(w), C
+        layout = (persist_lstm_fwd_weights if form == "fwd"
+                  else persist_bwd_weights)
+        return layout(w, p.blocks, p.tiles), C
     return (lstm_fwd_tc_weights if form == "fwd" else lstm_bwd_tc_weights)(
         w, C), C
 
@@ -874,9 +870,9 @@ def _gru_launch_args(w, B: int, compute_dtype, form: str):
     p = gru_plan(H, B, ndir, form, _sms(w))
     C = launch_blocks(p)
     if isinstance(p, PersistPlan):
-        return persist_fwd_weights(w, p.blocks, p.tiles), C
-    if H > RESIDENT_MAX:
-        return wide_bwd_weights(w), C
+        layout = (persist_fwd_weights if form == "fwd"
+                  else persist_gru_bwd_weights)
+        return layout(w, p.blocks, p.tiles), C
     return (gru_fwd_tc_weights if form == "fwd" else gru_bwd_tc_weights)(
         w, C), C
 
@@ -920,9 +916,10 @@ def lstm_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
     T, B, H, _ = _check_scan(xs, w, lo, hi, compute_dtype, "lstm", ndir)
     wk, C = _lstm_launch_args(w, B, compute_dtype, "fwd")
     ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
+    work = _work("lstm", "fwd", w, B, compute_dtype)
     _kernels.LSTM_FWD.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), T, B, H, ndir, C,
+        ys.data_ptr(), _ptr(work), T, B, H, ndir, C,
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys
 
@@ -934,10 +931,11 @@ def lstm_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
     wk, C = stream_launch_args("lstm", w, B, compute_dtype)
     ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     carry = torch.empty_like(h0)
+    work = _work("lstm", "fwd", w, B, compute_dtype)
     _kernels.LSTM_FWD_STREAM.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        h0.data_ptr(), ys.data_ptr(), carry.data_ptr(), T, B, H, ndir,
-        emit_t, C, int(compute_dtype == torch.bfloat16),
+        h0.data_ptr(), ys.data_ptr(), carry.data_ptr(), _ptr(work), T, B, H,
+        ndir, emit_t, C, int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(xs))
     return ys, carry
 
@@ -951,9 +949,11 @@ def lstm_scan_train_cuda(xs, w, lo, hi, compute_dtype):
     ys = torch.empty((T, ndir * B, H), dtype=torch.float32, device=xs.device)
     cs = torch.empty_like(ys)
     gates = torch.empty((T, ndir * B, 4 * H), dtype=sdt, device=xs.device)
+    work = _work("lstm", "fwd", w, B, compute_dtype)
     _kernels.LSTM_FWD_TRAIN.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), cs.data_ptr(), gates.data_ptr(), T, B, H, ndir, C,
+        ys.data_ptr(), cs.data_ptr(), gates.data_ptr(), _ptr(work), T, B, H,
+        ndir, C,
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys, cs, gates
 

@@ -294,19 +294,19 @@ any phase fails:
     default) the error printed; the decode CLI with --beam 8 --lm once,
     every beam launch held to the plain version.
     Phases 29-31's walls are printed against a 60 s budget.
-32. the recurrences past H = 512 (``phase_rnn_widths``; in bf16 the
-    GRU's forwards and the LSTM's backward the persistent form, one
-    cooperative launch over the card, the LSTM's forwards and the GRU's
-    backward W streamed from global memory a step; 2 or 4 units a thread
-    in fp32): rows 3-8 of both cells at H = 640, 768, 1024 and 2048, ndir
-    2 and 1, in bf16 at the decode (B = 32, T' = 251), training (B = 24,
-    T' = 256) and stream-window (B = 32, T = 20) shapes and in fp32 at
-    B = 8, T' = 32, against their plain versions: the forward forms at
-    3e-2 / 1e-4, the bf16 backward at phase 26's 5e-2 + 2^-7·max|b| (on
-    the plain forward's residuals and on its own), the stream form at
-    emit_t 0, C/s and T; each call exactly one launch, and in bf16 a
-    second call the same bits; four planted faults a cell in the
-    operand fragments beyond the bars at every H; the plans;
+32. the recurrences past H = 512 (``phase_rnn_widths``; in bf16 every
+    form the persistent form, one cooperative launch over the card, the
+    LSTM's forwards and the GRU's backward with A staged in shared
+    memory; 2 or 4 units a thread in fp32): rows 3-8 of both cells at H =
+    640, 768, 1024 and 2048, ndir 2 and 1, in bf16 at the decode (B = 32,
+    T' = 251), training (B = 24, T' = 256) and stream-window (B = 32, T =
+    20) shapes, at B = 1 and 33 (T = 12), and in fp32 at B = 8, T' = 32,
+    against their plain versions: the forward forms at 3e-2 / 1e-4, the
+    bf16 backward at phase 26's 5e-2 + 2^-7·max|b| (on the plain forward's
+    residuals and on its own), the stream form at emit_t 0, C/s and T;
+    each call exactly one launch, and in bf16 a second call the same bits;
+    four planted faults a cell in the operand fragments beyond the bars at
+    every H; the plans;
     the four bf16 forms in 5 alternating rounds of graph replays beside
     cuDNN's GRU or LSTM at the same H (the kernel line's ``H``
     sub-entries);
@@ -518,10 +518,10 @@ NOTES = {"dw": "replaces _dw_einsum, an XLA einsum (not a Pallas call); "
                       "computes a prefix beam"}
 # the recurrences' "H" sub-entries (phase 32), beside any note above
 WIDE_NOTE = ("H: the kernel at hidden sizes 640, 768, 1024 and 2048 (the "
-             "GRU's forwards and the LSTM's backward the persistent form: "
-             "one cooperative launch over the card, W in its blocks' "
-             "shared memory; the others W streamed from global memory at "
-             "each step), timed in phase 32 "
+             "persistent form: one cooperative launch over the card, W in "
+             "its blocks' shared memory as far as it fits; the LSTM's "
+             "forwards and the GRU's backward stage A there at each "
+             "step), timed in phase 32 "
              "in bf16 (the residual-free form at B = 32, T' = 251, the "
              "training pair at B = 24, T' = 256, the window at B = 32, T = "
              "20, the GRU's forward-only) beside cuDNN at the same H; "
@@ -817,8 +817,8 @@ def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
                    form: str) -> None:
     """The bf16 kernel's plan of ``cell`` ("gru" or "lstm") at this shape,
     as the library and the card take it: a cluster plan, or past H = 512
-    for the GRU's forwards and the LSTM's backward the persistent form's
-    (its grid at most the blocks the card holds at once)."""
+    the persistent form's (its grid at most the blocks the card holds at
+    once)."""
     from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
 
     p = getattr(rnn_cuda, f"{cell}_plan")(
@@ -828,12 +828,14 @@ def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
         print(f"[{tag}] {cell} {form} plan at H={H}, B={B}, ndir={ndir}: "
               f"persistent, {p.blocks} blocks a direction of {p.tiles} unit "
               f"tiles, {p.warps} warps, {p.resident} of each warp's "
-              f"{-(-p.ksteps // p.warps)} k-steps resident, {p.passes} "
-              f"pass(es) of 32 rows, {p.smem} bytes of shared memory a "
-              f"block, {p.work} bytes of workspace; the card holds "
+              f"{-(-p.ksteps // p.warps)} k-steps resident, "
+              + (f"A staged through rings of {p.chunk}-k-step slots, "
+                 if p.chunk else "A read from L2, ")
+              + f"{p.passes} pass(es) of 32 rows, {p.smem} bytes of shared "
+              f"memory a block, {p.work} bytes of workspace; the card holds "
               f"{got[4]} blocks at once")
         check(got[:4] + got[5:] == (p.blocks, p.tiles, p.resident, p.smem,
-                                    p.work),
+                                    p.work, p.chunk),
               f"{tag}: the library's persistent plan {got} != the "
               f"plan's {p}")
         check(got[4] >= ndir * p.blocks, f"{tag}: the card cannot hold "
@@ -844,10 +846,7 @@ def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
          else rnn_cuda.lstm_units(H))
     print(f"[{tag}] {cell} {form} plan at H={H}, B={B}, ndir={ndir}: "
           f"cluster C = "
-          f"{p.cluster} blocks of {U} units"
-          + (f" (W streamed; the last block {H - U * (p.cluster - 1)})"
-             if H > rnn_cuda.RESIDENT_MAX else "")
-          + f", M = {p.rows} rows,"
+          f"{p.cluster} blocks of {U} units, M = {p.rows} rows,"
           f" {p.smem} bytes of shared memory a block, {p.clusters} "
           f"clusters; "
           f"the card holds {n} at once")
@@ -3637,7 +3636,7 @@ def phase_glu(root, vocab, wavs, audio_s, data, index, dev, rng) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 32-33: the recurrences past H = 512 (W streamed)
+# phases 32-33: the recurrences past H = 512 (the persistent form)
 # ---------------------------------------------------------------------------
 
 WIDE_H = (640, 768, 1024, 2048)   # phase 32's hidden sizes
@@ -3648,10 +3647,14 @@ WIDE_PATH_H = 1024                # phase 33's model.rnn_hidden
 WIDE_DW_H = (1024, 2048)          # dW checked on phase 32's wide LSTM
 WIDE_BUDGET_S = 60.0              # phases 32-33 together
 # phase 33's launches of the persistent form's kernels at H = 1024:
-# uni_gru's evaluate (4 layers), training (24 steps of 4 layers) and its
-# stream CLI's windows; bilstm_deep's training backward (24 steps of 5)
-WIDE_PATH_LAUNCHES = {"gru_fwd": 4, "gru_fwd_train": 96,
-                      "gru_fwd_stream": 124, "lstm_bwd": 120}
+# uni_gru's evaluate (4 layers), training (24 steps of 4 layers, forward
+# and backward) and its stream CLI's windows; bilstm_deep's decode (2
+# batches of 5 layers), training (24 steps of 5, forward and backward)
+# and its stream CLI's windows
+WIDE_PATH_LAUNCHES = {"gru_fwd": 4, "gru_fwd_train": 96, "gru_bwd": 96,
+                      "gru_fwd_stream": 124, "lstm_fwd": 10,
+                      "lstm_fwd_train": 120, "lstm_bwd": 120,
+                      "lstm_fwd_stream": 155}
 # the kernels phase 32 holds, by cell: (residual-free, training, backward,
 # stream), the kernel line's names
 WIDE_KERNELS = {cell: (f"{cell}_fwd", f"{cell}_fwd_train", f"{cell}_bwd",
@@ -3664,13 +3667,11 @@ def wide_faults(rc, cell: str) -> dict:
     ``ks-ring`` the fragments one k-step late (an off-by-one in the
     prefetch ring, or in a warp's resident and streamed k-steps), and
     ``neighbour`` one owner's fragments swapped with the next one's (a
-    wrong map of units to warps or blocks): in the persistent form
-    (``persist_fwd_weights`` of the GRU's forwards, ``persist_bwd_weights``
-    of the LSTM's backward) block 0's slice and block 1's; in the
-    streamed-W clusters (``wide_fwd_weights`` of the LSTM's forwards,
-    ``wide_bwd_weights`` of the GRU's backward) a unit block's or an
-    n-group's. → {name: (form, the layout function's name, the faulty
-    layout)}."""
+    wrong map of units to warps or blocks): block 0's slice and block 1's
+    in the persistent layouts of all four kernels (``persist_fwd_weights``
+    and ``persist_gru_bwd_weights`` of the GRU, ``persist_lstm_fwd_weights``
+    and ``persist_bwd_weights`` of the LSTM). → {name: (form, the layout
+    function's name, the faulty layout)}."""
     import torch
 
     def swap(t, dim):
@@ -3683,10 +3684,10 @@ def wide_faults(rc, cell: str) -> dict:
         return {"ks-ring": (attr, lambda *a: f(*a).roll(1, dims=ks_dim)),
                 "neighbour": (attr, lambda *a: swap(f(*a), owner_dim))}
 
-    fwd = (faults("persist_fwd_weights", 2, 1) if cell == "gru"
-           else faults("wide_fwd_weights", 2, 1))
-    bwd = (faults("persist_bwd_weights", 2, 1) if cell == "lstm"
-           else faults("wide_bwd_weights", 3, 2))
+    fwd = faults("persist_fwd_weights" if cell == "gru"
+                 else "persist_lstm_fwd_weights", 2, 1)
+    bwd = faults("persist_bwd_weights" if cell == "lstm"
+                 else "persist_gru_bwd_weights", 2, 1)
     return {**{f"fwd {n}": ("fwd", *v) for n, v in fwd.items()},
             **{f"bwd {n}": ("bwd", *v) for n, v in bwd.items()}}
 
@@ -3709,9 +3710,11 @@ def wide_case(rc, dev, rng, cell: str, H: int, ndir: int, cdt, shapes: dict,
     form at shapes["decode"], the training forward and the backward (on
     the plain forward's residuals and on the kernel's own) at
     shapes["train"], the stream form at shapes["stream"] (emit_t 0, C/s
-    and T, h0 nonzero on the forward rows); each shape (B, T', lengths).
-    Each kernel call must launch its kernel exactly once (``counts`` adds
-    them up), and in bf16 a second call must give the same bits. →
+    and T, h0 nonzero on the forward rows); each shape (B, T', lengths);
+    in bf16 every form again at B = 1 and 33 (one m16 tile, and two passes
+    of 32 rows), T = 12, ragged. Each kernel call must launch its kernel
+    exactly once (``counts`` adds them up), and in bf16 a second call must
+    give the same bits. →
     {kernel name: (max abs error, share of its bar), ...} and the inputs
     under "inputs"."""
     import torch
@@ -3801,17 +3804,45 @@ def wide_case(rc, dev, rng, cell: str, H: int, ndir: int, cdt, shapes: dict,
         held(names[3], once(names[3], lambda e=e: kernel(
             xs, w, lo, hi, h0, cdt, e)), plain(xs, w, lo, hi, h0, cdt, e))
     inputs["stream"] = (xs, lo, hi, h0, emit, lens)
+    for B in ((1, 33) if bf16 else ()):
+        T = 12
+        lens = torch.full((B,), float(T))
+        if B > 2:
+            lens[1], lens[2] = 0, T // 2
+        lo, hi = wide_rows(lens, T, ndir, dev)
+        xs = f32(T, ndir * B, G * H).to(rc.stream_dtype(cdt))
+        g = f32(T, ndir * B, H)
+        h0 = torch.zeros(ndir * B, Cw, device=dev)
+        h0[:B] = 0.5 * f32(B, Cw)
+        held(names[0], once(names[0], lambda: getattr(
+            rc, f"{cell}_scan_cuda")(xs, w, lo, hi, cdt)), getattr(
+            rc, f"{cell}_scan_plain")(xs, w, lo, hi, cdt))
+        res_p = getattr(rc, f"{cell}_scan_train_plain")(xs, w, lo, hi, cdt)
+        held(names[1], once(names[1], lambda: fwd(xs, w, lo, hi, cdt)),
+             res_p)
+        if cell == "gru":
+            a = (res_p[1], w, lo, hi, res_p[0], g, cdt)
+            want = bwd_p(res_p[1], w, lo, hi, rc.shift_prev(res_p[0]), g,
+                         cdt)
+        else:
+            a = (res_p[2], w, lo, hi, res_p[1], g, cdt)
+            want = bwd_p(*a)
+        held(names[2], once(names[2], lambda: bwd(*a)), want, gbar=True)
+        held(names[3], once(names[3], lambda: kernel(
+            xs, w, lo, hi, h0, cdt, T // 2)), plain(xs, w, lo, hi, h0, cdt,
+                                                     T // 2))
     out["inputs"] = inputs
     return out
 
 
 def phase_rnn_widths(dev, rng) -> dict:
-    """Phase 32: rows 3-8 past H = 512, W streamed. At each H in ``WIDE_H``
-    and for both cells: every form (residual-free, training forward,
-    backward on the plain forward's residuals and on its own, stream at
-    emit_t 0, C/s and T) against its plain version, ndir 2 and 1, in bf16
-    at the decode (B = 32, T' = 251), training (B = 24, T' = 256) and
-    stream-window (B = 32, T = 20) shapes and in fp32 at B = 8, T' = 32
+    """Phase 32: rows 3-8 past H = 512 (the persistent form in bf16). At
+    each H in ``WIDE_H`` and for both cells: every form (residual-free,
+    training forward, backward on the plain forward's residuals and on its
+    own, stream at emit_t 0, C/s and T) against its plain version, ndir 2
+    and 1, in bf16 at the decode (B = 32, T' = 251), training (B = 24, T'
+    = 256) and stream-window (B = 32, T = 20) shapes and at B = 1 and 33
+    (``wide_case``), and in fp32 at B = 8, T' = 32
     (the FMA kernels read all of W a row a step); bars: the forward forms
     3e-2 (bf16) and 1e-4 (fp32), the bf16 backward phase 26's 5e-2 +
     2^-7·max|b|, the fp32 backward 1e-4; each call one launch, exactly;
@@ -3994,7 +4025,8 @@ def phase_rnn_widths(dev, rng) -> dict:
 def phase_rnn_wide_path(root, vocab, wavs, audio_s, data, index, dev,
                         rng) -> dict:
     """Phase 33: the wide recurrences through the CLIs at
-    ``model.rnn_hidden`` = ``WIDE_PATH_H`` (W streamed), ``auto`` routing:
+    ``model.rnn_hidden`` = ``WIDE_PATH_H`` (the persistent form), ``auto``
+    routing:
     bilstm_deep (five BiLSTM layers of 1024) through the decode CLI on the
     64 wavs with exact launches and 4 wavs' logits card vs CPU; through
     the train CLI in the default data mode (``phase_cached_preset``: 24
@@ -4019,7 +4051,7 @@ def phase_rnn_wide_path(root, vocab, wavs, audio_s, data, index, dev,
     sets = (f"model.rnn_hidden={WIDE_PATH_H}",)
     check(rnn_cuda.kernel_takes(WIDE_PATH_H)
           and WIDE_PATH_H > rnn_cuda.RESIDENT_MAX,
-          "phase 33's width is not one of the streamed-W form's")
+          "phase 33's width is not one of the persistent form's")
     out = {}
     ckpt = write_checkpoint(root, LSTM_PRESET, rng, over, name="lstm_wide")
     dec, _ = phase_decode("wide-lstm-decode", ckpt, vocab, wavs, audio_s,

@@ -854,10 +854,9 @@ def test_dw_plan_tiles_k_by_whole_wgmma_steps(dev):
     assert uni.tiles == 6 and uni[:3] == (24, 2, 128) and uni.split == 8
 
 
-# past H = 512 (the persistent form of the GRU's forwards and the LSTM's
-# backward, the streamed-W clusters of the others): (cell, T, B, H, ndir)
-# — a short last block (544, 1056), one partial-sum buffer (1792, 2048),
-# B around the 16-row group
+# past H = 512 (the persistent form of every bf16 form): (cell, T, B, H,
+# ndir) — a short last block (544, 1056), streamed k-steps of W (1536 at
+# ndir 1, 1792 and 2048 at ndir 2), B around the 16-row group
 WIDE_CASES = [("gru", 9, 3, 544, 2), ("gru", 7, 17, 768, 1),
               ("gru", 5, 16, 2048, 2), ("gru", 40, 5, 1056, 2),
               ("lstm", 9, 3, 640, 2), ("lstm", 7, 17, 1024, 1),
@@ -925,7 +924,8 @@ def _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, emit, plain,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
 def test_wide_kernels_match_plain(dev, cell, T, B, H, ndir, dtype, tol):
-    """Past H = 512 (W streamed in bf16, several units a thread in fp32)
+    """Past H = 512 (the persistent form in bf16, several units a thread
+    in fp32)
     every form against its plain version: the residual-free and training
     forwards, the backward, the stream form at emit_t T // 2; one launch a
     call. Bars: 1e-4 fp32; bf16 3e-2 forward, and 5e-2 + 2⁻⁷ of the
@@ -960,10 +960,9 @@ def test_wide_kernels_match_plain(dev, cell, T, B, H, ndir, dtype, tol):
 def test_wide_planted_faults_exceed_the_bars(dev, cell, H, monkeypatch):
     """The bf16 bars catch what a bug in the operand fragments would do:
     the B fragments one k-step late, and one owner's fragments swapped
-    with the next one's: in the persistent form (the GRU's forwards, the
-    LSTM's backward) block 0's slice and block 1's, in the streamed-W
-    clusters (the LSTM's forwards, the GRU's backward) a unit block's or
-    an n-group's."""
+    with the next one's (block 0's slice and block 1's), in the
+    persistent layouts of all four kernels: the GRU's forwards and
+    backward, the LSTM's forwards and backward."""
     import chainer_speech_recognition_tpu_torch.ops.rnn_cuda as rc
 
     dtype = torch.bfloat16
@@ -979,9 +978,9 @@ def test_wide_planted_faults_exceed_the_bars(dev, cell, H, monkeypatch):
 
     if cell == "gru":
         faults = (faults("persist_fwd_weights", "train", 2, 1)
-                  + faults("wide_bwd_weights", "bwd", 3, 2))
+                  + faults("persist_gru_bwd_weights", "bwd", 2, 1))
     else:
-        faults = (faults("wide_fwd_weights", "train", 2, 1)
+        faults = (faults("persist_lstm_fwd_weights", "train", 2, 1)
                   + faults("persist_bwd_weights", "bwd", 2, 1))
     for attr, layout, form in faults:
         with monkeypatch.context() as m:
@@ -1000,21 +999,23 @@ def test_wide_planted_faults_exceed_the_bars(dev, cell, H, monkeypatch):
 @pytest.mark.parametrize("H", [544, 1024, 2048])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_persist_forms_match_plain(dev, cell, H, B, ndir):
-    """The persistent form (the GRU's three forwards, the LSTM's backward)
-    at a short last block (544), the training width (1024) and the widest
-    (2048: one, two or four tiles a block, streamed k-steps at ndir 2),
-    one row and 33 rows (two passes of 32): every form against its plain
-    version at test_wide_kernels_match_plain's bf16 bars, one launch a
-    call, a second call bitwise the first, and a CUDA graph's replay
-    bitwise the eager call."""
+    """The persistent form (every bf16 form of both cells: the three
+    forwards and the backward; A staged in shared memory in the LSTM's
+    forwards and the GRU's backward) at a short last block (544), the
+    training width (1024) and the widest (2048: one, two or four tiles a
+    block, streamed k-steps at ndir 2), one row and 33 rows (two passes of
+    32): every form against its plain version at
+    test_wide_kernels_match_plain's bf16 bars, one launch a call, a second
+    call bitwise the first, and a CUDA graph's replay bitwise the eager
+    call."""
     import chainer_speech_recognition_tpu_torch.ops.rnn_cuda as rc
 
     dtype, T = torch.bfloat16, 7
     xs, w, lo, hi, g, h0 = _wide_inputs(dev, cell, T, B, H, ndir, dtype,
                                         H + B + ndir)
-    forms = ("fwd", "train", "stream") if cell == "gru" else ("bwd",)
-    names = {"fwd": "gru_fwd", "train": "gru_fwd_train",
-             "stream": "gru_fwd_stream", "bwd": "lstm_bwd"}
+    forms = ("fwd", "train", "stream", "bwd")
+    names = {"fwd": f"{cell}_fwd", "train": f"{cell}_fwd_train",
+             "stream": f"{cell}_fwd_stream", "bwd": f"{cell}_bwd"}
     want = _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, 3, True)
     for form in forms:
         fn = lambda form=form: _wide_forms(rc, cell, xs, w, lo, hi, g, h0,
@@ -1042,9 +1043,10 @@ def test_persist_forms_match_plain(dev, cell, H, B, ndir):
 
 
 def test_persist_plan_on_card(dev):
-    """For every width past 512 and both direction counts, the library's
-    persistent plan on this card is the wrapper's (``persist_plan`` at the
-    card's SM count), workspace bytes included, and the card holds all of
+    """For every width past 512, both direction counts and all four
+    kernels, the library's persistent plan on this card is the wrapper's
+    (``persist_plan`` at the card's SM count), workspace bytes and the
+    staged ring's chunk included, and the card holds all of
     its blocks at once, or (a card of fewer than ndir · H / 32 SMs) both
     refuse; a launch given another block count raises instead of
     running."""
@@ -1064,7 +1066,8 @@ def test_persist_plan_on_card(dev):
                     p = rc.persist_plan(name, H, B, ndir, sms)
                     got = rc.persist_occupancy(name, H, ndir, B)
                     assert got[:4] + got[5:] == (p.blocks, p.tiles,
-                                                 p.resident, p.smem, p.work)
+                                                 p.resident, p.smem, p.work,
+                                                 p.chunk)
                 assert got[4] >= ndir * p.blocks, (name, H, ndir, got)
     xs, w, lo, hi, g, h0 = _wide_inputs(dev, "gru", 4, 3, 1024, 2,
                                         torch.bfloat16, 0)

@@ -19,8 +19,7 @@ from chainer_speech_recognition_tpu_torch import _kernels
 from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
     RESIDENT_MAX, ROWS, UNITS, gru_bwd_tc_weights, gru_fwd_tc_weights,
-    gru_plan, gru_smem, gru_units, kernel_takes, lstm_plan, lstm_smem,
-    wide_units)
+    gru_plan, gru_smem, gru_units, kernel_takes, lstm_plan, lstm_smem)
 
 HIDDEN = [H for H in range(1, 4097) if kernel_takes(H)]
 SMEM_LIMIT = 232448     # shared memory a block may use on an H100 (227 KB)
@@ -29,21 +28,19 @@ SMEM_LIMIT = 232448     # shared memory a block may use on an H100 (227 KB)
 @pytest.mark.parametrize("form", ["fwd", "bwd"])
 @pytest.mark.parametrize("H", HIDDEN)
 def test_plan_fits_every_hidden_size(H, form):
-    """For every H the kernels take and B = 1 .. 96: a block's slice of W
-    (resident up to H = 512) and its buffers fit the H100's 227 KB a
+    """For every H the kernels take and B = 1 .. 96: up to H = 512 a
+    block's slice of W (resident) and its buffers fit the H100's 227 KB a
     block; the cluster has C ≤ 16 blocks (the largest cluster Hopper
-    schedules) of 16 or 32 units each up to H = 512, of the backward's
-    streamed-W form's U = 8·⌈H / 128⌉ above (the last block the rest, a
-    multiple of 8), so the units fill n8 tiles; one m16 tile of rows a
-    cluster; the grid holds every row. The forwards past H = 512 take the
-    persistent form: at most one block an SM of the H100's 132 in all,
-    whole n8 tiles a block covering the H units, passes of 32 rows
-    covering B."""
+    schedules) of 16 or 32 units each, so the units fill n8 tiles; one m16
+    tile of rows a cluster; the grid holds every row. Both forms past H =
+    512 take the persistent form: at most one block an SM of the H100's
+    132 in all, whole n8 tiles a block covering the H units, shared memory
+    within 227 KB, passes of 32 rows covering B."""
     for ndir in ((1, 2) if form == "fwd" else (2,)):
         for B in range(1, 97):
             p = gru_plan(H, B, ndir, form)
-            if form == "fwd" and H > RESIDENT_MAX:
-                assert p == rnn_cuda.persist_plan("gru_fwd", H, B, ndir)
+            if H > RESIDENT_MAX:
+                assert p == rnn_cuda.persist_plan(f"gru_{form}", H, B, ndir)
                 assert ndir * p.blocks <= rnn_cuda.SMS
                 assert (p.blocks - 1) * p.tiles < H // 8 <= \
                     p.blocks * p.tiles
@@ -52,12 +49,7 @@ def test_plan_fits_every_hidden_size(H, form):
                 continue
             U = gru_units(H, form)
             assert 1 <= p.cluster <= 16
-            if H <= RESIDENT_MAX:
-                assert p.cluster * U == H and U in (16, UNITS)
-            else:
-                assert U == wide_units(H) and U % 8 == 0
-                assert p.cluster == -(-H // U)
-                assert 0 < H - (p.cluster - 1) * U <= U
+            assert p.cluster * U == H and U in (16, UNITS)
             assert p.rows == ROWS == 16
             assert p.smem == gru_smem(form, H)
             assert p.smem <= SMEM_LIMIT and p.smem % 16 == 0
@@ -87,16 +79,15 @@ def test_plan_by_hand(H, form, want):
 def test_units_a_block():
     """The backward takes 16 units a block up to H = 256 and 32 above (16
     would need more than 16 blocks a cluster); the forward always 32; past
-    H = 512 the backward takes the streamed-W form's 8·⌈H / 128⌉ and the
-    forward runs no cluster (the persistent form)."""
+    H = 512 neither form runs a cluster (the persistent form)."""
     for H in HIDDEN:
         if H > RESIDENT_MAX:
-            assert gru_units(H, "bwd") == wide_units(H) == 8 * -(-H // 128)
-            with pytest.raises(ValueError, match="persistent"):
-                gru_units(H, "fwd")
-        else:
-            assert gru_units(H, "fwd") == UNITS == 32
-            assert gru_units(H, "bwd") == (16 if H <= 256 else 32)
+            for form in ("fwd", "bwd"):
+                with pytest.raises(ValueError, match="persistent"):
+                    gru_units(H, form)
+            continue
+        assert gru_units(H, "fwd") == UNITS == 32
+        assert gru_units(H, "bwd") == (16 if H <= 256 else 32)
         assert -(-H // gru_units(H, "bwd")) <= 16
 
 
@@ -111,7 +102,7 @@ def test_plan_refuses_sizes_the_kernels_do_not_take():
 def test_lstm_plan_is_unchanged(form):
     """The LSTM's plan after its generalisation to a gate count: the byte
     counts it had before, written out, for every H of the resident form
-    and a few B (the streamed-W form's in tests/test_torch_rnn_wide.py)."""
+    and a few B (the persistent form's in tests/test_torch_rnn_wide.py)."""
     for H in (H for H in HIDDEN if H <= RESIDENT_MAX):
         want = ((H + 16) * (8 * 32 + 16) + 2 * 16 * H * 4 if form == "bwd"
                 else (4 * 32 + 2 * 16) * (2 * H + 16) + 16 * 16 * 40 * 4)

@@ -12,7 +12,7 @@ import torch
 from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
 from chainer_speech_recognition_tpu_torch.ops.rnn_cuda import (
     RESIDENT_MAX, ROWS, UNITS, kernel_takes, lstm_bwd_tc_weights,
-    lstm_fwd_tc_weights, lstm_plan, lstm_smem, lstm_units, wide_units)
+    lstm_fwd_tc_weights, lstm_plan, lstm_smem, lstm_units)
 
 HIDDEN = [H for H in range(1, 4097) if kernel_takes(H)]
 SMEM_LIMIT = 232448     # shared memory a block may use on an H100 (227 KB)
@@ -25,23 +25,25 @@ def test_kernel_takes_keeps_its_range():
 @pytest.mark.parametrize("form", ["fwd", "bwd"])
 @pytest.mark.parametrize("H", HIDDEN)
 def test_plan_fits_every_hidden_size(H, form):
-    """For every H the kernels take and B = 1 .. 96: a block's slice of W
-    (resident up to H = 512) and its buffers fit the H100's 227 KB a
+    """For every H the kernels take and B = 1 .. 96: up to H = 512 a
+    block's slice of W (resident) and its buffers fit the H100's 227 KB a
     block; the cluster has C ≤ 16 blocks (the largest cluster Hopper
-    schedules) of 32 units each up to H = 512, of the forward's
-    streamed-W form's U = 8·⌈H / 128⌉ above (the last block the rest, a
-    multiple of 8), so the units fill n8 tiles; one m16 tile of rows a
-    cluster; the grid holds every row. The backward past H = 512 takes the
-    persistent form: at most one block an SM of the H100's 132 in all,
-    whole n8 tiles a block covering the H units, passes of 32 rows
+    schedules) of 32 units each, so the units fill n8 tiles; one m16 tile
+    of rows a cluster; the grid holds every row. Both forms past H = 512
+    take the persistent form (no cluster, ``lstm_units`` refuses): at
+    most one block an SM of the H100's 132 in all, whole n8 tiles a block
+    covering the H units, shared memory within 227 KB, passes of 32 rows
     covering B."""
-    U = lstm_units(H)
-    assert U == (UNITS if H <= RESIDENT_MAX else wide_units(H))
+    if H > RESIDENT_MAX:
+        with pytest.raises(ValueError, match="persistent"):
+            lstm_units(H)
+    else:
+        assert lstm_units(H) == UNITS
     for ndir in ((1, 2) if form == "fwd" else (2,)):
         for B in range(1, 97):
             p = lstm_plan(H, B, ndir, form)
-            if form == "bwd" and H > RESIDENT_MAX:
-                assert p == rnn_cuda.persist_plan("lstm_bwd", H, B, ndir)
+            if H > RESIDENT_MAX:
+                assert p == rnn_cuda.persist_plan(f"lstm_{form}", H, B, ndir)
                 assert ndir * p.blocks <= rnn_cuda.SMS
                 assert (p.blocks - 1) * p.tiles < H // 8 <= \
                     p.blocks * p.tiles
@@ -49,11 +51,7 @@ def test_plan_fits_every_hidden_size(H, form):
                 assert (p.passes - 1) * 32 < B <= p.passes * 32
                 continue
             assert 1 <= p.cluster <= 16
-            if H <= RESIDENT_MAX:
-                assert p.cluster * UNITS == H and UNITS % 8 == 0
-            else:
-                assert p.cluster == -(-H // U) and U % 8 == 0
-                assert 0 < H - (p.cluster - 1) * U <= U
+            assert p.cluster * UNITS == H and UNITS % 8 == 0
             assert p.rows == ROWS == 16
             assert p.smem == lstm_smem(form, H)
             assert p.smem <= SMEM_LIMIT and p.smem % 16 == 0

@@ -5,8 +5,9 @@ package's ``birnn_pallas``, ``birnn_pallas_stream`` and custom VJP in
 interpret mode, for both cells, ndir 1 and 2, fp32 and bf16; a two-layer
 ``bilstm_deep`` at H = 640 (logits and one train step) against the JAX
 model with weights carried over by the bridge; and the host side of the
-streamed-W kernels (``csrc/rnn_mma.cuh``): the operand-fragment layouts
-at the flat index the kernels read, and the plan's geometry. The kernels
+persistent kernels (``csrc/rnn_mma.cuh``): the operand-fragment layouts
+at the flat index the kernels read, and the plan's geometry, the staged
+ring of A included. The kernels
 themselves need a card (``tests/test_torch_cuda.py``, ``chip_smoke.py``
 phase 32).
 
@@ -259,62 +260,104 @@ def test_bilstm_deep_wide_step_matches_jax(lstm_pair):
 
 
 # ---------------------------------------------------------------------------
-# the streamed-W kernels' host side
+# the persistent kernels' host side
 
 WIDE = [H for H in range(544, rc.MAX_HIDDEN + 1, 32)]
+# the kernels that stage A in shared memory: (cell, form) of their plans
+STAGED = (("lstm", "fwd"), ("gru", "bwd"))
 
 
 @pytest.mark.parametrize("H", WIDE)
 def test_streamed_geometry(H):
-    """The streamed-W clusters (the GRU's backward, the LSTM's forwards):
-    U = 8·⌈H / 128⌉ units a block in C = ⌈H / U⌉ ≤ 16 blocks, the last
-    owning a positive multiple of 8; the forward a warp per unit block;
-    the backward's reduction extent covers G·U in whole pairs of k-steps;
-    shared memory within 227 KB, one partial-sum buffer only where two do
-    not fit. The other two (the GRU's forwards, the LSTM's backward) take
-    the persistent form's plan."""
-    U = rc.wide_units(H)
-    for cell, form in (("gru", "bwd"), ("lstm", "fwd")):
-        p = getattr(rc, f"{cell}_plan")(H, 17, 2, form)
-        assert p.cluster == -(-H // U) <= 16 and U % 8 == 0
-        assert 0 < H - U * (p.cluster - 1) <= U
-        assert (H - U * (p.cluster - 1)) % 8 == 0
-        assert p.rows == rc.ROWS and p.clusters == 2 * 2
-        assert p.smem <= rc.SMEM_MAX and p.smem % 16 == 0
-    for cell, form in (("gru", "fwd"), ("lstm", "bwd")):
-        assert getattr(rc, f"{cell}_plan")(H, 17, 2, form) == \
-            rc.persist_plan(f"{cell}_{form}", H, 17, 2)
-    assert 4 * U <= 512                       # the LSTM forward's threads
-    K = rc.wide_bwd_k(H, 3)                   # the GRU backward's
-    assert K % 32 == 0 and 3 * U <= K < 3 * U + 32
-    part = rc.ROWS * -(-H // U) * U * 4
-    bufs = rc.wide_bwd_bufs(H, 3)
-    assert rc._tc_smem("bwd", H, 3) == rc.ROWS * (2 * K + 16) + bufs * part
-    assert rc._tc_smem("fwd", H, 4) == 2 * rc.ROWS * (2 * H + 16)
-    assert bufs == 2 or rc.ROWS * (2 * K + 16) + 2 * part > rc.SMEM_MAX
+    """Every (cell, form) past H = 512 takes the persistent form's plan;
+    the two that stage A (the LSTM's forwards, the GRU's backward) at
+    ndir 1 and 2 and B ∈ {1, 24, 33}: the ring has ``STAGES`` slots a warp
+    of ``chunk`` ≥ 1 k-steps; where a warp keeps all of its kq = ⌈K /
+    warps⌉ k-steps of W, its slots hold A alone (1024 bytes a k-step) and
+    a chunk is as large as fits up to ⌈kq / STAGES⌉, which holds the whole
+    of its A; where W does not fit, the slots are ``STREAM_CHUNK`` k-steps
+    of A and the streamed B (a product's columns: the LSTM forward at 16
+    columns runs halves of 8), and the resident k-steps are as many as fit
+    beside them (at least one); shared memory = the partial sums + the resident W +
+    the rings, within ``SMEM_MAX``; the workspace holds the counter, two A
+    buffers and the one carried fp32 [ndir·B, H] array (c, or dh)."""
+    for cell in ("gru", "lstm"):
+        for form in ("fwd", "bwd"):
+            p = getattr(rc, f"{cell}_plan")(H, 17, 2, form)
+            assert p == rc.persist_plan(f"{cell}_{form}", H, 17, 2)
+            if (cell, form) not in STAGED:
+                assert p.chunk == 0
+                continue
+            cols, warps, per_unit, carried, ncmax = \
+                rc.PERSIST[f"{cell}_{form}"]
+            for ndir in (1, 2):
+                for B in (1, 24, 33):
+                    q = rc.persist_plan(f"{cell}_{form}", H, B, ndir)
+                    K, nc = int(H * per_unit), cols * q.tiles
+                    kq = -(-K // warps)
+                    ncw = nc if nc <= ncmax else nc // 2
+                    part = warps * 2 * nc * 512
+                    room = (rc.SMEM_MAX - part) // warps
+                    assert q.chunk >= 1 and 1 <= q.resident <= kq
+                    if q.resident == kq:
+                        slot = q.chunk * 1024
+                        assert kq * nc * 256 + rc.STAGES * slot <= room
+                        assert q.chunk == -(-kq // rc.STAGES) or (
+                            kq * nc * 256 + rc.STAGES * (slot + 1024)
+                            > room)
+                    else:
+                        slot = rc.STREAM_CHUNK * (1024 + ncw * 256)
+                        assert q.chunk == rc.STREAM_CHUNK
+                        assert kq * nc * 256 + rc.STAGES * 1024 > room
+                        assert (q.resident + 1) * nc * 256 + \
+                            rc.STAGES * slot > room
+                    assert q.smem == part + warps * (
+                        q.resident * nc * 256 + rc.STAGES * slot)
+                    assert q.smem <= rc.SMEM_MAX and q.smem % 16 == 0
+                    assert q.work == 256 + 2 * ndir * q.passes * 1024 * K \
+                        + carried * ndir * B * H * 4
 
 
 @pytest.mark.parametrize("H,want", [
-    (640, (40, 16, 160, 2, 41472, 87296)),
-    (768, (48, 16, 192, 2, 49664, 104704)),
-    (1024, (64, 16, 256, 2, 66048, 139520)),
-    (2048, (128, 16, 512, 1, 131584, 147712))])
+    (640, ((40, 2, 10, 3, 163840, 286976),
+           (40, 2, 15, 4, 208896, 614656))),
+    (768, ((48, 2, 12, 3, 180224, 344320),
+           (48, 2, 18, 4, 221184, 737536))),
+    (1024, ((64, 2, 16, 4, 229376, 459008),
+            (64, 2, 24, 3, 212992, 983296))),
+    (2048, ((64, 4, 4, 2, 229376, 917760),
+            (64, 4, 8, 2, 229376, 1966336)))])
 def test_streamed_plan_by_hand(H, want):
-    """The streamed-W geometry worked by hand: (U, C, K, buffers, the
-    LSTM forward's shared memory, and a streamed-W backward's with the
-    LSTM's four gates, as the LSTM backward's clusters had it). H = 1024:
-    2 × 16 rows of h of 2·1024 + 16 bytes forward; backward 16 rows of
-    2·256 + 16 bytes of gate gradients and 2 × 16 × 1024 fp32 partial
-    sums. H = 2048: two buffers would need 16,640 + 262,144 bytes, so one.
-    The LSTM's backward past H = 512 is the persistent form."""
-    U, C, K, bufs, fwd, bwd = want
-    assert (rc.wide_units(H), rc.lstm_plan(H, 24, 2, "fwd").cluster,
-            rc.wide_bwd_k(H, 4), rc.wide_bwd_bufs(H, 4)) == (U, C, K, bufs)
-    assert rc.lstm_smem("fwd", H) == fwd == 2 * 16 * (2 * H + 16)
-    assert rc._tc_smem("bwd", H, 4, U) == bwd == 16 * (2 * K + 16) + \
-        bufs * 16 * C * U * 4
-    assert rc.gru_units(H, "bwd") == U
-    assert isinstance(rc.lstm_plan(H, 24, 2, "bwd"), rc.PersistPlan)
+    """The staged kernels' plans worked by hand on 132 SMs at ndir 2 and B
+    = 24: (blocks a direction, tiles a block, resident k-steps a warp,
+    k-steps a slot of the ring, shared memory, workspace) of the LSTM's
+    forwards, then of the GRU's backward. LSTM, H = 1024: 128 tiles over
+    66 SMs a direction → 2 a block, 64 blocks; 4 warps × 2 m-tiles × 8
+    columns × 512 bytes of partial sums = 32,768; each warp's 16 k-steps
+    of W (8 × 256 bytes each) and 4 slots of 4 k-steps of A (1024 bytes
+    each: the whole of its A): 32,768 + 4 × (32,768 + 16,384) = 229,376;
+    the workspace 256 + 2 × 2 × 1024 × 64 + 2 × 24 × 1024 × 4 (c). GRU
+    backward, H = 1024: K = 192, 24 k-steps a warp of 8, W 24 × 512 bytes,
+    and 27,008 − 12,288 bytes left a warp hold 3 k-steps a slot:
+    16,384 + 8 × (12,288 + 12,288) = 212,992. H = 2048: 4 tiles a block;
+    W does not fit (the LSTM: 32 × 4096 bytes a warp), so slots of two
+    k-steps of A and a product's streamed B (the LSTM's 16 columns in
+    halves of 8: 1024 + 2048 bytes a k-step; the GRU's 4 columns: 1024 +
+    1024) and 4 (8) resident k-steps beside them: 65,536 + 4 × (4 × 4096
+    + 4 × 2 × 3072) and 32,768 + 8 × (8 × 1024 + 4 × 2 × 2048). The ring's
+    constants are the C plan's (``csrc/rnn_mma.cuh``)."""
+    csrc = os.path.join(os.path.dirname(rc.__file__), "..", "csrc")
+    with open(os.path.join(csrc, "rnn_mma.cuh")) as f:
+        text = f.read()
+    assert f"constexpr int kStages = {rc.STAGES};" in text
+    assert f"constexpr int kStreamChunk = {rc.STREAM_CHUNK};" in text
+    for name, (nb, nt, kr, ck, smem, work) in zip(("lstm_fwd", "gru_bwd"),
+                                                  want):
+        p = rc.persist_plan(name, H, 24, 2)
+        assert (p.blocks, p.tiles, p.resident, p.chunk, p.smem, p.work) == \
+            (nb, nt, kr, ck, smem, work)
+    assert isinstance(rc.lstm_plan(H, 24, 2, "fwd"), rc.PersistPlan)
+    assert isinstance(rc.gru_plan(H, 24, 2, "bwd"), rc.PersistPlan)
 
 
 def _warp_steps(w, nw, K, kr):
@@ -336,8 +379,11 @@ def test_persist_plan_covers_w(H):
     memory holds the partial sums and the resident k-steps within
     ``SMEM_MAX``; the grid is at most the co-resident maximum the plan is
     given (one block an SM); the passes cover B; the workspace holds the
-    counter, two A buffers and the LSTM's carried dc and dh_total."""
-    for name, (cols, warps, per_unit) in rc.PERSIST.items():
+    counter, two A buffers and the carried arrays (the LSTM backward's dc
+    and dh_total, the LSTM forward's c, the GRU backward's dh); the
+    staged kernels' rings beside W within ``SMEM_MAX``
+    (``test_streamed_geometry`` has their sizes)."""
+    for name, (cols, warps, per_unit, carried, _) in rc.PERSIST.items():
         for ndir in (1, 2):
             for sms in (rc.SMS, 114):
                 for B in (1, 24, 32, 33, 64):
@@ -361,8 +407,11 @@ def test_persist_plan_covers_w(H):
                         seen += list(range(kb + kres, kb + kw))   # streamed
                     assert seen == list(range(K))
                     nc = cols * p.tiles
-                    assert p.smem == warps * 2 * nc * 512 + \
-                        warps * p.resident * nc * 256
+                    assert p.smem - p.chunk * rc.STAGES * warps * 1024 >= \
+                        warps * 2 * nc * 512 + warps * p.resident * nc * 256
+                    if p.chunk == 0:
+                        assert p.smem == warps * 2 * nc * 512 + \
+                            warps * p.resident * nc * 256
                     assert p.smem <= rc.SMEM_MAX and p.resident >= 1
                     # the instantiations that never stream hold it all
                     if (name, p.tiles) in (("gru_fwd", 1), ("gru_fwd", 2),
@@ -370,16 +419,17 @@ def test_persist_plan_covers_w(H):
                         assert p.resident * warps >= K
                     assert (p.passes - 1) * 32 < B <= p.passes * 32
                     work = 256 + 2 * ndir * p.passes * 2 * K * 32 * 16
-                    if name == "lstm_bwd":
-                        work += 2 * ndir * B * H * 4
-                    assert p.work == work
+                    assert p.work == work + carried * ndir * B * H * 4
 
 
 @pytest.mark.parametrize("name,H,ndir,sms,tiles", [
     ("gru_fwd", 1824, 2, 114, 4), ("gru_fwd", 1856, 2, 114, None),
     ("lstm_bwd", 1824, 2, 114, 4), ("lstm_bwd", 2048, 2, 114, None),
     ("gru_fwd", 2048, 2, 128, 4), ("lstm_bwd", 2048, 2, 127, None),
-    ("gru_fwd", 2048, 1, 64, 4), ("lstm_bwd", 1024, 1, 31, None)])
+    ("gru_fwd", 2048, 1, 64, 4), ("lstm_bwd", 1024, 1, 31, None),
+    ("lstm_fwd", 1824, 2, 114, 4), ("lstm_fwd", 1856, 2, 114, None),
+    ("gru_bwd", 2048, 2, 128, 4), ("gru_bwd", 2048, 2, 114, None),
+    ("lstm_fwd", 1024, 1, 31, None), ("gru_bwd", 2048, 1, 64, 4)])
 def test_persist_plan_refuses_tiles_it_has_no_kernel_for(name, H, ndir, sms,
                                                           tiles):
     """The kernels are built for 1 to ``PERSIST_MAX_TILES`` unit tiles a
@@ -392,7 +442,7 @@ def test_persist_plan_refuses_tiles_it_has_no_kernel_for(name, H, ndir, sms,
     with open(os.path.join(csrc, "rnn_mma.cuh")) as f:
         assert (f"constexpr int kPersistMaxTiles = {rc.PERSIST_MAX_TILES};"
                 in f.read())
-    for src in ("gru_fwd.cu", "lstm_bwd.cu"):
+    for src in ("gru_fwd.cu", "lstm_bwd.cu", "lstm_fwd.cu", "gru_bwd.cu"):
         with open(os.path.join(csrc, src)) as f:
             text = f.read()
         body = text[text.index("int with_persist_kernel("):]
@@ -479,35 +529,39 @@ def test_persist_fwd_layout_matches_the_kernel_index(ndir, H, B):
     _check_persist_fwd(ndir, H, B)
 
 
-def _check_persist_fwd(ndir, H, B):
-    """The persistent GRU forward's fragments: block c's tile i, gate g at
+def _check_persist_fwd(ndir, H, B, cell="gru"):
+    """A persistent forward's fragments (the GRU's: G = 3, gates r, z, n;
+    the LSTM's: G = 4, gates i, f, o, u): block c's tile i, gate g at
     k-step ks, lane l's value e is W[d, 16·ks + 2·(l % 4) + e % 2 +
     8·(e // 2), g·H + 8·(nt·c + i) + l // 4] (zero for units past H) at
-    flat index ((((((d·NB + c)·K + ks)·nt + i)·3 + g)·32 + l)·4 + e),
+    flat index ((((((d·NB + c)·K + ks)·nt + i)·G + g)·32 + l)·4 + e),
     against a hand-written loop at the first and last blocks; the
     wrapper's launch arguments are these fragments and the plan's NB; the
     B operand they give, multiplied out, is W's columns of the block."""
+    G = _G[cell]
     rng = np.random.default_rng(H + ndir)
-    w = torch.from_numpy(rng.standard_normal((ndir, H, 3 * H)).astype(
+    w = torch.from_numpy(rng.standard_normal((ndir, H, G * H)).astype(
         np.float32))
-    p = rc.persist_plan("gru_fwd", H, B, ndir)
-    wk, C = rc._gru_launch_args(w, B, torch.bfloat16, "fwd")
+    p = rc.persist_plan(f"{cell}_fwd", H, B, ndir)
+    wk, C = getattr(rc, f"_{cell}_launch_args")(w, B, torch.bfloat16, "fwd")
     assert C == p.blocks and wk.shape == (ndir, p.blocks, H // 16, p.tiles,
-                                          3, 32, 4)
-    assert torch.equal(wk, rc.persist_fwd_weights(w, p.blocks, p.tiles))
+                                          G, 32, 4)
+    layout = (rc.persist_fwd_weights if cell == "gru"
+              else rc.persist_lstm_fwd_weights)
+    assert torch.equal(wk, layout(w, p.blocks, p.tiles))
     flat, wb = wk.reshape(-1), w.to(torch.bfloat16)
     K, nt = H // 16, p.tiles
     for c in (0, p.blocks - 1):
         d, ks = rng.integers(ndir), rng.integers(K)
         for i in range(nt):
-            for g in range(3):
+            for g in range(G):
                 for l in range(32):
                     for e in range(4):
                         k = 16 * ks + 2 * (l % 4) + e % 2 + 8 * (e // 2)
                         u = 8 * (nt * c + i) + l // 4
                         want = wb[d, k, g * H + u] if u < H else 0
                         idx = ((((((d * p.blocks + c) * K + ks) * nt + i)
-                                 * 3 + g) * 32 + l) * 4 + e)
+                                 * G + g) * 32 + l) * 4 + e)
                         assert flat[idx] == want
     # every element of W once, zeros elsewhere
     nz = flat[flat != 0]
@@ -522,22 +576,26 @@ def test_persist_bwd_layout_matches_the_kernel_index(ndir, H, B):
     _check_persist_bwd(ndir, H, B)
 
 
-def _check_persist_bwd(ndir, H, B):
-    """The persistent LSTM backward's fragments of block c: B[k, j] = W[d,
-    j, k] over the 4H gate columns k, tile i, lane l, value e at flat index
-    (((((d·NB + c)·K + ks)·nt + i)·32 + l)·4 + e) with K = H / 4, j =
-    8·(nt·c + i) + l // 4 (zero past H) and k = 16·ks + 2·(l % 4) + e % 2
-    + 8·(e // 2), against a hand-written loop; the wrapper's launch
-    arguments are these fragments and the plan's NB."""
+def _check_persist_bwd(ndir, H, B, cell="lstm"):
+    """A persistent backward's fragments (the LSTM's over its 4H gate
+    columns, the GRU's over its 3H) of block c: B[k, j] = W[d, j, k], tile
+    i, lane l, value e at flat index (((((d·NB + c)·K + ks)·nt + i)·32 +
+    l)·4 + e) with K = G·H / 16, j = 8·(nt·c + i) + l // 4 (zero past H)
+    and k = 16·ks + 2·(l % 4) + e % 2 + 8·(e // 2), against a hand-written
+    loop; the wrapper's launch arguments are these fragments and the
+    plan's NB."""
+    G = _G[cell]
     rng = np.random.default_rng(H + 3)
-    w = torch.from_numpy(rng.standard_normal((ndir, H, 4 * H)).astype(
+    w = torch.from_numpy(rng.standard_normal((ndir, H, G * H)).astype(
         np.float32))
-    p = rc.persist_plan("lstm_bwd", H, B, ndir)
-    wk, C = rc._lstm_launch_args(w, B, torch.bfloat16, "bwd")
+    p = rc.persist_plan(f"{cell}_bwd", H, B, ndir)
+    wk, C = getattr(rc, f"_{cell}_launch_args")(w, B, torch.bfloat16, "bwd")
     assert C == p.blocks
-    assert torch.equal(wk, rc.persist_bwd_weights(w, p.blocks, p.tiles))
+    layout = (rc.persist_bwd_weights if cell == "lstm"
+              else rc.persist_gru_bwd_weights)
+    assert torch.equal(wk, layout(w, p.blocks, p.tiles))
     flat, wb = wk.reshape(-1), w.to(torch.bfloat16)
-    K, nt = H // 4, p.tiles
+    K, nt = G * H // 16, p.tiles
     assert flat.numel() == ndir * p.blocks * K * nt * 128
     for c in (0, p.blocks - 1):
         d, ks = rng.integers(ndir), rng.integers(K)
@@ -556,93 +614,35 @@ def _check_persist_bwd(ndir, H, B):
                                          ("gru", 2, 1056),
                                          ("lstm", 1, 768)])
 def test_wide_fwd_layout_matches_the_kernel_index(cell, ndir, H):
-    """The LSTM's streamed-W forward's fragments: W[d, k, g·H + 8·ub + n]
-    (bf16) at flat index ((((d·H/8 + ub)·H/16 + ks)·G + g)·32 + l)·4 + e
-    with k = 16·ks + 2·(l % 4) + (e % 2) + 8·(e // 2), n = l // 4 (a
-    warp's fragments [ks][g][l], its lane's four values), against a
-    hand-written loop; the wrapper's launch arguments are these fragments
-    and the plan's C. The GRU's forward past H = 512 is the persistent
-    form: its fragments (``_check_persist_fwd``)."""
-    if cell == "gru":
-        _check_persist_fwd(ndir, H, 5)
-        return
-    G = _G[cell]
-    rng = np.random.default_rng(H + ndir)
-    w = torch.from_numpy(rng.standard_normal((ndir, H, G * H)).astype(
-        np.float32))
-    args = getattr(rc, f"_{cell}_launch_args")
-    wk, C = args(w, 5, torch.bfloat16, "fwd")
-    assert C == getattr(rc, f"{cell}_plan")(H, 5, ndir, "fwd").cluster
-    flat = wk.reshape(-1)
-    assert flat.dtype == torch.bfloat16 and flat.numel() == w.numel()
-    wb = w.to(torch.bfloat16)
-    d, ub, ks = rng.integers(ndir), rng.integers(H // 8), rng.integers(H // 16)
-    for g in range(G):
-        for l in range(32):
-            for e in range(4):
-                k = 16 * ks + 2 * (l % 4) + e % 2 + 8 * (e // 2)
-                i = ((((d * (H // 8) + ub) * (H // 16) + ks) * G + g) * 32
-                     + l) * 4 + e
-                assert flat[i] == wb[d, k, g * H + 8 * ub + l // 4]
-    # every element once: the layout is a permutation of W
-    assert torch.equal(flat.sort().values, wb.reshape(-1).sort().values)
+    """Both cells' persistent forward fragments (``_check_persist_fwd``):
+    the LSTM's four gate columns a tile at two tiles a block (640, ndir 2)
+    and one (768, ndir 1), the GRU's three at a short last block."""
+    _check_persist_fwd(ndir, H, 5, cell)
 
 
 @pytest.mark.parametrize("cell,H", [("lstm", 640), ("gru", 544),
                                     ("gru", 2048)])
 def test_wide_bwd_layout_matches_the_kernel_index(cell, H):
-    """The GRU's streamed-W backward's fragments of block c: B[k, j] =
-    W[d, j, g·H + U·c + u] at k = g·U + u (zero past G·U and for units
-    past H) at flat index ((((((d·C + c)·H/32 + ng)·K/16 + ks)·4 + q)·32
-    + l)·4 + e), j = 32·ng + 8·q + l // 4, against a hand-written loop.
-    The LSTM's backward past H = 512 is the persistent form: its fragments
-    (``_check_persist_bwd``)."""
-    if cell == "lstm":
-        _check_persist_bwd(2, H, 3)
-        return
-    G = _G[cell]
-    rng = np.random.default_rng(H + 3)
-    w = torch.from_numpy(rng.standard_normal((2, H, G * H)).astype(
-        np.float32))
-    U, K = rc.wide_units(H), rc.wide_bwd_k(H, G)
-    C = -(-H // U)
-    wk, Cp = getattr(rc, f"_{cell}_launch_args")(w, 3, torch.bfloat16, "bwd")
-    assert Cp == C
-    flat = wk.reshape(-1)
-    assert flat.numel() == 2 * C * K * H
-    wb = w.to(torch.bfloat16)
-    for c in (0, C - 1):
-        d, ng, ks = rng.integers(2), rng.integers(H // 32), \
-            rng.integers(K // 16)
-        for q in range(4):
-            for l in range(32):
-                for e in range(4):
-                    k = 16 * ks + 2 * (l % 4) + e % 2 + 8 * (e // 2)
-                    j = 32 * ng + 8 * q + l // 4
-                    g, u = k // U, k % U
-                    live = k < G * U and U * c + u < H
-                    want = wb[d, j, g * H + U * c + u] if live else 0
-                    i = ((((((d * C + c) * (H // 32) + ng) * (K // 16) + ks)
-                           * 4 + q) * 32 + l) * 4 + e)
-                    assert flat[i] == want
+    """Both cells' persistent backward fragments (``_check_persist_bwd``,
+    ndir 2): the GRU's over its 3H gate columns at a short last block
+    (544) and at four tiles a block (2048), the LSTM's at 640."""
+    _check_persist_bwd(2, H, 3, cell)
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_wide_stream_launch_args(cell):
-    """The stream wrappers' cache keeps the forward's fragments past
-    H = 512 (the GRU's persistent form's, the LSTM's streamed-W ones): the
-    same tensor on a second call, laid out anew after an in-place
-    update."""
+    """The stream wrappers' cache keeps the forward's persistent fragments
+    past H = 512 (``persist_fwd_weights``, ``persist_lstm_fwd_weights``)
+    and the plan's blocks: the same tensor on a second call, laid out anew
+    after an in-place update."""
     G = _G[cell]
     w = torch.randn(1, H, G * H)
-    if cell == "gru":
-        p = rc.persist_plan("gru_fwd", H, 32, 1)
-        layout, want_c = (lambda x: rc.persist_fwd_weights(
-            x, p.blocks, p.tiles)), p.blocks
-    else:
-        layout, want_c = rc.wide_fwd_weights, 16
+    p = rc.persist_plan(f"{cell}_fwd", H, 32, 1)
+    f = rc.persist_fwd_weights if cell == "gru" else \
+        rc.persist_lstm_fwd_weights
+    layout = lambda x: f(x, p.blocks, p.tiles)
     wk, C = rc.stream_launch_args(cell, w, 32, torch.bfloat16)
-    assert torch.equal(wk, layout(w)) and C == want_c
+    assert torch.equal(wk, layout(w)) and C == p.blocks
     again, _ = rc.stream_launch_args(cell, w, 32, torch.bfloat16)
     assert again is wk
     with torch.no_grad():

@@ -77,16 +77,18 @@ Kernels and shapes (those of ``chip_smoke.py``):
   T' = 256, ndir 2), the stream window (B = 32, T = 20, emit_t = C/s; the
   GRU's forward-only, the LSTM's ndir 2), beside cuDNN at the same
   shapes; each build held to the plain versions (3e-2 forward, phase
-  26's 5e-2 + 2^-7·max|b| backward). The GRU's three forwards and the
-  LSTM's backward (the persistent form in this build) give their speed
-  against the other build; the GRU's backward and the LSTM's forwards
-  (the streamed-W clusters, left as they were) must equal the other
-  build's bit for bit. Graph replays of 3 calls only (no eager kind).
-  ``--hs`` takes a subset of the widths. With ``--other-broken`` the other
-  build is a copy of this one patched to leave out a part of the
-  persistent form's step (its outputs wrong on purpose: they are printed
-  against the plain versions, not gated), so the difference of the times
-  is what that part costs; the kept forms must still equal this build's;
+  26's 5e-2 + 2^-7·max|b| backward). The GRU's backward and the LSTM's
+  three forwards (redesigned: the persistent form with A staged in
+  shared memory) give their speed against the other build; the GRU's
+  three forwards and the LSTM's backward (the persistent form that reads
+  A from L2, left as it was) must equal the other build's bit for bit.
+  Graph replays of 3 calls only (no eager kind).
+  ``--hs`` takes other widths (multiples of 128). With
+  ``--other-broken`` the other build is a copy of this one patched to
+  leave out a part of the persistent form's step (its outputs wrong on
+  purpose: they are printed against the plain versions, not gated), so
+  the difference of the times is what that part costs; the kept forms
+  must still equal this build's;
 * the prefix beam's narrow form (chip_smoke phase 23's shape: B = 32,
   T' = 251, V = 64, K = 8, a random dense 3-gram): each build's
   ``beam_chunk_cuda`` through its own wrapper on the same log-probs, LM
@@ -157,8 +159,8 @@ WIDE_DHS = tuple(range(128, 513, 64))   # flash_wide's head widths
 WIDE_HS = (640, 768, 1024, 2048)        # rnn_wide's hidden sizes
 # rnn_wide's forms by cell: those this build redesigned (timed against
 # the other build) and those it kept (bitwise the other build's)
-WIDE_FORMS = {"gru": (("fwd", "fwd_train", "stream"), ("bwd",)),
-              "lstm": (("bwd",), ("fwd", "fwd_train", "stream"))}
+WIDE_FORMS = {"gru": (("bwd",), ("fwd", "fwd_train", "stream")),
+              "lstm": (("fwd", "fwd_train", "stream"), ("bwd",))}
 
 
 def build_alone(root: str, tag: str) -> str:
@@ -1068,8 +1070,8 @@ def main() -> int:
     ap.add_argument("--cases", default=",".join(CASES),
                     help=f"comma-separated subset of {CASES}")
     ap.add_argument("--hs", default=",".join(map(str, WIDE_HS)),
-                    help="rnn_wide's hidden sizes, a subset of "
-                    f"{WIDE_HS}")
+                    help="rnn_wide's hidden sizes, multiples of 128 "
+                    f"(default {WIDE_HS})")
     ap.add_argument("--other-broken", action="store_true",
                     help="rnn_wide: the other checkout is patched to leave "
                     "out part of the persistent step; time it, do not "
