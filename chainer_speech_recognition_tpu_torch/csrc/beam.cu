@@ -22,88 +22,102 @@
 // Exactness. The top-K is jax.lax.top_k's: descending score, the lower flat
 // index (stays 0..K-1, then extension (j, v) at K + j V + v) first on ties;
 // ties are real, since while fewer than K beams live many candidates sit at
-// exactly LOG_ZERO. The rolling hashes ((h mod M) * MULT + c) mod M and the
-// hashed LM's keys (h1 V + c, (h2 MULT2 + c) mod M2, uint32(key1) *
-// 2654435761 & mask) are int32 arithmetic that wraps, with floor modulo, in
-// the reference: they are computed here in uint32 with the floor modulo
-// written out (signed overflow is undefined in C++ and % truncates). Every
-// fp32 expression keeps the plain version's order of operations, with
+// exactly LOG_ZERO. Every selection here works on one 64-bit word a
+// candidate, (order key << 32) | (2^32 - 1 - index): the order key maps a
+// score to a uint32 whose order is the float order (-0 as +0), so the
+// word's descending order is lax.top_k's and no two words are equal. The
+// rolling hashes ((h mod M) * MULT + c) mod M and the hashed LM's keys (h1
+// V + c, (h2 MULT2 + c) mod M2, uint32(key1) * 2654435761 & mask) are int32
+// arithmetic that wraps, with floor modulo, in the reference: they are
+// computed here in uint32 with the floor modulo written out. Every fp32
+// expression keeps the plain version's order of operations, with
 // __fmul_rn / __fadd_rn where nvcc would otherwise contract to an FMA, and
 // logaddexp is torch's own formula (max + log1p(exp(-|a - b|))).
 //
 // What bounds it on Hopper: the chain of dependent frames, not the bytes.
 // A batch reads lp once (32 x 251 x 64 x 4 B = 2 MB at bigru: ~0.6 us at
 // HBM rate) and the LM rows its hypotheses touch; each frame waits for the
-// last one's top-K, and a frame is a few dependent steps with a block
-// barrier between each.
+// last one's top-K. The design keeps that chain short: no step of a frame
+// loops over K dependent rounds, and each candidate's score is computed
+// once a frame.
 //
-// Two forms, one block per utterance row in both; csr_beam_plan picks one.
-//
-// The narrow form (beam_kernel: K <= 32 and an LM context of <= 8 lanes,
-// order <= 9), kThreads threads, the [K] beam state in static shared memory
-// (two copies, flipped each frame). Per frame:
+// Per frame, in both forms (one row's blocks; the helpers below):
 //   1. the next frame's lp row is staged into shared memory by 4-byte
 //      cp.async while this one computes (double-buffered; rows past
 //      kStageMaxV symbols are read from global memory instead);
-//   2. K threads: each beam's total, stay scores, lp[last], and its LM
-//      row (dense: the positional fold of the context; hashed: probe L.P
-//      slots longest level first, exactly beam.py:369-405);
-//   3. K threads: stay k's merge with the matching extensions (the double
-//      hash of its parent prefix against every beam's, a loop over K), the
-//      merged stay_pnb, and the consumed extensions (j, last_k) noted per
-//      parent j;
-//   4. the block scans the K + K.V candidates without storing the grid;
-//      each thread keeps a sorted top-KMAX list of its own in registers,
-//      then K rounds of a warp argmax (score, then index) merge a warp's
-//      lists, and warp 0 merges the warps' lists the same way;
-//   5. K threads write the new state and the traceback (parent, char) of
-//      frame t (shared memory when the chunk's tracebacks fit, else the
-//      scratch in global memory).
-// After the frames, `keep` threads follow the parent chains back from the
-// live frames' end (twice: count, then write) into the outputs.
+//   2. a thread a beam: its total, stay scores, lp[last] and its LM row
+//      (dense: the positional fold of the context; hashed: probe L.P slots
+//      longest level first, exactly beam.py:369-405);
+//   3. the K.K (stay k, parent j) pairs spread over the block, a stay on a
+//      segment of lanes: the merge of k with the extensions (j, last_k) of
+//      every beam j of k's parent prefix (max and sum as segment
+//      reductions of shuffles), then a thread a stay: the merged stay_pnb
+//      and the stay's score; k joins the consumed list of its parent's hash
+//      class (the lowest beam with those hashes), and each beam notes its
+//      own class (rep) and the first symbols of its class's list;
+//   4. the top-K of the K stays and the K.V extensions (an extension (j, v)
+//      is LOG_ZERO where a beam on the list of rep[j] has last == v): each
+//      candidate's key is computed once into shared memory, then the form's
+//      selection (below);
+//   5. a thread a beam writes the new state and the traceback (parent,
+//      char) of frame t (shared memory when the chunk's tracebacks fit,
+//      else the scratch in global memory).
+// After the frames the final scores are ordered (a warp sorts each 32 by
+// their ranks in the warp, then ranking merges the sorted runs) and `keep`
+// threads follow the parent chains back from the live frames' end (twice:
+// count, then write) into the outputs. Traceback entries pack (parent <<
+// 16) | (char & 0xffff), so K <= 32767 (and V <= 32767, the reference's
+// own limit).
 //
-// The wide form (beam_wide_kernel: any other K <= 32767 and any context
-// length), kWideThreads threads. Its per-frame steps loop k += blockDim.x,
-// and everything that grows with K or the context (the state's two copies,
-// the context lanes, the per-beam scratch, the merge lists, the survivors)
-// lives in one workspace (wide_layout) that csr_beam_plan places in dynamic
-// shared memory when it fits beside the staged lp rows, else in a [B, bytes]
-// scratch in global memory; the tracebacks follow as in the narrow form.
-// Steps 1, 2 and 5 are the narrow form's; 3 and 4 differ:
-//   3. the consumed extensions are kept as lists per hash class: stay k
-//      with last_k > 0 joins (atomicExch, a linked list through next[]) the
-//      list of the lowest beam j whose (hash, hash2) equals its parent
-//      hashes; extension (j, v) is consumed when v is the last char of a
-//      beam on the list of j's class (rep[j]: the lowest beam with j's
-//      hashes). The lists hold at most K entries whatever K is;
-//   4. top-K by a radix select: each candidate's score maps to an
-//      order-preserving uint32 key (-0 as +0, so a float compare's ties
-//      stay ties); four passes of 8 bits, each a sweep that recomputes
-//      the candidates (nothing of the K + K.V grid is stored) into a
-//      256-bin shared histogram (warp-aggregated atomics), then one warp
-//      finds the digit that holds the K-th key. Then one sweep keeps every
-//      key above the threshold (atomic slots) and, when the threshold's
-//      ties outnumber what is left, a second sweep ranks those ties in
-//      ascending flat index (each warp owns a contiguous index range, so
-//      ballots and the warps' counts give the order); a bitonic sort of
-//      the K survivors by (key descending, index ascending) gives
-//      lax.top_k's order. The final order sorts the K final scores the
-//      same way.
-// Traceback entries pack (parent << 16) | (char & 0xffff), so the wide form
-// takes K <= 32767 (and V <= 32767, the reference's own limit).
+// The narrow form (beam_kernel: K <= 32, an LM context of <= 8 lanes, and
+// the row's keys in shared memory), 128 threads a row, or 256 where the row
+// has more than kNarrowLongRow candidates; the state in static shared
+// memory (make_plan, beam_plan.cuh: the block size measured faster by
+// tools/kernel_ab.py).
+// Its selection is two ranks deep, not 2K warp rounds:
+//   a. each thread keeps the best word of its run of m = ceil(N / NT)
+//      consecutive candidates; each thread's rank among its warp's 32
+//      bests (all pairs, by shuffles) places them in order, and each entry
+//      of a warp's top K adds, by binary search, the entries of the other
+//      <= 7 warps that beat it: the one ranked K-1 is the K-th best thread
+//      best, a threshold no higher than the K-th best candidate (K threads
+//      hold a candidate at least as good);
+//   b. every candidate at or above the threshold is appended to a list in
+//      shared memory (at most K threads hold such candidates, so at most K
+//      times a thread's count), and each list entry counts the entries
+//      that beat it: those ranked below K are the top-K, in order.
+//
+// The wide form (beam_wide_kernel: every other call, K <= 32767, any
+// context length), 512 threads a block and a cluster of C = 1, 2 or 4
+// blocks a row (csr_beam_plan: the fewest whose share of the row's keys
+// fits in shared memory, and two at least past kWideLongRow candidates,
+// where two blocks were measured faster than one). Every block keeps the
+// whole state (its workspace, wide_layout, in shared memory or a [B,
+// bytes] scratch where it does not fit, then C = 1) and runs steps 2, 3
+// and 5 itself; the K + K.V
+// candidates are split into C contiguous index ranges, one a block, and
+// each block's into 16 warps' contiguous ranges. Its selection is a radix
+// select of the order keys, 11, 11 and 10 bits a pass (a pass stops the
+// select once its digit's bin is all taken): the first pass computes each
+// key, keeps it in shared memory where the block's share fits (else the
+// later sweeps compute it again) and counts its top digit into a 2048-bin
+// histogram; the blocks' histograms are summed through distributed shared
+// memory (the cluster barrier between), and each block finds the digit
+// whose bin holds the need-th key by a block-wide scan. Then the keys above
+// the threshold class (and the class too when all of it is taken) are
+// survivors; else the class's first `need` members in ascending index (the
+// blocks' and warps' ranges are in index order, so each block's and each
+// warp's tie count gives its offset); every block writes its survivors into
+// every block's shared memory, and each block orders the K survivors (32 at
+// a time by their ranks in a warp, then ranking merges the runs).
 #include <cuda_fp16.h>
 #include <math.h>
 
+#include "beam_plan.cuh"
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBeam = 32;            // one lane a beam in the merges
-constexpr int kMaxCtx = 8;              // LM order <= 9
-constexpr int kStageMaxV = 12288;       // 2 staged rows: 96 KB
-constexpr int kSharedBudget = 200 * 1024;
 constexpr float kLogZero = -1.0e30f;
 constexpr float kHalfLogZero = -5.0e29f;
 constexpr int kHashMult = 1000003;
@@ -115,7 +129,8 @@ constexpr int kCtxMod2 = (1 << 30) - 173;
 constexpr uint32_t kSlotMult = 2654435761u;
 constexpr int kWideThreads = 512;
 constexpr int kWideWarps = kWideThreads / 32;
-constexpr int kRadixBins = 256;         // 8 bits a pass, 4 passes
+constexpr int kDigitBits = 11;          // radix digits: 11, 11, 10 bits
+constexpr int kRadixBins = 1 << kDigitBits;
 constexpr int kMaxWideBeam = 32767;     // (parent << 16) | char tracebacks
 
 }  // namespace
@@ -178,10 +193,6 @@ __device__ __forceinline__ float lae(float a, float b) {
   return m + log1pf(expf(-fabsf(a - b)));
 }
 
-__device__ __forceinline__ bool better(float as, int ai, float bs, int bi) {
-  return as > bs || (as == bs && ai < bi);
-}
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -200,22 +211,140 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-struct BeamShared {
-  float pb[2][kMaxBeam], pnb[2][kMaxBeam];
-  int h[2][kMaxBeam], h2[2][kMaxBeam], ph[2][kMaxBeam], ph2[2][kMaxBeam];
-  int last[2][kMaxBeam];
-  int ctx[2][kMaxBeam][kMaxCtx];
-  float total[kMaxBeam], spb[kMaxBeam], spnb[kMaxBeam], stay[kMaxBeam];
-  long long roff[kMaxBeam];          // LM row offset (elements), per beam
-  int ncons[kMaxBeam];               // consumed extensions of parent j
-  int cons[kMaxBeam][kMaxBeam];      // ... their chars
-  float wscore[kWarps][kMaxBeam];
-  int widx[kWarps][kMaxBeam];
-  float tscore[kMaxBeam];
-  int tidx[kMaxBeam];
-  float fin[kMaxBeam];
-  int order[kMaxBeam];
-};
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the address of the same shared-memory location in block `rank`
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ int ld_cluster(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr,
+                                           unsigned long long v) {
+  asm volatile("st.shared::cluster.u64 [%0], %1;\n" ::"r"(addr), "l"(v)
+               : "memory");
+}
+
+// every thread of the row's blocks: after it, each one's earlier stores to
+// a peer's shared memory are seen (release / acquire); one block alone
+// takes the block barrier
+__device__ __forceinline__ void row_sync(int C) {
+  if (C > 1) {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  } else {
+    __syncthreads();
+  }
+}
+
+// block q's copy of a shared int of this block's layout
+__device__ __forceinline__ int peer_int(const int* p, int q, int self) {
+  return q == self ? *p : ld_cluster(map_rank(p, static_cast<uint32_t>(q)));
+}
+
+// order-preserving key of a score (a larger score, a larger key), -0 as +0
+__device__ __forceinline__ uint32_t order_key(float s) {
+  const uint32_t u = __float_as_uint(__fadd_rn(s, 0.f));
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_score(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// (key, flat index) as one word whose descending order is lax.top_k's;
+// every candidate's word is above 0
+__device__ __forceinline__ unsigned long long word(uint32_t key, int i) {
+  return (static_cast<unsigned long long>(key) << 32) |
+         (0xffffffffu - static_cast<uint32_t>(i));
+}
+
+__device__ __forceinline__ int word_index(unsigned long long c) {
+  return static_cast<int>(0xffffffffu - static_cast<uint32_t>(c));
+}
+
+// this lane's rank among its warp's 32 words: how many lanes hold a larger
+// word, or an equal one at a lower lane (32 broadcast shuffles, side by
+// side: no step waits for another), so the ranks are 0..31 and a word
+// written at its rank leaves the warp's words in descending order
+__device__ __forceinline__ int warp_rank(unsigned long long x) {
+  const int lane = threadIdx.x & 31;
+  int r = 0;
+#pragma unroll
+  for (int l = 0; l < 32; ++l) {
+    const unsigned long long y = __shfl_sync(0xffffffffu, x, l);
+    r += (y > x || (y == x && l < lane)) ? 1 : 0;
+  }
+  return r;
+}
+
+// how many of s[0, 32) (descending) are above x: a binary search of fixed
+// steps, unrolled, so searches in several lists run side by side
+__device__ __forceinline__ int count_above32(const unsigned long long* s,
+                                             unsigned long long x) {
+  int pos = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1)
+    if (s[pos + step - 1] > x) pos += step;
+  return pos + (s[pos] > x ? 1 : 0);
+}
+
+// s[0, n) (distinct words) in descending order, by the whole block: each
+// warp ranks runs of 32 (warp_rank) into tmp, then every word counts the
+// words of the other runs above it (count_above32) and lands at its rank.
+// → the sorted array (tmp for one run, else s)
+__device__ __forceinline__ const unsigned long long* sort_desc(
+    unsigned long long* s, unsigned long long* tmp, int n) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int runs = (n + 31) / 32;
+  for (int r = warp; r < runs; r += blockDim.x >> 5) {
+    const int i = r * 32 + lane;
+    const unsigned long long x = i < n ? s[i] : 0ULL;
+    tmp[r * 32 + warp_rank(x)] = x;
+  }
+  __syncthreads();
+  if (runs == 1) return tmp;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = i / 32;
+    const unsigned long long x = tmp[i];   // i < n: a word, not padding
+    int rank = i - 32 * r;
+    for (int q = 0; q < runs; ++q)
+      if (q != r) rank += count_above32(tmp + 32 * q, x);
+    s[rank] = x;
+  }
+  __syncthreads();
+  return s;
+}
+
+// the LM's score of symbol v in the row at element offset `off`
+__device__ __forceinline__ float lm_val(const BeamArgs& a, long long off) {
+  if (a.lm_kind == 1) return static_cast<const float*>(a.lm_table)[off];
+  if (a.rows_fp16)
+    return __half2float(static_cast<const __half*>(a.lm_rows)[off]);
+  return static_cast<const float*>(a.lm_rows)[off];
+}
 
 // score of extension (j, v) before consumption: base + lp[v] (+ LM)
 __device__ __forceinline__ float ext_raw(const BeamArgs& a, const float* lpr,
@@ -224,21 +353,15 @@ __device__ __forceinline__ float ext_raw(const BeamArgs& a, const float* lpr,
                                          int v) {
   const float base = v == last_j ? pb_j : total_j;
   float s = base + lpr[v];
-  if (a.lm_kind != 0) {
-    float r;
-    if (a.lm_kind == 1)
-      r = static_cast<const float*>(a.lm_table)[roff_j + v];
-    else if (a.rows_fp16)
-      r = __half2float(static_cast<const __half*>(a.lm_rows)[roff_j + v]);
-    else
-      r = static_cast<const float*>(a.lm_rows)[roff_j + v];
-    s = __fadd_rn(__fadd_rn(s, __fmul_rn(a.alpha, r)), a.beta);
-  }
+  if (a.lm_kind != 0)
+    s = __fadd_rn(__fadd_rn(s, __fmul_rn(a.alpha, lm_val(a, roff_j + v))),
+                  a.beta);
   return v == 0 ? kLogZero : s;
 }
 
 // the LM row of a context window (oldest char first)
-__device__ long long lm_row_offset(const BeamArgs& a, const int* ctx) {
+__device__ __forceinline__ long long lm_row_offset(const BeamArgs& a,
+                                                  const int* ctx) {
   const int V = a.V;
   if (a.lm_kind == 1) {
     long long cid = 0;
@@ -276,277 +399,474 @@ __device__ long long lm_row_offset(const BeamArgs& a, const int* ctx) {
   return 0;
 }
 
-template <int KMAX>
-__device__ __forceinline__ void insert(float (&ls)[KMAX], int (&li)[KMAX],
-                                       float s, int i) {
-  if (!better(s, i, ls[KMAX - 1], li[KMAX - 1])) return;
-#pragma unroll
-  for (int q = KMAX - 1; q > 0; --q) {
-    if (better(s, i, ls[q - 1], li[q - 1])) {
-      ls[q] = ls[q - 1];
-      li[q] = li[q - 1];
-    } else if (better(s, i, ls[q], li[q])) {
-      ls[q] = s;
-      li[q] = i;
-    }
+// a beam's first consumed symbols kept beside it (its class list walked
+// once, in step 3); the last slot -2 where the list is longer
+constexpr int kCached = 4;
+
+// n / d for 0 <= n < 2^31 by a multiply-high (Granlund and Montgomery's
+// round-up form; the magic computed once a launch): a runtime division
+// costs a few dozen dependent instructions
+struct FastDiv {
+  uint32_t d, m;
+  int l;
+  __device__ explicit FastDiv(int d_) : d(static_cast<uint32_t>(d_)), l(0) {
+    while ((1u << l) < d) ++l;
+    m = static_cast<uint32_t>(((1ULL << 32) * ((1ULL << l) - d)) / d + 1);
   }
-  if (better(s, i, ls[0], li[0])) {
-    ls[0] = s;
-    li[0] = i;
+  __device__ __forceinline__ int div(int n) const {
+    if (d == 1) return n;
+    const uint32_t u = static_cast<uint32_t>(n), t = __umulhi(m, u);
+    return static_cast<int>((t + ((u - t) >> 1)) >> (l - 1));
+  }
+};
+
+// One row's per-beam arrays (the narrow form's static shared memory, the
+// wide form's workspace): the state's two copies, flipped each frame (copy
+// 1 of an array at cs elements past copy 0, of ctx at ccs), then the
+// frame's per-beam scratch.
+struct Row {
+  float *pb, *pnb;
+  int *h, *h2, *ph, *ph2, *last, *ctx;
+  int cs, ccs;
+  float *total, *spb, *spnb, *stay;
+  long long* roff;
+  int *rep, *head, *next;
+  int* cons;         // [K][kCached]: each beam's consumed symbols
+};
+
+// one copy of the state (plain pointers, so they stay in registers)
+struct State {
+  float *pb, *pnb;
+  int *h, *h2, *ph, *ph2, *last, *ctx;
+};
+
+__device__ __forceinline__ State state_of(const Row& R, int st) {
+  const int o = st * R.cs, oc = st * R.ccs;
+  return State{R.pb + o, R.pnb + o, R.h + o, R.h2 + o, R.ph + o,
+               R.ph2 + o, R.last + o, R.ctx + oc};
+}
+
+// the state in, at the row's copy 0
+__device__ __forceinline__ void load_state(const BeamArgs& a, const State& S,
+                                           int b) {
+  const int K = a.K, CL = a.ctx_len;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const long long o = static_cast<long long>(b) * K + k;
+    S.pb[k] = a.pb_in[o];
+    S.pnb[k] = a.pnb_in[o];
+    S.h[k] = a.h_in[o];
+    S.h2[k] = a.h2_in[o];
+    S.ph[k] = a.ph_in[o];
+    S.ph2[k] = a.ph2_in[o];
+    S.last[k] = a.last_in[o];
+    for (int c = 0; c < CL; ++c) S.ctx[k * CL + c] = a.ctx_in[o * CL + c];
   }
 }
 
-// warp argbest of (s, i) by score, then lower index
-__device__ __forceinline__ void warp_best(float& s, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float os = __shfl_xor_sync(0xffffffffu, s, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (better(os, oi, s, i)) {
-      s = os;
-      i = oi;
-    }
+// lp row t into shared copy t & 1 (row t + 1 in flight) → the row to read
+template <bool kStage>
+__device__ __forceinline__ const float* lp_row_of(const float* lp_row,
+                                                  float* s_lp, int t, int n,
+                                                  int V) {
+  if (!kStage) return lp_row + static_cast<long long>(t) * V;
+  if (t + 1 < n) {
+    float* dst = s_lp + ((t + 1) & 1) * V;
+    const float* src = lp_row + static_cast<long long>(t + 1) * V;
+    for (int v = threadIdx.x; v < V; v += blockDim.x)
+      cp_async4(smem_u32(dst + v), src + v);
   }
+  cp_async_commit();
+  cp_async_wait1();
+  return s_lp + (t & 1) * V;
 }
 
-template <int KMAX, bool kStage>
-__global__ void __launch_bounds__(kThreads)
-    beam_kernel(const BeamArgs a) {
-  extern __shared__ __align__(16) unsigned char dyn[];
-  __shared__ BeamShared sh;
-  const int b = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int T = a.T, V = a.V, K = a.K, CL = a.ctx_len;
-  const int n = min(max(a.lengths[b], 0), T);
-  const int NC = K + K * V;
-  float* s_lp = reinterpret_cast<float*>(dyn);                  // [2][V]
-  int32_t* tb = a.tb_scratch != nullptr
-                    ? a.tb_scratch + static_cast<long long>(b) * T * K
-                    : reinterpret_cast<int32_t*>(dyn) +
-                          (kStage ? 2 * V : 0);                  // [T][K]
-  const float* lp_row = a.lp + static_cast<long long>(b) * T * V;
-
-  if (tid < K) {
-    const int o = b * K + tid;
-    sh.pb[0][tid] = a.pb_in[o];
-    sh.pnb[0][tid] = a.pnb_in[o];
-    sh.h[0][tid] = a.h_in[o];
-    sh.h2[0][tid] = a.h2_in[o];
-    sh.ph[0][tid] = a.ph_in[o];
-    sh.ph2[0][tid] = a.ph2_in[o];
-    sh.last[0][tid] = a.last_in[o];
-    for (int c = 0; c < CL; ++c) sh.ctx[0][tid][c] = a.ctx_in[o * CL + c];
-  }
+template <bool kStage>
+__device__ __forceinline__ void lp_first(const float* lp_row, float* s_lp,
+                                         int n, int V) {
   if (kStage && n > 0) {
-    for (int v = tid; v < V; v += kThreads)
+    for (int v = threadIdx.x; v < V; v += blockDim.x)
       cp_async4(smem_u32(s_lp + v), lp_row + v);
   }
   cp_async_commit();
-  int st = 0;
+}
 
-  for (int t = 0; t < n; ++t) {
-    const float* lpr;
-    if (kStage) {
-      if (t + 1 < n) {
-        float* dst = s_lp + ((t + 1) & 1) * V;
-        const float* src = lp_row + static_cast<long long>(t + 1) * V;
-        for (int v = tid; v < V; v += kThreads)
-          cp_async4(smem_u32(dst + v), src + v);
-      }
-      cp_async_commit();
-      cp_async_wait1();
-      lpr = s_lp + (t & 1) * V;
-    } else {
-      lpr = lp_row + static_cast<long long>(t) * V;
-    }
-    __syncthreads();
-
-    // 2. per-beam totals, stay scores and LM rows
-    if (tid < K) {
-      const float pb = sh.pb[st][tid], pnb = sh.pnb[st][tid];
-      const int last = sh.last[st][tid];
-      float total = lae(fmaxf(pb, kLogZero), pnb);
-      if (fmaxf(pb, pnb) <= kHalfLogZero) total = kLogZero;
-      sh.total[tid] = total;
-      sh.spb[tid] = total + lpr[0];
-      sh.spnb[tid] = last > 0 ? pnb + lpr[last] : kLogZero;
-      sh.roff[tid] = a.lm_kind != 0 ? lm_row_offset(a, sh.ctx[st][tid]) : 0;
-      sh.ncons[tid] = 0;
-    }
-    __syncthreads();
-
-    // 3. merges: stay k <- ext(j, last_k) where beam j is k's parent prefix
-    if (tid < K) {
-      const int k = tid, last_k = sh.last[st][k];
-      const int ph = sh.ph[st][k], ph2 = sh.ph2[st][k];
-      float mmax = kLogZero;
-      for (int j = 0; j < K; ++j) {
-        const bool m = last_k > 0 && ph == sh.h[st][j] && ph2 == sh.h2[st][j];
-        if (m) {
-          const float c = ext_raw(a, lpr, sh.pb[st][j], sh.total[j],
-                                  sh.last[st][j], sh.roff[j], last_k);
-          mmax = fmaxf(mmax, c);
-          sh.cons[j][atomicAdd(&sh.ncons[j], 1)] = last_k;
-        }
-      }
-      const float mmax_s = fmaxf(mmax, kHalfLogZero);
-      float msum = 0.f;
-      for (int j = 0; j < K; ++j) {
-        const bool m = last_k > 0 && ph == sh.h[st][j] && ph2 == sh.h2[st][j];
-        const float c = m ? ext_raw(a, lpr, sh.pb[st][j], sh.total[j],
-                                    sh.last[st][j], sh.roff[j], last_k)
-                          : kLogZero;
-        msum += expf(c - mmax_s);
-      }
-      const float merged = mmax <= kHalfLogZero
-                               ? kLogZero
-                               : mmax_s + logf(fmaxf(msum, 1e-37f));
-      float spnb = lae(fmaxf(sh.spnb[k], kLogZero), fmaxf(merged, kLogZero));
-      if (spnb <= kHalfLogZero) spnb = kLogZero;
-      sh.spnb[k] = spnb;
-      sh.stay[k] = lae(fmaxf(sh.spb[k], kHalfLogZero),
-                       fmaxf(spnb, kHalfLogZero));
-    }
-    __syncthreads();
-
-    // 4. top-K of the K stays and the K.V extensions
-    float ls[KMAX];
-    int li[KMAX];
-#pragma unroll
-    for (int q = 0; q < KMAX; ++q) {
-      ls[q] = -INFINITY;
-      li[q] = 0x7fffffff;
-    }
-    if (tid < K) insert<KMAX>(ls, li, sh.stay[tid], tid);
-    for (int j = 0; j < K; ++j) {
-      const float pb_j = sh.pb[st][j], total_j = sh.total[j];
-      const int last_j = sh.last[st][j], nc = sh.ncons[j];
-      const long long roff_j = sh.roff[j];
-      const int i0 = K + j * V;
-      for (int v = tid; v < V; v += kThreads) {
-        float s = ext_raw(a, lpr, pb_j, total_j, last_j, roff_j, v);
-        for (int q = 0; q < nc; ++q)
-          if (sh.cons[j][q] == v) s = kLogZero;
-        insert<KMAX>(ls, li, s, i0 + v);
-      }
-    }
-    for (int r = 0; r < K; ++r) {          // warp merge
-      float s = ls[0];
-      int i = li[0];
-      warp_best(s, i);
-      if (li[0] == i) {
-#pragma unroll
-        for (int q = 0; q < KMAX - 1; ++q) {
-          ls[q] = ls[q + 1];
-          li[q] = li[q + 1];
-        }
-        ls[KMAX - 1] = -INFINITY;
-        li[KMAX - 1] = 0x7fffffff;
-      }
-      if (lane == 0) {
-        sh.wscore[warp][r] = s;
-        sh.widx[warp][r] = i;
-      }
-    }
-    __syncthreads();
-    if (warp == 0) {                       // cross-warp merge
-      int head = 0;
-      for (int r = 0; r < K; ++r) {
-        float s = -INFINITY;
-        int i = 0x7fffffff;
-        if (lane < kWarps && head < K) {
-          s = sh.wscore[lane][head];
-          i = sh.widx[lane][head];
-        }
-        const int mine = i;
-        warp_best(s, i);
-        if (lane < kWarps && head < K && mine == i) ++head;
-        if (lane == 0) {
-          sh.tscore[r] = s;
-          sh.tidx[r] = i;
-        }
-      }
-    }
-    __syncthreads();
-
-    // 5. the new state and the traceback of frame t
-    if (tid < K) {
-      const int k = tid, idx = sh.tidx[k];
-      const bool is_stay = idx < K || idx >= NC;   // >= NC: never (NaN only)
-      const int e = max(idx - K, 0);
-      const int parent = idx < K ? idx : (is_stay ? k : e / V);
-      const int ch = is_stay ? -1 : e % V;
-      const int nx = st ^ 1;
-      sh.pb[nx][k] = is_stay ? sh.spb[parent] : kLogZero;
-      sh.pnb[nx][k] = is_stay ? sh.spnb[parent] : sh.tscore[k];
-      const int ph = sh.h[st][parent], ph2 = sh.h2[st][parent];
-      sh.h[nx][k] = is_stay ? ph : roll(ph, ch, kHashMult, kHashMod);
-      sh.h2[nx][k] = is_stay ? ph2 : roll(ph2, ch, kHashMult2, kHashMod2);
-      sh.ph[nx][k] = is_stay ? sh.ph[st][parent] : ph;
-      sh.ph2[nx][k] = is_stay ? sh.ph2[st][parent] : ph2;
-      sh.last[nx][k] = is_stay ? sh.last[st][parent] : ch;
-      const bool shift = !is_stay && a.lm_order > 1;
-      for (int c = 0; c < CL; ++c)
-        sh.ctx[nx][k][c] = shift ? (c + 1 < CL ? sh.ctx[st][parent][c + 1]
-                                               : ch)
-                                 : sh.ctx[st][parent][c];
-      tb[t * K + k] = (parent << 16) | (ch & 0xffff);
-    }
-    st ^= 1;
-    __syncthreads();
+// 2. per-beam totals, stay scores and LM rows; the consumed lists emptied
+__device__ __forceinline__ void prepare(const BeamArgs& a, const Row& R,
+                                        const State& S, const float* lpr) {
+  const int K = a.K, CL = a.ctx_len;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const float pb = S.pb[k], pnb = S.pnb[k];
+    const int last = S.last[k];
+    float total = lae(fmaxf(pb, kLogZero), pnb);
+    if (fmaxf(pb, pnb) <= kHalfLogZero) total = kLogZero;
+    R.total[k] = total;
+    R.spb[k] = total + lpr[0];
+    R.spnb[k] = last > 0 ? pnb + lpr[last] : kLogZero;
+    R.roff[k] = a.lm_kind != 0 ? lm_row_offset(a, S.ctx + k * CL) : 0;
+    R.head[k] = -1;
   }
+}
 
-  // final scores, their order, the state out
-  if (tid < K) {
-    sh.fin[tid] = lae(fmaxf(sh.pb[st][tid], kHalfLogZero),
-                      fmaxf(sh.pnb[st][tid], kHalfLogZero));
-    const int o = b * K + tid;
-    a.pb_out[o] = sh.pb[st][tid];
-    a.pnb_out[o] = sh.pnb[st][tid];
-    a.h_out[o] = sh.h[st][tid];
-    a.h2_out[o] = sh.h2[st][tid];
-    a.ph_out[o] = sh.ph[st][tid];
-    a.ph2_out[o] = sh.ph2[st][tid];
-    a.last_out[o] = sh.last[st][tid];
-    for (int c = 0; c < CL; ++c) a.ctx_out[o * CL + c] = sh.ctx[st][tid][c];
+// 3. the merges, a stay k on a segment of G lanes, lane j of it the parents
+// j, j + G, ... (G the largest power of 2 <= 32 and <= K with 2 G K <= the
+// block's threads, so every stay fits in one or two passes): the merge of
+// k with ext(j, last_k) for every beam j of k's parent prefix (the sum
+// only over the matches, since the others add exp(LOG_ZERO - m) = 0, by a
+// segment's shuffles where at most two terms are nonzero, else in
+// ascending j by the segment's first lane, so the sum's order does not
+// depend on G); k joins the consumed list of the lowest such j, and rep[k]
+// is the lowest beam with k's own hashes. Then a thread a stay: the merged
+// stay_pnb and the stay's score (every stay's logaddexps at once), and the
+// first consumed symbols of beam k as a parent (its class list's).
+__device__ __forceinline__ void merge_stays(const BeamArgs& a, const Row& R,
+                                            const State& S,
+                                            const float* lpr) {
+  const int K = a.K;
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  int G = 1;
+  while (G < 32 && G < K && 2 * G * K <= static_cast<int>(blockDim.x)) G *= 2;
+  const int per = 32 / G, sl = lane % G;
+  for (int k0 = (threadIdx.x >> 5) * per; k0 < K; k0 += nw * per) {
+    const int k = k0 + lane / G;
+    const bool on = k < K;
+    const int last_k = on ? S.last[k] : 0;
+    const int ph = on ? S.ph[k] : 0, ph2 = on ? S.ph2[k] : 0;
+    const int hk = on ? S.h[k] : 0, hk2 = on ? S.h2[k] : 0;
+    float mmax = kLogZero, m1 = kLogZero, m2 = kLogZero;  // lane's matches
+    int first = K, rep = on ? k : K, n_match = 0;
+#pragma unroll 4
+    for (int j = sl; on && j < K; j += G) {
+      const int hj = S.h[j], hj2 = S.h2[j];
+      if (hj == hk && hj2 == hk2) rep = min(rep, j);
+      if (last_k > 0 && hj == ph && hj2 == ph2) {
+        const float c = ext_raw(a, lpr, S.pb[j], R.total[j], S.last[j],
+                                R.roff[j], last_k);
+        mmax = fmaxf(mmax, c);
+        if (n_match == 0) m1 = c;
+        if (n_match == 1) m2 = c;
+        first = min(first, j);
+        ++n_match;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      if (off < G) {
+        mmax = fmaxf(mmax, __shfl_xor_sync(0xffffffffu, mmax, off));
+        first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
+        rep = min(rep, __shfl_xor_sync(0xffffffffu, rep, off));
+        n_match += __shfl_xor_sync(0xffffffffu, n_match, off);
+      }
+    }
+    const float mmax_s = fmaxf(mmax, kHalfLogZero);
+    float msum = 0.f;             // n_match <= 2: a lane holds its matches
+    if (n_match <= 2 && m1 > kLogZero) msum += expf(m1 - mmax_s);
+    if (n_match <= 2 && m2 > kLogZero) msum += expf(m2 - mmax_s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      if (off < G) msum += __shfl_xor_sync(0xffffffffu, msum, off);
+    if (on && sl == 0) {
+      if (n_match > 2) {
+        msum = 0.f;
+        for (int j = first; j < K; ++j) {
+          if (S.h[j] == ph && S.h2[j] == ph2)
+            msum += expf(ext_raw(a, lpr, S.pb[j], R.total[j], S.last[j],
+                                 R.roff[j], last_k) - mmax_s);
+        }
+      }
+      R.stay[k] = mmax <= kHalfLogZero ? kLogZero
+                                       : mmax_s + logf(fmaxf(msum, 1e-37f));
+      R.rep[k] = rep;
+      if (first < K) R.next[k] = atomicExch(&R.head[first], k);
+    }
   }
   __syncthreads();
-  if (tid < K) {
-    const float f = sh.fin[tid];
-    int rank = tid;
-    if (a.ordered) {
-      rank = 0;
-      for (int j = 0; j < K; ++j)
-        rank += better(sh.fin[j], j, f, tid) ? 1 : 0;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    float spnb = lae(fmaxf(R.spnb[k], kLogZero), fmaxf(R.stay[k], kLogZero));
+    if (spnb <= kHalfLogZero) spnb = kLogZero;
+    R.spnb[k] = spnb;
+    R.stay[k] = lae(fmaxf(R.spb[k], kHalfLogZero), fmaxf(spnb, kHalfLogZero));
+    int c = R.head[R.rep[k]];             // beam k's class list, as parent
+#pragma unroll
+    for (int q = 0; q < kCached; ++q) {
+      R.cons[k * kCached + q] = c >= 0 ? S.last[c] : -1;
+      c = c >= 0 ? R.next[c] : -1;
     }
-    sh.order[rank] = tid;
-    a.out_final[b * K + rank] = f;
+    if (c >= 0) R.cons[k * kCached + kCached - 1] = -2;
+  }
+}
+
+// One thread's candidate keys, the beam's values and its cached consumed
+// symbols kept while its j stays the same (a thread's candidates are runs
+// of one beam's symbols; the class list walked only when it is longer than
+// the cache): stay i < K, else extension (j, v), LOG_ZERO where a beam of
+// j's class list ends in v.
+struct Cand {
+  int j = -1;
+  float pb, total;
+  int last, cons[kCached];
+  long long roff;
+
+  __device__ __forceinline__ uint32_t key(const BeamArgs& a, const Row& R,
+                                          const State& S, const float* lpr,
+                                          int i, int j_, int v) {
+    if (i < a.K) return order_key(R.stay[i]);
+    if (j_ != j) {
+      j = j_;
+      pb = S.pb[j];
+      total = R.total[j];
+      last = S.last[j];
+      roff = R.roff[j];
+#pragma unroll
+      for (int q = 0; q < kCached; ++q) cons[q] = R.cons[j * kCached + q];
+    }
+    const float s = ext_raw(a, lpr, pb, total, last, roff, v);
+    bool consumed = false;
+#pragma unroll
+    for (int q = 0; q < kCached; ++q) consumed |= cons[q] == v;
+    for (int k = cons[kCached - 1] == -2 ? R.head[R.rep[j]] : -1;
+         !consumed && k >= 0; k = R.next[k])
+      consumed = S.last[k] == v;
+    return order_key(v > 0 && consumed ? kLogZero : s);
+  }
+};
+
+// (j, v) of flat index i (a stay: j < 0), and its step of d indices
+struct Walk {
+  int j, v, dj, dv;
+  __device__ __forceinline__ Walk(int i, int d, int K, const FastDiv& fv) {
+    const int V = static_cast<int>(fv.d), e = i - K;
+    j = e >= 0 ? fv.div(e) : -1 - fv.div(-e - 1);      // floor division
+    v = e - j * V;
+    dj = fv.div(d);
+    dv = d - dj * V;
+  }
+  __device__ __forceinline__ void step(int V) {
+    j += dj;
+    v += dv;
+    if (v >= V) {
+      v -= V;
+      ++j;
+    }
+  }
+};
+
+// 5. the new state from the sorted top-K words, the traceback of frame t
+__device__ __forceinline__ void advance(const BeamArgs& a, const Row& R,
+                                        const State& S, const State& X,
+                                        const FastDiv& fv,
+                                        const unsigned long long* top,
+                                        int32_t* tb, int t) {
+  const int K = a.K, V = a.V, CL = a.ctx_len;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const unsigned long long c = top[k];
+    const int idx = word_index(c);
+    const bool is_stay = idx < K;
+    const int e = max(idx - K, 0);
+    const int parent = is_stay ? idx : fv.div(e);
+    const int ch = is_stay ? -1 : e - parent * V;
+    X.pb[k] = is_stay ? R.spb[parent] : kLogZero;
+    X.pnb[k] = is_stay ? R.spnb[parent]
+                           : key_score(static_cast<uint32_t>(c >> 32));
+    const int ph = S.h[parent], ph2 = S.h2[parent];
+    X.h[k] = is_stay ? ph : roll(ph, ch, kHashMult, kHashMod);
+    X.h2[k] = is_stay ? ph2 : roll(ph2, ch, kHashMult2, kHashMod2);
+    X.ph[k] = is_stay ? S.ph[parent] : ph;
+    X.ph2[k] = is_stay ? S.ph2[parent] : ph2;
+    X.last[k] = is_stay ? S.last[parent] : ch;
+    const bool shift_ctx = !is_stay && a.lm_order > 1;
+    const int* pc = S.ctx + parent * CL;
+    for (int q = 0; q < CL; ++q)
+      X.ctx[k * CL + q] =
+          shift_ctx ? (q + 1 < CL ? pc[q + 1] : ch) : pc[q];
+    if (tb != nullptr)
+      tb[static_cast<long long>(t) * K + k] = (parent << 16) | (ch & 0xffff);
+  }
+}
+
+// after the frames: the state out, the final scores in their order, the
+// traceback of `keep` beams (count the emissions, then write the first
+// `width` of them in time order); s and tmp hold K rounded up to 32 words
+__device__ __forceinline__ void finish(const BeamArgs& a, const Row& R,
+                                       const State& S, int b, int n,
+                                       const int32_t* tb,
+                                       unsigned long long* s,
+                                       unsigned long long* tmp) {
+  const int K = a.K, CL = a.ctx_len;
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    R.stay[k] = lae(fmaxf(S.pb[k], kHalfLogZero),
+                    fmaxf(S.pnb[k], kHalfLogZero));
+    const long long o = static_cast<long long>(b) * K + k;
+    a.pb_out[o] = S.pb[k];
+    a.pnb_out[o] = S.pnb[k];
+    a.h_out[o] = S.h[k];
+    a.h2_out[o] = S.h2[k];
+    a.ph_out[o] = S.ph[k];
+    a.ph2_out[o] = S.ph2[k];
+    a.last_out[o] = S.last[k];
+    for (int c = 0; c < CL; ++c)
+      a.ctx_out[o * CL + c] = S.ctx[k * CL + c];
+    s[k] = word(order_key(R.stay[k]), k);
   }
   __syncthreads();
-
-  // traceback of `keep` beams: count the emissions, then write the first
-  // `width` of them in time order
-  if (tid < a.keep) {
-    int cur = sh.order[tid], cnt = 0;
+  const unsigned long long* sorted = a.ordered ? sort_desc(s, tmp, K) : s;
+  int* order = R.rep;
+  for (int r = threadIdx.x; r < K; r += blockDim.x) {
+    const int k = a.ordered ? word_index(sorted[r]) : r;
+    order[r] = k;
+    a.out_final[static_cast<long long>(b) * K + r] = R.stay[k];
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < a.keep; r += blockDim.x) {
+    int cur = order[r], cnt = 0;
     for (int t = n - 1; t >= 0; --t) {
-      const int e = tb[t * K + cur];
+      const int e = tb[static_cast<long long>(t) * K + cur];
       cnt += static_cast<int16_t>(e & 0xffff) >= 0 ? 1 : 0;
       cur = e >> 16;
     }
     const int W = a.width;
-    int32_t* out = a.out_chars + (static_cast<long long>(b) * a.keep + tid) * W;
-    a.out_counts[b * a.keep + tid] = min(cnt, W);
-    a.out_parent0[b * a.keep + tid] = cur;
+    int32_t* out = a.out_chars + (static_cast<long long>(b) * a.keep + r) * W;
+    a.out_counts[b * a.keep + r] = min(cnt, W);
+    a.out_parent0[b * a.keep + r] = cur;
     for (int w = cnt; w < W; ++w) out[w] = -1;
-    cur = sh.order[tid];
+    cur = order[r];
     int pos = cnt;
     for (int t = n - 1; t >= 0; --t) {
-      const int e = tb[t * K + cur];
+      const int e = tb[static_cast<long long>(t) * K + cur];
       const int ch = static_cast<int16_t>(e & 0xffff);
       if (ch >= 0 && --pos < W) out[pos] = ch;
       cur = e >> 16;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// the narrow form
+// ---------------------------------------------------------------------------
+
+struct NarrowShared {
+  float pb[2][kMaxBeam], pnb[2][kMaxBeam];
+  int h[2][kMaxBeam], h2[2][kMaxBeam], ph[2][kMaxBeam], ph2[2][kMaxBeam];
+  int last[2][kMaxBeam];
+  int ctx[2][kMaxBeam * kMaxCtx];
+  float total[kMaxBeam], spb[kMaxBeam], spnb[kMaxBeam], stay[kMaxBeam];
+  long long roff[kMaxBeam];
+  int rep[kMaxBeam], head[kMaxBeam], next[kMaxBeam];
+  int cons[kMaxBeam * kCached];
+  unsigned long long wl[kThreads * kMaxSplit / 32][32];  // warps' bests
+  unsigned long long top[kMaxBeam], fin[kMaxBeam];
+  unsigned long long thr;
+  int n_list;
+};
+
+template <int NT, bool kStage>
+__global__ void __launch_bounds__(NT, 1) beam_kernel(const BeamArgs a) {
+  constexpr int NW = NT / 32;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ NarrowShared sh;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int T = a.T, V = a.V, K = a.K;
+  const int n = min(max(a.lengths[b], 0), T);
+  const int N = K + K * V;
+  const int m = (N + NT - 1) / NT;             // candidates a thread
+  const Plan P = make_plan(T, V, K, a.ctx_len, 0);
+  float* s_lp = reinterpret_cast<float*>(dyn);                  // [2][V]
+  uint32_t* keys = reinterpret_cast<uint32_t*>(dyn + P.keys);   // [N]
+  unsigned long long* list =
+      reinterpret_cast<unsigned long long*>(dyn + P.list);      // [cap]
+  int32_t* tb = P.tb_shared
+                    ? reinterpret_cast<int32_t*>(dyn + P.tb)
+                    : a.tb_scratch + static_cast<long long>(b) * T * K;
+  const float* lp_row = a.lp + static_cast<long long>(b) * T * V;
+  Row R;
+  R.pb = sh.pb[0];
+  R.pnb = sh.pnb[0];
+  R.h = sh.h[0];
+  R.h2 = sh.h2[0];
+  R.ph = sh.ph[0];
+  R.ph2 = sh.ph2[0];
+  R.last = sh.last[0];
+  R.ctx = sh.ctx[0];
+  R.cs = kMaxBeam;
+  R.ccs = kMaxBeam * kMaxCtx;
+  R.total = sh.total;
+  R.spb = sh.spb;
+  R.spnb = sh.spnb;
+  R.stay = sh.stay;
+  R.roff = sh.roff;
+  R.rep = sh.rep;
+  R.head = sh.head;
+  R.next = sh.next;
+  R.cons = sh.cons;
+  const FastDiv fv(V);
+
+  load_state(a, state_of(R, 0), b);
+  lp_first<kStage>(lp_row, s_lp, n, V);
+  int st = 0;
+
+  for (int t = 0; t < n; ++t) {
+    const float* lpr = lp_row_of<kStage>(lp_row, s_lp, t, n, V);
+    const State S = state_of(R, st);
+    __syncthreads();
+    prepare(a, R, S, lpr);
+    if (tid == 0) sh.n_list = 0;
+    __syncthreads();
+    merge_stays(a, R, S, lpr);
+    __syncthreads();
+
+    // 4a. each candidate's key once; each thread's best word over its run
+    // of m consecutive indices (one symbol's extensions of different beams
+    // lie V apart, in different threads)
+    unsigned long long best = 0;
+    {
+      const int i_end = min(N, (tid + 1) * m);
+      Walk w(tid * m, 1, K, fv);
+      Cand cand;
+#pragma unroll 4
+      for (int i = tid * m; i < i_end; ++i) {
+        const uint32_t key = cand.key(a, R, S, lpr, i, w.j, w.v);
+        keys[i] = key;
+        const unsigned long long c = word(key, i);
+        best = c > best ? c : best;
+        w.step(V);
+      }
+    }
+    // the K-th best thread best: each thread's rank in its warp places the
+    // warp's bests in order; an entry of a warp's top K adds the entries
+    // above it in the other warps' lists (their searches side by side)
+    const int q = warp_rank(best);
+    sh.wl[warp][q] = best;
+    __syncthreads();
+    if (q < K) {
+      int rank = q;
+#pragma unroll
+      for (int w2 = 0; w2 < NW; ++w2)
+        if (w2 != warp) rank += count_above32(sh.wl[w2], best);
+      if (rank == K - 1) sh.thr = best;
+    }
+    __syncthreads();
+    // 4b. the candidates at or above it, ranked among themselves
+    const unsigned long long thr = sh.thr;
+#pragma unroll 4
+    for (int i = tid; i < N; i += NT) {
+      const unsigned long long c = word(keys[i], i);
+      if (c >= thr) list[atomicAdd(&sh.n_list, 1)] = c;
+    }
+    __syncthreads();
+    const int nl = sh.n_list;
+    for (int s = tid; s < nl; s += NT) {
+      const unsigned long long c = list[s];
+      int rank = 0;
+      for (int x = 0; x < nl; ++x) rank += list[x] > c ? 1 : 0;
+      if (rank < K) sh.top[rank] = c;
+    }
+    __syncthreads();
+
+    advance(a, R, S, state_of(R, st ^ 1), fv, sh.top, tb, t);
+    st ^= 1;
+    __syncthreads();
+  }
+  finish(a, R, state_of(R, st), b, n, tb, sh.fin, sh.top);
 }
 
 // Dynamic shared memory past 48 KB with the kernel's static part must be
@@ -561,12 +881,12 @@ cudaError_t allow_smem(Kernel fn, size_t smem) {
   return err;
 }
 
-template <int KMAX, bool kStage>
+template <int NT, bool kStage>
 int launch(const BeamArgs& a, size_t smem, cudaStream_t stream) {
-  auto fn = beam_kernel<KMAX, kStage>;
+  auto fn = beam_kernel<NT, kStage>;
   const cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fn<<<a.B, kThreads, smem, stream>>>(a);
+  fn<<<a.B, NT, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -574,473 +894,339 @@ int launch(const BeamArgs& a, size_t smem, cudaStream_t stream) {
 // the wide form
 // ---------------------------------------------------------------------------
 
-// 32-bit [K] arrays of the workspace (pairs: the state's two copies)
-enum WideSlot {
-  kWPb = 0, kWPnb = 2, kWH = 4, kWH2 = 6, kWPh = 8, kWPh2 = 10, kWLast = 12,
-  kWTotal = 14, kWSpb, kWSpnb, kWStay, kWRep, kWHead, kWNext, kWSlots
-};
-
-struct WideLayout {
-  long long roff, surv, ctx, bytes;     // byte offsets, then the size
-};
-
-__host__ __device__ inline int pow2_at_least(int k) {
-  int p = 1;
-  while (p < k) p <<= 1;
-  return p;
-}
-
-// One row's workspace: kWSlots [K] arrays of 32 bits, roff [K] int64 (LM
-// row offsets), surv [P2] uint64 (the survivors, then the final order; P2
-// the power of 2 >= K), ctx [2][K][ctx_len] int32.
-__host__ __device__ inline WideLayout wide_layout(int K, int CL) {
-  WideLayout l;
-  l.roff = (static_cast<long long>(kWSlots) * K * 4 + 15) / 16 * 16;
-  l.surv = l.roff + 8LL * K;
-  l.ctx = l.surv + 8LL * pow2_at_least(K);
-  l.bytes = (l.ctx + 8LL * K * CL + 15) / 16 * 16;
-  return l;
-}
-
-// order-preserving key of a score (a larger score, a larger key), -0 as +0
-__device__ __forceinline__ uint32_t order_key(float s) {
-  const uint32_t u = __float_as_uint(__fadd_rn(s, 0.f));
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float key_score(uint32_t k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-// (key, flat index) as one uint64 whose descending order is lax.top_k's
-__device__ __forceinline__ unsigned long long survivor(uint32_t key, int i) {
-  return (static_cast<unsigned long long>(key) << 32) |
-         (0xffffffffu - static_cast<uint32_t>(i));
-}
-
-__device__ __forceinline__ int survivor_index(unsigned long long c) {
-  return static_cast<int>(0xffffffffu - static_cast<uint32_t>(c));
-}
-
-// descending bitonic sort of s[0, n), n a power of 2, by the whole block
-__device__ void bitonic_desc(unsigned long long* s, int n) {
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int q = threadIdx.x; q < n / 2; q += blockDim.x) {
-        const int lo = 2 * q - (q & (stride - 1)), hi = lo + stride;
-        const unsigned long long x = s[lo], y = s[hi];
-        if ((x < y) == ((lo & size) == 0)) {
-          s[lo] = y;
-          s[hi] = x;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 template <bool kStage, bool kWsShared>
-__global__ void __launch_bounds__(kWideThreads)
+__global__ void __launch_bounds__(kWideThreads, 1)
     beam_wide_kernel(const BeamArgs a) {
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ int hist[2][kRadixBins];
-  __shared__ int wcount[kWideWarps];
+  __shared__ int wsum[kWideWarps], wcount[kWideWarps];
   __shared__ uint32_t sel_prefix;
-  __shared__ int sel_shift, sel_need, sel_all, n_taken;
-  const int b = blockIdx.x, tid = threadIdx.x, nthr = blockDim.x;
+  __shared__ int sel_need, sel_all, n_loc;
+  __shared__ int pub[2];     // this block's survivors above, ties
+  const int C = static_cast<int>(cluster_size());
+  const int rank = static_cast<int>(cluster_rank());
+  const int b = blockIdx.x / C, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int T = a.T, V = a.V, K = a.K, CL = a.ctx_len;
   const int n = min(max(a.lengths[b], 0), T);
   const int N = K + K * V;
-  const int P2 = pow2_at_least(K);
+  const Plan P = make_plan(T, V, K, CL, 1);
   const WideLayout L = wide_layout(K, CL);
-  const long long stage = kStage ? 2LL * V * 4 : 0;
   float* s_lp = reinterpret_cast<float*>(dyn);                  // [2][V]
   unsigned char* ws =
-      kWsShared ? dyn + stage
+      kWsShared ? dyn + P.ws
                 : static_cast<unsigned char*>(a.ws_scratch) + b * L.bytes;
-  int32_t* tb = a.tb_scratch != nullptr
-                    ? a.tb_scratch + static_cast<long long>(b) * T * K
-                    : reinterpret_cast<int32_t*>(
-                          dyn + stage + (kWsShared ? L.bytes : 0));  // [T][K]
+  uint32_t* keys = reinterpret_cast<uint32_t*>(dyn + P.keys);
+  int32_t* tb = rank != 0 ? nullptr
+                : P.tb_shared
+                    ? reinterpret_cast<int32_t*>(dyn + P.tb)
+                    : a.tb_scratch + static_cast<long long>(b) * T * K;
   float* wf = reinterpret_cast<float*>(ws);
   int* wi = reinterpret_cast<int*>(ws);
-  long long* roff = reinterpret_cast<long long*>(ws + L.roff);
+  unsigned long long* loc =
+      reinterpret_cast<unsigned long long*>(ws + L.loc);
   unsigned long long* surv =
       reinterpret_cast<unsigned long long*>(ws + L.surv);
-  int* wctx = reinterpret_cast<int*>(ws + L.ctx);              // [2][K][CL]
-  auto F = [&](int slot, int k) -> float& { return wf[slot * K + k]; };
-  auto I = [&](int slot, int k) -> int& { return wi[slot * K + k]; };
+  unsigned long long* tmp = reinterpret_cast<unsigned long long*>(ws + L.tmp);
+  Row R;
+  R.pb = wf + kWPb * K;
+  R.pnb = wf + kWPnb * K;
+  R.h = wi + kWH * K;
+  R.h2 = wi + kWH2 * K;
+  R.ph = wi + kWPh * K;
+  R.ph2 = wi + kWPh2 * K;
+  R.last = wi + kWLast * K;
+  R.ctx = reinterpret_cast<int*>(ws + L.ctx);
+  R.cs = K;
+  R.ccs = K * CL;
+  R.total = wf + kWTotal * K;
+  R.spb = wf + kWSpb * K;
+  R.spnb = wf + kWSpnb * K;
+  R.stay = wf + kWStay * K;
+  R.roff = reinterpret_cast<long long*>(ws + L.roff);
+  R.rep = wi + kWRep * K;
+  R.head = wi + kWHead * K;
+  R.next = wi + kWNext * K;
+  R.cons = wi + kWCons * K;
+  const FastDiv fv(V);
   const float* lp_row = a.lp + static_cast<long long>(b) * T * V;
-  // warp w owns the flat indices [w span, (w + 1) span), 32 a round
-  const int span = ((N + kWideWarps - 1) / kWideWarps + 31) / 32 * 32;
-  const int i0 = warp * span + lane;
+  // this block's index range, warp w's part of it [i0 - lane, iend)
+  const int nb = (N + C - 1) / C;
+  const int lo = rank * nb, hi = min(N, lo + nb);
+  const int span = ((nb + kWideWarps - 1) / kWideWarps + 31) / 32 * 32;
+  const int i0 = lo + warp * span + lane;
+  const int iend = min(hi, lo + (warp + 1) * span);
+  const bool stored = P.keys_shared;
 
-  for (int k = tid; k < K; k += nthr) {
-    const long long o = static_cast<long long>(b) * K + k;
-    F(kWPb, k) = a.pb_in[o];
-    F(kWPnb, k) = a.pnb_in[o];
-    I(kWH, k) = a.h_in[o];
-    I(kWH2, k) = a.h2_in[o];
-    I(kWPh, k) = a.ph_in[o];
-    I(kWPh2, k) = a.ph2_in[o];
-    I(kWLast, k) = a.last_in[o];
-    for (int c = 0; c < CL; ++c) wctx[k * CL + c] = a.ctx_in[o * CL + c];
-  }
-  if (kStage && n > 0) {
-    for (int v = tid; v < V; v += nthr)
-      cp_async4(smem_u32(s_lp + v), lp_row + v);
-  }
-  cp_async_commit();
-  int st = 0;
+  load_state(a, state_of(R, 0), b);
+  for (int q = tid; q < 2 * kRadixBins; q += kWideThreads)
+    hist[q / kRadixBins][q % kRadixBins] = 0;
+  lp_first<kStage>(lp_row, s_lp, n, V);
+  row_sync(C);              // the peers run before any reads their memory
+  int st = 0, pc = 0;
 
   for (int t = 0; t < n; ++t) {
-    const float* lpr;
-    if (kStage) {
-      if (t + 1 < n) {
-        float* dst = s_lp + ((t + 1) & 1) * V;
-        const float* src = lp_row + static_cast<long long>(t + 1) * V;
-        for (int v = tid; v < V; v += nthr)
-          cp_async4(smem_u32(dst + v), src + v);
-      }
-      cp_async_commit();
-      cp_async_wait1();
-      lpr = s_lp + (t & 1) * V;
-    } else {
-      lpr = lp_row + static_cast<long long>(t) * V;
-    }
+    const float* lpr = lp_row_of<kStage>(lp_row, s_lp, t, n, V);
+    const State S = state_of(R, st);
     __syncthreads();
-    const int* ctx_st = wctx + st * K * CL;
-
-    // 2. per-beam totals, stay scores and LM rows; each beam's hash class
-    for (int k = tid; k < K; k += nthr) {
-      const float pb = F(kWPb + st, k), pnb = F(kWPnb + st, k);
-      const int last = I(kWLast + st, k);
-      float total = lae(fmaxf(pb, kLogZero), pnb);
-      if (fmaxf(pb, pnb) <= kHalfLogZero) total = kLogZero;
-      F(kWTotal, k) = total;
-      F(kWSpb, k) = total + lpr[0];
-      F(kWSpnb, k) = last > 0 ? pnb + lpr[last] : kLogZero;
-      roff[k] = a.lm_kind != 0 ? lm_row_offset(a, ctx_st + k * CL) : 0;
-      const int h = I(kWH + st, k), h2 = I(kWH2 + st, k);
-      int rep = k;
-      for (int j = 0; j < k; ++j) {
-        if (I(kWH + st, j) == h && I(kWH2 + st, j) == h2) {
-          rep = j;
-          break;
-        }
-      }
-      I(kWRep, k) = rep;
-      I(kWHead, k) = -1;
-    }
-    for (int q = tid; q < kRadixBins; q += nthr) hist[0][q] = 0;
-    if (tid == 0) {
-      sel_prefix = 0;
-      sel_need = K;
-      sel_all = 0;
-      n_taken = 0;
-    }
+    prepare(a, R, S, lpr);
+    if (tid == 0) n_loc = 0;
     __syncthreads();
-
-    // 3. merges: stay k <- ext(j, last_k) for every beam j of k's parent
-    // prefix; k joins the consumed list of the lowest such j
-    for (int k = tid; k < K; k += nthr) {
-      const int last_k = I(kWLast + st, k);
-      const int ph = I(kWPh + st, k), ph2 = I(kWPh2 + st, k);
-      float mmax = kLogZero;
-      int first = -1;
-      for (int j = 0; last_k > 0 && j < K; ++j) {
-        if (ph == I(kWH + st, j) && ph2 == I(kWH2 + st, j)) {
-          mmax = fmaxf(mmax, ext_raw(a, lpr, F(kWPb + st, j), F(kWTotal, j),
-                                     I(kWLast + st, j), roff[j], last_k));
-          if (first < 0) first = j;
-        }
-      }
-      const float mmax_s = fmaxf(mmax, kHalfLogZero);
-      float msum = 0.f;        // the other beams add exp(LOG_ZERO - m) = 0
-      for (int j = max(first, 0); first >= 0 && j < K; ++j) {
-        if (ph == I(kWH + st, j) && ph2 == I(kWH2 + st, j))
-          msum += expf(ext_raw(a, lpr, F(kWPb + st, j), F(kWTotal, j),
-                               I(kWLast + st, j), roff[j], last_k) -
-                       mmax_s);
-      }
-      const float merged = mmax <= kHalfLogZero
-                               ? kLogZero
-                               : mmax_s + logf(fmaxf(msum, 1e-37f));
-      float spnb = lae(fmaxf(F(kWSpnb, k), kLogZero), fmaxf(merged, kLogZero));
-      if (spnb <= kHalfLogZero) spnb = kLogZero;
-      F(kWSpnb, k) = spnb;
-      F(kWStay, k) = lae(fmaxf(F(kWSpb, k), kHalfLogZero),
-                         fmaxf(spnb, kHalfLogZero));
-      if (first >= 0) I(kWNext, k) = atomicExch(&I(kWHead, first), k);
-    }
+    merge_stays(a, R, S, lpr);
     __syncthreads();
-
-    // 4. top-K of the K stays and the K.V extensions
-    auto cand = [&](int i) -> float {
-      if (i < K) return F(kWStay, i);
-      const int e = i - K, j = e / V, v = e - j * V;
-      float s = ext_raw(a, lpr, F(kWPb + st, j), F(kWTotal, j),
-                        I(kWLast + st, j), roff[j], v);
-      for (int k = I(kWHead, I(kWRep, j)); v > 0 && k >= 0; k = I(kWNext, k)) {
-        if (I(kWLast + st, k) == v) {
-          s = kLogZero;
-          break;
-        }
-      }
-      return s;
-    };
-    for (int pass = 0; pass < 4; ++pass) {    // radix select, 8 bits a pass
-      const int cur = pass & 1, shift = 24 - 8 * pass;
-      const uint32_t prefix = sel_prefix;
-      for (int r = 0; r < span; r += 32) {
-        const int i = i0 + r;
-        int bin = -1;
-        if (i < N) {
-          const uint32_t key = order_key(cand(i));
-          if (pass == 0 || (key >> (shift + 8)) == prefix)
-            bin = static_cast<int>((key >> shift) & 0xffu);
-        }
-        const unsigned peers = __match_any_sync(0xffffffffu, bin);
-        if (bin >= 0 && lane == __ffs(peers) - 1)
-          atomicAdd(&hist[cur][bin], __popc(peers));
-      }
-      __syncthreads();
-      if (warp == 0) {             // the bin that holds the need-th key
-        const int need = sel_need;
-        int c[8], sum = 0;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          c[q] = hist[cur][kRadixBins - 1 - 8 * lane - q];
-          sum += c[q];
-        }
-        int incl = sum;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int y = __shfl_up_sync(0xffffffffu, incl, off);
-          if (lane >= off) incl += y;
-        }
-        const int src = __ffs(__ballot_sync(0xffffffffu, incl >= need)) - 1;
-        if (lane == src) {
-          int above = incl - sum, q = 0;
-          while (above + c[q] < need) above += c[q++];
-          sel_prefix = (prefix << 8) |
-                       static_cast<uint32_t>(kRadixBins - 1 - 8 * lane - q);
-          sel_shift = shift;
-          sel_need = need - above;
-          sel_all = c[q] == need - above;
+    // visits this thread's indices in order, 32 a warp a round, f(valid,
+    // i, key) for every lane of every round (the warps stay converged)
+    auto visit = [&](auto&& f) {
+      if (stored) {
+        for (int r = 0; r < span; r += 32) {
+          const int i = i0 + r;
+          const bool valid = i < iend;
+          f(valid, i, valid ? keys[i - lo] : 0u);
         }
       } else {
-        for (int q = tid - 32; q < kRadixBins; q += nthr - 32)
-          hist[cur ^ 1][q] = 0;
-      }
-      __syncthreads();
-      if (sel_all) break;
-    }
-    // keys above the threshold class, and the class too when all of it is
-    // taken; else its first `need` members in ascending index
-    const uint32_t P = sel_prefix;
-    const int shift = sel_shift, need = sel_need;
-    const bool all = sel_all;
-    int ties = 0;
-    for (int r = 0; r < span; r += 32) {
-      const int i = i0 + r;
-      bool tie = false;
-      if (i < N) {
-        const uint32_t key = order_key(cand(i));
-        const uint32_t hi = key >> shift;
-        if (hi > P || (all && hi == P))
-          surv[atomicAdd(&n_taken, 1)] = survivor(key, i);
-        tie = !all && hi == P;
-      }
-      ties += __popc(__ballot_sync(0xffffffffu, tie));
-    }
-    if (lane == 0) wcount[warp] = ties;
-    for (int q = K + tid; q < P2; q += nthr) surv[q] = 0ULL;
-    __syncthreads();
-    if (!all) {
-      int base = 0;
-      for (int w = 0; w < warp; ++w) base += wcount[w];
-      for (int r = 0; r < span && ties > 0 && base < need; r += 32) {
-        const int i = i0 + r;
-        uint32_t key = 0;
-        bool tie = false;
-        if (i < N) {
-          key = order_key(cand(i));
-          tie = (key >> shift) == P;
+        Walk w(i0, 32, K, fv);
+        Cand cand;
+        for (int r = 0; r < span; r += 32) {
+          const int i = i0 + r;
+          const bool valid = i < iend;
+          f(valid, i, valid ? cand.key(a, R, S, lpr, i, w.j, w.v) : 0u);
+          w.step(V);
         }
-        const unsigned m = __ballot_sync(0xffffffffu, tie);
-        const int pos = base + __popc(m & ((1u << lane) - 1u));
-        if (tie && pos < need) surv[K - need + pos] = survivor(key, i);
-        base += __popc(m);
-        ties -= __popc(m);
       }
+    };
+
+    // 4. radix select: pass 0 computes every key (kept where they fit)
+    uint32_t prefix = 0;
+    int need = K, shift = 0;
+    bool all = false;
+    for (int pass = 0; pass < 3; ++pass) {
+      const int bits = pass < 2 ? kDigitBits : 32 - 2 * kDigitBits;
+      shift = 32 - kDigitBits * pass - bits;
+      int* hb = hist[pc & 1];
+      auto count = [&](bool valid, int, uint32_t key) {
+        int bin = -1;
+        if (valid && (pass == 0 || (key >> (shift + bits)) == prefix))
+          bin = static_cast<int>((key >> shift) & ((1u << bits) - 1u));
+        if (__any_sync(0xffffffffu, bin >= 0)) {
+          const unsigned peers = __match_any_sync(0xffffffffu, bin);
+          if (bin >= 0 && lane == __ffs(peers) - 1)
+            atomicAdd(&hb[bin], __popc(peers));
+        }
+      };
+      if (pass == 0) {
+        Walk w(i0, 32, K, fv);
+        Cand cand;
+        for (int r = 0; r < span; r += 32) {
+          const int i = i0 + r;
+          const bool valid = i < iend;
+          const uint32_t key =
+              valid ? cand.key(a, R, S, lpr, i, w.j, w.v) : 0u;
+          if (valid && stored) keys[i - lo] = key;
+          count(valid, i, key);
+          w.step(V);
+        }
+      } else {
+        visit(count);
+      }
+      row_sync(C);
+      // the digit whose bin holds the need-th key, bins in descending
+      // order over the threads (the row's blocks' counts summed)
+      const int nbins = 1 << bits, per = nbins / kWideThreads;
+      int cnt[kRadixBins / kWideThreads], sum = 0;
+#pragma unroll
+      for (int q = 0; q < kRadixBins / kWideThreads; ++q) {
+        cnt[q] = 0;
+        if (q < per) {
+          const int bin = nbins - 1 - (tid * per + q);
+          for (int c = 0; c < C; ++c) cnt[q] += peer_int(hb + bin, c, rank);
+          sum += cnt[q];
+        }
+      }
+      int incl = sum;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += y;
+      }
+      if (lane == 31) wsum[warp] = incl;
       __syncthreads();
+      int above = incl - sum;
+      for (int w = 0; w < warp; ++w) above += wsum[w];
+      if (above < need && need <= above + sum) {
+        int digit = 0, in_bin = 0;
+        bool found = false;
+#pragma unroll
+        for (int q = 0; q < kRadixBins / kWideThreads; ++q) {
+          if (!found && q < per) {
+            if (above + cnt[q] >= need) {
+              found = true;
+              digit = nbins - 1 - (tid * per + q);
+              in_bin = cnt[q];
+            } else {
+              above += cnt[q];
+            }
+          }
+        }
+        sel_prefix = (prefix << bits) | static_cast<uint32_t>(digit);
+        sel_need = need - above;
+        sel_all = in_bin == need - above;
+      }
+      for (int q = tid; q < kRadixBins; q += kWideThreads)
+        hist[(pc & 1) ^ 1][q] = 0;     // the next pass's (read a pass ago)
+      __syncthreads();
+      prefix = sel_prefix;
+      need = sel_need;
+      all = sel_all != 0;
+      ++pc;
+      if (all) break;
     }
-    bitonic_desc(surv, P2);
 
-    // 5. the new state and the traceback of frame t
-    const int nx = st ^ 1;
-    int* ctx_nx = wctx + nx * K * CL;
-    for (int k = tid; k < K; k += nthr) {
-      const unsigned long long c = surv[k];
-      const int idx = survivor_index(c);
-      const bool is_stay = idx < K;
-      const int e = max(idx - K, 0);
-      const int parent = is_stay ? idx : e / V;
-      const int ch = is_stay ? -1 : e - parent * V;
-      F(kWPb + nx, k) = is_stay ? F(kWSpb, parent) : kLogZero;
-      F(kWPnb + nx, k) = is_stay ? F(kWSpnb, parent)
-                                 : key_score(static_cast<uint32_t>(c >> 32));
-      const int ph = I(kWH + st, parent), ph2 = I(kWH2 + st, parent);
-      I(kWH + nx, k) = is_stay ? ph : roll(ph, ch, kHashMult, kHashMod);
-      I(kWH2 + nx, k) = is_stay ? ph2 : roll(ph2, ch, kHashMult2, kHashMod2);
-      I(kWPh + nx, k) = is_stay ? I(kWPh + st, parent) : ph;
-      I(kWPh2 + nx, k) = is_stay ? I(kWPh2 + st, parent) : ph2;
-      I(kWLast + nx, k) = is_stay ? I(kWLast + st, parent) : ch;
-      const bool shift_ctx = !is_stay && a.lm_order > 1;
-      const int* pc = ctx_st + parent * CL;
-      for (int q = 0; q < CL; ++q)
-        ctx_nx[k * CL + q] = shift_ctx ? (q + 1 < CL ? pc[q + 1] : ch) : pc[q];
-      tb[static_cast<long long>(t) * K + k] = (parent << 16) | (ch & 0xffff);
+    // the survivors: keys above the threshold class (the class too when
+    // all of it is taken) in any order, then the class's first `need`
+    // members in ascending index
+    int ties = 0;
+    visit([&](bool valid, int i, uint32_t key) {
+      const uint32_t h = key >> shift;
+      if (valid && (h > prefix || (all && h == prefix)))
+        loc[atomicAdd(&n_loc, 1)] = word(key, i);
+      ties += __popc(__ballot_sync(0xffffffffu, valid && !all &&
+                                                    h == prefix));
+    });
+    if (lane == 0) wcount[warp] = ties;
+    __syncthreads();
+    if (tid == 0) {
+      int s = 0;
+      for (int w = 0; w < kWideWarps; ++w) s += wcount[w];
+      pub[0] = n_loc;
+      pub[1] = s;
     }
-    st = nx;
+    row_sync(C);
+    int off_above = 0, tie_base = 0, n_above = 0;
+    for (int c = 0; c < C; ++c) {
+      const int na = peer_int(&pub[0], c, rank);
+      if (c < rank) {
+        off_above += na;
+        tie_base += peer_int(&pub[1], c, rank);
+      }
+      n_above += na;
+    }
+    auto put = [&](int slot, unsigned long long v) {
+      if (C == 1) {
+        surv[slot] = v;
+      } else {
+        for (int c = 0; c < C; ++c)
+          st_cluster(map_rank(surv + slot, static_cast<uint32_t>(c)), v);
+      }
+    };
+    for (int x = tid; x < n_loc; x += kWideThreads)
+      put(off_above + x, loc[x]);
+    if (!all) {
+      int base = tie_base;
+      for (int w = 0; w < warp; ++w) base += wcount[w];
+      if (ties > 0 && base < need) {
+        visit([&](bool valid, int i, uint32_t key) {
+          const bool tie = valid && (key >> shift) == prefix;
+          const unsigned m = __ballot_sync(0xffffffffu, tie);
+          const int pos = base + __popc(m & ((1u << lane) - 1u));
+          if (tie && pos < need) put(n_above + pos, word(key, i));
+          base += __popc(m);
+        });
+      }
+    }
+    row_sync(C);
+    const unsigned long long* top = sort_desc(surv, tmp, K);
+
+    advance(a, R, S, state_of(R, st ^ 1), fv, top, tb, t);
+    st ^= 1;
     __syncthreads();
   }
-
-  // final scores, their order, the state out
-  const int* ctx_st = wctx + st * K * CL;
-  for (int k = tid; k < K; k += nthr) {
-    F(kWStay, k) = lae(fmaxf(F(kWPb + st, k), kHalfLogZero),
-                       fmaxf(F(kWPnb + st, k), kHalfLogZero));
-    const long long o = static_cast<long long>(b) * K + k;
-    a.pb_out[o] = F(kWPb + st, k);
-    a.pnb_out[o] = F(kWPnb + st, k);
-    a.h_out[o] = I(kWH + st, k);
-    a.h2_out[o] = I(kWH2 + st, k);
-    a.ph_out[o] = I(kWPh + st, k);
-    a.ph2_out[o] = I(kWPh2 + st, k);
-    a.last_out[o] = I(kWLast + st, k);
-    for (int c = 0; c < CL; ++c) a.ctx_out[o * CL + c] = ctx_st[k * CL + c];
-  }
-  __syncthreads();
-  if (a.ordered) {
-    for (int q = tid; q < P2; q += nthr)
-      surv[q] = q < K ? survivor(order_key(F(kWStay, q)), q) : 0ULL;
-    __syncthreads();
-    bitonic_desc(surv, P2);
-  }
-  for (int r = tid; r < K; r += nthr) {
-    const int k = a.ordered ? survivor_index(surv[r]) : r;
-    I(kWRep, r) = k;                                  // the order
-    a.out_final[static_cast<long long>(b) * K + r] = F(kWStay, k);
-  }
-  __syncthreads();
-
-  // traceback of `keep` beams, as the narrow form's
-  for (int r = tid; r < a.keep; r += nthr) {
-    int cur = I(kWRep, r), cnt = 0;
-    for (int t = n - 1; t >= 0; --t) {
-      const int e = tb[static_cast<long long>(t) * K + cur];
-      cnt += static_cast<int16_t>(e & 0xffff) >= 0 ? 1 : 0;
-      cur = e >> 16;
-    }
-    const int W = a.width;
-    int32_t* out = a.out_chars + (static_cast<long long>(b) * a.keep + r) * W;
-    a.out_counts[b * a.keep + r] = min(cnt, W);
-    a.out_parent0[b * a.keep + r] = cur;
-    for (int w = cnt; w < W; ++w) out[w] = -1;
-    cur = I(kWRep, r);
-    int pos = cnt;
-    for (int t = n - 1; t >= 0; --t) {
-      const int e = tb[static_cast<long long>(t) * K + cur];
-      const int ch = static_cast<int16_t>(e & 0xffff);
-      if (ch >= 0 && --pos < W) out[pos] = ch;
-      cur = e >> 16;
-    }
-  }
+  if (rank == 0) finish(a, R, state_of(R, st), b, n, tb, surv, tmp);
+  row_sync(C);              // no block leaves while a peer may read it
 }
 
 template <bool kStage, bool kWsShared>
-int launch_wide(const BeamArgs& a, size_t smem, cudaStream_t stream) {
+int launch_wide(const BeamArgs& a, int C, size_t smem, cudaStream_t stream) {
   auto fn = beam_wide_kernel<kStage, kWsShared>;
-  const cudaError_t err = allow_smem(fn, smem);
+  cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fn<<<a.B, kWideThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B * C);
+  cfg.blockDim = dim3(kWideThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fn, a);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
-// The launch plan of a call: out[0] = 1 for the wide form (K > 32, an LM
-// context past 8 lanes, or `wide` asked for), out[1] = 1 if lp rows are
-// staged in shared memory, out[2] = 1 if the tracebacks fit in shared
-// memory (else the caller's [B, T, K] int32 scratch holds them), out[3] =
-// 1 if the wide form's workspace fits in shared memory beside the staged
-// rows (else the caller's [B, out[5]] byte scratch holds it; 1 for the
-// narrow form, whose state is static), out[4] = dynamic shared bytes a
-// block, out[5] = the workspace's bytes a row (0 for the narrow form).
+// The launch plan of a call (make_plan, beam_plan.cuh): out[0] = 1 for the
+// wide form (K > 32, an LM context past 8 lanes, a row whose keys pass the
+// narrow form's shared memory, or `wide` asked for), out[1] = 1 if lp rows
+// are staged in shared memory, out[2] = 1 if the tracebacks fit in shared
+// memory (else the caller's [B, T, K] int32 scratch holds them), out[3] = 1
+// if the wide form's workspace fits in shared memory (else the caller's [B,
+// out[5]] byte scratch holds it; 1 for the narrow form, whose state is
+// static), out[4] = dynamic shared bytes a block, out[5] = the workspace's
+// bytes a row (0 for the narrow form), out[6] = the split (the narrow
+// form's threads / 128, the wide form's blocks a row), out[7] = 1 if the
+// keys of a block's candidates stay in shared memory (else the wide form
+// computes them again each sweep).
 CSR_API int csr_beam_plan(int T, int V, int K, int ctx_len, int wide,
                           int* out) {
-  wide = wide || K > kMaxBeam || ctx_len > kMaxCtx;
-  const long long stage = V <= kStageMaxV ? 2LL * V * 4 : 0;
-  const long long ws = wide ? wide_layout(K, max(ctx_len, 1)).bytes : 0;
-  const bool ws_smem = stage + ws <= kSharedBudget;
-  const long long used = stage + (ws_smem ? ws : 0);
-  const long long tbb = static_cast<long long>(T) * K * 4;
-  const bool tb_smem = used + tbb <= kSharedBudget;
-  out[0] = wide ? 1 : 0;
-  out[1] = stage > 0;
-  out[2] = tb_smem;
-  out[3] = ws_smem;
-  out[4] = static_cast<int>(used + (tb_smem ? tbb : 0));
-  out[5] = static_cast<int>(ws);
+  plan_out(T, V, K, ctx_len, wide, out);
   return 0;
 }
 
 // The narrow form. Requires 1 <= K <= 32, 1 <= V <= 32767, 1 <= T,
-// ctx_len <= 8, keep <= K, width >= 0; tb_scratch non-null exactly when
-// csr_beam_plan says the tracebacks do not fit in shared memory (the
-// wrapper checks all of it).
+// ctx_len <= 8, keep <= K, width >= 0, a row csr_beam_plan gives the
+// narrow form; tb_scratch non-null exactly when the plan says the
+// tracebacks do not fit in shared memory (the wrapper checks all of it).
 CSR_API int csr_beam(const BeamArgs* args, cudaStream_t stream) {
   BeamArgs a = *args;
   if (a.B < 1 || a.T < 1 || a.V < 1 || a.V > 32767 || a.K < 1 ||
       a.K > kMaxBeam || a.ctx_len < 1 || a.ctx_len > kMaxCtx ||
       a.keep < 0 || a.keep > a.K || a.width < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int plan[6];
-  csr_beam_plan(a.T, a.V, a.K, a.ctx_len, 0, plan);
-  if ((a.tb_scratch == nullptr) != (plan[2] == 1))
+  const Plan p = make_plan(a.T, a.V, a.K, a.ctx_len, 0);
+  if (p.wide || (a.tb_scratch == nullptr) != (p.tb_shared == 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(plan[4]);
-  if (plan[1]) {
-    return a.K <= 8 ? launch<8, true>(a, smem, stream)
-                    : launch<32, true>(a, smem, stream);
+  const size_t smem = static_cast<size_t>(p.smem);
+  if (p.split == kMaxSplit) {
+    return p.staged ? launch<kThreads * kMaxSplit, true>(a, smem, stream)
+                    : launch<kThreads * kMaxSplit, false>(a, smem, stream);
   }
-  return a.K <= 8 ? launch<8, false>(a, smem, stream)
-                  : launch<32, false>(a, smem, stream);
+  return p.staged ? launch<kThreads, true>(a, smem, stream)
+                  : launch<kThreads, false>(a, smem, stream);
 }
 
 // The wide form. Requires 1 <= K <= 32767 (the tracebacks pack the parent
 // into 16 bits), 1 <= V <= 32767, 1 <= T, ctx_len >= 1, keep <= K, width
 // >= 0; tb_scratch and ws_scratch non-null exactly where csr_beam_plan
-// (wide = 1) places the tracebacks and the workspace in global memory.
+// (wide = 1) places the tracebacks and the workspace in global memory. A
+// cluster launch the card refuses returns its error.
 CSR_API int csr_beam_wide(const BeamArgs* args, cudaStream_t stream) {
   BeamArgs a = *args;
   if (a.B < 1 || a.T < 1 || a.V < 1 || a.V > 32767 || a.K < 1 ||
       a.K > kMaxWideBeam || a.ctx_len < 1 || a.keep < 0 || a.keep > a.K ||
       a.width < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int plan[6];
-  csr_beam_plan(a.T, a.V, a.K, a.ctx_len, 1, plan);
-  if ((a.tb_scratch == nullptr) != (plan[2] == 1) ||
-      (a.ws_scratch == nullptr) != (plan[3] == 1))
+  const Plan p = make_plan(a.T, a.V, a.K, a.ctx_len, 1);
+  if ((a.tb_scratch == nullptr) != (p.tb_shared == 1) ||
+      (a.ws_scratch == nullptr) != (p.ws_shared == 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(plan[4]);
-  if (plan[1]) {
-    return plan[3] ? launch_wide<true, true>(a, smem, stream)
-                   : launch_wide<true, false>(a, smem, stream);
+  const size_t smem = static_cast<size_t>(p.smem);
+  if (p.staged) {
+    return p.ws_shared ? launch_wide<true, true>(a, p.split, smem, stream)
+                       : launch_wide<true, false>(a, p.split, smem, stream);
   }
-  return plan[3] ? launch_wide<false, true>(a, smem, stream)
-                 : launch_wide<false, false>(a, smem, stream);
+  return p.ws_shared ? launch_wide<false, true>(a, p.split, smem, stream)
+                     : launch_wide<false, false>(a, p.split, smem, stream);
 }

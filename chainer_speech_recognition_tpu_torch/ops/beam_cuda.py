@@ -4,17 +4,26 @@ back the kept ones — ``decode/beam.beam_chunk_plain``'s contract, CUDA
 tensors only.
 
 Two forms, one launch either way. The narrow form (``csr_beam``, counted
-as ``beam``) keeps one lane a beam in its merges and its state in static
-shared memory: K ≤ 32 and an LM context of ≤ 8 lanes (order ≤ 9). Every
-other call takes the wide form (``csr_beam_wide``, counted as
-``beam_wide``): any K up to ``MAX_WIDTH`` (the tracebacks pack a parent
-into 16 bits) and any LM order, its top-K a radix select. ``beam_plan``
-reads the launch plan from the library: the form, whether the lp rows are
-staged in shared memory, whether the chunk's tracebacks fit there (else a
-[B, T, K] int32 scratch in device memory holds them) and, for the wide
-form, whether its per-row workspace (the state, the LM context lanes, the
-merge lists and the survivors) does (else a [B, bytes] scratch holds it).
-Nothing here takes the plain version: what the kernel cannot take raises.
+as ``beam``) keeps its state in static shared memory and every key of the
+row's candidates in dynamic shared memory, and takes its top-K by ranking
+(the K-th best thread best as a threshold, then the candidates at or
+above it ranked among themselves): K ≤ 32, an LM context of ≤ 8 lanes
+(order ≤ 9), and a row whose keys fit (128 threads a row, 256 past 1,024
+candidates). Every other call takes the wide form
+(``csr_beam_wide``, counted as ``beam_wide``): any K up to ``MAX_WIDTH``
+(the tracebacks pack a parent into 16 bits) and any LM order, its top-K a
+radix select of 11-bit digits over keys kept in shared memory, a row on a
+cluster of 1, 2 or 4 blocks (the fewest whose share of the keys fits, two
+at least past 6,144 candidates).
+``beam_plan`` reads the launch plan from the library (``make_plan``,
+``csrc/beam_plan.cuh``): the form, whether the lp rows are staged in shared
+memory, whether the chunk's tracebacks fit there (else a [B, T, K] int32
+scratch in device memory holds them), for the wide form whether its
+per-row workspace (the state, the LM context lanes, the merge lists and
+the survivors) does (else a [B, bytes] scratch holds it, one block a row),
+the split (the narrow form's threads / 128, the wide form's blocks a row)
+and whether the keys stay in shared memory. Nothing here takes the plain
+version: what the kernel cannot take raises.
 """
 
 from __future__ import annotations
@@ -55,6 +64,8 @@ class BeamPlan(NamedTuple):
     #                  the narrow form's static state), 0: in scratch
     smem: int        # dynamic shared memory a block, bytes
     ws_bytes: int    # the wide form's workspace a row, bytes (0: narrow)
+    split: int       # narrow: threads / 128; wide: blocks a row (cluster)
+    keys_shared: int  # 1: a block's candidate keys stay in shared memory
 
 
 def beam_plan(T: int, V: int, K: int, ctx_len: int = 1,
@@ -62,7 +73,7 @@ def beam_plan(T: int, V: int, K: int, ctx_len: int = 1,
     """The launch plan ``csrc/beam.cu`` takes for a call (``wide``: the
     wide form at any K, as the card tests hold it to the narrow one);
     needs the card's build."""
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 8)()
     _kernels.call("csr_beam_plan", T, V, K, ctx_len, int(wide), out)
     return BeamPlan(*out)
 

@@ -320,12 +320,17 @@ any phase fails:
     on the plain scan (``rnn_cuda.ROUTED``); the persistent form's
     launches exactly ``WIDE_PATH_LAUNCHES``.
     Phases 32-33's walls are printed against a 60 s budget.
-34. the beam's wide form (``phase_beam_widths``: K > 32 or an LM context
-    past 8 lanes; a radix-select top-K, its workspace in shared or global
-    memory) against its plain version at phase 23's decode shape (B = 32,
-    T' = 251, V = 64): K = 33, 64, 128 and 256 without an LM and with the
-    dense 3-gram, a hashed 10-gram of fp16 rows at K = 64, V = 2048
-    without an LM at K = 64, and the narrow form at K = 32 beside them;
+34. the beam's wide form (``phase_beam_widths``: K > 32, an LM context
+    past 8 lanes, or a row past the narrow form's shared memory; a
+    radix-select top-K of 11-bit digits over keys kept in shared memory, a
+    row on a cluster of 1, 2 or 4 blocks, its workspace in shared or
+    global memory) against its plain version at phase 23's decode shape
+    (B = 32, T' = 251, V = 64): K = 33, 64, 128 and 256 without an LM and
+    with the dense 3-gram, a hashed 10-gram of fp16 rows at K = 64, V =
+    2048 without an LM at K = 64 (four blocks a row), and the narrow form
+    at K = 16, 24 and 32 beside them; a line with the routing boundary
+    (the largest K the narrow form takes at V = 64 and 2048) and the
+    plans;
     the n-best form with ids, counts, parents and the hash state exact,
     scores within 1e-4, one launch of the case's form and none of the
     other; 16-frame chunks equal to the offline 1-best at K = 64, one wide
@@ -4611,8 +4616,8 @@ def phase_beam(root, ckpt, vocab, wavs, audio_s, dev,
 
 
 # phase 34: the beam's wide form (K > 32 or an LM context past 8 lanes) at
-# phase 23's decode shape; K = 32 is the narrow form's, beside it
-BEAM_WIDE_KS = (32, 33, 64, 128, 256)
+# phase 23's decode shape; K = 16, 24 and 32 are the narrow form's, beside
+BEAM_WIDE_KS = (16, 24, 32, 33, 64, 128, 256)
 BEAM_WIDE_K = 64                      # the CLIs' and the chunked check's
 BEAM_WIDE_ORDER = 10                  # the hashed LM: 9 context lanes
 BEAM_WIDE_TEXTS = 60                  # its training strings (~7 k contexts)
@@ -4636,7 +4641,8 @@ def phase_beam_widths(root, ckpt, vocab, wavs, audio_s, dev,
     the decode shape (B = 32, T' = 251, V = 64) at K = 33, 64, 128, 256
     without an LM and with the dense 3-gram, at K = 64 with a hashed
     10-gram of fp16 rows and at V = 2048 without an LM, and the narrow
-    form at K = 32 beside them: the n-best form, ids, counts, parents and
+    form at K = 16, 24 and 32 beside them (the routing boundary and the
+    plans printed first): the n-best form, ids, counts, parents and
     the hash state exact, scores within ``TOL["beam_score"]``, each case
     one launch of its form and none of the other; 16-frame chunks equal
     the offline 1-best at K = 64, one launch a chunk; each case's 1-best
@@ -4677,6 +4683,19 @@ def phase_beam_widths(root, ckpt, vocab, wavs, audio_s, dev,
         return torch.from_numpy(x).to(dev)
 
     lg, lg2048 = logits_of(V), logits_of(2048)
+    bounds = {V_: max(K for K in range(1, 34)
+                      if not beam_cuda.beam_plan(T, V_, K).wide)
+              for V_ in (V, 2048)}
+    check(bounds[V] == 32, f"the narrow form ends at K = {bounds[V]} at "
+          f"V={V}, not at the measured boundary K = 32")
+    print(f"[beam-wide] routing: the narrow form up to K = 32 where its "
+          f"row fits (largest narrow K: "
+          f"{bounds[V]} at V={V}, {bounds[2048]} at V=2048), the wide form "
+          f"past it; plans (wide, staged, tb_shared, ws_shared, smem, "
+          f"ws_bytes, split, keys_shared): " + "; ".join(
+              f"V={V_} K={K} {tuple(beam_cuda.beam_plan(T, V_, K))}"
+              for V_, K in ((V, 8), (V, 32), (V, 33), (V, 64), (V, 256),
+                            (2048, 8), (2048, 32), (2048, 64))))
     cases = [(f"K={K} {n}", K, lg, lm) for K in BEAM_WIDE_KS
              for n, lm in (("no LM", None), ("dense 3-gram", dense))]
     cases += [(f"K={BEAM_WIDE_K} hashed {BEAM_WIDE_ORDER}-gram fp16",

@@ -1545,43 +1545,57 @@ def _beam_case(dev, B, T, V, K, kind, seed):
     return tb, lp, lens.to(dev), dlm, 0.6, 0.8
 
 
-@pytest.mark.parametrize("B,T,V,K,kind", [
-    (1, 1, 2, 1, "none"), (3, 17, 5, 8, "none"), (5, 40, 64, 4, "dense3"),
-    (4, 33, 64, 8, "hashed4"), (4, 33, 64, 8, "hashed4_fp16"),
-    (2, 20, 3000, 8, "hashed4"), (3, 25, 64, 32, "none"),
-    (2, 12, 64, 9, "dense3"), (1, 1700, 8, 32, "none"),    # tb in scratch
-    (2, 6, 13000, 2, "none"),                               # lp unstaged
-    (1, 1300, 8, 8, "none"),          # static + dynamic shared past 48 KB
-    # the wide form: K > 32, or an LM context past 8 lanes
-    (3, 25, 64, 33, "none"), (2, 30, 64, 64, "dense3"),
-    (2, 20, 64, 100, "hashed4"), (1, 12, 64, 256, "hashed4_fp16"),
-    (2, 15, 64, 64, "hashed12"), (2, 15, 64, 8, "hashed12"),
-    (3, 12, 5, 128, "none"),                          # dead-beam ties
-    (1, 300, 9, 256, "none"),                         # tb in scratch
-    (1, 6, 5, 2000, "none"),                          # workspace in scratch
-    (1, 4, 13000, 40, "none"),                        # lp unstaged
+@pytest.mark.parametrize("B,T,V,K,kind,split", [
+    (1, 1, 2, 1, "none", 1), (3, 17, 5, 8, "none", 1),
+    (5, 40, 64, 4, "dense3", 1), (4, 33, 64, 8, "hashed4", 1),
+    (4, 33, 64, 8, "hashed4_fp16", 1), (2, 20, 3000, 8, "hashed4", 2),
+    (3, 25, 64, 32, "none", 2), (2, 12, 64, 9, "dense3", 1),
+    (1, 1700, 8, 32, "none", 1),                            # tb in scratch
+    (2, 6, 13000, 2, "none", 2),                            # lp unstaged
+    (1, 1300, 8, 8, "none", 1),       # static + dynamic shared past 48 KB
+    (3, 25, 64, 16, "dense3", 2), (3, 25, 64, 24, "hashed4", 2),
+    (2, 20, 2048, 8, "none", 2),                     # 256 threads a row
+    (2, 20, 100, 8, "hashed4", 1),                   # ... 128 up to 1,024
+    (1, 30, 64, 8, "dense3", 1), (33, 20, 64, 8, "dense3", 1),
+    (1, 20, 64, 64, "none", 1), (33, 12, 64, 64, "dense3", 1),
+    # the wide form: K > 32, an LM context past 8 lanes, or a row past the
+    # narrow form's shared memory; one block a row or a cluster
+    (3, 25, 64, 33, "none", 1), (2, 30, 64, 64, "dense3", 1),
+    (2, 20, 64, 100, "hashed4", 2), (1, 12, 64, 256, "hashed4_fp16", 2),
+    (2, 15, 64, 64, "hashed12", 1), (2, 15, 64, 8, "hashed12", 1),
+    (3, 12, 5, 128, "none", 1),                       # dead-beam ties
+    (1, 300, 9, 256, "none", 1),                      # tb in scratch
+    (1, 6, 5, 2000, "none", 1),                       # workspace in scratch
+    (1, 4, 30, 2000, "none", 1),              # ... and keys recomputed
+    (1, 4, 13000, 40, "none", 4),             # lp unstaged, keys recomputed
+    (2, 10, 2048, 32, "none", 2),             # narrow K, wide row: 2 blocks
+    (2, 12, 2048, 64, "hashed4", 4),          # 4 blocks, keys in each
+    (2, 12, 64, 128, "hashed4", 2), (2, 10, 3000, 40, "none", 4),
 ])
 @pytest.mark.parametrize("ordered,keep", [(True, 1), (True, 0), (False, -1)])
-def test_beam_kernel_matches_plain(dev, B, T, V, K, kind, ordered, keep):
+def test_beam_kernel_matches_plain(dev, B, T, V, K, kind, split, ordered,
+                                   keep):
     """The beam kernel against its plain version on the same log-probs and
     state: chars, counts, parent beams and the integer state exactly,
     scores within 1e-4 (chip_smoke phases 23 and 34 hold the decode
-    shape); exactly one launch, of the form the plan names (the wide one
-    past K = 32 or 8 context lanes). keep 0 = all K beams best-first, -1 =
-    all in place (the streaming form)."""
+    shape); exactly one launch, of the form the plan names, at the split
+    the case is there for (the narrow form's threads / 128, the wide
+    form's blocks a row). keep 0 = all K beams best-first, -1 = all in
+    place (the streaming form)."""
     from chainer_speech_recognition_tpu_torch.ops import beam_cuda
 
     tb, lp, lens, dlm, a, b = _beam_case(dev, B, T, V, K, kind, V + K + T)
     keep = keep if keep > 0 else K
     s0 = tb.beam_stream_init(B, K, dlm.ctx_len, dev)
-    wide = beam_cuda.beam_plan(T, V, K, dlm.ctx_len).wide
-    assert wide == (K > 32 or dlm.ctx_len > 8)
+    plan = beam_cuda.beam_plan(T, V, K, dlm.ctx_len)
+    assert plan.wide == (K > 32 or dlm.ctx_len > 8 or (V, K) == (2048, 32))
+    assert plan.split == split
     _kernels.reset_launches()
     got = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, keep, T,
                                     ordered)
     torch.cuda.synchronize()
     assert {k: n for k, n in _kernels.launches().items() if n} == {
-        "beam_wide" if wide else "beam": 1}
+        "beam_wide" if plan.wide else "beam": 1}
     want = tb.beam_chunk_plain(lp, lens, s0, dlm, a, b, keep, T, ordered)
     for g, w in zip(got[:3], want[:3]):
         assert torch.equal(g, w)
@@ -1593,27 +1607,37 @@ def test_beam_kernel_matches_plain(dev, B, T, V, K, kind, ordered, keep):
 
 
 @pytest.mark.parametrize("K,kind", [(1, "none"), (8, "dense3"),
-                                    (8, "hashed4_fp16"), (32, "none"),
-                                    (32, "hashed4")])
+                                    (8, "hashed4_fp16"), (16, "dense3"),
+                                    (16, "hashed4"), (24, "none"),
+                                    (32, "none"), (32, "hashed4")])
 def test_beam_wide_form_equals_narrow(dev, K, kind):
     """Where both forms take a call, the wide form's outputs equal the
     narrow form's exactly (the same arithmetic in the same order; only the
-    selection and the merge lists differ), in the n-best and chunk
-    forms."""
+    selection differs), in the n-best and chunk forms, up to the routing
+    boundary (K = 32): at V = 64 with the wide form on one block a row,
+    and at V = 2048 (K = 8 and 16 without a dense LM, whose table would
+    not fit the host) on two."""
     from chainer_speech_recognition_tpu_torch.ops import beam_cuda
 
-    tb, lp, lens, dlm, a, b = _beam_case(dev, 3, 30, 64, K, kind, K + 7)
-    s0 = tb.beam_stream_init(3, K, dlm.ctx_len, dev)
-    for ordered in (True, False):
-        narrow = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, K, 30,
-                                           ordered)
-        _kernels.reset_launches()
-        wide = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, K, 30,
-                                         ordered, wide=True)
-        torch.cuda.synchronize()
-        assert _kernels.launches()["beam_wide"] == 1
-        for g, w in zip((*wide[:4], *wide[4]), (*narrow[:4], *narrow[4])):
-            assert torch.equal(g, w)
+    for V in (64, 2048):
+        if V == 2048 and (K not in (8, 16) or kind == "dense3"):
+            continue
+        tb, lp, lens, dlm, a, b = _beam_case(dev, 3, 30, V, K, kind, K + 7)
+        assert not beam_cuda.beam_plan(30, V, K, dlm.ctx_len).wide
+        assert beam_cuda.beam_plan(30, V, K, dlm.ctx_len,
+                                   wide=True).split == (1 if V == 64 else 2)
+        s0 = tb.beam_stream_init(3, K, dlm.ctx_len, dev)
+        for ordered in (True, False):
+            narrow = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, K,
+                                               30, ordered)
+            _kernels.reset_launches()
+            wide = beam_cuda.beam_chunk_cuda(lp, lens, s0, dlm, a, b, K, 30,
+                                             ordered, wide=True)
+            torch.cuda.synchronize()
+            assert _kernels.launches()["beam_wide"] == 1
+            assert _kernels.launches()["beam"] == 0
+            for g, w in zip((*wide[:4], *wide[4]), (*narrow[:4], *narrow[4])):
+                assert torch.equal(g, w)
 
 
 def test_beam_kernel_chunks_equal_offline_and_width_cut(dev):

@@ -89,12 +89,22 @@ Kernels and shapes (those of ``chip_smoke.py``):
   purpose: they are printed against the plain versions, not gated), so
   the difference of the times is what that part costs; the kept forms
   must still equal this build's;
-* the prefix beam's narrow form (chip_smoke phase 23's shape: B = 32,
-  T' = 251, V = 64, K = 8, a random dense 3-gram): each build's
-  ``beam_chunk_cuda`` through its own wrapper on the same log-probs, LM
-  and state, in the 1-best, n-best and chunk forms; the builds' outputs
-  (ids, counts, parents, scores, state) must be bitwise equal, and this
-  build's equal to the plain version at phase 23's bars.
+* the prefix beam (chip_smoke phases 23 and 34: B = 32, T' = 251) at
+  ``BEAM_CASES``: V = 64, K = 8 with a random dense 3-gram and without an
+  LM, V = 2048 at K = 8; K = 16, 24, 32, 33, 64, 128 and 256 without an
+  LM and with the dense 3-gram; a hashed 10-gram of fp16 rows at K = 64;
+  V = 2048 at K = 32 and 64, V = 8000 at K = 8 (rows too long for the
+  narrow form's shared memory): each build's ``beam_chunk_cuda`` through
+  its own wrapper and plan on the same log-probs, LM and state, in the
+  1-best, n-best and chunk forms, each build equal to the plain version
+  at phase 23's bars and the two builds' outputs bitwise equal; the
+  1-best form timed, at K = 16, 24 and 32 this build's wide form beside
+  its narrow one (where the two forms meet). With ``--other-broken`` the
+  other build is this one patched to leave out part of the frame (the
+  chain floor: only the staging, the barriers and step 5), its outputs
+  neither held to the plain version nor to this build's. A copy with
+  other plan thresholds (``csrc/beam_plan.cuh``) times another block size
+  or cluster against the plan's, its outputs still gated.
 
 ``--cases`` takes a subset of
 ``frontend,flash,flash_wide,lstm,gru,stream,ctc,greedy,dw,beam,rnn_wide``.
@@ -996,17 +1006,54 @@ def dw_case(dev, rng, other, rounds, tag, T, B, H, cell):
     return res
 
 
-def beam_case(dev, rng, other, rounds, tag, B, T, V, K):
-    """The beam's narrow form at K ≤ 32: this build's and the other
-    build's ``beam_chunk_cuda`` (each through its own wrapper and
-    ``DeviceLM``) on the same log-probs, dense 3-gram table and fresh
-    state, in the 1-best, n-best and chunk forms; every output bitwise
-    equal across the builds, this build's equal to the plain version at
-    phase 23's bars; the 1-best form timed."""
+def beam_lm(rng, V: int, kind: str):
+    """A random n-gram LM over V symbols for ``beam_case``: None, the dense
+    3-gram table (``dense3``) or a hashed 10-gram of fp16 rows
+    (``hashed10``, 9 context lanes: the wide form at any K)."""
+    from chainer_speech_recognition_tpu_torch.decode.lm import (
+        HashedLM, NGramLM)
+
+    if kind == "none":
+        return None
+    order = 3 if kind == "dense3" else 10
+    lm = NGramLM(order, V)
+    lm.logp[0][()] = {c: float(np.log(0.8 / (V - 1))) for c in range(1, V)}
+    for k in range(1, order):
+        for ctx in {tuple(int(c) for c in rng.integers(1, V, k))
+                    for _ in range(400 if order == 3 else 60)}:
+            succ = rng.integers(1, V, size=5)
+            lm.logp[k][ctx] = {int(c): float(p) for c, p in zip(
+                succ, np.log(rng.dirichlet(np.ones(5)) * 0.7))}
+            lm.backoff[k][ctx] = float(np.log(0.3))
+    if kind == "dense3":
+        return lm.to_dense()
+    h = lm.to_hashed()
+    return HashedLM(h.table, h.rows.astype(np.float16), h.order,
+                    h.max_probes)
+
+
+# the beam's shapes (chip_smoke phases 23 and 34: B = 32, T' = 251): (V, K,
+# LM); K = 16, 24 and 32 also time this build's wide form beside its
+# narrow one (the routing boundary), K = 33 is the wide form's first
+BEAM_CASES = ([(64, 8, "dense3"), (64, 8, "none"), (2048, 8, "none")]
+              + [(64, K, lm) for K in (16, 24, 32, 33, 64, 128, 256)
+                 for lm in ("none", "dense3")]
+              + [(64, 64, "hashed10"), (2048, 32, "none"), (2048, 64, "none"),
+                 (8000, 8, "none")])
+BEAM_BOTH_FORMS = (16, 24, 32)
+
+
+def beam_case(dev, rng, other, rounds, B, T, V, K, kind, broken=False):
+    """The beam at one shape: this build's and the other build's
+    ``beam_chunk_cuda`` (each through its own wrapper, plan and
+    ``DeviceLM``) on the same log-probs, LM and fresh state, in the
+    1-best, n-best and chunk forms; this build's outputs held to the plain
+    version at phase 23's bars (the other build's too unless ``broken``),
+    the two builds' outputs bitwise equal (unless ``broken``); the 1-best
+    form timed, at K in ``BEAM_BOTH_FORMS`` this build's wide form too."""
     import torch
 
     from chainer_speech_recognition_tpu_torch.decode import beam as tb
-    from chainer_speech_recognition_tpu_torch.decode.lm import NGramLM
     from chainer_speech_recognition_tpu_torch.ops import beam_cuda
 
     ob = importlib.import_module(f"{other.__name__}.decode.beam")
@@ -1017,22 +1064,28 @@ def beam_case(dev, rng, other, rounds, tag, B, T, V, K):
         x[r, np.arange(T), path[r]] += 3.0
     lens = rng.integers(T // 2, T + 1, B).astype(np.int32)
     lens[0] = T
-    lm = NGramLM(3, V)
-    lm.logp[0][()] = {c: float(np.log(0.8 / (V - 1))) for c in range(1, V)}
-    for k in (1, 2):
-        for ctx in {tuple(int(c) for c in rng.integers(1, V, k))
-                    for _ in range(400)}:
-            succ = rng.integers(1, V, size=5)
-            lm.logp[k][ctx] = {int(c): float(p) for c, p in zip(
-                succ, np.log(rng.dirichlet(np.ones(5)) * 0.7))}
-            lm.backoff[k][ctx] = float(np.log(0.3))
-    table = lm.to_dense()
+    lm = beam_lm(rng, V, kind)
     lp = tb._log_probs(torch.from_numpy(x).to(dev))
     ln = torch.from_numpy(lens).to(dev)
     mods = {"this": (tb, beam_cuda), "other": (ob, obc)}
-    dlms = {n: m.lm_on_device(table, V, dev) for n, (m, _) in mods.items()}
+    lms = {"this": lm, "other": lm}
+    if kind == "hashed10":        # the other package's own HashedLM class
+        olm = importlib.import_module(f"{other.__name__}.decode.lm")
+        lms["other"] = olm.HashedLM(lm.table, lm.rows, lm.order,
+                                    lm.max_probes)
+    dlms = {n: m.lm_on_device(lms[n], V, dev) for n, (m, _) in mods.items()}
+    CL = dlms["this"].ctx_len
+    plan = beam_cuda.beam_plan(T, V, K, CL)
+    tag = f"beam V={V} K={K} {kind}"
     a, b = cs.BEAM_ALPHA, cs.BEAM_BETA
-    res = {"tag": tag, "B": B, "T": T, "V": V, "K": K, "bitwise equal": True}
+    res = {"tag": tag, "B": B, "T": T, "V": V, "K": K, "lm": kind,
+           "plan": tuple(plan), "bitwise equal": True}
+    if lm is None:    # chip_smoke phase 23's byte bound: lp's live frames
+        live = int(lens.sum())   # and the outputs (no LM rows to read)
+        res.update(cs.bound(live * V * 4 + B * (T + 2 + K * 8 + K * 2) * 4,
+                            0, "fp32"))
+        print(f"[ab] {tag}: bound {res['bound_ms']:.5f} ms "
+              f"({res['bound_by']}: {live} live frames)")
     for ordered, keep in ((True, 1), (True, K), (False, K)):
         outs = {}
         for n, (m, c) in mods.items():
@@ -1041,24 +1094,36 @@ def beam_case(dev, rng, other, rounds, tag, B, T, V, K):
                                     ordered)
             outs[n] = (*got[:4], *got[4])
         torch.cuda.synchronize()
-        s0 = tb.beam_stream_init(B, K, dlms["this"].ctx_len, dev)
+        s0 = tb.beam_stream_init(B, K, CL, dev)
         want = tb.beam_chunk_plain(lp, ln, s0, dlms["this"], a, b, keep, T,
                                    ordered)
-        cs.beam_same(f"{tag} keep={keep} ordered={ordered}",
-                     (*outs["this"][:4], outs["this"][4:]), want)
+        for n in ("this",) if broken else ("this", "other"):
+            cs.beam_same(f"{tag} {n} keep={keep} ordered={ordered}",
+                         (*outs[n][:4], outs[n][4:]), want)
         res["bitwise equal"] &= cs.same_bits(outs["this"], outs["other"])
-    print(f"[ab] {tag}: this build equals the plain version; the builds' "
-          f"outputs bitwise equal: {res['bitwise equal']}")
-    cs.check(res["bitwise equal"], f"{tag}: the builds' outputs differ")
-    fns = {}
+    print(f"[ab] {tag} (plan {plan}): this build equals the plain version"
+          f"{'' if broken else ', so does the other'}; the builds' outputs "
+          f"bitwise equal: {res['bitwise equal']}")
+    if not broken:
+        cs.check(res["bitwise equal"], f"{tag}: the builds' outputs differ")
+    fns, pairs = {}, [("other beam", "this beam")]
     for n, (m, c) in mods.items():
         s0 = m.beam_stream_init(B, K, dlms[n].ctx_len, dev)
         fns[f"{n} beam"] = (lambda c=c, s0=s0, d=dlms[n]: c.beam_chunk_cuda(
             lp, ln, s0, d, a, b, 1, T, True)[0])
+    if K in BEAM_BOTH_FORMS and not plan.wide:
+        s0 = tb.beam_stream_init(B, K, CL, dev)
+        wide = beam_cuda.beam_chunk_cuda(lp, ln, s0, dlms["this"], a, b, K,
+                                         T, True, wide=True)
+        want = tb.beam_chunk_plain(lp, ln, s0, dlms["this"], a, b, K, T,
+                                   True)
+        cs.beam_same(f"{tag} this wide", (*wide[:4], wide[4]), want)
+        fns["this wide"] = lambda s0=s0: beam_cuda.beam_chunk_cuda(
+            lp, ln, s0, dlms["this"], a, b, 1, T, True, wide=True)[0]
+        pairs.append(("this wide", "this beam"))
     replays = {n: cs.graph_of(f, mode="relaxed")[0] for n, f in fns.items()}
-    res.update(report(f"{tag} B={B} T'={T} V={V} K={K} dense 3-gram",
-                      timed(fns, rounds, replays),
-                      [("other beam", "this beam")]))
+    res.update(report(f"{tag} B={B} T'={T}", timed(fns, rounds, replays),
+                      pairs))
     return res
 
 
@@ -1072,10 +1137,14 @@ def main() -> int:
     ap.add_argument("--hs", default=",".join(map(str, WIDE_HS)),
                     help="rnn_wide's hidden sizes, multiples of 128 "
                     f"(default {WIDE_HS})")
+    ap.add_argument("--beam-cases", default="",
+                    help="beam: a subset of BEAM_CASES as V:K:lm,... "
+                    "(default all)")
     ap.add_argument("--other-broken", action="store_true",
-                    help="rnn_wide: the other checkout is patched to leave "
-                    "out part of the persistent step; time it, do not "
-                    "hold its outputs to the plain versions")
+                    help="rnn_wide, beam: the other checkout is patched to "
+                    "leave out part of the persistent step or of the "
+                    "beam's frame; time it, do not hold its outputs to the "
+                    "plain versions")
     a = ap.parse_args()
     cases = a.cases.split(",")
     try:
@@ -1133,10 +1202,12 @@ def main() -> int:
                                   a.other_broken)
                     for H in a.hs.split(",") for cell in ("gru", "lstm")]
         if "beam" in cases:
-            V = preset_config(cs.PRESET).model.vocab_size
-            out.append(beam_case(dev, rng, other, a.rounds, "beam narrow",
-                                 cs.CHECK_B, cs.BEAM_FRAMES, V,
-                                 cs.BEAM_WIDTH))
+            pick = {tuple(c.split(":")) for c in a.beam_cases.split(",")
+                    if c}
+            out += [beam_case(dev, rng, other, a.rounds, cs.CHECK_B,
+                              cs.BEAM_FRAMES, V, K, kind, a.other_broken)
+                    for V, K, kind in BEAM_CASES
+                    if not pick or (str(V), str(K), kind) in pick]
     except cs.SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
