@@ -73,20 +73,21 @@ CTC_FWD = Kernel("csr_ctc_fwd",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
 CTC_BWD = Kernel("csr_ctc_bwd",
                  [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
-# the recurrences' (..., T, B, H, ndir, C, bf16, stream): C is the bf16
-# cluster kernels' blocks a cluster, or the persistent form's blocks a
-# direction (ops/rnn_cuda.lstm_plan, gru_plan), unread under fp32; each
-# takes the persistent form's workspace as its last pointer
-# (ops/rnn_cuda.persist_occupancy's bytes; NULL elsewhere)
-GRU_FWD = Kernel("csr_gru_fwd", [_P] * 6 + [_I] * 6 + [_P])
-GRU_FWD_TRAIN = Kernel("csr_gru_fwd_train", [_P] * 7 + [_I] * 6 + [_P])
-GRU_BWD = Kernel("csr_gru_bwd", [_P] * 9 + [_I] * 6 + [_P])
-LSTM_FWD = Kernel("csr_lstm_fwd", [_P] * 6 + [_I] * 6 + [_P])
-LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train", [_P] * 8 + [_I] * 6 + [_P])
-LSTM_BWD = Kernel("csr_lstm_bwd", [_P] * 8 + [_I] * 6 + [_P])
-# the stream forms': (..., T, B, H, ndir, emit_t, C, bf16, stream)
-GRU_FWD_STREAM = Kernel("csr_gru_fwd_stream", [_P] * 8 + [_I] * 7 + [_P])
-LSTM_FWD_STREAM = Kernel("csr_lstm_fwd_stream", [_P] * 8 + [_I] * 7 + [_P])
+# the recurrences' (..., T, B, H, ndir, C, sms, bf16, stream): C is the
+# bf16 cluster kernels' blocks a cluster, or the persistent form's blocks
+# a direction (ops/rnn_cuda.lstm_plan, gru_plan), unread under fp32; sms
+# the SM count the persistent plan was made for (ops/rnn_cuda._sms),
+# unread elsewhere; each takes the persistent form's workspace as its last
+# pointer (ops/rnn_cuda.persist_occupancy's bytes; NULL elsewhere)
+GRU_FWD = Kernel("csr_gru_fwd", [_P] * 6 + [_I] * 7 + [_P])
+GRU_FWD_TRAIN = Kernel("csr_gru_fwd_train", [_P] * 7 + [_I] * 7 + [_P])
+GRU_BWD = Kernel("csr_gru_bwd", [_P] * 9 + [_I] * 7 + [_P])
+LSTM_FWD = Kernel("csr_lstm_fwd", [_P] * 6 + [_I] * 7 + [_P])
+LSTM_FWD_TRAIN = Kernel("csr_lstm_fwd_train", [_P] * 8 + [_I] * 7 + [_P])
+LSTM_BWD = Kernel("csr_lstm_bwd", [_P] * 8 + [_I] * 7 + [_P])
+# the stream forms': (..., T, B, H, ndir, emit_t, C, sms, bf16, stream)
+GRU_FWD_STREAM = Kernel("csr_gru_fwd_stream", [_P] * 8 + [_I] * 8 + [_P])
+LSTM_FWD_STREAM = Kernel("csr_lstm_fwd_stream", [_P] * 8 + [_I] * 8 + [_P])
 FRONTEND_LOGMEL_FRAMES = Kernel("csr_frontend_logmel_frames",
                                 [_P, _I, _I, _P, _P, _I, _P, _P])
 # flash attention: (tensors..., dims, strides) with dims and strides host
@@ -123,12 +124,12 @@ KERNELS = {"frontend_logmel": FRONTEND_LOGMEL, "gru_fwd": GRU_FWD,
 # (ops/attention_cuda.flash_bwd_occupancy); the wide forward's (dh, tiles,
 # out) → the same and its ring's chunks a stage
 # (ops/attention_cuda.flash_fwd_occupancy); the persistent form's (H,
-# ndir, B, out) → its plan and workspace bytes on this card, int64
-# (ops/rnn_cuda.persist_occupancy)
+# ndir, B, sms, out) → its plan for sms SMs and workspace bytes on this
+# card, int64 (ops/rnn_cuda.persist_occupancy)
 HELPERS = {f"csr_{cell}_{form}_occupancy": [_I, ctypes.POINTER(_I)]
            for cell in ("gru", "lstm") for form in ("fwd", "bwd")}
 HELPERS.update({f"csr_{n}_persist_plan":
-                [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
+                [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
                 for n in ("gru_fwd", "lstm_bwd", "lstm_fwd", "gru_bwd")})
 HELPERS["csr_ctc_plan"] = [_I, _I, ctypes.POINTER(_I)]
 HELPERS["csr_dw_plan"] = [_I] * 5 + [ctypes.POINTER(_I)]

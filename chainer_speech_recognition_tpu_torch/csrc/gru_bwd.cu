@@ -461,9 +461,12 @@ int launch_tc(const void* gates, const void* wb, const float* lo,
 // has passed, through a ring of kStages slots (192 KB of A a pass at H =
 // 1024 do not fit beside W), so the product reads A and B from shared
 // memory. The block also owns the same units' gate math: it keeps their
-// carried dh (in registers with one pass, else in the workspace's carried
-// [ndir·B][H], which only the owning thread reads and writes) and
-// publishes their gradients. A step t, for each pass of 32 rows:
+// carried dh (in registers with one pass of one group, else in the
+// workspace's carried [ndir·B][H], which only the owning thread reads and
+// writes) and publishes their gradients. On a card of fewer than ndir H /
+// 32 SMs a block owns more than kGroupTiles tiles and runs them as groups
+// of NT (rnn_mma.cuh), steps 1-2 once a group in turn, each staging A
+// anew, one slot a thread a group. A step t, for each pass of 32 rows:
 //   1. (t < T - 1) the product: warp w of eight multiplies the pass's
 //      (dr, dz, dn r) of step t + 1 (bf16, where _dot2 rounds it) by the
 //      block's columns over its eighth of the K k-steps, each B fragment
@@ -477,8 +480,8 @@ int launch_tc(const void* gates, const void* wb, const float* lo,
 //      hp_n), h_prev (ys one step back) and g; dxs and dhn masked to the
 //      live steps; the unmasked (dr, dz, dn r), rounded to bf16, into the
 //      next A buffer at gate columns g H + j (two buffers, by step parity).
-//      With one pass (B <= 32) the carried dh stays in registers and the
-//      next step's inputs are loaded during the barrier;
+//      With one pass of one group (B <= 32) the carried dh stays in
+//      registers and the next step's inputs are loaded during the barrier;
 //   3. one grid barrier (rnn_mma.cuh's grid_arrive / grid_wait).
 // Measured on an H100 (tools/kernel_ab.py --cases rnn_wide against copies
 // of this build, PERF.md): 1.93 ms at H = 1024 and 4.68 at 2048 (B = 24,
@@ -512,10 +515,12 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 1)
                            __nv_bfloat16* __restrict__ dxs,
                            __nv_bfloat16* __restrict__ dhn,
                            unsigned int* counter, uint4* abuf, float* held,
-                           int T, int B, int H, int NB, int kr, int ck) {
+                           int T, int B, int H, int NB, int tiles, int groups,
+                           int kr, int ck) {
   namespace tc = csr_rnn_mma;
+  // NT: tiles a group (nw8); the block's `tiles` run as `groups` of them
   constexpr int NC = NT, kW = kBwdWarps;
-  static_assert(2 * NT * 32 <= 32 * kW, "one slot a thread");
+  static_assert(2 * NT * 32 <= 32 * kW, "one slot a thread a group");
   extern __shared__ __align__(16) unsigned char smem[];
   float* part = reinterpret_cast<float*>(smem);
   unsigned char* res = smem + tc::persist_part(NC, kW);
@@ -523,34 +528,47 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 1)
   const int d = blockIdx.x / NB, cb = blockIdx.x % NB;
   const int R = ndir * B, G = 3 * H, K = 3 * H / 16, nt_all = H / 8;
   const int passes = (B + tc::kPassRows - 1) / tc::kPassRows;
-  // one pass: the slot's carried dh and its next inputs stay in
-  // registers; more: dh goes through the workspace
-  const bool two = B > 16, hold = passes == 1;
+  // one pass of one group: the slot's carried dh and its next inputs stay
+  // in registers; more: dh goes through the workspace
+  const bool two = B > 16, hold = passes == 1 && groups == 1;
   const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
-  const uint2* slice = wb + int64_t(d * NB + cb) * K * NC * 32;
+  const uint2* slice = wb + int64_t(d * NB + cb) * groups * K * NC * 32;
   // A of direction d, pass p, m-tile m in buffer buf: [2][ndir]
   // [passes][2][K][32] uint4
   auto a_of = [&](int buf, int p, int m) {
     return abuf + (int64_t((buf * ndir + d) * passes + p) * 2 + m) * K * 32;
   };
-  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC);
+  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC, groups);
   __syncthreads();
   const tc::WarpSteps ws = tc::warp_steps(w, kW, K, kr);
   const int kq = (K + kW - 1) / kW;
   const int sz = tc::stage_bytes(NC, kr < kq);
-  unsigned char* ring = res + kW * kr * NC * 256 + w * tc::kStages * ck * sz;
+  unsigned char* ring =
+      res + groups * kW * kr * NC * 256 + w * tc::kStages * ck * sz;
   const int rot = ck > 0 ? (ws.kw + ck - 1) / ck * cb / NB : 0;
-  const uint2* sb = reinterpret_cast<const uint2*>(res) + w * kr * NC * 32 + l;
+  // group 0's resident fragments of this lane (a shared-space address),
+  // and its streamed ones (group g's kW kr NC 256 bytes and K NC 32 uint2
+  // further on)
+  const uint32_t sb = tc::smem_addr(res) + (w * kr * NC * 32 + l) * 8;
   const uint2* gb = slice + int64_t(ws.kb) * NC * 32;
-  // this thread's slot: m-tile m, its tile's lane ls, unit j (the pair j,
-  // j + 1); `own`: a slot of this launch's rows and of a unit below H
+  // this thread's slot of each group: m-tile m, its tile's lane ls, its
+  // tile in the group, unit j of group g (the pair j, j + 1); `own`: a
+  // slot of this launch's rows, of one of the block's tiles and of a unit
+  // below H
   const int m = tid / (NT * 32), ls = tid & 31, tile = (tid / 32) % NT;
-  const int tg = cb * NT + tile, j = 8 * tg + 2 * (ls & 3);
-  const bool own = tid < (two ? 2 : 1) * NT * 32 && tg < nt_all;
+  // (of a block of nt tiles: the plan's, or NT where a block runs one
+  // group)
+  auto unit_of = [&](int gr, int nt) {
+    return 8 * (cb * nt + gr * NT + tile) + 2 * (ls & 3);
+  };
+  auto own_of = [&](int gr, int nt) {
+    return tid < (two ? 2 : 1) * NT * 32 && gr * NT + tile < nt &&
+           cb * nt + gr * NT + tile < nt_all;
+  };
   auto row_of = [&](int p, int i) {
     return p * tc::kPassRows + 16 * m + (ls >> 2) + 8 * i;
   };
-  auto load_in = [&](int t, int p) {
+  auto load_in = [&](int t, int p, int j) {
     GruIn in;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -575,102 +593,128 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 1)
   };
   GruIn next;
   float2 dh_reg[2];
-  if (hold && own) next = load_in(T - 1, 0);
+  if (hold && own_of(0, NT)) next = load_in(T - 1, 0, unit_of(0, NT));
   unsigned int barriers = 0;
 
-  for (int t = T - 1; t >= 0; --t) {
+  // group gr's share of step t, pass p: its product, then its slots'
+  // gate math (a copy for one group a block, one for more: OneGroup,
+  // Groups)
+  auto group_step = [&](auto tag, int t, int p, int gr) {
+    const bool keep = decltype(tag)::one && hold;
+    const int nt = decltype(tag)::one ? NT : tiles;   // NT: nt of one group
     const bool product = t < T - 1;
     const float tf = static_cast<float>(t);
-    for (int p = 0; p < passes; ++p) {
-      if (product) {
-        const int buf = (t + 1) & 1;
-        float acc[2][NC][4] = {};
-        tc::staged_product<NC>(acc, a_of(buf, p, 0) + ws.kb * 32,
-                               a_of(buf, p, 1) + ws.kb * 32, two, ws.kw,
-                               ws.kres, rot, sb, NC, gb, ring, ck, sz, l);
-        tc::store_partials<NC>(part, acc, two, w, l);
-      }
-      __syncthreads();
-      if (own) {
-        const float4 dot = product
-                               ? tc::sum_partials(part, kW, NC, m, tile, ls)
-                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        const GruIn in = hold ? next : load_in(t, p);
+    if (product) {
+      const int buf = (t + 1) & 1;
+      float acc[2][NC][4] = {};
+      tc::staged_product<NC>(
+          acc, a_of(buf, p, 0) + ws.kb * 32, a_of(buf, p, 1) + ws.kb * 32,
+          two, ws.kw, ws.kres, rot, sb + gr * kW * kr * NC * 256, NC,
+          gb + int64_t(gr) * K * NC * 32, ring, ck, sz, l);
+      tc::store_partials<NC>(part, acc, two, w, l);
+    }
+    __syncthreads();
+    if (own_of(gr, nt)) {
+      const int j = unit_of(gr, nt);
+      const float4 dot = product
+                             ? tc::sum_partials(part, kW, NC, m, tile, ls)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const GruIn in = keep ? next : load_in(t, p, j);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int b = row_of(p, i);
-          const bool valid = b < B;
-          const int64_t rr = int64_t(d) * B + b;
-          const int64_t row = int64_t(t) * R + rr;
-          const bool live = in.lo[i] <= tf && tf < in.hi[i];
-          const bool live_next =
-              product && in.lo[i] <= tf + 1.0f && tf + 1.0f < in.hi[i];
-          // dh from step t + 1 (0 at t = T - 1): its carried dh_total z
-          // plus the product where that step was live, else its dh_total
-          float2 dh = make_float2(0.0f, 0.0f);
-          if (product && (hold || valid)) {
-            dh = hold ? dh_reg[i]
-                      : *reinterpret_cast<const float2*>(held + rr * H + j);
-            if (live_next) {
-              dh.x += i ? dot.z : dot.x;
-              dh.y += i ? dot.w : dot.y;
-            }
-          }
-          float dg[4][2], carried[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float q[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float2 v = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&in.q[i][k]));
-              q[k] = e ? v.y : v.x;
-            }
-            const float r = q[0], z = q[1], n = q[2], hn = q[3];
-            const float dht = (e ? in.g[i].y : in.g[i].x) + (e ? dh.y : dh.x);
-            const float hp = e ? in.hp[i].y : in.hp[i].x;
-            const float dz = dht * (hp - n) * z * (1.0f - z);
-            const float dn = dht * (1.0f - z) * (1.0f - n * n);
-            dg[0][e] = dn * hn * r * (1.0f - r);
-            dg[1][e] = dz;
-            dg[2][e] = dn;
-            dg[3][e] = dn * r;
-            carried[e] = live ? dht * z : dht;
-          }
-          if (t > 0) {
-            // (dr, dz, dn r) at gate columns g H + j
-#pragma unroll
-            for (int k = 0; k < 3; ++k)
-              *tc::a_word(a_of(t & 1, p, m), k * H + j, i, ls) =
-                  tc::bf16x2(dg[k == 2 ? 3 : k][0], dg[k == 2 ? 3 : k][1]);
-            if (hold)
-              dh_reg[i] = make_float2(carried[0], carried[1]);
-            else if (valid)
-              *reinterpret_cast<float2*>(held + rr * H + j) =
-                  make_float2(carried[0], carried[1]);
-          }
-          if (valid) {
-#pragma unroll
-            for (int k = 0; k < 3; ++k)
-              *reinterpret_cast<uint32_t*>(dxs + row * G + k * H + j) =
-                  tc::bf16x2(live ? dg[k][0] : 0.0f, live ? dg[k][1] : 0.0f);
-            *reinterpret_cast<uint32_t*>(dhn + row * H + j) =
-                tc::bf16x2(live ? dg[3][0] : 0.0f, live ? dg[3][1] : 0.0f);
+      for (int i = 0; i < 2; ++i) {
+        const int b = row_of(p, i);
+        const bool valid = b < B;
+        const int64_t rr = int64_t(d) * B + b;
+        const int64_t row = int64_t(t) * R + rr;
+        const bool live = in.lo[i] <= tf && tf < in.hi[i];
+        const bool live_next =
+            product && in.lo[i] <= tf + 1.0f && tf + 1.0f < in.hi[i];
+        // dh from step t + 1 (0 at t = T - 1): its carried dh_total z
+        // plus the product where that step was live, else its dh_total
+        float2 dh = make_float2(0.0f, 0.0f);
+        if (product && (keep || valid)) {
+          dh = keep ? dh_reg[i]
+                    : *reinterpret_cast<const float2*>(held + rr * H + j);
+          if (live_next) {
+            dh.x += i ? dot.z : dot.x;
+            dh.y += i ? dot.w : dot.y;
           }
         }
+        float dg[4][2], carried[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float q[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 v = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&in.q[i][k]));
+            q[k] = e ? v.y : v.x;
+          }
+          const float r = q[0], z = q[1], n = q[2], hn = q[3];
+          const float dht = (e ? in.g[i].y : in.g[i].x) + (e ? dh.y : dh.x);
+          const float hp = e ? in.hp[i].y : in.hp[i].x;
+          const float dz = dht * (hp - n) * z * (1.0f - z);
+          const float dn = dht * (1.0f - z) * (1.0f - n * n);
+          dg[0][e] = dn * hn * r * (1.0f - r);
+          dg[1][e] = dz;
+          dg[2][e] = dn;
+          dg[3][e] = dn * r;
+          carried[e] = live ? dht * z : dht;
+        }
+        if (t > 0) {
+          // (dr, dz, dn r) at gate columns g H + j
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            *tc::a_word(a_of(t & 1, p, m), k * H + j, i, ls) =
+                tc::bf16x2(dg[k == 2 ? 3 : k][0], dg[k == 2 ? 3 : k][1]);
+          if (keep)
+            dh_reg[i] = make_float2(carried[0], carried[1]);
+          else if (valid)
+            *reinterpret_cast<float2*>(held + rr * H + j) =
+                make_float2(carried[0], carried[1]);
+        }
+        if (valid) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            *reinterpret_cast<uint32_t*>(dxs + row * G + k * H + j) =
+                tc::bf16x2(live ? dg[k][0] : 0.0f, live ? dg[k][1] : 0.0f);
+          *reinterpret_cast<uint32_t*>(dhn + row * H + j) =
+              tc::bf16x2(live ? dg[3][0] : 0.0f, live ? dg[3][1] : 0.0f);
+        }
       }
-      __syncthreads();
     }
-    if (t > 0) {
-      tc::grid_arrive(counter);
-      // the next step's inputs, in flight over the wait and the product
-      if (hold && own) next = load_in(t - 1, 0);
-      tc::grid_wait(counter, ++barriers * gridDim.x);
+    __syncthreads();
+  };
+  // the T steps, in a loop of their own for each copy, so that what one
+  // copy keeps in registers across its steps does not crowd the other
+  auto run = [&](auto tag) {
+    for (int t = T - 1; t >= 0; --t) {
+      for (int p = 0; p < passes; ++p) {
+        if constexpr (decltype(tag)::one)
+          group_step(tag, t, p, 0);
+        else
+          for (int gr = 0; gr < groups; ++gr) group_step(tag, t, p, gr);
+      }
+      if (t > 0) {
+        tc::grid_arrive(counter);
+        // the next step's inputs, in flight over the wait and the product
+        if (decltype(tag)::one && hold && own_of(0, NT))
+          next = load_in(t - 1, 0, unit_of(0, NT));
+        tc::grid_wait(counter, ++barriers * gridDim.x);
+      }
     }
-  }
+  };
+  // more than one group means groups of three or four tiles, so a kernel
+  // of one or two tiles a group has the one copy only
+  if constexpr (NT <= 2)
+    run(tc::OneGroup{});
+  else if (groups == 1)
+    run(tc::OneGroup{});
+  else
+    run(tc::Groups{});
 }
 
-// the persistent backward's plan at this card's SM count (ops/rnn_cuda.py's
+// the persistent backward's plan on a card of `sms` SMs (ops/rnn_cuda.py's
 // persist_plan("gru_bwd", ...))
 csr_rnn_mma::PersistPlan bwd_persist_plan(int H, int ndir, int B,
                                           int sms) {
@@ -678,11 +722,11 @@ csr_rnn_mma::PersistPlan bwd_persist_plan(int H, int ndir, int B,
                                    kBwdWarps, 1, true);
 }
 
-// the persistent kernel of nt tiles a block; none past kPersistMaxTiles
+// the persistent kernel of groups of `width` tiles
 template <typename Fn>
-int with_persist_kernel(int tiles, Fn&& fn) {
-  static_assert(csr_rnn_mma::kPersistMaxTiles == 4, "a kernel a tile count");
-  switch (tiles) {
+int with_persist_kernel(int width, Fn&& fn) {
+  static_assert(csr_rnn_mma::kGroupTiles == 4, "a kernel a group width");
+  switch (width) {
     case 1:
       return fn(gru_bwd_persist_kernel<1>);
     case 2:
@@ -696,31 +740,30 @@ int with_persist_kernel(int tiles, Fn&& fn) {
   }
 }
 
-// C: the blocks a direction; work: the workspace of the plan's bytes
-// (rnn_mma.cuh's PersistPlan)
+// C: the blocks a direction; sms: the SM count the plan was made for;
+// work: the workspace of the plan's bytes (rnn_mma.cuh's PersistPlan)
 int launch_persist(const void* gates, const void* wb, const float* lo,
                    const float* hi, const float* ys, const float* g,
                    void* dxs, void* dhn, void* work, int T, int B, int H,
-                   int ndir, int C, cudaStream_t stream) {
+                   int ndir, int C, int sms, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
-  int sms = 0;
-  const cudaError_t e = tc::device_sms(&sms);
+  const cudaError_t e = tc::check_sms(sms, ndir);
   if (e != cudaSuccess) return static_cast<int>(e);
   const tc::PersistPlan p = bwd_persist_plan(H, ndir, B, sms);
-  if (!p.ok || C != p.blocks || work == nullptr || p.resident < 1 ||
-      p.chunk < 1)
+  if (C != p.blocks || work == nullptr || p.chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   char* base = static_cast<char*>(work);
   unsigned int* counter = reinterpret_cast<unsigned int*>(base);
   uint4* abuf = reinterpret_cast<uint4*>(base + 256);
   float* held = reinterpret_cast<float*>(base + p.held);
-  return with_persist_kernel(p.tiles, [&](auto kernel) {
+  return with_persist_kernel(p.width, [&](auto kernel) {
     return tc::launch_cooperative(
         kernel, p.blocks * ndir, 32 * kBwdWarps, p.smem, stream, counter,
         static_cast<const __nv_bfloat16*>(gates),
         static_cast<const uint2*>(wb), lo, hi, ys, g,
         static_cast<__nv_bfloat16*>(dxs), static_cast<__nv_bfloat16*>(dhn),
-        counter, abuf, held, T, B, H, p.blocks, p.resident, p.chunk);
+        counter, abuf, held, T, B, H, p.blocks, p.tiles, p.groups,
+        p.resident, p.chunk);
   });
 }
 
@@ -730,16 +773,19 @@ int launch_persist(const void* gates, const void* wb, const float* lo,
 // weights all fp32 (the FMA kernel: wt [ndir, 3H, H], W transposed) or,
 // when bf16 != 0, all bf16 (the cluster kernel: wb [ndir, C, H, 3, H/C],
 // C = H / gru_bwd_units(H) blocks a cluster, ops/rnn_cuda.py's gru_plan;
-// past H = 512 the persistent form's fragments [ndir, C, 3H/16, nt, 32,
-// 4], C its blocks a direction, rnn_cuda.persist_gru_bwd_weights; unread
-// under fp32); lo/hi [ndir*B], ys (the carries; h_prev is read one step
-// back) and g [T, ndir*B, H] fp32; work the persistent form's workspace
-// (csr_gru_bwd_persist_plan's bytes; unread elsewhere). Requires 32 <= H
-// <= 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
+// past H = 512 the persistent form's fragments [ndir, C, ng·3H/16, nw8,
+// 32, 4], C its blocks a direction, on a card of `sms` SMs,
+// rnn_cuda.persist_gru_bwd_weights; unread under fp32); lo/hi [ndir*B],
+// ys (the carries; h_prev is read one step back) and g [T, ndir*B, H]
+// fp32; work the persistent form's workspace (csr_gru_bwd_persist_plan's
+// bytes; unread elsewhere); sms the SM count the persistent plan was made
+// for (ndir <= sms <= the card's; unread elsewhere). Requires 32 <= H <=
+// 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_gru_bwd(const void* gates, const void* wt, const float* lo,
                         const float* hi, const float* ys, const float* g,
                         void* dxs, void* dhn, void* work, int T, int B, int H,
-                        int ndir, int C, int bf16, cudaStream_t stream) {
+                        int ndir, int C, int sms, int bf16,
+                        cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (ndir != 1 && ndir != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (!bf16)
@@ -747,7 +793,7 @@ CSR_API int csr_gru_bwd(const void* gates, const void* wt, const float* lo,
                        stream);
   if (H > tc::kResidentMax)
     return launch_persist(gates, wt, lo, hi, ys, g, dxs, dhn, work, T, B, H,
-                          ndir, C, stream);
+                          ndir, C, sms, stream);
   if (C * tc::gru_bwd_units(H) != H)
     return static_cast<int>(cudaErrorInvalidValue);
   if (tc::gru_bwd_units(H) == 16)
@@ -773,30 +819,17 @@ CSR_API int csr_gru_bwd_occupancy(int H, int* out) {
                                     tc::kRows * U, out[0], out + 1);
 }
 
-// The persistent backward's plan as this card takes it at hidden size H >
-// 512, ndir directions and B rows a direction: out = (blocks a direction,
-// tiles a block, resident k-steps a warp, shared memory bytes a block,
-// blocks the card holds at once, workspace bytes, k-steps a slot of the
-// staged ring). cudaErrorInvalidValue where the card has too few SMs for
-// the built tile counts (out filled all the same).
-CSR_API int csr_gru_bwd_persist_plan(int H, int ndir, int B,
+// The persistent backward's plan as the card takes it at hidden size H >
+// 512, ndir directions, B rows a direction and `sms` SMs
+// (rnn_mma.cuh's report_plan; out: 8 int64). cudaErrorInvalidValue where
+// sms is below ndir or above the card's.
+CSR_API int csr_gru_bwd_persist_plan(int H, int ndir, int B, int sms,
                                      long long* out) {
   namespace tc = csr_rnn_mma;
-  int sms = 0;
-  cudaError_t e = tc::device_sms(&sms);
+  const cudaError_t e = tc::check_sms(sms, ndir);
   if (e != cudaSuccess) return static_cast<int>(e);
   const tc::PersistPlan p = bwd_persist_plan(H, ndir, B, sms);
-  out[0] = p.blocks;
-  out[1] = p.tiles;
-  out[2] = p.resident;
-  out[3] = p.smem;
-  out[4] = 0;
-  out[5] = p.work;
-  out[6] = p.chunk;
-  return with_persist_kernel(p.tiles, [&](auto kernel) {
-    int n = 0;
-    e = tc::coresident_blocks(kernel, 32 * kBwdWarps, p.smem, &n);
-    out[4] = n;
-    return static_cast<int>(e);
+  return with_persist_kernel(p.width, [&](auto kernel) {
+    return tc::report_plan(p, kernel, 32 * kBwdWarps, out);
   });
 }

@@ -506,8 +506,11 @@ int launch_tc(const void* xs, const void* wt, const float* lo,
 // fragment order (ops/rnn_cuda.py's persist_fwd_weights), is copied into
 // shared memory once a launch (the first kr k-steps of each warp's range
 // where the whole slice does not fit, the rest read from L2 at each step;
-// at H = 2048 and ndir 1 all 196 KB of it fit). A step, for each pass of
-// 32 rows (B > 32 takes more passes, B <= 16 one m16 tile):
+// at H = 2048 and ndir 1 all 196 KB of it fit). On a card of fewer than
+// ndir H / 32 SMs a block owns more than kGroupTiles tiles and runs them
+// as groups of NT (rnn_mma.cuh), steps 1-2 once a group in turn, the
+// group's slice [K][nc][32] after the one before it. A step, for each
+// pass of 32 rows (B > 32 takes more passes, B <= 16 one m16 tile):
 //   1. the product: warp w of four multiplies the pass's rows of h
 //      (bf16, where _dot2 rounds it; A fragments from the global buffer,
 //      one 16- or 8-byte load a lane, P k-steps ahead) by the block's columns
@@ -517,7 +520,8 @@ int launch_tc(const void* xs, const void* wt, const float* lo,
 //      adds them in warp order (no atomics: bitwise repeatable) and runs
 //      the gate math of its two rows and two units, hp_n = h W_n kept
 //      apart from xs (n = tanh(x_n + r hp_n), the 4th residual). With one
-//      pass and one slot a thread (B <= 32, nt <= 2) the slot keeps its
+//      pass, one group and one slot a thread (B <= 32, nt <= 2) the slot
+//      keeps its
 //      fp32 h in registers and its xs, lo and hi for the next step are
 //      loaded during the barrier; otherwise h_prev is read back from ys[t
 //      - 1] (or h0 / 0) and xs at the step;
@@ -559,9 +563,10 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
                            float* __restrict__ ys,
                            __nv_bfloat16* __restrict__ gates,
                            float* __restrict__ carry, unsigned int* counter,
-                           uint4* abuf, int T, int B, int H, int NB, int kr,
-                           int emit_t) {
+                           uint4* abuf, int T, int B, int H, int NB,
+                           int tiles, int groups, int kr, int emit_t) {
   namespace tc = csr_rnn_mma;
+  // NT: tiles a group (nw8); the block's `tiles` run as `groups` of them
   constexpr int NC = 3 * NT, kW = kFwdWarps;
   // slots (m-tile, tile, lane) a thread, and whether one pass of one slot
   // a thread can keep the slot's h and next inputs in registers
@@ -574,32 +579,39 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
   const int d = blockIdx.x / NB, cb = blockIdx.x % NB;
   const int R = ndir * B, G = 3 * H, K = H / 16, nt_all = H / 8;
   const int passes = (B + tc::kPassRows - 1) / tc::kPassRows;
-  const bool two = B > 16, hold = kCanHold && passes == 1;
+  const bool two = B > 16;
+  const bool hold = kCanHold && passes == 1 && groups == 1;
   const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
-  const uint2* slice = wf + int64_t(d * NB + cb) * K * NC * 32;
+  const uint2* slice = wf + int64_t(d * NB + cb) * groups * K * NC * 32;
   // A of direction d, pass p, m-tile m in buffer buf: [2][ndir][passes][2]
   // [K][32] uint4
   auto a_of = [&](int buf, int p, int m) {
     return abuf + (int64_t((buf * ndir + d) * passes + p) * 2 + m) * K * 32;
   };
-  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC);
+  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC, groups);
   __syncthreads();
   const tc::WarpSteps ws = tc::warp_steps(w, kW, K, kr, cb, NB);
-  const uint2* sb = reinterpret_cast<const uint2*>(res) + w * kr * NC * 32 + l;
+  // group 0's resident fragments of this warp's lane (a shared-space
+  // address) and its streamed ones (group g's kW kr NC 256 bytes and K NC
+  // 32 uint2 further on)
+  const uint32_t sb = tc::smem_addr(res) + (w * kr * NC * 32 + l) * 8;
   const uint2* gb = slice + int64_t(ws.kb) * NC * 32 + l;
   const int nslots = (two ? 2 : 1) * NT * 32;
   unsigned int barriers = 0;
 
-  // slot s: m-tile m, its tile's lane ls, unit j (the pair j, j + 1);
-  // `own`: a slot of this launch's rows and of a unit below H
+  // slot s of group g of a block of nt tiles: m-tile m, its tile's lane
+  // ls, its tile ti in the group, unit j (the pair j, j + 1); `own`: a
+  // slot of this launch's rows, of one of the block's tiles and of a unit
+  // below H
   struct Slot {
-    int m, ls, j;
+    int m, ls, ti, j;
     bool own;
   };
-  auto slot_of = [&](int q) {
-    const int s = tid + q * 32 * kW, tg = cb * NT + (s / 32) % NT;
-    return Slot{s / (NT * 32), s & 31, 8 * tg + 2 * (s & 3),
-                s < nslots && tg < nt_all};
+  auto slot_of = [&](int q, int g, int nt) {
+    const int s = tid + q * 32 * kW, ti = (s / 32) % NT, ib = g * NT + ti;
+    const int tg = cb * nt + ib;
+    return Slot{s / (NT * 32), s & 31, ti, 8 * tg + 2 * (s & 3),
+                s < nslots && ib < nt && tg < nt_all};
   };
   auto row_of = [&](int p, const Slot& o, int i) {
     return p * tc::kPassRows + 16 * o.m + (o.ls >> 2) + 8 * i;
@@ -625,130 +637,158 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
   float2 hreg[kCanHold ? kSlots : 1][2];
 
   // h_0: 0, or the stream form's h0 (and bf16(h0) into A[0])
+  for (int gr = 0; gr < groups; ++gr)
 #pragma unroll
-  for (int q = 0; q < kSlots; ++q) {
-    const Slot o = slot_of(q);
-    if (!o.own) continue;
-    for (int p = 0; p < passes; ++p)
+    for (int q = 0; q < kSlots; ++q) {
+      const Slot o = slot_of(q, gr, tiles);
+      if (!o.own) continue;
+      for (int p = 0; p < passes; ++p)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int b = row_of(p, o, i);
-        const int64_t rr = int64_t(d) * B + b;
-        float2 v = make_float2(0.0f, 0.0f);
-        if (kStream) {
-          if (b < B) v = *reinterpret_cast<const float2*>(h0 + rr * H + o.j);
-          *tc::a_word(a_of(0, p, o.m), o.j, i, o.ls) = tc::bf16x2(v.x, v.y);
-          if (b < B && emit_t == 0)
-            *reinterpret_cast<float2*>(carry + rr * H + o.j) = v;
+        for (int i = 0; i < 2; ++i) {
+          const int b = row_of(p, o, i);
+          const int64_t rr = int64_t(d) * B + b;
+          float2 v = make_float2(0.0f, 0.0f);
+          if (kStream) {
+            if (b < B)
+              v = *reinterpret_cast<const float2*>(h0 + rr * H + o.j);
+            *tc::a_word(a_of(0, p, o.m), o.j, i, o.ls) = tc::bf16x2(v.x, v.y);
+            if (b < B && emit_t == 0)
+              *reinterpret_cast<float2*>(carry + rr * H + o.j) = v;
+          }
+          if (kCanHold) hreg[kCanHold ? q : 0][i] = v;
         }
-        if (kCanHold) hreg[kCanHold ? q : 0][i] = v;
-      }
-    if (hold) held[kCanHold ? q : 0] = load_in(0, 0, o);
-  }
+      if (hold) held[kCanHold ? q : 0] = load_in(0, 0, o);
+    }
   if (kStream) {
     tc::grid_arrive(counter);
     tc::grid_wait(counter, ++barriers * gridDim.x);
   }
-  for (int t = 0; t < T; ++t) {
+  // group gr's share of step t, pass p: its product, then its slots'
+  // gate math (a copy for one group a block, one for more: OneGroup,
+  // Groups)
+  auto group_step = [&](auto tag, int t, int p, int gr) {
+    const bool keep = decltype(tag)::one && hold;
+    const int nt = decltype(tag)::one ? NT : tiles;   // NT: nt of one group
+    // the many-group copy's ring one k-step shallower, for fewer
+    // registers in that copy
+    constexpr int kP = decltype(tag)::one || P < 2 ? P : P - 1;
     const int cur = t & 1;
     const bool product = kStream || t > 0;
     const float tf = static_cast<float>(t);
-    for (int p = 0; p < passes; ++p) {
-      if (product) {
-        const int rp = B - p * tc::kPassRows;   // rows of the pass (> 0)
-        float acc[2][NC][4] = {};
-        tc::persist_product<NC, P, kSt>(
-            acc, a_of(cur, p, 0) + ws.kb * 32 + l,
-            a_of(cur, p, 1) + ws.kb * 32 + l, two, rp > 8, rp > 24, ws.kw,
-            ws.kres, ws.rot, sb, gb);
-        tc::store_partials<NC>(part, acc, two, w, l);
-      }
-      __syncthreads();
+    if (product) {
+      const int rp = B - p * tc::kPassRows;   // rows of the pass (> 0)
+      float acc[2][NC][4] = {};
+      tc::persist_product<NC, kP, kSt>(
+          acc, a_of(cur, p, 0) + ws.kb * 32 + l,
+          a_of(cur, p, 1) + ws.kb * 32 + l, two, rp > 8, rp > 24, ws.kw,
+          ws.kres, ws.rot, sb + gr * kW * kr * NC * 256,
+          gb + int64_t(gr) * K * NC * 32);
+      tc::store_partials<NC>(part, acc, two, w, l);
+    }
+    __syncthreads();
 #pragma unroll
-      for (int q = 0; q < kSlots; ++q) {
-        const Slot o = slot_of(q);
-        if (!o.own) continue;
-        const int tile = (o.j / 8) % NT;
-        float4 pre[3];
+    for (int q = 0; q < kSlots; ++q) {
+      const Slot o = slot_of(q, gr, nt);
+      if (!o.own) continue;
+      float4 pre[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        pre[g] = product ? tc::sum_partials(part, kW, NC, o.m, 3 * o.ti + g,
+                                            o.ls)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const GruIn in = keep ? held[kCanHold ? q : 0] : load_in(t, p, o);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = row_of(p, o, i);
+        const bool valid = b < B;
+        const int64_t rr = int64_t(d) * B + b;
+        const int64_t row = int64_t(t) * R + rr;
+        float2 hp = make_float2(0.0f, 0.0f), x[3];
+        if (keep) {
+          hp = hreg[kCanHold ? q : 0][i];
+        } else if (valid) {
+          if (t > 0)
+            hp = *reinterpret_cast<const float2*>(ys + (row - R) * H + o.j);
+          else if (kStream)
+            hp = *reinterpret_cast<const float2*>(h0 + rr * H + o.j);
+        }
 #pragma unroll
         for (int g = 0; g < 3; ++g)
-          pre[g] = product ? tc::sum_partials(part, kW, NC, o.m,
-                                              3 * tile + g, o.ls)
-                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        const GruIn in = hold ? held[kCanHold ? q : 0] : load_in(t, p, o);
+          x[g] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&in.x[i][g]));
+        const bool live = in.lo[i] <= tf && tf < in.hi[i];
+        float h[2], gv[2][4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int b = row_of(p, o, i);
-          const bool valid = b < B;
-          const int64_t rr = int64_t(d) * B + b;
-          const int64_t row = int64_t(t) * R + rr;
-          float2 hp = make_float2(0.0f, 0.0f), x[3];
-          if (hold) {
-            hp = hreg[kCanHold ? q : 0][i];
-          } else if (valid) {
-            if (t > 0)
-              hp = *reinterpret_cast<const float2*>(ys + (row - R) * H + o.j);
-            else if (kStream)
-              hp = *reinterpret_cast<const float2*>(h0 + rr * H + o.j);
-          }
+        for (int e = 0; e < 2; ++e) {
+          auto pick = [&](const float4& v) {
+            return i ? (e ? v.w : v.z) : (e ? v.y : v.x);
+          };
+          const float hp_n = pick(pre[2]);
+          const float rg = sigmoidf((e ? x[0].y : x[0].x) + pick(pre[0]));
+          const float z = sigmoidf((e ? x[1].y : x[1].x) + pick(pre[1]));
+          const float n = tanhf((e ? x[2].y : x[2].x) + rg * hp_n);
+          const float hv = e ? hp.y : hp.x;
+          const float hn = (1.0f - z) * n + z * hv;
+          h[e] = live ? hn : hv;
+          gv[e][0] = rg;
+          gv[e][1] = z;
+          gv[e][2] = n;
+          gv[e][3] = hp_n;
+        }
+        if (kCanHold && decltype(tag)::one)
+          hreg[kCanHold ? q : 0][i] = make_float2(h[0], h[1]);
+        if (t + 1 < T)
+          *tc::a_word(a_of(cur ^ 1, p, o.m), o.j, i, o.ls) =
+              tc::bf16x2(h[0], h[1]);
+        if (!valid) continue;
+        *reinterpret_cast<float2*>(ys + row * H + o.j) =
+            make_float2(h[0], h[1]);
+        if (kResiduals)
 #pragma unroll
-          for (int g = 0; g < 3; ++g)
-            x[g] = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(&in.x[i][g]));
-          const bool live = in.lo[i] <= tf && tf < in.hi[i];
-          float h[2], gv[2][4];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            auto pick = [&](const float4& v) {
-              return i ? (e ? v.w : v.z) : (e ? v.y : v.x);
-            };
-            const float hp_n = pick(pre[2]);
-            const float rg = sigmoidf((e ? x[0].y : x[0].x) + pick(pre[0]));
-            const float z = sigmoidf((e ? x[1].y : x[1].x) + pick(pre[1]));
-            const float n = tanhf((e ? x[2].y : x[2].x) + rg * hp_n);
-            const float hv = e ? hp.y : hp.x;
-            const float hn = (1.0f - z) * n + z * hv;
-            h[e] = live ? hn : hv;
-            gv[e][0] = rg;
-            gv[e][1] = z;
-            gv[e][2] = n;
-            gv[e][3] = hp_n;
-          }
-          if (kCanHold) hreg[kCanHold ? q : 0][i] = make_float2(h[0], h[1]);
-          if (t + 1 < T)
-            *tc::a_word(a_of(cur ^ 1, p, o.m), o.j, i, o.ls) =
-                tc::bf16x2(h[0], h[1]);
-          if (!valid) continue;
-          *reinterpret_cast<float2*>(ys + row * H + o.j) =
+          for (int g = 0; g < 4; ++g)
+            *reinterpret_cast<uint32_t*>(gates + row * 4 * H + g * H + o.j) =
+                tc::bf16x2(gv[0][g], gv[1][g]);
+        if (kStream && t == emit_t - 1)
+          *reinterpret_cast<float2*>(carry + rr * H + o.j) =
               make_float2(h[0], h[1]);
-          if (kResiduals)
-#pragma unroll
-            for (int g = 0; g < 4; ++g)
-              *reinterpret_cast<uint32_t*>(gates + row * 4 * H + g * H +
-                                           o.j) =
-                  tc::bf16x2(gv[0][g], gv[1][g]);
-          if (kStream && t == emit_t - 1)
-            *reinterpret_cast<float2*>(carry + rr * H + o.j) =
-                make_float2(h[0], h[1]);
-        }
       }
-      __syncthreads();
     }
-    if (t + 1 < T) {
-      tc::grid_arrive(counter);
-      // the next step's inputs, in flight over the wait and the product
-      if (hold)
+    __syncthreads();
+  };
+  // the T steps, in a loop of their own for each copy, so that what one
+  // copy keeps in registers across its steps does not crowd the other
+  auto run = [&](auto tag) {
+    for (int t = 0; t < T; ++t) {
+      for (int p = 0; p < passes; ++p) {
+        if constexpr (decltype(tag)::one)
+          group_step(tag, t, p, 0);
+        else
+          for (int gr = 0; gr < groups; ++gr) group_step(tag, t, p, gr);
+      }
+      if (t + 1 < T) {
+        tc::grid_arrive(counter);
+        // the next step's inputs, in flight over the wait and the product
+        if (decltype(tag)::one && hold)
 #pragma unroll
-        for (int q = 0; q < kSlots; ++q) {
-          const Slot o = slot_of(q);
-          if (o.own) held[kCanHold ? q : 0] = load_in(t + 1, 0, o);
-        }
-      tc::grid_wait(counter, ++barriers * gridDim.x);
+          for (int q = 0; q < kSlots; ++q) {
+            const Slot o = slot_of(q, 0, NT);
+            if (o.own) held[kCanHold ? q : 0] = load_in(t + 1, 0, o);
+          }
+        tc::grid_wait(counter, ++barriers * gridDim.x);
+      }
     }
-  }
+  };
+  // more than one group means groups of three or four tiles, so a kernel
+  // of one or two tiles a group has the one copy only
+  if constexpr (NT <= 2)
+    run(tc::OneGroup{});
+  else if (groups == 1)
+    run(tc::OneGroup{});
+  else
+    run(tc::Groups{});
 }
 
-// the persistent forward's plan at this card's SM count (ops/rnn_cuda.py's
+// the persistent forward's plan on a card of `sms` SMs (ops/rnn_cuda.py's
 // persist_plan("gru_fwd", ...))
 csr_rnn_mma::PersistPlan fwd_persist_plan(int H, int ndir, int B,
                                           int sms) {
@@ -756,13 +796,13 @@ csr_rnn_mma::PersistPlan fwd_persist_plan(int H, int ndir, int B,
                                    0);
 }
 
-// the persistent kernel of nt tiles a block (P k-steps of loads in flight
-// a warp; the slice may not fit shared memory past two tiles); none past
-// kPersistMaxTiles
+// the persistent kernel of groups of `width` tiles (P k-steps of loads in
+// flight a warp; the slice may not fit shared memory past two tiles: a
+// block of more than one group has groups of three or four)
 template <bool kResiduals, bool kStream, typename Fn>
-int with_persist_kernel(int tiles, Fn&& fn) {
-  static_assert(csr_rnn_mma::kPersistMaxTiles == 4, "a kernel a tile count");
-  switch (tiles) {
+int with_persist_kernel(int width, Fn&& fn) {
+  static_assert(csr_rnn_mma::kGroupTiles == 4, "a kernel a group width");
+  switch (width) {
     case 1:
       return fn(gru_fwd_persist_kernel<1, 12, false, kResiduals, kStream>);
     case 2:
@@ -777,33 +817,33 @@ int with_persist_kernel(int tiles, Fn&& fn) {
 }
 
 // the bf16 forms: the resident cluster kernel up to H = 512, the
-// persistent form above (C: its blocks a direction, work: its workspace
-// of the plan's bytes, rnn_mma.cuh's PersistPlan)
+// persistent form above (C: its blocks a direction, sms: the SM count its
+// plan was made for, work: its workspace of the plan's bytes,
+// rnn_mma.cuh's PersistPlan)
 template <bool kResiduals, bool kStream>
 int launch_bf16(const void* xs, const void* wt, const float* lo,
                 const float* hi, const float* h0, float* ys, void* gates,
                 float* carry, void* work, int T, int B, int H, int ndir,
-                int emit_t, int C, cudaStream_t stream) {
+                int emit_t, int C, int sms, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (H <= tc::kResidentMax)
     return launch_tc<kResiduals, kStream>(xs, wt, lo, hi, h0, ys, gates,
                                           carry, T, B, H, ndir, emit_t, C,
                                           stream);
-  int sms = 0;
-  const cudaError_t e = tc::device_sms(&sms);
+  const cudaError_t e = tc::check_sms(sms, ndir);
   if (e != cudaSuccess) return static_cast<int>(e);
   const tc::PersistPlan p = fwd_persist_plan(H, ndir, B, sms);
-  if (!p.ok || C != p.blocks || work == nullptr || p.resident < 1 ||
-      (p.tiles <= 2 && p.resident * kFwdWarps < H / 16))
+  if (C != p.blocks || work == nullptr ||
+      (p.width <= 2 && p.resident * kFwdWarps < H / 16))
     return static_cast<int>(cudaErrorInvalidValue);
   unsigned int* counter = static_cast<unsigned int*>(work);
   uint4* abuf = reinterpret_cast<uint4*>(static_cast<char*>(work) + 256);
-  return with_persist_kernel<kResiduals, kStream>(p.tiles, [&](auto kernel) {
+  return with_persist_kernel<kResiduals, kStream>(p.width, [&](auto kernel) {
     return tc::launch_cooperative(
         kernel, p.blocks * ndir, 32 * kFwdWarps, p.smem, stream, counter,
         static_cast<const __nv_bfloat16*>(xs), static_cast<const uint2*>(wt),
         lo, hi, h0, ys, static_cast<__nv_bfloat16*>(gates), carry, counter,
-        abuf, T, B, H, p.blocks, p.resident, emit_t);
+        abuf, T, B, H, p.blocks, p.tiles, p.groups, p.resident, emit_t);
   });
 }
 
@@ -812,19 +852,21 @@ int launch_bf16(const void* xs, const void* wt, const float* lo,
 // xs [T, ndir*B, 3H] and w [ndir, H, 3H] both fp32 (the FMA kernel), or,
 // when bf16 != 0, xs bf16 and w = wt [ndir, C, 3, H/C, H] bf16 (the
 // cluster kernel: C = H / 32 blocks a cluster, ops/rnn_cuda.py's
-// gru_plan; past H = 512 the persistent form's fragments [ndir, C, H/16,
-// nt, 3, 32, 4], C its blocks a direction, rnn_cuda.persist_fwd_weights;
-// unread under fp32); lo/hi [ndir*B] fp32; ys [T, ndir*B, H] fp32; work
-// the persistent form's workspace (csr_gru_fwd_persist_plan's bytes;
-// unread elsewhere). Requires 32 <= H <= 2048, H % 32 == 0, T >= 1, B >=
-// 1, ndir 1 or 2 (the wrapper checks).
+// gru_plan; past H = 512 the persistent form's fragments [ndir, C,
+// ng·H/16, nw8, 3, 32, 4], C its blocks a direction, on a card of `sms`
+// SMs, rnn_cuda.persist_fwd_weights; unread under fp32); lo/hi [ndir*B]
+// fp32; ys [T, ndir*B, H] fp32; work the persistent form's workspace
+// (csr_gru_fwd_persist_plan's bytes; unread elsewhere); sms the SM count
+// the persistent plan was made for (ndir <= sms <= the card's; unread
+// elsewhere). Requires 32 <= H <= 2048, H % 32 == 0, T >= 1, B >= 1,
+// ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
                         const float* hi, float* ys, void* work, int T, int B,
-                        int H, int ndir, int C, int bf16,
+                        int H, int ndir, int C, int sms, int bf16,
                         cudaStream_t stream) {
   if (bf16)
     return launch_bf16<false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
-                                     nullptr, work, T, B, H, ndir, 0, C,
+                                     nullptr, work, T, B, H, ndir, 0, C, sms,
                                      stream);
   return launch<float, false, false>(xs, w, lo, hi, nullptr, ys, nullptr,
                                      nullptr, T, B, H, ndir, 0, stream);
@@ -836,10 +878,10 @@ CSR_API int csr_gru_fwd(const void* xs, const void* w, const float* lo,
 CSR_API int csr_gru_fwd_train(const void* xs, const void* w, const float* lo,
                               const float* hi, float* ys, void* gates,
                               void* work, int T, int B, int H, int ndir,
-                              int C, int bf16, cudaStream_t stream) {
+                              int C, int sms, int bf16, cudaStream_t stream) {
   if (bf16)
     return launch_bf16<true, false>(xs, w, lo, hi, nullptr, ys, gates,
-                                    nullptr, work, T, B, H, ndir, 0, C,
+                                    nullptr, work, T, B, H, ndir, 0, C, sms,
                                     stream);
   return launch<float, true, false>(xs, w, lo, hi, nullptr, ys, gates,
                                     nullptr, T, B, H, ndir, 0, stream);
@@ -859,47 +901,35 @@ CSR_API int csr_gru_fwd_occupancy(int H, int* out) {
                           tc::kRows * kTcUnits, out[0], out + 1);
 }
 
-// The persistent forward's plan as this card takes it at hidden size H >
-// 512, ndir directions and B rows a direction: out = (blocks a direction,
-// tiles a block, resident k-steps a warp, shared memory bytes a block,
-// blocks the card holds at once: cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// times the SMs, workspace bytes, k-steps a slot of a staged ring: 0, A
-// is read from L2). cudaErrorInvalidValue where the card has too few SMs
-// for the built tile counts (out filled all the same).
-CSR_API int csr_gru_fwd_persist_plan(int H, int ndir, int B,
+// The persistent forward's plan as the card takes it at hidden size H >
+// 512, ndir directions, B rows a direction and `sms` SMs
+// (rnn_mma.cuh's report_plan; out: 8 int64; A is read from L2, so a
+// slot's k-steps are 0). cudaErrorInvalidValue where sms is below ndir
+// or above the card's.
+CSR_API int csr_gru_fwd_persist_plan(int H, int ndir, int B, int sms,
                                      long long* out) {
   namespace tc = csr_rnn_mma;
-  int sms = 0;
-  cudaError_t e = tc::device_sms(&sms);
+  const cudaError_t e = tc::check_sms(sms, ndir);
   if (e != cudaSuccess) return static_cast<int>(e);
   const tc::PersistPlan p = fwd_persist_plan(H, ndir, B, sms);
-  out[0] = p.blocks;
-  out[1] = p.tiles;
-  out[2] = p.resident;
-  out[3] = p.smem;
-  out[4] = 0;
-  out[5] = p.work;
-  out[6] = p.chunk;
-  return with_persist_kernel<true, false>(p.tiles, [&](auto kernel) {
-    int n = 0;
-    e = tc::coresident_blocks(kernel, 32 * kFwdWarps, p.smem, &n);
-    out[4] = n;
-    return static_cast<int>(e);
+  return with_persist_kernel<true, false>(p.width, [&](auto kernel) {
+    return tc::report_plan(p, kernel, 32 * kFwdWarps, out);
   });
 }
 
-// As csr_gru_fwd (w, C and work likewise), with h seeded from h0 [ndir*B,
-// H] fp32 and carry [ndir*B, H] fp32 out: h after step emit_t - 1, h0 when
-// emit_t == 0. Requires 0 <= emit_t <= T (the wrapper checks).
+// As csr_gru_fwd (w, C, sms and work likewise), with h seeded from h0
+// [ndir*B, H] fp32 and carry [ndir*B, H] fp32 out: h after step emit_t -
+// 1, h0 when emit_t == 0. Requires 0 <= emit_t <= T (the wrapper checks).
 CSR_API int csr_gru_fwd_stream(const void* xs, const void* w,
                                const float* lo, const float* hi,
                                const float* h0, float* ys, float* carry,
                                void* work, int T, int B, int H, int ndir,
-                               int emit_t, int C, int bf16,
+                               int emit_t, int C, int sms, int bf16,
                                cudaStream_t stream) {
   if (bf16)
     return launch_bf16<false, true>(xs, w, lo, hi, h0, ys, nullptr, carry,
-                                    work, T, B, H, ndir, emit_t, C, stream);
+                                    work, T, B, H, ndir, emit_t, C, sms,
+                                    stream);
   return launch<float, false, true>(xs, w, lo, hi, h0, ys, nullptr, carry, T,
                                     B, H, ndir, emit_t, stream);
 }

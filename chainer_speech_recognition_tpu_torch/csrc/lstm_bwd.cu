@@ -434,9 +434,11 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
 // 1024 all 131 KB a block; at 2048 each warp keeps its first kr k-steps and
 // reads the rest from L2 at each step). The block also owns the same units'
 // gate math: it keeps their carried dc and dh_total (in registers with one
-// pass, else in a global scratch that only the owning thread reads and
-// writes) and publishes their dg. A
-// step t, for each pass of 32 rows:
+// pass of one group, else in a global scratch that only the owning thread
+// reads and writes) and publishes their dg. On a card of fewer than ndir
+// H / 32 SMs a block owns more than kGroupTiles tiles and runs them as
+// groups of NT (rnn_mma.cuh), steps 1-2 once a group in turn, one slot a
+// thread a group. A step t, for each pass of 32 rows:
 //   1. (t < T - 1) the product: warp w of eight multiplies the pass's dg of
 //      step t + 1 (bf16, where _dot2 rounds it; A fragments from the global
 //      buffer, one 16- or 8-byte load a lane) by the block's columns over its
@@ -449,8 +451,8 @@ __global__ void __launch_bounds__(csr_rnn_mma::kRows * csr_rnn_mma::kUnits, 1)
 //      dh_total) and dc, and its dg = (di, df, do, du) from gates, c_t,
 //      c_{t-1} and g; dxs = dg masked to the live steps; the unmasked dg,
 //      rounded to bf16, into the next A buffer (two, by step parity). With
-//      one pass (B <= 32) dc and dh_total stay in registers and the next
-//      step's inputs are loaded during the barrier;
+//      one pass of one group (B <= 32) dc and dh_total stay in registers
+//      and the next step's inputs are loaded during the barrier;
 //   3. one grid barrier (rnn_mma.cuh's grid_arrive / grid_wait).
 // Measured on an H100 (tools/kernel_ab.py --cases rnn_wide, against this
 // build and copies of it with a part of the step left out; PERF.md): at
@@ -484,10 +486,12 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 1)
                             const float* __restrict__ g,
                             __nv_bfloat16* __restrict__ dxs,
                             unsigned int* counter, uint4* abuf, float* held,
-                            int T, int B, int H, int NB, int kr) {
+                            int T, int B, int H, int NB, int tiles,
+                            int groups, int kr) {
   namespace tc = csr_rnn_mma;
+  // NT: tiles a group (nw8); the block's `tiles` run as `groups` of them
   constexpr int NC = NT, kW = kBwdWarps;
-  static_assert(2 * NT * 32 <= 32 * kW, "one slot a thread");
+  static_assert(2 * NT * 32 <= 32 * kW, "one slot a thread a group");
   extern __shared__ __align__(16) unsigned char smem[];
   float* part = reinterpret_cast<float*>(smem);
   unsigned char* res = smem + tc::persist_part(NC, kW);
@@ -495,11 +499,12 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 1)
   const int d = blockIdx.x / NB, cb = blockIdx.x % NB;
   const int R = ndir * B, G = 4 * H, K = H / 4, nt_all = H / 8;
   const int passes = (B + tc::kPassRows - 1) / tc::kPassRows;
-  // one pass: the slot's carried dc and dh_total and its next inputs stay
-  // in registers; more: dc and dh_total go through the global scratch
-  const bool two = B > 16, hold = passes == 1;
+  // one pass of one group: the slot's carried dc and dh_total and its next
+  // inputs stay in registers; more: dc and dh_total go through the global
+  // scratch
+  const bool two = B > 16, hold = passes == 1 && groups == 1;
   const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
-  const uint2* slice = wb + int64_t(d * NB + cb) * K * NC * 32;
+  const uint2* slice = wb + int64_t(d * NB + cb) * groups * K * NC * 32;
   // A (dg) of direction d, pass p, m-tile m in buffer buf: [2][ndir]
   // [passes][2][K][32] uint4
   auto a_of = [&](int buf, int p, int m) {
@@ -508,20 +513,32 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 1)
   // what a slot carries past its step: dc and dh_total, [R][H] fp32 each
   float* dc_held = held;
   float* dh_held = held + int64_t(R) * H;
-  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC);
+  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC, groups);
   __syncthreads();
   const tc::WarpSteps ws = tc::warp_steps(w, kW, K, kr, cb, NB);
-  const uint2* sb = reinterpret_cast<const uint2*>(res) + w * kr * NC * 32 + l;
+  // group 0's resident fragments of this warp's lane (a shared-space
+  // address) and its streamed ones (group g's kW kr NC 256 bytes and K NC
+  // 32 uint2 further on)
+  const uint32_t sb = tc::smem_addr(res) + (w * kr * NC * 32 + l) * 8;
   const uint2* gb = slice + int64_t(ws.kb) * NC * 32 + l;
-  // this thread's slot: m-tile m, its tile's lane ls, unit j (the pair j,
-  // j + 1); `own`: a slot of this launch's rows and of a unit below H
+  // this thread's slot of each group: m-tile m, its tile's lane ls, its
+  // tile in the group, unit j of group g (the pair j, j + 1); `own`: a
+  // slot of this launch's rows, of one of the block's tiles and of a unit
+  // below H
   const int m = tid / (NT * 32), ls = tid & 31, tile = (tid / 32) % NT;
-  const int tg = cb * NT + tile, j = 8 * tg + 2 * (ls & 3);
-  const bool own = tid < (two ? 2 : 1) * NT * 32 && tg < nt_all;
+  // (of a block of nt tiles: the plan's, or NT where a block runs one
+  // group)
+  auto unit_of = [&](int gr, int nt) {
+    return 8 * (cb * nt + gr * NT + tile) + 2 * (ls & 3);
+  };
+  auto own_of = [&](int gr, int nt) {
+    return tid < (two ? 2 : 1) * NT * 32 && gr * NT + tile < nt &&
+           cb * nt + gr * NT + tile < nt_all;
+  };
   auto row_of = [&](int p, int i) {
     return p * tc::kPassRows + 16 * m + (ls >> 2) + 8 * i;
   };
-  auto load_in = [&](int t, int p) {
+  auto load_in = [&](int t, int p, int j) {
     LstmIn in;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -548,107 +565,134 @@ __global__ void __launch_bounds__(32 * kBwdWarps, 1)
   };
   LstmIn next;
   float2 dc_reg[2], dh_reg[2];
-  if (hold && own) next = load_in(T - 1, 0);
+  if (hold && own_of(0, NT)) next = load_in(T - 1, 0, unit_of(0, NT));
   unsigned int barriers = 0;
 
-  for (int t = T - 1; t >= 0; --t) {
+  // group gr's share of step t, pass p: its product, then its slots'
+  // gate math (a copy for one group a block, one for more: OneGroup,
+  // Groups)
+  auto group_step = [&](auto tag, int t, int p, int gr) {
+    const bool keep = decltype(tag)::one && hold;
+    const int nt = decltype(tag)::one ? NT : tiles;   // NT: nt of one group
+    // the many-group copy's ring one k-step shallower, for fewer
+    // registers in that copy
+    constexpr int kP = decltype(tag)::one || P < 2 ? P : P - 1;
     const bool product = t < T - 1;
     const float tf = static_cast<float>(t);
-    for (int p = 0; p < passes; ++p) {
-      if (product) {
-        const int rp = B - p * tc::kPassRows;   // rows of the pass (> 0)
-        float acc[2][NC][4] = {};
-        tc::persist_product<NC, P, kSt>(
-            acc, a_of((t + 1) & 1, p, 0) + ws.kb * 32 + l,
-            a_of((t + 1) & 1, p, 1) + ws.kb * 32 + l, two, rp > 8, rp > 24,
-            ws.kw, ws.kres, ws.rot, sb, gb);
-        tc::store_partials<NC>(part, acc, two, w, l);
-      }
-      __syncthreads();
-      if (own) {
-        const float4 dhp = product
-                               ? tc::sum_partials(part, kW, NC, m, tile, ls)
-                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        const LstmIn in = hold ? next : load_in(t, p);
+    if (product) {
+      const int rp = B - p * tc::kPassRows;   // rows of the pass (> 0)
+      float acc[2][NC][4] = {};
+      tc::persist_product<NC, kP, kSt>(
+          acc, a_of((t + 1) & 1, p, 0) + ws.kb * 32 + l,
+          a_of((t + 1) & 1, p, 1) + ws.kb * 32 + l, two, rp > 8, rp > 24,
+          ws.kw, ws.kres, ws.rot, sb + gr * kW * kr * NC * 256,
+          gb + int64_t(gr) * K * NC * 32);
+      tc::store_partials<NC>(part, acc, two, w, l);
+    }
+    __syncthreads();
+    if (own_of(gr, nt)) {
+      const int j = unit_of(gr, nt);
+      const float4 dhp = product
+                             ? tc::sum_partials(part, kW, NC, m, tile, ls)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const LstmIn in = keep ? next : load_in(t, p, j);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int b = row_of(p, i);
-          const bool valid = b < B;
-          const int64_t rr = int64_t(d) * B + b;
-          const int64_t row = int64_t(t) * R + rr;
-          const bool live = in.lo[i] <= tf && tf < in.hi[i];
-          const bool live_next =
-              product && in.lo[i] <= tf + 1.0f && tf + 1.0f < in.hi[i];
-          // dc and dh from step t + 1 (0 at t = T - 1): dh = dh_prev where
-          // that step was live, else its dh_total passes through
-          float2 dc = make_float2(0.0f, 0.0f), dh = dc;
-          if (product && (hold || valid)) {
-            dc = hold ? dc_reg[i]
-                      : *reinterpret_cast<const float2*>(dc_held + rr * H +
-                                                         j);
-            dh = live_next
-                     ? (i ? make_float2(dhp.z, dhp.w)
-                          : make_float2(dhp.x, dhp.y))
-                     : hold ? dh_reg[i]
-                            : *reinterpret_cast<const float2*>(dh_held +
-                                                               rr * H + j);
-          }
-          float dg[4][2], dc_next[2], dh_total[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float q[4];
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const float2 v = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(&in.q[i][k]));
-              q[k] = e ? v.y : v.x;
-            }
-            const float ig = q[0], fg = q[1], og = q[2], ug = q[3];
-            const float dht = (e ? in.g[i].y : in.g[i].x) + (e ? dh.y : dh.x);
-            const float tc_ = tanhf(e ? in.c[i].y : in.c[i].x);
-            const float dcv = e ? dc.y : dc.x;
-            dg[2][e] = dht * tc_ * og * (1.0f - og);
-            const float dct = dcv + dht * og * (1.0f - tc_ * tc_);
-            dg[1][e] = dct * (e ? in.cp[i].y : in.cp[i].x) * fg * (1.0f - fg);
-            dg[0][e] = dct * ug * ig * (1.0f - ig);
-            dg[3][e] = dct * ig * (1.0f - ug * ug);
-            dc_next[e] = live ? dct * fg : dcv;
-            dh_total[e] = dht;
-          }
-          if (t > 0) {
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              *tc::a_word(a_of(t & 1, p, m), k * H + j, i, ls) =
-                  tc::bf16x2(dg[k][0], dg[k][1]);
-            if (hold) {
-              dc_reg[i] = make_float2(dc_next[0], dc_next[1]);
-              dh_reg[i] = make_float2(dh_total[0], dh_total[1]);
-            } else if (valid) {
-              *reinterpret_cast<float2*>(dc_held + rr * H + j) =
-                  make_float2(dc_next[0], dc_next[1]);
-              *reinterpret_cast<float2*>(dh_held + rr * H + j) =
-                  make_float2(dh_total[0], dh_total[1]);
-            }
-          }
-          if (valid)
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              *reinterpret_cast<uint32_t*>(dxs + row * G + k * H + j) =
-                  tc::bf16x2(live ? dg[k][0] : 0.0f, live ? dg[k][1] : 0.0f);
+      for (int i = 0; i < 2; ++i) {
+        const int b = row_of(p, i);
+        const bool valid = b < B;
+        const int64_t rr = int64_t(d) * B + b;
+        const int64_t row = int64_t(t) * R + rr;
+        const bool live = in.lo[i] <= tf && tf < in.hi[i];
+        const bool live_next =
+            product && in.lo[i] <= tf + 1.0f && tf + 1.0f < in.hi[i];
+        // dc and dh from step t + 1 (0 at t = T - 1): dh = dh_prev where
+        // that step was live, else its dh_total passes through
+        float2 dc = make_float2(0.0f, 0.0f), dh = dc;
+        if (product && (keep || valid)) {
+          dc = keep ? dc_reg[i]
+                    : *reinterpret_cast<const float2*>(dc_held + rr * H + j);
+          dh = live_next ? (i ? make_float2(dhp.z, dhp.w)
+                              : make_float2(dhp.x, dhp.y))
+               : keep    ? dh_reg[i]
+                         : *reinterpret_cast<const float2*>(dh_held +
+                                                            rr * H + j);
         }
+        float dg[4][2], dc_next[2], dh_total[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float q[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float2 v = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&in.q[i][k]));
+            q[k] = e ? v.y : v.x;
+          }
+          const float ig = q[0], fg = q[1], og = q[2], ug = q[3];
+          const float dht = (e ? in.g[i].y : in.g[i].x) + (e ? dh.y : dh.x);
+          const float tc_ = tanhf(e ? in.c[i].y : in.c[i].x);
+          const float dcv = e ? dc.y : dc.x;
+          dg[2][e] = dht * tc_ * og * (1.0f - og);
+          const float dct = dcv + dht * og * (1.0f - tc_ * tc_);
+          dg[1][e] = dct * (e ? in.cp[i].y : in.cp[i].x) * fg * (1.0f - fg);
+          dg[0][e] = dct * ug * ig * (1.0f - ig);
+          dg[3][e] = dct * ig * (1.0f - ug * ug);
+          dc_next[e] = live ? dct * fg : dcv;
+          dh_total[e] = dht;
+        }
+        if (t > 0) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            *tc::a_word(a_of(t & 1, p, m), k * H + j, i, ls) =
+                tc::bf16x2(dg[k][0], dg[k][1]);
+          if (keep) {
+            dc_reg[i] = make_float2(dc_next[0], dc_next[1]);
+            dh_reg[i] = make_float2(dh_total[0], dh_total[1]);
+          } else if (valid) {
+            *reinterpret_cast<float2*>(dc_held + rr * H + j) =
+                make_float2(dc_next[0], dc_next[1]);
+            *reinterpret_cast<float2*>(dh_held + rr * H + j) =
+                make_float2(dh_total[0], dh_total[1]);
+          }
+        }
+        if (valid)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            *reinterpret_cast<uint32_t*>(dxs + row * G + k * H + j) =
+                tc::bf16x2(live ? dg[k][0] : 0.0f, live ? dg[k][1] : 0.0f);
       }
-      __syncthreads();
     }
-    if (t > 0) {
-      tc::grid_arrive(counter);
-      // the next step's inputs, in flight over the wait and the product
-      if (hold && own) next = load_in(t - 1, 0);
-      tc::grid_wait(counter, ++barriers * gridDim.x);
+    __syncthreads();
+  };
+  // the T steps, in a loop of their own for each copy, so that what one
+  // copy keeps in registers across its steps does not crowd the other
+  auto run = [&](auto tag) {
+    for (int t = T - 1; t >= 0; --t) {
+      for (int p = 0; p < passes; ++p) {
+        if constexpr (decltype(tag)::one)
+          group_step(tag, t, p, 0);
+        else
+          for (int gr = 0; gr < groups; ++gr) group_step(tag, t, p, gr);
+      }
+      if (t > 0) {
+        tc::grid_arrive(counter);
+        // the next step's inputs, in flight over the wait and the product
+        if (decltype(tag)::one && hold && own_of(0, NT))
+          next = load_in(t - 1, 0, unit_of(0, NT));
+        tc::grid_wait(counter, ++barriers * gridDim.x);
+      }
     }
-  }
+  };
+  // more than one group means groups of three or four tiles, so a kernel
+  // of one or two tiles a group has the one copy only
+  if constexpr (NT <= 2)
+    run(tc::OneGroup{});
+  else if (groups == 1)
+    run(tc::OneGroup{});
+  else
+    run(tc::Groups{});
 }
 
-// the persistent backward's plan at this card's SM count (ops/rnn_cuda.py's
+// the persistent backward's plan on a card of `sms` SMs (ops/rnn_cuda.py's
 // persist_plan("lstm_bwd", ...))
 csr_rnn_mma::PersistPlan bwd_persist_plan(int H, int ndir, int B,
                                           int sms) {
@@ -656,13 +700,14 @@ csr_rnn_mma::PersistPlan bwd_persist_plan(int H, int ndir, int B,
                                    2);
 }
 
-// the persistent kernel of nt tiles a block (the slice may not fit shared
-// memory past one tile); none past kPersistMaxTiles
+// the persistent kernel of groups of p.width tiles (the slice may not fit
+// shared memory past one tile; a block of more than one group has groups
+// of three or four)
 template <typename Fn>
 int with_persist_kernel(const csr_rnn_mma::PersistPlan& p, Fn&& fn) {
-  static_assert(csr_rnn_mma::kPersistMaxTiles == 4, "a kernel a tile count");
+  static_assert(csr_rnn_mma::kGroupTiles == 4, "a kernel a group width");
   const bool resident = p.resident * kBwdWarps >= p.ksteps;
-  switch (p.tiles) {
+  switch (p.width) {
     case 1:
       return fn(lstm_bwd_persist_kernel<1, 12, false>);
     case 2:
@@ -677,19 +722,18 @@ int with_persist_kernel(const csr_rnn_mma::PersistPlan& p, Fn&& fn) {
   }
 }
 
-// C: the blocks a direction; work: the workspace of the plan's bytes
-// (rnn_mma.cuh's PersistPlan)
+// C: the blocks a direction; sms: the SM count the plan was made for;
+// work: the workspace of the plan's bytes (rnn_mma.cuh's PersistPlan)
 int launch_persist(const void* gates, const void* wb, const float* lo,
                    const float* hi, const float* cs, const float* g,
                    void* dxs, void* work, int T, int B, int H, int ndir,
-                   int C, cudaStream_t stream) {
+                   int C, int sms, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
-  int sms = 0;
-  const cudaError_t e = tc::device_sms(&sms);
+  const cudaError_t e = tc::check_sms(sms, ndir);
   if (e != cudaSuccess) return static_cast<int>(e);
   const tc::PersistPlan p = bwd_persist_plan(H, ndir, B, sms);
-  if (!p.ok || C != p.blocks || work == nullptr || p.resident < 1 ||
-      (p.tiles == 1 && p.resident * kBwdWarps < H / 4))
+  if (C != p.blocks || work == nullptr ||
+      (p.width == 1 && p.resident * kBwdWarps < H / 4))
     return static_cast<int>(cudaErrorInvalidValue);
   char* base = static_cast<char*>(work);
   unsigned int* counter = reinterpret_cast<unsigned int*>(base);
@@ -701,7 +745,7 @@ int launch_persist(const void* gates, const void* wb, const float* lo,
         static_cast<const __nv_bfloat16*>(gates),
         static_cast<const uint2*>(wb), lo, hi, cs, g,
         static_cast<__nv_bfloat16*>(dxs), counter, abuf, held, T, B, H,
-        p.blocks, p.resident);
+        p.blocks, p.tiles, p.groups, p.resident);
   });
 }
 
@@ -711,15 +755,17 @@ int launch_persist(const void* gates, const void* wb, const float* lo,
 // FMA kernel: wtq [ndir, H, H, 4]) or, when bf16 != 0, all bf16 (the
 // cluster kernel: wb [ndir, C, H, 4, 32], C = H / 32 blocks a cluster,
 // ops/rnn_cuda.py's lstm_plan; past H = 512 the persistent form's
-// fragments [ndir, C, H/4, nt, 32, 4], C its blocks a direction,
-// rnn_cuda.persist_bwd_weights; unread under fp32); lo/hi [ndir*B], cs and
-// g [T, ndir*B, H] fp32; work the persistent form's workspace
-// (csr_lstm_bwd_persist_plan's bytes; unread elsewhere). Requires 32 <= H <=
-// 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
+// fragments [ndir, C, ng·H/4, nw8, 32, 4], C its blocks a direction, on a
+// card of `sms` SMs, rnn_cuda.persist_bwd_weights; unread under fp32);
+// lo/hi [ndir*B], cs and g [T, ndir*B, H] fp32; work the persistent form's
+// workspace (csr_lstm_bwd_persist_plan's bytes; unread elsewhere); sms the
+// SM count the persistent plan was made for (ndir <= sms <= the card's;
+// unread elsewhere). Requires 32 <= H <= 2048, H % 32 == 0, T >= 1, B >=
+// 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_lstm_bwd(const void* gates, const void* wtq, const float* lo,
                          const float* hi, const float* cs, const float* g,
                          void* dxs, void* work, int T, int B, int H, int ndir,
-                         int C, int bf16, cudaStream_t stream) {
+                         int C, int sms, int bf16, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (ndir != 1 && ndir != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (!bf16)
@@ -727,7 +773,7 @@ CSR_API int csr_lstm_bwd(const void* gates, const void* wtq, const float* lo,
                        stream);
   if (H > tc::kResidentMax)
     return launch_persist(gates, wtq, lo, hi, cs, g, dxs, work, T, B, H,
-                          ndir, C, stream);
+                          ndir, C, sms, stream);
   if (C * tc::kUnits != H) return static_cast<int>(cudaErrorInvalidValue);
   return tc::launch_clusters(
       lstm_bwd_tc_kernel, C, (B + tc::kRows - 1) / tc::kRows, ndir,
@@ -750,30 +796,18 @@ CSR_API int csr_lstm_bwd_occupancy(int H, int* out) {
                           tc::kRows * tc::kUnits, out[0], out + 1);
 }
 
-// The persistent backward's plan as this card takes it at hidden size H >
-// 512, ndir directions and B rows a direction: out = (blocks a direction,
-// tiles a block, resident k-steps a warp, shared memory bytes a block,
-// blocks the card holds at once, workspace bytes, k-steps a slot of a
-// staged ring: 0, A is read from L2). cudaErrorInvalidValue where the card
-// has too few SMs for the built tile counts (out filled all the same).
-CSR_API int csr_lstm_bwd_persist_plan(int H, int ndir, int B,
+// The persistent backward's plan as the card takes it at hidden size H >
+// 512, ndir directions, B rows a direction and `sms` SMs
+// (rnn_mma.cuh's report_plan; out: 8 int64; A is read from L2, so a
+// slot's k-steps are 0). cudaErrorInvalidValue where sms is below ndir
+// or above the card's.
+CSR_API int csr_lstm_bwd_persist_plan(int H, int ndir, int B, int sms,
                                       long long* out) {
   namespace tc = csr_rnn_mma;
-  int sms = 0;
-  cudaError_t e = tc::device_sms(&sms);
+  const cudaError_t e = tc::check_sms(sms, ndir);
   if (e != cudaSuccess) return static_cast<int>(e);
   const tc::PersistPlan p = bwd_persist_plan(H, ndir, B, sms);
-  out[0] = p.blocks;
-  out[1] = p.tiles;
-  out[2] = p.resident;
-  out[3] = p.smem;
-  out[4] = 0;
-  out[5] = p.work;
-  out[6] = p.chunk;
   return with_persist_kernel(p, [&](auto kernel) {
-    int n = 0;
-    e = tc::coresident_blocks(kernel, 32 * kBwdWarps, p.smem, &n);
-    out[4] = n;
-    return static_cast<int>(e);
+    return tc::report_plan(p, kernel, 32 * kBwdWarps, out);
   });
 }

@@ -523,8 +523,11 @@ int launch_tc(const void* xs, const void* wt, const float* lo,
 // fragment order (ops/rnn_cuda.py's persist_lstm_fwd_weights), is copied
 // into shared memory once a launch (the first kr k-steps of each warp's
 // range where the whole slice does not fit beside the ring: the rest go
-// through the ring at each step). A step, for each pass of 32 rows (B > 32
-// takes more passes, B <= 16 one m16 tile):
+// through the ring at each step). On a card of fewer than ndir H / 32 SMs
+// a block owns more than kGroupTiles tiles and runs them as groups of NT
+// (rnn_mma.cuh), steps 1-2 once a group in turn, each group staging A
+// anew. A step, for each pass of 32 rows (B > 32 takes more passes, B <=
+// 16 one m16 tile):
 //   1. the product: warp w of four multiplies the pass's rows of h (bf16,
 //      where _dot2 rounds it) by the block's columns over its quarter of
 //      the K k-steps, each B fragment feeding both m16 tiles; at nt = 4 (16
@@ -532,8 +535,9 @@ int launch_tc(const void* xs, const void* wt, const float* lo,
 //      half staging A anew, so the accumulators fit the registers;
 //   2. the quarters meet in shared memory; a slot (m-tile, tile, lane)
 //      adds them in warp order (no atomics: bitwise repeatable) and runs
-//      the gate math of its two rows and two units. With one pass and one
-//      slot a thread (B <= 32, nt <= 2) the slot keeps its fp32 h and c in
+//      the gate math of its two rows and two units. With one pass, one
+//      group and one slot a thread (B <= 32, nt <= 2) the slot keeps its
+//      fp32 h and c in
 //      registers and its xs, lo and hi for the next step are loaded during
 //      the barrier; otherwise h_prev is read back from ys[t - 1] (or h0 /
 //      0), c from the workspace's carried [ndir·B][H] (written by the same
@@ -578,8 +582,10 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
                             __nv_bfloat16* __restrict__ gates,
                             float* __restrict__ carry, unsigned int* counter,
                             uint4* abuf, float* held, int T, int B, int H,
-                            int NB, int kr, int ck, int emit_t) {
+                            int NB, int tiles, int groups, int kr, int ck,
+                            int emit_t) {
   namespace tc = csr_rnn_mma;
+  // NT: tiles a group (nw8); the block's `tiles` run as `groups` of them
   constexpr int NC = 4 * NT, kW = kFwdWarps;
   constexpr int kHalves = (NC + kFwdCols - 1) / kFwdCols;
   constexpr int NCH = NC / kHalves;   // columns a product
@@ -594,36 +600,44 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
   const int d = blockIdx.x / NB, cb = blockIdx.x % NB;
   const int R = ndir * B, G = 4 * H, K = H / 16, nt_all = H / 8;
   const int passes = (B + tc::kPassRows - 1) / tc::kPassRows;
-  const bool two = B > 16, hold = kCanHold && passes == 1;
+  const bool two = B > 16;
+  const bool hold = kCanHold && passes == 1 && groups == 1;
   const int tid = threadIdx.x, l = tid & 31, w = tid >> 5;
-  const uint2* slice = wf + int64_t(d * NB + cb) * K * NC * 32;
+  const uint2* slice = wf + int64_t(d * NB + cb) * groups * K * NC * 32;
   // A of direction d, pass p, m-tile m in buffer buf: [2][ndir][passes][2]
   // [K][32] uint4
   auto a_of = [&](int buf, int p, int m) {
     return abuf + (int64_t((buf * ndir + d) * passes + p) * 2 + m) * K * 32;
   };
-  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC);
+  tc::load_resident(tc::smem_addr(res), slice, kW, K, kr, NC, groups);
   __syncthreads();
   const tc::WarpSteps ws = tc::warp_steps(w, kW, K, kr);
   const int kq = (K + kW - 1) / kW;
   const int sz = tc::stage_bytes(NCH, kr < kq);
-  unsigned char* ring = res + kW * kr * NC * 256 + w * tc::kStages * ck * sz;
+  unsigned char* ring =
+      res + groups * kW * kr * NC * 256 + w * tc::kStages * ck * sz;
   const int rot = ck > 0 ? (ws.kw + ck - 1) / ck * cb / NB : 0;
-  const uint2* sb = reinterpret_cast<const uint2*>(res) + w * kr * NC * 32 + l;
-  const uint2* gb = slice + int64_t(ws.kb) * NC * 32;
+  // group 0's resident fragments of this lane (a shared-space address),
+  // and its streamed ones (group g's kW kr NC 256 bytes and K NC 32 uint2
+  // further on)
+  const uint32_t sb0 = tc::smem_addr(res) + (w * kr * NC * 32 + l) * 8;
+  const uint2* gb0 = slice + int64_t(ws.kb) * NC * 32;
   const int nslots = (two ? 2 : 1) * NT * 32;
   unsigned int barriers = 0;
 
-  // slot s: m-tile m, its tile's lane ls, unit j (the pair j, j + 1);
-  // `own`: a slot of this launch's rows and of a unit below H
+  // slot s of group g of a block of nt tiles: m-tile m, its tile's lane
+  // ls, its tile ti in the group, unit j (the pair j, j + 1); `own`: a
+  // slot of this launch's rows, of one of the block's tiles and of a unit
+  // below H
   struct Slot {
-    int m, ls, j;
+    int m, ls, ti, j;
     bool own;
   };
-  auto slot_of = [&](int q) {
-    const int s = tid + q * 32 * kW, tg = cb * NT + (s / 32) % NT;
-    return Slot{s / (NT * 32), s & 31, 8 * tg + 2 * (s & 3),
-                s < nslots && tg < nt_all};
+  auto slot_of = [&](int q, int g, int nt) {
+    const int s = tid + q * 32 * kW, ti = (s / 32) % NT, ib = g * NT + ti;
+    const int tg = cb * nt + ib;
+    return Slot{s / (NT * 32), s & 31, ti, 8 * tg + 2 * (s & 3),
+                s < nslots && ib < nt && tg < nt_all};
   };
   auto row_of = [&](int p, const Slot& o, int i) {
     return p * tc::kPassRows + 16 * o.m + (o.ls >> 2) + 8 * i;
@@ -649,159 +663,184 @@ __global__ void __launch_bounds__(32 * kFwdWarps, 1)
   float2 hreg[kCanHold ? kSlots : 1][2], creg[kCanHold ? kSlots : 1][2];
 
   // h_0 and c_0: 0, or the stream form's h0 = h||c (and bf16(h) into A[0])
+  for (int gr = 0; gr < groups; ++gr)
 #pragma unroll
-  for (int q = 0; q < kSlots; ++q) {
-    const Slot o = slot_of(q);
-    if (!o.own) continue;
-    for (int p = 0; p < passes; ++p)
+    for (int q = 0; q < kSlots; ++q) {
+      const Slot o = slot_of(q, gr, tiles);
+      if (!o.own) continue;
+      for (int p = 0; p < passes; ++p)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int b = row_of(p, o, i);
-        const int64_t rr = int64_t(d) * B + b;
-        float2 v = make_float2(0.0f, 0.0f), c = v;
-        if (kStream) {
-          if (b < B) {
-            v = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + o.j);
-            c = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + H + o.j);
+        for (int i = 0; i < 2; ++i) {
+          const int b = row_of(p, o, i);
+          const int64_t rr = int64_t(d) * B + b;
+          float2 v = make_float2(0.0f, 0.0f), c = v;
+          if (kStream) {
+            if (b < B) {
+              v = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + o.j);
+              c = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + H +
+                                                   o.j);
+            }
+            *tc::a_word(a_of(0, p, o.m), o.j, i, o.ls) = tc::bf16x2(v.x, v.y);
+            if (b < B && emit_t == 0) {
+              *reinterpret_cast<float2*>(carry + rr * 2 * H + o.j) = v;
+              *reinterpret_cast<float2*>(carry + rr * 2 * H + H + o.j) = c;
+            }
           }
-          *tc::a_word(a_of(0, p, o.m), o.j, i, o.ls) = tc::bf16x2(v.x, v.y);
-          if (b < B && emit_t == 0) {
-            *reinterpret_cast<float2*>(carry + rr * 2 * H + o.j) = v;
-            *reinterpret_cast<float2*>(carry + rr * 2 * H + H + o.j) = c;
+          if (kCanHold) {
+            hreg[kCanHold ? q : 0][i] = v;
+            creg[kCanHold ? q : 0][i] = c;
           }
         }
-        if (kCanHold) {
-          hreg[kCanHold ? q : 0][i] = v;
-          creg[kCanHold ? q : 0][i] = c;
-        }
-      }
-    if (hold) next[kCanHold ? q : 0] = load_in(0, 0, o);
-  }
+      if (hold) next[kCanHold ? q : 0] = load_in(0, 0, o);
+    }
   if (kStream) {
     tc::grid_arrive(counter);
     tc::grid_wait(counter, ++barriers * gridDim.x);
   }
-  for (int t = 0; t < T; ++t) {
+  // group gr's share of step t, pass p: its product, then its slots'
+  // gate math (a copy for one group a block, one for more: OneGroup,
+  // Groups)
+  auto group_step = [&](auto tag, int t, int p, int gr) {
+    const bool keep = decltype(tag)::one && hold;
+    const int nt = decltype(tag)::one ? NT : tiles;   // NT: nt of one group
     const int cur = t & 1;
     const bool product = kStream || t > 0;
     const float tf = static_cast<float>(t);
-    for (int p = 0; p < passes; ++p) {
-      if (product) {
+    if (product) {
+      const uint32_t sb = sb0 + gr * kW * kr * NC * 256;
+      const uint2* gb = gb0 + int64_t(gr) * K * NC * 32;
 #pragma unroll
-        for (int hf = 0; hf < kHalves; ++hf) {
-          float acc[2][NCH][4] = {};
-          tc::staged_product<NCH>(
-              acc, a_of(cur, p, 0) + ws.kb * 32, a_of(cur, p, 1) + ws.kb * 32,
-              two, ws.kw, ws.kres, rot, sb + hf * NCH * 32, NC,
-              gb + hf * NCH * 32, ring, ck, sz, l);
-          tc::store_partials<NCH>(part, acc, two, w, l, NC, hf * NCH);
-        }
+      for (int hf = 0; hf < kHalves; ++hf) {
+        float acc[2][NCH][4] = {};
+        tc::staged_product<NCH>(
+            acc, a_of(cur, p, 0) + ws.kb * 32, a_of(cur, p, 1) + ws.kb * 32,
+            two, ws.kw, ws.kres, rot, sb + hf * NCH * 256, NC,
+            gb + hf * NCH * 32, ring, ck, sz, l);
+        tc::store_partials<NCH>(part, acc, two, w, l, NC, hf * NCH);
       }
-      __syncthreads();
+    }
+    __syncthreads();
 #pragma unroll
-      for (int q = 0; q < kSlots; ++q) {
-        const Slot o = slot_of(q);
-        if (!o.own) continue;
-        const int tile = (o.j / 8) % NT;
-        float4 pre[4];
+    for (int q = 0; q < kSlots; ++q) {
+      const Slot o = slot_of(q, gr, nt);
+      if (!o.own) continue;
+      float4 pre[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        pre[g] = product ? tc::sum_partials(part, kW, NC, o.m, 4 * o.ti + g,
+                                            o.ls)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const LstmIn in = keep ? next[kCanHold ? q : 0] : load_in(t, p, o);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int b = row_of(p, o, i);
+        const bool valid = b < B;
+        const int64_t rr = int64_t(d) * B + b;
+        const int64_t row = int64_t(t) * R + rr;
+        float2 hp = make_float2(0.0f, 0.0f), cp = hp, x[4];
+        if (keep) {
+          hp = hreg[kCanHold ? q : 0][i];
+          cp = creg[kCanHold ? q : 0][i];
+        } else if (valid) {
+          if (t > 0) {
+            hp = *reinterpret_cast<const float2*>(ys + (row - R) * H + o.j);
+            cp = *reinterpret_cast<const float2*>(held + rr * H + o.j);
+          } else if (kStream) {
+            hp = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + o.j);
+            cp = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + H + o.j);
+          }
+        }
 #pragma unroll
         for (int g = 0; g < 4; ++g)
-          pre[g] = product ? tc::sum_partials(part, kW, NC, o.m,
-                                              4 * tile + g, o.ls)
-                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        const LstmIn in = hold ? next[kCanHold ? q : 0] : load_in(t, p, o);
+          x[g] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&in.x[i][g]));
+        const bool live = in.lo[i] <= tf && tf < in.hi[i];
+        float h[2], c[2], gv[2][4];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int b = row_of(p, o, i);
-          const bool valid = b < B;
-          const int64_t rr = int64_t(d) * B + b;
-          const int64_t row = int64_t(t) * R + rr;
-          float2 hp = make_float2(0.0f, 0.0f), cp = hp, x[4];
-          if (hold) {
-            hp = hreg[kCanHold ? q : 0][i];
-            cp = creg[kCanHold ? q : 0][i];
-          } else if (valid) {
-            if (t > 0) {
-              hp = *reinterpret_cast<const float2*>(ys + (row - R) * H + o.j);
-              cp = *reinterpret_cast<const float2*>(held + rr * H + o.j);
-            } else if (kStream) {
-              hp = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + o.j);
-              cp = *reinterpret_cast<const float2*>(h0 + rr * 2 * H + H +
-                                                    o.j);
-            }
-          }
+        for (int e = 0; e < 2; ++e) {
+          auto pick = [&](const float4& v) {
+            return i ? (e ? v.w : v.z) : (e ? v.y : v.x);
+          };
+          const float ig = sigmoidf((e ? x[0].y : x[0].x) + pick(pre[0]));
+          const float fg =
+              sigmoidf(((e ? x[1].y : x[1].x) + pick(pre[1])) + 1.0f);
+          const float og = sigmoidf((e ? x[2].y : x[2].x) + pick(pre[2]));
+          const float ug = tanhf((e ? x[3].y : x[3].x) + pick(pre[3]));
+          const float cv = e ? cp.y : cp.x, hv = e ? hp.y : hp.x;
+          const float cn = fg * cv + ig * ug;
+          const float hn = og * tanhf(cn);
+          h[e] = live ? hn : hv;
+          c[e] = live ? cn : cv;
+          gv[e][0] = ig;
+          gv[e][1] = fg;
+          gv[e][2] = og;
+          gv[e][3] = ug;
+        }
+        if (kCanHold && decltype(tag)::one) {
+          hreg[kCanHold ? q : 0][i] = make_float2(h[0], h[1]);
+          creg[kCanHold ? q : 0][i] = make_float2(c[0], c[1]);
+        }
+        if (t + 1 < T)
+          *tc::a_word(a_of(cur ^ 1, p, o.m), o.j, i, o.ls) =
+              tc::bf16x2(h[0], h[1]);
+        if (!valid) continue;
+        if (!keep && t + 1 < T)
+          *reinterpret_cast<float2*>(held + rr * H + o.j) =
+              make_float2(c[0], c[1]);
+        *reinterpret_cast<float2*>(ys + row * H + o.j) =
+            make_float2(h[0], h[1]);
+        if (kResiduals) {
+          *reinterpret_cast<float2*>(cs + row * H + o.j) =
+              make_float2(c[0], c[1]);
 #pragma unroll
           for (int g = 0; g < 4; ++g)
-            x[g] = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(&in.x[i][g]));
-          const bool live = in.lo[i] <= tf && tf < in.hi[i];
-          float h[2], c[2], gv[2][4];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            auto pick = [&](const float4& v) {
-              return i ? (e ? v.w : v.z) : (e ? v.y : v.x);
-            };
-            const float ig = sigmoidf((e ? x[0].y : x[0].x) + pick(pre[0]));
-            const float fg =
-                sigmoidf(((e ? x[1].y : x[1].x) + pick(pre[1])) + 1.0f);
-            const float og = sigmoidf((e ? x[2].y : x[2].x) + pick(pre[2]));
-            const float ug = tanhf((e ? x[3].y : x[3].x) + pick(pre[3]));
-            const float cv = e ? cp.y : cp.x, hv = e ? hp.y : hp.x;
-            const float cn = fg * cv + ig * ug;
-            const float hn = og * tanhf(cn);
-            h[e] = live ? hn : hv;
-            c[e] = live ? cn : cv;
-            gv[e][0] = ig;
-            gv[e][1] = fg;
-            gv[e][2] = og;
-            gv[e][3] = ug;
-          }
-          if (kCanHold) {
-            hreg[kCanHold ? q : 0][i] = make_float2(h[0], h[1]);
-            creg[kCanHold ? q : 0][i] = make_float2(c[0], c[1]);
-          }
-          if (t + 1 < T)
-            *tc::a_word(a_of(cur ^ 1, p, o.m), o.j, i, o.ls) =
-                tc::bf16x2(h[0], h[1]);
-          if (!valid) continue;
-          if (!hold && t + 1 < T)
-            *reinterpret_cast<float2*>(held + rr * H + o.j) =
-                make_float2(c[0], c[1]);
-          *reinterpret_cast<float2*>(ys + row * H + o.j) =
+            *reinterpret_cast<uint32_t*>(gates + row * G + g * H + o.j) =
+                tc::bf16x2(gv[0][g], gv[1][g]);
+        }
+        if (kStream && t == emit_t - 1) {
+          *reinterpret_cast<float2*>(carry + rr * 2 * H + o.j) =
               make_float2(h[0], h[1]);
-          if (kResiduals) {
-            *reinterpret_cast<float2*>(cs + row * H + o.j) =
-                make_float2(c[0], c[1]);
-#pragma unroll
-            for (int g = 0; g < 4; ++g)
-              *reinterpret_cast<uint32_t*>(gates + row * G + g * H + o.j) =
-                  tc::bf16x2(gv[0][g], gv[1][g]);
-          }
-          if (kStream && t == emit_t - 1) {
-            *reinterpret_cast<float2*>(carry + rr * 2 * H + o.j) =
-                make_float2(h[0], h[1]);
-            *reinterpret_cast<float2*>(carry + rr * 2 * H + H + o.j) =
-                make_float2(c[0], c[1]);
-          }
+          *reinterpret_cast<float2*>(carry + rr * 2 * H + H + o.j) =
+              make_float2(c[0], c[1]);
         }
       }
-      __syncthreads();
     }
-    if (t + 1 < T) {
-      tc::grid_arrive(counter);
-      // the next step's inputs, in flight over the wait and the product
-      if (hold)
+    __syncthreads();
+  };
+  // the T steps, in a loop of their own for each copy, so that what one
+  // copy keeps in registers across its steps does not crowd the other
+  auto run = [&](auto tag) {
+    for (int t = 0; t < T; ++t) {
+      for (int p = 0; p < passes; ++p) {
+        if constexpr (decltype(tag)::one)
+          group_step(tag, t, p, 0);
+        else
+          for (int gr = 0; gr < groups; ++gr) group_step(tag, t, p, gr);
+      }
+      if (t + 1 < T) {
+        tc::grid_arrive(counter);
+        // the next step's inputs, in flight over the wait and the product
+        if (decltype(tag)::one && hold)
 #pragma unroll
-        for (int q = 0; q < kSlots; ++q) {
-          const Slot o = slot_of(q);
-          if (o.own) next[kCanHold ? q : 0] = load_in(t + 1, 0, o);
-        }
-      tc::grid_wait(counter, ++barriers * gridDim.x);
+          for (int q = 0; q < kSlots; ++q) {
+            const Slot o = slot_of(q, 0, NT);
+            if (o.own) next[kCanHold ? q : 0] = load_in(t + 1, 0, o);
+          }
+        tc::grid_wait(counter, ++barriers * gridDim.x);
+      }
     }
-  }
+  };
+  // more than one group means groups of three or four tiles, so a kernel
+  // of one or two tiles a group has the one copy only
+  if constexpr (NT <= 2)
+    run(tc::OneGroup{});
+  else if (groups == 1)
+    run(tc::OneGroup{});
+  else
+    run(tc::Groups{});
 }
 
-// the persistent forward's plan at this card's SM count (ops/rnn_cuda.py's
+// the persistent forward's plan on a card of `sms` SMs (ops/rnn_cuda.py's
 // persist_plan("lstm_fwd", ...))
 csr_rnn_mma::PersistPlan fwd_persist_plan(int H, int ndir, int B,
                                           int sms) {
@@ -809,11 +848,11 @@ csr_rnn_mma::PersistPlan fwd_persist_plan(int H, int ndir, int B,
                                    true, kFwdCols);
 }
 
-// the persistent kernel of nt tiles a block; none past kPersistMaxTiles
+// the persistent kernel of groups of `width` tiles
 template <bool kResiduals, bool kStream, typename Fn>
-int with_persist_kernel(int tiles, Fn&& fn) {
-  static_assert(csr_rnn_mma::kPersistMaxTiles == 4, "a kernel a tile count");
-  switch (tiles) {
+int with_persist_kernel(int width, Fn&& fn) {
+  static_assert(csr_rnn_mma::kGroupTiles == 4, "a kernel a group width");
+  switch (width) {
     case 1:
       return fn(lstm_fwd_persist_kernel<1, kResiduals, kStream>);
     case 2:
@@ -828,35 +867,35 @@ int with_persist_kernel(int tiles, Fn&& fn) {
 }
 
 // the bf16 forms: the resident cluster kernel up to H = 512, the
-// persistent form above (C: its blocks a direction, work: its workspace of
-// the plan's bytes, rnn_mma.cuh's PersistPlan)
+// persistent form above (C: its blocks a direction, sms: the SM count its
+// plan was made for, work: its workspace of the plan's bytes,
+// rnn_mma.cuh's PersistPlan)
 template <bool kResiduals, bool kStream>
 int launch_bf16(const void* xs, const void* wt, const float* lo,
                 const float* hi, const float* h0, float* ys, float* cs,
                 void* gates, float* carry, void* work, int T, int B, int H,
-                int ndir, int emit_t, int C, cudaStream_t stream) {
+                int ndir, int emit_t, int C, int sms, cudaStream_t stream) {
   namespace tc = csr_rnn_mma;
   if (H <= tc::kResidentMax)
     return launch_tc<kResiduals, kStream>(xs, wt, lo, hi, h0, ys, cs, gates,
                                           carry, T, B, H, ndir, emit_t, C,
                                           stream);
-  int sms = 0;
-  const cudaError_t e = tc::device_sms(&sms);
+  const cudaError_t e = tc::check_sms(sms, ndir);
   if (e != cudaSuccess) return static_cast<int>(e);
   const tc::PersistPlan p = fwd_persist_plan(H, ndir, B, sms);
-  if (!p.ok || C != p.blocks || work == nullptr || p.resident < 1 ||
-      p.chunk < 1)
+  if (C != p.blocks || work == nullptr || p.chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   char* base = static_cast<char*>(work);
   unsigned int* counter = reinterpret_cast<unsigned int*>(base);
   uint4* abuf = reinterpret_cast<uint4*>(base + 256);
   float* held = reinterpret_cast<float*>(base + p.held);
-  return with_persist_kernel<kResiduals, kStream>(p.tiles, [&](auto kernel) {
+  return with_persist_kernel<kResiduals, kStream>(p.width, [&](auto kernel) {
     return tc::launch_cooperative(
         kernel, p.blocks * ndir, 32 * kFwdWarps, p.smem, stream, counter,
         static_cast<const __nv_bfloat16*>(xs), static_cast<const uint2*>(wt),
         lo, hi, h0, ys, cs, static_cast<__nv_bfloat16*>(gates), carry,
-        counter, abuf, held, T, B, H, p.blocks, p.resident, p.chunk, emit_t);
+        counter, abuf, held, T, B, H, p.blocks, p.tiles, p.groups,
+        p.resident, p.chunk, emit_t);
   });
 }
 
@@ -865,20 +904,22 @@ int launch_bf16(const void* xs, const void* wt, const float* lo,
 // xs [T, ndir*B, 4H] fp32 and wq [ndir, H/4, 4H, 4] fp32 (the FMA kernel),
 // or, when bf16 != 0, xs bf16 and wq = wt [ndir, C, 4, 32, H] bf16 (the
 // cluster kernel: C = H / 32 blocks a cluster, ops/rnn_cuda.py's
-// lstm_plan; past H = 512 the persistent form's fragments [ndir, C, H/16,
-// nt, 4, 32, 4], C its blocks a direction,
-// rnn_cuda.persist_lstm_fwd_weights; unread under fp32); lo/hi [ndir*B]
-// fp32; ys [T, ndir*B, H] fp32; work the persistent form's workspace
-// (csr_lstm_fwd_persist_plan's bytes; unread elsewhere). Requires 32 <= H
-// <= 2048, H % 32 == 0, T >= 1, B >= 1, ndir 1 or 2 (the wrapper checks).
+// lstm_plan; past H = 512 the persistent form's fragments [ndir, C,
+// ng·H/16, nw8, 4, 32, 4], C its blocks a direction, on a card of `sms`
+// SMs, rnn_cuda.persist_lstm_fwd_weights; unread under fp32); lo/hi
+// [ndir*B] fp32; ys [T, ndir*B, H] fp32; work the persistent form's
+// workspace (csr_lstm_fwd_persist_plan's bytes; unread elsewhere); sms the
+// SM count the persistent plan was made for (ndir <= sms <= the card's;
+// unread elsewhere). Requires 32 <= H <= 2048, H % 32 == 0, T >= 1, B >=
+// 1, ndir 1 or 2 (the wrapper checks).
 CSR_API int csr_lstm_fwd(const void* xs, const void* wq, const float* lo,
                          const float* hi, float* ys, void* work, int T, int B,
-                         int H, int ndir, int C, int bf16,
+                         int H, int ndir, int C, int sms, int bf16,
                          cudaStream_t stream) {
   if (bf16)
     return launch_bf16<false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
                                      nullptr, nullptr, work, T, B, H, ndir, 0,
-                                     C, stream);
+                                     C, sms, stream);
   return launch<float, false, false>(xs, wq, lo, hi, nullptr, ys, nullptr,
                                      nullptr, nullptr, T, B, H, ndir, 0,
                                      stream);
@@ -890,11 +931,11 @@ CSR_API int csr_lstm_fwd(const void* xs, const void* wq, const float* lo,
 CSR_API int csr_lstm_fwd_train(const void* xs, const void* wq,
                                const float* lo, const float* hi, float* ys,
                                float* cs, void* gates, void* work, int T,
-                               int B, int H, int ndir, int C, int bf16,
-                               cudaStream_t stream) {
+                               int B, int H, int ndir, int C, int sms,
+                               int bf16, cudaStream_t stream) {
   if (bf16)
     return launch_bf16<true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
-                                    nullptr, work, T, B, H, ndir, 0, C,
+                                    nullptr, work, T, B, H, ndir, 0, C, sms,
                                     stream);
   return launch<float, true, false>(xs, wq, lo, hi, nullptr, ys, cs, gates,
                                     nullptr, T, B, H, ndir, 0, stream);
@@ -913,36 +954,22 @@ CSR_API int csr_lstm_fwd_occupancy(int H, int* out) {
                           tc::kRows * tc::kUnits, out[0], out + 1);
 }
 
-// The persistent forward's plan as this card takes it at hidden size H >
-// 512, ndir directions and B rows a direction: out = (blocks a direction,
-// tiles a block, resident k-steps a warp, shared memory bytes a block,
-// blocks the card holds at once: cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// times the SMs, workspace bytes, k-steps a slot of the staged ring).
-// cudaErrorInvalidValue where the card has too few SMs for the built tile
-// counts (out filled all the same).
-CSR_API int csr_lstm_fwd_persist_plan(int H, int ndir, int B,
+// The persistent forward's plan as the card takes it at hidden size H >
+// 512, ndir directions, B rows a direction and `sms` SMs
+// (rnn_mma.cuh's report_plan; out: 8 int64). cudaErrorInvalidValue where
+// sms is below ndir or above the card's.
+CSR_API int csr_lstm_fwd_persist_plan(int H, int ndir, int B, int sms,
                                       long long* out) {
   namespace tc = csr_rnn_mma;
-  int sms = 0;
-  cudaError_t e = tc::device_sms(&sms);
+  const cudaError_t e = tc::check_sms(sms, ndir);
   if (e != cudaSuccess) return static_cast<int>(e);
   const tc::PersistPlan p = fwd_persist_plan(H, ndir, B, sms);
-  out[0] = p.blocks;
-  out[1] = p.tiles;
-  out[2] = p.resident;
-  out[3] = p.smem;
-  out[4] = 0;
-  out[5] = p.work;
-  out[6] = p.chunk;
-  return with_persist_kernel<true, false>(p.tiles, [&](auto kernel) {
-    int n = 0;
-    e = tc::coresident_blocks(kernel, 32 * kFwdWarps, p.smem, &n);
-    out[4] = n;
-    return static_cast<int>(e);
+  return with_persist_kernel<true, false>(p.width, [&](auto kernel) {
+    return tc::report_plan(p, kernel, 32 * kFwdWarps, out);
   });
 }
 
-// As csr_lstm_fwd (wq, C and work likewise), with h||c seeded from h0
+// As csr_lstm_fwd (wq, C, sms and work likewise), with h||c seeded from h0
 // [ndir*B, 2H] fp32 and carry [ndir*B, 2H] fp32 out: h||c after step
 // emit_t - 1, h0 when emit_t == 0. Requires 0 <= emit_t <= T (the wrapper
 // checks).
@@ -950,12 +977,12 @@ CSR_API int csr_lstm_fwd_stream(const void* xs, const void* wq,
                                 const float* lo, const float* hi,
                                 const float* h0, float* ys, float* carry,
                                 void* work, int T, int B, int H, int ndir,
-                                int emit_t, int C, int bf16,
+                                int emit_t, int C, int sms, int bf16,
                                 cudaStream_t stream) {
   if (bf16)
     return launch_bf16<false, true>(xs, wq, lo, hi, h0, ys, nullptr, nullptr,
                                     carry, work, T, B, H, ndir, emit_t, C,
-                                    stream);
+                                    sms, stream);
   return launch<float, false, true>(xs, wq, lo, hi, h0, ys, nullptr, nullptr,
                                     carry, T, B, H, ndir, emit_t, stream);
 }

@@ -203,27 +203,38 @@ struct ClusterLaunch {
 // Geometry (ops/rnn_cuda.py's persist_plan computes the same): the
 // product's N is H units in n8 tiles; a block owns nt = ceil((H / 8) /
 // (sms / ndir)) tiles (the last block of a direction may own fewer), so a
-// direction has NB = ceil((H / 8) / nt) blocks and the grid NB ndir. Each
+// direction has NB = ceil((H / 8) / nt) blocks and the grid NB ndir, on a
+// card of any SM count sms >= ndir. The kernels are built for groups of
+// at most kGroupTiles tiles: a block runs its nt tiles as ng = ceil(nt /
+// kGroupTiles) groups of nw8 = ceil(nt / ng) tiles (the last group may
+// hold fewer of the block's tiles: its other columns are zero and their
+// slots own nothing), one group after another inside each step, each
+// group's product, partial sums and gate math in turn (one grid barrier a
+// step still). On an H100 SXM (132 SMs) ng = 1 at every H; fewer SMs (an
+// H100 PCIe's 114, a MIG slice) give ng > 1 past ndir H / 32 SMs. Each
 // tile brings `cols` n8 columns of B (the forwards: their G gates; the
-// backwards: one, the units j of dh_prev), nc = cols nt a block. The
+// backwards: one, the units j of dh_prev), nc = cols nw8 a group. The
 // reduction of K k-steps is split over the block's warps, warp w taking
 // [K w / nw, K (w + 1) / nw). B is laid out by the wrapper in fragment
-// order, [ndir][NB][K][nc][32 lanes] uint2; a warp keeps up to kr of its
-// k-steps in shared memory ([nw][kr][nc][32] uint2, copied in once a
-// launch) and reads the rest from global memory at each step (kr is as
-// many as fit beside the partial sums and the staged A). A, the exchanged
+// order, [ndir][NB][ng][K][nc][32 lanes] uint2 (each group's slice
+// contiguous; with one group the [ndir][NB][K][nc][32] of a block of nt
+// tiles); a warp keeps up to kr of its k-steps of every group in shared
+// memory ([ng][nw][kr][nc][32] uint2, copied in once a launch) and reads
+// the rest from global memory at each step (kr is as many as fit beside
+// the partial sums and the staged A, 0 where none do). A, the exchanged
 // h (forward) or dg (backward) in bf16, sits in global memory in fragment
 // order too, [pass][2 m-tiles][K][32 lanes] uint4 a direction (a_word), so
 // a lane's A fragment is one 16-byte word (8 bytes where the m-tile's rows
 // 8-15 are past B). The GRU's forwards and the LSTM's backward read it
 // with ld.global.cg through a register ring (persist_product); the LSTM's
-// forwards and the GRU's backward stage it (staged_product):
+// forwards and the GRU's backward stage it (staged_product), once a group:
 // each warp copies its k-steps of A, and of B past its kr, into a ring of
 // kStages slots of `chunk` k-steps in shared memory by cp.async.cg (L2
 // only, never a stale L1 line), kStages - 1 slots ahead of its products,
 // the whole of its A where it fits. The warps' partial sums meet in shared
-// memory, [nw][2][nc][32] float4, and are added in warp order (no atomics:
-// bitwise repeatable).
+// memory, [nw][2][nc][32] float4 (one group's, reused by the next behind a
+// block barrier), and are added in warp order (no atomics: bitwise
+// repeatable).
 //
 // The workspace, in global memory: the grid barrier's counter (256
 // bytes), then the two A buffers ([2 parities][ndir][passes][2 m-tiles]
@@ -234,21 +245,34 @@ struct ClusterLaunch {
 // (on the card as csr_*_persist_plan reports them), and the kernels take
 // their offsets from the same plan.
 //
-// The kernels are built for nt <= kPersistMaxTiles (the backwards' slots,
-// 2 m-tiles x nt x 32 lanes, are one a thread of their 256), so a card
-// with fewer than ndir·H/32 SMs has no kernel for this H: `ok` is false
-// and the launch refuses (ops/rnn_cuda.py's persist_plan raises).
+// A slot's state goes through registers only with one pass of one group
+// (ng = 1), otherwise through the workspace. The C entries take the SM
+// count their caller planned for and refuse one above the card's or
+// below ndir (check_sms).
 struct PersistPlan {
-  int tiles, blocks, cols, warps, ksteps, resident, smem, passes;
+  int tiles, groups, width;   // nt, ng, nw8: tiles a block, groups, a group's
+  int blocks, cols, warps, ksteps, resident, smem, passes;
   int chunk;            // k-steps a slot of the staged ring (0: A from L2)
   int64_t held, work;   // the carried state's offset; the workspace bytes
-  bool ok;              // tiles <= kPersistMaxTiles
 };
 
-constexpr int kPassRows = 32;        // rows a pass: two m16 tiles
-constexpr int kPersistMaxTiles = 4;  // tiles a block the kernels are built for
-constexpr int kStages = 4;           // slots of a warp's staged ring
-constexpr int kStreamChunk = 2;      // k-steps a slot where W is streamed
+// The two copies of a persistent kernel's steps (generic lambdas over a
+// tag, so each copy is its own loop, inlined where it is called once):
+// OneGroup where a block runs one group, as on a card of ndir H / 32 SMs
+// or more (the group index 0 at compile time, a slot's state in
+// registers where the form allows: the code of a kernel built for nt
+// tiles), Groups for more (any group, the state through the workspace)
+struct OneGroup {
+  static constexpr bool one = true;
+};
+struct Groups {
+  static constexpr bool one = false;
+};
+
+constexpr int kPassRows = 32;   // rows a pass: two m16 tiles
+constexpr int kGroupTiles = 4;  // tiles a group at most: the built widths
+constexpr int kStages = 4;      // slots of a warp's staged ring
+constexpr int kStreamChunk = 2; // k-steps a slot where W is streamed
 
 __host__ __device__ constexpr int persist_part(int nc, int warps) {
   return warps * 2 * nc * 512;
@@ -261,31 +285,34 @@ __host__ __device__ constexpr int stage_bytes(int ncw, bool streamed) {
 }
 
 // The plan of a kernel of `cols` B columns a tile, K = ksteps, `warps`
-// warps and `carried` fp32 [ndir·B][H] arrays; `staged`: A staged in
-// shared memory (the products of at most `ncmax` columns: a wider block
-// runs them in halves, and its ring holds a half's streamed B). Staged,
-// the warps keep all their k-steps of W where it fits beside a ring of
-// chunks as large as fit up to ceil(kq / kStages) (then the ring holds
-// the whole of a warp's A); where W does not fit, a ring of
-// kStreamChunk-k-step slots of A and the streamed B, and as many resident
-// k-steps as fit beside it (slots of 2 k-steps against 1: 0.91x the GRU
-// backward's time at H = 2048, 0.96-0.98x the LSTM forwards', on an H100,
-// PERF.md).
+// warps and `carried` fp32 [ndir·B][H] arrays on a card of `sms` >= ndir
+// SMs; `staged`: A staged in shared memory (the products of at most
+// `ncmax` columns: a wider group runs them in halves, and its ring holds
+// a half's streamed B). The resident W counts every group's columns (ng nc
+// 256 bytes a k-step). Staged, the warps keep all their k-steps of W
+// where it fits beside a ring of chunks as large as fit up to ceil(kq /
+// kStages) (then the ring holds the whole of a warp's A); where W does
+// not fit, a ring of kStreamChunk-k-step slots of A and the streamed B,
+// and as many resident k-steps as fit beside it (slots of 2 k-steps
+// against 1: 0.91x the GRU backward's time at H = 2048, 0.96-0.98x the
+// LSTM forwards', on an H100, PERF.md).
 inline PersistPlan persist_plan(int H, int ndir, int B, int sms, int cols,
                                 int ksteps, int warps, int carried,
                                 bool staged = false, int ncmax = 1 << 30) {
   PersistPlan p{};
   const int nt_all = H / 8, per = sms / ndir;
   p.tiles = per > 0 ? (nt_all + per - 1) / per : nt_all;
+  p.groups = (p.tiles + kGroupTiles - 1) / kGroupTiles;
+  p.width = (p.tiles + p.groups - 1) / p.groups;
   p.blocks = (nt_all + p.tiles - 1) / p.tiles;
   p.cols = cols;
   p.warps = warps;
   p.ksteps = ksteps;
-  const int nc = cols * p.tiles, part = persist_part(nc, warps);
+  const int nc = cols * p.width, part = persist_part(nc, warps);
   const int kq = (ksteps + warps - 1) / warps;
+  const int wk = p.groups * nc * 256;             // W bytes a k-step
   if (staged) {
     const int room = (kSmemMax - part) / warps;   // bytes a warp
-    const int wk = nc * 256;                      // W bytes a k-step
     const int ncw = nc / ((nc + ncmax - 1) / ncmax);
     const int whole = (kq + kStages - 1) / kStages;
     int ring = 0;
@@ -301,14 +328,13 @@ inline PersistPlan persist_plan(int H, int ndir, int B, int sms, int cols,
     if (ring == 0) ring = kStages * p.chunk * stage_bytes(ncw, false);
     p.smem = part + warps * (p.resident * wk + ring);
   } else {
-    const int fit = (kSmemMax - part) / (warps * nc * 256);
+    const int fit = (kSmemMax - part) / (warps * wk);
     p.resident = kq < fit ? kq : fit;
-    p.smem = part + warps * p.resident * nc * 256;
+    p.smem = part + warps * p.resident * wk;
   }
   p.passes = (B + kPassRows - 1) / kPassRows;
   p.held = 256 + int64_t(2) * ndir * p.passes * 1024 * ksteps;
   p.work = p.held + int64_t(carried) * ndir * B * H * 4;
-  p.ok = p.tiles <= kPersistMaxTiles;
   return p;
 }
 
@@ -319,6 +345,16 @@ inline cudaError_t device_sms(int* n) {
   return e != cudaSuccess
              ? e
              : cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// whether a caller's SM count can be planned for on this card: at least
+// one block a direction (ndir), at most the card's SMs → cudaSuccess,
+// cudaErrorInvalidValue, or the query's error
+inline cudaError_t check_sms(int sms, int ndir) {
+  int n = 0;
+  const cudaError_t e = device_sms(&n);
+  if (e != cudaSuccess) return e;
+  return sms < ndir || sms > n ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 // the blocks of `kernel` (`threads`, `smem` bytes) the card holds at once,
@@ -335,6 +371,23 @@ cudaError_t coresident_blocks(void (*kernel)(Exp...), int threads, int smem,
                                                       smem);
   *n = per * sms;
   return e;
+}
+
+// plan p as the csr_*_persist_plan queries report it: out = (blocks a
+// direction, tiles a block, resident k-steps a warp, shared memory bytes
+// a block, blocks of `kernel` (`threads` a block) the card holds at once:
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor times the SMs, workspace
+// bytes, k-steps a slot of the staged ring: 0 where A is read from L2,
+// groups a block) → the occupancy query's status
+template <typename... Exp>
+int report_plan(const PersistPlan& p, void (*kernel)(Exp...), int threads,
+                long long* out) {
+  int n = 0;
+  const cudaError_t e = coresident_blocks(kernel, threads, p.smem, &n);
+  const long long v[8] = {p.blocks, p.tiles, p.resident, p.smem,
+                          n,        p.work,  p.chunk,    p.groups};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return static_cast<int>(e);
 }
 
 // zeroes the grid barrier's counter (4 bytes at `counter`) on `stream`,
@@ -401,6 +454,26 @@ __device__ __forceinline__ void grid_wait(unsigned int* counter,
   __syncthreads();
 }
 
+// 8 and 16 bytes of shared memory at a shared-space address: the
+// persistent products read their shared memory so, since through a
+// generic pointer the compiler may rebuild the shared window's base at
+// each k-step (an S2UR on the load's address path)
+__device__ __forceinline__ uint2 lds8(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(v.x), "=r"(v.y)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint4 lds16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
 // the line at p into L2, kept past lines marked to go first
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2::evict_last [%0];\n" ::"l"(p));
@@ -412,8 +485,9 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 // fragment; m-tile 1 only where `two`; `full0` / `full1`: whether rows
 // 8-15 of the m-tile hold rows of the pass, else only the first 8 bytes,
 // rows 0-7, are read), B from shared memory for the first kres k-steps
-// (sb: this lane's fragment of column 0 at the first k-step, nc·32 uint2 a
-// k-step) and from global memory past them (gb: the same in the launch's
+// (sb: the shared-space address of this lane's fragment of column 0 at
+// the first k-step, nc·256 bytes a k-step) and from global memory past
+// them (gb: the same in the launch's
 // layout; only with kSt). Where the slice is resident (!kSt) the warp
 // walks its k-steps from `rot` on, wrapping: each block of a direction
 // starts elsewhere, so the blocks do not all ask L2 for the same lines at
@@ -427,7 +501,7 @@ template <int NC, int P, bool kSt>
 __device__ __forceinline__ void persist_product(
     float (&acc)[2][NC][4], const uint4* __restrict__ a0,
     const uint4* __restrict__ a1, bool two, bool full0, bool full1, int kw,
-    int kres, int rot, const uint2* sb, const uint2* __restrict__ gb) {
+    int kres, int rot, uint32_t sb, const uint2* __restrict__ gb) {
   uint4 ra[P][2];
   uint2 rb[kSt ? P : 1][NC];
   if (kSt) rot = 0;
@@ -458,7 +532,7 @@ __device__ __forceinline__ void persist_product(
         uint2 b[NC];
         if (!kSt || k < kres) {
 #pragma unroll
-          for (int c = 0; c < NC; ++c) b[c] = sb[(k * NC + c) * 32];
+          for (int c = 0; c < NC; ++c) b[c] = lds8(sb + (k * NC + c) * 256);
         } else {
 #pragma unroll
           for (int c = 0; c < NC; ++c) b[c] = rb[kSt ? p : 0][c];
@@ -485,9 +559,9 @@ __device__ __forceinline__ void persist_product(
 // acc[m][c] += A_m B_c over one warp's kw k-steps for NC columns, A and
 // the streamed B staged in shared memory. a0, a1: m-tile 0 and 1 of A in
 // global memory at the warp's first k-step (32 uint4 a k-step, all lanes;
-// m-tile 1 only where `two`); sb: this lane's resident fragment of the
-// first column at that k-step (nc·32 uint2 a k-step, its first kres
-// k-steps); gb: the same columns in the launch's layout in global memory
+// m-tile 1 only where `two`); sb: the shared-space address of this lane's
+// resident fragment of the first column at that k-step (nc·256 bytes a
+// k-step, its first kres k-steps); gb: the same columns in the launch's layout in global memory
 // (lane 0), read past kres; ring: this warp's kStages slots of ck k-steps
 // of stage_bytes(NC, kres < kq) bytes each (`sz`). The warp walks its
 // chunks of ck k-steps from chunk `rot` on, wrapping, and copies chunk i +
@@ -499,8 +573,8 @@ template <int NC>
 __device__ __forceinline__ void staged_product(
     float (&acc)[2][NC][4], const uint4* __restrict__ a0,
     const uint4* __restrict__ a1, bool two, int kw, int kres, int rot,
-    const uint2* sb, int nc, const uint2* __restrict__ gb,
-    unsigned char* ring, int ck, int sz, int l) {
+    uint32_t sb, int nc, const uint2* __restrict__ gb, unsigned char* ring,
+    int ck, int sz, int l) {
   const int nq = (kw + ck - 1) / ck;
   const uint32_t s_ring = smem_addr(ring);
   auto first = [&](int q) {
@@ -533,21 +607,20 @@ __device__ __forceinline__ void staged_product(
     cp_async_wait<kStages - 1>();
     __syncwarp();
     const int k0 = first(q), n = kw - k0 < ck ? kw - k0 : ck;
-    const unsigned char* slot = ring + (q % kStages) * ck * sz;
+    const uint32_t slot = s_ring + (q % kStages) * ck * sz;
     for (int kk = 0; kk < n; ++kk) {
       const int k = k0 + kk;
-      const unsigned char* st = slot + kk * sz;
-      const uint4 va = reinterpret_cast<const uint4*>(st)[l];
-      const uint4 vb = two ? reinterpret_cast<const uint4*>(st + 512)[l]
+      const uint32_t st = slot + kk * sz;
+      const uint4 va = lds16(st + l * 16);
+      const uint4 vb = two ? lds16(st + 512 + l * 16)
                            : make_uint4(0u, 0u, 0u, 0u);
       uint2 b[NC];
       if (k < kres) {
 #pragma unroll
-        for (int c = 0; c < NC; ++c) b[c] = sb[(k * nc + c) * 32];
+        for (int c = 0; c < NC; ++c) b[c] = lds8(sb + (k * nc + c) * 256);
       } else {
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-          b[c] = reinterpret_cast<const uint2*>(st + 1024)[c * 32 + l];
+        for (int c = 0; c < NC; ++c) b[c] = lds8(st + 1024 + (c * 32 + l) * 8);
       }
       const uint32_t am[4] = {va.x, va.z, va.y, va.w};
       const uint32_t an[4] = {vb.x, vb.z, vb.y, vb.w};
@@ -578,21 +651,24 @@ __device__ __forceinline__ WarpSteps warp_steps(int w, int nw, int K,
   return s;
 }
 
-// the block's resident B fragments into shared memory: warp w's first
-// kres k-steps of its range (nc·256 bytes a k-step, contiguous in the
-// launch's layout at `slice`, the block's [K][nc][32] uint2) at s_res +
-// w·kr·nc·256; every thread shares the copies
+// the block's resident B fragments into shared memory: for each of its
+// ng groups (the group's [K][nc][32] uint2 at slice + g K nc 32, the
+// block's slice in the launch's layout), warp w's first kres k-steps of
+// its range (nc·256 bytes a k-step, contiguous) at s_res + (g nw + w) kr
+// nc 256; every thread shares the copies
 __device__ __forceinline__ void load_resident(uint32_t s_res,
                                               const uint2* __restrict__ slice,
-                                              int nw, int K, int kr, int nc) {
-  for (int w = 0; w < nw; ++w) {
-    const WarpSteps s = warp_steps(w, nw, K, kr);
-    const char* src =
-        reinterpret_cast<const char*>(slice) + int64_t(s.kb) * nc * 256;
-    const uint32_t dst = s_res + w * kr * nc * 256;
-    for (int q = threadIdx.x; q < s.kres * nc * 16; q += blockDim.x)
-      cp_async16(dst + q * 16, src + int64_t(q) * 16, true);
-  }
+                                              int nw, int K, int kr, int nc,
+                                              int ng = 1) {
+  for (int g = 0; g < ng; ++g)
+    for (int w = 0; w < nw; ++w) {
+      const WarpSteps s = warp_steps(w, nw, K, kr);
+      const char* src = reinterpret_cast<const char*>(slice) +
+                        (int64_t(g) * K + s.kb) * nc * 256;
+      const uint32_t dst = s_res + (g * nw + w) * kr * nc * 256;
+      for (int q = threadIdx.x; q < s.kres * nc * 16; q += blockDim.x)
+        cp_async16(dst + q * 16, src + int64_t(q) * 16, true);
+    }
   cp_async_commit();
   cp_async_wait<0>();
 }

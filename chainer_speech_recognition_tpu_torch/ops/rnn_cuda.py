@@ -54,7 +54,9 @@ the GRU's backward up to H = 256; ``lstm_fwd_tc_weights``,
 Past it, up to H = 2048 (``MAX_HIDDEN``), W no longer fits a cluster's
 shared memory. Every bf16 form of both cells then runs the persistent form
 (``persist_plan``): one cooperative launch of about sms / ndir blocks a
-direction over the whole card, W spread over their shared memory
+direction over the whole card (of any SM count from ndir up: a block of
+more than ``GROUP_TILES`` unit tiles runs them in groups), W spread over
+their shared memory
 (``persist_fwd_weights``, ``persist_lstm_fwd_weights``,
 ``persist_bwd_weights``, ``persist_gru_bwd_weights``: fragment order),
 every row of a direction multiplied at each step and the step's exchange
@@ -378,7 +380,7 @@ def gru_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
     work = _work("gru", "fwd", w, B, compute_dtype)
     _kernels.GRU_FWD.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), _ptr(work), T, B, H, ndir, C,
+        ys.data_ptr(), _ptr(work), T, B, H, ndir, C, _sms(w),
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys
 
@@ -394,7 +396,7 @@ def gru_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
     _kernels.GRU_FWD_STREAM.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         h0.data_ptr(), ys.data_ptr(), carry.data_ptr(), _ptr(work), T, B, H,
-        ndir, emit_t, C, int(compute_dtype == torch.bfloat16),
+        ndir, emit_t, C, _sms(w), int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(xs))
     return ys, carry
 
@@ -410,7 +412,7 @@ def gru_scan_train_cuda(xs, w, lo, hi, compute_dtype):
     work = _work("gru", "fwd", w, B, compute_dtype)
     _kernels.GRU_FWD_TRAIN.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), gates.data_ptr(), _ptr(work), T, B, H, ndir, C,
+        ys.data_ptr(), gates.data_ptr(), _ptr(work), T, B, H, ndir, C, _sms(w),
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys, gates
 
@@ -434,8 +436,8 @@ def gru_bwd_cuda(gates, w, lo, hi, ys, g, compute_dtype):
     _kernels.GRU_BWD.launch(
         gates.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         ys.data_ptr(), g.data_ptr(), dxs.data_ptr(), dhn.data_ptr(),
-        _ptr(work), T, B, H, ndir, C, int(compute_dtype == torch.bfloat16),
-        _kernels.stream_ptr(gates))
+        _ptr(work), T, B, H, ndir, C, _sms(w),
+        int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(gates))
     return dxs, dhn
 
 
@@ -514,7 +516,7 @@ PERSIST = {"gru_fwd": (3, 4, 1 / 16, 0, None),
            "lstm_fwd": (4, 4, 1 / 16, 1, 12),
            "gru_bwd": (1, 8, 3 / 16, 1, 4)}
 PASS_ROWS = 32          # rows a pass of the persistent form: two m16 tiles
-PERSIST_MAX_TILES = 4   # tiles a block its kernels are built for
+GROUP_TILES = 4         # tiles a group at most: the kernels' built widths
 STAGES = 4              # slots of a warp's staged ring
 STREAM_CHUNK = 2        # k-steps a slot of it where W is streamed
 
@@ -522,7 +524,7 @@ STREAM_CHUNK = 2        # k-steps a slot of it where W is streamed
 class PersistPlan(NamedTuple):
     blocks: int         # NB: blocks a direction (grid NB · ndir ≤ sms)
     tiles: int          # nt: n8 tiles of units a block (the last block of
-                        # a direction may own fewer)
+                        # a direction may own fewer), run in ``groups``
     warps: int          # a block's warps, each a share of the k-steps
     ksteps: int         # K: k-steps of the product
     resident: int       # kr: k-steps a warp keeps in shared memory at most
@@ -532,6 +534,13 @@ class PersistPlan(NamedTuple):
     work: int           # the global workspace, bytes
     chunk: int          # k-steps a slot of a warp's staged ring (0: A is
                         # read from L2)
+    groups: int         # ng = ⌈nt / GROUP_TILES⌉ groups a block, one after
+                        # another in each step (1 on 132 SMs at every H)
+
+    @property
+    def width(self) -> int:
+        """Tiles a group, ⌈nt / ng⌉: the kernel instantiation's (1-4)."""
+        return -(-self.tiles // self.groups)
 
 
 def stage_bytes(ncw: int, streamed: bool) -> int:
@@ -545,46 +554,51 @@ def persist_plan(name: str, H: int, B: int, ndir: int,
                  sms: int = SMS) -> PersistPlan:
     """The persistent form's launch (``csrc/rnn_mma.cuh``'s
     ``persist_plan``; ``name`` a key of ``PERSIST``) on a card of ``sms``
-    SMs: nt = ⌈(H / 8) / (sms // ndir)⌉ unit tiles a block, NB = ⌈(H / 8)
-    / nt⌉ blocks a direction, one block an SM. Shared memory: the warps'
-    partial sums (warps × 2 m-tiles × nc columns × 512 bytes), as many
-    k-steps of each warp's share of the B fragments (nc · 256 bytes a
-    k-step) as fit, and for the LSTM's forwards and the GRU's backward a
-    ring of ``STAGES`` slots a warp of ``chunk`` k-steps of A
-    (``stage_bytes``): beside all of a warp's W, chunks as large as fit up
-    to ⌈kq / STAGES⌉ (kq = ⌈K / warps⌉: then the ring holds the whole of
-    the warp's A), else slots of ``STREAM_CHUNK`` k-steps that carry the
-    streamed B too (a product's columns: the LSTM forward at 16 columns
-    runs two halves of 8) and as many resident k-steps as fit beside them.
-    The workspace: the grid barrier's counter (256 bytes), two A buffers of
-    ndir · passes · 32 rows × K k-steps of 16 columns in bf16 (1024 · K
-    bytes a pass and direction), and the fp32 [ndir · B, H] arrays a slot
-    carries (the LSTM backward: dc and dh_total; the LSTM forward: c; the
-    GRU backward: dh). Raises where nt would pass ``PERSIST_MAX_TILES`` (a
-    card of fewer than ndir · H / 32 SMs: no kernel is built for it)."""
+    ≥ ndir SMs: nt = ⌈(H / 8) / (sms // ndir)⌉ unit tiles a block, NB =
+    ⌈(H / 8) / nt⌉ blocks a direction, one block an SM; the block runs its
+    tiles as ng = ⌈nt / GROUP_TILES⌉ groups of nw8 = ⌈nt / ng⌉ (``width``;
+    the last group's tiles past nt are zero columns that own nothing), each
+    group's product and gate math in turn within a step. Shared memory:
+    the warps' partial sums of one group (warps × 2 m-tiles × nc = cols ·
+    nw8 columns × 512 bytes), as many k-steps of each warp's share of the
+    B fragments of every group (ng · nc · 256 bytes a k-step) as fit (0
+    where none do: then all of W is read at each step), and for the LSTM's
+    forwards and the GRU's backward a ring of ``STAGES`` slots a warp of
+    ``chunk`` k-steps of A (``stage_bytes``): beside all of a warp's W,
+    chunks as large as fit up to ⌈kq / STAGES⌉ (kq = ⌈K / warps⌉: then the
+    ring holds the whole of the warp's A), else slots of ``STREAM_CHUNK``
+    k-steps that carry the streamed B too (a product's columns: the LSTM
+    forward at 16 columns runs two halves of 8) and as many resident
+    k-steps as fit beside them. The workspace: the grid barrier's counter
+    (256 bytes), two A buffers of ndir · passes · 32 rows × K k-steps of 16
+    columns in bf16 (1024 · K bytes a pass and direction), and the fp32
+    [ndir · B, H] arrays a slot carries (the LSTM backward: dc and
+    dh_total; the LSTM forward: c; the GRU backward: dh). Every SM count
+    from ndir up has a plan (an H100 SXM's 132 give ng = 1 at every H; an
+    H100 PCIe's 114 give ng = 2 at H ≥ 1856, ndir 2)."""
     if not kernel_takes(H) or H <= RESIDENT_MAX:
         raise ValueError(f"persist_plan: hidden size {H} unsupported "
                          f"({RESIDENT_MAX} < H <= {MAX_HIDDEN}, "
                          "H % 32 == 0)")
+    if sms < ndir:
+        raise ValueError(f"persist_plan: {sms} SMs hold no block of each of "
+                         f"{ndir} directions")
     cols, warps, per_unit, carried, ncmax = PERSIST[name]
     K = int(H * per_unit)
     units = H // 8
-    tiles = -(-units // max(sms // ndir, 1))
-    if tiles > PERSIST_MAX_TILES:
-        raise ValueError(
-            f"persist_plan: {name} at H = {H}, ndir {ndir} needs {tiles} "
-            f"unit tiles a block on a card of {sms} SMs; the kernels take "
-            f"at most {PERSIST_MAX_TILES} (at least {ndir * H // 32} SMs)")
+    tiles = -(-units // (sms // ndir))
+    groups = -(-tiles // GROUP_TILES)
     blocks = -(-units // tiles)
-    nc = cols * tiles
+    nc = cols * -(-tiles // groups)
     part = warps * 2 * nc * 512
     kq = -(-K // warps)
+    wk = groups * nc * 256          # W bytes a k-step, every group's
     chunk = 0
     if ncmax is None:
-        kr = min(kq, (SMEM_MAX - part) // (warps * nc * 256))
-        smem = part + warps * kr * nc * 256
+        kr = min(kq, (SMEM_MAX - part) // (warps * wk))
+        smem = part + warps * kr * wk
     else:
-        room, wk = (SMEM_MAX - part) // warps, nc * 256
+        room = (SMEM_MAX - part) // warps
         ncw = nc // -(-nc // ncmax)
         whole = -(-kq // STAGES)
         if kq * wk + STAGES * stage_bytes(ncw, False) <= room:
@@ -599,98 +613,114 @@ def persist_plan(name: str, H: int, B: int, ndir: int,
     passes = -(-B // PASS_ROWS)
     work = 256 + 2 * ndir * passes * 1024 * K + carried * ndir * B * H * 4
     return PersistPlan(blocks, tiles, warps, K, kr, passes, smem, work,
-                       chunk)
+                       chunk, groups)
 
 
 def _sms(t: torch.Tensor) -> int:
-    """The SMs of ``t``'s card (``SMS`` for a CPU tensor)."""
+    """The SMs of ``t``'s card (``SMS`` for a CPU tensor): the count every
+    plan of a launch on ``t`` is made for, and that the launch passes to
+    the library. Tests emulate a card of fewer SMs by patching it."""
     if t.is_cuda:
         return torch.cuda.get_device_properties(t.device).multi_processor_count
     return SMS
 
 
-def _fwd_fragments(w, blocks: int, tiles: int):
+def _fwd_fragments(w, blocks: int, tiles: int, groups: int = 1):
     """W [ndir, H, G·H] → a persistent forward's B fragments [ndir, NB,
-    H/16, nt, G, 32, 4] bf16: element [d, c, ks, i, g, l, e] is W[d, 16·ks
-    + 2·(l % 4) + e % 2 + 8·(e // 2), g·H + u] for unit u = 8·(nt·c + i)
-    + l // 4 (zero for u ≥ H), lane l's four values of the m16n8k16 B
-    fragment of gate g of the block's tile i at k-step ks."""
+    ng·H/16, nw8, G, 32, 4] bf16 (nw8 = ⌈nt / ng⌉): element [d, c, g·H/16 +
+    ks, i, gt, l, e] is W[d, 16·ks + 2·(l % 4) + e % 2 + 8·(e // 2), gt·H +
+    u] for unit u = 8·(nt·c + nw8·g + i) + l // 4 (zero where nw8·g + i ≥
+    nt or u ≥ H), lane l's four values of the m16n8k16 B fragment of gate
+    gt of tile i of the block's group g at k-step ks: each group's slice
+    contiguous; with one group [ndir, NB, H/16, nt, G, 32, 4]."""
     ndir, H, GH = w.shape
-    G = GH // H
+    G, width = GH // H, -(-tiles // groups)
     wb = torch.nn.functional.pad(w.to(torch.bfloat16).reshape(ndir, H, G, H),
                                  (0, 8 * blocks * tiles - H))
-    return wb.reshape(ndir, H // 16, 2, 4, 2, G, blocks, tiles, 8).permute(
-        0, 6, 1, 7, 5, 8, 3, 2, 4).reshape(
-        ndir, blocks, H // 16, tiles, G, 32, 4).contiguous()
+    if groups * width > tiles:      # the last group's columns past nt
+        wb = torch.nn.functional.pad(
+            wb.reshape(ndir, H, G, blocks, tiles, 8),
+            (0, 0, 0, groups * width - tiles))
+    return wb.reshape(ndir, H // 16, 2, 4, 2, G, blocks, groups, width,
+                      8).permute(0, 6, 7, 1, 8, 5, 9, 3, 2, 4).reshape(
+        ndir, blocks, groups * H // 16, width, G, 32, 4).contiguous()
 
 
-def _bwd_fragments(w, blocks: int, tiles: int):
+def _bwd_fragments(w, blocks: int, tiles: int, groups: int = 1):
     """W [ndir, H, G·H] → a persistent backward's B fragments [ndir, NB,
-    G·H/16, nt, 32, 4] bf16: block c's operand B[k, j] = W[d, j, k] over
-    the G·H gate columns k, element [d, c, ks, i, l, e] = W[d, 8·(nt·c +
-    i) + l // 4, 16·ks + 2·(l % 4) + e % 2 + 8·(e // 2)] (zero for units j
-    ≥ H): lane l's four values of the B fragment of the block's tile i at
-    k-step ks."""
+    ng·G·H/16, nw8, 32, 4] bf16: block c's operand B[k, j] = W[d, j, k]
+    over the G·H gate columns k, element [d, c, g·G·H/16 + ks, i, l, e] =
+    W[d, j, 16·ks + 2·(l % 4) + e % 2 + 8·(e // 2)] for j = 8·(nt·c + nw8·g
+    + i) + l // 4 (zero where nw8·g + i ≥ nt or j ≥ H): lane l's four
+    values of the B fragment of tile i of the block's group g at k-step
+    ks; with one group [ndir, NB, G·H/16, nt, 32, 4]."""
     ndir, H, GH = w.shape
+    width = -(-tiles // groups)
     wb = torch.nn.functional.pad(w.to(torch.bfloat16),
                                  (0, 0, 0, 8 * blocks * tiles - H))
-    return wb.reshape(ndir, blocks, tiles, 8, GH // 16, 2, 4, 2).permute(
-        0, 1, 4, 2, 3, 6, 5, 7).reshape(
-        ndir, blocks, GH // 16, tiles, 32, 4).contiguous()
+    if groups * width > tiles:      # the last group's rows past nt
+        wb = torch.nn.functional.pad(wb.reshape(ndir, blocks, tiles, 8, GH),
+                                     (0, 0, 0, 0, 0, groups * width - tiles))
+    return wb.reshape(ndir, blocks, groups, width, 8, GH // 16, 2, 4,
+                      2).permute(0, 1, 2, 5, 3, 4, 7, 6, 8).reshape(
+        ndir, blocks, groups * GH // 16, width, 32, 4).contiguous()
 
 
-def persist_fwd_weights(w, blocks: int, tiles: int):
+def persist_fwd_weights(w, blocks: int, tiles: int, groups: int = 1):
     """W [ndir, H, 3H] → the persistent GRU forward's B fragments [ndir,
-    NB, H/16, nt, 3, 32, 4] bf16 (``csrc/gru_fwd.cu``; ``_fwd_fragments``
-    with G = 3: gates r, z, n); block c copies its [ks][i][g][l] slice
-    into shared memory as far as it fits."""
-    return _fwd_fragments(w, blocks, tiles)
+    NB, ng·H/16, nw8, 3, 32, 4] bf16 (``csrc/gru_fwd.cu``;
+    ``_fwd_fragments`` with G = 3: gates r, z, n); block c copies its
+    [g][ks][i][gt][l] slice into shared memory as far as it fits."""
+    return _fwd_fragments(w, blocks, tiles, groups)
 
 
-def persist_lstm_fwd_weights(w, blocks: int, tiles: int):
+def persist_lstm_fwd_weights(w, blocks: int, tiles: int, groups: int = 1):
     """W [ndir, H, 4H] → the persistent LSTM forward's B fragments [ndir,
-    NB, H/16, nt, 4, 32, 4] bf16 (``csrc/lstm_fwd.cu``; ``_fwd_fragments``
-    with G = 4: gates i, f, o, u); block c copies its [ks][i][g][l] slice
-    into shared memory as far as it fits and stages the rest a step."""
-    return _fwd_fragments(w, blocks, tiles)
+    NB, ng·H/16, nw8, 4, 32, 4] bf16 (``csrc/lstm_fwd.cu``;
+    ``_fwd_fragments`` with G = 4: gates i, f, o, u); block c copies its
+    [g][ks][i][gt][l] slice into shared memory as far as it fits and stages
+    the rest a step."""
+    return _fwd_fragments(w, blocks, tiles, groups)
 
 
-def persist_bwd_weights(w, blocks: int, tiles: int):
+def persist_bwd_weights(w, blocks: int, tiles: int, groups: int = 1):
     """W [ndir, H, 4H] → the persistent LSTM backward's B fragments [ndir,
-    NB, H/4, nt, 32, 4] bf16 (``csrc/lstm_bwd.cu``; ``_bwd_fragments``
+    NB, ng·H/4, nw8, 32, 4] bf16 (``csrc/lstm_bwd.cu``; ``_bwd_fragments``
     over the 4H gate columns)."""
-    return _bwd_fragments(w, blocks, tiles)
+    return _bwd_fragments(w, blocks, tiles, groups)
 
 
-def persist_gru_bwd_weights(w, blocks: int, tiles: int):
+def persist_gru_bwd_weights(w, blocks: int, tiles: int, groups: int = 1):
     """W [ndir, H, 3H] → the persistent GRU backward's B fragments [ndir,
-    NB, 3H/16, nt, 32, 4] bf16 (``csrc/gru_bwd.cu``; ``_bwd_fragments``
+    NB, ng·3H/16, nw8, 32, 4] bf16 (``csrc/gru_bwd.cu``; ``_bwd_fragments``
     over the 3H gate columns r, z, n)."""
-    return _bwd_fragments(w, blocks, tiles)
+    return _bwd_fragments(w, blocks, tiles, groups)
 
 
 @functools.lru_cache(maxsize=None)
-def _persist_occupancy(name: str, H: int, ndir: int, B: int,
+def _persist_occupancy(name: str, H: int, ndir: int, B: int, sms: int,
                        device: int) -> tuple:
-    out = (ctypes.c_longlong * 7)()
+    out = (ctypes.c_longlong * 8)()
     fn = f"csr_{name}_persist_plan"
     with torch.cuda.device(device):
-        err = _kernels.call(fn, H, ndir, B, out)
+        err = _kernels.call(fn, H, ndir, B, sms, out)
     if err:
-        raise RuntimeError(f"{fn}: CUDA error {err} at H = {H}, ndir {ndir}")
+        raise RuntimeError(f"{fn}: CUDA error {err} at H = {H}, ndir {ndir}, "
+                           f"{sms} SMs")
     return tuple(out)
 
 
-def persist_occupancy(name: str, H: int, ndir: int, B: int,
+def persist_occupancy(name: str, H: int, ndir: int, B: int, sms: int,
                       device=None) -> tuple:
     """(blocks a direction, tiles a block, resident k-steps a warp, shared
     memory bytes, blocks the card holds at once, workspace bytes, k-steps a
-    slot of the staged ring) of the persistent form at B rows a direction
-    as the kernel library computes them on ``device``'s card
-    (``csr_{name}_persist_plan``; the current card by default); needs the
-    card."""
+    slot of the staged ring, groups a block) of the persistent form at B
+    rows a direction, planned for ``sms`` SMs, as the kernel library
+    computes them on ``device``'s card (``csr_{name}_persist_plan``; the
+    current card by default; it refuses an ``sms`` below ndir or above the
+    card's); needs the card."""
     index = None if device is None else torch.device(device).index
-    return _persist_occupancy(name, H, ndir, B,
+    return _persist_occupancy(name, H, ndir, B, sms,
                               torch.cuda.current_device() if index is None
                               else index)
 
@@ -708,7 +738,7 @@ def _work(cell: str, form: str, w, B: int, compute_dtype):
     ndir, H = w.shape[:2]
     if compute_dtype != torch.bfloat16 or not _persists(H):
         return None
-    n = persist_occupancy(f"{cell}_{form}", H, ndir, B, w.device)[5]
+    n = persist_occupancy(f"{cell}_{form}", H, ndir, B, _sms(w), w.device)[5]
     return torch.empty(n, dtype=torch.uint8, device=w.device)
 
 
@@ -854,7 +884,7 @@ def _lstm_launch_args(w, B: int, compute_dtype, form: str):
     if isinstance(p, PersistPlan):
         layout = (persist_lstm_fwd_weights if form == "fwd"
                   else persist_bwd_weights)
-        return layout(w, p.blocks, p.tiles), C
+        return layout(w, p.blocks, p.tiles, p.groups), C
     return (lstm_fwd_tc_weights if form == "fwd" else lstm_bwd_tc_weights)(
         w, C), C
 
@@ -872,7 +902,7 @@ def _gru_launch_args(w, B: int, compute_dtype, form: str):
     if isinstance(p, PersistPlan):
         layout = (persist_fwd_weights if form == "fwd"
                   else persist_gru_bwd_weights)
-        return layout(w, p.blocks, p.tiles), C
+        return layout(w, p.blocks, p.tiles, p.groups), C
     return (gru_fwd_tc_weights if form == "fwd" else gru_bwd_tc_weights)(
         w, C), C
 
@@ -886,9 +916,10 @@ def stream_launch_args(cell: str, w, B: int, compute_dtype):
     """The forward's launch arguments (``_gru_launch_args`` or
     ``_lstm_launch_args``: the laid-out W and C) for a stream launch, the layout cached per weight tensor. The key is the tensor
     itself (not its data pointer, which a later tensor may reuse), its
-    in-place version, the compute dtype and C, so an in-place update (a
-    reloaded checkpoint's ``copy_``) or another tensor misses. An
-    inference tensor has no version and is laid out at each call."""
+    in-place version, the compute dtype, C and the persistent plan's tiles
+    a block, so an in-place update (a reloaded checkpoint's ``copy_``),
+    another tensor or another geometry at the same C misses. An inference
+    tensor has no version and is laid out at each call."""
     args, plan = {"gru": (_gru_launch_args, gru_plan),
                   "lstm": (_lstm_launch_args, lstm_plan)}[cell]
     if w.is_inference():
@@ -897,7 +928,8 @@ def stream_launch_args(cell: str, w, B: int, compute_dtype):
     p = (plan(H, B, ndir, "fwd", _sms(w))
          if compute_dtype == torch.bfloat16 else None)
     C = 0 if p is None else launch_blocks(p)
-    key = (w._version, compute_dtype, C)
+    key = (w._version, compute_dtype, C,
+           p.tiles if isinstance(p, PersistPlan) else 0)
     hit = _STREAM_LAYOUTS.get(w)
     if hit is not None and hit[0] == key:
         return hit[1], C
@@ -919,7 +951,7 @@ def lstm_scan_cuda(xs: torch.Tensor, w: torch.Tensor, lo: torch.Tensor,
     work = _work("lstm", "fwd", w, B, compute_dtype)
     _kernels.LSTM_FWD.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-        ys.data_ptr(), _ptr(work), T, B, H, ndir, C,
+        ys.data_ptr(), _ptr(work), T, B, H, ndir, C, _sms(w),
         int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
     return ys
 
@@ -935,7 +967,7 @@ def lstm_scan_stream_cuda(xs, w, lo, hi, h0, compute_dtype, emit_t: int):
     _kernels.LSTM_FWD_STREAM.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         h0.data_ptr(), ys.data_ptr(), carry.data_ptr(), _ptr(work), T, B, H,
-        ndir, emit_t, C, int(compute_dtype == torch.bfloat16),
+        ndir, emit_t, C, _sms(w), int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(xs))
     return ys, carry
 
@@ -953,8 +985,8 @@ def lstm_scan_train_cuda(xs, w, lo, hi, compute_dtype):
     _kernels.LSTM_FWD_TRAIN.launch(
         xs.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         ys.data_ptr(), cs.data_ptr(), gates.data_ptr(), _ptr(work), T, B, H,
-        ndir, C,
-        int(compute_dtype == torch.bfloat16), _kernels.stream_ptr(xs))
+        ndir, C, _sms(w), int(compute_dtype == torch.bfloat16),
+        _kernels.stream_ptr(xs))
     return ys, cs, gates
 
 
@@ -975,7 +1007,7 @@ def lstm_bwd_cuda(gates, w, lo, hi, cs, g, compute_dtype):
     _kernels.LSTM_BWD.launch(
         gates.data_ptr(), wk.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         cs.data_ptr(), g.data_ptr(), dxs.data_ptr(), _ptr(work), T, B, H,
-        ndir, C, int(compute_dtype == torch.bfloat16),
+        ndir, C, _sms(w), int(compute_dtype == torch.bfloat16),
         _kernels.stream_ptr(gates))
     return dxs
 

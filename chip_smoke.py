@@ -309,6 +309,11 @@ any phase fails:
     every H; the plans;
     the four bf16 forms in 5 alternating rounds of graph replays beside
     cuDNN's GRU or LSTM at the same H (the kernel line's ``H``
+    sub-entries); then, with ``rnn_cuda._sms`` patched in-process, the
+    smaller cards of ``WIDE_EMULATED`` (114 SMs at H = 2048, 16 at 1024,
+    ndir 2: a block's tiles in groups) the same way at the decode,
+    training and window shapes, the plans, and the four forms' replays
+    beside the same forms at the card's count (the kernel line's ``sms``
     sub-entries);
 33. the wide path through the CLIs at ``model.rnn_hidden=1024``
     (``phase_rnn_wide_path``): bilstm_deep decode (64 wavs, exact
@@ -819,20 +824,21 @@ def rnn_graph_rounds(tag: str, kernels: dict, library: dict,
 
 
 def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
-                   form: str) -> None:
+                   form: str, sms: int | None = None):
     """The bf16 kernel's plan of ``cell`` ("gru" or "lstm") at this shape,
     as the library and the card take it: a cluster plan, or past H = 512
-    the persistent form's (its grid at most the blocks the card holds at
-    once)."""
+    the persistent form's for ``sms`` SMs (the card's by default; its grid
+    at most the blocks the card holds at once) → the plan."""
     from chainer_speech_recognition_tpu_torch.ops import rnn_cuda
 
-    p = getattr(rnn_cuda, f"{cell}_plan")(
-        H, B, ndir, form, torch_sms())
+    sms = torch_sms() if sms is None else sms
+    p = getattr(rnn_cuda, f"{cell}_plan")(H, B, ndir, form, sms)
     if isinstance(p, rnn_cuda.PersistPlan):
-        got = rnn_cuda.persist_occupancy(f"{cell}_{form}", H, ndir, B)
-        print(f"[{tag}] {cell} {form} plan at H={H}, B={B}, ndir={ndir}: "
-              f"persistent, {p.blocks} blocks a direction of {p.tiles} unit "
-              f"tiles, {p.warps} warps, {p.resident} of each warp's "
+        got = rnn_cuda.persist_occupancy(f"{cell}_{form}", H, ndir, B, sms)
+        print(f"[{tag}] {cell} {form} plan at H={H}, B={B}, ndir={ndir}, "
+              f"{sms} SMs: persistent, {p.blocks} blocks a direction of "
+              f"{p.tiles} unit tiles in {p.groups} group(s) of "
+              f"{p.width}, {p.warps} warps, {p.resident} of each warp's "
               f"{-(-p.ksteps // p.warps)} k-steps resident, "
               + (f"A staged through rings of {p.chunk}-k-step slots, "
                  if p.chunk else "A read from L2, ")
@@ -840,12 +846,12 @@ def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
               f"memory a block, {p.work} bytes of workspace; the card holds "
               f"{got[4]} blocks at once")
         check(got[:4] + got[5:] == (p.blocks, p.tiles, p.resident, p.smem,
-                                    p.work, p.chunk),
+                                    p.work, p.chunk, p.groups),
               f"{tag}: the library's persistent plan {got} != the "
               f"plan's {p}")
         check(got[4] >= ndir * p.blocks, f"{tag}: the card cannot hold "
               f"the {ndir * p.blocks} blocks of the {form} launch")
-        return
+        return p
     smem, n = getattr(rnn_cuda, f"{cell}_occupancy")(H, form)
     U = (rnn_cuda.gru_units(H, form) if cell == "gru"
          else rnn_cuda.lstm_units(H))
@@ -858,6 +864,7 @@ def print_rnn_plan(cell: str, tag: str, H: int, B: int, ndir: int,
     check(smem == p.smem, f"{tag}: the library's shared memory {smem} != "
           f"the plan's {p.smem}")
     check(n >= 1, f"{tag}: the card cannot hold one {form} cluster")
+    return p
 
 
 def torch_sms() -> int:
@@ -3650,6 +3657,10 @@ WIDE_FP32 = (8, 32)               # (B, T') of the fp32 checks: the FMA
                                   # kernels read all of W a row a step
 WIDE_PATH_H = 1024                # phase 33's model.rnn_hidden
 WIDE_DW_H = (1024, 2048)          # dW checked on phase 32's wide LSTM
+# phase 32's smaller cards, emulated on this one: (SMs, H) at ndir 2, an
+# H100 PCIe's 114 SMs at the widest H and a 16-SM MIG slice at 1024, both
+# past ndir · H / 32 SMs (a block's tiles in groups)
+WIDE_EMULATED = ((114, 2048), (16, 1024))
 WIDE_BUDGET_S = 60.0              # phases 32-33 together
 # phase 33's launches of the persistent form's kernels at H = 1024:
 # uni_gru's evaluate (4 layers), training (24 steps of 4 layers, forward
@@ -3855,8 +3866,9 @@ def phase_rnn_widths(dev, rng) -> dict:
     H; both plans of each cell printed; the four bf16 forms timed in
     ``WIDE_ROUNDS`` alternating rounds of graph replays beside cuDNN's
     GRU or LSTM at the same H and shape (bidirectional, the GRU's window
-    forward-only as uni_gru's) → {kernel name: {H: the kernel line's
-    timings}}."""
+    forward-only as uni_gru's); then the smaller cards of
+    ``WIDE_EMULATED`` (``wide_emulated``) → {kernel name: {H: the kernel
+    line's timings}, "emulated": {kernel name: {SMs: the same}}}."""
     import torch
 
     from chainer_speech_recognition_tpu_torch.ops import rnn_cuda as rc
@@ -4021,10 +4033,107 @@ def phase_rnn_widths(dev, rng) -> dict:
                       f"ms ({t['bound_by']}), share "
                       f"{t['bound_ms'] / t['ms']:.4f}, cuDNN / kernel "
                       f"{t['library_ms'] / t['ms']:.3f}")
+    out["emulated"] = wide_emulated(rc, dev, rng, bf_shapes, out, counts)
     print(f"[rnn-widths] every checked call launched its kernel exactly "
           f"once: {counts}; phase 32 took "
           f"{time.perf_counter() - t_phase:.3f} s")
     return out
+
+
+def sms_patched(rc, sms: int, fn):
+    """``fn`` as a call that runs with ``rc._sms`` giving ``sms``: every
+    plan, layout, workspace and launch in it made for a card of ``sms``
+    SMs, whose smaller grid runs on this card exactly the geometry such a
+    card would (its clocks and memory aside)."""
+    def call():
+        orig = rc._sms
+        rc._sms = lambda t: sms
+        try:
+            return fn()
+        finally:
+            rc._sms = orig
+    return call
+
+
+def wide_emulated(rc, dev, rng, shapes: dict, out: dict, counts: dict):
+    """Phase 32's smaller cards: at each (sms, H) of ``WIDE_EMULATED``,
+    ndir 2, with ``rnn_cuda._sms`` patched in-process (``sms_patched``),
+    every bf16 form of both cells against its plain version at the decode,
+    training and stream-window shapes and at B = 1 and 33 (``wide_case``:
+    phase 32's bars, one launch a call, a second call's bits), both plans
+    printed and held to the library's (more than one group a block), and
+    the four forms' graph replays in ``WIDE_ROUNDS`` alternating rounds
+    beside the same forms at this card's count, at the card-count rows'
+    shapes (the GRU's window forward-only, as uni_gru's) → {kernel name:
+    {str(sms): the kernel line's sub-entry, H, the time at the card's
+    count as ``card_ms``; bound and plain time the card-count entry's of
+    ``out``, for the same work}}."""
+    import torch
+
+    cdt, card = torch.bfloat16, torch_sms()
+    res = {n: {} for names in WIDE_KERNELS.values() for n in names}
+    for sms, H in WIDE_EMULATED:
+        t0 = time.perf_counter()
+        tag = f"rnn-widths {sms} of {card} SMs"
+        for cell in ("gru", "lstm"):
+            names = WIDE_KERNELS[cell]
+            r = sms_patched(rc, sms, lambda: wide_case(
+                rc, dev, rng, cell, H, 2, cdt, shapes, counts))()
+            inputs = r.pop("inputs")
+            print(f"[{tag}] {cell} H={H} ndir=2 bf16: " + ", ".join(
+                f"{n} max abs {e:.3e} ({x:.3f} of the bar)"
+                for n, (e, x) in r.items()))
+            for n, (e, x) in r.items():
+                check(x <= 1, f"{n} H={H} on {sms} SMs: {x:.3f} of its bar")
+            for form in ("fwd", "bwd"):
+                p = print_rnn_plan(cell, tag, H, shapes["train"][0], 2, form,
+                                   sms)
+                check(p.groups > 1, f"{tag}: {cell} {form} at H={H} runs one "
+                      "group a block")
+            w = inputs["w"]
+            dxs, dlo, dhi = inputs["decode"]
+            txs, tlo, thi = inputs["train"][:3]
+            args_p = inputs["train"][5]
+            sxs, slo, shi, sh0, s_emit, _ = inputs["stream"]
+            sw = w
+            if cell == "gru":   # the window forward-only, as uni_gru's
+                sxs = sxs[:, :CHECK_B].contiguous()
+                slo, shi, sh0 = slo[:CHECK_B], shi[:CHECK_B], sh0[:CHECK_B]
+                sw = w[:1].contiguous()
+            # the stream wrapper caches W's layout per weight tensor, one
+            # plan's at a time: the two counts' stream calls (captured in
+            # graphs side by side) each get a tensor of their own
+            ws = {card: sw, sms: sw.clone()}
+            forms = lambda n: {
+                names[0]: lambda: getattr(rc, f"{cell}_scan_cuda")(
+                    dxs, w, dlo, dhi, cdt),
+                names[1]: lambda: getattr(rc, f"{cell}_scan_train_cuda")(
+                    txs, w, tlo, thi, cdt),
+                names[2]: lambda: getattr(rc, f"{cell}_bwd_cuda")(*args_p),
+                names[3]: lambda: getattr(rc, f"{cell}_scan_stream_cuda")(
+                    sxs, ws[n], slo, shi, sh0, cdt, s_emit)}
+            kfns = {}
+            for n, fn in forms(card).items():
+                kfns[f"{n} at {card}"] = fn
+            for n, fn in forms(sms).items():
+                kfns[f"{n} at {sms}"] = sms_patched(rc, sms, fn)
+            rounds = rnn_graph_rounds(f"{tag} {cell} H={H}", kfns, {},
+                                      rounds=WIDE_ROUNDS, calls=WIDE_CALLS)
+            med = {n: statistics.median(v) for n, v in rounds.items()}
+            for n in names:
+                base = out[n][str(H)]
+                t = dict(H=H, launches=0, max_abs_err=r[n][0],
+                         ms=med[f"{n} at {sms}"],
+                         card_ms=med[f"{n} at {card}"],
+                         plain_ms=base["plain_ms"], library_ms=None,
+                         bound_ms=base["bound_ms"], bound_by=base["bound_by"])
+                res[n][str(sms)] = t
+                print(f"[{tag}] {n} H={H} bf16: {t['ms']:.4f} ms (graph) on "
+                      f"{sms} SMs, {t['card_ms']:.4f} ms on {card}, ratio "
+                      f"{t['ms'] / t['card_ms']:.3f}; plain "
+                      f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms")
+        print(f"[{tag}] H={H} took {time.perf_counter() - t0:.3f} s")
+    return res
 
 
 def phase_rnn_wide_path(root, vocab, wavs, audio_s, data, index, dev,
@@ -5862,6 +5971,9 @@ def main() -> int:
                 h: {"launches": wide_launches[name]
                     if int(h) == WIDE_PATH_H else 0, **r}
                 for h, r in rnn_width_t[name].items()}
+        # the smaller cards emulated in phase 32: sub-entries by SM count
+        for name, r in rnn_width_t["emulated"].items():
+            timings[name]["sms"] = r
         loaded = sorted(k for k in sys.modules
                         if k.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "optax",

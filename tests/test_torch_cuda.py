@@ -1044,41 +1044,90 @@ def test_persist_forms_match_plain(dev, cell, H, B, ndir):
 
 def test_persist_plan_on_card(dev):
     """For every width past 512, both direction counts and all four
-    kernels, the library's persistent plan on this card is the wrapper's
-    (``persist_plan`` at the card's SM count), workspace bytes and the
-    staged ring's chunk included, and the card holds all of
-    its blocks at once, or (a card of fewer than ndir · H / 32 SMs) both
-    refuse; a launch given another block count raises instead of
-    running."""
+    kernels, the library's persistent plan is the wrapper's
+    (``persist_plan``) at every SM count from ndir to the card's at B =
+    24, and at the card's count, an H100 PCIe's 114, 60 and 16 at B = 1
+    and 33: workspace bytes, the staged ring's chunk and the groups
+    included, and the card holds all of its blocks at once (no count is
+    refused: a block of more than four tiles runs them in groups); the
+    library refuses a count above the card's or below ndir; a launch given
+    another block count raises instead of running."""
     import chainer_speech_recognition_tpu_torch.ops.rnn_cuda as rc
 
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    card = torch.cuda.get_device_properties(dev).multi_processor_count
     for name in rc.PERSIST:
         for ndir in (1, 2):
             for H in range(544, rc.MAX_HIDDEN + 1, 32):
-                if sms < ndir * H // 32:      # more tiles than are built
-                    with pytest.raises(ValueError, match="at most"):
-                        rc.persist_plan(name, H, 24, ndir, sms)
-                    with pytest.raises(RuntimeError, match="CUDA error 1 "):
-                        rc.persist_occupancy(name, H, ndir, 24)
-                    continue
-                for B in (1, 24, 33):
+                cases = [(sms, 24) for sms in range(ndir, card + 1)]
+                cases += [(sms, B) for sms in (card, 114, 60, 16)
+                          for B in (1, 33) if sms <= card]
+                for sms, B in cases:
                     p = rc.persist_plan(name, H, B, ndir, sms)
-                    got = rc.persist_occupancy(name, H, ndir, B)
+                    got = rc.persist_occupancy(name, H, ndir, B, sms)
                     assert got[:4] + got[5:] == (p.blocks, p.tiles,
                                                  p.resident, p.smem, p.work,
-                                                 p.chunk)
-                assert got[4] >= ndir * p.blocks, (name, H, ndir, got)
+                                                 p.chunk, p.groups), \
+                        (name, H, ndir, sms, B, got, p)
+                    assert got[4] >= ndir * p.blocks, (name, H, ndir, got)
+                for sms in (ndir - 1, card + 1):
+                    with pytest.raises(RuntimeError, match="CUDA error 1 "):
+                        rc.persist_occupancy(name, H, ndir, 24, sms)
     xs, w, lo, hi, g, h0 = _wide_inputs(dev, "gru", 4, 3, 1024, 2,
                                         torch.bfloat16, 0)
     wk, C = rc._gru_launch_args(w, 3, torch.bfloat16, "fwd")
     ys = torch.empty(4, 6, 1024, device=dev)
     work = rc._work("gru", "fwd", w, 3, torch.bfloat16)
-    with pytest.raises(RuntimeError, match="csr_gru_fwd"):
-        _kernels.GRU_FWD.launch(xs.data_ptr(), wk.data_ptr(), lo.data_ptr(),
-                                hi.data_ptr(), ys.data_ptr(),
-                                work.data_ptr(), 4, 3, 1024, 2, C + 1, 1,
-                                _kernels.stream_ptr(xs))
+    for c, sms in ((C + 1, card), (C, card + 1), (C, 1)):
+        with pytest.raises(RuntimeError, match="csr_gru_fwd"):
+            _kernels.GRU_FWD.launch(xs.data_ptr(), wk.data_ptr(),
+                                    lo.data_ptr(), hi.data_ptr(),
+                                    ys.data_ptr(), work.data_ptr(), 4, 3,
+                                    1024, 2, c, sms, 1,
+                                    _kernels.stream_ptr(xs))
+
+
+@pytest.mark.parametrize("B", [5, 33])
+@pytest.mark.parametrize("sms,H", [(114, 1856), (114, 2048), (16, 1024)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_persist_forms_on_a_smaller_card(dev, cell, sms, H, B, monkeypatch):
+    """The four persistent kernels where a block runs its tiles in groups
+    (ndir 2): an H100 PCIe's 114 SMs at H = 1856 and 2048 (5 tiles a block
+    in 2 groups) and a 16-SM MIG slice at 1024 (16 in 4), emulated on this
+    card by ``rnn_cuda._sms`` (its grid the smaller card's), one pass (B =
+    5) and two (33): every form (the residual-free and training forwards,
+    the backward, the stream form at emit_t 0 and mid-window) against its
+    plain version at chip_smoke phase 32's bars (3e-2 forward; 5e-2 +
+    2⁻⁷·max|b| backward), exactly one launch a call, a second call bitwise
+    the first."""
+    import chainer_speech_recognition_tpu_torch.ops.rnn_cuda as rc
+
+    if sms > torch.cuda.get_device_properties(dev).multi_processor_count:
+        pytest.skip(f"the card has fewer than {sms} SMs")
+    monkeypatch.setattr(rc, "_sms", lambda t: sms)
+    for form in ("fwd", "bwd"):
+        p = getattr(rc, f"{cell}_plan")(H, B, 2, form, sms)
+        assert p.groups > 1 and 2 * p.blocks <= sms
+    dtype, T = torch.bfloat16, 9
+    xs, w, lo, hi, g, h0 = _wide_inputs(dev, cell, T, B, H, 2, dtype,
+                                        H + B + sms)
+    names = {"fwd": f"{cell}_fwd", "train": f"{cell}_fwd_train",
+             "stream": f"{cell}_fwd_stream", "bwd": f"{cell}_bwd"}
+    for emit in (0, T // 2):
+        want = _wide_forms(rc, cell, xs, w, lo, hi, g, h0, dtype, emit, True)
+        for form in (("fwd", "train", "bwd", "stream") if emit
+                     else ("stream",)):
+            fn = lambda form=form: _wide_forms(rc, cell, xs, w, lo, hi, g,
+                                               h0, dtype, emit, False,
+                                               only=form)
+            before = _kernels.KERNELS[names[form]].launches
+            got = fn()
+            assert _kernels.KERNELS[names[form]].launches == before + 1
+            for a, b in zip(got, want[form]):
+                d = float((a.float() - b.float()).abs().max())
+                bar = (5e-2 + 2 ** -7 * float(b.float().abs().max())
+                       if form == "bwd" else 3e-2)
+                assert d <= bar, (form, emit, d, bar)
+            assert all(torch.equal(a, b) for a, b in zip(got, fn()))
 
 
 def test_kernels_refuse_what_they_do_not_take(dev):

@@ -368,36 +368,58 @@ def _warp_steps(w, nw, K, kr):
     return kb, kw, min(kw, kr)
 
 
+# SM counts the plans are checked at besides an H100 SXM's: an H100 PCIe,
+# MIG slices and smaller (ndir itself is added: one block a direction)
+SMALL_SMS = (114, 64, 60, 32, 16)
+
+
+def _owners(p, H):
+    """{unit tile: (block, group, tile of the group)} of plan ``p``: the
+    slots of the kernels' groups, nw8 = ⌈nt / ng⌉ tiles a group, that own
+    a tile (within the block's nt and below H / 8)."""
+    out = {}
+    for c in range(p.blocks):
+        for g in range(p.groups):
+            for i in range(p.width):
+                ib, tg = g * p.width + i, c * p.tiles + g * p.width + i
+                if ib < p.tiles and tg < H // 8:
+                    assert tg not in out
+                    out[tg] = (c, g, i)
+    return out
+
+
 @pytest.mark.parametrize("H", WIDE)
 def test_persist_plan_covers_w(H):
     """The persistent form at every width, ndir 1 and 2, B ∈ {1, 24, 32,
-    33, 64} and a card of 132 or 114 SMs: at most ``PERSIST_MAX_TILES``
-    unit tiles a block, or the plan raises (114 SMs and ndir 2 past H =
-    1824); each unit is owned by exactly one
-    block (whole n8 tiles, the last block the rest); each warp's k-steps,
+    33, 64} and a card of 132, 114, 64, 60, 32, 16 or ndir SMs: a plan at
+    every count (no refusal), of ng = ⌈nt / GROUP_TILES⌉ groups of at most
+    ``GROUP_TILES`` tiles (one group wherever nt ≤ 4, so every plan on 132
+    SMs); each unit is owned by exactly one slot of one block's groups
+    (whole n8 tiles, the last block the rest); each warp's k-steps,
     resident then streamed, cover the K k-steps of W exactly once; shared
-    memory holds the partial sums and the resident k-steps within
-    ``SMEM_MAX``; the grid is at most the co-resident maximum the plan is
-    given (one block an SM); the passes cover B; the workspace holds the
-    counter, two A buffers and the carried arrays (the LSTM backward's dc
-    and dh_total, the LSTM forward's c, the GRU backward's dh); the
-    staged kernels' rings beside W within ``SMEM_MAX``
-    (``test_streamed_geometry`` has their sizes)."""
+    memory holds one group's partial sums and the resident k-steps of every
+    group within ``SMEM_MAX``; the grid is at most the SMs (one block an
+    SM); the passes cover B; the workspace holds the counter, two A buffers
+    and the carried arrays (the LSTM backward's dc and dh_total, the LSTM
+    forward's c, the GRU backward's dh); the staged kernels' rings beside
+    W within ``SMEM_MAX`` (``test_streamed_geometry`` has their sizes)."""
     for name, (cols, warps, per_unit, carried, _) in rc.PERSIST.items():
         for ndir in (1, 2):
-            for sms in (rc.SMS, 114):
+            for sms in (rc.SMS, *SMALL_SMS, ndir):
                 for B in (1, 24, 32, 33, 64):
-                    if -(-H // 8 // (sms // ndir)) > rc.PERSIST_MAX_TILES:
-                        assert sms < ndir * H // 32
-                        with pytest.raises(ValueError, match="at most 4"):
-                            rc.persist_plan(name, H, B, ndir, sms)
-                        continue
                     p = rc.persist_plan(name, H, B, ndir, sms)
-                    assert 1 <= p.tiles <= rc.PERSIST_MAX_TILES
+                    assert p.groups == -(-p.tiles // rc.GROUP_TILES)
+                    assert 1 <= p.width <= rc.GROUP_TILES
+                    assert p.width * p.groups >= p.tiles > \
+                        p.width * (p.groups - 1)
+                    assert (p.groups == 1) == (p.tiles <= rc.GROUP_TILES)
+                    if sms == rc.SMS:
+                        assert p.groups == 1
                     assert p.blocks * ndir <= sms
-                    owner = [c for c in range(p.blocks)
-                             for _ in range(8 * p.tiles)][:H]
-                    assert len(owner) == H and owner[-1] == p.blocks - 1
+                    owner = _owners(p, H)
+                    assert sorted(owner) == list(range(H // 8))
+                    assert max(c for c, _, _ in owner.values()) == \
+                        p.blocks - 1
                     K = int(H * per_unit)
                     assert p.ksteps == K and p.warps == warps
                     seen = []
@@ -406,56 +428,64 @@ def test_persist_plan_covers_w(H):
                         seen += list(range(kb, kb + kres))        # resident
                         seen += list(range(kb + kres, kb + kw))   # streamed
                     assert seen == list(range(K))
-                    nc = cols * p.tiles
+                    nc = cols * p.width
+                    wk = p.groups * nc * 256
                     assert p.smem - p.chunk * rc.STAGES * warps * 1024 >= \
-                        warps * 2 * nc * 512 + warps * p.resident * nc * 256
+                        warps * 2 * nc * 512 + warps * p.resident * wk
                     if p.chunk == 0:
                         assert p.smem == warps * 2 * nc * 512 + \
-                            warps * p.resident * nc * 256
-                    assert p.smem <= rc.SMEM_MAX and p.resident >= 1
+                            warps * p.resident * wk
+                    assert p.smem <= rc.SMEM_MAX and p.resident >= 0
                     # the instantiations that never stream hold it all
-                    if (name, p.tiles) in (("gru_fwd", 1), ("gru_fwd", 2),
+                    if (name, p.width) in (("gru_fwd", 1), ("gru_fwd", 2),
                                            ("lstm_bwd", 1)):
-                        assert p.resident * warps >= K
+                        assert p.groups == 1 and p.resident * warps >= K
                     assert (p.passes - 1) * 32 < B <= p.passes * 32
                     work = 256 + 2 * ndir * p.passes * 2 * K * 32 * 16
                     assert p.work == work + carried * ndir * B * H * 4
 
 
-@pytest.mark.parametrize("name,H,ndir,sms,tiles", [
-    ("gru_fwd", 1824, 2, 114, 4), ("gru_fwd", 1856, 2, 114, None),
-    ("lstm_bwd", 1824, 2, 114, 4), ("lstm_bwd", 2048, 2, 114, None),
-    ("gru_fwd", 2048, 2, 128, 4), ("lstm_bwd", 2048, 2, 127, None),
-    ("gru_fwd", 2048, 1, 64, 4), ("lstm_bwd", 1024, 1, 31, None),
-    ("lstm_fwd", 1824, 2, 114, 4), ("lstm_fwd", 1856, 2, 114, None),
-    ("gru_bwd", 2048, 2, 128, 4), ("gru_bwd", 2048, 2, 114, None),
-    ("lstm_fwd", 1024, 1, 31, None), ("gru_bwd", 2048, 1, 64, 4)])
+@pytest.mark.parametrize("name,H,ndir,sms,tiles,groups,blocks", [
+    ("gru_fwd", 1824, 2, 114, 4, 1, 57), ("gru_fwd", 1856, 2, 114, 5, 2, 47),
+    ("lstm_bwd", 1824, 2, 114, 4, 1, 57),
+    ("lstm_bwd", 2048, 2, 114, 5, 2, 52),
+    ("gru_fwd", 2048, 2, 128, 4, 1, 64), ("lstm_bwd", 2048, 2, 127, 5, 2, 52),
+    ("gru_fwd", 2048, 1, 64, 4, 1, 64), ("lstm_bwd", 1024, 1, 31, 5, 2, 26),
+    ("lstm_fwd", 1824, 2, 114, 4, 1, 57),
+    ("lstm_fwd", 1856, 2, 114, 5, 2, 47),
+    ("gru_bwd", 2048, 2, 128, 4, 1, 64), ("gru_bwd", 2048, 2, 114, 5, 2, 52),
+    ("lstm_fwd", 1024, 1, 31, 5, 2, 26), ("gru_bwd", 2048, 1, 64, 4, 1, 64)])
 def test_persist_plan_refuses_tiles_it_has_no_kernel_for(name, H, ndir, sms,
-                                                          tiles):
-    """The kernels are built for 1 to ``PERSIST_MAX_TILES`` unit tiles a
-    block (``csrc/rnn_mma.cuh``'s kPersistMaxTiles, a ``case`` of each
-    ``with_persist_kernel`` a count, any other count refused there): a card
-    of at least ndir · H / 32 SMs gets a plan within them, a smaller one
-    (an H100 PCIe's 114 SMs at H = 1856–2048 bidirectional) a ValueError,
-    never a plan the launch would run at the wrong stride."""
+                                                          tiles, groups,
+                                                          blocks):
+    """The kernels are built for groups of 1 to ``GROUP_TILES`` unit tiles
+    (``csrc/rnn_mma.cuh``'s kGroupTiles, a ``case`` of each
+    ``with_persist_kernel`` a group width, any other width refused there),
+    and a block of more tiles runs them as ⌈nt / GROUP_TILES⌉ groups: no
+    tile count is left without a kernel, so no card is refused. Around the
+    old limit of ndir · H / 32 SMs (an H100 PCIe's 114 at H = 1824 and
+    1856–2048 bidirectional; 127, 128, 64 and 31 SMs), worked by hand: nt
+    = ⌈(H / 8) / (sms // ndir)⌉, ng = ⌈nt / 4⌉, NB = ⌈(H / 8) / nt⌉; e.g.
+    1856 at ndir 2 on 114 SMs: 232 tiles over 57 SMs a direction → 5 a
+    block in 2 groups of 3 (the second group's third tile a zero column),
+    47 blocks."""
     csrc = os.path.join(os.path.dirname(rc.__file__), "..", "csrc")
     with open(os.path.join(csrc, "rnn_mma.cuh")) as f:
-        assert (f"constexpr int kPersistMaxTiles = {rc.PERSIST_MAX_TILES};"
+        assert (f"constexpr int kGroupTiles = {rc.GROUP_TILES};"
                 in f.read())
     for src in ("gru_fwd.cu", "lstm_bwd.cu", "lstm_fwd.cu", "gru_bwd.cu"):
         with open(os.path.join(csrc, src)) as f:
             text = f.read()
         body = text[text.index("int with_persist_kernel("):]
         body = body[:body.index("\n}\n")]
+        assert "switch (p.width)" in body or "switch (width)" in body
         assert [f"case {n}:" in body for n in range(1, 6)] == \
-            [True] * rc.PERSIST_MAX_TILES + [False]
+            [True] * rc.GROUP_TILES + [False]
         assert "default:\n      return static_cast<int>(" \
             "cudaErrorInvalidValue);" in body
-    if tiles is None:
-        with pytest.raises(ValueError, match="at most 4"):
-            rc.persist_plan(name, H, 24, ndir, sms)
-    else:
-        assert rc.persist_plan(name, H, 24, ndir, sms).tiles == tiles
+    p = rc.persist_plan(name, H, 24, ndir, sms)
+    assert (p.tiles, p.groups, p.blocks) == (tiles, groups, blocks)
+    assert p.blocks * ndir <= sms and p.width <= rc.GROUP_TILES
 
 
 @pytest.mark.parametrize("name,H,ndir,want", [
@@ -529,40 +559,48 @@ def test_persist_fwd_layout_matches_the_kernel_index(ndir, H, B):
     _check_persist_fwd(ndir, H, B)
 
 
-def _check_persist_fwd(ndir, H, B, cell="gru"):
+def _check_persist_fwd(ndir, H, B, cell="gru", sms=rc.SMS):
     """A persistent forward's fragments (the GRU's: G = 3, gates r, z, n;
-    the LSTM's: G = 4, gates i, f, o, u): block c's tile i, gate g at
-    k-step ks, lane l's value e is W[d, 16·ks + 2·(l % 4) + e % 2 +
-    8·(e // 2), g·H + 8·(nt·c + i) + l // 4] (zero for units past H) at
-    flat index ((((((d·NB + c)·K + ks)·nt + i)·G + g)·32 + l)·4 + e),
-    against a hand-written loop at the first and last blocks; the
-    wrapper's launch arguments are these fragments and the plan's NB; the
-    B operand they give, multiplied out, is W's columns of the block."""
+    the LSTM's: G = 4, gates i, f, o, u) on a card of ``sms`` SMs: block
+    c's group g, its tile i, gate gt at k-step ks, lane l's value e is W[d,
+    16·ks + 2·(l % 4) + e % 2 + 8·(e // 2), gt·H + 8·(nt·c + nw8·g + i) +
+    l // 4] (zero where nw8·g + i ≥ nt or the unit passes H) at flat index
+    (((((((d·NB + c)·ng + g)·K + ks)·nw8 + i)·G + gt)·32 + l)·4 + e), nw8 =
+    ⌈nt / ng⌉, against a hand-written loop at the first and last blocks;
+    the wrapper's launch arguments (its plan at ``_sms``) are these
+    fragments and the plan's NB; the B operand they give, multiplied out,
+    is W's columns of the block."""
     G = _G[cell]
     rng = np.random.default_rng(H + ndir)
     w = torch.from_numpy(rng.standard_normal((ndir, H, G * H)).astype(
         np.float32))
-    p = rc.persist_plan(f"{cell}_fwd", H, B, ndir)
-    wk, C = getattr(rc, f"_{cell}_launch_args")(w, B, torch.bfloat16, "fwd")
-    assert C == p.blocks and wk.shape == (ndir, p.blocks, H // 16, p.tiles,
-                                          G, 32, 4)
+    p = rc.persist_plan(f"{cell}_fwd", H, B, ndir, sms)
+    K, nt, ng, nw = H // 16, p.tiles, p.groups, p.width
+    with pytest.MonkeyPatch.context() as m:   # a card of `sms` SMs
+        m.setattr(rc, "_sms", lambda t: sms)
+        wk, C = getattr(rc, f"_{cell}_launch_args")(w, B, torch.bfloat16,
+                                                    "fwd")
+    assert C == p.blocks and wk.shape == (ndir, p.blocks, ng * K, nw, G, 32,
+                                          4)
     layout = (rc.persist_fwd_weights if cell == "gru"
               else rc.persist_lstm_fwd_weights)
-    assert torch.equal(wk, layout(w, p.blocks, p.tiles))
+    assert torch.equal(wk, layout(w, p.blocks, p.tiles, p.groups))
     flat, wb = wk.reshape(-1), w.to(torch.bfloat16)
-    K, nt = H // 16, p.tiles
     for c in (0, p.blocks - 1):
         d, ks = rng.integers(ndir), rng.integers(K)
-        for i in range(nt):
-            for g in range(G):
-                for l in range(32):
-                    for e in range(4):
-                        k = 16 * ks + 2 * (l % 4) + e % 2 + 8 * (e // 2)
-                        u = 8 * (nt * c + i) + l // 4
-                        want = wb[d, k, g * H + u] if u < H else 0
-                        idx = ((((((d * p.blocks + c) * K + ks) * nt + i)
-                                 * G + g) * 32 + l) * 4 + e)
-                        assert flat[idx] == want
+        for g in range(ng):
+            for i in range(nw):
+                for gt in range(G):
+                    for l in range(32):
+                        for e in range(4):
+                            k = 16 * ks + 2 * (l % 4) + e % 2 + 8 * (e // 2)
+                            u = 8 * (nt * c + nw * g + i) + l // 4
+                            want = (wb[d, k, gt * H + u]
+                                    if u < H and nw * g + i < nt else 0)
+                            idx = ((((((((d * p.blocks + c) * ng + g) * K
+                                       + ks) * nw + i) * G + gt) * 32 + l)
+                                    * 4) + e)
+                            assert flat[idx] == want
     # every element of W once, zeros elsewhere
     nz = flat[flat != 0]
     assert torch.equal(nz.sort().values, wb[wb != 0].reshape(-1).sort()
@@ -576,38 +614,47 @@ def test_persist_bwd_layout_matches_the_kernel_index(ndir, H, B):
     _check_persist_bwd(ndir, H, B)
 
 
-def _check_persist_bwd(ndir, H, B, cell="lstm"):
+def _check_persist_bwd(ndir, H, B, cell="lstm", sms=rc.SMS):
     """A persistent backward's fragments (the LSTM's over its 4H gate
-    columns, the GRU's over its 3H) of block c: B[k, j] = W[d, j, k], tile
-    i, lane l, value e at flat index (((((d·NB + c)·K + ks)·nt + i)·32 +
-    l)·4 + e) with K = G·H / 16, j = 8·(nt·c + i) + l // 4 (zero past H)
-    and k = 16·ks + 2·(l % 4) + e % 2 + 8·(e // 2), against a hand-written
-    loop; the wrapper's launch arguments are these fragments and the
-    plan's NB."""
+    columns, the GRU's over its 3H) of block c on a card of ``sms`` SMs:
+    B[k, j] = W[d, j, k], group g, its tile i, lane l, value e at flat
+    index ((((((d·NB + c)·ng + g)·K + ks)·nw8 + i)·32 + l)·4 + e) with K =
+    G·H / 16, nw8 = ⌈nt / ng⌉, j = 8·(nt·c + nw8·g + i) + l // 4 (zero
+    where nw8·g + i ≥ nt or j passes H) and k = 16·ks + 2·(l % 4) + e % 2
+    + 8·(e // 2), against a hand-written loop; the wrapper's launch
+    arguments (its plan at ``_sms``) are these fragments and the plan's
+    NB."""
     G = _G[cell]
     rng = np.random.default_rng(H + 3)
     w = torch.from_numpy(rng.standard_normal((ndir, H, G * H)).astype(
         np.float32))
-    p = rc.persist_plan(f"{cell}_bwd", H, B, ndir)
-    wk, C = getattr(rc, f"_{cell}_launch_args")(w, B, torch.bfloat16, "bwd")
+    p = rc.persist_plan(f"{cell}_bwd", H, B, ndir, sms)
+    with pytest.MonkeyPatch.context() as m:   # a card of `sms` SMs
+        m.setattr(rc, "_sms", lambda t: sms)
+        wk, C = getattr(rc, f"_{cell}_launch_args")(w, B, torch.bfloat16,
+                                                    "bwd")
     assert C == p.blocks
     layout = (rc.persist_bwd_weights if cell == "lstm"
               else rc.persist_gru_bwd_weights)
-    assert torch.equal(wk, layout(w, p.blocks, p.tiles))
+    assert torch.equal(wk, layout(w, p.blocks, p.tiles, p.groups))
     flat, wb = wk.reshape(-1), w.to(torch.bfloat16)
-    K, nt = G * H // 16, p.tiles
-    assert flat.numel() == ndir * p.blocks * K * nt * 128
+    K, nt, ng, nw = G * H // 16, p.tiles, p.groups, p.width
+    assert flat.numel() == ndir * p.blocks * ng * K * nw * 128
     for c in (0, p.blocks - 1):
         d, ks = rng.integers(ndir), rng.integers(K)
-        for i in range(nt):
-            for l in range(32):
-                for e in range(4):
-                    k = 16 * ks + 2 * (l % 4) + e % 2 + 8 * (e // 2)
-                    j = 8 * (nt * c + i) + l // 4
-                    want = wb[d, j, k] if j < H else 0
-                    idx = (((((d * p.blocks + c) * K + ks) * nt + i) * 32
-                            + l) * 4 + e)
-                    assert flat[idx] == want
+        for g in range(ng):
+            for i in range(nw):
+                for l in range(32):
+                    for e in range(4):
+                        k = 16 * ks + 2 * (l % 4) + e % 2 + 8 * (e // 2)
+                        j = 8 * (nt * c + nw * g + i) + l // 4
+                        want = wb[d, j, k] if j < H and nw * g + i < nt else 0
+                        idx = (((((((d * p.blocks + c) * ng + g) * K + ks)
+                                  * nw + i) * 32 + l) * 4) + e)
+                        assert flat[idx] == want
+    nz = flat[flat != 0]
+    assert torch.equal(nz.sort().values, wb[wb != 0].reshape(-1).sort()
+                       .values)
 
 
 @pytest.mark.parametrize("cell,ndir,H", [("lstm", 2, 640), ("gru", 1, 544),
@@ -629,12 +676,58 @@ def test_wide_bwd_layout_matches_the_kernel_index(cell, H):
     _check_persist_bwd(2, H, 3, cell)
 
 
+@pytest.mark.parametrize("cell,form,ndir,H,sms", [
+    ("gru", "fwd", 2, 1856, 114), ("lstm", "fwd", 2, 2048, 114),
+    ("gru", "bwd", 2, 2048, 114), ("lstm", "bwd", 2, 1856, 114),
+    ("gru", "fwd", 1, 1024, 16), ("lstm", "fwd", 2, 1024, 16),
+    ("gru", "bwd", 2, 1024, 16), ("lstm", "bwd", 1, 1024, 16),
+    ("gru", "fwd", 2, 544, 4), ("lstm", "bwd", 1, 1088, 9)])
+def test_persist_layouts_in_groups_match_the_kernel_index(cell, form, ndir,
+                                                          H, sms):
+    """The four persistent layouts where a block runs its tiles in more
+    than one group (``_check_persist_fwd``, ``_check_persist_bwd``): an
+    H100 PCIe's 114 SMs at H = 1856 / 2048 bidirectional (5 tiles in 2
+    groups of 3, the second's last a zero column), 16 SMs at H = 1024 (16
+    tiles in 4 groups of 4 bidirectional; 8 in 2 forward-only), 4 SMs at
+    544 (34 tiles, 9 groups of 4, the last short) and 9 at 1088
+    forward-only (16 tiles, 4 groups of 4, a short last block)."""
+    assert rc.persist_plan(f"{cell}_{form}", H, 5, ndir, sms).groups > 1
+    check = _check_persist_fwd if form == "fwd" else _check_persist_bwd
+    check(ndir, H, 5, cell, sms)
+
+
+@pytest.mark.parametrize("cell,H,sms", [("lstm", 1856, 114),
+                                        ("gru", 1856, 114),
+                                        ("lstm", 1024, 16),
+                                        ("gru", 1024, 16)])
+def test_wide_launch_args_on_a_smaller_card(cell, H, sms, monkeypatch):
+    """A BiLSTM and a BiGRU past the old limit of ndir · H / 32 SMs (an
+    H100 PCIe's 114 at H = 1856; a 16-SM MIG slice at 1024) build every
+    bf16 form's launch arguments without raising, with ``_sms`` patched as
+    on such a card: the plan's blocks, in groups, and the layout of its
+    geometry."""
+    G = _G[cell]
+    w = torch.randn(2, H, G * H)
+    monkeypatch.setattr(rc, "_sms", lambda t: sms)
+    for form in ("fwd", "bwd"):
+        p = getattr(rc, f"{cell}_plan")(H, 24, 2, form, rc._sms(w))
+        assert isinstance(p, rc.PersistPlan) and p.groups > 1
+        assert p.blocks * 2 <= sms
+        wk, C = getattr(rc, f"_{cell}_launch_args")(w, 24, torch.bfloat16,
+                                                    form)
+        assert C == p.blocks and wk.shape[2] == p.groups * p.ksteps
+    wk, C = rc.stream_launch_args(cell, w, 24, torch.bfloat16)
+    p = rc.persist_plan(f"{cell}_fwd", H, 24, 2, sms)
+    assert C == p.blocks and wk.shape[3] == p.width
+
+
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_wide_stream_launch_args(cell):
     """The stream wrappers' cache keeps the forward's persistent fragments
     past H = 512 (``persist_fwd_weights``, ``persist_lstm_fwd_weights``)
     and the plan's blocks: the same tensor on a second call, laid out anew
-    after an in-place update."""
+    after an in-place update and where the plan's tiles a block change at
+    the same C."""
     G = _G[cell]
     w = torch.randn(1, H, G * H)
     p = rc.persist_plan(f"{cell}_fwd", H, 32, 1)
@@ -649,6 +742,19 @@ def test_wide_stream_launch_args(cell):
         w.add_(1.0)
     fresh, _ = rc.stream_launch_args(cell, w, 32, torch.bfloat16)
     assert fresh is not wk and torch.equal(fresh, layout(w))
+    # another geometry at the same C (a plan of one more tile a block in
+    # two groups, here made up): laid out anew, then the real one again
+    plan = getattr(rc, f"{cell}_plan")
+    other = p._replace(tiles=p.tiles + 1, groups=2)
+    try:
+        setattr(rc, f"{cell}_plan", lambda *a: other)
+        moved, C = rc.stream_launch_args(cell, w, 32, torch.bfloat16)
+    finally:
+        setattr(rc, f"{cell}_plan", plan)
+    assert C == p.blocks and moved.shape != fresh.shape
+    assert torch.equal(moved, f(w, other.blocks, other.tiles, 2))
+    back, _ = rc.stream_launch_args(cell, w, 32, torch.bfloat16)
+    assert back is not moved and torch.equal(back, layout(w))
 
 
 def test_kernel_takes_and_refuses():

@@ -77,11 +77,10 @@ Kernels and shapes (those of ``chip_smoke.py``):
   T' = 256, ndir 2), the stream window (B = 32, T = 20, emit_t = C/s; the
   GRU's forward-only, the LSTM's ndir 2), beside cuDNN at the same
   shapes; each build held to the plain versions (3e-2 forward, phase
-  26's 5e-2 + 2^-7·max|b| backward). The GRU's backward and the LSTM's
-  three forwards (redesigned: the persistent form with A staged in
-  shared memory) give their speed against the other build; the GRU's
-  three forwards and the LSTM's backward (the persistent form that reads
-  A from L2, left as it was) must equal the other build's bit for bit.
+  26's 5e-2 + 2^-7·max|b| backward). Every form of both cells (their
+  plans on a card of 132 SMs one group a block, as the parent's) must
+  equal the other build's bit for bit (``WIDE_FORMS`` lists any that a
+  build redesigns: timed, not gated).
   Graph replays of 3 calls only (no eager kind).
   ``--hs`` takes other widths (multiples of 128). With
   ``--other-broken`` the other build is a copy of this one patched to
@@ -168,9 +167,11 @@ CASES = ("frontend", "flash", "flash_wide", "lstm", "gru", "stream", "ctc",
 WIDE_DHS = tuple(range(128, 513, 64))   # flash_wide's head widths
 WIDE_HS = (640, 768, 1024, 2048)        # rnn_wide's hidden sizes
 # rnn_wide's forms by cell: those this build redesigned (timed against
-# the other build) and those it kept (bitwise the other build's)
-WIDE_FORMS = {"gru": (("bwd",), ("fwd", "fwd_train", "stream")),
-              "lstm": (("fwd", "fwd_train", "stream"), ("bwd",))}
+# the other build) and those it kept (bitwise the other build's): on a
+# card of 132 SMs every plan runs one group a block as its parent did, so
+# every form is kept
+WIDE_FORMS = {"gru": ((), ("fwd", "fwd_train", "bwd", "stream")),
+              "lstm": ((), ("fwd", "fwd_train", "bwd", "stream"))}
 
 
 def build_alone(root: str, tag: str) -> str:
